@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels in `csrc/`.
+
+All `csrc/*.cu` sources compile in ONE nvcc call into a shared library with
+a plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds). The library lands in `_kernels/` beside this file (listed in
+.gitignore), named by a hash of the sources, so an edited source rebuilds
+and an unchanged one loads the existing build. The build happens at the
+first kernel launch in a process, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
+
+# C entry points of csrc/*.cu: name -> argtypes (every one returns the
+# cudaError_t of its launch as an int)
+_SIGNATURES = {
+    # bases, rows, length, w, k, s1, s2, threshold, keep_all, out, stream
+    "fk_canonical_sample": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32,
+                            _I32, _P, _P],
+    # slots, rows, w, hit_buffer, blocked, cap, n_blocks, sort_n,
+    # smem_bytes, staged, width, dropped, stream
+    "fk_select_stage_rows": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
+                             _I32, _P, _I64, _P, _P],
+    # staged, rows, h, lib, lib_size, signs, n_words, mags, d, targets,
+    # out, n_hits, stream
+    "fk_membership_embed": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64,
+                            _P, _P, _P, _P],
+}
+
+
+def sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {home}/bin and on PATH): the CUDA "
+            "kernels of fedrann_tpu_torch build from csrc/ at first use")
+    return found
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libfedrann_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library unless it exists; the
+    compiler's output (ptxas register and shared-memory use) is kept
+    beside it as `<library>.log`."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
+            capture_output=True, text=True, check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        Path(str(so) + ".log").write_text(log)
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fk_error_string.argtypes = [ctypes.c_int]
+    lib.fk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name`; raise if its launch reported an error."""
+    lib = kernels()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {rc}: {lib.fk_error_string(rc).decode()}")
+
+
+def stream(device: torch.device) -> int:
+    """Handle of PyTorch's current CUDA stream on `device`: every kernel
+    launches there, so it orders with the surrounding torch ops."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,49 @@
+// Shared definitions of the fedrann_tpu_torch CUDA kernels.
+//
+// A staged slot is one int64: (canonical_code << 1) | is_fwd for a sampled
+// valid window, PAD_SLOT (INT64_MAX) for everything else. The largest
+// canonical code is below 2^62 - 1 (the all-ones 31-mer's reverse
+// complement is 0), so no real slot reaches PAD_SLOT, and sorting slots
+// ascending orders them by (code, strand) with the padding last.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+constexpr int64_t PAD_SLOT = INT64_MAX;
+constexpr int SELECT_BLOCK = 1024;  // membership.SELECT_BLOCK
+
+// Sum of one int per thread over the whole block. Every thread must call
+// it; `acc` is a __shared__ int. Ends with a barrier, so shared-memory
+// writes made before the call are visible after it.
+__device__ __forceinline__ int block_sum(int v, int* acc) {
+  if (threadIdx.x == 0) *acc = 0;
+  __syncthreads();
+  v = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicAdd(acc, v);
+  __syncthreads();
+  const int total = *acc;
+  __syncthreads();  // *acc may be reset by the next call
+  return total;
+}
+
+// Ascending bitonic sort of n (a power of two) int64 keys in shared
+// memory by the whole block. The caller synchronises before the call (the
+// keys must be in place); the last stage ends with a barrier.
+__device__ __forceinline__ void bitonic_sort(int64_t* s, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+        const int i = 2 * p - (p & (j - 1));  // bit j of i is clear
+        const int l = i + j;
+        const bool up = (i & k) == 0;
+        const int64_t a = s[i], b = s[l];
+        if ((a > b) == up) {
+          s[i] = b;
+          s[l] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}

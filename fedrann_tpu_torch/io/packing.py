@@ -1,0 +1,137 @@
+"""Host-side read packing: strings -> per-bucket (R, L) uint8 base codes.
+
+The port's copy of the numpy packer in `fedrann_tpu/io/packing.py`, in the
+per-base layout (A=0 C=1 G=2 T=3, anything else INVALID=4, padding INVALID)
+that the staging kernel reads. Reads are grouped into the smallest length
+bucket that fits; a read longer than the largest bucket would need the
+split-read hit union, which is not ported yet, so it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Sequence
+
+import numpy as np
+
+from fedrann_tpu_torch.io.fastx import FastxRecord
+from fedrann_tpu_torch.logging_utils import logger
+
+INVALID = np.uint8(4)
+
+_BASE_LUT = np.full(256, INVALID, dtype=np.uint8)
+for _ch, _code in (("A", 0), ("C", 1), ("G", 2), ("T", 3)):
+    _BASE_LUT[ord(_ch)] = _code
+    _BASE_LUT[ord(_ch.lower())] = _code
+
+
+def encode_bases(seq: str) -> np.ndarray:
+    """ASCII sequence -> uint8 codes in {0,1,2,3,4}."""
+    raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
+    return _BASE_LUT[raw]
+
+
+@dataclasses.dataclass
+class PackedBucket:
+    """Reads padded to one bucket length."""
+
+    bases: np.ndarray        # (R_b, L_bucket) uint8, INVALID-padded
+    read_index: np.ndarray   # (R_b,) int32 global read index, -1 = pad row
+
+    @property
+    def length(self) -> int:
+        return int(self.bases.shape[1])
+
+
+@dataclasses.dataclass
+class PackedReads:
+    names: list[str]              # global read order = input file order
+    buckets: list[PackedBucket]   # ascending bucket length
+
+    @property
+    def n_reads(self) -> int:
+        return len(self.names)
+
+
+def auto_length_buckets(
+    lengths,
+    floor: int = 1024,
+    cap: int = 262144,
+    min_frac: float = 0.02,
+    max_buckets: int = 8,
+) -> tuple[int, ...]:
+    """Power-of-two bucket ladder from the read-length histogram: the pow2
+    classes the reads occupy, classes holding < min_frac of the reads merged
+    upward, clamped to [floor, cap], at most max_buckets of them. The same
+    ladder as the JAX package, so both pad reads identically."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    lengths = lengths[lengths > 0]
+    if lengths.size == 0:
+        return (int(floor),)
+    classes = np.maximum(
+        floor, 1 << np.ceil(np.log2(lengths)).astype(np.int64)
+    )
+    classes = np.minimum(classes, cap)
+    uniq, counts = np.unique(classes, return_counts=True)
+    total = int(counts.sum())
+    keep: list[int] = []
+    mass: list[int] = []
+    carried = 0
+    for c, n in zip(uniq, counts):
+        carried += int(n)
+        if carried >= min_frac * total or c == uniq[-1]:
+            keep.append(int(c))
+            mass.append(carried)
+            carried = 0
+    while len(keep) > max_buckets:
+        i = int(np.argmin(mass[:-1]))
+        mass[i + 1] += mass[i]
+        del keep[i], mass[i]
+    return tuple(keep)
+
+
+def pack_reads(
+    records: Iterable[FastxRecord],
+    length_buckets: Sequence[int] | None,
+    pad_rows_to: int = 8,
+) -> PackedReads:
+    """Group reads into the smallest bucket that fits; length_buckets=None
+    derives the ladder from the data. Row counts per bucket are padded to a
+    multiple of pad_rows_to with all-INVALID rows (read_index -1)."""
+    if length_buckets is None:
+        records = list(records)
+        length_buckets = auto_length_buckets(
+            [len(r.sequence) for r in records]
+        )
+        logger.info("auto length buckets: %s", length_buckets)
+    buckets = sorted(length_buckets)
+    names: list[str] = []
+    per_bucket: list[list[np.ndarray]] = [[] for _ in buckets]
+    per_bucket_idx: list[list[int]] = [[] for _ in buckets]
+
+    for i, rec in enumerate(records):
+        names.append(rec.name)
+        codes = encode_bases(rec.sequence)
+        b = int(np.searchsorted(buckets, len(codes)))
+        if b == len(buckets):
+            raise NotImplementedError(
+                f"read {rec.name!r} has {len(codes)} bases, more than the "
+                f"largest length bucket ({buckets[-1]}); splitting it needs "
+                "the split-read hit union (ROADMAP Queue 1: split-read union)"
+            )
+        per_bucket[b].append(codes)
+        per_bucket_idx[b].append(i)
+
+    out: list[PackedBucket] = []
+    for b, rows in enumerate(per_bucket):
+        if not rows:
+            continue
+        n_rows = len(rows)
+        padded_rows = -(-n_rows // pad_rows_to) * pad_rows_to
+        mat = np.full((padded_rows, buckets[b]), INVALID, np.uint8)
+        for r, codes in enumerate(rows):
+            mat[r, : len(codes)] = codes
+        read_index = np.full(padded_rows, -1, np.int32)
+        read_index[:n_rows] = per_bucket_idx[b]
+        out.append(PackedBucket(bases=mat, read_index=read_index))
+    return PackedReads(names=names, buckets=out)

@@ -1,0 +1,146 @@
+"""Per-read candidate staging (kernel B, `select_candidates`) and library
+membership.
+
+Staging widths and caps are those of `fedrann_tpu/kmers/membership.py`:
+rows longer than 2 * SELECT_BLOCK windows select per 1024-slot block (each
+block keeps its first `selection_cap(fraction)` sorted slots), then the
+survivors are sorted and the first `width` kept, with an exact count of the
+candidate occurrences that did not fit. Duplicates are kept (the library
+counts occurrences); membership drops a slot equal to its left neighbour.
+
+Membership is `torch.searchsorted` on the sorted int64 library; the JAX
+package's prefix table worked around TPU gather costs and is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fedrann_tpu_torch import _build
+from fedrann_tpu_torch.kmers.codec import PAD_SLOT, canonical_sample
+
+SELECT_BLOCK = 1024
+# dynamic shared memory one thread block may use on sm_90 (227 KB)
+SMEM_LIMIT = 232448
+
+
+def selection_cap(fraction: float, block: int = SELECT_BLOCK) -> int:
+    """Per-block survivor cap: sampling mean + 6 sigma over one block."""
+    mean = fraction * block
+    return max(8, int(mean + 6.0 * mean ** 0.5) + 1)
+
+
+def staging_width(w: int, fraction: float) -> int:
+    """Per-read candidate-buffer width: sampling mean + 6 sigma, rounded up
+    to a multiple of 128, at least 512, at most the window count."""
+    mean = fraction * w
+    width = int(mean + 6.0 * mean ** 0.5) + 1
+    return min(w, max(512, -(-width // 128) * 128))
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (max(int(n), 1) - 1).bit_length())
+
+
+def _selection_plan(w: int, hit_buffer: int, keep_all: bool,
+                    block_cap: int | None):
+    """(blocked, cap, n_blocks, width) for a row of w slots."""
+    if keep_all or block_cap is None or w <= 2 * SELECT_BLOCK:
+        return False, 0, 0, hit_buffer
+    g = -(-w // SELECT_BLOCK)
+    c = min(int(block_cap), SELECT_BLOCK)
+    return True, c, g, min(hit_buffer, g * c)
+
+
+def _select_candidates_plain(slots, hit_buffer, keep_all, block_cap):
+    r, w = slots.shape
+    n_cand = (slots != PAD_SLOT).sum(dim=1)
+    blocked, c, g, width = _selection_plan(w, hit_buffer, keep_all,
+                                           block_cap)
+    if not blocked:
+        staged = torch.sort(slots, dim=1).values[:, :hit_buffer]
+        return staged, (n_cand - hit_buffer).clamp(min=0).to(torch.int32)
+    # (F.pad takes a float fill value, which cannot hold PAD_SLOT exactly)
+    padded = torch.cat([slots, slots.new_full((r, g * SELECT_BLOCK - w),
+                                              PAD_SLOT)], dim=1)
+    blocks = torch.sort(padded.reshape(r * g, SELECT_BLOCK), dim=1).values
+    narrow = blocks[:, :c].reshape(r, g * c)
+    staged = torch.sort(narrow, dim=1).values[:, :width]
+    cnt_blocks = (padded != PAD_SLOT).reshape(r, g, SELECT_BLOCK).sum(dim=2)
+    survivors = cnt_blocks.clamp(max=c).sum(dim=1)
+    return staged, (n_cand - survivors.clamp(max=width)).to(torch.int32)
+
+
+def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
+                      block_cap: int | None = None):
+    """(R, W) int64 slots (canonical_sample output) -> (staged (R, width)
+    int64 sorted ascending with PAD_SLOT last, dropped (R,) int32).
+
+    width is hit_buffer (full-width selection) or min(hit_buffer,
+    n_blocks * cap) (blocked selection, W > 2 * SELECT_BLOCK with a
+    block_cap and not keep_all). A CPU tensor takes the plain PyTorch
+    version; a CUDA tensor launches kernel B (csrc/select_stage_rows.cu)."""
+    if slots.dtype != torch.int64 or slots.dim() != 2:
+        raise ValueError("slots must be a 2-D int64 tensor")
+    r, w = slots.shape
+    if not 1 <= hit_buffer <= w:
+        raise ValueError(f"hit_buffer {hit_buffer} must be in [1, {w}]")
+    if slots.device.type == "cpu":
+        return _select_candidates_plain(slots, hit_buffer, keep_all,
+                                        block_cap)
+    if slots.device.type != "cuda":
+        raise ValueError(f"unsupported device {slots.device}")
+    blocked, c, g, width = _selection_plan(w, hit_buffer, keep_all,
+                                           block_cap)
+    sort_n = _pow2(g * c if blocked else w)
+    smem = 8 * (sort_n + (SELECT_BLOCK if blocked else 0))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"a staged row needs {smem} bytes of shared memory (sort buffer "
+            f"of {sort_n} slots), more than the {SMEM_LIMIT} a thread block "
+            "may use; rows this long need a global-memory sort (ROADMAP "
+            "Queue 2: K2)")
+    slots = slots.contiguous()
+    staged = torch.empty((r, width), dtype=torch.int64, device=slots.device)
+    dropped = torch.empty((r,), dtype=torch.int32, device=slots.device)
+    _build.launch("fk_select_stage_rows", slots.data_ptr(), r, w, hit_buffer,
+                  int(blocked), c, g, sort_n, smem, staged.data_ptr(), width,
+                  dropped.data_ptr(), _build.stream(slots.device))
+    select_candidates.launches += 1
+    return staged, dropped
+
+
+select_candidates.launches = 0
+
+
+def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,
+                     keep_all: bool, seed: int, threshold: int,
+                     block_cap: int | None = None):
+    """Canonical windows + sampling filter + candidate selection: the
+    staging stage that both the count and the embed stages consume."""
+    slots = canonical_sample(bases, k, seed, threshold, keep_all)
+    return select_candidates(slots, hit_buffer, keep_all, block_cap)
+
+
+def read_hits_staged(staged: torch.Tensor, lib_codes: torch.Tensor):
+    """Feature rows of staged slots: (hits (R, H) int64, n_hits (R,)
+    int32). hits[r, i] = j (window on the canonical strand) or j + L
+    (reverse strand) for the first occurrence of a (code, strand) slot whose
+    code is library entry j, and the sentinel 2L elsewhere (misses,
+    repeats, padding). Rows keep the staged layout (holes, no compaction)."""
+    lib_size = lib_codes.shape[0]
+    sentinel = 2 * lib_size
+    valid = staged != PAD_SLOT
+    repeat = torch.zeros_like(valid)
+    repeat[:, 1:] = staged[:, 1:] == staged[:, :-1]
+    codes = staged >> 1
+    pos = torch.searchsorted(lib_codes, codes)
+    pos_c = pos.clamp(max=max(lib_size - 1, 0))
+    if lib_size:
+        found = valid & ~repeat & (lib_codes[pos_c] == codes)
+    else:
+        found = torch.zeros_like(valid)
+    is_fwd = (staged & 1) == 1
+    feat = torch.where(is_fwd, pos_c, pos_c + lib_size)
+    hits = torch.where(found, feat, sentinel)
+    return hits, found.sum(dim=1).to(torch.int32)

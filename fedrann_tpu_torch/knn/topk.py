@@ -1,0 +1,104 @@
+"""Exact brute-force cosine top-k (the port of `fedrann_tpu/knn/topk.py`).
+
+Rows are L2-normalized once; scores Q . C^T are computed for query tiles
+against candidate blocks and each tile keeps a running top-k, so the N x N
+matrix never materializes. Selections are ordered by (-score, index): ties,
+which zero-hit reads make common (a zero row is at distance exactly 1 from
+everything), go to the lowest index as in the JAX package.
+
+precision="bf16" rounds the normalized rows to bfloat16 once and
+accumulates the products in float32: the matmul runs in float32 on the
+bf16-rounded values, whose products are exact in float32, so it is the
+bf16-input, fp32-accumulate product on every device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Cosine distances in [0, 2] snap to a uint16 grid of step 1/DIST_SCALE
+# (--knn-transfer u16), so the TSV matches the JAX package's.
+DIST_SCALE = 32767.5
+
+
+def quantize_dist(dist: torch.Tensor) -> torch.Tensor:
+    """Distances -> grid steps in [0, 65535] (int32)."""
+    return torch.round(dist * DIST_SCALE).clamp(0, 65535).to(torch.int32)
+
+
+def dequantize_dist(q: np.ndarray) -> np.ndarray:
+    return q.astype(np.float32) * np.float32(1.0 / DIST_SCALE)
+
+
+def normalize_rows(e: torch.Tensor) -> torch.Tensor:
+    """L2-normalize rows; zero rows stay zero."""
+    e = e.to(torch.float32)
+    norm = torch.linalg.vector_norm(e, dim=1, keepdim=True)
+    return e / torch.where(norm == 0, 1.0, norm)
+
+
+def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
+    """Clamp a block size to n, then halve it while the ragged last block
+    would waste more than a quarter of a block."""
+    t = min(tile, max(8, n))
+    while t > floor and ((-n) % t) > t // 4:
+        t //= 2
+    return t
+
+
+def _order_keys(scores: torch.Tensor, first_index: int) -> torch.Tensor:
+    """int64 keys that order (score desc, column index asc) as one largest-
+    first integer order: the float32 bits made monotone in the high word,
+    the complemented column index in the low word."""
+    bits = scores.contiguous().view(torch.int32).to(torch.int64)
+    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    cols = torch.arange(first_index, first_index + scores.shape[1],
+                        dtype=torch.int64, device=scores.device)
+    return mono * (1 << 32) | (0xFFFFFFFF - cols)
+
+
+def _decode_keys(keys: torch.Tensor):
+    """Inverse of _order_keys: (scores float32, indices int64)."""
+    idx = 0xFFFFFFFF - (keys & 0xFFFFFFFF)
+    mono = (keys >> 32).to(torch.int32)
+    bits = torch.where(mono < 0, mono ^ 0x7FFFFFFF, mono)
+    return bits.view(torch.float32), idx
+
+
+def knn_exact(
+    embeddings: torch.Tensor,
+    n_neighbors: int,
+    query_tile: int = 512,
+    candidate_tile: int = 131072,
+    precision: str = "bf16",
+    transfer: str = "f32",
+) -> tuple[np.ndarray, np.ndarray]:
+    """(N, d) embeddings -> (indices (N, k) int32, distances (N, k) float32)
+    sorted by ascending distance, k = min(n_neighbors, N), self included
+    (normally at rank 0). transfer="u16" snaps distances to the
+    1/DIST_SCALE grid."""
+    n = embeddings.shape[0]
+    k = min(n_neighbors, n)
+    en = normalize_rows(embeddings)
+    if precision == "bf16":
+        en = en.to(torch.bfloat16).to(torch.float32)
+    qt = min(query_tile, max(8, n))
+    ct = _fit_tile(candidate_tile, n)
+    keys_out = torch.empty((n, k), dtype=torch.int64, device=en.device)
+    for q0 in range(0, n, qt):
+        q = en[q0 : q0 + qt]
+        run = None
+        for c0 in range(0, n, ct):
+            keys = _order_keys(q @ en[c0 : c0 + ct].T, c0)
+            if run is not None:
+                keys = torch.cat([run, keys], dim=1)
+            run = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+        keys_out[q0 : q0 + qt] = run
+    scores, idx = _decode_keys(keys_out)
+    dist = 1.0 - scores
+    if transfer == "u16":
+        dist_np = dequantize_dist(quantize_dist(dist).cpu().numpy())
+    else:
+        dist_np = dist.cpu().numpy()
+    return idx.to(torch.int32).cpu().numpy(), dist_np

@@ -1,0 +1,101 @@
+"""The whole fedrann_tpu_torch slice (plain versions, on the CPU) against
+the JAX `run_pipeline` on the same reads and flags: library bitwise,
+embeddings to rtol 1e-5, neighbor agreement >= 0.99, distances within
+5e-3, the same TSV header, and truth recall > 0.75."""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from fedrann_tpu.cli import config_from_args as jax_config
+from fedrann_tpu.pipeline import run_pipeline as jax_run
+from fedrann_tpu_torch.cli import config_from_args, main
+from fedrann_tpu_torch.pipeline import run_pipeline
+from fedrann_tpu_torch.sim import simulate_reads, write_fasta
+
+CPU = torch.device("cpu")
+ARGS = ["--kmer-sample-fraction", "0.2", "--kmer-min-multiplicity", "2",
+        "--seed", "602", "-n", "128", "--nndescent-n-neighbors", "10",
+        "--length-buckets", "4096", "--knn-query-tile", "64"]
+
+
+@pytest.fixture(scope="module")
+def sim_input(tmp_path_factory):
+    d = tmp_path_factory.mktemp("data")
+    sim = simulate_reads(genome_length=15000, coverage=6,
+                         mean_read_length=1500, error_rate=0.02, seed=21)
+    path = str(d / "reads.fasta.gz")
+    write_fasta(path, sim.names, sim.sequences)
+    return sim, path
+
+
+@pytest.mark.parametrize("k", [13, 21])
+def test_slice_matches_jax_pipeline(sim_input, tmp_path, k):
+    sim, path = sim_input
+    args = ["-i", path, "-k", str(k), *ARGS]
+    res = run_pipeline(
+        config_from_args([*args, "-o", str(tmp_path / "torch")]), CPU)
+    ref = jax_run(jax_config([*args, "-o", str(tmp_path / "jax")]))
+
+    codes, counts = res.library.numpy()
+    np.testing.assert_array_equal(codes, ref.library.codes)
+    np.testing.assert_array_equal(counts, ref.library.counts)
+    emb, emb_j = res.embeddings.numpy(), np.asarray(ref.embeddings)
+    np.testing.assert_allclose(emb, emb_j, rtol=1e-5,
+                               atol=1e-5 * np.abs(emb_j).max())
+    agree = np.mean([len(set(a) & set(b)) / len(b) for a, b in
+                     zip(res.neighbor_indices, ref.neighbor_indices)])
+    assert agree >= 0.99, agree
+    assert np.abs(res.neighbor_distances
+                  - ref.neighbor_distances).max() < 5e-3
+    with open(res.overlaps_path) as f, open(ref.overlaps_path) as g:
+        assert f.readline() == g.readline()
+
+    truth = sim.truth_overlaps(min_overlap=800)
+    idx = res.neighbor_indices
+    found = sum(1 for a, b in truth
+                if b in {int(t) // 2 for t in idx[2 * a]}
+                or a in {int(t) // 2 for t in idx[2 * b]})
+    assert found / len(truth) > 0.75
+
+    with open(os.path.join(tmp_path / "torch", "metrics.json")) as f:
+        stages = json.load(f)
+    for name in ("load", "stage", "count", "project", "embed", "knn",
+                 "output"):
+        assert stages[name]["seconds"] >= 0
+
+
+@pytest.mark.parametrize("flag", [
+    ["--knn-method", "ivf"], ["--knn-hbm-budget", "8G"],
+    ["--num-processes", "2"], ["--coordinator", "localhost:1234"],
+    ["--import-library", "lib.fa"], ["--import-projection", "p.npz"],
+    ["--keep-intermediates"], ["--projection-dtype", "bf16"],
+    ["--projection-dtype", "f32"], ["--profile"],
+    ["--save-feature-matrix"], ["--mprof"], ["--knn-sharded", "always"],
+])
+def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
+    _, path = sim_input
+    config = config_from_args(["-i", path, "-o", str(tmp_path), *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_pipeline(config, CPU)
+
+
+def test_read_longer_than_largest_bucket_raises(sim_input, tmp_path):
+    _, path = sim_input
+    config = config_from_args(["-i", path, "-o", str(tmp_path),
+                               "--length-buckets", "1024"])
+    with pytest.raises(NotImplementedError, match="split-read"):
+        run_pipeline(config, CPU)
+
+
+def test_cli_needs_a_gpu(sim_input, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLI would run")
+    _, path = sim_input
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["-i", path, "-o", str(tmp_path)])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (fedrann_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases; any failure exits non-zero and prints no result line:
   1. require a CUDA device; print the card's name and power limit;
@@ -17,9 +17,28 @@ Phases; any failure exits non-zero and prints no result line:
      kernel's launch count reset just before: overlaps.tsv must hold 50
      neighbor slots per embedding row less the self rows, every kernel must
      have launched, and the truth recall of pairs overlapping >= 4 kb must
-     reach 0.9.
-The second-to-last line is a JSON object of per-kernel launches, errors and
-times; the last is {"ok": true, "device": {...}}.
+     reach 0.9; kernel B takes its one-block-per-row path there;
+  5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
+     in the 131,072- and 262,144-base buckets), same flags:
+     (a) kernel B on its device-memory path against its plain version,
+         bitwise, at the first staging chunk of the 262,144-base bucket
+         (5% sampling) and at a keep_all chunk of the 32,768-base bucket;
+     (b) the CLI on the long reads with the launch counts reset just
+         before: every kernel, kernel B's long path included, must launch,
+         overlaps.tsv is checked as in phase 4, and the truth recall of
+         pairs overlapping >= 75 kb must reach 0.9;
+  6. the capability probes (fedrann_tpu_torch.probes, the counterparts of
+     bench/probe_mosaic.py and bench/probe_mosaic2.py): each probe kernel
+     against its plain version (integers and the P6-B store bitwise, float
+     sums to rtol 1e-5, atol 1e-6 * terms * max|q|; P1 must accept exactly
+     the sizes within the card's shared-memory opt-in limit and refuse the
+     next), then the probe entry point `all` with its counts reset just
+     before: every probe kernel must launch.
+With --profile, phases 4 and 5b are each followed by two more CLI runs on
+the same reads, the second under torch.profiler (`profile_cli`).
+The second-to-last line is a JSON object of per-kernel launches (each from
+the run of its own path), errors and times; the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,6 +56,31 @@ FLAGS = ["-k", "15", "--kmer-sample-fraction", "0.05",
          "--kmer-min-multiplicity", "2", "-n", "512",
          "--nndescent-n-neighbors", "50", "--seed", "602"]
 MIN_OVERLAP, MIN_RECALL = 4000, 0.9
+LONG_GENOME, LONG_COVERAGE, LONG_READ_LEN, LONG_MIN_OVERLAP = (
+    10_000_000, 10, 150_000, 75_000)
+KEEP_ALL_BUCKET = 32768
+STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
+
+
+COUNTERS: dict = {}
+CSRC = "fedrann_tpu_torch/csrc/"
+# kernel -> (source, the pl.pallas_call sites it replaces)
+SOURCES = {
+    "canonical_sample": (CSRC + "canonical_sample.cu",
+                         "bench/pallas_kernels.py:128"),
+    "select_candidates": (CSRC + "select_stage_rows.cu",
+                          "bench/pallas_sort.py:128"),
+    "select_candidates_long": (CSRC + "select_stage_rows.cu",
+                               "bench/pallas_sort.py:128"),
+    "membership_embed": (CSRC + "membership_embed.cu",
+                         "bench/pallas_embed.py:277"),
+    "fk_probe_smem_scratch": (CSRC + "probes.cu", "bench/probe_mosaic.py:32"),
+    "fk_probe_smem_input": (CSRC + "probes.cu", "bench/probe_mosaic.py:55, "
+                            "bench/probe_mosaic2.py:30"),
+    "fk_probe_dyn_rows": (CSRC + "probes.cu", "bench/probe_mosaic.py:92, "
+                          "bench/probe_mosaic2.py:47"),
+    "fk_probe_bsearch": (CSRC + "probes.cu", "bench/probe_mosaic.py:146"),
+}
 
 
 def fail(msg: str) -> None:
@@ -156,6 +200,303 @@ def check_kernels(fasta: str, out_dir: str, dev) -> dict:
     return report
 
 
+def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
+    """Phase 5a: kernel B's long-row path vs its plain version at the
+    first staging chunk of the 262,144-base bucket and at a keep_all chunk
+    of the 32,768-base bucket."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.device import shared_memory_limit
+    from fedrann_tpu_torch.io.fastx import FastxRecord
+    from fedrann_tpu_torch.io.packing import pack_reads
+    from fedrann_tpu_torch.kmers.codec import (
+        canonical_sample,
+        sample_threshold,
+    )
+    from fedrann_tpu_torch.kmers.membership import (
+        _select_candidates_plain,
+        select_candidates,
+        stage_launch_plan,
+    )
+
+    config = config_from_args(["-i", fasta, "-o", out_dir, *FLAGS])
+    packed = pack_reads([FastxRecord(n, q) for n, q in
+                         zip(sim.names, sim.sequences)], None)
+    log("long-read buckets: "
+        + ", ".join(f"{b.length} x {b.bases.shape[0]} rows"
+                    for b in packed.buckets))
+    bucket = max(packed.buckets, key=lambda b: b.length)
+    k, seed = config.kmer_size, config.seed
+    thr = sample_threshold(config.kmer_sample_fraction)
+    keep_all_rows = pipeline.chunk_rows(KEEP_ALL_BUCKET, 1 << 20, config)
+    rng = np.random.default_rng(SIM_SEED)
+    keep_all_bases = rng.integers(0, 4, (keep_all_rows, KEEP_ALL_BUCKET),
+                                  dtype=np.uint8)
+    cases = [("select_candidates_long", bucket.bases, config),
+             ("select_candidates_long_keep_all", keep_all_bases,
+              config_from_args(["-i", fasta, "-o", out_dir, *FLAGS,
+                                "--kmer-sample-fraction", "1.0"]))]
+    report = {}
+    for name, bases_np, cfg in cases:
+        length = bases_np.shape[1]
+        rows = pipeline.chunk_rows(length, bases_np.shape[0], cfg)
+        bases = torch.from_numpy(bases_np[:rows]).to(dev)
+        hit_buffer, keep_all, block_cap = pipeline.staging_params(length, cfg)
+        plan = stage_launch_plan(length - k + 1, hit_buffer, keep_all,
+                                 block_cap, shared_memory_limit(dev))
+        if not plan.long:
+            fail(f"{name}: the plan keeps {length}-base rows in one block")
+        slots = canonical_sample(bases, k, seed, thr, keep_all)
+        before = select_candidates.long_launches
+        staged, dropped = select_candidates(slots, hit_buffer, keep_all,
+                                            block_cap)
+        staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
+                                                       keep_all, block_cap)
+        torch.cuda.synchronize()
+        if select_candidates.long_launches != before + 1:
+            fail(f"{name}: kernel B did not take its long-row path")
+        if not (torch.equal(staged, staged_p)
+                and torch.equal(dropped, dropped_p)):
+            fail(f"{name}: kernel B differs from its plain version in "
+                 f"{int((staged != staged_p).sum())} slots and "
+                 f"{int((dropped != dropped_p).sum())} dropped counts")
+        log(f"{name}: rows {tuple(slots.shape)} keep_all={keep_all} "
+            f"hit_buffer={hit_buffer} block_cap={block_cap}; passes "
+            f"{[p for p, _ in plan.passes]}, chunk {plan.chunk} x "
+            f"{plan.n_chunks}; bitwise equal, dropped "
+            f"{int(dropped.sum())}")
+        report[name] = dict(
+            max_abs_err=0.0,
+            ms=time_cuda(lambda: select_candidates(slots, hit_buffer,
+                                                   keep_all, block_cap), 10),
+            plain_ms=time_cuda(lambda: _select_candidates_plain(
+                slots, hit_buffer, keep_all, block_cap), 3))
+        log(f"kernel {name}: {report[name]['ms']:.4f} ms vs plain "
+            f"{report[name]['plain_ms']:.4f} ms [{card}]")
+    return report
+
+
+def check_probes(dev, card: str) -> dict:
+    """Phase 6, first half: each probe kernel against its plain version on
+    the card, at the probe scripts' inputs."""
+    import torch
+
+    from fedrann_tpu_torch import probes
+    from fedrann_tpu_torch.device import shared_memory_limit
+
+    t = {k: torch.from_numpy(v).to(dev)
+         for k, v in probes.probe_inputs().items()}
+    limit = shared_memory_limit(dev)
+    steps = probes.probe_smem_scratch(dev)
+    problems = probes.scratch_ladder_problems(steps, limit)
+    if problems:
+        fail(f"P1 against the {limit}-byte opt-in limit: {problems}")
+    n_max = max(s.n for s in steps if s.error is None)
+    log(f"P1: accepted {[s.n * 4 // 1024 for s in steps if s.error is None]}"
+        f" KB, refused {steps[-1].n * 4 // 1024} KB "
+        f"({steps[-1].error}); opt-in limit {limit} B")
+    report = {"fk_probe_smem_scratch": dict(
+        max_abs_err=0.0,
+        ms=time_cuda(lambda: probes.smem_scratch(n_max, dev), 20),
+        plain_ms=time_cuda(lambda: probes._smem_scratch_plain(n_max, dev),
+                           20))}
+
+    x = t["x"]
+    got, want = probes.smem_input(x), probes._smem_input_plain(x)
+    if not torch.equal(got, want) or int(got[0]) != 1818744:
+        fail(f"P2/P5 smem_input {int(got[0])}, plain {int(want[0])}")
+    report["fk_probe_smem_input"] = dict(
+        max_abs_err=0.0, ms=time_cuda(lambda: probes.smem_input(x), 20),
+        plain_ms=time_cuda(lambda: probes._smem_input_plain(x), 20))
+
+    q, idx, row = t["q"], t["idx"], t["row"]
+    qmax = float(q.abs().max())
+    hits_per_row = int(torch.bincount(row.long()).max())
+    worst = 0.0
+    for mode, (_, dst_dyn, _, steps_) in sorted(probes.DYN_MODES.items()):
+        got = probes.dyn_rows(q, idx, row, mode)
+        want = probes._dyn_rows_plain(q, idx, row, mode)
+        err = float((got - want).abs().max())
+        if mode == "B":
+            ok = torch.equal(got, want)
+        else:
+            terms = steps_ * (hits_per_row if dst_dyn else idx.shape[0])
+            ok = torch.allclose(got, want, rtol=1e-5,
+                                atol=1e-6 * terms * qmax)
+        if not (ok and torch.isfinite(got).all()):
+            fail(f"dyn_rows mode {mode} differs from its plain version: "
+                 f"max abs error {err}")
+        worst = max(worst, err)
+        ms = time_cuda(lambda m=mode: probes.dyn_rows(q, idx, row, m), 20)
+        plain_ms = time_cuda(
+            lambda m=mode: probes._dyn_rows_plain(q, idx, row, m), 20)
+        log(f"dyn_rows {mode}: max abs error {err}; {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms [{card}]")
+    report["fk_probe_dyn_rows"] = dict(
+        max_abs_err=worst,
+        ms=time_cuda(lambda: probes.dyn_rows(q, idx, row, "P3"), 20),
+        plain_ms=time_cuda(lambda: probes._dyn_rows_plain(
+            q, idx, row, "P3"), 20))
+
+    table, queries = t["table"], t["queries"]
+    got, want = probes.bsearch(table, queries), probes._bsearch_plain(
+        table, queries)
+    if not torch.equal(got, want):
+        fail(f"P4 bsearch {int(got[0])}, plain {int(want[0])}")
+    report["fk_probe_bsearch"] = dict(
+        max_abs_err=0.0,
+        ms=time_cuda(lambda: probes.bsearch(table, queries), 20),
+        plain_ms=time_cuda(lambda: probes._bsearch_plain(table, queries),
+                           20))
+    for name in probes.WRAPPERS:
+        r = report[name]
+        log(f"kernel {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} "
+            f"ms, max abs error {r['max_abs_err']} [{card}]")
+    return report
+
+
+def drive_probes() -> dict:
+    """Phase 6, second half: the probe entry point (`all`) with every
+    probe kernel's count reset just before; returns the counts."""
+    from fedrann_tpu_torch import probes
+
+    for fn in probes.WRAPPERS.values():
+        fn.launches = 0
+    rc = probes.main(["all"])
+    launches = {name: fn.launches for name, fn in probes.WRAPPERS.items()}
+    if rc != 0:
+        fail(f"python -m fedrann_tpu_torch.probes all returned {rc}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"probe kernel {name} was not launched by the probe path")
+    log(f"probe path launches: {launches}")
+    return launches
+
+
+def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
+              long_rows: bool) -> dict:
+    """Run fedrann_tpu_torch.cli.main on `fasta` with every kernel's count
+    reset just before; every kernel must launch, kernel B's long-row path
+    exactly when `long_rows`. Check overlaps.tsv and the truth recall of
+    pairs overlapping >= min_overlap. Returns the launch counts."""
+    from fedrann_tpu_torch.cli import main as cli_main
+    from fedrann_tpu_torch.io.tsv import HEADER
+
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    n_reads = len(sim.names)
+    t0 = time.perf_counter()
+    rc = cli_main(["-i", fasta, "-o", out_dir, *FLAGS])
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in COUNTERS.items()}
+    if rc != 0:
+        fail(f"cli.main returned {rc}")
+    for name, n in launches.items():
+        if n <= 0 and name != "select_candidates_long":
+            fail(f"kernel {name} was not launched by the main path")
+    if (launches["select_candidates_long"] > 0) != long_rows:
+        fail(f"kernel B's long-row path launched "
+             f"{launches['select_candidates_long']} times, expected "
+             f"{'some' if long_rows else 'none'}")
+    log(f"main path launches: {launches}")
+
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        stages = json.load(f)
+    secs = {s: stages[s]["seconds"] for s in STAGES}
+    log(f"stage seconds [{card}]: "
+        + ", ".join(f"{s} {v:.3f}" for s, v in secs.items()))
+    log(f"main path: {n_reads} reads in {wall:.2f} s wall = "
+        f"{n_reads / wall:.1f} reads/s; device stages (stage..knn) "
+        f"{sum(secs[s] for s in ('stage', 'count', 'project', 'embed', 'knn')):.3f} s "
+        f"[{card}]")
+
+    header, per_query, nbrs = read_overlaps(
+        os.path.join(out_dir, "overlaps.tsv"), sim.names)
+    if header != HEADER.rstrip("\n").split("\t"):
+        fail(f"bad overlaps.tsv header {header}")
+    n_rows = sum(per_query.values())
+    if len(per_query) != 2 * n_reads or not all(
+            c in (49, 50) for c in per_query.values()):
+        fail(f"overlaps.tsv: {len(per_query)} queries (want "
+             f"{2 * n_reads}), rows per query "
+             f"{sorted(set(per_query.values()))} (want 50 less self)")
+    log(f"overlaps.tsv: {n_rows} rows = {2 * n_reads} x 50 less "
+        f"{2 * n_reads * 50 - n_rows} self rows")
+
+    truth = sim.truth_overlaps(min_overlap=min_overlap)
+    found = sum(1 for a, b in truth
+                if b in nbrs.get(a, ()) or a in nbrs.get(b, ()))
+    recall = found / max(len(truth), 1)
+    log(f"truth recall (overlap >= {min_overlap}): {recall:.4f} over "
+        f"{len(truth)} pairs")
+    if not truth or recall < MIN_RECALL:
+        fail(f"truth recall {recall:.4f} below {MIN_RECALL}")
+    return launches
+
+
+def profile_cli(fasta: str, out_dir: str, card: str, label: str) -> None:
+    """--profile: two more CLI runs on `fasta`, the second under
+    torch.profiler. Prints each run's wall and stage seconds; then, for the
+    profiled run, the device's busy time (the union of the time intervals
+    of its kernels and copies), its idle share of the run's wall time, and
+    the device time, summed over launches, of the 20 largest kernels or
+    copies and of every hand kernel."""
+    import contextlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedrann_tpu_torch.cli import main as cli_main
+
+    for run, profiled in (("warm", False), ("profiled", True)):
+        out = os.path.join(out_dir, run)
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            rc = cli_main(["-i", fasta, "-o", out, *FLAGS])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if rc != 0:
+            fail(f"profile {label}: cli.main returned {rc}")
+        with open(os.path.join(out, "metrics.json")) as f:
+            stages = json.load(f)
+        log(f"profile {label} {run} run: wall {wall_ms:.1f} ms; "
+            + ", ".join(f"{s} {stages[s]['seconds']:.3f}" for s in STAGES)
+            + f" s [{card}]")
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        fail(f"profile {label}: torch.profiler recorded no device activity")
+    busy_us, cur = 0.0, None
+    per_name: dict[str, list] = {}
+    for start, end, name in spans:
+        if cur is None or start > cur[1]:
+            busy_us += 0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+        acc = per_name.setdefault(name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += end - start
+    busy_us += cur[1] - cur[0]
+    summed_us = sum(us for _, us in per_name.values())
+    log(f"profile {label}: device busy {busy_us / 1e3:.3f} ms (union of "
+        f"device intervals), device time summed over launches "
+        f"{summed_us / 1e3:.3f} ms, in {wall_ms:.1f} ms of wall: idle "
+        f"{100 * (1 - busy_us / 1e3 / wall_ms):.2f}% [{card}]")
+    # the 20 largest, and every hand kernel (csrc/*.cu, anonymous namespace)
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][1])
+    for rank, (name, (n, us)) in enumerate(ranked):
+        if rank < 20 or name.startswith("(anonymous namespace)::"):
+            log(f"  {us / 1e3:9.3f} ms {n:5d} x {name[:100]}")
+
+
 def read_overlaps(path: str, names: list[str]):
     """(header, rows per (query, orientation), '+'-row neighbor read sets)."""
     index = {n: i for i, n in enumerate(names)}
@@ -176,21 +517,29 @@ def read_overlaps(path: str, names: list[str]):
 def main() -> None:
     import torch
 
+    args = sys.argv[1:]
+    if args not in ([], ["--profile"]):
+        fail(f"usage: python3 chip_smoke.py [--profile], not {args}")
+    profiling = args == ["--profile"]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, HERE)
     try:
         import fedrann_tpu_torch  # noqa: F401
         from fedrann_tpu_torch import _build
-        from fedrann_tpu_torch.cli import main as cli_main
         from fedrann_tpu_torch.device import get_device
-        from fedrann_tpu_torch.io.tsv import HEADER
         from fedrann_tpu_torch.kmers.codec import canonical_sample
         from fedrann_tpu_torch.kmers.membership import select_candidates
         from fedrann_tpu_torch.project.embed import membership_embed
         from fedrann_tpu_torch.sim import simulate_reads, write_fasta
     except ImportError as e:
         fail(f"cannot import the port from {HERE}: {e}")
+    # kernel -> (wrapper, its launch count): one count per path of kernel B
+    COUNTERS.update({
+        "canonical_sample": (canonical_sample, "launches"),
+        "select_candidates": (select_candidates, "launches"),
+        "select_candidates_long": (select_candidates, "long_launches"),
+        "membership_embed": (membership_embed, "launches")})
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -228,73 +577,40 @@ def main() -> None:
                 f"{r['plain_ms']:.4f} ms, max abs error {r['max_abs_err']} "
                 f"[{card}]")
 
-        wrappers = {"canonical_sample": canonical_sample,
-                    "select_candidates": select_candidates,
-                    "membership_embed": membership_embed}
-        for fn in wrappers.values():
-            fn.launches = 0
-        out_dir = os.path.join(tmp, "out")
+        launches = drive_cli(fasta, os.path.join(tmp, "out"), sim,
+                             MIN_OVERLAP, card, long_rows=False)
+        if profiling:
+            profile_cli(fasta, os.path.join(tmp, "prof"), card, "main path")
+
         t0 = time.perf_counter()
-        rc = cli_main(["-i", fasta, "-o", out_dir, *FLAGS])
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in wrappers.items()}
-        if rc != 0:
-            fail(f"cli.main returned {rc}")
-        for name, n in launches.items():
-            if n <= 0:
-                fail(f"kernel {name} was not launched by the main path")
-        log(f"main path launches: {launches}")
+        sim = simulate_reads(genome_length=LONG_GENOME,
+                             coverage=LONG_COVERAGE,
+                             mean_read_length=LONG_READ_LEN,
+                             error_rate=ERROR_RATE, seed=SIM_SEED)
+        fasta = os.path.join(tmp, "long.fasta")
+        write_fasta(fasta, sim.names, sim.sequences)
+        log(f"simulated {len(sim.names)} long reads in "
+            f"{time.perf_counter() - t0:.1f} s")
+        report.update(check_long_rows(sim, fasta, os.path.join(tmp, "lchk"),
+                                      dev, card))
+        long_launches = drive_cli(fasta, os.path.join(tmp, "lout"), sim,
+                                  LONG_MIN_OVERLAP, card, long_rows=True)
+        launches["select_candidates_long"] = long_launches[
+            "select_candidates_long"]
+        if profiling:
+            profile_cli(fasta, os.path.join(tmp, "lprof"), card, "long reads")
 
-        with open(os.path.join(out_dir, "metrics.json")) as f:
-            stages = json.load(f)
-        secs = {s: stages[s]["seconds"] for s in
-                ("load", "stage", "count", "project", "embed", "knn",
-                 "output")}
-        log(f"stage seconds [{card}]: "
-            + ", ".join(f"{s} {v:.3f}" for s, v in secs.items()))
-        log(f"main path: {n_reads} reads in {wall:.2f} s wall = "
-            f"{n_reads / wall:.1f} reads/s; device stages (stage..knn) "
-            f"{sum(secs[s] for s in ('stage', 'count', 'project', 'embed', 'knn')):.3f} s "
-            f"[{card}]")
-
-        header, per_query, nbrs = read_overlaps(
-            os.path.join(out_dir, "overlaps.tsv"), sim.names)
-        if header != HEADER.rstrip("\n").split("\t"):
-            fail(f"bad overlaps.tsv header {header}")
-        n_rows = sum(per_query.values())
-        if len(per_query) != 2 * n_reads or not all(
-                c in (49, 50) for c in per_query.values()):
-            fail(f"overlaps.tsv: {len(per_query)} queries (want "
-                 f"{2 * n_reads}), rows per query "
-                 f"{sorted(set(per_query.values()))} (want 50 less self)")
-        log(f"overlaps.tsv: {n_rows} rows = {2 * n_reads} x 50 less "
-            f"{2 * n_reads * 50 - n_rows} self rows")
-
-        truth = sim.truth_overlaps(min_overlap=MIN_OVERLAP)
-        found = sum(1 for a, b in truth
-                    if b in nbrs.get(a, ()) or a in nbrs.get(b, ()))
-        recall = found / max(len(truth), 1)
-        log(f"truth recall (overlap >= {MIN_OVERLAP}): {recall:.4f} over "
-            f"{len(truth)} pairs")
-        if not truth or recall < MIN_RECALL:
-            fail(f"truth recall {recall:.4f} below {MIN_RECALL}")
+    report.update(check_probes(dev, card))
+    launches.update(drive_probes())
 
     if "jax" in sys.modules or "fedrann_tpu" in sys.modules:
         fail("the port imported jax or fedrann_tpu")
-    sources = {
-        "canonical_sample": ("fedrann_tpu_torch/csrc/canonical_sample.cu",
-                             "bench/pallas_kernels.py:128"),
-        "select_candidates": ("fedrann_tpu_torch/csrc/select_stage_rows.cu",
-                              "bench/pallas_sort.py:128"),
-        "membership_embed": ("fedrann_tpu_torch/csrc/membership_embed.cu",
-                             "bench/pallas_embed.py:277"),
-    }
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": report[name]["max_abs_err"],
          "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
-        for name in wrappers]}))
+        for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

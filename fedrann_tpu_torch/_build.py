@@ -41,10 +41,23 @@ _SIGNATURES = {
     # smem_bytes, staged, width, dropped, stream
     "fk_select_stage_rows": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
                              _I32, _P, _I64, _P, _P],
+    # slots, rows, w, blocked, cap, n_blocks, n_surv, chunk, n_chunks,
+    # width, surv, buf_a, buf_b, cand, kept, staged, dropped, stream
+    "fk_select_stage_long": [_P, _I64, _I64, _I32, _I32, _I32, _I64, _I32,
+                             _I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     # staged, rows, h, lib, lib_size, signs, n_words, mags, d, targets,
     # out, n_hits, stream
     "fk_membership_embed": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64,
                             _P, _P, _P, _P],
+    # probes.cu: n, out, stream
+    "fk_probe_smem_scratch": [_I32, _P, _P],
+    # x, steps, rb, hb, sums, stream
+    "fk_probe_smem_input": [_P, _I32, _I32, _I32, _P, _P],
+    # q, d, idx, row, nh, rb, src_dyn, dst_dyn, accumulate, steps, e, stream
+    "fk_probe_dyn_rows": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                          _I32, _P, _P],
+    # table, n, queries, nq, out, stream
+    "fk_probe_bsearch": [_P, _I32, _P, _I32, _P, _P],
 }
 
 

@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+# shared memory one thread block may opt in to on sm_90 (227 KB)
+SM90_SMEM_OPTIN = 232448
+
 
 def get_device(name: str | torch.device = "cuda") -> torch.device:
     """torch.device for `name`; raises RuntimeError for a CUDA device that
@@ -32,3 +35,12 @@ def synchronize(device: torch.device) -> None:
     clock read afterwards covers it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def shared_memory_limit(device: torch.device | None = None) -> int:
+    """Bytes of shared memory one thread block may opt in to on `device`
+    (SM90_SMEM_OPTIN when no CUDA device is given)."""
+    if device is None or device.type != "cuda":
+        return SM90_SMEM_OPTIN
+    return int(torch.cuda.get_device_properties(device)
+               .shared_memory_per_block_optin)

@@ -8,20 +8,29 @@ survivors are sorted and the first `width` kept, with an exact count of the
 candidate occurrences that did not fit. Duplicates are kept (the library
 counts occurrences); membership drops a slot equal to its left neighbour.
 
+Kernel B takes one of two paths per call, chosen by `stage_launch_plan`: a
+row whose sort buffer fits a thread block's shared memory is staged by one
+block; a longer row (keep_all past 16,384 windows, or >= ~3.1% sampling at
+the 262,144-base bucket) is sorted in shared-memory chunks that are merged
+in device memory.
+
 Membership is `torch.searchsorted` on the sorted int64 library; the JAX
 package's prefix table worked around TPU gather costs and is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from fedrann_tpu_torch import _build
+from fedrann_tpu_torch.device import SM90_SMEM_OPTIN, shared_memory_limit
 from fedrann_tpu_torch.kmers.codec import PAD_SLOT, canonical_sample
 
 SELECT_BLOCK = 1024
-# dynamic shared memory one thread block may use on sm_90 (227 KB)
-SMEM_LIMIT = 232448
+# slots per shared-memory chunk sort of the long-row path (128 KB)
+LONG_CHUNK = 16384
 
 
 def selection_cap(fraction: float, block: int = SELECT_BLOCK) -> int:
@@ -52,6 +61,58 @@ def _selection_plan(w: int, hit_buffer: int, keep_all: bool,
     return True, c, g, min(hit_buffer, g * c)
 
 
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """How kernel B stages rows of w slots: one block per row (smem > 0)
+    or the device-memory path (chunk > 0)."""
+
+    blocked: bool    # per-1024-slot-block selection before the row sort
+    cap: int         # slots each block keeps (blocked)
+    n_blocks: int    # 1024-slot blocks per row (blocked)
+    width: int       # staged slots per row
+    n_surv: int      # slots sorted per row: the survivors (blocked), or w
+    smem: int = 0    # one block per row: bytes of its shared memory
+    chunk: int = 0   # device-memory path: slots per shared-memory chunk
+    n_chunks: int = 0  # device-memory path: chunks per row, a power of 2
+
+    @property
+    def long(self) -> bool:
+        return self.chunk > 0
+
+    @property
+    def passes(self) -> tuple:
+        """((kernel, shared-memory bytes), ...) in launch order."""
+        if not self.long:
+            return (("select_stage_rows", self.smem),)
+        return ((("select_blocks", 8 * SELECT_BLOCK),) if self.blocked
+                else ()) + (("sort_chunks", 8 * self.chunk),) + (
+            ("merge_runs", 0),) * (self.n_chunks.bit_length() - 1) + (
+            ("stage_dropped", 0),)
+
+
+def stage_launch_plan(w: int, hit_buffer: int, keep_all: bool,
+                      block_cap: int | None,
+                      smem_limit: int = SM90_SMEM_OPTIN) -> StagePlan:
+    """The passes kernel B runs for a row of w slots and the shared memory
+    of each. Rows whose sort buffer (plus one selection block)
+    fits smem_limit take the one-block-per-row kernel; longer rows take
+    the device-memory path: blocked selection (when blocked), chunk sorts
+    of LONG_CHUNK slots (fewer if the limit is lower), log2(n_chunks)
+    pairwise merges and the dropped count."""
+    blocked, c, g, width = _selection_plan(w, hit_buffer, keep_all,
+                                           block_cap)
+    n_surv = g * c if blocked else w
+    smem = 8 * (_pow2(n_surv) + (SELECT_BLOCK if blocked else 0))
+    if smem <= smem_limit:
+        return StagePlan(blocked, c, g, width, n_surv, smem=smem)
+    chunk = min(LONG_CHUNK, 1 << ((smem_limit // 8).bit_length() - 1))
+    if chunk < SELECT_BLOCK:
+        raise ValueError(f"{smem_limit} bytes of shared memory cannot hold "
+                         f"a {SELECT_BLOCK}-slot sort block")
+    return StagePlan(blocked, c, g, width, n_surv, chunk=chunk,
+                     n_chunks=_pow2(-(-n_surv // chunk)))
+
+
 def _select_candidates_plain(slots, hit_buffer, keep_all, block_cap):
     r, w = slots.shape
     n_cand = (slots != PAD_SLOT).sum(dim=1)
@@ -79,7 +140,9 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
     width is hit_buffer (full-width selection) or min(hit_buffer,
     n_blocks * cap) (blocked selection, W > 2 * SELECT_BLOCK with a
     block_cap and not keep_all). A CPU tensor takes the plain PyTorch
-    version; a CUDA tensor launches kernel B (csrc/select_stage_rows.cu)."""
+    version; a CUDA tensor launches kernel B (csrc/select_stage_rows.cu)
+    on the path `stage_launch_plan` picks for the device's shared memory,
+    counted in `.launches` (short rows) or `.long_launches` (long rows)."""
     if slots.dtype != torch.int64 or slots.dim() != 2:
         raise ValueError("slots must be a 2-D int64 tensor")
     r, w = slots.shape
@@ -90,27 +153,42 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
                                         block_cap)
     if slots.device.type != "cuda":
         raise ValueError(f"unsupported device {slots.device}")
-    blocked, c, g, width = _selection_plan(w, hit_buffer, keep_all,
-                                           block_cap)
-    sort_n = _pow2(g * c if blocked else w)
-    smem = 8 * (sort_n + (SELECT_BLOCK if blocked else 0))
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"a staged row needs {smem} bytes of shared memory (sort buffer "
-            f"of {sort_n} slots), more than the {SMEM_LIMIT} a thread block "
-            "may use; rows this long need a global-memory sort (ROADMAP "
-            "Queue 2: K2)")
+    plan = stage_launch_plan(w, hit_buffer, keep_all, block_cap,
+                             shared_memory_limit(slots.device))
     slots = slots.contiguous()
-    staged = torch.empty((r, width), dtype=torch.int64, device=slots.device)
-    dropped = torch.empty((r,), dtype=torch.int32, device=slots.device)
-    _build.launch("fk_select_stage_rows", slots.data_ptr(), r, w, hit_buffer,
-                  int(blocked), c, g, sort_n, smem, staged.data_ptr(), width,
-                  dropped.data_ptr(), _build.stream(slots.device))
-    select_candidates.launches += 1
+    dev = slots.device
+    staged = torch.empty((r, plan.width), dtype=torch.int64, device=dev)
+    dropped = torch.empty((r,), dtype=torch.int32, device=dev)
+    if not plan.long:
+        _build.launch("fk_select_stage_rows", slots.data_ptr(), r, w,
+                      hit_buffer, int(plan.blocked), plan.cap, plan.n_blocks,
+                      _pow2(plan.n_surv), plan.smem, staged.data_ptr(),
+                      plan.width, dropped.data_ptr(), _build.stream(dev))
+        select_candidates.launches += 1
+        return staged, dropped
+    n_pad = plan.chunk * plan.n_chunks
+    groups = plan.n_blocks if plan.blocked else plan.n_chunks
+
+    def scratch(shape, dtype=torch.int64):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    surv = scratch((r, plan.n_surv) if plan.blocked else (0,))
+    buf_a = scratch((r, n_pad) if plan.n_chunks >= 2 else (0,))
+    buf_b = scratch((r, n_pad) if plan.n_chunks >= 4 else (0,))
+    cand = scratch((r, groups), torch.int32)
+    kept = scratch((r, groups), torch.int32) if plan.blocked else cand
+    _build.launch("fk_select_stage_long", slots.data_ptr(), r, w,
+                  int(plan.blocked), plan.cap, plan.n_blocks, plan.n_surv,
+                  plan.chunk, plan.n_chunks, plan.width, surv.data_ptr(),
+                  buf_a.data_ptr(), buf_b.data_ptr(), cand.data_ptr(),
+                  kept.data_ptr(), staged.data_ptr(), dropped.data_ptr(),
+                  _build.stream(dev))
+    select_candidates.long_launches += 1
     return staged, dropped
 
 
-select_candidates.launches = 0
+select_candidates.launches = 0       # short path (one block per row)
+select_candidates.long_launches = 0  # long path (device-memory merge)
 
 
 def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,

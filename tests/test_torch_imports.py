@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import fedrann_tpu_torch
+from fedrann_tpu_torch import probes
 from fedrann_tpu_torch.kmers import codec, membership
 from fedrann_tpu_torch.project import embed
 
@@ -67,6 +68,35 @@ def test_cpu_tensors_take_the_plain_versions():
     assert (codec.canonical_sample.launches,
             membership.select_candidates.launches,
             embed.membership_embed.launches) == before
+
+
+def test_cpu_tensors_take_the_plain_long_path_and_probes():
+    """Rows past a block's shared memory and the probe wrappers take the
+    plain versions on the CPU and count no launch."""
+    before = (membership.select_candidates.long_launches,
+              membership.select_candidates.launches,
+              *(fn.launches for fn in probes.WRAPPERS.values()))
+    slots = torch.full((2, 40000), codec.PAD_SLOT, dtype=torch.int64)
+    slots[0, ::7] = torch.arange(0, 40000, 7)
+    assert membership.stage_launch_plan(40000, 40000, True, None).long
+    staged, dropped = membership.select_candidates(slots, 40000, True, None)
+    want = membership._select_candidates_plain(slots, 40000, True, None)
+    assert torch.equal(staged, want[0]) and torch.equal(dropped, want[1])
+    res = probes.run("all", torch.device("cpu"))
+    assert set(res) == {"P1", "P2", "P3", "P4", "P5", "P6"}
+    assert before == (membership.select_candidates.long_launches,
+                      membership.select_candidates.launches,
+                      *(fn.launches for fn in probes.WRAPPERS.values()))
+
+
+def test_probes_entry_point_refuses_a_missing_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, "-m", "fedrann_tpu_torch.probes", "bsearch"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert "OK" not in proc.stdout
 
 
 def test_get_device_refuses_a_missing_gpu():

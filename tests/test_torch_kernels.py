@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from fedrann_tpu_torch import probes
+from fedrann_tpu_torch.device import shared_memory_limit
 from fedrann_tpu_torch.kmers.codec import (
     PAD_SLOT,
     _canonical_sample_plain,
@@ -23,6 +25,7 @@ from fedrann_tpu_torch.kmers.membership import (
     _select_candidates_plain,
     select_candidates,
     selection_cap,
+    stage_launch_plan,
     staging_width,
 )
 from fedrann_tpu_torch.project.embed import (
@@ -88,10 +91,35 @@ def test_select_candidates_matches_plain(cuda, w, hit_buffer, keep_all,
     assert torch.equal(got[1].cpu(), want[1])
 
 
-def test_select_candidates_rejects_rows_past_shared_memory(cuda):
-    slots = torch.full((2, 40000), PAD_SLOT, dtype=torch.int64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        select_candidates(slots, 40000, True, None)
+@pytest.mark.parametrize("w,hit_buffer,keep_all,cap", [
+    (262130, 13824, False, selection_cap(0.05)),  # 262,144 bucket at 5%
+    (32754, 32754, True, None),    # keep_all at the 32,768 bucket
+    (65522, 65522, True, None),    # keep_all at the 65,536 bucket
+    (262130, 13824, False, 128),   # survivors fill their chunks exactly
+])
+def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
+                                                 keep_all, cap):
+    """Rows past a block's shared memory take the device-memory path and
+    match the plain version bitwise, dropped counts included."""
+    plan = stage_launch_plan(w, hit_buffer, keep_all, cap,
+                             shared_memory_limit(cuda))
+    assert plan.long
+    if cap == 128:
+        assert plan.n_surv == plan.chunk * plan.n_chunks
+    rng = np.random.default_rng(w + (cap or 0))
+    slots = _random_slots(rng, 8, w, 1.0 if keep_all else 0.05)
+    slots[1, : 3 * 1024] = 4242    # the first blocks overflow their cap
+    slots[2, :] = PAD_SLOT         # an all-padding row
+    slots[3, 5:9000] = slots[3, 0]  # a long run of one slot
+    want = _select_candidates_plain(slots, hit_buffer, keep_all, cap)
+    before = (select_candidates.launches, select_candidates.long_launches)
+    got = select_candidates(slots.to(cuda), hit_buffer, keep_all, cap)
+    torch.cuda.synchronize()
+    assert (select_candidates.launches,
+            select_candidates.long_launches) == (before[0], before[1] + 1)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert int(want[1][1]) > 0 or keep_all
 
 
 @pytest.mark.parametrize("k,d", [(13, 100), (15, 512), (21, 1500)])
@@ -144,3 +172,43 @@ def test_wrappers_count_launches(cuda):
     select_candidates(slots, 16, False, None)
     assert (canonical_sample.launches, select_candidates.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.fixture
+def probe_tensors(cuda):
+    return {k: torch.from_numpy(v) for k, v in probes.probe_inputs().items()}
+
+
+def test_probe_smem_scratch_accepts_exactly_the_opt_in_limit(cuda):
+    steps = probes.probe_smem_scratch(cuda)
+    assert probes.scratch_ladder_problems(
+        steps, shared_memory_limit(cuda)) == []
+
+
+def test_probe_smem_input_matches_plain(cuda, probe_tensors):
+    x = probe_tensors["x"]
+    got = probes.smem_input(x.to(cuda))
+    assert torch.equal(got.cpu(), probes._smem_input_plain(x))
+    assert int(got[0]) == 1818744
+
+
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_probe_dyn_rows_matches_plain(cuda, probe_tensors, mode):
+    q, idx, row = (probe_tensors[k] for k in ("q", "idx", "row"))
+    want = probes._dyn_rows_plain(q, idx, row, mode)
+    got = probes.dyn_rows(q.to(cuda), idx.to(cuda), row.to(cuda),
+                          mode).cpu()
+    if mode == "B":
+        assert torch.equal(got, want)
+        return
+    steps = probes.DYN_MODES[mode][3]
+    terms = steps * (idx.shape[0] if mode == "A"
+                     else int(torch.bincount(row.long()).max()))
+    atol = 1e-6 * terms * float(q.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+def test_probe_bsearch_matches_plain(cuda, probe_tensors):
+    t, qs = probe_tensors["table"], probe_tensors["queries"]
+    got = probes.bsearch(t.to(cuda), qs.to(cuda))
+    assert torch.equal(got.cpu(), probes._bsearch_plain(t, qs))

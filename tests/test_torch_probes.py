@@ -1,0 +1,205 @@
+"""The port's capability probes (`fedrann_tpu_torch.probes`, plain
+versions) against the Mosaic probes of bench/probe_mosaic.py and
+bench/probe_mosaic2.py run in Pallas interpret mode, and kernel B's launch
+plan against the shared-memory limit.
+
+Each JAX probe runs unchanged with `pallas_call` wrapped so that it
+interprets on the CPU and records what every call returns. Integer probes
+(P1, P2, P4, P5) and the float store P6-B must agree bitwise; the float
+accumulations (P3, P6-A, P6-C) to rtol 1e-5 and atol 1e-6 * (terms summed
+per output) * max|q|, since float32 sums may be taken in another order."""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import jax.experimental.pallas as pl
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "bench"))
+
+import probe_mosaic  # noqa: E402
+import probe_mosaic2  # noqa: E402
+from fedrann_tpu_torch import probes  # noqa: E402
+from fedrann_tpu_torch.config import PipelineConfig  # noqa: E402
+from fedrann_tpu_torch.device import SM90_SMEM_OPTIN  # noqa: E402
+from fedrann_tpu_torch.kmers.membership import (  # noqa: E402
+    SELECT_BLOCK,
+    _pow2,
+    _selection_plan,
+    stage_launch_plan,
+)
+from fedrann_tpu_torch.pipeline import staging_params  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """Make every pallas_call interpret; returns the list of calls, each
+    the list of outputs (numpy) of the function it built."""
+    real = pl.pallas_call
+    records: list[list[np.ndarray]] = []
+
+    def pallas_call(kernel, *args, **kwargs):
+        kwargs["interpret"] = True
+        fn = real(kernel, *args, **kwargs)
+        outs: list[np.ndarray] = []
+        records.append(outs)
+
+        def call(*xs):
+            out = fn(*xs)
+            outs.append(np.asarray(out))
+            return out
+
+        return call
+
+    monkeypatch.setattr(pl, "pallas_call", pallas_call)
+    return records
+
+
+def _no_fail(capsys):
+    text = capsys.readouterr().out
+    assert "FAIL" not in text, text
+
+
+@pytest.fixture(scope="module")
+def port():
+    return probes.run("all", CPU)
+
+
+def test_probe_inputs_are_the_scripts_arrays():
+    a = probes.probe_inputs()
+    assert a["x"].shape == (64, 2048) and a["x"].dtype == np.int32
+    assert a["q"].shape == (512, 1024) and a["q"].dtype == np.float32
+    np.testing.assert_array_equal(
+        a["q"], np.random.default_rng(0).normal(size=(512, 1024)).astype(
+            np.float32))
+    assert a["idx"].max() < 512 and a["row"].max() < probes.E_ROWS
+    assert np.all(np.diff(a["table"]) >= 0)
+    assert a["queries"].shape == (1 << 14,)
+
+
+def test_p1_smem_scratch(interpret, capsys, port):
+    probe_mosaic.probe_smem_scratch()
+    _no_fail(capsys)
+    assert [len(c) for c in interpret] == [1] * len(probes.SCRATCH_SIZES)
+    for calls, step in zip(interpret, port["P1"]):
+        np.testing.assert_array_equal(calls[0], step.out.numpy())
+        assert calls[0].dtype == np.int32
+    assert probes.scratch_ladder_problems(port["P1"], None) == []
+
+
+@pytest.mark.parametrize("which,script", [("P2", probe_mosaic),
+                                          ("P5", probe_mosaic2)])
+def test_p2_p5_smem_input(interpret, capsys, port, which, script):
+    script.probe_smem_input()
+    _no_fail(capsys)
+    (calls,) = interpret
+    np.testing.assert_array_equal(calls[0], port[which].numpy())
+    assert int(port[which][0]) == 1818744
+
+
+def _assert_close_sums(got: np.ndarray, want: np.ndarray, terms: int,
+                       q: np.ndarray):
+    atol = 1e-6 * terms * float(np.abs(q).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+
+
+def test_p3_dyn_sublane(interpret, capsys, port):
+    probe_mosaic.probe_dyn_sublane()
+    _no_fail(capsys)
+    (calls,) = interpret
+    a = probes.probe_inputs()
+    terms = 2 * int(np.bincount(a["row"]).max())
+    for out in calls:  # the first call and the timed ones
+        _assert_close_sums(port["P3"].numpy(), out, terms, a["q"])
+
+
+def test_p4_scalar_bsearch(interpret, capsys, port):
+    probe_mosaic.probe_scalar_bsearch()
+    _no_fail(capsys)
+    (calls,) = interpret
+    np.testing.assert_array_equal(calls[0], port["P4"].numpy())
+    a = probes.probe_inputs()
+    assert int(port["P4"][0]) == int(np.searchsorted(
+        a["table"], a["queries"], side="left").sum())
+
+
+def test_p6_dyn_variants(interpret, capsys, port):
+    probe_mosaic2.probe_dyn_variants()
+    _no_fail(capsys)
+    a = probes.probe_inputs()
+    got = port["P6"]
+    (ca, cb, cc) = interpret
+    _assert_close_sums(got["A"].numpy(), ca[0], a["idx"].shape[0], a["q"])
+    np.testing.assert_array_equal(got["B"].numpy(), cb[0])
+    _assert_close_sums(got["C"].numpy(), cc[0],
+                       int(np.bincount(a["row"]).max()), a["q"])
+
+
+def test_entry_point_prints_every_probe(capsys):
+    res = probes.run("variants", CPU)
+    text = capsys.readouterr().out
+    assert set(res) == {"P5", "P6"} and set(res["P6"]) == {"A", "B", "C"}
+    assert text.count("OK") == 4 and "FAIL" not in text
+    with pytest.raises(ValueError, match="unknown probe"):
+        probes.run("nope", CPU)
+    assert probes.main(["nope"]) == 2
+
+
+def test_scratch_ladder_problems_on_a_card_limit():
+    def step(n, refused=False):
+        out = None if refused else torch.full((1, 1), n, dtype=torch.int32)
+        return probes.ScratchStep(n, out, "refused" if refused else None)
+
+    sizes = probes.SCRATCH_SIZES
+    good = [step(n) for n in sizes[:3]] + [step(sizes[3], True)]
+    limit = SM90_SMEM_OPTIN
+    assert probes.scratch_ladder_problems(good, limit) == []
+    # a size within the limit refused; a size past it launched
+    assert probes.scratch_ladder_problems(
+        good[:2] + [step(sizes[2], True)], limit)
+    assert probes.scratch_ladder_problems(
+        [step(n) for n in sizes[:4]] + [step(sizes[4], True)], limit)
+
+
+def _seed_smem(w, hit_buffer, keep_all, block_cap):
+    """Shared memory of the one-block-per-row kernel alone."""
+    blocked, c, g, _ = _selection_plan(w, hit_buffer, keep_all, block_cap)
+    return 8 * (_pow2(g * c if blocked else w)
+                + (SELECT_BLOCK if blocked else 0))
+
+
+@pytest.mark.parametrize("fraction", [0.005, 0.02, 0.05, 0.2, 1.0])
+def test_stage_plan_fits_shared_memory(fraction):
+    """Every bucket length of the auto ladder at every k: each pass of
+    kernel B fits a block's shared memory, and the one-block kernel is kept
+    exactly where it fits."""
+    too_big = []
+    for length in (1 << p for p in range(10, 19)):
+        for k in (15, 21, 31):
+            config = PipelineConfig(kmer_size=k,
+                                    kmer_sample_fraction=fraction)
+            hit_buffer, keep_all, cap = staging_params(length, config)
+            w = length - k + 1
+            plan = stage_launch_plan(w, hit_buffer, keep_all, cap)
+            assert all(b <= SM90_SMEM_OPTIN for _, b in plan.passes), plan
+            seed = _seed_smem(w, hit_buffer, keep_all, cap)
+            assert plan.long == (seed > SM90_SMEM_OPTIN)
+            if plan.long:
+                too_big.append((length, k))
+                assert plan.chunk * plan.n_chunks >= plan.n_surv
+            else:
+                assert plan.passes == (("select_stage_rows", seed),)
+    if fraction == 0.05:
+        assert {length for length, _ in too_big} == {1 << 18}
+    if fraction == 1.0:
+        assert {length for length, _ in too_big} == {
+            1 << p for p in range(15, 19)}
+    if fraction <= 0.02:
+        assert not too_big

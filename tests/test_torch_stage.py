@@ -25,8 +25,11 @@ from fedrann_tpu.kmers import membership as jmem  # noqa: E402
 from fedrann_tpu_torch.convert import staged_planes_to_slots  # noqa: E402
 from fedrann_tpu_torch.io.fastx import FastxRecord  # noqa: E402
 from fedrann_tpu_torch.io.packing import pack_reads  # noqa: E402
+from fedrann_tpu_torch.config import PipelineConfig  # noqa: E402
+from fedrann_tpu_torch.device import SM90_SMEM_OPTIN  # noqa: E402
 from fedrann_tpu_torch.kmers import membership  # noqa: E402
 from fedrann_tpu_torch.kmers.codec import PAD_SLOT, sample_threshold  # noqa: E402
+from fedrann_tpu_torch.pipeline import staging_params  # noqa: E402
 from fedrann_tpu_torch.sim import simulate_reads  # noqa: E402
 from pallas_sort import sort_rows_pallas  # noqa: E402
 
@@ -43,16 +46,16 @@ def _bucket(length, seed=21):
     return packed.buckets[0].bases
 
 
-def _stage_both(bases, k, fraction, blocked, seed=SEED):
+def _stage_both(bases, k, fraction, blocked, seed=SEED, keep_all=False):
     w = bases.shape[1] - k + 1
-    hb = membership.staging_width(w, fraction)
+    hb = w if keep_all else membership.staging_width(w, fraction)
     cap = membership.selection_cap(fraction) if blocked else None
     thr = sample_threshold(fraction)
     planes, dropped_j = jmem.stage_candidates(
-        jnp.asarray(bases), k, hb, False, jnp.uint32(seed), jnp.uint32(thr),
-        block_cap=cap)
+        jnp.asarray(bases), k, hb, keep_all, jnp.uint32(seed),
+        jnp.uint32(thr), block_cap=cap)
     staged, dropped = membership.stage_candidates(
-        torch.from_numpy(bases), k, hb, False, seed, thr, cap)
+        torch.from_numpy(bases), k, hb, keep_all, seed, thr, cap)
     want = staged_planes_to_slots(tuple(np.asarray(p) for p in planes), k)
     return staged.numpy(), dropped.numpy(), want, np.asarray(dropped_j)
 
@@ -124,3 +127,119 @@ def test_row_sort_matches_pallas_bitonic(k):
     assert not dropped.any()
     assert np.all(np.diff(got.numpy(), axis=1) >= 0)
     assert (got.numpy() == PAD_SLOT).sum() == pad.sum()
+
+
+def _long_bucket(length, mean_read_length, genome_length, rows=4):
+    """The first `rows` reads of one `length` bucket of simulated reads."""
+    sim = simulate_reads(genome_length=genome_length, coverage=3,
+                         mean_read_length=mean_read_length, error_rate=0.05,
+                         seed=5)
+    keep = [i for i, s in enumerate(sim.sequences)
+            if length // 2 < len(s) <= length][:rows]
+    assert len(keep) == rows
+    packed = pack_reads([FastxRecord(sim.names[i], sim.sequences[i])
+                         for i in keep], length_buckets=(length,))
+    return packed.buckets[0].bases[:rows]
+
+
+def test_stage_long_rows_match_jax():
+    """Rows past a block's shared memory (kernel B's long path on the
+    card): the 262,144-base bucket at 5% sampling (blocked, 24,320
+    survivors) and a keep_all 32,768-base bucket, as the pipeline stages
+    them."""
+    k = 15
+    bases = _long_bucket(1 << 18, 150_000, 600_000)
+    config = PipelineConfig(kmer_size=k, kmer_sample_fraction=0.05)
+    hb, keep_all, cap = staging_params(1 << 18, config)
+    assert membership.stage_launch_plan(bases.shape[1] - k + 1, hb,
+                                        keep_all, cap).long
+    got, dropped, want, dropped_j = _stage_both(bases, k, 0.05, True)
+    _assert_rows(got, want, k)
+    np.testing.assert_array_equal(dropped, dropped_j)
+    # reads of 131,072+ bases: 5% of their windows, ~6,500+ candidates
+    assert got.shape == (4, hb) and (got != PAD_SLOT).sum(axis=1).min() > 5000
+
+    bases = _long_bucket(1 << 15, 20_000, 120_000)
+    got, dropped, want, dropped_j = _stage_both(bases, k, 1.0, False,
+                                                keep_all=True)
+    _assert_rows(got, want, k)
+    np.testing.assert_array_equal(dropped, dropped_j)
+    assert not dropped.any()
+
+
+def _merge_by_rank(a, b, m2):
+    """Kernel B's merge: a[i] -> i + #(b < a[i]), b[j] -> j + #(a <= b[j]),
+    first m2 kept; one row at a time."""
+    out = np.empty((a.shape[0], a.shape[1] + b.shape[1]), a.dtype)
+    for r in range(a.shape[0]):
+        out[r, np.arange(a.shape[1]) + np.searchsorted(b[r], a[r], "left")] \
+            = a[r]
+        out[r, np.arange(b.shape[1]) + np.searchsorted(a[r], b[r], "right")] \
+            = b[r]
+    return out[:, :m2]
+
+
+def _emulate_long_path(slots, plan):
+    """Kernel B's long path pass by pass in numpy, as the plan lays it
+    out: blocked selection, chunk sorts, pairwise merges of runs cut at
+    width, dropped from the pass-1 (or chunk) counts."""
+    s = slots.numpy()
+    r, w = s.shape
+    if plan.blocked:
+        g, c = plan.n_blocks, plan.cap
+        padded = np.full((r, g * membership.SELECT_BLOCK), PAD_SLOT)
+        padded[:, :w] = s
+        blocks = np.sort(padded.reshape(r, g, -1), axis=2)
+        src = blocks[:, :, :c].reshape(r, g * c)
+        cand = (blocks != PAD_SLOT).sum(axis=2)
+        kept = np.minimum(cand, c)
+    else:
+        src = s
+    buf = np.full((r, plan.chunk * plan.n_chunks), PAD_SLOT)
+    buf[:, : plan.n_surv] = src
+    chunks = np.sort(buf.reshape(r, plan.n_chunks, plan.chunk), axis=2)
+    if not plan.blocked:
+        cand = kept = (chunks != PAD_SLOT).sum(axis=2)
+    runs = [chunks[:, i, : min(plan.chunk, plan.width)]
+            for i in range(plan.n_chunks)]
+    run = plan.chunk
+    while len(runs) > 1:
+        m2 = min(2 * run, plan.width)
+        runs = [_merge_by_rank(runs[i], runs[i + 1], m2)
+                for i in range(0, len(runs), 2)]
+        run *= 2
+    assert len(plan.passes) == (2 if plan.blocked else 1) + 1 + int(
+        np.log2(plan.n_chunks))
+    dropped = cand.sum(axis=1) - np.minimum(kept.sum(axis=1), plan.width)
+    return runs[0][:, : plan.width], dropped.astype(np.int32)
+
+
+@pytest.mark.parametrize("w,fraction,keep_all,cap,smem_limit", [
+    (262130, 0.05, False, None, SM90_SMEM_OPTIN),  # 262,144 bucket
+    (20000, 0.2, False, None, 8 * 2048),  # 4 chunks of 2048: two merges
+    (9000, 1.0, True, None, 8 * 1024),    # keep_all, 16 chunks of 1024
+    (8000, 0.2, False, 256, 8 * 2560),    # survivors fill exactly one chunk
+])
+def test_long_path_schedule_matches_plain(w, fraction, keep_all, cap,
+                                          smem_limit):
+    """The long path's schedule (chunk sizes, merge ranks with duplicate
+    and padding slots, the width cut, the counts) reproduces the plain
+    version bitwise."""
+    rng = np.random.default_rng(w)
+    r = 6
+    codes = rng.integers(0, 1 << 20, size=(r, w), dtype=np.int64)
+    slots = np.where(rng.random((r, w)) < fraction, codes, PAD_SLOT)
+    slots[1, : w // 2] = 77          # duplicates overflowing their blocks
+    slots[2, :] = PAD_SLOT           # an all-padding row
+    slots[3, :] = rng.integers(0, 50, size=w)  # dense duplicates
+    slots = torch.from_numpy(slots)
+    hb = w if keep_all else membership.staging_width(w, fraction)
+    if not keep_all and cap is None:
+        cap = membership.selection_cap(fraction)
+    plan = membership.stage_launch_plan(w, hb, keep_all, cap, smem_limit)
+    assert plan.long
+    staged, dropped = _emulate_long_path(slots, plan)
+    want, want_dropped = membership._select_candidates_plain(
+        slots, hb, keep_all, cap)
+    np.testing.assert_array_equal(staged, want.numpy())
+    np.testing.assert_array_equal(dropped, want_dropped.numpy())

@@ -32,8 +32,12 @@ Phases; any failure exits non-zero and prints no result line:
      against its plain version (integers and the P6-B store bitwise, float
      sums to rtol 1e-5, atol 1e-6 * terms * max|q|; P1 must accept exactly
      the sizes within the card's shared-memory opt-in limit and refuse the
-     next), then the probe entry point `all` with its counts reset just
-     before: every probe kernel must launch.
+     next), fk_probe_dyn_rows also bitwise against its hit-order replay
+     (`probes._dyn_rows_replay`, computed on the host) in every mode; the
+     device time per launch (torch.profiler) of P1 and of each dyn_rows
+     mode is logged beside the per-call times, with P1's host path timed
+     piece by piece; then the probe entry point `all` with its counts reset
+     just before: every probe kernel must launch.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
@@ -106,6 +110,85 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(fn, reps: int, hand: bool, tries: int = 3) -> str:
+    """Device microseconds per call of fn from torch.profiler, as text: the
+    time of its hand kernel (csrc/*.cu, anonymous namespace; one launch per
+    call) when `hand`, else of every kernel and copy it ran.
+
+    The profiler can drop activity records (seen on the H100: 10 of 20
+    launches kept in a session), so a session is taken as whole only when
+    it holds one hand kernel per call (`hand`) or a whole multiple of
+    `reps` records (the plain version); an incomplete one is taken again, up to
+    `tries` sessions. If none was whole, the last is reported with the
+    count it kept: the mean per kept launch for a hand kernel, and for the
+    plain version the kept time over `reps`, which is then a lower bound.
+    The launches themselves are checked by the wrappers' counts and by
+    the comparisons, not here."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and (
+                  not hand or e.name.startswith("(anonymous namespace)::"))]
+        if (len(us) == reps) if hand else (us and len(us) % reps == 0):
+            return f"{sum(us) / reps:.3f}"
+    if not us:
+        return f"not measured (the profiler kept no record in {tries} tries)"
+    per = sum(us) / (len(us) if hand else reps)
+    return (f"{per:.3f}{'' if hand else ' or more'} (the profiler kept "
+            f"{len(us)} records of {reps} calls)")
+
+
+def host_us(fn, reps: int = 200, rounds: int = 9) -> float:
+    """Host microseconds per call of fn: the best of `rounds` runs of
+    `reps` calls back to back (one warm-up), since the host is shared."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best * 1e6 / reps
+
+
+def p1_host_split(dev, n: int) -> dict:
+    """Host microseconds of each piece of P1's per-call path at n entries:
+    the output allocation, the stream handle, the C entry point alone
+    (opt-in and launch), `_build.launch`, the whole wrapper, and the plain
+    version (torch.full) for comparison."""
+    import torch
+
+    from fedrann_tpu_torch import _build, probes
+
+    out = torch.empty(1, 1, dtype=torch.int32, device=dev)
+    ptr, s = out.data_ptr(), _build.stream(dev)
+    entry = _build.kernels().fk_probe_smem_scratch
+    return {
+        "empty": host_us(lambda: torch.empty(1, 1, dtype=torch.int32,
+                                             device=dev)),
+        "stream": host_us(lambda: _build.stream(dev)),
+        "c_call": host_us(lambda: entry(n, ptr, s)),
+        "launch": host_us(lambda: _build.launch("fk_probe_smem_scratch", n,
+                                                ptr, s)),
+        "wrapper": host_us(lambda: probes.smem_scratch(n, dev)),
+        "plain": host_us(lambda: probes._smem_scratch_plain(n, dev)),
+    }
 
 
 def check_kernels(fasta: str, out_dir: str, dev) -> dict:
@@ -287,8 +370,8 @@ def check_probes(dev, card: str) -> dict:
     from fedrann_tpu_torch import probes
     from fedrann_tpu_torch.device import shared_memory_limit
 
-    t = {k: torch.from_numpy(v).to(dev)
-         for k, v in probes.probe_inputs().items()}
+    host = {k: torch.from_numpy(v) for k, v in probes.probe_inputs().items()}
+    t = {k: v.to(dev) for k, v in host.items()}
     limit = shared_memory_limit(dev)
     steps = probes.probe_smem_scratch(dev)
     problems = probes.scratch_ladder_problems(steps, limit)
@@ -303,6 +386,15 @@ def check_probes(dev, card: str) -> dict:
         ms=time_cuda(lambda: probes.smem_scratch(n_max, dev), 20),
         plain_ms=time_cuda(lambda: probes._smem_scratch_plain(n_max, dev),
                            20))}
+    for n in (probes.SCRATCH_SIZES[0], n_max):
+        dev_us = device_us(lambda n=n: probes.smem_scratch(n, dev), 20, True)
+        plain_us = device_us(lambda n=n: probes._smem_scratch_plain(n, dev),
+                             20, False)
+        split = p1_host_split(dev, n)
+        log(f"P1 {n * 4 // 1024} KB: device {dev_us} us per launch "
+            f"(plain {plain_us}); host us per call: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+            + f" [{card}]")
 
     x = t["x"]
     got, want = probes.smem_input(x), probes._smem_input_plain(x)
@@ -318,6 +410,11 @@ def check_probes(dev, card: str) -> dict:
     worst = 0.0
     for mode, (_, dst_dyn, _, steps_) in sorted(probes.DYN_MODES.items()):
         got = probes.dyn_rows(q, idx, row, mode)
+        replay = probes._dyn_rows_replay(host["q"], host["idx"], host["row"],
+                                         mode)
+        if not torch.equal(got.cpu(), replay):
+            fail(f"dyn_rows mode {mode} differs from the hit-order replay "
+                 f"in {int((got.cpu() != replay).sum())} cells")
         want = probes._dyn_rows_plain(q, idx, row, mode)
         err = float((got - want).abs().max())
         if mode == "B":
@@ -333,8 +430,14 @@ def check_probes(dev, card: str) -> dict:
         ms = time_cuda(lambda m=mode: probes.dyn_rows(q, idx, row, m), 20)
         plain_ms = time_cuda(
             lambda m=mode: probes._dyn_rows_plain(q, idx, row, m), 20)
-        log(f"dyn_rows {mode}: max abs error {err}; {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms [{card}]")
+        dev_us = device_us(lambda m=mode: probes.dyn_rows(q, idx, row, m),
+                           20, True)
+        plain_us = device_us(
+            lambda m=mode: probes._dyn_rows_plain(q, idx, row, m), 20, False)
+        log(f"dyn_rows {mode}: bitwise equal to the hit-order replay; max "
+            f"abs error against plain {err}; {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms per call, device {dev_us} us vs plain "
+            f"{plain_us} us per call [{card}]")
     report["fk_probe_dyn_rows"] = dict(
         max_abs_err=worst,
         ms=time_cuda(lambda: probes.dyn_rows(q, idx, row, "P3"), 20),

@@ -137,5 +137,11 @@ def launch(name: str, *args) -> None:
 
 def stream(device: torch.device) -> int:
     """Handle of PyTorch's current CUDA stream on `device`: every kernel
-    launches there, so it orders with the surrounding torch ops."""
-    return torch.cuda.current_stream(device).cuda_stream
+    launches there, so it orders with the surrounding torch ops. Read on
+    every call (a caller may switch streams with torch.cuda.stream), with
+    the raw getter that torch's own generated kernels use: it skips the
+    Stream object that torch.cuda.current_stream builds, most of the cost
+    of a small probe's launch path."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -27,6 +27,38 @@ __device__ __forceinline__ int block_sum(int v, int* acc) {
   return total;
 }
 
+// Order-preserving compaction over the whole block: returns the slot of
+// this thread's item among the items kept by the block, in thread order
+// (warp ballots plus a block prefix of the warp counts), or -1 when `keep`
+// is false; *count receives the block's number of kept items. Every thread
+// must call it; blockDim.x is a multiple of 32; `scratch` is a __shared__
+// int[33]. Calls may follow each other with no barrier between them: a
+// warp rewrites its count only after a __syncwarp, which all its lanes
+// reach after reading the previous call's base.
+__device__ __forceinline__ int block_compact(bool keep, int* scratch,
+                                             int* count) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned mask = __ballot_sync(0xffffffffu, keep);
+  __syncwarp();
+  if (lane == 0) scratch[warp] = __popc(mask);
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < n_warps ? scratch[lane] : 0;
+    int incl = own;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane < n_warps) scratch[lane] = incl - own;
+    if (lane == 31) scratch[32] = incl;
+  }
+  __syncthreads();
+  *count = scratch[32];
+  return keep ? scratch[warp] + __popc(mask & ((1u << lane) - 1u)) : -1;
+}
+
 // Ascending bitonic sort of n (a power of two) int64 keys in shared
 // memory by the whole block. The caller synchronises before the call (the
 // keys must be in place); the last stage ends with a barrier.

@@ -4,37 +4,104 @@
 // and embed kernels costs on this card:
 //
 //   fk_probe_smem_scratch  (P1, probe_mosaic.py:32 `probe_smem_scratch`):
-//     a block with n int32 of dynamic shared memory fills it with n and
-//     returns its last entry. Sizes past the opt-in limit are refused by
-//     cudaFuncSetAttribute (a non-sticky error, cleared before returning);
+//     a block with n int32 of dynamic shared memory fills all of it with n
+//     (up to 1,024 threads, 16-byte stores) and returns its last entry.
+//     Sizes past the opt-in limit are refused by cudaFuncSetAttribute (a
+//     non-sticky error, cleared before returning). Bound: the launch; the
+//     fill is at most ~15 stores a thread;
 //   fk_probe_smem_input    (P2 probe_mosaic.py:55, P5 probe_mosaic2.py:30):
 //     one block per grid step stages its (rb, hb) int32 block in shared
 //     memory and sums x_blk[i, i & 1023] for i < rb; sums[step] receives it
 //     (the TPU kernel overwrote one output, so its value is the last step's);
 //   fk_probe_dyn_rows      (P3 probe_mosaic.py:92, P6 probe_mosaic2.py:47):
-//     the dynamic-row gather-accumulate of kernel C, e[dst] (+)= q[src] over
-//     nh hits, with src = idx[i] or row 0 and dst = row[i] or row 0, `steps`
-//     times over the hits (the TPU's sequential grid). Each thread owns one
-//     column and walks the hits in order, so float sums are taken in the
-//     TPU's fori_loop order with no atomics; the block's column strip of e
-//     lives in shared memory like the TPU's VMEM output block;
+//     the dynamic-row gather-accumulate of kernel C: e starts at zero, then
+//     `steps` times over the nh hits in order, e[dst] = e[dst] + q[src] (or
+//     e[dst] = q[src] when not accumulating), src = idx[i] or row 0, dst =
+//     row[i] or row 0. No float atomics: every output cell sums its own
+//     hits in hit order, the TPU's sequential fori_loop order, so the
+//     result equals that order bitwise. Two kernels, one per kind of mode:
+//     - dynamic rows (P3, B, C): one block of 1,024 threads per output row
+//       r. The block compacts, in hit order (warp ballots plus a block
+//       prefix, common.cuh block_compact), the sources of the hits with
+//       row[i] == r into a shared-memory list, 8,192 hits at a time, then
+//       each thread owns a column and walks the list `steps` times with
+//       its sum in a register (past one chunk, the partial sum waits in e
+//       between chunks; the same thread reads it back). Bound: the q-row
+//       gathers from L2 (steps x nh x d x 4 bytes; q stays in L2) and the
+//       reads of row[] that every block makes (nh x 4 bytes a block);
+//     - fixed row (A): every hit lands in row 0, one chain of nh x steps
+//       dependent adds per column that no split may reorder. Blocks of
+//       32 columns (one 128-byte line of a q row) spread the columns over
+//       the card; the hit sources sit in shared memory, 4,096 at a time,
+//       and while warp 0 sums a batch of 256 hits' q strips, loading 32
+//       values ahead of its adds, warps 1-7 start copying the batch after
+//       next with cp.async (16-byte pieces where q's rows are aligned;
+//       three buffers). Bound: the chain of adds (FADD latency), not L2.
+//       Rows 1..rb-1 are written as zeros;
 //   fk_probe_bsearch       (P4, probe_mosaic.py:146 `probe_scalar_bsearch`):
 //     kernel C's lookup, a lower-bound binary search in a sorted int32 table
 //     held in shared memory, one thread per query; the integer sum of the
 //     positions is taken per block and added atomically (integer addition,
-//     so the result does not depend on the order).
+//     so the result does not depend on the order). Bound: log2(n)
+//     dependent shared-memory loads per query.
 //
-// Bound on the card: these are latency probes. P3/P6 run nh dependent
-// shared-memory read-modify-writes per thread with the q row read from L2;
-// P4 runs log2(n) dependent shared-memory loads per query.
+// Every launch past 48 KB of dynamic shared memory asks for it through
+// OptIn, which calls cudaFuncSetAttribute only when a launch needs more
+// than was granted before on the device.
+
+#include <atomic>
 
 #include "common.cuh"
 
 namespace {
 
+constexpr int DEFAULT_SMEM = 48 * 1024;  // granted without an opt-in
+constexpr int MAX_DEVICES = 64;
+
+// The dynamic shared memory granted to one kernel so far, per device.
+class OptIn {
+ public:
+  // Let `kernel` launch with `bytes` of dynamic shared memory on the
+  // current device. A refusal is cleared from the runtime's error state,
+  // returned, and leaves the grant as it was.
+  template <typename K>
+  cudaError_t grant(K kernel, int bytes) {
+    if (bytes <= DEFAULT_SMEM) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::atomic<int>* mark = dev < MAX_DEVICES ? &granted_[dev] : nullptr;
+    if (mark != nullptr && bytes <= mark->load(std::memory_order_relaxed))
+      return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    if (mark != nullptr) {
+      int seen = mark->load(std::memory_order_relaxed);
+      while (seen < bytes && !mark->compare_exchange_weak(seen, bytes)) {
+      }
+    }
+    return cudaSuccess;
+  }
+
+ private:
+  std::atomic<int> granted_[MAX_DEVICES] = {};
+};
+
+OptIn scratch_opt_in, input_opt_in, fixed_opt_in, bsearch_opt_in;
+
+constexpr int SCRATCH_THREADS = 1024;
+
 __global__ void smem_scratch_kernel(int n, int32_t* __restrict__ out) {
-  extern __shared__ int32_t scratch[];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) scratch[i] = n;
+  extern __shared__ int4 scratch4[];
+  int32_t* scratch = reinterpret_cast<int32_t*>(scratch4);
+  const int4 v = make_int4(n, n, n, n);
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x) scratch4[i] = v;
+  for (int i = n / 4 * 4 + threadIdx.x; i < n; i += blockDim.x)
+    scratch[i] = n;
   __syncthreads();
   if (threadIdx.x == 0) out[0] = scratch[n - 1];
 }
@@ -52,32 +119,200 @@ __global__ void smem_input_kernel(const int32_t* __restrict__ x, int rb,
   }
 }
 
-constexpr int DYN_COLS = 32;  // columns (threads) per block
+// ---- P3 / P6 B, C: one block per output row -------------------------------
 
-__global__ void dyn_rows_kernel(const float* __restrict__ q, int d,
-                                const int32_t* __restrict__ idx,
-                                const int32_t* __restrict__ row, int nh,
-                                int rb, int src_dyn, int dst_dyn,
-                                int accumulate, int steps,
-                                float* __restrict__ e) {
-  extern __shared__ float strip[];  // (rb, DYN_COLS)
-  const int col = blockIdx.x * DYN_COLS + threadIdx.x;
-  const bool live = col < d;
-  for (int r = 0; r < rb; ++r) strip[r * DYN_COLS + threadIdx.x] = 0.0f;
+constexpr int ROW_THREADS = 1024;
+constexpr int ROW_ROUNDS = 8;  // compaction rounds per chunk of hits
+constexpr int ROW_CHUNK = ROW_THREADS * ROW_ROUNDS;  // hits per list
+
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+    dyn_rows_bucketed_kernel(const float* __restrict__ q, int d,
+                             const int32_t* __restrict__ idx,
+                             const int32_t* __restrict__ row, int nh,
+                             int src_dyn, int accumulate, int steps,
+                             float* __restrict__ e) {
+  __shared__ int32_t list[ROW_CHUNK];  // this row's sources, in hit order
+  __shared__ int scratch[33];
+  const int r = blockIdx.x;
+  float* e_row = e + static_cast<int64_t>(r) * d;
+  // every hit in one chunk: build the list once and walk it `steps` times
+  const bool one_chunk = nh <= ROW_CHUNK;
+  const int passes = one_chunk ? 1 : steps;
+  const int walks = one_chunk ? steps : 1;
+  for (int s = 0; s < passes; ++s) {
+    for (int h0 = 0; h0 == 0 || h0 < nh; h0 += ROW_CHUNK) {
+      // each thread's hits of the chunk: -1, or the source of a hit of row r
+      int src[ROW_ROUNDS];
+#pragma unroll
+      for (int k = 0; k < ROW_ROUNDS; ++k) {
+        const int i = h0 + k * ROW_THREADS + threadIdx.x;
+        src[k] = i < nh ? row[i] : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_ROUNDS; ++k) {
+        const int i = h0 + k * ROW_THREADS + threadIdx.x;
+        src[k] = src[k] == r ? (src_dyn ? idx[i] : 0) : -1;
+      }
+      int n = 0;
+#pragma unroll
+      for (int k = 0; k < ROW_ROUNDS; ++k) {
+        int count;
+        const int pos = block_compact(src[k] >= 0, scratch, &count);
+        if (pos >= 0) list[n + pos] = src[k];
+        n += count;
+      }
+      __syncthreads();  // the list is complete
+      const bool first = s == 0 && h0 == 0;
+      if (first || n > 0) {
+        for (int c = threadIdx.x; c < d; c += ROW_THREADS) {
+          const float* qc = q + c;
+          float acc = first ? 0.f : e_row[c];
+          if (accumulate) {
+            for (int w = 0; w < walks; ++w) {
+#pragma unroll 8
+              for (int j = 0; j < n; ++j)
+                acc += qc[static_cast<int64_t>(list[j]) * d];
+            }
+          } else if (n > 0) {
+            acc = qc[static_cast<int64_t>(list[n - 1]) * d];
+          }
+          e_row[c] = acc;
+        }
+      }
+      __syncthreads();  // the list is rebuilt for the next chunk
+    }
+  }
+}
+
+// ---- P6 A: every hit into row 0 ---------------------------------------------
+
+constexpr int FIX_COLS = 32;      // columns a block: one 128-byte q line
+constexpr int FIX_THREADS = 256;  // warp 0 sums, warps 1-7 copy
+constexpr int FIX_COPIERS = FIX_THREADS - 32;
+constexpr int FIX_BATCH = 256;    // hits per staged batch of q strips
+constexpr int FIX_STAGES = 3;     // strip buffers in flight
+constexpr int FIX_SRC = 4096;     // hit sources held in shared memory
+constexpr int FIX_SMEM = (FIX_STAGES * FIX_BATCH * FIX_COLS + FIX_SRC) *
+                         static_cast<int>(sizeof(float));
+constexpr int FIX_REGS = 32;      // strip values a summing lane holds
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+                 "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+                 "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// vec: q rows start on 16-byte boundaries (d % 4 == 0, q aligned), so the
+// strips are copied in 16-byte pieces, else in single floats. Batch b sits
+// in buffer b % 3: while warp 0 sums batch b, warps 1-7 start batch b + 2
+// into the buffer batch b - 1 left, and batch b + 1 is landing.
+__global__ void __launch_bounds__(FIX_THREADS)
+    dyn_rows_fixed_kernel(const float* __restrict__ q, int d,
+                          const int32_t* __restrict__ idx, int nh, int rb,
+                          int src_dyn, int accumulate, int steps, int vec,
+                          float* __restrict__ e) {
+  extern __shared__ int4 smem4[];
+  float* strips = reinterpret_cast<float*>(smem4);  // [3][FIX_BATCH][FIX_COLS]
+  int32_t* src =
+      reinterpret_cast<int32_t*>(strips + FIX_STAGES * FIX_BATCH * FIX_COLS);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * FIX_COLS;
+  const bool live = c0 + lane < d;
   if (live) {
-    for (int s = 0; s < steps; ++s) {
-#pragma unroll 4
-      for (int i = 0; i < nh; ++i) {
-        const int src = src_dyn ? idx[i] : 0;
-        const int dst = dst_dyn ? row[i] : 0;
-        const float v = q[static_cast<int64_t>(src) * d + col];
-        float* cell = strip + dst * DYN_COLS + threadIdx.x;
-        *cell = accumulate ? *cell + v : v;
+    for (int r = 1 + warp; r < rb; r += FIX_THREADS / 32)
+      e[static_cast<int64_t>(r) * d + c0 + lane] = 0.f;
+  }
+  const int shift = vec ? 3 : 5;  // log2 of the copies a strip takes
+  const int per = vec ? 4 : 1;    // floats a copy moves
+  float acc = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    for (int h0 = 0; h0 < nh; h0 += FIX_SRC) {
+      const int nc = min(FIX_SRC, nh - h0);
+      __syncthreads();  // the last chunk's sources and strips are spent
+      for (int i = threadIdx.x; i < nc; i += FIX_THREADS) {
+        if (src_dyn) {
+          cp_async<4>(src + i, idx + h0 + i);
+        } else {
+          src[i] = 0;
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const int nb = (nc + FIX_BATCH - 1) / FIX_BATCH;
+      // a copying thread's strips of batch b, as one cp.async group (an
+      // empty one past the last batch, so the groups count batches)
+      auto stage = [&](int b) {
+        if (b < nb) {
+          float* buf = strips + (b % FIX_STAGES) * FIX_BATCH * FIX_COLS;
+          const int j_end = min(FIX_BATCH, nc - b * FIX_BATCH);
+          for (int k = threadIdx.x - 32; k < j_end << shift;
+               k += FIX_COPIERS) {
+            const int j = k >> shift;
+            const int col = (k - (j << shift)) * per;
+            if (c0 + col < d) {
+              const float* from =
+                  q + static_cast<int64_t>(src[b * FIX_BATCH + j]) * d + c0 +
+                  col;
+              if (vec) {
+                cp_async<16>(buf + j * FIX_COLS + col, from);
+              } else {
+                cp_async<4>(buf + j * FIX_COLS + col, from);
+              }
+            }
+          }
+        }
+        cp_async_commit();
+      };
+      if (warp > 0) {
+        stage(0);
+        stage(1);
+      }
+      for (int b = 0; b < nb; ++b) {
+        if (warp > 0) cp_async_wait<1>();  // batch b has landed
+        __syncthreads();
+        if (warp > 0) {
+          stage(b + 2);
+        } else if (live) {
+          const float* buf =
+              strips + (b % FIX_STAGES) * FIX_BATCH * FIX_COLS + lane;
+          const int j_end = min(FIX_BATCH, nc - b * FIX_BATCH);
+          if (accumulate) {
+            // loads run ahead of the chain of adds, which keeps hit order
+            int j = 0;
+            for (; j + FIX_REGS <= j_end; j += FIX_REGS) {
+              float v[FIX_REGS];
+#pragma unroll
+              for (int k = 0; k < FIX_REGS; ++k) v[k] = buf[(j + k) * FIX_COLS];
+#pragma unroll
+              for (int k = 0; k < FIX_REGS; ++k) acc += v[k];
+            }
+            for (; j < j_end; ++j) acc += buf[j * FIX_COLS];
+          } else {
+            acc = buf[(j_end - 1) * FIX_COLS];
+          }
+        }
+        __syncthreads();  // buffer b % 3 is free for batch b + 3
       }
     }
-    for (int r = 0; r < rb; ++r)
-      e[static_cast<int64_t>(r) * d + col] = strip[r * DYN_COLS + threadIdx.x];
   }
+  if (warp == 0 && live) e[c0 + lane] = acc;
 }
 
 __global__ void bsearch_kernel(const int32_t* __restrict__ table, int n,
@@ -106,49 +341,53 @@ __global__ void bsearch_kernel(const int32_t* __restrict__ table, int n,
   if (threadIdx.x == 0) atomicAdd(out, total);
 }
 
-// Opt in to `bytes` of dynamic shared memory for `kernel`; a refusal is
-// cleared from the runtime's error state and returned.
-template <typename K>
-cudaError_t opt_in(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) cudaGetLastError();
-  return err;
-}
-
 }  // namespace
 
 extern "C" int fk_probe_smem_scratch(int n, int32_t* out, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = n * static_cast<int>(sizeof(int32_t));
-  cudaError_t err = opt_in(smem_scratch_kernel, bytes);
+  cudaError_t err = scratch_opt_in.grant(smem_scratch_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  smem_scratch_kernel<<<1, 256, bytes, static_cast<cudaStream_t>(stream)>>>(
-      n, out);
-  err = cudaGetLastError();
-  return static_cast<int>(err);
+  int threads = (n / 4 + 31) / 32 * 32;
+  if (threads > SCRATCH_THREADS) threads = SCRATCH_THREADS;
+  if (threads < 32) threads = 32;
+  smem_scratch_kernel<<<1, threads, bytes,
+                        static_cast<cudaStream_t>(stream)>>>(n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fk_probe_smem_input(const int32_t* x, int steps, int rb,
                                    int hb, int32_t* sums, void* stream) {
   const int bytes = rb * hb * static_cast<int>(sizeof(int32_t));
-  const cudaError_t err = opt_in(smem_input_kernel, bytes);
+  const cudaError_t err = input_opt_in.grant(smem_input_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   smem_input_kernel<<<steps, 256, bytes, static_cast<cudaStream_t>(stream)>>>(
       x, rb, hb, sums);
   return static_cast<int>(cudaGetLastError());
 }
 
+// dst_dyn selects the kernel: one block per output row, or column tiles of
+// the fixed row 0. q is (any rows, d), idx and row (nh,), e (rb, d).
 extern "C" int fk_probe_dyn_rows(const float* q, int d, const int32_t* idx,
                                  const int32_t* row, int nh, int rb,
                                  int src_dyn, int dst_dyn, int accumulate,
                                  int steps, float* e, void* stream) {
-  const int bytes = rb * DYN_COLS * static_cast<int>(sizeof(float));
-  const cudaError_t err = opt_in(dyn_rows_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dyn_rows_kernel<<<(d + DYN_COLS - 1) / DYN_COLS, DYN_COLS, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      q, d, idx, row, nh, rb, src_dyn, dst_dyn, accumulate, steps, e);
+  if (d <= 0 || rb <= 0 || nh < 0 || steps <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dst_dyn) {  // static shared memory only
+    dyn_rows_bucketed_kernel<<<rb, ROW_THREADS, 0, st>>>(
+        q, d, idx, row, nh, src_dyn, accumulate, steps, e);
+  } else {
+    const cudaError_t err = fixed_opt_in.grant(dyn_rows_fixed_kernel,
+                                               FIX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int vec =
+        d % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 ? 1 : 0;
+    dyn_rows_fixed_kernel<<<(d + FIX_COLS - 1) / FIX_COLS, FIX_THREADS,
+                            FIX_SMEM, st>>>(q, d, idx, nh, rb, src_dyn,
+                                            accumulate, steps, vec, e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -157,7 +396,7 @@ extern "C" int fk_probe_bsearch(const int32_t* table, int n,
                                 void* stream) {
   if (nq <= 0) return static_cast<int>(cudaSuccess);
   const int bytes = n * static_cast<int>(sizeof(int32_t));
-  const cudaError_t err = opt_in(bsearch_kernel, bytes);
+  const cudaError_t err = bsearch_opt_in.grant(bsearch_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   bsearch_kernel<<<(nq + 255) / 256, 256, bytes,
                    static_cast<cudaStream_t>(stream)>>>(table, n, queries, nq,

@@ -19,6 +19,12 @@ access patterns of the staging and embed kernels:
 Inputs come from `probe_inputs()`: the scripts' numpy arrays and seeds.
 Each kernel (csrc/probes.cu) has a plain PyTorch version beside it, which
 CPU tensors take; the entry point runs on a CUDA device only.
+
+The P3/P6 kernel sums every output cell over its own row's hits in hit
+order (`dyn_rows_order`: a stable bucketing by row, or all hits into row 0
+in mode A), the TPU's sequential order, so on the card it equals
+`_dyn_rows_replay`, that schedule replayed on tensors, bitwise; the plain
+`index_add_` version agrees within a sum-order tolerance.
 """
 
 from __future__ import annotations
@@ -82,10 +88,13 @@ def _smem_scratch_plain(n: int, device: torch.device) -> torch.Tensor:
 
 def smem_scratch(n: int, device: torch.device) -> torch.Tensor:
     """(1, 1) int32 = n from a block holding n int32 of shared memory; on
-    a CUDA device a size past the opt-in limit raises RuntimeError."""
+    a CUDA device a size past the opt-in limit raises RuntimeError. The
+    launch path is a few microseconds of host work against ~1 us of device
+    work, so it is kept lean: sizes as separate ints (a shape tuple costs
+    torch.empty ~1 us more) and the raw stream handle."""
     if device.type == "cpu":
         return _smem_scratch_plain(n, device)
-    out = torch.empty((1, 1), dtype=torch.int32, device=device)
+    out = torch.empty(1, 1, dtype=torch.int32, device=device)
     _build.launch("fk_probe_smem_scratch", n, out.data_ptr(),
                   _build.stream(device))
     smem_scratch.launches += 1
@@ -201,11 +210,52 @@ def _dyn_rows_plain(q: torch.Tensor, idx: torch.Tensor, row: torch.Tensor,
     return e
 
 
+def dyn_rows_order(row: torch.Tensor, mode: str) -> list[torch.Tensor]:
+    """Each output row's hits (int64 hit indices) in the order the kernel
+    takes them: a stable bucketing of `row` in the dynamic-row modes (P3,
+    B, C), and every hit, in order, into row 0 in mode A."""
+    if DYN_MODES[mode][1]:
+        rows = row.long()
+        counts = torch.bincount(rows, minlength=E_ROWS)
+        return list(torch.split(torch.argsort(rows, stable=True),
+                                counts.tolist()))
+    none = torch.zeros(0, dtype=torch.int64, device=row.device)
+    return ([torch.arange(row.shape[0], device=row.device)]
+            + [none] * (E_ROWS - 1))
+
+
+def _dyn_rows_replay(q: torch.Tensor, idx: torch.Tensor, row: torch.Tensor,
+                     mode: str) -> torch.Tensor:
+    """The kernel's schedule replayed on tensors, a test oracle and not the
+    plain version: e from zero, then each pass walks every row's hits in
+    `dyn_rows_order` (hit j of every row at step j), adding the source q
+    row in float32 (or storing it in mode B), so each cell's value is
+    taken in the same order as the kernel's."""
+    src_dyn, _, accumulate, steps = DYN_MODES[mode]
+    lists = dyn_rows_order(row, mode)
+    width = max(len(h) for h in lists)
+    hits = torch.full((len(lists), width), -1, dtype=torch.int64,
+                      device=row.device)
+    for r, h in enumerate(lists):
+        hits[r, :len(h)] = h
+    src = idx.long() if src_dyn else torch.zeros_like(idx, dtype=torch.int64)
+    e = torch.zeros((E_ROWS, q.shape[1]), dtype=torch.float32,
+                    device=q.device)
+    for _ in range(steps):
+        for j in range(width):
+            rows = (hits[:, j] >= 0).nonzero().squeeze(1)
+            v = q[src[hits[rows, j]]]
+            e[rows] = e[rows] + v if accumulate else v
+    return e
+
+
 def dyn_rows(q: torch.Tensor, idx: torch.Tensor, row: torch.Tensor,
              mode: str) -> torch.Tensor:
     """(E_ROWS, d) float32 e from zero, then for each pass and each hit i in
     order e[dst] = e[dst] + q[src] (or e[dst] = q[src] in mode B), with src
-    = idx[i] or 0 and dst = row[i] or 0 as DYN_MODES[mode] says."""
+    = idx[i] or 0 and dst = row[i] (in [0, E_ROWS)) or 0 as DYN_MODES[mode]
+    says. On the card every cell is summed in hit order, so the result
+    equals `_dyn_rows_replay` bitwise."""
     if mode not in DYN_MODES:
         raise ValueError(f"mode {mode!r} is not one of {sorted(DYN_MODES)}")
     _check_int32(idx, row)

@@ -185,6 +185,22 @@ def test_probe_smem_scratch_accepts_exactly_the_opt_in_limit(cuda):
         steps, shared_memory_limit(cuda)) == []
 
 
+def test_probe_smem_scratch_second_ladder(cuda):
+    """The opt-in granted by the first ladder is cached: a second ladder in
+    the same process still accepts every size within the limit, refuses the
+    first past it, and the 16 KB size returns n after each refusal."""
+    limit = shared_memory_limit(cuda)
+    for _ in range(2):
+        assert probes.scratch_ladder_problems(
+            probes.probe_smem_scratch(cuda), limit) == []
+        n = probes.SCRATCH_SIZES[0]
+        assert int(probes.smem_scratch(n, cuda)[0, 0]) == n
+    largest = max(n for n in probes.SCRATCH_SIZES if 4 * n <= limit)
+    assert int(probes.smem_scratch(largest, cuda)[0, 0]) == largest
+    with pytest.raises(RuntimeError, match="fk_probe_smem_scratch"):
+        probes.smem_scratch(limit // 4 + 1, cuda)
+
+
 def test_probe_smem_input_matches_plain(cuda, probe_tensors):
     x = probe_tensors["x"]
     got = probes.smem_input(x.to(cuda))
@@ -192,20 +208,52 @@ def test_probe_smem_input_matches_plain(cuda, probe_tensors):
     assert int(got[0]) == 1818744
 
 
-@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
-def test_probe_dyn_rows_matches_plain(cuda, probe_tensors, mode):
-    q, idx, row = (probe_tensors[k] for k in ("q", "idx", "row"))
+def _check_dyn_rows(cuda, q, idx, row, mode):
+    """The kernel equals the hit-order replay bitwise and the plain
+    index_add_ version within the sum-order tolerance (mode B bitwise)."""
     want = probes._dyn_rows_plain(q, idx, row, mode)
+    before = probes.dyn_rows.launches
     got = probes.dyn_rows(q.to(cuda), idx.to(cuda), row.to(cuda),
                           mode).cpu()
+    assert probes.dyn_rows.launches == before + 1
+    assert torch.equal(got, probes._dyn_rows_replay(q, idx, row, mode))
     if mode == "B":
         assert torch.equal(got, want)
         return
-    steps = probes.DYN_MODES[mode][3]
-    terms = steps * (idx.shape[0] if mode == "A"
-                     else int(torch.bincount(row.long()).max()))
+    lists = probes.dyn_rows_order(row, mode)
+    terms = probes.DYN_MODES[mode][3] * max(len(h) for h in lists)
     atol = 1e-6 * terms * float(q.abs().max())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+
+
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_probe_dyn_rows_matches_plain(cuda, probe_tensors, mode):
+    _check_dyn_rows(cuda, *(probe_tensors[k] for k in ("q", "idx", "row")),
+                    mode)
+
+
+@pytest.mark.parametrize("kind", ["eight_rows", "one_row", "wide",
+                                  "ragged"])
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_probe_dyn_rows_long_lists(cuda, mode, kind):
+    """Hit lists far longer than the probe inputs' ~16: 8 rows of ~512
+    hits and every hit in one row; then 10,000 hits (past one shared-memory
+    chunk of either kernel) over 1,500 columns (past one block's columns,
+    ragged tile), and 5,000 hits over 1,001 columns (q rows off 16-byte
+    boundaries: mode A copies single floats)."""
+    rng = np.random.default_rng(11)
+    nh, d = {"wide": (10000, 1500), "ragged": (5000, 1001)}.get(
+        kind, (4096, 1024))
+    q = torch.from_numpy(rng.normal(size=(512, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 512, nh, dtype=np.int32))
+    if kind == "eight_rows":
+        row = rng.choice(np.arange(3, probes.E_ROWS, 31)[:8], nh)
+    elif kind == "one_row":
+        row = np.full(nh, 200)
+    else:
+        row = rng.integers(0, probes.E_ROWS, nh)
+    _check_dyn_rows(cuda, q, idx, torch.from_numpy(row.astype(np.int32)),
+                    mode)
 
 
 def test_probe_bsearch_matches_plain(cuda, probe_tensors):

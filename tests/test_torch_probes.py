@@ -7,7 +7,10 @@ Each JAX probe runs unchanged with `pallas_call` wrapped so that it
 interprets on the CPU and records what every call returns. Integer probes
 (P1, P2, P4, P5) and the float store P6-B must agree bitwise; the float
 accumulations (P3, P6-A, P6-C) to rtol 1e-5 and atol 1e-6 * (terms summed
-per output) * max|q|, since float32 sums may be taken in another order."""
+per output) * max|q|, since float32 sums may be taken in another order.
+The P3/P6 kernel's own order, replayed on tensors (`_dyn_rows_replay` over
+`dyn_rows_order`), must equal the interpreted probes bitwise in every
+mode."""
 
 from __future__ import annotations
 
@@ -140,6 +143,76 @@ def test_p6_dyn_variants(interpret, capsys, port):
     np.testing.assert_array_equal(got["B"].numpy(), cb[0])
     _assert_close_sums(got["C"].numpy(), cc[0],
                        int(np.bincount(a["row"]).max()), a["q"])
+
+
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_dyn_rows_order_is_a_stable_bucketing(mode):
+    row = torch.from_numpy(probes.probe_inputs()["row"])
+    lists = probes.dyn_rows_order(row, mode)
+    assert len(lists) == probes.E_ROWS
+    if mode == "A":
+        assert torch.equal(lists[0], torch.arange(row.shape[0]))
+        assert all(len(h) == 0 for h in lists[1:])
+        return
+    order = np.argsort(row.numpy(), kind="stable")
+    np.testing.assert_array_equal(torch.cat(lists).numpy(), order)
+    for r, h in enumerate(lists):
+        assert torch.all(row[h] == r) and torch.all(h[1:] > h[:-1])
+
+
+def _pallas_dyn(mode: str, records) -> list[np.ndarray]:
+    """Every output of the Pallas probe of `mode` run in interpret mode."""
+    if mode == "P3":
+        probe_mosaic.probe_dyn_sublane()
+        (calls,) = records
+        return calls
+    probe_mosaic2.probe_dyn_variants()
+    return records["ABC".index(mode)]
+
+
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_dyn_rows_replay_equals_pallas_bitwise(interpret, capsys, mode):
+    """The kernel's hit order replayed on tensors gives the interpreted
+    TPU probe's output bit for bit (its first call and the timed ones).
+    test_p3_dyn_sublane and test_p6_dyn_variants hold the plain index_add_
+    version to the sum-order tolerance."""
+    outs = _pallas_dyn(mode, interpret)
+    _no_fail(capsys)
+    a = probes.probe_inputs()
+    q, idx, row = (torch.from_numpy(a[k]) for k in ("q", "idx", "row"))
+    replay = probes._dyn_rows_replay(q, idx, row, mode).numpy()
+    for out in outs:
+        np.testing.assert_array_equal(replay, out)
+
+
+def skewed_rows(kind: str, nh: int = 4096) -> np.ndarray:
+    """Rows with long hit lists: 8 rows of ~nh/8 hits, or all in one row."""
+    rng = np.random.default_rng(7)
+    if kind == "eight":
+        return rng.choice(np.arange(3, probes.E_ROWS, 31)[:8], nh).astype(
+            np.int32)
+    return np.full(nh, 200, dtype=np.int32)
+
+
+@pytest.mark.parametrize("kind", ["eight", "one"])
+@pytest.mark.parametrize("mode", sorted(probes.DYN_MODES))
+def test_dyn_rows_replay_on_long_lists(mode, kind):
+    """Hit lists far longer than the probe inputs' ~16: the replay agrees
+    with the plain version within the sum-order tolerance, and in mode B
+    bitwise."""
+    a = probes.probe_inputs()
+    row = skewed_rows(kind)
+    q, idx = torch.from_numpy(a["q"]), torch.from_numpy(a["idx"])
+    lists = probes.dyn_rows_order(torch.from_numpy(row), mode)
+    if mode != "A":
+        assert max(len(h) for h in lists) >= 450
+    got = probes._dyn_rows_replay(q, idx, torch.from_numpy(row), mode)
+    want = probes._dyn_rows_plain(q, idx, torch.from_numpy(row), mode)
+    if mode == "B":
+        assert torch.equal(got, want)
+        return
+    terms = probes.DYN_MODES[mode][3] * max(len(h) for h in lists)
+    _assert_close_sums(got.numpy(), want.numpy(), terms, a["q"])
 
 
 def test_entry_point_prints_every_probe(capsys):

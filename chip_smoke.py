@@ -10,23 +10,31 @@ Phases; any failure exits non-zero and prints no result line:
      shapes of the main-path run below: canonical_sample and
      select_candidates must match bitwise (dropped counts included),
      membership_embed to rtol 1e-5, atol 1e-6 * max|mags| * hits (float32
-     sums taken in another order);
+     sums taken in another order), also at d = 32, where its time is
+     mostly the library lookups (logged beside d = 512's);
   4. drive the main path through fedrann_tpu_torch.cli.main on ~7,500
      simulated reads (5 Mb genome, 12x, 8 kb, 5% error) with the flags of
      the bench.py workload (k=15, 5% sampling, d=512, 50 neighbors), with every
      kernel's launch count reset just before: overlaps.tsv must hold 50
      neighbor slots per embedding row less the self rows, every kernel must
-     have launched, and the truth recall of pairs overlapping >= 4 kb must
-     reach 0.9; kernel B takes its one-block-per-row path there;
+     have launched (each path of kernel B exactly where its plan picks
+     it), and the truth recall of pairs overlapping >= 4 kb must reach
+     0.9; kernel B takes its one-block-per-row path there;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
-     (a) kernel B on its device-memory path against its plain version,
-         bitwise, at the first staging chunk of the 262,144-base bucket
-         (5% sampling) and at a keep_all chunk of the 32,768-base bucket;
+     (a) kernel B against its plain version, bitwise, at the first staging
+         chunk of the 262,144-base bucket (5% sampling) on the path its
+         plan picks, with the device-memory path timed and checked beside
+         it when that is the one-block path, and at a keep_all chunk of
+         the 32,768-base bucket (the device-memory path);
      (b) the CLI on the long reads with the launch counts reset just
-         before: every kernel, kernel B's long path included, must launch,
-         overlaps.tsv is checked as in phase 4, and the truth recall of
-         pairs overlapping >= 75 kb must reach 0.9;
+         before, checked as in phase 4 (kernel B's paths as its plan
+         picks them for the two buckets), with the truth recall of pairs
+         overlapping >= 75 kb;
+     (c) the CLI on ~40 simulated reads of ~40 kb (200 kb genome, 8x) at
+         --kmer-sample-fraction 1.0, whose keep_all rows only kernel B's
+         device-memory path can stage: it must launch there, recall of
+         pairs overlapping >= 20 kb;
   6. the capability probes (fedrann_tpu_torch.probes, the counterparts of
      bench/probe_mosaic.py and bench/probe_mosaic2.py): each probe kernel
      against its plain version (integers and the P6-B store bitwise, float
@@ -41,7 +49,10 @@ Phases; any failure exits non-zero and prints no result line:
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the run of its own path), errors and times; the last is
+the run of its own path), errors, times, the bound (the larger of the
+bytes the function must move over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s, counted from this run's inputs) and the time of one
+PyTorch call computing the same function where there is one; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -63,10 +74,15 @@ MIN_OVERLAP, MIN_RECALL = 4000, 0.9
 LONG_GENOME, LONG_COVERAGE, LONG_READ_LEN, LONG_MIN_OVERLAP = (
     10_000_000, 10, 150_000, 75_000)
 KEEP_ALL_BUCKET = 32768
+KEEP_ALL_GENOME, KEEP_ALL_READ_LEN = 200_000, 40_000
 STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
 
 
 COUNTERS: dict = {}
+HAND_KERNELS: set = set()  # __global__ names of csrc/*.cu (is_hand)
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): device memory bytes/s, float32 operations/s outside tensor cores
+PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
 CSRC = "fedrann_tpu_torch/csrc/"
 # kernel -> (source, the pl.pallas_call sites it replaces)
 SOURCES = {
@@ -96,6 +112,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def log_kernel(name: str, r: dict, card: str) -> None:
+    library = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+    log(f"kernel {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms, "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of it), library {library}, "
+        f"max abs error {r['max_abs_err']} [{card}]")
+
+
 def time_cuda(fn, reps: int) -> float:
     """Milliseconds per call of fn on the current stream (one warm-up)."""
     import torch
@@ -112,20 +137,69 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def is_hand(name: str) -> bool:
+    """Whether a profiler kernel name is one of the hand kernels: a
+    __global__ function of csrc/*.cu, each in an anonymous namespace at the
+    top level (a template's name starts with its return type)."""
+    import re
+
+    if not HAND_KERNELS:
+        for src in sorted(os.listdir(os.path.join(HERE, CSRC))):
+            if src.endswith(".cu"):
+                with open(os.path.join(HERE, CSRC, src)) as f:
+                    HAND_KERNELS.update(re.findall(
+                        r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?"
+                        r"(\w+)\(", f.read()))
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", name)
+    return m is not None and m.group(1) in HAND_KERNELS
+
+
+def bound(n_bytes: float, fp32_ops: float = 0.0) -> dict:
+    """The least time the card could take for a function that must move
+    n_bytes (each input read once, each output written once) and do
+    fp32_ops float32 operations, and which of the two bounds it."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = fp32_ops / PEAK_FP32 * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def embed_work(staged, lib_codes, signs, d: int) -> tuple[int, int]:
+    """(distinct library rows the staged rows hit, float32 adds those hits
+    need): each hit adds the nonzero fields of its paired sign row."""
+    import torch
+
+    from fedrann_tpu_torch.kmers.membership import read_hits_staged
+    from fedrann_tpu_torch.project.embed import _unpack_sign_rows
+
+    lib_size = lib_codes.shape[0]
+    hits, _ = read_hits_staged(staged, lib_codes)
+    hits = hits[hits < 2 * lib_size]
+    rows = torch.where(hits >= lib_size, hits - lib_size, hits)
+    nonzero = torch.cat([(_unpack_sign_rows(signs[s : s + 8192], 2 * d) != 0)
+                         .sum(dim=1) for s in range(0, lib_size, 8192)])
+    return int(torch.unique(rows).numel()), int(nonzero[rows].sum())
+
+
 def device_us(fn, reps: int, hand: bool, tries: int = 3) -> str:
     """Device microseconds per call of fn from torch.profiler, as text: the
-    time of its hand kernel (csrc/*.cu, anonymous namespace; one launch per
-    call) when `hand`, else of every kernel and copy it ran.
+    time of its hand kernels (csrc/*.cu, anonymous namespace), each named
+    with its share when a call launches more than one, when `hand`, else
+    of every kernel and copy it ran.
 
     The profiler can drop activity records (seen on the H100: 10 of 20
     launches kept in a session), so a session is taken as whole only when
-    it holds one hand kernel per call (`hand`) or a whole multiple of
-    `reps` records (the plain version); an incomplete one is taken again, up to
-    `tries` sessions. If none was whole, the last is reported with the
-    count it kept: the mean per kept launch for a hand kernel, and for the
-    plain version the kept time over `reps`, which is then a lower bound.
-    The launches themselves are checked by the wrappers' counts and by
-    the comparisons, not here."""
+    it holds a whole multiple of `reps` launches of each hand kernel
+    (`hand`) or of `reps` records (the plain version); an incomplete one is
+    taken again, up to `tries` sessions. If none was whole, the last is
+    reported with the count it kept: the mean per kept launch for a hand
+    kernel, and for the plain version the kept time over `reps`, which is
+    then a lower bound. The launches themselves are checked by the
+    wrappers' counts and by the comparisons, not here."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -138,16 +212,28 @@ def device_us(fn, reps: int, hand: bool, tries: int = 3) -> str:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and (
-                  not hand or e.name.startswith("(anonymous namespace)::"))]
-        if (len(us) == reps) if hand else (us and len(us) % reps == 0):
-            return f"{sum(us) / reps:.3f}"
-    if not us:
+        runs = [(e.name, e.time_range.end - e.time_range.start)
+                for e in prof.events() if e.device_type == DeviceType.CUDA
+                and (not hand or is_hand(e.name))]
+        per_name: dict[str, list] = {}
+        for name, us in runs:
+            per_name.setdefault(name.split("::")[1].split("(")[0], []).append(
+                us)
+        whole = (all(len(v) % reps == 0 for v in per_name.values()) if hand
+                 else len(runs) % reps == 0)
+        if runs and whole:
+            total = f"{sum(us for _, us in runs) / reps:.3f}"
+            if hand and len(per_name) > 1:
+                total += " (" + " + ".join(
+                    f"{n} {sum(v) / reps:.3f}"
+                    for n, v in per_name.items()) + ")"
+            return total
+    if not runs:
         return f"not measured (the profiler kept no record in {tries} tries)"
-    per = sum(us) / (len(us) if hand else reps)
+    per = (sum(sum(v) / len(v) for v in per_name.values()) if hand
+           else sum(us for _, us in runs) / reps)
     return (f"{per:.3f}{'' if hand else ' or more'} (the profiler kept "
-            f"{len(us)} records of {reps} calls)")
+            f"{len(runs)} records of {reps} calls)")
 
 
 def host_us(fn, reps: int = 200, rounds: int = 9) -> float:
@@ -191,7 +277,7 @@ def p1_host_split(dev, n: int) -> dict:
     }
 
 
-def check_kernels(fasta: str, out_dir: str, dev) -> dict:
+def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     """Phase 3: each kernel vs its plain version at the main-path shapes
     (the first staging chunk of the largest length bucket)."""
     import torch
@@ -236,7 +322,8 @@ def check_kernels(fasta: str, out_dir: str, dev) -> dict:
         max_abs_err=0.0,
         ms=time_cuda(lambda: canonical_sample(bases, k, seed, thr, keep_all), 10),
         plain_ms=time_cuda(
-            lambda: _canonical_sample_plain(bases, k, seed, thr, keep_all), 3))
+            lambda: _canonical_sample_plain(bases, k, seed, thr, keep_all), 3),
+        library_ms=None, **bound(nbytes(bases, slots)))
 
     staged, dropped = select_candidates(slots, hit_buffer, keep_all, block_cap)
     staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
@@ -248,7 +335,8 @@ def check_kernels(fasta: str, out_dir: str, dev) -> dict:
         ms=time_cuda(lambda: select_candidates(slots, hit_buffer, keep_all,
                                                block_cap), 10),
         plain_ms=time_cuda(lambda: _select_candidates_plain(
-            slots, hit_buffer, keep_all, block_cap), 3))
+            slots, hit_buffer, keep_all, block_cap), 3),
+        library_ms=None, **bound(nbytes(slots, staged, dropped)))
 
     library = build_library([staged], config.kmer_min_multiplicity,
                             config.kmer_sample_fraction, seed)
@@ -271,22 +359,57 @@ def check_kernels(fasta: str, out_dir: str, dev) -> dict:
             and torch.allclose(out, out_p, rtol=1e-5, atol=atol)):
         fail(f"membership_embed differs from its plain version: max abs "
              f"error {err} (atol {atol})")
+    d = config.embedding_dimension
+    distinct, adds = embed_work(staged, library.codes, signs, d)
     log(f"membership_embed: library {library.size} k-mers, "
-        f"mean hits/row {float(n_hits.float().mean()):.1f}, max abs error "
+        f"mean hits/row {float(n_hits.float().mean()):.1f}, "
+        f"{distinct} distinct library rows hit, {adds} float32 adds "
+        f"(nonzero sign fields of the hit rows); max abs error "
         f"{err} (atol {atol})")
+    # bytes: staged rows, targets, the library, the distinct sign rows and
+    # magnitudes hit; out's rows and n_hits written
+    embed_bytes = (nbytes(staged, targets, library.codes, out, n_hits)
+                   + distinct * (signs.shape[1] * 4 + 4))
     report["membership_embed"] = dict(
         max_abs_err=err,
         ms=time_cuda(lambda: membership_embed(staged, library.codes, signs,
                                               mags, targets, out), 10),
         plain_ms=time_cuda(lambda: _membership_embed_plain(
-            staged, library.codes, signs, mags, targets, out_p), 3))
+            staged, library.codes, signs, mags, targets, out_p), 3),
+        library_ms=None, **bound(embed_bytes, adds))
+    # where kernel C's time goes: at d = 32 the accumulation is 1/16 of
+    # d = 512's, so its time is mostly the lookups and the compaction
+    signs32, mags32 = build_precompute_signs(
+        library.counts, 32, config.projection_seed, config.projection_density)
+    out32 = torch.zeros((2 * r, 32), device=dev)
+    membership_embed(staged, library.codes, signs32, mags32, targets, out32)
+    out32_p = torch.zeros_like(out32)
+    _membership_embed_plain(staged, library.codes, signs32, mags32, targets,
+                            out32_p)
+    if not torch.allclose(out32, out32_p, rtol=1e-5, atol=1e-6 * float(
+            mags32.abs().max()) * max(int(n_hits.max()), 1)):
+        fail("membership_embed at d = 32 differs from its plain version")
+    ms32 = time_cuda(lambda: membership_embed(
+        staged, library.codes, signs32, mags32, targets, out32), 10)
+    log(f"membership_embed split: d=32 {ms32:.4f} ms, d={d} "
+        f"{report['membership_embed']['ms']:.4f} ms per call; device us "
+        f"per launch: d=32 " + device_us(lambda: membership_embed(
+            staged, library.codes, signs32, mags32, targets, out32), 10,
+            True) + f", d={d} " + device_us(lambda: membership_embed(
+                staged, library.codes, signs, mags, targets, out), 10, True)
+        + ", select_candidates " + device_us(lambda: select_candidates(
+            slots, hit_buffer, keep_all, block_cap), 10, True)
+        + f" [{card}]")
     return report
 
 
 def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
-    """Phase 5a: kernel B's long-row path vs its plain version at the
-    first staging chunk of the 262,144-base bucket and at a keep_all chunk
-    of the 32,768-base bucket."""
+    """Phase 5a: kernel B against its plain version, bitwise, at the first
+    staging chunk of the 262,144-base bucket (5% sampling) and at a keep_all
+    chunk of the 32,768-base bucket, on the path the plan picks. Where the
+    plan keeps a row in one block, the device-memory path is timed and
+    checked beside it at the same shape; the keep_all chunk, which only the
+    device-memory path can stage, is that path's report."""
     import numpy as np
     import torch
 
@@ -301,6 +424,7 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
     )
     from fedrann_tpu_torch.kmers.membership import (
         _select_candidates_plain,
+        _select_on_card,
         select_candidates,
         stage_launch_plan,
     )
@@ -318,10 +442,11 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
     rng = np.random.default_rng(SIM_SEED)
     keep_all_bases = rng.integers(0, 4, (keep_all_rows, KEEP_ALL_BUCKET),
                                   dtype=np.uint8)
-    cases = [("select_candidates_long", bucket.bases, config),
-             ("select_candidates_long_keep_all", keep_all_bases,
+    cases = [("select_candidates_262144", bucket.bases, config),
+             ("select_candidates_long", keep_all_bases,
               config_from_args(["-i", fasta, "-o", out_dir, *FLAGS,
                                 "--kmer-sample-fraction", "1.0"]))]
+    limit = shared_memory_limit(dev)
     report = {}
     for name, bases_np, cfg in cases:
         length = bases_np.shape[1]
@@ -329,36 +454,54 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
         bases = torch.from_numpy(bases_np[:rows]).to(dev)
         hit_buffer, keep_all, block_cap = pipeline.staging_params(length, cfg)
         plan = stage_launch_plan(length - k + 1, hit_buffer, keep_all,
-                                 block_cap, shared_memory_limit(dev))
-        if not plan.long:
-            fail(f"{name}: the plan keeps {length}-base rows in one block")
+                                 block_cap, limit)
         slots = canonical_sample(bases, k, seed, thr, keep_all)
-        before = select_candidates.long_launches
-        staged, dropped = select_candidates(slots, hit_buffer, keep_all,
-                                            block_cap)
         staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
                                                        keep_all, block_cap)
-        torch.cuda.synchronize()
-        if select_candidates.long_launches != before + 1:
-            fail(f"{name}: kernel B did not take its long-row path")
-        if not (torch.equal(staged, staged_p)
-                and torch.equal(dropped, dropped_p)):
-            fail(f"{name}: kernel B differs from its plain version in "
-                 f"{int((staged != staged_p).sum())} slots and "
-                 f"{int((dropped != dropped_p).sum())} dropped counts")
-        log(f"{name}: rows {tuple(slots.shape)} keep_all={keep_all} "
-            f"hit_buffer={hit_buffer} block_cap={block_cap}; passes "
-            f"{[p for p, _ in plan.passes]}, chunk {plan.chunk} x "
-            f"{plan.n_chunks}; bitwise equal, dropped "
-            f"{int(dropped.sum())}")
-        report[name] = dict(
-            max_abs_err=0.0,
-            ms=time_cuda(lambda: select_candidates(slots, hit_buffer,
-                                                   keep_all, block_cap), 10),
-            plain_ms=time_cuda(lambda: _select_candidates_plain(
-                slots, hit_buffer, keep_all, block_cap), 3))
-        log(f"kernel {name}: {report[name]['ms']:.4f} ms vs plain "
-            f"{report[name]['plain_ms']:.4f} ms [{card}]")
+        # the plan's path; then, for a row kept in one block, the
+        # device-memory path the plan would pick with less shared memory
+        plans = [plan] if plan.long else [plan, stage_launch_plan(
+            length - k + 1, hit_buffer, keep_all, block_cap, plan.smem - 8)]
+        for i, p in enumerate(plans):
+            counter = "long_launches" if p.long else "launches"
+            before = getattr(select_candidates, counter)
+            staged, dropped = (
+                select_candidates(slots, hit_buffer, keep_all, block_cap)
+                if i == 0 else _select_on_card(slots, hit_buffer, p))
+            torch.cuda.synchronize()
+            if i == 0 and getattr(select_candidates, counter) != before + 1:
+                fail(f"{name}: kernel B did not take the path its plan "
+                     f"picks ({counter})")
+            if not (torch.equal(staged, staged_p)
+                    and torch.equal(dropped, dropped_p)):
+                fail(f"{name}: kernel B ({counter}) differs from its plain "
+                     f"version in {int((staged != staged_p).sum())} slots "
+                     f"and {int((dropped != dropped_p).sum())} dropped "
+                     "counts")
+            ms = time_cuda(lambda: _select_on_card(slots, hit_buffer, p), 10)
+            dev_us = device_us(lambda: _select_on_card(slots, hit_buffer, p),
+                               10, True)
+            log(f"{name}: rows {tuple(slots.shape)} keep_all={keep_all} "
+                f"hit_buffer={hit_buffer} block_cap={block_cap}; passes "
+                f"{[q for q, _ in p.passes]}"
+                + (f", chunk {p.chunk} x {p.n_chunks}" if p.long else
+                   f", {p.smem} B of shared memory")
+                + f"; bitwise equal, dropped {int(dropped.sum())}; "
+                f"{ms:.4f} ms, device {dev_us} us per launch [{card}]")
+            if i == 0:
+                report[name] = dict(
+                    max_abs_err=0.0, ms=ms,
+                    plain_ms=time_cuda(lambda: _select_candidates_plain(
+                        slots, hit_buffer, keep_all, block_cap), 3),
+                    library_ms=time_cuda(lambda: torch.sort(
+                        slots, dim=1).values[:, :hit_buffer], 10)
+                    if keep_all else None,
+                    **bound(nbytes(slots, staged, dropped)))
+        log_kernel(name, report[name], card)
+    if not stage_launch_plan(KEEP_ALL_BUCKET - k + 1, KEEP_ALL_BUCKET - k + 1,
+                             True, None, limit).long:
+        fail("keep_all rows of the 32,768-base bucket fit one block: the "
+             "device-memory path has no case here")
     return report
 
 
@@ -385,7 +528,10 @@ def check_probes(dev, card: str) -> dict:
         max_abs_err=0.0,
         ms=time_cuda(lambda: probes.smem_scratch(n_max, dev), 20),
         plain_ms=time_cuda(lambda: probes._smem_scratch_plain(n_max, dev),
-                           20))}
+                           20),
+        library_ms=time_cuda(lambda: torch.full(
+            (1, 1), n_max, dtype=torch.int32, device=dev), 20),
+        **bound(4))}
     for n in (probes.SCRATCH_SIZES[0], n_max):
         dev_us = device_us(lambda n=n: probes.smem_scratch(n, dev), 20, True)
         plain_us = device_us(lambda n=n: probes._smem_scratch_plain(n, dev),
@@ -402,12 +548,24 @@ def check_probes(dev, card: str) -> dict:
         fail(f"P2/P5 smem_input {int(got[0])}, plain {int(want[0])}")
     report["fk_probe_smem_input"] = dict(
         max_abs_err=0.0, ms=time_cuda(lambda: probes.smem_input(x), 20),
-        plain_ms=time_cuda(lambda: probes._smem_input_plain(x), 20))
+        plain_ms=time_cuda(lambda: probes._smem_input_plain(x), 20),
+        library_ms=None,
+        **bound(nbytes(x) + 4 * (x.shape[0] // probes.INPUT_ROWS)))
 
     q, idx, row = t["q"], t["idx"], t["row"]
     qmax = float(q.abs().max())
     hits_per_row = int(torch.bincount(row.long()).max())
     worst = 0.0
+    e_lib = torch.zeros((probes.E_ROWS, q.shape[1]), device=dev)
+    gathered = q[idx.long()]
+    library = {  # one PyTorch call per mode, the source rows gathered first
+        "P3": lambda: e_lib.index_add_(0, row.long(), gathered, alpha=2.0),
+        "A": lambda: e_lib.index_add_(0, torch.zeros_like(row.long()),
+                                      q[:1].expand(idx.shape[0], -1)),
+        "B": lambda: e_lib.index_put_((row.long(),), q[:1].expand(
+            idx.shape[0], -1)),
+        "C": lambda: e_lib.index_add_(0, row.long(), gathered),
+    }
     for mode, (_, dst_dyn, _, steps_) in sorted(probes.DYN_MODES.items()):
         got = probes.dyn_rows(q, idx, row, mode)
         replay = probes._dyn_rows_replay(host["q"], host["idx"], host["row"],
@@ -434,15 +592,20 @@ def check_probes(dev, card: str) -> dict:
                            20, True)
         plain_us = device_us(
             lambda m=mode: probes._dyn_rows_plain(q, idx, row, m), 20, False)
+        lib_ms = time_cuda(library[mode], 20)
         log(f"dyn_rows {mode}: bitwise equal to the hit-order replay; max "
             f"abs error against plain {err}; {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms per call, device {dev_us} us vs plain "
-            f"{plain_us} us per call [{card}]")
+            f"{plain_ms:.4f} ms vs library {lib_ms:.4f} ms per call, device "
+            f"{dev_us} us vs plain {plain_us} us per call [{card}]")
+    steps_p3 = probes.DYN_MODES["P3"][3]
     report["fk_probe_dyn_rows"] = dict(
         max_abs_err=worst,
         ms=time_cuda(lambda: probes.dyn_rows(q, idx, row, "P3"), 20),
         plain_ms=time_cuda(lambda: probes._dyn_rows_plain(
-            q, idx, row, "P3"), 20))
+            q, idx, row, "P3"), 20),
+        library_ms=time_cuda(library["P3"], 20),
+        **bound(nbytes(q, idx, row, e_lib),
+                steps_p3 * idx.shape[0] * q.shape[1]))
 
     table, queries = t["table"], t["queries"]
     got, want = probes.bsearch(table, queries), probes._bsearch_plain(
@@ -453,11 +616,10 @@ def check_probes(dev, card: str) -> dict:
         max_abs_err=0.0,
         ms=time_cuda(lambda: probes.bsearch(table, queries), 20),
         plain_ms=time_cuda(lambda: probes._bsearch_plain(table, queries),
-                           20))
+                           20),
+        library_ms=None, **bound(nbytes(table, queries) + 4))
     for name in probes.WRAPPERS:
-        r = report[name]
-        log(f"kernel {name}: {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} "
-            f"ms, max abs error {r['max_abs_err']} [{card}]")
+        log_kernel(name, report[name], card)
     return report
 
 
@@ -479,12 +641,34 @@ def drive_probes() -> dict:
     return launches
 
 
+def stage_paths(sim, flags: list[str], dev) -> set[str]:
+    """Kernel B's paths (names in COUNTERS) that its plan picks for the
+    buckets of `sim`'s reads staged with `flags`."""
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.device import shared_memory_limit
+    from fedrann_tpu_torch.io.fastx import FastxRecord
+    from fedrann_tpu_torch.io.packing import pack_reads
+    from fedrann_tpu_torch.kmers.membership import stage_launch_plan
+
+    config = config_from_args(["-i", "-", "-o", "-", *flags])
+    packed = pack_reads([FastxRecord(n, q) for n, q in
+                         zip(sim.names, sim.sequences)], None)
+    return {"select_candidates_long" if stage_launch_plan(
+        b.length - config.kmer_size + 1,
+        *pipeline.staging_params(b.length, config),
+        shared_memory_limit(dev)).long else "select_candidates"
+        for b in packed.buckets}
+
+
 def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
-              long_rows: bool) -> dict:
-    """Run fedrann_tpu_torch.cli.main on `fasta` with every kernel's count
-    reset just before; every kernel must launch, kernel B's long-row path
-    exactly when `long_rows`. Check overlaps.tsv and the truth recall of
-    pairs overlapping >= min_overlap. Returns the launch counts."""
+              dev, flags: list[str] = FLAGS) -> dict:
+    """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
+    kernel's count reset just before; every kernel must launch, each path
+    of kernel B exactly when its plan picks it for a bucket of the reads.
+    Check overlaps.tsv and the truth recall of pairs overlapping >=
+    min_overlap. Returns the launch counts."""
+    paths = stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
 
@@ -492,19 +676,17 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
         setattr(fn, attr, 0)
     n_reads = len(sim.names)
     t0 = time.perf_counter()
-    rc = cli_main(["-i", fasta, "-o", out_dir, *FLAGS])
+    rc = cli_main(["-i", fasta, "-o", out_dir, *flags])
     wall = time.perf_counter() - t0
     launches = {name: getattr(fn, attr)
                 for name, (fn, attr) in COUNTERS.items()}
     if rc != 0:
         fail(f"cli.main returned {rc}")
     for name, n in launches.items():
-        if n <= 0 and name != "select_candidates_long":
-            fail(f"kernel {name} was not launched by the main path")
-    if (launches["select_candidates_long"] > 0) != long_rows:
-        fail(f"kernel B's long-row path launched "
-             f"{launches['select_candidates_long']} times, expected "
-             f"{'some' if long_rows else 'none'}")
+        want = name in paths or not name.startswith("select_candidates")
+        if (n > 0) != want:
+            fail(f"kernel {name} was launched {n} times by the main path, "
+                 f"expected {'some' if want else 'none'}")
     log(f"main path launches: {launches}")
 
     with open(os.path.join(out_dir, "metrics.json")) as f:
@@ -596,7 +778,7 @@ def profile_cli(fasta: str, out_dir: str, card: str, label: str) -> None:
     # the 20 largest, and every hand kernel (csrc/*.cu, anonymous namespace)
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][1])
     for rank, (name, (n, us)) in enumerate(ranked):
-        if rank < 20 or name.startswith("(anonymous namespace)::"):
+        if rank < 20 or is_hand(name):
             log(f"  {us / 1e3:9.3f} ms {n:5d} x {name[:100]}")
 
 
@@ -674,14 +856,12 @@ def main() -> None:
         n_reads = len(sim.names)
         log(f"simulated {n_reads} reads in {time.perf_counter() - t0:.1f} s")
 
-        report = check_kernels(fasta, os.path.join(tmp, "check"), dev)
+        report = check_kernels(fasta, os.path.join(tmp, "check"), dev, card)
         for name, r in report.items():
-            log(f"kernel {name}: {r['ms']:.4f} ms vs plain "
-                f"{r['plain_ms']:.4f} ms, max abs error {r['max_abs_err']} "
-                f"[{card}]")
+            log_kernel(name, r, card)
 
         launches = drive_cli(fasta, os.path.join(tmp, "out"), sim,
-                             MIN_OVERLAP, card, long_rows=False)
+                             MIN_OVERLAP, card, dev)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "prof"), card, "main path")
 
@@ -697,11 +877,29 @@ def main() -> None:
         report.update(check_long_rows(sim, fasta, os.path.join(tmp, "lchk"),
                                       dev, card))
         long_launches = drive_cli(fasta, os.path.join(tmp, "lout"), sim,
-                                  LONG_MIN_OVERLAP, card, long_rows=True)
-        launches["select_candidates_long"] = long_launches[
-            "select_candidates_long"]
+                                  LONG_MIN_OVERLAP, card, dev)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "lprof"), card, "long reads")
+
+        # 5c: keep_all reads past one block's shared memory, so that a CLI
+        # run drives kernel B's device-memory path
+        sim = simulate_reads(genome_length=KEEP_ALL_GENOME, coverage=8,
+                             mean_read_length=KEEP_ALL_READ_LEN,
+                             error_rate=ERROR_RATE, seed=SIM_SEED)
+        fasta = os.path.join(tmp, "keep_all.fasta")
+        write_fasta(fasta, sim.names, sim.sequences)
+        flags = [*FLAGS, "--kmer-sample-fraction", "1.0"]
+        if "select_candidates_long" not in stage_paths(sim, flags, dev):
+            fail("no bucket of the keep_all reads takes kernel B's "
+                 "device-memory path")
+        log(f"keep_all run: {len(sim.names)} reads of ~{KEEP_ALL_READ_LEN} "
+            "bases at --kmer-sample-fraction 1.0")
+        keep_all_launches = drive_cli(
+            fasta, os.path.join(tmp, "kout"), sim, KEEP_ALL_READ_LEN // 2,
+            card, dev, flags)
+        launches["select_candidates_long"] = (
+            long_launches["select_candidates_long"]
+            + keep_all_launches["select_candidates_long"])
 
     report.update(check_probes(dev, card))
     launches.update(drive_probes())
@@ -711,8 +909,9 @@ def main() -> None:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": report[name]["max_abs_err"],
-         "ms": report[name]["ms"], "plain_ms": report[name]["plain_ms"]}
+         **{key: report[name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}}
         for name in SOURCES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,18 +37,18 @@ _SIGNATURES = {
     # bases, rows, length, w, k, s1, s2, threshold, keep_all, out, stream
     "fk_canonical_sample": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32,
                             _I32, _P, _P],
-    # slots, rows, w, hit_buffer, blocked, cap, n_blocks, sort_n,
-    # smem_bytes, staged, width, dropped, stream
+    # slots, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes,
+    # staged, width, dropped, stream
     "fk_select_stage_rows": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
-                             _I32, _P, _I64, _P, _P],
+                             _P, _I64, _P, _P],
     # slots, rows, w, blocked, cap, n_blocks, n_surv, chunk, n_chunks,
     # width, surv, buf_a, buf_b, cand, kept, staged, dropped, stream
     "fk_select_stage_long": [_P, _I64, _I64, _I32, _I32, _I32, _I64, _I32,
                              _I32, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
     # staged, rows, h, lib, lib_size, signs, n_words, mags, d, targets,
-    # out, n_hits, stream
+    # out, n_hits, start, n_buckets, stream
     "fk_membership_embed": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64,
-                            _P, _P, _P, _P],
+                            _P, _P, _P, _P, _I64, _P],
     # probes.cu: n, out, stream
     "fk_probe_smem_scratch": [_I32, _P, _P],
     # x, steps, rb, hb, sums, stream

@@ -12,11 +12,17 @@
 // checks validity (no base >= 4) and the fmix32 sampling hash, and writes
 // (canon << 1) | is_fwd, or PAD_SLOT.
 //
-// Bound on the card: device memory. Each window costs one 8-byte store;
+// Bound on the card: device memory, ~9 bytes a window (one 8-byte store;
 // the k byte loads of neighbouring threads overlap and hit L1, so the base
-// reads are ~1 byte per window. Nothing is kept between windows: at ~9
-// bytes a window the store stream is the limit, and a rolling code would
-// save only arithmetic.
+// reads are ~1 byte per window): 0.090 ms at the main path's 2,048 x
+// 16,384 chunk. The kernel does not reach it: chip_smoke.py measures ~20%
+// of that bound (0.445-0.455 ms on an NVIDIA H100 80GB HBM3, 700.00 W), so
+// the store stream is not what limits it. Nothing is kept between windows:
+// each thread rebuilds its window's code from k byte loads and k
+// shift-or steps per strand, then hashes it, and that integer work is the
+// larger cost. A rolling code (one base in and one out per window) would
+// cut it; fusing this kernel into kernel B would also keep the slot plane
+// out of device memory.
 
 #include "common.cuh"
 

@@ -59,23 +59,71 @@ __device__ __forceinline__ int block_compact(bool keep, int* scratch,
   return keep ? scratch[warp] + __popc(mask & ((1u << lane) - 1u)) : -1;
 }
 
-// Ascending bitonic sort of n (a power of two) int64 keys in shared
-// memory by the whole block. The caller synchronises before the call (the
-// keys must be in place); the last stage ends with a barrier.
-__device__ __forceinline__ void bitonic_sort(int64_t* s, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
+// Exclusive prefix sum of one int per thread over the whole block, in
+// thread order; *total receives the block's sum. Every thread must call
+// it; blockDim.x is a multiple of 32; `scratch` is a __shared__ int[33].
+// Ends with a barrier. Two calls in a row must use different scratch
+// arrays (a fast warp may write the next call's count before a slow one
+// has read this call's prefix).
+__device__ __forceinline__ int block_scan(int v, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  int incl = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < n_warps ? scratch[lane] : 0;
+    int w_incl = own;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, w_incl, o);
+      if (lane >= o) w_incl += u;
+    }
+    if (lane < n_warps) scratch[lane] = w_incl - own;
+    if (lane == 31) scratch[32] = w_incl;
+  }
+  __syncthreads();
+  *total = scratch[32];
+  return scratch[warp] + incl - v;
+}
+
+// Ascending sort of the n int64 keys s[0, n) in shared memory by the
+// whole block (n need not be a power of two). A bitonic network over
+// pow2(n) slots in its all-ascending form: the first step of each merge
+// compares slot i with its mirror in the merge block, the later steps i
+// with i + j. Slots past n are virtual +inf: a comparator that reaches one
+// leaves both slots as they are, so nothing past n is read or written and
+// the buffer needs only n slots. A step of span j <= 32 stays inside the
+// 64 slots of one warp's pairs, so it waits at a warp barrier; only wider
+// steps wait for the block. The caller synchronises before the call (the
+// keys must be in place); the call ends with a block barrier.
+__device__ __forceinline__ void bitonic_sort_n(int64_t* s, int n) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int k = 2; k <= n2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+      for (int p = threadIdx.x; p < (n2 >> 1); p += blockDim.x) {
         const int i = 2 * p - (p & (j - 1));  // bit j of i is clear
-        const int l = i + j;
-        const bool up = (i & k) == 0;
-        const int64_t a = s[i], b = s[l];
-        if ((a > b) == up) {
-          s[i] = b;
-          s[l] = a;
+        const int l = j == (k >> 1) ? (i | (k - 1)) - (i & (k - 1)) : i + j;
+        if (l < n) {
+          const int64_t a = s[i], b = s[l];
+          if (a > b) {
+            s[i] = b;
+            s[l] = a;
+          }
         }
       }
-      __syncthreads();
+      const int next = j > 1 ? j >> 1 : k;  // span of the next step
+      if (j > 32 || next > 32 || (k == n2 && j == 1)) {
+        __syncthreads();
+      } else {
+        __syncwarp();
+      }
     }
   }
+  if (n2 < 2) __syncthreads();
 }

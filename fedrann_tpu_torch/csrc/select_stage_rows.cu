@@ -1,29 +1,56 @@
 // Kernel B: per-read candidate selection and row sort -> staged rows.
 //
-// Replaces the TPU kernel `sort_rows_pallas` (bench/pallas_sort.py:96,
-// `_sort_kernel` :66, `_cmp_exchange` :38) and computes what its production
-// twin computes: fedrann_tpu/kmers/membership.py `select_candidates`
-// (:282-337) after the sampling mask, i.e. the blocked selection, the cap
-// slice, the narrow sort, the `width` slice and the exact dropped count.
+// Replaces the TPU kernel `sort_rows_pallas` (bench/pallas_sort.py:96, its
+// pallas_call :128, `_sort_kernel` :66, `_cmp_exchange` :38) and computes
+// what its production twin computes: fedrann_tpu/kmers/membership.py
+// `select_candidates` (:282-337) after the sampling mask, i.e. the blocked
+// selection, the cap slice, the narrow sort, the `width` slice and the
+// exact dropped count.
 //
-// Short rows (the row's sort buffer fits a block's shared memory): one
-// thread block per read row, the row's slots in shared memory:
-//   blocked (w > 2 * SELECT_BLOCK and not keep_all): each 1024-slot block
-//     is bitonic-sorted in shared memory and its first `cap` slots (the
-//     smallest; padding sorts last) are appended to a survivor buffer; the
-//     survivors, padded to a power of two, are bitonic-sorted and the first
-//     `width` = min(hit_buffer, n_blocks * cap) are written;
-//   full: the whole row, padded to a power of two, is sorted and the first
-//     `hit_buffer` slots are written.
-// Long rows (keep_all past 16,384 windows, or >= ~3.1% sampling at the
-// 262,144-base bucket) take a device-memory path, one launch per pass over
-// all rows (rows are independent, so no pass synchronises across rows):
-//   1. blocked rows: one thread block per (row, 1024-slot block) sorts its
-//      block in shared memory and writes its first `cap` slots to a survivor
-//      buffer (R, n_blocks * cap), its candidate count and min(count, cap);
+// Bound on the card: device memory. The function must read the row's
+// slots once and write `width` staged slots: at the main path's 2,048 x
+// 16,370 chunk, 268 MB in and 16.8 MB out, 0.085 ms at 3.35 TB/s. Sorting
+// is shared-memory work on the few candidates a row holds (~5% of its
+// windows at 5% sampling), so the design keeps the sort off the padding:
+//
+// Rows whose survivor buffer fits a block's shared memory: one thread
+// block of 256 threads per row (1,024 where the buffer leaves room for
+// only one block an SM), 4 slots a thread (1) per 1024-slot block, read
+// with 16-byte loads SELECT_DEPTH blocks ahead of use:
+//   1. each 1024-slot block's candidates (slots other than PAD_SLOT) are
+//      compacted into the survivor buffer in shared memory by a block
+//      prefix sum (`block_scan`) and counted;
+//   2. a block holding at most `cap` candidates keeps all of them, unsorted:
+//      the JAX stage keeps its `cap` smallest slots, padding last, and
+//      those are exactly its candidates. A block holding more (rare: cap is
+//      the sampling mean + 6 sigma) sorts only its candidates, in place,
+//      and keeps the first `cap`;
+//   3. the survivors are sorted once, sized by their count, not by the
+//      blocks' capacity: `bitonic_sort_n` runs the bitonic network over
+//      pow2(count) slots with virtual +inf padding, so the buffer holds
+//      only the survivors (plus one 1024-slot block being compacted), and
+//      its steps of span <= 32 wait at warp barriers, not block barriers.
+//      A network and not warp register sorts plus a merge: the survivors
+//      already sit in shared memory, a network of 55 steps (1,024 keys)
+//      of which 15 wait for the block is short, and it needs no
+//      merge-path partitioning;
+//   4. the first `width` slots are written, padding after them; dropped =
+//      candidates - min(survivors, width).
+// Full-width rows (keep_all, or w <= 2 * SELECT_BLOCK) take the same
+// kernel with cap = SELECT_BLOCK: every candidate survives, so compaction
+// only removes the padding, and the whole row's candidates are sorted.
+// Long rows whose survivors do not fit one block (keep_all past 28,928
+// windows; blocked rows at >= 6.5% sampling at the 262,144-base bucket,
+// >= 14.5% at 131,072; membership.stage_launch_plan decides) take a
+// device-memory path, one launch per pass over all rows (rows are
+// independent, so no pass synchronises across rows):
+//   1. blocked rows: one thread block per (row, 1024-slot block) compacts
+//      its candidates as above and writes `cap` slots (its candidates, or
+//      the sorted first cap of them, then padding) to a survivor buffer
+//      (R, n_blocks * cap), with its candidate count and min(count, cap);
 //   2. the survivors (or, for full rows, the row itself) are cut into chunks
 //      of `chunk` slots (a power of two, padding past the row's end), each
-//      bitonic-sorted in shared memory;
+//      sorted in shared memory;
 //   3. sorted runs are merged pairwise in device memory until one is left:
 //      element a at index i of run A goes to i + lower_bound(B, a), element
 //      b at index j of run B to j + upper_bound(A, b), positions that are
@@ -33,108 +60,138 @@
 //      (the chunk counts for full rows), never from the cut runs.
 // dropped = candidates - staged candidates, exactly as the JAX stage counts
 // them (per-block cap overflow included). Keys are distinct-or-identical
-// int64s with no payload, so the unstable network gives the same bytes as
-// any sort.
-//
-// Bound on the card: shared-memory bandwidth and barriers. A 1024-slot
-// block takes 55 compare-exchange stages with a barrier each; a short row's
-// global traffic is one read of its slots and one write of `width` slots.
-// The long path adds one device-memory round trip of the survivors per
-// merge pass, each element a binary search of log2(run) reads in its
-// partner run (L2-resident at these sizes).
+// int64s with no payload, so any correct sort of the same multiset gives
+// the same bytes, whatever order the compaction left them in.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void select_stage_rows_kernel(const int64_t* __restrict__ slots,
-                                         int64_t w, int64_t hit_buffer,
-                                         int blocked, int cap, int n_blocks,
-                                         int sort_n,
-                                         int64_t* __restrict__ staged,
-                                         int64_t width,
-                                         int32_t* __restrict__ dropped) {
-  extern __shared__ int64_t smem[];
-  __shared__ int acc;
-  int64_t* surv = smem;  // sort_n slots
-  const int64_t r = blockIdx.x;
-  const int64_t* row = slots + r * w;
+constexpr int SELECT_THREADS = 256;  // a row's block, and pass 1's
+constexpr int SELECT_DEPTH = 4;  // 1024-slot blocks in flight per row
+// a row whose survivor buffer leaves room for only one block an SM (past
+// WIDE_SMEM of the SM's 228 KB) takes WIDE_THREADS: with 256 the SM's
+// other threads would idle, and the survivor sort (~13,000 slots at the
+// 262,144-base bucket) runs 4x wider
+constexpr int WIDE_THREADS = 1024;
+constexpr int WIDE_SMEM = 114 * 1024;
 
-  if (!blocked) {
-    int local = 0;
-    for (int i = threadIdx.x; i < sort_n; i += blockDim.x) {
-      const int64_t v = i < w ? row[i] : PAD_SLOT;
-      surv[i] = v;
-      local += v != PAD_SLOT;
+// Thread t's SELECT_BLOCK / THREADS slots of 1024-slot block b of a row of
+// w slots (padding past w, and for a block past the row). 16-byte loads
+// where the row is 16-byte aligned.
+template <int THREADS>
+__device__ __forceinline__ void load_slots(
+    const int64_t* __restrict__ row, int64_t w, int64_t b, int n_blocks,
+    bool aligned, int64_t (&v)[SELECT_BLOCK / THREADS]) {
+  constexpr int PER = SELECT_BLOCK / THREADS;
+  const int64_t c = b * SELECT_BLOCK + PER * threadIdx.x;
+  if (PER % 2 == 0 && b < n_blocks && aligned && c + PER <= w) {
+    const longlong2* p = reinterpret_cast<const longlong2*>(row + c);
+#pragma unroll
+    for (int i = 0; i < PER / 2; ++i) {
+      const longlong2 x = p[i];
+      v[2 * i] = x.x;
+      v[2 * i + 1] = x.y;
     }
-    const int n_cand = block_sum(local, &acc);
-    bitonic_sort(surv, sort_n);
-    for (int64_t i = threadIdx.x; i < width; i += blockDim.x)
-      staged[r * width + i] = surv[i];
-    if (threadIdx.x == 0)
-      dropped[r] = static_cast<int32_t>(
-          n_cand > hit_buffer ? n_cand - hit_buffer : 0);
     return;
   }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    v[i] = b < n_blocks && c + i < w ? row[c + i] : PAD_SLOT;
+}
 
-  int64_t* blk = smem + sort_n;  // SELECT_BLOCK slots
-  int64_t n_cand = 0, survivors = 0;
-  for (int b = 0; b < n_blocks; ++b) {
-    int local = 0;
-    for (int i = threadIdx.x; i < SELECT_BLOCK; i += blockDim.x) {
-      const int64_t c = static_cast<int64_t>(b) * SELECT_BLOCK + i;
-      const int64_t v = c < w ? row[c] : PAD_SLOT;
-      blk[i] = v;
-      local += v != PAD_SLOT;
+// Appends this thread's candidates among v to buf (the block's running
+// end), compacted by a block prefix sum; returns the block's count.
+template <int PER>
+__device__ __forceinline__ int compact_slots(const int64_t (&v)[PER],
+                                             int64_t* buf, int* scratch) {
+  int own = 0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) own += v[i] != PAD_SLOT;
+  int count;
+  int pos = block_scan(own, scratch, &count);
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (v[i] != PAD_SLOT) buf[pos++] = v[i];
+  return count;
+}
+
+// One block of THREADS per row; shared memory holds the row's survivors
+// plus one 1024-slot block being compacted. Full-width rows come with
+// cap = SELECT_BLOCK and width = hit_buffer.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+select_stage_rows_kernel(const int64_t* __restrict__ slots, int64_t w,
+                         int cap, int n_blocks,
+                         int64_t* __restrict__ staged, int64_t width,
+                         int32_t* __restrict__ dropped) {
+  constexpr int PER = SELECT_BLOCK / THREADS;
+  extern __shared__ int64_t surv[];
+  __shared__ int scratch[2][33];
+  const int64_t r = blockIdx.x;
+  const int64_t* row = slots + r * w;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  int64_t ring[SELECT_DEPTH][PER];
+#pragma unroll
+  for (int s = 0; s < SELECT_DEPTH; ++s)
+    load_slots<THREADS>(row, w, s, n_blocks, aligned, ring[s]);
+  int n_surv = 0, n_cand = 0;
+  for (int b0 = 0; b0 < n_blocks; b0 += SELECT_DEPTH) {
+#pragma unroll
+    for (int s = 0; s < SELECT_DEPTH; ++s) {
+      const int b = b0 + s;
+      if (b >= n_blocks) break;  // uniform across the block
+      int64_t v[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) v[i] = ring[s][i];
+      load_slots<THREADS>(row, w, b + SELECT_DEPTH, n_blocks, aligned,
+                          ring[s]);
+      const int count = compact_slots(v, surv + n_surv, scratch[b & 1]);
+      n_cand += count;
+      if (count > cap) {  // keep the block's cap smallest candidates
+        __syncthreads();
+        bitonic_sort_n(surv + n_surv, count);
+        n_surv += cap;
+      } else {
+        n_surv += count;
+      }
     }
-    const int cnt = block_sum(local, &acc);
-    bitonic_sort(blk, SELECT_BLOCK);
-    for (int i = threadIdx.x; i < cap; i += blockDim.x)
-      surv[b * cap + i] = blk[i];
-    n_cand += cnt;
-    survivors += cnt < cap ? cnt : cap;
-    __syncthreads();  // blk is refilled by the next block
   }
-  for (int i = n_blocks * cap + threadIdx.x; i < sort_n; i += blockDim.x)
-    surv[i] = PAD_SLOT;
   __syncthreads();
-  bitonic_sort(surv, sort_n);
+  bitonic_sort_n(surv, n_surv);
   for (int64_t i = threadIdx.x; i < width; i += blockDim.x)
-    staged[r * width + i] = surv[i];
+    staged[r * width + i] = i < n_surv ? surv[i] : PAD_SLOT;
   if (threadIdx.x == 0)
     dropped[r] = static_cast<int32_t>(
-        n_cand - (survivors < width ? survivors : width));
+        n_cand - (n_surv < width ? n_surv : width));
 }
 
 
 // ---- long rows: the device-memory path ----
 
 // Pass 1 (blocked rows): one thread block per (row, 1024-slot block).
-__global__ void select_blocks_kernel(const int64_t* __restrict__ slots,
-                                     int64_t w, int n_blocks, int cap,
-                                     int64_t* __restrict__ surv,
-                                     int64_t n_surv,
-                                     int32_t* __restrict__ cand,
-                                     int32_t* __restrict__ kept) {
+__global__ void __launch_bounds__(SELECT_THREADS)
+select_blocks_kernel(const int64_t* __restrict__ slots, int64_t w,
+                     int n_blocks, int cap, int64_t* __restrict__ surv,
+                     int64_t n_surv, int32_t* __restrict__ cand,
+                     int32_t* __restrict__ kept) {
   __shared__ int64_t blk[SELECT_BLOCK];
-  __shared__ int acc;
+  __shared__ int scratch[33];
   const int64_t r = blockIdx.x / n_blocks;
   const int b = static_cast<int>(blockIdx.x % n_blocks);
   const int64_t* row = slots + r * w;
-  int local = 0;
-  for (int i = threadIdx.x; i < SELECT_BLOCK; i += blockDim.x) {
-    const int64_t c = static_cast<int64_t>(b) * SELECT_BLOCK + i;
-    const int64_t v = c < w ? row[c] : PAD_SLOT;
-    blk[i] = v;
-    local += v != PAD_SLOT;
-  }
-  const int cnt = block_sum(local, &acc);
-  bitonic_sort(blk, SELECT_BLOCK);
+  int64_t v[SELECT_BLOCK / SELECT_THREADS];
+  load_slots<SELECT_THREADS>(row, w, b, n_blocks,
+                             (reinterpret_cast<uintptr_t>(row) & 15) == 0, v);
+  const int count = compact_slots(v, blk, scratch);
   int64_t* out = surv + r * n_surv + static_cast<int64_t>(b) * cap;
-  for (int i = threadIdx.x; i < cap; i += blockDim.x) out[i] = blk[i];
+  __syncthreads();
+  if (count > cap) bitonic_sort_n(blk, count);
+  for (int i = threadIdx.x; i < cap; i += blockDim.x)
+    out[i] = i < count ? blk[i] : PAD_SLOT;
   if (threadIdx.x == 0) {
-    cand[r * n_blocks + b] = cnt;
-    kept[r * n_blocks + b] = cnt < cap ? cnt : cap;
+    cand[r * n_blocks + b] = count;
+    kept[r * n_blocks + b] = count < cap ? count : cap;
   }
 }
 
@@ -161,7 +218,7 @@ __global__ void sort_chunks_kernel(const int64_t* __restrict__ src,
   }
   const int cnt = block_sum(local, &acc);
   if (cand != nullptr && threadIdx.x == 0) cand[r * n_chunks + c] = cnt;
-  if (base < n_valid) bitonic_sort(buf, chunk);  // else all padding
+  if (base < n_valid) bitonic_sort_n(buf, chunk);  // else all padding
   for (int i = threadIdx.x; i < keep; i += blockDim.x)
     out[r * out_stride + base + i] = buf[i];
 }
@@ -221,23 +278,41 @@ __global__ void stage_dropped_kernel(const int32_t* __restrict__ cand,
 
 }  // namespace
 
+// Rows whose survivors fit shared memory: smem_bytes holds
+// min(w, (n_blocks - 1) * cap + SELECT_BLOCK) slots (membership.
+// stage_launch_plan). Full-width rows (blocked = 0) keep every candidate.
 extern "C" int fk_select_stage_rows(const int64_t* slots, int64_t rows,
                                     int64_t w, int64_t hit_buffer,
                                     int blocked, int cap, int n_blocks,
-                                    int sort_n, int smem_bytes,
-                                    int64_t* staged, int64_t width,
-                                    int32_t* dropped, void* stream) {
+                                    int smem_bytes, int64_t* staged,
+                                    int64_t width, int32_t* dropped,
+                                    void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
+  if (!blocked) {
+    cap = SELECT_BLOCK;
+    n_blocks = static_cast<int>((w + SELECT_BLOCK - 1) / SELECT_BLOCK);
+    width = hit_buffer;
+  }
+  const bool wide = smem_bytes > WIDE_SMEM;
+  const void* kernel = wide
+      ? reinterpret_cast<const void*>(select_stage_rows_kernel<WIDE_THREADS>)
+      : reinterpret_cast<const void*>(
+            select_stage_rows_kernel<SELECT_THREADS>);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        select_stage_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  select_stage_rows_kernel<<<static_cast<unsigned>(rows), 512, smem_bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      slots, w, hit_buffer, blocked, cap, n_blocks, sort_n, staged, width,
-      dropped);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    select_stage_rows_kernel<WIDE_THREADS>
+        <<<static_cast<unsigned>(rows), WIDE_THREADS, smem_bytes, st>>>(
+            slots, w, cap, n_blocks, staged, width, dropped);
+  } else {
+    select_stage_rows_kernel<SELECT_THREADS>
+        <<<static_cast<unsigned>(rows), SELECT_THREADS, smem_bytes, st>>>(
+            slots, w, cap, n_blocks, staged, width, dropped);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,9 +335,9 @@ extern "C" int fk_select_stage_long(const int64_t* slots, int64_t rows,
   cudaError_t err;
   const int64_t* src = slots;
   if (blocked) {
-    select_blocks_kernel<<<static_cast<unsigned>(rows * n_blocks), 512, 0,
-                           st>>>(slots, w, n_blocks, cap, surv, n_surv, cand,
-                                 kept);
+    select_blocks_kernel<<<static_cast<unsigned>(rows * n_blocks),
+                           SELECT_THREADS, 0, st>>>(
+        slots, w, n_blocks, cap, surv, n_surv, cand, kept);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = surv;

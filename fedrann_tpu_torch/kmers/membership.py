@@ -9,13 +9,17 @@ candidate occurrences that did not fit. Duplicates are kept (the library
 counts occurrences); membership drops a slot equal to its left neighbour.
 
 Kernel B takes one of two paths per call, chosen by `stage_launch_plan`: a
-row whose sort buffer fits a thread block's shared memory is staged by one
-block; a longer row (keep_all past 16,384 windows, or >= ~3.1% sampling at
-the 262,144-base bucket) is sorted in shared-memory chunks that are merged
-in device memory.
+row whose survivors fit a thread block's shared memory is staged by one
+block (each 1024-slot block's candidates compacted, sorted only past the
+cap, then one sort of the survivors); a longer row (keep_all past 28,928
+windows, or blocked rows at high sampling: >= 6.5% at the 262,144-base
+bucket, >= 14.5% at 131,072) is sorted in shared-memory chunks that are
+merged in device memory.
 
-Membership is `torch.searchsorted` on the sorted int64 library; the JAX
-package's prefix table worked around TPU gather costs and is not ported.
+Membership here (`read_hits_staged`, the plain version of kernel C's
+lookups) is `torch.searchsorted` on the sorted int64 library; kernel C
+looks codes up through a prefix table of the library, which its L2
+traffic on the H100 asked for (PERF.md section 6).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from fedrann_tpu_torch.device import SM90_SMEM_OPTIN, shared_memory_limit
 from fedrann_tpu_torch.kmers.codec import PAD_SLOT, canonical_sample
 
 SELECT_BLOCK = 1024
+# shared memory kept free for the one-block kernel's static arrays (bytes)
+STATIC_SMEM = 1024
 # slots per shared-memory chunk sort of the long-row path (128 KB)
 LONG_CHUNK = 16384
 
@@ -70,7 +76,7 @@ class StagePlan:
     cap: int         # slots each block keeps (blocked)
     n_blocks: int    # 1024-slot blocks per row (blocked)
     width: int       # staged slots per row
-    n_surv: int      # slots sorted per row: the survivors (blocked), or w
+    n_surv: int      # most survivors per row: n_blocks * cap (blocked), or w
     smem: int = 0    # one block per row: bytes of its shared memory
     chunk: int = 0   # device-memory path: slots per shared-memory chunk
     n_chunks: int = 0  # device-memory path: chunks per row, a power of 2
@@ -94,16 +100,18 @@ def stage_launch_plan(w: int, hit_buffer: int, keep_all: bool,
                       block_cap: int | None,
                       smem_limit: int = SM90_SMEM_OPTIN) -> StagePlan:
     """The passes kernel B runs for a row of w slots and the shared memory
-    of each. Rows whose sort buffer (plus one selection block)
-    fits smem_limit take the one-block-per-row kernel; longer rows take
-    the device-memory path: blocked selection (when blocked), chunk sorts
-    of LONG_CHUNK slots (fewer if the limit is lower), log2(n_chunks)
+    of each. Rows whose survivor buffer fits smem_limit (less STATIC_SMEM)
+    take the one-block-per-row kernel: the buffer holds every survivor but
+    the last block's plus that block's candidates, (n_blocks - 1) * cap +
+    SELECT_BLOCK slots (blocked), or the row's w (full width). Longer rows
+    take the device-memory path: blocked selection (when blocked), chunk
+    sorts of LONG_CHUNK slots (fewer if the limit is lower), log2(n_chunks)
     pairwise merges and the dropped count."""
     blocked, c, g, width = _selection_plan(w, hit_buffer, keep_all,
                                            block_cap)
     n_surv = g * c if blocked else w
-    smem = 8 * (_pow2(n_surv) + (SELECT_BLOCK if blocked else 0))
-    if smem <= smem_limit:
+    smem = 8 * (min(w, (g - 1) * c + SELECT_BLOCK) if blocked else w)
+    if smem + STATIC_SMEM <= smem_limit:
         return StagePlan(blocked, c, g, width, n_surv, smem=smem)
     chunk = min(LONG_CHUNK, 1 << ((smem_limit // 8).bit_length() - 1))
     if chunk < SELECT_BLOCK:
@@ -153,8 +161,14 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
                                         block_cap)
     if slots.device.type != "cuda":
         raise ValueError(f"unsupported device {slots.device}")
-    plan = stage_launch_plan(w, hit_buffer, keep_all, block_cap,
-                             shared_memory_limit(slots.device))
+    return _select_on_card(slots, hit_buffer, stage_launch_plan(
+        w, hit_buffer, keep_all, block_cap, shared_memory_limit(slots.device)))
+
+
+def _select_on_card(slots: torch.Tensor, hit_buffer: int, plan: StagePlan):
+    """Kernel B on a CUDA tensor along `plan` (the path select_candidates
+    picks, or another one to time it against)."""
+    r, w = slots.shape
     slots = slots.contiguous()
     dev = slots.device
     staged = torch.empty((r, plan.width), dtype=torch.int64, device=dev)
@@ -162,8 +176,8 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
     if not plan.long:
         _build.launch("fk_select_stage_rows", slots.data_ptr(), r, w,
                       hit_buffer, int(plan.blocked), plan.cap, plan.n_blocks,
-                      _pow2(plan.n_surv), plan.smem, staged.data_ptr(),
-                      plan.width, dropped.data_ptr(), _build.stream(dev))
+                      plan.smem, staged.data_ptr(), plan.width,
+                      dropped.data_ptr(), _build.stream(dev))
         select_candidates.launches += 1
         return staged, dropped
     n_pad = plan.chunk * plan.n_chunks

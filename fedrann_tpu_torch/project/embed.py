@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from fedrann_tpu_torch import _build
-from fedrann_tpu_torch.kmers.membership import read_hits_staged
+from fedrann_tpu_torch.kmers.membership import _pow2, read_hits_staged
 
 
 def _unpack_sign_rows(words: torch.Tensor, two_d: int) -> torch.Tensor:
@@ -68,7 +68,8 @@ def membership_embed(staged: torch.Tensor, lib_codes: torch.Tensor,
 
     A CPU tensor takes the plain PyTorch version (read_hits_staged then
     embed_hits_paired_signs, scattered); a CUDA tensor launches kernel C
-    (csrc/membership_embed.cu)."""
+    (csrc/membership_embed.cu: a prefix table of the library, then the
+    lookups and sums)."""
     r, h = staged.shape
     lib_size = lib_codes.shape[0]
     d = out.shape[1]
@@ -98,10 +99,15 @@ def membership_embed(staged: torch.Tensor, lib_codes: torch.Tensor,
     staged, lib_codes, signs, mags, targets = (
         t.contiguous() for t in (staged, lib_codes, signs, mags, targets))
     n_hits = torch.empty((r,), dtype=torch.int32, device=out.device)
+    # the kernel's prefix table of the library (scratch it rebuilds)
+    n_buckets = _pow2(lib_size)
+    start = torch.empty((n_buckets + 1,), dtype=torch.int32,
+                        device=out.device)
     _build.launch("fk_membership_embed", staged.data_ptr(), r, h,
                   lib_codes.data_ptr(), lib_size, signs.data_ptr(), n_words,
                   mags.data_ptr(), d, targets.data_ptr(), out.data_ptr(),
-                  n_hits.data_ptr(), _build.stream(out.device))
+                  n_hits.data_ptr(), start.data_ptr(), n_buckets,
+                  _build.stream(out.device))
     membership_embed.launches += 1
     return n_hits
 

@@ -31,7 +31,10 @@ from fedrann_tpu_torch.convert import (  # noqa: E402
 from fedrann_tpu_torch.io.fastx import FastxRecord  # noqa: E402
 from fedrann_tpu_torch.io.packing import pack_reads  # noqa: E402
 from fedrann_tpu_torch.kmers.codec import sample_threshold  # noqa: E402
-from fedrann_tpu_torch.kmers.membership import read_hits_staged  # noqa: E402
+from fedrann_tpu_torch.kmers.membership import (  # noqa: E402
+    _pow2,
+    read_hits_staged,
+)
 from fedrann_tpu_torch.project import srp  # noqa: E402
 from fedrann_tpu_torch.project.embed import membership_embed  # noqa: E402
 from fedrann_tpu_torch.sim import simulate_reads  # noqa: E402
@@ -146,3 +149,187 @@ def test_membership_embed_matches_pallas_merge_embed(k):
                                atol=atol)
     zero = n_hits == 0
     assert np.all(out[0::2][zero] == 0) and np.all(out[1::2][zero] == 0)
+
+
+# ---- kernel C's schedule (csrc/membership_embed.cu), emulated in numpy ----
+
+C_THREADS, C_TILE = 256, 1024
+
+
+def _prefix_table(lib: np.ndarray):
+    """Kernel C's prefix table of a non-empty library, filled as its
+    pre-pass fills it (entry i writes the buckets after its left
+    neighbour's, up to its own): (start, shift, n_buckets)."""
+    size = len(lib)
+    n_buckets = _pow2(size)
+    t = n_buckets.bit_length() - 1
+    shift = max(0, int(lib[-1]).bit_length() - t)
+    hi = np.concatenate([lib >> shift, [n_buckets]])
+    lo = np.concatenate([[-1], lib >> shift])
+    start = np.repeat(np.arange(size + 1), hi - lo)
+    assert len(start) == n_buckets + 1
+    return start, shift, n_buckets
+
+
+def _kernel_c_positions(lib: np.ndarray, codes: np.ndarray) -> np.ndarray:
+    """Kernel C's lookup of each code (>= 0): its bucket's library range
+    [start[p], start[p + 1]) from the prefix table, then the lower bound
+    inside it. A code past the last bucket, or an empty library, gives 0
+    (never a hit: the hit test compares the code)."""
+    if not len(lib):
+        return np.zeros(len(codes), dtype=np.int64)
+    start, shift, n_buckets = _prefix_table(lib)
+    p = codes >> shift
+    inside = p < n_buckets
+    at = np.where(inside, start[np.minimum(p, n_buckets - 1)], 0)
+    end = np.where(inside, start[np.minimum(p, n_buckets - 1) + 1], 0)
+    return np.array([a + np.searchsorted(lib[a:e], c)
+                     for a, e, c in zip(at, end, codes)], dtype=np.int64)
+
+
+@pytest.mark.parametrize("size", [1, 1000, 300_000])
+def test_kernel_c_prefix_table_matches_searchsorted(size):
+    """The pre-pass's fill rule gives start[p] = searchsorted(lib, p <<
+    shift) for every bucket; the shift spreads the codes over the table."""
+    rng = np.random.default_rng(size)
+    lib = np.unique(rng.integers(0, 1 << 40, size + size // 10))[:size]
+    start, shift, n_buckets = _prefix_table(lib.astype(np.int64))
+    want = np.searchsorted(lib, np.arange(n_buckets + 1, dtype=np.int64)
+                           << shift)
+    np.testing.assert_array_equal(start, want)
+    # the largest code's bucket is in the table's upper half (or no shift)
+    assert lib[-1] >> shift < n_buckets
+    assert shift == 0 or lib[-1] >> shift >= n_buckets // 2
+
+
+@pytest.mark.parametrize("size", [0, 1, 2047, 2049, 300_000])
+def test_kernel_c_lookup_matches_searchsorted(size):
+    """Where a code is in the library, kernel C's prefix-table lookup finds
+    the position torch.searchsorted gives; where it is not, it reports no
+    hit: codes below, above, between and equal to library codes, with the
+    empty and one-code libraries."""
+    rng = np.random.default_rng(size)
+    lib = np.unique(rng.integers(0, 1 << 40, size + size // 10))[:size]
+    lib = lib.astype(np.int64)
+    codes = np.concatenate([
+        lib[rng.integers(0, max(size, 1), 500)] if size else [],
+        rng.integers(0, 1 << 40, 500), [0, 1, (1 << 40) + 5, 1 << 61]]
+    ).astype(np.int64)
+    pos = _kernel_c_positions(lib, codes)
+    want = torch.searchsorted(torch.from_numpy(lib),
+                              torch.from_numpy(codes)).numpy()
+    found = (want < size) & (lib[np.minimum(want, max(size - 1, 0))]
+                             == codes) if size else np.zeros(len(codes), bool)
+    got_found = (pos < size) & (lib[np.minimum(pos, max(size - 1, 0))]
+                                == codes) if size else np.zeros(len(codes),
+                                                                bool)
+    np.testing.assert_array_equal(got_found, found)
+    np.testing.assert_array_equal(pos[found], want[found])
+    if size:
+        assert found.sum() >= 500
+
+
+def _group_fields(words: np.ndarray, d: int) -> tuple:
+    """Kernel C's `group_words` for every column group of one sign row:
+    (left, right) (d,) int codes, left = fields c (P[j]), right = fields
+    d + c (P[j+L]), read as 32-bit words (the right ones funnel-shifted
+    when d is not a multiple of 16) with fields of columns >= d cleared."""
+    w = words.astype(np.uint32).astype(np.uint64)
+    n_words = len(w)
+    g = np.arange(-(-d // 16))
+    c = 16 * g
+    keep = np.where(d - c >= 16, 0xFFFFFFFF,
+                    (1 << (2 * np.minimum(d - c, 15))) - 1).astype(np.uint64)
+    left = w[g] & keep
+    a, sh = (d + c) >> 4, (2 * ((d + c) & 15)).astype(np.uint64)
+    nxt = np.where(a + 1 < n_words, w[np.minimum(a + 1, n_words - 1)], 0)
+    right = ((w[a] >> sh) | np.where(sh > 0, nxt << (32 - sh), 0)) \
+        & 0xFFFFFFFF & keep
+    shifts = 2 * np.arange(16, dtype=np.uint64)
+    fields = [((x[:, None] >> shifts) & 3).reshape(-1)[:d].astype(np.int64)
+              for x in (left, right)]
+    return fields[0], fields[1]
+
+
+def _emulate_kernel_c(staged, lib, signs, mags, d):
+    """Kernel C's sums in its order: per row and column chunk of up to
+    C_THREADS groups, each tile's hits (slot order) dealt to parts
+    e % parts; each part adds +-mags[j] of the nonzero fields of its hits
+    in order (float32); a column is the sum of its parts in part order.
+    Returns (fwd, rev) float32 and n_hits."""
+    r, h = staged.shape
+    size = len(lib)
+    n_groups = -(-d // 16)
+    fwd = np.zeros((r, d), np.float32)
+    rev = np.zeros((r, d), np.float32)
+    n_hits = np.zeros(r, np.int32)
+    for i in range(r):
+        row = staged[i]
+        prev = np.concatenate([[PAD], row[:-1]])
+        codes = row >> 1
+        pos = _kernel_c_positions(lib, codes)
+        hit = (row != PAD) & (row != prev) & (pos < size)
+        hit &= lib[np.minimum(pos, max(size - 1, 0))] == codes if size \
+            else False
+        n_hits[i] = hit.sum()
+        for g0 in range(0, n_groups, C_THREADS):
+            groups = min(n_groups - g0, C_THREADS)
+            parts = C_THREADS // groups
+            cols = slice(16 * g0, min(d, 16 * (g0 + groups)))
+            sums = np.zeros((parts, 2, cols.stop - cols.start), np.float32)
+            for t0 in range(0, h, C_TILE):
+                tile = np.nonzero(hit[t0 : t0 + C_TILE])[0] + t0
+                for e, slot in enumerate(tile):
+                    j, swap = pos[slot], (row[slot] & 1) == 0
+                    left, right = _group_fields(signs[j], d)
+                    m = mags[j]
+                    vals = [np.where(f == 1, m, np.where(f == 2, -m, 0))
+                            .astype(np.float32)[cols] for f in (left, right)]
+                    if swap:
+                        vals.reverse()
+                    sums[e % parts, 0] += vals[0]
+                    sums[e % parts, 1] += vals[1]
+            for q in range(parts):
+                fwd[i, cols] += sums[q, 0]
+                rev[i, cols] += sums[q, 1]
+    return fwd, rev, n_hits
+
+
+PAD = np.iinfo(np.int64).max
+
+
+@pytest.mark.parametrize("d,density,rows", [
+    (40, None, 6),     # d % 16 = 8: right words funnel-shifted
+    (100, None, 6),
+    (512, 0.3, 4),     # a dense table: many nonzero fields per word
+    (1500, None, 3),   # 94 groups, 2 parts
+    (4100, 0.05, 2),   # past 256 groups: two column chunks
+])
+def test_kernel_c_schedule_matches_plain(d, density, rows):
+    """Kernel C's schedule reproduces the plain version: hit counts
+    bitwise, sums to the tolerance of float32 sums taken in another order,
+    with repeated slots, rows longer than one tile and a padding row."""
+    rng = np.random.default_rng(d)
+    genome = rng.integers(0, 4, 3000).astype(np.uint8)
+    starts = rng.integers(0, 3000 - 2400, rows)
+    bases = torch.from_numpy(np.stack([genome[s : s + 2400] for s in starts]))
+    from fedrann_tpu_torch.kmers.codec import canonical_sample
+    from fedrann_tpu_torch.kmers.library import build_library
+    from fedrann_tpu_torch.kmers.membership import select_candidates
+    slots = canonical_sample(bases, 13, 9, sample_threshold(0.5), False)
+    staged, _ = select_candidates(slots, 1100, False, None)
+    staged[0, 10:40] = staged[0, 10]   # a run of one repeated slot
+    staged[-1] = PAD                   # a row of padding only
+    library = build_library([staged], 2, 0.5, 9)
+    signs, mags = srp.build_precompute_signs(library.counts, d, 2094, density)
+    targets = torch.stack([2 * torch.arange(rows), 2 * torch.arange(rows) + 1],
+                          dim=1)
+    out = torch.zeros((2 * rows, d))
+    n_hits = membership_embed(staged, library.codes, signs, mags, targets, out)
+    fwd, rev, n_emul = _emulate_kernel_c(
+        staged.numpy(), library.codes.numpy(), signs.numpy(), mags.numpy(), d)
+    np.testing.assert_array_equal(n_emul, n_hits.numpy())
+    assert n_hits[:-1].min() > 0 and n_hits[-1] == 0
+    atol = _atol(mags.numpy(), n_hits.numpy())
+    np.testing.assert_allclose(fwd, out[0::2].numpy(), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(rev, out[1::2].numpy(), rtol=1e-5, atol=atol)

@@ -74,6 +74,7 @@ def _random_slots(rng, r, w, density):
     (4084, 1024, False, 0.2),    # blocked, ragged last block
     (16370, 1024, False, 0.05),  # blocked, the bench.py workload bucket shape
     (5000, 5000, True, 1.0),     # keep_all: full-width sort of a long row
+    (16370, 16370, True, 1.0),   # keep_all, 131 KB: the 1,024-thread block
     (4096, 8, False, 0.05),      # tiny buffer: most candidates dropped
 ])
 def test_select_candidates_matches_plain(cuda, w, hit_buffer, keep_all,
@@ -91,19 +92,22 @@ def test_select_candidates_matches_plain(cuda, w, hit_buffer, keep_all,
     assert torch.equal(got[1].cpu(), want[1])
 
 
-@pytest.mark.parametrize("w,hit_buffer,keep_all,cap", [
-    (262130, 13824, False, selection_cap(0.05)),  # 262,144 bucket at 5%
-    (32754, 32754, True, None),    # keep_all at the 32,768 bucket
-    (65522, 65522, True, None),    # keep_all at the 65,536 bucket
-    (262130, 13824, False, 128),   # survivors fill their chunks exactly
+@pytest.mark.parametrize("w,hit_buffer,keep_all,cap,long", [
+    # the 262,144 bucket at 5%: its survivors fit one block
+    (262130, 13824, False, selection_cap(0.05), False),
+    (32754, 32754, True, None, True),   # keep_all at the 32,768 bucket
+    (65522, 65522, True, None, True),   # keep_all at the 65,536 bucket
+    (262130, 13824, False, 128, True),  # survivors fill their chunks exactly
 ])
 def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
-                                                 keep_all, cap):
-    """Rows past a block's shared memory take the device-memory path and
-    match the plain version bitwise, dropped counts included."""
+                                                 keep_all, cap, long):
+    """Long rows take the path the plan picks (one block where the
+    survivors fit its shared memory, else the device-memory path), count
+    a launch of that path only, and match the plain version bitwise,
+    dropped counts included."""
     plan = stage_launch_plan(w, hit_buffer, keep_all, cap,
                              shared_memory_limit(cuda))
-    assert plan.long
+    assert plan.long == long
     if cap == 128:
         assert plan.n_surv == plan.chunk * plan.n_chunks
     rng = np.random.default_rng(w + (cap or 0))
@@ -116,13 +120,47 @@ def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
     got = select_candidates(slots.to(cuda), hit_buffer, keep_all, cap)
     torch.cuda.synchronize()
     assert (select_candidates.launches,
-            select_candidates.long_launches) == (before[0], before[1] + 1)
+            select_candidates.long_launches) == (before[0] + (not long),
+                                                 before[1] + long)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
     assert int(want[1][1]) > 0 or keep_all
 
 
-@pytest.mark.parametrize("k,d", [(13, 100), (15, 512), (21, 1500)])
+@pytest.mark.parametrize("case", ["exactly_cap", "every_block_over_cap",
+                                  "cap_plus_one"])
+def test_select_candidates_block_edges(cuda, case):
+    """The one-block kernel sorts a block only past its cap: blocks
+    holding exactly cap candidates (kept unsorted), every block over the
+    cap (each sorted and cut), and blocks of cap + 1, at the main path's
+    16,370-window rows; bitwise against the plain version."""
+    rng = np.random.default_rng(7)
+    w, fraction = 16370, 0.05
+    cap = selection_cap(fraction)
+    n = {"exactly_cap": cap, "every_block_over_cap": 3 * cap,
+         "cap_plus_one": cap + 1}[case]
+    slots = np.full((16, w), PAD_SLOT, dtype=np.int64)
+    for b in range(0, w, 1024):
+        size = min(1024, w - b)
+        for r in range(16):
+            pick = rng.choice(size, min(n, size), replace=False)
+            slots[r, b + pick] = rng.integers(0, 1 << 40, len(pick))
+    slots[3] = np.where(slots[3] != PAD_SLOT, 99, PAD_SLOT)  # duplicates
+    slots = torch.from_numpy(slots)
+    hb = staging_width(w, fraction)
+    want = _select_candidates_plain(slots, hb, False, cap)
+    before = select_candidates.launches
+    got = select_candidates(slots.to(cuda), hb, False, cap)
+    torch.cuda.synchronize()
+    assert select_candidates.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    if case != "exactly_cap":
+        assert int(want[1].min()) > 0
+
+
+@pytest.mark.parametrize("k,d", [(13, 40), (13, 100), (15, 512),
+                                 (21, 1500), (15, 4100)])
 def test_membership_embed_matches_plain(cuda, k, d):
     rng = np.random.default_rng(d)
     # reads drawn from a short genome so k-mers repeat across reads
@@ -152,6 +190,79 @@ def test_membership_embed_matches_plain(cuda, k, d):
     atol = 1e-6 * float(mags.abs().max()) * int(n_p.max())
     torch.testing.assert_close(out.cpu(), out_p, rtol=1e-5, atol=atol)
     assert torch.all(out[10:12] == 0)
+
+
+def _embed_both(cuda, staged, codes, counts, d, density=None):
+    """Kernel C and its plain version on the same inputs: (n_hits, out) of
+    the kernel (on the host) and of the plain version, and the atol."""
+    signs, mags = build_precompute_signs(counts, d, 2094, density)
+    r = staged.shape[0]
+    targets = torch.stack([2 * torch.arange(r), 2 * torch.arange(r) + 1],
+                          dim=1)
+    out_p = torch.zeros((2 * r, d))
+    n_p = _membership_embed_plain(staged, codes, signs, mags, targets, out_p)
+    out = torch.zeros((2 * r, d), device=cuda)
+    n = membership_embed(staged.to(cuda), codes.to(cuda), signs.to(cuda),
+                         mags.to(cuda), targets.to(cuda), out)
+    torch.cuda.synchronize()
+    atol = 1e-6 * float(mags.abs().max()) * max(int(n_p.max()), 1)
+    return n.cpu(), out.cpu(), n_p, out_p, atol
+
+
+@pytest.mark.parametrize("case", ["every_slot_a_hit", "repeated_runs",
+                                  "one_code"])
+def test_membership_embed_edge_rows(cuda, case):
+    """Rows where every slot is a distinct library hit (past one tile of
+    slots), runs of one repeated slot (only the first counts), and a
+    library of one code; hit counts bitwise, sums within tolerance."""
+    rng = np.random.default_rng(3)
+    r, h = 6, 2500
+    if case == "one_code":
+        codes = torch.tensor([12345], dtype=torch.int64)
+        slots = np.full((r, h), PAD_SLOT, dtype=np.int64)
+        slots[:, :7] = (12345 << 1) | 1
+        slots[1, :3] = 12345 << 1      # the reverse strand first
+        slots[2, :7] = (12344 << 1) | 1  # a code just below the library
+    else:
+        base = np.sort(rng.choice(1 << 40, size=(r, h), replace=False),
+                       axis=1)
+        slots = (base << 1) | rng.integers(0, 2, size=(r, h))
+        if case == "repeated_runs":
+            slots[:, 100:700] = slots[:, 100:101]
+            slots[2, :] = slots[2, 0]
+        codes = torch.from_numpy(np.unique(base))
+    counts = torch.from_numpy(rng.integers(2, 40, codes.shape[0]))
+    staged = torch.from_numpy(np.sort(slots, axis=1))
+    for d, density in ((512, None), (40, 0.5)):
+        n, out, n_p, out_p, atol = _embed_both(cuda, staged, codes, counts,
+                                               d, density)
+        assert torch.equal(n, n_p)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=atol)
+    if case == "every_slot_a_hit":
+        assert torch.all(n == h)
+
+
+def test_membership_embed_two_launches_same_bytes(cuda):
+    """No atomics: two launches on the same inputs give the same bytes."""
+    rng = np.random.default_rng(5)
+    genome = rng.integers(0, 4, 20000).astype(np.uint8)
+    starts = rng.integers(0, 20000 - 4000, 64)
+    bases = torch.from_numpy(np.stack([genome[s : s + 4000] for s in starts]))
+    slots = _canonical_sample_plain(bases, 15, 9, sample_threshold(0.3),
+                                    False)
+    staged, _ = _select_candidates_plain(slots, 1536, False, None)
+    library = build_library([staged], 2, 0.3, 9)
+    signs, mags = build_precompute_signs(library.counts, 512, 2094, 0.2)
+    targets = torch.stack([2 * torch.arange(64), 2 * torch.arange(64) + 1],
+                          dim=1).to(cuda)
+    outs = []
+    for _ in range(2):
+        out = torch.zeros((128, 512), device=cuda)
+        membership_embed(staged.to(cuda), library.codes.to(cuda),
+                         signs.to(cuda), mags.to(cuda), targets, out)
+        outs.append(out.cpu())
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert outs[0].abs().sum() > 0
 
 
 def test_membership_embed_empty_library(cuda):

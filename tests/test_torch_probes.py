@@ -32,7 +32,7 @@ from fedrann_tpu_torch.config import PipelineConfig  # noqa: E402
 from fedrann_tpu_torch.device import SM90_SMEM_OPTIN  # noqa: E402
 from fedrann_tpu_torch.kmers.membership import (  # noqa: E402
     SELECT_BLOCK,
-    _pow2,
+    STATIC_SMEM,
     _selection_plan,
     stage_launch_plan,
 )
@@ -241,18 +241,20 @@ def test_scratch_ladder_problems_on_a_card_limit():
         [step(n) for n in sizes[:4]] + [step(sizes[4], True)], limit)
 
 
-def _seed_smem(w, hit_buffer, keep_all, block_cap):
-    """Shared memory of the one-block-per-row kernel alone."""
+def _one_block_smem(w, hit_buffer, keep_all, block_cap):
+    """Shared memory of the one-block-per-row kernel's survivor buffer:
+    every block's survivors but the last one's, plus one block of
+    candidates (blocked), or the whole row (full width)."""
     blocked, c, g, _ = _selection_plan(w, hit_buffer, keep_all, block_cap)
-    return 8 * (_pow2(g * c if blocked else w)
-                + (SELECT_BLOCK if blocked else 0))
+    return 8 * (min(w, (g - 1) * c + SELECT_BLOCK) if blocked else w)
 
 
 @pytest.mark.parametrize("fraction", [0.005, 0.02, 0.05, 0.2, 1.0])
 def test_stage_plan_fits_shared_memory(fraction):
     """Every bucket length of the auto ladder at every k: each pass of
     kernel B fits a block's shared memory, and the one-block kernel is kept
-    exactly where it fits."""
+    exactly where its survivor buffer (with the static arrays' allowance)
+    fits."""
     too_big = []
     for length in (1 << p for p in range(10, 19)):
         for k in (15, 21, 31):
@@ -262,17 +264,17 @@ def test_stage_plan_fits_shared_memory(fraction):
             w = length - k + 1
             plan = stage_launch_plan(w, hit_buffer, keep_all, cap)
             assert all(b <= SM90_SMEM_OPTIN for _, b in plan.passes), plan
-            seed = _seed_smem(w, hit_buffer, keep_all, cap)
-            assert plan.long == (seed > SM90_SMEM_OPTIN)
+            smem = _one_block_smem(w, hit_buffer, keep_all, cap)
+            assert plan.long == (smem + STATIC_SMEM > SM90_SMEM_OPTIN)
             if plan.long:
                 too_big.append((length, k))
                 assert plan.chunk * plan.n_chunks >= plan.n_surv
             else:
-                assert plan.passes == (("select_stage_rows", seed),)
-    if fraction == 0.05:
-        assert {length for length, _ in too_big} == {1 << 18}
+                assert plan.passes == (("select_stage_rows", smem),)
+    if fraction == 0.2:
+        assert {length for length, _ in too_big} == {1 << 17, 1 << 18}
     if fraction == 1.0:
         assert {length for length, _ in too_big} == {
             1 << p for p in range(15, 19)}
-    if fraction <= 0.02:
+    if fraction <= 0.05:  # the 262,144 bucket at 5% fits one block now
         assert not too_big

@@ -143,16 +143,18 @@ def _long_bucket(length, mean_read_length, genome_length, rows=4):
 
 
 def test_stage_long_rows_match_jax():
-    """Rows past a block's shared memory (kernel B's long path on the
-    card): the 262,144-base bucket at 5% sampling (blocked, 24,320
-    survivors) and a keep_all 32,768-base bucket, as the pipeline stages
-    them."""
+    """The longest rows, as the pipeline stages them: the 262,144-base
+    bucket at 5% sampling (blocked, up to 24,320 survivors, which one
+    block's shared memory holds on the card) and a keep_all 32,768-base
+    bucket (past one block: kernel B's device-memory path)."""
     k = 15
     bases = _long_bucket(1 << 18, 150_000, 600_000)
     config = PipelineConfig(kmer_size=k, kmer_sample_fraction=0.05)
     hb, keep_all, cap = staging_params(1 << 18, config)
-    assert membership.stage_launch_plan(bases.shape[1] - k + 1, hb,
-                                        keep_all, cap).long
+    assert not membership.stage_launch_plan(bases.shape[1] - k + 1, hb,
+                                            keep_all, cap).long
+    assert membership.stage_launch_plan((1 << 15) - k + 1, (1 << 15) - k + 1,
+                                        True, None).long
     got, dropped, want, dropped_j = _stage_both(bases, k, 0.05, True)
     _assert_rows(got, want, k)
     np.testing.assert_array_equal(dropped, dropped_j)
@@ -179,19 +181,111 @@ def _merge_by_rank(a, b, m2):
     return out[:, :m2]
 
 
+def _block_survivors(block, cap):
+    """Kernel B's selection of one 1024-slot block: its candidates in
+    window order when they fit the cap, else the first cap of them sorted
+    (the compaction, then the sort only past the cap)."""
+    cand = block[block != PAD_SLOT]
+    return cand if len(cand) <= cap else np.sort(cand)[:cap]
+
+
+def _emulate_one_block(slots, plan):
+    """Kernel B's one-block-per-row kernel in numpy, as it runs for each
+    row: each 1024-slot block's candidates appended to the survivor buffer
+    (sorted and cut only past the cap; full-width rows take cap = 1024,
+    so every candidate survives), one sort of the survivors, the width
+    cut with padding after it, dropped = candidates - min(survivors,
+    width). Asserts that the buffer never holds more slots than the plan's
+    shared memory."""
+    s = slots.numpy()
+    r, w = s.shape
+    block = membership.SELECT_BLOCK
+    cap = plan.cap if plan.blocked else block
+    width = plan.width
+    staged = np.full((r, width), PAD_SLOT)
+    dropped = np.zeros(r, np.int32)
+    for i in range(r):
+        surv, n_cand = [], 0
+        for b in range(0, w, block):
+            count = int((s[i, b : b + block] != PAD_SLOT).sum())
+            assert sum(map(len, surv)) + count <= plan.smem // 8
+            n_cand += count
+            surv.append(_block_survivors(s[i, b : b + block], cap))
+        row = np.sort(np.concatenate(surv))
+        staged[i, : min(width, len(row))] = row[:width]
+        dropped[i] = n_cand - min(len(row), width)
+    return staged, dropped
+
+
+@pytest.mark.parametrize("case", [
+    "main",          # the main path's 16,370-window rows at 5% sampling
+    "ragged",        # a ragged last block, survivors above the width
+    "narrow",        # a width of 8: nearly every survivor dropped
+    "full",          # w <= 2 * SELECT_BLOCK: one sort of the whole row
+    "keep_all",      # keep_all: every candidate of the row survives
+    "262144",        # the 262,144-base bucket at 5%: one block per row now
+])
+def test_one_block_schedule_matches_plain(case):
+    """The one-block kernel's schedule (compaction in window order, a sort
+    only for blocks past the cap, one survivor sort) reproduces the plain
+    version bitwise on overflowing blocks, a block with exactly cap
+    candidates, all-padding rows, dense duplicates and survivors below and
+    above the width."""
+    w, fraction, keep_all, hb = {
+        "main": (16370, 0.05, False, None),
+        "ragged": (4084, 0.3, False, 512),
+        "narrow": (4096, 0.05, False, 8),
+        "full": (1500, 0.2, False, None),
+        "keep_all": (5000, 1.0, True, 5000),
+        "262144": (262130, 0.05, False, None),
+    }[case]
+    rng = np.random.default_rng(w)
+    r = 8 if w < 100_000 else 5
+    codes = rng.integers(0, 1 << 20, size=(r, w), dtype=np.int64)
+    slots = np.where(rng.random((r, w)) < fraction, codes, PAD_SLOT)
+    cap = None if keep_all else membership.selection_cap(fraction)
+    slots[1, : w // 2] = 77                 # overflowing blocks, duplicates
+    slots[2, :] = PAD_SLOT                  # an all-padding row
+    slots[3, :] = rng.integers(0, 50, size=w)  # dense duplicates
+    if cap is not None and w > 2 * membership.SELECT_BLOCK:
+        slots[4, :1024] = PAD_SLOT          # block 0: exactly cap candidates
+        slots[4, rng.choice(1024, cap, replace=False)] = rng.integers(
+            0, 1 << 20, cap)
+        slots[4, 1024:2048] = np.where(np.arange(1024) < cap + 1, 5,
+                                       PAD_SLOT)  # block 1: cap + 1
+    hb = hb or membership.staging_width(w, fraction)
+    plan = membership.stage_launch_plan(w, hb, keep_all, cap)
+    assert not plan.long
+    slots = torch.from_numpy(slots)
+    staged, dropped = _emulate_one_block(slots, plan)
+    want, want_dropped = membership._select_candidates_plain(
+        slots, hb, keep_all, cap)
+    np.testing.assert_array_equal(staged, want.numpy())
+    np.testing.assert_array_equal(dropped, want_dropped.numpy())
+    if case == "narrow":
+        assert (want_dropped.numpy()[[0, 1, 3]] > 0).all()
+    if case == "ragged":  # survivors past the width in the duplicate row
+        assert want_dropped[1] > 0
+
+
 def _emulate_long_path(slots, plan):
     """Kernel B's long path pass by pass in numpy, as the plan lays it
-    out: blocked selection, chunk sorts, pairwise merges of runs cut at
-    width, dropped from the pass-1 (or chunk) counts."""
+    out: blocked selection (each block's candidates, sorted and cut only
+    past the cap, then padding to cap), chunk sorts, pairwise merges of
+    runs cut at width, dropped from the pass-1 (or chunk) counts."""
     s = slots.numpy()
     r, w = s.shape
     if plan.blocked:
         g, c = plan.n_blocks, plan.cap
-        padded = np.full((r, g * membership.SELECT_BLOCK), PAD_SLOT)
-        padded[:, :w] = s
-        blocks = np.sort(padded.reshape(r, g, -1), axis=2)
-        src = blocks[:, :, :c].reshape(r, g * c)
-        cand = (blocks != PAD_SLOT).sum(axis=2)
+        block = membership.SELECT_BLOCK
+        src = np.full((r, g * c), PAD_SLOT)
+        cand = np.zeros((r, g), np.int64)
+        for i in range(r):
+            for b in range(g):
+                piece = s[i, b * block : (b + 1) * block]
+                kept_b = _block_survivors(piece, c)
+                src[i, b * c : b * c + len(kept_b)] = kept_b
+                cand[i, b] = (piece != PAD_SLOT).sum()
         kept = np.minimum(cand, c)
     else:
         src = s
@@ -215,7 +309,8 @@ def _emulate_long_path(slots, plan):
 
 
 @pytest.mark.parametrize("w,fraction,keep_all,cap,smem_limit", [
-    (262130, 0.05, False, None, SM90_SMEM_OPTIN),  # 262,144 bucket
+    (262130, 0.05, False, None, 150_000),  # 262,144 bucket, less smem
+    (131058, 0.2, False, None, SM90_SMEM_OPTIN),  # 131,072 bucket at 20%
     (20000, 0.2, False, None, 8 * 2048),  # 4 chunks of 2048: two merges
     (9000, 1.0, True, None, 8 * 1024),    # keep_all, 16 chunks of 1024
     (8000, 0.2, False, 256, 8 * 2560),    # survivors fill exactly one chunk

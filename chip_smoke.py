@@ -5,9 +5,12 @@
 
 Phases; any failure exits non-zero and prints no result line:
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from fedrann_tpu_torch/csrc/;
+  2. build the CUDA kernels from fedrann_tpu_torch/csrc/; the static shared
+     memory of kernel B's one-block kernels must fit the STATIC_SMEM that
+     their plan keeps beside the survivor buffer;
   3. run each kernel against its plain PyTorch version on the card, at the
-     shapes of the main-path run below: canonical_sample and
+     shapes of the main-path run below: stage_rows (kernels A and B fused,
+     against the plain composition of the two), canonical_sample and
      select_candidates must match bitwise (dropped counts included),
      membership_embed to rtol 1e-5, atol 1e-6 * max|mags| * hits (float32
      sums taken in another order), also at d = 32, where its time is
@@ -16,25 +19,30 @@ Phases; any failure exits non-zero and prints no result line:
      simulated reads (5 Mb genome, 12x, 8 kb, 5% error) with the flags of
      the bench.py workload (k=15, 5% sampling, d=512, 50 neighbors), with every
      kernel's launch count reset just before: overlaps.tsv must hold 50
-     neighbor slots per embedding row less the self rows, every kernel must
-     have launched (each path of kernel B exactly where its plan picks
-     it), and the truth recall of pairs overlapping >= 4 kb must reach
-     0.9; kernel B takes its one-block-per-row path there;
+     neighbor slots per embedding row less the self rows, every kernel of
+     the path must have launched (each staging path exactly where its plan
+     picks it: the fused kernel for rows kept in one block, kernel A and
+     B's device-memory path for the others), and the truth recall of pairs
+     overlapping >= 4 kb must reach 0.9; the rows stage fused there;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
      (a) kernel B against its plain version, bitwise, at the first staging
          chunk of the 262,144-base bucket (5% sampling) on the path its
          plan picks, with the device-memory path timed and checked beside
-         it when that is the one-block path, and at a keep_all chunk of
-         the 32,768-base bucket (the device-memory path);
+         it when that is the one-block path, and the fused kernel (1,024
+         threads) against the plain composition there; and at a keep_all
+         chunk of the 32,768-base bucket (the device-memory path);
      (b) the CLI on the long reads with the launch counts reset just
-         before, checked as in phase 4 (kernel B's paths as its plan
+         before, checked as in phase 4 (the staging paths as the plan
          picks them for the two buckets), with the truth recall of pairs
          overlapping >= 75 kb;
-     (c) the CLI on ~40 simulated reads of ~40 kb (200 kb genome, 8x) at
+     (c) ~40 simulated reads of ~40 kb (200 kb genome, 8x) at
          --kmer-sample-fraction 1.0, whose keep_all rows only kernel B's
-         device-memory path can stage: it must launch there, recall of
-         pairs overlapping >= 20 kb;
+         device-memory path can stage: first kernel A and that path
+         against their plain versions, bitwise, on the first chunk of each
+         such bucket as packed and with INVALID bases marked, with A's
+         time and bound there; then the CLI, where A and that path must
+         launch, recall of pairs overlapping >= 20 kb;
   6. the capability probes (fedrann_tpu_torch.probes, the counterparts of
      bench/probe_mosaic.py and bench/probe_mosaic2.py): each probe kernel
      against its plain version (integers and the P6-B store bitwise, float
@@ -42,22 +50,26 @@ Phases; any failure exits non-zero and prints no result line:
      the sizes within the card's shared-memory opt-in limit and refuse the
      next), fk_probe_dyn_rows also bitwise against its hit-order replay
      (`probes._dyn_rows_replay`, computed on the host) in every mode; the
-     device time per launch (torch.profiler) of P1 and of each dyn_rows
-     mode is logged beside the per-call times, with P1's host path timed
+     device time per launch (torch.profiler) of every probe kernel (P1,
+     P2/P5, P4 and each dyn_rows mode) is logged beside the per-call
+     times and its plain version's, with P1's host path timed
      piece by piece; then the probe entry point `all` with its counts reset
      just before: every probe kernel must launch.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the run of its own path), errors, times, the bound (the larger of the
-bytes the function must move over 3.35 TB/s and its float32 operations
-over 67 TFLOP/s, counted from this run's inputs) and the time of one
-PyTorch call computing the same function where there is one; the last is
-{"ok": true, "device": {...}}.
+the runs of its own path: stage_rows and membership_embed from the main
+path's, the other staging kernels summed over the three CLI runs, the
+probes from their entry point), errors, times, the bound (the larger of
+the bytes the function must move over 3.35 TB/s, its float32 operations
+over 67 TFLOP/s and its int32 operations over 16.7 T/s, counted from
+this run's inputs; for the window-code kernels, integer-pipe instructions) and the time of one PyTorch call computing the same
+function where there is one; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -76,6 +88,9 @@ LONG_GENOME, LONG_COVERAGE, LONG_READ_LEN, LONG_MIN_OVERLAP = (
 KEEP_ALL_BUCKET = 32768
 KEEP_ALL_GENOME, KEEP_ALL_READ_LEN = 200_000, 40_000
 STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
+# the staging kernels; a CLI run launches each where the plan picks its path
+STAGE_KERNELS = ("stage_rows", "canonical_sample", "select_candidates",
+                 "select_candidates_long")
 
 
 COUNTERS: dict = {}
@@ -83,9 +98,15 @@ HAND_KERNELS: set = set()  # __global__ names of csrc/*.cu (is_hand)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): device memory bytes/s, float32 operations/s outside tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# int32 operations/s, one integer-pipe instruction a lane a clock: 132 SMs
+# x 64 INT32 lanes (16 in each of an SM's four partitions) x 1.98 GHz boost
+# clock = 16.73e12
+PEAK_INT32 = 16.7e12
 CSRC = "fedrann_tpu_torch/csrc/"
 # kernel -> (source, the pl.pallas_call sites it replaces)
 SOURCES = {
+    "stage_rows": (CSRC + "select_stage_rows.cu",
+                   "bench/pallas_kernels.py:128, bench/pallas_sort.py:128"),
     "canonical_sample": (CSRC + "canonical_sample.cu",
                          "bench/pallas_kernels.py:128"),
     "select_candidates": (CSRC + "select_stage_rows.cu",
@@ -154,14 +175,75 @@ def is_hand(name: str) -> bool:
     return m is not None and m.group(1) in HAND_KERNELS
 
 
-def bound(n_bytes: float, fp32_ops: float = 0.0) -> dict:
+def bound(n_bytes: float, fp32_ops: float = 0.0,
+          int32_ops: float = 0.0) -> dict:
     """The least time the card could take for a function that must move
     n_bytes (each input read once, each output written once) and do
-    fp32_ops float32 operations, and which of the two bounds it."""
+    fp32_ops float32 and int32_ops int32 operations, and which bounds it."""
     by_bytes = n_bytes / PEAK_BYTES * 1e3
-    by_ops = fp32_ops / PEAK_FP32 * 1e3
+    by_ops = max(fp32_ops / PEAK_FP32, int32_ops / PEAK_INT32) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def window_op_counts(k: int, kind: str) -> tuple[int, int]:
+    """(work of every window of a block the window-code function computes,
+    more for each valid window it hashes), as csrc/window_codes.cuh counts
+    it for this k: kind "INSTR", integer-pipe instructions (the floor the
+    bound uses), or "OPS", operations at the source (an upper figure)."""
+    import math
+    import re
+
+    with open(os.path.join(HERE, CSRC, "window_codes.cuh")) as f:
+        src = f.read()
+    width = "WIDE" if k > 16 else "NARROW"
+    counts = []
+    for name in (f"WINDOW_{kind}_{width}", f"HASH_{kind}_{width}"):
+        m = re.search(rf"constexpr int {name} = ([0-9+* ]+);", src)
+        if m is None:
+            fail(f"no count {name} in {CSRC}window_codes.cuh")
+        counts.append(sum(math.prod(int(f) for f in term.split("*"))
+                          for term in m.group(1).split("+")))
+    return counts[0], counts[1]
+
+
+def window_ops(bases, k: int, keep_all: bool) -> tuple[int, int]:
+    """(integer-pipe instructions, source-level operations) the window-code
+    function needs on these (R, L) bases: every window (below W) of each
+    1024-window block with a valid base among the 1,056 it stages (the
+    others are skipped), and the hash of each valid window unless
+    keep_all."""
+    import torch
+
+    r, length = bases.shape
+    w = length - k + 1
+    n_blocks = -(-w // 1024)
+    bad = torch.ones((r, n_blocks * 1024 + 1057), dtype=torch.int32,
+                     device=bases.device)  # past the row: INVALID
+    bad[:, 0] = 0
+    bad[:, 1 : length + 1] = (bases >= 4).to(torch.int32)
+    cum = torch.cumsum(bad, dim=1)  # cum[:, i]: INVALID bases before i
+    valid = int(((cum[:, k : w + k] - cum[:, :w]) == 0).sum())
+    starts = torch.arange(n_blocks, device=bases.device) * 1024
+    live = (cum[:, starts + 1056] - cum[:, starts]) < 1056
+    in_row = torch.clamp(w - starts, max=1024)
+    windows = int((live.to(torch.int64) * in_row).sum())
+    counts = []
+    for kind in ("INSTR", "OPS"):
+        per_window, per_hash = window_op_counts(k, kind)
+        counts.append(windows * per_window
+                      + (0 if keep_all else valid * per_hash))
+    return counts[0], counts[1]
+
+
+def window_bound(n_bytes: int, ops: tuple[int, int]) -> tuple[dict, str]:
+    """The bound of a window-code kernel from its bytes and window_ops'
+    counts (the instructions), and a note of both counts with the upper
+    figure the source-level operations give."""
+    b = bound(n_bytes, int32_ops=ops[0])
+    upper = bound(n_bytes, int32_ops=ops[1])["bound_ms"]
+    return b, (f"{n_bytes} bytes, {ops[0]} integer-pipe instructions; "
+               f"{ops[1]} source-level operations give {upper:.5f} ms")
 
 
 def nbytes(*tensors) -> int:
@@ -277,6 +359,51 @@ def p1_host_split(dev, n: int) -> dict:
     }
 
 
+def check_stage_rows(name: str, bases, k: int, hit_buffer: int,
+                     keep_all: bool, seed: int, thr: int, block_cap,
+                     ops: tuple[int, int], card: str) -> dict:
+    """Kernels A and B fused (stage_candidates on rows the plan keeps in
+    one block) against the plain composition of the two on the same
+    bases, bitwise, dropped counts included; its report (the bound: the
+    bases in, the staged rows and dropped counts out, window_ops' `ops`)
+    and a log line with its device us per launch."""
+    import torch
+
+    from fedrann_tpu_torch.kmers.codec import _canonical_sample_plain
+    from fedrann_tpu_torch.kmers.membership import (
+        _select_candidates_plain,
+        stage_candidates,
+    )
+
+    def plain():
+        return _select_candidates_plain(
+            _canonical_sample_plain(bases, k, seed, thr, keep_all),
+            hit_buffer, keep_all, block_cap)
+
+    def fused():
+        return stage_candidates(bases, k, hit_buffer, keep_all, seed, thr,
+                                block_cap)
+
+    before = stage_candidates.launches
+    staged, dropped = fused()
+    torch.cuda.synchronize()
+    if stage_candidates.launches != before + 1:
+        fail(f"{name}: the rows did not stage fused")
+    staged_p, dropped_p = plain()
+    if not (torch.equal(staged, staged_p) and torch.equal(dropped, dropped_p)):
+        fail(f"{name}: the fused kernel differs from the plain composition "
+             f"in {int((staged != staged_p).sum())} slots and "
+             f"{int((dropped != dropped_p).sum())} dropped counts")
+    b, note = window_bound(nbytes(bases, staged, dropped), ops)
+    r = dict(max_abs_err=0.0, ms=time_cuda(fused, 10),
+             plain_ms=time_cuda(plain, 3), library_ms=None, **b)
+    log(f"{name}: rows {tuple(bases.shape)} k={k} keep_all={keep_all}; "
+        f"bitwise equal, dropped {int(dropped.sum())}; {r['ms']:.4f} ms, "
+        f"device {device_us(fused, 10, True)} us per launch; bound "
+        f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {note}) [{card}]")
+    return r
+
+
 def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     """Phase 3: each kernel vs its plain version at the main-path shapes
     (the first staging chunk of the largest length bucket)."""
@@ -312,18 +439,27 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     log(f"kernel shapes: bases {tuple(bases.shape)} k={k} "
         f"hit_buffer={hit_buffer} block_cap={block_cap}")
     report = {}
+    ops = window_ops(bases, k, keep_all)
+
+    report["stage_rows"] = check_stage_rows(
+        "stage_rows", bases, k, hit_buffer, keep_all, seed, thr, block_cap,
+        ops, card)
 
     slots = canonical_sample(bases, k, seed, thr, keep_all)
     slots_p = _canonical_sample_plain(bases, k, seed, thr, keep_all)
     if not torch.equal(slots, slots_p):
         fail(f"canonical_sample differs from its plain version in "
              f"{int((slots != slots_p).sum())} slots")
+    b, note = window_bound(nbytes(bases, slots), ops)
     report["canonical_sample"] = dict(
         max_abs_err=0.0,
         ms=time_cuda(lambda: canonical_sample(bases, k, seed, thr, keep_all), 10),
         plain_ms=time_cuda(
             lambda: _canonical_sample_plain(bases, k, seed, thr, keep_all), 3),
-        library_ms=None, **bound(nbytes(bases, slots)))
+        library_ms=None, **b)
+    log("canonical_sample: device us per launch " + device_us(
+        lambda: canonical_sample(bases, k, seed, thr, keep_all), 10, True)
+        + f"; bound ({b['bound_by']}: {note}) [{card}]")
 
     staged, dropped = select_candidates(slots, hit_buffer, keep_all, block_cap)
     staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
@@ -488,6 +624,11 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
                    f", {p.smem} B of shared memory")
                 + f"; bitwise equal, dropped {int(dropped.sum())}; "
                 f"{ms:.4f} ms, device {dev_us} us per launch [{card}]")
+            if i == 0 and not p.long:  # the pipeline stages these rows fused
+                log_kernel("stage_rows_262144", check_stage_rows(
+                    "stage_rows_262144", bases, k, hit_buffer, keep_all,
+                    seed, thr, block_cap,
+                    window_ops(bases, k, keep_all), card), card)
             if i == 0:
                 report[name] = dict(
                     max_abs_err=0.0, ms=ms,
@@ -503,6 +644,94 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
         fail("keep_all rows of the 32,768-base bucket fit one block: the "
              "device-memory path has no case here")
     return report
+
+
+def check_keep_all_rows(sim, flags: list[str], dev, card: str) -> None:
+    """Phase 5c, first half: kernel A, and kernel B's device-memory path on
+    its plane, against their plain versions, bitwise, on each bucket of the
+    keep_all reads that the plan stages that way: its first chunk as the
+    CLI packs it (padding included) and a copy with INVALID bases across a
+    block edge, in a block's halo and at a block's start. Logs A's time and
+    bound at that shape."""
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.device import shared_memory_limit
+    from fedrann_tpu_torch.io.fastx import FastxRecord
+    from fedrann_tpu_torch.io.packing import pack_reads
+    from fedrann_tpu_torch.kmers.codec import (
+        _canonical_sample_plain,
+        canonical_sample,
+        sample_threshold,
+    )
+    from fedrann_tpu_torch.kmers.membership import (
+        _select_candidates_plain,
+        select_candidates,
+        stage_launch_plan,
+    )
+
+    config = config_from_args(["-i", "-", "-o", "-", *flags])
+    k, seed = config.kmer_size, config.seed
+    thr = sample_threshold(config.kmer_sample_fraction)
+    packed = pack_reads([FastxRecord(n, q) for n, q in
+                         zip(sim.names, sim.sequences)], None)
+    checked = []
+    for bucket in packed.buckets:
+        length = bucket.length
+        hit_buffer, keep_all, block_cap = pipeline.staging_params(length,
+                                                                  config)
+        if not stage_launch_plan(length - k + 1, hit_buffer, keep_all,
+                                 block_cap, shared_memory_limit(dev)).long:
+            continue
+        rows = pipeline.chunk_rows(length, bucket.bases.shape[0], config)
+        bases = torch.from_numpy(bucket.bases[:rows]).to(dev)
+        marked = bases.clone()
+        marked[0::3, 1020:1030] = 4
+        marked[1::3, 2048 + k // 2] = 4
+        marked[2::3, 3072] = 4
+        for label, x in (("as packed", bases), ("INVALID marked", marked)):
+            slots = canonical_sample(x, k, seed, thr, keep_all)
+            slots_p = _canonical_sample_plain(x, k, seed, thr, keep_all)
+            torch.cuda.synchronize()
+            if not torch.equal(slots, slots_p):
+                fail(f"canonical_sample on the keep_all {length}-base "
+                     f"bucket ({label}) differs from its plain version in "
+                     f"{int((slots != slots_p).sum())} slots")
+            before = select_candidates.long_launches
+            staged, dropped = select_candidates(slots, hit_buffer, keep_all,
+                                                block_cap)
+            staged_p, dropped_p = _select_candidates_plain(
+                slots_p, hit_buffer, keep_all, block_cap)
+            torch.cuda.synchronize()
+            if select_candidates.long_launches != before + 1:
+                fail(f"keep_all {length}-base bucket: kernel B did not take "
+                     "its device-memory path")
+            if not (torch.equal(staged, staged_p)
+                    and torch.equal(dropped, dropped_p)):
+                fail(f"kernel B's device-memory path on the keep_all "
+                     f"{length}-base bucket ({label}) differs from its "
+                     "plain version")
+            log(f"keep_all {length}-base bucket ({label}): rows "
+                f"{tuple(x.shape)}, {int((x < 4).sum())} valid bases; "
+                "kernel A and B's device-memory path bitwise equal")
+        slots = canonical_sample(bases, k, seed, thr, keep_all)
+        b, note = window_bound(nbytes(bases, slots),
+                               window_ops(bases, k, keep_all))
+        name = f"canonical_sample_keep_all_{length}"
+        r = dict(max_abs_err=0.0,
+                 ms=time_cuda(lambda: canonical_sample(
+                     bases, k, seed, thr, keep_all), 10),
+                 plain_ms=time_cuda(lambda: _canonical_sample_plain(
+                     bases, k, seed, thr, keep_all), 3),
+                 library_ms=None, **b)
+        log_kernel(name, r, card)
+        log(f"{name}: device us per launch " + device_us(
+            lambda: canonical_sample(bases, k, seed, thr, keep_all), 10,
+            True) + f"; bound ({b['bound_by']}: {note}) [{card}]")
+        checked.append(length)
+    if not checked:
+        fail("no bucket of the keep_all reads takes kernel A")
 
 
 def check_probes(dev, card: str) -> dict:
@@ -551,6 +780,10 @@ def check_probes(dev, card: str) -> dict:
         plain_ms=time_cuda(lambda: probes._smem_input_plain(x), 20),
         library_ms=None,
         **bound(nbytes(x) + 4 * (x.shape[0] // probes.INPUT_ROWS)))
+    log("P2/P5 smem_input: device " + device_us(
+        lambda: probes.smem_input(x), 20, True) + " us vs plain "
+        + device_us(lambda: probes._smem_input_plain(x), 20, False)
+        + f" us per call [{card}]")
 
     q, idx, row = t["q"], t["idx"], t["row"]
     qmax = float(q.abs().max())
@@ -618,6 +851,10 @@ def check_probes(dev, card: str) -> dict:
         plain_ms=time_cuda(lambda: probes._bsearch_plain(table, queries),
                            20),
         library_ms=None, **bound(nbytes(table, queries) + 4))
+    log("P4 bsearch: device " + device_us(
+        lambda: probes.bsearch(table, queries), 20, True) + " us vs plain "
+        + device_us(lambda: probes._bsearch_plain(table, queries), 20, False)
+        + f" us per call [{card}]")
     for name in probes.WRAPPERS:
         log_kernel(name, report[name], card)
     return report
@@ -642,8 +879,10 @@ def drive_probes() -> dict:
 
 
 def stage_paths(sim, flags: list[str], dev) -> set[str]:
-    """Kernel B's paths (names in COUNTERS) that its plan picks for the
-    buckets of `sim`'s reads staged with `flags`."""
+    """The staging kernels (names in COUNTERS) that the plan picks for the
+    buckets of `sim`'s reads staged with `flags`: the fused kernel for a
+    bucket whose rows one block holds, else kernel A and kernel B's
+    device-memory path."""
     from fedrann_tpu_torch import pipeline
     from fedrann_tpu_torch.cli import config_from_args
     from fedrann_tpu_torch.device import shared_memory_limit
@@ -654,20 +893,25 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
     config = config_from_args(["-i", "-", "-o", "-", *flags])
     packed = pack_reads([FastxRecord(n, q) for n, q in
                          zip(sim.names, sim.sequences)], None)
-    return {"select_candidates_long" if stage_launch_plan(
-        b.length - config.kmer_size + 1,
-        *pipeline.staging_params(b.length, config),
-        shared_memory_limit(dev)).long else "select_candidates"
-        for b in packed.buckets}
+    paths = set()
+    for b in packed.buckets:
+        paths.update(("canonical_sample", "select_candidates_long")
+                     if stage_launch_plan(
+                         b.length - config.kmer_size + 1,
+                         *pipeline.staging_params(b.length, config),
+                         shared_memory_limit(dev)).long
+                     else ("stage_rows",))
+    return paths
 
 
 def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
               dev, flags: list[str] = FLAGS) -> dict:
     """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
-    kernel's count reset just before; every kernel must launch, each path
-    of kernel B exactly when its plan picks it for a bucket of the reads.
-    Check overlaps.tsv and the truth recall of pairs overlapping >=
-    min_overlap. Returns the launch counts."""
+    kernel's count reset just before; every kernel must launch, each
+    staging kernel exactly when the plan picks its path for a bucket of
+    the reads (so kernel B's one-block path on kernel A's plane, which the
+    pipeline never takes, never). Check overlaps.tsv and the truth recall
+    of pairs overlapping >= min_overlap. Returns the launch counts."""
     paths = stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
@@ -683,7 +927,7 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     if rc != 0:
         fail(f"cli.main returned {rc}")
     for name, n in launches.items():
-        want = name in paths or not name.startswith("select_candidates")
+        want = name in paths or name not in STAGE_KERNELS
         if (n > 0) != want:
             fail(f"kernel {name} was launched {n} times by the main path, "
                  f"expected {'some' if want else 'none'}")
@@ -814,13 +1058,18 @@ def main() -> None:
         from fedrann_tpu_torch import _build
         from fedrann_tpu_torch.device import get_device
         from fedrann_tpu_torch.kmers.codec import canonical_sample
-        from fedrann_tpu_torch.kmers.membership import select_candidates
+        from fedrann_tpu_torch.kmers.membership import (
+            STATIC_SMEM,
+            select_candidates,
+            stage_candidates,
+        )
         from fedrann_tpu_torch.project.embed import membership_embed
         from fedrann_tpu_torch.sim import simulate_reads, write_fasta
     except ImportError as e:
         fail(f"cannot import the port from {HERE}: {e}")
     # kernel -> (wrapper, its launch count): one count per path of kernel B
     COUNTERS.update({
+        "stage_rows": (stage_candidates, "launches"),
         "canonical_sample": (canonical_sample, "launches"),
         "select_candidates": (select_candidates, "launches"),
         "select_candidates_long": (select_candidates, "long_launches"),
@@ -840,6 +1089,13 @@ def main() -> None:
     so = _build.build()
     _build.kernels()
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.basename(so)}")
+    most = ctypes.c_int32(0)
+    _build.launch("fk_stage_rows_static_smem", ctypes.addressof(most))
+    if not 0 < most.value <= STATIC_SMEM:
+        fail(f"a one-block kernel holds {most.value} B of static shared "
+             f"memory, past the STATIC_SMEM ({STATIC_SMEM} B) its plan keeps")
+    log(f"one-block kernels: at most {most.value} B of static shared "
+        f"memory (STATIC_SMEM {STATIC_SMEM} B)")
     build_log = str(so) + ".log"
     if os.path.exists(build_log):
         for line in open(build_log).read().splitlines():
@@ -892,14 +1148,15 @@ def main() -> None:
         if "select_candidates_long" not in stage_paths(sim, flags, dev):
             fail("no bucket of the keep_all reads takes kernel B's "
                  "device-memory path")
+        check_keep_all_rows(sim, flags, dev, card)
         log(f"keep_all run: {len(sim.names)} reads of ~{KEEP_ALL_READ_LEN} "
             "bases at --kmer-sample-fraction 1.0")
         keep_all_launches = drive_cli(
             fasta, os.path.join(tmp, "kout"), sim, KEEP_ALL_READ_LEN // 2,
             card, dev, flags)
-        launches["select_candidates_long"] = (
-            long_launches["select_candidates_long"]
-            + keep_all_launches["select_candidates_long"])
+        for name in ("canonical_sample", "select_candidates",
+                     "select_candidates_long"):
+            launches[name] += long_launches[name] + keep_all_launches[name]
 
     report.update(check_probes(dev, card))
     launches.update(drive_probes())

@@ -41,6 +41,12 @@ _SIGNATURES = {
     # staged, width, dropped, stream
     "fk_select_stage_rows": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
                              _P, _I64, _P, _P],
+    # bases, rows, length, w, k, s1, s2, threshold, keep_all, hit_buffer,
+    # blocked, cap, n_blocks, smem_bytes, staged, width, dropped, stream
+    "fk_stage_rows": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32, _I32,
+                      _I64, _I32, _I32, _I32, _I32, _P, _I64, _P, _P],
+    # bytes (out, one int32)
+    "fk_stage_rows_static_smem": [_P],
     # slots, rows, w, blocked, cap, n_blocks, n_surv, chunk, n_chunks,
     # width, surv, buf_a, buf_b, cand, kept, staged, dropped, stream
     "fk_select_stage_long": [_P, _I64, _I64, _I32, _I32, _I32, _I64, _I32,

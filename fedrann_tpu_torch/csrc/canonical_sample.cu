@@ -1,70 +1,73 @@
-// Kernel A: canonical window codes + sampling filter -> staged slots.
+// Kernel A: canonical window codes + sampling filter -> the (R, W) plane of
+// staged slots.
 //
 // Replaces the TPU kernel `canonical_and_sample` (bench/pallas_kernels.py:93,
-// body `_kernel` :42), meeting the production contract of
-// fedrann_tpu/kmers/codec.py `canonical_window_codes` plus the
+// its pallas_call :128, body `_kernel` :42), meeting the production
+// contract of fedrann_tpu/kmers/codec.py `canonical_window_codes` plus the
 // `sample_hash32 < threshold` filter of membership.select_candidates, for
-// every k <= 31 (one int64 code per window, no u32 word tuples).
+// every k <= 31 (one int64 slot per window, no u32 word tuples).
 //
-// One thread per window (r, i) of the (R, W) output, W = L - k + 1: it
-// reads the k bases of its window, builds the forward code and the reverse
-// complement, takes the canonical min (a palindrome counts as forward),
-// checks validity (no base >= 4) and the fmix32 sampling hash, and writes
-// (canon << 1) | is_fwd, or PAD_SLOT.
+// Since kernel B's one-block path computes its slots itself from the bases
+// (select_stage_rows.cu, `fk_stage_rows`), this kernel serves only the rows
+// that path cannot hold: B's device-memory path reads the plane it writes
+// (keep_all rows past 28,928 windows, blocked rows at >= 6.5% sampling at
+// the 262,144-base bucket and >= 14.5% at 131,072;
+// membership.stage_launch_plan decides).
 //
-// Bound on the card: device memory, ~9 bytes a window (one 8-byte store;
-// the k byte loads of neighbouring threads overlap and hit L1, so the base
-// reads are ~1 byte per window): 0.090 ms at the main path's 2,048 x
-// 16,384 chunk. The kernel does not reach it: chip_smoke.py measures ~20%
-// of that bound (0.445-0.455 ms on an NVIDIA H100 80GB HBM3, 700.00 W), so
-// the store stream is not what limits it. Nothing is kept between windows:
-// each thread rebuilds its window's code from k byte loads and k
-// shift-or steps per strand, then hashes it, and that integer work is the
-// larger cost. A rolling code (one base in and one out per window) would
-// cut it; fusing this kernel into kernel B would also keep the slot plane
-// out of device memory.
+// One block of 256 threads per (row, 1024-window block): window_slots
+// (window_codes.cuh) stages the block's bases and halo, packs them into a
+// 2-bit stream and an invalid mask in shared memory, and gives each thread
+// its 4 windows' slots in O(1) operations each; a block whose bases are all
+// INVALID skips the codes and hashes. The thread stores its 4 slots with
+// 16-byte stores where the row is aligned.
+//
+// Bound on the card: the larger of the bytes (one byte of bases in and 8
+// bytes of slots out per window: 0.090 ms at the main path's 2,048 x 16,384
+// chunk) and the integer work (WINDOW_INSTR_* + HASH_INSTR_* of
+// window_codes.cuh per window over 132 SMs x 64 INT32 lanes x 1.98 GHz),
+// which chip_smoke.py prints beside its time. Writing the plane is the
+// point of this form, so the bytes stay.
 
-#include "common.cuh"
+#include "window_codes.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
+constexpr int A_THREADS = 256;
+
+// This thread's PER slots of 1024-window block b of a row of w slots
+// (nothing past w), with 16-byte stores where the row is aligned.
+template <int PER>
+__device__ __forceinline__ void store_slots(int64_t* row, int64_t w,
+                                            int64_t b,
+                                            const int64_t (&v)[PER]) {
+  const int64_t c = b * SELECT_BLOCK + PER * threadIdx.x;
+  if (PER % 2 == 0 && aligned16(row) && c + PER <= w) {
+    longlong2* p = reinterpret_cast<longlong2*>(row + c);
+#pragma unroll
+    for (int i = 0; i < PER / 2; ++i)
+      p[i] = make_longlong2(v[2 * i], v[2 * i + 1]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (c + i < w) row[c + i] = v[i];
 }
 
-__global__ void canonical_sample_kernel(const uint8_t* __restrict__ bases,
-                                        int64_t rows, int64_t length,
-                                        int64_t w, int k, uint32_t s1,
-                                        uint32_t s2, uint32_t threshold,
-                                        int keep_all,
-                                        int64_t* __restrict__ out) {
-  const int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (idx >= rows * w) return;
-  const int64_t r = idx / w;
-  const int64_t i = idx - r * w;
-  const uint8_t* p = bases + r * length + i;
-  uint64_t code = 0, rc = 0;
-  bool valid = true;
-  for (int j = 0; j < k; ++j) {
-    const uint32_t b = p[j];
-    valid &= b < 4;
-    const uint64_t v = b & 3u;
-    code = (code << 2) | v;
-    rc |= (v ^ 3u) << (2 * j);
-  }
-  const bool is_fwd = code <= rc;
-  const uint64_t canon = is_fwd ? code : rc;
-  // sample_hash32 over the (hi, lo) 32-bit halves of the canonical code
-  const uint32_t h1 = fmix32(static_cast<uint32_t>(canon) ^ s1);
-  const uint32_t h2 = fmix32(static_cast<uint32_t>(canon >> 32) ^ s2 ^ h1);
-  const bool keep = valid && (keep_all || fmix32(h1 ^ h2) < threshold);
-  out[idx] = keep ? static_cast<int64_t>((canon << 1) | (is_fwd ? 1u : 0u))
-                  : PAD_SLOT;
+template <bool WIDE>
+__global__ void __launch_bounds__(A_THREADS)
+canonical_sample_kernel(WindowParams p, int n_blocks,
+                        int64_t* __restrict__ out) {
+  constexpr int PER = SELECT_BLOCK / A_THREADS;
+  __shared__ WindowStage stage;
+  const int64_t r = blockIdx.x / n_blocks;
+  const int64_t b = blockIdx.x - r * n_blocks;
+  const uint8_t* row = p.bases + r * p.length;
+  const int c = threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1;
+  const uint4 chunk =
+      c < 0 ? uint4{} : load_window_chunk(row, p.length, b, c, aligned16(row));
+  int64_t v[PER];
+  window_slots<PER, WIDE>(p, b, c, chunk, stage, v);
+  store_slots(out + r * p.w, p.w, b, v);
 }
 
 }  // namespace
@@ -75,13 +78,17 @@ extern "C" int fk_canonical_sample(const uint8_t* bases, int64_t rows,
                                    uint32_t s1, uint32_t s2,
                                    uint32_t threshold, int keep_all,
                                    int64_t* out, void* stream) {
-  const int64_t n = rows * w;
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  canonical_sample_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      bases, rows, length, w, k, s1, s2, threshold, keep_all, out);
+  if (rows <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  const int n_blocks = static_cast<int>((w + SELECT_BLOCK - 1) / SELECT_BLOCK);
+  const WindowParams p{bases, length, w, k, s1, s2, threshold, keep_all};
+  const unsigned grid = static_cast<unsigned>(rows * n_blocks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > 16) {
+    canonical_sample_kernel<true><<<grid, A_THREADS, 0, st>>>(p, n_blocks, out);
+  } else {
+    canonical_sample_kernel<false><<<grid, A_THREADS, 0, st>>>(p, n_blocks,
+                                                               out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,22 +1,33 @@
-// Kernel B: per-read candidate selection and row sort -> staged rows.
+// Kernel B: per-read candidate selection and row sort -> staged rows; on
+// its one-block path fused with kernel A's window codes.
 //
-// Replaces the TPU kernel `sort_rows_pallas` (bench/pallas_sort.py:96, its
-// pallas_call :128, `_sort_kernel` :66, `_cmp_exchange` :38) and computes
-// what its production twin computes: fedrann_tpu/kmers/membership.py
-// `select_candidates` (:282-337) after the sampling mask, i.e. the blocked
-// selection, the cap slice, the narrow sort, the `width` slice and the
-// exact dropped count.
-//
-// Bound on the card: device memory. The function must read the row's
-// slots once and write `width` staged slots: at the main path's 2,048 x
-// 16,370 chunk, 268 MB in and 16.8 MB out, 0.085 ms at 3.35 TB/s. Sorting
-// is shared-memory work on the few candidates a row holds (~5% of its
-// windows at 5% sampling), so the design keeps the sort off the padding:
+// Replaces the TPU kernels `sort_rows_pallas` (bench/pallas_sort.py:96, its
+// pallas_call :128, `_sort_kernel` :66, `_cmp_exchange` :38) and, fused,
+// `canonical_and_sample` (bench/pallas_kernels.py:128), and computes what
+// their production twin computes: fedrann_tpu/kmers/membership.py
+// `stage_candidates` (:254-279), one device program from bases to staged
+// rows: the window codes and the sampling mask, then `select_candidates`
+// (:282-337), i.e. the blocked selection, the cap slice, the narrow sort,
+// the `width` slice and the exact dropped count.
 //
 // Rows whose survivor buffer fits a block's shared memory: one thread
 // block of 256 threads per row (1,024 where the buffer leaves room for
-// only one block an SM), 4 slots a thread (1) per 1024-slot block, read
-// with 16-byte loads SELECT_DEPTH blocks ahead of use:
+// only one block an SM), 4 slots a thread (1) per 1024-slot block, from a
+// source chosen at compile time:
+//   - `fk_stage_rows`, the main path: the slots are computed from the
+//     bases by window_slots (window_codes.cuh), O(1) operations a window,
+//     with the next block's bases loaded one block ahead. The (R, W) slot
+//     plane never reaches device memory: the function reads one byte of
+//     bases per window and writes `width` staged slots (at the main path's
+//     2,048 x 16,384 chunk 33.5 MB in, 16.8 MB out, 0.015 ms at 3.35
+//     TB/s), so integer work bounds it: the window codes and the hash, 43
+//     integer-pipe instructions a valid sampled window at k <= 16
+//     (window_codes.cuh counts them), ~0.05 ms over 132 SMs x 64 INT32
+//     lanes x 1.98 GHz;
+//   - `fk_select_stage_rows`: the slots read from kernel A's int64 plane
+//     with 16-byte loads SELECT_DEPTH blocks ahead (bound: the 268 MB plane
+//     read once, 0.085 ms at that chunk);
+// and from either source:
 //   1. each 1024-slot block's candidates (slots other than PAD_SLOT) are
 //      compacted into the survivor buffer in shared memory by a block
 //      prefix sum (`block_scan`) and counted;
@@ -41,9 +52,9 @@
 // only removes the padding, and the whole row's candidates are sorted.
 // Long rows whose survivors do not fit one block (keep_all past 28,928
 // windows; blocked rows at >= 6.5% sampling at the 262,144-base bucket,
-// >= 14.5% at 131,072; membership.stage_launch_plan decides) take a
-// device-memory path, one launch per pass over all rows (rows are
-// independent, so no pass synchronises across rows):
+// >= 14.5% at 131,072; membership.stage_launch_plan decides) take kernel
+// A's plane and a device-memory path, one launch per pass over all rows
+// (rows are independent, so no pass synchronises across rows):
 //   1. blocked rows: one thread block per (row, 1024-slot block) compacts
 //      its candidates as above and writes `cap` slots (its candidates, or
 //      the sorted first cap of them, then padding) to a survivor buffer
@@ -63,7 +74,7 @@
 // int64s with no payload, so any correct sort of the same multiset gives
 // the same bytes, whatever order the compaction left them in.
 
-#include "common.cuh"
+#include "window_codes.cuh"
 
 namespace {
 
@@ -100,6 +111,82 @@ __device__ __forceinline__ void load_slots(
     v[i] = b < n_blocks && c + i < w ? row[c + i] : PAD_SLOT;
 }
 
+// The sources of a row's slots, one 1024-slot block at a time. Each has
+// Params (the kernel argument), Shared (its shared memory), a constructor
+// that starts the row's loads, DEPTH (blocks in flight) and take(s, b, v):
+// this thread's slots of block b (b % DEPTH == s) into v. Every thread of
+// the block calls take for every block in order.
+
+// Slots read from kernel A's (R, w) plane.
+struct PlaneParams {
+  const int64_t* slots;
+  int64_t w;
+};
+
+template <int THREADS>
+struct PlaneSource {
+  static constexpr int PER = SELECT_BLOCK / THREADS;
+  static constexpr int DEPTH = SELECT_DEPTH;
+  using Params = PlaneParams;
+  struct Shared {};
+  const int64_t* row;
+  int64_t w;
+  int n_blocks;
+  bool aligned;
+  int64_t ring[DEPTH][PER];
+
+  __device__ PlaneSource(const Params& p, int64_t r, int n_blocks_, Shared&)
+      : row(p.slots + r * p.w), w(p.w), n_blocks(n_blocks_),
+        aligned(aligned16(p.slots + r * p.w)) {
+#pragma unroll
+    for (int s = 0; s < DEPTH; ++s)
+      load_slots<THREADS>(row, w, s, n_blocks, aligned, ring[s]);
+  }
+
+  __device__ __forceinline__ void take(int s, int b, int64_t (&v)[PER]) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) v[i] = ring[s][i];
+    load_slots<THREADS>(row, w, b + DEPTH, n_blocks, aligned, ring[s]);
+  }
+};
+
+// Slots computed from the row's bases (the fused form of kernels A and B);
+// WIDE: k > 16. Threads 0..65 hold the chunks of the next block, loaded
+// while the block before it is computed. One stage serves every block:
+// compact_slots' barrier lies between a block's reads of it and the next
+// block's writes.
+template <int THREADS, bool WIDE>
+struct WindowSource {
+  static constexpr int PER = SELECT_BLOCK / THREADS;
+  static constexpr int DEPTH = 1;
+  using Params = WindowParams;
+  struct Shared {
+    WindowStage stage;
+  };
+  const WindowParams p;
+  Shared& shared;
+  const uint8_t* row;
+  int n_blocks;
+  bool aligned;
+  int chunk;   // the chunk of each block this thread loads, or -1
+  uint4 next;  // that chunk of the next block
+
+  __device__ WindowSource(const Params& p_, int64_t r, int n_blocks_,
+                          Shared& shared_)
+      : p(p_), shared(shared_), row(p_.bases + r * p_.length),
+        n_blocks(n_blocks_), aligned(aligned16(p_.bases + r * p_.length)),
+        chunk(threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1), next() {
+    if (chunk >= 0) next = load_window_chunk(row, p.length, 0, chunk, aligned);
+  }
+
+  __device__ __forceinline__ void take(int, int b, int64_t (&v)[PER]) {
+    const uint4 held = next;
+    if (chunk >= 0 && b + 1 < n_blocks)
+      next = load_window_chunk(row, p.length, b + 1, chunk, aligned);
+    window_slots<PER, WIDE>(p, b, chunk, held, shared.stage, v);
+  }
+};
+
 // Appends this thread's candidates among v to buf (the block's running
 // end), compacted by a block prefix sum; returns the block's count.
 template <int PER>
@@ -119,33 +206,25 @@ __device__ __forceinline__ int compact_slots(const int64_t (&v)[PER],
 // One block of THREADS per row; shared memory holds the row's survivors
 // plus one 1024-slot block being compacted. Full-width rows come with
 // cap = SELECT_BLOCK and width = hit_buffer.
-template <int THREADS>
+template <int THREADS, class Source>
 __global__ void __launch_bounds__(THREADS)
-select_stage_rows_kernel(const int64_t* __restrict__ slots, int64_t w,
-                         int cap, int n_blocks,
-                         int64_t* __restrict__ staged, int64_t width,
-                         int32_t* __restrict__ dropped) {
+select_stage_rows_kernel(const typename Source::Params src, int cap,
+                         int n_blocks, int64_t* __restrict__ staged,
+                         int64_t width, int32_t* __restrict__ dropped) {
   constexpr int PER = SELECT_BLOCK / THREADS;
   extern __shared__ int64_t surv[];
   __shared__ int scratch[2][33];
+  __shared__ typename Source::Shared source_shared;
   const int64_t r = blockIdx.x;
-  const int64_t* row = slots + r * w;
-  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
-  int64_t ring[SELECT_DEPTH][PER];
-#pragma unroll
-  for (int s = 0; s < SELECT_DEPTH; ++s)
-    load_slots<THREADS>(row, w, s, n_blocks, aligned, ring[s]);
+  Source source(src, r, n_blocks, source_shared);
   int n_surv = 0, n_cand = 0;
-  for (int b0 = 0; b0 < n_blocks; b0 += SELECT_DEPTH) {
+  for (int b0 = 0; b0 < n_blocks; b0 += Source::DEPTH) {
 #pragma unroll
-    for (int s = 0; s < SELECT_DEPTH; ++s) {
+    for (int s = 0; s < Source::DEPTH; ++s) {
       const int b = b0 + s;
       if (b >= n_blocks) break;  // uniform across the block
       int64_t v[PER];
-#pragma unroll
-      for (int i = 0; i < PER; ++i) v[i] = ring[s][i];
-      load_slots<THREADS>(row, w, b + SELECT_DEPTH, n_blocks, aligned,
-                          ring[s]);
+      source.take(s, b, v);
       const int count = compact_slots(v, surv + n_surv, scratch[b & 1]);
       n_cand += count;
       if (count > cap) {  // keep the block's cap smallest candidates
@@ -166,6 +245,43 @@ select_stage_rows_kernel(const int64_t* __restrict__ slots, int64_t w,
         n_cand - (n_surv < width ? n_surv : width));
 }
 
+// Launches the one-block kernel over `rows` rows with source S256 (256
+// threads) or, past WIDE_SMEM of survivor buffer, S1024 (1,024 threads).
+// Full-width rows (blocked = 0) keep every candidate.
+template <class S256, class S1024>
+int launch_stage_rows(const typename S256::Params& src, int64_t rows,
+                      int64_t w, int64_t hit_buffer, int blocked, int cap,
+                      int n_blocks, int smem_bytes, int64_t* staged,
+                      int64_t width, int32_t* dropped, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  if (!blocked) {
+    cap = SELECT_BLOCK;
+    n_blocks = static_cast<int>((w + SELECT_BLOCK - 1) / SELECT_BLOCK);
+    width = hit_buffer;
+  }
+  const bool wide = smem_bytes > WIDE_SMEM;
+  const void* kernel = wide
+      ? reinterpret_cast<const void*>(
+            select_stage_rows_kernel<WIDE_THREADS, S1024>)
+      : reinterpret_cast<const void*>(
+            select_stage_rows_kernel<SELECT_THREADS, S256>);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    select_stage_rows_kernel<WIDE_THREADS, S1024>
+        <<<static_cast<unsigned>(rows), WIDE_THREADS, smem_bytes, st>>>(
+            src, cap, n_blocks, staged, width, dropped);
+  } else {
+    select_stage_rows_kernel<SELECT_THREADS, S256>
+        <<<static_cast<unsigned>(rows), SELECT_THREADS, smem_bytes, st>>>(
+            src, cap, n_blocks, staged, width, dropped);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // ---- long rows: the device-memory path ----
 
@@ -278,42 +394,70 @@ __global__ void stage_dropped_kernel(const int32_t* __restrict__ cand,
 
 }  // namespace
 
-// Rows whose survivors fit shared memory: smem_bytes holds
-// min(w, (n_blocks - 1) * cap + SELECT_BLOCK) slots (membership.
-// stage_launch_plan). Full-width rows (blocked = 0) keep every candidate.
+// Rows whose survivors fit shared memory, slots from kernel A's plane:
+// smem_bytes holds min(w, (n_blocks - 1) * cap + SELECT_BLOCK) slots
+// (membership.stage_launch_plan). Full-width rows (blocked = 0) keep every
+// candidate.
 extern "C" int fk_select_stage_rows(const int64_t* slots, int64_t rows,
                                     int64_t w, int64_t hit_buffer,
                                     int blocked, int cap, int n_blocks,
                                     int smem_bytes, int64_t* staged,
                                     int64_t width, int32_t* dropped,
                                     void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaSuccess);
-  if (!blocked) {
-    cap = SELECT_BLOCK;
-    n_blocks = static_cast<int>((w + SELECT_BLOCK - 1) / SELECT_BLOCK);
-    width = hit_buffer;
-  }
-  const bool wide = smem_bytes > WIDE_SMEM;
-  const void* kernel = wide
-      ? reinterpret_cast<const void*>(select_stage_rows_kernel<WIDE_THREADS>)
-      : reinterpret_cast<const void*>(
-            select_stage_rows_kernel<SELECT_THREADS>);
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  return launch_stage_rows<PlaneSource<SELECT_THREADS>,
+                           PlaneSource<WIDE_THREADS>>(
+      {slots, w}, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes,
+      staged, width, dropped, stream);
+}
+
+// The same rows staged from their bases: kernels A and B fused, the slots
+// computed in the block (window_codes.cuh). s1 = fmix32(seed32), s2 =
+// fmix32(s1 ^ 0x9E3779B9), computed by the caller.
+extern "C" int fk_stage_rows(const uint8_t* bases, int64_t rows,
+                             int64_t length, int64_t w, int k, uint32_t s1,
+                             uint32_t s2, uint32_t threshold, int keep_all,
+                             int64_t hit_buffer, int blocked, int cap,
+                             int n_blocks, int smem_bytes, int64_t* staged,
+                             int64_t width, int32_t* dropped, void* stream) {
+  const WindowParams p{bases, length, w, k, s1, s2, threshold, keep_all};
+  if (k > 16)
+    return launch_stage_rows<WindowSource<SELECT_THREADS, true>,
+                             WindowSource<WIDE_THREADS, true>>(
+        p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
+        width, dropped, stream);
+  return launch_stage_rows<WindowSource<SELECT_THREADS, false>,
+                           WindowSource<WIDE_THREADS, false>>(
+      p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
+      width, dropped, stream);
+}
+
+// The most static shared memory (bytes) any one-block kernel holds, both
+// sources at both thread counts, into *bytes: the allowance
+// membership.STATIC_SMEM keeps beside the survivor buffer must cover it.
+extern "C" int fk_stage_rows_static_smem(int32_t* bytes) {
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          SELECT_THREADS, PlaneSource<SELECT_THREADS>>),
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          WIDE_THREADS, PlaneSource<WIDE_THREADS>>),
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          SELECT_THREADS, WindowSource<SELECT_THREADS, false>>),
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          WIDE_THREADS, WindowSource<WIDE_THREADS, false>>),
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          SELECT_THREADS, WindowSource<SELECT_THREADS, true>>),
+      reinterpret_cast<const void*>(select_stage_rows_kernel<
+          WIDE_THREADS, WindowSource<WIDE_THREADS, true>>)};
+  int32_t most = 0;
+  for (const void* kernel : kernels) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (static_cast<int32_t>(attr.sharedSizeBytes) > most)
+      most = static_cast<int32_t>(attr.sharedSizeBytes);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide) {
-    select_stage_rows_kernel<WIDE_THREADS>
-        <<<static_cast<unsigned>(rows), WIDE_THREADS, smem_bytes, st>>>(
-            slots, w, cap, n_blocks, staged, width, dropped);
-  } else {
-    select_stage_rows_kernel<SELECT_THREADS>
-        <<<static_cast<unsigned>(rows), SELECT_THREADS, smem_bytes, st>>>(
-            slots, w, cap, n_blocks, staged, width, dropped);
-  }
-  return static_cast<int>(cudaGetLastError());
+  *bytes = most;
+  return static_cast<int>(cudaSuccess);
 }
 
 // The long-row path: passes 1-4 above, each one launch over all rows.

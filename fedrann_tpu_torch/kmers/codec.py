@@ -34,8 +34,9 @@ _MIX1 = _i64(0xBF58476D1CE4E5B9)
 _MIX2 = _i64(0x94D049BB133111EB)
 
 
-def fmix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3 finalizer on uint32 values held in int64."""
+def fmix32(x):
+    """murmur3 finalizer on uint32 values held in int64 tensors (or on a
+    Python int)."""
     x = x & _M32
     x = x ^ (x >> 16)
     x = (x * 0x85EBCA6B) & _M32
@@ -45,9 +46,10 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def seed_mix32(seed: int) -> tuple[int, int]:
-    """(s1, s2) of sample_hash32 for a library seed."""
-    s1 = int(fmix32(torch.tensor(seed & _M32)))
-    return s1, int(fmix32(torch.tensor(s1 ^ 0x9E3779B9)))
+    """(s1, s2) of sample_hash32 for a library seed (Python ints: a
+    kernel launch computes them on the host each call)."""
+    s1 = fmix32(seed & _M32)
+    return s1, fmix32(s1 ^ 0x9E3779B9)
 
 
 def sample_hash32(codes: torch.Tensor, seed: int) -> torch.Tensor:
@@ -110,6 +112,20 @@ def _canonical_sample_plain(bases, k, seed, threshold, keep_all):
     return torch.where(keep, (canon << 1) | is_fwd.to(torch.int64), PAD_SLOT)
 
 
+def check_bases(bases: torch.Tensor, k: int) -> int:
+    """Raise on what the window-code kernels do not take; returns the
+    windows per row, L - k + 1."""
+    if bases.dtype != torch.uint8 or bases.dim() != 2:
+        raise ValueError("bases must be a 2-D uint8 tensor")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k must be in [1, 31], got {k}")
+    if bases.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {bases.device}")
+    if bases.shape[1] < k:
+        raise ValueError(f"bucket length {bases.shape[1]} < k={k}")
+    return bases.shape[1] - k + 1
+
+
 def canonical_sample(bases: torch.Tensor, k: int, seed: int, threshold: int,
                      keep_all: bool) -> torch.Tensor:
     """(R, L) uint8 bases -> (R, L-k+1) int64 staged slots: (canon << 1) |
@@ -117,20 +133,14 @@ def canonical_sample(bases: torch.Tensor, k: int, seed: int, threshold: int,
     seed) < threshold), PAD_SLOT elsewhere.
 
     A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    kernel A (csrc/canonical_sample.cu)."""
-    if bases.dtype != torch.uint8 or bases.dim() != 2:
-        raise ValueError("bases must be a 2-D uint8 tensor")
-    if not 1 <= k <= 31:
-        raise ValueError(f"k must be in [1, 31], got {k}")
+    kernel A (csrc/canonical_sample.cu). The staging stage launches it
+    only for rows whose survivors kernel B must sort in device memory
+    (membership.stage_candidates); the others never write this plane."""
+    w = check_bases(bases, k)
     if bases.device.type == "cpu":
         return _canonical_sample_plain(bases, k, seed, threshold, keep_all)
-    if bases.device.type != "cuda":
-        raise ValueError(f"unsupported device {bases.device}")
     r, length = bases.shape
-    if length < k:
-        raise ValueError(f"bucket length {length} < k={k}")
     bases = bases.contiguous()
-    w = length - k + 1
     out = torch.empty((r, w), dtype=torch.int64, device=bases.device)
     s1, s2 = seed_mix32(seed)
     _build.launch("fk_canonical_sample", bases.data_ptr(), r, length, w, k,

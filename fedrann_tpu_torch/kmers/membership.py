@@ -14,7 +14,11 @@ block (each 1024-slot block's candidates compacted, sorted only past the
 cap, then one sort of the survivors); a longer row (keep_all past 28,928
 windows, or blocked rows at high sampling: >= 6.5% at the 262,144-base
 bucket, >= 14.5% at 131,072) is sorted in shared-memory chunks that are
-merged in device memory.
+merged in device memory. `stage_candidates` stages bases: on the one-block
+path kernels A and B run fused (`fk_stage_rows`: the block computes its
+slots from the bases, so the (R, W) slot plane never reaches device
+memory); on the device-memory path kernel A writes the plane and kernel B
+reads it.
 
 Membership here (`read_hits_staged`, the plain version of kernel C's
 lookups) is `torch.searchsorted` on the sorted int64 library; kernel C
@@ -30,10 +34,18 @@ import torch
 
 from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.device import SM90_SMEM_OPTIN, shared_memory_limit
-from fedrann_tpu_torch.kmers.codec import PAD_SLOT, canonical_sample
+from fedrann_tpu_torch.kmers.codec import (
+    PAD_SLOT,
+    _canonical_sample_plain,
+    canonical_sample,
+    check_bases,
+    seed_mix32,
+)
 
 SELECT_BLOCK = 1024
-# shared memory kept free for the one-block kernel's static arrays (bytes)
+# shared memory kept free for the one-block kernel's static arrays (bytes):
+# its scan scratch and, fused, one block of packed bases (672 B as built
+# for sm_90a; chip_smoke.py checks the built kernels against it)
 STATIC_SMEM = 1024
 # slots per shared-memory chunk sort of the long-row path (128 KB)
 LONG_CHUNK = 16384
@@ -209,9 +221,49 @@ def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,
                      keep_all: bool, seed: int, threshold: int,
                      block_cap: int | None = None):
     """Canonical windows + sampling filter + candidate selection: the
-    staging stage that both the count and the embed stages consume."""
-    slots = canonical_sample(bases, k, seed, threshold, keep_all)
-    return select_candidates(slots, hit_buffer, keep_all, block_cap)
+    staging stage that both the count and the embed stages consume. (R, L)
+    uint8 bases -> select_candidates' (staged, dropped) of their
+    canonical_sample slots.
+
+    A CPU tensor takes the plain versions. On a CUDA tensor, rows that
+    `stage_launch_plan` keeps in one block launch kernels A and B fused
+    (csrc/select_stage_rows.cu `fk_stage_rows`), counted in `.launches`;
+    longer rows launch kernel A, then kernel B's device-memory path."""
+    w = check_bases(bases, k)
+    if not 1 <= hit_buffer <= w:
+        raise ValueError(f"hit_buffer {hit_buffer} must be in [1, {w}]")
+    if bases.device.type == "cpu":
+        return _select_candidates_plain(
+            _canonical_sample_plain(bases, k, seed, threshold, keep_all),
+            hit_buffer, keep_all, block_cap)
+    plan = stage_launch_plan(w, hit_buffer, keep_all, block_cap,
+                             shared_memory_limit(bases.device))
+    if plan.long:
+        slots = canonical_sample(bases, k, seed, threshold, keep_all)
+        return _select_on_card(slots, hit_buffer, plan)
+    return _stage_on_card(bases, k, hit_buffer, keep_all, seed, threshold,
+                          plan)
+
+
+def _stage_on_card(bases, k, hit_buffer, keep_all, seed, threshold,
+                   plan: StagePlan):
+    """Kernels A and B fused on a CUDA tensor, on the one-block `plan`."""
+    r, length = bases.shape
+    bases = bases.contiguous()
+    dev = bases.device
+    staged = torch.empty((r, plan.width), dtype=torch.int64, device=dev)
+    dropped = torch.empty((r,), dtype=torch.int32, device=dev)
+    s1, s2 = seed_mix32(seed)
+    _build.launch("fk_stage_rows", bases.data_ptr(), r, length,
+                  length - k + 1, k, s1, s2, int(threshold) & 0xFFFFFFFF,
+                  int(bool(keep_all)), hit_buffer, int(plan.blocked),
+                  plan.cap, plan.n_blocks, plan.smem, staged.data_ptr(),
+                  plan.width, dropped.data_ptr(), _build.stream(dev))
+    stage_candidates.launches += 1
+    return staged, dropped
+
+
+stage_candidates.launches = 0  # fused kernels A and B (one block per row)
 
 
 def read_hits_staged(staged: torch.Tensor, lib_codes: torch.Tensor):

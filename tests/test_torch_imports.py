@@ -51,6 +51,7 @@ def test_cpu_tensors_take_the_plain_versions():
     bases = torch.from_numpy(rng.integers(0, 5, (8, 3000)).astype(np.uint8))
     before = (codec.canonical_sample.launches,
               membership.select_candidates.launches,
+              membership.stage_candidates.launches,
               embed.membership_embed.launches)
     thr = codec.sample_threshold(0.3)
     slots = codec.canonical_sample(bases, 15, 1, thr, False)
@@ -59,6 +60,8 @@ def test_cpu_tensors_take_the_plain_versions():
     staged, dropped = membership.select_candidates(slots, 1024, False, 316)
     want = membership._select_candidates_plain(slots, 1024, False, 316)
     assert torch.equal(staged, want[0]) and torch.equal(dropped, want[1])
+    fused = membership.stage_candidates(bases, 15, 1024, False, 1, thr, 316)
+    assert torch.equal(fused[0], want[0]) and torch.equal(fused[1], want[1])
     lib = torch.unique(staged[staged != codec.PAD_SLOT] >> 1)
     signs = torch.zeros((lib.shape[0] + 1, 4), dtype=torch.int32)
     mags = torch.ones(lib.shape[0] + 1)
@@ -67,6 +70,7 @@ def test_cpu_tensors_take_the_plain_versions():
     embed.membership_embed(staged, lib, signs, mags, targets, out)
     assert (codec.canonical_sample.launches,
             membership.select_candidates.launches,
+            membership.stage_candidates.launches,
             embed.membership_embed.launches) == before
 
 

@@ -8,11 +8,13 @@ imports no JAX, so on a machine with a GPU and no JAX it runs with
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from fedrann_tpu_torch import probes
+from fedrann_tpu_torch import _build, probes
 from fedrann_tpu_torch.device import shared_memory_limit
 from fedrann_tpu_torch.kmers.codec import (
     PAD_SLOT,
@@ -22,9 +24,11 @@ from fedrann_tpu_torch.kmers.codec import (
 )
 from fedrann_tpu_torch.kmers.library import build_library
 from fedrann_tpu_torch.kmers.membership import (
+    STATIC_SMEM,
     _select_candidates_plain,
     select_candidates,
     selection_cap,
+    stage_candidates,
     stage_launch_plan,
     staging_width,
 )
@@ -61,6 +65,144 @@ def test_canonical_sample_matches_plain(cuda, k, keep_all):
     got = canonical_sample(bases.to(cuda), k, 602, thr, keep_all)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+def _edge_bases(k, rows, length, seed=0):
+    """Random reads with 2% INVALID bases, and rows that cross the window
+    code's cases: a read ending mid-block, an all-INVALID row, INVALID
+    bases on block edges and in a block's halo, even-k palindromes across
+    a block edge, a block INVALID but for its halo, a read ending at a
+    block edge (its last block all INVALID)."""
+    rng = np.random.default_rng(seed + k)
+    b = rng.integers(0, 4, size=(rows, length)).astype(np.uint8)
+    b[rng.random((rows, length)) < 0.02] = 4
+    b[0, length // 2 + 7 :] = 4
+    b[1] = 4
+    b[2, [i for i in (1023, 1024, 2047, 2048, 1024 + max(k - 2, 0) // 2)
+          if i < length]] = 4
+    if k % 2 == 0:
+        half = rng.integers(0, 4, k // 2).astype(np.uint8)
+        b[3, 1024 - k // 2 : 1024 + k // 2] = np.concatenate(
+            [half, (3 - half)[::-1]])
+    b[4, 1024:2048] = 4
+    b[5, 2048:] = 4
+    return torch.from_numpy(b)
+
+
+def _on_card_at(bases, cuda, offset):
+    """bases copied to the card `offset` bytes past a fresh allocation's
+    start (which is 16-byte aligned): every row then starts off a 16-byte
+    boundary when offset % 16 != 0, though the tensor is contiguous."""
+    flat = torch.zeros(bases.numel() + offset, dtype=torch.uint8,
+                       device=cuda)
+    out = flat[offset:].view(bases.shape)
+    out.copy_(bases)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2, 13, 16, 17, 31])
+@pytest.mark.parametrize("length,offset", [(4096, 0), (3055, 0),
+                                           (4096, 8)])
+def test_canonical_sample_edge_rows_match_plain(cuda, k, length, offset):
+    """Kernel A over several 1024-window blocks on the window code's edge
+    rows, with 16-byte aligned rows (4,096 bases), rows of an odd length,
+    and rows of 4,096 bases that start 8 bytes off a 16-byte boundary
+    (byte loads)."""
+    bases = _edge_bases(k, 12, length)
+    thr = sample_threshold(0.3)
+    for keep_all in (False, True):
+        want = _canonical_sample_plain(bases, k, 602, thr, keep_all)
+        got = canonical_sample(_on_card_at(bases, cuda, offset), k, 602,
+                               thr, keep_all)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def _stage_case(case):
+    """(bases, k, hit_buffer, keep_all, block_cap, threshold, threads) of a
+    fused staging case; threads is the one-block kernel the plan gives."""
+    k, length, fraction = {
+        "main": (15, 16384, 0.05),    # the main path's chunk shape
+        "k21": (21, 8192, 0.05),      # two-word codes
+        "k31_odd": (31, 3055, 0.3),   # L % 16 != 0: byte loads
+        "k1_full": (1, 2000, 0.2),    # full width (w <= 2 * SELECT_BLOCK)
+        "keep_all": (16, 16384, 1.0),  # 131 KB buffer: 1,024 threads
+        "262144": (15, 1 << 18, 0.05),  # 1,024 threads, one block a row
+        "unaligned": (15, 4096, 0.05),  # rows 8 bytes off 16: byte loads
+        # keep_all at the one-block limit (28,928 windows, L not a power of
+        # two): the survivor buffer and the static arrays fill the opt-in
+        "keep_all_edge": (15, 28942, 1.0),
+    }[case]
+    rows = 6 if length > 20_000 else 24
+    bases = _edge_bases(k, rows, length)
+    if case == "main":  # a read of 9 kb in its 16,384-base row
+        bases[6:, 9000:] = 4
+    keep_all = fraction >= 1.0
+    w = length - k + 1
+    hb = w if keep_all else staging_width(w, fraction)
+    cap = None if keep_all else selection_cap(fraction)
+    plan = stage_launch_plan(w, hb, keep_all, cap)
+    assert not plan.long
+    return (bases, k, hb, keep_all, cap, sample_threshold(fraction),
+            1024 if plan.smem > 114 * 1024 else 256)
+
+
+@pytest.mark.parametrize("case", ["main", "k21", "k31_odd", "k1_full",
+                                  "keep_all", "262144", "unaligned",
+                                  "keep_all_edge"])
+def test_stage_rows_matches_plain(cuda, case):
+    """Kernels A and B fused (`fk_stage_rows`) against the plain
+    composition (kernel A's plain version, then kernel B's), bitwise,
+    dropped counts included, at both thread counts; it counts one fused
+    launch and no launch of A or B alone."""
+    bases, k, hb, keep_all, cap, thr, threads = _stage_case(case)
+    assert threads == (1024 if case in ("keep_all", "262144",
+                                        "keep_all_edge") else 256)
+    want = _select_candidates_plain(
+        _canonical_sample_plain(bases, k, 602, thr, keep_all), hb,
+        keep_all, cap)
+    before = (stage_candidates.launches, canonical_sample.launches,
+              select_candidates.launches, select_candidates.long_launches)
+    got = stage_candidates(
+        _on_card_at(bases, cuda, 8 if case == "unaligned" else 0), k, hb,
+        keep_all, 602, thr, cap)
+    torch.cuda.synchronize()
+    assert (stage_candidates.launches, canonical_sample.launches,
+            select_candidates.launches,
+            select_candidates.long_launches) == (before[0] + 1, *before[1:])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert (want[0][1] == PAD_SLOT).all() and (want[0] != PAD_SLOT).any()
+
+
+def test_one_block_kernels_fit_the_static_allowance(cuda):
+    """The static shared memory of every one-block kernel (both sources,
+    both thread counts) fits the STATIC_SMEM that stage_launch_plan keeps
+    beside the survivor buffer."""
+    most = ctypes.c_int32(0)
+    _build.launch("fk_stage_rows_static_smem", ctypes.addressof(most))
+    assert 0 < most.value <= STATIC_SMEM
+
+
+def test_stage_candidates_long_rows_take_kernel_a(cuda):
+    """keep_all rows past one block's shared memory: stage_candidates
+    launches kernel A, then kernel B's device-memory path, not the fused
+    kernel; bitwise against the plain composition."""
+    bases = _edge_bases(15, 6, 1 << 15)
+    w = bases.shape[1] - 15 + 1
+    assert stage_launch_plan(w, w, True, None,
+                             shared_memory_limit(cuda)).long
+    want = _select_candidates_plain(
+        _canonical_sample_plain(bases, 15, 602, 0, True), w, True, None)
+    before = (stage_candidates.launches, canonical_sample.launches,
+              select_candidates.long_launches)
+    got = stage_candidates(bases.to(cuda), 15, w, True, 602, 0, None)
+    torch.cuda.synchronize()
+    assert (stage_candidates.launches, canonical_sample.launches,
+            select_candidates.long_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 def _random_slots(rng, r, w, density):

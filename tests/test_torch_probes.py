@@ -278,3 +278,19 @@ def test_stage_plan_fits_shared_memory(fraction):
             1 << p for p in range(15, 19)}
     if fraction <= 0.05:  # the 262,144 bucket at 5% fits one block now
         assert not too_big
+
+
+@pytest.mark.parametrize("k", [15, 31])
+def test_stage_plan_boundaries_off_the_power_of_two_ladder(k):
+    """--length-buckets may give any length: keep_all rows stay in one
+    block up to 28,928 windows, and blocked rows of 256 1024-slot blocks up
+    to a cap of 109, at lengths off the power-of-two ladder."""
+    for w, one_block in ((28_928, True), (28_929, False)):
+        length = w + k - 1
+        assert length & (length - 1)
+        assert stage_launch_plan(w, w, True, None).long != one_block
+    w = 262_100 - k + 1
+    assert -(-w // SELECT_BLOCK) == 256
+    for cap, one_block in ((109, True), (110, False)):
+        plan = stage_launch_plan(w, 16_384, False, cap)
+        assert plan.blocked and plan.long != one_block

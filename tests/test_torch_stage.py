@@ -32,6 +32,7 @@ from fedrann_tpu_torch.kmers.codec import PAD_SLOT, sample_threshold  # noqa: E4
 from fedrann_tpu_torch.pipeline import staging_params  # noqa: E402
 from fedrann_tpu_torch.sim import simulate_reads  # noqa: E402
 from pallas_sort import sort_rows_pallas  # noqa: E402
+from test_torch_codec import edge_bases, emulate_window_slots  # noqa: E402
 
 SEED = 602
 
@@ -266,6 +267,46 @@ def test_one_block_schedule_matches_plain(case):
         assert (want_dropped.numpy()[[0, 1, 3]] > 0).all()
     if case == "ragged":  # survivors past the width in the duplicate row
         assert want_dropped[1] > 0
+
+
+@pytest.mark.parametrize("k", [13, 15, 16, 17, 21, 31])
+@pytest.mark.parametrize("case", ["blocked", "full", "keep_all", "wide"])
+def test_fused_schedule_matches_jax(k, case):
+    """Kernels A and B fused (`fk_stage_rows`), end to end in numpy: the
+    emulated window codes (per 1024-window block, as the kernel computes
+    them from the bases) feed the one-block schedule, against the JAX
+    `stage_candidates`; rows bitwise for k <= 16, as multisets above, the
+    dropped counts exact. Simulated reads in a 4,096-base bucket (blocked,
+    5%), a 2,048 bucket (full width, 20%) and keep_all; `wide` is the
+    1,024-thread layout, whose survivor buffer passes 114 KB (keep_all
+    rows of 16,384 bases), on the window-code edge rows."""
+    length, fraction, keep_all = {
+        "blocked": (4096, 0.05, False), "full": (2048, 0.2, False),
+        "keep_all": (2048, 1.0, True), "wide": (16384, 1.0, True)}[case]
+    if case == "wide":
+        bases = np.full((9, length), 4, np.uint8)
+        bases[:, :3055] = edge_bases(k)
+        bases[0, 3055:] = np.random.default_rng(k).integers(
+            0, 4, length - 3055)
+    else:
+        bases = _bucket(length)[:12].copy()
+        bases[1] = 4
+        bases[2, [1023, 1024, 2047, 2048 - k // 2]] = 4
+    _, _, want, dropped_j = _stage_both(bases, k, fraction, not keep_all,
+                                        keep_all=keep_all)
+    w = length - k + 1
+    hb = w if keep_all else membership.staging_width(w, fraction)
+    cap = None if keep_all else membership.selection_cap(fraction)
+    plan = membership.stage_launch_plan(w, hb, keep_all, cap)
+    assert not plan.long
+    threads = 1024 if plan.smem > 114 * 1024 else 256
+    assert (threads == 1024) == (case == "wide")
+    slots = emulate_window_slots(bases, k, SEED, sample_threshold(fraction),
+                                 keep_all, threads)
+    got, dropped = _emulate_one_block(torch.from_numpy(slots), plan)
+    _assert_rows(got, want, k)
+    np.testing.assert_array_equal(dropped, dropped_j)
+    assert (got[1] == PAD_SLOT).all() and (got != PAD_SLOT).sum() > 0
 
 
 def _emulate_long_path(slots, plan):

@@ -10,11 +10,12 @@ Phases; any failure exits non-zero and prints no result line:
      their plan keeps beside the survivor buffer;
   3. run each kernel against its plain PyTorch version on the card, at the
      shapes of the main-path run below: stage_rows (kernels A and B fused,
-     against the plain composition of the two), canonical_sample and
-     select_candidates must match bitwise (dropped counts included),
-     membership_embed to rtol 1e-5, atol 1e-6 * max|mags| * hits (float32
-     sums taken in another order), also at d = 32, where its time is
-     mostly the library lookups (logged beside d = 512's);
+     against the plain composition of the two, dropped counts included)
+     and canonical_sample must match bitwise, select_candidates must refuse
+     those rows (they stage fused), membership_embed to rtol 1e-5, atol
+     1e-6 * max|mags| * hits (float32 sums taken in another order), also
+     at d = 32, where its time is mostly the library lookups (logged
+     beside d = 512's);
   4. drive the main path through fedrann_tpu_torch.cli.main on ~7,500
      simulated reads (5 Mb genome, 12x, 8 kb, 5% error) with the flags of
      the bench.py workload (k=15, 5% sampling, d=512, 50 neighbors), with every
@@ -26,12 +27,12 @@ Phases; any failure exits non-zero and prints no result line:
      overlapping >= 4 kb must reach 0.9; the rows stage fused there;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
-     (a) kernel B against its plain version, bitwise, at the first staging
-         chunk of the 262,144-base bucket (5% sampling) on the path its
-         plan picks, with the device-memory path timed and checked beside
-         it when that is the one-block path, and the fused kernel (1,024
-         threads) against the plain composition there; and at a keep_all
-         chunk of the 32,768-base bucket (the device-memory path);
+     (a) at the first staging chunk of the 262,144-base bucket (5%
+         sampling), whose rows the plan keeps in one block: the fused
+         kernel (1,024 threads) against the plain composition, bitwise,
+         with kernel B's device-memory path (forced) checked and timed
+         beside it; and kernel B's device-memory path against its plain
+         version at a keep_all chunk of the 32,768-base bucket;
      (b) the CLI on the long reads with the launch counts reset just
          before, checked as in phase 4 (the staging paths as the plan
          picks them for the two buckets), with the truth recall of pairs
@@ -49,12 +50,21 @@ Phases; any failure exits non-zero and prints no result line:
      sums to rtol 1e-5, atol 1e-6 * terms * max|q|; P1 must accept exactly
      the sizes within the card's shared-memory opt-in limit and refuse the
      next), fk_probe_dyn_rows also bitwise against its hit-order replay
-     (`probes._dyn_rows_replay`, computed on the host) in every mode; the
-     device time per launch (torch.profiler) of every probe kernel (P1,
-     P2/P5, P4 and each dyn_rows mode) is logged beside the per-call
-     times and its plain version's, with P1's host path timed
-     piece by piece; then the probe entry point `all` with its counts reset
-     just before: every probe kernel must launch.
+     (`probes._dyn_rows_replay`, computed on the host) in every mode;
+     fk_probe_smem_input also every step's sum, at the probe inputs and
+     on full-range random blocks, aligned and off 16 bytes;
+     fk_probe_bsearch also query by query (each launched alone) against
+     torch.searchsorted on edge tables (n = 1, 2, 3, 8,191, 8,192, 8,193,
+     runs of equal entries, a table off 16 bytes) and past one round of
+     blocks; the device time per launch (torch.profiler) of every probe
+     kernel (P1, P2/P5, P4 and each dyn_rows mode) is logged beside the
+     per-call times and its plain version's, with the host paths of P1,
+     P2/P5 and P4 timed piece by piece, and P4's latency floor (its own
+     kernel on one query: the launch, one 32 KB table copy into one SM and
+     one search, whose dependent shared-memory loads are priced at the
+     clock cycles a chain of them measures); then the probe entry point
+     `all` with its counts reset just before: every probe kernel must
+     launch.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
@@ -63,8 +73,9 @@ path's, the other staging kernels summed over the three CLI runs, the
 probes from their entry point), errors, times, the bound (the larger of
 the bytes the function must move over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s and its int32 operations over 16.7 T/s, counted from
-this run's inputs; for the window-code kernels, integer-pipe instructions) and the time of one PyTorch call computing the same
-function where there is one; the last is {"ok": true, "device": {...}}.
+this run's inputs; for the window-code kernels, integer-pipe
+instructions) and the time of one PyTorch call computing the same function
+where there is one; the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -89,8 +100,7 @@ KEEP_ALL_BUCKET = 32768
 KEEP_ALL_GENOME, KEEP_ALL_READ_LEN = 200_000, 40_000
 STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
 # the staging kernels; a CLI run launches each where the plan picks its path
-STAGE_KERNELS = ("stage_rows", "canonical_sample", "select_candidates",
-                 "select_candidates_long")
+STAGE_KERNELS = ("stage_rows", "canonical_sample", "select_candidates_long")
 
 
 COUNTERS: dict = {}
@@ -109,8 +119,6 @@ SOURCES = {
                    "bench/pallas_kernels.py:128, bench/pallas_sort.py:128"),
     "canonical_sample": (CSRC + "canonical_sample.cu",
                          "bench/pallas_kernels.py:128"),
-    "select_candidates": (CSRC + "select_stage_rows.cu",
-                          "bench/pallas_sort.py:128"),
     "select_candidates_long": (CSRC + "select_stage_rows.cu",
                                "bench/pallas_sort.py:128"),
     "membership_embed": (CSRC + "membership_embed.cu",
@@ -418,8 +426,8 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     )
     from fedrann_tpu_torch.kmers.library import build_library
     from fedrann_tpu_torch.kmers.membership import (
-        _select_candidates_plain,
         select_candidates,
+        stage_candidates,
     )
     from fedrann_tpu_torch.project.embed import (
         _membership_embed_plain,
@@ -461,18 +469,17 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
         lambda: canonical_sample(bases, k, seed, thr, keep_all), 10, True)
         + f"; bound ({b['bound_by']}: {note}) [{card}]")
 
-    staged, dropped = select_candidates(slots, hit_buffer, keep_all, block_cap)
-    staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
-                                                   keep_all, block_cap)
-    if not (torch.equal(staged, staged_p) and torch.equal(dropped, dropped_p)):
-        fail("select_candidates differs from its plain version")
-    report["select_candidates"] = dict(
-        max_abs_err=0.0,
-        ms=time_cuda(lambda: select_candidates(slots, hit_buffer, keep_all,
-                                               block_cap), 10),
-        plain_ms=time_cuda(lambda: _select_candidates_plain(
-            slots, hit_buffer, keep_all, block_cap), 3),
-        library_ms=None, **bound(nbytes(slots, staged, dropped)))
+    # kernel B reads slots only on its device-memory path: rows the plan
+    # keeps in one block stage from their bases, fused
+    try:
+        select_candidates(slots, hit_buffer, keep_all, block_cap)
+        fail("select_candidates took slots of rows the plan keeps in one "
+             "block")
+    except ValueError as e:
+        if "stage_candidates" not in str(e):
+            fail(f"select_candidates refused one-block rows with {e}")
+    staged, _ = stage_candidates(bases, k, hit_buffer, keep_all, seed, thr,
+                                 block_cap)
 
     library = build_library([staged], config.kmer_min_multiplicity,
                             config.kmer_sample_fraction, seed)
@@ -533,19 +540,18 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
             staged, library.codes, signs32, mags32, targets, out32), 10,
             True) + f", d={d} " + device_us(lambda: membership_embed(
                 staged, library.codes, signs, mags, targets, out), 10, True)
-        + ", select_candidates " + device_us(lambda: select_candidates(
-            slots, hit_buffer, keep_all, block_cap), 10, True)
         + f" [{card}]")
     return report
 
 
 def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
-    """Phase 5a: kernel B against its plain version, bitwise, at the first
-    staging chunk of the 262,144-base bucket (5% sampling) and at a keep_all
-    chunk of the 32,768-base bucket, on the path the plan picks. Where the
-    plan keeps a row in one block, the device-memory path is timed and
-    checked beside it at the same shape; the keep_all chunk, which only the
-    device-memory path can stage, is that path's report."""
+    """Phase 5a: at the first staging chunk of the 262,144-base bucket (5%
+    sampling) and at a keep_all chunk of the 32,768-base bucket, kernel B's
+    device-memory path against its plain version, bitwise: on the path the
+    plan picks for the keep_all chunk, and forced (the plan for less shared
+    memory) for the 262,144-base rows, which the plan keeps in one block
+    and stages fused; there the fused kernel is checked and timed beside
+    it. Each chunk's report is the device-memory path's."""
     import numpy as np
     import torch
 
@@ -594,50 +600,45 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
         slots = canonical_sample(bases, k, seed, thr, keep_all)
         staged_p, dropped_p = _select_candidates_plain(slots, hit_buffer,
                                                        keep_all, block_cap)
-        # the plan's path; then, for a row kept in one block, the
-        # device-memory path the plan would pick with less shared memory
-        plans = [plan] if plan.long else [plan, stage_launch_plan(
-            length - k + 1, hit_buffer, keep_all, block_cap, plan.smem - 8)]
-        for i, p in enumerate(plans):
-            counter = "long_launches" if p.long else "launches"
-            before = getattr(select_candidates, counter)
-            staged, dropped = (
-                select_candidates(slots, hit_buffer, keep_all, block_cap)
-                if i == 0 else _select_on_card(slots, hit_buffer, p))
-            torch.cuda.synchronize()
-            if i == 0 and getattr(select_candidates, counter) != before + 1:
-                fail(f"{name}: kernel B did not take the path its plan "
-                     f"picks ({counter})")
-            if not (torch.equal(staged, staged_p)
-                    and torch.equal(dropped, dropped_p)):
-                fail(f"{name}: kernel B ({counter}) differs from its plain "
-                     f"version in {int((staged != staged_p).sum())} slots "
-                     f"and {int((dropped != dropped_p).sum())} dropped "
-                     "counts")
-            ms = time_cuda(lambda: _select_on_card(slots, hit_buffer, p), 10)
-            dev_us = device_us(lambda: _select_on_card(slots, hit_buffer, p),
-                               10, True)
-            log(f"{name}: rows {tuple(slots.shape)} keep_all={keep_all} "
-                f"hit_buffer={hit_buffer} block_cap={block_cap}; passes "
-                f"{[q for q, _ in p.passes]}"
-                + (f", chunk {p.chunk} x {p.n_chunks}" if p.long else
-                   f", {p.smem} B of shared memory")
-                + f"; bitwise equal, dropped {int(dropped.sum())}; "
-                f"{ms:.4f} ms, device {dev_us} us per launch [{card}]")
-            if i == 0 and not p.long:  # the pipeline stages these rows fused
-                log_kernel("stage_rows_262144", check_stage_rows(
-                    "stage_rows_262144", bases, k, hit_buffer, keep_all,
-                    seed, thr, block_cap,
-                    window_ops(bases, k, keep_all), card), card)
-            if i == 0:
-                report[name] = dict(
-                    max_abs_err=0.0, ms=ms,
-                    plain_ms=time_cuda(lambda: _select_candidates_plain(
-                        slots, hit_buffer, keep_all, block_cap), 3),
-                    library_ms=time_cuda(lambda: torch.sort(
-                        slots, dim=1).values[:, :hit_buffer], 10)
-                    if keep_all else None,
-                    **bound(nbytes(slots, staged, dropped)))
+        # rows kept in one block: the device-memory path the plan would
+        # pick with less shared memory
+        p = plan if plan.long else stage_launch_plan(
+            length - k + 1, hit_buffer, keep_all, block_cap, plan.smem - 8)
+        before = select_candidates.long_launches
+        staged, dropped = (
+            select_candidates(slots, hit_buffer, keep_all, block_cap)
+            if plan.long else _select_on_card(slots, hit_buffer, p))
+        torch.cuda.synchronize()
+        if select_candidates.long_launches != before + 1:
+            fail(f"{name}: kernel B's device-memory path did not launch")
+        if not (torch.equal(staged, staged_p)
+                and torch.equal(dropped, dropped_p)):
+            fail(f"{name}: kernel B's device-memory path differs from its "
+                 f"plain version in {int((staged != staged_p).sum())} slots "
+                 f"and {int((dropped != dropped_p).sum())} dropped counts")
+        ms = time_cuda(lambda: _select_on_card(slots, hit_buffer, p), 10)
+        dev_us = device_us(lambda: _select_on_card(slots, hit_buffer, p), 10,
+                           True)
+        log(f"{name}: rows {tuple(slots.shape)} keep_all={keep_all} "
+            f"hit_buffer={hit_buffer} block_cap={block_cap}; device-memory "
+            f"path{'' if plan.long else ' (forced)'}, passes "
+            f"{[q for q, _ in p.passes]}, chunk {p.chunk} x {p.n_chunks}; "
+            f"bitwise equal, dropped {int(dropped.sum())}; {ms:.4f} ms, "
+            f"device {dev_us} us per launch [{card}]")
+        if not plan.long:  # the pipeline stages these rows fused
+            log(f"{name}: the plan keeps these rows in one block "
+                f"({plan.smem} B of shared memory)")
+            log_kernel("stage_rows_262144", check_stage_rows(
+                "stage_rows_262144", bases, k, hit_buffer, keep_all, seed,
+                thr, block_cap, window_ops(bases, k, keep_all), card), card)
+        report[name] = dict(
+            max_abs_err=0.0, ms=ms,
+            plain_ms=time_cuda(lambda: _select_candidates_plain(
+                slots, hit_buffer, keep_all, block_cap), 3),
+            library_ms=time_cuda(lambda: torch.sort(
+                slots, dim=1).values[:, :hit_buffer], 10)
+            if keep_all else None,
+            **bound(nbytes(slots, staged, dropped)))
         log_kernel(name, report[name], card)
     if not stage_launch_plan(KEEP_ALL_BUCKET - k + 1, KEEP_ALL_BUCKET - k + 1,
                              True, None, limit).long:
@@ -734,6 +735,246 @@ def check_keep_all_rows(sim, flags: list[str], dev, card: str) -> None:
         fail("no bucket of the keep_all reads takes kernel A")
 
 
+def leading_float(text: str) -> float | None:
+    """The number a device_us text starts with, or None (not measured)."""
+    try:
+        return float(text.split()[0])
+    except ValueError:
+        return None
+
+
+def smem_input_every_step(x):
+    """Every step's sum from fk_probe_smem_input (n_sums = steps), launched
+    through its C entry (the wrapper asks for the last step's only), and
+    the plain version's, taken step by step."""
+    import torch
+
+    from fedrann_tpu_torch import _build, probes
+
+    steps = x.shape[0] // probes.INPUT_ROWS
+    sums = torch.empty(steps, dtype=torch.int32, device=x.device)
+    _build.launch("fk_probe_smem_input", x.data_ptr(), steps,
+                  probes.INPUT_ROWS, x.shape[1], sums.data_ptr(), steps,
+                  _build.stream(x.device))
+    return sums, torch.cat([probes._smem_input_plain(blk)
+                            for blk in x.split(probes.INPUT_ROWS)])
+
+
+def check_smem_input(x, dev) -> None:
+    """P2/P5 beyond the probe inputs: every step's sum, bitwise against the
+    plain version, at the probe inputs and at full-range random int32
+    blocks (sums that wrap), aligned and off 16 bytes (4-byte loads)."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch import probes
+
+    info = np.iinfo(np.int32)
+    xr = torch.from_numpy(np.random.default_rng(SIM_SEED).integers(
+        info.min, info.max, x.shape, dtype=np.int32, endpoint=True)).to(dev)
+    flat = torch.zeros(xr.numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:].copy_(xr.view(-1))
+    off16 = flat[1:].view(xr.shape)  # 4 bytes past a 16-byte boundary
+    sums = {}
+    for what, xs in (("probe inputs", x), ("full range", xr),
+                     ("full range off 16 bytes", off16)):
+        got, sums[what] = smem_input_every_step(xs)
+        if not torch.equal(got, sums[what]):
+            fail(f"P2/P5 step sums on the {what} differ from the plain "
+                 f"version in {int((got != sums[what]).sum())} steps")
+    wide = xr.view(-1, probes.INPUT_ROWS, x.shape[1]).to(torch.int64)
+    i = torch.arange(probes.INPUT_ROWS, device=dev)
+    wrapped = int((wide[:, i, i & 1023].sum(dim=1)
+                   != sums["full range"]).sum())
+    if wrapped == 0:
+        fail("P2/P5: no full-range step sum wrapped past int32")
+    log(f"P2/P5: every step's sum bitwise at the probe inputs and at "
+        f"full-range int32 blocks, aligned and off 16 bytes ({wrapped} of "
+        f"{xr.shape[0] // probes.INPUT_ROWS} step sums wrap)")
+
+
+def check_bsearch_edges(dev) -> None:
+    """P4 beyond the probe inputs: on each of probes.bsearch_edge_cases'
+    tables every query launched alone (nq = 1) against torch.searchsorted,
+    then all of them together with random queries (nq not a multiple of a
+    block's round) on the table and on a copy of it off 16 bytes; and
+    372,737 queries, past one round of one block per SM, at the probe
+    table. Sums bitwise against the plain version."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch import probes
+
+    rng = np.random.default_rng(SIM_SEED)
+    for tab_np, q_np in probes.bsearch_edge_cases():
+        tab = torch.from_numpy(tab_np).to(dev)
+        q = torch.from_numpy(q_np).to(dev)
+        want = torch.searchsorted(tab, q, side="left")
+        for j in range(q.shape[0]):
+            got = int(probes.bsearch(tab, q[j : j + 1])[0])
+            if got != int(want[j]):
+                fail(f"P4 on a table of {tab.shape[0]}: query {int(q[j])} "
+                     f"at {got}, lower bound {int(want[j])}")
+        qs = torch.cat([q, torch.from_numpy(rng.integers(
+            int(tab_np[0]) - 9, int(tab_np[-1]) + 9, 1001).astype(
+                np.int32)).to(dev)])
+        flat = torch.zeros(tab.shape[0] + 1, dtype=torch.int32, device=dev)
+        flat[1:].copy_(tab)
+        for t_, label in ((tab, "aligned"), (flat[1:], "off 16 bytes")):
+            got, want_sum = (probes.bsearch(t_, qs),
+                             probes._bsearch_plain(t_, qs))
+            if not torch.equal(got, want_sum):
+                fail(f"P4 on a table of {tab.shape[0]} ({label}), "
+                     f"{qs.shape[0]} queries: {int(got[0])}, plain "
+                     f"{int(want_sum[0])}")
+    table = torch.from_numpy(probes.probe_inputs()["table"]).to(dev)
+    many = torch.from_numpy(rng.integers(0, 1 << 30, 372_737).astype(
+        np.int32)).to(dev)
+    if not torch.equal(probes.bsearch(table, many),
+                       probes._bsearch_plain(table, many)):
+        fail("P4 past one round of blocks differs from the plain version")
+    log("P4: every edge query alone equals torch.searchsorted; batches "
+        "(aligned, off 16 bytes, 372,737 queries) equal the plain version")
+
+
+def bsearch_floor(table, queries, dev_us: str, card: str) -> str:
+    """P4's latency floor beside its device time: its own kernel on one
+    query (nq = 1: the launch, one 32 KB table copy into one SM and one
+    search), the least a launch can take, with that search's part priced:
+    log2(P) dependent shared-memory loads (P the power of two >= n + 1) at
+    the clock cycles one takes (fk_smem_chase_cycles, a chain of 4,096)
+    over the card's max SM clock as nvidia-smi reports it."""
+    import torch
+
+    from fedrann_tpu_torch import _build, probes
+
+    dev = table.device
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    _build.launch("fk_smem_chase_cycles", 4096, cycles.data_ptr(),
+                  _build.stream(dev))
+    latency = int(cycles[0])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    try:
+        mhz = float(smi.stdout.split()[0])
+    except (IndexError, ValueError):
+        fail(f"P4 floor: nvidia-smi gave no max SM clock ({smi.stdout!r} "
+             f"{smi.stderr!r})")
+    steps = table.shape[0].bit_length()
+    chain_us = steps * latency / mhz
+    one = queries[:1]
+    if not torch.equal(probes.bsearch(table, one),
+                       probes._bsearch_plain(table, one)):
+        fail("P4 on one query differs from the plain version")
+    one_us = device_us(lambda: probes.bsearch(table, one), 20, True)
+    floor, full = leading_float(one_us), leading_float(dev_us)
+    ratio = ("" if floor is None or full is None
+             else f", {full / floor:.2f}x the floor")
+    return (f"P4 latency floor: its kernel on one query {one_us} us per "
+            f"launch (the launch, one 32 KB table copy into one SM, one "
+            f"search of {steps} dependent shared-memory loads x {latency} "
+            f"cycles (a chain of 4,096) at {mhz:.0f} MHz = {chain_us:.3f} "
+            f"us); byte bound 0.00003 ms; device {dev_us} us per launch at "
+            f"{queries.shape[0]} queries{ratio} [{card}]")
+
+
+def input_host_split(x) -> dict:
+    """Host microseconds of each piece of P2/P5's per-call path at the
+    probe inputs: the input checks, the output allocation (a shape tuple
+    of `steps`, or one int), the `sums[-1:]` slice, the data pointer, the
+    stream handle, the C entry point alone, `_build.launch`, the parent's
+    wrapper (its steps replayed on this C entry), the wrapper, and the
+    plain version for comparison."""
+    import torch
+
+    from fedrann_tpu_torch import _build, probes
+
+    steps, hb = x.shape[0] // probes.INPUT_ROWS, x.shape[1]
+    sums = torch.empty(steps, dtype=torch.int32, device=x.device)
+    args = (x.data_ptr(), steps, probes.INPUT_ROWS, hb, sums.data_ptr(), 1,
+            _build.stream(x.device))
+    entry = _build.kernels().fk_probe_smem_input
+
+    def checks():
+        if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+            raise ValueError
+        rows, hb = x.shape
+        return rows % probes.INPUT_ROWS or hb < probes.INPUT_ROWS
+
+    def before():  # the parent's wrapper: (steps,) sums, then a slice
+        probes._check_int32(x)
+        if x.dim() != 2 or x.shape[0] % 16 or x.shape[1] < 16:
+            raise ValueError
+        if x.device.type == "cpu":
+            raise ValueError
+        n = x.shape[0] // probes.INPUT_ROWS
+        out = torch.empty((n,), dtype=torch.int32, device=x.device)
+        _build.launch("fk_probe_smem_input", x.data_ptr(), n,
+                      probes.INPUT_ROWS, x.shape[1], out.data_ptr(), n,
+                      _build.stream(x.device))
+        return out[-1:]
+
+    return {
+        "checks": host_us(checks),
+        "empty_tuple": host_us(lambda: torch.empty(
+            (steps,), dtype=torch.int32, device=x.device)),
+        "empty_int": host_us(lambda: torch.empty(
+            1, dtype=torch.int32, device=x.device)),
+        "slice": host_us(lambda: sums[-1:]),
+        "data_ptr": host_us(x.data_ptr),
+        "stream": host_us(lambda: _build.stream(x.device)),
+        "c_call": host_us(lambda: entry(*args)),
+        "launch": host_us(lambda: _build.launch("fk_probe_smem_input",
+                                                *args)),
+        "wrapper before": host_us(before),
+        "wrapper": host_us(lambda: probes.smem_input(x)),
+        "plain": host_us(lambda: probes._smem_input_plain(x)),
+    }
+
+
+def bsearch_host_split(table, queries) -> dict:
+    """Host microseconds of each piece of P4's per-call path at the probe
+    inputs: the input checks, the output allocation (zero-filled, or
+    empty), the data pointers, the stream handle, the C entry point alone
+    (which zeroes the output on the stream), `_build.launch`, the parent's
+    wrapper (its steps replayed), the wrapper, and the plain version."""
+    import torch
+
+    from fedrann_tpu_torch import _build, probes
+
+    dev = table.device
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (table.data_ptr(), table.shape[0], queries.data_ptr(),
+            queries.shape[0], out.data_ptr(), _build.stream(dev))
+    entry = _build.kernels().fk_probe_bsearch
+
+    def before():  # the parent's wrapper: a zero-filled output
+        probes._check_int32(table, queries)
+        if table.device.type == "cpu":
+            raise ValueError
+        out = torch.zeros((1,), dtype=torch.int32, device=table.device)
+        _build.launch("fk_probe_bsearch", table.data_ptr(), table.shape[0],
+                      queries.data_ptr(), queries.shape[0], out.data_ptr(),
+                      _build.stream(table.device))
+        return out
+
+    return {
+        "checks": host_us(lambda: probes._check_int32(table, queries)),
+        "zeros_tuple": host_us(lambda: torch.zeros(
+            (1,), dtype=torch.int32, device=dev)),
+        "empty_int": host_us(lambda: torch.empty(
+            1, dtype=torch.int32, device=dev)),
+        "data_ptrs": host_us(lambda: (table.data_ptr(), queries.data_ptr())),
+        "stream": host_us(lambda: _build.stream(table.device)),
+        "c_call": host_us(lambda: entry(*args)),
+        "launch": host_us(lambda: _build.launch("fk_probe_bsearch", *args)),
+        "wrapper before": host_us(before),
+        "wrapper": host_us(lambda: probes.bsearch(table, queries)),
+        "plain": host_us(lambda: probes._bsearch_plain(table, queries)),
+    }
+
+
 def check_probes(dev, card: str) -> dict:
     """Phase 6, first half: each probe kernel against its plain version on
     the card, at the probe scripts' inputs."""
@@ -775,6 +1016,7 @@ def check_probes(dev, card: str) -> dict:
     got, want = probes.smem_input(x), probes._smem_input_plain(x)
     if not torch.equal(got, want) or int(got[0]) != 1818744:
         fail(f"P2/P5 smem_input {int(got[0])}, plain {int(want[0])}")
+    check_smem_input(x, dev)
     report["fk_probe_smem_input"] = dict(
         max_abs_err=0.0, ms=time_cuda(lambda: probes.smem_input(x), 20),
         plain_ms=time_cuda(lambda: probes._smem_input_plain(x), 20),
@@ -783,7 +1025,9 @@ def check_probes(dev, card: str) -> dict:
     log("P2/P5 smem_input: device " + device_us(
         lambda: probes.smem_input(x), 20, True) + " us vs plain "
         + device_us(lambda: probes._smem_input_plain(x), 20, False)
-        + f" us per call [{card}]")
+        + " us per call; host us per call: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in input_host_split(x).items())
+        + f" [{card}]")
 
     q, idx, row = t["q"], t["idx"], t["row"]
     qmax = float(q.abs().max())
@@ -845,16 +1089,20 @@ def check_probes(dev, card: str) -> dict:
         table, queries)
     if not torch.equal(got, want):
         fail(f"P4 bsearch {int(got[0])}, plain {int(want[0])}")
+    check_bsearch_edges(dev)
     report["fk_probe_bsearch"] = dict(
         max_abs_err=0.0,
         ms=time_cuda(lambda: probes.bsearch(table, queries), 20),
         plain_ms=time_cuda(lambda: probes._bsearch_plain(table, queries),
                            20),
         library_ms=None, **bound(nbytes(table, queries) + 4))
-    log("P4 bsearch: device " + device_us(
-        lambda: probes.bsearch(table, queries), 20, True) + " us vs plain "
+    dev_us = device_us(lambda: probes.bsearch(table, queries), 20, True)
+    log("P4 bsearch: device " + dev_us + " us vs plain "
         + device_us(lambda: probes._bsearch_plain(table, queries), 20, False)
-        + f" us per call [{card}]")
+        + " us per call; host us per call: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in bsearch_host_split(
+                table, queries).items()) + f" [{card}]")
+    log(bsearch_floor(table, queries, dev_us, card))
     for name in probes.WRAPPERS:
         log_kernel(name, report[name], card)
     return report
@@ -909,9 +1157,8 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
     kernel's count reset just before; every kernel must launch, each
     staging kernel exactly when the plan picks its path for a bucket of
-    the reads (so kernel B's one-block path on kernel A's plane, which the
-    pipeline never takes, never). Check overlaps.tsv and the truth recall
-    of pairs overlapping >= min_overlap. Returns the launch counts."""
+    the reads. Check overlaps.tsv and the truth recall of pairs
+    overlapping >= min_overlap. Returns the launch counts."""
     paths = stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
@@ -1071,7 +1318,6 @@ def main() -> None:
     COUNTERS.update({
         "stage_rows": (stage_candidates, "launches"),
         "canonical_sample": (canonical_sample, "launches"),
-        "select_candidates": (select_candidates, "launches"),
         "select_candidates_long": (select_candidates, "long_launches"),
         "membership_embed": (membership_embed, "launches")})
 
@@ -1154,8 +1400,7 @@ def main() -> None:
         keep_all_launches = drive_cli(
             fasta, os.path.join(tmp, "kout"), sim, KEEP_ALL_READ_LEN // 2,
             card, dev, flags)
-        for name in ("canonical_sample", "select_candidates",
-                     "select_candidates_long"):
+        for name in ("canonical_sample", "select_candidates_long"):
             launches[name] += long_launches[name] + keep_all_launches[name]
 
     report.update(check_probes(dev, card))

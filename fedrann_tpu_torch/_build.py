@@ -37,10 +37,6 @@ _SIGNATURES = {
     # bases, rows, length, w, k, s1, s2, threshold, keep_all, out, stream
     "fk_canonical_sample": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32,
                             _I32, _P, _P],
-    # slots, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes,
-    # staged, width, dropped, stream
-    "fk_select_stage_rows": [_P, _I64, _I64, _I64, _I32, _I32, _I32, _I32,
-                             _P, _I64, _P, _P],
     # bases, rows, length, w, k, s1, s2, threshold, keep_all, hit_buffer,
     # blocked, cap, n_blocks, smem_bytes, staged, width, dropped, stream
     "fk_stage_rows": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32, _I32,
@@ -57,13 +53,15 @@ _SIGNATURES = {
                             _P, _P, _P, _P, _I64, _P],
     # probes.cu: n, out, stream
     "fk_probe_smem_scratch": [_I32, _P, _P],
-    # x, steps, rb, hb, sums, stream
-    "fk_probe_smem_input": [_P, _I32, _I32, _I32, _P, _P],
+    # x, steps, rb, hb, sums, n_sums, stream
+    "fk_probe_smem_input": [_P, _I32, _I32, _I32, _P, _I32, _P],
     # q, d, idx, row, nh, rb, src_dyn, dst_dyn, accumulate, steps, e, stream
     "fk_probe_dyn_rows": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32,
                           _I32, _P, _P],
     # table, n, queries, nq, out, stream
     "fk_probe_bsearch": [_P, _I32, _P, _I32, _P, _P],
+    # steps, cycles (two int64), stream
+    "fk_smem_chase_cycles": [_I32, _P, _P],
 }
 
 

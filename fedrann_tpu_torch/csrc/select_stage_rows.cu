@@ -10,24 +10,18 @@
 // (:282-337), i.e. the blocked selection, the cap slice, the narrow sort,
 // the `width` slice and the exact dropped count.
 //
-// Rows whose survivor buffer fits a block's shared memory: one thread
-// block of 256 threads per row (1,024 where the buffer leaves room for
-// only one block an SM), 4 slots a thread (1) per 1024-slot block, from a
-// source chosen at compile time:
-//   - `fk_stage_rows`, the main path: the slots are computed from the
-//     bases by window_slots (window_codes.cuh), O(1) operations a window,
-//     with the next block's bases loaded one block ahead. The (R, W) slot
-//     plane never reaches device memory: the function reads one byte of
-//     bases per window and writes `width` staged slots (at the main path's
-//     2,048 x 16,384 chunk 33.5 MB in, 16.8 MB out, 0.015 ms at 3.35
-//     TB/s), so integer work bounds it: the window codes and the hash, 43
-//     integer-pipe instructions a valid sampled window at k <= 16
-//     (window_codes.cuh counts them), ~0.05 ms over 132 SMs x 64 INT32
-//     lanes x 1.98 GHz;
-//   - `fk_select_stage_rows`: the slots read from kernel A's int64 plane
-//     with 16-byte loads SELECT_DEPTH blocks ahead (bound: the 268 MB plane
-//     read once, 0.085 ms at that chunk);
-// and from either source:
+// Rows whose survivor buffer fits a block's shared memory (`fk_stage_rows`,
+// kernels A and B fused): one thread block of 256 threads per row (1,024
+// where the buffer leaves room for only one block an SM), 4 slots a thread
+// (1) per 1024-slot block. The slots are computed from the bases by
+// window_slots (window_codes.cuh), O(1) operations a window, with the next
+// block's bases loaded one block ahead. The (R, W) slot plane never
+// reaches device memory: the function reads one byte of bases per window
+// and writes `width` staged slots (at the main path's 2,048 x 16,384 chunk
+// 33.5 MB in, 16.8 MB out, 0.015 ms at 3.35 TB/s), so integer work bounds
+// it: the window codes and the hash, 43 integer-pipe instructions a valid
+// sampled window at k <= 16 (window_codes.cuh counts them), ~0.05 ms over
+// 132 SMs x 64 INT32 lanes x 1.98 GHz. Then:
 //   1. each 1024-slot block's candidates (slots other than PAD_SLOT) are
 //      compacted into the survivor buffer in shared memory by a block
 //      prefix sum (`block_scan`) and counted;
@@ -79,7 +73,6 @@
 namespace {
 
 constexpr int SELECT_THREADS = 256;  // a row's block, and pass 1's
-constexpr int SELECT_DEPTH = 4;  // 1024-slot blocks in flight per row
 // a row whose survivor buffer leaves room for only one block an SM (past
 // WIDE_SMEM of the SM's 228 KB) takes WIDE_THREADS: with 256 the SM's
 // other threads would idle, and the survivor sort (~13,000 slots at the
@@ -111,82 +104,6 @@ __device__ __forceinline__ void load_slots(
     v[i] = b < n_blocks && c + i < w ? row[c + i] : PAD_SLOT;
 }
 
-// The sources of a row's slots, one 1024-slot block at a time. Each has
-// Params (the kernel argument), Shared (its shared memory), a constructor
-// that starts the row's loads, DEPTH (blocks in flight) and take(s, b, v):
-// this thread's slots of block b (b % DEPTH == s) into v. Every thread of
-// the block calls take for every block in order.
-
-// Slots read from kernel A's (R, w) plane.
-struct PlaneParams {
-  const int64_t* slots;
-  int64_t w;
-};
-
-template <int THREADS>
-struct PlaneSource {
-  static constexpr int PER = SELECT_BLOCK / THREADS;
-  static constexpr int DEPTH = SELECT_DEPTH;
-  using Params = PlaneParams;
-  struct Shared {};
-  const int64_t* row;
-  int64_t w;
-  int n_blocks;
-  bool aligned;
-  int64_t ring[DEPTH][PER];
-
-  __device__ PlaneSource(const Params& p, int64_t r, int n_blocks_, Shared&)
-      : row(p.slots + r * p.w), w(p.w), n_blocks(n_blocks_),
-        aligned(aligned16(p.slots + r * p.w)) {
-#pragma unroll
-    for (int s = 0; s < DEPTH; ++s)
-      load_slots<THREADS>(row, w, s, n_blocks, aligned, ring[s]);
-  }
-
-  __device__ __forceinline__ void take(int s, int b, int64_t (&v)[PER]) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) v[i] = ring[s][i];
-    load_slots<THREADS>(row, w, b + DEPTH, n_blocks, aligned, ring[s]);
-  }
-};
-
-// Slots computed from the row's bases (the fused form of kernels A and B);
-// WIDE: k > 16. Threads 0..65 hold the chunks of the next block, loaded
-// while the block before it is computed. One stage serves every block:
-// compact_slots' barrier lies between a block's reads of it and the next
-// block's writes.
-template <int THREADS, bool WIDE>
-struct WindowSource {
-  static constexpr int PER = SELECT_BLOCK / THREADS;
-  static constexpr int DEPTH = 1;
-  using Params = WindowParams;
-  struct Shared {
-    WindowStage stage;
-  };
-  const WindowParams p;
-  Shared& shared;
-  const uint8_t* row;
-  int n_blocks;
-  bool aligned;
-  int chunk;   // the chunk of each block this thread loads, or -1
-  uint4 next;  // that chunk of the next block
-
-  __device__ WindowSource(const Params& p_, int64_t r, int n_blocks_,
-                          Shared& shared_)
-      : p(p_), shared(shared_), row(p_.bases + r * p_.length),
-        n_blocks(n_blocks_), aligned(aligned16(p_.bases + r * p_.length)),
-        chunk(threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1), next() {
-    if (chunk >= 0) next = load_window_chunk(row, p.length, 0, chunk, aligned);
-  }
-
-  __device__ __forceinline__ void take(int, int b, int64_t (&v)[PER]) {
-    const uint4 held = next;
-    if (chunk >= 0 && b + 1 < n_blocks)
-      next = load_window_chunk(row, p.length, b + 1, chunk, aligned);
-    window_slots<PER, WIDE>(p, b, chunk, held, shared.stage, v);
-  }
-};
-
 // Appends this thread's candidates among v to buf (the block's running
 // end), compacted by a block prefix sum; returns the block's count.
 template <int PER>
@@ -203,37 +120,44 @@ __device__ __forceinline__ int compact_slots(const int64_t (&v)[PER],
   return count;
 }
 
-// One block of THREADS per row; shared memory holds the row's survivors
-// plus one 1024-slot block being compacted. Full-width rows come with
-// cap = SELECT_BLOCK and width = hit_buffer.
-template <int THREADS, class Source>
+// One block of THREADS per row, its slots computed from its bases one
+// 1024-slot block at a time (kernels A and B fused; WIDE: k > 16). Threads
+// 0..WINDOW_CHUNKS-1 hold the chunks of the next block's bases, loaded
+// while the block before it is computed. One stage serves every block:
+// compact_slots' barrier lies between a block's reads of it and the next
+// block's writes. Shared memory holds the row's survivors plus one
+// 1024-slot block being compacted. Full-width rows come with cap =
+// SELECT_BLOCK and width = hit_buffer.
+template <int THREADS, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
-select_stage_rows_kernel(const typename Source::Params src, int cap,
-                         int n_blocks, int64_t* __restrict__ staged,
-                         int64_t width, int32_t* __restrict__ dropped) {
+select_stage_rows_kernel(const WindowParams p, int cap, int n_blocks,
+                         int64_t* __restrict__ staged, int64_t width,
+                         int32_t* __restrict__ dropped) {
   constexpr int PER = SELECT_BLOCK / THREADS;
   extern __shared__ int64_t surv[];
   __shared__ int scratch[2][33];
-  __shared__ typename Source::Shared source_shared;
+  __shared__ WindowStage stage;
   const int64_t r = blockIdx.x;
-  Source source(src, r, n_blocks, source_shared);
+  const uint8_t* row = p.bases + r * p.length;
+  const bool aligned = aligned16(row);
+  const int chunk = threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1;
+  uint4 next{};  // this thread's chunk of the next block
+  if (chunk >= 0) next = load_window_chunk(row, p.length, 0, chunk, aligned);
   int n_surv = 0, n_cand = 0;
-  for (int b0 = 0; b0 < n_blocks; b0 += Source::DEPTH) {
-#pragma unroll
-    for (int s = 0; s < Source::DEPTH; ++s) {
-      const int b = b0 + s;
-      if (b >= n_blocks) break;  // uniform across the block
-      int64_t v[PER];
-      source.take(s, b, v);
-      const int count = compact_slots(v, surv + n_surv, scratch[b & 1]);
-      n_cand += count;
-      if (count > cap) {  // keep the block's cap smallest candidates
-        __syncthreads();
-        bitonic_sort_n(surv + n_surv, count);
-        n_surv += cap;
-      } else {
-        n_surv += count;
-      }
+  for (int b = 0; b < n_blocks; ++b) {
+    const uint4 held = next;
+    if (chunk >= 0 && b + 1 < n_blocks)
+      next = load_window_chunk(row, p.length, b + 1, chunk, aligned);
+    int64_t v[PER];
+    window_slots<PER, WIDE>(p, b, chunk, held, stage, v);
+    const int count = compact_slots(v, surv + n_surv, scratch[b & 1]);
+    n_cand += count;
+    if (count > cap) {  // keep the block's cap smallest candidates
+      __syncthreads();
+      bitonic_sort_n(surv + n_surv, count);
+      n_surv += cap;
+    } else {
+      n_surv += count;
     }
   }
   __syncthreads();
@@ -245,14 +169,14 @@ select_stage_rows_kernel(const typename Source::Params src, int cap,
         n_cand - (n_surv < width ? n_surv : width));
 }
 
-// Launches the one-block kernel over `rows` rows with source S256 (256
-// threads) or, past WIDE_SMEM of survivor buffer, S1024 (1,024 threads).
-// Full-width rows (blocked = 0) keep every candidate.
-template <class S256, class S1024>
-int launch_stage_rows(const typename S256::Params& src, int64_t rows,
-                      int64_t w, int64_t hit_buffer, int blocked, int cap,
-                      int n_blocks, int smem_bytes, int64_t* staged,
-                      int64_t width, int32_t* dropped, void* stream) {
+// Launches the one-block kernel over `rows` rows with 256 threads or, past
+// WIDE_SMEM of survivor buffer, 1,024. Full-width rows (blocked = 0) keep
+// every candidate.
+template <bool WIDE>
+int launch_stage_rows(const WindowParams& p, int64_t rows, int64_t w,
+                      int64_t hit_buffer, int blocked, int cap, int n_blocks,
+                      int smem_bytes, int64_t* staged, int64_t width,
+                      int32_t* dropped, void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
   if (!blocked) {
     cap = SELECT_BLOCK;
@@ -262,9 +186,9 @@ int launch_stage_rows(const typename S256::Params& src, int64_t rows,
   const bool wide = smem_bytes > WIDE_SMEM;
   const void* kernel = wide
       ? reinterpret_cast<const void*>(
-            select_stage_rows_kernel<WIDE_THREADS, S1024>)
+            select_stage_rows_kernel<WIDE_THREADS, WIDE>)
       : reinterpret_cast<const void*>(
-            select_stage_rows_kernel<SELECT_THREADS, S256>);
+            select_stage_rows_kernel<SELECT_THREADS, WIDE>);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -272,13 +196,13 @@ int launch_stage_rows(const typename S256::Params& src, int64_t rows,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) {
-    select_stage_rows_kernel<WIDE_THREADS, S1024>
+    select_stage_rows_kernel<WIDE_THREADS, WIDE>
         <<<static_cast<unsigned>(rows), WIDE_THREADS, smem_bytes, st>>>(
-            src, cap, n_blocks, staged, width, dropped);
+            p, cap, n_blocks, staged, width, dropped);
   } else {
-    select_stage_rows_kernel<SELECT_THREADS, S256>
+    select_stage_rows_kernel<SELECT_THREADS, WIDE>
         <<<static_cast<unsigned>(rows), SELECT_THREADS, smem_bytes, st>>>(
-            src, cap, n_blocks, staged, width, dropped);
+            p, cap, n_blocks, staged, width, dropped);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -394,24 +318,11 @@ __global__ void stage_dropped_kernel(const int32_t* __restrict__ cand,
 
 }  // namespace
 
-// Rows whose survivors fit shared memory, slots from kernel A's plane:
-// smem_bytes holds min(w, (n_blocks - 1) * cap + SELECT_BLOCK) slots
-// (membership.stage_launch_plan). Full-width rows (blocked = 0) keep every
-// candidate.
-extern "C" int fk_select_stage_rows(const int64_t* slots, int64_t rows,
-                                    int64_t w, int64_t hit_buffer,
-                                    int blocked, int cap, int n_blocks,
-                                    int smem_bytes, int64_t* staged,
-                                    int64_t width, int32_t* dropped,
-                                    void* stream) {
-  return launch_stage_rows<PlaneSource<SELECT_THREADS>,
-                           PlaneSource<WIDE_THREADS>>(
-      {slots, w}, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes,
-      staged, width, dropped, stream);
-}
-
-// The same rows staged from their bases: kernels A and B fused, the slots
-// computed in the block (window_codes.cuh). s1 = fmix32(seed32), s2 =
+// Rows whose survivors fit shared memory, staged from their bases:
+// kernels A and B fused, the slots computed in the block
+// (window_codes.cuh). smem_bytes holds min(w, (n_blocks - 1) * cap +
+// SELECT_BLOCK) slots (membership.stage_launch_plan); full-width rows
+// (blocked = 0) keep every candidate. s1 = fmix32(seed32), s2 =
 // fmix32(s1 ^ 0x9E3779B9), computed by the caller.
 extern "C" int fk_stage_rows(const uint8_t* bases, int64_t rows,
                              int64_t length, int64_t w, int k, uint32_t s1,
@@ -421,33 +332,27 @@ extern "C" int fk_stage_rows(const uint8_t* bases, int64_t rows,
                              int64_t width, int32_t* dropped, void* stream) {
   const WindowParams p{bases, length, w, k, s1, s2, threshold, keep_all};
   if (k > 16)
-    return launch_stage_rows<WindowSource<SELECT_THREADS, true>,
-                             WindowSource<WIDE_THREADS, true>>(
-        p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
-        width, dropped, stream);
-  return launch_stage_rows<WindowSource<SELECT_THREADS, false>,
-                           WindowSource<WIDE_THREADS, false>>(
-      p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
-      width, dropped, stream);
+    return launch_stage_rows<true>(p, rows, w, hit_buffer, blocked, cap,
+                                   n_blocks, smem_bytes, staged, width,
+                                   dropped, stream);
+  return launch_stage_rows<false>(p, rows, w, hit_buffer, blocked, cap,
+                                  n_blocks, smem_bytes, staged, width,
+                                  dropped, stream);
 }
 
 // The most static shared memory (bytes) any one-block kernel holds, both
-// sources at both thread counts, into *bytes: the allowance
+// code widths at both thread counts, into *bytes: the allowance
 // membership.STATIC_SMEM keeps beside the survivor buffer must cover it.
 extern "C" int fk_stage_rows_static_smem(int32_t* bytes) {
   const void* kernels[] = {
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          SELECT_THREADS, PlaneSource<SELECT_THREADS>>),
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          WIDE_THREADS, PlaneSource<WIDE_THREADS>>),
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          SELECT_THREADS, WindowSource<SELECT_THREADS, false>>),
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          WIDE_THREADS, WindowSource<WIDE_THREADS, false>>),
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          SELECT_THREADS, WindowSource<SELECT_THREADS, true>>),
-      reinterpret_cast<const void*>(select_stage_rows_kernel<
-          WIDE_THREADS, WindowSource<WIDE_THREADS, true>>)};
+      reinterpret_cast<const void*>(
+          select_stage_rows_kernel<SELECT_THREADS, false>),
+      reinterpret_cast<const void*>(
+          select_stage_rows_kernel<WIDE_THREADS, false>),
+      reinterpret_cast<const void*>(
+          select_stage_rows_kernel<SELECT_THREADS, true>),
+      reinterpret_cast<const void*>(
+          select_stage_rows_kernel<WIDE_THREADS, true>)};
   int32_t most = 0;
   for (const void* kernel : kernels) {
     cudaFuncAttributes attr;

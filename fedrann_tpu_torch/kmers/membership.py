@@ -8,17 +8,19 @@ survivors are sorted and the first `width` kept, with an exact count of the
 candidate occurrences that did not fit. Duplicates are kept (the library
 counts occurrences); membership drops a slot equal to its left neighbour.
 
-Kernel B takes one of two paths per call, chosen by `stage_launch_plan`: a
-row whose survivors fit a thread block's shared memory is staged by one
-block (each 1024-slot block's candidates compacted, sorted only past the
-cap, then one sort of the survivors); a longer row (keep_all past 28,928
-windows, or blocked rows at high sampling: >= 6.5% at the 262,144-base
-bucket, >= 14.5% at 131,072) is sorted in shared-memory chunks that are
-merged in device memory. `stage_candidates` stages bases: on the one-block
-path kernels A and B run fused (`fk_stage_rows`: the block computes its
-slots from the bases, so the (R, W) slot plane never reaches device
-memory); on the device-memory path kernel A writes the plane and kernel B
-reads it.
+Kernel B takes one of two paths per row shape, chosen by
+`stage_launch_plan`: a row whose survivors fit a thread block's shared
+memory is staged by one block (each 1024-slot block's candidates
+compacted, sorted only past the cap, then one sort of the survivors); a
+longer row (keep_all past 28,928 windows, or blocked rows at high
+sampling: >= 6.5% at the 262,144-base bucket, >= 14.5% at 131,072) is
+sorted in shared-memory chunks that are merged in device memory.
+`stage_candidates` stages bases: on the one-block path kernels A and B run
+fused (`fk_stage_rows`: the block computes its slots from the bases, so
+the (R, W) slot plane never reaches device memory); on the device-memory
+path kernel A writes the plane and `select_candidates` reads it. The
+one-block path takes bases only, so `select_candidates` refuses CUDA slots
+whose rows it would keep in one block.
 
 Membership here (`read_hits_staged`, the plain version of kernel C's
 lookups) is `torch.searchsorted` on the sorted int64 library; kernel C
@@ -160,9 +162,11 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
     width is hit_buffer (full-width selection) or min(hit_buffer,
     n_blocks * cap) (blocked selection, W > 2 * SELECT_BLOCK with a
     block_cap and not keep_all). A CPU tensor takes the plain PyTorch
-    version; a CUDA tensor launches kernel B (csrc/select_stage_rows.cu)
-    on the path `stage_launch_plan` picks for the device's shared memory,
-    counted in `.launches` (short rows) or `.long_launches` (long rows)."""
+    version. A CUDA tensor launches kernel B's device-memory path
+    (csrc/select_stage_rows.cu), counted in `.long_launches`, for rows
+    that `stage_launch_plan` cannot keep in one block's shared memory;
+    rows it can keep there stage from their bases, fused with kernel A
+    (`stage_candidates`), and raise ValueError here."""
     if slots.dtype != torch.int64 or slots.dim() != 2:
         raise ValueError("slots must be a 2-D int64 tensor")
     r, w = slots.shape
@@ -178,20 +182,18 @@ def select_candidates(slots: torch.Tensor, hit_buffer: int, keep_all: bool,
 
 
 def _select_on_card(slots: torch.Tensor, hit_buffer: int, plan: StagePlan):
-    """Kernel B on a CUDA tensor along `plan` (the path select_candidates
-    picks, or another one to time it against)."""
+    """Kernel B's device-memory path on a CUDA tensor along `plan` (the
+    path select_candidates picks, or one forced to time it against the
+    fused kernel); a one-block plan raises ValueError."""
+    if not plan.long:
+        raise ValueError(
+            "rows that fit one block's shared memory stage from their bases "
+            "with kernels A and B fused: call stage_candidates")
     r, w = slots.shape
     slots = slots.contiguous()
     dev = slots.device
     staged = torch.empty((r, plan.width), dtype=torch.int64, device=dev)
     dropped = torch.empty((r,), dtype=torch.int32, device=dev)
-    if not plan.long:
-        _build.launch("fk_select_stage_rows", slots.data_ptr(), r, w,
-                      hit_buffer, int(plan.blocked), plan.cap, plan.n_blocks,
-                      plan.smem, staged.data_ptr(), plan.width,
-                      dropped.data_ptr(), _build.stream(dev))
-        select_candidates.launches += 1
-        return staged, dropped
     n_pad = plan.chunk * plan.n_chunks
     groups = plan.n_blocks if plan.blocked else plan.n_chunks
 
@@ -213,8 +215,7 @@ def _select_on_card(slots: torch.Tensor, hit_buffer: int, plan: StagePlan):
     return staged, dropped
 
 
-select_candidates.launches = 0       # short path (one block per row)
-select_candidates.long_launches = 0  # long path (device-memory merge)
+select_candidates.long_launches = 0  # the device-memory path
 
 
 def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,

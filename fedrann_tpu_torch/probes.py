@@ -43,6 +43,9 @@ from fedrann_tpu_torch.device import get_device, shared_memory_limit
 SCRATCH_SIZES = (1 << 12, 1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18)
 INPUT_ROWS = 16     # P2/P5 rows per grid step (rb)
 E_ROWS = 256        # P3/P6 output rows (rb)
+# P4's schedule (csrc/probes.cu BS_THREADS, BS_PER): threads a block, and
+# queries a thread searches in lockstep, strided by the block
+BSEARCH_THREADS, BSEARCH_PER = 128, 4
 # P3/P6 mode -> (source row is idx[i], target row is row[i], accumulate,
 # passes over the hits): probe_mosaic.py:77-89, probe_mosaic2.py:76-114
 DYN_MODES = {
@@ -172,20 +175,24 @@ def _smem_input_plain(x: torch.Tensor) -> torch.Tensor:
 
 def smem_input(x: torch.Tensor) -> torch.Tensor:
     """(1,) int32: the last grid step's sum of x_blk[i, i & 1023], i <
-    INPUT_ROWS, over the (INPUT_ROWS, hb) blocks of x."""
-    _check_int32(x)
-    if x.dim() != 2 or x.shape[0] % INPUT_ROWS or x.shape[1] < INPUT_ROWS:
-        raise ValueError(f"x {tuple(x.shape)} is not a stack of "
+    INPUT_ROWS, over the (INPUT_ROWS, hb) blocks of x (int32 wraparound).
+    On the card each step's block is staged whole in one block's shared
+    memory by 16-byte loads. The launch path is kept lean, as P1's: the
+    kernel writes only the last step's sum (no slice of a (steps,)
+    tensor), allocated by an int size, not a shape tuple."""
+    if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous 2-D int32 tensor")
+    rows, hb = x.shape
+    if rows % INPUT_ROWS or hb < INPUT_ROWS:
+        raise ValueError(f"x ({rows}, {hb}) is not a stack of "
                          f"({INPUT_ROWS}, hb) blocks with hb >= {INPUT_ROWS}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return _smem_input_plain(x)
-    steps = x.shape[0] // INPUT_ROWS
-    sums = torch.empty((steps,), dtype=torch.int32, device=x.device)
-    _build.launch("fk_probe_smem_input", x.data_ptr(), steps, INPUT_ROWS,
-                  x.shape[1],
-                  sums.data_ptr(), _build.stream(x.device))
+    sums = torch.empty(1, dtype=torch.int32, device=x.device)
+    _build.launch("fk_probe_smem_input", x.data_ptr(), rows // INPUT_ROWS,
+                  INPUT_ROWS, hb, sums.data_ptr(), 1, _build.stream(x.device))
     smem_input.launches += 1
-    return sums[-1:]
+    return sums
 
 
 smem_input.launches = 0
@@ -287,11 +294,14 @@ def _bsearch_plain(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 def bsearch(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """(1,) int32: the sum over queries of lower_bound(table, query)."""
+    """(1,) int32: the sum over queries of lower_bound(table, query) (int32
+    wraparound), for a sorted table of n >= 0 entries. On the card the C
+    entry zeroes the output on the stream (cudaMemsetAsync) before the
+    kernel adds to it, cheaper on the host than torch.zeros."""
     _check_int32(table, queries)
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return _bsearch_plain(table, queries)
-    out = torch.zeros((1,), dtype=torch.int32, device=table.device)
+    out = torch.empty(1, dtype=torch.int32, device=table.device)
     _build.launch("fk_probe_bsearch", table.data_ptr(), table.shape[0],
                   queries.data_ptr(), queries.shape[0], out.data_ptr(),
                   _build.stream(table.device))
@@ -300,6 +310,40 @@ def bsearch(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 bsearch.launches = 0
+
+BSEARCH_EDGE_SIZES = (1, 2, 3, 8191, 8192, 8193)
+
+
+def bsearch_edge_cases(seed: int = 0) -> list[tuple[np.ndarray, np.ndarray]]:
+    """(sorted int32 table, int32 queries) for each n of BSEARCH_EDGE_SIZES,
+    the cases P4's kernel is held on beside the probe inputs: runs of equal
+    entries (at the start, the end and, for n > 100, a run of 100 in the
+    middle), int32's extremes in the tables of 8,192 and 8,193, and queries
+    below the minimum, above the maximum, equal to every kind of entry
+    (first, last, in a run, random) and between entries."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    cases = []
+    for n in BSEARCH_EDGE_SIZES:
+        t = np.sort(rng.integers(-4 * n, 4 * n, n)).astype(np.int64)
+        if n >= 2:
+            t[1] = t[0]
+        if n >= 4:
+            t[-1] = t[-2]
+        if n > 100:
+            t[n // 2 : n // 2 + 100] = t[n // 2]
+        if n == 8192:
+            t[:3] = lo
+        if n == 8193:
+            t[-3:] = hi
+        picks = t[rng.integers(0, n, 4)]
+        q = np.concatenate([
+            [max(t[0] - 1, lo), t[0], t[-1], min(t[-1] + 1, hi), lo, hi,
+             t[n // 2], t[n // 2] + 1, t[(n - 1) // 3]], picks, picks - 1])
+        cases.append((t.astype(np.int32),
+                      np.clip(q, lo, hi).astype(np.int32)))
+    return cases
+
 
 WRAPPERS = {"fk_probe_smem_scratch": smem_scratch,
             "fk_probe_smem_input": smem_input,
@@ -366,7 +410,7 @@ def run(which: str, device: torch.device) -> dict:
         res["P4"] = bsearch(t["table"], t["queries"])
         ms = _time_ms(lambda: bsearch(t["table"], t["queries"]), device)
         nq = t["queries"].shape[0]
-        steps = (t["table"].shape[0]).bit_length() - 1
+        steps = t["table"].shape[0].bit_length()  # the kernel's fixed steps
         _say(f"[P4] scalar bsearch ({steps} steps): OK  "
              f"val={int(res['P4'][0])}  {ms:.4f} ms for {nq} queries "
              f"({ms * 1e6 / nq:.1f} ns/query)")

@@ -50,7 +50,7 @@ def test_cpu_tensors_take_the_plain_versions():
     rng = np.random.default_rng(0)
     bases = torch.from_numpy(rng.integers(0, 5, (8, 3000)).astype(np.uint8))
     before = (codec.canonical_sample.launches,
-              membership.select_candidates.launches,
+              membership.select_candidates.long_launches,
               membership.stage_candidates.launches,
               embed.membership_embed.launches)
     thr = codec.sample_threshold(0.3)
@@ -69,7 +69,7 @@ def test_cpu_tensors_take_the_plain_versions():
     targets = torch.stack([2 * torch.arange(8), 2 * torch.arange(8) + 1], 1)
     embed.membership_embed(staged, lib, signs, mags, targets, out)
     assert (codec.canonical_sample.launches,
-            membership.select_candidates.launches,
+            membership.select_candidates.long_launches,
             membership.stage_candidates.launches,
             embed.membership_embed.launches) == before
 
@@ -78,7 +78,6 @@ def test_cpu_tensors_take_the_plain_long_path_and_probes():
     """Rows past a block's shared memory and the probe wrappers take the
     plain versions on the CPU and count no launch."""
     before = (membership.select_candidates.long_launches,
-              membership.select_candidates.launches,
               *(fn.launches for fn in probes.WRAPPERS.values()))
     slots = torch.full((2, 40000), codec.PAD_SLOT, dtype=torch.int64)
     slots[0, ::7] = torch.arange(0, 40000, 7)
@@ -89,8 +88,19 @@ def test_cpu_tensors_take_the_plain_long_path_and_probes():
     res = probes.run("all", torch.device("cpu"))
     assert set(res) == {"P1", "P2", "P3", "P4", "P5", "P6"}
     assert before == (membership.select_candidates.long_launches,
-                      membership.select_candidates.launches,
                       *(fn.launches for fn in probes.WRAPPERS.values()))
+    assert not hasattr(membership.select_candidates, "launches")
+
+
+def test_one_block_rows_are_not_selected_from_slots():
+    """Kernel B reads slots on its device-memory path only: a plan that
+    keeps rows in one block (they stage fused, from their bases) is
+    refused before anything launches, naming stage_candidates."""
+    plan = membership.stage_launch_plan(16370, 1024, False, 80)
+    assert not plan.long
+    slots = torch.full((2, 16370), codec.PAD_SLOT, dtype=torch.int64)
+    with pytest.raises(ValueError, match="stage_candidates"):
+        membership._select_on_card(slots, 1024, plan)
 
 
 def test_probes_entry_point_refuses_a_missing_gpu():

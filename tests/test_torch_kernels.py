@@ -26,6 +26,7 @@ from fedrann_tpu_torch.kmers.library import build_library
 from fedrann_tpu_torch.kmers.membership import (
     STATIC_SMEM,
     _select_candidates_plain,
+    _select_on_card,
     select_candidates,
     selection_cap,
     stage_candidates,
@@ -162,13 +163,12 @@ def test_stage_rows_matches_plain(cuda, case):
         _canonical_sample_plain(bases, k, 602, thr, keep_all), hb,
         keep_all, cap)
     before = (stage_candidates.launches, canonical_sample.launches,
-              select_candidates.launches, select_candidates.long_launches)
+              select_candidates.long_launches)
     got = stage_candidates(
         _on_card_at(bases, cuda, 8 if case == "unaligned" else 0), k, hb,
         keep_all, 602, thr, cap)
     torch.cuda.synchronize()
     assert (stage_candidates.launches, canonical_sample.launches,
-            select_candidates.launches,
             select_candidates.long_launches) == (before[0] + 1, *before[1:])
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
@@ -211,6 +211,41 @@ def _random_slots(rng, r, w, density):
     return torch.from_numpy(slots)
 
 
+def _block_counts(slots):
+    """Candidates in each 1024-slot block of each row, (R, n_blocks)."""
+    r, w = slots.shape
+    g = -(-w // 1024)
+    cand = torch.zeros((r, g * 1024), dtype=torch.int64)
+    cand[:, :w] = slots != PAD_SLOT
+    return cand.reshape(r, g, 1024).sum(dim=2)
+
+
+def _repeat_unit(bases, row, length, rng, period):
+    """Row `row`'s first `length` bases become one random unit repeated,
+    so its sampled windows repeat: duplicate slots."""
+    unit = torch.from_numpy(rng.integers(0, 4, period).astype(np.uint8))
+    bases[row, :length] = unit.repeat(length // period + 1)[:length]
+
+
+def _stage_against_plain(cuda, bases, k, hb, keep_all, thr, cap):
+    """stage_candidates on the card (one fused launch) against the plain
+    composition, bitwise, dropped counts included; select_candidates
+    refuses the same rows' slots. Returns the plain (staged, dropped)."""
+    slots = _canonical_sample_plain(bases, k, 602, thr, keep_all)
+    want = _select_candidates_plain(slots, hb, keep_all, cap)
+    before = (stage_candidates.launches, canonical_sample.launches,
+              select_candidates.long_launches)
+    got = stage_candidates(bases.to(cuda), k, hb, keep_all, 602, thr, cap)
+    torch.cuda.synchronize()
+    assert (stage_candidates.launches, canonical_sample.launches,
+            select_candidates.long_launches) == (before[0] + 1, *before[1:])
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    with pytest.raises(ValueError, match="stage_candidates"):
+        select_candidates(slots.to(cuda), hb, keep_all, cap)
+    return want
+
+
 @pytest.mark.parametrize("w,hit_buffer,keep_all,fraction", [
     (1500, 512, False, 0.2),     # full-width sort (w <= 2 * SELECT_BLOCK)
     (4084, 1024, False, 0.2),    # blocked, ragged last block
@@ -221,17 +256,26 @@ def _random_slots(rng, r, w, density):
 ])
 def test_select_candidates_matches_plain(cuda, w, hit_buffer, keep_all,
                                          fraction):
+    """Kernel B's one-block selection, on the path the pipeline takes
+    (fused: the slots come from the bases), bitwise against the plain
+    composition; a row of one repeated unit over half its length gives
+    duplicate slots, and blocked rows take a cap at the 75th percentile
+    of their blocks' candidate counts, so a quarter of the blocks overflow
+    it (sorted and cut)."""
+    k = 15
     rng = np.random.default_rng(w)
-    slots = _random_slots(rng, 33, w, fraction)
-    # duplicates and one row whose first block overflows its cap
-    slots[1, : w // 2] = slots[1, 0] if slots[1, 0] != PAD_SLOT else 7
-    slots[2, :1024] = 12345
-    cap = None if keep_all else selection_cap(fraction)
-    want = _select_candidates_plain(slots, hit_buffer, keep_all, cap)
-    got = select_candidates(slots.to(cuda), hit_buffer, keep_all, cap)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    bases = _bases(rng, 33, w + k - 1)
+    _repeat_unit(bases, 1, (w + k - 1) // 2, rng, 211)
+    thr = sample_threshold(fraction)
+    cap = None
+    if not keep_all:
+        counts = _block_counts(_canonical_sample_plain(bases, k, 602, thr,
+                                                       False))
+        cap = max(1, int(np.percentile(counts.numpy(), 75)))
+    assert not stage_launch_plan(w, hit_buffer, keep_all, cap).long
+    want = _stage_against_plain(cuda, bases, k, hit_buffer, keep_all, thr,
+                                cap)
+    assert (want[0][1] != PAD_SLOT).any()
 
 
 @pytest.mark.parametrize("w,hit_buffer,keep_all,cap,long", [
@@ -243,10 +287,12 @@ def test_select_candidates_matches_plain(cuda, w, hit_buffer, keep_all,
 ])
 def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
                                                  keep_all, cap, long):
-    """Long rows take the path the plan picks (one block where the
-    survivors fit its shared memory, else the device-memory path), count
-    a launch of that path only, and match the plain version bitwise,
-    dropped counts included."""
+    """Long rows on kernel B's device-memory path, bitwise against the
+    plain version, dropped counts included, counting one launch of that
+    path: where the plan picks it, through select_candidates; where the
+    plan keeps the rows in one block (they stage fused), select_candidates
+    refuses the slots and the path runs forced (the plan for less shared
+    memory)."""
     plan = stage_launch_plan(w, hit_buffer, keep_all, cap,
                              shared_memory_limit(cuda))
     assert plan.long == long
@@ -258,12 +304,17 @@ def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
     slots[2, :] = PAD_SLOT         # an all-padding row
     slots[3, 5:9000] = slots[3, 0]  # a long run of one slot
     want = _select_candidates_plain(slots, hit_buffer, keep_all, cap)
-    before = (select_candidates.launches, select_candidates.long_launches)
-    got = select_candidates(slots.to(cuda), hit_buffer, keep_all, cap)
+    on_card = slots.to(cuda)
+    if not long:
+        with pytest.raises(ValueError, match="stage_candidates"):
+            select_candidates(on_card, hit_buffer, keep_all, cap)
+        plan = stage_launch_plan(w, hit_buffer, keep_all, cap, plan.smem - 8)
+        assert plan.long
+    before = select_candidates.long_launches
+    got = (select_candidates(on_card, hit_buffer, keep_all, cap) if long
+           else _select_on_card(on_card, hit_buffer, plan))
     torch.cuda.synchronize()
-    assert (select_candidates.launches,
-            select_candidates.long_launches) == (before[0] + (not long),
-                                                 before[1] + long)
+    assert select_candidates.long_launches == before + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
     assert int(want[1][1]) > 0 or keep_all
@@ -272,33 +323,35 @@ def test_select_candidates_long_rows_match_plain(cuda, w, hit_buffer,
 @pytest.mark.parametrize("case", ["exactly_cap", "every_block_over_cap",
                                   "cap_plus_one"])
 def test_select_candidates_block_edges(cuda, case):
-    """The one-block kernel sorts a block only past its cap: blocks
-    holding exactly cap candidates (kept unsorted), every block over the
-    cap (each sorted and cut), and blocks of cap + 1, at the main path's
-    16,370-window rows; bitwise against the plain version."""
+    """The one-block kernel sorts a block only past its cap. On the fused
+    path at the main path's 16,370-window rows, with the cap chosen from
+    the blocks' candidate counts on the same bases: the largest count
+    (blocks holding exactly cap, kept unsorted, and none over), one below
+    the smallest (every block over the cap, each sorted and cut), and one
+    below the median (blocks of cap + 1); a row of one repeated unit gives
+    duplicates. Bitwise against the plain composition."""
     rng = np.random.default_rng(7)
-    w, fraction = 16370, 0.05
-    cap = selection_cap(fraction)
-    n = {"exactly_cap": cap, "every_block_over_cap": 3 * cap,
-         "cap_plus_one": cap + 1}[case]
-    slots = np.full((16, w), PAD_SLOT, dtype=np.int64)
-    for b in range(0, w, 1024):
-        size = min(1024, w - b)
-        for r in range(16):
-            pick = rng.choice(size, min(n, size), replace=False)
-            slots[r, b + pick] = rng.integers(0, 1 << 40, len(pick))
-    slots[3] = np.where(slots[3] != PAD_SLOT, 99, PAD_SLOT)  # duplicates
-    slots = torch.from_numpy(slots)
-    hb = staging_width(w, fraction)
-    want = _select_candidates_plain(slots, hb, False, cap)
-    before = select_candidates.launches
-    got = select_candidates(slots.to(cuda), hb, False, cap)
-    torch.cuda.synchronize()
-    assert select_candidates.launches == before + 1
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
-    if case != "exactly_cap":
+    k, w, fraction = 15, 16370, 0.05
+    bases = _bases(rng, 16, w + k - 1, n_frac=0.0)
+    _repeat_unit(bases, 3, w + k - 1, rng, 211)
+    thr = sample_threshold(fraction)
+    counts = _block_counts(_canonical_sample_plain(bases, k, 602, thr, False))
+    cap = {"exactly_cap": int(counts.max()),
+           "every_block_over_cap": int(counts.min()) - 1,
+           "cap_plus_one": int(counts.median()) - 1}[case]
+    assert cap >= 1
+    if case == "exactly_cap":
+        assert (counts == cap).any() and (counts <= cap).all()
+    elif case == "every_block_over_cap":
+        assert (counts > cap).all()
+    else:
+        assert (counts == cap + 1).any() and (counts > cap + 1).any()
+    want = _stage_against_plain(cuda, bases, k, staging_width(w, fraction),
+                                False, thr, cap)
+    if case == "every_block_over_cap":  # every row drops
         assert int(want[1].min()) > 0
+    elif case == "cap_plus_one":
+        assert int(want[1].max()) > 0
 
 
 @pytest.mark.parametrize("k,d", [(13, 40), (13, 100), (15, 512),
@@ -420,11 +473,15 @@ def test_membership_embed_empty_library(cuda):
 
 def test_wrappers_count_launches(cuda):
     bases = _bases(np.random.default_rng(1), 8, 64).to(cuda)
-    before = (canonical_sample.launches, select_candidates.launches)
+    before = (canonical_sample.launches, stage_candidates.launches,
+              select_candidates.long_launches)
     slots = canonical_sample(bases, 5, 1, sample_threshold(0.5), False)
-    select_candidates(slots, 16, False, None)
-    assert (canonical_sample.launches, select_candidates.launches) == (
-        before[0] + 1, before[1] + 1)
+    stage_candidates(bases, 5, 16, False, 1, sample_threshold(0.5), None)
+    with pytest.raises(ValueError, match="stage_candidates"):
+        select_candidates(slots, 16, False, None)
+    assert (canonical_sample.launches, stage_candidates.launches,
+            select_candidates.long_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
 
 
 @pytest.fixture
@@ -513,3 +570,84 @@ def test_probe_bsearch_matches_plain(cuda, probe_tensors):
     t, qs = probe_tensors["table"], probe_tensors["queries"]
     got = probes.bsearch(t.to(cuda), qs.to(cuda))
     assert torch.equal(got.cpu(), probes._bsearch_plain(t, qs))
+
+
+def _smem_input_every_step(x):
+    """Every step's sum from fk_probe_smem_input (n_sums = steps), launched
+    through its C entry: the wrapper asks for the last step's only."""
+    steps = x.shape[0] // probes.INPUT_ROWS
+    sums = torch.empty(steps, dtype=torch.int32, device=x.device)
+    _build.launch("fk_probe_smem_input", x.data_ptr(), steps,
+                  probes.INPUT_ROWS, x.shape[1], sums.data_ptr(), steps,
+                  _build.stream(x.device))
+    return sums.cpu()
+
+
+def _smem_input_plain_every_step(x):
+    return torch.cat([probes._smem_input_plain(blk)
+                      for blk in x.split(probes.INPUT_ROWS)])
+
+
+def test_probe_smem_input_every_step_full_range(cuda, probe_tensors):
+    """Every step's sum, bitwise, at the probe inputs and at full-range
+    random int32 blocks (sums that wrap); each wrapper call counts one
+    launch and returns the last step's sum."""
+    info = np.iinfo(np.int32)
+    xr = torch.from_numpy(np.random.default_rng(0).integers(
+        info.min, info.max, (64, 2048), dtype=np.int32, endpoint=True))
+    for x in (probe_tensors["x"], xr):
+        want = _smem_input_plain_every_step(x)
+        assert torch.equal(_smem_input_every_step(x.to(cuda)), want)
+        before = probes.smem_input.launches
+        last = probes.smem_input(x.to(cuda))
+        assert probes.smem_input.launches == before + 1
+        assert torch.equal(last.cpu(), want[-1:])
+
+
+@pytest.mark.parametrize("shape,offset", [((64, 2048), 1), ((48, 1030), 0),
+                                          ((16, 512), 0), ((32, 16), 3)])
+def test_probe_smem_input_other_blocks(cuda, shape, offset):
+    """Blocks off 16 bytes (4-byte loads), other widths, one 32 KB step and
+    the narrowest block (hb = INPUT_ROWS): every step's sum bitwise."""
+    info = np.iinfo(np.int32)
+    x = torch.from_numpy(np.random.default_rng(shape[1]).integers(
+        info.min, info.max, shape, dtype=np.int32, endpoint=True))
+    flat = torch.zeros(x.numel() + offset, dtype=torch.int32, device=cuda)
+    flat[offset:].copy_(x.view(-1))
+    got = _smem_input_every_step(flat[offset:].view(shape))
+    assert torch.equal(got, _smem_input_plain_every_step(x))
+
+
+@pytest.mark.parametrize("case", range(len(probes.BSEARCH_EDGE_SIZES)))
+def test_probe_bsearch_edge_tables(cuda, case):
+    """Each edge query launched alone (nq = 1) gives torch.searchsorted's
+    position (side="left"); all of them together with random queries,
+    on the table and on a copy off 16 bytes, give the plain sum."""
+    table, queries = (torch.from_numpy(a)
+                      for a in probes.bsearch_edge_cases()[case])
+    want = torch.searchsorted(table, queries, side="left")
+    t, q = table.to(cuda), queries.to(cuda)
+    got = [int(probes.bsearch(t, q[j : j + 1])[0])
+           for j in range(q.shape[0])]
+    assert got == want.tolist()
+    extra = torch.from_numpy(np.random.default_rng(case).integers(
+        int(table[0]) - 9, int(table[-1]) + 9, 1021).astype(np.int32))
+    qs = torch.cat([queries, extra])
+    flat = torch.zeros(table.shape[0] + 1, dtype=torch.int32, device=cuda)
+    flat[1:].copy_(t)
+    for on_card in (t, flat[1:]):
+        assert torch.equal(probes.bsearch(on_card, qs.to(cuda)).cpu(),
+                           probes._bsearch_plain(table, qs))
+
+
+def test_probe_bsearch_many_blocks_and_empty(cuda, probe_tensors):
+    """Past one round of one block per SM (a grid-stride loop); no
+    queries, and an empty table, give 0."""
+    table = probe_tensors["table"]
+    queries = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 1 << 30, 132 * 512 * 2 + 7).astype(np.int32))
+    assert torch.equal(probes.bsearch(table.to(cuda), queries.to(cuda)).cpu(),
+                       probes._bsearch_plain(table, queries))
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert int(probes.bsearch(table.to(cuda), none)[0]) == 0
+    assert int(probes.bsearch(none, queries.to(cuda))[0]) == 0

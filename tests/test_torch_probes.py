@@ -4,13 +4,15 @@ bench/probe_mosaic2.py run in Pallas interpret mode, and kernel B's launch
 plan against the shared-memory limit.
 
 Each JAX probe runs unchanged with `pallas_call` wrapped so that it
-interprets on the CPU and records what every call returns. Integer probes
-(P1, P2, P4, P5) and the float store P6-B must agree bitwise; the float
+interprets on the CPU and records what every call returns (or, for P2/P5
+at other inputs, the interpreted function itself). Integer probes (P1, P2,
+P4, P5) and the float store P6-B must agree bitwise; the float
 accumulations (P3, P6-A, P6-C) to rtol 1e-5 and atol 1e-6 * (terms summed
 per output) * max|q|, since float32 sums may be taken in another order.
 The P3/P6 kernel's own order, replayed on tensors (`_dyn_rows_replay` over
 `dyn_rows_order`), must equal the interpreted probes bitwise in every
-mode."""
+mode. A numpy emulation of P4's kernel schedule (`_bsearch_schedule`)
+must give torch.searchsorted's position for every query."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import os
 import sys
 
 import jax.experimental.pallas as pl
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -105,6 +108,129 @@ def test_p2_p5_smem_input(interpret, capsys, port, which, script):
     (calls,) = interpret
     np.testing.assert_array_equal(calls[0], port[which].numpy())
     assert int(port[which][0]) == 1818744
+
+
+@pytest.mark.parametrize("script", [probe_mosaic, probe_mosaic2])
+def test_p2_p5_full_range_sums_wrap_like_int32(monkeypatch, capsys, script):
+    """At full-range random int32 blocks the plain version's step sums wrap
+    like int32: every step against int64 sums wrapped to int32 (some of
+    which overflow), the last against the interpreted Pallas probe."""
+    built = []
+    real = pl.pallas_call
+
+    def pallas_call(kernel, *args, **kwargs):
+        kwargs["interpret"] = True
+        built.append(real(kernel, *args, **kwargs))
+        return built[-1]
+
+    monkeypatch.setattr(pl, "pallas_call", pallas_call)
+    script.probe_smem_input()
+    _no_fail(capsys)
+    (fn,) = built
+    info = np.iinfo(np.int32)
+    x = np.random.default_rng(3).integers(info.min, info.max, (64, 2048),
+                                          dtype=np.int32, endpoint=True)
+    steps = torch.cat([probes._smem_input_plain(blk) for blk in
+                       torch.from_numpy(x).split(probes.INPUT_ROWS)]).numpy()
+    np.testing.assert_array_equal(
+        probes._smem_input_plain(torch.from_numpy(x)).numpy(),
+        np.asarray(fn(jnp.asarray(x))))
+    np.testing.assert_array_equal(steps[-1:], np.asarray(fn(jnp.asarray(x))))
+    i = np.arange(probes.INPUT_ROWS)
+    wide = x.reshape(4, probes.INPUT_ROWS, 2048).astype(np.int64)[
+        :, i, i & 1023].sum(axis=1)
+    wrapped = (wide + 2**31) % 2**32 - 2**31
+    np.testing.assert_array_equal(steps, wrapped.astype(np.int32))
+    assert np.any(wide != wrapped)
+
+
+def _bsearch_schedule(table: np.ndarray, queries: np.ndarray,
+                      sms: int = 132) -> tuple[np.ndarray, int]:
+    """fk_probe_bsearch's schedule in numpy: (each query's position, the
+    int32 sum). min(groups, sms) blocks; block b takes rounds b, b +
+    blocks, ... of BSEARCH_THREADS * BSEARCH_PER queries; thread t of a
+    round searches queries round + j * BSEARCH_THREADS + t, j <
+    BSEARCH_PER, in lockstep (INT32_MIN past nq), with the fixed steps
+    pos += t[pos + step - 1] < v ? step : 0 for step = P/2 .. 1 over the
+    table padded to P, the power of two >= n + 1, with +inf. Asserts that
+    every query is searched once and that a query past nq sits at 0."""
+    n, nq = table.shape[0], queries.shape[0]
+    threads, per = probes.BSEARCH_THREADS, probes.BSEARCH_PER
+    group = threads * per
+    p2 = 1 << n.bit_length()
+    padded = np.full(p2, np.iinfo(np.int64).max)
+    padded[:n] = table
+    blocks = min(-(-nq // group), sms)
+    lanes = np.arange(per)[:, None] * threads + np.arange(threads)[None, :]
+    found = np.full(nq, -1)
+    total = 0
+    for b in range(blocks):
+        for start in range(b * group, nq, blocks * group):
+            qi = start + lanes  # (per, threads): a thread's queries by column
+            live = qi < nq
+            v = np.where(live, queries[np.minimum(qi, nq - 1)],
+                         np.iinfo(np.int32).min)
+            pos = np.zeros(qi.shape, dtype=np.int64)
+            step = p2 // 2
+            while step:
+                pos += np.where(padded[pos + step - 1] < v, step, 0)
+                step //= 2
+            assert np.all(pos[~live] == 0)
+            assert np.all(found[qi[live]] == -1)
+            found[qi[live]] = pos[live]
+            total += int(pos.sum())
+    assert np.all(found >= 0)
+    return found, (total + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.parametrize("case", range(len(probes.BSEARCH_EDGE_SIZES)))
+def test_p4_schedule_matches_searchsorted(case):
+    """The kernel's schedule gives torch.searchsorted's (side="left")
+    position query by query on the edge tables (n = 1, 2, 3, 8,191,
+    8,192, 8,193; runs of equal entries; queries below the minimum, above
+    the maximum, equal to entries, between them), alone and with random
+    queries past a round (nq not a multiple of BSEARCH_PER), and the plain
+    version's sum."""
+    table, edges = probes.bsearch_edge_cases()[case]
+    n = table.shape[0]
+    assert n == probes.BSEARCH_EDGE_SIZES[case] and np.all(np.diff(table) >= 0)
+    assert n < 2 or len(np.unique(table)) < n  # runs of equal entries
+    rng = np.random.default_rng(case)
+    extra = rng.integers(int(table[0]) - 9, int(table[-1]) + 9, 1021)
+    for queries in (edges, np.concatenate([edges, extra]).astype(np.int32)):
+        assert queries.shape[0] % probes.BSEARCH_PER
+        pos, total = _bsearch_schedule(table, queries)
+        want = torch.searchsorted(torch.from_numpy(table),
+                                  torch.from_numpy(queries), side="left")
+        np.testing.assert_array_equal(pos, want.numpy())
+        assert total == int(probes._bsearch_plain(
+            torch.from_numpy(table), torch.from_numpy(queries))[0])
+    below = queries < table[0]
+    assert np.all(pos[below] == 0) and np.all(pos[queries > table[-1]] == n)
+
+
+def test_p4_schedule_on_many_blocks():
+    """Past one round of one block per SM (a grid-stride loop) at the
+    probe table: every query once, positions as torch.searchsorted."""
+    table = probes.probe_inputs()["table"]
+    queries = np.random.default_rng(5).integers(
+        0, 1 << 30, 132 * 512 * 2 + 7).astype(np.int32)
+    pos, total = _bsearch_schedule(table, queries)
+    np.testing.assert_array_equal(pos, np.searchsorted(table, queries))
+    assert total == int(probes._bsearch_plain(
+        torch.from_numpy(table), torch.from_numpy(queries))[0])
+
+
+def test_p4_schedule_matches_pallas(interpret, capsys):
+    """The kernel's schedule at the script's inputs gives the interpreted
+    TPU probe's sum bitwise."""
+    probe_mosaic.probe_scalar_bsearch()
+    _no_fail(capsys)
+    (calls,) = interpret
+    a = probes.probe_inputs()
+    _, total = _bsearch_schedule(a["table"], a["queries"])
+    for out in calls:  # the first call and the timed ones
+        np.testing.assert_array_equal(np.array([total], dtype=np.int32), out)
 
 
 def _assert_close_sums(got: np.ndarray, want: np.ndarray, terms: int,

@@ -16,6 +16,12 @@ Phases; any failure exits non-zero and prints no result line:
      1e-6 * max|mags| * hits (float32 sums taken in another order), also
      at d = 32, where its time is mostly the library lookups (logged
      beside d = 512's);
+     (b) kernel C's dense form (membership_embed_dense) at the same chunk
+         with the float32 and bfloat16 tables build_precompute_paired
+         builds, and at a chunk of each golden dataset (d = 256, the
+         imported float32 table, k = 15 and 21), to rtol 1e-5, atol 1e-6 *
+         max|P| * hits, with its time, device us a launch, byte bound and
+         F.embedding_bag over the same hit rows;
   4. drive the main path through fedrann_tpu_torch.cli.main on ~7,500
      simulated reads (5 Mb genome, 12x, 8 kb, 5% error) with the flags of
      the bench.py workload (k=15, 5% sampling, d=512, 50 neighbors), with every
@@ -25,6 +31,9 @@ Phases; any failure exits non-zero and prints no result line:
      picks it: the fused kernel for rows kept in one block, kernel A and
      B's device-memory path for the others), and the truth recall of pairs
      overlapping >= 4 kb must reach 0.9; the rows stage fused there;
+     (b) the same at --projection-dtype f32 and bf16: the dense form must
+         launch and the sign form must not; project and embed seconds
+         logged beside phase 4's;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
      (a) at the first staging chunk of the 262,144-base bucket (5%
@@ -44,6 +53,15 @@ Phases; any failure exits non-zero and prints no result line:
          such bucket as packed and with INVALID bases marked, with A's
          time and bound there; then the CLI, where A and that path must
          launch, recall of pairs overlapping >= 20 kb;
+     (d) the long reads plus 8 error-free reads of 400,000-1,000,000
+         bases cut from the same genome, which the auto ladder splits:
+         the merged union of their segments through kernel C against the
+         plain union (per-segment read_hits_staged, unique,
+         embed_hits_paired_signs) at phase 3's tolerance; then
+         run_pipeline with phase 4's flags: kernel C launched once per
+         staging chunk and once for the union, every ultra-long read's
+         rows nonzero, recall of pairs involving one and overlapping
+         >= 75 kb;
   6. the capability probes (fedrann_tpu_torch.probes, the counterparts of
      bench/probe_mosaic.py and bench/probe_mosaic2.py): each probe kernel
      against its plain version (integers and the P6-B store bitwise, float
@@ -64,13 +82,21 @@ Phases; any failure exits non-zero and prints no result line:
      one search, whose dependent shared-memory loads are priced at the
      clock cycles a chain of them measures); then the probe entry point
      `all` with its counts reset just before: every probe kernel must
-     launch.
+     launch;
+  7. golden parity: run_pipeline on bench/golden/data (k = 15) and
+     data_k21 (k = 21) with tests/test_golden_parity.py's flags (the
+     reference's library and projection imported): recall@20 >= 0.99,
+     distance MAE < 5e-3 and query coverage 1.0 against overlaps_ref.tsv
+     (fedrann_tpu_torch.eval), min cosine > 0.999 against
+     ref_embeddings.npy, the dense form and the fused staging kernel
+     launched.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
 the runs of its own path: stage_rows and membership_embed from the main
-path's, the other staging kernels summed over the three CLI runs, the
-probes from their entry point), errors, times, the bound (the larger of
+path's, the other staging kernels summed over the three CLI runs,
+membership_embed_dense over the runs of 4b and 7, the probes from their
+entry point), errors, times, the bound (the larger of
 the bytes the function must move over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s and its int32 operations over 16.7 T/s, counted from
 this run's inputs; for the window-code kernels, integer-pipe
@@ -101,6 +127,12 @@ KEEP_ALL_GENOME, KEEP_ALL_READ_LEN = 200_000, 40_000
 STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
 # the staging kernels; a CLI run launches each where the plan picks its path
 STAGE_KERNELS = ("stage_rows", "canonical_sample", "select_candidates_long")
+# kernel C's two forms; a run launches the one of its projection
+EMBED_KERNELS = ("membership_embed", "membership_embed_dense")
+# 5d: reads cut from the long-read genome past the largest bucket (bases)
+ULTRA_READS, ULTRA_MIN, ULTRA_MAX = 8, 400_000, 1_000_000
+GOLDEN = ("data", "data_k21")
+GOLDEN_RECALL, GOLDEN_MAE, GOLDEN_COSINE = 0.99, 5e-3, 0.999
 
 
 COUNTERS: dict = {}
@@ -123,6 +155,8 @@ SOURCES = {
                                "bench/pallas_sort.py:128"),
     "membership_embed": (CSRC + "membership_embed.cu",
                          "bench/pallas_embed.py:277"),
+    "membership_embed_dense": (CSRC + "membership_embed.cu",
+                               "bench/pallas_embed.py:277"),
     "fk_probe_smem_scratch": (CSRC + "probes.cu", "bench/probe_mosaic.py:32"),
     "fk_probe_smem_input": (CSRC + "probes.cu", "bench/probe_mosaic.py:55, "
                             "bench/probe_mosaic2.py:30"),
@@ -541,6 +575,152 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
             True) + f", d={d} " + device_us(lambda: membership_embed(
                 staged, library.codes, signs, mags, targets, out), 10, True)
         + f" [{card}]")
+    report.update(check_dense(staged, library, targets, config, out_dir,
+                              dev, card))
+    return report
+
+
+def check_dense_case(label: str, staged, lib_codes, p_pair, targets,
+                     card: str) -> dict:
+    """Kernel C's dense form against its plain version on one chunk:
+    hit counts bitwise, sums to rtol 1e-5, atol 1e-6 * max|P| * hits (a
+    float32 table, or bfloat16 rows whose nonzeros share one magnitude, so
+    the plain version's gl +- gr are exact: float32 sums in another order).
+    Logs its time, device us a launch and bound (each distinct library row
+    hit read once; every hit's row read, no reuse, as an upper figure) and
+    F.embedding_bag over the same hit rows, the accumulation half alone.
+    Returns its report (library_ms None: no one call does both halves)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedrann_tpu_torch.kmers.membership import read_hits_staged
+    from fedrann_tpu_torch.project.embed import (
+        _membership_embed_dense_plain,
+        membership_embed_dense,
+    )
+
+    r, d = staged.shape[0], p_pair.shape[1] // 2
+    out = torch.zeros((2 * r, d), device=staged.device)
+    out_p = torch.zeros_like(out)
+    before = membership_embed_dense.launches
+    n_hits = membership_embed_dense(staged, lib_codes, p_pair, targets, out)
+    torch.cuda.synchronize()
+    if membership_embed_dense.launches != before + 1:
+        fail(f"{label}: the dense form did not launch")
+    n_hits_p = _membership_embed_dense_plain(staged, lib_codes, p_pair,
+                                             targets, out_p)
+    if not torch.equal(n_hits, n_hits_p):
+        fail(f"{label}: hit counts differ from the plain version")
+    atol = 1e-6 * float(p_pair.float().abs().max()) * max(
+        int(n_hits.max()), 1)
+    err = float((out - out_p).abs().max())
+    if not (torch.isfinite(out).all()
+            and torch.allclose(out, out_p, rtol=1e-5, atol=atol)):
+        fail(f"{label} differs from its plain version: max abs error "
+             f"{err} (atol {atol})")
+    lib_size = lib_codes.shape[0]
+    hits, _ = read_hits_staged(staged, lib_codes)
+    rows = torch.where(hits >= lib_size, hits - lib_size, hits)  # 2L -> L
+    n_hit = int((hits < 2 * lib_size).sum())
+    distinct = int(torch.unique(rows[hits < 2 * lib_size]).numel())
+    row_bytes = 2 * d * p_pair.element_size()
+    fixed = nbytes(staged, targets, lib_codes, out, n_hits)
+    b = bound(fixed + distinct * row_bytes, n_hit * 2 * d)
+    no_reuse = bound(fixed + n_hit * row_bytes)["bound_ms"]
+
+    def kernel():
+        return membership_embed_dense(staged, lib_codes, p_pair, targets,
+                                      out)
+
+    rep = dict(max_abs_err=err, ms=time_cuda(kernel, 10),
+               plain_ms=time_cuda(lambda: _membership_embed_dense_plain(
+                   staged, lib_codes, p_pair, targets, out_p), 3),
+               library_ms=None, **b)
+    bag_ms = time_cuda(lambda: F.embedding_bag(rows, p_pair, mode="sum"), 10)
+    log(f"{label}: rows {tuple(staged.shape)}, library {lib_size}, d={d} "
+        f"{p_pair.dtype}; {n_hit} hits on {distinct} distinct rows; max abs "
+        f"error {err} (atol {atol}); {rep['ms']:.4f} ms vs plain "
+        f"{rep['plain_ms']:.4f} ms, device {device_us(kernel, 10, True)} us "
+        f"per launch; bound {rep['bound_ms']:.5f} ms ({rep['bound_by']}, "
+        f"{100 * rep['bound_ms'] / rep['ms']:.1f}% of it; every hit's row "
+        f"read: {no_reuse:.5f} ms, {100 * no_reuse / rep['ms']:.1f}%) "
+        f"[{card}]")
+    log(f"{label}: F.embedding_bag(mode='sum') over the same hit rows (the "
+        f"accumulation half alone, no half swap, no lookups): {bag_ms:.4f} "
+        f"ms [{card}]")
+    return rep
+
+
+def golden_config(name: str, out_dir: str):
+    """tests/test_golden_parity.py's run on bench/golden/<name>: the
+    reference's library and projection imported, 20 neighbors."""
+    from fedrann_tpu_torch.cli import config_from_args
+
+    data = os.path.join(HERE, "bench", "golden", name)
+    meta = os.path.join(data, "meta.json")
+    k = 15
+    if os.path.exists(meta):
+        with open(meta) as f:
+            k = int(json.load(f)["k"])
+    return config_from_args([
+        "-i", os.path.join(data, "reads.fasta.gz"), "-o", out_dir,
+        "-k", str(k),
+        "--import-library", os.path.join(data, "fwd_kmer_library.fasta"),
+        "--import-projection", os.path.join(data, "precompute.npz"),
+        "--nndescent-n-neighbors", "20", "--seed", "20260817"])
+
+
+def check_dense(staged, library, targets, config, out_dir: str, dev,
+                card: str) -> dict:
+    """Phase 3b: kernel C's dense form at the main path's chunk with the
+    float32 and bfloat16 tables build_precompute_paired builds there, then
+    at the first staging chunk of each golden dataset's fullest bucket
+    (d = 256, the
+    imported float32 table, k = 15 and 21, keep_all). The report is the
+    float32 case's."""
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.compat import load_reference_library_mapping
+    from fedrann_tpu_torch.kmers.codec import sample_threshold
+    from fedrann_tpu_torch.kmers.library import KmerLibrary
+    from fedrann_tpu_torch.kmers.membership import stage_candidates
+    from fedrann_tpu_torch.project.srp import build_precompute_paired
+
+    report = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p_pair = build_precompute_paired(
+            library.counts, config.embedding_dimension,
+            config.projection_seed, config.projection_density, dtype=dtype)
+        rep = check_dense_case(f"membership_embed_dense {name}", staged,
+                               library.codes, p_pair, targets, card)
+        if name == "f32":
+            report["membership_embed_dense"] = rep
+        else:
+            log_kernel("membership_embed_dense_bf16", rep, card)
+        del p_pair
+    for name in GOLDEN:
+        cfg = golden_config(name, os.path.join(out_dir, name))
+        packed = pipeline.load_reads(cfg)
+        bucket = max(packed.buckets, key=lambda b: b.bases.shape[0])
+        rows = pipeline.chunk_rows(bucket.length, bucket.bases.shape[0], cfg)
+        hit_buffer, keep_all, block_cap = pipeline.staging_params(
+            bucket.length, cfg)
+        if not keep_all:
+            fail(f"golden {name}: an imported library must stage keep_all")
+        staged_g, _ = stage_candidates(
+            torch.from_numpy(bucket.bases[:rows]).to(dev), cfg.kmer_size,
+            hit_buffer, keep_all, cfg.seed,
+            sample_threshold(cfg.kmer_sample_fraction), block_cap)
+        lib, perm = load_reference_library_mapping(cfg.import_library,
+                                                   cfg.kmer_size)
+        lib = KmerLibrary(codes=lib.codes.to(dev), counts=lib.counts.to(dev))
+        p_pair = pipeline.build_projection(cfg, lib, perm, dev)
+        ids = torch.arange(staged_g.shape[0], dtype=torch.int64, device=dev)
+        log_kernel(f"membership_embed_dense_golden_{name}", check_dense_case(
+            f"membership_embed_dense golden {name} (k={cfg.kmer_size})",
+            staged_g, lib.codes, p_pair,
+            torch.stack([2 * ids, 2 * ids + 1], dim=1), card), card)
     return report
 
 
@@ -1128,7 +1308,8 @@ def drive_probes() -> dict:
 
 def stage_paths(sim, flags: list[str], dev) -> set[str]:
     """The staging kernels (names in COUNTERS) that the plan picks for the
-    buckets of `sim`'s reads staged with `flags`: the fused kernel for a
+    buckets of `sim`'s reads packed and staged with `flags` as the pipeline
+    does (a read past the largest bucket split): the fused kernel for a
     bucket whose rows one block holds, else kernel A and kernel B's
     device-memory path."""
     from fedrann_tpu_torch import pipeline
@@ -1140,7 +1321,8 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
 
     config = config_from_args(["-i", "-", "-o", "-", *flags])
     packed = pack_reads([FastxRecord(n, q) for n, q in
-                         zip(sim.names, sim.sequences)], None)
+                         zip(sim.names, sim.sequences)], None,
+                        split_overlap=config.kmer_size - 1)
     paths = set()
     for b in packed.buckets:
         paths.update(("canonical_sample", "select_candidates_long")
@@ -1153,12 +1335,14 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
 
 
 def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
-              dev, flags: list[str] = FLAGS) -> dict:
+              dev, flags: list[str] = FLAGS,
+              embed: str = "membership_embed"):
     """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
     kernel's count reset just before; every kernel must launch, each
     staging kernel exactly when the plan picks its path for a bucket of
-    the reads. Check overlaps.tsv and the truth recall of pairs
-    overlapping >= min_overlap. Returns the launch counts."""
+    the reads, and of kernel C's two forms `embed` only. Check overlaps.tsv
+    and the truth recall of pairs overlapping >= min_overlap. Returns the
+    launch counts and the stage seconds."""
     paths = stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
@@ -1173,11 +1357,7 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
                 for name, (fn, attr) in COUNTERS.items()}
     if rc != 0:
         fail(f"cli.main returned {rc}")
-    for name, n in launches.items():
-        want = name in paths or name not in STAGE_KERNELS
-        if (n > 0) != want:
-            fail(f"kernel {name} was launched {n} times by the main path, "
-                 f"expected {'some' if want else 'none'}")
+    check_launches(launches, paths, embed, "the main path")
     log(f"main path launches: {launches}")
 
     with open(os.path.join(out_dir, "metrics.json")) as f:
@@ -1211,7 +1391,210 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
         f"{len(truth)} pairs")
     if not truth or recall < MIN_RECALL:
         fail(f"truth recall {recall:.4f} below {MIN_RECALL}")
+    return launches, secs
+
+
+def check_launches(launches: dict, paths: set, embed: str,
+                   what: str) -> None:
+    """Each staging kernel launched exactly where the plan picks its path
+    (`paths`), kernel C in the projection's form `embed` only, and every
+    other kernel launched."""
+    for name, n in launches.items():
+        want = (name in paths if name in STAGE_KERNELS
+                else name == embed if name in EMBED_KERNELS else True)
+        if (n > 0) != want:
+            fail(f"kernel {name} was launched {n} times by {what}, "
+                 f"expected {'some' if want else 'none'}")
+
+
+def ultra_long_reads(sim):
+    """Phase 5d's reads: `sim` plus ULTRA_READS error-free slices of its
+    genome of ULTRA_MIN to ULTRA_MAX bases, every other one reverse
+    complemented, as one SimulatedReads (so truth_overlaps covers them)."""
+    import numpy as np
+
+    from fedrann_tpu_torch.sim import SimulatedReads, _revcomp
+
+    rng = np.random.default_rng(SIM_SEED + 5)
+    names, seqs = list(sim.names), list(sim.sequences)
+    starts, ends, strands = (list(sim.starts), list(sim.ends),
+                             list(sim.strands))
+    for i in range(ULTRA_READS):
+        length = int(rng.integers(ULTRA_MIN, ULTRA_MAX + 1))
+        start = int(rng.integers(0, len(sim.genome) - length))
+        seq = sim.genome[start : start + length]
+        names.append(f"ultra_{i}")
+        seqs.append(_revcomp(seq) if i % 2 else seq)
+        starts.append(start)
+        ends.append(start + length)
+        strands.append(i % 2)
+    return SimulatedReads(names, seqs, np.asarray(starts, np.int64),
+                          np.asarray(ends, np.int64),
+                          np.asarray(strands, np.int8), sim.genome)
+
+
+def check_split_reads(sim, out_dir: str, dev, card: str) -> dict:
+    """Phase 5d: the long reads plus ultra-long reads, which the auto
+    ladder (capped at 262,144 bases) splits. First, on the card, the
+    merged union of the split reads (split_union_rows, then kernel C)
+    against the plain union (per-segment read_hits_staged, unique,
+    embed_hits_paired_signs) at phase 3's tolerance. Then run_pipeline
+    with phase 4's flags and the counts reset just before: kernel C
+    launched once per staging chunk and once per union group, every
+    ultra-long read's fwd and rev rows nonzero, and the truth recall of
+    pairs involving an ultra-long read that overlap >= LONG_MIN_OVERLAP.
+    Returns the launch counts."""
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.kmers.library import build_library
+    from fedrann_tpu_torch.project.embed import membership_embed
+    from fedrann_tpu_torch.project.srp import build_precompute_signs
+    from fedrann_tpu_torch.sim import write_fasta
+
+    reads = ultra_long_reads(sim)
+    fasta = os.path.join(out_dir, "ultra.fasta")
+    os.makedirs(out_dir, exist_ok=True)
+    write_fasta(fasta, reads.names, reads.sequences)
+    config = config_from_args(["-i", fasta, "-o", os.path.join(out_dir, "o"),
+                               *FLAGS])
+    packed = pipeline.load_reads(config)
+    ultra = list(range(len(sim.names), len(reads.names)))
+    if packed.split_read_ids is None or sorted(
+            packed.split_read_ids.tolist()) != ultra:
+        fail(f"5d: split reads {packed.split_read_ids}, want {ultra}")
+    staged = pipeline.stage_reads(packed, config, dev)
+    library = build_library([b.staged for b in staged],
+                            config.kmer_min_multiplicity,
+                            config.kmer_sample_fraction, config.seed)
+    proj = build_precompute_signs(library.counts, config.embedding_dimension,
+                                  config.projection_seed,
+                                  config.projection_density)
+    split = torch.tensor(ultra, dtype=torch.int64, device=dev)
+    rows = pipeline.split_union_rows(staged, split)
+    out = torch.zeros((2 * len(reads.names), config.embedding_dimension),
+                      device=dev)
+    before = membership_embed.launches
+    n_hits = membership_embed(rows, library.codes, *proj,
+                              torch.stack([2 * split, 2 * split + 1], dim=1),
+                              out)
+    torch.cuda.synchronize()
+    if membership_embed.launches != before + 1:
+        fail("5d: kernel C did not launch on the merged rows")
+    fwd, rev = pipeline._split_union_plain(staged, split, library.codes,
+                                           proj, config.embedding_dimension)
+    atol = 1e-6 * float(proj[1].abs().max()) * max(int(n_hits.max()), 1)
+    err = max(float((out[2 * split] - fwd).abs().max()),
+              float((out[2 * split + 1] - rev).abs().max()))
+    if not (torch.allclose(out[2 * split], fwd, rtol=1e-5, atol=atol)
+            and torch.allclose(out[2 * split + 1], rev, rtol=1e-5,
+                               atol=atol)):
+        fail(f"5d: the merged union differs from the plain union: max abs "
+             f"error {err} (atol {atol})")
+    log(f"5d union: {len(ultra)} split reads of "
+        f"{[len(reads.sequences[i]) for i in ultra]} bases, merged rows "
+        f"{tuple(rows.shape)}, hits {n_hits.tolist()}; against the plain "
+        f"union max abs error {err} (atol {atol})")
+    chunks = sum(-(-b.staged.shape[0] // b.rows) for b in staged)
+    groups = len(pipeline.split_union_groups(staged, split,
+                                             config.window_batch))
+    del staged, rows, proj, out
+
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(config, dev)
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in COUNTERS.items()}
+    check_launches(launches, stage_paths(reads, FLAGS, dev),
+                   "membership_embed", "the split-read run")
+    if launches["membership_embed"] != chunks + groups:
+        fail(f"5d: kernel C launched {launches['membership_embed']} times, "
+             f"want {chunks} staging chunks + {groups} union groups")
+    norms = res.embeddings[[r for i in ultra for r in (2 * i, 2 * i + 1)]
+                           ].norm(dim=1)
+    if not (torch.isfinite(res.embeddings).all() and bool((norms > 0).all())):
+        fail(f"5d: an ultra-long read embeds as zero: {norms.tolist()}")
+    nbrs: dict[int, set] = {}
+    for row, targets in enumerate(res.neighbor_indices):
+        nbrs.setdefault(row // 2, set()).update(int(t) // 2 for t in targets)
+    truth = [(a, b) for a, b in reads.truth_overlaps(LONG_MIN_OVERLAP)
+             if a in ultra or b in ultra]
+    found = sum(1 for a, b in truth if b in nbrs[a] or a in nbrs[b])
+    recall = found / max(len(truth), 1)
+    log(f"5d run: {len(reads.names)} reads ({len(ultra)} split) in "
+        f"{wall:.2f} s; launches {launches} ({chunks} staging chunks, "
+        f"{groups} union groups of at most {config.window_batch} slots); "
+        f"stage seconds "
+        + ", ".join(f"{s} {res.metrics[s]['seconds']:.3f}" for s in STAGES)
+        + f"; recall of pairs with an ultra-long read overlapping >= "
+        f"{LONG_MIN_OVERLAP}: {recall:.4f} over {len(truth)} pairs [{card}]")
+    if not truth or recall < MIN_RECALL:
+        fail(f"5d: truth recall {recall:.4f} below {MIN_RECALL}")
     return launches
+
+
+def check_golden(out_dir: str, dev, card: str) -> int:
+    """Phase 7: run_pipeline on each golden dataset with
+    tests/test_golden_parity.py's flags and the counts reset just before:
+    recall@20 >= 0.99, distance MAE < 5e-3 and query coverage 1.0 against
+    the reference's overlaps_ref.tsv (the port's eval.py), min cosine >
+    0.999 against ref_embeddings.npy matched by name and strand, the dense
+    form and the fused staging kernel (keep_all) launched. Returns the
+    dense form's launches."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.eval import OverlapTable, neighbor_recall
+
+    dense = 0
+    for name in GOLDEN:
+        data = os.path.join(HERE, "bench", "golden", name)
+        config = golden_config(name, os.path.join(out_dir, name))
+        for fn, attr in COUNTERS.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(config, dev)
+        wall = time.perf_counter() - t0
+        launches = {n: getattr(fn, attr)
+                    for n, (fn, attr) in COUNTERS.items()}
+        check_launches(launches, {"stage_rows"}, "membership_embed_dense",
+                       f"the golden {name} run")
+        dense += launches["membership_embed_dense"]
+        rep = neighbor_recall(
+            OverlapTable.read(os.path.join(data, "overlaps_ref.tsv")),
+            OverlapTable.read(res.overlaps_path), k=20)
+        ref = np.load(os.path.join(data, "ref_embeddings.npy"))
+        with open(os.path.join(data, "ref_row_names.txt")) as f:
+            ref_names = [ln.rstrip("\n") for ln in f]
+        ref_row = {(ref_names[i], i % 2): i for i in range(len(ref_names))}
+        ours = res.embeddings.cpu().numpy()
+        sims = []
+        for r, read in enumerate(res.names):
+            for strand in (0, 1):
+                a, b = ours[2 * r + strand], ref[ref_row[(read, strand)]]
+                na, nb = np.linalg.norm(a), np.linalg.norm(b)
+                if na == 0 or nb == 0:
+                    if not na == nb == 0:
+                        fail(f"golden {name}: {read} strand {strand} is "
+                             "zero on one side only")
+                    continue
+                sims.append(float(a @ b / (na * nb)))
+        log(f"golden {name} (k={config.kmer_size}): {rep}; min cosine "
+            f"{min(sims):.7f} over {len(sims)} rows; {wall:.2f} s; launches "
+            f"{launches}; stage seconds " + ", ".join(
+                f"{s} {res.metrics[s]['seconds']:.3f}" for s in STAGES)
+            + f" [{card}]")
+        if not (rep.query_coverage == 1.0
+                and rep.recall_at_k >= GOLDEN_RECALL
+                and rep.distance_mae < GOLDEN_MAE
+                and min(sims) > GOLDEN_COSINE
+                and torch.isfinite(res.embeddings).all()):
+            fail(f"golden {name}: {rep}, min cosine {min(sims)}")
+    return dense
 
 
 def profile_cli(fasta: str, out_dir: str, card: str, label: str) -> None:
@@ -1310,7 +1693,10 @@ def main() -> None:
             select_candidates,
             stage_candidates,
         )
-        from fedrann_tpu_torch.project.embed import membership_embed
+        from fedrann_tpu_torch.project.embed import (
+            membership_embed,
+            membership_embed_dense,
+        )
         from fedrann_tpu_torch.sim import simulate_reads, write_fasta
     except ImportError as e:
         fail(f"cannot import the port from {HERE}: {e}")
@@ -1319,7 +1705,8 @@ def main() -> None:
         "stage_rows": (stage_candidates, "launches"),
         "canonical_sample": (canonical_sample, "launches"),
         "select_candidates_long": (select_candidates, "long_launches"),
-        "membership_embed": (membership_embed, "launches")})
+        "membership_embed": (membership_embed, "launches"),
+        "membership_embed_dense": (membership_embed_dense, "launches")})
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -1362,10 +1749,22 @@ def main() -> None:
         for name, r in report.items():
             log_kernel(name, r, card)
 
-        launches = drive_cli(fasta, os.path.join(tmp, "out"), sim,
-                             MIN_OVERLAP, card, dev)
+        launches, secs = drive_cli(fasta, os.path.join(tmp, "out"), sim,
+                                   MIN_OVERLAP, card, dev)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "prof"), card, "main path")
+        # 4b: the main path with dense paired tables: kernel C's dense form
+        dense_launches = 0
+        for dtype in ("f32", "bf16"):
+            runs, secs_d = drive_cli(
+                fasta, os.path.join(tmp, f"out_{dtype}"), sim, MIN_OVERLAP,
+                card, dev, [*FLAGS, "--projection-dtype", dtype],
+                "membership_embed_dense")
+            dense_launches += runs["membership_embed_dense"]
+            log(f"4b --projection-dtype {dtype}: project "
+                f"{secs_d['project']:.3f} s, embed {secs_d['embed']:.3f} s; "
+                f"phase 4 (signs): project {secs['project']:.3f} s, embed "
+                f"{secs['embed']:.3f} s [{card}]")
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,
@@ -1378,10 +1777,12 @@ def main() -> None:
             f"{time.perf_counter() - t0:.1f} s")
         report.update(check_long_rows(sim, fasta, os.path.join(tmp, "lchk"),
                                       dev, card))
-        long_launches = drive_cli(fasta, os.path.join(tmp, "lout"), sim,
-                                  LONG_MIN_OVERLAP, card, dev)
+        long_launches, _ = drive_cli(fasta, os.path.join(tmp, "lout"), sim,
+                                     LONG_MIN_OVERLAP, card, dev)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "lprof"), card, "long reads")
+        # 5d: ultra-long reads past the largest bucket, split and merged
+        check_split_reads(sim, os.path.join(tmp, "split"), dev, card)
 
         # 5c: keep_all reads past one block's shared memory, so that a CLI
         # run drives kernel B's device-memory path
@@ -1397,11 +1798,16 @@ def main() -> None:
         check_keep_all_rows(sim, flags, dev, card)
         log(f"keep_all run: {len(sim.names)} reads of ~{KEEP_ALL_READ_LEN} "
             "bases at --kmer-sample-fraction 1.0")
-        keep_all_launches = drive_cli(
+        keep_all_launches, _ = drive_cli(
             fasta, os.path.join(tmp, "kout"), sim, KEEP_ALL_READ_LEN // 2,
             card, dev, flags)
         for name in ("canonical_sample", "select_candidates_long"):
             launches[name] += long_launches[name] + keep_all_launches[name]
+
+        # 7: golden parity against the reference's own artifacts
+        dense_launches += check_golden(os.path.join(tmp, "golden"), dev,
+                                       card)
+        launches["membership_embed_dense"] = dense_launches
 
     report.update(check_probes(dev, card))
     launches.update(drive_probes())

@@ -51,6 +51,10 @@ _SIGNATURES = {
     # out, n_hits, start, n_buckets, stream
     "fk_membership_embed": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64,
                             _P, _P, _P, _P, _I64, _P],
+    # staged, rows, h, lib, lib_size, table, is_bf16, d, targets, out,
+    # n_hits, start, n_buckets, stream
+    "fk_membership_embed_dense": [_P, _I64, _I64, _P, _I64, _P, _I32, _I64,
+                                  _P, _P, _P, _P, _I64, _P],
     # probes.cu: n, out, stream
     "fk_probe_smem_scratch": [_I32, _P, _P],
     # x, steps, rb, hb, sums, n_sums, stream

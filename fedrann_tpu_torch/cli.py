@@ -77,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--knn-ivf-spill", type=int, default=2)
     p.add_argument("--projection-dtype", choices=("signs", "bf16", "f32"),
                    default="signs",
-                   help="Projection-table storage (only 'signs' is ported).")
+                   help="Projection-table storage: 2-bit signs, or a dense "
+                        "bf16/f32 paired table.")
     p.add_argument("--knn-hbm-budget", type=str, default=None,
                    help="Device-memory budget for the k-NN (not ported).")
     p.add_argument("--knn-transfer", choices=("u16", "f32"), default="u16",
@@ -91,8 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--length-buckets", type=str, default="auto",
                    help="Comma-separated padded read-length buckets, or "
                         "'auto' to derive a pow2 ladder from the input.")
-    p.add_argument("--import-library", type=str, default=None)
-    p.add_argument("--import-projection", type=str, default=None)
+    p.add_argument("--import-library", type=str, default=None,
+                   help="A jellyfish-dump k-mer library (>count, k-mer) to "
+                        "use instead of sampling one; stages every window.")
+    p.add_argument("--import-projection", type=str, default=None,
+                   help="A scipy .npz precompute matrix to use as the "
+                        "projection (float32).")
     p.add_argument("--no-pack-cache", action="store_true",
                    help="Accepted for parity; the port keeps no pack cache.")
     p.add_argument("--profile", action="store_true")

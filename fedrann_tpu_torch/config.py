@@ -3,9 +3,9 @@
 same fields.
 
 Fields that select paths this port does not have yet (IVF, the HBM budget,
-multi-host launch, imports, dense projections, profiling, checkpoints,
-feature-matrix output) are kept so the CLI parses every flag; the pipeline
-rejects them with NotImplementedError naming the ROADMAP item.
+multi-host launch, profiling, checkpoints, feature-matrix output) are kept
+so the CLI parses every flag; the pipeline rejects them with
+NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ class PipelineConfig:
     knn_sharded: str = "auto"
     knn_hbm_budget: Optional[int] = None  # out-of-core valve (not ported)
     knn_transfer: str = "u16"             # distance snapping grid: u16 | f32
-    projection_dtype: str = "signs"       # only "signs" is ported
+    projection_dtype: str = "signs"       # "signs" | "bf16" | "f32" (dense)
     profile: bool = False
     checkpoint: bool = False
     mesh_shape: Optional[Sequence[int]] = None

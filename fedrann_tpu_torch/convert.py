@@ -1,15 +1,19 @@
-"""numpy-only converters from the JAX package's state to this port's, so a
-test can feed both packages the same state and compare their outputs.
+"""Converters from the JAX package's state (as numpy arrays; no JAX import)
+to this port's, so a test can feed both packages the same state and
+compare their outputs.
 
 - staged u32 word planes (`fedrann_tpu.kmers.codec.pack_strand` layouts)
   -> int64 slots (canon << 1) | is_fwd, PAD_SLOT for the all-ones sentinel;
 - library u32 word planes + counts -> int64 codes + int64 counts;
-- (signs u32, mags) -> (signs int32 bit patterns, mags float32).
+- (signs u32, mags) -> (signs int32 bit patterns, mags float32);
+- a dense paired table (float32, or ml_dtypes bfloat16) -> a torch tensor
+  of the same dtype, bit for bit.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 PAD_SLOT = np.int64((1 << 63) - 1)
 _SENT = np.uint32(0xFFFFFFFF)
@@ -51,3 +55,17 @@ def signs_to_port(signs, mags) -> tuple[np.ndarray, np.ndarray]:
     int32-bit-pattern signs and float32 mags."""
     return (np.array(signs, dtype=np.uint32).view(np.int32),
             np.array(mags, dtype=np.float32))
+
+
+def paired_table_to_port(p_pair) -> torch.Tensor:
+    """build_precompute_paired / pair_projection output -> a torch tensor
+    of the same bits: float32 as is, bfloat16 through its uint16 bit
+    pattern (torch.from_numpy takes no ml_dtypes.bfloat16)."""
+    arr = np.asarray(p_pair)
+    if arr.dtype == np.float32:
+        return torch.from_numpy(arr.copy())
+    if arr.dtype.name != "bfloat16":
+        raise ValueError(f"a paired table is float32 or bfloat16, not "
+                         f"{arr.dtype}")
+    bits = np.array(arr).view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16)

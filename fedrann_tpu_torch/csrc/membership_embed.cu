@@ -53,6 +53,24 @@
 // atomics. Rows with target -1 (padding reads) are not written. Past
 // 16 x 256 columns the groups are taken in chunks, each redoing the row's
 // lookups.
+//
+// The dense form (`fk_membership_embed_dense`) computes what `merge_embed`
+// itself computes: the projection is a dense paired table (L+1, 2d) of
+// float32 or bfloat16 entries, row j = [P[j] | P[j+L]] (merge_embed's
+// q_cat; srp.build_precompute_paired, or an imported projection), summed
+// per hit as the plain version's embed_hits_paired does. It shares the
+// prefix table, the lookups and the hit lists above; only the
+// accumulation differs. Every hit now reads a whole 2d-wide row (4,096
+// bytes at d = 512 in float32), so the work no longer follows the
+// nonzeros and the bound is the bytes of the rows: a thread owns 16
+// bytes of consecutive columns (4 float32 or 8 bfloat16) of both halves
+// and walks its part of each tile's hit list in slot order with UNROLL
+// hits' 16-byte loads in flight (entry by entry where d is not a
+// multiple of 4 or 8), adding left to fwd and right to rev (swapped for a
+// reverse-strand hit) in float32 registers. After the last tile the parts
+// are added in part order through shared memory, so every column's order
+// is fixed and two launches give the same bytes. Past 256 threads'
+// columns, the columns are taken in chunks, each redoing the lookups.
 
 #include "common.cuh"
 
@@ -119,6 +137,95 @@ __device__ __forceinline__ void add_fields(uint32_t word, float m,
   }
 }
 
+// Steps 1-2 for the tile of slots [t0, t0 + TILE) of staged row `row` (h
+// slots): its library hits, in slot order, into hit_list as
+// j | swap << 31; returns their count. Every thread of the block calls it;
+// it ends with a barrier, after which hit_list is complete. *scan picks
+// the scratch array (block_scan's rule for calls in a row).
+__device__ __forceinline__ int tile_hits(
+    const int64_t* __restrict__ row, int64_t h, int64_t t0, bool aligned,
+    const int64_t* __restrict__ lib, int64_t lib_size,
+    const int32_t* __restrict__ start, int64_t n_buckets, int shift,
+    uint32_t* hit_list, int (*scratch)[33], int* scan) {
+  const int lane = threadIdx.x & 31;
+  // 1. lookups of this thread's SLOTS consecutive slots
+  const int64_t i0 = t0 + SLOTS * threadIdx.x;
+  int64_t v[SLOTS];
+  if (aligned && i0 + SLOTS <= h) {
+    const longlong2* p = reinterpret_cast<const longlong2*>(row + i0);
+    const longlong2 x = p[0], y = p[1];
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = y.x;
+    v[3] = y.y;
+  } else {
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+      v[s] = i0 + s < h ? row[i0 + s] : PAD_SLOT;
+  }
+  int64_t prev = __shfl_up_sync(0xffffffffu, v[SLOTS - 1], 1);
+  if (lane == 0 && i0 < h) prev = i0 > 0 ? row[i0 - 1] : PAD_SLOT;
+  // Lookups through the prefix table: the code's bucket names the
+  // library range [start[p], start[p + 1]) that can hold it (~0.6
+  // entries), searched in lockstep for the SLOTS slots so each step's
+  // loads are issued together. Padding and repeats are not looked up.
+  int64_t code[SLOTS];
+  int32_t at[SLOTS], end[SLOTS];
+  bool found[SLOTS];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    code[s] = v[s] >> 1;
+    const int64_t left = s == 0 ? prev : v[s - 1];
+    const bool look = lib_size > 0 && v[s] != PAD_SLOT && v[s] != left &&
+                      i0 + s < h;
+    const int64_t p = look ? code[s] >> shift : n_buckets;
+    at[s] = p < n_buckets ? __ldg(start + p) : 0;
+    end[s] = p < n_buckets ? __ldg(start + p + 1) : 0;
+    found[s] = false;
+  }
+  bool busy = true;
+  while (busy) {  // lower bound of code in [at, end); found if seen
+    busy = false;
+    int64_t probe[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+      probe[s] = at[s] < end[s]
+                     ? __ldg(lib + at[s] + ((end[s] - at[s]) >> 1))
+                     : code[s];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      if (at[s] < end[s]) {
+        const int32_t half = (end[s] - at[s]) >> 1;
+        if (probe[s] < code[s]) {
+          at[s] += half + 1;
+        } else {
+          found[s] |= probe[s] == code[s];
+          end[s] = at[s] + half;
+        }
+        busy |= at[s] < end[s];
+      }
+    }
+  }
+  uint32_t entry[SLOTS];
+  int own = 0;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    entry[s] = found[s] ? static_cast<uint32_t>(at[s]) |
+                              ((v[s] & 1) ? 0u : 0x80000000u)
+                        : 0xFFFFFFFFu;
+    own += found[s];
+  }
+  // 2. order-preserving compaction of the tile's hits
+  int count;
+  int pos = block_scan(own, scratch[*scan], &count);
+  *scan ^= 1;
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s)
+    if (entry[s] != 0xFFFFFFFFu) hit_list[pos++] = entry[s];
+  __syncthreads();
+  return count;
+}
+
 __global__ void __launch_bounds__(THREADS, 4)
 membership_embed_kernel(const int64_t* __restrict__ staged,
                         int64_t h, const int64_t* __restrict__ lib,
@@ -132,7 +239,6 @@ membership_embed_kernel(const int64_t* __restrict__ staged,
   extern __shared__ float sums[];  // parts x (fwd, rev) x cols
   __shared__ uint32_t hit_list[TILE];
   __shared__ int scratch[2][33];
-  const int lane = threadIdx.x & 31;
   const int64_t n_groups = (d + 15) / 16;
   const int shift = lib_size > 0 ? bucket_shift(lib, lib_size, n_buckets) : 0;
 
@@ -152,81 +258,9 @@ membership_embed_kernel(const int64_t* __restrict__ staged,
     __syncthreads();
     int total = 0;
     for (int64_t t0 = 0; t0 < h; t0 += TILE) {
-      // 1. lookups of this thread's SLOTS consecutive slots
-      const int64_t i0 = t0 + SLOTS * threadIdx.x;
-      int64_t v[SLOTS];
-      if (aligned && i0 + SLOTS <= h) {
-        const longlong2* p = reinterpret_cast<const longlong2*>(row + i0);
-        const longlong2 x = p[0], y = p[1];
-        v[0] = x.x;
-        v[1] = x.y;
-        v[2] = y.x;
-        v[3] = y.y;
-      } else {
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s)
-          v[s] = i0 + s < h ? row[i0 + s] : PAD_SLOT;
-      }
-      int64_t prev = __shfl_up_sync(0xffffffffu, v[SLOTS - 1], 1);
-      if (lane == 0 && i0 < h) prev = i0 > 0 ? row[i0 - 1] : PAD_SLOT;
-      // Lookups through the prefix table: the code's bucket names the
-      // library range [start[p], start[p + 1]) that can hold it (~0.6
-      // entries), searched in lockstep for the SLOTS slots so each step's
-      // loads are issued together. Padding and repeats are not looked up.
-      int64_t code[SLOTS];
-      int32_t at[SLOTS], end[SLOTS];
-      bool found[SLOTS];
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s) {
-        code[s] = v[s] >> 1;
-        const int64_t left = s == 0 ? prev : v[s - 1];
-        const bool look = lib_size > 0 && v[s] != PAD_SLOT && v[s] != left &&
-                          i0 + s < h;
-        const int64_t p = look ? code[s] >> shift : n_buckets;
-        at[s] = p < n_buckets ? __ldg(start + p) : 0;
-        end[s] = p < n_buckets ? __ldg(start + p + 1) : 0;
-        found[s] = false;
-      }
-      bool busy = true;
-      while (busy) {  // lower bound of code in [at, end); found if seen
-        busy = false;
-        int64_t probe[SLOTS];
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s)
-          probe[s] = at[s] < end[s]
-                         ? __ldg(lib + at[s] + ((end[s] - at[s]) >> 1))
-                         : code[s];
-#pragma unroll
-        for (int s = 0; s < SLOTS; ++s) {
-          if (at[s] < end[s]) {
-            const int32_t half = (end[s] - at[s]) >> 1;
-            if (probe[s] < code[s]) {
-              at[s] += half + 1;
-            } else {
-              found[s] |= probe[s] == code[s];
-              end[s] = at[s] + half;
-            }
-            busy |= at[s] < end[s];
-          }
-        }
-      }
-      uint32_t entry[SLOTS];
-      int own = 0;
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s) {
-        entry[s] = found[s] ? static_cast<uint32_t>(at[s]) |
-                                  ((v[s] & 1) ? 0u : 0x80000000u)
-                            : 0xFFFFFFFFu;
-        own += found[s];
-      }
-      // 2. order-preserving compaction of the tile's hits
-      int count;
-      int pos = block_scan(own, scratch[scan], &count);
-      scan ^= 1;
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s)
-        if (entry[s] != 0xFFFFFFFFu) hit_list[pos++] = entry[s];
-      __syncthreads();
+      const int count = tile_hits(row, h, t0, aligned, lib, lib_size, start,
+                                  n_buckets, shift, hit_list, scratch,
+                                  &scan);
       total += count;
       // 3. accumulation over this part's hits, UNROLL loads in flight
       if (part < parts) {
@@ -275,6 +309,160 @@ membership_embed_kernel(const int64_t* __restrict__ staged,
   }
 }
 
+// The 16 bytes of table entries p[0, n) (n <= 16 / sizeof(T); entries past
+// n read as zero): one 16-byte load when `vec`, else entry by entry. T is
+// float, or uint16_t holding a bfloat16's bits.
+template <typename T>
+__device__ __forceinline__ uint4 load_cols(const T* __restrict__ p, int n,
+                                           bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      w[i] = i < n ? __float_as_uint(__ldg(p + i)) : 0u;
+    } else {
+      const uint32_t a = 2 * i < n ? __ldg(p + 2 * i) : 0u;
+      const uint32_t b = 2 * i + 1 < n ? __ldg(p + 2 * i + 1) : 0u;
+      w[i] = a | (b << 16);
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// acc[i] += entry i of the 16 bytes `raw`, in float32 (a bfloat16 is the
+// high half of its float32).
+template <typename T>
+__device__ __forceinline__ void add_cols(uint4 raw, float* acc) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      acc[i] += __uint_as_float(w[i]);
+    } else {
+      acc[2 * i] += __uint_as_float(w[i] << 16);
+      acc[2 * i + 1] += __uint_as_float(w[i] & 0xFFFF0000u);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+membership_embed_dense_kernel(const int64_t* __restrict__ staged,
+                              int64_t h, const int64_t* __restrict__ lib,
+                              int64_t lib_size,
+                              const int32_t* __restrict__ start,
+                              int64_t n_buckets, const T* __restrict__ table,
+                              int64_t d, const int64_t* __restrict__ targets,
+                              float* __restrict__ out,
+                              int32_t* __restrict__ n_hits) {
+  constexpr int N = 16 / sizeof(T);  // columns a thread owns in each half
+  extern __shared__ float sums[];    // parts x (fwd, rev) x cols
+  __shared__ uint32_t hit_list[TILE];
+  __shared__ int scratch[2][33];
+  const int64_t n_groups = (d + N - 1) / N;
+  // 16-byte loads need both halves of every row on 16-byte boundaries
+  const bool vec =
+      d % N == 0 && (reinterpret_cast<uintptr_t>(table) & 15) == 0;
+  const int shift = lib_size > 0 ? bucket_shift(lib, lib_size, n_buckets) : 0;
+
+  int scan = 0;  // which scratch array the next block_scan takes
+  const int64_t r = blockIdx.x;
+  const int64_t* row = staged + r * h;
+  const bool aligned = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  for (int64_t g0 = 0; g0 < n_groups; g0 += THREADS) {
+    const int groups = static_cast<int>(
+        n_groups - g0 < THREADS ? n_groups - g0 : THREADS);
+    const int parts = THREADS / groups;
+    const int cols = N * groups;
+    const int own_g = threadIdx.x % groups;
+    const int part = threadIdx.x / groups;
+    const int64_t c0 = N * (g0 + own_g);  // this thread's first column
+    const int n = d - c0 < N ? static_cast<int>(d - c0) : N;
+    float fwd[N], rev[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) fwd[i] = rev[i] = 0.f;
+    int total = 0;
+    for (int64_t t0 = 0; t0 < h; t0 += TILE) {
+      const int count = tile_hits(row, h, t0, aligned, lib, lib_size, start,
+                                  n_buckets, shift, hit_list, scratch,
+                                  &scan);
+      total += count;
+      // 3. this part's hits in slot order, UNROLL rows' loads in flight
+      if (part < parts) {
+        for (int e0 = part; e0 < count; e0 += UNROLL * parts) {
+          uint32_t ent[UNROLL];
+          uint4 left[UNROLL], right[UNROLL];
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int e = e0 + u * parts;
+            ent[u] = e < count ? hit_list[e] : 0u;
+            left[u] = right[u] = make_uint4(0u, 0u, 0u, 0u);
+            if (e < count) {
+              const T* p = table + static_cast<int64_t>(ent[u] & 0x7FFFFFFFu)
+                                       * (2 * d) + c0;
+              left[u] = load_cols(p, n, vec);
+              right[u] = load_cols(p + d, n, vec);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            if (e0 + u * parts >= count) continue;
+            const bool swap = ent[u] >> 31;
+            add_cols<T>(swap ? right[u] : left[u], fwd);
+            add_cols<T>(swap ? left[u] : right[u], rev);
+          }
+        }
+      }
+      __syncthreads();  // hit_list is refilled by the next tile
+    }
+    if (part < parts) {
+      float* f = sums + (2 * part) * cols + N * own_g;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        f[i] = fwd[i];
+        f[cols + i] = rev[i];
+      }
+    }
+    __syncthreads();
+    // the parts' partial sums, added in part order
+    const int64_t t_fwd = targets[2 * r];
+    const int64_t t_rev = targets[2 * r + 1];
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+      const int64_t col = N * g0 + c;
+      if (col >= d) continue;
+      float f = 0.f, b = 0.f;
+      for (int q = 0; q < parts; ++q) {
+        f += sums[(2 * q) * cols + c];
+        b += sums[(2 * q + 1) * cols + c];
+      }
+      if (t_fwd >= 0) out[t_fwd * d + col] = f;
+      if (t_rev >= 0) out[t_rev * d + col] = b;
+    }
+    if (g0 == 0 && threadIdx.x == 0) n_hits[r] = total;
+    __syncthreads();  // sums are rewritten by the next column chunk
+  }
+}
+
+// The prefix table of a non-empty library into start (n_buckets + 1).
+cudaError_t launch_prefix_table(const int64_t* lib, int64_t lib_size,
+                                int64_t n_buckets, int32_t* start,
+                                cudaStream_t st) {
+  if (lib_size <= 0) return cudaSuccess;
+  prefix_table_kernel<<<static_cast<unsigned>((lib_size + 256) / 256), 256,
+                        0, st>>>(lib, lib_size, n_buckets, start);
+  return cudaGetLastError();
+}
+
+// Shared-memory bytes of the parts' sums for d columns, `per` columns a
+// group (16 for the sign form, 16 bytes of entries for the dense form).
+int sum_bytes(int64_t d, int64_t per) {
+  const int64_t n_groups = (d + per - 1) / per;
+  const int64_t groups = n_groups < THREADS ? n_groups : THREADS;
+  return static_cast<int>((THREADS / groups) * 2 * per * groups *
+                          sizeof(float));
+}
+
 }  // namespace
 
 // start: int32 scratch of n_buckets + 1 entries (n_buckets a power of two,
@@ -290,20 +478,43 @@ extern "C" int fk_membership_embed(const int64_t* staged, int64_t rows,
                                    void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (lib_size > 0) {
-    prefix_table_kernel<<<static_cast<unsigned>((lib_size + 256) / 256), 256,
-                          0, st>>>(lib, lib_size, n_buckets, start);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t n_groups = (d + 15) / 16;
-  const int64_t groups = n_groups < THREADS ? n_groups : THREADS;
-  const int64_t sum_floats = (THREADS / groups) * 2 * 16 * groups;
+  const cudaError_t err = launch_prefix_table(lib, lib_size, n_buckets,
+                                              start, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   membership_embed_kernel<<<static_cast<unsigned>(rows), THREADS,
-                            static_cast<int>(sum_floats * sizeof(float)),
-                            st>>>(
+                            sum_bytes(d, 16), st>>>(
       staged, h, lib, lib_size, start, n_buckets,
       reinterpret_cast<const uint32_t*>(signs), n_words, mags, d, targets,
       out, n_hits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel C's dense form: the same prefix table (start, n_buckets) and row
+// blocks over a dense paired table (L+1, 2d) of float32 (is_bf16 = 0) or
+// bfloat16 (is_bf16 = 1) entries.
+extern "C" int fk_membership_embed_dense(const int64_t* staged, int64_t rows,
+                                         int64_t h, const int64_t* lib,
+                                         int64_t lib_size, const void* table,
+                                         int is_bf16, int64_t d,
+                                         const int64_t* targets, float* out,
+                                         int32_t* n_hits, int32_t* start,
+                                         int64_t n_buckets, void* stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_prefix_table(lib, lib_size, n_buckets,
+                                              start, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(rows));
+  if (is_bf16) {
+    membership_embed_dense_kernel<uint16_t><<<grid, THREADS,
+                                              sum_bytes(d, 8), st>>>(
+        staged, h, lib, lib_size, start, n_buckets,
+        static_cast<const uint16_t*>(table), d, targets, out, n_hits);
+  } else {
+    membership_embed_dense_kernel<float><<<grid, THREADS, sum_bytes(d, 4),
+                                           st>>>(
+        staged, h, lib, lib_size, start, n_buckets,
+        static_cast<const float*>(table), d, targets, out, n_hits);
+  }
   return static_cast<int>(cudaGetLastError());
 }

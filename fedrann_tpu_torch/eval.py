@@ -1,0 +1,90 @@
+"""Neighbor recall@k between two overlaps.tsv tables (the port's copy of
+`OverlapTable` and `neighbor_recall` in `fedrann_tpu/eval.py`): for each
+query row of the reference table, the fraction of its first k neighbors
+that the candidate table also reports for that row, the share of reference
+queries the candidate holds, and the mean distance difference over the
+neighbor pairs both report."""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class OverlapTable:
+    """Parsed overlaps.tsv: (query name, orientation) -> ordered neighbors."""
+
+    neighbors: Mapping[tuple[str, str], list[tuple[str, str, int, float]]]
+
+    @classmethod
+    def read(cls, path: str) -> "OverlapTable":
+        table: dict = collections.defaultdict(list)
+        with open(path) as f:
+            header = f.readline().rstrip("\n").split("\t")
+            expected = ["query_name", "query_orientation", "target_name",
+                        "target_orientation", "neighbor_rank", "distance"]
+            if header != expected:
+                raise ValueError(f"unexpected overlaps header: {header}")
+            for line in f:
+                q, qo, t, to, rank, dist = line.rstrip("\n").split("\t")
+                table[(q, qo)].append((t, to, int(rank), float(dist)))
+        return cls(neighbors=dict(table))
+
+
+@dataclasses.dataclass
+class RecallReport:
+    recall_at_k: float          # mean per-query neighbor overlap fraction
+    query_coverage: float       # fraction of reference queries present
+    distance_mae: float         # mean |dist diff| over shared (q, t) pairs
+    n_queries: int
+    n_shared_pairs: int
+
+    def __str__(self) -> str:
+        return (f"recall@k={self.recall_at_k:.4f} "
+                f"coverage={self.query_coverage:.4f} "
+                f"distance_mae={self.distance_mae:.5f} "
+                f"({self.n_queries} queries, {self.n_shared_pairs} shared "
+                "pairs)")
+
+
+def neighbor_recall(
+    reference: OverlapTable,
+    candidate: OverlapTable,
+    k: int,
+) -> RecallReport:
+    """Per-query overlap of the candidate's neighbor sets with the
+    reference's first k; a neighbor counts only in the orientation the
+    reference gives it."""
+    recalls = []
+    dist_diffs = []
+    n_shared = 0
+    present = 0
+    for key, ref_neigh in reference.neighbors.items():
+        cand_neigh = candidate.neighbors.get(key)
+        if cand_neigh is None:
+            recalls.append(0.0)
+            continue
+        present += 1
+        ref_k = ref_neigh[:k]
+        cand_map = {}
+        for t, to, _rank, dist in cand_neigh:
+            cand_map.setdefault((t, to), dist)
+        hit = 0
+        for t, to, _rank, dist in ref_k:
+            cd = cand_map.get((t, to))
+            if cd is not None:
+                hit += 1
+                dist_diffs.append(abs(cd - dist))
+                n_shared += 1
+        recalls.append(hit / max(1, len(ref_k)))
+    return RecallReport(
+        recall_at_k=float(np.mean(recalls)) if recalls else 0.0,
+        query_coverage=present / max(1, len(reference.neighbors)),
+        distance_mae=float(np.mean(dist_diffs)) if dist_diffs else 0.0,
+        n_queries=len(reference.neighbors),
+        n_shared_pairs=n_shared,
+    )

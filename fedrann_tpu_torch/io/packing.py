@@ -3,8 +3,10 @@
 The port's copy of the numpy packer in `fedrann_tpu/io/packing.py`, in the
 per-base layout (A=0 C=1 G=2 T=3, anything else INVALID=4, padding INVALID)
 that the staging kernel reads. Reads are grouped into the smallest length
-bucket that fits; a read longer than the largest bucket would need the
-split-read hit union, which is not ported yet, so it raises.
+bucket that fits. A read longer than the largest bucket is split into
+segments that overlap by k - 1 bases (`segment_spans`), whose hits the
+embed stage merges back into one exact union (`pipeline.split_union_rows`),
+or, without a split overlap, truncated and counted.
 """
 
 from __future__ import annotations
@@ -47,10 +49,34 @@ class PackedBucket:
 class PackedReads:
     names: list[str]              # global read order = input file order
     buckets: list[PackedBucket]   # ascending bucket length
+    n_truncated: int = 0
+    # reads split into several bucket rows (segment_spans); their rows share
+    # one read_index, and the embed stage merges their hits
+    split_read_ids: np.ndarray | None = None
 
     @property
     def n_reads(self) -> int:
         return len(self.names)
+
+
+def segment_spans(length: int, max_len: int,
+                  overlap: int) -> list[tuple[int, int]]:
+    """(start, len) spans splitting a read of `length` bases into segments
+    of at most max_len bases, consecutive segments sharing `overlap` bases.
+    With overlap = k - 1 every k-window of the read lies in exactly one
+    segment (segment j owns the windows starting in [j * stride, (j + 1) *
+    stride)), so k-mer counts over the segments equal the unsplit read's."""
+    stride = max_len - overlap
+    if stride <= 0:
+        raise ValueError(f"overlap {overlap} >= segment length {max_len}")
+    spans = []
+    start = 0
+    while True:
+        seg = min(max_len, length - start)
+        spans.append((start, seg))
+        if start + seg >= length:
+            return spans
+        start += stride
 
 
 def auto_length_buckets(
@@ -94,10 +120,15 @@ def pack_reads(
     records: Iterable[FastxRecord],
     length_buckets: Sequence[int] | None,
     pad_rows_to: int = 8,
+    split_overlap: int | None = None,
 ) -> PackedReads:
     """Group reads into the smallest bucket that fits; length_buckets=None
-    derives the ladder from the data. Row counts per bucket are padded to a
-    multiple of pad_rows_to with all-INVALID rows (read_index -1)."""
+    derives the ladder from the data. A read longer than the largest bucket
+    is split into segments overlapping by split_overlap (= k - 1) bases,
+    each in the smallest bucket that fits it, when split_overlap is given,
+    else truncated to the largest bucket (counted and logged). Row counts
+    per bucket are padded to a multiple of pad_rows_to with all-INVALID
+    rows (read_index -1)."""
     if length_buckets is None:
         records = list(records)
         length_buckets = auto_length_buckets(
@@ -108,19 +139,35 @@ def pack_reads(
     names: list[str] = []
     per_bucket: list[list[np.ndarray]] = [[] for _ in buckets]
     per_bucket_idx: list[list[int]] = [[] for _ in buckets]
+    n_truncated = 0
+    split_ids: list[int] = []
 
     for i, rec in enumerate(records):
         names.append(rec.name)
         codes = encode_bases(rec.sequence)
         b = int(np.searchsorted(buckets, len(codes)))
         if b == len(buckets):
-            raise NotImplementedError(
-                f"read {rec.name!r} has {len(codes)} bases, more than the "
-                f"largest length bucket ({buckets[-1]}); splitting it needs "
-                "the split-read hit union (ROADMAP Queue 1: split-read union)"
-            )
+            b = len(buckets) - 1
+            if split_overlap is not None:
+                split_ids.append(i)
+                for start, seg in segment_spans(len(codes), buckets[b],
+                                                split_overlap):
+                    sb = min(int(np.searchsorted(buckets, seg)), b)
+                    per_bucket[sb].append(codes[start : start + seg])
+                    per_bucket_idx[sb].append(i)
+                continue
+            codes = codes[: buckets[b]]
+            n_truncated += 1
         per_bucket[b].append(codes)
         per_bucket_idx[b].append(i)
+
+    if n_truncated:
+        logger.warning(
+            "%d reads longer than the largest length bucket (%d) were "
+            "truncated", n_truncated, buckets[-1])
+    if split_ids:
+        logger.info("%d reads longer than the largest bucket (%d) were "
+                    "split", len(split_ids), buckets[-1])
 
     out: list[PackedBucket] = []
     for b, rows in enumerate(per_bucket):
@@ -134,4 +181,7 @@ def pack_reads(
         read_index = np.full(padded_rows, -1, np.int32)
         read_index[:n_rows] = per_bucket_idx[b]
         out.append(PackedBucket(bases=mat, read_index=read_index))
-    return PackedReads(names=names, buckets=out)
+    return PackedReads(
+        names=names, buckets=out, n_truncated=n_truncated,
+        split_read_ids=(np.asarray(split_ids, np.int32) if split_ids
+                        else None))

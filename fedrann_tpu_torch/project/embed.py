@@ -1,11 +1,13 @@
 """Embedding: staged slots -> fwd/rev rows of the (2N, d) embedding matrix,
-and kernel C (`membership_embed`).
+and kernel C in its two forms (`membership_embed` over the sign table,
+`membership_embed_dense` over a dense paired table).
 
 E_fwd[r] = sum over the read's distinct library hits f of P[f]; the
 reverse-complement row mirrors f <-> f+L, so E_rev[r] sums P[mirror(f)].
-With the paired sign table (srp.build_precompute_signs), a hit on library
-entry j adds [P[j] | P[j+L]] to (fwd, rev), halves swapped when the window
-was the reverse strand. Zero-hit reads embed as exact zero rows.
+With a paired table (srp.build_precompute_signs or
+srp.build_precompute_paired), a hit on library entry j adds [P[j] | P[j+L]]
+to (fwd, rev), halves swapped when the window was the reverse strand.
+Zero-hit reads embed as exact zero rows.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import torch
 
 from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.kmers.membership import _pow2, read_hits_staged
+
+# hits summed per slice in the plain versions: the slice width of the JAX
+# package's embed_hits_paired(_signs), so that the float32 sums match
+_HIT_CHUNK = 128
 
 
 def _unpack_sign_rows(words: torch.Tensor, two_d: int) -> torch.Tensor:
@@ -25,10 +31,9 @@ def _unpack_sign_rows(words: torch.Tensor, two_d: int) -> torch.Tensor:
 
 
 def embed_hits_paired_signs(hits: torch.Tensor, signs: torch.Tensor,
-                            mags: torch.Tensor, lib_size: int, d: int,
-                            hit_chunk: int = 128):
+                            mags: torch.Tensor, lib_size: int, d: int):
     """(fwd, rev) (R, d) float32 embeddings of feature rows hits (R, H)
-    (sentinel 2L = no hit), summed over hit_chunk-wide slices in the JAX
+    (sentinel 2L = no hit), summed over _HIT_CHUNK-wide slices in the JAX
     package's sum/difference basis: u = sum(gl + gr), v = sum(+-(gl - gr)),
     fwd = (u + v) / 2, rev = (u - v) / 2."""
     r, h = hits.shape
@@ -36,8 +41,8 @@ def embed_hits_paired_signs(hits: torch.Tensor, signs: torch.Tensor,
     j = torch.where(swap, hits - lib_size, hits)  # sentinel -> zero row L
     u = torch.zeros((r, d), dtype=torch.float32, device=hits.device)
     v = torch.zeros_like(u)
-    for s in range(0, h, hit_chunk):
-        jb, sb = j[:, s : s + hit_chunk], swap[:, s : s + hit_chunk]
+    for s in range(0, h, _HIT_CHUNK):
+        jb, sb = j[:, s : s + _HIT_CHUNK], swap[:, s : s + _HIT_CHUNK]
         vals = _unpack_sign_rows(signs[jb], 2 * d) * mags[jb][..., None]
         gl, gr = vals[..., :d], vals[..., d:]
         sign = torch.where(sb, -1.0, 1.0)[..., None]
@@ -46,15 +51,92 @@ def embed_hits_paired_signs(hits: torch.Tensor, signs: torch.Tensor,
     return (u + v) * 0.5, (u - v) * 0.5
 
 
-def _membership_embed_plain(staged, lib_codes, signs, mags, targets, out):
-    d = out.shape[1]
-    hits, n_hits = read_hits_staged(staged, lib_codes)
-    fwd, rev = embed_hits_paired_signs(hits, signs, mags,
-                                       lib_codes.shape[0], d)
+def embed_hits_paired(hits: torch.Tensor, p_pair: torch.Tensor,
+                      lib_size: int):
+    """(fwd, rev) (R, d) float32 embeddings of feature rows hits (R, H)
+    (sentinel 2L = no hit) from a dense paired table p_pair (L+1, 2d),
+    float32 or bfloat16, summed over _HIT_CHUNK-wide slices in the JAX
+    package's sum/difference basis: gl + gr and +-(gl - gr) are formed in
+    the table's dtype, then summed in float32. With a bfloat16 table that
+    rounds where both halves of a column are nonzero and differ in
+    magnitude; the tables srp.build_precompute_paired builds give both
+    halves of a row one magnitude, so there the sum and the difference are
+    exact."""
+    r, h = hits.shape
+    d = p_pair.shape[1] // 2
+    swap = hits >= lib_size
+    j = torch.where(swap, hits - lib_size, hits)  # sentinel -> zero row L
+    u = torch.zeros((r, d), dtype=torch.float32, device=hits.device)
+    v = torch.zeros_like(u)
+    for s in range(0, h, _HIT_CHUNK):
+        g = p_pair[j[:, s : s + _HIT_CHUNK]]
+        gl, gr = g[..., :d], g[..., d:]
+        sign = torch.where(swap[:, s : s + _HIT_CHUNK], -1.0, 1.0).to(
+            p_pair.dtype)[..., None]
+        u += (gl + gr).sum(dim=1, dtype=torch.float32)
+        v += ((gl - gr) * sign).sum(dim=1, dtype=torch.float32)
+    return (u + v) * 0.5, (u - v) * 0.5
+
+
+def _scatter(fwd, rev, targets, out):
     for col, rows in ((0, fwd), (1, rev)):
         t = targets[:, col]
         keep = t >= 0
         out[t[keep]] = rows[keep]
+
+
+def _membership_embed_plain(staged, lib_codes, signs, mags, targets, out):
+    hits, n_hits = read_hits_staged(staged, lib_codes)
+    _scatter(*embed_hits_paired_signs(hits, signs, mags, lib_codes.shape[0],
+                                      out.shape[1]), targets, out)
+    return n_hits
+
+
+def _membership_embed_dense_plain(staged, lib_codes, p_pair, targets, out):
+    hits, n_hits = read_hits_staged(staged, lib_codes)
+    _scatter(*embed_hits_paired(hits, p_pair, lib_codes.shape[0]), targets,
+             out)
+    return n_hits
+
+
+def _check_rows(staged, lib_codes, targets, out, *tables):
+    """Checks both forms share; returns the device type."""
+    r = staged.shape[0]
+    if staged.dtype != torch.int64 or lib_codes.dtype != torch.int64:
+        raise ValueError("staged and lib_codes must be int64")
+    if targets.dtype != torch.int64 or targets.shape != (r, 2):
+        raise ValueError(f"targets must be int64 of shape {(r, 2)}")
+    if out.dtype != torch.float32 or out.dim() != 2:
+        raise ValueError("out must be a 2-D float32 tensor")
+    if any(t.device != out.device
+           for t in (staged, lib_codes, targets, *tables)):
+        raise ValueError("all tensors must be on one device")
+    if out.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {out.device}")
+    if out.device.type == "cuda":
+        if lib_codes.shape[0] >= 2**31:
+            raise ValueError("library size must be below 2^31")
+        if not out.is_contiguous():
+            raise ValueError("out must be contiguous")
+    return out.device.type
+
+
+def _launch_c(name, staged, lib_codes, targets, out, *table_args):
+    """One launch of kernel C's C entry `name` (the prefix table, then one
+    block per staged row); table_args sit between the library and d."""
+    r, h = staged.shape
+    lib_size = lib_codes.shape[0]
+    staged, lib_codes, targets = (t.contiguous()
+                                  for t in (staged, lib_codes, targets))
+    n_hits = torch.empty((r,), dtype=torch.int32, device=out.device)
+    # the kernel's prefix table of the library (scratch it rebuilds)
+    n_buckets = _pow2(lib_size)
+    start = torch.empty((n_buckets + 1,), dtype=torch.int32,
+                        device=out.device)
+    _build.launch(name, staged.data_ptr(), r, h, lib_codes.data_ptr(),
+                  lib_size, *table_args, out.shape[1], targets.data_ptr(),
+                  out.data_ptr(), n_hits.data_ptr(), start.data_ptr(),
+                  n_buckets, _build.stream(out.device))
     return n_hits
 
 
@@ -70,46 +152,80 @@ def membership_embed(staged: torch.Tensor, lib_codes: torch.Tensor,
     embed_hits_paired_signs, scattered); a CUDA tensor launches kernel C
     (csrc/membership_embed.cu: a prefix table of the library, then the
     lookups and sums)."""
-    r, h = staged.shape
     lib_size = lib_codes.shape[0]
-    d = out.shape[1]
-    n_words = (2 * d + 15) // 16
-    if staged.dtype != torch.int64 or lib_codes.dtype != torch.int64:
-        raise ValueError("staged and lib_codes must be int64")
+    n_words = (2 * out.shape[1] + 15) // 16
     if signs.dtype != torch.int32 or signs.shape != (lib_size + 1, n_words):
         raise ValueError(f"signs must be int32 of shape {(lib_size + 1, n_words)}")
     if mags.dtype != torch.float32 or mags.shape != (lib_size + 1,):
         raise ValueError(f"mags must be float32 of shape {(lib_size + 1,)}")
-    if targets.dtype != torch.int64 or targets.shape != (r, 2):
-        raise ValueError(f"targets must be int64 of shape {(r, 2)}")
-    if out.dtype != torch.float32 or out.dim() != 2:
-        raise ValueError("out must be a 2-D float32 tensor")
-    tensors = (staged, lib_codes, signs, mags, targets, out)
-    if any(t.device != out.device for t in tensors):
-        raise ValueError("all tensors must be on one device")
-    if out.device.type == "cpu":
+    if _check_rows(staged, lib_codes, targets, out, signs, mags) == "cpu":
         return _membership_embed_plain(staged, lib_codes, signs, mags,
                                        targets, out)
-    if out.device.type != "cuda":
-        raise ValueError(f"unsupported device {out.device}")
-    if lib_size >= 2**31:
-        raise ValueError("library size must be below 2^31")
-    if not out.is_contiguous():
-        raise ValueError("out must be contiguous")
-    staged, lib_codes, signs, mags, targets = (
-        t.contiguous() for t in (staged, lib_codes, signs, mags, targets))
-    n_hits = torch.empty((r,), dtype=torch.int32, device=out.device)
-    # the kernel's prefix table of the library (scratch it rebuilds)
-    n_buckets = _pow2(lib_size)
-    start = torch.empty((n_buckets + 1,), dtype=torch.int32,
-                        device=out.device)
-    _build.launch("fk_membership_embed", staged.data_ptr(), r, h,
-                  lib_codes.data_ptr(), lib_size, signs.data_ptr(), n_words,
-                  mags.data_ptr(), d, targets.data_ptr(), out.data_ptr(),
-                  n_hits.data_ptr(), start.data_ptr(), n_buckets,
-                  _build.stream(out.device))
+    signs, mags = signs.contiguous(), mags.contiguous()
+    n_hits = _launch_c("fk_membership_embed", staged, lib_codes, targets,
+                       out, signs.data_ptr(), n_words, mags.data_ptr())
     membership_embed.launches += 1
     return n_hits
 
 
 membership_embed.launches = 0
+
+
+def membership_embed_dense(staged: torch.Tensor, lib_codes: torch.Tensor,
+                           p_pair: torch.Tensor, targets: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+    """membership_embed over a dense paired table p_pair (L+1, 2d), float32
+    or bfloat16 (srp.build_precompute_paired, or an imported projection
+    through srp.pair_projection): row j = [P[j] | P[j+L]], row L zero.
+
+    A CPU tensor takes the plain PyTorch version (read_hits_staged then
+    embed_hits_paired, scattered); a CUDA tensor launches kernel C's dense
+    form (csrc/membership_embed.cu `fk_membership_embed_dense`: the same
+    prefix table, lookups and hit lists, then each hit's table row summed
+    into the fwd and rev rows in float32)."""
+    lib_size = lib_codes.shape[0]
+    shape = (lib_size + 1, 2 * out.shape[1])
+    if p_pair.dtype not in (torch.float32, torch.bfloat16) \
+            or p_pair.shape != shape:
+        raise ValueError(f"p_pair must be float32 or bfloat16 of shape "
+                         f"{shape}")
+    if _check_rows(staged, lib_codes, targets, out, p_pair) == "cpu":
+        return _membership_embed_dense_plain(staged, lib_codes, p_pair,
+                                             targets, out)
+    p_pair = p_pair.contiguous()
+    n_hits = _launch_c("fk_membership_embed_dense", staged, lib_codes,
+                       targets, out, p_pair.data_ptr(),
+                       int(p_pair.dtype == torch.bfloat16))
+    membership_embed_dense.launches += 1
+    return n_hits
+
+
+membership_embed_dense.launches = 0
+
+
+# A projection is a dense paired table (a tensor) or the sign table
+# (signs, mags); only the three functions below tell the two apart.
+
+
+def projection_width(proj, d: int) -> int:
+    """The embedding width of the projection `proj`: a dense paired table's
+    half width, else d (the sign table packs its 2d fields into 16-field
+    words, so it does not hold d itself)."""
+    return proj.shape[1] // 2 if isinstance(proj, torch.Tensor) else d
+
+
+def embed_staged(staged: torch.Tensor, lib_codes: torch.Tensor, proj,
+                 targets: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Kernel C in the form of the projection `proj`."""
+    if isinstance(proj, torch.Tensor):
+        return membership_embed_dense(staged, lib_codes, proj, targets, out)
+    return membership_embed(staged, lib_codes, *proj, targets, out)
+
+
+def embed_hits(hits: torch.Tensor, proj, lib_size: int, d: int):
+    """The plain (fwd, rev) embeddings of feature rows hits (R, H) in the
+    form of the projection `proj` (embed_hits_paired or
+    embed_hits_paired_signs)."""
+    if isinstance(proj, torch.Tensor):
+        return embed_hits_paired(hits, proj, lib_size)
+    return embed_hits_paired_signs(hits, *proj, lib_size, d)

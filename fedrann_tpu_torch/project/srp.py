@@ -1,5 +1,6 @@
-"""ICF weights and the sign-packed sparse random projection (the port of
-`fedrann_tpu/project/srp.py` `build_precompute_signs`).
+"""ICF weights and the sparse random projection (the port of
+`fedrann_tpu/project/srp.py` `build_precompute_signs`,
+`build_precompute_paired` and `pair_projection`).
 
 P[f, c] = ICF[f] * SRP[f, c]; SRP entries are nonzero with probability
 density (default 1/sqrt(n_features)) and worth +-sqrt(1/density)/sqrt(d);
@@ -12,6 +13,11 @@ The table factorizes: every nonzero of paired row j = [P[j] | P[j+L]] is
 2 minus), 16 per 32-bit word (field i at bits 2*(i%16) of word i//16),
 held as int32 bit patterns, plus one float32 magnitude per row; row L is
 the all-zero sentinel row with magnitude 0.
+
+`--projection-dtype f32|bf16` stores the same table dense: paired row j is
+[P[j] | P[j+L]] in float32, or rounded to bfloat16 (nearest even) chunk by
+chunk, with an all-zero sentinel row L. Its f32 entries equal the sign
+table's sign * mags[j] bitwise.
 """
 
 from __future__ import annotations
@@ -29,10 +35,10 @@ def icf_weights(counts: torch.Tensor) -> torch.Tensor:
     return torch.log(n_features / (c + 1e-12)).to(torch.float32)
 
 
-def _srp_sign_chunk(seed_mix: torch.Tensor, n_components: int,
-                    density: float, chunk_start: int,
-                    chunk_size: int) -> torch.Tensor:
-    """(chunk, d) int32 sign codes of features [chunk_start, +chunk_size)."""
+def _srp_bits(seed_mix: torch.Tensor, n_components: int, density: float,
+              chunk_start: int, chunk_size: int):
+    """(nonzero, positive) (chunk, d) bools of features [chunk_start,
+    +chunk_size): the splitmix64 stream of feature and component."""
     device = seed_mix.device
     f = (torch.arange(chunk_size, dtype=torch.int64, device=device)
          + chunk_start)[:, None] * _GOLDEN
@@ -41,9 +47,28 @@ def _srp_sign_chunk(seed_mix: torch.Tensor, n_components: int,
     # nonzero iff (h >>> 1) < density * 2^63, written with <= so the bound
     # fits int64 at density 1
     bound = int(density * 2.0**63) - 1
-    nonzero = ((h >> 1) & ((1 << 63) - 1)) <= bound
-    pos = (h & 1) == 1
+    return ((h >> 1) & ((1 << 63) - 1)) <= bound, (h & 1) == 1
+
+
+def _srp_sign_chunk(seed_mix: torch.Tensor, n_components: int,
+                    density: float, chunk_start: int,
+                    chunk_size: int) -> torch.Tensor:
+    """(chunk, d) int32 sign codes of features [chunk_start, +chunk_size)."""
+    nonzero, pos = _srp_bits(seed_mix, n_components, density, chunk_start,
+                             chunk_size)
     return torch.where(nonzero, torch.where(pos, 1, 2), 0).to(torch.int32)
+
+
+def _srp_chunk(seed_mix: torch.Tensor, icf_chunk: torch.Tensor,
+               n_components: int, density: float, chunk_start: int,
+               scale: torch.Tensor) -> torch.Tensor:
+    """(chunk, d) float32 entries sign * scale * icf of features
+    [chunk_start, +len(icf_chunk)), in the JAX package's order of float32
+    products, and +0.0 where the stream draws no entry (as XLA selects)."""
+    nonzero, pos = _srp_bits(seed_mix, n_components, density, chunk_start,
+                             icf_chunk.shape[0])
+    sign = torch.where(pos, 1.0, -1.0).to(torch.float32)
+    return torch.where(nonzero, sign * scale * icf_chunk[:, None], 0.0)
 
 
 def _pack_signs(codes: torch.Tensor) -> torch.Tensor:
@@ -55,6 +80,19 @@ def _pack_signs(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def _stream(counts: torch.Tensor, n_components: int, seed: int,
+            density: float | None):
+    """(icf, density, seed_mix, scale) of a projection over counts."""
+    icf = icf_weights(counts)
+    if density is None:
+        density = 1.0 / float(icf.shape[0]) ** 0.5 if icf.shape[0] else 1.0
+    seed_mix = splitmix64(torch.tensor(seed, dtype=torch.int64,
+                                       device=counts.device))
+    scale = torch.tensor((1.0 / density) ** 0.5 / n_components**0.5,
+                         dtype=torch.float32, device=counts.device)
+    return icf, density, seed_mix, scale
+
+
 def build_precompute_signs(counts: torch.Tensor, n_components: int,
                            seed: int, density: float | None = None,
                            chunk: int = 1 << 16):
@@ -62,15 +100,9 @@ def build_precompute_signs(counts: torch.Tensor, n_components: int,
     device; row j packs [P[j] | P[j+L]] and reconstructs the f32 entries
     exactly as sign * mags[j]."""
     device = counts.device
-    icf = icf_weights(counts)
-    n_features = icf.shape[0]
     lib_size = int(counts.shape[0])
-    if density is None:
-        density = 1.0 / float(n_features) ** 0.5 if n_features else 1.0
-    seed_mix = splitmix64(torch.tensor(seed, dtype=torch.int64,
-                                       device=device))
-    scale = torch.tensor((1.0 / density) ** 0.5 / n_components**0.5,
-                         dtype=torch.float32, device=device)
+    icf, density, seed_mix, scale = _stream(counts, n_components, seed,
+                                            density)
     parts = []
     for start in range(0, lib_size, chunk):
         size = min(chunk, lib_size - start)
@@ -84,3 +116,42 @@ def build_precompute_signs(counts: torch.Tensor, n_components: int,
     mags = torch.cat([icf[:lib_size] * scale,
                       torch.zeros(1, dtype=torch.float32, device=device)])
     return signs, mags
+
+
+def build_precompute_paired(counts: torch.Tensor, n_components: int,
+                            seed: int, density: float | None = None,
+                            chunk: int = 1 << 16,
+                            dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """(L+1, 2d) dense paired table on counts' device: row j = [P[j] |
+    P[j+L]], row L all zero. Each chunk is built in float32 and then cast
+    to dtype (float32 or bfloat16, round to nearest even), so no whole
+    float32 table exists beside a bfloat16 one."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, not {dtype}")
+    lib_size = int(counts.shape[0])
+    icf, density, seed_mix, scale = _stream(counts, n_components, seed,
+                                            density)
+    parts = []
+    for start in range(0, lib_size, chunk):
+        size = min(chunk, lib_size - start)
+        # the right half draws the flat features [L + start, +size)
+        parts.append(torch.cat([
+            _srp_chunk(seed_mix, icf[start : start + size], n_components,
+                       density, start, scale).to(dtype),
+            _srp_chunk(seed_mix, icf[lib_size + start : lib_size + start
+                                     + size], n_components, density,
+                       lib_size + start, scale).to(dtype)], dim=1))
+    parts.append(torch.zeros((1, 2 * n_components), dtype=dtype,
+                             device=counts.device))
+    return torch.cat(parts)
+
+
+def pair_projection(p_ext: torch.Tensor) -> torch.Tensor:
+    """Flat (2L+1, d) table (an imported projection) -> the paired (L+1,
+    2d) layout: row j = [p_ext[j] | p_ext[j+L]], then a zero row."""
+    n_rows, d = p_ext.shape
+    lib_size = (n_rows - 1) // 2
+    return torch.cat([
+        torch.cat([p_ext[:lib_size], p_ext[lib_size : 2 * lib_size]], dim=1),
+        p_ext.new_zeros((1, 2 * d))])

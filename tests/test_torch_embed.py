@@ -1,11 +1,13 @@
-"""fedrann_tpu_torch projection and membership+embed (the plain version of
-kernel C) against the JAX functions and the Pallas `merge_embed` kernel in
-interpret mode.
+"""fedrann_tpu_torch projection and membership+embed (the plain versions of
+kernel C's sign and dense forms) against the JAX functions and the Pallas
+`merge_embed` kernel in interpret mode.
 
 SRP signs and magnitudes are bitwise. Hit rows are bitwise; embedding rows
-agree to rtol 1e-5 with atol 1e-6 * max|mags| * hits, because the f32 sums
+agree to rtol 1e-5 with atol 1e-6 * max|P| * hits, because the f32 sums
 run in another order (the JAX path sums in a sum/difference basis, the
-Pallas kernel row by row)."""
+Pallas kernel row by row). A bfloat16 table with no sign structure allows
+2^-8 * max|P| * hits: the JAX form rounds gl + gr and gl - gr to bfloat16
+where XLA does not keep them in float32."""
 
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from fedrann_tpu.kmers import membership as jmem  # noqa: E402
 from fedrann_tpu.project import embed as jembed  # noqa: E402
 from fedrann_tpu.project import srp as jsrp  # noqa: E402
 from fedrann_tpu_torch.convert import (  # noqa: E402
+    paired_table_to_port,
     signs_to_port,
     staged_planes_to_slots,
 )
@@ -36,7 +39,11 @@ from fedrann_tpu_torch.kmers.membership import (  # noqa: E402
     read_hits_staged,
 )
 from fedrann_tpu_torch.project import srp  # noqa: E402
-from fedrann_tpu_torch.project.embed import membership_embed  # noqa: E402
+from fedrann_tpu_torch.project.embed import (  # noqa: E402
+    embed_hits_paired,
+    membership_embed,
+    membership_embed_dense,
+)
 from fedrann_tpu_torch.sim import simulate_reads  # noqa: E402
 from pallas_embed import build_q_cat, merge_embed, prepare_library  # noqa: E402
 
@@ -333,3 +340,187 @@ def test_kernel_c_schedule_matches_plain(d, density, rows):
     atol = _atol(mags.numpy(), n_hits.numpy())
     np.testing.assert_allclose(fwd, out[0::2].numpy(), rtol=1e-5, atol=atol)
     np.testing.assert_allclose(rev, out[1::2].numpy(), rtol=1e-5, atol=atol)
+
+
+# ---- kernel C's dense form: plain version against JAX and merge_embed ----
+
+
+def _dense_table(lib_size, d, kind, seed=0):
+    """A (L+1, 2d) paired table: "f32"/"bf16" from build_precompute_paired
+    (every nonzero of a row one magnitude), "normal" float32 or
+    "normal_bf16" entries with no sign structure; row L zero."""
+    if kind in ("f32", "bf16"):
+        rng = np.random.default_rng(seed)
+        counts = torch.from_numpy(rng.integers(2, 60, lib_size))
+        return srp.build_precompute_paired(
+            counts, d, 2094, 0.2, dtype=torch.float32 if kind == "f32"
+            else torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal(
+        (lib_size + 1, 2 * d)).astype(np.float32))
+    table[-1] = 0
+    return table.to(torch.bfloat16) if kind == "normal_bf16" else table
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "normal", "normal_bf16"])
+@pytest.mark.parametrize("k", [13, 21])
+def test_embed_hits_paired_matches_jax(k, kind):
+    """The dense plain version on JAX-staged hits against JAX
+    embed_hits_paired on the same table (converted bit for bit)."""
+    d = 48
+    lib, planes, _, _ = _setup(k, d)
+    index = jmem.build_library_index(lib.codes, k)
+    hits_j, n_hits_j = jmem._read_hits_staged(
+        tuple(jnp.asarray(p) for p in planes), index.words, index.table, k,
+        index.bits, index.steps, index.packed)
+    table = _dense_table(lib.size, d, kind)
+    table_j = jnp.asarray(table.float().numpy())
+    if table.dtype == torch.bfloat16:
+        table_j = table_j.astype(jnp.bfloat16)
+        assert torch.equal(paired_table_to_port(table_j).view(torch.int16),
+                           table.view(torch.int16))
+    e_fwd, e_rev = jembed.embed_hits_paired(hits_j, table_j, lib.size)
+    fwd, rev = embed_hits_paired(torch.from_numpy(np.array(hits_j)),
+                                 table, lib.size)
+    rel = 2.0**-8 if kind == "normal_bf16" else 1e-6
+    atol = rel * float(table.float().abs().max()) * int(np.max(n_hits_j))
+    np.testing.assert_allclose(fwd.numpy(), np.asarray(e_fwd), rtol=1e-5,
+                               atol=atol)
+    np.testing.assert_allclose(rev.numpy(), np.asarray(e_rev), rtol=1e-5,
+                               atol=atol)
+    assert int(np.max(n_hits_j)) > 0
+
+
+@pytest.mark.parametrize("k", [13, 15, 16])
+def test_membership_embed_dense_matches_pallas_merge_embed(k):
+    """The dense form's plain version (through membership_embed_dense on
+    CPU tensors, no launch counted) against merge_embed in interpret mode
+    on one genuinely dense float32 table (normal entries, both halves
+    nonzero in every column): hit counts bitwise, sums to rtol 1e-5, atol
+    1e-6 * max|P| * hits; zero-hit rows exact zeros."""
+    d = 64
+    lib, planes, _, _ = _setup(k, d)
+    table = _dense_table(lib.size, d, "normal", seed=k)
+    p_ext = np.concatenate([table[: lib.size, :d].numpy(),
+                            table[: lib.size, d:].numpy(),
+                            np.zeros((1, d), np.float32)])
+    e_f, e_r, nh = merge_embed(
+        tuple(jnp.asarray(p) for p in planes),
+        prepare_library(lib.codes, k),
+        build_q_cat(jnp.asarray(p_ext), lib.size, tile=128),
+        k=k, lib_size=lib.size, tile=128, block_rows=8, interpret=True)
+    slots = torch.from_numpy(staged_planes_to_slots(planes, k))
+    r = slots.shape[0]
+    targets = torch.stack([2 * torch.arange(r), 2 * torch.arange(r) + 1],
+                          dim=1)
+    out = torch.zeros((2 * r, d))
+    before = membership_embed_dense.launches
+    n_hits = membership_embed_dense(
+        slots, torch.from_numpy(lib.codes.astype(np.int64)), table, targets,
+        out).numpy()
+    assert membership_embed_dense.launches == before
+    np.testing.assert_array_equal(n_hits, np.asarray(nh))
+    atol = 1e-6 * float(table.abs().max()) * max(int(n_hits.max()), 1)
+    np.testing.assert_allclose(out[0::2].numpy(), np.asarray(e_f)[:, :d],
+                               rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(out[1::2].numpy(), np.asarray(e_r)[:, :d],
+                               rtol=1e-5, atol=atol)
+    zero = n_hits == 0
+    assert zero.any() and n_hits.max() > 0
+    assert np.all(out.numpy()[0::2][zero] == 0)
+
+
+def test_membership_embed_dense_refuses_bad_tables():
+    staged = torch.zeros((2, 8), dtype=torch.int64)
+    lib = torch.arange(5, dtype=torch.int64)
+    targets = torch.zeros((2, 2), dtype=torch.int64)
+    out = torch.zeros((4, 16))
+    for table in (torch.zeros((6, 30)), torch.zeros((5, 32)),
+                  torch.zeros((6, 32), dtype=torch.float16)):
+        with pytest.raises(ValueError, match="p_pair"):
+            membership_embed_dense(staged, lib, table, targets, out)
+
+
+# ---- kernel C's dense form (csrc/membership_embed.cu), emulated ----
+
+
+def _emulate_dense_kernel(staged, lib, tab, d, n_per):
+    """The dense form's schedule over the float32 values tab of a table
+    whose entries are 16 / n_per bytes: per row and column chunk of up to
+    C_THREADS groups of n_per columns (16 bytes: 4 float32 or 8 bfloat16),
+    each tile's hits (slot order) dealt to parts e % parts; each part adds
+    its hits' left and right columns (swapped for a reverse-strand window)
+    in float32, in order; a column is the sum of its parts in part order.
+    Returns (fwd, rev) float32 and n_hits."""
+    r, h = staged.shape
+    size = len(lib)
+    n_groups = -(-d // n_per)
+    fwd = np.zeros((r, d), np.float32)
+    rev = np.zeros((r, d), np.float32)
+    n_hits = np.zeros(r, np.int32)
+    for i in range(r):
+        row = staged[i]
+        prev = np.concatenate([[PAD], row[:-1]])
+        codes = row >> 1
+        pos = _kernel_c_positions(lib, codes)
+        hit = (row != PAD) & (row != prev) & (pos < size)
+        hit &= lib[np.minimum(pos, size - 1)] == codes
+        n_hits[i] = hit.sum()
+        for g0 in range(0, n_groups, C_THREADS):
+            groups = min(n_groups - g0, C_THREADS)
+            parts = C_THREADS // groups
+            cols = slice(n_per * g0, min(d, n_per * (g0 + groups)))
+            sums = np.zeros((parts, 2, cols.stop - cols.start), np.float32)
+            for t0 in range(0, h, C_TILE):
+                tile = np.nonzero(hit[t0 : t0 + C_TILE])[0] + t0
+                for e, slot in enumerate(tile):
+                    halves = [tab[pos[slot], cols],
+                              tab[pos[slot], d + cols.start : d + cols.stop]]
+                    if (row[slot] & 1) == 0:
+                        halves.reverse()
+                    sums[e % parts, 0] += halves[0]
+                    sums[e % parts, 1] += halves[1]
+            for q in range(parts):
+                fwd[i, cols] += sums[q, 0]
+                rev[i, cols] += sums[q, 1]
+    return fwd, rev, n_hits
+
+
+@pytest.mark.parametrize("d,kind,rows", [
+    (40, "f32", 6), (100, "bf16", 6), (512, "normal", 3),
+    (1100, "normal_bf16", 2), (1100, "normal", 2)])
+def test_dense_kernel_schedule_matches_plain(d, kind, rows):
+    """The dense form's schedule reproduces its plain version: hit counts
+    bitwise, sums to rtol 1e-5, atol 1e-6 * max|P| * hits (2^-8 for a
+    bfloat16 table with no sign structure, where the plain version rounds
+    gl +- gr), over one and several parts, column chunks past 256 groups
+    (1,100 float32 columns), repeated slots and a row of padding."""
+    rng = np.random.default_rng(d)
+    genome = rng.integers(0, 4, 3000).astype(np.uint8)
+    starts = rng.integers(0, 3000 - 2400, rows)
+    bases = torch.from_numpy(np.stack([genome[s : s + 2400] for s in starts]))
+    from fedrann_tpu_torch.kmers.codec import canonical_sample
+    from fedrann_tpu_torch.kmers.library import build_library
+    from fedrann_tpu_torch.kmers.membership import select_candidates
+    slots = canonical_sample(bases, 13, 9, sample_threshold(0.5), False)
+    staged, _ = select_candidates(slots, 1100, False, None)
+    staged[0, 10:40] = staged[0, 10]
+    staged[-1] = PAD
+    library = build_library([staged], 2, 0.5, 9)
+    table = _dense_table(library.size, d, kind, seed=d)
+    targets = torch.stack([2 * torch.arange(rows), 2 * torch.arange(rows) + 1],
+                          dim=1)
+    out = torch.zeros((2 * rows, d))
+    n_hits = membership_embed_dense(staged, library.codes, table, targets,
+                                    out)
+    tab = table.float().numpy()
+    fwd, rev, n_emul = _emulate_dense_kernel(
+        staged.numpy(), library.codes.numpy(), tab, d,
+        16 // table.element_size())
+    np.testing.assert_array_equal(n_emul, n_hits.numpy())
+    assert n_hits[:-1].min() > 0 and n_hits[-1] == 0
+    rel = 2.0**-8 if kind == "normal_bf16" else 1e-6
+    atol = rel * float(np.abs(tab).max()) * int(n_hits.max())
+    np.testing.assert_allclose(fwd, out[0::2].numpy(), rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(rev, out[1::2].numpy(), rtol=1e-5, atol=atol)
+

@@ -34,10 +34,16 @@ from fedrann_tpu_torch.kmers.membership import (
     staging_width,
 )
 from fedrann_tpu_torch.project.embed import (
+    _membership_embed_dense_plain,
     _membership_embed_plain,
+    embed_staged,
     membership_embed,
+    membership_embed_dense,
 )
-from fedrann_tpu_torch.project.srp import build_precompute_signs
+from fedrann_tpu_torch.project.srp import (
+    build_precompute_paired,
+    build_precompute_signs,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -469,6 +475,168 @@ def test_membership_embed_empty_library(cuda):
     n = membership_embed(staged, lib, signs, mags,
                          torch.tensor([[0, 1]], device=cuda), out)
     assert int(n[0]) == 0 and torch.all(out == 0)
+
+
+def _dense_inputs(k, rows=48, length=1200, fraction=0.2, seed=0):
+    """Staged rows of reads drawn from a short genome (k-mers repeat across
+    reads) and their library."""
+    rng = np.random.default_rng(seed + k)
+    genome = rng.integers(0, 4, 3000).astype(np.uint8)
+    starts = rng.integers(0, 3000 - length, rows)
+    bases = torch.from_numpy(np.stack([genome[s : s + length]
+                                       for s in starts]))
+    slots = _canonical_sample_plain(bases, k, 9, sample_threshold(fraction),
+                                    False)
+    staged, _ = _select_candidates_plain(
+        slots, staging_width(slots.shape[1], fraction), False,
+        selection_cap(fraction))
+    return staged, build_library([staged], 2, fraction, 9)
+
+
+def _dense_both(cuda, staged, codes, p_pair, targets):
+    """Kernel C's dense form and its plain version on the same inputs:
+    (n_hits, out) of each, the kernel's on the host."""
+    d = p_pair.shape[1] // 2
+    out_p = torch.zeros((targets.shape[0] * 2, d))
+    n_p = _membership_embed_dense_plain(staged, codes, p_pair, targets, out_p)
+    out = torch.zeros((targets.shape[0] * 2, d), device=cuda)
+    before = (membership_embed_dense.launches, membership_embed.launches)
+    n = membership_embed_dense(staged.to(cuda), codes.to(cuda),
+                               p_pair.to(cuda), targets.to(cuda), out)
+    torch.cuda.synchronize()
+    assert (membership_embed_dense.launches, membership_embed.launches) == (
+        before[0] + 1, before[1])
+    return n.cpu(), out.cpu(), n_p, out_p
+
+
+@pytest.mark.parametrize("k,d,dtype", [
+    (13, 40, torch.float32),     # d % 4 = 0: 16-byte loads
+    (13, 100, torch.bfloat16),   # d % 8 = 4: entry-by-entry loads
+    (15, 512, torch.float32),    # the main path's width
+    (15, 512, torch.bfloat16),
+    (21, 256, torch.float32),    # the golden runs' width
+    (15, 1100, torch.bfloat16),  # 138 column groups, one part
+    (15, 2100, torch.float32),   # 525 groups: three column chunks
+])
+def test_membership_embed_dense_matches_plain(cuda, k, d, dtype):
+    """The dense form against its plain version on tables
+    build_precompute_paired builds: hit counts bitwise, sums to rtol 1e-5,
+    atol 1e-6 * max|P| * hits (float32 sums in another order; a row's two
+    halves share one magnitude, so the plain version's sum and difference
+    are exact in bfloat16 too); padding rows write nothing."""
+    staged, library = _dense_inputs(k)
+    p_pair = build_precompute_paired(library.counts, d, 2094, None,
+                                     dtype=dtype)
+    targets = torch.stack([2 * torch.arange(48), 2 * torch.arange(48) + 1],
+                          dim=1)
+    targets[5] = -1
+    n, out, n_p, out_p = _dense_both(cuda, staged, library.codes, p_pair,
+                                     targets)
+    assert torch.equal(n, n_p) and int(n.min()) > 0
+    atol = 1e-6 * float(p_pair.float().abs().max()) * int(n_p.max())
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=atol)
+    assert torch.all(out[10:12] == 0)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_membership_embed_dense_generic_tables(cuda, offset):
+    """Dense tables with no sign structure (normal entries, both halves
+    nonzero everywhere), float32 and bfloat16, with the table aligned and
+    one entry off 16 bytes (entry-by-entry loads). float32: rtol 1e-5,
+    atol 1e-6 * max|P| * hits. bfloat16: the plain version rounds gl + gr
+    and gl - gr to bfloat16, at most half an ulp of 2 max|P| each, so fwd
+    and rev may differ by 2^-8 * max|P| per hit from the kernel's float32
+    sums of the halves."""
+    staged, library = _dense_inputs(15, rows=16, length=2500, seed=3)
+    rng = np.random.default_rng(offset)
+    d = 96
+    targets = torch.stack([2 * torch.arange(16), 2 * torch.arange(16) + 1],
+                          dim=1)
+    for dtype, rel in ((torch.float32, 1e-6), (torch.bfloat16, 2.0**-8)):
+        table = torch.from_numpy(rng.standard_normal(
+            (library.size + 1, 2 * d)).astype(np.float32)).to(dtype)
+        table[-1] = 0
+        flat = torch.zeros(table.numel() + offset, dtype=dtype)
+        p_pair = flat[offset:].view(table.shape)
+        p_pair.copy_(table)
+        n, out, n_p, out_p = _dense_both(cuda, staged, library.codes, p_pair,
+                                         targets)
+        assert torch.equal(n, n_p)
+        atol = rel * float(table.float().abs().max()) * int(n_p.max())
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=atol)
+
+
+def test_membership_embed_dense_two_launches_same_bytes(cuda):
+    """No atomics: two launches of the dense form give the same bytes."""
+    staged, library = _dense_inputs(15, rows=64, length=2500, seed=5)
+    p_pair = build_precompute_paired(library.counts, 512, 2094, 0.2).to(cuda)
+    targets = torch.stack([2 * torch.arange(64), 2 * torch.arange(64) + 1],
+                          dim=1).to(cuda)
+    outs = []
+    for _ in range(2):
+        out = torch.zeros((128, 512), device=cuda)
+        membership_embed_dense(staged.to(cuda), library.codes.to(cuda),
+                               p_pair, targets, out)
+        outs.append(out.cpu())
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    assert outs[0].abs().sum() > 0
+
+
+def test_membership_embed_dense_empty_library(cuda):
+    staged = torch.tensor([[4, 9, PAD_SLOT]], device=cuda)
+    lib = torch.zeros((0,), dtype=torch.int64, device=cuda)
+    out = torch.full((2, 32), 5.0, device=cuda)
+    n = membership_embed_dense(staged, lib,
+                               torch.zeros((1, 64), device=cuda),
+                               torch.tensor([[0, 1]], device=cuda), out)
+    assert int(n[0]) == 0 and torch.all(out == 0)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+def test_split_union_matches_plain(cuda, dense):
+    """Split reads on the card: the merged segment rows (split_union_rows)
+    equal the CPU's bitwise, and kernel C on them (sign or dense form)
+    equals the plain union (per-segment read_hits_staged, unique, embed)
+    to rtol 1e-5, atol 1e-6 * max|P| * hits."""
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.config import PipelineConfig
+    from fedrann_tpu_torch.io.fastx import FastxRecord
+    from fedrann_tpu_torch.io.packing import pack_reads
+
+    rng = np.random.default_rng(11)
+    genome = "".join("ACGT"[b] for b in rng.integers(0, 4, 60_000))
+    seqs = [genome[s : s + 3000] for s in rng.integers(0, 57_000, 30)]
+    seqs += [genome[1000:41_000], genome[20_000:29_000]]
+    packed = pack_reads([FastxRecord(f"r{i}", q) for i, q in
+                         enumerate(seqs)], (4096, 8192), split_overlap=14)
+    assert list(packed.split_read_ids) == [30, 31]
+    config = PipelineConfig(kmer_size=15, kmer_sample_fraction=0.3)
+    split = torch.tensor([30, 31])
+    staged = {dev: pipeline.stage_reads(packed, config, dev)
+              for dev in (torch.device("cpu"), cuda)}
+    rows = pipeline.split_union_rows(staged[cuda], split.to(cuda))
+    assert torch.equal(rows.cpu(), pipeline.split_union_rows(
+        staged[torch.device("cpu")], split))
+    library = build_library([b.staged for b in staged[cuda]], 2, 0.3,
+                            config.seed)
+    proj = (build_precompute_paired(library.counts, 256, 2094) if dense
+            else build_precompute_signs(library.counts, 256, 2094))
+    out = torch.zeros((64, 256), device=cuda)
+    before = (membership_embed_dense.launches, membership_embed.launches)
+    n = embed_staged(rows, library.codes, proj,
+                     torch.stack([2 * split, 2 * split + 1], dim=1).to(cuda),
+                     out)
+    torch.cuda.synchronize()
+    assert (membership_embed_dense.launches - before[0],
+            membership_embed.launches - before[1]) == (
+        (1, 0) if dense else (0, 1))
+    fwd, rev = pipeline._split_union_plain(
+        staged[cuda], split.to(cuda), library.codes, proj, 256)
+    scale = (proj.abs().max() if dense else proj[1].abs().max())
+    atol = 1e-6 * float(scale) * int(n.max())
+    torch.testing.assert_close(out[60::2], fwd, rtol=1e-5, atol=atol)
+    torch.testing.assert_close(out[61::2], rev, rtol=1e-5, atol=atol)
+    assert int(n.min()) > 0
 
 
 def test_wrappers_count_launches(cuda):

@@ -1,7 +1,8 @@
 """The whole fedrann_tpu_torch slice (plain versions, on the CPU) against
-the JAX `run_pipeline` on the same reads and flags: library bitwise,
-embeddings to rtol 1e-5, neighbor agreement >= 0.99, distances within
-5e-3, the same TSV header, and truth recall > 0.75."""
+the JAX `run_pipeline` on the same reads and flags, with the sign table
+and with dense paired tables (--projection-dtype f32 and bf16): library
+bitwise, embeddings to rtol 1e-5, neighbor agreement >= 0.99, distances
+within 5e-3, the same TSV header, and truth recall > 0.75."""
 
 from __future__ import annotations
 
@@ -34,10 +35,11 @@ def sim_input(tmp_path_factory):
     return sim, path
 
 
+@pytest.mark.parametrize("dtype", ["signs", "f32", "bf16"])
 @pytest.mark.parametrize("k", [13, 21])
-def test_slice_matches_jax_pipeline(sim_input, tmp_path, k):
+def test_slice_matches_jax_pipeline(sim_input, tmp_path, k, dtype):
     sim, path = sim_input
-    args = ["-i", path, "-k", str(k), *ARGS]
+    args = ["-i", path, "-k", str(k), *ARGS, "--projection-dtype", dtype]
     res = run_pipeline(
         config_from_args([*args, "-o", str(tmp_path / "torch")]), CPU)
     ref = jax_run(jax_config([*args, "-o", str(tmp_path / "jax")]))
@@ -73,9 +75,7 @@ def test_slice_matches_jax_pipeline(sim_input, tmp_path, k):
 @pytest.mark.parametrize("flag", [
     ["--knn-method", "ivf"], ["--knn-hbm-budget", "8G"],
     ["--num-processes", "2"], ["--coordinator", "localhost:1234"],
-    ["--import-library", "lib.fa"], ["--import-projection", "p.npz"],
-    ["--keep-intermediates"], ["--projection-dtype", "bf16"],
-    ["--projection-dtype", "f32"], ["--profile"],
+    ["--keep-intermediates"], ["--profile"],
     ["--save-feature-matrix"], ["--mprof"], ["--knn-sharded", "always"],
 ])
 def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
@@ -85,12 +85,19 @@ def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
         run_pipeline(config, CPU)
 
 
-def test_read_longer_than_largest_bucket_raises(sim_input, tmp_path):
+def test_imported_projection_of_another_library_raises(sim_input, tmp_path):
+    """A projection whose row count does not fit the library raises the
+    JAX package's ValueError, in both packages."""
     _, path = sim_input
-    config = config_from_args(["-i", path, "-o", str(tmp_path),
-                               "--length-buckets", "1024"])
-    with pytest.raises(NotImplementedError, match="split-read"):
-        run_pipeline(config, CPU)
+    npz = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "bench", "golden", "data", "precompute.npz")
+    args = ["-i", path, "-o", str(tmp_path), "-k", "13", *ARGS,
+            "--import-projection", npz]
+    with pytest.raises(ValueError, match="library needs") as port:
+        run_pipeline(config_from_args(args), CPU)
+    with pytest.raises(ValueError, match="library needs") as jax:
+        jax_run(jax_config(args))
+    assert str(port.value) == str(jax.value)
 
 
 def test_cli_needs_a_gpu(sim_input, tmp_path):

@@ -8,9 +8,14 @@ Phases; any failure exits non-zero and prints no result line:
   2. build the CUDA kernels from fedrann_tpu_torch/csrc/; the static shared
      memory of kernel B's one-block kernels must fit the STATIC_SMEM that
      their plan keeps beside the survivor buffer;
+     (b) build the host library (native/fastxpack.cpp, g++) into
+         fedrann_tpu_torch/_kernels/, with its time; it must load from
+         there, and native/libfastxpack.so must never be mapped;
   3. run each kernel against its plain PyTorch version on the card, at the
-     shapes of the main-path run below: stage_rows (kernels A and B fused,
-     against the plain composition of the two, dropped counts included)
+     shapes of the main-path run below (its chunk as the native packer
+     packs it, unpacked for the byte source): stage_rows (kernels A and B
+     fused, against the plain composition of the two, dropped counts
+     included)
      and canonical_sample must match bitwise, select_candidates must refuse
      those rows (they stage fused), membership_embed to rtol 1e-5, atol
      1e-6 * max|mags| * hits (float32 sums taken in another order), also
@@ -22,6 +27,17 @@ Phases; any failure exits non-zero and prints no result line:
          imported float32 table, k = 15 and 21), to rtol 1e-5, atol 1e-6 *
          max|P| * hits, with its time, device us a launch, byte bound and
          F.embedding_bag over the same hit rows;
+     (c) kernel A and the fused kernel on the packed source (the packer's
+         2-bit stream with row lengths, as the pipeline uploads buckets
+         without mid-read N) and on the bits source (the stream with valid
+         bits, mid-read N across a block edge, in a halo and at a block
+         start), against unpack_bases[_len] + the plain composition,
+         bitwise, dropped counts included, each logged with its time,
+         bound and device us beside the byte source's on the same bases:
+         at the main chunk, at buckets of 10,000 and 10,002 bases (rows of
+         2,500 and 2,501 bytes), then in phases 5a (the first 262,144
+         chunk, 1,024 threads) and 5c (the keep_all 32,768 and 65,536
+         chunks, kernel A and B's device-memory path);
   4. drive the main path through fedrann_tpu_torch.cli.main on ~7,500
      simulated reads (5 Mb genome, 12x, 8 kb, 5% error) with the flags of
      the bench.py workload (k=15, 5% sampling, d=512, 50 neighbors), with every
@@ -30,10 +46,26 @@ Phases; any failure exits non-zero and prints no result line:
      the path must have launched (each staging path exactly where its plan
      picks it: the fused kernel for rows kept in one block, kernel A and
      B's device-memory path for the others), and the truth recall of pairs
-     overlapping >= 4 kb must reach 0.9; the rows stage fused there;
+     overlapping >= 4 kb must reach 0.9; the rows stage fused there, from
+     the packed source: every CLI run here loads through the native packer
+     (pack_reads_native counted, the Python reader and packer never) and
+     uploads 2-bit buckets from pinned memory (no byte-source launch, no
+     pinning copy), and writes through the C writer; its load, output and
+     upload figures are logged;
      (b) the same at --projection-dtype f32 and bf16: the dense form must
          launch and the sign form must not; project and embed seconds
          logged beside phase 4's;
+     (c) phase 4 again on the same -o: it must load from fxcache.npz (no
+         parse), with its load seconds; then the load's pieces timed alone
+         (the parse on 1 and 8 threads, the pack into pinned and pageable
+         memory, the cache write and load);
+     (d) --keep-intermediates, then the same again: the rerun resumes the
+         library and the embeddings, launches no staging kernel and no
+         kernel C, and writes a byte-identical overlaps.tsv;
+     (e) run_pipeline with --profile --mprof --save-feature-matrix:
+         trace/trace.json, mprof.dat and feature_matrix.npz exist, the
+         .npz embeddings equal the result's, and the trace gives the
+         run's device busy time and idle share;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
      (a) at the first staging chunk of the 262,144-base bucket (5%
@@ -107,6 +139,7 @@ where there is one; the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import subprocess
@@ -125,8 +158,12 @@ LONG_GENOME, LONG_COVERAGE, LONG_READ_LEN, LONG_MIN_OVERLAP = (
 KEEP_ALL_BUCKET = 32768
 KEEP_ALL_GENOME, KEEP_ALL_READ_LEN = 200_000, 40_000
 STAGES = ("load", "stage", "count", "project", "embed", "knn", "output")
-# the staging kernels; a CLI run launches each where the plan picks its path
-STAGE_KERNELS = ("stage_rows", "canonical_sample", "select_candidates_long")
+# the staging kernels, the window-code ones on each source; a CLI run
+# launches each where the plan picks its path and the bucket its source
+# (never the byte source)
+STAGE_KERNELS = ("stage_rows", "stage_rows_packed", "stage_rows_bits",
+                 "canonical_sample", "canonical_sample_packed",
+                 "canonical_sample_bits", "select_candidates_long")
 # kernel C's two forms; a run launches the one of its projection
 EMBED_KERNELS = ("membership_embed", "membership_embed_dense")
 # 5d: reads cut from the long-read genome past the largest bucket (bases)
@@ -136,6 +173,8 @@ GOLDEN_RECALL, GOLDEN_MAE, GOLDEN_COSINE = 0.99, 5e-3, 0.999
 
 
 COUNTERS: dict = {}
+# host-side counts read around each CLI run: name -> (function, attribute)
+HOST_COUNTERS: dict = {}
 HAND_KERNELS: set = set()  # __global__ names of csrc/*.cu (is_hand)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): device memory bytes/s, float32 operations/s outside tensor cores
@@ -149,8 +188,18 @@ CSRC = "fedrann_tpu_torch/csrc/"
 SOURCES = {
     "stage_rows": (CSRC + "select_stage_rows.cu",
                    "bench/pallas_kernels.py:128, bench/pallas_sort.py:128"),
+    "stage_rows_packed": (CSRC + "select_stage_rows.cu",
+                          "bench/pallas_kernels.py:128, "
+                          "bench/pallas_sort.py:128"),
+    "stage_rows_bits": (CSRC + "select_stage_rows.cu",
+                        "bench/pallas_kernels.py:128, "
+                        "bench/pallas_sort.py:128"),
     "canonical_sample": (CSRC + "canonical_sample.cu",
                          "bench/pallas_kernels.py:128"),
+    "canonical_sample_packed": (CSRC + "canonical_sample.cu",
+                                "bench/pallas_kernels.py:128"),
+    "canonical_sample_bits": (CSRC + "canonical_sample.cu",
+                              "bench/pallas_kernels.py:128"),
     "select_candidates_long": (CSRC + "select_stage_rows.cu",
                                "bench/pallas_sort.py:128"),
     "membership_embed": (CSRC + "membership_embed.cu",
@@ -228,11 +277,14 @@ def bound(n_bytes: float, fp32_ops: float = 0.0,
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
-def window_op_counts(k: int, kind: str) -> tuple[int, int]:
-    """(work of every window of a block the window-code function computes,
-    more for each valid window it hashes), as csrc/window_codes.cuh counts
-    it for this k: kind "INSTR", integer-pipe instructions (the floor the
-    bound uses), or "OPS", operations at the source (an upper figure)."""
+def window_op_counts(k: int, kind: str,
+                     source: str = "bytes") -> tuple[int, int]:
+    """(work of every window of a block the window-code function computes
+    from `source`, more for each valid window it hashes), as
+    csrc/window_codes.cuh counts it for this k: kind "INSTR", integer-pipe
+    instructions (the floor the bound uses), or "OPS", operations at the
+    source (an upper figure). A window's work is WINDOW_* plus its
+    source's staging, STAGE_*."""
     import math
     import re
 
@@ -240,21 +292,26 @@ def window_op_counts(k: int, kind: str) -> tuple[int, int]:
         src = f.read()
     width = "WIDE" if k > 16 else "NARROW"
     counts = []
-    for name in (f"WINDOW_{kind}_{width}", f"HASH_{kind}_{width}"):
-        m = re.search(rf"constexpr int {name} = ([0-9+* ]+);", src)
-        if m is None:
-            fail(f"no count {name} in {CSRC}window_codes.cuh")
-        counts.append(sum(math.prod(int(f) for f in term.split("*"))
-                          for term in m.group(1).split("+")))
+    for names in ((f"WINDOW_{kind}_{width}", f"STAGE_{kind}_{source.upper()}"),
+                  (f"HASH_{kind}_{width}",)):
+        total = 0
+        for name in names:
+            m = re.search(rf"constexpr int {name} = ([0-9+* ]+);", src)
+            if m is None:
+                fail(f"no count {name} in {CSRC}window_codes.cuh")
+            total += sum(math.prod(int(f) for f in term.split("*"))
+                         for term in m.group(1).split("+"))
+        counts.append(total)
     return counts[0], counts[1]
 
 
-def window_ops(bases, k: int, keep_all: bool) -> tuple[int, int]:
+def window_ops(bases, k: int, keep_all: bool,
+               source: str = "bytes") -> tuple[int, int]:
     """(integer-pipe instructions, source-level operations) the window-code
-    function needs on these (R, L) bases: every window (below W) of each
-    1024-window block with a valid base among the 1,056 it stages (the
-    others are skipped), and the hash of each valid window unless
-    keep_all."""
+    function needs on these (R, L) bases (a PackedChunk's unpacked) from
+    `source`: every window (below W) of each 1024-window block with a
+    valid base among the 1,056 it stages (the others are skipped), and the
+    hash of each valid window unless keep_all."""
     import torch
 
     r, length = bases.shape
@@ -272,7 +329,7 @@ def window_ops(bases, k: int, keep_all: bool) -> tuple[int, int]:
     windows = int((live.to(torch.int64) * in_row).sum())
     counts = []
     for kind in ("INSTR", "OPS"):
-        per_window, per_hash = window_op_counts(k, kind)
+        per_window, per_hash = window_op_counts(k, kind, source)
         counts.append(windows * per_window
                       + (0 if keep_all else valid * per_hash))
     return counts[0], counts[1]
@@ -403,47 +460,174 @@ def p1_host_split(dev, n: int) -> dict:
 
 def check_stage_rows(name: str, bases, k: int, hit_buffer: int,
                      keep_all: bool, seed: int, thr: int, block_cap,
-                     ops: tuple[int, int], card: str) -> dict:
-    """Kernels A and B fused (stage_candidates on rows the plan keeps in
-    one block) against the plain composition of the two on the same
-    bases, bitwise, dropped counts included; its report (the bound: the
-    bases in, the staged rows and dropped counts out, window_ops' `ops`)
-    and a log line with its device us per launch."""
+                     card: str) -> dict:
+    """Kernels A and B fused on byte rows the plan keeps in one block,
+    checked and timed by check_window_kernel; its report and a log line
+    with its device us per launch."""
+    from fedrann_tpu_torch.device import shared_memory_limit
+    from fedrann_tpu_torch.kmers.membership import stage_launch_plan
+
+    plan = stage_launch_plan(bases.shape[1] - k + 1, hit_buffer, keep_all,
+                             block_cap, shared_memory_limit(bases.device))
+    if plan.long:
+        fail(f"{name}: the plan keeps no row in one block")
+    r, dev_us, note = check_window_kernel("stage_rows", bases, k, hit_buffer,
+                                          keep_all, seed, thr, block_cap,
+                                          plan)
+    log(f"{name}: rows {tuple(bases.shape)} k={k} keep_all={keep_all}; "
+        f"bitwise equal; {r['ms']:.4f} ms, device {dev_us} us per launch; "
+        f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {note}) [{card}]")
+    return r
+
+
+def mark_invalid(bases, k: int):
+    """A copy of (R, L) bases with INVALID bases across a block edge (rows
+    0 mod 3), in a block's halo (1 mod 3) and at a block's start (2 mod
+    3): mid-read N."""
+    marked = bases.clone()
+    marked[0::3, 1020:1030] = 4
+    marked[1::3, 2048 + k // 2] = 4
+    marked[2::3, 3072] = 4
+    return marked
+
+
+def packed_chunk(bases, lengths=None):
+    """The 2-bit form of (R, L) byte rows on their device, as the native
+    packer fills it (io/packing.py bit_pack): the packed source (the row
+    lengths; the rows' valid bases must be a prefix) when `lengths` is
+    given, else the bits source (the valid bits). Its unpacked bytes must
+    be `bases`."""
     import torch
 
-    from fedrann_tpu_torch.kmers.codec import _canonical_sample_plain
+    from fedrann_tpu_torch.io.packing import bit_pack
+    from fedrann_tpu_torch.kmers.codec import PackedChunk
+
+    packed, valid = (torch.from_numpy(a).to(bases.device)
+                     for a in bit_pack(bases.cpu().numpy()))
+    chunk = (PackedChunk(packed, bases.shape[1], lengths=lengths)
+             if lengths is not None else
+             PackedChunk(packed, bases.shape[1], valid_bits=valid))
+    if not torch.equal(chunk.unpack(), bases):
+        fail(f"the {chunk.source} form does not unpack to its bases")
+    return chunk
+
+
+def check_window_kernel(kernel: str, x, k: int, hit_buffer: int,
+                        keep_all: bool, seed: int, thr: int, block_cap,
+                        plan) -> tuple[dict, str, str]:
+    """Kernel A ("canonical_sample") or the staging stage ("stage_rows":
+    the fused kernel on a one-block plan, kernel A then B's device-memory
+    path on a long one) on x, a byte matrix or a PackedChunk, against the
+    plain version on x's bytes (unpack_bases[_len] first), bitwise, dropped
+    counts included, each launch counted on x's source. Returns (report,
+    device us per launch, bound note); the report of a long plan's stage
+    is None (kernel A's carries its time)."""
+    import torch
+
+    from fedrann_tpu_torch.kmers.codec import (
+        _canonical_sample_plain,
+        as_bytes,
+        canonical_sample,
+        source_args,
+    )
     from fedrann_tpu_torch.kmers.membership import (
         _select_candidates_plain,
+        select_candidates,
         stage_candidates,
     )
 
-    def plain():
-        return _select_candidates_plain(
-            _canonical_sample_plain(bases, k, seed, thr, keep_all),
-            hit_buffer, keep_all, block_cap)
+    source = source_args(x)[2]
+    inputs = ([x] if source == "bytes" else [x.packed, x.aux])
 
-    def fused():
-        return stage_candidates(bases, k, hit_buffer, keep_all, seed, thr,
+    def plain_a():
+        return _canonical_sample_plain(as_bytes(x), k, seed, thr, keep_all)
+
+    def kernel_a():
+        return canonical_sample(x, k, seed, thr, keep_all)
+
+    def plain_stage():
+        return _select_candidates_plain(plain_a(), hit_buffer, keep_all,
+                                        block_cap)
+
+    def stage():
+        return stage_candidates(x, k, hit_buffer, keep_all, seed, thr,
                                 block_cap)
 
-    before = stage_candidates.launches
-    staged, dropped = fused()
+    fn, plain = (kernel_a, plain_a) if kernel == "canonical_sample" else (
+        stage, plain_stage)
+    counts = (stage_candidates, canonical_sample, select_candidates)
+    before = [getattr(f, a) for f in counts[:2] for a in (
+        f"{source}_launches", "launches")] + [counts[2].long_launches]
+    got = fn()
     torch.cuda.synchronize()
-    if stage_candidates.launches != before + 1:
-        fail(f"{name}: the rows did not stage fused")
-    staged_p, dropped_p = plain()
-    if not (torch.equal(staged, staged_p) and torch.equal(dropped, dropped_p)):
-        fail(f"{name}: the fused kernel differs from the plain composition "
-             f"in {int((staged != staged_p).sum())} slots and "
-             f"{int((dropped != dropped_p).sum())} dropped counts")
-    b, note = window_bound(nbytes(bases, staged, dropped), ops)
-    r = dict(max_abs_err=0.0, ms=time_cuda(fused, 10),
-             plain_ms=time_cuda(plain, 3), library_ms=None, **b)
-    log(f"{name}: rows {tuple(bases.shape)} k={k} keep_all={keep_all}; "
-        f"bitwise equal, dropped {int(dropped.sum())}; {r['ms']:.4f} ms, "
-        f"device {device_us(fused, 10, True)} us per launch; bound "
-        f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {note}) [{card}]")
-    return r
+    after = [getattr(f, a) for f in counts[:2] for a in (
+        f"{source}_launches", "launches")] + [counts[2].long_launches]
+    step = ((0, 0, 1, 1, 0) if kernel == "canonical_sample"
+            else (0, 0, 1, 1, 1) if plan.long else (1, 1, 0, 0, 0))
+    if [a - b for a, b in zip(after, before)] != list(step):
+        fail(f"{kernel} on the {source} source launched {after} from "
+             f"{before}, want one step of {step}")
+    want = plain()
+    if kernel == "canonical_sample":
+        equal = torch.equal(got, want)
+        outputs = [got]
+    else:
+        equal = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        outputs = list(got)
+    if not equal:
+        fail(f"{kernel} on the {source} source differs from its plain "
+             f"version (unpack + plain)")
+    if kernel == "stage_rows" and plan.long:
+        return None, "", ""
+    b, note = window_bound(nbytes(*inputs, *outputs),
+                           window_ops(as_bytes(x), k, keep_all, source))
+    return (dict(max_abs_err=0.0, ms=time_cuda(fn, 10),
+                 plain_ms=time_cuda(plain, 3), library_ms=None, **b),
+            device_us(fn, 10, True), note)
+
+
+def check_sources(label: str, bases, lengths, k: int, hit_buffer: int,
+                  keep_all: bool, seed: int, thr: int, block_cap,
+                  card: str) -> dict:
+    """Phase 3c at one shape: kernel A and the staging stage (the fused
+    kernel, or A then B's device-memory path where the plan keeps no row
+    in one block) on the packed source (`bases`' 2-bit form with their
+    `lengths`; the rows must be prefix-valid) and on the bits source (a
+    copy with mid-read N, mark_invalid, and its valid bits), each against
+    unpack + plain bitwise, logged with its time, bound and device us
+    beside the byte source's on the same bases. Returns the reports keyed
+    "<kernel>_<source>"."""
+    from fedrann_tpu_torch.device import shared_memory_limit
+    from fedrann_tpu_torch.kmers.membership import stage_launch_plan
+
+    plan = stage_launch_plan(bases.shape[1] - k + 1, hit_buffer, keep_all,
+                             block_cap, shared_memory_limit(bases.device))
+    marked = mark_invalid(bases, k)
+    inputs = {"packed": (bases, packed_chunk(bases, lengths)),
+              "bits": (marked, packed_chunk(marked))}
+    reports = {}
+    for kernel in ("stage_rows", "canonical_sample"):
+        for source, (raw, chunk) in inputs.items():
+            byte, byte_us, _ = check_window_kernel(
+                kernel, raw, k, hit_buffer, keep_all, seed, thr, block_cap,
+                plan)
+            rep, dev_us, note = check_window_kernel(
+                kernel, chunk, k, hit_buffer, keep_all, seed, thr,
+                block_cap, plan)
+            if rep is None:
+                log(f"3c {label} {source}: kernel A and B's device-memory "
+                    "path bitwise equal to unpack + plain")
+                continue
+            reports[f"{kernel}_{source}"] = rep
+            log(f"3c {label} {kernel} {source}: rows {tuple(bases.shape)} "
+                f"k={k} keep_all={keep_all}; bitwise equal to unpack + "
+                f"plain; {rep['ms']:.4f} ms (plain {rep['plain_ms']:.4f}), "
+                f"device {dev_us} us; bound {rep['bound_ms']:.5f} ms "
+                f"({rep['bound_by']}, {100 * rep['bound_ms'] / rep['ms']:.1f}"
+                f"%: {note}); the byte source {byte['ms']:.4f} ms, device "
+                f"{byte_us} us, bound {byte['bound_ms']:.5f} ms "
+                f"({100 * byte['bound_ms'] / byte['ms']:.1f}%) [{card}]")
+    return reports
 
 
 def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
@@ -453,8 +637,8 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
 
     from fedrann_tpu_torch import pipeline
     from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.io.native import pack_reads_native
     from fedrann_tpu_torch.kmers.codec import (
-        _canonical_sample_plain,
         canonical_sample,
         sample_threshold,
     )
@@ -470,10 +654,14 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     from fedrann_tpu_torch.project.srp import build_precompute_signs
 
     config = config_from_args(["-i", fasta, "-o", out_dir, *FLAGS])
-    packed = pipeline.load_reads(config)
+    packed = pipeline.load_reads(config, dev)
     bucket = max(packed.buckets, key=lambda b: b.length)
-    rows = pipeline.chunk_rows(bucket.length, bucket.bases.shape[0], config)
-    bases = torch.from_numpy(bucket.bases[:rows]).to(dev)
+    rows = pipeline.chunk_rows(bucket.length, bucket.read_index.shape[0],
+                               config)
+    chunk = pipeline.upload_bucket(bucket, dev)[:rows]
+    if chunk.source != "packed":
+        fail(f"the main chunk uploads as {chunk.source}, want packed")
+    bases = chunk.unpack()  # the byte source's input: the same bases
     hit_buffer, keep_all, block_cap = pipeline.staging_params(bucket.length,
                                                               config)
     k, seed = config.kmer_size, config.seed
@@ -481,27 +669,32 @@ def check_kernels(fasta: str, out_dir: str, dev, card: str) -> dict:
     log(f"kernel shapes: bases {tuple(bases.shape)} k={k} "
         f"hit_buffer={hit_buffer} block_cap={block_cap}")
     report = {}
-    ops = window_ops(bases, k, keep_all)
-
     report["stage_rows"] = check_stage_rows(
         "stage_rows", bases, k, hit_buffer, keep_all, seed, thr, block_cap,
-        ops, card)
+        card)
+    # 3c: the packed and bits sources at the main chunk, then at buckets of
+    # 10,000 and 10,002 bases (rows of 2,500 and 2,501 bytes)
+    report.update(check_sources("main chunk", bases, chunk.lengths, k,
+                                hit_buffer, keep_all, seed, thr, block_cap,
+                                card))
+    for length in (10000, 10002):
+        cfg = config_from_args(["-i", fasta, "-o", out_dir, *FLAGS,
+                                "--length-buckets", str(length)])
+        odd = pack_reads_native(fasta, (length,)).buckets[0]
+        n = pipeline.chunk_rows(length, odd.read_index.shape[0], cfg)
+        odd_chunk = pipeline.upload_bucket(odd, dev)[:n]
+        if odd_chunk.source != "packed":
+            fail(f"the {length}-base bucket uploads as {odd_chunk.source}")
+        hb, every, cap = pipeline.staging_params(length, cfg)
+        check_sources(f"{length}-base bucket", odd_chunk.unpack(),
+                      odd_chunk.lengths, k, hb, every, seed, thr, cap, card)
 
+    report["canonical_sample"], dev_us, note = check_window_kernel(
+        "canonical_sample", bases, k, hit_buffer, keep_all, seed, thr,
+        block_cap, None)
+    log(f"canonical_sample: device us per launch {dev_us}; bound "
+        f"({report['canonical_sample']['bound_by']}: {note}) [{card}]")
     slots = canonical_sample(bases, k, seed, thr, keep_all)
-    slots_p = _canonical_sample_plain(bases, k, seed, thr, keep_all)
-    if not torch.equal(slots, slots_p):
-        fail(f"canonical_sample differs from its plain version in "
-             f"{int((slots != slots_p).sum())} slots")
-    b, note = window_bound(nbytes(bases, slots), ops)
-    report["canonical_sample"] = dict(
-        max_abs_err=0.0,
-        ms=time_cuda(lambda: canonical_sample(bases, k, seed, thr, keep_all), 10),
-        plain_ms=time_cuda(
-            lambda: _canonical_sample_plain(bases, k, seed, thr, keep_all), 3),
-        library_ms=None, **b)
-    log("canonical_sample: device us per launch " + device_us(
-        lambda: canonical_sample(bases, k, seed, thr, keep_all), 10, True)
-        + f"; bound ({b['bound_by']}: {note}) [{card}]")
 
     # kernel B reads slots only on its device-memory path: rows the plan
     # keeps in one block stage from their bases, fused
@@ -701,15 +894,16 @@ def check_dense(staged, library, targets, config, out_dir: str, dev,
         del p_pair
     for name in GOLDEN:
         cfg = golden_config(name, os.path.join(out_dir, name))
-        packed = pipeline.load_reads(cfg)
-        bucket = max(packed.buckets, key=lambda b: b.bases.shape[0])
-        rows = pipeline.chunk_rows(bucket.length, bucket.bases.shape[0], cfg)
+        packed = pipeline.load_reads(cfg, dev)
+        bucket = max(packed.buckets, key=lambda b: b.read_index.shape[0])
+        rows = pipeline.chunk_rows(bucket.length, bucket.read_index.shape[0],
+                                   cfg)
         hit_buffer, keep_all, block_cap = pipeline.staging_params(
             bucket.length, cfg)
         if not keep_all:
             fail(f"golden {name}: an imported library must stage keep_all")
         staged_g, _ = stage_candidates(
-            torch.from_numpy(bucket.bases[:rows]).to(dev), cfg.kmer_size,
+            pipeline.upload_bucket(bucket, dev)[:rows], cfg.kmer_size,
             hit_buffer, keep_all, cfg.seed,
             sample_threshold(cfg.kmer_sample_fraction), block_cap)
         lib, perm = load_reference_library_mapping(cfg.import_library,
@@ -810,7 +1004,10 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
                 f"({plan.smem} B of shared memory)")
             log_kernel("stage_rows_262144", check_stage_rows(
                 "stage_rows_262144", bases, k, hit_buffer, keep_all, seed,
-                thr, block_cap, window_ops(bases, k, keep_all), card), card)
+                thr, block_cap, card), card)
+            check_sources("262,144 chunk", bases, torch.from_numpy(
+                bucket.lengths[:rows]).to(dev), k, hit_buffer, keep_all,
+                seed, thr, block_cap, card)
         report[name] = dict(
             max_abs_err=0.0, ms=ms,
             plain_ms=time_cuda(lambda: _select_candidates_plain(
@@ -828,12 +1025,13 @@ def check_long_rows(sim, fasta: str, out_dir: str, dev, card: str) -> dict:
 
 
 def check_keep_all_rows(sim, flags: list[str], dev, card: str) -> None:
-    """Phase 5c, first half: kernel A, and kernel B's device-memory path on
-    its plane, against their plain versions, bitwise, on each bucket of the
-    keep_all reads that the plan stages that way: its first chunk as the
-    CLI packs it (padding included) and a copy with INVALID bases across a
-    block edge, in a block's halo and at a block's start. Logs A's time and
-    bound at that shape."""
+    """Phase 5c, first half: on the first chunk of each bucket of the
+    keep_all reads that the plan stages through kernel A and kernel B's
+    device-memory path (as the CLI packs it, padding included),
+    check_sources: A and that path from the byte, packed and bits sources
+    (the bits source's copy with INVALID bases across a block edge, in a
+    block's halo and at a block's start) against their plain versions,
+    bitwise, with A's time and bound from each source."""
     import torch
 
     from fedrann_tpu_torch import pipeline
@@ -841,16 +1039,8 @@ def check_keep_all_rows(sim, flags: list[str], dev, card: str) -> None:
     from fedrann_tpu_torch.device import shared_memory_limit
     from fedrann_tpu_torch.io.fastx import FastxRecord
     from fedrann_tpu_torch.io.packing import pack_reads
-    from fedrann_tpu_torch.kmers.codec import (
-        _canonical_sample_plain,
-        canonical_sample,
-        sample_threshold,
-    )
-    from fedrann_tpu_torch.kmers.membership import (
-        _select_candidates_plain,
-        select_candidates,
-        stage_launch_plan,
-    )
+    from fedrann_tpu_torch.kmers.codec import sample_threshold
+    from fedrann_tpu_torch.kmers.membership import stage_launch_plan
 
     config = config_from_args(["-i", "-", "-o", "-", *flags])
     k, seed = config.kmer_size, config.seed
@@ -867,49 +1057,11 @@ def check_keep_all_rows(sim, flags: list[str], dev, card: str) -> None:
             continue
         rows = pipeline.chunk_rows(length, bucket.bases.shape[0], config)
         bases = torch.from_numpy(bucket.bases[:rows]).to(dev)
-        marked = bases.clone()
-        marked[0::3, 1020:1030] = 4
-        marked[1::3, 2048 + k // 2] = 4
-        marked[2::3, 3072] = 4
-        for label, x in (("as packed", bases), ("INVALID marked", marked)):
-            slots = canonical_sample(x, k, seed, thr, keep_all)
-            slots_p = _canonical_sample_plain(x, k, seed, thr, keep_all)
-            torch.cuda.synchronize()
-            if not torch.equal(slots, slots_p):
-                fail(f"canonical_sample on the keep_all {length}-base "
-                     f"bucket ({label}) differs from its plain version in "
-                     f"{int((slots != slots_p).sum())} slots")
-            before = select_candidates.long_launches
-            staged, dropped = select_candidates(slots, hit_buffer, keep_all,
-                                                block_cap)
-            staged_p, dropped_p = _select_candidates_plain(
-                slots_p, hit_buffer, keep_all, block_cap)
-            torch.cuda.synchronize()
-            if select_candidates.long_launches != before + 1:
-                fail(f"keep_all {length}-base bucket: kernel B did not take "
-                     "its device-memory path")
-            if not (torch.equal(staged, staged_p)
-                    and torch.equal(dropped, dropped_p)):
-                fail(f"kernel B's device-memory path on the keep_all "
-                     f"{length}-base bucket ({label}) differs from its "
-                     "plain version")
-            log(f"keep_all {length}-base bucket ({label}): rows "
-                f"{tuple(x.shape)}, {int((x < 4).sum())} valid bases; "
-                "kernel A and B's device-memory path bitwise equal")
-        slots = canonical_sample(bases, k, seed, thr, keep_all)
-        b, note = window_bound(nbytes(bases, slots),
-                               window_ops(bases, k, keep_all))
-        name = f"canonical_sample_keep_all_{length}"
-        r = dict(max_abs_err=0.0,
-                 ms=time_cuda(lambda: canonical_sample(
-                     bases, k, seed, thr, keep_all), 10),
-                 plain_ms=time_cuda(lambda: _canonical_sample_plain(
-                     bases, k, seed, thr, keep_all), 3),
-                 library_ms=None, **b)
-        log_kernel(name, r, card)
-        log(f"{name}: device us per launch " + device_us(
-            lambda: canonical_sample(bases, k, seed, thr, keep_all), 10,
-            True) + f"; bound ({b['bound_by']}: {note}) [{card}]")
+        log(f"keep_all {length}-base bucket: rows {tuple(bases.shape)}, "
+            f"{int((bases < 4).sum())} valid bases")
+        check_sources(f"keep_all {length} chunk", bases, torch.from_numpy(
+            bucket.lengths[:rows]).to(dev), k, hit_buffer, keep_all, seed,
+            thr, block_cap, card)
         checked.append(length)
     if not checked:
         fail("no bucket of the keep_all reads takes kernel A")
@@ -1306,68 +1458,107 @@ def drive_probes() -> dict:
     return launches
 
 
-def stage_paths(sim, flags: list[str], dev) -> set[str]:
-    """The staging kernels (names in COUNTERS) that the plan picks for the
-    buckets of `sim`'s reads packed and staged with `flags` as the pipeline
-    does (a read past the largest bucket split): the fused kernel for a
-    bucket whose rows one block holds, else kernel A and kernel B's
-    device-memory path."""
+def stage_kernels(packed, config, dev) -> set[str]:
+    """The staging kernels (names in COUNTERS) that the plan and the
+    source pick for the buckets of `packed` staged with `config`: the
+    fused kernel for a bucket whose rows one block holds, else kernel A
+    and kernel B's device-memory path; each window-code kernel on the
+    packed source for a bucket without mid-read N (prefix_valid), else on
+    the bits source."""
     from fedrann_tpu_torch import pipeline
-    from fedrann_tpu_torch.cli import config_from_args
     from fedrann_tpu_torch.device import shared_memory_limit
-    from fedrann_tpu_torch.io.fastx import FastxRecord
-    from fedrann_tpu_torch.io.packing import pack_reads
     from fedrann_tpu_torch.kmers.membership import stage_launch_plan
 
-    config = config_from_args(["-i", "-", "-o", "-", *flags])
-    packed = pack_reads([FastxRecord(n, q) for n, q in
-                         zip(sim.names, sim.sequences)], None,
-                        split_overlap=config.kmer_size - 1)
     paths = set()
     for b in packed.buckets:
-        paths.update(("canonical_sample", "select_candidates_long")
+        source = "packed" if b.prefix_valid else "bits"
+        paths.update((f"canonical_sample_{source}", "select_candidates_long")
                      if stage_launch_plan(
                          b.length - config.kmer_size + 1,
                          *pipeline.staging_params(b.length, config),
                          shared_memory_limit(dev)).long
-                     else ("stage_rows",))
+                     else (f"stage_rows_{source}",))
     return paths
+
+
+def stage_paths(sim, flags: list[str], dev) -> set[str]:
+    """stage_kernels of `sim`'s reads packed as the pipeline packs them
+    with `flags` (a read past the largest bucket split), by the plain
+    packer."""
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.io.fastx import FastxRecord
+    from fedrann_tpu_torch.io.packing import pack_reads
+
+    config = config_from_args(["-i", "-", "-o", "-", *flags])
+    return stage_kernels(pack_reads(
+        [FastxRecord(n, q) for n, q in zip(sim.names, sim.sequences)], None,
+        split_overlap=config.kmer_size - 1), config, dev)
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and every host count to 0."""
+    for fn, attr in (*COUNTERS.values(), *HOST_COUNTERS.values()):
+        setattr(fn, attr, 0)
+
+
+def read_counts(table: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in table.items()}
+
+
+def check_host(host: dict, load: str, what: str) -> None:
+    """The host counts of one pipeline run: the Python reader and packer
+    never ran; load "parse": one native parse and no pinning copy (the
+    packer filled pinned memory), "cache": no parse, one cache load."""
+    want = {"read_fastx": 0, "pack_reads": 0}
+    if load == "parse":
+        want.update(pack_reads_native=1, cache_hits=0, pin_copies=0)
+    else:
+        want.update(pack_reads_native=0, cache_hits=1)
+    wrong = {k: host[k] for k, v in want.items() if host[k] != v}
+    if wrong:
+        fail(f"{what}: host counts {wrong}, want {want}")
 
 
 def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
               dev, flags: list[str] = FLAGS,
-              embed: str = "membership_embed"):
+              embed: str = "membership_embed", load: str = "parse",
+              resumed: bool = False):
     """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
-    kernel's count reset just before; every kernel must launch, each
-    staging kernel exactly when the plan picks its path for a bucket of
-    the reads, and of kernel C's two forms `embed` only. Check overlaps.tsv
-    and the truth recall of pairs overlapping >= min_overlap. Returns the
-    launch counts and the stage seconds."""
-    paths = stage_paths(sim, flags, dev)
+    count reset just before; every kernel must launch, each staging kernel
+    exactly when the plan and the source pick it for a bucket of the reads
+    (never on the byte source), and of kernel C's two forms `embed` only;
+    `resumed` (a rerun over --keep-intermediates checkpoints): no staging
+    kernel and no kernel C. The load goes as `load` says (check_host).
+    Check overlaps.tsv and the truth recall of pairs overlapping >=
+    min_overlap. Returns the launch counts and the stage seconds."""
+    paths = set() if resumed else stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
 
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    reset_counts()
     n_reads = len(sim.names)
     t0 = time.perf_counter()
     rc = cli_main(["-i", fasta, "-o", out_dir, *flags])
     wall = time.perf_counter() - t0
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in COUNTERS.items()}
+    launches = read_counts(COUNTERS)
+    host = read_counts(HOST_COUNTERS)
     if rc != 0:
         fail(f"cli.main returned {rc}")
-    check_launches(launches, paths, embed, "the main path")
-    log(f"main path launches: {launches}")
+    check_launches(launches, paths, None if resumed else embed,
+                   "the main path")
+    check_host(host, load, "the main path")
+    log(f"main path launches: {launches}; host counts: {host}")
 
     with open(os.path.join(out_dir, "metrics.json")) as f:
         stages = json.load(f)
-    secs = {s: stages[s]["seconds"] for s in STAGES}
+    secs = {s: stages[s]["seconds"] for s in STAGES if s in stages}
     log(f"stage seconds [{card}]: "
-        + ", ".join(f"{s} {v:.3f}" for s, v in secs.items()))
+        + ", ".join(f"{s} {v:.3f}" for s, v in secs.items())
+        + f"; load {load}, uploaded "
+        f"{stages.get('stage', {}).get('h2d_bytes', 0):.0f} bytes")
     log(f"main path: {n_reads} reads in {wall:.2f} s wall = "
         f"{n_reads / wall:.1f} reads/s; device stages (stage..knn) "
-        f"{sum(secs[s] for s in ('stage', 'count', 'project', 'embed', 'knn')):.3f} s "
+        f"{sum(secs.get(s, 0.0) for s in ('stage', 'count', 'project', 'embed', 'knn')):.3f} s "
         f"[{card}]")
 
     header, per_query, nbrs = read_overlaps(
@@ -1405,6 +1596,135 @@ def check_launches(launches: dict, paths: set, embed: str,
         if (n > 0) != want:
             fail(f"kernel {name} was launched {n} times by {what}, "
                  f"expected {'some' if want else 'none'}")
+
+
+def load_split(fasta: str, out_dir: str, card: str) -> None:
+    """Phase 4c, second half: where the main path's load goes, each
+    piece on the host clock: the native parse on 1 and 8 threads, the
+    parse and pack into pinned and into pageable memory, the cache write
+    and the cache load."""
+    from fedrann_tpu_torch.io import cache, native
+
+    split = int(FLAGS[FLAGS.index("-k") + 1]) - 1
+    secs = {}
+
+    def clock(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    clock("parse (1 thread)", lambda: native.parse_fastx_native(fasta, 1))
+    clock("parse (8 threads)", lambda: native.parse_fastx_native(fasta, 8))
+    packed = clock("parse + pack, pinned", lambda: native.pack_reads_native(
+        fasta, None, split_overlap=split, pin_memory=True))
+    clock("parse + pack, pageable", lambda: native.pack_reads_native(
+        fasta, None, split_overlap=split))
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "fxcache.npz")
+    meta = cache.cache_meta(fasta, None, split)
+    clock("cache write", lambda: cache.save_packed_cache(path, packed, meta))
+    clock("cache load", lambda: cache.load_packed_cache(path, meta))
+    log("4c load split: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                      secs.items())
+        + f"; fxcache.npz {os.path.getsize(path)} bytes [{card}]")
+
+
+def check_checkpoints(fasta: str, out_dir: str, sim, card: str, dev) -> None:
+    """Phase 4d: the main path with --keep-intermediates, then the same
+    again: the rerun loads from the cache, resumes the library and the
+    embeddings (no staging kernel, no kernel C) and writes a
+    byte-identical overlaps.tsv."""
+    flags = [*FLAGS, "--keep-intermediates"]
+    drive_cli(fasta, out_dir, sim, MIN_OVERLAP, card, dev, flags)
+    ckpt = os.path.join(out_dir, "checkpoints")
+    missing = [f for f in ("library.npz", "embeddings.npy",
+                           "embeddings_meta.json")
+               if not os.path.exists(os.path.join(ckpt, f))]
+    if missing:
+        fail(f"4d: --keep-intermediates wrote no {missing}")
+    tsv = os.path.join(out_dir, "overlaps.tsv")
+    with open(tsv, "rb") as f:
+        first = f.read()
+    launches, secs = drive_cli(fasta, out_dir, sim, MIN_OVERLAP, card, dev,
+                               flags, load="cache", resumed=True)
+    with open(tsv, "rb") as f:
+        if f.read() != first:
+            fail("4d: the resumed run's overlaps.tsv differs from the first")
+    log(f"4d resumed run: no staging kernel and no kernel C ({launches}); "
+        f"load {secs['load']:.3f} s from fxcache.npz; overlaps.tsv "
+        f"byte-identical ({len(first)} bytes) [{card}]")
+
+
+def device_busy_us(trace_path: str) -> tuple[float, int]:
+    """(device busy microseconds: the union of the intervals of the
+    kernels, copies and sets in a torch.profiler Chrome trace, their
+    count)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, cur = 0.0, None
+    for start, end in spans:
+        if cur is None or start > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return busy + (cur[1] - cur[0] if cur else 0.0), len(spans)
+
+
+def check_feature_flags(fasta: str, out_dir: str, sim, card: str,
+                        dev) -> None:
+    """Phase 4e: run_pipeline on the main path with --profile --mprof
+    --save-feature-matrix and the counts reset just before, checked as
+    phase 4's launches and loads: trace/trace.json, mprof.dat and
+    feature_matrix.npz must exist, the .npz embeddings and names must
+    equal the result's; logs the device busy time and idle share that the
+    trace gives."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+
+    config = config_from_args(["-i", fasta, "-o", out_dir, *FLAGS,
+                               "--profile", "--mprof",
+                               "--save-feature-matrix"])
+    paths = stage_paths(sim, FLAGS, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = pipeline.run_pipeline(config, dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check_launches(read_counts(COUNTERS), paths, "membership_embed",
+                   "the 4e run")
+    check_host(read_counts(HOST_COUNTERS), "parse", "the 4e run")
+    trace = os.path.join(out_dir, "trace", "trace.json")
+    mprof = os.path.join(out_dir, "mprof.dat")
+    matrix = os.path.join(out_dir, "feature_matrix.npz")
+    missing = [p for p in (trace, mprof, matrix) if not os.path.exists(p)]
+    if missing:
+        fail(f"4e: no {missing}")
+    saved = np.load(matrix)
+    if not (np.array_equal(saved["embeddings"], res.embeddings.cpu().numpy())
+            and saved["names"].tolist() == res.names):
+        fail("4e: feature_matrix.npz differs from the run's embeddings")
+    with open(mprof) as f:
+        lines = f.read().splitlines()
+    if lines[0] != "MT 1.0" or not any(ln.startswith("MEM ")
+                                       for ln in lines):
+        fail(f"4e: mprof.dat is not in mprof format: {lines[:3]}")
+    busy_us, n = device_busy_us(trace)
+    if n == 0:
+        fail("4e: the trace holds no device activity")
+    log(f"4e --profile --mprof --save-feature-matrix: {wall_ms:.1f} ms of "
+        f"wall (profiled); device busy {busy_us / 1e3:.3f} ms over {n} "
+        f"kernels and copies: idle {100 * (1 - busy_us / 1e3 / wall_ms):.2f}"
+        f"%; stage seconds " + ", ".join(
+            f"{s} {res.metrics[s]['seconds']:.3f}" for s in STAGES)
+        + f"; {len(lines) - 1} memory samples; feature_matrix.npz "
+        f"{os.path.getsize(matrix)} bytes [{card}]")
 
 
 def ultra_long_reads(sim):
@@ -1459,7 +1779,9 @@ def check_split_reads(sim, out_dir: str, dev, card: str) -> dict:
     write_fasta(fasta, reads.names, reads.sequences)
     config = config_from_args(["-i", fasta, "-o", os.path.join(out_dir, "o"),
                                *FLAGS])
-    packed = pipeline.load_reads(config)
+    # no cache here: the run below parses
+    packed = pipeline.load_reads(dataclasses.replace(config,
+                                                     pack_cache=False))
     ultra = list(range(len(sim.names), len(reads.names)))
     if packed.split_read_ids is None or sorted(
             packed.split_read_ids.tolist()) != ultra:
@@ -1501,15 +1823,14 @@ def check_split_reads(sim, out_dir: str, dev, card: str) -> dict:
                                              config.window_batch))
     del staged, rows, proj, out
 
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    paths = stage_paths(reads, FLAGS, dev)
+    reset_counts()
     t0 = time.perf_counter()
     res = pipeline.run_pipeline(config, dev)
     wall = time.perf_counter() - t0
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in COUNTERS.items()}
-    check_launches(launches, stage_paths(reads, FLAGS, dev),
-                   "membership_embed", "the split-read run")
+    launches = read_counts(COUNTERS)
+    check_host(read_counts(HOST_COUNTERS), "parse", "the split-read run")
+    check_launches(launches, paths, "membership_embed", "the split-read run")
     if launches["membership_embed"] != chunks + groups:
         fail(f"5d: kernel C launched {launches['membership_embed']} times, "
              f"want {chunks} staging chunks + {groups} union groups")
@@ -1549,20 +1870,27 @@ def check_golden(out_dir: str, dev, card: str) -> int:
 
     from fedrann_tpu_torch import pipeline
     from fedrann_tpu_torch.eval import OverlapTable, neighbor_recall
+    from fedrann_tpu_torch.io.fastx import read_fastx
+    from fedrann_tpu_torch.io.packing import pack_reads
 
     dense = 0
     for name in GOLDEN:
         data = os.path.join(HERE, "bench", "golden", name)
         config = golden_config(name, os.path.join(out_dir, name))
-        for fn, attr in COUNTERS.values():
-            setattr(fn, attr, 0)
+        paths = stage_kernels(pack_reads(
+            read_fastx(config.input_path), config.length_buckets,
+            split_overlap=config.kmer_size - 1), config, dev)
+        reset_counts()
         t0 = time.perf_counter()
         res = pipeline.run_pipeline(config, dev)
         wall = time.perf_counter() - t0
-        launches = {n: getattr(fn, attr)
-                    for n, (fn, attr) in COUNTERS.items()}
-        check_launches(launches, {"stage_rows"}, "membership_embed_dense",
+        launches = read_counts(COUNTERS)
+        host = read_counts(HOST_COUNTERS)
+        check_launches(launches, paths, "membership_embed_dense",
                        f"the golden {name} run")
+        # the imported library is read by the Python reader; the reads not
+        if host["pack_reads_native"] != 1 or host["pack_reads"] != 0:
+            fail(f"golden {name}: host counts {host}")
         dense += launches["membership_embed_dense"]
         rep = neighbor_recall(
             OverlapTable.read(os.path.join(data, "overlaps_ref.tsv")),
@@ -1685,8 +2013,12 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         import fedrann_tpu_torch  # noqa: F401
-        from fedrann_tpu_torch import _build
+        from fedrann_tpu_torch import _build, pipeline
         from fedrann_tpu_torch.device import get_device
+        from fedrann_tpu_torch.io import native
+        from fedrann_tpu_torch.io.cache import load_packed_cache
+        from fedrann_tpu_torch.io.fastx import read_fastx
+        from fedrann_tpu_torch.io.packing import pack_reads
         from fedrann_tpu_torch.kmers.codec import canonical_sample
         from fedrann_tpu_torch.kmers.membership import (
             STATIC_SMEM,
@@ -1701,12 +2033,23 @@ def main() -> None:
     except ImportError as e:
         fail(f"cannot import the port from {HERE}: {e}")
     # kernel -> (wrapper, its launch count): one count per path of kernel B
+    # and per source of the window-code kernels
     COUNTERS.update({
-        "stage_rows": (stage_candidates, "launches"),
-        "canonical_sample": (canonical_sample, "launches"),
+        **{f"stage_rows{sfx}": (stage_candidates, f"{src}_launches")
+           for sfx, src in (("", "bytes"), ("_packed", "packed"),
+                            ("_bits", "bits"))},
+        **{f"canonical_sample{sfx}": (canonical_sample, f"{src}_launches")
+           for sfx, src in (("", "bytes"), ("_packed", "packed"),
+                            ("_bits", "bits"))},
         "select_candidates_long": (select_candidates, "long_launches"),
         "membership_embed": (membership_embed, "launches"),
         "membership_embed_dense": (membership_embed_dense, "launches")})
+    HOST_COUNTERS.update({
+        "pack_reads_native": (native.pack_reads_native, "calls"),
+        "read_fastx": (read_fastx, "calls"),
+        "pack_reads": (pack_reads, "calls"),
+        "cache_hits": (load_packed_cache, "hits"),
+        "pin_copies": (pipeline.upload_bucket, "pin_copies")})
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -1734,6 +2077,17 @@ def main() -> None:
         for line in open(build_log).read().splitlines():
             if "registers" in line or "error" in line.lower():
                 log(f"  ptxas: {line.strip()}")
+    # 2b: the host library, from native/fastxpack.cpp into _kernels/
+    t0 = time.perf_counter()
+    host_so = _build.build_host()
+    lib = native.load_native()
+    log(f"host library build: {time.perf_counter() - t0:.2f} s -> "
+        f"{os.path.relpath(lib._name, HERE)}")
+    if (os.path.realpath(os.path.dirname(lib._name))
+            != os.path.realpath(_build.BUILD_DIR)
+            or os.path.realpath(lib._name) != os.path.realpath(host_so)):
+        fail(f"the host library loaded from {lib._name}, not from "
+             f"{_build.BUILD_DIR}")
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1751,6 +2105,13 @@ def main() -> None:
 
         launches, secs = drive_cli(fasta, os.path.join(tmp, "out"), sim,
                                    MIN_OVERLAP, card, dev)
+        # 4c: the same again on the same -o: from the packed-reads cache
+        _, secs_c = drive_cli(fasta, os.path.join(tmp, "out"), sim,
+                              MIN_OVERLAP, card, dev, load="cache")
+        log(f"4c cache rerun: load {secs_c['load']:.3f} s from fxcache.npz, "
+            f"phase 4 (native parse) {secs['load']:.3f} s; output "
+            f"{secs_c['output']:.3f} s [{card}]")
+        load_split(fasta, os.path.join(tmp, "load"), card)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "prof"), card, "main path")
         # 4b: the main path with dense paired tables: kernel C's dense form
@@ -1765,6 +2126,10 @@ def main() -> None:
                 f"{secs_d['project']:.3f} s, embed {secs_d['embed']:.3f} s; "
                 f"phase 4 (signs): project {secs['project']:.3f} s, embed "
                 f"{secs['embed']:.3f} s [{card}]")
+        # 4d: checkpoints and a resumed rerun; 4e: the feature flags
+        check_checkpoints(fasta, os.path.join(tmp, "ckpt"), sim, card, dev)
+        check_feature_flags(fasta, os.path.join(tmp, "flags"), sim, card,
+                            dev)
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,
@@ -1801,8 +2166,10 @@ def main() -> None:
         keep_all_launches, _ = drive_cli(
             fasta, os.path.join(tmp, "kout"), sim, KEEP_ALL_READ_LEN // 2,
             card, dev, flags)
-        for name in ("canonical_sample", "select_candidates_long"):
-            launches[name] += long_launches[name] + keep_all_launches[name]
+        for name in STAGE_KERNELS:  # the fused kernels: the main path's
+            if not name.startswith("stage_rows"):
+                launches[name] += (long_launches[name]
+                                   + keep_all_launches[name])
 
         # 7: golden parity against the reference's own artifacts
         dense_launches += check_golden(os.path.join(tmp, "golden"), dev,
@@ -1814,6 +2181,10 @@ def main() -> None:
 
     if "jax" in sys.modules or "fedrann_tpu" in sys.modules:
         fail("the port imported jax or fedrann_tpu")
+    with open("/proc/self/maps") as f:
+        if os.path.realpath(os.path.join(HERE, "native",
+                                         "libfastxpack.so")) in f.read():
+            fail("native/libfastxpack.so was loaded")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels in `csrc/`.
+"""Build and load the hand-written CUDA kernels in `csrc/`, and build the
+host library of the native FASTX packer and TSV writer.
 
 All `csrc/*.cu` sources compile in ONE nvcc call into a shared library with
 a plain C interface, loaded with ctypes (no PyTorch headers, so the build
@@ -6,6 +7,11 @@ takes seconds). The library lands in `_kernels/` beside this file (listed in
 .gitignore), named by a hash of the sources, so an edited source rebuilds
 and an unchanged one loads the existing build. The build happens at the
 first kernel launch in a process, never at import.
+
+The host library is `native/fastxpack.cpp` of the repository, compiled
+unchanged by g++ (`build_host`) into `_kernels/` the same way, at the
+first parse or write; `io/native.py` loads it. There is no fallback: a
+failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -25,6 +31,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SOURCE = Path(__file__).resolve().parent.parent / "native" / \
+    "fastxpack.cpp"
+# no -march=native: the library is built where it runs, but one build dir
+# may serve hosts of different CPUs
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+HOST_LIBS = ("-lz", "-lpthread")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -34,13 +46,15 @@ _U32 = ctypes.c_uint32
 # C entry points of csrc/*.cu: name -> argtypes (every one returns the
 # cudaError_t of its launch as an int)
 _SIGNATURES = {
-    # bases, rows, length, w, k, s1, s2, threshold, keep_all, out, stream
-    "fk_canonical_sample": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32,
-                            _I32, _P, _P],
-    # bases, rows, length, w, k, s1, s2, threshold, keep_all, hit_buffer,
-    # blocked, cap, n_blocks, smem_bytes, staged, width, dropped, stream
-    "fk_stage_rows": [_P, _I64, _I64, _I64, _I32, _U32, _U32, _U32, _I32,
-                      _I64, _I32, _I32, _I32, _I32, _P, _I64, _P, _P],
+    # bases, aux, src, rows, length, w, k, s1, s2, threshold, keep_all,
+    # out, stream
+    "fk_canonical_sample": [_P, _P, _I32, _I64, _I64, _I64, _I32, _U32, _U32,
+                            _U32, _I32, _P, _P],
+    # bases, aux, src, rows, length, w, k, s1, s2, threshold, keep_all,
+    # hit_buffer, blocked, cap, n_blocks, smem_bytes, staged, width,
+    # dropped, stream
+    "fk_stage_rows": [_P, _P, _I32, _I64, _I64, _I64, _I32, _U32, _U32, _U32,
+                      _I32, _I64, _I32, _I32, _I32, _I32, _P, _I64, _P, _P],
     # bytes (out, one int32)
     "fk_stage_rows_static_smem": [_P],
     # slots, rows, w, blocked, cap, n_blocks, n_surv, chunk, n_chunks,
@@ -95,6 +109,29 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfedrann_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(so: Path, command: list[str], what: str) -> Path:
+    """Run `command`, which writes the library to the path that follows
+    its "-o", into a temporary file renamed to `so` (atomic: a concurrent
+    build never sees half a file); the compiler's output is kept beside it
+    as `<library>.log`. Raises RuntimeError with that output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        command[command.index("-o") + 1] = tmp
+        proc = subprocess.run(command, capture_output=True, text=True,
+                              check=False)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{what} failed ({proc.returncode}):\n{log}")
+        Path(str(so) + ".log").write_text(log)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists; the
     compiler's output (ptxas register and shared-memory use) is kept
@@ -102,23 +139,30 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        Path(str(so) + ".log").write_text(log)
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+    return _compile(so, [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", "",
+                         *cu], "nvcc")
+
+
+def host_library_path(source: Path = HOST_SOURCE) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS + HOST_LIBS).encode())
+    digest.update(source.read_bytes())
+    return BUILD_DIR / f"libfastxpack_{digest.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path = HOST_SOURCE) -> Path:
+    """Compile the host library (native/fastxpack.cpp) with g++ into
+    `_kernels/` unless the build of this source exists."""
+    so = host_library_path(source)
+    if so.exists():
+        return so
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found on PATH: the host library of fedrann_tpu_torch "
+            f"builds from {source} at first use")
+    return _compile(so, [cxx, *HOST_FLAGS, "-o", "", str(source),
+                         *HOST_LIBS], "g++")
 
 
 @functools.cache

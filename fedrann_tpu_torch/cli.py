@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kmer-min-multiplicity", type=int, default=2,
                    help="Minimum allowed frequency of a k-mer in all reads.")
     p.add_argument("--threads", type=int, default=1,
-                   help="Host-side worker threads (I/O).")
+                   help="Host-side worker threads (the native FASTA parse).")
     p.add_argument("--chunk-size", type=int, default=None,
                    help="Reads per device batch (default: auto-sized).")
     p.add_argument("-n", "--embedding-dimension", type=int, default=500)
@@ -46,11 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=356115,
                    help="Random seed (library sampling).")
     p.add_argument("--save-feature-matrix", action="store_true",
-                   help="Save embeddings to feature_matrix.npz (not ported).")
+                   help="Save embeddings to feature_matrix.npz.")
     p.add_argument("--keep-intermediates", action="store_true",
-                   help="Keep stage checkpoints (not ported).")
+                   help="Keep stage checkpoints (library, embeddings).")
     p.add_argument("--mprof", action="store_true",
-                   help="Record memory usage to mprof.dat (not ported).")
+                   help="Record memory usage to mprof.dat (mprof format).")
     p.add_argument("--projection-seed", type=int, default=2094,
                    help="SRP seed.")
     p.add_argument("--projection-density", type=float, default=None,
@@ -99,8 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="A scipy .npz precompute matrix to use as the "
                         "projection (float32).")
     p.add_argument("--no-pack-cache", action="store_true",
-                   help="Accepted for parity; the port keeps no pack cache.")
-    p.add_argument("--profile", action="store_true")
+                   help="Do not read or write <output-dir>/fxcache.npz.")
+    p.add_argument("--profile", action="store_true",
+                   help="Write a torch.profiler trace to <output-dir>/trace.")
     p.add_argument("--log-level", default="INFO")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)

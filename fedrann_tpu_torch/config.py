@@ -3,9 +3,9 @@
 same fields.
 
 Fields that select paths this port does not have yet (IVF, the HBM budget,
-multi-host launch, profiling, checkpoints, feature-matrix output) are kept
-so the CLI parses every flag; the pipeline rejects them with
-NotImplementedError naming the ROADMAP item.
+multi-host launch, multi-GPU k-NN) are kept so the CLI parses every flag;
+the pipeline rejects them with NotImplementedError naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ class PipelineConfig:
     kmer_size: int = 16                   # -k / --kmer-size
     kmer_sample_fraction: float = 0.005   # --kmer-sample-fraction
     kmer_min_multiplicity: int = 2        # --kmer-min-multiplicity
-    threads: int = 1                      # --threads (host-side IO workers)
+    threads: int = 1                      # --threads (native parse workers)
     # --chunk-size: reads per device batch; None = window_batch decides
     chunk_size: Optional[int] = None
     embedding_dimension: int = 500        # -n / --embedding-dimension

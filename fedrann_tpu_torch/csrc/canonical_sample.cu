@@ -15,18 +15,21 @@
 // membership.stage_launch_plan decides).
 //
 // One block of 256 threads per (row, 1024-window block): window_slots
-// (window_codes.cuh) stages the block's bases and halo, packs them into a
-// 2-bit stream and an invalid mask in shared memory, and gives each thread
-// its 4 windows' slots in O(1) operations each; a block whose bases are all
-// INVALID skips the codes and hashes. The thread stores its 4 slots with
-// 16-byte stores where the row is aligned.
+// (window_codes.cuh) stages the block's bases and halo from the row's
+// source (a byte matrix, or the packer's 2-bit stream with the row's
+// length or its valid bits) as a 2-bit stream and an invalid mask in
+// shared memory, and gives each thread its 4 windows' slots in O(1)
+// operations each; a block whose bases are all INVALID skips the codes and
+// hashes. The thread stores its 4 slots with 16-byte stores where the row
+// is aligned.
 //
-// Bound on the card: the larger of the bytes (one byte of bases in and 8
-// bytes of slots out per window: 0.090 ms at the main path's 2,048 x 16,384
-// chunk) and the integer work (WINDOW_INSTR_* + HASH_INSTR_* of
-// window_codes.cuh per window over 132 SMs x 64 INT32 lanes x 1.98 GHz),
-// which chip_smoke.py prints beside its time. Writing the plane is the
-// point of this form, so the bytes stay.
+// Bound on the card: the larger of the bytes (one byte of bases, or a
+// quarter byte packed, in and 8 bytes of slots out per window: 0.090 ms
+// from bytes at the main path's 2,048 x 16,384 chunk) and the integer work
+// (WINDOW_INSTR_* + STAGE_INSTR_* + HASH_INSTR_* of window_codes.cuh per
+// window over 132 SMs x 64 INT32 lanes x 1.98 GHz), which chip_smoke.py
+// prints beside its time. Writing the plane is the point of this form, so
+// the bytes stay.
 
 #include "window_codes.cuh"
 
@@ -53,7 +56,7 @@ __device__ __forceinline__ void store_slots(int64_t* row, int64_t w,
     if (c + i < w) row[c + i] = v[i];
 }
 
-template <bool WIDE>
+template <bool WIDE, int SRC>
 __global__ void __launch_bounds__(A_THREADS)
 canonical_sample_kernel(WindowParams p, int n_blocks,
                         int64_t* __restrict__ out) {
@@ -61,33 +64,56 @@ canonical_sample_kernel(WindowParams p, int n_blocks,
   __shared__ WindowStage stage;
   const int64_t r = blockIdx.x / n_blocks;
   const int64_t b = blockIdx.x - r * n_blocks;
-  const uint8_t* row = p.bases + r * p.length;
-  const int c = threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1;
-  const uint4 chunk =
-      c < 0 ? uint4{} : load_window_chunk(row, p.length, b, c, aligned16(row));
+  const int c =
+      threadIdx.x < WINDOW_CHUNKS ? static_cast<int>(threadIdx.x) : -1;
+  WindowChunk chunk{};
+  if (c >= 0) {
+    const RowSource<SRC> src(p, r);
+    chunk = RowSource<SRC>::chunk(src.fetch(b, c));
+  }
   int64_t v[PER];
   window_slots<PER, WIDE>(p, b, c, chunk, stage, v);
   store_slots(out + r * p.w, p.w, b, v);
 }
 
+template <bool WIDE>
+void launch_canonical_sample(const WindowParams& p, int src, unsigned grid,
+                             int n_blocks, int64_t* out, cudaStream_t st) {
+  if (src == SRC_PACKED) {
+    canonical_sample_kernel<WIDE, SRC_PACKED>
+        <<<grid, A_THREADS, 0, st>>>(p, n_blocks, out);
+  } else if (src == SRC_BITS) {
+    canonical_sample_kernel<WIDE, SRC_BITS>
+        <<<grid, A_THREADS, 0, st>>>(p, n_blocks, out);
+  } else {
+    canonical_sample_kernel<WIDE, SRC_BYTES>
+        <<<grid, A_THREADS, 0, st>>>(p, n_blocks, out);
+  }
+}
+
 }  // namespace
 
-// s1 = fmix32(seed32), s2 = fmix32(s1 ^ 0x9E3779B9), computed by the caller.
-extern "C" int fk_canonical_sample(const uint8_t* bases, int64_t rows,
-                                   int64_t length, int64_t w, int k,
-                                   uint32_t s1, uint32_t s2,
+// src (SRC_BYTES, SRC_PACKED or SRC_BITS of window_codes.cuh) says what
+// `bases` and `aux` hold (WindowParams). s1 = fmix32(seed32), s2 =
+// fmix32(s1 ^ 0x9E3779B9), computed by the caller.
+extern "C" int fk_canonical_sample(const uint8_t* bases, const void* aux,
+                                   int src, int64_t rows, int64_t length,
+                                   int64_t w, int k, uint32_t s1, uint32_t s2,
                                    uint32_t threshold, int keep_all,
                                    int64_t* out, void* stream) {
   if (rows <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (src < SRC_BYTES || src > SRC_BITS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = static_cast<int>((w + SELECT_BLOCK - 1) / SELECT_BLOCK);
-  const WindowParams p{bases, length, w, k, s1, s2, threshold, keep_all};
+  const WindowParams p{bases, aux, length,
+                       src == SRC_BYTES ? length : (length + 3) / 4,
+                       w, k, s1, s2, threshold, keep_all};
   const unsigned grid = static_cast<unsigned>(rows * n_blocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k > 16) {
-    canonical_sample_kernel<true><<<grid, A_THREADS, 0, st>>>(p, n_blocks, out);
+    launch_canonical_sample<true>(p, src, grid, n_blocks, out, st);
   } else {
-    canonical_sample_kernel<false><<<grid, A_THREADS, 0, st>>>(p, n_blocks,
-                                                               out);
+    launch_canonical_sample<false>(p, src, grid, n_blocks, out, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

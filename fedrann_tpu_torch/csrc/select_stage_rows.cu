@@ -15,13 +15,16 @@
 // where the buffer leaves room for only one block an SM), 4 slots a thread
 // (1) per 1024-slot block. The slots are computed from the bases by
 // window_slots (window_codes.cuh), O(1) operations a window, with the next
-// block's bases loaded one block ahead. The (R, W) slot plane never
-// reaches device memory: the function reads one byte of bases per window
-// and writes `width` staged slots (at the main path's 2,048 x 16,384 chunk
-// 33.5 MB in, 16.8 MB out, 0.015 ms at 3.35 TB/s), so integer work bounds
-// it: the window codes and the hash, 43 integer-pipe instructions a valid
-// sampled window at k <= 16 (window_codes.cuh counts them), ~0.05 ms over
-// 132 SMs x 64 INT32 lanes x 1.98 GHz. Then:
+// block's bases loaded one block ahead, from the rows' source: a byte
+// matrix, or the packer's 2-bit stream with each row's length or valid
+// bits (the pipeline's upload). The (R, W) slot plane never reaches device
+// memory: the function reads one byte of bases per window (a quarter byte
+// packed) and writes `width` staged slots (at the main path's 2,048 x
+// 16,384 chunk from bytes 33.5 MB in, 16.8 MB out, 0.015 ms at 3.35
+// TB/s), so integer work bounds it: the window codes and the hash, 43
+// integer-pipe instructions a valid sampled window at k <= 16 from bytes,
+// 40 packed (window_codes.cuh counts them), ~0.05 ms over 132 SMs x 64
+// INT32 lanes x 1.98 GHz. Then:
 //   1. each 1024-slot block's candidates (slots other than PAD_SLOT) are
 //      compacted into the survivor buffer in shared memory by a block
 //      prefix sum (`block_scan`) and counted;
@@ -128,28 +131,30 @@ __device__ __forceinline__ int compact_slots(const int64_t (&v)[PER],
 // block's writes. Shared memory holds the row's survivors plus one
 // 1024-slot block being compacted. Full-width rows come with cap =
 // SELECT_BLOCK and width = hit_buffer.
-template <int THREADS, bool WIDE>
+template <int THREADS, bool WIDE, int SRC>
 __global__ void __launch_bounds__(THREADS)
 select_stage_rows_kernel(const WindowParams p, int cap, int n_blocks,
                          int64_t* __restrict__ staged, int64_t width,
                          int32_t* __restrict__ dropped) {
   constexpr int PER = SELECT_BLOCK / THREADS;
+  using Raw = typename RowSource<SRC>::Raw;
   extern __shared__ int64_t surv[];
   __shared__ int scratch[2][33];
   __shared__ WindowStage stage;
   const int64_t r = blockIdx.x;
-  const uint8_t* row = p.bases + r * p.length;
-  const bool aligned = aligned16(row);
-  const int chunk = threadIdx.x < WINDOW_CHUNKS ? threadIdx.x : -1;
-  uint4 next{};  // this thread's chunk of the next block
-  if (chunk >= 0) next = load_window_chunk(row, p.length, 0, chunk, aligned);
+  const RowSource<SRC> src(p, r);
+  const int chunk =
+      threadIdx.x < WINDOW_CHUNKS ? static_cast<int>(threadIdx.x) : -1;
+  Raw next{};  // this thread's chunk of the next block
+  if (chunk >= 0) next = src.fetch(0, chunk);
   int n_surv = 0, n_cand = 0;
   for (int b = 0; b < n_blocks; ++b) {
-    const uint4 held = next;
-    if (chunk >= 0 && b + 1 < n_blocks)
-      next = load_window_chunk(row, p.length, b + 1, chunk, aligned);
+    const Raw held = next;
+    if (chunk >= 0 && b + 1 < n_blocks) next = src.fetch(b + 1, chunk);
+    WindowChunk bits{};
+    if (chunk >= 0) bits = RowSource<SRC>::chunk(held);
     int64_t v[PER];
-    window_slots<PER, WIDE>(p, b, chunk, held, stage, v);
+    window_slots<PER, WIDE>(p, b, chunk, bits, stage, v);
     const int count = compact_slots(v, surv + n_surv, scratch[b & 1]);
     n_cand += count;
     if (count > cap) {  // keep the block's cap smallest candidates
@@ -172,7 +177,7 @@ select_stage_rows_kernel(const WindowParams p, int cap, int n_blocks,
 // Launches the one-block kernel over `rows` rows with 256 threads or, past
 // WIDE_SMEM of survivor buffer, 1,024. Full-width rows (blocked = 0) keep
 // every candidate.
-template <bool WIDE>
+template <bool WIDE, int SRC>
 int launch_stage_rows(const WindowParams& p, int64_t rows, int64_t w,
                       int64_t hit_buffer, int blocked, int cap, int n_blocks,
                       int smem_bytes, int64_t* staged, int64_t width,
@@ -186,9 +191,9 @@ int launch_stage_rows(const WindowParams& p, int64_t rows, int64_t w,
   const bool wide = smem_bytes > WIDE_SMEM;
   const void* kernel = wide
       ? reinterpret_cast<const void*>(
-            select_stage_rows_kernel<WIDE_THREADS, WIDE>)
+            select_stage_rows_kernel<WIDE_THREADS, WIDE, SRC>)
       : reinterpret_cast<const void*>(
-            select_stage_rows_kernel<SELECT_THREADS, WIDE>);
+            select_stage_rows_kernel<SELECT_THREADS, WIDE, SRC>);
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -196,15 +201,53 @@ int launch_stage_rows(const WindowParams& p, int64_t rows, int64_t w,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide) {
-    select_stage_rows_kernel<WIDE_THREADS, WIDE>
+    select_stage_rows_kernel<WIDE_THREADS, WIDE, SRC>
         <<<static_cast<unsigned>(rows), WIDE_THREADS, smem_bytes, st>>>(
             p, cap, n_blocks, staged, width, dropped);
   } else {
-    select_stage_rows_kernel<SELECT_THREADS, WIDE>
+    select_stage_rows_kernel<SELECT_THREADS, WIDE, SRC>
         <<<static_cast<unsigned>(rows), SELECT_THREADS, smem_bytes, st>>>(
             p, cap, n_blocks, staged, width, dropped);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WIDE>
+int launch_stage_rows_src(int src, const WindowParams& p, int64_t rows,
+                          int64_t w, int64_t hit_buffer, int blocked, int cap,
+                          int n_blocks, int smem_bytes, int64_t* staged,
+                          int64_t width, int32_t* dropped, void* stream) {
+  if (src == SRC_PACKED)
+    return launch_stage_rows<WIDE, SRC_PACKED>(
+        p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
+        width, dropped, stream);
+  if (src == SRC_BITS)
+    return launch_stage_rows<WIDE, SRC_BITS>(
+        p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
+        width, dropped, stream);
+  return launch_stage_rows<WIDE, SRC_BYTES>(
+      p, rows, w, hit_buffer, blocked, cap, n_blocks, smem_bytes, staged,
+      width, dropped, stream);
+}
+
+// The static shared memory of one instance of the one-block kernel.
+template <int THREADS, bool WIDE, int SRC>
+cudaError_t static_smem(int32_t* most) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(
+      &attr, reinterpret_cast<const void*>(
+                 select_stage_rows_kernel<THREADS, WIDE, SRC>));
+  if (err == cudaSuccess && static_cast<int32_t>(attr.sharedSizeBytes) > *most)
+    *most = static_cast<int32_t>(attr.sharedSizeBytes);
+  return err;
+}
+
+template <int THREADS, bool WIDE>
+cudaError_t static_smem_sources(int32_t* most) {
+  cudaError_t err = static_smem<THREADS, WIDE, SRC_BYTES>(most);
+  if (err == cudaSuccess) err = static_smem<THREADS, WIDE, SRC_PACKED>(most);
+  if (err == cudaSuccess) err = static_smem<THREADS, WIDE, SRC_BITS>(most);
+  return err;
 }
 
 // ---- long rows: the device-memory path ----
@@ -320,49 +363,47 @@ __global__ void stage_dropped_kernel(const int32_t* __restrict__ cand,
 
 // Rows whose survivors fit shared memory, staged from their bases:
 // kernels A and B fused, the slots computed in the block
-// (window_codes.cuh). smem_bytes holds min(w, (n_blocks - 1) * cap +
-// SELECT_BLOCK) slots (membership.stage_launch_plan); full-width rows
-// (blocked = 0) keep every candidate. s1 = fmix32(seed32), s2 =
-// fmix32(s1 ^ 0x9E3779B9), computed by the caller.
-extern "C" int fk_stage_rows(const uint8_t* bases, int64_t rows,
-                             int64_t length, int64_t w, int k, uint32_t s1,
-                             uint32_t s2, uint32_t threshold, int keep_all,
-                             int64_t hit_buffer, int blocked, int cap,
-                             int n_blocks, int smem_bytes, int64_t* staged,
-                             int64_t width, int32_t* dropped, void* stream) {
-  const WindowParams p{bases, length, w, k, s1, s2, threshold, keep_all};
+// (window_codes.cuh) from the rows' source src (SRC_BYTES, SRC_PACKED or
+// SRC_BITS, which says what `bases` and `aux` hold: WindowParams).
+// smem_bytes holds min(w, (n_blocks - 1) * cap + SELECT_BLOCK) slots
+// (membership.stage_launch_plan); full-width rows (blocked = 0) keep every
+// candidate. s1 = fmix32(seed32), s2 = fmix32(s1 ^ 0x9E3779B9), computed
+// by the caller.
+extern "C" int fk_stage_rows(const uint8_t* bases, const void* aux, int src,
+                             int64_t rows, int64_t length, int64_t w, int k,
+                             uint32_t s1, uint32_t s2, uint32_t threshold,
+                             int keep_all, int64_t hit_buffer, int blocked,
+                             int cap, int n_blocks, int smem_bytes,
+                             int64_t* staged, int64_t width, int32_t* dropped,
+                             void* stream) {
+  if (src < SRC_BYTES || src > SRC_BITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WindowParams p{bases, aux, length,
+                       src == SRC_BYTES ? length : (length + 3) / 4,
+                       w, k, s1, s2, threshold, keep_all};
   if (k > 16)
-    return launch_stage_rows<true>(p, rows, w, hit_buffer, blocked, cap,
-                                   n_blocks, smem_bytes, staged, width,
-                                   dropped, stream);
-  return launch_stage_rows<false>(p, rows, w, hit_buffer, blocked, cap,
-                                  n_blocks, smem_bytes, staged, width,
-                                  dropped, stream);
+    return launch_stage_rows_src<true>(src, p, rows, w, hit_buffer, blocked,
+                                       cap, n_blocks, smem_bytes, staged,
+                                       width, dropped, stream);
+  return launch_stage_rows_src<false>(src, p, rows, w, hit_buffer, blocked,
+                                      cap, n_blocks, smem_bytes, staged,
+                                      width, dropped, stream);
 }
 
 // The most static shared memory (bytes) any one-block kernel holds, both
-// code widths at both thread counts, into *bytes: the allowance
-// membership.STATIC_SMEM keeps beside the survivor buffer must cover it.
+// code widths at both thread counts from every source, into *bytes: the
+// allowance membership.STATIC_SMEM keeps beside the survivor buffer must
+// cover it.
 extern "C" int fk_stage_rows_static_smem(int32_t* bytes) {
-  const void* kernels[] = {
-      reinterpret_cast<const void*>(
-          select_stage_rows_kernel<SELECT_THREADS, false>),
-      reinterpret_cast<const void*>(
-          select_stage_rows_kernel<WIDE_THREADS, false>),
-      reinterpret_cast<const void*>(
-          select_stage_rows_kernel<SELECT_THREADS, true>),
-      reinterpret_cast<const void*>(
-          select_stage_rows_kernel<WIDE_THREADS, true>)};
   int32_t most = 0;
-  for (const void* kernel : kernels) {
-    cudaFuncAttributes attr;
-    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (static_cast<int32_t>(attr.sharedSizeBytes) > most)
-      most = static_cast<int32_t>(attr.sharedSizeBytes);
-  }
+  cudaError_t err = static_smem_sources<SELECT_THREADS, false>(&most);
+  if (err == cudaSuccess)
+    err = static_smem_sources<WIDE_THREADS, false>(&most);
+  if (err == cudaSuccess)
+    err = static_smem_sources<SELECT_THREADS, true>(&most);
+  if (err == cudaSuccess) err = static_smem_sources<WIDE_THREADS, true>(&most);
   *bytes = most;
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(err);
 }
 
 // The long-row path: passes 1-4 above, each one launch over all rows.

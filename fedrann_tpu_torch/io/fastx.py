@@ -79,7 +79,9 @@ def _iter_fastq(stream: IO[bytes]) -> Iterator[FastxRecord]:
 
 
 def read_fastx(path: str) -> Iterator[FastxRecord]:
-    """Stream records from a (possibly gzipped) FASTA/FASTQ file."""
+    """Stream records from a (possibly gzipped) FASTA/FASTQ file. Each
+    stream opened is counted in `.calls`."""
+    read_fastx.calls += 1
     stream = open_maybe_gzipped(path)
     try:
         fmt = sniff_format(stream)
@@ -87,3 +89,6 @@ def read_fastx(path: str) -> Iterator[FastxRecord]:
         yield from it
     finally:
         stream.close()
+
+
+read_fastx.calls = 0

@@ -1,12 +1,17 @@
 """Host-side read packing: strings -> per-bucket (R, L) uint8 base codes.
 
 The port's copy of the numpy packer in `fedrann_tpu/io/packing.py`, in the
-per-base layout (A=0 C=1 G=2 T=3, anything else INVALID=4, padding INVALID)
-that the staging kernel reads. Reads are grouped into the smallest length
-bucket that fits. A read longer than the largest bucket is split into
-segments that overlap by k - 1 bases (`segment_spans`), whose hits the
-embed stage merges back into one exact union (`pipeline.split_union_rows`),
-or, without a split overlap, truncated and counted.
+per-base layout (A=0 C=1 G=2 T=3, anything else INVALID=4, padding
+INVALID). Reads are grouped into the smallest length bucket that fits. A
+read longer than the largest bucket is split into segments that overlap by
+k - 1 bases (`segment_spans`), whose hits the embed stage merges back into
+one exact union (`pipeline.split_union_rows`), or, without a split overlap,
+truncated and counted.
+
+The pipeline loads through the native packer (`io/native.py`), which fills
+each bucket's 2-bit form (`packed_bases`, `valid_bits`) instead of the
+byte matrix; `pack_reads(read_fastx(path), ...)` here is its plain version,
+and `bit_pack` gives a byte matrix's 2-bit form.
 """
 
 from __future__ import annotations
@@ -35,14 +40,36 @@ def encode_bases(seq: str) -> np.ndarray:
 
 @dataclasses.dataclass
 class PackedBucket:
-    """Reads padded to one bucket length."""
+    """Reads padded to one bucket length: the byte matrix `bases`, or the
+    2-bit form (`packed_bases` and `valid_bits`), as in
+    `fedrann_tpu/io/packing.py`."""
 
-    bases: np.ndarray        # (R_b, L_bucket) uint8, INVALID-padded
-    read_index: np.ndarray   # (R_b,) int32 global read index, -1 = pad row
+    bases: np.ndarray | None  # (R_b, L) uint8, INVALID-padded
+    lengths: np.ndarray       # (R_b,) int32 bases of each row (0: pad row)
+    read_index: np.ndarray    # (R_b,) int32 global read index, -1 = pad row
+    # (R_b, ceil(L/4)) uint8: base j at bits 2 (j % 4) of byte j / 4,
+    # INVALID and padding bases as 0
+    packed_bases: np.ndarray | None = None
+    # (R_b, ceil(L/8)) uint8: bit j % 8 of byte j / 8 set for a valid base
+    valid_bits: np.ndarray | None = None
+    length: int = 0           # L, bases per row
+    # True: each row's valid bases are a prefix of its `lengths` (no
+    # mid-read INVALID base), so lengths stand in for valid_bits; None:
+    # not known
+    prefix_valid: bool | None = None
 
-    @property
-    def length(self) -> int:
-        return int(self.bases.shape[1])
+
+def bit_pack(bases: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(packed_bases, valid_bits) of an (R, L) byte matrix, in the layout
+    the native packer fills (`fastx_fill_bucket_packed`)."""
+    r, length = bases.shape
+    valid = bases < INVALID
+    codes = np.zeros((r, -(-length // 4) * 4), np.uint8)
+    codes[:, :length] = np.where(valid, bases, 0)
+    packed = np.bitwise_or.reduce(
+        codes.reshape(r, -1, 4) << np.arange(0, 8, 2, dtype=np.uint8),
+        axis=2).astype(np.uint8)
+    return packed, np.packbits(valid, axis=1, bitorder="little")
 
 
 @dataclasses.dataclass
@@ -128,7 +155,8 @@ def pack_reads(
     each in the smallest bucket that fits it, when split_overlap is given,
     else truncated to the largest bucket (counted and logged). Row counts
     per bucket are padded to a multiple of pad_rows_to with all-INVALID
-    rows (read_index -1)."""
+    rows (read_index -1). Counted in `.calls`."""
+    pack_reads.calls += 1
     if length_buckets is None:
         records = list(records)
         length_buckets = auto_length_buckets(
@@ -176,12 +204,22 @@ def pack_reads(
         n_rows = len(rows)
         padded_rows = -(-n_rows // pad_rows_to) * pad_rows_to
         mat = np.full((padded_rows, buckets[b]), INVALID, np.uint8)
+        lengths = np.zeros(padded_rows, np.int32)
         for r, codes in enumerate(rows):
             mat[r, : len(codes)] = codes
+            lengths[r] = len(codes)
         read_index = np.full(padded_rows, -1, np.int32)
         read_index[:n_rows] = per_bucket_idx[b]
-        out.append(PackedBucket(bases=mat, read_index=read_index))
+        # rows are INVALID past their lengths, so any INVALID base within
+        # them is a mid-read one
+        prefix_valid = int((mat < INVALID).sum()) == int(lengths.sum())
+        out.append(PackedBucket(bases=mat, lengths=lengths,
+                                read_index=read_index, length=buckets[b],
+                                prefix_valid=prefix_valid))
     return PackedReads(
         names=names, buckets=out, n_truncated=n_truncated,
         split_read_ids=(np.asarray(split_ids, np.int32) if split_ids
                         else None))
+
+
+pack_reads.calls = 0

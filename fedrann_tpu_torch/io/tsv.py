@@ -1,5 +1,6 @@
 """overlaps.tsv writer: the same header, row order and number format as
-`fedrann_tpu/io/tsv.py`.
+`fedrann_tpu/io/tsv.py`; `write_overlaps_path` writes through the native C
+writer, `write_overlaps_tsv` is its plain version.
 
 Six columns (query_name, query_orientation, target_name,
 target_orientation, neighbor_rank, distance). Embedding row r is read r//2,
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import IO, Sequence
 
 import numpy as np
+
+from fedrann_tpu_torch.io.native import write_overlaps_matrix_native
 
 HEADER = (
     "query_name\tquery_orientation\ttarget_name\ttarget_orientation"
@@ -57,6 +60,11 @@ def write_overlaps_tsv(
 def write_overlaps_path(path: str, names: Sequence[str],
                         neighbor_indices: np.ndarray,
                         neighbor_distances: np.ndarray) -> int:
+    """Write overlaps.tsv to `path`: the header, then the rows by the
+    native C writer (`io/native.py`), the same bytes as
+    write_overlaps_tsv, its plain version. Returns the data rows."""
     with open(path, "w") as f:
-        return write_overlaps_tsv(f, names, neighbor_indices,
-                                  neighbor_distances)
+        f.write(HEADER)
+    return write_overlaps_matrix_native(
+        path, list(names), np.asarray(neighbor_indices),
+        np.asarray(neighbor_distances))

@@ -10,9 +10,18 @@ counterpart in `fedrann_tpu/kmers/codec.py` and `fedrann_tpu/oracle.py`.
 
 A staged slot is (canon << 1) | is_fwd for a sampled valid window and
 PAD_SLOT (INT64_MAX) otherwise; sorted slots order by (code, strand).
+
+The window-code kernels read a bucket chunk in one of three forms (its
+source): an (R, L) uint8 byte matrix, or a `PackedChunk`, the native
+packer's 2-bit stream with per-row lengths ("packed": every row's valid
+bases a prefix) or with its valid-bits plane ("bits": mid-read INVALID
+bases). The plain version of a packed source is `unpack_bases_len` or
+`unpack_bases`, then the byte plain version.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -21,6 +30,9 @@ from fedrann_tpu_torch import _build
 PAD_SLOT = (1 << 63) - 1
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
+INVALID = 4
+# the `src` argument of the window-code kernels' C entry points
+SOURCES = {"bytes": 0, "packed": 1, "bits": 2}
 
 
 def _i64(x: int) -> int:
@@ -80,6 +92,126 @@ def sample_threshold(fraction: float) -> int:
     return min(int(fraction * 2.0**32), 2**32 - 1)
 
 
+def _bits(x: torch.Tensor, width: int, length: int) -> torch.Tensor:
+    """The first `length` fields of `width` bits of each row of (R, B)
+    uint8 x, LSB-first within a byte: (R, length) uint8."""
+    shifts = torch.arange(0, 8, width, dtype=torch.uint8, device=x.device)
+    fields = (x[:, :, None] >> shifts) & ((1 << width) - 1)
+    return fields.reshape(x.shape[0], -1)[:, :length]
+
+
+def unpack_bases(packed: torch.Tensor, valid_bits: torch.Tensor,
+                 length: int) -> torch.Tensor:
+    """(R, ceil(L/4)) uint8 2-bit stream (base j at bits 2 (j % 4) of byte
+    j / 4) and (R, ceil(L/8)) uint8 valid bits (bit j % 8 of byte j / 8)
+    -> the (R, L) uint8 byte matrix, INVALID where a base is not valid;
+    bitwise `fedrann_tpu/kmers/codec.py` `unpack_bases`."""
+    return _bits(packed, 2, length).masked_fill(
+        _bits(valid_bits, 1, length) == 0, INVALID)
+
+
+def unpack_bases_len(packed: torch.Tensor, lengths: torch.Tensor,
+                     length: int) -> torch.Tensor:
+    """The 2-bit stream with (R,) int32 row lengths standing in for the
+    valid bits (every row's valid bases a prefix) -> the (R, L) uint8 byte
+    matrix, INVALID from min(lengths[r], L) on; bitwise
+    `fedrann_tpu/kmers/codec.py` `unpack_bases_len`."""
+    col = torch.arange(length, device=packed.device)
+    return _bits(packed, 2, length).masked_fill(
+        col[None, :] >= lengths.clamp(max=length)[:, None], INVALID)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedChunk:
+    """Rows of a bucket in the native packer's 2-bit form, as the
+    window-code kernels read them: `packed` with `lengths` (source
+    "packed") or with `valid_bits` (source "bits"), one of the two."""
+
+    packed: torch.Tensor                     # (R, ceil(L/4)) uint8
+    length: int                              # L, bases per row
+    lengths: torch.Tensor | None = None      # (R,) int32
+    valid_bits: torch.Tensor | None = None   # (R, ceil(L/8)) uint8
+
+    def __post_init__(self):
+        p = self.packed
+        if p.dtype != torch.uint8 or p.dim() != 2 \
+                or p.shape[1] != -(-self.length // 4):
+            raise ValueError(f"packed must be (R, {-(-self.length // 4)}) "
+                             f"uint8, got {tuple(p.shape)} {p.dtype}")
+        if (self.lengths is None) == (self.valid_bits is None):
+            raise ValueError("a PackedChunk holds lengths or valid_bits")
+        if self.lengths is not None and (
+                self.lengths.dtype != torch.int32
+                or tuple(self.lengths.shape) != (p.shape[0],)
+                or self.lengths.device != p.device):
+            raise ValueError(f"lengths must be ({p.shape[0]},) int32 on "
+                             f"{p.device}")
+        if self.valid_bits is not None and (
+                self.valid_bits.dtype != torch.uint8
+                or tuple(self.valid_bits.shape)
+                != (p.shape[0], -(-self.length // 8))
+                or self.valid_bits.device != p.device):
+            raise ValueError(f"valid_bits must be ({p.shape[0]}, "
+                             f"{-(-self.length // 8)}) uint8 on {p.device}")
+
+    @property
+    def source(self) -> str:
+        return "packed" if self.lengths is not None else "bits"
+
+    @property
+    def aux(self) -> torch.Tensor:
+        return self.lengths if self.lengths is not None else self.valid_bits
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.packed.shape[0], self.length)
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def __getitem__(self, rows: slice) -> "PackedChunk":
+        return PackedChunk(
+            self.packed[rows], self.length,
+            None if self.lengths is None else self.lengths[rows],
+            None if self.valid_bits is None else self.valid_bits[rows])
+
+    def unpack(self) -> torch.Tensor:
+        """The (R, L) byte matrix: the plain version's input."""
+        if self.lengths is not None:
+            return unpack_bases_len(self.packed, self.lengths, self.length)
+        return unpack_bases(self.packed, self.valid_bits, self.length)
+
+
+def as_bytes(bases) -> torch.Tensor:
+    """A window-code input as its (R, L) byte matrix."""
+    return bases.unpack() if isinstance(bases, PackedChunk) else bases
+
+
+def source_args(bases) -> tuple:
+    """(contiguous bases or 2-bit stream, contiguous lengths or valid bits
+    or None, source name) of a window-code input, for a kernel launch."""
+    if isinstance(bases, PackedChunk):
+        return (bases.packed.contiguous(), bases.aux.contiguous(),
+                bases.source)
+    return bases.contiguous(), None, "bytes"
+
+
+def count_launch(fn, source: str) -> None:
+    """One launch of a window-code kernel's wrapper `fn` on `source`: its
+    total count `.launches` and its source's `.<source>_launches`."""
+    fn.launches += 1
+    name = f"{source}_launches"
+    setattr(fn, name, getattr(fn, name) + 1)
+
+
+def reset_counts(fn) -> None:
+    """A window-code kernel's wrapper's counts to 0."""
+    fn.launches = 0
+    for source in SOURCES:
+        setattr(fn, f"{source}_launches", 0)
+
+
 def canonical_window_codes(bases: torch.Tensor, k: int):
     """Canonical codes of all k-windows of an (R, L) uint8 base batch.
 
@@ -112,11 +244,12 @@ def _canonical_sample_plain(bases, k, seed, threshold, keep_all):
     return torch.where(keep, (canon << 1) | is_fwd.to(torch.int64), PAD_SLOT)
 
 
-def check_bases(bases: torch.Tensor, k: int) -> int:
-    """Raise on what the window-code kernels do not take; returns the
-    windows per row, L - k + 1."""
-    if bases.dtype != torch.uint8 or bases.dim() != 2:
-        raise ValueError("bases must be a 2-D uint8 tensor")
+def check_bases(bases, k: int) -> int:
+    """Raise on what the window-code kernels do not take (a byte matrix or
+    a PackedChunk); returns the windows per row, L - k + 1."""
+    if not isinstance(bases, PackedChunk) and (
+            bases.dtype != torch.uint8 or bases.dim() != 2):
+        raise ValueError("bases must be a 2-D uint8 tensor or a PackedChunk")
     if not 1 <= k <= 31:
         raise ValueError(f"k must be in [1, 31], got {k}")
     if bases.device.type not in ("cpu", "cuda"):
@@ -126,28 +259,34 @@ def check_bases(bases: torch.Tensor, k: int) -> int:
     return bases.shape[1] - k + 1
 
 
-def canonical_sample(bases: torch.Tensor, k: int, seed: int, threshold: int,
+def canonical_sample(bases, k: int, seed: int, threshold: int,
                      keep_all: bool) -> torch.Tensor:
-    """(R, L) uint8 bases -> (R, L-k+1) int64 staged slots: (canon << 1) |
-    is_fwd where the window is valid and (keep_all or sample_hash32(canon,
-    seed) < threshold), PAD_SLOT elsewhere.
+    """(R, L) bases, a uint8 byte matrix or a PackedChunk -> (R, L-k+1)
+    int64 staged slots: (canon << 1) | is_fwd where the window is valid and
+    (keep_all or sample_hash32(canon, seed) < threshold), PAD_SLOT
+    elsewhere.
 
-    A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-    kernel A (csrc/canonical_sample.cu). The staging stage launches it
-    only for rows whose survivors kernel B must sort in device memory
-    (membership.stage_candidates); the others never write this plane."""
+    A CPU input takes the plain PyTorch version (a PackedChunk unpacked
+    first); a CUDA one launches kernel A (csrc/canonical_sample.cu) on its
+    source, counted in `.launches` and `.<source>_launches`. The staging
+    stage launches it only for rows whose survivors kernel B must sort in
+    device memory (membership.stage_candidates); the others never write
+    this plane."""
     w = check_bases(bases, k)
     if bases.device.type == "cpu":
-        return _canonical_sample_plain(bases, k, seed, threshold, keep_all)
+        return _canonical_sample_plain(as_bytes(bases), k, seed, threshold,
+                                       keep_all)
     r, length = bases.shape
-    bases = bases.contiguous()
+    data, aux, source = source_args(bases)
     out = torch.empty((r, w), dtype=torch.int64, device=bases.device)
     s1, s2 = seed_mix32(seed)
-    _build.launch("fk_canonical_sample", bases.data_ptr(), r, length, w, k,
-                  s1, s2, int(threshold) & _M32, int(bool(keep_all)),
-                  out.data_ptr(), _build.stream(bases.device))
-    canonical_sample.launches += 1
+    _build.launch("fk_canonical_sample", data.data_ptr(),
+                  None if aux is None else aux.data_ptr(), SOURCES[source],
+                  r, length, w, k, s1, s2, int(threshold) & _M32,
+                  int(bool(keep_all)), out.data_ptr(),
+                  _build.stream(bases.device))
+    count_launch(canonical_sample, source)
     return out
 
 
-canonical_sample.launches = 0
+reset_counts(canonical_sample)

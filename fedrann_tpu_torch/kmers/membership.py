@@ -15,12 +15,13 @@ compacted, sorted only past the cap, then one sort of the survivors); a
 longer row (keep_all past 28,928 windows, or blocked rows at high
 sampling: >= 6.5% at the 262,144-base bucket, >= 14.5% at 131,072) is
 sorted in shared-memory chunks that are merged in device memory.
-`stage_candidates` stages bases: on the one-block path kernels A and B run
-fused (`fk_stage_rows`: the block computes its slots from the bases, so
-the (R, W) slot plane never reaches device memory); on the device-memory
-path kernel A writes the plane and `select_candidates` reads it. The
-one-block path takes bases only, so `select_candidates` refuses CUDA slots
-whose rows it would keep in one block.
+`stage_candidates` stages bases, a byte matrix or the packer's 2-bit form
+(a `codec.PackedChunk`, as the pipeline uploads it): on the one-block path
+kernels A and B run fused (`fk_stage_rows`: the block computes its slots
+from the bases, so the (R, W) slot plane never reaches device memory); on
+the device-memory path kernel A writes the plane and `select_candidates`
+reads it. The one-block path takes bases only, so `select_candidates`
+refuses CUDA slots whose rows it would keep in one block.
 
 Membership here (`read_hits_staged`, the plain version of kernel C's
 lookups) is `torch.searchsorted` on the sorted int64 library; kernel C
@@ -38,10 +39,15 @@ from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.device import SM90_SMEM_OPTIN, shared_memory_limit
 from fedrann_tpu_torch.kmers.codec import (
     PAD_SLOT,
+    SOURCES,
     _canonical_sample_plain,
+    as_bytes,
     canonical_sample,
     check_bases,
+    count_launch,
+    reset_counts,
     seed_mix32,
+    source_args,
 )
 
 SELECT_BLOCK = 1024
@@ -218,24 +224,25 @@ def _select_on_card(slots: torch.Tensor, hit_buffer: int, plan: StagePlan):
 select_candidates.long_launches = 0  # the device-memory path
 
 
-def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,
-                     keep_all: bool, seed: int, threshold: int,
-                     block_cap: int | None = None):
+def stage_candidates(bases, k: int, hit_buffer: int, keep_all: bool,
+                     seed: int, threshold: int, block_cap: int | None = None):
     """Canonical windows + sampling filter + candidate selection: the
     staging stage that both the count and the embed stages consume. (R, L)
-    uint8 bases -> select_candidates' (staged, dropped) of their
-    canonical_sample slots.
+    bases, a uint8 byte matrix or a PackedChunk (codec.py) -> select_candidates'
+    (staged, dropped) of their canonical_sample slots.
 
-    A CPU tensor takes the plain versions. On a CUDA tensor, rows that
-    `stage_launch_plan` keeps in one block launch kernels A and B fused
-    (csrc/select_stage_rows.cu `fk_stage_rows`), counted in `.launches`;
+    A CPU input takes the plain versions (a PackedChunk unpacked first). On
+    a CUDA one, rows that `stage_launch_plan` keeps in one block launch
+    kernels A and B fused (csrc/select_stage_rows.cu `fk_stage_rows`) on
+    the input's source, counted in `.launches` and `.<source>_launches`;
     longer rows launch kernel A, then kernel B's device-memory path."""
     w = check_bases(bases, k)
     if not 1 <= hit_buffer <= w:
         raise ValueError(f"hit_buffer {hit_buffer} must be in [1, {w}]")
     if bases.device.type == "cpu":
         return _select_candidates_plain(
-            _canonical_sample_plain(bases, k, seed, threshold, keep_all),
+            _canonical_sample_plain(as_bytes(bases), k, seed, threshold,
+                                    keep_all),
             hit_buffer, keep_all, block_cap)
     plan = stage_launch_plan(w, hit_buffer, keep_all, block_cap,
                              shared_memory_limit(bases.device))
@@ -248,23 +255,25 @@ def stage_candidates(bases: torch.Tensor, k: int, hit_buffer: int,
 
 def _stage_on_card(bases, k, hit_buffer, keep_all, seed, threshold,
                    plan: StagePlan):
-    """Kernels A and B fused on a CUDA tensor, on the one-block `plan`."""
+    """Kernels A and B fused on a CUDA input, on the one-block `plan`."""
     r, length = bases.shape
-    bases = bases.contiguous()
+    data, aux, source = source_args(bases)
     dev = bases.device
     staged = torch.empty((r, plan.width), dtype=torch.int64, device=dev)
     dropped = torch.empty((r,), dtype=torch.int32, device=dev)
     s1, s2 = seed_mix32(seed)
-    _build.launch("fk_stage_rows", bases.data_ptr(), r, length,
-                  length - k + 1, k, s1, s2, int(threshold) & 0xFFFFFFFF,
-                  int(bool(keep_all)), hit_buffer, int(plan.blocked),
-                  plan.cap, plan.n_blocks, plan.smem, staged.data_ptr(),
-                  plan.width, dropped.data_ptr(), _build.stream(dev))
-    stage_candidates.launches += 1
+    _build.launch("fk_stage_rows", data.data_ptr(),
+                  None if aux is None else aux.data_ptr(), SOURCES[source],
+                  r, length, length - k + 1, k, s1, s2,
+                  int(threshold) & 0xFFFFFFFF, int(bool(keep_all)),
+                  hit_buffer, int(plan.blocked), plan.cap, plan.n_blocks,
+                  plan.smem, staged.data_ptr(), plan.width,
+                  dropped.data_ptr(), _build.stream(dev))
+    count_launch(stage_candidates, source)
     return staged, dropped
 
 
-stage_candidates.launches = 0  # fused kernels A and B (one block per row)
+reset_counts(stage_candidates)  # fused kernels A and B (one block per row)
 
 
 def read_hits_staged(staged: torch.Tensor, lib_codes: torch.Tensor):

@@ -2,18 +2,29 @@
 `fedrann_tpu/pipeline.py` `run_pipeline` for the single-device run).
 
 Stages, as named in metrics.json:
-  load    - FASTX parse and pack into length buckets (host, numpy); reads
-            past the largest bucket split into k - 1-overlapped segments
-  stage   - per-read canonical windows, sampling filter, candidate
-            selection and row sort (kernels A and B), chunked by window_batch
+  load    - the packed-reads cache (fxcache.npz), else the native FASTX
+            parse and 2-bit pack into length buckets (io/native.py; pinned
+            host memory for a CUDA run); reads past the largest bucket
+            split into k - 1-overlapped segments
+  stage   - each bucket uploaded in its 2-bit form, then per-read canonical
+            windows, sampling filter, candidate selection and row sort
+            (kernels A and B on the packed source), chunked by window_batch;
+            run lazily, so a run resumed from checkpoints skips it
   count   - library build from the staged slots (sort, run lengths,
-            multiplicity and sampling filters), or --import-library
+            multiplicity and sampling filters), a library checkpoint, or
+            --import-library
   project - sign-packed SRP x ICF table, a dense paired table
             (--projection-dtype f32|bf16), or --import-projection
   embed   - membership + paired embedding into the (2N, d) matrix (kernel
-            C, in the projection's form), then each split read's union
+            C, in the projection's form), then each split read's union; or
+            an embeddings checkpoint
   knn     - exact cosine top-k
-  output  - overlaps.tsv
+  output  - overlaps.tsv (native C writer), --save-feature-matrix
+
+--keep-intermediates keeps checkpoints/library.npz, embeddings.npy and
+embeddings_meta.json in the JAX package's format (each package resumes the
+other's); --profile writes a torch.profiler Chrome trace to <out>/trace/;
+--mprof writes mprof.dat.
 """
 
 from __future__ import annotations
@@ -31,10 +42,19 @@ from fedrann_tpu_torch.compat import (
     load_reference_precompute,
 )
 from fedrann_tpu_torch.config import PipelineConfig
-from fedrann_tpu_torch.io.fastx import read_fastx
-from fedrann_tpu_torch.io.packing import PackedReads, pack_reads
+from fedrann_tpu_torch.io.cache import (
+    cache_meta,
+    load_packed_cache,
+    save_packed_cache,
+)
+from fedrann_tpu_torch.io.native import pack_reads_native
+from fedrann_tpu_torch.io.packing import PackedBucket, PackedReads, bit_pack
 from fedrann_tpu_torch.io.tsv import write_overlaps_path
-from fedrann_tpu_torch.kmers.codec import PAD_SLOT, sample_threshold
+from fedrann_tpu_torch.kmers.codec import (
+    PAD_SLOT,
+    PackedChunk,
+    sample_threshold,
+)
 from fedrann_tpu_torch.kmers.library import KmerLibrary, build_library
 from fedrann_tpu_torch.kmers.membership import (
     read_hits_staged,
@@ -49,7 +69,7 @@ from fedrann_tpu_torch.logging_utils import (
     remove_log_file,
     set_logging_level,
 )
-from fedrann_tpu_torch.metrics import StageMetrics
+from fedrann_tpu_torch.metrics import MemorySampler, StageMetrics
 from fedrann_tpu_torch.project.embed import (
     embed_hits,
     embed_staged,
@@ -94,12 +114,6 @@ def check_supported(config: PipelineConfig) -> None:
          "--num-processes/--coordinator", "multi-host runtime"),
         (config.knn_sharded == "always" or config.mesh_shape is not None,
          "--knn-sharded always/--mesh-shape", "multi-GPU k-NN"),
-        (config.keep_intermediates or config.checkpoint,
-         "--keep-intermediates", "checkpoints"),
-        (config.profile, "--profile", "profiling"),
-        (config.save_feature_matrix, "--save-feature-matrix",
-         "feature-matrix output"),
-        (config.mprof, "--mprof", "memory timeline"),
     ]
     for bad, flag, item in unsupported:
         if bad:
@@ -108,14 +122,71 @@ def check_supported(config: PipelineConfig) -> None:
                 f"(ROADMAP Queue 1: {item})")
 
 
-def load_reads(config: PipelineConfig) -> PackedReads:
-    """Pack the input; a read past the largest bucket is split into
-    segments overlapping by k - 1 bases."""
-    packed = pack_reads(read_fastx(config.input_path), config.length_buckets,
-                        split_overlap=config.kmer_size - 1)
+def load_reads(config: PipelineConfig,
+               device: torch.device | None = None) -> PackedReads:
+    """The input in the native packer's 2-bit form: from the packed-reads
+    cache (<output_dir>/fxcache.npz, unless --no-pack-cache) when its meta
+    matches, else parsed and packed with --threads workers (in pinned host
+    memory when `device` is a CUDA device) and saved to the cache. A read
+    past the largest bucket is split into segments overlapping by k - 1
+    bases."""
+    split_overlap = config.kmer_size - 1
+    cache_path = (os.path.join(config.output_dir, "fxcache.npz")
+                  if config.pack_cache and config.output_dir else None)
+    packed = meta = None
+    if cache_path:
+        meta = cache_meta(config.input_path, config.length_buckets,
+                          split_overlap)
+        packed = load_packed_cache(cache_path, meta)
+    if packed is None:
+        packed = pack_reads_native(
+            config.input_path, config.length_buckets,
+            threads=max(1, config.threads), split_overlap=split_overlap,
+            pin_memory=device is not None and device.type == "cuda")
+        if cache_path:
+            os.makedirs(config.output_dir, exist_ok=True)
+            save_packed_cache(cache_path, packed, meta)
     if packed.n_reads == 0:
         raise ValueError(f"no reads found in {config.input_path}")
     return packed
+
+
+def upload_bucket(bucket: PackedBucket, device: torch.device) -> PackedChunk:
+    """A bucket on `device` in its 2-bit form, as `fedrann_tpu/pipeline.py`
+    uploads it: the stream with the row lengths when every row's valid
+    bases are a prefix (prefix_valid; popcounted when not known), else
+    with the valid bits. Never the byte matrix: a bucket that holds one
+    (the plain packer's, or a cache's) is bit-packed on the host first. On
+    a CUDA device the copies are non_blocking from pinned memory; a host
+    buffer that is not pinned (a cache's) is copied into pinned memory
+    first, counted in `.pin_copies`. The bytes uploaded add to `.bytes`."""
+    if bucket.packed_bases is None:
+        packed, valid = bit_pack(bucket.bases)
+    else:
+        packed, valid = bucket.packed_bases, bucket.valid_bits
+    if bucket.prefix_valid is None:
+        set_bits = np.unpackbits(valid, axis=1).sum(axis=1, dtype=np.int64)
+        bucket.prefix_valid = bool((set_bits == bucket.lengths).all())
+    aux = (np.ascontiguousarray(bucket.lengths, dtype=np.int32)
+           if bucket.prefix_valid else valid)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        upload_bucket.bytes += host.numel() * host.element_size()
+        if device.type != "cuda":
+            return host
+        if not host.is_pinned():
+            host = host.pin_memory()
+            upload_bucket.pin_copies += 1
+        return host.to(device, non_blocking=True)
+
+    if bucket.prefix_valid:
+        return PackedChunk(put(packed), bucket.length, lengths=put(aux))
+    return PackedChunk(put(packed), bucket.length, valid_bits=put(aux))
+
+
+upload_bucket.bytes = 0
+upload_bucket.pin_copies = 0
 
 
 def chunk_rows(length: int, n_rows_total: int, config: PipelineConfig) -> int:
@@ -147,16 +218,17 @@ def staging_params(length: int, config: PipelineConfig):
 
 def stage_reads(packed: PackedReads, config: PipelineConfig,
                 device: torch.device) -> list[StagedBucket]:
-    """Stage every bucket in chunks of chunk_rows reads; the count and the
-    embed stages both consume the result."""
+    """Upload every bucket in its 2-bit form (upload_bucket) and stage it
+    in chunks of chunk_rows reads; the count and the embed stages both
+    consume the result."""
     threshold = sample_threshold(config.kmer_sample_fraction)
     out = []
     for bucket in packed.buckets:
-        n = bucket.bases.shape[0]
+        n = bucket.read_index.shape[0]
         rows = chunk_rows(bucket.length, n, config)
         hit_buffer, keep_all, block_cap = staging_params(bucket.length,
                                                          config)
-        bases = torch.from_numpy(bucket.bases).to(device)
+        bases = upload_bucket(bucket, device)
         parts = [
             stage_candidates(bases[s : s + rows], config.kmer_size,
                              hit_buffer, keep_all, config.seed, threshold,
@@ -327,6 +399,139 @@ def compute_embeddings(n_reads: int, staged: list[StagedBucket],
     return emb
 
 
+def _input_identity(config: PipelineConfig) -> dict:
+    """Identity of the input (path, size, mtime): a checkpoint does not
+    survive a changed input."""
+    try:
+        st = os.stat(config.input_path)
+        return {"path": os.path.abspath(config.input_path),
+                "size": st.st_size, "mtime_ns": st.st_mtime_ns}
+    except OSError:
+        return {"path": os.path.abspath(config.input_path)}
+
+
+def _embed_fingerprint(config: PipelineConfig, packed: PackedReads,
+                       library: KmerLibrary) -> dict:
+    """Everything the embedding matrix depends on, as the JAX package
+    writes it to embeddings_meta.json."""
+    return {
+        "input": _input_identity(config),
+        "k": config.kmer_size,
+        "seed": config.seed,
+        "fraction": config.kmer_sample_fraction,
+        "min_multiplicity": config.kmer_min_multiplicity,
+        "dim": config.embedding_dimension,
+        "projection_seed": config.projection_seed,
+        "projection_density": config.projection_density,
+        "projection_dtype": config.projection_dtype,
+        "import_library": config.import_library,
+        "import_projection": config.import_projection,
+        "max_hits": config.max_hits_per_read,
+        "n_reads": packed.n_reads,
+        "library_size": library.size,
+    }
+
+
+def _load_embeddings_checkpoint(config: PipelineConfig,
+                                ckpt_dir: Optional[str], packed: PackedReads,
+                                library: KmerLibrary,
+                                device: torch.device):
+    """The saved embedding matrix on `device` when a run saved it under an
+    equal fingerprint, else None."""
+    if not ckpt_dir:
+        return None
+    npy = os.path.join(ckpt_dir, "embeddings.npy")
+    meta_path = os.path.join(ckpt_dir, "embeddings_meta.json")
+    if not (os.path.exists(npy) and os.path.exists(meta_path)):
+        return None
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if meta != _embed_fingerprint(config, packed, library):
+        return None
+    logger.info("resuming embeddings from %s", npy)
+    return torch.from_numpy(
+        np.load(npy).astype(np.float32, copy=False)).to(device)
+
+
+def _save_embeddings_checkpoint(config: PipelineConfig, ckpt_dir: str,
+                                packed: PackedReads, library: KmerLibrary,
+                                emb: torch.Tensor) -> None:
+    np.save(os.path.join(ckpt_dir, "embeddings.npy"), emb.cpu().numpy())
+    with open(os.path.join(ckpt_dir, "embeddings_meta.json"), "w") as f:
+        json.dump(_embed_fingerprint(config, packed, library), f)
+
+
+def _try_load_library_ckpt(config: PipelineConfig, ckpt_dir: Optional[str],
+                           device: torch.device) -> Optional[KmerLibrary]:
+    """The library of checkpoints/library.npz when its k, seed, fraction,
+    min multiplicity and input identity are this run's, else None."""
+    if not ckpt_dir:
+        return None
+    path = os.path.join(ckpt_dir, "library.npz")
+    if not os.path.exists(path):
+        return None
+    data = np.load(path)
+    if (int(data["k"]) == config.kmer_size
+            and int(data["seed"]) == config.seed
+            and float(data["fraction"]) == config.kmer_sample_fraction
+            and int(data.get("min_multiplicity", -1))
+            == config.kmer_min_multiplicity
+            and str(data.get("input_id", ""))
+            == json.dumps(_input_identity(config), sort_keys=True)):
+        logger.info("resuming library from %s", path)
+        return KmerLibrary(
+            codes=torch.from_numpy(data["codes"].astype(np.int64)).to(device),
+            counts=torch.from_numpy(
+                data["counts"].astype(np.int64)).to(device))
+    return None
+
+
+def _save_library_ckpt(config: PipelineConfig, ckpt_dir: str,
+                       library: KmerLibrary) -> None:
+    """checkpoints/library.npz in the JAX package's keys and dtypes (codes
+    uint64, counts int64)."""
+    codes, counts = library.numpy()
+    np.savez(os.path.join(ckpt_dir, "library.npz"), codes=codes,
+             counts=counts, k=config.kmer_size, seed=config.seed,
+             fraction=config.kmer_sample_fraction,
+             min_multiplicity=config.kmer_min_multiplicity,
+             input_id=json.dumps(_input_identity(config), sort_keys=True))
+
+
+def _load_or_build_library(config: PipelineConfig, ckpt_dir: Optional[str],
+                           get_staged, device: torch.device):
+    """(library, perm): an imported library with its mapping; else a
+    library checkpoint; else the library built from the staged slots
+    (get_staged() stages on first call), saved when checkpointing."""
+    if config.import_library:
+        library, perm = load_reference_library_mapping(
+            config.import_library, config.kmer_size)
+        logger.info("imported reference library %s", config.import_library)
+        return KmerLibrary(codes=library.codes.to(device),
+                           counts=library.counts.to(device)), perm
+    library = _try_load_library_ckpt(config, ckpt_dir, device)
+    if library is None:
+        library = build_library(
+            [b.staged for b in get_staged()], config.kmer_min_multiplicity,
+            config.kmer_sample_fraction, config.seed)
+        if ckpt_dir:
+            _save_library_ckpt(config, ckpt_dir, library)
+    return library, None
+
+
+def _start_profiler(device: torch.device):
+    """--profile: torch.profiler over the whole run (CPU and, on a CUDA
+    device, CUDA activity), the counterpart of jax.profiler.trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.__enter__()
+    return prof
+
+
 def run_pipeline(config: PipelineConfig,
                  device: torch.device) -> PipelineResult:
     check_supported(config)
@@ -339,27 +544,37 @@ def run_pipeline(config: PipelineConfig,
         os.makedirs(out_dir, exist_ok=True)
         log_handler = add_log_file(os.path.join(out_dir, "fedrann.log"))
     metrics = StageMetrics(device)
+    sampler = (MemorySampler(os.path.join(out_dir or ".", "mprof.dat"))
+               if config.mprof else None)
+    ckpt_dir = (os.path.join(out_dir, "checkpoints")
+                if config.checkpoint and out_dir else None)
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    profiler = (_start_profiler(device) if config.profile and out_dir
+                else None)
+    if sampler:
+        sampler.__enter__()
     overlaps_path = None
     try:
         with metrics.stage("load"):
-            packed = load_reads(config)
+            packed = load_reads(config, device)
             logger.info("loaded %d reads into %d buckets",
                         packed.n_reads, len(packed.buckets))
-        with metrics.stage("stage"):
-            staged = stage_reads(packed, config, device)
+        # staged lazily, once: a run resumed from both checkpoints skips it
+        staged_once: list = []
+
+        def get_staged():
+            if not staged_once:
+                with metrics.stage("stage"):
+                    before = upload_bucket.bytes
+                    staged_once.append(stage_reads(packed, config, device))
+                    metrics.add_work("stage",
+                                     h2d_bytes=upload_bucket.bytes - before)
+            return staged_once[0]
+
         with metrics.stage("count"):
-            perm = None
-            if config.import_library:
-                library, perm = load_reference_library_mapping(
-                    config.import_library, config.kmer_size)
-                library = KmerLibrary(codes=library.codes.to(device),
-                                      counts=library.counts.to(device))
-                logger.info("imported reference library %s",
-                            config.import_library)
-            else:
-                library = build_library(
-                    [b.staged for b in staged], config.kmer_min_multiplicity,
-                    config.kmer_sample_fraction, config.seed)
+            library, perm = _load_or_build_library(config, ckpt_dir,
+                                                   get_staged, device)
             logger.info("library: %d canonical k-mers (%d features)",
                         library.size, library.n_features)
             if library.size == 0:
@@ -371,11 +586,18 @@ def run_pipeline(config: PipelineConfig,
         with metrics.stage("project"):
             proj = build_projection(config, library, perm, device)
         with metrics.stage("embed"):
-            emb = compute_embeddings(
-                packed.n_reads, staged, library, proj,
-                projection_width(proj, config.embedding_dimension),
-                packed.split_read_ids, config.window_batch, device)
-        del staged, proj
+            emb = _load_embeddings_checkpoint(config, ckpt_dir, packed,
+                                              library, device)
+            if emb is None:
+                emb = compute_embeddings(
+                    packed.n_reads, get_staged(), library, proj,
+                    projection_width(proj, config.embedding_dimension),
+                    packed.split_read_ids, config.window_batch, device)
+                if ckpt_dir:
+                    _save_embeddings_checkpoint(config, ckpt_dir, packed,
+                                                library, emb)
+        staged_once.clear()  # the staged rows and the projection go
+        del proj
         with metrics.stage("knn"):
             idx, dist = knn_exact(
                 emb, config.n_neighbors,
@@ -391,7 +613,19 @@ def run_pipeline(config: PipelineConfig,
                                              idx, dist)
                 logger.info("wrote %d overlap rows to %s", n_rows,
                             overlaps_path)
+                if config.save_feature_matrix:
+                    np.savez_compressed(
+                        os.path.join(out_dir, "feature_matrix.npz"),
+                        embeddings=emb.cpu().numpy(),
+                        names=np.array(packed.names))
     finally:
+        if sampler:
+            sampler.__exit__(None, None, None)
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+            os.makedirs(os.path.join(out_dir, "trace"), exist_ok=True)
+            profiler.export_chrome_trace(
+                os.path.join(out_dir, "trace", "trace.json"))
         if log_handler is not None:
             remove_log_file(log_handler)
     summary = metrics.summary()

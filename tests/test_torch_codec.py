@@ -138,7 +138,66 @@ def _fmix32(x):
     return x ^ (x >> np.uint64(16))
 
 
-def emulate_window_slots(bases, k, seed, threshold, keep_all, threads=256):
+def _byte_chunks(bases):
+    """The byte source's chunks (RowSource<SRC_BYTES>: load_window_chunk,
+    pack_chunk) of block b: (stream words, 16-bit invalid halves), each
+    (R, WINDOW_CHUNKS), for b given."""
+    u = np.uint64
+    r, length = bases.shape
+
+    def chunks(b):
+        off = 1024 * b
+        c = np.full((r, 16 * WINDOW_CHUNKS), 4, np.uint8)
+        n = min(length - off, 16 * WINDOW_CHUNKS)
+        c[:, :n] = bases[:, off : off + n]
+        c = c.reshape(r, WINDOW_CHUNKS, 16)
+        stream = np.bitwise_or.reduce(
+            (c & 3).astype(u) << (2 * np.arange(16, dtype=u)), axis=2)
+        half = np.bitwise_or.reduce(
+            (c >= 4).astype(u) << np.arange(16, dtype=u), axis=2)
+        return stream, half
+    return chunks
+
+
+def _past_mask(left):
+    """window_codes.cuh past_mask: the invalid mask of 16 bases of which
+    the first `left` lie in the row."""
+    shift = np.clip(left, 0, 16).astype(np.uint64)
+    return np.where(left >= 16, 0, np.where(
+        left <= 0, 0xFFFF, (np.uint64(0xFFFF) << shift) & np.uint64(0xFFFF))
+    ).astype(np.uint64)
+
+
+def packed_chunks(packed, length, lengths=None, valid=None):
+    """RowSource<SRC_PACKED> (with `lengths`) or <SRC_BITS> (with `valid`)
+    fetch in numpy: chunk c of block b is stream word q = 64 b + c, the
+    row's bytes [4q, 4q + 4) little-endian, 0 past its stride; its mask
+    the bases from the row's length (packed) or the inverted valid bytes
+    2q and 2q + 1 (0 past the valid row), and the bases past L."""
+    u = np.uint64
+    r, stride = packed.shape
+
+    def byte_at(plane, idx):
+        width = plane.shape[1]
+        got = plane[:, np.minimum(idx, width - 1)].astype(u)
+        return np.where(idx[None, :] < width, got, u(0))
+
+    def chunks(b):
+        q = 64 * b + np.arange(WINDOW_CHUNKS)
+        word = np.zeros((r, WINDOW_CHUNKS), u)
+        for j in range(4):
+            word |= byte_at(packed, 4 * q + j) << u(8 * j)
+        if lengths is not None:
+            left = np.minimum(lengths.astype(np.int64), length)[:, None]
+            return word, _past_mask(left - 16 * q[None, :])
+        bits = byte_at(valid, 2 * q) | (byte_at(valid, 2 * q + 1) << u(8))
+        return word, ((~bits) & u(0xFFFF)) | _past_mask(
+            length - 16 * q[None, :])
+    return chunks
+
+
+def emulate_window_slots(bases, k, seed, threshold, keep_all, threads=256,
+                         chunks=None):
     """csrc/window_codes.cuh `window_slots` in numpy, block by block as
     kernels A and B run it: each 1024-window block stages 66 chunks of 16
     bases (its bases and the k - 1 halo, INVALID past the row), packs them
@@ -148,6 +207,9 @@ def emulate_window_slots(bases, k, seed, threshold, keep_all, threads=256):
     its first window shares, rc = ~v & mask, code = pairrev(v) >> (B - 2k)
     (bit reversal, then each pair's bits swapped back), the validity test
     on the mask words, the sample_hash32 filter. Returns the (R, W) slots.
+    `chunks` (b -> the stream words and invalid halves of block b's
+    chunks) stands in for the byte source's: packed_chunks gives the
+    packed and bits sources' (`bases` then gives only the shape).
 
     Breaking it fails the tests below: staging 64 chunks (no halo) leaves
     every block's last k - 1 windows INVALID, and dropping the pair swap
@@ -165,16 +227,10 @@ def emulate_window_slots(bases, k, seed, threshold, keep_all, threads=256):
     t = ((j0 & 31) + j % per).astype(u)
     mask = u((1 << bits) - 1) >> u(bits - 2 * k)
     out = np.full((r, n_blocks * 1024), codec.PAD_SLOT, np.int64)
+    chunks = chunks or _byte_chunks(bases)
     for b in range(n_blocks):
         off = 1024 * b
-        chunks = np.full((r, 16 * WINDOW_CHUNKS), 4, np.uint8)
-        n = min(length - off, 16 * WINDOW_CHUNKS)
-        chunks[:, :n] = bases[:, off : off + n]
-        chunks = chunks.reshape(r, WINDOW_CHUNKS, 16)
-        stream = np.bitwise_or.reduce(
-            (chunks & 3).astype(u) << (2 * np.arange(16, dtype=u)), axis=2)
-        half = np.bitwise_or.reduce(
-            (chunks >= 4).astype(u) << np.arange(16, dtype=u), axis=2)
+        stream, half = chunks(b)
         invalid = half[:, 0::2] | (half[:, 1::2] << u(16))
         live = (half != 0xFFFF).any(axis=1)  # __syncthreads_or
         q = j0 >> 4
@@ -288,3 +344,81 @@ def test_window_slots_emulation_matches_pallas_kernel(k):
     got = emulate_window_slots(bases, k, SEED, thr, False)
     np.testing.assert_array_equal(got != codec.PAD_SLOT, keep_p)
     np.testing.assert_array_equal(got[keep_p] >> 1, canon_p[keep_p])
+
+
+@pytest.mark.parametrize("source", ["packed", "bits"])
+@pytest.mark.parametrize("k", [1, 13, 16, 17, 31])
+@pytest.mark.parametrize("length", [4096, 3055, 3057])
+def test_window_slots_emulation_on_packed_sources(source, k, length):
+    """The window-code function on the packed and bits sources (their
+    loaders emulated: stream words from the packer's bytes, 0 past a row
+    of 1,024, 764 or 765 bytes; masks from the lengths or the inverted
+    valid bits and the row's end) against unpack + kernel A's plain
+    version, bitwise, with and without sampling."""
+    from fedrann_tpu_torch.io.packing import bit_pack
+
+    rng = np.random.default_rng(length + k)
+    if source == "packed":  # prefix rows: valid up to each row's length
+        lengths = rng.integers(0, length + 1, 9).astype(np.int32)
+        lengths[:6] = (length, length - 1, 0, 1, 2048, 1500)
+        bases = rng.integers(0, 4, (9, length)).astype(np.uint8)
+        bases[np.arange(length)[None, :] >= lengths[:, None]] = 4
+    else:
+        bases = edge_bases(k, length=length)
+    packed, valid = bit_pack(bases)
+    chunks = (packed_chunks(packed, length, lengths=lengths)
+              if source == "packed" else
+              packed_chunks(packed, length, valid=valid))
+    thr = codec.sample_threshold(FRACTION)
+    for keep_all in (False, True):
+        got = emulate_window_slots(np.zeros_like(bases), k, SEED, thr,
+                                   keep_all, chunks=chunks)
+        want = codec._canonical_sample_plain(torch.from_numpy(bases), k,
+                                             SEED, thr, keep_all).numpy()
+        np.testing.assert_array_equal(got, want)
+    assert (got != codec.PAD_SLOT).any()
+
+
+# ---- the packer's 2-bit form: unpack_bases[_len] ----
+
+
+@pytest.mark.parametrize("length", [1, 7, 16, 300, 1029])
+def test_unpack_bases_bitwise(length):
+    """unpack_bases and unpack_bases_len against JAX's, bitwise, on the
+    2-bit planes of rows with mid-read INVALID bases (valid bits) and of
+    prefix rows (lengths, some past L or 0), L a multiple of 4 and 8 or
+    not."""
+    from fedrann_tpu_torch.io.packing import bit_pack
+
+    rng = np.random.default_rng(length)
+    bases = _bases(rng, r=9, length=length)
+    packed, valid = bit_pack(bases)
+    got = codec.unpack_bases(torch.from_numpy(packed),
+                             torch.from_numpy(valid), length)
+    want = np.asarray(jcodec.unpack_bases(jnp.asarray(packed),
+                                          jnp.asarray(valid), length))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), bases)
+    lengths = rng.integers(0, length + 3, 9).astype(np.int32)
+    lengths[:2] = (0, length)
+    got = codec.unpack_bases_len(torch.from_numpy(packed),
+                                 torch.from_numpy(lengths), length)
+    want = np.asarray(jcodec.unpack_bases_len(
+        jnp.asarray(packed), jnp.asarray(lengths), length))
+    np.testing.assert_array_equal(got.numpy(), want)
+    chunk = codec.PackedChunk(torch.from_numpy(packed), length,
+                              lengths=torch.from_numpy(lengths))
+    assert chunk.source == "packed" and chunk.shape == (9, length)
+    np.testing.assert_array_equal(chunk[2:5].unpack().numpy(), want[2:5])
+
+
+def test_packed_chunk_refuses_a_bad_form():
+    packed = torch.zeros((4, 25), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="lengths or valid_bits"):
+        codec.PackedChunk(packed, 100)
+    with pytest.raises(ValueError, match="packed must be"):
+        codec.PackedChunk(packed, 101,
+                          lengths=torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="valid_bits must be"):
+        codec.PackedChunk(packed, 100,
+                          valid_bits=torch.zeros((4, 12), dtype=torch.uint8))

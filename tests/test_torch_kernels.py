@@ -16,8 +16,10 @@ import torch
 
 from fedrann_tpu_torch import _build, probes
 from fedrann_tpu_torch.device import shared_memory_limit
+from fedrann_tpu_torch.io.packing import bit_pack
 from fedrann_tpu_torch.kmers.codec import (
     PAD_SLOT,
+    PackedChunk,
     _canonical_sample_plain,
     canonical_sample,
     sample_threshold,
@@ -209,6 +211,140 @@ def test_stage_candidates_long_rows_take_kernel_a(cuda):
         before[0], before[1] + 1, before[2] + 1)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def _prefix_bases(k, rows, length, seed=0):
+    """Rows whose valid bases are a prefix (reads as the packed source
+    takes them): random bases up to each row's length, INVALID after it;
+    lengths of the whole row, one base less, mid-block, a block edge, 0, 1,
+    k - 1, k, then random."""
+    rng = np.random.default_rng(seed + k)
+    lengths = rng.integers(0, length + 1, rows)
+    edges = [length, length - 1, length // 2 + 7, min(2048, length), 0, 1,
+             k - 1, k]
+    lengths[: min(rows, 8)] = edges[:rows]
+    b = rng.integers(0, 4, size=(rows, length)).astype(np.uint8)
+    b[np.arange(length)[None, :] >= lengths[:, None]] = 4
+    return torch.from_numpy(b), torch.from_numpy(lengths.astype(np.int32))
+
+
+def _source_case(case, source):
+    """(chunk on the CPU, k, hit_buffer, keep_all, block_cap, threshold,
+    long) of a packed-source staging case at chip_smoke.py 3c's shapes: a
+    PackedChunk of the packed source (prefix rows with their lengths) or
+    of the bits source (the edge rows, mid-read INVALID bases on block
+    edges, in a halo and at a block start, with their valid bits)."""
+    k, length, fraction = {
+        "main": (15, 16384, 0.05),     # the main path's chunk shape
+        "k21": (21, 8192, 0.05),       # two-word codes
+        "262144": (15, 1 << 18, 0.05),  # 1,024 threads, one block a row
+        "keep_all_32768": (15, 1 << 15, 1.0),  # kernel A + B's long path
+        "keep_all_65536": (15, 1 << 16, 1.0),
+        "len10000": (15, 10000, 0.05),  # a stride of 2,500 bytes: off 16
+        "len10002": (15, 10002, 0.05),  # a stride of 2,501 bytes: off 4
+        "k31_full": (31, 2000, 0.2),   # full width (w <= 2 * SELECT_BLOCK)
+    }[case]
+    rows = 6 if length > 20_000 else 24
+    if source == "packed":
+        bases, lengths = _prefix_bases(k, rows, length)
+    else:
+        bases = _edge_bases(k, rows, length)
+    packed, valid = (torch.from_numpy(a) for a in bit_pack(bases.numpy()))
+    chunk = (PackedChunk(packed, length, lengths=lengths)
+             if source == "packed" else
+             PackedChunk(packed, length, valid_bits=valid))
+    assert torch.equal(chunk.unpack(), bases)
+    keep_all = fraction >= 1.0
+    w = length - k + 1
+    hb = w if keep_all else staging_width(w, fraction)
+    cap = None if keep_all else selection_cap(fraction)
+    return (chunk, k, hb, keep_all, cap, sample_threshold(fraction),
+            stage_launch_plan(w, hb, keep_all, cap).long)
+
+
+def _chunk_on_card(chunk, cuda, offset=0):
+    """The chunk on the card, its stream `offset` bytes past an allocation's
+    start (every row off a 4-byte boundary when offset % 4 != 0)."""
+    aux = chunk.aux.to(cuda)
+    packed = _on_card_at(chunk.packed, cuda, offset)
+    if chunk.source == "packed":
+        return PackedChunk(packed, chunk.length, lengths=aux)
+    return PackedChunk(packed, chunk.length, valid_bits=aux)
+
+
+def _counts(source):
+    return (stage_candidates.launches,
+            getattr(stage_candidates, f"{source}_launches"),
+            canonical_sample.launches,
+            getattr(canonical_sample, f"{source}_launches"),
+            select_candidates.long_launches, stage_candidates.bytes_launches,
+            canonical_sample.bytes_launches)
+
+
+@pytest.mark.parametrize("source", ["packed", "bits"])
+@pytest.mark.parametrize("case", ["main", "k21", "262144", "keep_all_32768",
+                                  "keep_all_65536", "len10000", "len10002",
+                                  "k31_full"])
+def test_packed_sources_match_plain(cuda, case, source):
+    """Kernel A and the fused kernel on the packed and bits sources against
+    unpack_bases[_len] + the plain composition, bitwise, dropped counts
+    included, each launch counted on its source and none on the byte
+    source: the fused kernel where the plan keeps the rows in one block,
+    kernel A then B's device-memory path for keep_all rows past it."""
+    chunk, k, hb, keep_all, cap, thr, long = _source_case(case, source)
+    assert long == case.startswith("keep_all")
+    bases = chunk.unpack()
+    want = _select_candidates_plain(
+        _canonical_sample_plain(bases, k, 602, thr, keep_all), hb, keep_all,
+        cap)
+    on_card = _chunk_on_card(chunk, cuda)
+    before = _counts(source)
+    got = stage_candidates(on_card, k, hb, keep_all, 602, thr, cap)
+    torch.cuda.synchronize()
+    fused = (0, 0, 1, 1, 1, 0, 0) if long else (1, 1, 0, 0, 0, 0, 0)
+    assert _counts(source) == tuple(a + d for a, d in zip(before, fused))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert (want[0] != PAD_SLOT).any()
+    slots = canonical_sample(on_card, k, 602, thr, keep_all)
+    torch.cuda.synchronize()
+    assert torch.equal(slots.cpu(), _canonical_sample_plain(
+        bases, k, 602, thr, keep_all))
+
+
+@pytest.mark.parametrize("source", ["packed", "bits"])
+@pytest.mark.parametrize("k", [1, 2, 13, 16, 17, 31])
+@pytest.mark.parametrize("length,offset", [(4096, 0), (3055, 0), (4096, 1),
+                                           (3055, 2)])
+def test_packed_sources_edge_rows_match_plain(cuda, source, k, length,
+                                              offset):
+    """Kernel A and the fused kernel on the packed sources at every k
+    class, rows whose stride is a multiple of 4 bytes (4,096 bases) or not
+    (3,055 bases: 764 bytes a row, every other row off 4), and streams off
+    a 4-byte boundary (word loads byte by byte)."""
+    if source == "packed":
+        bases, lengths = _prefix_bases(k, 12, length, seed=3)
+    else:
+        bases = _edge_bases(k, 12, length)
+    packed, valid = (torch.from_numpy(a) for a in bit_pack(bases.numpy()))
+    chunk = (PackedChunk(packed, length, lengths=lengths)
+             if source == "packed" else
+             PackedChunk(packed, length, valid_bits=valid))
+    on_card = _chunk_on_card(chunk, cuda, offset)
+    thr = sample_threshold(0.3)
+    for keep_all in (False, True):
+        want = _canonical_sample_plain(bases, k, 602, thr, keep_all)
+        got = canonical_sample(on_card, k, 602, thr, keep_all)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        w = length - k + 1
+        hb = w if keep_all else staging_width(w, 0.3)
+        cap = None if keep_all else selection_cap(0.3)
+        staged = stage_candidates(on_card, k, hb, keep_all, 602, thr, cap)
+        torch.cuda.synchronize()
+        plain = _select_candidates_plain(want, hb, keep_all, cap)
+        assert torch.equal(staged[0].cpu(), plain[0])
+        assert torch.equal(staged[1].cpu(), plain[1])
 
 
 def _random_slots(rng, r, w, density):

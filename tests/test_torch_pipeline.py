@@ -75,14 +75,34 @@ def test_slice_matches_jax_pipeline(sim_input, tmp_path, k, dtype):
 @pytest.mark.parametrize("flag", [
     ["--knn-method", "ivf"], ["--knn-hbm-budget", "8G"],
     ["--num-processes", "2"], ["--coordinator", "localhost:1234"],
-    ["--keep-intermediates"], ["--profile"],
-    ["--save-feature-matrix"], ["--mprof"], ["--knn-sharded", "always"],
+    ["--knn-sharded", "always"],
 ])
 def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
     _, path = sim_input
     config = config_from_args(["-i", path, "-o", str(tmp_path), *flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run_pipeline(config, CPU)
+
+
+def test_load_is_native_and_uploads_the_2bit_form(sim_input, tmp_path):
+    """The run loads through the native packer (never the Python reader
+    or packer), saves the packed-reads cache, and uploads each bucket in
+    its 2-bit form: a quarter of the byte matrix plus the row lengths."""
+    from fedrann_tpu_torch.io import fastx, native, packing
+    from fedrann_tpu_torch.pipeline import upload_bucket
+
+    _, path = sim_input
+    before = (native.pack_reads_native.calls, fastx.read_fastx.calls,
+              packing.pack_reads.calls, upload_bucket.bytes)
+    res = run_pipeline(config_from_args(
+        ["-i", path, "-o", str(tmp_path), "-k", "13", *ARGS]), CPU)
+    after = (native.pack_reads_native.calls, fastx.read_fastx.calls,
+             packing.pack_reads.calls, upload_bucket.bytes)
+    rows = -(-len(res.names) // 8) * 8
+    assert after[:3] == (before[0] + 1, before[1], before[2])
+    assert after[3] - before[3] == rows * (4096 // 4 + 4) \
+        == res.metrics["stage"]["h2d_bytes"]
+    assert os.path.exists(tmp_path / "fxcache.npz")
 
 
 def test_imported_projection_of_another_library_raises(sim_input, tmp_path):

@@ -24,11 +24,15 @@ from fedrann_tpu import oracle  # noqa: E402
 from fedrann_tpu.kmers import membership as jmem  # noqa: E402
 from fedrann_tpu_torch.convert import staged_planes_to_slots  # noqa: E402
 from fedrann_tpu_torch.io.fastx import FastxRecord  # noqa: E402
-from fedrann_tpu_torch.io.packing import pack_reads  # noqa: E402
+from fedrann_tpu_torch.io.packing import bit_pack, pack_reads  # noqa: E402
 from fedrann_tpu_torch.config import PipelineConfig  # noqa: E402
 from fedrann_tpu_torch.device import SM90_SMEM_OPTIN  # noqa: E402
 from fedrann_tpu_torch.kmers import membership  # noqa: E402
-from fedrann_tpu_torch.kmers.codec import PAD_SLOT, sample_threshold  # noqa: E402
+from fedrann_tpu_torch.kmers.codec import (  # noqa: E402
+    PAD_SLOT,
+    PackedChunk,
+    sample_threshold,
+)
 from fedrann_tpu_torch.pipeline import staging_params  # noqa: E402
 from fedrann_tpu_torch.sim import simulate_reads  # noqa: E402
 from pallas_sort import sort_rows_pallas  # noqa: E402
@@ -379,3 +383,54 @@ def test_long_path_schedule_matches_plain(w, fraction, keep_all, cap,
         slots, hb, keep_all, cap)
     np.testing.assert_array_equal(staged, want.numpy())
     np.testing.assert_array_equal(dropped, want_dropped.numpy())
+
+
+def _jax_fused(arrs, rows, length, mode, k, hb, keep_all, fraction, cap):
+    """JAX's `_stage_chunk_fused` on one chunk of `rows` rows from row 0,
+    in `mode` ("packed": the uint32 view of the stream with the lengths;
+    "bits": the stream with the valid bits), as slots."""
+    from fedrann_tpu.pipeline import _stage_chunk_fused
+
+    planes, dropped = _stage_chunk_fused(
+        tuple(jnp.asarray(a) for a in arrs), 0, rows, length, mode, k, hb,
+        keep_all, jnp.uint32(SEED), jnp.uint32(sample_threshold(fraction)),
+        cap)
+    return (staged_planes_to_slots(tuple(np.asarray(p) for p in planes), k),
+            np.asarray(dropped))
+
+
+@pytest.mark.parametrize("k", [13, 16, 21, 31])
+@pytest.mark.parametrize("mode", ["packed", "bits"])
+@pytest.mark.parametrize("blocked", [False, True])
+def test_packed_sources_stage_as_jax_fused(k, mode, blocked):
+    """stage_candidates on a PackedChunk (plain path: unpack_bases[_len],
+    then the plain composition) against JAX's `_stage_chunk_fused` in mode
+    "packed" (prefix-valid rows, the uint32 view of the stream and the
+    lengths) and "bits" (mid-read N, the valid bits); rows bitwise for k
+    <= 16, as multisets above, dropped counts exact."""
+    length = 4096 if blocked else 2048
+    fraction = 0.05 if blocked else 0.2
+    bases = _bucket(length)[:16].copy()
+    lengths = (bases < 4).sum(axis=1).astype(np.int32)  # prefix rows
+    if mode == "bits":
+        bases[2, [1023, 1024, 2047, 2048 - k // 2]] = 4
+        bases[3, 100:140] = 4
+    packed, valid = bit_pack(bases)
+    chunk = (PackedChunk(torch.from_numpy(packed), length,
+                         lengths=torch.from_numpy(lengths))
+             if mode == "packed" else
+             PackedChunk(torch.from_numpy(packed), length,
+                         valid_bits=torch.from_numpy(valid)))
+    assert torch.equal(chunk.unpack(), torch.from_numpy(bases))
+    w = length - k + 1
+    hb = membership.staging_width(w, fraction)
+    cap = membership.selection_cap(fraction) if blocked else None
+    staged, dropped = membership.stage_candidates(
+        chunk, k, hb, False, SEED, sample_threshold(fraction), cap)
+    arrs = ((packed.view("<u4"), lengths) if mode == "packed"
+            else (packed, valid))
+    want, dropped_j = _jax_fused(arrs, 16, length, mode, k, hb, False,
+                                 fraction, cap)
+    _assert_rows(staged.numpy(), want, k)
+    np.testing.assert_array_equal(dropped.numpy(), dropped_j)
+    assert (staged != PAD_SLOT).sum() > 0

@@ -122,11 +122,27 @@ Phases; any failure exits non-zero and prints no result line:
      (fedrann_tpu_torch.eval), min cosine > 0.999 against
      ref_embeddings.npy, the dense form and the fused staging kernel
      launched.
+  8. the out-of-core k-NN, run after 4e on phase 4's reads:
+     (a) the CLI at --knn-hbm-budget 16M, checked as phase 4 (recall >=
+         0.9 at >= 4 kb), with the plan logged: the valve trips, the
+         search uploads the plan's >= 2 query slabs x >= 4 candidate
+         blocks and never calls knn_exact, kernel C launches once per
+         staging chunk into its reused buffer, the embed stage's peak
+         device memory stays below the (2R, d) float32 matrix, and
+         neighbor agreement with phase 4's in-core overlaps.tsv >= 0.99;
+     (b) knn_exact_ooc on 262,144 x 512 rows (rank 16 plus noise, from
+         FLAGS' --seed), k = 50, at 256 MiB: the plan's slabs and blocks,
+         peak device memory within the budget plus a merge's library
+         workspace, agreement >= 0.999 and sorted distances within 1e-6
+         against an in-core top-k over the same wire rows on 2,048
+         sampled queries; its seconds, H2D bytes and rate, one block's
+         copy alone and knn_exact's seconds on the same rows logged.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: stage_rows and membership_embed from the main
-path's, the other staging kernels summed over the three CLI runs,
+the runs of its own path: stage_rows from the main path's,
+membership_embed from the main path's and 8a's, the other staging kernels
+summed over the three CLI runs,
 membership_embed_dense over the runs of 4b and 7, the probes from their
 entry point), errors, times, the bound (the larger of
 the bytes the function must move over 3.35 TB/s, its float32 operations
@@ -170,6 +186,12 @@ EMBED_KERNELS = ("membership_embed", "membership_embed_dense")
 ULTRA_READS, ULTRA_MIN, ULTRA_MAX = 8, 400_000, 1_000_000
 GOLDEN = ("data", "data_k21")
 GOLDEN_RECALL, GOLDEN_MAE, GOLDEN_COSINE = 0.99, 5e-3, 0.999
+# 8a: the main path past this --knn-hbm-budget (>= 2 slabs, >= 4 blocks);
+# 8b: a search of OOC_ROWS x 512 (131,072 reads) at OOC_BUDGET bytes, held
+# against an in-core top-k on OOC_SAMPLE query rows
+OOC_CLI_BUDGET = "16M"
+OOC_ROWS, OOC_BUDGET, OOC_SAMPLE = 262_144, 256 << 20, 2048
+OOC_AGREE_CLI, OOC_AGREE_SEARCH = 0.99, 0.999
 
 
 COUNTERS: dict = {}
@@ -398,8 +420,8 @@ def device_us(fn, reps: int, hand: bool, tries: int = 3) -> str:
                 and (not hand or is_hand(e.name))]
         per_name: dict[str, list] = {}
         for name, us in runs:
-            per_name.setdefault(name.split("::")[1].split("(")[0], []).append(
-                us)
+            per_name.setdefault((name.split("::")[1] if hand else name)
+                                .split("(")[0], []).append(us)
         whole = (all(len(v) % reps == 0 for v in per_name.values()) if hand
                  else len(runs) % reps == 0)
         if runs and whole:
@@ -1984,6 +2006,245 @@ def profile_cli(fasta: str, out_dir: str, card: str, label: str) -> None:
             log(f"  {us / 1e3:9.3f} ms {n:5d} x {name[:100]}")
 
 
+def overlap_sets(path: str) -> dict:
+    """(query, orientation) -> its set of (target, orientation) rows in an
+    overlaps.tsv."""
+    rows: dict = {}
+    with open(path) as f:
+        f.readline()
+        for line in f:
+            q, qo, t, to, _rank, _dist = line.rstrip("\n").split("\t")
+            rows.setdefault((q, qo), set()).add((t, to))
+    return rows
+
+
+def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
+                  card: str, dev) -> dict:
+    """Phase 8a: the CLI main path on phase 4's reads past
+    --knn-hbm-budget OOC_CLI_BUDGET, checked as phase 4 (drive_cli) and
+    more: the valve trips, the search runs the port's plan (>= 2 query
+    slabs, >= 4 candidate blocks) and never knn_exact, kernel C launches
+    once per staging chunk, and the embed stage's peak device memory
+    (torch.cuda.max_memory_allocated over what was allocated before it)
+    stays below the (2R, d) float32 matrix; neighbor agreement >=
+    OOC_AGREE_CLI with phase 4's in-core overlaps.tsv. Returns the launch
+    counts."""
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.io.native import pack_reads_native
+    from fedrann_tpu_torch.knn.ooc import plan_bytes, plan_ooc
+
+    flags = [*FLAGS, "--knn-hbm-budget", OOC_CLI_BUDGET]
+    config = config_from_args(["-i", fasta, "-o", out_dir, *flags])
+    n_reads, d, k = (len(sim.names), config.embedding_dimension,
+                     config.n_neighbors)
+    n = 2 * n_reads
+    q_rows, c_rows, ct = plan_ooc(n, d, k, config.knn_hbm_budget,
+                                  config.knn_query_tile)
+    slabs, blocks = -(-n // q_rows), -(-n // c_rows)
+    log(f"8a plan at --knn-hbm-budget {OOC_CLI_BUDGET} "
+        f"({config.knn_hbm_budget} bytes), {n} x {d} rows, k = {k}: "
+        f"{slabs} query slabs x {q_rows} rows, {blocks} candidate blocks x "
+        f"{c_rows} rows, candidate tile {ct}; the plan holds "
+        f"{plan_bytes(q_rows, c_rows, ct, config.knn_query_tile, d, k, 2)} "
+        "bytes")
+    if not pipeline.out_of_core(config, n_reads) or slabs < 2 or blocks < 4:
+        fail(f"8a: budget {OOC_CLI_BUDGET} gives {slabs} slabs and {blocks} "
+             "blocks out of core, want >= 2 and >= 4")
+    packed = pack_reads_native(fasta, config.length_buckets,
+                               split_overlap=config.kmer_size - 1)
+    chunks = sum(-(-b.read_index.shape[0] // pipeline.chunk_rows(
+        b.length, b.read_index.shape[0], config)) for b in packed.buckets)
+
+    peak = {}
+    embed, in_core = pipeline.compute_embeddings, pipeline.knn_exact
+
+    def measured_embed(*args, **kwargs):
+        torch.cuda.synchronize(dev)
+        peak["before"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        emb = embed(*args, **kwargs)
+        torch.cuda.synchronize(dev)
+        peak["delta"] = torch.cuda.max_memory_allocated(dev) - peak["before"]
+        return emb
+
+    def no_in_core(*args, **kwargs):
+        fail("8a: the out-of-core run called knn_exact")
+
+    pipeline.compute_embeddings, pipeline.knn_exact = measured_embed, \
+        no_in_core
+    try:
+        launches, secs = drive_cli(fasta, out_dir, sim, MIN_OVERLAP, card,
+                                   dev, flags)
+    finally:
+        pipeline.compute_embeddings, pipeline.knn_exact = embed, in_core
+    host = read_counts(HOST_COUNTERS)
+    if (host["ooc_slabs"], host["ooc_blocks"]) != (slabs, slabs * blocks):
+        fail(f"8a: {host['ooc_slabs']} slabs and {host['ooc_blocks']} "
+             f"blocks uploaded, the plan says {slabs} x {blocks}")
+    if launches["membership_embed"] != chunks:
+        fail(f"8a: kernel C launched {launches['membership_embed']} times, "
+             f"want one per staging chunk ({chunks})")
+    matrix = n * d * 4
+    if "delta" not in peak or peak["delta"] >= matrix:
+        fail(f"8a: embed held {peak.get('delta')} bytes of device memory "
+             f"at its peak, not below the {matrix}-byte (2R, d) matrix")
+    ours, theirs = overlap_sets(os.path.join(out_dir, "overlaps.tsv")), \
+        overlap_sets(in_core_tsv)
+    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
+                for key, want in theirs.items()) / len(theirs)
+    log(f"8a out of core: {slabs} slabs x {blocks} blocks, H2D "
+        f"{host['ooc_h2d_bytes']} bytes; kernel C {chunks} launches (one a "
+        f"staging chunk); embed peak {peak['delta']} bytes over the "
+        f"{peak['before']} allocated before it, against the {matrix}-byte "
+        f"matrix; neighbor agreement with phase 4's in-core overlaps.tsv "
+        f"{agree:.5f}; knn {secs['knn']:.3f} s, embed {secs['embed']:.3f} s "
+        f"[{card}]")
+    if agree < OOC_AGREE_CLI:
+        fail(f"8a: agreement {agree:.5f} with the in-core run below "
+             f"{OOC_AGREE_CLI}")
+    return launches
+
+
+def merge_workspace(dev, ct: int, d: int, k: int, qt: int = 512) -> int:
+    """Device bytes one merge_block at (qt, ct) holds past what the plan
+    counts for it (its scores and keys, PAIR_BYTES a pair, and 24 bytes a
+    query row and neighbor): the libraries' own workspaces (torch.topk,
+    cuBLAS), 0 when the plan's count covers them."""
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import PAIR_BYTES, merge_block
+
+    q = torch.randn((qt, d), device=dev)
+    c = torch.randn((ct, d), device=dev)
+    run = merge_block(None, q, c, 0, k)
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    merge_block(run, q, c, ct, k)
+    torch.cuda.synchronize(dev)
+    used = torch.cuda.max_memory_allocated(dev) - before
+    return max(0, used - (qt * ct * PAIR_BYTES + qt * k * 24))
+
+
+def check_ooc_search(dev, card: str) -> None:
+    """Phase 8b: knn_exact_ooc on OOC_ROWS x 512 rows of rank 16 plus noise
+    (tests/test_knn_ooc.py's structure) made by numpy from FLAGS' --seed,
+    k = 50, at OOC_BUDGET bytes: the slabs and blocks the port's plan says,
+    peak device memory over the call within the budget plus the
+    libraries' workspaces (merge_workspace), and on OOC_SAMPLE query rows
+    agreement >= OOC_AGREE_SEARCH with an in-core top-k over the same wire
+    rows, sorted distances within 1e-6. Logs the search's seconds, its H2D
+    bytes and rate, host_wire's seconds, one block's copy alone, one
+    merge's event and device time at the plan's tile and at knn_exact's,
+    and knn_exact's seconds on the same rows."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ooc
+    from fedrann_tpu_torch.knn.topk import keys_to_host, knn_exact, merge_block
+
+    n, d, k, budget = OOC_ROWS, 512, 50, OOC_BUDGET
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    emb = (rng.standard_normal((n, 16), dtype=np.float32)
+           @ rng.standard_normal((16, d), dtype=np.float32))
+    emb += np.float32(0.25) * rng.standard_normal((n, d), dtype=np.float32)
+    made = time.perf_counter() - t0
+    q_rows, c_rows, ct = ooc.plan_ooc(n, d, k, budget)
+    slabs, blocks = -(-n // q_rows), -(-n // c_rows)
+    held = ooc.plan_bytes(q_rows, c_rows, ct, 512, d, k, 2)
+    workspace = merge_workspace(dev, ct, d, k)
+    log(f"8b plan: {n} x {d} rows (made in {made:.2f} s), k = {k}, budget "
+        f"{budget} bytes: {slabs} query slabs x {q_rows} rows, {blocks} "
+        f"candidate blocks x {c_rows} rows, candidate tile {ct}; the plan "
+        f"holds {held} bytes; a merge's library workspace past the plan's "
+        f"count {workspace} bytes")
+
+    fn = ooc.knn_exact_ooc
+    fn.slabs = fn.blocks_uploaded = fn.h2d_bytes = 0
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    idx, dist = ooc.knn_exact_ooc(emb, k, budget, transfer="f32", device=dev)
+    secs = time.perf_counter() - t0
+    delta = torch.cuda.max_memory_allocated(dev) - before
+    if (fn.slabs, fn.blocks_uploaded) != (slabs, slabs * blocks):
+        fail(f"8b: {fn.slabs} slabs and {fn.blocks_uploaded} blocks "
+             f"uploaded, the plan says {slabs} x {blocks}")
+    if held > budget or delta > budget + workspace:
+        fail(f"8b: the search held {delta} bytes at its peak (plan "
+             f"{held}), past the {budget}-byte budget + {workspace}")
+
+    t0 = time.perf_counter()
+    wire = ooc.host_wire(emb)  # the search's own first step, timed alone
+    wire_secs = time.perf_counter() - t0
+    sample = np.sort(rng.choice(n, OOC_SAMPLE, replace=False))
+    cand = wire.to(dev).float()
+    q = cand[torch.from_numpy(sample).to(dev)]
+    run = None
+    for c0 in range(0, n, 131072):
+        run = merge_block(run, q, cand[c0 : c0 + 131072], c0, k)
+    ref_idx, ref_dist = keys_to_host(run, "f32")
+    del cand, q, run
+    agree = np.mean([len(set(a) & set(b)) / k
+                     for a, b in zip(idx[sample], ref_idx)])
+    err = float(np.abs(np.sort(dist[sample], 1) - np.sort(ref_dist, 1)).max())
+
+    # one merge at 8a's tile, the plan's and knn_exact's: event time (what
+    # a merge costs the stream, launch gaps included) beside device time,
+    # eager and, below knn_exact's tile, as the search replays it
+    costs = []
+    for width in sorted({512, ct, 131072}):
+        q = torch.randn((512, d), device=dev)
+        c = torch.randn((width, d), device=dev)
+        run = merge_block(None, q, c, 0, k)
+
+        def merge(run=run, q=q, c=c, width=width):
+            merge_block(run, q, c, width, k)
+
+        text = (f"{width}-row tile eager {time_cuda(merge, 20) * 1e3:.1f} us "
+                f"by events, device {device_us(merge, 20, False)} us")
+        if width < 131072:
+            graph = ooc._GraphMerge(512, width, d, k, dev)
+            graph.load(c)
+
+            def replay(graph=graph, run=run.clone(), q=q, width=width):
+                graph(run, q, width)
+
+            text += f", one CUDA graph {time_cuda(replay, 20) * 1e3:.1f} us"
+            del graph
+        costs.append(text)
+    del q, c, run
+    log(f"8b one merge of 512 query rows: {'; '.join(costs)} [{card}]")
+
+    block = torch.empty((c_rows, d), dtype=torch.bfloat16, pin_memory=True)
+    on_card = torch.empty((c_rows, d), dtype=torch.bfloat16, device=dev)
+    copy_ms = time_cuda(lambda: on_card.copy_(block, non_blocking=True), 5)
+    del block, on_card
+    rows = torch.from_numpy(emb).to(dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    knn_exact(rows, k, transfer="f32")
+    exact = time.perf_counter() - t0
+    del rows
+    log(f"8b search: {secs:.3f} s out of core against knn_exact {exact:.3f} "
+        f"s on the same rows ({secs / exact:.3f}x), of which host_wire (the "
+        f"host normalize and round) {wire_secs:.3f} s; H2D {fn.h2d_bytes} "
+        f"bytes = {fn.h2d_bytes / secs / 1e9:.2f} GB/s over the search, one "
+        f"{c_rows}-row block alone {copy_ms:.3f} ms = "
+        f"{c_rows * d * 2 / copy_ms / 1e6:.2f} GB/s; peak {delta} bytes over "
+        f"the call (plan {held}, budget {budget}); on {OOC_SAMPLE} sampled "
+        f"queries agreement {agree:.5f} with the in-core top-k, sorted "
+        f"distances within {err:.3g} [{card}]")
+    if agree < OOC_AGREE_SEARCH or err > 1e-6:
+        fail(f"8b: agreement {agree:.5f} (want >= {OOC_AGREE_SEARCH}), "
+             f"distance error {err} (want <= 1e-6)")
+
+
 def read_overlaps(path: str, names: list[str]):
     """(header, rows per (query, orientation), '+'-row neighbor read sets)."""
     index = {n: i for i, n in enumerate(names)}
@@ -2025,6 +2286,7 @@ def main() -> None:
             select_candidates,
             stage_candidates,
         )
+        from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
         from fedrann_tpu_torch.project.embed import (
             membership_embed,
             membership_embed_dense,
@@ -2049,7 +2311,10 @@ def main() -> None:
         "read_fastx": (read_fastx, "calls"),
         "pack_reads": (pack_reads, "calls"),
         "cache_hits": (load_packed_cache, "hits"),
-        "pin_copies": (pipeline.upload_bucket, "pin_copies")})
+        "pin_copies": (pipeline.upload_bucket, "pin_copies"),
+        "ooc_slabs": (knn_exact_ooc, "slabs"),
+        "ooc_blocks": (knn_exact_ooc, "blocks_uploaded"),
+        "ooc_h2d_bytes": (knn_exact_ooc, "h2d_bytes")})
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -2130,6 +2395,12 @@ def main() -> None:
         check_checkpoints(fasta, os.path.join(tmp, "ckpt"), sim, card, dev)
         check_feature_flags(fasta, os.path.join(tmp, "flags"), sim, card,
                             dev)
+        # 8: out of core, on phase 4's reads (8a) and at 262,144 rows (8b)
+        launches["membership_embed"] += check_ooc_cli(
+            fasta, os.path.join(tmp, "ooc"),
+            os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
+            dev)["membership_embed"]
+        check_ooc_search(dev, card)
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,

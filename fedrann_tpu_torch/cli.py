@@ -80,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Projection-table storage: 2-bit signs, or a dense "
                         "bf16/f32 paired table.")
     p.add_argument("--knn-hbm-budget", type=str, default=None,
-                   help="Device-memory budget for the k-NN (not ported).")
+                   help="Device-memory budget for the k-NN: past it the "
+                        "matrix stays in host memory and streams (8G, 512M).")
     p.add_argument("--knn-transfer", choices=("u16", "f32"), default="u16",
                    help="Distance grid: u16 snaps to 1/32767.5 steps.")
     p.add_argument("--knn-sharded", choices=("auto", "never", "always"),

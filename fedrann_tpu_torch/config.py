@@ -2,10 +2,9 @@
 `fedrann_tpu/config.py`, so a run of either package is described by the
 same fields.
 
-Fields that select paths this port does not have yet (IVF, the HBM budget,
-multi-host launch, multi-GPU k-NN) are kept so the CLI parses every flag;
-the pipeline rejects them with NotImplementedError naming the ROADMAP
-item.
+Fields that select paths this port does not have yet (IVF, multi-host
+launch, multi-GPU k-NN) are kept so the CLI parses every flag; the pipeline
+rejects them with NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ class PipelineConfig:
     knn_ivf_probes: int = 8
     knn_ivf_spill: int = 2
     knn_sharded: str = "auto"
-    knn_hbm_budget: Optional[int] = None  # out-of-core valve (not ported)
+    knn_hbm_budget: Optional[int] = None  # out-of-core valve (bytes)
     knn_transfer: str = "u16"             # distance snapping grid: u16 | f32
     projection_dtype: str = "signs"       # "signs" | "bf16" | "f32" (dense)
     profile: bool = False

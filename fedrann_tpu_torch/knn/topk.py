@@ -47,15 +47,28 @@ def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
     return t
 
 
-def _order_keys(scores: torch.Tensor, first_index: int) -> torch.Tensor:
+# bytes one (query, candidate) pair of a merge_block tile holds at once:
+# its int64 key and that key's copy in the concatenation with the carry
+# (_order_keys holds 12: the float32 score, then the key)
+PAIR_BYTES = 16
+
+
+def _order_keys(scores: torch.Tensor, first_index) -> torch.Tensor:
     """int64 keys that order (score desc, column index asc) as one largest-
     first integer order: the float32 bits made monotone in the high word,
-    the complemented column index in the low word."""
-    bits = scores.contiguous().view(torch.int32).to(torch.int64)
-    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    cols = torch.arange(first_index, first_index + scores.shape[1],
-                        dtype=torch.int64, device=scores.device)
-    return mono * (1 << 32) | (0xFFFFFFFF - cols)
+    the complemented column index in the low word. The bits are made
+    monotone in place, so scores is overwritten. first_index is an int or
+    a 0-d int64 tensor (a CUDA graph's input)."""
+    bits = scores.contiguous().view(torch.int32)
+    flip = bits >> 31  # all ones where the score is negative
+    flip &= 0x7FFFFFFF
+    bits ^= flip
+    del flip
+    keys = bits.to(torch.int64)
+    keys <<= 32
+    keys |= (0xFFFFFFFF - first_index) - torch.arange(
+        scores.shape[1], dtype=torch.int64, device=scores.device)
+    return keys
 
 
 def _decode_keys(keys: torch.Tensor):
@@ -90,12 +103,30 @@ def knn_exact(
         q = en[q0 : q0 + qt]
         run = None
         for c0 in range(0, n, ct):
-            keys = _order_keys(q @ en[c0 : c0 + ct].T, c0)
-            if run is not None:
-                keys = torch.cat([run, keys], dim=1)
-            run = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+            run = merge_block(run, q, en[c0 : c0 + ct], c0, k)
         keys_out[q0 : q0 + qt] = run
-    scores, idx = _decode_keys(keys_out)
+    return keys_to_host(keys_out, transfer)
+
+
+def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
+                first_index, k: int) -> torch.Tensor:
+    """The running top-k of query rows q (rows, d) float32 merged with the
+    candidate rows c (ct, d) float32 whose first global index is
+    first_index (an int or a 0-d int64 tensor): run, the (rows, <= k) int64
+    keys of the candidates seen so far (None before the first), becomes the
+    keys of the best min(k, seen) candidates, by score descending and index
+    ascending."""
+    keys = _order_keys(q @ c.T, first_index)
+    if run is not None:
+        keys = torch.cat([run, keys], dim=1)
+    return torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+
+
+def keys_to_host(keys: torch.Tensor, transfer: str):
+    """(rows, k) int64 keys -> (indices int32, cosine distances float32)
+    numpy arrays; transfer="u16" snaps the distances to the 1/DIST_SCALE
+    grid on the device before they cross."""
+    scores, idx = _decode_keys(keys)
     dist = 1.0 - scores
     if transfer == "u16":
         dist_np = dequantize_dist(quantize_dist(dist).cpu().numpy())

@@ -17,8 +17,10 @@ Stages, as named in metrics.json:
             (--projection-dtype f32|bf16), or --import-projection
   embed   - membership + paired embedding into the (2N, d) matrix (kernel
             C, in the projection's form), then each split read's union; or
-            an embeddings checkpoint
-  knn     - exact cosine top-k
+            an embeddings checkpoint. Past --knn-hbm-budget the matrix is a
+            host bfloat16 tensor filled chunk by chunk (out="host")
+  knn     - exact cosine top-k; past the budget, the out-of-core search
+            (knn/ooc.py) streams the host matrix through the device
   output  - overlaps.tsv (native C writer), --save-feature-matrix
 
 --keep-intermediates keeps checkpoints/library.npz, embeddings.npy and
@@ -62,6 +64,7 @@ from fedrann_tpu_torch.kmers.membership import (
     stage_candidates,
     staging_width,
 )
+from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
 from fedrann_tpu_torch.knn.topk import knn_exact
 from fedrann_tpu_torch.logging_utils import (
     add_log_file,
@@ -86,7 +89,9 @@ from fedrann_tpu_torch.project.srp import (
 class PipelineResult:
     names: list[str]
     library: KmerLibrary
-    embeddings: torch.Tensor        # (2R, d) float32, fwd/rev interleaved
+    # (2R, d) fwd/rev interleaved: float32 on the device, or in host
+    # memory (bfloat16, or a resumed float32 file) out of core
+    embeddings: torch.Tensor
     neighbor_indices: np.ndarray    # (2R, k) int32
     neighbor_distances: np.ndarray  # (2R, k) float32
     metrics: dict
@@ -103,23 +108,33 @@ class StagedBucket:
     rows: int                 # rows per device chunk
 
 
+def _not_ported(flag: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{flag} is not ported to fedrann_tpu_torch "
+                               f"yet (ROADMAP Queue 1: {item})")
+
+
 def check_supported(config: PipelineConfig) -> None:
     """Raise NotImplementedError for options outside the ported slice,
-    naming the ROADMAP Queue 1 item that brings them."""
+    naming the ROADMAP Queue 1 item that brings them. --knn-sharded always
+    is decided with the out-of-core valve (run_pipeline): an out-of-core
+    run streams through one device, as in the JAX package."""
     unsupported = [
         (config.knn_method == "ivf", "--knn-method ivf", "IVF"),
-        (config.knn_hbm_budget is not None, "--knn-hbm-budget",
-         "out-of-core k-NN"),
         ((config.num_processes or 0) > 1 or bool(config.coordinator),
          "--num-processes/--coordinator", "multi-host runtime"),
-        (config.knn_sharded == "always" or config.mesh_shape is not None,
-         "--knn-sharded always/--mesh-shape", "multi-GPU k-NN"),
+        (config.mesh_shape is not None, "--mesh-shape", "multi-GPU k-NN"),
     ]
     for bad, flag, item in unsupported:
         if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to fedrann_tpu_torch yet "
-                f"(ROADMAP Queue 1: {item})")
+            raise _not_ported(flag, item)
+
+
+def out_of_core(config: PipelineConfig, n_reads: int) -> bool:
+    """The JAX package's valve: the (2R, d) float32 matrix and the search's
+    copy (6 bytes an element) past --knn-hbm-budget."""
+    return (config.knn_hbm_budget is not None
+            and 2 * n_reads * config.embedding_dimension * 6
+            > config.knn_hbm_budget)
 
 
 def load_reads(config: PipelineConfig,
@@ -365,35 +380,88 @@ def _split_union_plain(staged: list[StagedBucket], split_ids: torch.Tensor,
     return embed_hits(hit_mat, proj, lib_size, d)
 
 
+class _HostRows:
+    """The host output of compute_embeddings (out="host"): kernel C writes
+    each chunk's fwd and rev rows into one reused (2 rows, d) float32
+    device buffer at local targets; the written rows are cast to bfloat16
+    on the device, copied to the host (through pinned memory on a CUDA
+    device) and placed at their targets in the (2N, d) bfloat16 host
+    matrix. Rows with target -1 (pad rows, split-read segments) keep the
+    last chunk's values in the buffer and are never copied."""
+
+    def __init__(self, n_reads: int, d: int, max_rows: int,
+                 device: torch.device):
+        self.matrix = torch.zeros((2 * n_reads, d), dtype=torch.bfloat16)
+        self.buf = torch.empty((2 * max_rows, d), dtype=torch.float32,
+                               device=device)
+        self.pinned = (torch.empty((2 * max_rows, d), dtype=torch.bfloat16,
+                                   pin_memory=True)
+                       if device.type == "cuda" else None)
+
+    def write(self, staged: torch.Tensor, targets: torch.Tensor,
+              lib_codes: torch.Tensor, proj) -> None:
+        """embed_staged of the staged rows (r, H) into the host matrix at
+        targets (r, 2) (-1 = do not write)."""
+        r, d = staged.shape[0], self.buf.shape[1]
+        written = targets >= 0
+        local = torch.arange(2 * r, device=targets.device).view(r, 2)
+        embed_staged(staged, lib_codes, proj,
+                     torch.where(written, local, -1), self.buf[: 2 * r])
+        rows = self.buf[: 2 * r].to(torch.bfloat16)
+        if self.pinned is not None:
+            rows = self.pinned[: 2 * r].copy_(rows)
+        written = written.cpu()
+        self.matrix[targets.cpu()[written]] = rows.view(r, 2, d)[written]
+
+
 def compute_embeddings(n_reads: int, staged: list[StagedBucket],
                        library: KmerLibrary, proj, d: int,
                        split_read_ids: Optional[np.ndarray],
-                       union_slots: int,
-                       device: torch.device) -> torch.Tensor:
+                       union_slots: int, device: torch.device,
+                       out: str = "device") -> torch.Tensor:
     """(2N, d) float32 embeddings in (read0_fwd, read0_rev, ...) order;
     zero-hit reads are exact zero rows. proj is the sign table (signs,
     mags) or a dense paired table (embed_staged). The segment rows of split
     reads are kept out of the per-bucket scatter (targets -1); each split
     read's rows are then the embedding of its merged segments
     (split_union_rows), through kernel C again, one launch per group of
-    at most union_slots merged slots (split_union_groups)."""
-    emb = torch.zeros((2 * n_reads, d), dtype=torch.float32, device=device)
+    at most union_slots merged slots (split_union_groups).
+
+    out="host" (the out-of-core path): the matrix is a CPU bfloat16 tensor
+    filled chunk by chunk (_HostRows), and no (2N, d) device tensor
+    exists."""
     split = torch.from_numpy(
         np.sort(split_read_ids).astype(np.int64) if split_read_ids is not None
         else np.zeros(0, np.int64)).to(device)
+    groups = (split_union_groups(staged, split, union_slots)
+              if split.numel() else [])
+    if out == "host":
+        sink = _HostRows(n_reads, d, max([min(b.rows, b.staged.shape[0])
+                                          for b in staged]
+                                         + [len(ids) for ids in groups]),
+                         device)
+        emb = sink.matrix
+
+        def write(rows, targets):
+            sink.write(rows, targets, library.codes, proj)
+    else:
+        emb = torch.zeros((2 * n_reads, d), dtype=torch.float32,
+                          device=device)
+
+        def write(rows, targets):
+            embed_staged(rows, library.codes, proj, targets, emb)
     for bucket in staged:
         ri = bucket.read_index
         keep = (ri >= 0) & ~torch.isin(ri, split)
         targets = torch.stack([torch.where(keep, 2 * ri, -1),
                                torch.where(keep, 2 * ri + 1, -1)], dim=1)
         for s in range(0, ri.shape[0], bucket.rows):
-            embed_staged(bucket.staged[s : s + bucket.rows], library.codes,
-                         proj, targets[s : s + bucket.rows], emb)
-    if split.numel():
-        groups = split_union_groups(staged, split, union_slots)
-        for ids in groups:
-            embed_staged(split_union_rows(staged, ids), library.codes, proj,
-                         torch.stack([2 * ids, 2 * ids + 1], dim=1), emb)
+            write(bucket.staged[s : s + bucket.rows],
+                  targets[s : s + bucket.rows])
+    for ids in groups:
+        write(split_union_rows(staged, ids),
+              torch.stack([2 * ids, 2 * ids + 1], dim=1))
+    if groups:
         logger.info("merged %d split reads (exact hit union) in %d groups",
                     split.numel(), len(groups))
     return emb
@@ -434,10 +502,13 @@ def _embed_fingerprint(config: PipelineConfig, packed: PackedReads,
 
 def _load_embeddings_checkpoint(config: PipelineConfig,
                                 ckpt_dir: Optional[str], packed: PackedReads,
-                                library: KmerLibrary,
-                                device: torch.device):
-    """The saved embedding matrix on `device` when a run saved it under an
-    equal fingerprint, else None."""
+                                library: KmerLibrary, device: torch.device,
+                                host: bool = False):
+    """The saved embedding matrix when a run saved it under an equal
+    fingerprint, else None: float32 on `device`, or as saved in host
+    memory when `host` (the out-of-core path). The file holds float32, or
+    2-byte elements, the bfloat16 bits of an out-of-core run (the JAX
+    package's ml_dtypes file, which numpy reads as |V2)."""
     if not ckpt_dir:
         return None
     npy = os.path.join(ckpt_dir, "embeddings.npy")
@@ -449,14 +520,37 @@ def _load_embeddings_checkpoint(config: PipelineConfig,
     if meta != _embed_fingerprint(config, packed, library):
         return None
     logger.info("resuming embeddings from %s", npy)
-    return torch.from_numpy(
-        np.load(npy).astype(np.float32, copy=False)).to(device)
+    arr = np.load(npy)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        emb = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        emb = torch.from_numpy(arr.astype(np.float32, copy=False))
+    return emb if host else emb.to(device, torch.float32)
+
+
+def _host_array(emb: torch.Tensor) -> np.ndarray:
+    """The matrix as numpy: float32, or a bfloat16 matrix's 2-byte
+    elements (numpy has no bfloat16)."""
+    if emb.dtype == torch.bfloat16:
+        return emb.view(torch.int16).numpy().view("V2")
+    return emb.cpu().numpy()
 
 
 def _save_embeddings_checkpoint(config: PipelineConfig, ckpt_dir: str,
                                 packed: PackedReads, library: KmerLibrary,
                                 emb: torch.Tensor) -> None:
-    np.save(os.path.join(ckpt_dir, "embeddings.npy"), emb.cpu().numpy())
+    """embeddings.npy: float32, or an out-of-core run's bfloat16 bits under
+    the header the JAX package's ml_dtypes array gets ('<V2'), so the two
+    packages write the same bytes."""
+    path = os.path.join(ckpt_dir, "embeddings.npy")
+    if emb.dtype == torch.bfloat16:
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(f, {
+                "descr": "<V2", "fortran_order": False,
+                "shape": tuple(emb.shape)})
+            f.write(emb.contiguous().view(torch.int16).numpy().tobytes())
+    else:
+        np.save(path, emb.cpu().numpy())
     with open(os.path.join(ckpt_dir, "embeddings_meta.json"), "w") as f:
         json.dump(_embed_fingerprint(config, packed, library), f)
 
@@ -560,6 +654,18 @@ def run_pipeline(config: PipelineConfig,
             packed = load_reads(config, device)
             logger.info("loaded %d reads into %d buckets",
                         packed.n_reads, len(packed.buckets))
+        # decided before embed: past the budget the (2R, d) device matrix
+        # must never exist, so embed fills a host matrix
+        ooc = out_of_core(config, packed.n_reads)
+        if ooc:
+            logger.info(
+                "embedding matrix %.2f GB + search copy exceeds the %.2f GB "
+                "HBM budget: out-of-core path (host-resident matrix, "
+                "streamed k-NN)",
+                2 * packed.n_reads * config.embedding_dimension * 4 / 1e9,
+                config.knn_hbm_budget / 1e9)
+        elif config.knn_sharded == "always":
+            raise _not_ported("--knn-sharded always", "multi-GPU k-NN")
         # staged lazily, once: a run resumed from both checkpoints skips it
         staged_once: list = []
 
@@ -587,25 +693,41 @@ def run_pipeline(config: PipelineConfig,
             proj = build_projection(config, library, perm, device)
         with metrics.stage("embed"):
             emb = _load_embeddings_checkpoint(config, ckpt_dir, packed,
-                                              library, device)
+                                              library, device, host=ooc)
             if emb is None:
                 emb = compute_embeddings(
                     packed.n_reads, get_staged(), library, proj,
                     projection_width(proj, config.embedding_dimension),
-                    packed.split_read_ids, config.window_batch, device)
+                    packed.split_read_ids, config.window_batch, device,
+                    out="host" if ooc else "device")
                 if ckpt_dir:
                     _save_embeddings_checkpoint(config, ckpt_dir, packed,
                                                 library, emb)
         staged_once.clear()  # the staged rows and the projection go
         del proj
         with metrics.stage("knn"):
-            idx, dist = knn_exact(
-                emb, config.n_neighbors,
-                query_tile=config.knn_query_tile,
-                candidate_tile=config.knn_candidate_tile,
-                precision=config.knn_precision,
-                transfer=config.knn_transfer,
-            )
+            if ooc:
+                if config.knn_sharded == "always":
+                    logger.warning(
+                        "out-of-core k-NN streams through one device; "
+                        "mesh sharding is overridden past the HBM budget")
+                before = knn_exact_ooc.h2d_bytes
+                idx, dist = knn_exact_ooc(
+                    emb, config.n_neighbors, config.knn_hbm_budget,
+                    query_tile=config.knn_query_tile,
+                    candidate_tile=config.knn_candidate_tile,
+                    precision=config.knn_precision,
+                    transfer=config.knn_transfer, device=device)
+                metrics.add_work("knn",
+                                 h2d_bytes=knn_exact_ooc.h2d_bytes - before)
+            else:
+                idx, dist = knn_exact(
+                    emb, config.n_neighbors,
+                    query_tile=config.knn_query_tile,
+                    candidate_tile=config.knn_candidate_tile,
+                    precision=config.knn_precision,
+                    transfer=config.knn_transfer,
+                )
         with metrics.stage("output"):
             if out_dir:
                 overlaps_path = os.path.join(out_dir, "overlaps.tsv")
@@ -616,7 +738,7 @@ def run_pipeline(config: PipelineConfig,
                 if config.save_feature_matrix:
                     np.savez_compressed(
                         os.path.join(out_dir, "feature_matrix.npz"),
-                        embeddings=emb.cpu().numpy(),
+                        embeddings=_host_array(emb),
                         names=np.array(packed.names))
     finally:
         if sampler:

@@ -955,3 +955,33 @@ def test_probe_bsearch_many_blocks_and_empty(cuda, probe_tensors):
     none = torch.zeros(0, dtype=torch.int32, device=cuda)
     assert int(probes.bsearch(table.to(cuda), none)[0]) == 0
     assert int(probes.bsearch(none, queries.to(cuda))[0]) == 0
+
+
+@pytest.mark.parametrize("precision,transfer", [("bf16", "u16"),
+                                                ("bf16", "f32"),
+                                                ("fp32", "f32")])
+def test_ooc_double_buffered_matches_sync_uploads(cuda, monkeypatch,
+                                                  precision, transfer):
+    """The out-of-core search with each candidate block copied on a side
+    stream under the search of the block before it (_blocks_streamed)
+    against the same loop with synchronous uploads (_blocks_sync),
+    bitwise, over several query slabs and candidate blocks."""
+    from fedrann_tpu_torch.knn import ooc
+
+    rng = np.random.default_rng(3)
+    e = (rng.standard_normal((6000, 16)) @ rng.standard_normal((16, 128))
+         + 0.25 * rng.standard_normal((6000, 128))).astype(np.float32)
+    e[17] = 0
+    args = (e, 10, 2_500_000)
+    kw = dict(query_tile=256, block_rows=1024, precision=precision,
+              transfer=transfer, device=cuda)
+    before = (ooc.knn_exact_ooc.slabs, ooc.knn_exact_ooc.blocks_uploaded)
+    got = ooc.knn_exact_ooc(*args, **kw)
+    slabs = ooc.knn_exact_ooc.slabs - before[0]
+    blocks = ooc.knn_exact_ooc.blocks_uploaded - before[1]
+    assert slabs >= 2 and blocks >= 3 * slabs
+    monkeypatch.setattr(ooc, "_blocks_streamed", ooc._blocks_sync)
+    want = ooc.knn_exact_ooc(*args, **kw)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (got[0][:, 0] == np.arange(6000)).mean() > 0.99

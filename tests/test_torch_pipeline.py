@@ -73,7 +73,7 @@ def test_slice_matches_jax_pipeline(sim_input, tmp_path, k, dtype):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--knn-method", "ivf"], ["--knn-hbm-budget", "8G"],
+    ["--knn-method", "ivf"], ["--knn-method", "ivf", "--knn-hbm-budget", "8G"],
     ["--num-processes", "2"], ["--coordinator", "localhost:1234"],
     ["--knn-sharded", "always"],
 ])

@@ -137,13 +137,33 @@ Phases; any failure exits non-zero and prints no result line:
          against an in-core top-k over the same wire rows on 2,048
          sampled queries; its seconds, H2D bytes and rate, one block's
          copy alone and knn_exact's seconds on the same rows logged.
+  9. the sharded k-NN and step (knn/ring.py, parallel/), run after 8:
+     (a) knn_exact_sharded with ring, allgather and ring2d (2 x 2) over a
+         mesh of the card repeated 4 times, on 65,536 x 512 rows (8b's
+         structure), k = 50, against knn_exact: agreement >= 0.9999,
+         distances within 1e-5; each call's cold and warm seconds beside
+         knn_exact's, peak device memory and merges logged;
+     (b) phase 4's reads through the CLI with --knn-sharded always, once
+         per strategy, checked as phase 4: knn_exact_sharded called once
+         over device_count() cards, the staging kernels and kernel C
+         launched as in phase 4, agreement >= 0.999 with phase 4's
+         overlaps.tsv (byte-identical or not), knn seconds beside phase
+         4's;
+     (c) the sharded step on phase 4's first bucket over the same 4-entry
+         mesh: fk_stage_rows and fk_membership_embed_dense launch once per
+         entry, agreement >= 0.999 with stage + dense embed + knn_exact on
+         one device;
+     (d) with two or more cards: 9a and 9c over every card, each hand
+         kernel of the main path on the last card (cuda:0 current)
+         against its plain version, and one block's peer-copy rate; on
+         one card a line says so.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: stage_rows from the main path's,
-membership_embed from the main path's and 8a's, the other staging kernels
-summed over the three CLI runs,
-membership_embed_dense over the runs of 4b and 7, the probes from their
+the runs of its own path: stage_rows from the main path's, 9b's and 9c's,
+membership_embed from the main path's, 8a's and 9b's, the other staging
+kernels summed over the three CLI runs (and 9b's),
+membership_embed_dense over the runs of 4b, 7 and 9c, the probes from their
 entry point), errors, times, the bound (the larger of
 the bytes the function must move over 3.35 TB/s, its float32 operations
 over 67 TFLOP/s and its int32 operations over 16.7 T/s, counted from
@@ -192,6 +212,11 @@ GOLDEN_RECALL, GOLDEN_MAE, GOLDEN_COSINE = 0.99, 5e-3, 0.999
 OOC_CLI_BUDGET = "16M"
 OOC_ROWS, OOC_BUDGET, OOC_SAMPLE = 262_144, 256 << 20, 2048
 OOC_AGREE_CLI, OOC_AGREE_SEARCH = 0.99, 0.999
+# 9a: the sharded search on SHARD_ROWS x 512 rows (8b's structure), k =
+# SHARD_K, over SHARD_ENTRIES entries of one card; the bars of 9a-9c
+SHARD_ROWS, SHARD_K, SHARD_ENTRIES = 65_536, 50, 4
+SHARD_STRATEGIES = ("ring", "allgather", "ring2d")
+SHARD_AGREE_SEARCH, SHARD_AGREE_CLI, SHARD_AGREE_STEP = 0.9999, 0.999, 0.999
 
 
 COUNTERS: dict = {}
@@ -458,9 +483,11 @@ def host_us(fn, reps: int = 200, rounds: int = 9) -> float:
 
 def p1_host_split(dev, n: int) -> dict:
     """Host microseconds of each piece of P1's per-call path at n entries:
-    the output allocation, the stream handle, the C entry point alone
-    (opt-in and launch), `_build.launch`, the whole wrapper, and the plain
-    version (torch.full) for comparison."""
+    the output allocation, the stream handle, the device guard alone (a
+    read of the current device), the C entry point alone (opt-in and
+    launch), `_build.launch` given the stream (no device guard) and given
+    the device (the guard, as the wrappers call it), the whole wrapper,
+    and the plain version (torch.full) for comparison."""
     import torch
 
     from fedrann_tpu_torch import _build, probes
@@ -473,8 +500,11 @@ def p1_host_split(dev, n: int) -> dict:
                                              device=dev)),
         "stream": host_us(lambda: _build.stream(dev)),
         "c_call": host_us(lambda: entry(n, ptr, s)),
-        "launch": host_us(lambda: _build.launch("fk_probe_smem_scratch", n,
-                                                ptr, s)),
+        "guard": host_us(torch._C._cuda_getDevice),
+        "launch unguarded": host_us(lambda: _build.launch(
+            "fk_probe_smem_scratch", n, ptr, s)),
+        "launch": host_us(lambda: _build.launch(
+            "fk_probe_smem_scratch", n, ptr, device=dev)),
         "wrapper": host_us(lambda: probes.smem_scratch(n, dev)),
         "plain": host_us(lambda: probes._smem_scratch_plain(n, dev)),
     }
@@ -1109,7 +1139,7 @@ def smem_input_every_step(x):
     sums = torch.empty(steps, dtype=torch.int32, device=x.device)
     _build.launch("fk_probe_smem_input", x.data_ptr(), steps,
                   probes.INPUT_ROWS, x.shape[1], sums.data_ptr(), steps,
-                  _build.stream(x.device))
+                  device=x.device)
     return sums, torch.cat([probes._smem_input_plain(blk)
                             for blk in x.split(probes.INPUT_ROWS)])
 
@@ -1205,7 +1235,7 @@ def bsearch_floor(table, queries, dev_us: str, card: str) -> str:
     dev = table.device
     cycles = torch.zeros(2, dtype=torch.int64, device=dev)
     _build.launch("fk_smem_chase_cycles", 4096, cycles.data_ptr(),
-                  _build.stream(dev))
+                  device=dev)
     latency = int(cycles[0])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -1237,9 +1267,9 @@ def input_host_split(x) -> dict:
     """Host microseconds of each piece of P2/P5's per-call path at the
     probe inputs: the input checks, the output allocation (a shape tuple
     of `steps`, or one int), the `sums[-1:]` slice, the data pointer, the
-    stream handle, the C entry point alone, `_build.launch`, the parent's
-    wrapper (its steps replayed on this C entry), the wrapper, and the
-    plain version for comparison."""
+    stream handle, the C entry point alone, `_build.launch` without and
+    with the device guard, the parent's wrapper (its steps replayed on
+    this C entry), the wrapper, and the plain version for comparison."""
     import torch
 
     from fedrann_tpu_torch import _build, probes
@@ -1279,8 +1309,10 @@ def input_host_split(x) -> dict:
         "data_ptr": host_us(x.data_ptr),
         "stream": host_us(lambda: _build.stream(x.device)),
         "c_call": host_us(lambda: entry(*args)),
-        "launch": host_us(lambda: _build.launch("fk_probe_smem_input",
-                                                *args)),
+        "launch unguarded": host_us(lambda: _build.launch(
+            "fk_probe_smem_input", *args)),
+        "launch": host_us(lambda: _build.launch(
+            "fk_probe_smem_input", *args[:-1], device=x.device)),
         "wrapper before": host_us(before),
         "wrapper": host_us(lambda: probes.smem_input(x)),
         "plain": host_us(lambda: probes._smem_input_plain(x)),
@@ -1291,8 +1323,9 @@ def bsearch_host_split(table, queries) -> dict:
     """Host microseconds of each piece of P4's per-call path at the probe
     inputs: the input checks, the output allocation (zero-filled, or
     empty), the data pointers, the stream handle, the C entry point alone
-    (which zeroes the output on the stream), `_build.launch`, the parent's
-    wrapper (its steps replayed), the wrapper, and the plain version."""
+    (which zeroes the output on the stream), `_build.launch` without and
+    with the device guard, the parent's wrapper (its steps replayed), the
+    wrapper, and the plain version."""
     import torch
 
     from fedrann_tpu_torch import _build, probes
@@ -1322,7 +1355,10 @@ def bsearch_host_split(table, queries) -> dict:
         "data_ptrs": host_us(lambda: (table.data_ptr(), queries.data_ptr())),
         "stream": host_us(lambda: _build.stream(table.device)),
         "c_call": host_us(lambda: entry(*args)),
-        "launch": host_us(lambda: _build.launch("fk_probe_bsearch", *args)),
+        "launch unguarded": host_us(lambda: _build.launch(
+            "fk_probe_bsearch", *args)),
+        "launch": host_us(lambda: _build.launch(
+            "fk_probe_bsearch", *args[:-1], device=dev)),
         "wrapper before": host_us(before),
         "wrapper": host_us(lambda: probes.bsearch(table, queries)),
         "plain": host_us(lambda: probes._bsearch_plain(table, queries)),
@@ -2129,6 +2165,18 @@ def merge_workspace(dev, ct: int, d: int, k: int, qt: int = 512) -> int:
     return max(0, used - (qt * ct * PAIR_BYTES + qt * k * 24))
 
 
+def rank16_rows(n: int, d: int):
+    """(n, d) float32 rows of rank 16 plus noise (tests/test_knn_ooc.py's
+    structure) made by numpy from FLAGS' --seed, and the generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    emb = (rng.standard_normal((n, 16), dtype=np.float32)
+           @ rng.standard_normal((16, d), dtype=np.float32))
+    emb += np.float32(0.25) * rng.standard_normal((n, d), dtype=np.float32)
+    return emb, rng
+
+
 def check_ooc_search(dev, card: str) -> None:
     """Phase 8b: knn_exact_ooc on OOC_ROWS x 512 rows of rank 16 plus noise
     (tests/test_knn_ooc.py's structure) made by numpy from FLAGS' --seed,
@@ -2148,10 +2196,7 @@ def check_ooc_search(dev, card: str) -> None:
 
     n, d, k, budget = OOC_ROWS, 512, 50, OOC_BUDGET
     t0 = time.perf_counter()
-    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
-    emb = (rng.standard_normal((n, 16), dtype=np.float32)
-           @ rng.standard_normal((16, d), dtype=np.float32))
-    emb += np.float32(0.25) * rng.standard_normal((n, d), dtype=np.float32)
+    emb, rng = rank16_rows(n, d)
     made = time.perf_counter() - t0
     q_rows, c_rows, ct = ooc.plan_ooc(n, d, k, budget)
     slabs, blocks = -(-n // q_rows), -(-n // c_rows)
@@ -2245,6 +2290,359 @@ def check_ooc_search(dev, card: str) -> None:
              f"distance error {err} (want <= 1e-6)")
 
 
+def sharded_mesh(strategy: str, devices: list):
+    """The mesh of a phase 9 search: ring2d on (2, n/2) where the entries
+    split in two, else one axis."""
+    from fedrann_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    if strategy == "ring2d":
+        return make_mesh_2d(2 if len(devices) % 2 == 0 else 1, devices)
+    return make_mesh(devices=devices)
+
+
+def set_agreement(idx, want) -> float:
+    """Mean over rows of |idx[r] & want[r]| / k, for rows of distinct
+    indices: the duplicates of each sorted concatenated row."""
+    import numpy as np
+
+    both = np.sort(np.concatenate([idx, want], axis=1), axis=1)
+    return float((both[:, 1:] == both[:, :-1]).sum() / want.size)
+
+
+def measured(fn, devices: list):
+    """(fn(), host seconds, peak device bytes past what was allocated
+    before, the most over `devices`) of one call that ends on the host."""
+    import torch
+
+    cards = sorted(set(devices), key=str)
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    before = {d: torch.cuda.memory_allocated(d) for d in cards}
+    t0 = time.perf_counter()
+    out = fn()
+    secs = time.perf_counter() - t0
+    return out, secs, max(torch.cuda.max_memory_allocated(d) - before[d]
+                          for d in cards)
+
+
+def check_sharded_search(devices: list, card: str, label: str) -> None:
+    """Phase 9a (and 9d on the real cards): knn_exact_sharded with each
+    strategy over the mesh `devices` on SHARD_ROWS x 512 rows of rank 16
+    plus noise from FLAGS' --seed, k = SHARD_K, against knn_exact on the
+    same rows: index agreement >= SHARD_AGREE_SEARCH and distances within
+    1e-5. Each call runs twice, the first (cold: the first at these shapes
+    on these cards in this process) and the second (warm) timed apart;
+    logs the warm call's seconds beside knn_exact's, the cold call's, its
+    peak device memory and its merges."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+    from fedrann_tpu_torch.knn.topk import knn_exact
+
+    rows = torch.from_numpy(rank16_rows(SHARD_ROWS, 512)[0]).to(devices[0])
+    _, exact_cold, _ = measured(
+        lambda: knn_exact(rows, SHARD_K, transfer="f32"), devices)
+    (want_i, want_d), exact_secs, exact_peak = measured(
+        lambda: knn_exact(rows, SHARD_K, transfer="f32"), devices)
+    for strategy in SHARD_STRATEGIES:
+        mesh = sharded_mesh(strategy, devices)
+
+        def search(mesh=mesh, strategy=strategy):
+            return knn_exact_sharded(rows, SHARD_K, mesh=mesh,
+                                     strategy=strategy, transfer="f32")
+
+        _, cold, _ = measured(search, devices)
+        merges = knn_exact_sharded.merges
+        (idx, dist), secs, peak = measured(search, devices)
+        agree = set_agreement(idx, want_i)
+        err = float(np.abs(dist - want_d).max())
+        log(f"9a {strategy} over a {mesh.shape} mesh of {label}, "
+            f"{SHARD_ROWS} x 512 rows, k = {SHARD_K}: {secs:.3f} s warm "
+            f"against knn_exact {exact_secs:.3f} s ({secs / exact_secs:.3f}x; "
+            f"cold {cold:.3f} s against {exact_cold:.3f} s); peak {peak} "
+            f"bytes (knn_exact {exact_peak}); "
+            f"{knn_exact_sharded.merges - merges} merges; agreement "
+            f"{agree:.6f}, distances within {err:.3g} [{card}]")
+        if agree < SHARD_AGREE_SEARCH or err > 1e-5 or idx.min() < 0 \
+                or idx.max() >= SHARD_ROWS:
+            fail(f"9a {strategy} on {label}: agreement {agree:.6f} (want >= "
+                 f"{SHARD_AGREE_SEARCH}), distance error {err} (want <= "
+                 f"1e-5), indices in [{idx.min()}, {idx.max()}]")
+
+
+def check_sharded_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
+                      card: str, dev, phase4: tuple) -> dict:
+    """Phase 9b: phase 4's reads through the CLI with --knn-sharded always,
+    once per strategy, checked as phase 4 (drive_cli), and more:
+    knn_exact_sharded called once over device_count() cards, the staging
+    kernels and kernel C launched as in phase 4, neighbor agreement >=
+    SHARD_AGREE_CLI with phase 4's overlaps.tsv (and whether it is
+    byte-identical); knn seconds logged beside phase 4's. Returns the
+    launch counts of the three runs summed."""
+    import torch
+
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+
+    launches4, secs4 = phase4
+    cards = torch.cuda.device_count()
+    theirs = overlap_sets(in_core_tsv)
+    with open(in_core_tsv, "rb") as f:
+        in_core = f.read()
+    totals: dict = {}
+    for strategy in SHARD_STRATEGIES:
+        out = os.path.join(out_dir, strategy)
+        launches, secs = drive_cli(
+            fasta, out, sim, MIN_OVERLAP, card, dev,
+            [*FLAGS, "--knn-sharded", "always", "--knn-shard-strategy",
+             strategy])
+        calls = read_counts(HOST_COUNTERS)["sharded_knn_calls"]
+        if (calls, knn_exact_sharded.devices) != (1, cards):
+            fail(f"9b {strategy}: knn_exact_sharded called {calls} times "
+                 f"over {knn_exact_sharded.devices} devices, want once over "
+                 f"{cards}")
+        moved = {name: (launches[name], launches4[name])
+                 for name in (*STAGE_KERNELS, *EMBED_KERNELS)
+                 if launches[name] != launches4[name]}
+        if moved:
+            fail(f"9b {strategy}: launches (this run, phase 4) {moved}")
+        path = os.path.join(out, "overlaps.tsv")
+        ours = overlap_sets(path)
+        agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
+                    for key, want in theirs.items()) / len(theirs)
+        with open(path, "rb") as f:
+            same = f.read() == in_core
+        log(f"9b --knn-sharded always --knn-shard-strategy {strategy}: "
+            f"{cards} card(s); knn {secs['knn']:.3f} s against phase 4's "
+            f"{secs4['knn']:.3f} s; neighbor agreement with phase 4's "
+            f"overlaps.tsv {agree:.5f}, "
+            f"{'byte-identical' if same else 'not byte-identical'} [{card}]")
+        if agree < SHARD_AGREE_CLI:
+            fail(f"9b {strategy}: agreement {agree:.5f} with phase 4 below "
+                 f"{SHARD_AGREE_CLI}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+    return totals
+
+
+def step_inputs(fasta: str, dev):
+    """Phase 4's configuration, its reads' first bucket on `dev` in the
+    2-bit form the pipeline uploads, the bucket's real read count (its
+    rows' prefix), and the library and float32 paired table a run on
+    them builds."""
+    import torch
+
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.io.native import pack_reads_native
+    from fedrann_tpu_torch.kmers.library import build_library
+    from fedrann_tpu_torch.project.srp import build_precompute_paired
+
+    config = config_from_args(["-i", fasta, "-o", "-", *FLAGS])
+    packed = pack_reads_native(fasta, config.length_buckets,
+                               split_overlap=config.kmer_size - 1)
+    library = build_library(
+        [b.staged for b in pipeline.stage_reads(packed, config, dev)],
+        config.kmer_min_multiplicity, config.kmer_sample_fraction,
+        config.seed)
+    p_pair = build_precompute_paired(
+        library.counts, config.embedding_dimension, config.projection_seed,
+        config.projection_density, dtype=torch.float32)
+    bucket = packed.buckets[0]
+    n_real = int((bucket.read_index >= 0).sum())
+    if not (bucket.read_index[:n_real] >= 0).all():
+        fail("9c: the first bucket's real reads are not a prefix of its rows")
+    return (config, pipeline.upload_bucket(bucket, dev), n_real, library,
+            p_pair)
+
+
+def check_sharded_step(inputs, devices: list, card: str, label: str) -> dict:
+    """Phase 9c (and 9d on the real cards): the sharded step on phase 4's
+    first bucket over the mesh `devices`: the fused staging kernel and
+    kernel C's dense form launch once per mesh entry, and the neighbor
+    lists agree >= SHARD_AGREE_STEP with the one-device composition
+    (stage_candidates, membership_embed_dense, knn_exact). Returns the
+    step's launches by kernel name."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.kmers.membership import stage_candidates
+    from fedrann_tpu_torch.knn.topk import knn_exact
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+    from fedrann_tpu_torch.parallel.step import (
+        make_sharded_step,
+        shard_step_inputs,
+        staging_args,
+    )
+    from fedrann_tpu_torch.project.embed import membership_embed_dense
+
+    config, bases, n_real, library, p_pair = inputs
+    k, seed, frac = (config.kmer_size, config.seed,
+                     config.kmer_sample_fraction)
+    mesh = make_mesh(devices=devices)
+    step = make_sharded_step(mesh, k, None, config.n_neighbors,
+                             precision=config.knn_precision,
+                             sampling=(seed, frac), n_reads=n_real)
+    args = shard_step_inputs(mesh, bases, library.codes, p_pair)
+    fused = f"{bases.source}_launches"
+    before = (getattr(stage_candidates, fused),
+              membership_embed_dense.launches)
+    (dist, idx), secs, peak = measured(lambda: step(*args), devices)
+    runs = (getattr(stage_candidates, fused) - before[0],
+            membership_embed_dense.launches - before[1])
+    if runs != (mesh.size, mesh.size):
+        fail(f"9c on {label}: fk_stage_rows ({bases.source}) and "
+             f"fk_membership_embed_dense launched {runs} times, want once "
+             f"per mesh entry ({mesh.size})")
+    rows = bases.shape[0]
+    staged, _ = stage_candidates(bases, k, *staging_args(
+        bases.shape[1] - k + 1, None, (seed, frac)))
+    emb = torch.zeros((2 * rows, p_pair.shape[1] // 2), device=bases.device)
+    membership_embed_dense(staged, library.codes, p_pair, torch.arange(
+        2 * rows, device=bases.device).view(rows, 2), emb)
+    want_i, want_d = knn_exact(emb[: 2 * n_real], config.n_neighbors,
+                               precision=config.knn_precision,
+                               transfer="f32")
+    agree = set_agreement(idx, want_i)
+    err = float(np.abs(dist - want_d).max())
+    log(f"9c sharded step on phase 4's first bucket ({rows} rows, {n_real} "
+        f"reads, {bases.shape[1]} bases, {bases.source} source) over "
+        f"{mesh.size} entries of {label}: fk_stage_rows {runs[0]} and "
+        f"fk_membership_embed_dense {runs[1]} launches (one an entry); "
+        f"{secs:.3f} s, peak {peak} bytes; agreement with the one-device "
+        f"composition {agree:.6f}, distances within {err:.3g} [{card}]")
+    if agree < SHARD_AGREE_STEP or idx.max() >= 2 * n_real:
+        fail(f"9c on {label}: agreement {agree:.6f} (want >= "
+             f"{SHARD_AGREE_STEP}), largest index {idx.max()}")
+    return {f"stage_rows_{bases.source}": runs[0],
+            "membership_embed_dense": runs[1]}
+
+
+def check_last_card(inputs, last, card: str) -> None:
+    """Phase 9d: with cuda:0 current, each hand kernel of the main path on
+    tensors of the card `last`, against its plain version (computed on
+    cuda:0): the fused kernel on the first 512 rows of phase 4's first
+    bucket, kernel A and B's device-memory path on keep_all rows of
+    KEEP_ALL_BUCKET bases, bitwise; kernel C's sign and dense forms on the
+    fused kernel's rows at phase 3's tolerance."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.kmers.codec import (
+        _canonical_sample_plain,
+        as_bytes,
+        canonical_sample,
+    )
+    from fedrann_tpu_torch.kmers.membership import (
+        _select_candidates_plain,
+        select_candidates,
+        stage_candidates,
+    )
+    from fedrann_tpu_torch.parallel.mesh import to_device
+    from fedrann_tpu_torch.parallel.step import staging_args
+    from fedrann_tpu_torch.project.embed import (
+        _membership_embed_dense_plain,
+        _membership_embed_plain,
+        membership_embed,
+        membership_embed_dense,
+    )
+    from fedrann_tpu_torch.project.srp import build_precompute_signs
+
+    config, bases, _, library, p_pair = inputs
+    torch.cuda.set_device(0)
+    k = config.kmer_size
+
+    hb, keep_all, seed, thr, cap = staging_args(
+        bases.shape[1] - k + 1, None, (config.seed,
+                                       config.kmer_sample_fraction))
+    chunk = bases[:512]
+    want = _select_candidates_plain(_canonical_sample_plain(
+        as_bytes(chunk), k, seed, thr, keep_all), hb, keep_all, cap)
+    counts = (stage_candidates.launches, canonical_sample.launches,
+              select_candidates.long_launches, membership_embed.launches,
+              membership_embed_dense.launches)
+    got = stage_candidates(to_device(chunk, last), k, hb, keep_all, seed,
+                           thr, cap)
+    rng = np.random.default_rng(SIM_SEED)
+    long_rows = torch.from_numpy(rng.integers(
+        0, 4, (6, KEEP_ALL_BUCKET)).astype(np.uint8)).to(bases.device)
+    w = KEEP_ALL_BUCKET - k + 1
+    long_want = _select_candidates_plain(_canonical_sample_plain(
+        long_rows, k, seed, 0, True), w, True, None)
+    long_got = stage_candidates(long_rows.to(last), k, w, True, seed, 0,
+                                None)
+    signs, mags = build_precompute_signs(
+        library.counts, config.embedding_dimension, config.projection_seed,
+        config.projection_density)
+    r = want[0].shape[0]
+    targets = torch.arange(2 * r, device=want[0].device).view(r, 2)
+    outs = {}
+    for name, fn, plain, table in (
+            ("C sign", membership_embed, _membership_embed_plain,
+             (signs, mags)),
+            ("C dense", membership_embed_dense,
+             _membership_embed_dense_plain, (p_pair,))):
+        out = torch.zeros((2 * r, config.embedding_dimension), device=last)
+        n = fn(got[0], library.codes.to(last), *(t.to(last) for t in table),
+               targets.to(last), out)
+        out_p = torch.zeros((2 * r, config.embedding_dimension),
+                            device=want[0].device)
+        n_p = plain(want[0], library.codes, *table, targets, out_p)
+        outs[name] = (n, out, n_p, out_p, max(
+            float(t.float().abs().max()) for t in table))
+    torch.cuda.synchronize(last)
+    runs = tuple(b - a for a, b in zip(counts, (
+        stage_candidates.launches, canonical_sample.launches,
+        select_candidates.long_launches, membership_embed.launches,
+        membership_embed_dense.launches)))
+    if runs != (1, 1, 1, 1, 1) or torch.cuda.current_device() != 0:
+        fail(f"9d: launches (fused, A, B long, C sign, C dense) {runs}, "
+             f"want one each; current device {torch.cuda.current_device()}")
+    for what, (g, wnt) in (("fused", (got, want)),
+                           ("A + B device memory", (long_got, long_want))):
+        if not (torch.equal(g[0].cpu(), wnt[0].cpu())
+                and torch.equal(g[1].cpu(), wnt[1].cpu())):
+            fail(f"9d: {what} on {last} differs from its plain version")
+    errs = []
+    for name, (n, out, n_p, out_p, scale) in outs.items():
+        err = float((out.cpu() - out_p.cpu()).abs().max())
+        if not torch.equal(n.cpu(), n_p.cpu()) or not torch.allclose(
+                out.cpu(), out_p.cpu(), rtol=1e-5,
+                atol=1e-6 * scale * int(n_p.max())):
+            fail(f"9d: kernel {name} on {last} differs from its plain "
+                 f"version: max abs error {err}")
+        errs.append(f"{name} max abs error {err:.3g}")
+    log(f"9d on {last} with cuda:0 current: the fused kernel "
+        f"({chunk.shape[0]} x {bases.shape[1]} {bases.source}), kernel A and B's device-memory "
+        f"path (6 x {KEEP_ALL_BUCKET} keep_all) bitwise; "
+        + ", ".join(errs) + f" [{card}]")
+
+
+def check_other_cards(inputs, card: str) -> None:
+    """Phase 9d: where more than one card is visible, 9a and 9c over
+    every card, each hand kernel on the last card (check_last_card), and
+    one 9a block's copy from cuda:0 to cuda:1; on one card, one line."""
+    import torch
+
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"9d: {n} card visible: the runs over real cards and the "
+            "launches on another card need two or more; none run")
+        return
+    devices = list(make_mesh().devices)
+    check_sharded_search(devices, card, f"{n} cards")
+    check_sharded_step(inputs, devices, card, f"{n} cards")
+    check_last_card(inputs, devices[-1], card)
+    rows = SHARD_ROWS // len(devices)
+    block = torch.randn((rows, 512), device=devices[0])
+    ms = time_cuda(lambda: block.to(devices[1]), 20)
+    log(f"9d peer copy: one {rows} x 512 float32 block cuda:0 -> cuda:1 in "
+        f"{ms:.4f} ms = {rows * 512 * 4 / ms / 1e6:.2f} GB/s [{card}]")
+
+
 def read_overlaps(path: str, names: list[str]):
     """(header, rows per (query, orientation), '+'-row neighbor read sets)."""
     index = {n: i for i, n in enumerate(names)}
@@ -2287,6 +2685,7 @@ def main() -> None:
             stage_candidates,
         )
         from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
+        from fedrann_tpu_torch.knn.ring import knn_exact_sharded
         from fedrann_tpu_torch.project.embed import (
             membership_embed,
             membership_embed_dense,
@@ -2314,7 +2713,8 @@ def main() -> None:
         "pin_copies": (pipeline.upload_bucket, "pin_copies"),
         "ooc_slabs": (knn_exact_ooc, "slabs"),
         "ooc_blocks": (knn_exact_ooc, "blocks_uploaded"),
-        "ooc_h2d_bytes": (knn_exact_ooc, "h2d_bytes")})
+        "ooc_h2d_bytes": (knn_exact_ooc, "h2d_bytes"),
+        "sharded_knn_calls": (knn_exact_sharded, "calls")})
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -2370,6 +2770,7 @@ def main() -> None:
 
         launches, secs = drive_cli(fasta, os.path.join(tmp, "out"), sim,
                                    MIN_OVERLAP, card, dev)
+        phase4 = (dict(launches), secs)
         # 4c: the same again on the same -o: from the packed-reads cache
         _, secs_c = drive_cli(fasta, os.path.join(tmp, "out"), sim,
                               MIN_OVERLAP, card, dev, load="cache")
@@ -2401,6 +2802,22 @@ def main() -> None:
             os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
             dev)["membership_embed"]
         check_ooc_search(dev, card)
+        # 9: the sharded k-NN and step, over SHARD_ENTRIES entries of this
+        # card (9a-9c) and over every card where there are more (9d)
+        check_sharded_search([dev] * SHARD_ENTRIES, card,
+                             f"{SHARD_ENTRIES} entries of {dev}")
+        for name, n in check_sharded_cli(
+                fasta, os.path.join(tmp, "sharded"),
+                os.path.join(tmp, "out", "overlaps.tsv"), sim, card, dev,
+                phase4).items():
+            if name in ("membership_embed", *STAGE_KERNELS):
+                launches[name] += n
+        inputs = step_inputs(fasta, dev)
+        step_launches = check_sharded_step(
+            inputs, [dev] * SHARD_ENTRIES, card,
+            f"{SHARD_ENTRIES} entries of {dev}")
+        check_other_cards(inputs, card)
+        del inputs
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,
@@ -2446,6 +2863,8 @@ def main() -> None:
         dense_launches += check_golden(os.path.join(tmp, "golden"), dev,
                                        card)
         launches["membership_embed_dense"] = dense_launches
+        for name, n in step_launches.items():
+            launches[name] += n
 
     report.update(check_probes(dev, card))
     launches.update(drive_probes())

@@ -178,13 +178,30 @@ def kernels() -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point `name`; raise if its launch reported an error."""
-    lib = kernels()
-    rc = getattr(lib, name)(*args)
+def launch(name: str, *args, device: torch.device | None = None) -> None:
+    """Call C entry point `name`; raise if its launch reported an error.
+
+    With `device` (a CUDA device: the one the launch's tensors lie on) the
+    entry is called with that device current and PyTorch's current stream
+    there appended as its last argument. The entries read the current
+    device for their shared-memory opt-in (cudaFuncSetAttribute) and SM
+    count, and launch on the stream they are given, so both must name the
+    tensors' card, whichever device was current before the call. Where it
+    is the current device already (the common case), the guard is one
+    read of the current device."""
+    fn = getattr(kernels(), name)
+    if device is None:
+        rc = fn(*args)
+    else:
+        index = _index(device)
+        if torch._C._cuda_getDevice() == index:
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        raise RuntimeError(
-            f"{name}: CUDA error {rc}: {lib.fk_error_string(rc).decode()}")
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
+                           f"{kernels().fk_error_string(rc).decode()}")
 
 
 def stream(device: torch.device) -> int:
@@ -194,6 +211,9 @@ def stream(device: torch.device) -> int:
     the raw getter that torch's own generated kernels use: it skips the
     Stream object that torch.cuda.current_stream builds, most of the cost
     of a small probe's launch path."""
-    index = device.index if device.index is not None \
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
         else torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)

@@ -85,8 +85,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--knn-transfer", choices=("u16", "f32"), default="u16",
                    help="Distance grid: u16 snaps to 1/32767.5 steps.")
     p.add_argument("--knn-sharded", choices=("auto", "never", "always"),
-                   default="auto")
-    p.add_argument("--mesh-shape", type=str, default=None)
+                   default="auto",
+                   help="Shard the k-NN over the visible GPUs: auto = when "
+                        "more than one is visible.")
+    p.add_argument("--mesh-shape", type=str, default=None,
+                   help="Comma-separated device-mesh shape, e.g. '2,4' = "
+                        "(hosts, data) for ring2d (default: every visible "
+                        "GPU on one axis).")
     p.add_argument("--window-batch", type=int, default=None,
                    help="Window positions per staging chunk "
                         "(default: config's 32M).")

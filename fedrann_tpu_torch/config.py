@@ -3,7 +3,7 @@
 same fields.
 
 Fields that select paths this port does not have yet (IVF, multi-host
-launch, multi-GPU k-NN) are kept so the CLI parses every flag; the pipeline
+launch) are kept so the CLI parses every flag; the pipeline
 rejects them with NotImplementedError naming the ROADMAP item.
 """
 

@@ -176,6 +176,16 @@ class PackedChunk:
             None if self.lengths is None else self.lengths[rows],
             None if self.valid_bits is None else self.valid_bits[rows])
 
+    def to(self, device: torch.device,
+           non_blocking: bool = False) -> "PackedChunk":
+        """The same rows on `device` (the same tensors where they already
+        lie there)."""
+        def move(t):
+            return None if t is None else t.to(device,
+                                               non_blocking=non_blocking)
+        return PackedChunk(move(self.packed), self.length,
+                           move(self.lengths), move(self.valid_bits))
+
     def unpack(self) -> torch.Tensor:
         """The (R, L) byte matrix: the plain version's input."""
         if self.lengths is not None:
@@ -283,8 +293,7 @@ def canonical_sample(bases, k: int, seed: int, threshold: int,
     _build.launch("fk_canonical_sample", data.data_ptr(),
                   None if aux is None else aux.data_ptr(), SOURCES[source],
                   r, length, w, k, s1, s2, int(threshold) & _M32,
-                  int(bool(keep_all)), out.data_ptr(),
-                  _build.stream(bases.device))
+                  int(bool(keep_all)), out.data_ptr(), device=bases.device)
     count_launch(canonical_sample, source)
     return out
 

@@ -216,7 +216,7 @@ def _select_on_card(slots: torch.Tensor, hit_buffer: int, plan: StagePlan):
                   plan.chunk, plan.n_chunks, plan.width, surv.data_ptr(),
                   buf_a.data_ptr(), buf_b.data_ptr(), cand.data_ptr(),
                   kept.data_ptr(), staged.data_ptr(), dropped.data_ptr(),
-                  _build.stream(dev))
+                  device=dev)
     select_candidates.long_launches += 1
     return staged, dropped
 
@@ -268,7 +268,7 @@ def _stage_on_card(bases, k, hit_buffer, keep_all, seed, threshold,
                   int(threshold) & 0xFFFFFFFF, int(bool(keep_all)),
                   hit_buffer, int(plan.blocked), plan.cap, plan.n_blocks,
                   plan.smem, staged.data_ptr(), plan.width,
-                  dropped.data_ptr(), _build.stream(dev))
+                  dropped.data_ptr(), device=dev)
     count_launch(stage_candidates, source)
     return staged, dropped
 

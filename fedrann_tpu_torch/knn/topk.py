@@ -38,6 +38,15 @@ def normalize_rows(e: torch.Tensor) -> torch.Tensor:
     return e / torch.where(norm == 0, 1.0, norm)
 
 
+def unit_rows(e: torch.Tensor, precision: str) -> torch.Tensor:
+    """The rows the search scores: L2-normalized float32, rounded to
+    bfloat16 once at precision="bf16"."""
+    en = normalize_rows(e)
+    if precision == "bf16":
+        en = en.to(torch.bfloat16).to(torch.float32)
+    return en
+
+
 def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
     """Clamp a block size to n, then halve it while the ragged last block
     would waste more than a quarter of a block."""
@@ -93,9 +102,7 @@ def knn_exact(
     1/DIST_SCALE grid."""
     n = embeddings.shape[0]
     k = min(n_neighbors, n)
-    en = normalize_rows(embeddings)
-    if precision == "bf16":
-        en = en.to(torch.bfloat16).to(torch.float32)
+    en = unit_rows(embeddings, precision)
     qt = min(query_tile, max(8, n))
     ct = _fit_tile(candidate_tile, n)
     keys_out = torch.empty((n, k), dtype=torch.int64, device=en.device)

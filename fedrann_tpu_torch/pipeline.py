@@ -1,5 +1,5 @@
 """Pipeline orchestrator: FASTX in, overlaps.tsv out (the port of
-`fedrann_tpu/pipeline.py` `run_pipeline` for the single-device run).
+`fedrann_tpu/pipeline.py` `run_pipeline`).
 
 Stages, as named in metrics.json:
   load    - the packed-reads cache (fxcache.npz), else the native FASTX
@@ -19,8 +19,10 @@ Stages, as named in metrics.json:
             C, in the projection's form), then each split read's union; or
             an embeddings checkpoint. Past --knn-hbm-budget the matrix is a
             host bfloat16 tensor filled chunk by chunk (out="host")
-  knn     - exact cosine top-k; past the budget, the out-of-core search
-            (knn/ooc.py) streams the host matrix through the device
+  knn     - exact cosine top-k; with --knn-sharded always (or auto and
+            more than one visible card) sharded over a device mesh
+            (knn/ring.py); past the budget, the out-of-core search
+            (knn/ooc.py) streams the host matrix through one device
   output  - overlaps.tsv (native C writer), --save-feature-matrix
 
 --keep-intermediates keeps checkpoints/library.npz, embeddings.npy and
@@ -34,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -65,6 +67,7 @@ from fedrann_tpu_torch.kmers.membership import (
     staging_width,
 )
 from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
+from fedrann_tpu_torch.knn.ring import knn_exact_sharded
 from fedrann_tpu_torch.knn.topk import knn_exact
 from fedrann_tpu_torch.logging_utils import (
     add_log_file,
@@ -73,6 +76,7 @@ from fedrann_tpu_torch.logging_utils import (
     set_logging_level,
 )
 from fedrann_tpu_torch.metrics import MemorySampler, StageMetrics
+from fedrann_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
 from fedrann_tpu_torch.project.embed import (
     embed_hits,
     embed_staged,
@@ -115,14 +119,11 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
 
 def check_supported(config: PipelineConfig) -> None:
     """Raise NotImplementedError for options outside the ported slice,
-    naming the ROADMAP Queue 1 item that brings them. --knn-sharded always
-    is decided with the out-of-core valve (run_pipeline): an out-of-core
-    run streams through one device, as in the JAX package."""
+    naming the ROADMAP Queue 1 item that brings them."""
     unsupported = [
         (config.knn_method == "ivf", "--knn-method ivf", "IVF"),
         ((config.num_processes or 0) > 1 or bool(config.coordinator),
          "--num-processes/--coordinator", "multi-host runtime"),
-        (config.mesh_shape is not None, "--mesh-shape", "multi-GPU k-NN"),
     ]
     for bad, flag, item in unsupported:
         if bad:
@@ -135,6 +136,23 @@ def out_of_core(config: PipelineConfig, n_reads: int) -> bool:
     return (config.knn_hbm_budget is not None
             and 2 * n_reads * config.embedding_dimension * 6
             > config.knn_hbm_budget)
+
+
+def knn_mesh(config: PipelineConfig,
+             devices: Sequence[torch.device]) -> Mesh:
+    """The sharded k-NN's mesh over `devices`, as the JAX package builds it
+    from jax.devices(): for ring2d, (H, D) = --mesh-shape over the first
+    H*D devices, else (1, n) with a warning for any other shape; for ring
+    and allgather, a 1-D mesh over the first prod(--mesh-shape)."""
+    if config.knn_shard_strategy != "ring2d":
+        return make_mesh(config.mesh_shape, devices)
+    if config.mesh_shape and len(config.mesh_shape) == 2:
+        n_hosts, n_local = config.mesh_shape
+        return make_mesh_2d(n_hosts, devices[: n_hosts * n_local])
+    if config.mesh_shape:
+        logger.warning("mesh_shape %s is not (hosts, data); ring2d uses a "
+                       "(1, n_devices) mesh instead", config.mesh_shape)
+    return make_mesh_2d(1, devices)
 
 
 def load_reads(config: PipelineConfig,
@@ -626,8 +644,12 @@ def _start_profiler(device: torch.device):
     return prof
 
 
-def run_pipeline(config: PipelineConfig,
-                 device: torch.device) -> PipelineResult:
+def run_pipeline(config: PipelineConfig, device: torch.device,
+                 mesh: Optional[Sequence[torch.device]] = None
+                 ) -> PipelineResult:
+    """Run the pipeline on `device`. `mesh` is the devices the k-NN may
+    shard over (knn_mesh): by default every visible card on a CUDA run and
+    `device` alone on a CPU run."""
     check_supported(config)
     if config.knn_topk_method == "approx":
         logger.info("--knn-topk-method approx runs exact selection here")
@@ -664,8 +686,6 @@ def run_pipeline(config: PipelineConfig,
                 "streamed k-NN)",
                 2 * packed.n_reads * config.embedding_dimension * 4 / 1e9,
                 config.knn_hbm_budget / 1e9)
-        elif config.knn_sharded == "always":
-            raise _not_ported("--knn-sharded always", "multi-GPU k-NN")
         # staged lazily, once: a run resumed from both checkpoints skips it
         staged_once: list = []
 
@@ -706,8 +726,13 @@ def run_pipeline(config: PipelineConfig,
         staged_once.clear()  # the staged rows and the projection go
         del proj
         with metrics.stage("knn"):
+            if mesh is None:
+                mesh = (make_mesh().devices if device.type == "cuda"
+                        else [device])
+            use_mesh = (config.knn_sharded == "always"
+                        or (config.knn_sharded == "auto" and len(mesh) > 1))
             if ooc:
-                if config.knn_sharded == "always":
+                if use_mesh:
                     logger.warning(
                         "out-of-core k-NN streams through one device; "
                         "mesh sharding is overridden past the HBM budget")
@@ -720,6 +745,17 @@ def run_pipeline(config: PipelineConfig,
                     transfer=config.knn_transfer, device=device)
                 metrics.add_work("knn",
                                  h2d_bytes=knn_exact_ooc.h2d_bytes - before)
+            elif use_mesh:
+                knn = knn_mesh(config, mesh)
+                logger.info("k-NN sharded over %d devices (%s)", knn.size,
+                            config.knn_shard_strategy)
+                idx, dist = knn_exact_sharded(
+                    emb, config.n_neighbors, mesh=knn,
+                    strategy=config.knn_shard_strategy,
+                    precision=config.knn_precision,
+                    transfer=config.knn_transfer,
+                    candidate_tile=config.knn_candidate_tile,
+                    query_tile=config.knn_query_tile)
             else:
                 idx, dist = knn_exact(
                     emb, config.n_neighbors,

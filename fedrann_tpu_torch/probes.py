@@ -98,8 +98,7 @@ def smem_scratch(n: int, device: torch.device) -> torch.Tensor:
     if device.type == "cpu":
         return _smem_scratch_plain(n, device)
     out = torch.empty(1, 1, dtype=torch.int32, device=device)
-    _build.launch("fk_probe_smem_scratch", n, out.data_ptr(),
-                  _build.stream(device))
+    _build.launch("fk_probe_smem_scratch", n, out.data_ptr(), device=device)
     smem_scratch.launches += 1
     return out
 
@@ -190,7 +189,7 @@ def smem_input(x: torch.Tensor) -> torch.Tensor:
         return _smem_input_plain(x)
     sums = torch.empty(1, dtype=torch.int32, device=x.device)
     _build.launch("fk_probe_smem_input", x.data_ptr(), rows // INPUT_ROWS,
-                  INPUT_ROWS, hb, sums.data_ptr(), 1, _build.stream(x.device))
+                  INPUT_ROWS, hb, sums.data_ptr(), 1, device=x.device)
     smem_input.launches += 1
     return sums
 
@@ -278,7 +277,7 @@ def dyn_rows(q: torch.Tensor, idx: torch.Tensor, row: torch.Tensor,
     _build.launch("fk_probe_dyn_rows", q.data_ptr(), q.shape[1],
                   idx.data_ptr(), row.data_ptr(), idx.shape[0], E_ROWS,
                   int(src_dyn), int(dst_dyn), int(accumulate), steps,
-                  e.data_ptr(), _build.stream(q.device))
+                  e.data_ptr(), device=q.device)
     dyn_rows.launches += 1
     return e
 
@@ -304,7 +303,7 @@ def bsearch(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     out = torch.empty(1, dtype=torch.int32, device=table.device)
     _build.launch("fk_probe_bsearch", table.data_ptr(), table.shape[0],
                   queries.data_ptr(), queries.shape[0], out.data_ptr(),
-                  _build.stream(table.device))
+                  device=table.device)
     bsearch.launches += 1
     return out
 

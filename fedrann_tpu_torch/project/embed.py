@@ -136,7 +136,7 @@ def _launch_c(name, staged, lib_codes, targets, out, *table_args):
     _build.launch(name, staged.data_ptr(), r, h, lib_codes.data_ptr(),
                   lib_size, *table_args, out.shape[1], targets.data_ptr(),
                   out.data_ptr(), n_hits.data_ptr(), start.data_ptr(),
-                  n_buckets, _build.stream(out.device))
+                  n_buckets, device=out.device)
     return n_hits
 
 

@@ -44,6 +44,9 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(_port_modules()) >= 20
+    assert {"fedrann_tpu_torch.parallel.mesh",
+            "fedrann_tpu_torch.parallel.step",
+            "fedrann_tpu_torch.knn.ring"} <= set(_port_modules())
 
 
 def test_cpu_tensors_take_the_plain_versions():

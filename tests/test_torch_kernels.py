@@ -985,3 +985,93 @@ def test_ooc_double_buffered_matches_sync_uploads(cuda, monkeypatch,
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert (got[0][:, 0] == np.arange(6000)).mean() > 0.99
+
+
+@pytest.fixture
+def last_card(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices: launches each kernel on the "
+                    "last card while cuda:0 is current")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", n - 1)
+
+
+def test_kernels_launch_on_their_tensors_card(last_card):
+    """With cuda:0 current, each hand kernel on tensors of the last card
+    launches there (its shared-memory opt-in granted on that card, its
+    stream that card's) and matches its plain version: the fused staging
+    kernel at 1,024 threads and 131 KB of shared memory, kernel A and B's
+    device-memory path, and kernel C's sign and dense forms."""
+    card = last_card
+    bases, k, hb, keep_all, cap, thr, _ = _stage_case("keep_all")
+    want = _select_candidates_plain(
+        _canonical_sample_plain(bases, k, 602, thr, keep_all), hb, keep_all,
+        cap)
+    got = stage_candidates(bases.to(card), k, hb, keep_all, 602, thr, cap)
+    assert got[0].device == card
+    long_bases = _edge_bases(15, 6, 1 << 15)
+    w = long_bases.shape[1] - 15 + 1
+    long_want = _select_candidates_plain(
+        _canonical_sample_plain(long_bases, 15, 602, 0, True), w, True, None)
+    before = (canonical_sample.launches, select_candidates.long_launches)
+    long_got = stage_candidates(long_bases.to(card), 15, w, True, 602, 0,
+                                None)
+    assert (canonical_sample.launches, select_candidates.long_launches) == (
+        before[0] + 1, before[1] + 1)
+    staged, library = _dense_inputs(15)
+    signs, mags = build_precompute_signs(library.counts, 512, 2094)
+    p_pair = build_precompute_paired(library.counts, 512, 2094, None,
+                                     dtype=torch.bfloat16)
+    targets = torch.stack([2 * torch.arange(48), 2 * torch.arange(48) + 1],
+                          dim=1)
+    on = [t.to(card) for t in (staged, library.codes, targets)]
+    out_s = torch.zeros((96, 512), device=card)
+    n_s = membership_embed(on[0], on[1], signs.to(card), mags.to(card),
+                           on[2], out_s)
+    out_d = torch.zeros((96, 512), device=card)
+    n_d = membership_embed_dense(on[0], on[1], p_pair.to(card), on[2], out_d)
+    torch.cuda.synchronize(card)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(long_got[0].cpu(), long_want[0])
+    assert torch.equal(long_got[1].cpu(), long_want[1])
+    for n, out, plain, table in (
+            (n_s, out_s, _membership_embed_plain, (signs, mags)),
+            (n_d, out_d, _membership_embed_dense_plain, (p_pair,))):
+        out_p = torch.zeros((96, 512))
+        n_p = plain(staged, library.codes, *table, targets, out_p)
+        assert torch.equal(n.cpu(), n_p)
+        scale = max(float(t.float().abs().max()) for t in table)
+        torch.testing.assert_close(
+            out.cpu(), out_p, rtol=1e-5, atol=1e-6 * scale * int(n_p.max()))
+
+
+@pytest.mark.parametrize("strategy,n_hosts", [("ring", 0),
+                                              ("allgather", 0),
+                                              ("ring2d", 2)])
+def test_sharded_knn_on_one_card_matches_knn_exact(cuda, strategy, n_hosts):
+    """The sharded search over a mesh of one card repeated four times (the
+    real schedule, each copy the same tensor) equals knn_exact on the card
+    where distances resolve the k-th neighbor, and leaves its input as it
+    was."""
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+    from fedrann_tpu_torch.knn.topk import knn_exact
+    from fedrann_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    rng = np.random.default_rng(4)
+    e = (rng.standard_normal((3001, 16)) @ rng.standard_normal((16, 128))
+         + 0.25 * rng.standard_normal((3001, 128))).astype(np.float32)
+    e[17] = 0
+    rows = torch.from_numpy(e).to(cuda)
+    kept = rows.clone()
+    mesh = (make_mesh_2d(n_hosts, [cuda] * 4) if n_hosts
+            else make_mesh(devices=[cuda] * 4))
+    idx, dist = knn_exact_sharded(rows, 10, mesh=mesh, strategy=strategy,
+                                  candidate_tile=512)
+    want_i, want_d = knn_exact(rows, 11)
+    assert torch.equal(rows, kept)
+    resolved = want_d[:, 10] - want_d[:, 9] > 1e-6
+    np.testing.assert_array_equal(idx[resolved], want_i[resolved, :10])
+    np.testing.assert_allclose(dist, want_d[:, :10], atol=1e-5)

@@ -157,11 +157,32 @@ Phases; any failure exits non-zero and prints no result line:
          kernel of the main path on the last card (cuda:0 current)
          against its plain version, and one block's peer-copy rate; on
          one card a line says so.
+  10. the multi-process runtime, run after 9 on phase 4's reads and flags:
+     two rank processes of the CLI (--num-processes 2 --process-id r
+     --coordinator 127.0.0.1:<port>), each with its own launch counts
+     (RANK_DRIVER writes them beside metrics.rank<r>.json): (a) the
+     shared fxcache.npz (rank 0 parses, rank 1 loads) with ring, (b)
+     --no-pack-cache (each rank parses its byte range) with allgather,
+     (c) ring2d and FEDRANN_TPU_MULTIHOST_KNN=host, (d)
+     --keep-intermediates, then a resumed rerun (no staging kernel, no
+     kernel C, byte-identical overlaps.tsv); each checked as 9b: truth
+     recall >= 0.9 (fedrann_tpu_torch.eval truth_recall, as every CLI run
+     here), agreement >= 0.999 with phase 4's table, each rank's gathered
+     library equal to 4d's single-process one, K1+K2 and K3 launched in
+     both ranks, the transport (gloo on one card) in the log and in
+     metrics.rank<r>.json; each run's wall seconds, each rank's stage
+     seconds and the knn's TFLOP/s and mfu logged. (e) only with two or
+     more cards: one card a rank, the transport must be NCCL, one hop's
+     GB/s; with four or more, two cards a rank (ring2d). The card's
+     compute mode is logged.
+8a runs twice: the second time under --profile, so the out-of-core
+search's CUDA graphs are captured inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: stage_rows from the main path's, 9b's and 9c's,
-membership_embed from the main path's, 8a's and 9b's, the other staging
+the runs of its own path: stage_rows from the main path's, 9b's, 9c's
+and 10's, membership_embed from the main path's, 8a's (twice), 9b's and
+10's, the other staging
 kernels summed over the three CLI runs (and 9b's),
 membership_embed_dense over the runs of 4b, 7 and 9c, the probes from their
 entry point), errors, times, the bound (the larger of
@@ -217,6 +238,11 @@ OOC_AGREE_CLI, OOC_AGREE_SEARCH = 0.99, 0.999
 SHARD_ROWS, SHARD_K, SHARD_ENTRIES = 65_536, 50, 4
 SHARD_STRATEGIES = ("ring", "allgather", "ring2d")
 SHARD_AGREE_SEARCH, SHARD_AGREE_CLI, SHARD_AGREE_STEP = 0.9999, 0.999, 0.999
+# 10: two rank processes, each given RANK_TIMEOUT seconds; agreement with
+# phase 4's table; 10e's hop: one HOP_ROWS x 512 float32 block, best of
+# HOP_REPS
+MULTI_AGREE, RANK_TIMEOUT = 0.999, 300
+HOP_ROWS, HOP_REPS = 16_384, 5
 
 
 COUNTERS: dict = {}
@@ -1613,14 +1639,14 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     log(f"stage seconds [{card}]: "
         + ", ".join(f"{s} {v:.3f}" for s, v in secs.items())
         + f"; load {load}, uploaded "
-        f"{stages.get('stage', {}).get('h2d_bytes', 0):.0f} bytes")
+        f"{stages.get('stage', {}).get('h2d_bytes', 0):.0f} bytes; "
+        + roofline(stages))
     log(f"main path: {n_reads} reads in {wall:.2f} s wall = "
         f"{n_reads / wall:.1f} reads/s; device stages (stage..knn) "
         f"{sum(secs.get(s, 0.0) for s in ('stage', 'count', 'project', 'embed', 'knn')):.3f} s "
         f"[{card}]")
 
-    header, per_query, nbrs = read_overlaps(
-        os.path.join(out_dir, "overlaps.tsv"), sim.names)
+    header, per_query = read_overlaps(os.path.join(out_dir, "overlaps.tsv"))
     if header != HEADER.rstrip("\n").split("\t"):
         fail(f"bad overlaps.tsv header {header}")
     n_rows = sum(per_query.values())
@@ -1632,15 +1658,62 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     log(f"overlaps.tsv: {n_rows} rows = {2 * n_reads} x 50 less "
         f"{2 * n_reads * 50 - n_rows} self rows")
 
+    check_truth_recall(os.path.join(out_dir, "overlaps.tsv"), sim,
+                       min_overlap, "")
+    return launches, secs
+
+
+def check_truth_recall(path: str, sim, min_overlap: int,
+                       what: str) -> float:
+    """The truth recall of an overlaps.tsv (fedrann_tpu_torch.eval
+    truth_recall over the pairs of `sim` overlapping >= min_overlap, from
+    every row of either read, both orientations); fails below
+    MIN_RECALL."""
+    from fedrann_tpu_torch.eval import truth_recall
+
     truth = sim.truth_overlaps(min_overlap=min_overlap)
-    found = sum(1 for a, b in truth
-                if b in nbrs.get(a, ()) or a in nbrs.get(b, ()))
-    recall = found / max(len(truth), 1)
-    log(f"truth recall (overlap >= {min_overlap}): {recall:.4f} over "
+    recall = truth_recall(tsv_neighbor_rows(path, sim.names), truth,
+                          len(sim.names))
+    log(f"{what}truth recall (overlap >= {min_overlap}): {recall:.4f} over "
         f"{len(truth)} pairs")
     if not truth or recall < MIN_RECALL:
-        fail(f"truth recall {recall:.4f} below {MIN_RECALL}")
-    return launches, secs
+        fail(f"{what}truth recall {recall:.4f} below {MIN_RECALL}")
+    return recall
+
+
+def tsv_neighbor_rows(path: str, names: list[str]):
+    """An overlaps.tsv as (2R, most neighbors) embedding-row indices, -1
+    where a row lists fewer (the self row is not in the table)."""
+    import numpy as np
+
+    index = {n: i for i, n in enumerate(names)}
+    rows: dict[int, list[int]] = {}
+    with open(path) as f:
+        f.readline()
+        for line in f:
+            q, qo, t, to, _rank, _dist = line.rstrip("\n").split("\t")
+            rows.setdefault(2 * index[q] + (qo == "-"), []).append(
+                2 * index[t] + (to == "-"))
+    out = np.full((2 * len(names), max(map(len, rows.values()), default=0)),
+                  -1, np.int64)
+    for r, ts in rows.items():
+        out[r, : len(ts)] = ts
+    return out
+
+
+def roofline(stages: dict) -> str:
+    """The knn and embed rates a metrics.json derives from its counters;
+    fails where a share of the card's peak passes 100% (the counters then
+    count more work than the stage did)."""
+    knn, embed = stages.get("knn", {}), stages.get("embed", {})
+    for name, pct in (("knn mfu_pct", knn.get("mfu_pct", 0)),
+                      ("embed hbm_util_pct", embed.get("hbm_util_pct", 0))):
+        if pct > 100:
+            fail(f"metrics.json: {name} {pct} is past the card's peak")
+    return (f"knn {knn.get('tflops_per_s', 0):.3f} TFLOP/s, mfu "
+            f"{knn.get('mfu_pct', 'none')}%; embed "
+            f"{embed.get('hbm_gb_per_s', 0):.1f} GB/s, hbm util "
+            f"{embed.get('hbm_util_pct', 'none')}%")
 
 
 def check_launches(launches: dict, paths: set, embed: str,
@@ -2233,7 +2306,7 @@ def check_ooc_search(dev, card: str) -> None:
     run = None
     for c0 in range(0, n, 131072):
         run = merge_block(run, q, cand[c0 : c0 + 131072], c0, k)
-    ref_idx, ref_dist = keys_to_host(run, "f32")
+    ref_idx, ref_dist = keys_to_host(run, "f32", n)
     del cand, q, run
     agree = np.mean([len(set(a) & set(b)) / k
                      for a, b in zip(idx[sample], ref_idx)])
@@ -2643,58 +2716,352 @@ def check_other_cards(inputs, card: str) -> None:
         f"{ms:.4f} ms = {rows * 512 * 4 / ms / 1e6:.2f} GB/s [{card}]")
 
 
-def read_overlaps(path: str, names: list[str]):
-    """(header, rows per (query, orientation), '+'-row neighbor read sets)."""
-    index = {n: i for i, n in enumerate(names)}
+# phase 10: a rank of a two-process CLI run. argv: the JSON file for this
+# process's counts, "hop" or "-", then the CLI's arguments. Every count is
+# set to 0 before cli.main; the library that allgather_library returns
+# is kept for the check.
+RANK_DRIVER = r"""
+import json, sys, time
+sys.path.insert(0, {here!r})
+import numpy as np
+import chip_smoke as cs
+from fedrann_tpu_torch import cli
+from fedrann_tpu_torch.parallel import runtime
+cs.register_counters()
+libs = []
+gather = runtime.allgather_library
+def keep(*args, **kwargs):
+    libs.append(gather(*args, **kwargs))
+    return libs[-1]
+runtime.allgather_library = keep
+out, hop, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+extra = {{}}
+if hop == "hop":
+    extra["hop"] = cs.time_hop(cli.config_from_args(argv))
+cs.reset_counts()
+rc = cli.main(argv)
+extra.update(kernels=cs.read_counts(cs.COUNTERS),
+             host=cs.read_counts(cs.HOST_COUNTERS))
+if libs:
+    codes, counts = libs[-1].numpy()
+    np.savez(out.replace(".json", ".library.npz"), codes=codes,
+             counts=counts)
+with open(out, "w") as f:
+    json.dump(extra, f)
+sys.exit(rc)
+"""
+
+
+def time_hop(config) -> dict:
+    """Phase 10e, in each rank before its run: one (HOP_ROWS, 512) float32
+    block sent to the next rank and one received, over the transport the
+    runtime chooses for these cards, timed after a warm-up (host clock
+    around a synchronized exchange, the best of HOP_REPS)."""
+    import torch
+
+    from fedrann_tpu_torch.parallel.dist import (
+        DeviceTransport,
+        initialize_distributed,
+    )
+
+    group = initialize_distributed(config.coordinator, config.num_processes,
+                                   config.process_id)
+    dev = torch.device("cuda", 0)
+    transport = DeviceTransport(group, [dev])
+    block = torch.randn((HOP_ROWS, 512), device=dev)
+    peer_to = (group.rank + 1) % group.size
+    peer_from = (group.rank - 1) % group.size
+    best = float("inf")
+    for _ in range(HOP_REPS + 1):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        [got] = transport.exchange([(peer_to, block)],
+                                   [(peer_from, block.shape, dev)])
+        torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    if not torch.isfinite(got).all():
+        fail("10e: the received block is not finite")
+    return {"kind": transport.kind, "bytes": block.numel() * 4,
+            "seconds": best}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def drive_ranks(fasta: str, out_dir: str, flags: list[str],
+                env_by_rank: list[dict], hop: bool = False) -> tuple:
+    """Two processes of the CLI (RANK_DRIVER) on `fasta` with `flags`,
+    --num-processes 2 at a coordinator on localhost, each with its env
+    additions; both are killed if they outlast RANK_TIMEOUT. Returns
+    (wall seconds, each rank's counts JSON, each rank's log text)."""
+    os.makedirs(out_dir, exist_ok=True)
+    coord = f"127.0.0.1:{free_port()}"
+    procs, logs, jsons = [], [], []
+    t0 = time.perf_counter()
+    for rank, extra in enumerate(env_by_rank):
+        jsons.append(os.path.join(out_dir, f"counts.rank{rank}.json"))
+        logs.append(os.path.join(out_dir, f"rank{rank}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK_DRIVER.format(here=HERE),
+                 jsons[-1], "hop" if hop else "-", "-i", fasta, "-o",
+                 out_dir, *flags, "--num-processes", "2", "--process-id",
+                 str(rank), "--coordinator", coord],
+                env={**os.environ, **extra}, stdout=f,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=RANK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"10: a rank outlasted {RANK_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            texts.append(f.read())
+        if p.returncode != 0:
+            fail(f"10: rank {rank} exited {p.returncode}:\n"
+                 f"{texts[-1][-3000:]}")
+    counts = []
+    for path in jsons:
+        with open(path) as f:
+            counts.append(json.load(f))
+    return wall, counts, texts
+
+
+def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
+                paths: set, ref: dict, card: str, transport: str = "gloo",
+                env_by_rank=None, loads=("parse", "cache"),
+                resumed: bool = False, keep: bool = False,
+                hop: bool = False) -> dict:
+    """One phase 10 run: two ranks of the CLI (drive_ranks), checked as
+    9b: both exit 0; each rank launched K1+K2 (a fused staging kernel) and
+    K3 and no staging kernel outside `paths` (none of either when
+    `resumed`), loaded as `loads` says (rank 0 first: "parse" a native
+    parse, "cache" one fxcache.npz load, "ranged" a byte-range parse) with
+    no Python reader or packer and no pinning copy; both gathered the
+    single-process library `ref["library"]`; the merged overlaps.tsv
+    holds truth recall >= MIN_RECALL and agreement >= MULTI_AGREE with
+    phase 4's table; the rank tables are gone (kept with `keep`);
+    metrics.rank<r>.json holds the seven stages (no "stage" when
+    resumed) and the transport, which the log names too. Returns the
+    kernel launches of both ranks summed."""
+    import numpy as np
+
+    wall, counts, logs = drive_ranks(
+        fasta, out_dir, flags, env_by_rank or [{}, {}], hop)
+    want_stages = [s for s in STAGES if not (resumed and s == "stage")]
+    totals: dict = {}
+    rank_secs = []
+    for rank, (c, text) in enumerate(zip(counts, logs)):
+        kernels, host = c["kernels"], c["host"]
+        staging = {k for k in STAGE_KERNELS if kernels[k] > 0}
+        if resumed:
+            if staging or kernels["membership_embed"]:
+                fail(f"{label} rank {rank}: a resumed run launched {kernels}")
+            if "resuming embeddings" not in text:
+                fail(f"{label} rank {rank}: no embeddings resumed")
+        elif not (staging & {"stage_rows_packed", "stage_rows_bits"}) \
+                or not staging <= paths or not kernels["membership_embed"]:
+            fail(f"{label} rank {rank}: launches {kernels}, staging kernels "
+                 f"{staging} not within {paths} or K1+K2 / K3 missing")
+        want = {"read_fastx": 0, "pack_reads": 0, "pin_copies": 0,
+                "pack_reads_native": int(loads[rank] in ("parse", "ranged")),
+                "cache_hits": int(loads[rank] == "cache")}
+        wrong = {k: host[k] for k, v in want.items() if host[k] != v}
+        if wrong:
+            fail(f"{label} rank {rank}: host counts {wrong}, want {want}")
+        if f"device transport: {transport}" not in text:
+            fail(f"{label} rank {rank}: the log names no {transport} "
+                 "transport")
+        if loads[rank] == "ranged" and "byte-range parse" not in text:
+            fail(f"{label} rank {rank}: no byte-range parse")
+        if not resumed:
+            lib = np.load(os.path.join(out_dir,
+                                       f"counts.rank{rank}.library.npz"))
+            if not (np.array_equal(lib["codes"], ref["library"][0])
+                    and np.array_equal(lib["counts"], ref["library"][1])):
+                fail(f"{label} rank {rank}: the gathered library differs "
+                     "from the single-process one")
+        with open(os.path.join(out_dir, f"metrics.rank{rank}.json")) as f:
+            stages = json.load(f)
+        missing = [s for s in want_stages if s not in stages]
+        if missing or stages["transport"]["kind"] != transport:
+            fail(f"{label} rank {rank}: metrics.rank{rank}.json lacks "
+                 f"{missing} or names transport {stages['transport']}")
+        rank_secs.append(
+            f"rank {rank} on {','.join(stages['transport']['cards'])}: "
+            + ", ".join(f"{s} {stages[s]['seconds']:.3f}"
+                        for s in want_stages)
+            + "; " + roofline(stages))
+        for name, n in kernels.items():
+            totals[name] = totals.get(name, 0) + n
+    tsv = os.path.join(out_dir, "overlaps.tsv")
+    for rank in range(2):
+        if os.path.exists(os.path.join(
+                out_dir, f"overlaps.rank{rank}.tsv")) != keep:
+            fail(f"{label}: overlaps.rank{rank}.tsv "
+                 f"{'missing' if keep else 'not removed'}")
+    recall = check_truth_recall(tsv, sim, MIN_OVERLAP, f"{label} ")
+    ours, theirs = overlap_sets(tsv), ref["sets"]
+    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
+                for key, want in theirs.items()) / len(theirs)
+    if agree < MULTI_AGREE:
+        fail(f"{label}: agreement {agree:.5f} with phase 4 below "
+             f"{MULTI_AGREE}")
+    hops = [c["hop"] for c in counts if "hop" in c]
+    log(f"{label}: 2 ranks, {wall:.2f} s wall ({len(sim.names) / wall:.1f} "
+        f"reads/s), transport {transport}; " + "; ".join(rank_secs)
+        + f"; truth recall {recall:.4f}, agreement with phase 4 "
+        f"{agree:.5f}; launches {totals}"
+        + "".join(f"; hop {h['kind']} {h['bytes']} bytes in "
+                  f"{h['seconds'] * 1e3:.3f} ms = "
+                  f"{h['bytes'] / h['seconds'] / 1e9:.2f} GB/s"
+                  for h in hops) + f" [{card}]")
+    return totals
+
+
+def check_multiprocess(fasta: str, out_dir: str, sim, card: str, dev,
+                       phase4_tsv: str, library_npz: str) -> dict:
+    """Phase 10: phase 4's reads and flags through the CLI in two rank
+    processes (check_ranks): (a) the shared fxcache.npz with ring, (b)
+    --no-pack-cache (each rank parses its byte range) with allgather, (c)
+    ring2d, then FEDRANN_TPU_MULTIHOST_KNN=host, (d) --keep-intermediates,
+    then a resumed rerun (no staging kernel, no kernel C, byte-identical
+    overlaps.tsv); on one card both ranks share it (gloo through pinned
+    host memory). (e) only with two or more cards: each rank on its own
+    card by CUDA_VISIBLE_DEVICES, the transport NCCL, one hop's GB/s;
+    with four or more, also two cards a rank with ring2d, ring and
+    allgather. Returns the
+    kernel launches of every run summed."""
+    import numpy as np
+    import torch
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().replace("\n", ", ")
+    log(f"10: compute mode {mode}; {torch.cuda.device_count()} visible "
+        f"card(s) [{card}]")
+    lib = np.load(library_npz)
+    ref = {"library": (lib["codes"], lib["counts"]),
+           "sets": overlap_sets(phase4_tsv)}
+    paths = stage_paths(sim, FLAGS, dev)
+    totals: dict = {}
+
+    def run(label, sub, flags, **kw):
+        for name, n in check_ranks(label, fasta, os.path.join(out_dir, sub),
+                                   sim, [*FLAGS, *flags], paths, ref, card,
+                                   **kw).items():
+            totals[name] = totals.get(name, 0) + n
+
+    run("10a ring, shared cache", "a", ["--knn-shard-strategy", "ring"])
+    run("10b allgather, byte-range parse", "b",
+        ["--no-pack-cache", "--knn-shard-strategy", "allgather"],
+        loads=("ranged", "ranged"))
+    run("10c ring2d", "c2d", ["--knn-shard-strategy", "ring2d"])
+    run("10c FEDRANN_TPU_MULTIHOST_KNN=host", "chost", [],
+        env_by_rank=[{"FEDRANN_TPU_MULTIHOST_KNN": "host"}] * 2)
+    run("10d --keep-intermediates", "d", ["--keep-intermediates"], keep=True)
+    tsv = os.path.join(out_dir, "d", "overlaps.tsv")
+    with open(tsv, "rb") as f:
+        first = f.read()
+    run("10d resumed", "d", ["--keep-intermediates"], keep=True,
+        resumed=True, loads=("cache", "cache"))
+    with open(tsv, "rb") as f:
+        if f.read() != first:
+            fail("10d: the resumed run's overlaps.tsv differs")
+    if torch.cuda.device_count() >= 2:
+        run("10e ring, one card a rank", "e", [], transport="nccl",
+            env_by_rank=[{"CUDA_VISIBLE_DEVICES": str(r)} for r in (0, 1)],
+            hop=True)
+    if torch.cuda.device_count() >= 4:
+        # two cards a rank: a block moves between a rank's cards by
+        # to_device and leaves the rank from its first card; allgather
+        # gathers each rank's shards there first
+        for strategy in ("ring2d", "ring", "allgather"):
+            run(f"10e {strategy}, two cards a rank", f"e2{strategy}",
+                ["--knn-shard-strategy", strategy], transport="nccl",
+                env_by_rank=[{"CUDA_VISIBLE_DEVICES": "0,1"},
+                             {"CUDA_VISIBLE_DEVICES": "2,3"}])
+    if torch.cuda.device_count() < 2:
+        log("10e: one card; the NCCL transport between ranks on distinct "
+            f"cards needs two [{card}]")
+    return totals
+
+
+def check_ooc_profile(fasta: str, out_dir: str, in_core_tsv: str, sim,
+                      card: str, dev) -> dict:
+    """8a's CLI run again under --profile: the out-of-core merges (CUDA
+    graphs captured and replayed) inside a torch.profiler session; checked
+    as phase 4 (drive_cli), the trace must exist and hold device activity,
+    the plan's slabs must upload, and agreement with phase 4's in-core
+    table >= OOC_AGREE_CLI. Returns the launch counts."""
+    flags = [*FLAGS, "--knn-hbm-budget", OOC_CLI_BUDGET, "--profile"]
+    launches, secs = drive_cli(fasta, out_dir, sim, MIN_OVERLAP, card, dev,
+                               flags)
+    host = read_counts(HOST_COUNTERS)
+    trace = os.path.join(out_dir, "trace", "trace.json")
+    if not os.path.exists(trace) or host["ooc_slabs"] < 2:
+        fail(f"8a --profile: trace {os.path.exists(trace)}, "
+             f"{host['ooc_slabs']} slabs")
+    busy_us, n = device_busy_us(trace)
+    ours, theirs = overlap_sets(os.path.join(out_dir, "overlaps.tsv")), \
+        overlap_sets(in_core_tsv)
+    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
+                for key, want in theirs.items()) / len(theirs)
+    log(f"8a --profile: {host['ooc_slabs']} slabs, {host['ooc_blocks']} "
+        f"blocks; device busy {busy_us / 1e3:.3f} ms over {n} kernels and "
+        f"copies; knn {secs['knn']:.3f} s; agreement {agree:.5f} [{card}]")
+    if n == 0 or agree < OOC_AGREE_CLI:
+        fail(f"8a --profile: {n} device events, agreement {agree:.5f}")
+    return launches
+
+
+def read_overlaps(path: str):
+    """(header, rows per (query, orientation)); fails on a distance
+    outside [0, 2]."""
     per_query: dict[tuple[str, str], int] = {}
-    nbrs: dict[int, set[int]] = {}
     with open(path) as f:
         header = f.readline().rstrip("\n").split("\t")
         for line in f:
-            q, qo, t, _to, _rank, dist = line.rstrip("\n").split("\t")
+            q, qo, _t, _to, _rank, dist = line.rstrip("\n").split("\t")
             per_query[(q, qo)] = per_query.get((q, qo), 0) + 1
             if not 0.0 <= float(dist) <= 2.001:
                 fail(f"distance {dist} outside [0, 2]")
-            if qo == "+":
-                nbrs.setdefault(index[q], set()).add(index[t])
-    return header, per_query, nbrs
+    return header, per_query
 
 
-def main() -> None:
-    import torch
+def register_counters() -> None:
+    """Fill COUNTERS (kernel -> (wrapper, its launch count): one count per
+    path of kernel B and per source of the window-code kernels) and
+    HOST_COUNTERS (host-side counts read around each CLI run)."""
+    from fedrann_tpu_torch import pipeline
+    from fedrann_tpu_torch.io import native
+    from fedrann_tpu_torch.io.cache import load_packed_cache
+    from fedrann_tpu_torch.io.fastx import read_fastx
+    from fedrann_tpu_torch.io.packing import pack_reads
+    from fedrann_tpu_torch.kmers.codec import canonical_sample
+    from fedrann_tpu_torch.kmers.membership import (
+        select_candidates,
+        stage_candidates,
+    )
+    from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+    from fedrann_tpu_torch.project.embed import (
+        membership_embed,
+        membership_embed_dense,
+    )
 
-    args = sys.argv[1:]
-    if args not in ([], ["--profile"]):
-        fail(f"usage: python3 chip_smoke.py [--profile], not {args}")
-    profiling = args == ["--profile"]
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
-    sys.path.insert(0, HERE)
-    try:
-        import fedrann_tpu_torch  # noqa: F401
-        from fedrann_tpu_torch import _build, pipeline
-        from fedrann_tpu_torch.device import get_device
-        from fedrann_tpu_torch.io import native
-        from fedrann_tpu_torch.io.cache import load_packed_cache
-        from fedrann_tpu_torch.io.fastx import read_fastx
-        from fedrann_tpu_torch.io.packing import pack_reads
-        from fedrann_tpu_torch.kmers.codec import canonical_sample
-        from fedrann_tpu_torch.kmers.membership import (
-            STATIC_SMEM,
-            select_candidates,
-            stage_candidates,
-        )
-        from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
-        from fedrann_tpu_torch.knn.ring import knn_exact_sharded
-        from fedrann_tpu_torch.project.embed import (
-            membership_embed,
-            membership_embed_dense,
-        )
-        from fedrann_tpu_torch.sim import simulate_reads, write_fasta
-    except ImportError as e:
-        fail(f"cannot import the port from {HERE}: {e}")
-    # kernel -> (wrapper, its launch count): one count per path of kernel B
-    # and per source of the window-code kernels
     COUNTERS.update({
         **{f"stage_rows{sfx}": (stage_candidates, f"{src}_launches")
            for sfx, src in (("", "bytes"), ("_packed", "packed"),
@@ -2715,6 +3082,28 @@ def main() -> None:
         "ooc_blocks": (knn_exact_ooc, "blocks_uploaded"),
         "ooc_h2d_bytes": (knn_exact_ooc, "h2d_bytes"),
         "sharded_knn_calls": (knn_exact_sharded, "calls")})
+
+
+def main() -> None:
+    import torch
+
+    args = sys.argv[1:]
+    if args not in ([], ["--profile"]):
+        fail(f"usage: python3 chip_smoke.py [--profile], not {args}")
+    profiling = args == ["--profile"]
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    sys.path.insert(0, HERE)
+    try:
+        import fedrann_tpu_torch  # noqa: F401
+        from fedrann_tpu_torch import _build
+        from fedrann_tpu_torch.device import get_device
+        from fedrann_tpu_torch.io import native
+        from fedrann_tpu_torch.kmers.membership import STATIC_SMEM
+        from fedrann_tpu_torch.sim import simulate_reads, write_fasta
+        register_counters()
+    except ImportError as e:
+        fail(f"cannot import the port from {HERE}: {e}")
 
     dev = get_device("cuda")
     smi = subprocess.run(
@@ -2801,6 +3190,11 @@ def main() -> None:
             fasta, os.path.join(tmp, "ooc"),
             os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
             dev)["membership_embed"]
+        # 8a again under --profile: the graph merges inside the profiler
+        launches["membership_embed"] += check_ooc_profile(
+            fasta, os.path.join(tmp, "ooc_prof"),
+            os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
+            dev)["membership_embed"]
         check_ooc_search(dev, card)
         # 9: the sharded k-NN and step, over SHARD_ENTRIES entries of this
         # card (9a-9c) and over every card where there are more (9d)
@@ -2818,6 +3212,14 @@ def main() -> None:
             f"{SHARD_ENTRIES} entries of {dev}")
         check_other_cards(inputs, card)
         del inputs
+        # 10: two rank processes of the CLI (the multi-process runtime)
+        for name, n in check_multiprocess(
+                fasta, os.path.join(tmp, "multi"), sim, card, dev,
+                os.path.join(tmp, "out", "overlaps.tsv"),
+                os.path.join(tmp, "ckpt", "checkpoints",
+                             "library.npz")).items():
+            if name in ("membership_embed", *STAGE_KERNELS):
+                launches[name] += n
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,

@@ -6,7 +6,9 @@ a plain C interface, loaded with ctypes (no PyTorch headers, so the build
 takes seconds). The library lands in `_kernels/` beside this file (listed in
 .gitignore), named by a hash of the sources, so an edited source rebuilds
 and an unchanged one loads the existing build. The build happens at the
-first kernel launch in a process, never at import.
+first kernel launch in a process, never at import; processes that start
+together (the ranks of a multi-process run) build under one file lock,
+each library into a temporary file renamed into place.
 
 The host library is `native/fastxpack.cpp` of the repository, compiled
 unchanged by g++ (`build_host`) into `_kernels/` the same way, at the
@@ -16,7 +18,9 @@ failed build raises with the compiler's output.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -132,16 +136,40 @@ def _compile(so: Path, command: list[str], what: str) -> Path:
     return so
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on `_kernels/.lock` (flock: released when its
+    holder exits, however it exits), so processes that start at once
+    compile each library once and never load one that another is
+    writing."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_once(so: Path, command) -> Path:
+    """`so`, compiled by command() under the build lock unless it exists
+    (checked again once the lock is held)."""
+    if so.exists():
+        return so
+    with _build_lock():
+        if so.exists():
+            return so
+        return command()
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed library unless it exists; the
     compiler's output (ptxas register and shared-memory use) is kept
     beside it as `<library>.log`."""
     so = library_path()
-    if so.exists():
-        return so
     cu = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
-    return _compile(so, [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", "",
-                         *cu], "nvcc")
+    return _build_once(so, lambda: _compile(
+        so, [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", "", *cu], "nvcc"))
 
 
 def host_library_path(source: Path = HOST_SOURCE) -> Path:
@@ -154,15 +182,17 @@ def build_host(source: Path = HOST_SOURCE) -> Path:
     """Compile the host library (native/fastxpack.cpp) with g++ into
     `_kernels/` unless the build of this source exists."""
     so = host_library_path(source)
-    if so.exists():
-        return so
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        raise RuntimeError(
-            "g++ not found on PATH: the host library of fedrann_tpu_torch "
-            f"builds from {source} at first use")
-    return _compile(so, [cxx, *HOST_FLAGS, "-o", "", str(source),
-                         *HOST_LIBS], "g++")
+
+    def compile_host() -> Path:
+        cxx = shutil.which(os.environ.get("CXX", "g++"))
+        if cxx is None:
+            raise RuntimeError(
+                "g++ not found on PATH: the host library of "
+                f"fedrann_tpu_torch builds from {source} at first use")
+        return _compile(so, [cxx, *HOST_FLAGS, "-o", "", str(source),
+                             *HOST_LIBS], "g++")
+
+    return _build_once(so, compile_host)
 
 
 @functools.cache

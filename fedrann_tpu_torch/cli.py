@@ -1,9 +1,9 @@
 """Command-line interface: the same flags as `fedrann_tpu/cli.py`.
 
-Flags outside the ported slice parse as there and are rejected by
-pipeline.check_supported with NotImplementedError naming the ROADMAP item.
-The run needs a CUDA device; without one it fails, it does not fall back
-to the CPU.
+Flags outside the ported slice (--knn-method ivf) parse as there and are
+rejected by pipeline.check_supported with NotImplementedError naming the
+ROADMAP item. The run needs a CUDA device; without one it fails, it does
+not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -109,9 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="Write a torch.profiler trace to <output-dir>/trace.")
     p.add_argument("--log-level", default="INFO")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Processes of a multi-process run (one per host "
+                        "or card set).")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="This process's rank in [0, --num-processes).")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0 for a multi-process run "
+                        "(default: JAX_COORDINATOR_ADDRESS).")
     return p
 
 
@@ -184,11 +189,24 @@ def config_from_args(argv: list[str] | None = None) -> PipelineConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """Run the pipeline on this process's CUDA card(s) (the cards
+    CUDA_VISIBLE_DEVICES shows it): one process, or this rank of a
+    multi-process run where --num-processes > 1 or a coordinator
+    (--coordinator, JAX_COORDINATOR_ADDRESS) is given."""
     from fedrann_tpu_torch.device import get_device
-    from fedrann_tpu_torch.pipeline import run_pipeline
+    from fedrann_tpu_torch.parallel.dist import coordinator_address
 
     config = config_from_args(argv)
-    result = run_pipeline(config, get_device("cuda"))
+    device = get_device("cuda")
+    if (config.num_processes or 0) > 1 \
+            or coordinator_address(config.coordinator):
+        from fedrann_tpu_torch.parallel.runtime import run_pipeline_multihost
+
+        result = run_pipeline_multihost(config, device)
+    else:
+        from fedrann_tpu_torch.pipeline import run_pipeline
+
+        result = run_pipeline(config, device)
     logger.info("done: %d reads, %d library k-mers, output %s",
                 len(result.names), result.library.size, result.overlaps_path)
     return 0

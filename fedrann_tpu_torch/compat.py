@@ -3,7 +3,10 @@ the loaders in `fedrann_tpu/compat.py`), for `--import-library` and
 `--import-projection`:
 
 - a jellyfish-dump k-mer library FASTA: header `>count`, sequence = k-mer;
-- a scipy sparse precompute matrix .npz (n_features, d).
+- a scipy sparse precompute matrix .npz (n_features, d);
+- the reference's `output.bin` of per-read library index sets ("KMER" v1),
+  read by `read_reference_scan` and embedded through our math by
+  `embed_reference_rows`.
 
 Index spaces: the reference's feature f is the position of the k-mer in
 its library file (f + L_file for the reverse complement); ours is the rank
@@ -17,49 +20,16 @@ permuted into our index space exactly.
 
 from __future__ import annotations
 
+import struct
+from typing import Iterator
+
 import numpy as np
 import torch
 
 from fedrann_tpu_torch.io.fastx import read_fastx
 from fedrann_tpu_torch.io.packing import encode_bases
 from fedrann_tpu_torch.kmers.library import KmerLibrary
-
-_INVALID_CODE = np.uint64(0xFFFFFFFFFFFFFFFF)
-
-
-def kmer_code(seq_codes: np.ndarray, k: int) -> np.ndarray:
-    """All k-length window codes of a base-code vector (uint64); a window
-    holding an invalid base (code > 3) gives the sentinel 2**64 - 1."""
-    n = len(seq_codes)
-    if n < k:
-        return np.zeros(0, dtype=np.uint64)
-    valid = seq_codes < 4
-    codes = np.zeros(n - k + 1, dtype=np.uint64)
-    ok = np.ones(n - k + 1, dtype=bool)
-    for j in range(k):
-        window = seq_codes[j : j + n - k + 1].astype(np.uint64)
-        codes = (codes << np.uint64(2)) | np.where(
-            valid[j : j + n - k + 1], window, 0)
-        ok &= valid[j : j + n - k + 1]
-    codes[~ok] = _INVALID_CODE
-    return codes
-
-
-def revcomp_code(codes: np.ndarray, k: int) -> np.ndarray:
-    """Reverse complement of 2-bit k-mer codes (complement = XOR 3 per
-    base, base order reversed)."""
-    codes = np.asarray(codes, dtype=np.uint64)
-    out = np.zeros_like(codes)
-    tmp = codes.copy()
-    for _ in range(k):
-        out = (out << np.uint64(2)) | ((tmp & np.uint64(3)) ^ np.uint64(3))
-        tmp >>= np.uint64(2)
-    return out
-
-
-def canonical_code(codes: np.ndarray, k: int) -> np.ndarray:
-    return np.minimum(codes, revcomp_code(codes, k))
-
+from fedrann_tpu_torch.oracle import INVALID_CODE, canonical_code, kmer_code
 
 def _parse_library_entries(fasta_path: str, k: int):
     """(canonical codes uint64, counts int64, flipped bool) of the file's
@@ -77,7 +47,7 @@ def _parse_library_entries(fasta_path: str, k: int):
         except ValueError:
             counts.append(1)
     codes = kmer_code(encode_bases("".join(seqs)), k)[::k]
-    ok = codes != _INVALID_CODE
+    ok = codes != INVALID_CODE
     codes = codes[ok]
     canon = canonical_code(codes, k)
     return (canon, np.asarray(counts, dtype=np.int64)[ok], canon != codes)
@@ -135,3 +105,66 @@ def load_reference_precompute(
             f"permutation references row {perm.max()} but precompute has "
             f"{p_ext.shape[0]} rows (library/projection mismatch?)")
     return p_ext[perm]
+
+
+# --- output.bin ("KMER" v1) ------------------------------------------------
+
+
+def read_reference_scan(path: str) -> Iterator[tuple[str, np.ndarray]]:
+    """Stream (read name, forward-row library indices int64) records of
+    the reference's output.bin. Little endian: 4s magic "KMER", u8 version
+    1, 3 reserved bytes, u64 record count; per record u16 name length, the
+    name, u32 index count, u64 indices. Only the forward row is stored
+    (mirror_reference_indices gives the reverse). Raises ValueError on a
+    truncated file, a foreign magic or another version."""
+    with open(path, "rb") as f:
+        header = f.read(16)
+        if len(header) < 16:
+            raise ValueError(f"{path}: truncated output.bin header")
+        magic, version, _reserved, total = struct.unpack("<4sB3sQ", header)
+        if magic != b"KMER":
+            raise ValueError(f"{path}: bad magic {magic!r}")
+        if version != 1:
+            raise ValueError(f"{path}: unsupported version {version}")
+        for _ in range(total):
+            raw = f.read(2)
+            if len(raw) < 2:
+                raise ValueError(f"{path}: truncated record header")
+            (id_len,) = struct.unpack("<H", raw)
+            name = f.read(id_len).decode("latin-1")
+            (count,) = struct.unpack("<I", f.read(4))
+            data = f.read(8 * count)
+            if len(data) < 8 * count:
+                raise ValueError(f"{path}: truncated index block for {name}")
+            yield name, np.frombuffer(data, dtype="<u8").astype(np.int64)
+
+
+def load_reference_scan(path: str) -> tuple[list[str], list[np.ndarray]]:
+    """output.bin as (names, each read's forward index array)."""
+    names, rows = [], []
+    for name, idx in read_reference_scan(path):
+        names.append(name)
+        rows.append(idx)
+    return names, rows
+
+
+def mirror_reference_indices(indices: np.ndarray,
+                             kmer_count: int) -> np.ndarray:
+    """The reference's reverse-row mirror i <-> i + kmer_count."""
+    return np.where(indices < kmer_count, indices + kmer_count,
+                    indices - kmer_count)
+
+
+def embed_reference_rows(rows: list[np.ndarray], p_ext: np.ndarray,
+                         kmer_count: int) -> np.ndarray:
+    """The reference's per-read index sets through our embedding math: a
+    row is the sum of the precompute rows at its indices (binary presence
+    times P), fwd/rev interleaved into (2R, d) float32. p_ext is in the
+    reference's index space (load_reference_precompute without perm)."""
+    out = np.zeros((2 * len(rows), p_ext.shape[1]), dtype=np.float32)
+    for r, idx in enumerate(rows):
+        if len(idx):
+            out[2 * r] = p_ext[idx].sum(axis=0)
+            out[2 * r + 1] = p_ext[
+                mirror_reference_indices(idx, kmer_count)].sum(axis=0)
+    return out

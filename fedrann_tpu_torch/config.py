@@ -2,9 +2,9 @@
 `fedrann_tpu/config.py`, so a run of either package is described by the
 same fields.
 
-Fields that select paths this port does not have yet (IVF, multi-host
-launch) are kept so the CLI parses every flag; the pipeline
-rejects them with NotImplementedError naming the ROADMAP item.
+The IVF fields select a path this port does not have yet; they are kept
+so the CLI parses every flag, and the pipeline rejects --knn-method ivf
+with NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations

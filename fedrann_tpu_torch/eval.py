@@ -1,9 +1,16 @@
-"""Neighbor recall@k between two overlaps.tsv tables (the port's copy of
-`OverlapTable` and `neighbor_recall` in `fedrann_tpu/eval.py`): for each
-query row of the reference table, the fraction of its first k neighbors
-that the candidate table also reports for that row, the share of reference
-queries the candidate holds, and the mean distance difference over the
-neighbor pairs both report."""
+"""Scoring of overlap tables (the port's copy of `fedrann_tpu/eval.py`).
+
+`neighbor_recall`: for each query row of a reference overlaps.tsv, the
+fraction of its first k neighbors that the candidate table also reports
+for that row, the share of reference queries the candidate holds, and the
+mean distance difference over the neighbor pairs both report; `main` is
+its command line:
+
+    python -m fedrann_tpu_torch.eval reference.tsv ours.tsv [-k K]
+
+`truth_recall`: the share of a simulator's true overlapping read pairs
+that either read lists among its neighbors.
+"""
 
 from __future__ import annotations
 
@@ -54,11 +61,11 @@ class RecallReport:
 def neighbor_recall(
     reference: OverlapTable,
     candidate: OverlapTable,
-    k: int,
+    k: int | None = None,
 ) -> RecallReport:
     """Per-query overlap of the candidate's neighbor sets with the
-    reference's first k; a neighbor counts only in the orientation the
-    reference gives it."""
+    reference's first k (all of them where k is None); a neighbor counts
+    only in the orientation the reference gives it."""
     recalls = []
     dist_diffs = []
     n_shared = 0
@@ -88,3 +95,43 @@ def neighbor_recall(
         n_queries=len(reference.neighbors),
         n_shared_pairs=n_shared,
     )
+
+
+def truth_recall(result_indices: np.ndarray, truth_pairs,
+                 n_reads: int) -> float:
+    """Fraction of the true overlapping read pairs (a, b) where either
+    read lists the other among its neighbors, in any orientation.
+    result_indices: (2R, k) embedding-row indices (row 2g / 2g + 1 for
+    read g); a negative entry names no read."""
+    neigh = [set() for _ in range(n_reads)]
+    for row in range(result_indices.shape[0]):
+        q = row // 2
+        for t in result_indices[row]:
+            neigh[q].add(int(t) // 2)
+    found = sum(1 for a, b in truth_pairs if b in neigh[a] or a in neigh[b])
+    return found / max(1, len(truth_pairs))
+
+
+def main(argv=None) -> int:
+    """Print the recall@k / coverage / distance-MAE line of a candidate
+    overlaps.tsv against a reference one; exits 0 when both parsed (the
+    caller judges the numbers)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="fedrann-tpu-torch-eval",
+        description="Neighbor-recall@k between two overlaps.tsv tables",
+    )
+    p.add_argument("reference", help="baseline overlaps.tsv")
+    p.add_argument("candidate", help="overlaps.tsv to score")
+    p.add_argument("-k", type=int, default=None,
+                   help="truncate neighbor lists to k (default: full)")
+    args = p.parse_args(argv)
+    ref = OverlapTable.read(args.reference)
+    got = OverlapTable.read(args.candidate)
+    print(neighbor_recall(ref, got, k=args.k))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -46,6 +46,16 @@ class _FastxParsed(ctypes.Structure):
     ]
 
 
+class _FastxScan(ctypes.Structure):
+    _fields_ = [
+        ("rec_offsets", _U64P),
+        ("names", ctypes.POINTER(ctypes.c_char)),
+        ("name_offsets", _U64P),
+        ("n_records", ctypes.c_uint64),
+        ("names_bytes", ctypes.c_uint64),
+    ]
+
+
 @functools.cache
 def load_native() -> ctypes.CDLL:
     """The host library, built from native/fastxpack.cpp on first call."""
@@ -55,6 +65,20 @@ def load_native() -> ctypes.CDLL:
     lib.fastx_parse_threads.restype = ctypes.c_int
     lib.fastx_free.argtypes = [ctypes.POINTER(_FastxParsed)]
     lib.fastx_free.restype = None
+    # path, lo, hi, threads, out: the records starting in file bytes
+    # [lo, hi) of a plain FASTA (-6: not plain FASTA)
+    lib.fastx_parse_range.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_int,
+        ctypes.POINTER(_FastxParsed)]
+    lib.fastx_parse_range.restype = ctypes.c_int
+    lib.fastx_scan_range.argtypes = [
+        ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64,
+        ctypes.POINTER(_FastxScan)]
+    lib.fastx_scan_range.restype = ctypes.c_int
+    lib.fastx_scan_free.argtypes = [ctypes.POINTER(_FastxScan)]
+    lib.fastx_scan_free.restype = None
+    lib.fastx_is_plain_fasta.argtypes = [ctypes.c_char_p]
+    lib.fastx_is_plain_fasta.restype = ctypes.c_int
     # codes, offsets, rows, n_rows, bucket_len, out_packed, out_valid;
     # returns the invalid (non-ACGT) bases inside the filled rows
     lib.fastx_fill_bucket_packed.argtypes = [
@@ -105,15 +129,52 @@ def write_overlaps_matrix_native(path: str, names, idx: np.ndarray,
     return int(rc)
 
 
-def parse_fastx_native(path: str, threads: int = 1):
+def is_plain_fasta(path: str) -> bool:
+    """Whether the input is an uncompressed FASTA, the only input a byte
+    range of can be parsed (gzip has no random access; a FASTQ '@' is
+    ambiguous at a line start)."""
+    return bool(load_native().fastx_is_plain_fasta(path.encode()))
+
+
+def scan_records_native(path: str, lo: int, hi: int):
+    """The records that START in file bytes [lo, hi) of a plain FASTA:
+    (names, absolute byte offsets int64 of their '>'), with no base
+    decoded. Raises ValueError on another input."""
+    lib = load_native()
+    scan = _FastxScan()
+    rc = lib.fastx_scan_range(path.encode(), int(lo), int(hi),
+                              ctypes.byref(scan))
+    if rc != 0:
+        raise ValueError(f"fastx_scan_range failed with code {rc} for {path}")
+    try:
+        n = int(scan.n_records)
+        offsets = np.ctypeslib.as_array(
+            scan.rec_offsets, shape=(max(n, 1),))[:n].astype(np.int64)
+        names = ctypes.string_at(scan.names, scan.names_bytes).decode(
+            "latin-1").split("\x00")[:n]
+    finally:
+        lib.fastx_scan_free(ctypes.byref(scan))
+    return names, offsets
+
+
+def parse_fastx_native(path: str, threads: int = 1,
+                       byte_range: tuple[int, int] | None = None):
     """Parse with the C++ library: (names, codes uint8 (total bases,),
     offsets int64 (n + 1,)). threads > 1 parses a plain FASTA in parallel
-    segments; gzip and FASTQ stream on one thread. Raises ValueError on a
-    parse error (a truncated gzip, a malformed record, an empty input)."""
+    segments; gzip and FASTQ stream on one thread. byte_range (lo, hi),
+    record starts from scan_records_native (hi may be the file size),
+    parses only the records in those bytes of a plain FASTA. Raises
+    ValueError on a parse error (a truncated gzip, a malformed record, an
+    empty input, a byte range of another input)."""
     lib = load_native()
     parsed = _FastxParsed()
-    rc = lib.fastx_parse_threads(path.encode(), int(max(1, threads)),
-                                 ctypes.byref(parsed))
+    if byte_range is not None:
+        rc = lib.fastx_parse_range(path.encode(), int(byte_range[0]),
+                                   int(byte_range[1]), int(max(1, threads)),
+                                   ctypes.byref(parsed))
+    else:
+        rc = lib.fastx_parse_threads(path.encode(), int(max(1, threads)),
+                                     ctypes.byref(parsed))
     if rc != 0:
         raise ValueError(f"fastx_parse failed with code {rc} for {path}")
     try:
@@ -134,7 +195,7 @@ _TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int32): torch.int32}
 
 
-def _zeros(shape, dtype, pin_memory: bool) -> np.ndarray:
+def host_zeros(shape, dtype, pin_memory: bool) -> np.ndarray:
     """A zeroed host array; in page-locked memory when pin_memory (the
     array is a view of a pinned tensor, which it keeps alive), so a
     non_blocking upload of it is asynchronous."""
@@ -147,7 +208,9 @@ def _zeros(shape, dtype, pin_memory: bool) -> np.ndarray:
 def pack_reads_native(path: str, length_buckets: Sequence[int] | None,
                       pad_rows_to: int = 8, threads: int = 1,
                       split_overlap: int | None = None,
-                      pin_memory: bool = False) -> PackedReads:
+                      pin_memory: bool = False,
+                      byte_range: tuple[int, int] | None = None
+                      ) -> PackedReads:
     """The native parse, then vectorised bucketing: the rows of
     pack_reads(read_fastx(path), ...) (length_buckets None: the auto
     ladder), each bucket in the 2-bit form the C packer fills
@@ -155,9 +218,11 @@ def pack_reads_native(path: str, length_buckets: Sequence[int] | None,
     `prefix_valid`: no mid-read invalid base) and no byte matrix;
     pin_memory puts those planes and the row lengths in page-locked
     memory. split_overlap (= k - 1) splits a read past the largest bucket
-    into segments instead of truncating it. Counted in `.calls`."""
+    into segments instead of truncating it. byte_range packs only the
+    records in those file bytes (parse_fastx_native), read indices from 0.
+    Counted in `.calls`."""
     pack_reads_native.calls += 1
-    names, codes, offsets = parse_fastx_native(path, threads)
+    names, codes, offsets = parse_fastx_native(path, threads, byte_range)
     lengths = np.diff(offsets).astype(np.int64)
     if length_buckets is None:
         length_buckets = auto_length_buckets(lengths)
@@ -203,13 +268,13 @@ def pack_reads_native(path: str, length_buckets: Sequence[int] | None,
             continue
         padded_rows = -(-len(rows) // pad_rows_to) * pad_rows_to
         rows32 = np.ascontiguousarray(2 * rows, dtype=np.int32)
-        lens = _zeros(padded_rows, np.int32, pin_memory)
+        lens = host_zeros(padded_rows, np.int32, pin_memory)
         lens[: len(rows)] = np.minimum(seg_len[rows], bucket_len)
         read_index = np.full(padded_rows, -1, np.int32)
         read_index[: len(rows)] = seg_read[rows]
-        pk = _zeros((padded_rows, (bucket_len + 3) // 4), np.uint8,
+        pk = host_zeros((padded_rows, (bucket_len + 3) // 4), np.uint8,
                     pin_memory)
-        vd = _zeros((padded_rows, (bucket_len + 7) // 8), np.uint8,
+        vd = host_zeros((padded_rows, (bucket_len + 7) // 8), np.uint8,
                     pin_memory)
         n_invalid = lib.fastx_fill_bucket_packed(
             codes_p, virt_p, rows32.ctypes.data_as(_I32P), len(rows),

@@ -22,11 +22,13 @@ HEADER = (
 )
 
 
-def _filter_rows(indices: np.ndarray, distances: np.ndarray):
+def _filter_rows(indices: np.ndarray, distances: np.ndarray,
+                 row_offset: int = 0):
     """(query row, target row, rank, distance) of every kept entry, in
-    row-major order: self rows and unset (-1) entries dropped."""
+    row-major order: self rows and unset (-1) entries dropped. Matrix row
+    q is embedding row row_offset + q."""
     n, k = indices.shape
-    rows = np.arange(n)[:, None]
+    rows = np.arange(row_offset, row_offset + n)[:, None]
     keep = (indices != rows) & (indices >= 0)
     return (
         np.broadcast_to(rows, indices.shape)[keep],
@@ -41,12 +43,15 @@ def write_overlaps_tsv(
     names: Sequence[str],
     neighbor_indices: np.ndarray,   # (2R, k) int
     neighbor_distances: np.ndarray,  # (2R, k) float
+    row_offset: int = 0,
 ) -> int:
-    """Write the overlap table; returns the data rows written."""
+    """Write the overlap table; returns the data rows written. row_offset:
+    the embedding row of matrix row 0 (a rank writes only its own query
+    rows; names stay global)."""
     out.write(HEADER)
     q_rows, t_rows, ranks, dists = _filter_rows(
-        np.asarray(neighbor_indices), np.asarray(neighbor_distances)
-    )
+        np.asarray(neighbor_indices), np.asarray(neighbor_distances),
+        row_offset)
     # one "name\torientation" label per embedding row, built once
     labels = [f"{name}\t{o}" for name in names for o in "+-"]
     out.writelines(
@@ -59,7 +64,8 @@ def write_overlaps_tsv(
 
 def write_overlaps_path(path: str, names: Sequence[str],
                         neighbor_indices: np.ndarray,
-                        neighbor_distances: np.ndarray) -> int:
+                        neighbor_distances: np.ndarray,
+                        row_offset: int = 0) -> int:
     """Write overlaps.tsv to `path`: the header, then the rows by the
     native C writer (`io/native.py`), the same bytes as
     write_overlaps_tsv, its plain version. Returns the data rows."""
@@ -67,4 +73,4 @@ def write_overlaps_path(path: str, names: Sequence[str],
         f.write(HEADER)
     return write_overlaps_matrix_native(
         path, list(names), np.asarray(neighbor_indices),
-        np.asarray(neighbor_distances))
+        np.asarray(neighbor_distances), row_offset)

@@ -272,7 +272,7 @@ def knn_exact_ooc(
         for i in range(len(runs)):
             rows_i = slice(s + i * qt, s + min((i + 1) * qt, rows))
             idx_out[rows_i], dist_out[rows_i] = keys_to_host(runs[i],
-                                                             transfer)
+                                                             transfer, n)
             runs[i] = None
     return idx_out, dist_out
 

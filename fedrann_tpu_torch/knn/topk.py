@@ -38,13 +38,18 @@ def normalize_rows(e: torch.Tensor) -> torch.Tensor:
     return e / torch.where(norm == 0, 1.0, norm)
 
 
+def round_rows(en: torch.Tensor, precision: str) -> torch.Tensor:
+    """Normalized rows as the search scores them: float32, rounded to
+    bfloat16 once at precision="bf16" (rounding again changes nothing)."""
+    if precision == "bf16":
+        return en.to(torch.bfloat16).to(torch.float32)
+    return en
+
+
 def unit_rows(e: torch.Tensor, precision: str) -> torch.Tensor:
     """The rows the search scores: L2-normalized float32, rounded to
     bfloat16 once at precision="bf16"."""
-    en = normalize_rows(e)
-    if precision == "bf16":
-        en = en.to(torch.bfloat16).to(torch.float32)
-    return en
+    return round_rows(normalize_rows(e), precision)
 
 
 def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
@@ -100,19 +105,42 @@ def knn_exact(
     sorted by ascending distance, k = min(n_neighbors, N), self included
     (normally at rank 0). transfer="u16" snaps distances to the
     1/DIST_SCALE grid."""
-    n = embeddings.shape[0]
+    en = normalize_rows(embeddings)
+    return knn_exact_block(en, en, n_neighbors, query_tile, candidate_tile,
+                           precision, transfer)
+
+
+def knn_exact_block(
+    queries: torch.Tensor,
+    candidates: torch.Tensor,
+    n_neighbors: int,
+    query_tile: int = 512,
+    candidate_tile: int = 131072,
+    precision: str = "bf16",
+    transfer: str = "f32",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Top-k of L2-normalized query rows (m, d) over L2-normalized
+    candidate rows (n, d), tile by tile through merge_block, k =
+    min(n_neighbors, n): (indices (m, k) int32 into the candidates,
+    distances (m, k) float32), as knn_exact scores and orders them: its
+    search of one process's rows over every process's rows (the
+    multi-process runtime's host path)."""
+    n = candidates.shape[0]
     k = min(n_neighbors, n)
-    en = unit_rows(embeddings, precision)
-    qt = min(query_tile, max(8, n))
+    q_all = round_rows(queries.to(torch.float32), precision)
+    c_all = (q_all if candidates is queries
+             else round_rows(candidates.to(torch.float32), precision))
+    m = q_all.shape[0]
+    qt = min(query_tile, max(8, m))
     ct = _fit_tile(candidate_tile, n)
-    keys_out = torch.empty((n, k), dtype=torch.int64, device=en.device)
-    for q0 in range(0, n, qt):
-        q = en[q0 : q0 + qt]
+    keys_out = torch.empty((m, k), dtype=torch.int64, device=q_all.device)
+    for q0 in range(0, m, qt):
+        q = q_all[q0 : q0 + qt]
         run = None
         for c0 in range(0, n, ct):
-            run = merge_block(run, q, en[c0 : c0 + ct], c0, k)
+            run = merge_block(run, q, c_all[c0 : c0 + ct], c0, k)
         keys_out[q0 : q0 + qt] = run
-    return keys_to_host(keys_out, transfer)
+    return keys_to_host(keys_out, transfer, n)
 
 
 def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
@@ -129,14 +157,39 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
     return torch.topk(keys, min(k, keys.shape[1]), dim=1).values
 
 
-def keys_to_host(keys: torch.Tensor, transfer: str):
-    """(rows, k) int64 keys -> (indices int32, cosine distances float32)
-    numpy arrays; transfer="u16" snaps the distances to the 1/DIST_SCALE
-    grid on the device before they cross."""
+def u16_indices(transfer: str, n_rows: int) -> bool:
+    """Whether the indices into n_rows candidates cross to the host as
+    uint16: under transfer="u16" when every index fits (n_rows <= 65536),
+    the JAX package's smallest exact wire (`transfer_idx`); else int32."""
+    return transfer == "u16" and n_rows <= 65536
+
+
+def d2h_entry_bytes(transfer: str, n_rows: int) -> int:
+    """Bytes a neighbor entry (index and distance) takes to the host in
+    keys_to_host: a 2-byte distance grid step under transfer="u16", else
+    a float32; the index as u16_indices says."""
+    return ((2 if transfer == "u16" else 4)
+            + (2 if u16_indices(transfer, n_rows) else 4))
+
+
+def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int):
+    """(rows, k) int64 keys of candidates 0 .. n_rows - 1 -> (indices
+    int32, cosine distances float32) numpy arrays; transfer="u16" snaps
+    the distances to the 1/DIST_SCALE grid on the device before they
+    cross, and the indices cross as uint16 where they fit
+    (d2h_entry_bytes)."""
     scores, idx = _decode_keys(keys)
     dist = 1.0 - scores
     if transfer == "u16":
-        dist_np = dequantize_dist(quantize_dist(dist).cpu().numpy())
+        dist_np = dequantize_dist(_u16_to_host(quantize_dist(dist)))
     else:
         dist_np = dist.cpu().numpy()
+    if u16_indices(transfer, n_rows):
+        return _u16_to_host(idx), dist_np
     return idx.to(torch.int32).cpu().numpy(), dist_np
+
+
+def _u16_to_host(t: torch.Tensor) -> np.ndarray:
+    """Integers in [0, 65535] brought to the host in 2 bytes each (offset
+    into int16, so no conversion wraps), as an int32 numpy array."""
+    return (t - 32768).to(torch.int16).cpu().numpy().astype(np.int32) + 32768

@@ -68,7 +68,7 @@ from fedrann_tpu_torch.kmers.membership import (
 )
 from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
 from fedrann_tpu_torch.knn.ring import knn_exact_sharded
-from fedrann_tpu_torch.knn.topk import knn_exact
+from fedrann_tpu_torch.knn.topk import d2h_entry_bytes, knn_exact
 from fedrann_tpu_torch.logging_utils import (
     add_log_file,
     logger,
@@ -100,6 +100,9 @@ class PipelineResult:
     neighbor_distances: np.ndarray  # (2R, k) float32
     metrics: dict
     overlaps_path: Optional[str] = None
+    # the embedding row of the first of `embeddings` and of the neighbor
+    # rows (a rank of a multi-process run holds its own rows only)
+    row_offset: int = 0
 
 
 @dataclasses.dataclass
@@ -112,22 +115,13 @@ class StagedBucket:
     rows: int                 # rows per device chunk
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported to fedrann_tpu_torch "
-                               f"yet (ROADMAP Queue 1: {item})")
-
-
 def check_supported(config: PipelineConfig) -> None:
     """Raise NotImplementedError for options outside the ported slice,
     naming the ROADMAP Queue 1 item that brings them."""
-    unsupported = [
-        (config.knn_method == "ivf", "--knn-method ivf", "IVF"),
-        ((config.num_processes or 0) > 1 or bool(config.coordinator),
-         "--num-processes/--coordinator", "multi-host runtime"),
-    ]
-    for bad, flag, item in unsupported:
-        if bad:
-            raise _not_ported(flag, item)
+    if config.knn_method == "ivf":
+        raise NotImplementedError(
+            "--knn-method ivf is not ported to fedrann_tpu_torch yet "
+            "(ROADMAP Queue 1: IVF)")
 
 
 def out_of_core(config: PipelineConfig, n_reads: int) -> bool:
@@ -485,6 +479,46 @@ def compute_embeddings(n_reads: int, staged: list[StagedBucket],
     return emb
 
 
+def embed_hbm_bytes(staged: list[StagedBucket], lib_codes: torch.Tensor,
+                    proj, n_reads: int, d: int) -> float:
+    """The device-memory bytes kernel C must move over the embed stage's
+    buckets, each read or written once (chip_smoke.py's bound for it):
+    the staged int64 slots, each row's targets and hit count, the library,
+    each distinct library row a slot hits (its sign words and magnitude,
+    or its dense paired row), and the (2N, d) float32 output. The JAX
+    package counts one table row per staged slot instead, misses and
+    padding included, which reads past the card's memory rate. Runs on
+    the staged rows' device, outside the stage's time."""
+    dense = isinstance(proj, torch.Tensor)
+    table = proj if dense else proj[0]
+    row_bytes = table.shape[1] * table.element_size() + (0 if dense else 4)
+    lib_size = lib_codes.shape[0]
+    seen = torch.zeros(lib_size, dtype=torch.bool, device=lib_codes.device)
+    slots = rows = 0
+    for bucket in staged:
+        for s in range(0, bucket.staged.shape[0], bucket.rows):
+            hits, _ = read_hits_staged(bucket.staged[s : s + bucket.rows],
+                                       lib_codes)
+            hits = hits[hits < 2 * lib_size]
+            seen[torch.where(hits >= lib_size, hits - lib_size, hits)] = True
+        slots += bucket.staged.numel()
+        rows += bucket.staged.shape[0]
+    return (8.0 * slots + 20.0 * rows + 8.0 * lib_size
+            + float(seen.sum()) * row_bytes + 2.0 * n_reads * d * 4)
+
+
+def add_knn_work(metrics: StageMetrics, query_rows: int,
+                 candidate_rows: int, d: int, idx: np.ndarray,
+                 transfer: str) -> None:
+    """The k-NN's work: 2 * queries * candidates * d distance operations,
+    and the neighbor matrices brought to the host (topk.d2h_entry_bytes an
+    entry: the JAX package's `elem + idx_elem`)."""
+    metrics.add_work("knn", flops=2.0 * query_rows * candidate_rows * d,
+                     d2h_bytes=float(idx.shape[0] * idx.shape[1]
+                                     * d2h_entry_bytes(transfer,
+                                                       candidate_rows)))
+
+
 def _input_identity(config: PipelineConfig) -> dict:
     """Identity of the input (path, size, mtime): a checkpoint does not
     survive a changed input."""
@@ -714,15 +748,19 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
         with metrics.stage("embed"):
             emb = _load_embeddings_checkpoint(config, ckpt_dir, packed,
                                               library, device, host=ooc)
-            if emb is None:
+            embedded = emb is None
+            if embedded:
+                d = projection_width(proj, config.embedding_dimension)
                 emb = compute_embeddings(
-                    packed.n_reads, get_staged(), library, proj,
-                    projection_width(proj, config.embedding_dimension),
+                    packed.n_reads, get_staged(), library, proj, d,
                     packed.split_read_ids, config.window_batch, device,
                     out="host" if ooc else "device")
                 if ckpt_dir:
                     _save_embeddings_checkpoint(config, ckpt_dir, packed,
                                                 library, emb)
+        if embedded:
+            metrics.add_work("embed", hbm_bytes=embed_hbm_bytes(
+                get_staged(), library.codes, proj, packed.n_reads, d))
         staged_once.clear()  # the staged rows and the projection go
         del proj
         with metrics.stage("knn"):
@@ -764,6 +802,8 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
                     precision=config.knn_precision,
                     transfer=config.knn_transfer,
                 )
+            add_knn_work(metrics, emb.shape[0], emb.shape[0], emb.shape[1],
+                         idx, config.knn_transfer)
         with metrics.stage("output"):
             if out_dir:
                 overlaps_path = os.path.join(out_dir, "overlaps.tsv")

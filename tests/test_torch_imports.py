@@ -46,6 +46,10 @@ def test_port_imports_without_jax():
     assert len(_port_modules()) >= 20
     assert {"fedrann_tpu_torch.parallel.mesh",
             "fedrann_tpu_torch.parallel.step",
+            "fedrann_tpu_torch.parallel.dist",
+            "fedrann_tpu_torch.parallel.runtime",
+            "fedrann_tpu_torch.oracle",
+            "fedrann_tpu_torch.eval",
             "fedrann_tpu_torch.knn.ring"} <= set(_port_modules())
 
 

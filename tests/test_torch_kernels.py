@@ -987,6 +987,27 @@ def test_ooc_double_buffered_matches_sync_uploads(cuda, monkeypatch,
     assert (got[0][:, 0] == np.arange(6000)).mean() > 0.99
 
 
+def test_ooc_search_inside_the_profiler_matches(cuda):
+    """--profile with --knn-hbm-budget: the out-of-core search (each full
+    tile's merge a captured, replayed CUDA graph) inside a torch.profiler
+    session with CUDA activity gives the search's result outside it,
+    bitwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedrann_tpu_torch.knn import ooc
+
+    rng = np.random.default_rng(5)
+    e = (rng.standard_normal((4000, 16)) @ rng.standard_normal((16, 128))
+         ).astype(np.float32)
+    kw = dict(query_tile=256, block_rows=1024, device=cuda)
+    want = ooc.knn_exact_ooc(e, 10, 2_500_000, **kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]):
+        got = ooc.knn_exact_ooc(e, 10, 2_500_000, **kw)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
 @pytest.fixture
 def last_card(cuda):
     n = torch.cuda.device_count()
@@ -1075,3 +1096,38 @@ def test_sharded_knn_on_one_card_matches_knn_exact(cuda, strategy, n_hosts):
     resolved = want_d[:, 10] - want_d[:, 9] > 1e-6
     np.testing.assert_array_equal(idx[resolved], want_i[resolved, :10])
     np.testing.assert_allclose(dist, want_d[:, :10], atol=1e-5)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "allgather", "ring2d"])
+def test_multihost_search_on_two_local_cards_matches_knn_exact(cuda,
+                                                               strategy):
+    """knn_exact_sharded_multihost in one process whose local mesh is two
+    cards: each shard lies on its own card (the allgather copies them to
+    the transport's hop card before the gather) and the result is
+    knn_exact's where distances resolve the k-th neighbor."""
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded_multihost
+    from fedrann_tpu_torch.knn.topk import knn_exact
+    from fedrann_tpu_torch.parallel import dist
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+    from fedrann_tpu_torch.parallel.runtime import process_quota
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one shard on each card")
+    rng = np.random.default_rng(5)
+    n_reads = 1001
+    e = (rng.standard_normal((2 * n_reads, 16)) @ rng.standard_normal(
+        (16, 128)) + 0.25 * rng.standard_normal((2 * n_reads, 128))
+         ).astype(np.float32)
+    rows = torch.from_numpy(e).to(cuda)
+    mesh = make_mesh(devices=[torch.device("cuda", 0),
+                              torch.device("cuda", 1)])
+    transport = dist.DeviceTransport(dist.ProcessGroup(), mesh.devices)
+    idx, dist_ = knn_exact_sharded_multihost(
+        rows, n_reads, process_quota(n_reads, 1, mesh.size), 10,
+        strategy=strategy, candidate_tile=512, mesh=mesh,
+        transport=transport)
+    want_i, want_d = knn_exact(rows, 11)
+    resolved = want_d[:, 10] - want_d[:, 9] > 1e-6
+    np.testing.assert_array_equal(idx[resolved], want_i[resolved, :10])
+    np.testing.assert_allclose(dist_, want_d[:, :10], atol=1e-5)
+    assert transport.blocks == 0

@@ -74,9 +74,10 @@ def test_slice_matches_jax_pipeline(sim_input, tmp_path, k, dtype):
 
 @pytest.mark.parametrize("flag", [
     ["--knn-method", "ivf"], ["--knn-method", "ivf", "--knn-hbm-budget", "8G"],
-    ["--num-processes", "2"], ["--coordinator", "localhost:1234"],
+    ["--num-processes", "2", "--knn-method", "ivf"],
+    ["--coordinator", "localhost:1234", "--knn-method", "ivf"],
     ["--knn-sharded", "always", "--knn-method", "ivf"],
-    ["--mesh-shape", "2", "--num-processes", "2"],
+    ["--mesh-shape", "2", "--num-processes", "2", "--knn-method", "ivf"],
 ])
 def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
     _, path = sim_input

@@ -175,14 +175,45 @@ Phases; any failure exits non-zero and prints no result line:
      more cards: one card a rank, the transport must be NCCL, one hop's
      GB/s; with four or more, two cards a rank (ring2d). The card's
      compute mode is logged.
+  11. the IVF k-NN (--knn-method ivf) on every path, run after 10:
+     (a) phase 4's reads through the CLI (auto C = 256, p = 8, spill 2),
+         checked as phase 4 at truth recall >= the lower of 0.9 and the
+         JAX package's own (JAX_IVF_RECALL, tools/jax_ivf_truth_recall.py
+         on a CPU): knn_ivf called once past its valve; agreement with
+         phase 4 logged; a second run on a fresh -o writes a
+         byte-identical overlaps.tsv; with C = p = 16, agreement >= 0.999
+         with phase 4's table;
+     (b) knn_ivf on 262,144 x 512 rows of read-overlap geometry made on
+         the card from --seed (a 30 Mb genome in 500 bp Gaussian tiles,
+         131,072 reads of 15 kb +- 20%, a row per strand: each the sum of
+         its tiles plus noise), k = 50: cold and warm seconds beside
+         knn_exact's, C, p, spill, size classes, padded pair-scores,
+         recall against knn_exact on 2,048 sampled queries; self at rank
+         0, sorted rows, no index twice, every distance within 1e-5 of a
+         recompute;
+     (c) knn_ivf_ooc: (a) at --knn-hbm-budget 16M (knn_ivf_ooc called,
+         agreement with (a) logged), and on (b)'s rows at 256 MiB: recall
+         on (b)'s queries >= (b)'s - 0.01; seconds beside 8b's
+         knn_exact_ooc, blocks uploaded against exact out-of-core's,
+         dropped votes and peak device memory logged;
+     (d) knn_ivf_sharded over 4 entries of the card (and with two or
+         more cards, over every card) on 65,536 rows of (b)'s structure:
+         recall >= one-card knn_ivf's - 0.02, seconds beside it; then
+         phase 4's reads with --knn-sharded always --knn-method ivf
+         (knn_ivf_sharded called, agreement >= 0.99 with (a)'s table);
+     (e) two rank processes of the CLI with --knn-method ivf, checked as
+         phase 10 against (a)'s table (agreement >= 0.99), each rank
+         calling knn_ivf_sharded_multihost once; gloo on one card, and
+         with two or more cards also one card a rank over NCCL (with
+         four, two cards a rank too).
 8a runs twice: the second time under --profile, so the out-of-core
 search's CUDA graphs are captured inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: stage_rows from the main path's, 9b's, 9c's
-and 10's, membership_embed from the main path's, 8a's (twice), 9b's and
-10's, the other staging
+the runs of its own path: stage_rows from the main path's, 9b's, 9c's,
+10's and 11's, membership_embed from the main path's, 8a's (twice), 9b's,
+10's and 11's, the other staging
 kernels summed over the three CLI runs (and 9b's),
 membership_embed_dense over the runs of 4b, 7 and 9c, the probes from their
 entry point), errors, times, the bound (the larger of
@@ -243,6 +274,22 @@ SHARD_AGREE_SEARCH, SHARD_AGREE_CLI, SHARD_AGREE_STEP = 0.9999, 0.999, 0.999
 # HOP_REPS
 MULTI_AGREE, RANK_TIMEOUT = 0.999, 300
 HOP_ROWS, HOP_REPS = 16_384, 5
+# 11: the IVF k-NN. The JAX package's own truth recall with --knn-method
+# ivf on phase 4's reads and flags (tools/jax_ivf_truth_recall.py, on a
+# CPU); 11a's runs must reach the lower of it and MIN_RECALL
+JAX_IVF_RECALL = 0.9881122312427514
+IVF_RECALL = min(MIN_RECALL, JAX_IVF_RECALL)
+# 11b-d: read-overlap rows on the card: a genome of IVF_GENOME bases cut
+# into IVF_TILE-base tiles (d = 512 Gaussian vectors a strand), reads of
+# IVF_READ_LEN +- 20%, each row the sum of its strand's tiles plus noise;
+# IVF_ROWS rows (IVF_ROWS / 2 reads), k = IVF_K, recall on IVF_SAMPLE
+# sampled queries; 11c at OOC_BUDGET; 11d over SHARD_ENTRIES entries on
+# IVF_SHARD_ROWS rows
+IVF_GENOME, IVF_TILE, IVF_READ_LEN = 30_000_000, 500, 15_000
+IVF_ROWS, IVF_SHARD_ROWS, IVF_K, IVF_SAMPLE = 262_144, 65_536, 50, 2048
+# neighbor agreement of 11a's all-probed run with phase 4's exact table;
+# of the other IVF runs (11c-e) with 11a's
+IVF_AGREE_ALL, IVF_AGREE = 0.999, 0.99
 
 
 COUNTERS: dict = {}
@@ -1606,7 +1653,7 @@ def check_host(host: dict, load: str, what: str) -> None:
 def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
               dev, flags: list[str] = FLAGS,
               embed: str = "membership_embed", load: str = "parse",
-              resumed: bool = False):
+              resumed: bool = False, min_recall: float = MIN_RECALL):
     """Run fedrann_tpu_torch.cli.main on `fasta` with `flags` and every
     count reset just before; every kernel must launch, each staging kernel
     exactly when the plan and the source pick it for a bucket of the reads
@@ -1614,7 +1661,8 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     `resumed` (a rerun over --keep-intermediates checkpoints): no staging
     kernel and no kernel C. The load goes as `load` says (check_host).
     Check overlaps.tsv and the truth recall of pairs overlapping >=
-    min_overlap. Returns the launch counts and the stage seconds."""
+    min_overlap (at least min_recall). Returns the launch counts and the
+    stage seconds."""
     paths = set() if resumed else stage_paths(sim, flags, dev)
     from fedrann_tpu_torch.cli import main as cli_main
     from fedrann_tpu_torch.io.tsv import HEADER
@@ -1659,16 +1707,15 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
         f"{2 * n_reads * 50 - n_rows} self rows")
 
     check_truth_recall(os.path.join(out_dir, "overlaps.tsv"), sim,
-                       min_overlap, "")
+                       min_overlap, "", min_recall)
     return launches, secs
 
 
 def check_truth_recall(path: str, sim, min_overlap: int,
-                       what: str) -> float:
+                       what: str, floor: float = MIN_RECALL) -> float:
     """The truth recall of an overlaps.tsv (fedrann_tpu_torch.eval
     truth_recall over the pairs of `sim` overlapping >= min_overlap, from
-    every row of either read, both orientations); fails below
-    MIN_RECALL."""
+    every row of either read, both orientations); fails below floor."""
     from fedrann_tpu_torch.eval import truth_recall
 
     truth = sim.truth_overlaps(min_overlap=min_overlap)
@@ -1676,8 +1723,8 @@ def check_truth_recall(path: str, sim, min_overlap: int,
                           len(sim.names))
     log(f"{what}truth recall (overlap >= {min_overlap}): {recall:.4f} over "
         f"{len(truth)} pairs")
-    if not truth or recall < MIN_RECALL:
-        fail(f"{what}truth recall {recall:.4f} below {MIN_RECALL}")
+    if not truth or recall < floor:
+        fail(f"{what}truth recall {recall:.4f} below {floor}")
     return recall
 
 
@@ -2127,6 +2174,15 @@ def overlap_sets(path: str) -> dict:
     return rows
 
 
+def table_agreement(path: str, theirs: dict) -> float:
+    """Mean over the queries of `theirs` (overlap_sets of a reference
+    table) of the share of their neighbors the overlaps.tsv at `path`
+    lists too."""
+    ours = overlap_sets(path)
+    return sum(len(ours.get(key, set()) & want) / max(len(want), 1)
+               for key, want in theirs.items()) / len(theirs)
+
+
 def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
                   card: str, dev) -> dict:
     """Phase 8a: the CLI main path on phase 4's reads past
@@ -2200,10 +2256,8 @@ def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
     if "delta" not in peak or peak["delta"] >= matrix:
         fail(f"8a: embed held {peak.get('delta')} bytes of device memory "
              f"at its peak, not below the {matrix}-byte (2R, d) matrix")
-    ours, theirs = overlap_sets(os.path.join(out_dir, "overlaps.tsv")), \
-        overlap_sets(in_core_tsv)
-    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
-                for key, want in theirs.items()) / len(theirs)
+    agree = table_agreement(os.path.join(out_dir, "overlaps.tsv"),
+                            overlap_sets(in_core_tsv))
     log(f"8a out of core: {slabs} slabs x {blocks} blocks, H2D "
         f"{host['ooc_h2d_bytes']} bytes; kernel C {chunks} launches (one a "
         f"staging chunk); embed peak {peak['delta']} bytes over the "
@@ -2250,7 +2304,7 @@ def rank16_rows(n: int, d: int):
     return emb, rng
 
 
-def check_ooc_search(dev, card: str) -> None:
+def check_ooc_search(dev, card: str) -> float:
     """Phase 8b: knn_exact_ooc on OOC_ROWS x 512 rows of rank 16 plus noise
     (tests/test_knn_ooc.py's structure) made by numpy from FLAGS' --seed,
     k = 50, at OOC_BUDGET bytes: the slabs and blocks the port's plan says,
@@ -2260,7 +2314,8 @@ def check_ooc_search(dev, card: str) -> None:
     rows, sorted distances within 1e-6. Logs the search's seconds, its H2D
     bytes and rate, host_wire's seconds, one block's copy alone, one
     merge's event and device time at the plan's tile and at knn_exact's,
-    and knn_exact's seconds on the same rows."""
+    and knn_exact's seconds on the same rows. Returns the search's
+    seconds."""
     import numpy as np
     import torch
 
@@ -2361,6 +2416,7 @@ def check_ooc_search(dev, card: str) -> None:
     if agree < OOC_AGREE_SEARCH or err > 1e-6:
         fail(f"8b: agreement {agree:.5f} (want >= {OOC_AGREE_SEARCH}), "
              f"distance error {err} (want <= 1e-6)")
+    return secs
 
 
 def sharded_mesh(strategy: str, devices: list):
@@ -2481,9 +2537,7 @@ def check_sharded_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
         if moved:
             fail(f"9b {strategy}: launches (this run, phase 4) {moved}")
         path = os.path.join(out, "overlaps.tsv")
-        ours = overlap_sets(path)
-        agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
-                    for key, want in theirs.items()) / len(theirs)
+        agree = table_agreement(path, theirs)
         with open(path, "rb") as f:
             same = f.read() == in_core
         log(f"9b --knn-sharded always --knn-shard-strategy {strategy}: "
@@ -2843,7 +2897,8 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
                 paths: set, ref: dict, card: str, transport: str = "gloo",
                 env_by_rank=None, loads=("parse", "cache"),
                 resumed: bool = False, keep: bool = False,
-                hop: bool = False) -> dict:
+                hop: bool = False, min_recall: float = MIN_RECALL,
+                min_agree: float = MULTI_AGREE) -> dict:
     """One phase 10 run: two ranks of the CLI (drive_ranks), checked as
     9b: both exit 0; each rank launched K1+K2 (a fused staging kernel) and
     K3 and no staging kernel outside `paths` (none of either when
@@ -2851,8 +2906,9 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
     parse, "cache" one fxcache.npz load, "ranged" a byte-range parse) with
     no Python reader or packer and no pinning copy; both gathered the
     single-process library `ref["library"]`; the merged overlaps.tsv
-    holds truth recall >= MIN_RECALL and agreement >= MULTI_AGREE with
-    phase 4's table; the rank tables are gone (kept with `keep`);
+    holds truth recall >= min_recall and agreement >= min_agree with the
+    table of `ref["sets"]` (phase 4's); the rank tables are gone (kept
+    with `keep`);
     metrics.rank<r>.json holds the seven stages (no "stage" when
     resumed) and the transport, which the log names too. Returns the
     kernel launches of both ranks summed."""
@@ -2912,18 +2968,17 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
                 out_dir, f"overlaps.rank{rank}.tsv")) != keep:
             fail(f"{label}: overlaps.rank{rank}.tsv "
                  f"{'missing' if keep else 'not removed'}")
-    recall = check_truth_recall(tsv, sim, MIN_OVERLAP, f"{label} ")
-    ours, theirs = overlap_sets(tsv), ref["sets"]
-    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
-                for key, want in theirs.items()) / len(theirs)
-    if agree < MULTI_AGREE:
-        fail(f"{label}: agreement {agree:.5f} with phase 4 below "
-             f"{MULTI_AGREE}")
+    recall = check_truth_recall(tsv, sim, MIN_OVERLAP, f"{label} ",
+                                min_recall)
+    agree = table_agreement(tsv, ref["sets"])
+    if agree < min_agree:
+        fail(f"{label}: agreement {agree:.5f} with the reference table "
+             f"below {min_agree}")
     hops = [c["hop"] for c in counts if "hop" in c]
     log(f"{label}: 2 ranks, {wall:.2f} s wall ({len(sim.names) / wall:.1f} "
         f"reads/s), transport {transport}; " + "; ".join(rank_secs)
-        + f"; truth recall {recall:.4f}, agreement with phase 4 "
-        f"{agree:.5f}; launches {totals}"
+        + f"; truth recall {recall:.4f}, agreement with the reference "
+        f"table {agree:.5f}; launches {totals}"
         + "".join(f"; hop {h['kind']} {h['bytes']} bytes in "
                   f"{h['seconds'] * 1e3:.3f} ms = "
                   f"{h['bytes'] / h['seconds'] / 1e9:.2f} GB/s"
@@ -3015,16 +3070,374 @@ def check_ooc_profile(fasta: str, out_dir: str, in_core_tsv: str, sim,
         fail(f"8a --profile: trace {os.path.exists(trace)}, "
              f"{host['ooc_slabs']} slabs")
     busy_us, n = device_busy_us(trace)
-    ours, theirs = overlap_sets(os.path.join(out_dir, "overlaps.tsv")), \
-        overlap_sets(in_core_tsv)
-    agree = sum(len(ours.get(key, set()) & want) / max(len(want), 1)
-                for key, want in theirs.items()) / len(theirs)
+    agree = table_agreement(os.path.join(out_dir, "overlaps.tsv"),
+                            overlap_sets(in_core_tsv))
     log(f"8a --profile: {host['ooc_slabs']} slabs, {host['ooc_blocks']} "
         f"blocks; device busy {busy_us / 1e3:.3f} ms over {n} kernels and "
         f"copies; knn {secs['knn']:.3f} s; agreement {agree:.5f} [{card}]")
     if n == 0 or agree < OOC_AGREE_CLI:
         fail(f"8a --profile: {n} device events, agreement {agree:.5f}")
     return launches
+
+
+def overlap_rows(n_rows: int, dev):
+    """(n_rows, 512) float32 rows of read-overlap geometry on `dev`
+    (bench/configs.py's dmel shape), from FLAGS' --seed: a genome of
+    IVF_GENOME bases cut into IVF_TILE-base tiles, each strand's tiles
+    Gaussian d = 512 vectors; n_rows / 2 reads of IVF_READ_LEN +- 20%
+    bases at uniform starts on a random strand; a read's first row sums
+    its strand's tiles over its span (a cumulative-sum difference), its
+    second the other strand's, each plus N(0, 1) noise a coordinate."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(FLAGS[FLAGS.index("--seed") + 1]))
+    n_reads, d, n_tiles = n_rows // 2, 512, IVF_GENOME // IVF_TILE
+    cums = []
+    for _ in range(2):
+        tiles = torch.randn((n_tiles, d), generator=g, device=dev)
+        cums.append(torch.cat([tiles.new_zeros((1, d)),
+                               torch.cumsum(tiles, 0)]))
+        del tiles
+    span = (IVF_READ_LEN / IVF_TILE * (0.8 + 0.4 * torch.rand(
+        n_reads, generator=g, device=dev))).long()
+    start = (torch.rand(n_reads, generator=g, device=dev)
+             * (n_tiles - span)).long()
+    on = [c[start + span] - c[start] for c in cums]
+    strand = torch.randint(0, 2, (n_reads, 1), generator=g, device=dev) == 0
+    rows = torch.stack([torch.where(strand, on[0], on[1]),
+                        torch.where(strand, on[1], on[0])], dim=1)
+    return (rows.reshape(n_rows, d)
+            + torch.randn((n_rows, d), generator=g, device=dev))
+
+
+def sample_recall(idx, ref, sample) -> float:
+    """Mean over the sampled rows of |idx[r] & ref[r]| / k (an unset -1
+    slot matches nothing)."""
+    return float(sum(len(set(idx[r].tolist()) & set(ref[r].tolist()))
+                     for r in sample) / (len(sample) * ref.shape[1]))
+
+
+def check_ivf_rows(label: str, idx, dist, rows, precision: str = "bf16"):
+    """An IVF search's output contract on `rows` (on the card): self at
+    rank 0 (no row is zero), every row sorted, no index twice in a row,
+    and every returned distance within 1e-5 of a recompute on the rows as
+    the search scores them (topk.unit_rows). Returns the largest error."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import unit_rows
+
+    n = rows.shape[0]
+    srt = np.sort(idx, axis=1)
+    if not (idx[:, 0] == np.arange(n)).all() \
+            or not (np.diff(dist, axis=1) >= 0).all() \
+            or ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any():
+        fail(f"{label}: self not at rank 0 in "
+             f"{(idx[:, 0] != np.arange(n)).sum()} rows, unsorted rows or "
+             "an index twice in a row")
+    en = unit_rows(rows, precision)
+    err = 0.0
+    for r0 in range(0, n, 8192):
+        ix = torch.from_numpy(idx[r0 : r0 + 8192]).to(rows.device).long()
+        got = torch.from_numpy(dist[r0 : r0 + 8192]).to(rows.device)
+        true = 1.0 - torch.einsum("rd,rkd->rk", en[r0 : r0 + 8192],
+                                  en[ix.clamp_min(0)])
+        err = max(err, float((got - true).abs()[ix >= 0].max()))
+    if err > 1e-5:
+        fail(f"{label}: a distance {err:.3g} from its recompute (> 1e-5)")
+    return err
+
+
+def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
+                  phase4_tsv: str) -> tuple[dict, str]:
+    """Phase 11a: phase 4's reads through the CLI with --knn-method ivf
+    (auto C, p = 8, spill 2; --knn-sharded never where more than one card
+    is visible), checked as phase 4 (drive_cli) at truth
+    recall >= IVF_RECALL: knn_ivf called once, past its valve, with C =
+    256; agreement with phase 4's exact table logged; a second run on a
+    fresh -o must write a byte-identical overlaps.tsv; a run with C = p =
+    16 must agree >= IVF_AGREE_ALL with phase 4's table. Returns the
+    launch counts of the three runs summed and the first run's
+    overlaps.tsv path."""
+    import torch
+
+    from fedrann_tpu_torch.knn.ivf import knn_ivf
+
+    theirs = overlap_sets(phase4_tsv)
+    flags = [*FLAGS, "--knn-method", "ivf"]
+    if torch.cuda.device_count() > 1:  # auto would shard over the cards
+        flags += ["--knn-sharded", "never"]
+    totals: dict = {}
+    paths = []
+    for label, extra in (("11a", []), ("11a again", []),
+                         ("11a C = p = 16", ["--knn-ivf-clusters", "16",
+                                             "--knn-ivf-probes", "16"])):
+        out = os.path.join(out_dir, str(len(paths)))
+        launches, secs = drive_cli(fasta, out, sim, MIN_OVERLAP, card, dev,
+                                   [*flags, *extra], min_recall=IVF_RECALL)
+        host = read_counts(HOST_COUNTERS)
+        last = knn_ivf.last
+        if (host["ivf_calls"], host["ivf_fallbacks"]) != (1, 0) \
+                or last["clusters"] != (16 if extra else 256):
+            fail(f"{label}: knn_ivf calls / fallbacks "
+                 f"{host['ivf_calls']} / {host['ivf_fallbacks']} (want 1 / "
+                 f"0), C = {last['clusters']}")
+        paths.append(os.path.join(out, "overlaps.tsv"))
+        agree = table_agreement(paths[-1], theirs)
+        log(f"{label} --knn-method ivf {' '.join(extra)}: C = "
+            f"{last['clusters']}, p = {last['probes']}, spill "
+            f"{last['spill']}, {last['size_classes']} size classes, "
+            f"{last['pair_scores']:.4g} padded pair-scores; knn "
+            f"{secs['knn']:.3f} s; neighbor agreement with phase 4's exact "
+            f"table {agree:.5f} [{card}]")
+        if extra and agree < IVF_AGREE_ALL:
+            fail(f"{label}: agreement {agree:.5f} with phase 4 below "
+                 f"{IVF_AGREE_ALL}")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+    with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+        if f.read() != g.read():
+            fail("11a: two IVF runs wrote different overlaps.tsv")
+    log("11a: the two IVF runs' overlaps.tsv are byte-identical")
+    return totals, paths[0]
+
+
+def check_ivf_search(dev, card: str) -> dict:
+    """Phase 11b: knn_ivf on IVF_ROWS x 512 rows of read-overlap geometry
+    (overlap_rows), k = IVF_K: cold and warm seconds beside knn_exact's
+    on the same rows, C, p, spill, the size classes and padded
+    pair-scores, recall against knn_exact on IVF_SAMPLE sampled queries;
+    the output contract (check_ivf_rows). Returns what 11c compares
+    with: the rows, the sample, the exact neighbors and the recall."""
+    import numpy as np
+
+    from fedrann_tpu_torch.knn.ivf import knn_ivf
+    from fedrann_tpu_torch.knn.topk import knn_exact
+
+    t0 = time.perf_counter()
+    rows = overlap_rows(IVF_ROWS, dev)
+    made = time.perf_counter() - t0
+    (ref, _), exact_secs, _ = measured(
+        lambda: knn_exact(rows, IVF_K, transfer="f32"), [dev])
+    _, cold, _ = measured(lambda: knn_ivf(rows, IVF_K, transfer="f32"),
+                          [dev])
+    (idx, dist), warm, peak = measured(
+        lambda: knn_ivf(rows, IVF_K, transfer="f32"), [dev])
+    last = knn_ivf.last
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    sample = np.sort(rng.choice(IVF_ROWS, IVF_SAMPLE, replace=False))
+    recall = sample_recall(idx, ref, sample)
+    err = check_ivf_rows("11b", idx, dist, rows)
+    log(f"11b knn_ivf on {IVF_ROWS} x 512 read-overlap rows (made in "
+        f"{made:.2f} s), k = {IVF_K}: C = {last['clusters']}, p = "
+        f"{last['probes']}, spill {last['spill']}, largest cluster "
+        f"{last['max_members']} rows, {last['size_classes']} size classes "
+        f"over {last['probed_clusters']} probed clusters, "
+        f"{last['pair_scores']:.4g} padded pair-scores "
+        f"({IVF_ROWS ** 2 / last['pair_scores']:.2f}x fewer than exact); "
+        f"{warm:.3f} s warm, {cold:.3f} s cold, against knn_exact "
+        f"{exact_secs:.3f} s ({exact_secs / warm:.2f}x); peak {peak} bytes; "
+        f"recall against knn_exact on {IVF_SAMPLE} sampled queries "
+        f"{recall:.5f}; distances within {err:.3g} of a recompute [{card}]")
+    return {"rows": rows, "sample": sample, "ref": ref, "recall": recall,
+            "secs": warm}
+
+
+def check_ivf_ooc(fasta: str, out_dir: str, sim, card: str, dev,
+                  ivf_tsv: str, b: dict, exact_ooc_secs: float) -> dict:
+    """Phase 11c: knn_ivf_ooc. (a)'s CLI run at --knn-hbm-budget
+    OOC_CLI_BUDGET, checked as phase 4 at truth recall >= IVF_RECALL:
+    knn_ivf_ooc called once and knn_ivf not; agreement with 11a's table
+    logged. Then on 11b's rows at OOC_BUDGET bytes: recall on 11b's
+    sampled queries >= 11b's - 0.01; its seconds beside 8b's
+    knn_exact_ooc and 11b's knn_ivf, the blocks uploaded against exact
+    out-of-core's, the dropped-vote share and the peak device memory
+    against the budget logged. Returns the CLI run's launch counts."""
+    from fedrann_tpu_torch.knn.ooc import knn_ivf_ooc
+
+    flags = [*FLAGS, "--knn-method", "ivf", "--knn-hbm-budget",
+             OOC_CLI_BUDGET]
+    launches, secs = drive_cli(fasta, out_dir, sim, MIN_OVERLAP, card, dev,
+                               flags, min_recall=IVF_RECALL)
+    host = read_counts(HOST_COUNTERS)
+    if (host["ivf_ooc_calls"], host["ivf_calls"]) != (1, 0):
+        fail(f"11c: knn_ivf_ooc called {host['ivf_ooc_calls']} times, "
+             f"knn_ivf {host['ivf_calls']} (want 1, 0)")
+    last = knn_ivf_ooc.last
+    agree = table_agreement(os.path.join(out_dir, "overlaps.tsv"),
+                            overlap_sets(ivf_tsv))
+    log(f"11c --knn-method ivf --knn-hbm-budget {OOC_CLI_BUDGET}: "
+        f"{last['slabs']} slabs, {last['uploads']} of {last['exact_uploads']}"
+        f" candidate blocks uploaded, {last['dropped_votes']} of "
+        f"{last['votes']} probe votes dropped; knn {secs['knn']:.3f} s; "
+        f"neighbor agreement with 11a's table {agree:.5f} [{card}]")
+
+    rows = b["rows"].cpu().numpy()
+    (idx, _), ooc_secs, peak = measured(
+        lambda: knn_ivf_ooc(rows, IVF_K, OOC_BUDGET, transfer="f32",
+                            device=dev), [dev])
+    last = knn_ivf_ooc.last
+    recall = sample_recall(idx, b["ref"], b["sample"])
+    log(f"11c knn_ivf_ooc on 11b's rows at {OOC_BUDGET} bytes: "
+        f"{ooc_secs:.3f} s against 8b's knn_exact_ooc {exact_ooc_secs:.3f} s"
+        f" (other rows, same size) and 11b's in-core knn_ivf "
+        f"{b['secs']:.3f} s; C = {last['clusters']}, {last['sample_rows']} "
+        f"k-means rows, {last['slabs']} slabs x {last['q_rows']} rows, "
+        f"{last['blocks']} blocks x {last['c_rows']} rows: "
+        f"{last['uploads']} block uploads against exact out-of-core's "
+        f"{last['exact_uploads']}, "
+        f"{100.0 * last['dropped_votes'] / max(last['votes'], 1):.3f}% of "
+        f"probe votes dropped; peak {peak} bytes against the "
+        f"{OOC_BUDGET}-byte budget; recall on 11b's {IVF_SAMPLE} queries "
+        f"{recall:.5f} (11b {b['recall']:.5f}) [{card}]")
+    if recall < b["recall"] - 0.01:
+        fail(f"11c: recall {recall:.5f} below 11b's {b['recall']:.5f} - "
+             "0.01")
+    return launches
+
+
+def check_ivf_sharded(fasta: str, out_dir: str, sim, card: str, dev,
+                      ivf_tsv: str) -> dict:
+    """Phase 11d: knn_ivf_sharded over SHARD_ENTRIES entries of the card
+    (and with two or more cards, over every card) on IVF_SHARD_ROWS x 512
+    rows of 11b's structure: the output contract (check_ivf_rows), recall
+    against knn_exact >= one-card knn_ivf's - 0.02 (on IVF_SAMPLE sampled
+    queries), the agreement of the two, and each one's cold and warm
+    seconds logged. Then phase 4's reads through the CLI with
+    --knn-sharded always --knn-method ivf, checked as phase 4 at truth
+    recall >= IVF_RECALL: knn_ivf_sharded called once, knn_ivf not;
+    agreement >= IVF_AGREE with 11a's table (byte-identical or not,
+    logged). Returns the CLI run's launch counts."""
+    import numpy as np
+
+    from fedrann_tpu_torch.knn.ivf import knn_ivf, knn_ivf_sharded
+    from fedrann_tpu_torch.knn.topk import knn_exact
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    import torch
+
+    rows = overlap_rows(IVF_SHARD_ROWS, dev)
+    ref, _ = knn_exact(rows, IVF_K, transfer="f32")
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    sample = np.sort(rng.choice(IVF_SHARD_ROWS, IVF_SAMPLE, replace=False))
+
+    def run(fn, devices, label):
+        _, cold, _ = measured(fn, devices)
+        (idx, dist), warm, _ = measured(fn, devices)
+        check_ivf_rows(label, idx, dist, rows)
+        return idx, cold, warm, sample_recall(idx, ref, sample)
+
+    one, c1, w1, r1 = run(lambda: knn_ivf(rows, IVF_K, transfer="f32"),
+                          [dev], "11d knn_ivf")
+    meshes = [(f"{SHARD_ENTRIES} entries of {dev}", [dev] * SHARD_ENTRIES)]
+    if torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        meshes.append((f"{len(cards)} cards", cards))
+    for label, devices in meshes:
+        mesh = make_mesh(devices=devices)
+        sh, c4, w4, r4 = run(lambda mesh=mesh: knn_ivf_sharded(
+            rows, IVF_K, mesh=mesh, transfer="f32"), devices,
+            f"11d knn_ivf_sharded over {label}")
+        log(f"11d knn_ivf_sharded over {label}, {IVF_SHARD_ROWS} x 512 "
+            f"rows, k = {IVF_K}, C = {knn_ivf_sharded.last['clusters']}: "
+            f"{w4:.3f} s warm ({c4:.3f} s cold) against one-card knn_ivf "
+            f"{w1:.3f} s ({c1:.3f} s cold); recall against knn_exact on "
+            f"{IVF_SAMPLE} queries {r4:.5f} (one card {r1:.5f}); agreement "
+            f"of the two over every row {set_agreement(sh, one):.6f} "
+            f"[{card}]")
+        if r4 < r1 - 0.02:
+            fail(f"11d over {label}: sharded recall {r4:.5f} below one "
+                 f"card's {r1:.5f} - 0.02")
+
+    launches, secs = drive_cli(
+        fasta, out_dir, sim, MIN_OVERLAP, card, dev,
+        [*FLAGS, "--knn-sharded", "always", "--knn-method", "ivf"],
+        min_recall=IVF_RECALL)
+    host = read_counts(HOST_COUNTERS)
+    if (host["ivf_sharded_calls"], host["ivf_calls"]) != (1, 0):
+        fail(f"11d: knn_ivf_sharded called {host['ivf_sharded_calls']} "
+             f"times, knn_ivf {host['ivf_calls']} (want 1, 0)")
+    path = os.path.join(out_dir, "overlaps.tsv")
+    agree = table_agreement(path, overlap_sets(ivf_tsv))
+    with open(path, "rb") as f, open(ivf_tsv, "rb") as g:
+        same = f.read() == g.read()
+    log(f"11d --knn-sharded always --knn-method ivf: knn_ivf_sharded over "
+        f"{knn_ivf_sharded.last.get('entries')} card(s); knn "
+        f"{secs['knn']:.3f} s; agreement with 11a's table {agree:.5f}, "
+        f"{'byte-identical' if same else 'not byte-identical'} [{card}]")
+    if agree < IVF_AGREE:
+        fail(f"11d: agreement {agree:.5f} with 11a below {IVF_AGREE}")
+    return launches
+
+
+def check_ivf_ranks(fasta: str, out_dir: str, sim, card: str, dev,
+                    ivf_tsv: str, library_npz: str) -> dict:
+    """Phase 11e: phase 4's reads through the CLI with --knn-method ivf
+    in two rank processes, checked as phase 10 (check_ranks) at truth
+    recall >= IVF_RECALL and agreement >= IVF_AGREE with 11a's table:
+    gloo on one card; with two or more cards also one card a rank over
+    NCCL, and with four or more two cards a rank. Each rank must have
+    called knn_ivf_sharded_multihost once.
+    Returns the kernel launches of the runs summed."""
+    import numpy as np
+    import torch
+
+    lib = np.load(library_npz)
+    ref = {"library": (lib["codes"], lib["counts"]),
+           "sets": overlap_sets(ivf_tsv)}
+    paths = stage_paths(sim, FLAGS, dev)
+    runs = [("11e two ranks, --knn-method ivf", "gloo", "one", None)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("11e two ranks, one card a rank, --knn-method ivf",
+                     "nccl", "two",
+                     [{"CUDA_VISIBLE_DEVICES": str(r)} for r in (0, 1)]))
+    if torch.cuda.device_count() >= 4:
+        runs.append(("11e two ranks, two cards a rank, --knn-method ivf",
+                     "nccl", "four", [{"CUDA_VISIBLE_DEVICES": "0,1"},
+                                      {"CUDA_VISIBLE_DEVICES": "2,3"}]))
+    totals: dict = {}
+    for label, transport, sub, env in runs:
+        out = os.path.join(out_dir, sub)
+        for name, n in check_ranks(
+                label, fasta, out, sim, [*FLAGS, "--knn-method", "ivf"],
+                paths, ref, card, transport=transport, env_by_rank=env,
+                min_recall=IVF_RECALL, min_agree=IVF_AGREE).items():
+            totals[name] = totals.get(name, 0) + n
+        for rank in range(2):
+            with open(os.path.join(out, f"counts.rank{rank}.json")) as f:
+                calls = json.load(f)["host"]["ivf_multihost_calls"]
+            if calls != 1:
+                fail(f"{label} rank {rank}: knn_ivf_sharded_multihost "
+                     f"called {calls} times")
+    return totals
+
+
+def check_ivf(fasta: str, out_dir: str, sim, card: str, dev,
+              phase4_tsv: str, library_npz: str,
+              exact_ooc_secs: float) -> dict:
+    """Phase 11, the IVF k-NN on every path: 11a in core through the CLI,
+    11b knn_ivf at full width, 11c out of core, 11d over a mesh, 11e over
+    two processes. Returns the kernel launches of its CLI runs summed."""
+    totals: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    launches, ivf_tsv = check_ivf_cli(fasta, os.path.join(out_dir, "a"),
+                                      sim, card, dev, phase4_tsv)
+    add(launches)
+    b = check_ivf_search(dev, card)
+    add(check_ivf_ooc(fasta, os.path.join(out_dir, "c"), sim, card, dev,
+                      ivf_tsv, b, exact_ooc_secs))
+    del b
+    add(check_ivf_sharded(fasta, os.path.join(out_dir, "d"), sim, card, dev,
+                          ivf_tsv))
+    add(check_ivf_ranks(fasta, os.path.join(out_dir, "e"), sim, card, dev,
+                        ivf_tsv, library_npz))
+    return totals
 
 
 def read_overlaps(path: str):
@@ -3055,7 +3468,12 @@ def register_counters() -> None:
         select_candidates,
         stage_candidates,
     )
-    from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
+    from fedrann_tpu_torch.knn.ivf import (
+        knn_ivf,
+        knn_ivf_sharded,
+        knn_ivf_sharded_multihost,
+    )
+    from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
     from fedrann_tpu_torch.project.embed import (
         membership_embed,
@@ -3081,7 +3499,12 @@ def register_counters() -> None:
         "ooc_slabs": (knn_exact_ooc, "slabs"),
         "ooc_blocks": (knn_exact_ooc, "blocks_uploaded"),
         "ooc_h2d_bytes": (knn_exact_ooc, "h2d_bytes"),
-        "sharded_knn_calls": (knn_exact_sharded, "calls")})
+        "sharded_knn_calls": (knn_exact_sharded, "calls"),
+        "ivf_calls": (knn_ivf, "calls"),
+        "ivf_fallbacks": (knn_ivf, "exact_fallbacks"),
+        "ivf_ooc_calls": (knn_ivf_ooc, "calls"),
+        "ivf_sharded_calls": (knn_ivf_sharded, "calls"),
+        "ivf_multihost_calls": (knn_ivf_sharded_multihost, "calls")})
 
 
 def main() -> None:
@@ -3195,7 +3618,7 @@ def main() -> None:
             fasta, os.path.join(tmp, "ooc_prof"),
             os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
             dev)["membership_embed"]
-        check_ooc_search(dev, card)
+        exact_ooc_secs = check_ooc_search(dev, card)
         # 9: the sharded k-NN and step, over SHARD_ENTRIES entries of this
         # card (9a-9c) and over every card where there are more (9d)
         check_sharded_search([dev] * SHARD_ENTRIES, card,
@@ -3218,6 +3641,14 @@ def main() -> None:
                 os.path.join(tmp, "out", "overlaps.tsv"),
                 os.path.join(tmp, "ckpt", "checkpoints",
                              "library.npz")).items():
+            if name in ("membership_embed", *STAGE_KERNELS):
+                launches[name] += n
+        # 11: the IVF k-NN on every path
+        for name, n in check_ivf(
+                fasta, os.path.join(tmp, "ivf"), sim, card, dev,
+                os.path.join(tmp, "out", "overlaps.tsv"),
+                os.path.join(tmp, "ckpt", "checkpoints", "library.npz"),
+                exact_ooc_secs).items():
             if name in ("membership_embed", *STAGE_KERNELS):
                 launches[name] += n
 

@@ -1,8 +1,6 @@
 """Command-line interface: the same flags as `fedrann_tpu/cli.py`.
 
-Flags outside the ported slice (--knn-method ivf) parse as there and are
-rejected by pipeline.check_supported with NotImplementedError naming the
-ROADMAP item. The run needs a CUDA device; without one it fails, it does
+The run needs a CUDA device; without one it fails, it does
 not fall back to the CPU.
 """
 
@@ -71,7 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--knn-shard-strategy", choices=("allgather", "ring", "ring2d"),
                    default="ring", help="Candidate movement across devices.")
     p.add_argument("--knn-method", choices=("exact", "ivf"), default="exact",
-                   help="Search algorithm (ivf is not ported).")
+                   help="Search algorithm: exact (the default) or ivf "
+                   "(a coarse k-means prefilter with an exact cosine "
+                   "rescore).")
     p.add_argument("--knn-ivf-clusters", type=int, default=None)
     p.add_argument("--knn-ivf-probes", type=int, default=8)
     p.add_argument("--knn-ivf-spill", type=int, default=2)

@@ -1,10 +1,6 @@
 """Pipeline configuration: the same dataclass, defaults and validation as
 `fedrann_tpu/config.py`, so a run of either package is described by the
 same fields.
-
-The IVF fields select a path this port does not have yet; they are kept
-so the CLI parses every flag, and the pipeline rejects --knn-method ivf
-with NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,7 +43,7 @@ class PipelineConfig:
     knn_precision: str = "bf16"           # "bf16" (fp32 accumulation) | "fp32"
     knn_shard_strategy: str = "ring"      # multi-device only
     knn_topk_method: str = "exact"        # "approx" runs exact selection here
-    knn_method: str = "exact"             # "ivf" is not ported
+    knn_method: str = "exact"             # "exact" | "ivf" (knn/ivf.py)
     knn_ivf_clusters: Optional[int] = None
     knn_ivf_probes: int = 8
     knn_ivf_spill: int = 2

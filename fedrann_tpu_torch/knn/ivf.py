@@ -1,0 +1,542 @@
+"""IVF k-NN: a spherical k-means prefilter and an exact rescore (the port of
+`fedrann_tpu/knn/ivf.py`).
+
+1. k-means over the L2-normalized rows: each row goes to the centroid of
+   its largest score (both operands rounded to bfloat16, products summed
+   in float32, at either precision), and each centroid becomes the
+   normalized sum of its rows. The sum is order-fixed: rows are grouped by
+   cluster into a padded member table and summed along it, so two runs
+   give the same centroids bit for bit (an index_add_ on a card adds in
+   the order its atomics land).
+2. Each row is indexed in its `spill` nearest clusters, and each query
+   probes its own `p` nearest; ties go to the lowest cluster id, as
+   `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
+3. Rescore: the clusters fall into power-of-two (queries, members) size
+   classes; each class runs as batched products of its gathered query and
+   member rows, in chunks capped by CHUNK_BYTES, each tile's top-k taken
+   on (score, index) int64 keys (topk._order_keys), so equal scores go to
+   the lowest row index as in `knn_exact`. The partial lists land in a
+   (query, probe slot) buffer, which is merged 64 Ki rows at a time: a row
+   indexed in two probed clusters is scored twice, by products of
+   different shapes whose float32 sums may differ in the last bit, so the
+   merge keeps the higher-scoring copy of each index before its top-k.
+
+Every returned distance is exact; recall is lost only to clusters a
+query does not probe. Below a few thousand rows (or 4 rows a cluster) the
+search is `knn_exact`'s.
+
+`knn_ivf_sharded` spreads the rescore over a mesh by query rows: every
+entry holds all rows (the JAX package's all-gather) and the tables, and
+searches the queries of its own row block, so no partial result moves
+between entries and the result is `knn_ivf`'s at the same cluster count.
+The k-means and the tables are made once, on the mesh's first device
+(`knn_ivf_sharded_multihost`: rank 0's centroids, each rank's own rows'
+assignments gathered), so every entry holds the same ones.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fedrann_tpu_torch.knn.topk import (
+    EMPTY_KEY,
+    _order_keys,
+    keys_to_host,
+    knn_exact,
+    unit_rows,
+)
+from fedrann_tpu_torch.logging_utils import logger
+
+# device bytes one batched step (an assignment chunk, a size class's
+# rescore chunk, a segment-sum chunk) holds at once
+CHUNK_BYTES = 1 << 30
+# bytes a (query, member) pair of a rescore chunk holds: its float32
+# score, its int64 key and torch.topk's copy of the key
+RESCORE_PAIR_BYTES = 20
+# rows per step of the final merge (JAX's 64k-row lax.map)
+MERGE_ROWS = 1 << 16
+# the low word of every key of a cluster id or row index (_order_keys)
+LOW_WORD = 0xFFFFFFFF
+
+
+def auto_clusters(n_rows: int) -> int:
+    """Default cluster count: the power of two nearest 2*sqrt(N), clamped
+    to [8, 65536] (~sqrt(N)/2 rows a cluster)."""
+    target = 2.0 * float(np.sqrt(max(n_rows, 1)))
+    c = 1 << int(round(np.log2(max(target, 8.0))))
+    return int(min(max(c, 8), 65536))
+
+
+def too_small(n: int, c: int, n_clusters) -> bool:
+    """The JAX package's small-N valve: exact search below 4 rows a
+    cluster, or at <= 4096 rows with the default cluster count."""
+    return n < 4 * c or (n_clusters is None and n <= 4096)
+
+
+def _size_class(x: int, floor: int = 128) -> int:
+    """Pad a ragged extent to its power-of-two size class (floor 128)."""
+    return max(floor, 1 << int(np.ceil(np.log2(max(int(x), 1)))))
+
+
+def _ceil128(x: int) -> int:
+    return int(-(-int(x) // 128) * 128)
+
+
+def _top_clusters(en: torch.Tensor, cent: torch.Tensor, t: int,
+                  bf16: bool = True,
+                  chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """(N, t) int32 ids of each row's t best centroids by score, the
+    lowest id first among equal scores, chunk_bytes of scores and keys at
+    a time. With bf16 both operands are rounded to bfloat16 and the
+    products summed in float32 (JAX's bf16 dot_general with
+    preferred_element_type=f32), else float32 products."""
+    c = cent.shape[0]
+    cent_mm = cent.to(torch.bfloat16).float() if bf16 else cent.float()
+    out = torch.empty((en.shape[0], t), dtype=torch.int32, device=en.device)
+    step = max(1, chunk_bytes // (c * 24))
+    for r0 in range(0, en.shape[0], step):
+        rows = en[r0 : r0 + step]
+        rows = rows.to(torch.bfloat16).float() if bf16 else rows.float()
+        keys = _order_keys(rows @ cent_mm.T, 0)
+        top = torch.topk(keys, t, dim=1).values
+        out[r0 : r0 + step] = (LOW_WORD - (top & LOW_WORD)).to(torch.int32)
+    return out
+
+
+def _member_table(a: torch.Tensor, counts: torch.Tensor, n_clusters: int,
+                  m: int, spill: int = 1) -> torch.Tensor:
+    """(C, m) int32 table of row ids per cluster in row order, padded with
+    the sentinel N. With spill > 1, `a` is the flattened (N*spill,)
+    row-major assignment list and each row id appears in `spill`
+    clusters."""
+    n_flat = a.shape[0]
+    n = n_flat // spill
+    order = torch.sort(a, stable=True).indices
+    sorted_a = a[order].long()
+    offsets = torch.cumsum(counts.long(), 0) - counts.long()
+    pos = torch.arange(n_flat, device=a.device) - offsets[sorted_a]
+    member = torch.full((n_clusters, m), n, dtype=torch.int32,
+                        device=a.device)
+    member[sorted_a, pos] = (order // spill).to(torch.int32)
+    return member
+
+
+def _probe_tables(probes: torch.Tensor, qcounts: torch.Tensor,
+                  n_clusters: int, qm: int):
+    """The (N, p) probe lists inverted into per-cluster tables: qtab[c]
+    the query rows probing c in row order (padded with the sentinel N),
+    stab[c] the probe slot each used for c."""
+    n, p = probes.shape
+    dev = probes.device
+    flat_c = probes.reshape(-1)
+    order = torch.sort(flat_c, stable=True).indices
+    sorted_c = flat_c[order].long()
+    offsets = torch.cumsum(qcounts.long(), 0) - qcounts.long()
+    pos = torch.arange(n * p, device=dev) - offsets[sorted_c]
+    qtab = torch.full((n_clusters, qm), n, dtype=torch.int32, device=dev)
+    stab = torch.zeros((n_clusters, qm), dtype=torch.int32, device=dev)
+    qtab[sorted_c, pos] = (order // p).to(torch.int32)
+    stab[sorted_c, pos] = (order % p).to(torch.int32)
+    return qtab, stab
+
+
+def _segment_sum(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
+                 chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """(C, d) float32 sums of the rows per cluster a, in an order fixed
+    by the data: the rows sorted stably by cluster, each cluster's rows
+    gathered in row order and zero-padded to its size class (a zero row
+    appended to `rows`), then summed along that axis, chunk_bytes of
+    gathered rows at a time."""
+    n, d = rows.shape
+    counts = torch.bincount(a, minlength=n_clusters)
+    counts_h = counts.cpu().numpy()
+    order = torch.sort(a, stable=True).indices
+    offsets = torch.cumsum(counts, 0) - counts
+    rows_pad = torch.cat([rows, rows.new_zeros((1, d))])
+    sums = torch.zeros((n_clusters, d), dtype=torch.float32,
+                       device=rows.device)
+    for m, clusters in _groups(counts_h, int(counts_h.max())):
+        j = torch.arange(m, device=rows.device)
+        step = max(1, chunk_bytes // (m * d * 4))
+        for g0 in range(0, len(clusters), step):
+            sel = torch.as_tensor(clusters[g0 : g0 + step],
+                                  device=rows.device)
+            pos = (offsets[sel, None] + j).clamp_max(n - 1)
+            member = torch.where(j < counts[sel, None], order[pos], n)
+            sums[sel] = rows_pad[member].float().sum(dim=1)
+    return sums
+
+
+def _groups(sizes: np.ndarray, cap: int) -> list:
+    """[(size class, [clusters])] over the clusters of non-zero size, the
+    class capped at `cap`, in ascending class order."""
+    out: dict[int, list[int]] = {}
+    for c in np.flatnonzero(sizes):
+        out.setdefault(min(_size_class(sizes[c]), cap), []).append(int(c))
+    return sorted(out.items())
+
+
+def _kmeans(en: torch.Tensor, n_clusters: int, iters: int,
+            device: torch.device | None = None, chunk_rows: int = 0,
+            bf16: bool = True,
+            chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """Spherical k-means on normalized rows (N, d), from the evenly strided
+    rows 0, N // C, 2 (N // C), ...; empty clusters keep their centroid.
+    Each pass assigns (_top_clusters) and sums (_segment_sum) chunk_rows
+    rows at a time (all at once when 0), the chunks copied to `device`
+    (en's own by default: rows in host memory stream through the device),
+    each step holding chunk_bytes of temporaries.
+    Returns the (C, d) float32 centroids on `device`; the rows' assignment
+    is _top_clusters(en, centroids, 1)."""
+    dev = device or en.device
+    n, d = en.shape
+    chunk = chunk_rows or n
+    init = torch.arange(n_clusters) * (n // max(n_clusters, 1))
+    cent = en[init.to(en.device)].to(dev).float()
+    for _ in range(iters):
+        sums = torch.zeros((n_clusters, d), dtype=torch.float32, device=dev)
+        for r0 in range(0, n, chunk):
+            rows = en[r0 : r0 + chunk].to(dev)
+            a = _top_clusters(rows, cent, 1, bf16, chunk_bytes)[:, 0]
+            sums += _segment_sum(rows, a, n_clusters, chunk_bytes)
+        norm = torch.linalg.vector_norm(sums, dim=1, keepdim=True)
+        cent = torch.where(norm > 0, sums / torch.where(norm == 0, 1.0, norm),
+                           cent)
+    return cent
+
+
+def _merge_buffers(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
+    """(rows, p, kk) int64 keys of each (query, probe slot) -> the (rows,
+    min(k, p*kk)) best keys of each row, MERGE_ROWS rows at a time; with
+    spill > 1 each index keeps only its highest-scoring copy."""
+    rows, p, kk_g = buf.shape
+    w = p * kk_g
+    kk = min(k, w)
+    out = torch.empty((rows, kk), dtype=torch.int64, device=buf.device)
+    for r0 in range(0, rows, MERGE_ROWS):
+        keys = buf[r0 : r0 + MERGE_ROWS].reshape(-1, w)
+        if spill > 1:
+            keys = _dedup(keys)
+        out[r0 : r0 + MERGE_ROWS] = torch.topk(keys, kk, dim=1).values
+    return out
+
+
+def _dedup(keys: torch.Tensor) -> torch.Tensor:
+    """keys (rows, w) with every key but the highest of each row index
+    replaced by EMPTY_KEY (a spilled row scored from two clusters)."""
+    keys = torch.sort(keys, dim=1, descending=True).values
+    low = keys & LOW_WORD  # the complemented index; EMPTY_KEY's is 0
+    order = torch.sort(low, dim=1, stable=True).indices
+    low = low.gather(1, order)
+    dup_sorted = torch.zeros_like(low, dtype=torch.bool)
+    dup_sorted[:, 1:] = low[:, 1:] == low[:, :-1]
+    dup = torch.empty_like(dup_sorted).scatter_(1, order, dup_sorted)
+    return keys.masked_fill_(dup, EMPTY_KEY)
+
+
+def _rescore(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
+             counts_h: np.ndarray, queries: torch.Tensor,
+             probes: torch.Tensor, k: int, spill: int,
+             stats: dict) -> torch.Tensor:
+    """The (nq, min(k, ...)) int64 keys of query rows `queries` (nq, d)
+    over the members of their probed clusters `probes` (nq, p): candidate
+    rows en_pad[member[c]] (the table's sentinel rows and rows >= n_real
+    never win), exact float32 scores. Adds the size classes, probed
+    clusters and padded pair-scores to `stats`."""
+    n_clusters, m_all = member.shape
+    nq, p = probes.shape
+    dev = en_pad.device
+    qcounts = torch.bincount(probes.reshape(-1), minlength=n_clusters)
+    qcounts_h = qcounts.cpu().numpy()
+    qtab, stab = _probe_tables(probes, qcounts, n_clusters,
+                               _ceil128(qcounts_h.max()))
+    q_pad = torch.cat([queries, en_pad[-1:]]).float()  # + the zero row
+    kk_g = min(k, m_all)
+    buf = torch.full((nq + 1, p, kk_g), EMPTY_KEY, dtype=torch.int64,
+                     device=dev)
+    groups: dict[tuple[int, int], list[int]] = {}
+    for c in np.flatnonzero(qcounts_h):
+        key = (min(_size_class(qcounts_h[c]), qtab.shape[1]),
+               min(_size_class(counts_h[c]), m_all))
+        groups.setdefault(key, []).append(int(c))
+    d = en_pad.shape[1]
+    for (qcls, mcls), clusters in sorted(groups.items()):
+        kk = min(k, mcls)
+        per = (qcls + mcls) * d * 4 + qcls * mcls * RESCORE_PAIR_BYTES
+        step = max(1, CHUNK_BYTES // per)
+        for g0 in range(0, len(clusters), step):
+            sel = torch.as_tensor(clusters[g0 : g0 + step], device=dev)
+            mem = member[sel, :mcls].long()
+            qt = qtab[sel, :qcls].long()
+            scores = torch.bmm(q_pad[qt], en_pad[mem].float().transpose(1, 2))
+            keys = _order_keys(scores, mem[:, None, :])
+            del scores
+            keys.masked_fill_((mem >= n_real)[:, None, :], EMPTY_KEY)
+            buf[qt, stab[sel, :qcls].long(), :kk] = torch.topk(
+                keys, kk, dim=2).values
+            del keys
+        stats["pair_scores"] = (stats.get("pair_scores", 0)
+                                + len(clusters) * qcls * mcls)
+    stats["size_classes"] = stats.get("size_classes", 0) + len(groups)
+    stats["probed_clusters"] = (stats.get("probed_clusters", 0)
+                                + sum(len(v) for v in groups.values()))
+    return _merge_buffers(buf[:nq], k, spill)
+
+
+def _unit_padded(emb: torch.Tensor, precision: str) -> torch.Tensor:
+    """(N + 1, d) float32: the rows as the search scores them
+    (topk.unit_rows), then one zero row, the member tables' sentinel."""
+    en = unit_rows(emb, precision)
+    return torch.cat([en, en.new_zeros((1, en.shape[1]))])
+
+
+def _tables(en: torch.Tensor, c: int, kmeans_iters: int, spill: int,
+            p: int):
+    """(centroids, top (N, max(spill, p)) cluster ids) of rows en."""
+    cent = _kmeans(en, c, kmeans_iters)
+    return cent, _top_clusters(en, cent, max(spill, p))
+
+
+def _members(a: torch.Tensor, c: int, spill: int):
+    """(member table, counts on the host) of the flattened (N*spill,)
+    assignments a; the table's width is the largest count rounded up to
+    a multiple of 128."""
+    counts = torch.bincount(a, minlength=c)
+    counts_h = counts.cpu().numpy()
+    return (_member_table(a, counts, c, _ceil128(counts_h.max()), spill),
+            counts_h)
+
+
+def _log_search(name: str, n: int, c: int, p: int, spill: int,
+                counts_h: np.ndarray, stats: dict) -> None:
+    stats.update(rows=n, clusters=c, probes=p, spill=spill,
+                 max_members=int(counts_h.max()))
+    logger.info(
+        "%s: %d rows, C=%d clusters (mean %.0f, max %d rows, spill %d), "
+        "p=%d probes; rescore: %d size classes over %d probed clusters, "
+        "%.2e padded pair-scores (%.1fx fewer than exact)", name, n, c,
+        spill * n / c, stats["max_members"], spill, p,
+        stats["size_classes"], stats["probed_clusters"],
+        stats["pair_scores"], float(n) * n / max(stats["pair_scores"], 1))
+
+
+def knn_ivf(
+    embeddings,
+    n_neighbors: int,
+    n_clusters: int | None = None,
+    n_probes: int = 8,
+    kmeans_iters: int = 3,
+    precision: str = "bf16",
+    transfer: str = "f32",
+    spill: int = 2,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sub-quadratic all-vs-all cosine top-k on the device the (N, d)
+    embeddings lie on: knn_exact's output contract ((indices (N, k) int32,
+    distances (N, k) float32) sorted ascending, self normally at rank 0),
+    with neighbors outside the probed clusters missed and -1 / inf in a
+    slot that the probed clusters cannot fill. Counts its calls in
+    `.calls`, those that fell back to knn_exact in `.exact_fallbacks`; the
+    last search's C, p, spill, size classes and padded pair-scores are in
+    `.last`."""
+    emb = torch.as_tensor(embeddings)
+    n = emb.shape[0]
+    c = n_clusters or auto_clusters(n)
+    knn_ivf.calls += 1
+    if too_small(n, c, n_clusters):
+        knn_ivf.exact_fallbacks += 1
+        logger.info("knn_ivf: N=%d too small for C=%d clusters; exact path",
+                    n, c)
+        return knn_exact(emb, n_neighbors, precision=precision,
+                         transfer=transfer)
+    k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
+    en_pad = _unit_padded(emb, precision)
+    _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
+    member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
+    stats: dict = {}
+    keys = _rescore(en_pad, n, member, counts_h, en_pad[:n],
+                    top[:, :p].contiguous(), k, spill, stats)
+    _log_search("knn_ivf", n, c, p, spill, counts_h, stats)
+    knn_ivf.last = stats
+    return keys_to_host(keys, transfer, n)
+
+
+knn_ivf.calls = 0
+knn_ivf.exact_fallbacks = 0
+knn_ivf.last = {}
+
+
+def _search_blocks(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
+                   counts_h: np.ndarray, probes: torch.Tensor, first: int,
+                   n_rows: int, mesh, k: int, spill: int,
+                   stats: dict) -> list[torch.Tensor]:
+    """The keys of query rows first .. first + n_rows - 1 cut into one
+    block per entry of `mesh` (b = ceil(n_rows / entries) rows each), each
+    searched on its entry's device against every row: en_pad and the
+    member table copied once to each distinct device (mesh.replicate).
+    probes: the (n_rows, p) probe lists of those rows."""
+    from fedrann_tpu_torch.parallel.mesh import replicate
+
+    b = -(-n_rows // mesh.size)
+    out = []
+    for j, (rows, table) in enumerate(zip(replicate(en_pad, mesh),
+                                          replicate(member, mesh))):
+        lo, hi = j * b, min(n_rows, (j + 1) * b)
+        if hi > lo:
+            out.append(_rescore(rows, n_real, table, counts_h,
+                                rows[first + lo : first + hi],
+                                probes[lo:hi].to(rows.device), k, spill,
+                                stats))
+    return out
+
+
+def knn_ivf_sharded(
+    embeddings,
+    n_neighbors: int,
+    mesh=None,
+    n_clusters: int | None = None,
+    n_probes: int = 8,
+    kmeans_iters: int = 3,
+    precision: str = "bf16",
+    transfer: str = "f32",
+    spill: int = 2,
+) -> tuple[np.ndarray, np.ndarray]:
+    """knn_ivf with the rescore spread over the mesh's entries (every
+    visible CUDA card when None), each searching the queries of its row
+    block; the cluster count is rounded up to a multiple of the entries
+    (the JAX package's). The k-means and the tables are made on the
+    mesh's first device. Below the small-N valve, knn_exact_sharded.
+    Counts `.calls` and `.exact_fallbacks`; `.last` as knn_ivf's."""
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = mesh if mesh is not None else make_mesh()
+    emb = torch.as_tensor(embeddings)
+    n = emb.shape[0]
+    c = n_clusters or auto_clusters(n)
+    c = -(-c // mesh.size) * mesh.size
+    knn_ivf_sharded.calls += 1
+    if too_small(n, c, n_clusters):
+        knn_ivf_sharded.exact_fallbacks += 1
+        logger.info("knn_ivf_sharded: N=%d too small for C=%d clusters; "
+                    "sharded exact path", n, c)
+        return knn_exact_sharded(emb, n_neighbors, mesh=mesh,
+                                 precision=precision, transfer=transfer)
+    k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
+    en_pad = _unit_padded(emb.to(mesh.devices[0]), precision)
+    _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
+    member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
+    stats: dict = {"entries": mesh.size}
+    keys = _search_blocks(en_pad, n, member, counts_h, top[:, :p], 0, n,
+                          mesh, k, spill, stats)
+    _log_search("knn_ivf_sharded", n, c, p, spill, counts_h, stats)
+    knn_ivf_sharded.last = stats
+    parts = [keys_to_host(kk, transfer, n) for kk in keys]
+    return (np.concatenate([q[0] for q in parts]),
+            np.concatenate([q[1] for q in parts]))
+
+
+knn_ivf_sharded.calls = 0
+knn_ivf_sharded.exact_fallbacks = 0
+knn_ivf_sharded.last = {}
+
+
+def _gather_rows(transport, rows: torch.Tensor, precision: str):
+    """Every rank's (b, d) float32 rows, rank by rank, on the transport's
+    hop device: as bfloat16 bits (half the bytes; the values are already
+    bf16-rounded) at precision="bf16"."""
+    hop = transport.hop_device
+    if precision != "bf16":
+        return torch.cat(transport.all_gather(rows.to(hop)))
+    wire = rows.to(hop).to(torch.bfloat16).view(torch.uint8)
+    return torch.cat(transport.all_gather(wire)).view(
+        torch.bfloat16).to(torch.float32)
+
+
+def knn_ivf_sharded_multihost(
+    emb_local,
+    n_reads_global: int,
+    per_process_reads: int,
+    n_neighbors: int,
+    n_clusters: int | None = None,
+    n_probes: int = 8,
+    kmeans_iters: int = 3,
+    precision: str = "bf16",
+    transfer: str = "f32",
+    spill: int = 2,
+    *,
+    mesh,
+    transport,
+) -> tuple[np.ndarray, np.ndarray]:
+    """knn_ivf over every process's rows (the port of the JAX package's
+    `knn_ivf_sharded_multihost`), the block layout of
+    ring.knn_exact_sharded_multihost: emb_local is this process's (2 *
+    local reads, d) rows, global rows [2 * rank * per, ...), zero-padded
+    to 2 * per rows (divisible over the local mesh `mesh`). Every rank
+    gathers every rank's rows once over `transport` (bfloat16 at
+    precision="bf16"); rank 0's k-means centroids go to every rank; each
+    rank assigns its own rows and the assignments are gathered, so every
+    rank builds the same member table; each local entry searches the
+    queries of its row block. The cluster count rounds up to a multiple of
+    all entries. Below the small-N valve,
+    ring.knn_exact_sharded_multihost. Returns (indices int32, distances
+    float32) of this process's real rows in global row numbering. Counts
+    `.calls` and `.exact_fallbacks`; `.last` as knn_ivf's."""
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded_multihost
+
+    n_local = mesh.size
+    block_rows = 2 * per_process_reads
+    if block_rows % n_local:
+        raise ValueError(
+            f"per-process block of {block_rows} rows does not divide over "
+            f"{n_local} local devices; compute the read range with "
+            "host_read_range(..., row_multiple=local device count)")
+    rank, n_proc = transport.group.rank, transport.group.size
+    n_real = 2 * n_reads_global
+    c = n_clusters or auto_clusters(n_real)
+    c = -(-c // (n_proc * n_local)) * (n_proc * n_local)
+    knn_ivf_sharded_multihost.calls += 1
+    if too_small(n_real, c, n_clusters):
+        knn_ivf_sharded_multihost.exact_fallbacks += 1
+        logger.info("knn_ivf_sharded_multihost: N=%d too small for C=%d "
+                    "clusters; exact multihost path", n_real, c)
+        return knn_exact_sharded_multihost(
+            emb_local, n_reads_global, per_process_reads, n_neighbors,
+            precision=precision, transfer=transfer, mesh=mesh,
+            transport=transport)
+    k, p = min(n_neighbors, n_real), min(n_probes, c)
+    spill = max(1, min(spill, c))
+    hop = transport.hop_device
+    emb = torch.as_tensor(emb_local)
+    n_mine, d = emb.shape
+    local = torch.zeros((block_rows, d), dtype=torch.float32, device=hop)
+    local[:n_mine] = emb.to(hop)
+    rows = _gather_rows(transport, unit_rows(local, precision), precision)
+    en_pad = torch.cat([rows[:n_real], rows.new_zeros((1, d))])
+    del rows
+    cent = (_kmeans(en_pad[:n_real], c, kmeans_iters) if rank == 0
+            else torch.zeros((c, d), dtype=torch.float32, device=hop))
+    cent = transport.all_gather(cent)[0]
+    first = rank * block_rows
+    top = _top_clusters(en_pad[first : first + n_mine], cent,
+                        max(spill, p))
+    mine = torch.zeros((block_rows, spill), dtype=torch.int32, device=hop)
+    mine[:n_mine] = top[:, :spill]
+    a = torch.cat(transport.all_gather(mine))[:n_real].reshape(-1)
+    member, counts_h = _members(a, c, spill)
+    stats: dict = {"entries": n_proc * n_local}
+    keys = _search_blocks(en_pad, n_real, member, counts_h, top[:, :p],
+                          first, n_mine, mesh, k, spill, stats)
+    _log_search(f"[rank {rank}] knn_ivf_sharded_multihost", n_real, c, p,
+                spill, counts_h, stats)
+    knn_ivf_sharded_multihost.last = stats
+    if not keys:
+        return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
+    parts = [keys_to_host(kk, transfer, n_real) for kk in keys]
+    return (np.concatenate([q[0] for q in parts]),
+            np.concatenate([q[1] for q in parts]))
+
+
+knn_ivf_sharded_multihost.calls = 0
+knn_ivf_sharded_multihost.exact_fallbacks = 0
+knn_ivf_sharded_multihost.last = {}

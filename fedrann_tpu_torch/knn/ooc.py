@@ -21,16 +21,18 @@ import numpy as np
 import torch
 
 from fedrann_tpu_torch.device import get_device
-from fedrann_tpu_torch.knn.topk import PAIR_BYTES, keys_to_host, merge_block
+from fedrann_tpu_torch.knn.topk import (
+    EMPTY_KEY,
+    PAIR_BYTES,
+    keys_to_host,
+    merge_block,
+)
 from fedrann_tpu_torch.logging_utils import logger
 
 # candidate rows per block: 256k rows x 512 dims x 2 B = 256 MB per upload
 DEFAULT_BLOCK_ROWS = 1 << 18
 # rows normalized per host pass, so no (N, d) float32 temporary exists
 WIRE_CHUNK = 1 << 20
-# a carry's empty slot: below every key topk._order_keys makes (the high
-# word of a score that is not NaN is above -2^31)
-EMPTY_KEY = -(1 << 63)
 
 
 def host_wire(embeddings, precision: str = "bf16") -> torch.Tensor:
@@ -89,24 +91,31 @@ def plan_ooc(n: int, d: int, k: int, hbm_budget: int,
     return max(query_tile, int(q) // query_tile * query_tile), c, ct
 
 
-def _blocks_sync(host: torch.Tensor, c_rows: int, device: torch.device):
+def _blocks_sync(host: torch.Tensor, c_rows: int, device: torch.device,
+                 blocks, counter):
     """Yield (first row, block on `device`) for each c_rows-row block of
-    host, each uploaded when its turn comes (on the CPU, views of host)."""
-    for lo in range(0, host.shape[0], c_rows):
-        block = host[lo : lo + c_rows]
-        _count_upload(block)
-        yield lo, block.to(device)
+    host (the block numbers `blocks`, in order; every block when None),
+    each uploaded when its turn comes (on the CPU, views of host); the
+    uploads count in `counter` (the search function)."""
+    for b in (range(-(-host.shape[0] // c_rows)) if blocks is None
+              else blocks):
+        block = host[b * c_rows : (b + 1) * c_rows]
+        _count_upload(block, counter)
+        yield b * c_rows, block.to(device)
 
 
-def _blocks_streamed(host: torch.Tensor, c_rows: int, device: torch.device):
-    """_blocks_sync on a CUDA device with the upload of block b + 1 under
-    the search of block b: two pinned staging buffers and two device
-    buffers, the copies on a side stream. The current (compute) stream
-    waits for each block's copy; a device buffer is refilled only after
-    the compute stream has passed the block that read it, and a pinned
-    buffer only after its last copy has finished."""
+def _blocks_streamed(host: torch.Tensor, c_rows: int, device: torch.device,
+                     blocks, counter):
+    """_blocks_sync on a CUDA device with the upload of the next block
+    under the search of the current one: two pinned staging buffers and
+    two device buffers, used in turn by a block's position in the list,
+    the copies on a side stream. The current (compute) stream waits for
+    each block's copy; a device buffer is refilled only after the compute
+    stream has passed the block that read it, and a pinned buffer only
+    after its last copy has finished."""
     n, d = host.shape
     rows = min(c_rows, n)
+    blocks = list(range(-(-n // c_rows)) if blocks is None else blocks)
     compute = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     pinned = [torch.empty((rows, d), dtype=host.dtype, pin_memory=True)
@@ -117,24 +126,24 @@ def _blocks_streamed(host: torch.Tensor, c_rows: int, device: torch.device):
     read = [torch.cuda.Event(), torch.cuda.Event()]
     side.wait_stream(compute)  # the buffers' memory may be freshly reused
 
-    def upload(b: int) -> None:
-        s, lo = b % 2, b * c_rows
+    def upload(i: int) -> None:
+        s, lo = i % 2, blocks[i] * c_rows
         nv = min(c_rows, n - lo)
         copied[s].synchronize()
         pinned[s][:nv].copy_(host[lo : lo + nv])
-        _count_upload(pinned[s][:nv])
+        _count_upload(pinned[s][:nv], counter)
         with torch.cuda.stream(side):
             side.wait_event(read[s])
             bufs[s][:nv].copy_(pinned[s][:nv], non_blocking=True)
             copied[s].record(side)
 
-    n_blocks = -(-n // c_rows)
     try:
-        upload(0)
-        for b in range(n_blocks):
-            if b + 1 < n_blocks:
-                upload(b + 1)
-            s, lo = b % 2, b * c_rows
+        if blocks:
+            upload(0)
+        for i, b in enumerate(blocks):
+            if i + 1 < len(blocks):
+                upload(i + 1)
+            s, lo = i % 2, b * c_rows
             compute.wait_event(copied[s])
             yield lo, bufs[s][: min(c_rows, n - lo)]
             read[s].record(compute)
@@ -145,7 +154,8 @@ def _blocks_streamed(host: torch.Tensor, c_rows: int, device: torch.device):
 class _TileMerge:
     """merge_block over the search's tiles: load(c) takes a candidate tile
     (upcast to float32 once), then each call merges a query tile into its
-    carry and returns the new carry."""
+    carry and returns the new carry; `first` is the tile's first row index
+    or a tensor of its rows' own indices (merge_block)."""
 
     def __init__(self, k: int):
         self.k = k
@@ -155,7 +165,7 @@ class _TileMerge:
         self.c = c.float()
 
     def __call__(self, run: torch.Tensor, q: torch.Tensor,
-                 first: int) -> torch.Tensor:
+                 first) -> torch.Tensor:
         return merge_block(run, q.float(), self.c, first, self.k)
 
 
@@ -163,9 +173,10 @@ class _GraphMerge(_TileMerge):
     """_TileMerge with the full (query_tile, c_tile) merge captured once
     into a CUDA graph and replayed: one launch a merge in place of its ~45
     operator calls, whose host time the merge's device work does not hide
-    at the tiles a budget allows (chip_smoke.py 8b logs both). The tiles
-    and the carry are copied into the graph's inputs (the tiles' copies are
-    their float32 upcasts); a ragged tile runs merge_block itself."""
+    at the tiles a budget allows (chip_smoke.py 8b logs both). The tiles,
+    the carry and the candidates' indices are copied into the graph's
+    inputs (the tiles' copies are their float32 upcasts); a ragged tile
+    runs merge_block itself."""
 
     def __init__(self, qt: int, ct: int, d: int, k: int,
                  device: torch.device):
@@ -175,15 +186,15 @@ class _GraphMerge(_TileMerge):
                                   device=device)
         self.run = torch.full((qt, k), EMPTY_KEY, dtype=torch.int64,
                               device=device)
-        self.first = torch.zeros((), dtype=torch.int64, device=device)
+        self.ids = torch.zeros((ct,), dtype=torch.int64, device=device)
         warm = torch.cuda.Stream(device)
         warm.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(warm):  # the libraries' set-up, before capture
-            merge_block(self.run, self.q, self.c_full, self.first, k)
+            merge_block(self.run, self.q, self.c_full, self.ids, k)
         torch.cuda.current_stream(device).wait_stream(warm)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.out = merge_block(self.run, self.q, self.c_full, self.first,
+            self.out = merge_block(self.run, self.q, self.c_full, self.ids,
                                    k)
 
     def load(self, c: torch.Tensor) -> None:
@@ -193,19 +204,22 @@ class _GraphMerge(_TileMerge):
             super().load(c)
 
     def __call__(self, run: torch.Tensor, q: torch.Tensor,
-                 first: int) -> torch.Tensor:
+                 first) -> torch.Tensor:
         if self.c is not self.c_full or q.shape[0] != self.q.shape[0]:
             return super().__call__(run, q, first)
         self.q.copy_(q)
         self.run.copy_(run)
-        self.first.fill_(first)
+        if isinstance(first, torch.Tensor):
+            self.ids.copy_(first)
+        else:
+            torch.arange(first, first + self.ids.shape[0], out=self.ids)
         self.graph.replay()
         return run.copy_(self.out)
 
 
-def _count_upload(block: torch.Tensor) -> None:
-    knn_exact_ooc.blocks_uploaded += 1
-    knn_exact_ooc.h2d_bytes += block.numel() * block.element_size()
+def _count_upload(block: torch.Tensor, counter) -> None:
+    counter.blocks_uploaded += 1
+    counter.h2d_bytes += block.numel() * block.element_size()
 
 
 def knn_exact_ooc(
@@ -247,6 +261,22 @@ def knn_exact_ooc(
                 "bytes on the device", ct,
                 plan_bytes(q_rows, c_rows, ct, query_tile, d, k,
                            host.element_size()))
+    return _search(host, q_rows, c_rows, qt, ct, k, device, transfer,
+                   knn_exact_ooc)
+
+
+def _search(host: torch.Tensor, q_rows: int, c_rows: int, qt: int, ct: int,
+            k: int, device: torch.device, transfer: str, counter,
+            need=None, ids: torch.Tensor | None = None):
+    """The slab loop of the out-of-core searches: each q_rows-row query
+    slab of host goes to `device` and sweeps the candidate blocks need(s,
+    rows) names (every block when need is None), each tile merged into
+    the slab's query tiles' carries (a replayed CUDA graph on a card);
+    ids, an (N,) int64 tensor on `device`, gives each host row's own
+    index (the row number when None). Slabs, blocks and bytes count in
+    `counter`. Returns (indices (N, k) int32, distances (N, k) float32)
+    in host's row order."""
+    n, d = host.shape
     if device.type == "cuda":
         blocks, merge = _blocks_streamed, _GraphMerge(qt, ct, d, k, device)
     else:
@@ -256,18 +286,22 @@ def knn_exact_ooc(
     for s in range(0, n, q_rows):
         rows = min(q_rows, n - s)
         slab = host[s : s + rows]
-        knn_exact_ooc.slabs += 1
-        knn_exact_ooc.h2d_bytes += slab.numel() * slab.element_size()
+        counter.slabs += 1
+        counter.h2d_bytes += slab.numel() * slab.element_size()
         slab = slab.to(device)
         runs = [torch.full((min(qt, rows - q0), k), EMPTY_KEY,
                            dtype=torch.int64, device=device)
                 for q0 in range(0, rows, qt)]
-        for lo, block in blocks(host, c_rows, device):
+        for lo, block in blocks(host, c_rows, device,
+                                None if need is None else need(s, rows),
+                                counter):
             for c0 in range(0, block.shape[0], ct):
-                merge.load(block[c0 : c0 + ct])
+                tile = block[c0 : c0 + ct]
+                merge.load(tile)
+                first = (lo + c0 if ids is None
+                         else ids[lo + c0 : lo + c0 + tile.shape[0]])
                 for i, run in enumerate(runs):
-                    runs[i] = merge(run, slab[i * qt : (i + 1) * qt],
-                                    lo + c0)
+                    runs[i] = merge(run, slab[i * qt : (i + 1) * qt], first)
         del slab
         for i in range(len(runs)):
             rows_i = slice(s + i * qt, s + min((i + 1) * qt, rows))
@@ -280,3 +314,169 @@ def knn_exact_ooc(
 knn_exact_ooc.slabs = 0
 knn_exact_ooc.blocks_uploaded = 0
 knn_exact_ooc.h2d_bytes = 0
+
+
+def _centroid_order(cent) -> np.ndarray:
+    """The centroids (C, d) in a 1-D order along a greedy nearest-neighbor
+    chain: from centroid 0, each step hops to the most similar centroid
+    not yet visited (the lowest id among equals), so clusters that are
+    near on the reads' overlap manifold land in nearby row blocks (the
+    JAX package's `_centroid_order`, on the host)."""
+    c = np.asarray(cent, np.float32)
+    n = c.shape[0]
+    sims = c @ c.T
+    np.fill_diagonal(sims, -np.inf)
+    order = np.empty(n, np.int32)
+    visited = np.zeros(n, bool)
+    cur = 0
+    for i in range(n):
+        order[i] = cur
+        visited[cur] = True
+        row = sims[cur].copy()
+        row[visited] = -np.inf
+        if i + 1 < n:
+            cur = int(np.argmax(row))
+    return order
+
+
+def knn_ivf_ooc(
+    embeddings,
+    n_neighbors: int,
+    hbm_budget: int,
+    n_clusters: int | None = None,
+    n_probes: int = 8,
+    spill: int = 2,
+    kmeans_iters: int = 3,
+    query_tile: int = 512,
+    candidate_tile: int = 131072,
+    precision: str = "bf16",
+    transfer: str = "f32",
+    block_rows: int = DEFAULT_BLOCK_ROWS,
+    device: torch.device | str | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """IVF-pruned out-of-core cosine top-k over a host-resident (N, d)
+    matrix within a device-memory budget, on `device` (CUDA unless the
+    caller asks for the CPU); the port of the JAX package's `knn_ivf_ooc`.
+
+    Spherical k-means on a strided sample of min(N, max(8C, 2^18)) rows
+    (streamed through the device block by block); one pass over the
+    blocks for each row's spill clusters and probes; the host rows
+    reordered by home cluster along the centroid chain (_centroid_order);
+    then knn_exact_ooc's slab loop at the IVF granularity (blocks of at
+    most 2^15 rows, slabs of at most max(8 blocks, 2^18) rows), each slab
+    uploading only its own blocks and those holding >= 0.1% of its
+    queries' probe votes. Every distance is exact and every tile's keys
+    carry the rows' original indices, so ties go to the lowest index as
+    in knn_exact. Below the small-N valve, knn_exact_ooc. Counts .calls,
+    .exact_fallbacks, .slabs, .blocks_uploaded and .h2d_bytes (the
+    sample, the assignment pass, slabs and blocks); the last search's
+    figures are in .last."""
+    from fedrann_tpu_torch.knn.ivf import (
+        _kmeans,
+        _top_clusters,
+        auto_clusters,
+        too_small,
+    )
+
+    device = get_device(device or "cuda")
+    n = embeddings.shape[0]
+    k = min(n_neighbors, n)
+    c_n = n_clusters or auto_clusters(n)
+    knn_ivf_ooc.calls += 1
+    if too_small(n, c_n, n_clusters):
+        knn_ivf_ooc.exact_fallbacks += 1
+        logger.info("knn_ivf_ooc: N=%d too small for C=%d clusters; exact "
+                    "ooc path", n, c_n)
+        return knn_exact_ooc(embeddings, n_neighbors, hbm_budget,
+                             query_tile=query_tile,
+                             candidate_tile=candidate_tile,
+                             precision=precision, transfer=transfer,
+                             block_rows=block_rows, device=device)
+    p = min(n_probes, c_n)
+    spill = max(1, min(spill, c_n))
+    bf16 = precision == "bf16"
+    host = host_wire(embeddings, precision)
+    d, itemsize = host.shape[1], host.element_size()
+    c_rows = block_rows
+    while c_rows > query_tile and 2 * c_rows * d * itemsize > hbm_budget // 2:
+        c_rows //= 2
+
+    # k-means on a strided sample, c_rows rows on the device at a time
+    n_sample = min(n, max(8 * c_n, 1 << 18))
+    sample = host[:: max(1, n // n_sample)][:n_sample].contiguous()
+    knn_ivf_ooc.h2d_bytes += (kmeans_iters * sample.numel()
+                              * sample.element_size())
+    chunk = max(1 << 20, hbm_budget // 8)  # a step's temporaries
+    cent = _kmeans(sample, c_n, kmeans_iters, device, c_rows, bf16, chunk)
+    del sample
+
+    # each row's spill clusters and probes, one pass over the blocks
+    top = torch.empty((n, max(spill, p)), dtype=torch.int32)
+    for lo in range(0, n, c_rows):
+        block = host[lo : lo + c_rows]
+        knn_ivf_ooc.h2d_bytes += block.numel() * block.element_size()
+        top[lo : lo + c_rows] = _top_clusters(
+            block.to(device), cent, max(spill, p), bf16, chunk).cpu()
+    top = top.numpy()
+    assign, probes = top[:, :spill], top[:, :p]
+
+    # host rows reordered by home cluster along the centroid chain
+    crank = np.empty(c_n, np.int64)
+    crank[_centroid_order(cent.cpu().numpy())] = np.arange(c_n)
+    order = np.argsort(crank[assign[:, 0]], kind="stable")
+    host = host[torch.from_numpy(order)]
+    probes = probes[order]
+
+    # the IVF granularity: blocks at the cluster scale, slabs of a few
+    q_rows, _, ct = plan_ooc(n, d, k, hbm_budget, query_tile, c_rows,
+                             itemsize, candidate_tile)
+    c_rows = min(c_rows, 1 << 15)
+    q_rows = min(q_rows, max(8 * c_rows, 1 << 18))
+    qt, ct = min(query_tile, max(8, n)), min(ct, c_rows, n)
+    n_blocks, n_slabs = -(-n // c_rows), -(-n // q_rows)
+    # cluster -> the blocks holding any of its (spill) members
+    inv = np.empty(n, np.int64)
+    inv[order] = np.arange(n)
+    holds = np.zeros((c_n, n_blocks), bool)
+    for s in range(spill):
+        holds[assign[:, s], inv // c_rows] = True
+    tally = {"votes": 0, "dropped_votes": 0, "uploads": 0}
+
+    def need(s: int, rows: int) -> list[int]:
+        """The blocks slab s searches: its own, and those with >= 0.1% of
+        its queries' probe votes."""
+        votes = np.bincount(probes[s : s + rows].ravel(),
+                            minlength=c_n) @ holds
+        keep = votes >= max(1, int(0.001 * rows))
+        keep[s // c_rows : (s + rows - 1) // c_rows + 1] = True
+        tally["votes"] += int(votes.sum())
+        tally["dropped_votes"] += int(votes[~keep].sum())
+        tally["uploads"] += int(keep.sum())
+        return np.flatnonzero(keep).tolist()
+
+    ids = torch.from_numpy(order).to(device)
+    idx_r, dist_r = _search(host, q_rows, c_rows, qt, ct, k, device,
+                            transfer, knn_ivf_ooc, need, ids)
+    idx_out = np.empty_like(idx_r)
+    dist_out = np.empty_like(dist_r)
+    idx_out[order], dist_out[order] = idx_r, dist_r
+    knn_ivf_ooc.last = {
+        "rows": n, "clusters": c_n, "probes": p, "spill": spill,
+        "sample_rows": n_sample, "slabs": n_slabs, "q_rows": q_rows,
+        "blocks": n_blocks, "c_rows": c_rows,
+        "exact_uploads": n_slabs * n_blocks, **tally}
+    logger.info(
+        "knn_ivf_ooc: C=%d p=%d spill=%d -> %d/%d candidate-block uploads "
+        "(%.2fx fewer than exact ooc; %.3f%% of probe votes dropped by "
+        "the block threshold)", c_n, p, spill, tally["uploads"],
+        n_slabs * n_blocks, n_slabs * n_blocks / max(tally["uploads"], 1),
+        100.0 * tally["dropped_votes"] / max(tally["votes"], 1))
+    return idx_out, dist_out
+
+
+knn_ivf_ooc.calls = 0
+knn_ivf_ooc.exact_fallbacks = 0
+knn_ivf_ooc.slabs = 0
+knn_ivf_ooc.blocks_uploaded = 0
+knn_ivf_ooc.h2d_bytes = 0
+knn_ivf_ooc.last = {}

@@ -20,6 +20,10 @@ import torch
 # Cosine distances in [0, 2] snap to a uint16 grid of step 1/DIST_SCALE
 # (--knn-transfer u16), so the TSV matches the JAX package's.
 DIST_SCALE = 32767.5
+# an unset slot: below every key _order_keys makes (the high word of a
+# score that is not NaN is above -2^31); keys_to_host returns it as index
+# -1 at distance inf
+EMPTY_KEY = -(1 << 63)
 
 
 def quantize_dist(dist: torch.Tensor) -> torch.Tensor:
@@ -71,8 +75,10 @@ def _order_keys(scores: torch.Tensor, first_index) -> torch.Tensor:
     """int64 keys that order (score desc, column index asc) as one largest-
     first integer order: the float32 bits made monotone in the high word,
     the complemented column index in the low word. The bits are made
-    monotone in place, so scores is overwritten. first_index is an int or
-    a 0-d int64 tensor (a CUDA graph's input)."""
+    monotone in place, so scores is overwritten. The column indices are
+    first_index + 0, 1, ... along the last dimension, first_index an int
+    or a 0-d int64 tensor (a CUDA graph's input); or first_index is an
+    int64 tensor of the columns' own indices, broadcast against scores."""
     bits = scores.contiguous().view(torch.int32)
     flip = bits >> 31  # all ones where the score is negative
     flip &= 0x7FFFFFFF
@@ -80,8 +86,11 @@ def _order_keys(scores: torch.Tensor, first_index) -> torch.Tensor:
     del flip
     keys = bits.to(torch.int64)
     keys <<= 32
-    keys |= (0xFFFFFFFF - first_index) - torch.arange(
-        scores.shape[1], dtype=torch.int64, device=scores.device)
+    if isinstance(first_index, torch.Tensor) and first_index.dim():
+        keys |= 0xFFFFFFFF - first_index
+    else:
+        keys |= (0xFFFFFFFF - first_index) - torch.arange(
+            scores.shape[-1], dtype=torch.int64, device=scores.device)
     return keys
 
 
@@ -147,7 +156,8 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
                 first_index, k: int) -> torch.Tensor:
     """The running top-k of query rows q (rows, d) float32 merged with the
     candidate rows c (ct, d) float32 whose first global index is
-    first_index (an int or a 0-d int64 tensor): run, the (rows, <= k) int64
+    first_index (an int or a 0-d int64 tensor; or a (ct,) int64 tensor of
+    each row's own index, _order_keys): run, the (rows, <= k) int64
     keys of the candidates seen so far (None before the first), becomes the
     keys of the best min(k, seen) candidates, by score descending and index
     ascending."""
@@ -177,16 +187,29 @@ def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int):
     int32, cosine distances float32) numpy arrays; transfer="u16" snaps
     the distances to the 1/DIST_SCALE grid on the device before they
     cross, and the indices cross as uint16 where they fit
-    (d2h_entry_bytes)."""
+    (d2h_entry_bytes). An EMPTY_KEY slot comes back as index -1 at
+    distance inf (2.0 on the u16 grid, as in the JAX package) on either
+    wire: where uint16 indices carry no spare value, the slots' mask
+    crosses too, only when there is one."""
+    empty = keys == EMPTY_KEY
+    if not bool(empty.any()):
+        empty = None
     scores, idx = _decode_keys(keys)
     dist = 1.0 - scores
+    if empty is not None:
+        dist.masked_fill_(empty, float("inf"))
+        idx.masked_fill_(empty, -1)
     if transfer == "u16":
         dist_np = dequantize_dist(_u16_to_host(quantize_dist(dist)))
     else:
         dist_np = dist.cpu().numpy()
-    if u16_indices(transfer, n_rows):
+    if not u16_indices(transfer, n_rows):
+        return idx.to(torch.int32).cpu().numpy(), dist_np
+    if empty is None:
         return _u16_to_host(idx), dist_np
-    return idx.to(torch.int32).cpu().numpy(), dist_np
+    idx_np = _u16_to_host(idx.clamp_min(0))
+    idx_np[empty.cpu().numpy()] = -1
+    return idx_np, dist_np
 
 
 def _u16_to_host(t: torch.Tensor) -> np.ndarray:

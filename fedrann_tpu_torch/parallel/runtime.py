@@ -16,11 +16,13 @@ embedding rows [2 * start, 2 * end), and:
   all-gathered and merged, and the global multiplicity filter applied, so
   every rank holds the single-process library bitwise;
 - builds the projection from the seed and embeds its rows (kernel C);
-- searches its rows over every rank's rows: the sharded search over all
-  ranks' cards (knn/ring.py knn_exact_sharded_multihost; ring, allgather
-  or ring2d by --knn-shard-strategy, or FEDRANN_TPU_MULTIHOST_KNN), or
-  with FEDRANN_TPU_MULTIHOST_KNN=host the rows all-gathered to every rank
-  and searched with knn_exact_block;
+- searches its rows over every rank's rows: with --knn-method ivf the
+  IVF search over all ranks' cards (knn/ivf.py
+  knn_ivf_sharded_multihost), else the sharded exact search over them
+  (knn/ring.py knn_exact_sharded_multihost; ring, allgather or ring2d by
+  --knn-shard-strategy, or FEDRANN_TPU_MULTIHOST_KNN); with
+  FEDRANN_TPU_MULTIHOST_KNN=host (either method) the rows all-gathered to
+  every rank and searched exactly with knn_exact_block;
 - writes its rows to overlaps.rank<r>.tsv (global row numbers), then rank
   0 concatenates the rank tables into overlaps.tsv between two barriers.
 Each rank writes metrics.rank<r>.json, and with the flags mprof.rank<r>.dat,
@@ -56,6 +58,7 @@ from fedrann_tpu_torch.io.native import (
 from fedrann_tpu_torch.io.packing import PackedBucket, PackedReads
 from fedrann_tpu_torch.io.tsv import HEADER, write_overlaps_path
 from fedrann_tpu_torch.kmers.library import KmerLibrary, build_library
+from fedrann_tpu_torch.knn.ivf import knn_ivf_sharded_multihost
 from fedrann_tpu_torch.knn.ring import knn_exact_sharded_multihost
 from fedrann_tpu_torch.knn.topk import knn_exact_block, normalize_rows
 from fedrann_tpu_torch.logging_utils import logger, set_logging_level
@@ -343,7 +346,6 @@ def run_pipeline_multihost(config: PipelineConfig, device: torch.device,
     rows and neighbor rows (global row numbers; row_offset = 2 * start),
     and the merged overlaps.tsv on rank 0 (this rank's table elsewhere).
     With one process, pipeline.run_pipeline."""
-    pipeline.check_supported(config)
     group = initialize_distributed(config.coordinator, config.num_processes,
                                    config.process_id)
     if group.size == 1:
@@ -471,7 +473,19 @@ def _run_rank(config: PipelineConfig, device: torch.device,
         with metrics.stage("knn"):
             strategy = os.environ.get(MULTIHOST_KNN_ENV,
                                       config.knn_shard_strategy)
-            if strategy == "host":
+            if config.knn_method == "ivf" and strategy != "host":
+                logger.info("[rank %d] IVF k-NN over %d processes x %d "
+                            "local entries (%s transport)", pid, nproc,
+                            mesh.size, transport.kind)
+                idx, dist = knn_ivf_sharded_multihost(
+                    emb_local, n_reads, per, config.n_neighbors,
+                    n_clusters=config.knn_ivf_clusters,
+                    n_probes=config.knn_ivf_probes,
+                    spill=config.knn_ivf_spill,
+                    precision=config.knn_precision,
+                    transfer=config.knn_transfer, mesh=mesh,
+                    transport=transport)
+            elif strategy == "host":
                 # every rank's rows gathered to every rank over the host
                 # group, then this rank's rows searched over all of them
                 block = np.zeros((2 * per, emb_local.shape[1]), np.float32)

@@ -19,10 +19,11 @@ Stages, as named in metrics.json:
             C, in the projection's form), then each split read's union; or
             an embeddings checkpoint. Past --knn-hbm-budget the matrix is a
             host bfloat16 tensor filled chunk by chunk (out="host")
-  knn     - exact cosine top-k; with --knn-sharded always (or auto and
-            more than one visible card) sharded over a device mesh
-            (knn/ring.py); past the budget, the out-of-core search
-            (knn/ooc.py) streams the host matrix through one device
+  knn     - exact cosine top-k, or with --knn-method ivf the IVF search
+            (knn/ivf.py); with --knn-sharded always (or auto and more
+            than one visible card) sharded over a device mesh
+            (knn/ring.py, knn/ivf.py); past the budget, the out-of-core
+            search (knn/ooc.py) streams the host matrix through one device
   output  - overlaps.tsv (native C writer), --save-feature-matrix
 
 --keep-intermediates keeps checkpoints/library.npz, embeddings.npy and
@@ -66,7 +67,8 @@ from fedrann_tpu_torch.kmers.membership import (
     stage_candidates,
     staging_width,
 )
-from fedrann_tpu_torch.knn.ooc import knn_exact_ooc
+from fedrann_tpu_torch.knn.ivf import auto_clusters, knn_ivf, knn_ivf_sharded
+from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
 from fedrann_tpu_torch.knn.ring import knn_exact_sharded
 from fedrann_tpu_torch.knn.topk import d2h_entry_bytes, knn_exact
 from fedrann_tpu_torch.logging_utils import (
@@ -113,15 +115,6 @@ class StagedBucket:
     dropped: torch.Tensor     # (R_b,) int32 occurrences beyond the buffer
     read_index: torch.Tensor  # (R_b,) int64 global read index, -1 = pad row
     rows: int                 # rows per device chunk
-
-
-def check_supported(config: PipelineConfig) -> None:
-    """Raise NotImplementedError for options outside the ported slice,
-    naming the ROADMAP Queue 1 item that brings them."""
-    if config.knn_method == "ivf":
-        raise NotImplementedError(
-            "--knn-method ivf is not ported to fedrann_tpu_torch yet "
-            "(ROADMAP Queue 1: IVF)")
 
 
 def out_of_core(config: PipelineConfig, n_reads: int) -> bool:
@@ -509,14 +502,81 @@ def embed_hbm_bytes(staged: list[StagedBucket], lib_codes: torch.Tensor,
 
 def add_knn_work(metrics: StageMetrics, query_rows: int,
                  candidate_rows: int, d: int, idx: np.ndarray,
-                 transfer: str) -> None:
-    """The k-NN's work: 2 * queries * candidates * d distance operations,
-    and the neighbor matrices brought to the host (topk.d2h_entry_bytes an
-    entry: the JAX package's `elem + idx_elem`)."""
-    metrics.add_work("knn", flops=2.0 * query_rows * candidate_rows * d,
+                 transfer: str, share: float = 1.0) -> None:
+    """The k-NN's work: 2 * queries * candidates * d distance operations
+    times `share` (ivf_share), and the neighbor matrices brought to the
+    host (topk.d2h_entry_bytes an entry: the JAX package's `elem +
+    idx_elem`)."""
+    metrics.add_work("knn",
+                     flops=2.0 * query_rows * candidate_rows * d * share,
                      d2h_bytes=float(idx.shape[0] * idx.shape[1]
                                      * d2h_entry_bytes(transfer,
                                                        candidate_rows)))
+
+
+def ivf_share(config: PipelineConfig, n_rows: int) -> float:
+    """The share of the exact search's distance operations the JAX package
+    counts for a run: min(1, p / C) under --knn-method ivf, C the
+    --knn-ivf-clusters or auto_clusters(N); 1 otherwise."""
+    if config.knn_method != "ivf":
+        return 1.0
+    c_eff = config.knn_ivf_clusters or auto_clusters(n_rows)
+    return min(1.0, config.knn_ivf_probes / max(c_eff, 1))
+
+
+def search(config: PipelineConfig, emb: torch.Tensor, ooc: bool,
+           use_mesh: bool, mesh: Sequence[torch.device],
+           device: torch.device, metrics: StageMetrics):
+    """The k-NN of run_pipeline, routed as the JAX package routes it: out
+    of core, knn_ivf_ooc (--knn-method ivf) or knn_exact_ooc on `device`
+    (a mesh is overridden, with a warning); else IVF on one device
+    (knn_ivf) or over a 1-D mesh of `mesh` (knn_ivf_sharded); else the
+    exact search sharded over knn_mesh (knn_exact_sharded) or on one
+    device (knn_exact). Returns (indices, distances)."""
+    ivf = config.knn_method == "ivf"
+    ivf_args = dict(n_clusters=config.knn_ivf_clusters,
+                    n_probes=config.knn_ivf_probes,
+                    spill=config.knn_ivf_spill)
+    if ooc:
+        if use_mesh:
+            logger.warning(
+                "out-of-core k-NN streams through one device; "
+                "mesh sharding is overridden past the HBM budget")
+        fn = knn_ivf_ooc if ivf else knn_exact_ooc
+        before = fn.h2d_bytes
+        out = fn(emb, config.n_neighbors, config.knn_hbm_budget,
+                 query_tile=config.knn_query_tile,
+                 candidate_tile=config.knn_candidate_tile,
+                 precision=config.knn_precision,
+                 transfer=config.knn_transfer, device=device,
+                 **(ivf_args if ivf else {}))
+        metrics.add_work("knn", h2d_bytes=fn.h2d_bytes - before)
+        return out
+    if ivf and not use_mesh:
+        return knn_ivf(emb, config.n_neighbors,
+                       precision=config.knn_precision,
+                       transfer=config.knn_transfer, **ivf_args)
+    if ivf:
+        knn = make_mesh(config.mesh_shape, mesh)
+        logger.info("IVF k-NN sharded over %d devices", knn.size)
+        return knn_ivf_sharded(emb, config.n_neighbors, mesh=knn,
+                               precision=config.knn_precision,
+                               transfer=config.knn_transfer, **ivf_args)
+    if use_mesh:
+        knn = knn_mesh(config, mesh)
+        logger.info("k-NN sharded over %d devices (%s)", knn.size,
+                    config.knn_shard_strategy)
+        return knn_exact_sharded(
+            emb, config.n_neighbors, mesh=knn,
+            strategy=config.knn_shard_strategy,
+            precision=config.knn_precision, transfer=config.knn_transfer,
+            candidate_tile=config.knn_candidate_tile,
+            query_tile=config.knn_query_tile)
+    return knn_exact(emb, config.n_neighbors,
+                     query_tile=config.knn_query_tile,
+                     candidate_tile=config.knn_candidate_tile,
+                     precision=config.knn_precision,
+                     transfer=config.knn_transfer)
 
 
 def _input_identity(config: PipelineConfig) -> dict:
@@ -684,7 +744,6 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
     """Run the pipeline on `device`. `mesh` is the devices the k-NN may
     shard over (knn_mesh): by default every visible card on a CUDA run and
     `device` alone on a CPU run."""
-    check_supported(config)
     if config.knn_topk_method == "approx":
         logger.info("--knn-topk-method approx runs exact selection here")
     set_logging_level(config.log_level)
@@ -769,41 +828,11 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
                         else [device])
             use_mesh = (config.knn_sharded == "always"
                         or (config.knn_sharded == "auto" and len(mesh) > 1))
-            if ooc:
-                if use_mesh:
-                    logger.warning(
-                        "out-of-core k-NN streams through one device; "
-                        "mesh sharding is overridden past the HBM budget")
-                before = knn_exact_ooc.h2d_bytes
-                idx, dist = knn_exact_ooc(
-                    emb, config.n_neighbors, config.knn_hbm_budget,
-                    query_tile=config.knn_query_tile,
-                    candidate_tile=config.knn_candidate_tile,
-                    precision=config.knn_precision,
-                    transfer=config.knn_transfer, device=device)
-                metrics.add_work("knn",
-                                 h2d_bytes=knn_exact_ooc.h2d_bytes - before)
-            elif use_mesh:
-                knn = knn_mesh(config, mesh)
-                logger.info("k-NN sharded over %d devices (%s)", knn.size,
-                            config.knn_shard_strategy)
-                idx, dist = knn_exact_sharded(
-                    emb, config.n_neighbors, mesh=knn,
-                    strategy=config.knn_shard_strategy,
-                    precision=config.knn_precision,
-                    transfer=config.knn_transfer,
-                    candidate_tile=config.knn_candidate_tile,
-                    query_tile=config.knn_query_tile)
-            else:
-                idx, dist = knn_exact(
-                    emb, config.n_neighbors,
-                    query_tile=config.knn_query_tile,
-                    candidate_tile=config.knn_candidate_tile,
-                    precision=config.knn_precision,
-                    transfer=config.knn_transfer,
-                )
+            idx, dist = search(config, emb, ooc, use_mesh, mesh, device,
+                               metrics)
             add_knn_work(metrics, emb.shape[0], emb.shape[0], emb.shape[1],
-                         idx, config.knn_transfer)
+                         idx, config.knn_transfer, ivf_share(config,
+                                                             emb.shape[0]))
         with metrics.stage("output"):
             if out_dir:
                 overlaps_path = os.path.join(out_dir, "overlaps.tsv")

@@ -1,0 +1,372 @@
+"""The port's IVF k-NN (fedrann_tpu_torch/knn/ivf.py, plain torch ops on
+the CPU) against the JAX package's `fedrann_tpu/knn/ivf.py` on the same
+numpy rows, made from seeds:
+
+- integer tables bitwise: auto_clusters; the member and probe tables
+  built from JAX's own assignment arrays;
+- k-means on blobs, with and without zero rows: assignments and counts
+  equal JAX's, centroids within 1e-5; spill and probe lists equal JAX's,
+  the zero rows' ties (the lowest cluster id first) included;
+- the merge and its dedup on a crafted buffer with duplicates and unset
+  slots, equal to JAX's;
+- knn_ivf on blobs: recall against the port's knn_exact >= 0.98,
+  distances within 1e-4 of a recompute, self at rank 0, rows sorted, no
+  index twice in a row, neighbor agreement with JAX's knn_ivf >= 0.99;
+  with every cluster probed, agreement with knn_exact >= 0.999; below the
+  small-N valve, knn_exact's result exactly; unset slots -1 on both
+  wires;
+- read geometry (the oracle's embeddings of simulated reads): recall
+  floors 0.72 / 0.85 at p = 8 / 16, C = 64, and within 0.02 of JAX's;
+- knn_ivf_sharded over four CPU entries: knn_ivf's result at the rounded
+  cluster count (agreement >= 0.999, recall >= knn_ivf's - 0.02), the
+  padding and the small-N fallback to knn_exact_sharded;
+- the CLI with --knn-method ivf (both transfers) against the exact CLI,
+  >= 0.95.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fedrann_tpu.knn import ivf as jivf
+from fedrann_tpu_torch.knn import ivf
+from fedrann_tpu_torch.knn.topk import EMPTY_KEY, keys_to_host, knn_exact
+from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+from test_knn_ivf import _clustered_embeddings
+
+CPU = torch.device("cpu")
+
+
+def _recall(idx, ref):
+    return float(np.mean([len(set(a) & set(b)) / len(b)
+                          for a, b in zip(idx, ref)]))
+
+
+def _unit(e):
+    n = np.linalg.norm(e, axis=1, keepdims=True)
+    return (e / np.where(n == 0, 1.0, n)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def blobs():
+    rng = np.random.default_rng(11)
+    return _clustered_embeddings(6000, 64, 40, rng)
+
+
+@pytest.mark.parametrize("n", [0, 1, 64, 4096, 6000, 65_536, 700_000,
+                               10**9, 10**12])
+def test_auto_clusters_matches_jax(n):
+    assert ivf.auto_clusters(n) == jivf.auto_clusters(n)
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+def test_member_and_probe_tables_bitwise(blobs, spill):
+    """Tolerance: none (integer tables, from JAX's own assignments)."""
+    en = jnp.asarray(_unit(blobs))
+    cent, a, counts = jivf._kmeans(en, 64, 3)
+    if spill > 1:
+        a, counts = jivf._assign_spill(en, cent, spill)
+    probes, qcounts = jivf._probe_lists(en, cent, 8)
+    m = int(-(-int(np.asarray(counts).max()) // 128) * 128)
+    qm = int(-(-int(np.asarray(qcounts).max()) // 128) * 128)
+    want = np.asarray(jivf._member_table(a, counts, 64, m, spill=spill))
+    got = ivf._member_table(torch.from_numpy(np.asarray(a)),
+                            torch.from_numpy(np.asarray(counts)), 64, m,
+                            spill)
+    np.testing.assert_array_equal(got.numpy(), want)
+    qtab, stab = jivf._probe_tables(probes, qcounts, 64, qm)
+    q_got, s_got = ivf._probe_tables(torch.from_numpy(np.asarray(probes)),
+                                     torch.from_numpy(np.asarray(qcounts)),
+                                     64, qm)
+    np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
+    np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
+
+
+@pytest.mark.parametrize("zero_rows", [False, True])
+def test_kmeans_spill_and_probes_match_jax(blobs, zero_rows):
+    """Centroids within 1e-5 (float32 sums in another order); assignments,
+    counts, spill and probe lists equal, zero rows' ties included."""
+    e = blobs.copy()
+    if zero_rows:
+        e[::37] = 0.0
+    en = _unit(e)
+    cent_j, a_j, counts_j = jivf._kmeans(jnp.asarray(en), 64, 3)
+    cent = ivf._kmeans(torch.from_numpy(en), 64, 3)
+    np.testing.assert_allclose(cent.numpy(), np.asarray(cent_j), rtol=0,
+                               atol=1e-5)
+    a = ivf._top_clusters(torch.from_numpy(en), cent, 1)[:, 0]
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_j))
+    np.testing.assert_array_equal(torch.bincount(a, minlength=64).numpy(),
+                                  np.asarray(counts_j))
+    # spill and probe lists from the same (JAX's) centroids
+    flat_j, _ = jivf._assign_spill(jnp.asarray(en), cent_j, 2)
+    probes_j, _ = jivf._probe_lists(jnp.asarray(en), cent_j, 8)
+    top = ivf._top_clusters(torch.from_numpy(en),
+                            torch.from_numpy(np.asarray(cent_j)), 8)
+    np.testing.assert_array_equal(top[:, :2].reshape(-1).numpy(),
+                                  np.asarray(flat_j))
+    np.testing.assert_array_equal(top.numpy(), np.asarray(probes_j))
+    if zero_rows:  # every centroid scores 0: the lowest ids, in order
+        np.testing.assert_array_equal(top[::37].numpy(),
+                                      np.tile(np.arange(8), (len(e[::37]),
+                                                             1)))
+
+
+def _keys(dist, idx):
+    """JAX's (dist, idx) merge buffers as the port's int64 keys: score 1 -
+    dist (exact for these dists), unset slots (idx < 0) EMPTY_KEY."""
+    from fedrann_tpu_torch.knn.topk import _order_keys
+
+    s = torch.from_numpy(1.0 - dist).contiguous()
+    ids = torch.from_numpy(np.where(idx < 0, 0, idx).astype(np.int64))
+    keys = _order_keys(s.clone(), ids)
+    return keys.masked_fill_(torch.from_numpy(idx < 0), EMPTY_KEY)
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+def test_merge_buffers_match_jax(spill):
+    """A crafted (N, p, kk) buffer with duplicate indices (same distance;
+    spill 2), equal distances across indices (spill 2, where JAX's merge
+    sorts by index first) and unset (inf, -1) slots: the port's merge
+    equals JAX's _merge_buffers exactly (distances on a 1/1024 grid, so
+    1 - (1 - d) == d)."""
+    rng = np.random.default_rng(5)
+    n, p, kk, k = 300, 4, 6, 10
+    dist = rng.integers(0, 2048, size=(n, p, kk)).astype(np.float32) / 1024
+    idx = rng.integers(0, 40, size=(n, p, kk)).astype(np.int32)
+    if spill == 1:  # distinct indices a row, as disjoint member lists
+        # give, at distinct distances: JAX's top_k breaks a distance tie
+        # by buffer position, the port by the lowest index (knn_exact's)
+        idx = np.stack([rng.permutation(400)[: p * kk].reshape(p, kk)
+                        for _ in range(n)]).astype(np.int32)
+        dist = np.stack([rng.permutation(2048)[: p * kk].reshape(p, kk)
+                         for _ in range(n)]).astype(np.float32) / 1024
+    else:  # a duplicate carries its index's distance
+        first = {}
+        for r in range(n):
+            first.clear()
+            for j in np.ndindex(p, kk):
+                dist[(r, *j)] = first.setdefault(idx[(r, *j)],
+                                                 dist[(r, *j)])
+    unset = rng.random((n, p, kk)) < 0.3
+    unset[:5] = True  # rows with no candidate at all
+    dist[unset], idx[unset] = np.inf, -1
+    want_d, want_i = jivf._merge_buffers(
+        jnp.asarray(np.concatenate([dist, np.full((1, p, kk), np.inf,
+                                                  np.float32)])),
+        jnp.asarray(np.concatenate([idx, np.full((1, p, kk), -1,
+                                                 np.int32)])),
+        n, k, spill)
+    keys = ivf._merge_buffers(_keys(dist, idx), k, spill)
+    got_i, got_d = keys_to_host(keys, "f32", 400)
+    np.testing.assert_array_equal(got_i, np.asarray(want_i))
+    np.testing.assert_array_equal(got_d, np.asarray(want_d))
+
+
+def test_dedup_keeps_the_higher_score():
+    """Two copies of one index whose scores differ in the last bit (two
+    products of different shapes): the higher-scoring copy stays, the
+    other slot goes to the next index."""
+    s = torch.tensor([[0.5, np.nextafter(np.float32(0.5), np.float32(0)),
+                       0.25]], dtype=torch.float32)
+    from fedrann_tpu_torch.knn.topk import _order_keys
+
+    keys = _order_keys(s, torch.tensor([[7, 7, 3]]))
+    buf = keys.reshape(1, 3, 1)
+    idx, dist = keys_to_host(ivf._merge_buffers(buf, 3, 2), "f32", 10)
+    np.testing.assert_array_equal(idx, [[7, 3, -1]])
+    assert dist[0, 0] == np.float32(0.5) and dist[0, 2] == np.inf
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_knn_ivf_on_blobs(blobs, precision):
+    """Recall >= 0.98 against knn_exact, every distance within 1e-4 of a
+    recompute, self at rank 0, sorted rows, no index twice in a row;
+    neighbor agreement with JAX's knn_ivf >= 0.99."""
+    e = torch.from_numpy(blobs)
+    k = 20
+    calls = ivf.knn_ivf.calls, ivf.knn_ivf.exact_fallbacks
+    idx, dist = ivf.knn_ivf(e, k, n_clusters=64, n_probes=8,
+                            precision=precision)
+    assert (ivf.knn_ivf.calls, ivf.knn_ivf.exact_fallbacks) == (
+        calls[0] + 1, calls[1])
+    assert ivf.knn_ivf.last["clusters"] == 64
+    ref, _ = knn_exact(e, k, precision=precision)
+    assert _recall(idx, ref) >= 0.98
+    en = _unit(blobs)
+    true = 1.0 - np.einsum("rd,rkd->rk", en, en[idx])
+    assert np.abs(dist - true).max() < (1e-4 if precision == "fp32"
+                                        else 1e-2)
+    assert np.array_equal(idx[:, 0], np.arange(len(blobs)))
+    assert (np.diff(dist, axis=1) >= 0).all()
+    assert all(len(set(r)) == k for r in idx)
+    j_idx, _ = jivf.knn_ivf(blobs, k, n_clusters=64, n_probes=8,
+                            precision=precision)
+    assert _recall(idx, np.asarray(j_idx)) >= 0.99
+
+
+def test_all_probes_match_exact(blobs):
+    """p = C: every cluster rescored, so the neighbor sets are knn_exact's
+    (agreement >= 0.999; ties aside)."""
+    e = torch.from_numpy(blobs[:3000])
+    idx, dist = ivf.knn_ivf(e, 10, n_clusters=16, n_probes=16,
+                            precision="fp32")
+    ref_i, ref_d = knn_exact(e, 10, precision="fp32")
+    assert _recall(idx, ref_i) >= 0.999
+    np.testing.assert_allclose(dist, ref_d, rtol=0, atol=1e-5)
+
+
+def test_small_n_falls_back_to_exact():
+    rng = np.random.default_rng(7)
+    e = torch.from_numpy(rng.normal(size=(300, 32)).astype(np.float32))
+    before = ivf.knn_ivf.exact_fallbacks
+    for transfer in ("f32", "u16"):
+        idx, dist = ivf.knn_ivf(e, 10, precision="fp32", transfer=transfer)
+        ref_i, ref_d = knn_exact(e, 10, precision="fp32", transfer=transfer)
+        np.testing.assert_array_equal(idx, ref_i)
+        np.testing.assert_array_equal(dist, ref_d)
+    assert ivf.knn_ivf.exact_fallbacks == before + 2
+
+
+def test_unset_slots_survive_both_wires():
+    """p = spill = 1 over many small clusters: a query's cluster holds
+    fewer than k rows, so slots stay unset: -1 at distance inf on the f32
+    wire and 2.0 on the u16 grid, at the same places as JAX's f32 result
+    (whose u16 wire clips -1 to 0)."""
+    rng = np.random.default_rng(3)
+    e = _clustered_embeddings(640, 16, 40, rng)
+    kw = dict(n_clusters=160, n_probes=1, spill=1, precision="fp32")
+    want_i, want_d = jivf.knn_ivf(e, 12, **kw)
+    want_i = np.asarray(want_i)
+    assert (want_i < 0).any()
+    for transfer in ("f32", "u16"):
+        idx, dist = ivf.knn_ivf(torch.from_numpy(e), 12, transfer=transfer,
+                                **kw)
+        np.testing.assert_array_equal(idx < 0, want_i < 0)
+        assert (dist[idx < 0] == (np.inf if transfer == "f32" else 2.0)
+                ).all()
+        assert _recall(np.where(idx < 0, -1 - np.arange(12), idx),
+                       np.where(want_i < 0, -1 - np.arange(12), want_i)
+                       ) >= 0.99
+
+
+@pytest.fixture(scope="module")
+def read_rows():
+    """The oracle's (2R, 128) embeddings of simulated reads (the shape of
+    tests/test_knn_ivf_sharded.py's read-geometry test) and knn_exact's
+    top 20 on them."""
+    from fedrann_tpu_torch import oracle
+    from fedrann_tpu_torch.sim import simulate_reads
+
+    sim = simulate_reads(genome_length=200_000, coverage=8,
+                         mean_read_length=2000, error_rate=0.05, seed=5)
+    lib = oracle.build_library(sim.sequences, 15, 2, 0.1, 602)
+    rows = oracle.feature_rows(sim.sequences, 15, lib)
+    emb = oracle.embed(rows, lib, 128, 2094).astype(np.float32)
+    ref, _ = knn_exact(torch.from_numpy(emb), 20, precision="fp32")
+    return emb, ref
+
+
+@pytest.mark.parametrize("probes,floor", [(8, 0.72), (16, 0.85)])
+def test_recall_on_read_geometry(read_rows, probes, floor):
+    """Recall against exact above JAX's floors, and within 0.02 of JAX's
+    knn_ivf on the same rows."""
+    emb, ref = read_rows
+    idx, _ = ivf.knn_ivf(torch.from_numpy(emb), 20, n_clusters=64,
+                         n_probes=probes, precision="fp32")
+    j_idx, _ = jivf.knn_ivf(emb, 20, n_clusters=64, n_probes=probes,
+                            precision="fp32")
+    r, r_jax = _recall(idx, ref), _recall(np.asarray(j_idx), ref)
+    assert r >= floor, r
+    assert abs(r - r_jax) <= 0.02, (r, r_jax)
+
+
+@pytest.fixture(scope="module")
+def mesh4():
+    return make_mesh(devices=[CPU] * 4)
+
+
+def test_sharded_is_knn_ivf_at_the_rounded_cluster_count(read_rows, mesh4):
+    """C = 62 rounds up to 64 over 4 entries; the sharded search is
+    knn_ivf's at C = 64 (agreement >= 0.999, recall >= knn_ivf's - 0.02,
+    distances within 1e-5)."""
+    emb, ref = read_rows
+    e = torch.from_numpy(emb)
+    before = ivf.knn_ivf_sharded.calls
+    idx_s, dist_s = ivf.knn_ivf_sharded(e, 20, mesh=mesh4, n_clusters=62,
+                                        n_probes=8, precision="fp32")
+    assert ivf.knn_ivf_sharded.calls == before + 1
+    assert ivf.knn_ivf_sharded.last["clusters"] == 64
+    idx, dist = ivf.knn_ivf(e, 20, n_clusters=64, n_probes=8,
+                            precision="fp32")
+    assert _recall(idx_s, idx) >= 0.999
+    assert _recall(idx_s, ref) >= _recall(idx, ref) - 0.02
+    np.testing.assert_allclose(dist_s, dist, rtol=0, atol=1e-5)
+
+
+def test_sharded_pads_and_keeps_self(mesh4):
+    """5,003 rows over 4 entries (a ragged last block): self at rank 0,
+    indices in range, sorted rows."""
+    rng = np.random.default_rng(13)
+    e = _clustered_embeddings(5003, 32, 25, rng)
+    idx, dist = ivf.knn_ivf_sharded(torch.from_numpy(e), 8, mesh=mesh4,
+                                    n_clusters=32, n_probes=4,
+                                    precision="fp32")
+    assert idx.shape == (5003, 8)
+    assert np.array_equal(idx[:, 0], np.arange(5003))
+    assert np.allclose(dist[:, 0], 0.0, atol=1e-5)
+    assert idx.min() >= 0 and idx.max() < 5003
+    assert (np.diff(dist, axis=1) >= 0).all()
+
+
+def test_sharded_small_n_falls_back_to_sharded_exact(mesh4):
+    from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+
+    rng = np.random.default_rng(7)
+    e = torch.from_numpy(rng.normal(size=(300, 32)).astype(np.float32))
+    before = (ivf.knn_ivf_sharded.exact_fallbacks, knn_exact_sharded.calls)
+    idx, dist = ivf.knn_ivf_sharded(e, 10, mesh=mesh4, precision="fp32")
+    assert (ivf.knn_ivf_sharded.exact_fallbacks,
+            knn_exact_sharded.calls) == (before[0] + 1, before[1] + 1)
+    ref_i, ref_d = knn_exact(e, 10, precision="fp32")
+    np.testing.assert_array_equal(idx, ref_i)
+    np.testing.assert_allclose(dist, ref_d, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("transfer", ["u16", "f32"])
+def test_pipeline_ivf_matches_exact_neighbors(tmp_path, transfer):
+    """The CLI's run with --knn-method ivf (C = 8, p = 6) against the
+    exact run on the same reads (tests/test_knn_ivf.py's setting):
+    neighbor agreement >= 0.95; knn_ivf ran once, past its valve."""
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.pipeline import run_pipeline
+    from fedrann_tpu_torch.sim import simulate_reads, write_fasta
+
+    sim = simulate_reads(genome_length=200_000, coverage=8,
+                         mean_read_length=4000, error_rate=0.03, seed=5)
+    fasta = str(tmp_path / "reads.fasta")
+    write_fasta(fasta, sim.names, sim.sequences)
+
+    def run(extra):
+        return run_pipeline(config_from_args([
+            "-i", fasta, "-o", str(tmp_path / ("out_" + extra[1])),
+            "-k", "15", "--kmer-sample-fraction", "0.05",
+            "--kmer-min-multiplicity", "2", "-n", "128",
+            "--nndescent-n-neighbors", "10", "--seed", "602",
+            "--knn-transfer", transfer, *extra]), CPU)
+
+    exact = run(["--knn-method", "exact"])
+    before = ivf.knn_ivf.calls, ivf.knn_ivf.exact_fallbacks
+    got = run(["--knn-method", "ivf", "--knn-ivf-clusters", "8",
+               "--knn-ivf-probes", "6"])
+    assert (ivf.knn_ivf.calls, ivf.knn_ivf.exact_fallbacks) == (
+        before[0] + 1, before[1])
+    assert _recall(got.neighbor_indices, exact.neighbor_indices) >= 0.95
+    # the knn's work is JAX's: 2 N^2 d scaled by p / C
+    n, d = got.embeddings.shape
+    assert got.metrics["knn"]["flops"] == pytest.approx(
+        2.0 * n * n * d * 6 / 8)

@@ -987,6 +987,68 @@ def test_ooc_double_buffered_matches_sync_uploads(cuda, monkeypatch,
     assert (got[0][:, 0] == np.arange(6000)).mean() > 0.99
 
 
+def _blobs(n_rows, d, n_centers, rng, spread=0.04):
+    """Rows around random unit centers (tests/test_knn_ivf.py's
+    _clustered_embeddings, which this file cannot import: that module
+    imports the JAX package)."""
+    centers = rng.normal(size=(n_centers, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    who = rng.integers(0, n_centers, size=n_rows)
+    return (centers[who] + spread * rng.normal(size=(n_rows, d))).astype(
+        np.float32)
+
+
+def test_ivf_ooc_streamed_block_list_matches_sync(cuda, monkeypatch):
+    """knn_ivf_ooc over several slabs that each upload a selected list of
+    blocks (consecutive needed blocks can share a parity, so the double
+    buffer is slotted by list position): the streamed uploads against
+    synchronous ones, bitwise."""
+    from fedrann_tpu_torch.knn import ooc
+
+    e = _blobs(8000, 64, 40, np.random.default_rng(11))
+    kw = dict(n_clusters=256, n_probes=4, spill=2, block_rows=256,
+              query_tile=128, transfer="u16", device=cuda)
+    got = ooc.knn_ivf_ooc(e, 10, int(1.3 * (1 << 20)), **kw)
+    last = ooc.knn_ivf_ooc.last
+    assert last["slabs"] >= 2 and last["uploads"] < last["exact_uploads"]
+    monkeypatch.setattr(ooc, "_blocks_streamed", ooc._blocks_sync)
+    want = ooc.knn_ivf_ooc(e, 10, int(1.3 * (1 << 20)), **kw)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+def test_knn_ivf_on_the_card_is_repeatable_and_matches_cpu(cuda, spill):
+    """knn_ivf on the card twice (bitwise the same: the k-means sums in a
+    fixed order) against the plain run on the CPU: the same tables up to
+    float32 sums in another order (a row near a k-means boundary may land
+    in another cluster, and near-equal scores may swap places), so
+    neighbor agreement >= 0.999, and the rows with the same neighbor sets
+    (> 90% of them) at sorted distances within 1e-5; zero rows
+    included."""
+    from fedrann_tpu_torch.knn.ivf import knn_ivf
+
+    e = _blobs(6000, 64, 40, np.random.default_rng(11))
+    e[::53] = 0
+    # float32 rows: at bf16 a last-bit difference in the normalized rows
+    # can move a rounded element by a bf16 step (~1e-4 in a distance)
+    kw = dict(n_clusters=64, n_probes=8, spill=spill, precision="fp32",
+              transfer="f32")
+    one = knn_ivf(torch.from_numpy(e).to(cuda), 20, **kw)
+    two = knn_ivf(torch.from_numpy(e).to(cuda), 20, **kw)
+    np.testing.assert_array_equal(one[0], two[0])
+    np.testing.assert_array_equal(one[1], two[1])
+    ref = knn_ivf(torch.from_numpy(e), 20, **kw)
+    agree = np.mean([len(set(a) & set(b)) / 20 for a, b in
+                     zip(one[0], ref[0])])
+    assert agree >= 0.999, agree
+    same = (np.sort(one[0], axis=1) == np.sort(ref[0], axis=1)).all(axis=1)
+    assert same.mean() > 0.9, same.mean()
+    np.testing.assert_allclose(np.sort(one[1][same], axis=1),
+                               np.sort(ref[1][same], axis=1), rtol=0,
+                               atol=1e-5)
+
+
 def test_ooc_search_inside_the_profiler_matches(cuda):
     """--profile with --knn-hbm-budget: the out-of-core search (each full
     tile's merge a captured, replayed CUDA graph) inside a torch.profiler

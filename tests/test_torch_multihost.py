@@ -10,11 +10,12 @@ split the reads past 2,048 bases) and by that test's bars:
 - the rank tables are removed after the merge (kept under
   --keep-intermediates) and metrics.rank<r>.json holds all seven stages.
 
-The k-NN runs as ring, ring2d, allgather and FEDRANN_TPU_MULTIHOST_KNN=
-host; with --no-pack-cache each rank parses its byte range of the FASTA;
-a --keep-intermediates run is resumed with no staging and a byte-identical
-table. A rank that raises takes the other down. Each launch waits on both
-ranks with a timeout and kills both when it expires.
+The k-NN runs as ring, ring2d, allgather, FEDRANN_TPU_MULTIHOST_KNN=
+host and --knn-method ivf (every cluster probed); with --no-pack-cache
+each rank parses its byte range of the FASTA; a --keep-intermediates run
+is resumed with no staging and a byte-identical table. A rank that
+raises takes the other down. Each launch waits on both ranks with a
+timeout and kills both when it expires.
 """
 
 from __future__ import annotations
@@ -45,10 +46,13 @@ import torch
 torch.set_num_threads(2)
 from fedrann_tpu_torch.cli import config_from_args
 from fedrann_tpu_torch.parallel.runtime import run_pipeline_multihost
+from fedrann_tpu_torch.knn.ivf import knn_ivf_sharded_multihost as ivf
 res = run_pipeline_multihost(config_from_args({args!r}), torch.device("cpu"),
                              [torch.device("cpu")] * {entries})
 codes, counts = res.library.numpy()
 np.savez({lib!r}, codes=codes, counts=counts)
+print("IVF_COUNTS", json.dumps({{"calls": ivf.calls,
+                                "exact_fallbacks": ivf.exact_fallbacks}}))
 """
 
 
@@ -208,19 +212,31 @@ def test_two_processes_checkpoint_resume(single):
               stages_run=[s for s in STAGES if s != "stage"])
 
 
-def test_ivf_is_refused_before_the_group_forms(single):
-    from fedrann_tpu_torch.cli import config_from_args
-    from fedrann_tpu_torch.parallel.runtime import run_pipeline_multihost
+def ivf_counts(out: str) -> dict:
+    """A rank's knn_ivf_sharded_multihost counts, as each rank prints
+    them."""
+    m = re.search(r"^IVF_COUNTS (.*)$", out, re.M)
+    assert m, out[-2000:]
+    return json.loads(m.group(1))
 
-    import torch
 
+@pytest.mark.parametrize("entries", [1, 2])
+def test_two_processes_ivf_match_single(single, entries):
+    """--knn-method ivf with C = p = 16 (tests/test_multihost_2proc.py's
+    two-process IVF test), with one and two local entries a rank: each
+    rank runs knn_ivf_sharded_multihost past its valve, and with every
+    cluster probed the merged table matches the single-process exact one
+    by check_run's bars."""
     fasta, _, _, tmp = single
-    config = config_from_args([
-        "-i", fasta, "-o", str(tmp / "ivf"), *FLAGS, "--knn-method", "ivf",
-        "--num-processes", "2", "--process-id", "0",
-        "--coordinator", "127.0.0.1:1"])
-    with pytest.raises(NotImplementedError, match="IVF"):
-        run_pipeline_multihost(config, torch.device("cpu"))
+    out = str(tmp / f"multi_ivf_x{entries}")
+    outs = launch(fasta, out, ["--knn-method", "ivf", "--knn-ivf-clusters",
+                               "16", "--knn-ivf-probes", "16"],
+                  entries=entries)
+    check_run(single, out, outs)
+    for o in outs:
+        assert ivf_counts(o) == {"calls": 1, "exact_fallbacks": 0}
+        assert (f"IVF k-NN over 2 processes x {entries} local entries"
+                in o)
 
 
 def test_a_failing_rank_fails_the_other(single):

@@ -72,18 +72,43 @@ def test_slice_matches_jax_pipeline(sim_input, tmp_path, k, dtype):
         assert stages[name]["seconds"] >= 0
 
 
-@pytest.mark.parametrize("flag", [
-    ["--knn-method", "ivf"], ["--knn-method", "ivf", "--knn-hbm-budget", "8G"],
-    ["--num-processes", "2", "--knn-method", "ivf"],
-    ["--coordinator", "localhost:1234", "--knn-method", "ivf"],
-    ["--knn-sharded", "always", "--knn-method", "ivf"],
-    ["--mesh-shape", "2", "--num-processes", "2", "--knn-method", "ivf"],
+@pytest.mark.parametrize("flag,search", [
+    (["--knn-method", "ivf"], "knn_ivf"),
+    (["--knn-method", "ivf", "--knn-hbm-budget", "8G"], "knn_ivf"),
+    (["--num-processes", "2", "--knn-method", "ivf"],
+     "knn_ivf_sharded_multihost"),
+    (["--coordinator", "localhost:1234", "--knn-method", "ivf"],
+     "knn_ivf_sharded_multihost"),
+    (["--knn-sharded", "always", "--knn-method", "ivf"], "knn_ivf_sharded"),
+    (["--mesh-shape", "2", "--num-processes", "2", "--knn-method", "ivf"],
+     "knn_ivf_sharded_multihost"),
 ])
-def test_flags_outside_the_slice_raise(sim_input, tmp_path, flag):
+def test_ivf_flags_reach_their_search(sim_input, tmp_path, flag, search):
+    """Each --knn-method ivf flag set reaches the IVF search of its path,
+    counted by the search's `.calls`: one process in core (8G is above the
+    valve for these reads) -> knn_ivf, --knn-sharded always -> knn_ivf_sharded
+    over the run's mesh, and two rank processes (a coordinator, here on a
+    free port, with --num-processes 2 and each rank's --process-id) ->
+    knn_ivf_sharded_multihost on each rank. The reads are below the IVF
+    valve, so each then takes its exact path."""
+    from fedrann_tpu_torch.knn import ivf, ooc
+
     _, path = sim_input
-    config = config_from_args(["-i", path, "-o", str(tmp_path), *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(config, CPU)
+    if search == "knn_ivf_sharded_multihost":
+        from test_torch_multihost import ivf_counts, launch
+
+        outs = launch(path, str(tmp_path), flag)
+        assert [ivf_counts(o) for o in outs] == [
+            {"calls": 1, "exact_fallbacks": 1}] * 2
+        assert os.path.exists(tmp_path / "overlaps.tsv")
+        return
+    fns = (ivf.knn_ivf, ivf.knn_ivf_sharded, ooc.knn_ivf_ooc,
+           ivf.knn_ivf_sharded_multihost)
+    before = [fn.calls for fn in fns]
+    run_pipeline(config_from_args(["-i", path, "-o", str(tmp_path), *flag]),
+                 CPU)
+    assert [fn.calls - b for fn, b in zip(fns, before)] == [
+        int(fn.__name__ == search) for fn in fns]
 
 
 def test_load_is_native_and_uploads_the_2bit_form(sim_input, tmp_path):

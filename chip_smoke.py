@@ -135,8 +135,10 @@ Phases; any failure exits non-zero and prints no result line:
          peak device memory within the budget plus a merge's library
          workspace, agreement >= 0.999 and sorted distances within 1e-6
          against an in-core top-k over the same wire rows on 2,048
-         sampled queries; its seconds, H2D bytes and rate, one block's
-         copy alone and knn_exact's seconds on the same rows logged.
+         sampled queries (K4 in one launch), and that top-k against
+         merge_block_plain at phase 12's bars; its seconds, H2D bytes
+         and rate, one block's copy alone, one merge's time (K4 and the
+         plain version) and knn_exact's seconds on the same rows logged.
   9. the sharded k-NN and step (knn/ring.py, parallel/), run after 8:
      (a) knn_exact_sharded with ring, allgather and ring2d (2 x 2) over a
          mesh of the card repeated 4 times, on 65,536 x 512 rows (8b's
@@ -206,12 +208,32 @@ Phases; any failure exits non-zero and prints no result line:
          calling knn_ivf_sharded_multihost once; gloo on one card, and
          with two or more cards also one card a rank over NCCL (with
          four, two cards a rank too).
+  12. the hand k-NN and sign-table kernels, run after 4e: K4
+     (csrc/knn_merge.cu) against merge_block_plain on the card at phase
+     4's rows (4d's checkpoint, 15,000 x 512, k = 50, bf16, then the fp32
+     form), at K4_ROWS x 512 and at OOC_ROWS x 512 on OOC_SAMPLE sampled
+     queries (rank 16 plus noise), and on edge cases (zero rows, ragged m,
+     n and d, m below a block, k past n, the ids form with a carry holding
+     EMPTY_KEY slots, both precisions): every kernel score within K4_TOL
+     of the plain score of its pair, each row's neighbor set the plain
+     one's but where the plain k-th and (k+1)-th scores are within
+     K4_TOL, agreement >= K4_AGREE; the kernel's time beside the plain
+     version's, the bf16 product alone (torch.matmul) and torch.topk on
+     the keys. K5 (csrc/srp_signs.cu) bitwise against sign_table_plain on
+     the card at phase 4's library size, and after 5b at the long reads'
+     (the library sizes the runs log), each with its time and bound.
+     Phase 4's knn logs its first-run set-up split (the library load, the
+     first K4 launch, keys_to_host); 4e's trace must show no GEMM and no
+     top-k kernel in the knn stage and no int64 elementwise chain in the
+     project stage. Every CLI run must launch K4 (but the in-core and
+     sharded IVF searches, which need not) and, with the sign table, K5;
+     no CUDA tensor reaches either plain version in a CLI run.
 8a runs twice: the second time under --profile, so the out-of-core
-search's CUDA graphs are captured inside a torch.profiler session.
+search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: stage_rows from the main path's, 9b's, 9c's,
+the runs of its own path: knn_merge and srp_signs from the main path's, stage_rows from the main path's, 9b's, 9c's,
 10's and 11's, membership_embed from the main path's, 8a's (twice), 9b's,
 10's and 11's, the other staging
 kernels summed over the three CLI runs (and 9b's),
@@ -226,9 +248,11 @@ where there is one; the last is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -290,6 +314,11 @@ IVF_ROWS, IVF_SHARD_ROWS, IVF_K, IVF_SAMPLE = 262_144, 65_536, 50, 2048
 # neighbor agreement of 11a's all-probed run with phase 4's exact table;
 # of the other IVF runs (11c-e) with 11a's
 IVF_AGREE_ALL, IVF_AGREE = 0.999, 0.99
+# 12: K4 against merge_block_plain: every kernel score within K4_TOL of
+# the plain score of its pair (float32 sums of 512 exact products in
+# another order); neighbor sets equal but at plain near-ties; agreement
+# >= K4_AGREE over every case; K4_ROWS x 512 rank-16 rows, k = K4_K
+K4_TOL, K4_AGREE, K4_ROWS, K4_K = 1e-5, 0.999, 65_536, 50
 
 
 COUNTERS: dict = {}
@@ -297,42 +326,50 @@ COUNTERS: dict = {}
 HOST_COUNTERS: dict = {}
 HAND_KERNELS: set = set()  # __global__ names of csrc/*.cu (is_hand)
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
-# sheet): device memory bytes/s, float32 operations/s outside tensor cores
-PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# sheet): device memory bytes/s, float32 operations/s outside tensor cores,
+# dense bf16 tensor-core operations/s
+PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # int32 operations/s, one integer-pipe instruction a lane a clock: 132 SMs
 # x 64 INT32 lanes (16 in each of an SM's four partitions) x 1.98 GHz boost
 # clock = 16.73e12
 PEAK_INT32 = 16.7e12
 CSRC = "fedrann_tpu_torch/csrc/"
-# kernel -> (source, the pl.pallas_call sites it replaces)
+# kernel -> (source, the JAX function it replaces: a pl.pallas_call site,
+# or for K4 and K5 the XLA function, which has none)
+_K12 = ("bench/pallas_kernels.py:128 canonical_and_sample, "
+        "bench/pallas_sort.py:128 sort_rows_pallas")
+_K1 = "bench/pallas_kernels.py:128 canonical_and_sample"
+_K3 = "bench/pallas_embed.py:277 merge_embed"
 SOURCES = {
-    "stage_rows": (CSRC + "select_stage_rows.cu",
-                   "bench/pallas_kernels.py:128, bench/pallas_sort.py:128"),
-    "stage_rows_packed": (CSRC + "select_stage_rows.cu",
-                          "bench/pallas_kernels.py:128, "
-                          "bench/pallas_sort.py:128"),
-    "stage_rows_bits": (CSRC + "select_stage_rows.cu",
-                        "bench/pallas_kernels.py:128, "
-                        "bench/pallas_sort.py:128"),
-    "canonical_sample": (CSRC + "canonical_sample.cu",
-                         "bench/pallas_kernels.py:128"),
-    "canonical_sample_packed": (CSRC + "canonical_sample.cu",
-                                "bench/pallas_kernels.py:128"),
-    "canonical_sample_bits": (CSRC + "canonical_sample.cu",
-                              "bench/pallas_kernels.py:128"),
+    "stage_rows": (CSRC + "select_stage_rows.cu", _K12),
+    "stage_rows_packed": (CSRC + "select_stage_rows.cu", _K12),
+    "stage_rows_bits": (CSRC + "select_stage_rows.cu", _K12),
+    "canonical_sample": (CSRC + "canonical_sample.cu", _K1),
+    "canonical_sample_packed": (CSRC + "canonical_sample.cu", _K1),
+    "canonical_sample_bits": (CSRC + "canonical_sample.cu", _K1),
     "select_candidates_long": (CSRC + "select_stage_rows.cu",
-                               "bench/pallas_sort.py:128"),
-    "membership_embed": (CSRC + "membership_embed.cu",
-                         "bench/pallas_embed.py:277"),
-    "membership_embed_dense": (CSRC + "membership_embed.cu",
-                               "bench/pallas_embed.py:277"),
-    "fk_probe_smem_scratch": (CSRC + "probes.cu", "bench/probe_mosaic.py:32"),
-    "fk_probe_smem_input": (CSRC + "probes.cu", "bench/probe_mosaic.py:55, "
-                            "bench/probe_mosaic2.py:30"),
-    "fk_probe_dyn_rows": (CSRC + "probes.cu", "bench/probe_mosaic.py:92, "
-                          "bench/probe_mosaic2.py:47"),
-    "fk_probe_bsearch": (CSRC + "probes.cu", "bench/probe_mosaic.py:146"),
+                               "bench/pallas_sort.py:128 sort_rows_pallas"),
+    "membership_embed": (CSRC + "membership_embed.cu", _K3),
+    "membership_embed_dense": (CSRC + "membership_embed.cu", _K3),
+    "knn_merge": (CSRC + "knn_merge.cu",
+                  "fedrann_tpu/knn/topk.py:146 _knn_tiles_qc (XLA "
+                  "dot_general + lax.top_k in a lax.scan)"),
+    "srp_signs": (CSRC + "srp_signs.cu",
+                  "fedrann_tpu/project/srp.py:151 build_precompute_signs, "
+                  ":202 _srp_sign_chunk, :219 _pack_signs (XLA)"),
+    "fk_probe_smem_scratch": (CSRC + "probes.cu",
+                              "bench/probe_mosaic.py:32 probe_smem_scratch"),
+    "fk_probe_smem_input": (CSRC + "probes.cu",
+                            "bench/probe_mosaic.py:55 probe_smem_input, "
+                            "bench/probe_mosaic2.py:30 probe_smem_input"),
+    "fk_probe_dyn_rows": (CSRC + "probes.cu",
+                          "bench/probe_mosaic.py:92 probe_dyn_sublane, "
+                          "bench/probe_mosaic2.py:47 _try"),
+    "fk_probe_bsearch": (CSRC + "probes.cu",
+                         "bench/probe_mosaic.py:146 probe_scalar_bsearch"),
 }
+# library sizes the CLI runs log ("library: L canonical k-mers"), in order
+LIBRARY_SIZES: list = []
 
 
 def fail(msg: str) -> None:
@@ -387,12 +424,14 @@ def is_hand(name: str) -> bool:
 
 
 def bound(n_bytes: float, fp32_ops: float = 0.0,
-          int32_ops: float = 0.0) -> dict:
+          int32_ops: float = 0.0, bf16_ops: float = 0.0) -> dict:
     """The least time the card could take for a function that must move
     n_bytes (each input read once, each output written once) and do
-    fp32_ops float32 and int32_ops int32 operations, and which bounds it."""
+    fp32_ops float32, int32_ops int32 and bf16_ops bf16 tensor-core
+    operations, and which bounds it."""
     by_bytes = n_bytes / PEAK_BYTES * 1e3
-    by_ops = max(fp32_ops / PEAK_FP32, int32_ops / PEAK_INT32) * 1e3
+    by_ops = max(fp32_ops / PEAK_FP32, int32_ops / PEAK_INT32,
+                 bf16_ops / PEAK_BF16) * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -1626,6 +1665,35 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
         split_overlap=config.kmer_size - 1), config, dev)
 
 
+@contextlib.contextmanager
+def no_plain_on_card():
+    """Inside: merge_block_plain and sign_table_plain (the plain versions
+    of K4 and K5) fail the run if they are given a CUDA tensor, which only
+    this script's reference calls may do."""
+    from fedrann_tpu_torch.knn import topk
+    from fedrann_tpu_torch.project import srp
+
+    merge, table = topk.merge_block_plain, srp.sign_table_plain
+
+    def guarded_merge(run, q, c, *args, **kwargs):
+        if q.device.type == "cuda" or c.device.type == "cuda":
+            fail("a CUDA tensor reached merge_block_plain in a CLI run")
+        return merge(run, q, c, *args, **kwargs)
+
+    def guarded_table(*args, **kwargs):
+        device = kwargs.get("device", args[4] if len(args) > 4 else None)
+        if device is not None and device.type == "cuda":
+            fail("a CUDA device reached sign_table_plain in a CLI run")
+        return table(*args, **kwargs)
+
+    topk.merge_block_plain, srp.sign_table_plain = guarded_merge, \
+        guarded_table
+    try:
+        yield
+    finally:
+        topk.merge_block_plain, srp.sign_table_plain = merge, table
+
+
 def reset_counts() -> None:
     """Every kernel's launch count and every host count to 0."""
     for fn, attr in (*COUNTERS.values(), *HOST_COUNTERS.values()):
@@ -1670,14 +1738,16 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     reset_counts()
     n_reads = len(sim.names)
     t0 = time.perf_counter()
-    rc = cli_main(["-i", fasta, "-o", out_dir, *flags])
+    with no_plain_on_card():
+        rc = cli_main(["-i", fasta, "-o", out_dir, *flags])
     wall = time.perf_counter() - t0
     launches = read_counts(COUNTERS)
     host = read_counts(HOST_COUNTERS)
     if rc != 0:
         fail(f"cli.main returned {rc}")
     check_launches(launches, paths, None if resumed else embed,
-                   "the main path")
+                   "the main path", knn_expected(flags),
+                   embed == "membership_embed")
     check_host(host, load, "the main path")
     log(f"main path launches: {launches}; host counts: {host}")
 
@@ -1763,14 +1833,31 @@ def roofline(stages: dict) -> str:
             f"{embed.get('hbm_util_pct', 'none')}%")
 
 
-def check_launches(launches: dict, paths: set, embed: str,
-                   what: str) -> None:
+def knn_expected(flags: list[str]) -> bool | None:
+    """Whether a CLI run with `flags` must launch K4: every exact search,
+    and the out-of-core IVF search (exact's slab loop); the in-core and
+    sharded IVF searches rescore in torch ops, so None (not checked)."""
+    if "ivf" not in flags or "--knn-hbm-budget" in flags:
+        return True
+    return None
+
+
+def check_launches(launches: dict, paths: set, embed: str | None,
+                   what: str, knn: bool | None = True,
+                   signs: bool | None = None) -> None:
     """Each staging kernel launched exactly where the plan picks its path
-    (`paths`), kernel C in the projection's form `embed` only, and every
+    (`paths`), kernel C in the projection's form `embed` only, K4 as `knn`
+    says (None: either), K5 where the projection is the sign table
+    (`signs`; by default where `embed` is kernel C's sign form), and every
     other kernel launched."""
+    signs = embed == "membership_embed" if signs is None else signs
     for name, n in launches.items():
         want = (name in paths if name in STAGE_KERNELS
-                else name == embed if name in EMBED_KERNELS else True)
+                else name == embed if name in EMBED_KERNELS
+                else signs if name == "srp_signs"
+                else knn if name == "knn_merge" else True)
+        if want is None:
+            continue
         if (n > 0) != want:
             fail(f"kernel {name} was launched {n} times by {what}, "
                  f"expected {'some' if want else 'none'}")
@@ -1853,14 +1940,57 @@ def device_busy_us(trace_path: str) -> tuple[float, int]:
     return busy + (cur[1] - cur[0] if cur else 0.0), len(spans)
 
 
+def stage_kernels_in_trace(trace_path: str, stage: str) -> list[str]:
+    """The names of the kernels a torch.profiler Chrome trace shows inside
+    the "stage:<stage>" range (metrics.stage's record_function; the stage
+    synchronizes the device at both ends, so its kernels run inside it)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("ph") == "X" and e.get("name") == f"stage:{stage}"
+             and e.get("cat") == "user_annotation"]
+    if not spans:
+        fail(f"4e: the trace has no stage:{stage} range")
+    return [e["name"] for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and any(a <= e["ts"] <= b for a, b in spans)]
+
+
+def check_stage_kernels(trace: str, card: str) -> None:
+    """Phase 4e's trace: the exact knn runs K4 and no library GEMM or
+    top-k kernel; the project stage runs K5 and no int64 elementwise chain
+    (at most the two kernels that turn the L counts into ICF weights)."""
+    knn = stage_kernels_in_trace(trace, "knn")
+    project = stage_kernels_in_trace(trace, "project")
+    library = [n for n in knn if any(
+        w in n.lower() for w in ("gemm", "cutlass", "xmma", "topk",
+                                 "sort", "cublas"))]
+    int64 = [n for n in project if "elementwise" in n and (
+        "long" in n or "int64" in n)]
+    def names(kernels):
+        cut = [n.removeprefix("void ") for n in kernels]
+        return sorted({n[: n.find("(", 1)][:90] for n in cut})
+
+    log(f"4e trace: {len(knn)} knn stage kernels {names(knn)}; "
+        f"{len(project)} project stage kernels {names(project)} [{card}]")
+    if not any(is_hand(n) and "knn_merge" in n for n in knn) or library:
+        fail(f"4e: the knn stage ran {knn}: K4 missing or a library GEMM / "
+             f"top-k kernel {library}")
+    if not any(is_hand(n) and "srp_signs" in n for n in project) \
+            or len(int64) > 2:
+        fail(f"4e: the project stage ran {project}: K5 missing or an int64 "
+             f"elementwise chain {int64}")
+
+
 def check_feature_flags(fasta: str, out_dir: str, sim, card: str,
                         dev) -> None:
     """Phase 4e: run_pipeline on the main path with --profile --mprof
     --save-feature-matrix and the counts reset just before, checked as
     phase 4's launches and loads: trace/trace.json, mprof.dat and
     feature_matrix.npz must exist, the .npz embeddings and names must
-    equal the result's; logs the device busy time and idle share that the
-    trace gives."""
+    equal the result's, and the stages' kernels as check_stage_kernels
+    says; logs the device busy time and idle share that the trace
+    gives."""
     import numpy as np
     import torch
 
@@ -1873,7 +2003,8 @@ def check_feature_flags(fasta: str, out_dir: str, sim, card: str,
     paths = stage_paths(sim, FLAGS, dev)
     reset_counts()
     t0 = time.perf_counter()
-    res = pipeline.run_pipeline(config, dev)
+    with no_plain_on_card():
+        res = pipeline.run_pipeline(config, dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     check_launches(read_counts(COUNTERS), paths, "membership_embed",
                    "the 4e run")
@@ -1896,6 +2027,7 @@ def check_feature_flags(fasta: str, out_dir: str, sim, card: str,
     busy_us, n = device_busy_us(trace)
     if n == 0:
         fail("4e: the trace holds no device activity")
+    check_stage_kernels(trace, card)
     log(f"4e --profile --mprof --save-feature-matrix: {wall_ms:.1f} ms of "
         f"wall (profiled); device busy {busy_us / 1e3:.3f} ms over {n} "
         f"kernels and copies: idle {100 * (1 - busy_us / 1e3 / wall_ms):.2f}"
@@ -2004,7 +2136,8 @@ def check_split_reads(sim, out_dir: str, dev, card: str) -> dict:
     paths = stage_paths(reads, FLAGS, dev)
     reset_counts()
     t0 = time.perf_counter()
-    res = pipeline.run_pipeline(config, dev)
+    with no_plain_on_card():
+        res = pipeline.run_pipeline(config, dev)
     wall = time.perf_counter() - t0
     launches = read_counts(COUNTERS)
     check_host(read_counts(HOST_COUNTERS), "parse", "the split-read run")
@@ -2060,7 +2193,8 @@ def check_golden(out_dir: str, dev, card: str) -> int:
             split_overlap=config.kmer_size - 1), config, dev)
         reset_counts()
         t0 = time.perf_counter()
-        res = pipeline.run_pipeline(config, dev)
+        with no_plain_on_card():
+            res = pipeline.run_pipeline(config, dev)
         wall = time.perf_counter() - t0
         launches = read_counts(COUNTERS)
         host = read_counts(HOST_COUNTERS)
@@ -2274,14 +2408,14 @@ def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
 def merge_workspace(dev, ct: int, d: int, k: int, qt: int = 512) -> int:
     """Device bytes one merge_block at (qt, ct) holds past what the plan
     counts for it (its scores and keys, PAIR_BYTES a pair, and 24 bytes a
-    query row and neighbor): the libraries' own workspaces (torch.topk,
-    cuBLAS), 0 when the plan's count covers them."""
+    query row and neighbor), 0 when the plan's count covers them: on the
+    card K4, which holds no tile and writes over its carry."""
     import torch
 
     from fedrann_tpu_torch.knn.topk import PAIR_BYTES, merge_block
 
-    q = torch.randn((qt, d), device=dev)
-    c = torch.randn((ct, d), device=dev)
+    q = torch.randn((qt, d), device=dev).to(torch.bfloat16)
+    c = torch.randn((ct, d), device=dev).to(torch.bfloat16)
     run = merge_block(None, q, c, 0, k)
     torch.cuda.synchronize(dev)
     before = torch.cuda.memory_allocated(dev)
@@ -2311,16 +2445,23 @@ def check_ooc_search(dev, card: str) -> float:
     peak device memory over the call within the budget plus the
     libraries' workspaces (merge_workspace), and on OOC_SAMPLE query rows
     agreement >= OOC_AGREE_SEARCH with an in-core top-k over the same wire
-    rows, sorted distances within 1e-6. Logs the search's seconds, its H2D
-    bytes and rate, host_wire's seconds, one block's copy alone, one
-    merge's event and device time at the plan's tile and at knn_exact's,
-    and knn_exact's seconds on the same rows. Returns the search's
-    seconds."""
+    rows (K4 in one launch on the card: every distance the same, bitwise),
+    and against merge_block_plain's top-k over them at K4's bars
+    (hold_k4). Logs the search's seconds, its H2D bytes and rate,
+    host_wire's seconds, one block's copy alone, one merge's event and
+    device time (K4's and the plain version's) at 512 query rows and the
+    plan's tile and knn_exact's, and knn_exact's seconds on the same rows.
+    Returns the search's seconds."""
     import numpy as np
     import torch
 
     from fedrann_tpu_torch.knn import ooc
-    from fedrann_tpu_torch.knn.topk import keys_to_host, knn_exact, merge_block
+    from fedrann_tpu_torch.knn.topk import (
+        keys_to_host,
+        knn_exact,
+        merge_block,
+        merge_block_plain,
+    )
 
     n, d, k, budget = OOC_ROWS, 512, 50, OOC_BUDGET
     t0 = time.perf_counter()
@@ -2356,41 +2497,36 @@ def check_ooc_search(dev, card: str) -> float:
     wire = ooc.host_wire(emb)  # the search's own first step, timed alone
     wire_secs = time.perf_counter() - t0
     sample = np.sort(rng.choice(n, OOC_SAMPLE, replace=False))
-    cand = wire.to(dev).float()
+    cand = wire.to(dev)
     q = cand[torch.from_numpy(sample).to(dev)]
-    run = None
-    for c0 in range(0, n, 131072):
-        run = merge_block(run, q, cand[c0 : c0 + 131072], c0, k)
-    ref_idx, ref_dist = keys_to_host(run, "f32", n)
-    del cand, q, run
+    keys = merge_block(None, q, cand, 0, k)
+    ref_idx, ref_dist = keys_to_host(keys, "f32", n)
     agree = np.mean([len(set(a) & set(b)) / k
                      for a, b in zip(idx[sample], ref_idx)])
     err = float(np.abs(np.sort(dist[sample], 1) - np.sort(ref_dist, 1)).max())
+    plain_err, plain_agree, ties, _ = hold_k4("8b", keys, q, cand, k,
+                                              "bf16")
+    del cand, q, keys
 
-    # one merge at 8a's tile, the plan's and knn_exact's: event time (what
-    # a merge costs the stream, launch gaps included) beside device time,
-    # eager and, below knn_exact's tile, as the search replays it
+    # one merge of 512 query rows over 8a's tile, the plan's and
+    # knn_exact's: event time (what a merge costs the stream, launch gaps
+    # included) beside device time, K4 and its plain version
     costs = []
     for width in sorted({512, ct, 131072}):
-        q = torch.randn((512, d), device=dev)
-        c = torch.randn((width, d), device=dev)
+        q = torch.randn((512, d), device=dev).to(torch.bfloat16)
+        c = torch.randn((width, d), device=dev).to(torch.bfloat16)
         run = merge_block(None, q, c, 0, k)
 
         def merge(run=run, q=q, c=c, width=width):
             merge_block(run, q, c, width, k)
 
-        text = (f"{width}-row tile eager {time_cuda(merge, 20) * 1e3:.1f} us "
-                f"by events, device {device_us(merge, 20, False)} us")
-        if width < 131072:
-            graph = ooc._GraphMerge(512, width, d, k, dev)
-            graph.load(c)
+        def plain(run=run, q=q, c=c, width=width):
+            merge_block_plain(run, q, c, width, k)
 
-            def replay(graph=graph, run=run.clone(), q=q, width=width):
-                graph(run, q, width)
-
-            text += f", one CUDA graph {time_cuda(replay, 20) * 1e3:.1f} us"
-            del graph
-        costs.append(text)
+        costs.append(
+            f"{width}-row tile K4 {time_cuda(merge, 20) * 1e3:.1f} us by "
+            f"events, device {device_us(merge, 20, True)} us; plain "
+            f"{time_cuda(plain, 5) * 1e3:.1f} us")
     del q, c, run
     log(f"8b one merge of 512 query rows: {'; '.join(costs)} [{card}]")
 
@@ -2411,8 +2547,10 @@ def check_ooc_search(dev, card: str) -> float:
         f"{c_rows}-row block alone {copy_ms:.3f} ms = "
         f"{c_rows * d * 2 / copy_ms / 1e6:.2f} GB/s; peak {delta} bytes over "
         f"the call (plan {held}, budget {budget}); on {OOC_SAMPLE} sampled "
-        f"queries agreement {agree:.5f} with the in-core top-k, sorted "
-        f"distances within {err:.3g} [{card}]")
+        f"queries agreement {agree:.5f} with the in-core top-k (K4), sorted "
+        f"distances within {err:.3g}; against merge_block_plain agreement "
+        f"{plain_agree:.5f}, scores within {plain_err:.3g}, {ties} near-tie "
+        f"rows [{card}]")
     if agree < OOC_AGREE_SEARCH or err > 1e-6:
         fail(f"8b: agreement {agree:.5f} (want >= {OOC_AGREE_SEARCH}), "
              f"distance error {err} (want <= 1e-6)")
@@ -2902,7 +3040,8 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
     """One phase 10 run: two ranks of the CLI (drive_ranks), checked as
     9b: both exit 0; each rank launched K1+K2 (a fused staging kernel) and
     K3 and no staging kernel outside `paths` (none of either when
-    `resumed`), loaded as `loads` says (rank 0 first: "parse" a native
+    `resumed`), K5 (the sign table, every run) and K4 (as knn_expected
+    says for `flags`), loaded as `loads` says (rank 0 first: "parse" a native
     parse, "cache" one fxcache.npz load, "ranged" a byte-range parse) with
     no Python reader or packer and no pinning copy; both gathered the
     single-process library `ref["library"]`; the merged overlaps.tsv
@@ -2931,6 +3070,10 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
                 or not staging <= paths or not kernels["membership_embed"]:
             fail(f"{label} rank {rank}: launches {kernels}, staging kernels "
                  f"{staging} not within {paths} or K1+K2 / K3 missing")
+        if not kernels["srp_signs"] or (knn_expected(flags)
+                                        and not kernels["knn_merge"]):
+            fail(f"{label} rank {rank}: launches {kernels}, K5 or K4 "
+                 "missing")
         want = {"read_fastx": 0, "pack_reads": 0, "pin_copies": 0,
                 "pack_reads_native": int(loads[rank] in ("parse", "ranged")),
                 "cache_hits": int(loads[rank] == "cache")}
@@ -3056,8 +3199,9 @@ def check_multiprocess(fasta: str, out_dir: str, sim, card: str, dev,
 
 def check_ooc_profile(fasta: str, out_dir: str, in_core_tsv: str, sim,
                       card: str, dev) -> dict:
-    """8a's CLI run again under --profile: the out-of-core merges (CUDA
-    graphs captured and replayed) inside a torch.profiler session; checked
+    """8a's CLI run again under --profile: the out-of-core merges (K4
+    launches, one a query slab and candidate block) inside a
+    torch.profiler session; checked
     as phase 4 (drive_cli), the trace must exist and hold device activity,
     the plan's slabs must upload, and agreement with phase 4's in-core
     table >= OOC_AGREE_CLI. Returns the launch counts."""
@@ -3440,6 +3584,330 @@ def check_ivf(fasta: str, out_dir: str, sim, card: str, dev,
     return totals
 
 
+def hold_k4(label: str, got, q, c, k: int, precision: str, first: int = 0,
+            ids=None, run=None, chunk: int = 2048):
+    """Hold K4's keys `got` (the merge of query rows q over candidate rows
+    c, whose indices are first + j or ids[j], into the carry run) against
+    merge_block_plain on the same inputs, on the card, query chunk by
+    chunk: the plain width and unset slots, strictly descending keys,
+    every score within K4_TOL of the plain product's score of its pair (a
+    carry entry kept as it was), and each row's neighbor set the plain
+    one's but where the plain k-th and (k+1)-th scores are within K4_TOL.
+    Returns (the largest score error, the share of neighbors the plain
+    version also has, the near-tie rows, the neighbors)."""
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import (
+        EMPTY_KEY,
+        _decode_keys,
+        merge_block_plain,
+        round_rows,
+    )
+
+    m, n = q.shape[0], c.shape[0]
+    width = min(k, (0 if run is None else run.shape[1]) + n)
+    if tuple(got.shape) != (m, width):
+        fail(f"{label}: K4 gave {tuple(got.shape)} keys, want {(m, width)}")
+    cr = round_rows(c.float(), precision)
+    if ids is not None:
+        pos = torch.full((int(ids.max()) + 1,), -1, dtype=torch.int64,
+                         device=c.device)
+        pos[ids] = torch.arange(n, device=c.device)
+    err, hit, total, ties = 0.0, 0, 0, 0
+    for q0 in range(0, m, chunk):
+        g, qc = got[q0 : q0 + chunk], q[q0 : q0 + chunk]
+        carry = None if run is None else run[q0 : q0 + chunk]
+        want = merge_block_plain(None if carry is None else carry.clone(),
+                                 qc, c, first if ids is None else ids,
+                                 width + 1, precision)
+        empty = g == EMPTY_KEY
+        if not torch.equal(empty, want[:, :width] == EMPTY_KEY):
+            fail(f"{label}: K4's unset slots differ from the plain version's")
+        if not bool(((g[:, 1:] < g[:, :-1]) | empty[:, 1:]).all()):
+            fail(f"{label}: K4's keys are not strictly descending")
+        gs, gi = _decode_keys(g)
+        ws, wi = _decode_keys(want)
+        if ids is None:
+            col = gi - first
+            mine = (col >= 0) & (col < n) & ~empty
+        else:
+            inside = (gi >= 0) & (gi < pos.shape[0])
+            col = torch.where(inside, pos[gi.clamp(0, pos.shape[0] - 1)], -1)
+            mine = (col >= 0) & ~empty
+        pair = (round_rows(qc.float(), precision) @ cr.T).gather(
+            1, col.clamp(0, n - 1))
+        if bool(mine.any()):
+            err = max(err, float((gs - pair).abs()[mine].max()))
+        kept = ~mine & ~empty
+        if bool(kept.any()) and not bool(
+                (g[:, :, None] == carry[:, None, :]).any(-1)[kept].all()):
+            fail(f"{label}: K4 kept a key that is neither a candidate's "
+                 "nor the carry's")
+        tie = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+        if want.shape[1] > width:
+            tie = (want[:, width] != EMPTY_KEY) & (
+                ws[:, width - 1] - ws[:, width] <= K4_TOL)
+        gi = gi.masked_fill(empty, -1)
+        wi = wi[:, :width].masked_fill(empty, -1)
+        same = (torch.sort(gi, dim=1).values
+                == torch.sort(wi, dim=1).values).all(dim=1)
+        if not bool((same | tie).all()):
+            r = int(torch.nonzero(~(same | tie))[0, 0]) + q0
+            fail(f"{label}: row {r}'s neighbors differ from the plain "
+                 "version's away from a near-tie")
+        hit += int(((gi[:, :, None] == wi[:, None, :]).any(-1)
+                    & ~empty).sum())
+        total += int((~empty).sum())
+        ties += int(tie.sum())
+    if err > K4_TOL:
+        fail(f"{label}: a K4 score is {err} from the plain one (tolerance "
+             f"{K4_TOL})")
+    return err, hit / max(total, 1), ties, total
+
+
+def k4_edge_cases(dev):
+    """K4's edge cases on the card: name -> (run, q, c, first, ids, k),
+    unit rows from numpy (FLAGS' --seed), zero rows at query rows 0 and 5
+    and candidate rows 7 and n - 1 (a zero query row ties at +0.0 on
+    every candidate)."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import (
+        EMPTY_KEY,
+        merge_block_plain,
+        normalize_rows,
+    )
+
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+
+    def rows(n, d):
+        return normalize_rows(torch.from_numpy(rng.standard_normal(
+            (n, d), dtype=np.float32)).to(dev))
+
+    cases = {}
+    for name, m, n, d, k in (("zero rows, ragged m and n", 1037, 3001, 512,
+                              50),
+                             ("m below a block, d = 40", 7, 513, 40, 16),
+                             ("k past n", 200, 30, 64, 50),
+                             ("k past a tile", 64, 2000, 32, 300),
+                             ("ids form, carry with unset slots", 300, 777,
+                              512, 50)):
+        q, c = rows(m, d), rows(n, d)
+        q[[0, 5 % m]] = 0
+        c[[7, n - 1]] = 0
+        run = ids = None
+        if name.startswith("ids"):
+            ids = torch.from_numpy(rng.permutation(10 * n)[:n]).to(dev)
+            run = merge_block_plain(None, q, rows(100, d), 100_000, k)
+            run[::2, k - 20 :] = EMPTY_KEY
+        cases[name] = (run, q, c, 0 if ids is not None else 17, ids, k)
+    return cases
+
+
+def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
+    """Phase 12, K4 and K5 against their plain versions on the card: K4 at
+    phase 4's rows (4d's checkpoint; bf16, then the fp32 form), at K4_ROWS
+    and OOC_ROWS x 512 rank-16 rows (OOC_SAMPLE sampled queries over
+    OOC_ROWS), and on k4_edge_cases at both precisions (hold_k4; zero query
+    rows bitwise the plain keys), agreement >= K4_AGREE over every case;
+    K5 at phase 4's library size (check_sign_table). Logs each time beside
+    the plain version's, the bf16 product alone (torch.matmul, the
+    yardstick) and torch.topk on the keys. Returns K4's and K5's report
+    entries at the main path's shapes."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.knn.topk import (
+        _order_keys,
+        merge_block,
+        merge_block_plain,
+        normalize_rows,
+    )
+
+    tally = []
+    x = normalize_rows(torch.from_numpy(np.load(os.path.join(
+        ckpt_dir, "embeddings.npy"))).to(dev))
+    m, d = x.shape
+    k = K4_K
+    report = {}
+    for precision, rows in (("bf16", x.to(torch.bfloat16)), ("fp32", x)):
+        got = merge_block(None, rows, rows, 0, k, precision)
+        err, agree, ties, total = hold_k4(
+            f"12 phase 4's rows ({precision})", got, rows, rows, k,
+            precision)
+        tally.append((agree, total))
+        ms = time_cuda(lambda: merge_block(None, rows, rows, 0, k,
+                                           precision), 10)
+        plain_ms = time_cuda(lambda: merge_block_plain(
+            None, rows, rows, 0, k, precision), 3)
+        ops = 2 * m * m * d
+        b = bound(2 * rows.numel() * rows.element_size() + m * k * 8,
+                  **({"bf16_ops": ops} if precision == "bf16"
+                     else {"fp32_ops": ops}))
+        library_ms = time_cuda(lambda: torch.matmul(rows, rows.T), 10)
+        keys = _order_keys(rows.float() @ rows.float().T, 0)
+        topk_ms = time_cuda(lambda: torch.topk(keys, k, dim=1), 3)
+        del keys
+        log(f"12 K4 {precision} at phase 4's rows ({m} x {d}, k = {k}): "
+            f"{ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, device "
+            f"{device_us(lambda: merge_block(None, rows, rows, 0, k, precision), 5, True)} "
+            f"us a launch; plain {plain_ms:.4f} ms; torch.matmul of the "
+            f"rows {library_ms:.4f} ms, torch.topk of the keys "
+            f"{topk_ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']}, {100 * b['bound_ms'] / ms:.1f}% of it); "
+            f"scores within {err:.3g}, agreement {agree:.6f}, {ties} "
+            f"near-tie rows [{card}]")
+        if precision == "bf16":
+            report["knn_merge"] = dict(max_abs_err=err, ms=ms,
+                                       plain_ms=plain_ms,
+                                       library_ms=library_ms, **b)
+    del x
+
+    emb, rng = rank16_rows(OOC_ROWS, 512)
+    sample = np.sort(rng.choice(OOC_ROWS, OOC_SAMPLE, replace=False))
+    for label, n, queries in ((f"{K4_ROWS} x 512", K4_ROWS, None),
+                              (f"{OOC_ROWS} x 512, {OOC_SAMPLE} sampled "
+                               "queries", OOC_ROWS, sample)):
+        c = normalize_rows(torch.from_numpy(emb[:n]).to(dev)).to(
+            torch.bfloat16)
+        q = c if queries is None else c[torch.from_numpy(queries).to(dev)]
+        got = merge_block(None, q, c, 0, K4_K)
+        err, agree, ties, total = hold_k4(f"12 {label}", got, q, c, K4_K,
+                                          "bf16")
+        tally.append((agree, total))
+        ms = time_cuda(lambda: merge_block(None, q, c, 0, K4_K), 3)
+        mm = time_cuda(lambda: torch.matmul(q, c.T), 3)
+        ops = 2 * q.shape[0] * n * 512
+        log(f"12 K4 bf16 at {label}, k = {K4_K}: {ms:.3f} ms = "
+            f"{ops / ms / 1e9:.1f} TFLOP/s (bound "
+            f"{bound(0, bf16_ops=ops)['bound_ms']:.3f} ms); torch.matmul of "
+            f"the rows {mm:.3f} ms; scores within {err:.3g}, agreement "
+            f"{agree:.6f}, {ties} near-tie rows [{card}]")
+        del c, q, got
+    del emb
+
+    for name, (run, q, c, first, ids, kk) in k4_edge_cases(dev).items():
+        for precision in ("bf16", "fp32"):
+            got = merge_block(None if run is None else run.clone(), q, c,
+                              first if ids is None else ids, kk, precision)
+            err, agree, ties, total = hold_k4(
+                f"12 {name} ({precision})", got, q, c, kk, precision,
+                first, ids, run)
+            tally.append((agree, total))
+            if run is None:
+                want = merge_block_plain(None, q, c, first, kk, precision)
+                if not torch.equal(got[[0, 5 % q.shape[0]]],
+                                   want[[0, 5 % q.shape[0]]]):
+                    fail(f"12 {name} ({precision}): a zero query row's keys "
+                         "differ from the plain version's")
+            log(f"12 K4 {name} ({precision}): {tuple(q.shape)} over "
+                f"{tuple(c.shape)}, k = {kk}: scores within {err:.3g}, "
+                f"agreement {agree:.6f}, {ties} near-tie rows")
+    overall = (sum(a * t for a, t in tally) / max(sum(t for _, t in tally),
+                                                  1))
+    log(f"12 K4 agreement over every case {overall:.6f} (bar {K4_AGREE}) "
+        f"[{card}]")
+    if overall < K4_AGREE:
+        fail(f"12: K4's agreement {overall:.6f} with the plain version "
+             f"below {K4_AGREE}")
+
+    config = config_from_args(["-i", "-", "-o", "-", *FLAGS])
+    lib = np.load(os.path.join(ckpt_dir, "library.npz"))
+    report["srp_signs"] = check_sign_table(
+        "12 K5 at phase 4's library", len(lib["counts"]),
+        config.embedding_dimension, config.projection_seed,
+        config.projection_density, dev, card)
+    return report
+
+
+def check_sign_table(label: str, lib_size: int, d: int, seed: int,
+                     density, dev, card: str) -> dict:
+    """K5 against sign_table_plain on the card, bitwise, at a library of
+    lib_size k-mers (density None: the CLI's 1/sqrt(2L)), with its time,
+    the plain version's and its bound: the table's bytes written once, or
+    the integer-pipe instructions csrc/srp_signs.cu counts a field
+    (SIGN_FIELD_INSTR) over 2d fields a row. Returns its report entry."""
+    import re
+
+    import torch
+
+    from fedrann_tpu_torch.project.srp import (
+        seed_mix_of,
+        sign_table,
+        sign_table_plain,
+    )
+
+    density = density or 1.0 / (2 * lib_size) ** 0.5
+    mix = seed_mix_of(seed)
+    got = sign_table(lib_size, d, mix, density, dev)
+    if not torch.equal(got, sign_table_plain(lib_size, d, mix, density,
+                                             dev)):
+        fail(f"{label}: K5 differs from its plain version")
+    with open(os.path.join(HERE, CSRC, "srp_signs.cu")) as f:
+        instr = int(re.search(r"constexpr int SIGN_FIELD_INSTR = (\d+);",
+                              f.read()).group(1))
+    ms = time_cuda(lambda: sign_table(lib_size, d, mix, density, dev), 10)
+    plain_ms = time_cuda(lambda: sign_table_plain(lib_size, d, mix,
+                                                  density, dev), 2)
+    b = bound(got.numel() * 4, int32_ops=lib_size * 2 * d * instr)
+    log(f"{label}: L = {lib_size}, d = {d}, table {tuple(got.shape)} "
+        f"bitwise the plain one; {ms:.4f} ms, device "
+        f"{device_us(lambda: sign_table(lib_size, d, mix, density, dev), 5, True)}"
+        f" us a launch; plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.5f} ms ({b['bound_by']}: {instr} instructions a "
+        f"field; {100 * b['bound_ms'] / ms:.1f}% of it) [{card}]")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+
+
+@contextlib.contextmanager
+def knn_first_run_split():
+    """Around phase 4's CLI run, the first K4 launches of the process:
+    times, each between two synchronizes, the kernel library's load at
+    each K4 launch (_build.kernels; the run's first staging kernel has
+    loaded it) and each launch (with its CUDA event time), and every
+    keys_to_host call. Yields the dict it fills."""
+    import torch
+
+    from fedrann_tpu_torch import _build
+    from fedrann_tpu_torch.knn import topk
+
+    launch, to_host = _build.launch, topk.keys_to_host
+    split = {"library": [], "launches": [], "keys_to_host": []}
+
+    def timed_launch(name, *args, **kwargs):
+        if name != "fk_knn_merge":
+            return launch(name, *args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _build.kernels()
+        split["library"].append(time.perf_counter() - t0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        launch(name, *args, **kwargs)
+        end.record()
+        torch.cuda.synchronize()
+        split["launches"].append((time.perf_counter() - t0,
+                                  start.elapsed_time(end) / 1e3))
+
+    def timed_to_host(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = to_host(*args, **kwargs)
+        split["keys_to_host"].append(time.perf_counter() - t0)
+        return out
+
+    _build.launch, topk.keys_to_host = timed_launch, timed_to_host
+    try:
+        yield split
+    finally:
+        _build.launch, topk.keys_to_host = launch, to_host
+
+
 def read_overlaps(path: str):
     """(header, rows per (query, orientation)); fails on a distance
     outside [0, 2]."""
@@ -3475,10 +3943,13 @@ def register_counters() -> None:
     )
     from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+    from fedrann_tpu_torch.knn.topk import merge_block
+    from fedrann_tpu_torch.logging_utils import logger
     from fedrann_tpu_torch.project.embed import (
         membership_embed,
         membership_embed_dense,
     )
+    from fedrann_tpu_torch.project.srp import sign_table
 
     COUNTERS.update({
         **{f"stage_rows{sfx}": (stage_candidates, f"{src}_launches")
@@ -3489,7 +3960,9 @@ def register_counters() -> None:
                             ("_bits", "bits"))},
         "select_candidates_long": (select_candidates, "long_launches"),
         "membership_embed": (membership_embed, "launches"),
-        "membership_embed_dense": (membership_embed_dense, "launches")})
+        "membership_embed_dense": (membership_embed_dense, "launches"),
+        "knn_merge": (merge_block, "kernel_launches"),
+        "srp_signs": (sign_table, "kernel_launches")})
     HOST_COUNTERS.update({
         "pack_reads_native": (native.pack_reads_native, "calls"),
         "read_fastx": (read_fastx, "calls"),
@@ -3506,6 +3979,13 @@ def register_counters() -> None:
         "ivf_sharded_calls": (knn_ivf_sharded, "calls"),
         "ivf_multihost_calls": (knn_ivf_sharded_multihost, "calls")})
 
+    class LibrarySizes(logging.Handler):
+        def emit(self, record: logging.LogRecord) -> None:
+            if record.msg.startswith("library: "):
+                LIBRARY_SIZES.append(int(record.args[0]))
+
+    logger.addHandler(LibrarySizes())
+
 
 def main() -> None:
     import torch
@@ -3520,6 +4000,7 @@ def main() -> None:
     try:
         import fedrann_tpu_torch  # noqa: F401
         from fedrann_tpu_torch import _build
+        from fedrann_tpu_torch.cli import config_from_args
         from fedrann_tpu_torch.device import get_device
         from fedrann_tpu_torch.io import native
         from fedrann_tpu_torch.kmers.membership import STATIC_SMEM
@@ -3580,8 +4061,18 @@ def main() -> None:
         for name, r in report.items():
             log_kernel(name, r, card)
 
-        launches, secs = drive_cli(fasta, os.path.join(tmp, "out"), sim,
-                                   MIN_OVERLAP, card, dev)
+        with knn_first_run_split() as split:
+            launches, secs = drive_cli(fasta, os.path.join(tmp, "out"), sim,
+                                       MIN_OVERLAP, card, dev)
+        first, rest = split["launches"][0], split["launches"][1:]
+        log(f"4 knn first-run split: knn stage {secs['knn']:.4f} s = the "
+            f"kernel library's load at the K4 launch "
+            f"{sum(split['library']):.6f} s (loaded by the run's first "
+            f"staging kernel) + the first K4 launch {first[0]:.4f} s (its "
+            f"kernel {first[1]:.4f} s by events) + {len(rest)} more "
+            f"launches {sum(r[0] for r in rest):.4f} s + keys_to_host "
+            f"{sum(split['keys_to_host']):.4f} s + the rest (normalize, "
+            f"the bf16 rows, timing syncs) [{card}]")
         phase4 = (dict(launches), secs)
         # 4c: the same again on the same -o: from the packed-reads cache
         _, secs_c = drive_cli(fasta, os.path.join(tmp, "out"), sim,
@@ -3608,12 +4099,16 @@ def main() -> None:
         check_checkpoints(fasta, os.path.join(tmp, "ckpt"), sim, card, dev)
         check_feature_flags(fasta, os.path.join(tmp, "flags"), sim, card,
                             dev)
+        # 12: K4 and K5 against their plain versions (phase 4's rows and
+        # library from 4d's checkpoints)
+        report.update(check_knn_kernels(
+            os.path.join(tmp, "ckpt", "checkpoints"), dev, card))
         # 8: out of core, on phase 4's reads (8a) and at 262,144 rows (8b)
         launches["membership_embed"] += check_ooc_cli(
             fasta, os.path.join(tmp, "ooc"),
             os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
             dev)["membership_embed"]
-        # 8a again under --profile: the graph merges inside the profiler
+        # 8a again under --profile: the merge launches inside the profiler
         launches["membership_embed"] += check_ooc_profile(
             fasta, os.path.join(tmp, "ooc_prof"),
             os.path.join(tmp, "out", "overlaps.tsv"), sim, card,
@@ -3665,6 +4160,11 @@ def main() -> None:
                                       dev, card))
         long_launches, _ = drive_cli(fasta, os.path.join(tmp, "lout"), sim,
                                      LONG_MIN_OVERLAP, card, dev)
+        config = config_from_args(["-i", "-", "-o", "-", *FLAGS])
+        check_sign_table("12 K5 at the long reads' library",
+                         LIBRARY_SIZES[-1], config.embedding_dimension,
+                         config.projection_seed, config.projection_density,
+                         dev, card)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "lprof"), card, "long reads")
         # 5d: ultra-long reads past the largest bucket, split and merged

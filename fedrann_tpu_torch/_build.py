@@ -46,6 +46,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
 
 # C entry points of csrc/*.cu: name -> argtypes (every one returns the
 # cudaError_t of its launch as an int)
@@ -73,6 +74,12 @@ _SIGNATURES = {
     # n_hits, start, n_buckets, stream
     "fk_membership_embed_dense": [_P, _I64, _I64, _P, _I64, _P, _I32, _I64,
                                   _P, _P, _P, _P, _I64, _P],
+    # knn_merge.cu: q, m, c, n, d, is_bf16, fp32, first, ids, run, w, W,
+    # out, vec, stream
+    "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,
+                     _I64, _I64, _P, _I32, _P],
+    # srp_signs.cu: seed_mix, lib_size, d, n_words, bound, out, stream
+    "fk_srp_signs": [_U64, _I64, _I64, _I64, _I64, _P, _P],
     # probes.cu: n, out, stream
     "fk_probe_smem_scratch": [_I32, _P, _P],
     # x, steps, rb, hb, sums, n_sums, stream

@@ -9,10 +9,11 @@ device-memory budget.
   host-to-device traffic is (slabs + 1) x the wire matrix.
 - On a CUDA device each block is copied from a pinned staging buffer on a
   side stream while the block before it is searched (_blocks_streamed).
-- The search is knn_exact's: each candidate tile goes through
-  topk.merge_block in float32 on bf16-rounded values, so ties go to the
-  lowest index as there; on a CUDA device the full tile's merge is one
-  CUDA graph, replayed (_GraphMerge).
+- The search is knn_exact's: every merge goes through topk.merge_block,
+  so scores and ties (the lowest index wins) are knn_exact's. On a CUDA
+  device the merge kernel holds no tile, so each (query slab, candidate
+  block) pair is one launch on the uploaded wire rows; on the CPU the
+  plain merges go tile by tile.
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ def plan_bytes(q_rows: int, c_rows: int, c_tile: int, query_tile: int,
     """Device bytes the search holds at once under a plan: the query slab
     and its int64 key carry, the two block buffers, the float32 upcasts of
     one candidate and one query tile, a merge's key tiles (PAIR_BYTES a
-    pair), and the carry tiles of a merge, of _GraphMerge's inputs and
-    output and of the decode (40 bytes a query row and neighbor)."""
+    pair), and the carry tiles of the merges and the decode (40 bytes a
+    query row and neighbor). The tiles are merge_block_plain's: on a card
+    the merge kernel holds none, so there the plan overcounts."""
     return (q_rows * (d * itemsize + k * 8)
             + 2 * c_rows * d * itemsize
             + (c_tile + query_tile) * d * 4
@@ -151,72 +153,6 @@ def _blocks_streamed(host: torch.Tensor, c_rows: int, device: torch.device,
         side.synchronize()
 
 
-class _TileMerge:
-    """merge_block over the search's tiles: load(c) takes a candidate tile
-    (upcast to float32 once), then each call merges a query tile into its
-    carry and returns the new carry; `first` is the tile's first row index
-    or a tensor of its rows' own indices (merge_block)."""
-
-    def __init__(self, k: int):
-        self.k = k
-        self.c = None
-
-    def load(self, c: torch.Tensor) -> None:
-        self.c = c.float()
-
-    def __call__(self, run: torch.Tensor, q: torch.Tensor,
-                 first) -> torch.Tensor:
-        return merge_block(run, q.float(), self.c, first, self.k)
-
-
-class _GraphMerge(_TileMerge):
-    """_TileMerge with the full (query_tile, c_tile) merge captured once
-    into a CUDA graph and replayed: one launch a merge in place of its ~45
-    operator calls, whose host time the merge's device work does not hide
-    at the tiles a budget allows (chip_smoke.py 8b logs both). The tiles,
-    the carry and the candidates' indices are copied into the graph's
-    inputs (the tiles' copies are their float32 upcasts); a ragged tile
-    runs merge_block itself."""
-
-    def __init__(self, qt: int, ct: int, d: int, k: int,
-                 device: torch.device):
-        super().__init__(k)
-        self.q = torch.zeros((qt, d), dtype=torch.float32, device=device)
-        self.c_full = torch.zeros((ct, d), dtype=torch.float32,
-                                  device=device)
-        self.run = torch.full((qt, k), EMPTY_KEY, dtype=torch.int64,
-                              device=device)
-        self.ids = torch.zeros((ct,), dtype=torch.int64, device=device)
-        warm = torch.cuda.Stream(device)
-        warm.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(warm):  # the libraries' set-up, before capture
-            merge_block(self.run, self.q, self.c_full, self.ids, k)
-        torch.cuda.current_stream(device).wait_stream(warm)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = merge_block(self.run, self.q, self.c_full, self.ids,
-                                   k)
-
-    def load(self, c: torch.Tensor) -> None:
-        if c.shape[0] == self.c_full.shape[0]:
-            self.c = self.c_full.copy_(c)
-        else:
-            super().load(c)
-
-    def __call__(self, run: torch.Tensor, q: torch.Tensor,
-                 first) -> torch.Tensor:
-        if self.c is not self.c_full or q.shape[0] != self.q.shape[0]:
-            return super().__call__(run, q, first)
-        self.q.copy_(q)
-        self.run.copy_(run)
-        if isinstance(first, torch.Tensor):
-            self.ids.copy_(first)
-        else:
-            torch.arange(first, first + self.ids.shape[0], out=self.ids)
-        self.graph.replay()
-        return run.copy_(self.out)
-
-
 def _count_upload(block: torch.Tensor, counter) -> None:
     counter.blocks_uploaded += 1
     counter.h2d_bytes += block.numel() * block.element_size()
@@ -262,25 +198,26 @@ def knn_exact_ooc(
                 plan_bytes(q_rows, c_rows, ct, query_tile, d, k,
                            host.element_size()))
     return _search(host, q_rows, c_rows, qt, ct, k, device, transfer,
-                   knn_exact_ooc)
+                   knn_exact_ooc, precision)
 
 
 def _search(host: torch.Tensor, q_rows: int, c_rows: int, qt: int, ct: int,
             k: int, device: torch.device, transfer: str, counter,
-            need=None, ids: torch.Tensor | None = None):
+            precision: str, need=None, ids: torch.Tensor | None = None):
     """The slab loop of the out-of-core searches: each q_rows-row query
     slab of host goes to `device` and sweeps the candidate blocks need(s,
-    rows) names (every block when need is None), each tile merged into
-    the slab's query tiles' carries (a replayed CUDA graph on a card);
+    rows) names (every block when need is None), each (qt, ct) tile pair
+    merged into the slab's query tiles' carries by merge_block; on a card
+    the merge kernel holds no tile, so a slab and a block are one launch.
     ids, an (N,) int64 tensor on `device`, gives each host row's own
     index (the row number when None). Slabs, blocks and bytes count in
     `counter`. Returns (indices (N, k) int32, distances (N, k) float32)
     in host's row order."""
-    n, d = host.shape
+    n = host.shape[0]
     if device.type == "cuda":
-        blocks, merge = _blocks_streamed, _GraphMerge(qt, ct, d, k, device)
+        blocks, qt, ct = _blocks_streamed, q_rows, c_rows
     else:
-        blocks, merge = _blocks_sync, _TileMerge(k)
+        blocks = _blocks_sync
     idx_out = np.empty((n, k), np.int32)
     dist_out = np.empty((n, k), np.float32)
     for s in range(0, n, q_rows):
@@ -297,11 +234,11 @@ def _search(host: torch.Tensor, q_rows: int, c_rows: int, qt: int, ct: int,
                                 counter):
             for c0 in range(0, block.shape[0], ct):
                 tile = block[c0 : c0 + ct]
-                merge.load(tile)
                 first = (lo + c0 if ids is None
                          else ids[lo + c0 : lo + c0 + tile.shape[0]])
                 for i, run in enumerate(runs):
-                    runs[i] = merge(run, slab[i * qt : (i + 1) * qt], first)
+                    runs[i] = merge_block(run, slab[i * qt : (i + 1) * qt],
+                                          tile, first, k, precision)
         del slab
         for i in range(len(runs)):
             rows_i = slice(s + i * qt, s + min((i + 1) * qt, rows))
@@ -456,7 +393,7 @@ def knn_ivf_ooc(
 
     ids = torch.from_numpy(order).to(device)
     idx_r, dist_r = _search(host, q_rows, c_rows, qt, ct, k, device,
-                            transfer, knn_ivf_ooc, need, ids)
+                            transfer, knn_ivf_ooc, precision, need, ids)
     idx_out = np.empty_like(idx_r)
     dist_out = np.empty_like(dist_r)
     idx_out[order], dist_out[order] = idx_r, dist_r

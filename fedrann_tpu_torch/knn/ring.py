@@ -23,10 +23,12 @@ divergence (ROADMAP Queue 3).
   entry (h, j) takes the block entry (h - 1, j - 1) holds, which is the
   block entry (h - 1, j) started the round with.
 
-Each entry's queries are tiled by query_tile and each block by a candidate
-tile (`_fit_tile`), so no (b, b) score tile is ever made. Padding rows
-never win a slot (a block is sliced to its real rows) and padding query
-rows are dropped, so no index >= N leaves the function. Blocks move with
+On a CUDA mesh the merge kernel holds no tile, so an entry's queries and
+a block are one launch; on the CPU the queries are tiled by query_tile and
+each block by a candidate tile (`_fit_tile`), so no (b, b) score tile is
+ever made. Padding rows never win a slot (a block is sliced to its real
+rows) and padding query rows are dropped, so no index >= N leaves the
+function. Blocks move with
 `mesh.to_device` (`Tensor.to(device, non_blocking=True)` between cards,
 which orders the copy after the work of both devices' current streams);
 each step's merges are issued entry by entry before anything
@@ -91,14 +93,14 @@ def _hops(shape: tuple[int, ...], strategy: str):
 
 
 def _fold(runs: list, queries: torch.Tensor, block: torch.Tensor,
-          first: int, k: int, ct: int, qt: int) -> None:
+          first: int, k: int, ct: int, qt: int, precision: str) -> None:
     """Merge candidate rows `block`, global rows first.., into the running
     keys runs[t] of each query tile queries[t*qt : (t+1)*qt]."""
     for t in range(len(runs)):
         q = queries[t * qt : (t + 1) * qt]
         for c0 in range(0, block.shape[0], ct):
             runs[t] = merge_block(runs[t], q, block[c0 : c0 + ct],
-                                  first + c0, k)
+                                  first + c0, k, precision)
             knn_exact_sharded.merges += 1
 
 
@@ -156,12 +158,13 @@ def sharded_topk(shards: list[torch.Tensor], mesh: Mesh, n_real: int,
                  k: int, strategy: str = "ring",
                  candidate_tile: int = 131072,
                  query_tile: int = 512, *,
-                 transport=None) -> list[torch.Tensor]:
+                 transport=None,
+                 precision: str = "bf16") -> list[torch.Tensor]:
     """The search over rows already cut into one (b, d) block per mesh
     entry, on its device, normalized as the search scores them
-    (topk.unit_rows), global rows >= n_real being padding. Returns for
-    each entry the int64 keys (real rows, k) of its real query rows
-    (topk.keys_to_host decodes them); k <= n_real.
+    (topk.unit_rows), global rows >= n_real being padding, merged at
+    `precision`. Returns for each entry the int64 keys (real rows, k) of
+    its real query rows (topk.keys_to_host decodes them); k <= n_real.
 
     With a `transport` the mesh is this process's part of the search: the
     global entries are every process's local entries in process-major
@@ -183,16 +186,21 @@ def sharded_topk(shards: list[torch.Tensor], mesh: Mesh, n_real: int,
     real = [max(0, min(b, n_real - g * b))
             for g in range(int(np.prod(shape)))]
     queries = [s[: real[first + j]] for j, s in enumerate(shards)]
+    # the merge kernel holds no tile: on a card one launch an entry a block
+    on_card = mesh.devices[0].type == "cuda"
+    if on_card:
+        query_tile = max(b, 1)
     runs = [[None] * -(-q.shape[0] // query_tile) for q in queries]
     if strategy == "allgather":
-        ct = _fit_tile(candidate_tile, n_real)
+        ct = max(n_real, 1) if on_card else _fit_tile(candidate_tile, n_real)
         gathered: dict[torch.device, torch.Tensor] = {}
         for j, dev in enumerate(mesh.devices):
             if dev not in gathered:  # padding sits only at the global tail
                 gathered[dev] = moves.gather(shards, dev)[:n_real]
-            _fold(runs[j], queries[j], gathered[dev], 0, k, ct, query_tile)
+            _fold(runs[j], queries[j], gathered[dev], 0, k, ct, query_tile,
+                  precision)
     else:
-        ct = _fit_tile(candidate_tile, b)
+        ct = max(b, 1) if on_card else _fit_tile(candidate_tile, b)
         owners = list(range(len(real)))  # the block each entry holds
         held = list(shards)
         hops = _hops(shape, strategy)
@@ -201,7 +209,7 @@ def sharded_topk(shards: list[torch.Tensor], mesh: Mesh, n_real: int,
                 owner = owners[first + j]
                 if real[owner]:
                     _fold(runs[j], queries[j], block[: real[owner]],
-                          owner * b, k, ct, query_tile)
+                          owner * b, k, ct, query_tile, precision)
             src = next(hops, None)
             if src is None:
                 break
@@ -233,7 +241,7 @@ def knn_exact_sharded(
     k = min(n_neighbors, n)
     padded, _ = pad_rows_to_multiple(unit_rows(emb, precision), mesh.size)
     keys = sharded_topk(shard_rows(padded, mesh), mesh, n, k, strategy,
-                        candidate_tile, query_tile)
+                        candidate_tile, query_tile, precision=precision)
     knn_exact_sharded.calls += 1
     knn_exact_sharded.devices = mesh.size
     parts = [keys_to_host(kk, transfer, n) for kk in keys]
@@ -294,7 +302,7 @@ def knn_exact_sharded_multihost(
     k = min(n_neighbors, n_real)
     keys = sharded_topk(shard_rows(unit_rows(local, precision), mesh), mesh,
                         n_real, k, strategy, candidate_tile, query_tile,
-                        transport=transport)
+                        transport=transport, precision=precision)
     if not keys:
         return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)
     parts = [keys_to_host(kk, transfer, n_real) for kk in keys]

@@ -7,15 +7,21 @@ which zero-hit reads make common (a zero row is at distance exactly 1 from
 everything), go to the lowest index as in the JAX package.
 
 precision="bf16" rounds the normalized rows to bfloat16 once and
-accumulates the products in float32: the matmul runs in float32 on the
-bf16-rounded values, whose products are exact in float32, so it is the
-bf16-input, fp32-accumulate product on every device.
+accumulates the products in float32: the bf16-input, fp32-accumulate
+product. On a CUDA device every merge is one launch of the hand kernel K4
+(csrc/knn_merge.cu: bf16 tensor-core scores, or float32 FFMA at
+precision="fp32", with each query row's running top-k in the kernel); on
+the CPU its plain version, merge_block_plain, runs the float32 matmul on
+the bf16-rounded values (whose products are exact in float32),
+_order_keys and torch.topk.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from fedrann_tpu_torch import _build
 
 # Cosine distances in [0, 2] snap to a uint16 grid of step 1/DIST_SCALE
 # (--knn-transfer u16), so the TSV matches the JAX package's.
@@ -65,9 +71,10 @@ def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
     return t
 
 
-# bytes one (query, candidate) pair of a merge_block tile holds at once:
-# its int64 key and that key's copy in the concatenation with the carry
-# (_order_keys holds 12: the float32 score, then the key)
+# bytes one (query, candidate) pair of merge_block_plain's tile holds at
+# once: its int64 key and that key's copy in the concatenation with the
+# carry (_order_keys holds 12: the float32 score, then the key); the
+# kernel holds no such tile, but knn/ooc.py's plan still counts it
 PAIR_BYTES = 16
 
 
@@ -76,9 +83,9 @@ def _order_keys(scores: torch.Tensor, first_index) -> torch.Tensor:
     first integer order: the float32 bits made monotone in the high word,
     the complemented column index in the low word. The bits are made
     monotone in place, so scores is overwritten. The column indices are
-    first_index + 0, 1, ... along the last dimension, first_index an int
-    or a 0-d int64 tensor (a CUDA graph's input); or first_index is an
-    int64 tensor of the columns' own indices, broadcast against scores."""
+    first_index + 0, 1, ... along the last dimension, first_index an int;
+    or first_index is an int64 tensor of the columns' own indices,
+    broadcast against scores."""
     bits = scores.contiguous().view(torch.int32)
     flip = bits >> 31  # all ones where the score is negative
     flip &= 0x7FFFFFFF
@@ -129,17 +136,24 @@ def knn_exact_block(
     transfer: str = "f32",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Top-k of L2-normalized query rows (m, d) over L2-normalized
-    candidate rows (n, d), tile by tile through merge_block, k =
-    min(n_neighbors, n): (indices (m, k) int32 into the candidates,
-    distances (m, k) float32), as knn_exact scores and orders them: its
-    search of one process's rows over every process's rows (the
-    multi-process runtime's host path)."""
+    candidate rows (n, d) through merge_block, k = min(n_neighbors, n):
+    (indices (m, k) int32 into the candidates, distances (m, k) float32),
+    as knn_exact scores and orders them: its search of one process's rows
+    over every process's rows (the multi-process runtime's host path).
+    The rows go to the merge as bfloat16 at precision="bf16" (rounded to
+    nearest even once), else float32. On a CUDA device the kernel holds no
+    tile: one launch takes every query row over every candidate row; on
+    the CPU the plain merges go tile by tile (query_tile, candidate_tile)."""
     n = candidates.shape[0]
     k = min(n_neighbors, n)
-    q_all = round_rows(queries.to(torch.float32), precision)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    q_all = queries.to(dtype).contiguous()
     c_all = (q_all if candidates is queries
-             else round_rows(candidates.to(torch.float32), precision))
+             else candidates.to(dtype).contiguous())
     m = q_all.shape[0]
+    if q_all.device.type == "cuda":
+        keys = merge_block(None, q_all, c_all, 0, k, precision)
+        return keys_to_host(keys, transfer, n)
     qt = min(query_tile, max(8, m))
     ct = _fit_tile(candidate_tile, n)
     keys_out = torch.empty((m, k), dtype=torch.int64, device=q_all.device)
@@ -147,20 +161,92 @@ def knn_exact_block(
         q = q_all[q0 : q0 + qt]
         run = None
         for c0 in range(0, n, ct):
-            run = merge_block(run, q, c_all[c0 : c0 + ct], c0, k)
+            run = merge_block(run, q, c_all[c0 : c0 + ct], c0, k, precision)
         keys_out[q0 : q0 + qt] = run
     return keys_to_host(keys_out, transfer, n)
 
 
 def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
-                first_index, k: int) -> torch.Tensor:
-    """The running top-k of query rows q (rows, d) float32 merged with the
-    candidate rows c (ct, d) float32 whose first global index is
-    first_index (an int or a 0-d int64 tensor; or a (ct,) int64 tensor of
-    each row's own index, _order_keys): run, the (rows, <= k) int64
-    keys of the candidates seen so far (None before the first), becomes the
-    keys of the best min(k, seen) candidates, by score descending and index
-    ascending."""
+                first_index, k: int, precision: str = "bf16") -> torch.Tensor:
+    """The running top-k of query rows q (m, d) merged with the candidate
+    rows c (n, d), both float32 or both bfloat16, whose first global index
+    is first_index (an int; or an (n,) int64 tensor of each row's own
+    index): run, the (m, w <= k) int64 keys of the candidates seen so far
+    sorted descending (a merge's output; None before the first), becomes
+    the keys of the best min(k, w + n) candidates, by score descending and
+    index ascending (_order_keys). precision="bf16" scores the rows rounded
+    to bfloat16 (exact for rows rounded once already) with float32
+    accumulation; "fp32" in float32.
+
+    A CPU tensor takes merge_block_plain. A CUDA tensor launches K4
+    (csrc/knn_merge.cu `fk_knn_merge`), counted in .kernel_launches; it
+    takes contiguous rows and raises on a dtype, device or layout it does
+    not take. The kernel writes the result over run where run already has
+    its width, so run is consumed either way."""
+    if precision not in ("bf16", "fp32"):
+        raise ValueError(f"precision must be 'bf16' or 'fp32', not "
+                         f"{precision!r}")
+    ids = first_index if isinstance(first_index, torch.Tensor) \
+        and first_index.dim() else None
+    tensors = [t for t in (run, q, c, ids) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return merge_block_plain(run, q, c, first_index, k, precision)
+    device = q.device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError("merge_block: every tensor must be on one CUDA "
+                         f"device or on the CPU, not "
+                         f"{[str(t.device) for t in tensors]}")
+    m, n, d = q.shape[0], c.shape[0], q.shape[1]
+    if q.dtype != c.dtype or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"merge_block: rows must be both float32 or both "
+                         f"bfloat16, not {q.dtype} and {c.dtype}")
+    if q.dim() != 2 or c.dim() != 2 or c.shape[1] != d:
+        raise ValueError(f"merge_block: rows of shapes {tuple(q.shape)} "
+                         f"and {tuple(c.shape)}")
+    if not (q.is_contiguous() and c.is_contiguous()):
+        raise ValueError("merge_block: rows must be contiguous")
+    if k < 1:
+        raise ValueError(f"merge_block: k must be >= 1, not {k}")
+    w = 0 if run is None else run.shape[1]
+    if run is not None and (run.dtype != torch.int64 or run.shape[0] != m
+                            or w > k or not run.is_contiguous()):
+        raise ValueError(f"merge_block: run must be contiguous int64 keys "
+                         f"of shape ({m}, <= {k}), not {run.dtype} "
+                         f"{tuple(run.shape)}")
+    if ids is not None and (ids.dtype != torch.int64 or ids.shape != (n,)
+                            or not ids.is_contiguous()):
+        raise ValueError(f"merge_block: indices must be contiguous int64 "
+                         f"of shape ({n},)")
+    width = min(k, w + n)
+    out = run if run is not None and w == width else torch.empty(
+        (m, width), dtype=torch.int64, device=device)
+    if m == 0:
+        return out
+    vec = (d % 8 == 0 and q.data_ptr() % 16 == 0
+           and c.data_ptr() % 16 == 0)
+    _build.launch(
+        "fk_knn_merge", q.data_ptr(), m, c.data_ptr(), n, d,
+        int(q.dtype == torch.bfloat16), int(precision == "fp32"),
+        0 if ids is not None else int(first_index),
+        None if ids is None else ids.data_ptr(),
+        None if run is None else run.data_ptr(), w, width, out.data_ptr(),
+        int(vec), device=device)
+    merge_block.kernel_launches += 1
+    return out
+
+
+merge_block.kernel_launches = 0
+
+
+def merge_block_plain(run: torch.Tensor | None, q: torch.Tensor,
+                      c: torch.Tensor, first_index, k: int,
+                      precision: str = "bf16") -> torch.Tensor:
+    """merge_block in plain PyTorch on any device: the rows upcast to
+    float32 (rounded to bfloat16 first at precision="bf16"), q @ c.T,
+    _order_keys and torch.topk over the carry and the tile. The CPU path,
+    and the reference the tests and chip_smoke.py hold the kernel to."""
+    q = round_rows(q.to(torch.float32), precision)
+    c = round_rows(c.to(torch.float32), precision)
     keys = _order_keys(q @ c.T, first_index)
     if run is not None:
         keys = torch.cat([run, keys], dim=1)

@@ -61,13 +61,19 @@ class StageMetrics:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """Time the stage `name`; under --profile its span, the closing
+        synchronize included, is a "stage:<name>" range of the trace
+        (record_function), so the stage's kernels run inside it."""
         synchronize(self.device)
         t0 = time.perf_counter()
         self._inner.append(0.0)
         try:
-            yield
+            with torch.profiler.record_function(f"stage:{name}"):
+                try:
+                    yield
+                finally:
+                    synchronize(self.device)
         finally:
-            synchronize(self.device)
             secs = time.perf_counter() - t0
             inner = self._inner.pop()
             if self._inner:

@@ -84,7 +84,7 @@ def make_sharded_step(
             shards.append(unit_rows(emb, precision))
         n_real = 2 * rows * mesh.size if n_reads is None else 2 * n_reads
         keys = sharded_topk(shards, mesh, n_real, min(n_neighbors, n_real),
-                            strategy)
+                            strategy, precision=precision)
         parts = [keys_to_host(kk, "f32", n_real) for kk in keys]
         return (np.concatenate([p[1] for p in parts]),
                 np.concatenate([p[0] for p in parts]))

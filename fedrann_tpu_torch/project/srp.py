@@ -14,6 +14,10 @@ The table factorizes: every nonzero of paired row j = [P[j] | P[j+L]] is
 held as int32 bit patterns, plus one float32 magnitude per row; row L is
 the all-zero sentinel row with magnitude 0.
 
+On a CUDA device the sign table is the hand kernel K5 (csrc/srp_signs.cu,
+one thread a packed word); on the CPU its plain version, sign_table_plain,
+draws the codes chunk by chunk in int64 torch ops and packs them.
+
 `--projection-dtype f32|bf16` stores the same table dense: paired row j is
 [P[j] | P[j+L]] in float32, or rounded to bfloat16 (nearest even) chunk by
 chunk, with an all-zero sentinel row L. Its f32 entries equal the sign
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.kmers.codec import _GOLDEN, splitmix64
 
 
@@ -35,27 +40,32 @@ def icf_weights(counts: torch.Tensor) -> torch.Tensor:
     return torch.log(n_features / (c + 1e-12)).to(torch.float32)
 
 
+def _sign_bound(density: float) -> int:
+    """The nonzero test's bound: a field is nonzero iff (h >>> 1) <= it,
+    the JAX package's (h >>> 1) < density * 2^63 written with <= so that
+    it fits int64 at density 1 (negative: no field is nonzero)."""
+    return int(density * 2.0**63) - 1
+
+
 def _srp_bits(seed_mix: torch.Tensor, n_components: int, density: float,
-              chunk_start: int, chunk_size: int):
-    """(nonzero, positive) (chunk, d) bools of features [chunk_start,
-    +chunk_size): the splitmix64 stream of feature and component."""
-    device = seed_mix.device
+              chunk_start: int, chunk_size: int, device: torch.device):
+    """(nonzero, positive) (chunk, d) bools on `device` of features
+    [chunk_start, +chunk_size): the splitmix64 stream of feature and
+    component."""
     f = (torch.arange(chunk_size, dtype=torch.int64, device=device)
          + chunk_start)[:, None] * _GOLDEN
     c = torch.arange(n_components, dtype=torch.int64, device=device)[None, :]
     h = splitmix64(f + c + seed_mix)
-    # nonzero iff (h >>> 1) < density * 2^63, written with <= so the bound
-    # fits int64 at density 1
-    bound = int(density * 2.0**63) - 1
-    return ((h >> 1) & ((1 << 63) - 1)) <= bound, (h & 1) == 1
+    return (((h >> 1) & ((1 << 63) - 1)) <= _sign_bound(density),
+            (h & 1) == 1)
 
 
 def _srp_sign_chunk(seed_mix: torch.Tensor, n_components: int,
-                    density: float, chunk_start: int,
-                    chunk_size: int) -> torch.Tensor:
+                    density: float, chunk_start: int, chunk_size: int,
+                    device: torch.device) -> torch.Tensor:
     """(chunk, d) int32 sign codes of features [chunk_start, +chunk_size)."""
     nonzero, pos = _srp_bits(seed_mix, n_components, density, chunk_start,
-                             chunk_size)
+                             chunk_size, device)
     return torch.where(nonzero, torch.where(pos, 1, 2), 0).to(torch.int32)
 
 
@@ -66,7 +76,7 @@ def _srp_chunk(seed_mix: torch.Tensor, icf_chunk: torch.Tensor,
     [chunk_start, +len(icf_chunk)), in the JAX package's order of float32
     products, and +0.0 where the stream draws no entry (as XLA selects)."""
     nonzero, pos = _srp_bits(seed_mix, n_components, density, chunk_start,
-                             icf_chunk.shape[0])
+                             icf_chunk.shape[0], icf_chunk.device)
     sign = torch.where(pos, 1.0, -1.0).to(torch.float32)
     return torch.where(nonzero, sign * scale * icf_chunk[:, None], 0.0)
 
@@ -80,17 +90,66 @@ def _pack_signs(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def seed_mix_of(seed: int) -> torch.Tensor:
+    """splitmix64(seed), the stream's key, as a 0-d int64 CPU tensor (a
+    scalar to ops on any device)."""
+    return splitmix64(torch.tensor(seed, dtype=torch.int64))
+
+
 def _stream(counts: torch.Tensor, n_components: int, seed: int,
             density: float | None):
     """(icf, density, seed_mix, scale) of a projection over counts."""
     icf = icf_weights(counts)
     if density is None:
         density = 1.0 / float(icf.shape[0]) ** 0.5 if icf.shape[0] else 1.0
-    seed_mix = splitmix64(torch.tensor(seed, dtype=torch.int64,
-                                       device=counts.device))
     scale = torch.tensor((1.0 / density) ** 0.5 / n_components**0.5,
                          dtype=torch.float32, device=counts.device)
-    return icf, density, seed_mix, scale
+    return icf, density, seed_mix_of(seed), scale
+
+
+def sign_table_plain(lib_size: int, n_components: int,
+                     seed_mix: torch.Tensor, density: float,
+                     device: torch.device,
+                     chunk: int = 1 << 16) -> torch.Tensor:
+    """The (L+1, ceil(2d/16)) int32 sign table in plain PyTorch on
+    `device`: chunk by chunk, the codes of both halves (_srp_sign_chunk)
+    packed (_pack_signs), then the zero row L. The CPU path, and the
+    reference the tests and chip_smoke.py hold K5 to."""
+    parts = []
+    for start in range(0, lib_size, chunk):
+        size = min(chunk, lib_size - start)
+        left = _srp_sign_chunk(seed_mix, n_components, density, start, size,
+                               device)
+        right = _srp_sign_chunk(seed_mix, n_components, density,
+                                lib_size + start, size, device)
+        parts.append(_pack_signs(torch.cat([left, right], dim=1)))
+    parts.append(torch.zeros((1, (2 * n_components + 15) // 16),
+                             dtype=torch.int32, device=device))
+    return torch.cat(parts)
+
+
+def sign_table(lib_size: int, n_components: int, seed_mix: torch.Tensor,
+               density: float, device: torch.device,
+               chunk: int = 1 << 16) -> torch.Tensor:
+    """sign_table_plain's table on `device`: on the CPU the plain version;
+    on a CUDA device one launch of K5 (csrc/srp_signs.cu `fk_srp_signs`),
+    counted in .kernel_launches."""
+    if device.type == "cpu":
+        return sign_table_plain(lib_size, n_components, seed_mix, density,
+                                device, chunk)
+    if device.type != "cuda":
+        raise ValueError(f"sign_table: unsupported device {device}")
+    n_words = (2 * n_components + 15) // 16
+    out = torch.empty((lib_size + 1, n_words), dtype=torch.int32,
+                      device=device)
+    _build.launch("fk_srp_signs", int(seed_mix) & ((1 << 64) - 1), lib_size,
+                  n_components, n_words, _sign_bound(density),
+                  out.data_ptr(), device=device)
+    sign_table.kernel_launches += 1
+    return out
+
+
+sign_table.kernel_launches = 0
 
 
 def build_precompute_signs(counts: torch.Tensor, n_components: int,
@@ -98,21 +157,14 @@ def build_precompute_signs(counts: torch.Tensor, n_components: int,
                            chunk: int = 1 << 16):
     """(signs (L+1, ceil(2d/16)) int32, mags (L+1,) float32) on counts'
     device; row j packs [P[j] | P[j+L]] and reconstructs the f32 entries
-    exactly as sign * mags[j]."""
+    exactly as sign * mags[j]. The signs are sign_table's (K5 on a card);
+    the magnitudes are torch ops."""
     device = counts.device
     lib_size = int(counts.shape[0])
     icf, density, seed_mix, scale = _stream(counts, n_components, seed,
                                             density)
-    parts = []
-    for start in range(0, lib_size, chunk):
-        size = min(chunk, lib_size - start)
-        left = _srp_sign_chunk(seed_mix, n_components, density, start, size)
-        right = _srp_sign_chunk(seed_mix, n_components, density,
-                                lib_size + start, size)
-        parts.append(_pack_signs(torch.cat([left, right], dim=1)))
-    parts.append(torch.zeros((1, (2 * n_components + 15) // 16),
-                             dtype=torch.int32, device=device))
-    signs = torch.cat(parts)
+    signs = sign_table(lib_size, n_components, seed_mix, density, device,
+                       chunk)
     mags = torch.cat([icf[:lib_size] * scale,
                       torch.zeros(1, dtype=torch.float32, device=device)])
     return signs, mags

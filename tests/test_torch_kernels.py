@@ -42,9 +42,19 @@ from fedrann_tpu_torch.project.embed import (
     membership_embed,
     membership_embed_dense,
 )
+from fedrann_tpu_torch.knn.topk import (
+    EMPTY_KEY,
+    _decode_keys,
+    merge_block,
+    merge_block_plain,
+    normalize_rows,
+)
 from fedrann_tpu_torch.project.srp import (
     build_precompute_paired,
     build_precompute_signs,
+    seed_mix_of,
+    sign_table,
+    sign_table_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1050,10 +1060,10 @@ def test_knn_ivf_on_the_card_is_repeatable_and_matches_cpu(cuda, spill):
 
 
 def test_ooc_search_inside_the_profiler_matches(cuda):
-    """--profile with --knn-hbm-budget: the out-of-core search (each full
-    tile's merge a captured, replayed CUDA graph) inside a torch.profiler
-    session with CUDA activity gives the search's result outside it,
-    bitwise."""
+    """--profile with --knn-hbm-budget: the out-of-core search (each query
+    slab and candidate block one launch of the merge kernel K4) inside a
+    torch.profiler session with CUDA activity gives the search's result
+    outside it, bitwise."""
     from torch.profiler import ProfilerActivity, profile
 
     from fedrann_tpu_torch.knn import ooc
@@ -1193,3 +1203,182 @@ def test_multihost_search_on_two_local_cards_matches_knn_exact(cuda,
     np.testing.assert_array_equal(idx[resolved], want_i[resolved, :10])
     np.testing.assert_allclose(dist_, want_d[:, :10], atol=1e-5)
     assert transport.blocks == 0
+
+
+# K4 cases: name -> (m, n, d, k, carry width, ids form); every case has
+# zero query and candidate rows
+MERGE_CASES = {
+    "main": (300, 1000, 64, 10, 0, False),
+    "ragged_d40": (67, 257, 40, 16, 0, False),  # d % 8: element loads
+    "m_below_block": (5, 300, 32, 8, 0, False),
+    "k_over_n": (70, 20, 32, 50, 0, False),
+    "ids_carry": (130, 300, 64, 12, 12, True),
+    "empty_slots_k_over_n": (40, 7, 16, 20, 10, True),
+    "d_13": (33, 129, 13, 5, 0, False),
+    "k_past_a_tile": (20, 500, 32, 200, 0, False),
+}
+
+
+def _merge_inputs(case, dtype, precision):
+    """(run, q, c, index, k) of a K4 case on the CPU: unit rows (zero rows
+    at query 0 and 3, candidates 1 and n - 1), the candidates' indices as
+    an int or a permutation, and a carry from a merge of 60 other
+    candidates (indices 5,000..), its last slots EMPTY_KEY in every other
+    row where the case says."""
+    m, n, d, k, w, ids = MERGE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    q, c, other = (normalize_rows(torch.from_numpy(
+        rng.standard_normal((rows, d)).astype(np.float32)))
+        for rows in (m, n, 60))
+    q[[0, 3 % m]] = 0
+    c[[1 % n, n - 1]] = 0
+    index = (torch.from_numpy(rng.permutation(4 * n)[:n].astype(np.int64))
+             if ids else 17)
+    run = None
+    if w:
+        run = merge_block_plain(None, q, other, 5000, w, precision)
+        if case.startswith("empty_slots"):
+            run[::2, w // 2 :] = EMPTY_KEY
+    return run, q.to(dtype), c.to(dtype), index, k
+
+
+def _check_merge(got, run, q, c, index, k, precision, tol=1e-5):
+    """K4's keys (on the CPU) against merge_block_plain: the plain width;
+    EMPTY_KEY slots where the plain version has them; strictly descending
+    real keys; every score within tol of the plain score of the same pair;
+    each row's neighbor set the plain one's but where the plain W-th and
+    (W+1)-th scores are within tol. Returns the share of agreeing
+    neighbors."""
+    w = 0 if run is None else run.shape[1]
+    width = min(k, w + c.shape[0])
+    full = merge_block_plain(None if run is None else run.clone(), q, c,
+                             index, w + c.shape[0], precision)
+    assert got.shape == (q.shape[0], width)
+    empty = got == EMPTY_KEY
+    assert torch.equal(empty, full[:, :width] == EMPTY_KEY)
+    real = got.masked_fill(empty, torch.iinfo(torch.int64).min)
+    assert bool((real[:, 1:] < real[:, :-1])[~empty[:, 1:]].all())
+    g_s, g_i = _decode_keys(got)
+    f_s, f_i = _decode_keys(full)
+    agree = 0
+    for r in range(got.shape[0]):
+        plain = {int(i): float(s) for s, i, e in zip(
+            f_s[r], f_i[r], full[r] == EMPTY_KEY) if not e}
+        mine = [int(i) for i, e in zip(g_i[r], empty[r]) if not e]
+        for s, i in zip(g_s[r][~empty[r]], mine):
+            assert abs(float(s) - plain[i]) <= tol, (r, i)
+        want = [int(i) for i, e in zip(f_i[r, :width], empty[r]) if not e]
+        agree += len(set(mine) & set(want))
+        if width < full.shape[1] and full[r, width] != EMPTY_KEY and (
+                float(f_s[r, width - 1]) - float(f_s[r, width]) <= tol):
+            continue
+        assert set(mine) == set(want), r
+    return agree / max(int((~empty).sum()), 1)
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_knn_merge_matches_plain(cuda, case, dtype, precision):
+    """K4 against merge_block_plain over both precisions and row types:
+    ragged m, n and d, fewer query rows than a block, k past n and past a
+    tile, the ids form, a carry (with EMPTY_KEY slots), zero rows (whose
+    ties keep the lowest indices). One launch a call, counted."""
+    run, q, c, index, k = _merge_inputs(case, dtype, precision)
+    before = merge_block.kernel_launches
+    got = merge_block(
+        None if run is None else run.to(cuda), q.to(cuda), c.to(cuda),
+        index.to(cuda) if isinstance(index, torch.Tensor) else index, k,
+        precision)
+    torch.cuda.synchronize()
+    assert merge_block.kernel_launches == before + 1
+    assert _check_merge(got.cpu(), run, q, c, index, k, precision) >= 0.99
+    zero = got[0].cpu()
+    if run is None:  # a zero query row ties at +0.0: the lowest indices
+        first = (index if isinstance(index, int)
+                 else int(torch.sort(index).values[0]))
+        order = (torch.arange(min(k, c.shape[0])) + index
+                 if isinstance(index, int)
+                 else torch.sort(index).values[: min(k, c.shape[0])])
+        assert torch.equal(_decode_keys(zero)[1], order), first
+        assert bool((_decode_keys(zero)[0] == 0).all())
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_knn_merge_two_launches_same_keys(cuda, precision):
+    """Two launches of K4 on the same rows give the same keys, bitwise
+    (every score is one fixed sequence of operations)."""
+    run, q, c, index, k = _merge_inputs("ids_carry", torch.bfloat16,
+                                        precision)
+    args = [t.to(cuda) for t in (q, c, index)]
+    one = merge_block(run.to(cuda), args[0], args[1], args[2], k, precision)
+    two = merge_block(run.to(cuda), args[0], args[1], args[2], k, precision)
+    assert torch.equal(one, two)
+
+
+def test_knn_merge_scores_do_not_depend_on_the_tile(cuda):
+    """The same candidates merged in one launch, or split into blocks that
+    start off a tile's edge, give the same keys bitwise: a pair's score
+    does not depend on where it falls in a tile or a launch."""
+    run, q, c, _, k = _merge_inputs("main", torch.bfloat16, "bf16")
+    q, c = q.to(cuda), c.to(cuda)
+    one = merge_block(None, q, c, 0, k)
+    split = None
+    for lo, hi in ((0, 77), (77, 600), (600, 1000)):
+        split = merge_block(split, q[5:], c[lo:hi], lo, k)
+    assert torch.equal(one[5:], split)
+
+
+def test_merge_block_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(ValueError, match="both float32 or both"):
+        merge_block(None, q, q.to(torch.bfloat16), 0, 3)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        merge_block(None, q, q.cpu(), 0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge_block(None, q, torch.zeros((16, 4), device=cuda).T, 0, 3)
+    with pytest.raises(ValueError, match="precision"):
+        merge_block(None, q, q, 0, 3, "fp16")
+
+
+SIGN_CASES = [(11, 8, None), (37, 20, 0.5), (37, 512, 1.0), (5000, 512, None),
+              (4097, 20, 1e-30), (3, 1, 0.5)]
+
+
+@pytest.mark.parametrize("lib_size,d,density", SIGN_CASES)
+def test_srp_signs_matches_plain(cuda, lib_size, d, density):
+    """K5 against sign_table_plain, bitwise: d = 20 has a word across the
+    halves' seam and a word past 2d; density 1e-30 draws no nonzero; one
+    launch a call, counted. build_precompute_signs on counts on the card
+    gives the CPU's table."""
+    density = density or 1.0 / (2 * lib_size) ** 0.5
+    mix = seed_mix_of(2094)
+    want = sign_table_plain(lib_size, d, mix, density, torch.device("cpu"))
+    before = sign_table.kernel_launches
+    got = sign_table(lib_size, d, mix, density, cuda)
+    torch.cuda.synchronize()
+    assert sign_table.kernel_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    counts = torch.from_numpy(np.random.default_rng(lib_size).integers(
+        2, 50, lib_size).astype(np.int64))
+    signs, mags = build_precompute_signs(counts.to(cuda), d, 2094)
+    signs_c, mags_c = build_precompute_signs(counts, d, 2094)
+    assert torch.equal(signs.cpu(), signs_c)
+    torch.testing.assert_close(mags.cpu(), mags_c, rtol=1e-6, atol=0)
+
+
+def test_knn_merge_and_srp_signs_launch_on_their_tensors_card(last_card):
+    """With cuda:0 current, K4 and K5 on the last card's tensors launch
+    there (K4's shared-memory opt-in granted on that card) and match
+    their plain versions."""
+    run, q, c, index, k = _merge_inputs("ids_carry", torch.bfloat16, "bf16")
+    got = merge_block(run.to(last_card), q.to(last_card), c.to(last_card),
+                      index.to(last_card), k)
+    mix = seed_mix_of(2094)
+    signs = sign_table(300, 512, mix, 0.05, last_card)
+    torch.cuda.synchronize(last_card)
+    assert torch.cuda.current_device() == 0
+    assert got.device == last_card and signs.device == last_card
+    assert _check_merge(got.cpu(), run, q, c, index, k, "bf16") >= 0.99
+    assert torch.equal(signs.cpu(), sign_table_plain(
+        300, 512, mix, 0.05, torch.device("cpu")))

@@ -72,3 +72,93 @@ def test_normalize_rows_zero_row():
     np.testing.assert_allclose(
         n.numpy(), np.asarray(jtopk.normalize_rows(jnp.asarray(e.numpy()))),
         rtol=1e-6, atol=1e-7)
+
+
+def _keys_reference(run, q, c, index, k):
+    """The merge by its definition, in numpy: every candidate's float64
+    score of the float32 rows, the carry's keys decoded, all ordered by
+    (score descending, index ascending) with the carry's EMPTY_KEY slots
+    last: (scores, indices) of the best min(k, w + n)."""
+    scores = (q.astype(np.float64) @ c.astype(np.float64).T)
+    out = []
+    for r in range(q.shape[0]):
+        entries = [(-scores[r, j], int(index[j])) for j in range(len(index))]
+        if run is not None:
+            s, i = topk._decode_keys(torch.from_numpy(run[r]))
+            entries += [(np.inf, 1 << 40) if key == topk.EMPTY_KEY
+                        else (-float(s[j]), int(i[j]))
+                        for j, key in enumerate(run[r])]
+        out.append(sorted(entries)[:k])
+    return out
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_merge_block_takes_bf16_rows(precision):
+    """merge_block on bfloat16 rows (the out-of-core wire's) gives the
+    keys of float32 rows holding the same values, at either precision,
+    with a carry and the ids form."""
+    rng = np.random.default_rng(21)
+    q = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(37, 24)).astype(np.float32))).to(torch.bfloat16)
+    c = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(90, 24)).astype(np.float32))).to(torch.bfloat16)
+    c[5] = 0
+    ids = torch.from_numpy(rng.permutation(1000)[:90].astype(np.int64))
+    run = topk.merge_block(None, q.float(), c[:40].float(), ids[:40], 12,
+                           precision)
+    for form in (7, ids[40:]):
+        want = topk.merge_block(run.clone(), q.float(), c[40:].float(), form,
+                                12, precision)
+        got = topk.merge_block(run.clone(), q, c[40:], form, 12, precision)
+        assert got.shape == (37, 12)
+        assert torch.equal(got, want)
+
+
+def test_knn_exact_block_bf16_candidates_match_jax():
+    """knn_exact_block with bfloat16 candidate rows (the queries a float32
+    slice of them) against the JAX knn_exact_block on the same values at
+    test_knn_bf16_tie_aware's tolerance."""
+    rng = np.random.default_rng(15)
+    e = rng.normal(size=(300, 64)).astype(np.float32)
+    e[11] = 0
+    en = topk.normalize_rows(torch.from_numpy(e)).to(torch.bfloat16)
+    queries = en[100:180].float()
+    idx_j, dist_j = jtopk.knn_exact_block(
+        jnp.asarray(queries.numpy()), jnp.asarray(en.float().numpy()), 9,
+        query_tile=32, candidate_tile=128, precision="bf16")
+    idx, dist = topk.knn_exact_block(queries, en, 9, query_tile=32,
+                                     candidate_tile=128, precision="bf16")
+    np.testing.assert_allclose(dist, np.asarray(dist_j), atol=2e-3)
+    agree = np.mean([len(set(a) & set(b)) / 9
+                     for a, b in zip(idx, np.asarray(idx_j))])
+    assert agree > 0.99, agree
+
+
+def test_merge_block_ids_form_with_empty_carry_and_k_over_n():
+    """The ids form over fewer candidates than k, into a carry whose slots
+    are partly EMPTY_KEY: the best min(k, w + n) by (score, index), the
+    unset slots last, as the definition orders them; a zero query row
+    ties on every candidate and keeps the lowest indices."""
+    rng = np.random.default_rng(8)
+    q = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(6, 16)).astype(np.float32)))
+    q[2] = 0
+    first = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(3, 16)).astype(np.float32)))
+    c = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(5, 16)).astype(np.float32)))
+    ids = torch.tensor([40, 3, 17, 8, 25], dtype=torch.int64)
+    run = torch.full((6, 6), topk.EMPTY_KEY, dtype=torch.int64)
+    run[:, :3] = topk.merge_block(None, q, first, 100, 3, "fp32")
+    got = topk.merge_block(run.clone(), q, c, ids, 20, "fp32")
+    assert got.shape == (6, 11)
+    assert bool((got[:, :8] != topk.EMPTY_KEY).all())
+    assert bool((got[:, 8:] == topk.EMPTY_KEY).all())
+    want = _keys_reference(run.numpy(), q.numpy(), c.numpy(), ids.numpy(),
+                           11)
+    scores, index = topk._decode_keys(got[:, :8])
+    for r in range(6):
+        assert [i for _, i in want[r][:8]] == index[r].tolist(), r
+        np.testing.assert_allclose(scores[r].numpy(),
+                                   [-s for s, _ in want[r][:8]], atol=1e-6)
+    assert index[2].tolist() == [3, 8, 17, 25, 40, 100, 101, 102]

@@ -131,9 +131,11 @@ Phases; any failure exits non-zero and prints no result line:
          device memory stays below the (2R, d) float32 matrix, and
          neighbor agreement with phase 4's in-core overlaps.tsv >= 0.99;
      (b) knn_exact_ooc on 262,144 x 512 rows (rank 16 plus noise, from
-         FLAGS' --seed), k = 50, at 256 MiB: the plan's slabs and blocks,
-         peak device memory within the budget plus a merge's library
-         workspace, agreement >= 0.999 and sorted distances within 1e-6
+         FLAGS' --seed), k = 50, at 256 MiB: the card's plan's slabs and
+         blocks (K4's own footprint counted), peak device memory within
+         the budget plus what one merge at the plan's slab x block holds
+         past the plan's count (logged with that merge's time and units),
+         agreement >= 0.999 and sorted distances within 1e-6
          against an in-core top-k over the same wire rows on 2,048
          sampled queries (K4 in one launch), and that top-k against
          merge_block_plain at phase 12's bars; its seconds, H2D bytes
@@ -208,18 +210,20 @@ Phases; any failure exits non-zero and prints no result line:
          calling knn_ivf_sharded_multihost once; gloo on one card, and
          with two or more cards also one card a rank over NCCL (with
          four, two cards a rank too).
-  12. the hand k-NN and sign-table kernels, run after 4e: K4
+  12. the hand k-NN and sign-table kernels, run after 4e: K4's build
+     (each instance's registers and spills from ptxas -v's log), then K4
      (csrc/knn_merge.cu) against merge_block_plain on the card at phase
      4's rows (4d's checkpoint, 15,000 x 512, k = 50, bf16, then the fp32
-     form), at K4_ROWS x 512 and at OOC_ROWS x 512 on OOC_SAMPLE sampled
+     form; each also at K4_SPLITS forced units, bitwise the planned
+     split's keys), at K4_ROWS x 512 and at OOC_ROWS x 512 on OOC_SAMPLE sampled
      queries (rank 16 plus noise), and on edge cases (zero rows, ragged m,
      n and d, m below a block, k past n, the ids form with a carry holding
      EMPTY_KEY slots, both precisions): every kernel score within K4_TOL
      of the plain score of its pair, each row's neighbor set the plain
      one's but where the plain k-th and (k+1)-th scores are within
-     K4_TOL, agreement >= K4_AGREE; the kernel's time beside the plain
-     version's, the bf16 product alone (torch.matmul) and torch.topk on
-     the keys. K5 (csrc/srp_signs.cu) bitwise against sign_table_plain on
+     K4_TOL, agreement >= K4_AGREE; the kernel's time, units, bound and
+     share beside the plain version's, the bf16 product alone
+     (torch.matmul) and torch.topk on the keys. K5 (csrc/srp_signs.cu) bitwise against sign_table_plain on
      the card at phase 4's library size, and after 5b at the long reads'
      (the library sizes the runs log), each with its time and bound.
      Phase 4's knn logs its first-run set-up split (the library load, the
@@ -319,6 +323,8 @@ IVF_AGREE_ALL, IVF_AGREE = 0.999, 0.99
 # another order); neighbor sets equal but at plain near-ties; agreement
 # >= K4_AGREE over every case; K4_ROWS x 512 rank-16 rows, k = K4_K
 K4_TOL, K4_AGREE, K4_ROWS, K4_K = 1e-5, 0.999, 65_536, 50
+# forced splits of K4's candidates held bitwise against the planned one
+K4_SPLITS = (1, 2, 7)
 
 
 COUNTERS: dict = {}
@@ -2334,21 +2340,23 @@ def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
     from fedrann_tpu_torch.cli import config_from_args
     from fedrann_tpu_torch.io.native import pack_reads_native
     from fedrann_tpu_torch.knn.ooc import plan_bytes, plan_ooc
+    from fedrann_tpu_torch.knn.topk import sm_count
 
     flags = [*FLAGS, "--knn-hbm-budget", OOC_CLI_BUDGET]
     config = config_from_args(["-i", fasta, "-o", out_dir, *flags])
     n_reads, d, k = (len(sim.names), config.embedding_dimension,
                      config.n_neighbors)
     n = 2 * n_reads
+    sms = sm_count(dev)
     q_rows, c_rows, ct = plan_ooc(n, d, k, config.knn_hbm_budget,
-                                  config.knn_query_tile)
+                                  config.knn_query_tile, sms=sms)
     slabs, blocks = -(-n // q_rows), -(-n // c_rows)
     log(f"8a plan at --knn-hbm-budget {OOC_CLI_BUDGET} "
         f"({config.knn_hbm_budget} bytes), {n} x {d} rows, k = {k}: "
         f"{slabs} query slabs x {q_rows} rows, {blocks} candidate blocks x "
         f"{c_rows} rows, candidate tile {ct}; the plan holds "
-        f"{plan_bytes(q_rows, c_rows, ct, config.knn_query_tile, d, k, 2)} "
-        "bytes")
+        f"{plan_bytes(q_rows, c_rows, ct, config.knn_query_tile, d, k, 2, sms)} "
+        f"bytes ({sms} SMs)")
     if not pipeline.out_of_core(config, n_reads) or slabs < 2 or blocks < 4:
         fail(f"8a: budget {OOC_CLI_BUDGET} gives {slabs} slabs and {blocks} "
              "blocks out of core, want >= 2 and >= 4")
@@ -2405,25 +2413,37 @@ def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
     return launches
 
 
-def merge_workspace(dev, ct: int, d: int, k: int, qt: int = 512) -> int:
-    """Device bytes one merge_block at (qt, ct) holds past what the plan
-    counts for it (its scores and keys, PAIR_BYTES a pair, and 24 bytes a
-    query row and neighbor), 0 when the plan's count covers them: on the
-    card K4, which holds no tile and writes over its carry."""
+def merge_workspace(dev, q_rows: int, c_rows: int, d: int,
+                    k: int) -> tuple[int, str]:
+    """One merge_block at the plan's slab x block shape (q_rows x c_rows x
+    d, k neighbors, into a carry), on the card: the device bytes it holds
+    past what the card's plan counts for it (K4's split scratch, 8 bytes a
+    query row, neighbor and unit where it splits; 0 when the count covers
+    them), and a log of its units, event time and bytes."""
     import torch
 
-    from fedrann_tpu_torch.knn.topk import PAIR_BYTES, merge_block
+    from fedrann_tpu_torch.knn.topk import k4_units, merge_block, sm_count
 
-    q = torch.randn((qt, d), device=dev).to(torch.bfloat16)
-    c = torch.randn((ct, d), device=dev).to(torch.bfloat16)
+    q = torch.randn((q_rows, d), device=dev).to(torch.bfloat16)
+    c = torch.randn((c_rows, d), device=dev).to(torch.bfloat16)
     run = merge_block(None, q, c, 0, k)
     torch.cuda.synchronize(dev)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    merge_block(run, q, c, ct, k)
+    merge_block(run, q, c, c_rows, k)
     torch.cuda.synchronize(dev)
     used = torch.cuda.max_memory_allocated(dev) - before
-    return max(0, used - (qt * ct * PAIR_BYTES + qt * k * 24))
+    units = k4_units(q_rows, c_rows, k, sm_count(dev))
+    counted = units * q_rows * k * 8 if units > 1 else 0
+    ms = time_cuda(lambda: merge_block(run, q, c, c_rows, k), 3)
+    ops = 2 * q_rows * c_rows * d
+    text = (f"one merge at the plan's slab x block, {q_rows} x {c_rows} x "
+            f"{d}, k = {k}: {merge_block.last_units} units (planned "
+            f"{units}), {ms:.3f} ms = {ops / ms / 1e9:.1f} TFLOP/s, "
+            f"{used} bytes held past the rows and carry (plan counts "
+            f"{counted})")
+    del q, c, run
+    return max(0, used - counted), text
 
 
 def rank16_rows(n: int, d: int):
@@ -2442,8 +2462,9 @@ def check_ooc_search(dev, card: str) -> float:
     """Phase 8b: knn_exact_ooc on OOC_ROWS x 512 rows of rank 16 plus noise
     (tests/test_knn_ooc.py's structure) made by numpy from FLAGS' --seed,
     k = 50, at OOC_BUDGET bytes: the slabs and blocks the port's plan says,
-    peak device memory over the call within the budget plus the
-    libraries' workspaces (merge_workspace), and on OOC_SAMPLE query rows
+    peak device memory over the call within the budget plus what one
+    merge at the plan's slab x block holds past the card's plan
+    (merge_workspace, which logs that merge), and on OOC_SAMPLE query rows
     agreement >= OOC_AGREE_SEARCH with an in-core top-k over the same wire
     rows (K4 in one launch on the card: every distance the same, bitwise),
     and against merge_block_plain's top-k over them at K4's bars
@@ -2461,21 +2482,25 @@ def check_ooc_search(dev, card: str) -> float:
         knn_exact,
         merge_block,
         merge_block_plain,
+        sm_count,
     )
 
     n, d, k, budget = OOC_ROWS, 512, 50, OOC_BUDGET
     t0 = time.perf_counter()
     emb, rng = rank16_rows(n, d)
     made = time.perf_counter() - t0
-    q_rows, c_rows, ct = ooc.plan_ooc(n, d, k, budget)
+    sms = sm_count(dev)
+    q_rows, c_rows, ct = ooc.plan_ooc(n, d, k, budget, sms=sms)
     slabs, blocks = -(-n // q_rows), -(-n // c_rows)
-    held = ooc.plan_bytes(q_rows, c_rows, ct, 512, d, k, 2)
-    workspace = merge_workspace(dev, ct, d, k)
-    log(f"8b plan: {n} x {d} rows (made in {made:.2f} s), k = {k}, budget "
-        f"{budget} bytes: {slabs} query slabs x {q_rows} rows, {blocks} "
-        f"candidate blocks x {c_rows} rows, candidate tile {ct}; the plan "
-        f"holds {held} bytes; a merge's library workspace past the plan's "
-        f"count {workspace} bytes")
+    held = ooc.plan_bytes(q_rows, c_rows, ct, 512, d, k, 2, sms)
+    cpu_slabs = -(-n // ooc.plan_ooc(n, d, k, budget)[0])
+    workspace, one_merge = merge_workspace(dev, q_rows, c_rows, d, k)
+    log(f"8b plan on the card ({sms} SMs): {n} x {d} rows (made in "
+        f"{made:.2f} s), k = {k}, budget {budget} bytes: {slabs} query slabs "
+        f"x {q_rows} rows ({cpu_slabs} on the CPU's plan), {blocks} "
+        f"candidate blocks x {c_rows} rows; the plan holds {held} bytes; "
+        f"{one_merge}; workspace past the plan's count {workspace} bytes "
+        f"[{card}]")
 
     fn = ooc.knn_exact_ooc
     fn.slabs = fn.blocks_uploaded = fn.h2d_bytes = 0
@@ -3705,16 +3730,52 @@ def k4_edge_cases(dev):
     return cases
 
 
+def log_k4_build(card: str) -> None:
+    """Log what ptxas -v said of each K4 instance (csrc/knn_merge.cu's
+    kernels) in the kernel library's build log: registers, spills, and
+    static shared memory (its dynamic shared memory is set at launch)."""
+    import re
+
+    from fedrann_tpu_torch import _build
+
+    path = str(_build.library_path()) + ".log"
+    if not os.path.exists(path):
+        fail(f"12: no build log at {path}")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    seen = {}
+    for i, line in enumerate(lines):
+        found = re.search(r"Function properties for (\S*knn_merge\w*)", line)
+        if found is None or found.group(1) in seen:
+            continue
+        text = " ".join(lines[i + 1 : i + 3])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", text)
+        smem = re.search(r"(\d+) bytes smem", text)
+        seen[found.group(1)] = (
+            f"{regs.group(1) if regs else '?'} registers, spills "
+            f"{spill.group(1) if spill else '?'}/"
+            f"{spill.group(2) if spill else '?'} bytes, static smem "
+            f"{smem.group(1) if smem else 0} bytes")
+    if not seen:
+        fail(f"12: the build log {path} names no knn_merge kernel")
+    for name, text in seen.items():
+        log(f"12 K4 build (ptxas -v) {name}: {text} [{card}]")
+
+
 def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
-    """Phase 12, K4 and K5 against their plain versions on the card: K4 at
-    phase 4's rows (4d's checkpoint; bf16, then the fp32 form), at K4_ROWS
-    and OOC_ROWS x 512 rank-16 rows (OOC_SAMPLE sampled queries over
-    OOC_ROWS), and on k4_edge_cases at both precisions (hold_k4; zero query
-    rows bitwise the plain keys), agreement >= K4_AGREE over every case;
-    K5 at phase 4's library size (check_sign_table). Logs each time beside
-    the plain version's, the bf16 product alone (torch.matmul, the
-    yardstick) and torch.topk on the keys. Returns K4's and K5's report
-    entries at the main path's shapes."""
+    """Phase 12, K4 and K5 against their plain versions on the card: K4's
+    build (log_k4_build); K4 at phase 4's rows (4d's checkpoint; bf16,
+    then the fp32 form; each also at K4_SPLITS forced units, bitwise the
+    planned split's keys), at K4_ROWS and OOC_ROWS x 512 rank-16 rows
+    (OOC_SAMPLE sampled queries over OOC_ROWS), and on k4_edge_cases at
+    both precisions (hold_k4; zero query rows bitwise the plain keys),
+    agreement >= K4_AGREE over every case; K5 at phase 4's library size
+    (check_sign_table). Logs each time with its TFLOP/s, units, bound and
+    share, beside the bf16 product alone (torch.matmul, the yardstick),
+    the plain version's and torch.topk on the keys. Returns K4's and K5's
+    report entries at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -3726,6 +3787,7 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
         normalize_rows,
     )
 
+    log_k4_build(card)
     tally = []
     x = normalize_rows(torch.from_numpy(np.load(os.path.join(
         ckpt_dir, "embeddings.npy"))).to(dev))
@@ -3734,10 +3796,20 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     report = {}
     for precision, rows in (("bf16", x.to(torch.bfloat16)), ("fp32", x)):
         got = merge_block(None, rows, rows, 0, k, precision)
+        units = merge_block.last_units
         err, agree, ties, total = hold_k4(
             f"12 phase 4's rows ({precision})", got, rows, rows, k,
             precision)
         tally.append((agree, total))
+        splits = []
+        for forced in K4_SPLITS:
+            other = merge_block(None, rows, rows, 0, k, precision,
+                                units=forced)
+            splits.append(merge_block.last_units)
+            if not torch.equal(other, got):
+                fail(f"12 phase 4's rows ({precision}): K4 at {forced} "
+                     f"forced units differs from the planned {units}")
+        del other
         ms = time_cuda(lambda: merge_block(None, rows, rows, 0, k,
                                            precision), 10)
         plain_ms = time_cuda(lambda: merge_block_plain(
@@ -3750,15 +3822,16 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
         keys = _order_keys(rows.float() @ rows.float().T, 0)
         topk_ms = time_cuda(lambda: torch.topk(keys, k, dim=1), 3)
         del keys
-        log(f"12 K4 {precision} at phase 4's rows ({m} x {d}, k = {k}): "
-            f"{ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, device "
+        log(f"12 K4 {precision} at phase 4's rows ({m} x {d}, k = {k}), "
+            f"{units} units: {ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, "
+            f"device "
             f"{device_us(lambda: merge_block(None, rows, rows, 0, k, precision), 5, True)} "
-            f"us a launch; plain {plain_ms:.4f} ms; torch.matmul of the "
+            f"us a launch; bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it); torch.matmul of the "
             f"rows {library_ms:.4f} ms, torch.topk of the keys "
-            f"{topk_ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
-            f"({b['bound_by']}, {100 * b['bound_ms'] / ms:.1f}% of it); "
-            f"scores within {err:.3g}, agreement {agree:.6f}, {ties} "
-            f"near-tie rows [{card}]")
+            f"{topk_ms:.4f} ms; plain {plain_ms:.4f} ms; forced units "
+            f"{splits} bitwise the planned; scores within {err:.3g}, "
+            f"agreement {agree:.6f}, {ties} near-tie rows [{card}]")
         if precision == "bf16":
             report["knn_merge"] = dict(max_abs_err=err, ms=ms,
                                        plain_ms=plain_ms,
@@ -3774,17 +3847,21 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
             torch.bfloat16)
         q = c if queries is None else c[torch.from_numpy(queries).to(dev)]
         got = merge_block(None, q, c, 0, K4_K)
+        units = merge_block.last_units
         err, agree, ties, total = hold_k4(f"12 {label}", got, q, c, K4_K,
                                           "bf16")
         tally.append((agree, total))
         ms = time_cuda(lambda: merge_block(None, q, c, 0, K4_K), 3)
         mm = time_cuda(lambda: torch.matmul(q, c.T), 3)
         ops = 2 * q.shape[0] * n * 512
-        log(f"12 K4 bf16 at {label}, k = {K4_K}: {ms:.3f} ms = "
-            f"{ops / ms / 1e9:.1f} TFLOP/s (bound "
-            f"{bound(0, bf16_ops=ops)['bound_ms']:.3f} ms); torch.matmul of "
-            f"the rows {mm:.3f} ms; scores within {err:.3g}, agreement "
-            f"{agree:.6f}, {ties} near-tie rows [{card}]")
+        b = bound((q.shape[0] + n) * 512 * 2 + q.shape[0] * K4_K * 8,
+                  bf16_ops=ops)
+        log(f"12 K4 bf16 at {label}, k = {K4_K}, {units} units: {ms:.3f} "
+            f"ms = {ops / ms / 1e9:.1f} TFLOP/s; bound {b['bound_ms']:.3f} "
+            f"ms ({b['bound_by']}, {100 * b['bound_ms'] / ms:.1f}% of it); "
+            f"torch.matmul of the rows {mm:.3f} ms; scores within "
+            f"{err:.3g}, agreement {agree:.6f}, {ties} near-tie rows "
+            f"[{card}]")
         del c, q, got
     del emb
 

@@ -75,9 +75,9 @@ _SIGNATURES = {
     "fk_membership_embed_dense": [_P, _I64, _I64, _P, _I64, _P, _I32, _I64,
                                   _P, _P, _P, _P, _I64, _P],
     # knn_merge.cu: q, m, c, n, d, is_bf16, fp32, first, ids, run, w, W,
-    # out, vec, stream
+    # out, vec, units, parts, stream
     "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,
-                     _I64, _I64, _P, _I32, _P],
+                     _I64, _I64, _P, _I32, _I64, _P, _P],
     # srp_signs.cu: seed_mix, lib_size, d, n_words, bound, out, stream
     "fk_srp_signs": [_U64, _I64, _I64, _I64, _I64, _P, _P],
     # probes.cu: n, out, stream

@@ -16,132 +16,121 @@
 // 512: 0.23 ms), at fp32 over the FFMA pipe's 67 TFLOP/s. The bytes are
 // the rows, read once, and m * k keys (~31 MB there: 0.009 ms).
 //
-// Design. One block owns BM = 128 query rows and walks all n candidates in
-// tiles of BN = 128 inside the kernel (the loop that takes the place of the
-// scan), so no (m, n) score or key tile reaches device memory. Eight warps,
-// 4 x 2, each a 32 x 64 part of the tile. The depth is walked in stages of
-// 128 bytes a row, three in flight in shared memory (cp.async groups; a
-// step waits for its own stage while the next two load), one barrier a
-// step:
-//   - bf16: 64 values a stage, converted to bf16 as they are loaded
-//     (lossless for bf16 rows and for float32 rows rounded to bf16 once,
-//     topk.round_rows; round to nearest even otherwise, as round_rows does):
-//     bf16 rows by cp.async, float32 rows through registers. Rows are
-//     stored with their 16-byte chunks XOR-swizzled by the row, so the
-//     ldmatrix reads of a fragment hit 32 distinct banks; the product is
-//     mma.sync.m16n8k16 bf16 with float32 accumulation.
-//   - fp32: 32 values a stage, stored transposed (depth-major, rows padded
-//     by one word against bank conflicts); a thread owns 8 x 8 pairs and
-//     accumulates with fmaf over the depth in order.
-// Every pair's score is the same sequence of operations whatever its place
-// in a tile, block, launch or card (a fixed loop over d in a fixed fragment
-// layout, zero-padded past d to the stage depth), so in-core, out-of-core,
-// sharded and multi-process searches score each pair bit-identically and
-// their ties agree.
+// Work units. The query rows are cut into blocks of BM = 128 and the
+// candidates into tiles of BN = 128; a unit is a query block times a
+// contiguous range of tiles (its split: split s of U holds tiles [s T / U,
+// (s + 1) T / U) of T). knn/topk.py `k4_units` chooses U from (m, n, k,
+// the SM count) so that the units fill the card, and the grid is
+// persistent: min(units, SMs) blocks, one an SM, each walking units u =
+// blockIdx.x, + gridDim.x, ... (query block u % blocks, split u / blocks,
+// so the blocks that run at once read the same candidates). A unit keeps
+// its rows' lists in device memory: in the output when U = 1, else in the
+// wrapper's scratch (U, m, W), padded with EMPTY_KEY; split 0 starts from
+// the carry. A second kernel, knn_merge_combine, then takes each row's top
+// W of its U lists (a warp a row, a lane a list). Keys are distinct, so
+// the top W is one set and the result is bitwise the same for every U.
 //
-// The running top-k. A row's list (at most W = min(k, w + n) keys, sorted
-// descending) lives in its row of the output in device memory, so k has no
-// limit; its length and its W-th key (the threshold; EMPTY_KEY while the
-// list is short) are in shared memory. After a tile's product, each of its
-// two column halves is staged in shared memory (the stage buffer the
-// tile's last step consumed) and scanned in a rolled loop, a thread a row
-// and 32 columns: the scan builds each pair's key from the score's bits
-// and keeps only those above the row's threshold (one integer compare for
-// almost every pair past the first tiles), appending them to the row's
-// survivor buffer (SV = 96 keys) by a shared-memory atomic. (Offering
-// straight from the accumulators, unrolled over a thread's 64 pairs, cost
-// several times the product; PERF.md.) A half adds at most 64 keys a row,
-// and a row is merged only once its buffer holds more than SV - 64 (and at
-// the end), so a merge takes a batch of survivors; meanwhile the threshold
-// is merely lower than it could be. One warp a row sorts the survivors by rank (keys
-// are distinct) and merges them into the list by rank: each element's
-// place is its own index plus its rank in the other list. A list of at
-// most LCAP = 128 keys is first copied into the warp's shared-memory
-// scratch (one coalesced load), the ranks taken there and every key
-// written to its place in device memory; a longer list merges in place,
-// its old keys moving from the back to the front in warp-wide chunks, each
-// read before it is written, so it needs no second buffer. Equal keys
-// (EMPTY_KEY slots of the carry) are equal values, so their order does not
-// show.
+// bf16 (knn_merge_wgmma). Two consumer warpgroups of 64 query rows each,
+// one producer warp and seven merge warps (512 threads: the merges, not
+// the product, bound the kernel, so it takes as many merge warps as the
+// registers allow). The producer keeps TMA loads in flight (chunks of 128
+// rows x 64 values, 16 KB, 128-byte swizzled) through a ring of
+// shared-memory stages, each with a full and an empty mbarrier. The
+// consumers run wgmma.mma_async m64n128k16 bf16 -> f32, both operands
+// K-major from shared memory (descriptors of the 128-byte swizzle: LBO
+// 16 B, SBO 1 KB, the start advanced 32 B a k16 step), into 64 float
+// registers a thread. The tensor maps are made on the host for each
+// launch by cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
+// parameters; zero fill past m, n and d does the ragged edges. TMA needs
+// 16-byte rows: knn/topk.py hands bf16 rows whose d is a multiple of 8
+// and whose base is 16-byte aligned, making a zero-padded copy otherwise.
 //
-// Ragged m and n and any d are masked; m < BM leaves rows of the block
-// idle. A zero row scores +0.0 against everything (the accumulators start
-// at +0.0), so the lowest indices win its ties, as in the plain version.
-// The launch is one block per BM query rows; 207,616 bytes of dynamic
-// shared memory, one block an SM.
+// Shared memory goes first to the top-k, then to the query tile. The
+// unit's 128 query rows stay resident for the whole walk only where that
+// leaves three stages beside the lists (at k = 50, d <= 192); else each
+// stage carries the query chunk with the candidate chunk (32 KB a stage,
+// three stages). Resident rows double the product's flops per staged byte,
+// but k4_breakdown shows the merges, not the loads, holding the kernel
+// back, and the lists and survivor halves that make the merges cheap take
+// the room the query tile would.
+//
+// The filter on the accumulators. In wgmma's layout a thread holds two
+// query rows (ra, ra + 8) of its warpgroup's 64 and 32 columns of each, so
+// the four lanes of a quad hold a whole row and a warp 16 rows: a row
+// belongs to one warp, and the filter needs no barrier of the warpgroup.
+// After a tile's product a thread reads its rows' thresholds (the W-th key
+// of the row's list; EMPTY_KEY while the list is short) and, for each
+// group of 8 columns, compares the group's largest score of each row
+// (max.NaN, so a NaN passes) once against the threshold as a float; only
+// a group that passes builds keys (mono_bits, the equal-high-word index
+// test) and appends those above the threshold to the row's survivors, an
+// atomic slot in shared memory.
+//
+// The top-k, k <= 64: each row's list (sorted descending) stays in shared
+// memory and its survivors go to one of two halves of 32 slots. Once the
+// half being filled holds more than 16 keys and the other is free, the
+// row's warp hands it to the merge warps (an entry in a shared-memory
+// queue) and fills the other; a merge warp sorts the half (a warp-wide
+// bitonic sort, a key a lane), takes the top 64 of it and the list (the
+// larger of list[i] and survivors[63 - i], then a bitonic clean), keeps
+// the first W, and publishes the new threshold. So the consumers append
+// and go on while the merges run beside the product. A tile that would
+// overflow a half is offered again in eight rounds of 16 columns a row,
+// handing halves over between rounds; a consumer warp that has to wait for
+// a half merges queue entries itself meanwhile, as it does at a unit's
+// end, where it merges its rows' last halves and writes the lists out.
+// k > 64 (knn_merge_wgmma<false>): the lists in device memory, 32 survivor
+// slots a row, merged by the consumers (sort_survivors, merge_row: a list
+// of at most LCAP = 128 keys ranked through the warp's scratch, a longer
+// one merged in place, so k has no limit) behind the warpgroup's named
+// barrier: the tile's keys are appended at once and the rows past 16
+// merged after it, a tile that overflows offered again in rounds.
+//
+// fp32 (knn_merge_ffma): an FFMA product and a staged scan, inside the
+// same units. 256 threads load stages of 32 values a row, transposed
+// (rows padded by one word), three in flight; a thread owns 8 x 8 pairs
+// and accumulates with fmaf over the depth in order; each tile's column
+// halves are staged in shared memory and scanned a thread a row and 32
+// columns against the row's threshold into SV = 96 survivor slots.
+//
+// One fixed sequence of operations a pair. d is never split: a pair's
+// score is the same k16 steps (bf16) or fmaf chain (fp32) over the depth,
+// zero-padded to the chunk, in whatever tile, unit, split, launch or card
+// it falls, so in-core, out-of-core, sharded and multi-process searches
+// score each pair bit-identically and their ties agree. Accumulators start
+// at +0.0 in registers and every wgmma accumulates (scale-d = 1): a zero
+// row scores +0.0 against everything (scale-d = 0 on the first step could
+// give -0.0, which orders below +0.0 under mono_bits), so the lowest
+// indices win its ties, as in the plain version.
+//
+// Resources, as ptxas -v gives them (nvcc 12.9, sm_90a; chip_smoke.py's
+// phase 12 logs them from the build log): knn_merge_wgmma<true> 128
+// registers (the cap at 512 threads) with 24 bytes of spill stores and 32
+// of loads, <false> 128 registers, knn_merge_ffma 167 (float rows) and
+// 168 (bf16 rows), knn_merge_combine 30, the others no spills; no static
+// shared memory. Shared memory is dynamic: bf16 at d = 512 and k = 50
+// takes three 32 KB stages, 64 KB of survivor halves, 56 KB of lists, the
+// row states and the queue (227,488 bytes); k > 64 the 128 KB query tile,
+// three 16 KB stages, 32 KB of survivors, 8 KB of merge scratch and the
+// row states (224,400 bytes); fp32 207,616 bytes. One block an SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 128;          // query rows a block
-constexpr int BN = 128;          // candidate rows a tile
-constexpr int THREADS = 256;     // eight warps, 4 (rows) x 2 (candidates)
-constexpr int STAGES = 3;        // depth stages in flight
-constexpr int BK16 = 64;         // bf16 values a stage (128 bytes a row)
-constexpr int BK32 = 32;         // float32 values a stage (128 bytes a row)
-constexpr int A32 = BM + 1;      // transposed fp32 strides, padded
-constexpr int B32 = BN + 1;
-constexpr int ROUND = BN / 2;    // keys a row gains in a round at most
-constexpr int SV = 96;           // survivor slots a row
-constexpr int MERGE_AT = SV - ROUND;  // a row holding more merges
-constexpr int LCAP = 128;        // lists merged through the warp's scratch
-constexpr int WARPS = THREADS / 32;
-constexpr int STAGE16 = (BM + BN) * BK16 * 2;
-constexpr int STAGE32 = (A32 + B32) * BK32 * 4;
-constexpr int STAGE_BYTES = STAGE32 > STAGE16 ? STAGE32 : STAGE16;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * SV * 8
-                           + WARPS * LCAP * 8 + BM * 16;
-constexpr int FP_ROWS = THREADS / 16;  // fp32: a thread's row stride
-static_assert(BM * ROUND * 4 <= STAGE_BYTES, "a half's scores fit a stage");
-static_assert(THREADS == 2 * BM && ROUND == 64, "offer_half's layout");
 constexpr int64_t EMPTY_KEY = INT64_MIN;
+constexpr int BM = 128;         // query rows a unit
+constexpr int BN = 128;         // candidate rows a tile
+constexpr int LCAP = 128;       // lists merged through the warp's scratch
+constexpr int MAX_UNITS = 32;   // units a query block: a combine lane each
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most STAGES - 2 groups are in flight: this step's landed
-__device__ __forceinline__ void cp_async_wait_stage() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-__device__ __forceinline__ uint16_t to_bf16(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ uint16_t to_bf16(uint16_t x) { return x; }
 
 // _order_keys of one score: the high word is the float32 bits made
 // monotone, the low word lo = 0xFFFFFFFF - index.
@@ -155,84 +144,12 @@ __device__ __forceinline__ int64_t make_key(int32_t mono, uint32_t lo) {
       (static_cast<uint64_t>(static_cast<uint32_t>(mono)) << 32) | lo);
 }
 
-// One bf16 stage of `rows` tile rows from global rows r0.. (of nrows) at
-// depth k0: chunks of 8 values, chunk ch of row r at 16-byte slot ch ^ (r &
-// 7) of the row's 128 bytes. Zeros past nrows and past d.
-template <typename T>
-__device__ __forceinline__ void load_stage16(uint16_t* dst, const T* src,
-                                             int64_t r0, int64_t nrows,
-                                             int rows, int64_t d, int64_t k0,
-                                             bool vec) {
-  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
-    const int r = q >> 3, ch = q & 7;
-    uint16_t* s = dst + r * BK16 + ((ch ^ (r & 7)) << 3);
-    const int64_t gr = r0 + r, gk = k0 + ch * 8;
-    if (gr < nrows && vec && gk + 8 <= d) {
-      const T* g = src + gr * d + gk;
-      if constexpr (sizeof(T) == 2) {
-        cp_async16(s, g);
-      } else {
-        const float4 x = *reinterpret_cast<const float4*>(g);
-        const float4 y = *reinterpret_cast<const float4*>(g + 4);
-        uint4 v;
-        v.x = to_bf16(x.x) | (static_cast<uint32_t>(to_bf16(x.y)) << 16);
-        v.y = to_bf16(x.z) | (static_cast<uint32_t>(to_bf16(x.w)) << 16);
-        v.z = to_bf16(y.x) | (static_cast<uint32_t>(to_bf16(y.y)) << 16);
-        v.w = to_bf16(y.z) | (static_cast<uint32_t>(to_bf16(y.w)) << 16);
-        *reinterpret_cast<uint4*>(s) = v;
-      }
-    } else {
-      uint32_t v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int64_t k = gk + 2 * u;
-        const bool in = gr < nrows;
-        const uint32_t lo = in && k < d ? to_bf16(src[gr * d + k]) : 0u;
-        const uint32_t hi = in && k + 1 < d ? to_bf16(src[gr * d + k + 1])
-                                            : 0u;
-        v[u] = lo | (hi << 16);
-      }
-      *reinterpret_cast<uint4*>(s) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  }
+__device__ __forceinline__ int64_t kmax(int64_t a, int64_t b) {
+  return a > b ? a : b;
 }
 
-// One fp32 stage, transposed: value (r, k0 + kk) at dst[kk * stride + r].
-template <typename T>
-__device__ __forceinline__ void load_stage32(float* dst, int stride,
-                                             const T* src, int64_t r0,
-                                             int64_t nrows, int rows,
-                                             int64_t d, int64_t k0,
-                                             bool vec) {
-  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
-    const int r = q >> 3, ch = q & 7;
-    const int64_t gr = r0 + r, gk = k0 + ch * 4;
-    float v[4];
-    if (gr < nrows && vec && gk + 4 <= d) {
-      const T* g = src + gr * d + gk;
-      if constexpr (sizeof(T) == 2) {
-        const uint2 x = *reinterpret_cast<const uint2*>(g);
-        v[0] = __uint_as_float(x.x << 16);
-        v[1] = __uint_as_float(x.x & 0xffff0000u);
-        v[2] = __uint_as_float(x.y << 16);
-        v[3] = __uint_as_float(x.y & 0xffff0000u);
-      } else {
-        const float4 x = *reinterpret_cast<const float4*>(g);
-        v[0] = x.x;
-        v[1] = x.y;
-        v[2] = x.z;
-        v[3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[u] = (gr < nrows && gk + u < d) ? to_f32(src[gr * d + gk + u])
-                                          : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) dst[(ch * 4 + u) * stride + r] = v[u];
-  }
+__device__ __forceinline__ int64_t kmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
 }
 
 // Number of leading entries of a[0, len), sorted descending, above v.
@@ -252,57 +169,16 @@ __device__ __forceinline__ int count_above(const int64_t* a, int len,
 
 struct Rows {
   int64_t* sv;       // [BM][SV] survivors since the row's last merge
-  int64_t* scratch;  // [WARPS][LCAP] a merging warp's copy of a list
+  int64_t* scratch;  // [warps][LCAP] a merging warp's copy of a list
   int32_t* thr_hi;   // [BM] the threshold key's high word
   uint32_t* thr_lo;  // [BM] and low word
   int32_t* cnt;      // [BM] survivors since the row's last merge
   int32_t* len;      // [BM] the list's length
 };
 
-// The scores of one column half of a tile, staged for the scan in the
-// stage buffer the tile's last step consumed: score (r, c) at float
-// r * ROUND + (c ^ (r & 31)), so a warp's 32 rows read 32 banks.
-__device__ __forceinline__ int score_at(int r, int c) {
-  return r * ROUND + (c ^ (r & 31));
-}
-
-// Scan the staged half `half` of the tile at candidate col0: thread t
-// takes row t % BM and 32 of the half's 64 columns. The 32 scores are read
-// at once and tested against the row's threshold's high word into a mask;
-// only the columns it sets (rare past the first tiles) build their keys,
-// and each key above the threshold goes to the row's survivors.
-__device__ __forceinline__ void offer_half(const Rows& rs, const float* sc,
-                                           int half, int64_t row0,
-                                           int64_t m, int64_t col0,
-                                           int64_t n, int64_t first,
-                                           const int64_t* ids) {
-  const int r = threadIdx.x % BM;
-  const int c0 = (threadIdx.x / BM) * 32;
-  if (row0 + r >= m) return;
-  const int32_t th = rs.thr_hi[r];
-  const uint32_t tl = rs.thr_lo[r];
-  const int64_t j0 = col0 + half * ROUND + c0;
-  const int cols = n - j0 < 32 ? static_cast<int>(n - j0) : 32;
-  uint32_t mask = 0;
-#pragma unroll
-  for (int cc = 0; cc < 32; ++cc) {
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    mask |= static_cast<uint32_t>(mono >= th && cc < cols) << cc;
-  }
-  while (mask != 0) {
-    const int cc = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    const int64_t index = ids != nullptr ? ids[j0 + cc] : first + j0 + cc;
-    const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
-    if (mono == th && lo <= tl) continue;
-    const int slot = atomicAdd(&rs.cnt[r], 1);
-    rs.sv[r * SV + slot] = make_key(mono, lo);
-  }
-}
-
 // Sort row r's s survivors descending in place, by rank (distinct keys),
 // by one warp.
+template <int SV>
 __device__ __forceinline__ void sort_survivors(int64_t* S, int s, int lane) {
   int64_t v[SV / 32];
   int rank[SV / 32];
@@ -335,6 +211,7 @@ __device__ __forceinline__ void set_threshold(const Rows& rs, int r,
 
 // Merge row r's survivors into its list L (W slots in device memory), by
 // one warp; then reset the row's count and set its length and threshold.
+template <int SV>
 __device__ void merge_row(const Rows& rs, int r, int64_t* L, int W,
                           int lane, int64_t* scratch) {
   int64_t* S = rs.sv + r * SV;
@@ -342,7 +219,7 @@ __device__ void merge_row(const Rows& rs, int r, int64_t* L, int W,
   if (W <= LCAP) {
     for (int i = lane; i < len; i += 32) scratch[i] = L[i];
   }
-  sort_survivors(S, rs.cnt[r], lane);
+  sort_survivors<SV>(S, rs.cnt[r], lane);
   const int ns = min(rs.cnt[r], W);
   if (W <= LCAP) {
     // every key to its place, the ranks taken in the copies
@@ -407,27 +284,960 @@ __device__ void merge_row(const Rows& rs, int r, int64_t* L, int W,
   __syncwarp();
 }
 
-// Merge every row of the block whose survivors number more than `above`.
-__device__ __forceinline__ void merge_rows(const Rows& rs, int64_t* out,
-                                           int64_t row0, int W, int above) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < BM; r += WARPS) {
+// Merge the block rows r0, r0 + step, .. < r1 whose survivors number more
+// than `above`, a warp each; row r's list is L0 + (row0 + r) * W.
+template <int SV>
+__device__ __forceinline__ void merge_rows(const Rows& rs, int64_t* L0,
+                                           int64_t row0, int W, int above,
+                                           int r0, int r1, int step,
+                                           int lane, int64_t* scratch) {
+  for (int r = r0; r < r1; r += step) {
     if (rs.cnt[r] > above) {
-      merge_row(rs, r, out + (row0 + r) * W, W, lane,
-                rs.scratch + warp * LCAP);
+      merge_row<SV>(rs, r, L0 + (row0 + r) * W, W, lane, scratch);
     }
   }
 }
 
-// TC: the tensor-core (bf16) product, else the FFMA (fp32) product. T: the
-// rows' type, float or bf16 bits (uint16_t).
-template <bool TC, typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    knn_merge_kernel(const T* __restrict__ q, int64_t m,
-                     const T* __restrict__ c, int64_t n, int64_t d,
-                     int64_t first, const int64_t* __restrict__ ids,
-                     const int64_t* run, int64_t w, int W, int64_t* out,
-                     bool vec) {
+// A unit: query rows row0.. and candidate tiles [t_lo, t_hi) of its split.
+struct Unit {
+  int64_t row0, t_lo, t_hi;
+  int split;
+};
+
+__device__ __forceinline__ Unit unit_at(int64_t u, int64_t blocks,
+                                        int64_t tiles, int units) {
+  Unit x;
+  x.split = static_cast<int>(u / blocks);
+  x.row0 = (u - x.split * blocks) * BM;
+  x.t_lo = x.split * tiles / units;
+  x.t_hi = (x.split + 1) * tiles / units;
+  return x;
+}
+
+// Open block rows [r0, r1) of a unit, threads t.. of nt: split 0's carry
+// into the rows' lists (block row r's at L + r * stride; copy false where
+// they are the carry itself), each row's length, count and threshold (the
+// carry's last key when it fills W).
+__device__ void open_rows(const Rows& rs, const Unit& x, int64_t m,
+                          const int64_t* run, int64_t w, int W, int64_t* L,
+                          int stride, bool copy, int r0, int r1, int t,
+                          int nt) {
+  const int64_t cw = x.split == 0 ? w : 0;
+  if (cw > 0 && copy) {
+    for (int64_t e = t; e < (r1 - r0) * cw; e += nt) {
+      const int64_t r = r0 + e / cw, col = e % cw;
+      if (x.row0 + r < m) L[r * stride + col] = run[(x.row0 + r) * w + col];
+    }
+  }
+  for (int r = r0 + t; r < r1; r += nt) {
+    const int64_t g = x.row0 + r;
+    const bool live = g < m;
+    set_threshold(rs, r, live && cw == W ? run[g * w + w - 1] : EMPTY_KEY);
+    rs.cnt[r] = 0;
+    rs.len[r] = live ? static_cast<int32_t>(cw) : 0;
+  }
+}
+
+// Pad the lists of block rows r0, r0 + step, .. < r1 past their lengths
+// with EMPTY_KEY (a split's list may hold fewer than W keys), a warp a row.
+__device__ __forceinline__ void pad_rows(const Rows& rs, int64_t* L0,
+                                         int64_t row0, int64_t m, int W,
+                                         int r0, int r1, int step,
+                                         int lane) {
+  for (int r = r0; r < r1; r += step) {
+    if (row0 + r >= m) break;
+    for (int i = rs.len[r] + lane; i < W; i += 32) {
+      L0[(row0 + r) * W + i] = EMPTY_KEY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- bf16 --
+
+namespace tc {
+
+constexpr int KC = 64;                // depth a chunk: one 128-byte row
+constexpr int CHUNK = BN * KC * 2;    // bytes of a chunk of 128 rows
+constexpr int CONSUMERS = 2;          // warpgroups, 64 query rows each
+constexpr int CWARPS = 4 * CONSUMERS;
+constexpr int MERGERS = 7;            // merge warps (lists in shared memory)
+constexpr int THREADS = (CWARPS + 1 + MERGERS) * 32;  // + the producer
+constexpr int CW = 16;                // keys a row gains in a round at most
+constexpr int MAX_STAGES = 8;
+constexpr int MIN_STAGES = 3;
+constexpr int ALIGN = 1024;           // the 128-byte swizzle's atom
+constexpr int WL_MAX = 64;            // lists kept in shared memory up to
+// shared memory past the stages and the query tile, lists in device
+// memory: 32 survivor slots a row, the merging warps' scratch, row
+// states, mbarriers
+constexpr int GLOBAL_BYTES = BM * 32 * 8 + CWARPS * LCAP * 8 + BM * 16 +
+                             (2 * MAX_STAGES + 2) * 8;
+static_assert(BM == 64 * CONSUMERS, "a warpgroup's 64 rows");
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(b)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(b)) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait past ~2^36
+// cycles (half a minute) traps: a lost phase fails the launch instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 36)) __trap();
+  }
+}
+
+// A box of the tensor map (x = depth, y = row) into shared memory,
+// completing on the mbarrier.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
+        "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's descriptor of a K-major tile in the 128-byte swizzle: rows of
+// 128 bytes, 8-row atoms 1 KB apart (SBO), LBO 16 bytes (unused there).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tie the accumulators to this point of the program (the compiler may not
+// move their reads or writes across it).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16, K-major) * B (128 x 16, K-major)^T, bf16 in, f32 out;
+// scale-d = 1 always (the accumulators start at +0.0).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The warpgroup's named barrier (1 + warpgroup; 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The warpgroup's barrier, returning whether any of its threads passed v.
+__device__ __forceinline__ bool wg_any(bool v, int id) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, %2, 128, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(v)), "r"(id)
+      : "memory");
+  return r != 0;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A row's threshold in a thread's registers: the key's words and, for the
+// first test, the float whose bits the high word orders (-inf below every
+// score when the high word is EMPTY_KEY's; +inf, and a key no score
+// passes, for a row past m).
+struct Thr {
+  int32_t hi;
+  uint32_t lo;
+  float f;
+};
+
+__device__ __forceinline__ Thr thr_of(int64_t key, bool live) {
+  Thr t;
+  if (!live) {
+    t.hi = INT32_MAX;
+    t.lo = UINT32_MAX;
+    t.f = __int_as_float(0x7f800000);
+    return t;
+  }
+  t.hi = static_cast<int32_t>(key >> 32);
+  t.lo = static_cast<uint32_t>(key);
+  const float f = __int_as_float(t.hi < 0 ? t.hi ^ 0x7fffffff : t.hi);
+  t.f = f != f ? __int_as_float(0xff800000) : f;
+  return t;
+}
+
+__device__ __forceinline__ Thr load_thr(const Rows& rs, int r, bool live) {
+  return thr_of(make_key(rs.thr_hi[r], rs.thr_lo[r]), live);
+}
+
+// Offer the score v of block row r and candidate column col: if its key is
+// above the row's threshold, count it in the row's survivors and store it
+// where its slot is below SV. Returns the slot, or -1.
+template <int SV>
+__device__ __forceinline__ int offer(const Rows& rs, int r, const Thr& th,
+                                     float v, int64_t col, int64_t c_end,
+                                     int64_t first, const int64_t* ids) {
+  if (v < th.f) return -1;
+  const int32_t mono = mono_bits(v);
+  if (mono < th.hi || col >= c_end) return -1;
+  const int64_t index = ids != nullptr ? ids[col] : first + col;
+  const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
+  if (mono == th.hi && lo <= th.lo) return -1;
+  const int slot = atomicAdd(&rs.cnt[r], 1);
+  if (slot < SV) rs.sv[r * SV + slot] = make_key(mono, lo);
+  return slot;
+}
+
+// Merge the warpgroup's rows r0 + w4, + 4, .. whose survivors number more
+// than `above`, a warp each, into their lists in device memory (row r's at
+// L0 + (row0 + r) * W).
+template <int SV>
+__device__ __forceinline__ void merge_wg(const Rows& rs, int64_t* L0,
+                                         int64_t row0, int W, int above,
+                                         int r0, int w4, int lane,
+                                         int64_t* scratch) {
+  for (int r = r0 + w4; r < r0 + 64; r += 4) {
+    if (rs.cnt[r] > above) {
+      merge_row<SV>(rs, r, L0 + (row0 + r) * W, W, lane, scratch);
+    }
+  }
+}
+
+// ------------------------------------------ bf16, lists in shared memory --
+//
+// Where W <= 64 each row's list stays in shared memory, its survivors go
+// to one of two halves of SVH slots, and MERGERS warps of their own merge
+// full halves while the consumers go on: a consumer warp hands a half
+// over (a queue entry) once it holds more than SVH / 2 keys and the row's
+// other half is free, and appends to the other half from then on. Rows
+// are owned by warps (a warp's lanes hold all four columns quarters of
+// its 16 rows), so the consumers' filter needs no barrier of the
+// warpgroup.
+
+constexpr int SVH = 32;      // survivor slots a half
+constexpr int QCAP = 256;    // queue entries (a row has one half queued)
+
+struct Ls {
+  int64_t* sv;     // [BM][2][SVH] survivors, two halves a row
+  int64_t* lists;  // [BM][wl] the lists, sorted descending
+  int64_t* thr;    // [BM] the threshold key (the W-th, or EMPTY_KEY)
+  int32_t* len;    // [BM] the list's length
+  int32_t* cnt;    // [BM][2] keys in each half
+  int32_t* act;    // [BM] the half the consumers append to
+  int32_t* busy;   // [BM][2] a half queued or being merged
+  int32_t* queue;  // [QCAP] 2 * row + half + 1; 0 an empty slot, -1 stop
+  int32_t* ctl;    // [4] queue head, queue tail, consumer warps done
+  int wl;
+};
+
+__host__ __device__ constexpr int ls_bytes(int wl) {
+  return BM * 2 * SVH * 8 + BM * wl * 8 + BM * (8 + 4 + 8 + 4 + 8) +
+         QCAP * 4 + 16 + (2 * MAX_STAGES + 2) * 8;
+}
+
+__device__ __forceinline__ int64_t ld_volatile(const int64_t* p) {
+  return *reinterpret_cast<const volatile int64_t*>(p);
+}
+
+__device__ __forceinline__ int ld_volatile(const int32_t* p) {
+  return *reinterpret_cast<const volatile int32_t*>(p);
+}
+
+// As offer, into half h of row r (slot stored below SVH).
+__device__ __forceinline__ int offer_ls(const Ls& R, int r, int h,
+                                        const Thr& th, float v, int64_t col,
+                                        int64_t c_end, int64_t first,
+                                        const int64_t* ids) {
+  if (v < th.f) return -1;
+  const int32_t mono = mono_bits(v);
+  if (mono < th.hi || col >= c_end) return -1;
+  const int64_t index = ids != nullptr ? ids[col] : first + col;
+  const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
+  if (mono == th.hi && lo <= th.lo) return -1;
+  const int slot = atomicAdd(&R.cnt[2 * r + h], 1);
+  if (slot < SVH) R.sv[(2 * r + h) * SVH + slot] = make_key(mono, lo);
+  return slot;
+}
+
+// One warp's descending bitonic sort of 32 keys, a lane each.
+__device__ __forceinline__ int64_t sort32(int64_t v, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int64_t p = __shfl_xor_sync(0xffffffffu, v, j);
+      // the lower lane of a pair keeps the larger key in a descending
+      // block, the smaller in an ascending one
+      if ((p > v) == (((lane & j) == 0) == ((lane & k) == 0))) v = p;
+    }
+  }
+  return v;
+}
+
+// Merge half h of row r into its list (W <= 64 keys), by one warp: the
+// survivors sorted (sort32), then the top 64 of the list and them (the
+// larger of list[i] and survivors[63 - i]: a bitonic sequence) sorted by
+// a bitonic clean; the first W kept, the threshold the W-th once there
+// are W, the half emptied.
+__device__ void merge_half(const Ls& R, int r, int h, int W, int lane) {
+  const int s = min(R.cnt[2 * r + h], SVH);
+  const int64_t* S = R.sv + (2 * r + h) * SVH;
+  const int64_t v = sort32(lane < s ? S[lane] : EMPTY_KEY, lane);
+  int64_t* L = R.lists + r * R.wl;
+  const int len = R.len[r];
+  int64_t b0 = lane < len ? L[lane] : EMPTY_KEY;
+  int64_t b1 = lane + 32 < len ? L[lane + 32] : EMPTY_KEY;
+  b1 = kmax(b1, __shfl_sync(0xffffffffu, v, 31 - lane));
+  const int64_t hi = kmax(b0, b1);
+  b1 = kmin(b0, b1);
+  b0 = hi;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1) {
+    const int64_t p0 = __shfl_xor_sync(0xffffffffu, b0, j);
+    const int64_t p1 = __shfl_xor_sync(0xffffffffu, b1, j);
+    const bool lower = (lane & j) == 0;
+    if ((p0 > b0) == lower) b0 = p0;
+    if ((p1 > b1) == lower) b1 = p1;
+  }
+  __syncwarp();
+  if (lane < W) L[lane] = b0;
+  if (lane + 32 < W) L[lane + 32] = b1;
+  const int nl = min(W, len + s);
+  const int64_t last = __shfl_sync(0xffffffffu, W <= 32 ? b0 : b1,
+                                   (W - 1) & 31);
+  if (lane == 0) {
+    R.len[r] = nl;
+    R.thr[r] = nl == W ? last : EMPTY_KEY;
+    R.cnt[2 * r + h] = 0;
+  }
+  __syncwarp();
+}
+
+// Hand half a of row r to the merge warps (by the row's lane): the
+// consumers append to the other half from now on.
+__device__ __forceinline__ void hand_over(const Ls& R, int r, int a) {
+  R.busy[2 * r + a] = 1;
+  R.act[r] = a ^ 1;
+  __threadfence_block();
+  const int slot = atomicAdd(&R.ctl[0], 1);
+  *reinterpret_cast<volatile int32_t*>(&R.queue[slot % QCAP]) =
+      2 * r + a + 1;
+}
+
+// Take one queue entry where there is one not yet taken and merge it, by
+// one warp (a consumer warp that waits on the merge warps helps them so).
+// Returns whether it merged one.
+__device__ bool try_merge(const Ls& R, int W, int lane) {
+  int e = 0;
+  if (lane == 0) {
+    int t = ld_volatile(&R.ctl[1]);
+    while (t < ld_volatile(&R.ctl[0])) {
+      const int got = atomicCAS(&R.ctl[1], t, t + 1);
+      if (got == t) {
+        // the entry's push has taken its slot; its write follows
+        while ((e = ld_volatile(&R.queue[t % QCAP])) == 0) {
+        }
+        *reinterpret_cast<volatile int32_t*>(&R.queue[t % QCAP]) = 0;
+        break;
+      }
+      t = got;
+    }
+  }
+  e = __shfl_sync(0xffffffffu, e, 0);
+  if (e <= 0) return false;
+  __threadfence_block();
+  const int r = (e - 1) >> 1, h = (e - 1) & 1;
+  merge_half(R, r, h, W, lane);
+  __threadfence_block();
+  __syncwarp();
+  if (lane == 0) *reinterpret_cast<volatile int32_t*>(&R.busy[2 * r + h]) = 0;
+  return true;
+}
+
+// Hand over the halves of the warp's rows r0w .. r0w + 15 that hold more
+// than `limit` keys where the row's other half is free (a lane a row).
+// Returns whether a row stays above the limit (its other half busy).
+__device__ __forceinline__ bool hand_over_rows(const Ls& R, int r0w,
+                                               int lane, int limit) {
+  bool over = false;
+  if (lane < 16) {
+    const int r = r0w + lane, a = R.act[r];
+    if (R.cnt[2 * r + a] > limit) {
+      if (ld_volatile(&R.busy[2 * r + (a ^ 1)]) == 0) {
+        hand_over(R, r, a);
+      } else {
+        over = true;
+      }
+    }
+  }
+  return __any_sync(0xffffffffu, over);
+}
+
+// Hand over the warp's halves past `limit` until none is left, merging
+// queue entries meanwhile.
+__device__ __forceinline__ void make_room(const Ls& R, int r0w, int lane,
+                                          int W, int limit) {
+  __threadfence_block();
+  __syncwarp();
+  while (hand_over_rows(R, r0w, lane, limit)) {
+    if (!try_merge(R, W, lane)) __nanosleep(32);
+  }
+  __syncwarp();
+}
+
+// Wait until no half of the warp's rows r0w .. r0w + 15 is at the merge
+// warps, merging queue entries meanwhile.
+__device__ __forceinline__ void wait_idle(const Ls& R, int r0w, int lane,
+                                          int W) {
+  const int r = r0w + (lane & 15);
+  while (__any_sync(0xffffffffu, (ld_volatile(&R.busy[2 * r]) |
+                                  ld_volatile(&R.busy[2 * r + 1])) != 0)) {
+    if (!try_merge(R, W, lane)) __nanosleep(32);
+  }
+  __threadfence_block();
+}
+
+}  // namespace tc
+
+// LS: the rows' lists in shared memory with the merge warps (W <= 64);
+// else in device memory, SV survivor slots a row, merged by the consumers
+// through each warp's scratch.
+template <bool LS>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+    knn_merge_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tcand, int64_t m,
+                    int64_t n, int kt_n, int64_t first,
+                    const int64_t* __restrict__ ids, const int64_t* run,
+                    int64_t w, int W, int64_t* out, int64_t* parts,
+                    int units, int stages, int resident, int wl) {
+  using namespace tc;
+  // (device-memory lists) a tile's fast offer adds at most SV - MERGE_AT
+  // keys a row before it overflows; rows above MERGE_AT merge after it
+  constexpr int SV = 32;
+  constexpr int MERGE_AT = SV / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  const int stage_bytes = resident ? CHUNK : 2 * CHUNK;
+  unsigned char* stage0 = base;
+  unsigned char* qs = base + stages * stage_bytes;
+  unsigned char* tail = qs + (resident ? kt_n * CHUNK : 0);
+  Rows rs = {};
+  Ls R = {};
+  uint64_t* full;
+  if constexpr (LS) {
+    R.sv = reinterpret_cast<int64_t*>(tail);
+    R.lists = R.sv + BM * 2 * SVH;
+    R.thr = R.lists + BM * wl;
+    R.len = reinterpret_cast<int32_t*>(R.thr + BM);
+    R.cnt = R.len + BM;
+    R.act = R.cnt + 2 * BM;
+    R.busy = R.act + BM;
+    R.queue = R.busy + 2 * BM;
+    R.ctl = R.queue + QCAP;
+    R.wl = wl;
+    full = reinterpret_cast<uint64_t*>(R.ctl + 4);
+  } else {
+    rs.sv = reinterpret_cast<int64_t*>(tail);
+    rs.scratch = rs.sv + BM * SV;
+    rs.thr_hi = reinterpret_cast<int32_t*>(rs.scratch + CWARPS * LCAP);
+    rs.thr_lo = reinterpret_cast<uint32_t*>(rs.thr_hi + BM);
+    rs.cnt = reinterpret_cast<int32_t*>(rs.thr_lo + BM);
+    rs.len = rs.cnt + BM;
+    full = reinterpret_cast<uint64_t*>(rs.len + BM);
+  }
+  uint64_t* empty = full + stages;
+  uint64_t* qfull = empty + stages;
+  uint64_t* qempty = qfull + 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    mbar_init(qfull, 1);
+    mbar_init(qempty, CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (LS) {
+    for (int i = threadIdx.x; i < QCAP + 4; i += THREADS) R.queue[i] = 0;
+  }
+  __syncthreads();
+
+  const int64_t blocks = (m + BM - 1) / BM, tiles = (n + BN - 1) / BN;
+  const int64_t total = blocks * units;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int stage = 0;
+  uint32_t phase = 0, qj = 0;
+
+  if (warp == CWARPS) {
+    // the producer: the unit's query tile (once, where resident), then
+    // its candidate chunks through the ring
+    if (lane != 0) return;
+    for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+      const Unit x = unit_at(u, blocks, tiles, units);
+      if (x.t_lo == x.t_hi) continue;
+      if (resident) {
+        mbar_wait(qempty, (qj & 1) ^ 1);
+        mbar_expect_tx(qfull, kt_n * CHUNK);
+        for (int kc = 0; kc < kt_n; ++kc) {
+          tma_load(qs + kc * CHUNK, &tq, kc * KC, static_cast<int>(x.row0),
+                   qfull);
+        }
+        ++qj;
+      }
+      for (int64_t t = x.t_lo; t < x.t_hi; ++t) {
+        for (int kc = 0; kc < kt_n; ++kc) {
+          mbar_wait(empty + stage, phase ^ 1);
+          mbar_expect_tx(full + stage, stage_bytes);
+          unsigned char* sp = stage0 + stage * stage_bytes;
+          tma_load(sp, &tcand, kc * KC, static_cast<int>(t * BN),
+                   full + stage);
+          if (!resident) {
+            tma_load(sp + CHUNK, &tq, kc * KC, static_cast<int>(x.row0),
+                     full + stage);
+          }
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    // stay until the consumers have released every stage (every load done)
+    for (int s = 0; s < stages; ++s) {
+      mbar_wait(empty + stage, phase ^ 1);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  if (warp > CWARPS) {
+    // the merge warps: each queue entry in turn, until a stop entry
+    if constexpr (LS) {
+      while (true) {
+        int t = 0;
+        if (lane == 0) t = atomicAdd(&R.ctl[1], 1);
+        t = __shfl_sync(0xffffffffu, t, 0) % QCAP;
+        int e;
+        while ((e = ld_volatile(&R.queue[t])) == 0) __nanosleep(64);
+        __syncwarp();
+        if (lane == 0) *reinterpret_cast<volatile int32_t*>(&R.queue[t]) = 0;
+        if (e < 0) return;
+        __threadfence_block();
+        const int r = (e - 1) >> 1, h = (e - 1) & 1;
+        merge_half(R, r, h, W, lane);
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) {
+          *reinterpret_cast<volatile int32_t*>(&R.busy[2 * r + h]) = 0;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns block rows wg * 64 ..; this thread
+  // holds rows ra and rb = ra + 8 of wgmma's accumulator layout, and its
+  // warp all four column quarters of rows r0w .. r0w + 15
+  const int wg = warp >> 2, wt = threadIdx.x & 127, w4 = warp & 3;
+  const int bar = 1 + wg, r0 = wg * 64, r0w = r0 + w4 * 16;
+  const int ra = r0w + (lane >> 2), rb = ra + 8;
+  const bool lead = (lane & 3) == 0;
+  int64_t* scratch = rs.scratch + warp * LCAP;
+  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+    const Unit x = unit_at(u, blocks, tiles, units);
+    int64_t* L0 = units == 1 ? out : parts + x.split * m * W;
+    const bool live_a = x.row0 + ra < m, live_b = x.row0 + rb < m;
+    Thr ta, tb;
+    if constexpr (LS) {
+      // the warp's rows: split 0's carry into the lists, lengths,
+      // thresholds, empty halves
+      const int64_t cw = x.split == 0 ? w : 0;
+      for (int i = lane; i < 16 * cw; i += 32) {
+        const int r = r0w + i / static_cast<int>(cw);
+        const int col = i % static_cast<int>(cw);
+        if (x.row0 + r < m) {
+          R.lists[r * wl + col] = run[(x.row0 + r) * w + col];
+        }
+      }
+      if (lane < 16) {
+        const int r = r0w + lane;
+        const int64_t g = x.row0 + r;
+        R.thr[r] = g < m && cw == W ? run[g * w + w - 1] : EMPTY_KEY;
+        R.len[r] = g < m ? static_cast<int32_t>(cw) : 0;
+        R.cnt[2 * r] = R.cnt[2 * r + 1] = 0;
+        R.act[r] = 0;
+        R.busy[2 * r] = R.busy[2 * r + 1] = 0;
+      }
+      __syncwarp();
+    } else {
+      open_rows(rs, x, m, run, w, W, L0 + x.row0 * W, W, L0 != run, r0,
+                r0 + 64, wt, 128);
+      wg_sync(bar);
+      ta = load_thr(rs, ra, live_a);
+      tb = load_thr(rs, rb, live_b);
+    }
+    if (x.t_lo < x.t_hi) {
+      if (resident) mbar_wait(qfull, qj & 1);
+      const int64_t c_end = min(x.t_hi * BN, n);
+      for (int64_t t = x.t_lo; t < x.t_hi; ++t) {
+        float acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+        fence_acc(acc);
+        int prev = -1;
+        for (int kc = 0; kc < kt_n; ++kc) {
+          mbar_wait(full + stage, phase);
+          const unsigned char* sp = stage0 + stage * stage_bytes;
+          const unsigned char* a =
+              (resident ? qs + kc * CHUNK : sp + CHUNK) + wg * 64 * 128;
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < KC / 16; ++ks) {
+            wgmma_m64n128k16(acc, desc_sw128(a + 32 * ks),
+                             desc_sw128(sp + 32 * ks));
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (prev >= 0 && wt == 0) mbar_arrive(empty + prev);
+          prev = stage;
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        if (wt == 0) {
+          mbar_arrive(empty + prev);
+          if (resident && t + 1 == x.t_hi) mbar_arrive(qempty);
+        }
+
+        // the filter: each row's largest score against its threshold
+        const int64_t col0 = t * BN + (lane & 3) * 2;
+        if constexpr (LS) {
+          ta = thr_of(ld_volatile(&R.thr[ra]), live_a);
+          tb = thr_of(ld_volatile(&R.thr[rb]), live_b);
+          const int ha = R.act[ra], hb = R.act[rb];
+          const int ca = R.cnt[2 * ra + ha], cb = R.cnt[2 * rb + hb];
+          // the tile's keys above the thresholds, at once: each group of
+          // 8 columns (two values of each row) offered only where one of
+          // its values passes the first test
+          int most = -1;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            if (__builtin_expect(
+                    !(max_nan(acc[4 * j], acc[4 * j + 1]) < ta.f) ||
+                        !(max_nan(acc[4 * j + 2], acc[4 * j + 3]) < tb.f),
+                    0)) {
+#pragma unroll
+              for (int i = 4 * j; i < 4 * j + 4; ++i) {
+                most = max(most, offer_ls(R, (i & 2) ? rb : ra,
+                                          (i & 2) ? hb : ha,
+                                          (i & 2) ? tb : ta, acc[i],
+                                          col0 + j * 8 + (i & 1), c_end,
+                                          first, ids));
+              }
+            }
+          }
+          if (!__any_sync(0xffffffffu, most >= 0)) continue;
+          if (__any_sync(0xffffffffu, most >= SVH)) {
+            // a half overflowed: drop the tile's keys and offer the tile
+            // in eight rounds of 16 columns a row, each after the halves
+            // with more than SVH - 16 keys are handed over (waiting for,
+            // and helping with, the merges that free the other halves)
+            if (lead) {
+              R.cnt[2 * ra + ha] = ca;
+              R.cnt[2 * rb + hb] = cb;
+            }
+#pragma unroll
+            for (int round = 0; round < 8; ++round) {
+              make_room(R, r0w, lane, W, SVH - 16);
+              const int ra_h = R.act[ra], rb_h = R.act[rb];
+              ta = thr_of(ld_volatile(&R.thr[ra]), live_a);
+              tb = thr_of(ld_volatile(&R.thr[rb]), live_b);
+#pragma unroll
+              for (int i = 8 * round; i < 8 * round + 8; ++i) {
+                offer_ls(R, (i & 2) ? rb : ra, (i & 2) ? rb_h : ra_h,
+                         (i & 2) ? tb : ta, acc[i],
+                         col0 + (i >> 2) * 8 + (i & 1), c_end, first, ids);
+              }
+            }
+          }
+          // hand the halves past SVH / 2 to the merge warps where the
+          // row's other half is free (else the half fills on, and a tile
+          // that overflows it waits for the other)
+          __threadfence_block();
+          __syncwarp();
+          hand_over_rows(R, r0w, lane, SVH / 2);
+          __syncwarp();
+        } else {
+          const int ca = rs.cnt[ra], cb = rs.cnt[rb];
+          float ma = acc[0], mb = acc[2];
+#pragma unroll
+          for (int i = 0; i < 64; i += 4) {
+            ma = max_nan(ma, max_nan(acc[i], acc[i + 1]));
+            mb = max_nan(mb, max_nan(acc[i + 2], acc[i + 3]));
+          }
+          if (!wg_any(!(ma < ta.f) || !(mb < tb.f), bar)) continue;
+          // the tile's keys above the thresholds, at once
+          int most = -1;
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            most = max(most, offer<SV>(rs, (i & 2) ? rb : ra,
+                                       (i & 2) ? tb : ta, acc[i],
+                                       col0 + (i >> 2) * 8 + (i & 1), c_end,
+                                       first, ids));
+          }
+          if (!wg_any(most >= MERGE_AT, bar)) continue;
+          if (wg_any(most >= SV, bar)) {
+            // a row overflowed: drop the tile's keys and offer it again in
+            // eight rounds of 16 columns a row (CW keys at most), merging
+            // the rows past SV - CW between rounds
+            if (lead) {
+              rs.cnt[ra] = ca;
+              rs.cnt[rb] = cb;
+            }
+            wg_sync(bar);
+#pragma unroll
+            for (int round = 0; round < 8; ++round) {
+              int top = -1;
+#pragma unroll
+              for (int i = 8 * round; i < 8 * round + 8; ++i) {
+                top = max(top, offer<SV>(rs, (i & 2) ? rb : ra,
+                                         (i & 2) ? tb : ta, acc[i],
+                                         col0 + (i >> 2) * 8 + (i & 1),
+                                         c_end, first, ids));
+              }
+              if (wg_any(top >= SV - CW, bar)) {
+                merge_wg<SV>(rs, L0, x.row0, W, SV - CW, r0, w4, lane,
+                             scratch);
+                wg_sync(bar);
+                ta = load_thr(rs, ra, live_a);
+                tb = load_thr(rs, rb, live_b);
+              }
+            }
+          }
+          merge_wg<SV>(rs, L0, x.row0, W, MERGE_AT, r0, w4, lane, scratch);
+          wg_sync(bar);
+          ta = load_thr(rs, ra, live_a);
+          tb = load_thr(rs, rb, live_b);
+        }
+      }
+      if (resident) ++qj;
+    }
+    if constexpr (LS) {
+      // the warp's rows back from the merge warps, their last halves
+      // merged here, and the lists written out
+      __threadfence_block();
+      __syncwarp();
+      wait_idle(R, r0w, lane, W);
+      for (int r = r0w; r < r0w + 16; ++r) {
+        const int h = R.act[r];
+        if (R.cnt[2 * r + h] > 0) merge_half(R, r, h, W, lane);
+        if (x.row0 + r < m) {
+          for (int i = lane; i < W; i += 32) {
+            L0[(x.row0 + r) * W + i] =
+                i < R.len[r] ? R.lists[r * wl + i] : EMPTY_KEY;
+          }
+        }
+      }
+      __syncwarp();
+    } else {
+      wg_sync(bar);
+      merge_wg<SV>(rs, L0, x.row0, W, 0, r0, w4, lane, scratch);
+      pad_rows(rs, L0, x.row0, m, W, r0 + w4, r0 + 64, 4, lane);
+      wg_sync(bar);
+    }
+  }
+  if constexpr (LS) {
+    // the last consumer warp to finish stops the merge warps
+    if (lane == 0 && atomicAdd(&R.ctl[2], 1) == CWARPS - 1) {
+      for (int i = 0; i < MERGERS; ++i) {
+        const int slot = atomicAdd(&R.ctl[0], 1);
+        *reinterpret_cast<volatile int32_t*>(&R.queue[slot % QCAP]) = -1;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- fp32 --
+
+namespace ff {
+
+constexpr int THREADS = 256;     // eight warps
+constexpr int STAGES = 3;        // depth stages in flight
+constexpr int BK = 32;           // float32 values a stage (128 bytes a row)
+constexpr int A32 = BM + 1;      // transposed strides, padded
+constexpr int B32 = BN + 1;
+constexpr int ROUND = BN / 2;    // keys a row gains in a round at most
+constexpr int SV = 96;           // survivor slots a row
+constexpr int MERGE_AT = SV - ROUND;  // a row holding more merges
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGE_BYTES = (A32 + B32) * BK * 4;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * SV * 8 +
+                           WARPS * LCAP * 8 + BM * 16;
+constexpr int FP_ROWS = THREADS / 16;  // a thread's row stride
+static_assert(BM * ROUND * 4 <= STAGE_BYTES, "a half's scores fit a stage");
+static_assert(THREADS == 2 * BM && ROUND == 64, "offer_half's layout");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+
+// One stage, transposed: value (r, k0 + kk) at dst[kk * stride + r].
+template <typename T>
+__device__ __forceinline__ void load_stage(float* dst, int stride,
+                                           const T* src, int64_t r0,
+                                           int64_t nrows, int rows,
+                                           int64_t d, int64_t k0, bool vec) {
+  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
+    const int r = q >> 3, ch = q & 7;
+    const int64_t gr = r0 + r, gk = k0 + ch * 4;
+    float v[4];
+    if (gr < nrows && vec && gk + 4 <= d) {
+      const T* g = src + gr * d + gk;
+      if constexpr (sizeof(T) == 2) {
+        const uint2 x = *reinterpret_cast<const uint2*>(g);
+        v[0] = __uint_as_float(x.x << 16);
+        v[1] = __uint_as_float(x.x & 0xffff0000u);
+        v[2] = __uint_as_float(x.y << 16);
+        v[3] = __uint_as_float(x.y & 0xffff0000u);
+      } else {
+        const float4 x = *reinterpret_cast<const float4*>(g);
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = x.z;
+        v[3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        v[u] = (gr < nrows && gk + u < d) ? to_f32(src[gr * d + gk + u])
+                                          : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dst[(ch * 4 + u) * stride + r] = v[u];
+  }
+}
+
+// The scores of one column half of a tile, staged for the scan in the
+// stage buffer the tile's last step consumed: score (r, c) at float
+// r * ROUND + (c ^ (r & 31)), so a warp's 32 rows read 32 banks.
+__device__ __forceinline__ int score_at(int r, int c) {
+  return r * ROUND + (c ^ (r & 31));
+}
+
+// Scan the staged half `half` of the tile at candidate col0 (columns
+// below c_end): thread t takes row t % BM and 32 of the half's 64 columns.
+// The 32 scores are tested against the row's threshold's high word into a
+// mask; only the columns it sets build their keys, and each key above the
+// threshold goes to the row's survivors.
+__device__ __forceinline__ void offer_half(const Rows& rs, const float* sc,
+                                           int half, int64_t row0,
+                                           int64_t m, int64_t col0,
+                                           int64_t c_end, int64_t first,
+                                           const int64_t* ids) {
+  const int r = threadIdx.x % BM;
+  const int c0 = (threadIdx.x / BM) * 32;
+  if (row0 + r >= m) return;
+  const int32_t th = rs.thr_hi[r];
+  const uint32_t tl = rs.thr_lo[r];
+  const int64_t j0 = col0 + half * ROUND + c0;
+  const int64_t left = c_end - j0;
+  const int cols = left < 32 ? static_cast<int>(left) : 32;
+  uint32_t mask = 0;
+#pragma unroll
+  for (int cc = 0; cc < 32; ++cc) {
+    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
+    mask |= static_cast<uint32_t>(mono >= th && cc < cols) << cc;
+  }
+  while (mask != 0) {
+    const int cc = __ffs(mask) - 1;
+    mask &= mask - 1;
+    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
+    const int64_t index = ids != nullptr ? ids[j0 + cc] : first + j0 + cc;
+    const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
+    if (mono == th && lo <= tl) continue;
+    const int slot = atomicAdd(&rs.cnt[r], 1);
+    rs.sv[r * SV + slot] = make_key(mono, lo);
+  }
+}
+
+}  // namespace ff
+
+// T: the rows' type, float or bf16 bits (uint16_t).
+template <typename T>
+__global__ void __launch_bounds__(ff::THREADS, 1)
+    knn_merge_ffma(const T* __restrict__ q, int64_t m,
+                   const T* __restrict__ c, int64_t n, int64_t d,
+                   int64_t first, const int64_t* __restrict__ ids,
+                   const int64_t* run, int64_t w, int W, int64_t* out,
+                   int64_t* parts, int units, bool vec) {
+  using namespace ff;
   extern __shared__ __align__(16) unsigned char smem[];
   Rows rs;
   rs.sv = reinterpret_cast<int64_t*>(smem + STAGES * STAGE_BYTES);
@@ -438,100 +1248,56 @@ __global__ void __launch_bounds__(THREADS, 1)
   rs.len = rs.cnt + BM;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
-
-  // the carry into the output rows (in place when out is run), and each
-  // row's length and threshold
-  for (int64_t e = threadIdx.x; e < BM * w; e += THREADS) {
-    const int64_t r = e / w, col = e - r * w;
-    if (row0 + r < m) out[(row0 + r) * W + col] = run[(row0 + r) * w + col];
-  }
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    const bool full = row0 + r < m && w == W && w > 0;
-    const int64_t t = full ? run[(row0 + r) * w + w - 1] : EMPTY_KEY;
-    rs.thr_hi[r] = static_cast<int32_t>(t >> 32);
-    rs.thr_lo[r] = static_cast<uint32_t>(t);
-    rs.cnt[r] = 0;
-    rs.len[r] = row0 + r < m ? static_cast<int32_t>(w) : 0;
-  }
-  __syncthreads();
-
-  constexpr int BK = TC ? BK16 : BK32;
-  const int64_t kt_n = (d + BK - 1) / BK;
-  const int64_t steps = ((n + BN - 1) / BN) * kt_n;
-  float acc[64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
-
-  auto load = [&](int64_t step, int buf) {
-    const int64_t tile = step / kt_n, k0 = (step - tile * kt_n) * BK;
-    unsigned char* base = smem + buf * STAGE_BYTES;
-    if constexpr (TC) {
-      uint16_t* as = reinterpret_cast<uint16_t*>(base);
-      load_stage16(as, q, row0, m, BM, d, k0, vec);
-      load_stage16(as + BM * BK16, c, tile * BN, n, BN, d, k0, vec);
-    } else {
-      float* as = reinterpret_cast<float*>(base);
-      load_stage32(as, A32, q, row0, m, BM, d, k0, vec);
-      load_stage32(as + A32 * BK32, B32, c, tile * BN, n, BN, d, k0, vec);
-    }
-  };
-
-  // the warp's place in the tile: rows wm * 32.., columns wn * 64..; for
-  // the fp32 product a thread owns rows ty + FP_ROWS i and columns tx + 16 j
-  const int wm = warp >> 1, wn = warp & 1;
+  int64_t* scratch = rs.scratch + warp * LCAP;
+  // a thread owns rows ty + FP_ROWS i and columns tx + 16 j of a tile
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int64_t blocks = (m + BM - 1) / BM, tiles = (n + BN - 1) / BN;
+  const int64_t total = blocks * units;
+  const int kt_n = static_cast<int>((d + BK - 1) / BK);
+
+  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+    const Unit x = unit_at(u, blocks, tiles, units);
+    const int64_t row0 = x.row0, c_end = min(x.t_hi * BN, n);
+    int64_t* L0 = units == 1 ? out : parts + x.split * m * W;
+    open_rows(rs, x, m, run, w, W, L0 + row0 * W, W, L0 != run, 0, BM,
+              threadIdx.x, THREADS);
+    __syncthreads();
+
+    const int64_t steps = (x.t_hi - x.t_lo) * kt_n;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+
+    // the next stage to load (its tile and depth chunk), and the tile and
+    // chunk the product is at: counters, so no step divides
+    int64_t load_tile = x.t_lo, tile = x.t_lo;
+    int load_kc = 0, kc = 0;
+    auto load = [&](int buf) {
+      float* as = reinterpret_cast<float*>(smem + buf * STAGE_BYTES);
+      load_stage(as, A32, q, row0, m, BM, d, load_kc * BK, vec);
+      load_stage(as + A32 * BK, B32, c, load_tile * BN, n, BN, d,
+                 load_kc * BK, vec);
+      if (++load_kc == kt_n) {
+        load_kc = 0;
+        ++load_tile;
+      }
+    };
 
 #pragma unroll
-  for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < steps) load(i, i);
-    cp_async_commit();
-  }
-  int buf = 0;
-  for (int64_t step = 0; step < steps; ++step) {
-    cp_async_wait_stage();
-    // every warp is past the step before, so its stage may be refilled
-    __syncthreads();
-    const int64_t ahead = step + STAGES - 1;
-    if (ahead < steps) {
-      load(ahead, buf == 0 ? STAGES - 1 : buf - 1);
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < steps) load(i);
     }
-    cp_async_commit();
-    unsigned char* base = smem + buf * STAGE_BYTES;
-    buf = buf == STAGES - 1 ? 0 : buf + 1;
-    if constexpr (TC) {
-      const uint16_t* as = reinterpret_cast<const uint16_t*>(base);
-      const uint16_t* bs = as + BM * BK16;
-#pragma unroll
-      for (int ks = 0; ks < BK16 / 16; ++ks) {
-        uint32_t a[2][4], b[4][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + (lane & 15);
-          const int ch = 2 * ks + (lane >> 4);
-          ldmatrix_x4(a[mi], as + r * BK16 + ((ch ^ (r & 7)) << 3));
-        }
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int mat = lane >> 3;
-          const int r = wn * 64 + np * 16 + ((mat >> 1) << 3) + (lane & 7);
-          const int ch = 2 * ks + (mat & 1);
-          ldmatrix_x4(b[np], bs + r * BK16 + ((ch ^ (r & 7)) << 3));
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) {
-            mma_bf16(acc + (mi * 8 + ni) * 4, a[mi], b[ni >> 1][(ni & 1) * 2],
-                     b[ni >> 1][(ni & 1) * 2 + 1]);
-          }
-        }
-      }
-    } else {
-      const float* as = reinterpret_cast<const float*>(base);
-      const float* bs = as + A32 * BK32;
+    int buf = 0;
+    for (int64_t step = 0; step < steps; ++step) {
+      // every warp is past the step before, so its stage may be refilled
+      __syncthreads();
+      if (step + STAGES - 1 < steps) load(buf == 0 ? STAGES - 1 : buf - 1);
+      unsigned char* stage = smem + buf * STAGE_BYTES;
+      buf = buf == STAGES - 1 ? 0 : buf + 1;
+      const float* as = reinterpret_cast<const float*>(stage);
+      const float* bs = as + A32 * BK;
 #pragma unroll 4
-      for (int kk = 0; kk < BK32; ++kk) {
+      for (int kk = 0; kk < BK; ++kk) {
         float a[8], b[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) a[i] = as[kk * A32 + ty + FP_ROWS * i];
@@ -545,33 +1311,18 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
         }
       }
-    }
-    if ((step + 1) % kt_n != 0) continue;
+      if (++kc != kt_n) continue;
+      kc = 0;
 
-    // the tile is scored: each column half is staged in the consumed
-    // stage buffer (no warp reads it past this barrier, and it is refilled
-    // only after the next step's), scanned, and its rows merged if full
-    const int64_t col0 = (step / kt_n) * BN;
-    float* sc = reinterpret_cast<float*>(base);
-    __syncthreads();
+      // the tile is scored: each column half is staged in the consumed
+      // stage buffer (no warp reads it past this barrier, and it is
+      // refilled only after the next step's), scanned, and its rows merged
+      // if full
+      const int64_t col0 = tile++ * BN;
+      float* sc = reinterpret_cast<float*>(stage);
+      __syncthreads();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if constexpr (TC) {
-        if (wn == half) {
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int r = wm * 32 + mi * 16 + (lane >> 2) + ((e >> 1) << 3);
-                const int col = ni * 8 + ((lane & 3) << 1) + (e & 1);
-                sc[score_at(r, col)] = acc[(mi * 8 + ni) * 4 + e];
-              }
-            }
-          }
-        }
-      } else {
+      for (int half = 0; half < 2; ++half) {
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
 #pragma unroll
@@ -580,65 +1331,253 @@ __global__ void __launch_bounds__(THREADS, 1)
                 acc[i * 8 + 4 * half + j];
           }
         }
+        __syncthreads();
+        offer_half(rs, sc, half, row0, m, col0, c_end, first, ids);
+        __syncthreads();
+        merge_rows<SV>(rs, L0, row0, W, MERGE_AT, warp, BM, WARPS, lane,
+                       scratch);
+        __syncthreads();
       }
-      __syncthreads();
-      offer_half(rs, sc, half, row0, m, col0, n, first, ids);
-      __syncthreads();
-      merge_rows(rs, out, row0, W, MERGE_AT);
-      __syncthreads();
-    }
 #pragma unroll
-    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+      for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+    }
+    merge_rows<SV>(rs, L0, row0, W, 0, warp, BM, WARPS, lane, scratch);
+    pad_rows(rs, L0, row0, m, W, warp, BM, WARPS, lane);
+    __syncthreads();
   }
-  merge_rows(rs, out, row0, W, 0);
 }
 
-template <bool TC, typename T>
-cudaError_t launch(const void* q, int64_t m, const void* c, int64_t n,
-                   int64_t d, int64_t first, const int64_t* ids,
-                   const int64_t* run, int64_t w, int64_t W, int64_t* out,
-                   bool vec, cudaStream_t st) {
-  auto kernel = knn_merge_kernel<TC, T>;
+// ------------------------------------------------------------- combine --
+
+// K4's second kernel where the candidates are split (units > 1): each
+// row's top W of its units' lists (parts (units, m, W), each sorted
+// descending and padded with EMPTY_KEY), a warp a row and a lane a list:
+// W rounds of a warp-wide maximum of the lists' heads (the lowest lane
+// among equals), the winner's lane stepping on (its next key already
+// loaded).
+__global__ void __launch_bounds__(256)
+    knn_merge_combine(const int64_t* __restrict__ parts, int units,
+                      int64_t m, int W, int64_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const bool mine = lane < units;
+  const int64_t* L = parts + (static_cast<int64_t>(lane) * m + row) * W;
+  int pos = 0;
+  int64_t head = mine ? L[0] : EMPTY_KEY;
+  int64_t next = mine && W > 1 ? L[1] : EMPTY_KEY;
+  for (int i = 0; i < W; ++i) {
+    int64_t best = head;
+    int who = lane;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const int64_t b = __shfl_xor_sync(0xffffffffu, best, o);
+      const int v = __shfl_xor_sync(0xffffffffu, who, o);
+      if (b > best || (b == best && v < who)) {
+        best = b;
+        who = v;
+      }
+    }
+    if (lane == 0) out[row * W + i] = best;
+    if (lane == who) {
+      ++pos;
+      head = next;
+      next = mine && pos + 1 < W ? L[pos + 1] : EMPTY_KEY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- host --
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) {
+      return cudaErrorSymbolNotFound;
+    }
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of (rows, d) bf16 rows: boxes of 128 rows x 64 values in
+// the 128-byte swizzle, zeros past the edges.
+cudaError_t tile_map(CUtensorMap* map, EncodeTiled fn, const void* rows,
+                     int64_t n_rows, int64_t d) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
+  const cuuint32_t box[2] = {tc::KC, BN};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(rows), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool LS>
+cudaError_t start_wgmma(const CUtensorMap& tq, const CUtensorMap& tcand,
+                        int64_t m, int64_t n, int kt_n, int64_t first,
+                        const int64_t* ids, const int64_t* run, int64_t w,
+                        int W, int64_t* out, int64_t* parts, int units,
+                        int grid, int stages, bool resident, int wl,
+                        cudaStream_t st) {
+  auto kernel = knn_merge_wgmma<LS>;
+  const int smem = tc::ALIGN + (LS ? tc::ls_bytes(wl) : tc::GLOBAL_BYTES) +
+                   stages * (resident ? tc::CHUNK : 2 * tc::CHUNK) +
+                   (resident ? kt_n * tc::CHUNK : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((m + BM - 1) / BM);
-  kernel<<<blocks, THREADS, SMEM_BYTES, st>>>(
+  kernel<<<grid, tc::THREADS, smem, st>>>(tq, tcand, m, n, kt_n, first, ids,
+                                          run, w, W, out, parts, units,
+                                          stages, resident ? 1 : 0, wl);
+  return cudaGetLastError();
+}
+
+// The stages a bf16 launch gets in `limit` bytes past the fixed part, and
+// whether the query tile stays resident: it does where that leaves
+// MIN_STAGES stages of candidates, else each stage carries a query chunk.
+int wgmma_stages(int limit, int fixed, int kt_n, bool* resident) {
+  const int room = limit - tc::ALIGN - fixed;
+  int stages = (room - kt_n * tc::CHUNK) / tc::CHUNK;
+  *resident = stages >= tc::MIN_STAGES;
+  if (!*resident) stages = room / (2 * tc::CHUNK);
+  return stages < tc::MAX_STAGES ? stages : tc::MAX_STAGES;
+}
+
+cudaError_t launch_wgmma(const void* q, int64_t m, const void* c, int64_t n,
+                         int64_t d, int64_t first, const int64_t* ids,
+                         const int64_t* run, int64_t w, int W, int64_t* out,
+                         int64_t* parts, int units, int grid, int limit,
+                         cudaStream_t st) {
+  EncodeTiled fn;
+  cudaError_t err = encode_tiled(&fn);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tq, tcand;
+  err = tile_map(&tq, fn, q, m, d);
+  if (err == cudaSuccess) {
+    // no candidates: a map of the query rows, never read
+    err = n > 0 ? tile_map(&tcand, fn, c, n, d)
+                : tile_map(&tcand, fn, q, m, d);
+  }
+  if (err != cudaSuccess) return err;
+  const int kt_n = static_cast<int>((d + tc::KC - 1) / tc::KC);
+  // lists of at most 64 keys stay in shared memory, with the merge warps,
+  // where that leaves MIN_STAGES stages; else they are in device memory
+  const int wl = (W + 7) / 8 * 8;
+  bool resident;
+  int stages = wgmma_stages(limit, tc::ls_bytes(wl), kt_n, &resident);
+#ifndef K4_GLOBAL_LISTS
+  if (W <= tc::WL_MAX && stages >= tc::MIN_STAGES) {
+    return start_wgmma<true>(tq, tcand, m, n, kt_n, first, ids, run, w, W,
+                             out, parts, units, grid, stages, resident, wl,
+                             st);
+  }
+#endif
+  stages = wgmma_stages(limit, tc::GLOBAL_BYTES, kt_n, &resident);
+  if (stages < 2) return cudaErrorInvalidValue;
+  return start_wgmma<false>(tq, tcand, m, n, kt_n, first, ids, run, w, W,
+                            out, parts, units, grid, stages, resident, 0,
+                            st);
+}
+
+template <typename T>
+cudaError_t launch_ffma(const void* q, int64_t m, const void* c, int64_t n,
+                        int64_t d, int64_t first, const int64_t* ids,
+                        const int64_t* run, int64_t w, int W, int64_t* out,
+                        int64_t* parts, int units, bool vec, int grid,
+                        cudaStream_t st) {
+  auto kernel = knn_merge_ffma<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ff::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ff::THREADS, ff::SMEM_BYTES, st>>>(
       static_cast<const T*>(q), m, static_cast<const T*>(c), n, d, first,
-      ids, run, w, static_cast<int>(W), out, vec);
+      ids, run, w, W, out, parts, units, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The merge of knn/topk.py merge_block: q (m, d) and c (n, d) row-major,
-// both float32 (is_bf16 = 0) or both bfloat16 (is_bf16 = 1); the
-// candidates' indices are first + j, or ids[j] where ids is not null; run
-// (m, w) int64 keys sorted descending, or w = 0; out (m, W) int64, W =
+// The merge of knn/topk.py merge_block: q (m, d) and c (n, d) row-major;
+// the candidates' indices are first + j, or ids[j] where ids is not null;
+// run (m, w) int64 keys sorted descending, or w = 0; out (m, W) int64, W =
 // min(k, w + n) >= w, may be run itself. fp32 = 0 multiplies in bf16 on
-// the tensor cores, fp32 = 1 in float32 on the FFMA pipe. vec = 1 when d is
-// a multiple of 8 and both row pointers are 16-byte aligned (16-byte
-// loads). The block's shared-memory opt-in is set on the current device.
+// the tensor cores (knn_merge_wgmma): the rows must be bfloat16 (is_bf16 =
+// 1), d a multiple of 8 and both bases 16-byte aligned (vec = 1). fp32 = 1
+// multiplies in float32 on the FFMA pipe (knn_merge_ffma), rows float32
+// (is_bf16 = 0) or bfloat16; vec = 1 when d is a multiple of 8 and both
+// bases are 16-byte aligned (16-byte loads). units: the splits of each
+// query block's candidates, 1 <= units <= min(32, max(1, ceil(n / 128)));
+// with units > 1, parts is scratch of (units, m, W) int64 and a second
+// kernel (knn_merge_combine) writes out. The persistent grid takes
+// min(ceil(m / 128) * units, SMs) blocks; the shared-memory opt-in and
+// the SM count are read on the current device.
 extern "C" int fk_knn_merge(const void* q, int64_t m, const void* c,
                             int64_t n, int64_t d, int is_bf16, int fp32,
                             int64_t first, const int64_t* ids,
                             const int64_t* run, int64_t w, int64_t W,
-                            int64_t* out, int vec, void* stream) {
+                            int64_t* out, int vec, int64_t units,
+                            int64_t* parts, void* stream) {
   if (m <= 0 || W <= 0) return static_cast<int>(cudaSuccess);
-  if (W > INT32_MAX || w > W) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (fp32) {
-    err = is_bf16 ? launch<false, uint16_t>(q, m, c, n, d, first, ids, run,
-                                            w, W, out, vec != 0, st)
-                  : launch<false, float>(q, m, c, n, d, first, ids, run, w,
-                                         W, out, vec != 0, st);
-  } else {
-    err = is_bf16 ? launch<true, uint16_t>(q, m, c, n, d, first, ids, run,
-                                           w, W, out, vec != 0, st)
-                  : launch<true, float>(q, m, c, n, d, first, ids, run, w,
-                                        W, out, vec != 0, st);
+  const int64_t tiles = (n + BN - 1) / BN;
+  if (W > INT32_MAX || w > W || n < 0 || d <= 0 || units < 1 ||
+      units > MAX_UNITS || units > (tiles > 1 ? tiles : 1) ||
+      (units > 1 && parts == nullptr) ||
+      (!fp32 && (!is_bf16 || !vec || d % 8 != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t work = (m + BM - 1) / BM * units;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  const int U = static_cast<int>(units);
+  if (fp32) {
+    err = is_bf16 ? launch_ffma<uint16_t>(q, m, c, n, d, first, ids, run, w,
+                                          static_cast<int>(W), out, parts,
+                                          U, vec != 0, grid, st)
+                  : launch_ffma<float>(q, m, c, n, d, first, ids, run, w,
+                                       static_cast<int>(W), out, parts, U,
+                                       vec != 0, grid, st);
+  } else {
+    err = launch_wgmma(q, m, c, n, d, first, ids, run, w,
+                       static_cast<int>(W), out, parts, U, grid, limit, st);
+  }
+  if (err != cudaSuccess || U == 1) return static_cast<int>(err);
+  knn_merge_combine<<<static_cast<unsigned>((m + 7) / 8), 256, 0, st>>>(
+      parts, U, m, static_cast<int>(W), out);
+  return static_cast<int>(cudaGetLastError());
 }
-

@@ -2,16 +2,27 @@
 
     python -m fedrann_tpu_torch.k4_breakdown
 
-Builds csrc/knn_merge.cu three more times with parts switched off, each
-with nvcc into its own library under fedrann_tpu_torch/_kernels/breakdown/
-(all four builds at once), and times fk_knn_merge of each on bf16 unit
-rows from a seeded generator, k = 50, at 15,000 x 15,000, 2,048 x 65,536
-and 65,536 x 65,536 (x 512):
+Builds csrc/knn_merge.cu six more times with parts of the bf16 kernel
+(knn_merge_wgmma) switched off, each with nvcc into its own library under
+fedrann_tpu_torch/_kernels/breakdown/ (all builds at once), and times
+fk_knn_merge of each on bf16 unit rows from a seeded generator, k = 50,
+at 15,000 x 15,000, 2,048 x 65,536 and 65,536 x 65,536 (x 512), with the
+units knn/topk.py k4_units plans for the card:
   - full: the kernel as it is, with the merges and survivors it counts;
-  - no_scan: the product and the staging of each column half, but no scan
-    of the staged scores, so no survivor and no merge;
-  - no_offer: no tile is staged or scanned; nothing then reads the
-    accumulators, so ptxas drops the product too: the loads and barriers.
+  - global_lists: as full, but each row's list in device memory with 32
+    survivor slots, the form K4 takes where k passes 64 (and merged
+    through each warp's scratch);
+  - no_offer: the product and the filter's first test (each group of 8
+    columns' largest score of each row against its threshold, the warp's
+    vote), but no key is offered, so no survivor and no merge;
+  - no_filter: the product alone (TMA loads, mbarriers, wgmma), the
+    accumulators only folded into one word so that the product stays;
+  - no_product: the loads and the barriers of the pipeline, no wgmma;
+  - clocks: as full, with clock64 read by each consumer warp around the
+    filter of each tile (the unit's first four tiles apart: the lists
+    fill there) and by the merging warp around each merge of a survivor
+    half (in the merge warps, or in a consumer warp on a tile that
+    overflows and at a unit's end), averaged.
 Each line gives ms per call (CUDA events, 3 calls after a warm-up) and
 the TFLOP/s of 2 * m * n * 512 operations; the card's name and power limit
 head the output. A source edit that no longer matches a hook fails.
@@ -27,35 +38,82 @@ import sys
 import torch
 
 from fedrann_tpu_torch import _build
-from fedrann_tpu_torch.knn.topk import normalize_rows
+from fedrann_tpu_torch.knn.topk import k4_units, normalize_rows, sm_count
 
 HOOKS = {
     # the counts of merges and survivors (full)
     "#include \"common.cuh\"\n": (
         "#include \"common.cuh\"\n"
-        "__device__ unsigned long long g_counts[2];\n"
+        "__device__ unsigned long long g_counts[8];\n"
         "extern \"C\" int bd_counts(unsigned long long* out, int reset) {\n"
-        "  unsigned long long z[2] = {0, 0};\n"
+        "  unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
         "  return reset ? (int)cudaMemcpyToSymbol(g_counts, z, sizeof(z))\n"
         "               : (int)cudaMemcpyFromSymbol(out, g_counts,\n"
         "                                           sizeof(z));\n"
-        "}\n"),
-    "  int64_t* S = rs.sv + r * SV;\n": (
-        "  int64_t* S = rs.sv + r * SV;\n#ifdef BD_COUNT\n"
+        "}\n"
+        "// a warp's lane 0's cycles in a scope into g_counts[slot], and\n"
+        "// one scope into g_counts[slot + 1]\n"
+        "struct BdClock {\n"
+        "  long long t0; int slot; bool on;\n"
+        "  __device__ BdClock(int s, bool o) : t0(0), slot(s), on(o) {\n"
+        "#ifdef __CUDA_ARCH__\n    t0 = clock64();\n#endif\n  }\n"
+        "  __device__ ~BdClock() {\n#ifdef __CUDA_ARCH__\n"
+        "    if (on) {\n      atomicAdd(&g_counts[slot],\n"
+        "                (unsigned long long)(clock64() - t0));\n"
+        "      atomicAdd(&g_counts[slot + 1], 1ull);\n    }\n"
+        "#endif\n  }\n"
+        "};\n"),
+    "  int64_t v[SV / 32];\n  int rank[SV / 32];\n": (
+        "  int64_t v[SV / 32];\n  int rank[SV / 32];\n#ifdef BD_COUNT\n"
         "  if (lane == 0) { atomicAdd(&g_counts[0], 1ull);\n"
-        "    atomicAdd(&g_counts[1], (unsigned long long)rs.cnt[r]); }\n"
+        "    atomicAdd(&g_counts[1], (unsigned long long)s); }\n"
         "#endif\n"),
-    "      offer_half(rs, sc, half, row0, m, col0, n, first, ids);\n": (
-        "#ifndef BD_NO_SCAN\n"
-        "      offer_half(rs, sc, half, row0, m, col0, n, first, ids);\n"
+    "        // the filter: each row's largest score against its "
+    "threshold\n": (
+        "#ifdef BD_NO_FILTER\n"
+        "        {  // every accumulator read, so the product stays\n"
+        "          uint32_t fold = 0;\n"
+        "          for (int i = 0; i < 64; ++i)\n"
+        "            fold ^= __float_as_uint(acc[i]);\n"
+        "          if (fold == 0x9e3779b9u) out[0] = 0;\n"
+        "          continue;\n        }\n#endif\n"
+        "#ifdef BD_CLOCKS\n"
+        "        BdClock bd_filter(t - x.t_lo < 4 ? 2 : 4, lane == 0);\n"
+        "#endif\n"
+        "        // the filter: each row's largest score against its "
+        "threshold\n"),
+    "          int most = -1;\n#pragma unroll\n"
+    "          for (int j = 0; j < 16; ++j) {\n": (
+        "#ifdef BD_NO_OFFER\n"
+        "          {  // the first test of every group, and the warp's vote\n"
+        "            bool pass = false;\n"
+        "            for (int j = 0; j < 16; ++j) {\n"
+        "              pass |= !(max_nan(acc[4 * j], acc[4 * j + 1])\n"
+        "                        < ta.f) ||\n"
+        "                      !(max_nan(acc[4 * j + 2], acc[4 * j + 3])\n"
+        "                        < tb.f);\n"
+        "            }\n"
+        "            if (__any_sync(0xffffffffu, pass)) out[0] = ca + cb;\n"
+        "            continue;\n          }\n#endif\n"
+        "          int most = -1;\n#pragma unroll\n"
+        "          for (int j = 0; j < 16; ++j) {\n"),
+    "  const int s = min(R.cnt[2 * r + h], SVH);\n": (
+        "  const int s = min(R.cnt[2 * r + h], SVH);\n#ifdef BD_COUNT\n"
+        "  if (lane == 0) { atomicAdd(&g_counts[0], 1ull);\n"
+        "    atomicAdd(&g_counts[1], (unsigned long long)s); }\n"
+        "#endif\n#ifdef BD_CLOCKS\n  BdClock bd_merge(6, lane == 0);\n"
         "#endif\n"),
-    "    if ((step + 1) % kt_n != 0) continue;\n": (
-        "    if ((step + 1) % kt_n != 0) continue;\n#ifdef BD_NO_OFFER\n"
-        "    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;\n    continue;\n"
-        "#endif\n"),
+    "          wgmma_fence();\n": (
+        "#ifndef BD_NO_PRODUCT\n          wgmma_fence();\n"),
+    "          wgmma_commit();\n": (
+        "          wgmma_commit();\n#endif\n"),
 }
-VARIANTS = {"full": ["-DBD_COUNT"], "no_scan": ["-DBD_NO_SCAN"],
-            "no_offer": ["-DBD_NO_OFFER"]}
+VARIANTS = {"full": ["-DBD_COUNT"],
+            "global_lists": ["-DBD_COUNT", "-DK4_GLOBAL_LISTS"],
+            "no_offer": ["-DBD_NO_OFFER"],
+            "no_filter": ["-DBD_NO_FILTER"],
+            "no_product": ["-DBD_NO_PRODUCT", "-DBD_NO_FILTER"],
+            "clocks": ["-DBD_CLOCKS"]}
 SHAPES = ((15000, 15000), (2048, 65536), (65536, 65536))
 
 
@@ -119,25 +177,41 @@ def main() -> None:
         for m, n in SHAPES:
             q, c = rows[:m], rows[:n]
             out = torch.empty((m, 50), dtype=torch.int64, device=dev)
+            units = k4_units(m, n, 50, sm_count(dev))
+            parts = torch.empty((units, m, 50), dtype=torch.int64,
+                                device=dev)
 
-            def call(lib=lib, q=q, c=c, m=m, n=n, out=out):
+            def call(lib=lib, q=q, c=c, m=m, n=n, out=out, units=units,
+                     parts=parts):
                 rc = lib.fk_knn_merge(q.data_ptr(), m, c.data_ptr(), n, 512,
                                       1, 0, 0, None, None, 0, 50,
-                                      out.data_ptr(), 1, stream)
+                                      out.data_ptr(), 1, units,
+                                      parts.data_ptr(), stream)
                 if rc:
                     sys.exit(f"k4_breakdown: {name} launch failed ({rc})")
 
             ms = time_ms(call)
-            text = (f"{name} {m} x {n} x 512, k = 50: {ms:.3f} ms = "
-                    f"{2 * m * n * 512 / ms / 1e9:.1f} TFLOP/s")
-            if name == "full":
-                counts = (ctypes.c_ulonglong * 2)()
+            text = (f"{name} {m} x {n} x 512, k = 50, {units} units: "
+                    f"{ms:.3f} ms = {2 * m * n * 512 / ms / 1e9:.1f} TFLOP/s")
+            if "-DBD_COUNT" in VARIANTS[name]:
+                counts = (ctypes.c_ulonglong * 8)()
                 lib.bd_counts(counts, 1)
                 call()
                 torch.cuda.synchronize()
                 lib.bd_counts(counts, 0)
                 text += (f"; {counts[0] / m:.1f} merges and "
                          f"{counts[1] / m:.1f} survivors a row")
+            if name == "clocks":
+                counts = (ctypes.c_ulonglong * 8)()
+                lib.bd_counts(counts, 1)
+                call()
+                torch.cuda.synchronize()
+                lib.bd_counts(counts, 0)
+                text += "; cycles a warp: " + ", ".join(
+                    f"{what} {counts[i] / max(counts[i + 1], 1):.0f} x "
+                    f"{counts[i + 1]}" for what, i in (
+                        ("filter, first 4 tiles", 2),
+                        ("filter, later tiles", 4), ("half merge", 6)))
             print(text, flush=True)
 
 

@@ -24,9 +24,12 @@ import torch
 from fedrann_tpu_torch.device import get_device
 from fedrann_tpu_torch.knn.topk import (
     EMPTY_KEY,
+    K4_MAX_UNITS,
     PAIR_BYTES,
+    k4_units,
     keys_to_host,
     merge_block,
+    sm_count,
 )
 from fedrann_tpu_torch.logging_utils import logger
 
@@ -34,6 +37,8 @@ from fedrann_tpu_torch.logging_utils import logger
 DEFAULT_BLOCK_ROWS = 1 << 18
 # rows normalized per host pass, so no (N, d) float32 temporary exists
 WIRE_CHUNK = 1 << 20
+# query rows whose keys are decoded at once at the end of a slab
+DECODE_ROWS = 1 << 16
 
 
 def host_wire(embeddings, precision: str = "bf16") -> torch.Tensor:
@@ -56,13 +61,24 @@ def host_wire(embeddings, precision: str = "bf16") -> torch.Tensor:
 
 
 def plan_bytes(q_rows: int, c_rows: int, c_tile: int, query_tile: int,
-               d: int, k: int, itemsize: int) -> int:
-    """Device bytes the search holds at once under a plan: the query slab
-    and its int64 key carry, the two block buffers, the float32 upcasts of
-    one candidate and one query tile, a merge's key tiles (PAIR_BYTES a
-    pair), and the carry tiles of the merges and the decode (40 bytes a
-    query row and neighbor). The tiles are merge_block_plain's: on a card
-    the merge kernel holds none, so there the plan overcounts."""
+               d: int, k: int, itemsize: int, sms: int | None = None) -> int:
+    """Device bytes the search holds at once under a plan. On the CPU (sms
+    None): the query slab and its int64 key carry, the two block buffers,
+    the float32 upcasts of one candidate and one query tile, a merge's key
+    tiles (PAIR_BYTES a pair; merge_block_plain's), and the carry tiles of
+    the merges and the decode (40 bytes a query row and neighbor). On a
+    card of sms SMs, where a slab and a block are one launch of K4, which
+    holds no tile: the query slab and its carry, the two block buffers,
+    K4's split scratch (k4_units lists of k keys a query row, where it
+    splits); or, at the slab's end (the slab and blocks freed), the carry
+    and the decode of DECODE_ROWS query rows at a time (40 bytes a query
+    row and neighbor), whichever is more."""
+    if sms is not None:
+        units = k4_units(q_rows, c_rows, k, sms)
+        search = (q_rows * (d * itemsize + k * 8)
+                  + 2 * c_rows * d * itemsize
+                  + (units * q_rows * k * 8 if units > 1 else 0))
+        return max(search, q_rows * k * 8 + min(q_rows, DECODE_ROWS) * k * 40)
     return (q_rows * (d * itemsize + k * 8)
             + 2 * c_rows * d * itemsize
             + (c_tile + query_tile) * d * 4
@@ -71,19 +87,35 @@ def plan_bytes(q_rows: int, c_rows: int, c_tile: int, query_tile: int,
 
 def plan_ooc(n: int, d: int, k: int, hbm_budget: int,
              query_tile: int = 512, block_rows: int = DEFAULT_BLOCK_ROWS,
-             itemsize: int = 2, candidate_tile: int = 131072
-             ) -> tuple[int, int, int]:
+             itemsize: int = 2, candidate_tile: int = 131072,
+             sms: int | None = None) -> tuple[int, int, int]:
     """(q_rows, c_rows, c_tile) for a device-memory budget in bytes, by the
     JAX package's rules: c_rows halves from block_rows until two blocks fit
     a third of the budget, and q_rows is the largest multiple of query_tile
     that the rest allows (at least one tile; more query rows per slab mean
-    fewer sweeps). The candidate tile, at most candidate_tile and c_rows,
-    halves first, until the plan fits with one query tile: a sweep's copy
-    costs less than the merges it feeds, and a merge's fixed cost (its
-    operator calls) needs a wide tile to amortize it."""
+    fewer sweeps). On the CPU (sms None) the candidate tile, at most
+    candidate_tile and c_rows, halves first, until the plan fits with one
+    query tile: a sweep's copy costs less than the merges it feeds, and a
+    merge's fixed cost (its operator calls) needs a wide tile to amortize
+    it. On a card of sms SMs (sm_count of the search's device) a slab and
+    a block are one K4 launch, so the tile is the block, and q_rows is the
+    largest whose plan_bytes, K4's split scratch included, fit."""
     c = block_rows
     while c > query_tile and 2 * c * d * itemsize > hbm_budget // 3:
         c //= 2
+    if sms is not None:
+        q_best = query_tile
+        for units in range(1, K4_MAX_UNITS + 1):
+            per_row = d * itemsize + k * 8 + (units * k * 8 if units > 1
+                                               else 0)
+            q = (hbm_budget - 2 * c * d * itemsize) // per_row
+            q = int(q) // query_tile * query_tile
+            while q > q_best and plan_bytes(q, c, c, query_tile, d, k,
+                                            itemsize, sms) > hbm_budget:
+                q -= query_tile  # the decode's share, where it is larger
+            if q > q_best and k4_units(q, c, k, sms) <= units:
+                q_best = q
+        return q_best, c, c
     ct = min(candidate_tile, c)
     while ct > 8 and plan_bytes(query_tile, c, ct, query_tile, d, k,
                                 itemsize) > hbm_budget:
@@ -180,9 +212,10 @@ def knn_exact_ooc(
     host = host_wire(embeddings, precision)
     n, d = host.shape
     k = min(n_neighbors, n)
+    sms = sm_count(device) if device.type == "cuda" else None
     q_rows, c_rows, ct = plan_ooc(n, d, k, hbm_budget, query_tile,
                                   block_rows, host.element_size(),
-                                  candidate_tile)
+                                  candidate_tile, sms)
     qt, ct = min(query_tile, max(8, n)), min(ct, n)
     n_slabs, n_blocks = -(-n // q_rows), -(-n // c_rows)
     wire_bytes = host.numel() * host.element_size()
@@ -196,7 +229,7 @@ def knn_exact_ooc(
     logger.info("knn_exact_ooc: candidate tile %d rows; the plan holds %d "
                 "bytes on the device", ct,
                 plan_bytes(q_rows, c_rows, ct, query_tile, d, k,
-                           host.element_size()))
+                           host.element_size(), sms))
     return _search(host, q_rows, c_rows, qt, ct, k, device, transfer,
                    knn_exact_ooc, precision)
 
@@ -210,12 +243,16 @@ def _search(host: torch.Tensor, q_rows: int, c_rows: int, qt: int, ct: int,
     merged into the slab's query tiles' carries by merge_block; on a card
     the merge kernel holds no tile, so a slab and a block are one launch.
     ids, an (N,) int64 tensor on `device`, gives each host row's own
-    index (the row number when None). Slabs, blocks and bytes count in
-    `counter`. Returns (indices (N, k) int32, distances (N, k) float32)
-    in host's row order."""
+    index (the row number when None). On a card every merge splits its
+    candidates as K4 would for a full slab and block (k4_units), the split
+    plan_bytes counts, so a smaller last slab takes no more scratch. Slabs,
+    blocks and bytes count in `counter`. Returns (indices (N, k) int32,
+    distances (N, k) float32) in host's row order."""
     n = host.shape[0]
+    units = None
     if device.type == "cuda":
         blocks, qt, ct = _blocks_streamed, q_rows, c_rows
+        units = k4_units(q_rows, c_rows, k, sm_count(device))
     else:
         blocks = _blocks_sync
     idx_out = np.empty((n, k), np.int32)
@@ -238,12 +275,20 @@ def _search(host: torch.Tensor, q_rows: int, c_rows: int, qt: int, ct: int,
                          else ids[lo + c0 : lo + c0 + tile.shape[0]])
                 for i, run in enumerate(runs):
                     runs[i] = merge_block(run, slab[i * qt : (i + 1) * qt],
-                                          tile, first, k, precision)
+                                          tile, first, k, precision,
+                                          units=units)
+        # nothing of the slab's sweep (its last block, tile and carry
+        # names) outlives it into the decode and the next slab
         del slab
+        block = tile = run = first = None
         for i in range(len(runs)):
-            rows_i = slice(s + i * qt, s + min((i + 1) * qt, rows))
-            idx_out[rows_i], dist_out[rows_i] = keys_to_host(runs[i],
-                                                             transfer, n)
+            # the decode's temporaries, DECODE_ROWS query rows at a time
+            for r0 in range(0, runs[i].shape[0], DECODE_ROWS):
+                lo = s + i * qt + r0
+                rows_i = slice(lo, lo + min(DECODE_ROWS,
+                                            runs[i].shape[0] - r0))
+                idx_out[rows_i], dist_out[rows_i] = keys_to_host(
+                    runs[i][r0 : r0 + DECODE_ROWS], transfer, n)
             runs[i] = None
     return idx_out, dist_out
 
@@ -366,7 +411,9 @@ def knn_ivf_ooc(
 
     # the IVF granularity: blocks at the cluster scale, slabs of a few
     q_rows, _, ct = plan_ooc(n, d, k, hbm_budget, query_tile, c_rows,
-                             itemsize, candidate_tile)
+                             itemsize, candidate_tile,
+                             sm_count(device) if device.type == "cuda"
+                             else None)
     c_rows = min(c_rows, 1 << 15)
     q_rows = min(q_rows, max(8 * c_rows, 1 << 18))
     qt, ct = min(query_tile, max(8, n)), min(ct, c_rows, n)

@@ -8,15 +8,18 @@ everything), go to the lowest index as in the JAX package.
 
 precision="bf16" rounds the normalized rows to bfloat16 once and
 accumulates the products in float32: the bf16-input, fp32-accumulate
-product. On a CUDA device every merge is one launch of the hand kernel K4
-(csrc/knn_merge.cu: bf16 tensor-core scores, or float32 FFMA at
-precision="fp32", with each query row's running top-k in the kernel); on
-the CPU its plain version, merge_block_plain, runs the float32 matmul on
-the bf16-rounded values (whose products are exact in float32),
-_order_keys and torch.topk.
+product. On a CUDA device every merge is one call of the hand kernel K4
+(csrc/knn_merge.cu: bf16 wgmma scores on TMA-fed tiles, or float32 FFMA at
+precision="fp32", with each query row's running top-k in the kernel, the
+candidates split over a persistent grid as k4_units says); on the CPU its
+plain version, merge_block_plain, runs the float32 matmul on the
+bf16-rounded values (whose products are exact in float32), _order_keys
+and torch.topk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -74,8 +77,57 @@ def _fit_tile(tile: int, n: int, floor: int = 16384) -> int:
 # bytes one (query, candidate) pair of merge_block_plain's tile holds at
 # once: its int64 key and that key's copy in the concatenation with the
 # carry (_order_keys holds 12: the float32 score, then the key); the
-# kernel holds no such tile, but knn/ooc.py's plan still counts it
+# kernel holds no such tile (knn/ooc.py's plan counts it on the CPU only)
 PAIR_BYTES = 16
+
+# K4's work units (csrc/knn_merge.cu): a block of K4_ROWS query rows times
+# a contiguous range of candidate tiles of K4_TILE rows, at most
+# K4_MAX_UNITS ranges a block (one lane each of the combining warp)
+K4_ROWS = 128
+K4_TILE = 128
+K4_MAX_UNITS = 32
+# a split unit holds at least this many tiles, so its fixed cost (the
+# query tile, the first merges, the combine) stays small beside its product
+K4_MIN_TILES = 8
+
+
+def k4_units(m: int, n: int, k: int, sms: int) -> int:
+    """The ranges K4 splits each query block's candidates into, for m query
+    rows over n candidates, k neighbors, on a card of sms SMs: the U in 1..
+    min(K4_MAX_UNITS, tiles // K4_MIN_TILES) (1 when that is below 1) that
+    minimizes waves * (tiles / U + a unit's fixed cost), the persistent
+    grid running min(blocks * U, sms) blocks; the smallest U among equals.
+    Every unit holds at least one candidate tile."""
+    blocks = max(1, -(-m // K4_ROWS))
+    tiles = -(-n // K4_TILE)
+    fixed = 2 + -(-k // 32)  # in tiles: the query tile, the first merges
+    best, pick = None, 1
+    for u in range(1, max(1, min(K4_MAX_UNITS, tiles // K4_MIN_TILES)) + 1):
+        cost = -(-blocks * u // sms) * (tiles / u + fixed)
+        if best is None or cost < best:
+            best, pick = cost, u
+    return pick
+
+
+def k4_splits(n: int, units: int) -> list[tuple[int, int]]:
+    """The candidate rows [lo, hi) of each of K4's units of a query block:
+    split s holds tiles [s T / U, (s + 1) T / U) of the T = ceil(n /
+    K4_TILE) tiles, as csrc/knn_merge.cu's unit_at cuts them."""
+    tiles = -(-n // K4_TILE)
+    return [(s * tiles // units * K4_TILE,
+             min(n, (s + 1) * tiles // units * K4_TILE))
+            for s in range(units)]
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (K4's planner reads it)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def _order_keys(scores: torch.Tensor, first_index) -> torch.Tensor:
@@ -167,7 +219,8 @@ def knn_exact_block(
 
 
 def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
-                first_index, k: int, precision: str = "bf16") -> torch.Tensor:
+                first_index, k: int, precision: str = "bf16", *,
+                units: int | None = None) -> torch.Tensor:
     """The running top-k of query rows q (m, d) merged with the candidate
     rows c (n, d), both float32 or both bfloat16, whose first global index
     is first_index (an int; or an (n,) int64 tensor of each row's own
@@ -179,10 +232,17 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
     accumulation; "fp32" in float32.
 
     A CPU tensor takes merge_block_plain. A CUDA tensor launches K4
-    (csrc/knn_merge.cu `fk_knn_merge`), counted in .kernel_launches; it
-    takes contiguous rows and raises on a dtype, device or layout it does
-    not take. The kernel writes the result over run where run already has
-    its width, so run is consumed either way."""
+    (csrc/knn_merge.cu `fk_knn_merge`), counted in .kernel_launches (one a
+    call, its combine kernel included); it takes contiguous rows and raises
+    on a dtype, device or layout it does not take. At precision="bf16" the
+    kernel reads bfloat16 rows by TMA: float32 rows, or rows whose d is not
+    a multiple of 8 or whose base is not 16-byte aligned, go in as a
+    zero-padded bfloat16 copy (_tma_rows). Each query block's candidates
+    are split into `units` ranges (k4_units when None; clamped to 1..
+    min(K4_MAX_UNITS, the candidate tiles)), each merged into scratch and
+    then combined; the keys are the same whatever the split. The kernel
+    writes the result over run where run already has its width, so run is
+    consumed either way."""
     if precision not in ("bf16", "fp32"):
         raise ValueError(f"precision must be 'bf16' or 'fp32', not "
                          f"{precision!r}")
@@ -222,6 +282,16 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
         (m, width), dtype=torch.int64, device=device)
     if m == 0:
         return out
+    if precision == "bf16":
+        same = c is q
+        q = _tma_rows(q)
+        c = q if same else _tma_rows(c)
+        d = q.shape[1]
+    tiles = -(-n // K4_TILE)
+    units = (k4_units(m, n, width, sm_count(device)) if units is None
+             else max(1, min(int(units), K4_MAX_UNITS, tiles)))
+    parts = (torch.empty((units, m, width), dtype=torch.int64, device=device)
+             if units > 1 else None)
     vec = (d % 8 == 0 and q.data_ptr() % 16 == 0
            and c.data_ptr() % 16 == 0)
     _build.launch(
@@ -230,12 +300,30 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
         0 if ids is not None else int(first_index),
         None if ids is None else ids.data_ptr(),
         None if run is None else run.data_ptr(), w, width, out.data_ptr(),
-        int(vec), device=device)
+        int(vec), units, None if parts is None else parts.data_ptr(),
+        device=device)
     merge_block.kernel_launches += 1
+    merge_block.last_units = units
     return out
 
 
 merge_block.kernel_launches = 0
+merge_block.last_units = 0
+
+
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows as K4's bf16 path reads them by TMA: bfloat16 (float32 rounded
+    to nearest even, as round_rows), d padded with zeros to a multiple of 8
+    and the base 16-byte aligned; x itself where it is all that already.
+    Zero padding adds nothing to a score, and every path pads a given d
+    alike, so a pair's score is the same bits either way."""
+    d = x.shape[1]
+    d8 = -(-d // 8) * 8
+    if x.dtype == torch.bfloat16 and d8 == d and x.data_ptr() % 16 == 0:
+        return x
+    y = torch.zeros((x.shape[0], d8), dtype=torch.bfloat16, device=x.device)
+    y[:, :d] = x
+    return y
 
 
 def merge_block_plain(run: torch.Tensor | None, q: torch.Tensor,
@@ -251,6 +339,30 @@ def merge_block_plain(run: torch.Tensor | None, q: torch.Tensor,
     if run is not None:
         keys = torch.cat([run, keys], dim=1)
     return torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+
+
+def merge_split_plain(run: torch.Tensor | None, q: torch.Tensor,
+                      c: torch.Tensor, first_index, k: int,
+                      precision: str = "bf16", units: int = 1
+                      ) -> torch.Tensor:
+    """K4's split merge in plain PyTorch: each of k4_splits' candidate
+    ranges merged alone by merge_block_plain into a list of min(k, w + n)
+    keys padded with EMPTY_KEY (the first range from the carry), then each
+    row's best of the lists. Equal to merge_block_plain over every
+    candidate, bitwise: the keys are distinct (EMPTY_KEY slots are equal
+    values), so the top set is one set whatever the split."""
+    width = min(k, (0 if run is None else run.shape[1]) + c.shape[0])
+    ids = first_index if isinstance(first_index, torch.Tensor) \
+        and first_index.dim() else None
+    lists = []
+    for s, (lo, hi) in enumerate(k4_splits(c.shape[0], units)):
+        part = merge_block_plain(
+            run if s == 0 else None, q, c[lo:hi],
+            ids[lo:hi] if ids is not None else first_index + lo, width,
+            precision)
+        lists.append(torch.nn.functional.pad(
+            part, (0, width - part.shape[1]), value=EMPTY_KEY))
+    return torch.topk(torch.cat(lists, dim=1), width, dim=1).values
 
 
 def u16_indices(transfer: str, n_rows: int) -> bool:

@@ -1329,6 +1329,74 @@ def test_knn_merge_scores_do_not_depend_on_the_tile(cuda):
     assert torch.equal(one[5:], split)
 
 
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_knn_merge_splits_are_bitwise_equal(cuda, case, dtype, precision):
+    """K4 with each query block's candidates forced into 1, 2 and 7 units
+    (clamped to the candidate tiles; 2 and 7 merge through the scratch and
+    the combine kernel): the same keys bitwise, held to merge_block_plain,
+    one launch counted a call."""
+    run, q, c, index, k = _merge_inputs(case, dtype, precision)
+    args = [t.to(cuda) if isinstance(t, torch.Tensor) else t
+            for t in (q, c, index)]
+    keys = []
+    for units in (1, 2, 7):
+        before = merge_block.kernel_launches
+        got = merge_block(None if run is None else run.to(cuda), *args, k,
+                          precision, units=units)
+        torch.cuda.synchronize()
+        assert merge_block.kernel_launches == before + 1
+        assert merge_block.last_units == min(units, -(-c.shape[0] // 128))
+        keys.append(got.cpu())
+    assert all(torch.equal(keys[0], other) for other in keys[1:])
+    assert _check_merge(keys[0], run, q, c, index, k, precision) >= 0.99
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("units", [1, 3])
+def test_knn_merge_zero_row_over_negative_candidates(cuda, precision, units):
+    """A zero query row over candidates negative in every component: each
+    product is -0.0, and the row's scores must still be +0.0 (the
+    accumulators start at +0.0; a first step that overwrote them could
+    leave -0.0, which orders below +0.0), so its keys are the plain
+    version's bitwise: the lowest indices at +0.0."""
+    rng = np.random.default_rng(5)
+    q = normalize_rows(torch.from_numpy(
+        rng.random((9, 64)).astype(np.float32)))
+    q[[0, 4]] = 0
+    c = -normalize_rows(torch.from_numpy(
+        rng.random((1100, 64)).astype(np.float32)))
+    got = merge_block(None, q.to(cuda), c.to(cuda), 3, 20, precision,
+                      units=units).cpu()
+    want = merge_block_plain(None, q, c, 3, 20, precision)
+    assert torch.equal(got[[0, 4]], want[[0, 4]])
+    assert torch.equal(_decode_keys(got[0])[1], torch.arange(3, 23))
+    assert _check_merge(got, None, q, c, 3, 20, precision) >= 0.99
+
+
+@pytest.mark.parametrize("d", [13, 40, 640])
+def test_knn_merge_unaligned_and_wide_rows(cuda, d):
+    """bf16 rows K4 cannot read by TMA as they are (d % 8 != 0, or a base
+    off 16 bytes) go through the zero-padded copy, and rows past the
+    resident query tile (d = 640) stream it with the candidates: the same
+    keys bitwise as aligned rows, and held to merge_block_plain."""
+    rng = np.random.default_rng(d)
+    q, c = (normalize_rows(torch.from_numpy(
+        rng.standard_normal((rows, d)).astype(np.float32))).to(torch.bfloat16)
+        for rows in (150, 1300))
+    q[2] = 0
+    aligned = merge_block(None, q.to(cuda), c.to(cuda), 0, 30, units=2)
+    flat = torch.zeros(c.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(c.shape)
+    off.copy_(c.to(cuda))
+    assert off.data_ptr() % 16 != 0
+    shifted = merge_block(None, q.to(cuda), off, 0, 30, units=2)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, shifted)
+    assert _check_merge(aligned.cpu(), None, q, c, 0, 30, "bf16") >= 0.99
+
+
 def test_merge_block_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((4, 16), device=cuda)
     with pytest.raises(ValueError, match="both float32 or both"):

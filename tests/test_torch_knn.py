@@ -162,3 +162,61 @@ def test_merge_block_ids_form_with_empty_carry_and_k_over_n():
         np.testing.assert_allclose(scores[r].numpy(),
                                    [-s for s, _ in want[r][:8]], atol=1e-6)
     assert index[2].tolist() == [3, 8, 17, 25, 40, 100, 101, 102]
+
+
+@pytest.mark.parametrize("sms", [16, 114, 132])
+def test_k4_units_plan(sms):
+    """K4's unit planner: at least one unit; no unit without candidates
+    (each split range non-empty, at most one unit a tile); where the query
+    blocks leave most of the card idle and n allows, enough units to keep
+    90% of the SMs busy (or every block at K4_MAX_UNITS); a single unit
+    when m and n are tiny."""
+    for m in (1, 5, 128, 1000, 2048, 5000, 15000, 65536):
+        for n in (1, 100, 1024, 15000, 65536, 262144, 1 << 20):
+            for k in (1, 10, 50, 300):
+                units = topk.k4_units(m, n, k, sms)
+                tiles = -(-n // topk.K4_TILE)
+                blocks = -(-m // topk.K4_ROWS)
+                assert 1 <= units <= min(topk.K4_MAX_UNITS, tiles)
+                splits = topk.k4_splits(n, units)
+                assert splits[0][0] == 0 and splits[-1][1] == n
+                assert all(lo < hi for lo, hi in splits)
+                assert all(a[1] == b[0] for a, b in zip(splits, splits[1:]))
+                if 2 * blocks < sms and tiles >= topk.K4_MIN_TILES * sms:
+                    assert blocks * units >= min(
+                        0.9 * sms, blocks * topk.K4_MAX_UNITS), (m, n, k)
+                if m <= topk.K4_ROWS and n <= 8 * topk.K4_TILE:
+                    assert units == 1
+    assert topk.k4_units(2048, 262144, 50, 132) * 16 >= 0.9 * 132
+
+
+@pytest.mark.parametrize("units", [1, 2, 3, 7, 32])
+@pytest.mark.parametrize("form", ["first", "ids_carry", "empty_carry_fp32"])
+def test_merge_split_plain_matches_one_merge(units, form):
+    """The plain split merge (each of k4_splits' candidate ranges merged
+    alone, the first from the carry, then each row's best of the lists)
+    equals one merge_block_plain over every candidate, bitwise, whatever
+    the number of units: zero rows, the ids form, a carry with EMPTY_KEY
+    slots and k past a split's candidates."""
+    rng = np.random.default_rng(units)
+    n, d, k = 4100, 24, 40 if form != "empty_carry_fp32" else 300
+    q = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(37, d)).astype(np.float32)))
+    c = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(n, d)).astype(np.float32)))
+    q[3] = 0
+    c[[0, 129, n - 1]] = 0
+    precision = "fp32" if form.endswith("fp32") else "bf16"
+    run, first = None, 11
+    if form != "first":
+        first = torch.from_numpy(rng.permutation(10 * n)[:n].astype(np.int64))
+        other = topk.normalize_rows(torch.from_numpy(
+            rng.normal(size=(30, d)).astype(np.float32)))
+        run = topk.merge_block_plain(None, q, other, 10 * n, 20, precision)
+        if form.startswith("empty"):
+            run[::2, 12:] = topk.EMPTY_KEY
+    want = topk.merge_block_plain(None if run is None else run.clone(), q, c,
+                                  first, k, precision)
+    got = topk.merge_split_plain(None if run is None else run.clone(), q, c,
+                                 first, k, precision, units)
+    assert torch.equal(got, want)

@@ -159,6 +159,32 @@ def test_plan_holds_its_budget(budget):
         assert (-(-262_144 // q), c, ct) == (12, 32_768, 16_384)
 
 
+@pytest.mark.parametrize("budget", ["16M", "64M", "256M", "2G", "8G"])
+def test_card_plan_holds_its_budget(budget):
+    """The plan for a card of 132 SMs (K4's own footprint: the slab, its
+    carry, two blocks, K4's split scratch, the decode) holds the budget
+    over test_plan_holds_its_budget's grid, its slab and block one K4
+    launch; at 262,144 x 512 and 256 MiB it needs fewer slabs than the
+    CPU plan's 12."""
+    from fedrann_tpu_torch.cli import parse_bytes
+
+    b = parse_bytes(budget)
+    for n in (15_000, 262_144, 40_000_000):
+        for d, k, itemsize in ((512, 50, 2), (512, 50, 4), (128, 10, 2),
+                               (512, 100, 2)):
+            q, c, ct = ooc.plan_ooc(n, d, k, b, 512, ooc.DEFAULT_BLOCK_ROWS,
+                                    itemsize, sms=132)
+            assert q % 512 == 0 and q >= 512
+            assert c & (c - 1) == 0 and ct == c
+            assert 2 * c * d * itemsize <= b // 3 or c <= 512
+            assert ooc.plan_bytes(q, c, ct, 512, d, k, itemsize, 132) <= b
+    if budget == "256M":
+        q_cpu, _, _ = ooc.plan_ooc(262_144, 512, 50, b)
+        q, c, _ = ooc.plan_ooc(262_144, 512, 50, b, sms=132)
+        assert -(-262_144 // q_cpu) == 12
+        assert -(-262_144 // q) < 12 and c == 32_768
+
+
 @pytest.fixture(scope="module")
 def reads(tmp_path_factory):
     d = tmp_path_factory.mktemp("ooc")

@@ -25,8 +25,10 @@ Phases; any failure exits non-zero and prints no result line:
          with the float32 and bfloat16 tables build_precompute_paired
          builds, and at a chunk of each golden dataset (d = 256, the
          imported float32 table, k = 15 and 21), to rtol 1e-5, atol 1e-6 *
-         max|P| * hits, with its time, device us a launch, byte bound and
-         F.embedding_bag over the same hit rows;
+         max|P| * hits, hit counts bitwise, the same bytes in two
+         launches, with its time, device us a launch, its byte bound (each
+         distinct library row read once) and the every-hit figure beside
+         it, and F.embedding_bag over the same hit rows;
      (c) kernel A and the fused kernel on the packed source (the packer's
          2-bit stream with row lengths, as the pipeline uploads buckets
          without mid-read N) and on the bits source (the stream with valid
@@ -66,6 +68,13 @@ Phases; any failure exits non-zero and prints no result line:
          trace/trace.json, mprof.dat and feature_matrix.npz exist, the
          .npz embeddings equal the result's, and the trace gives the
          run's device busy time and idle share;
+     (f) phase 4's reads and flags at --knn-precision fp32 (K4's fp32
+         form), checked as phase 4 (truth recall >= 0.9), the fp32 form
+         launched once, its neighbor agreement with phase 4's table and
+         knn seconds logged; then again at --knn-hbm-budget 16M, out of
+         core: the card's plan's slabs and blocks uploaded, one fp32
+         launch a slab and block, agreement >= OOC_AGREE_CLI with the
+         in-core fp32 table;
   5. long reads (~667 simulated reads, 10 Mb genome, 10x, 150 kb, 5% error,
      in the 131,072- and 262,144-base buckets), same flags:
      (a) at the first staging chunk of the 262,144-base bucket (5%
@@ -214,9 +223,10 @@ Phases; any failure exits non-zero and prints no result line:
      (each instance's registers and spills from ptxas -v's log), then K4
      (csrc/knn_merge.cu) against merge_block_plain on the card at phase
      4's rows (4d's checkpoint, 15,000 x 512, k = 50, bf16, then the fp32
-     form; each also at K4_SPLITS forced units, bitwise the planned
-     split's keys), at K4_ROWS x 512 and at OOC_ROWS x 512 on OOC_SAMPLE sampled
-     queries (rank 16 plus noise), and on edge cases (zero rows, ragged m,
+     form on float32 and on bfloat16 rows; each also at K4_SPLITS forced
+     units, bitwise the planned split's keys), at K4_ROWS x 512 and at
+     OOC_ROWS x 512 on OOC_SAMPLE sampled queries (rank 16 plus noise;
+     both forms, each beside torch.matmul of its rows), and on edge cases (zero rows, ragged m,
      n and d, m below a block, k past n, the ids form with a carry holding
      EMPTY_KEY slots, both precisions): every kernel score within K4_TOL
      of the plain score of its pair, each row's neighbor set the plain
@@ -237,8 +247,9 @@ search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
-the runs of its own path: knn_merge and srp_signs from the main path's, stage_rows from the main path's, 9b's, 9c's,
-10's and 11's, membership_embed from the main path's, 8a's (twice), 9b's,
+the runs of its own path: knn_merge and srp_signs from the main path's,
+knn_merge_fp32 (K4's fp32 form) from 4f's two runs, stage_rows from the
+main path's, 9b's, 9c's, 10's and 11's, membership_embed from the main path's, 8a's (twice), 9b's,
 10's and 11's, the other staging
 kernels summed over the three CLI runs (and 9b's),
 membership_embed_dense over the runs of 4b, 7 and 9c, the probes from their
@@ -360,6 +371,10 @@ SOURCES = {
     "knn_merge": (CSRC + "knn_merge.cu",
                   "fedrann_tpu/knn/topk.py:146 _knn_tiles_qc (XLA "
                   "dot_general + lax.top_k in a lax.scan)"),
+    "knn_merge_fp32": (CSRC + "knn_merge.cu",
+                       "fedrann_tpu/knn/topk.py:146 _knn_tiles_qc at "
+                       "precision fp32 (XLA float32 dot_general + "
+                       "lax.top_k in a lax.scan)"),
     "srp_signs": (CSRC + "srp_signs.cu",
                   "fedrann_tpu/project/srp.py:151 build_precompute_signs, "
                   ":202 _srp_sign_chunk, :219 _pack_signs (XLA)"),
@@ -974,6 +989,11 @@ def check_dense_case(label: str, staged, lib_codes, p_pair, targets,
                                              targets, out_p)
     if not torch.equal(n_hits, n_hits_p):
         fail(f"{label}: hit counts differ from the plain version")
+    again = torch.zeros_like(out)
+    membership_embed_dense(staged, lib_codes, p_pair, targets, again)
+    if not torch.equal(again.view(torch.int32), out.view(torch.int32)):
+        fail(f"{label}: two launches of the dense form wrote other bytes")
+    del again
     atol = 1e-6 * float(p_pair.float().abs().max()) * max(
         int(n_hits.max()), 1)
     err = float((out - out_p).abs().max())
@@ -1751,9 +1771,11 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     host = read_counts(HOST_COUNTERS)
     if rc != 0:
         fail(f"cli.main returned {rc}")
+    fp32 = ("--knn-precision" in flags
+            and flags[flags.index("--knn-precision") + 1] == "fp32")
     check_launches(launches, paths, None if resumed else embed,
                    "the main path", knn_expected(flags),
-                   embed == "membership_embed")
+                   embed == "membership_embed", fp32)
     check_host(host, load, "the main path")
     log(f"main path launches: {launches}; host counts: {host}")
 
@@ -1850,10 +1872,11 @@ def knn_expected(flags: list[str]) -> bool | None:
 
 def check_launches(launches: dict, paths: set, embed: str | None,
                    what: str, knn: bool | None = True,
-                   signs: bool | None = None) -> None:
+                   signs: bool | None = None, fp32: bool = False) -> None:
     """Each staging kernel launched exactly where the plan picks its path
     (`paths`), kernel C in the projection's form `embed` only, K4 as `knn`
-    says (None: either), K5 where the projection is the sign table
+    says (None: either), its fp32 form where `fp32` (--knn-precision
+    fp32) and K4 launches, K5 where the projection is the sign table
     (`signs`; by default where `embed` is kernel C's sign form), and every
     other kernel launched."""
     signs = embed == "membership_embed" if signs is None else signs
@@ -1861,7 +1884,8 @@ def check_launches(launches: dict, paths: set, embed: str | None,
         want = (name in paths if name in STAGE_KERNELS
                 else name == embed if name in EMBED_KERNELS
                 else signs if name == "srp_signs"
-                else knn if name == "knn_merge" else True)
+                else knn if name == "knn_merge"
+                else knn and fp32 if name == "knn_merge_fp32" else True)
         if want is None:
             continue
         if (n > 0) != want:
@@ -1949,12 +1973,21 @@ def device_busy_us(trace_path: str) -> tuple[float, int]:
 def stage_kernels_in_trace(trace_path: str, stage: str) -> list[str]:
     """The names of the kernels a torch.profiler Chrome trace shows inside
     the "stage:<stage>" range (metrics.stage's record_function; the stage
-    synchronizes the device at both ends, so its kernels run inside it)."""
+    synchronizes the device at both ends, so its kernels run inside it).
+    The range is its device-side copy (gpu_user_annotation), on the
+    kernels' own clock, where the trace has one: the host-side range
+    (user_annotation) is on the host's clock, which the trace aligns with
+    the device's only roughly, and a run was seen whose first knn kernels
+    fell before it."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-             if e.get("ph") == "X" and e.get("name") == f"stage:{stage}"
-             and e.get("cat") == "user_annotation"]
+    spans = []
+    for cat in ("gpu_user_annotation", "user_annotation"):
+        spans = spans or [(e["ts"], e["ts"] + e.get("dur", 0))
+                          for e in events
+                          if e.get("ph") == "X"
+                          and e.get("name") == f"stage:{stage}"
+                          and e.get("cat") == cat]
     if not spans:
         fail(f"4e: the trace has no stage:{stage} range")
     return [e["name"] for e in events
@@ -2411,6 +2444,64 @@ def check_ooc_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
         fail(f"8a: agreement {agree:.5f} with the in-core run below "
              f"{OOC_AGREE_CLI}")
     return launches
+
+
+def check_fp32_cli(fasta: str, out_dir: str, in_core_tsv: str, sim,
+                   card: str, dev, secs4: dict) -> int:
+    """Phase 4f: phase 4's reads and flags at --knn-precision fp32, checked
+    as phase 4 (drive_cli: truth recall >= MIN_RECALL), K4's fp32 form
+    launched once (one search over every row); its neighbor agreement with
+    phase 4's table and knn seconds logged. Then again at
+    --knn-hbm-budget OOC_CLI_BUDGET, out of core: the card's plan (float32
+    wire rows) uploaded, one fp32 launch a slab and block, agreement >=
+    OOC_AGREE_CLI with the in-core fp32 table. Returns the fp32 form's
+    launches over both runs."""
+    from fedrann_tpu_torch.cli import config_from_args
+    from fedrann_tpu_torch.knn.ooc import plan_ooc
+    from fedrann_tpu_torch.knn.topk import sm_count
+
+    flags = [*FLAGS, "--knn-precision", "fp32"]
+    launches, secs = drive_cli(fasta, os.path.join(out_dir, "in_core"), sim,
+                               MIN_OVERLAP, card, dev, flags)
+    if (launches["knn_merge"], launches["knn_merge_fp32"]) != (1, 1):
+        fail(f"4f: K4 launched {launches['knn_merge']} times, its fp32 form "
+             f"{launches['knn_merge_fp32']}, want one fp32 search")
+    tsv = os.path.join(out_dir, "in_core", "overlaps.tsv")
+    agree = table_agreement(tsv, overlap_sets(in_core_tsv))
+    log(f"4f --knn-precision fp32: knn {secs['knn']:.3f} s (phase 4, bf16: "
+        f"{secs4['knn']:.3f} s); neighbor agreement with phase 4's table "
+        f"{agree:.5f} [{card}]")
+    total = launches["knn_merge_fp32"]
+
+    flags = [*flags, "--knn-hbm-budget", OOC_CLI_BUDGET]
+    config = config_from_args(["-i", fasta, "-o", "-", *flags])
+    n, d, k = 2 * len(sim.names), config.embedding_dimension, \
+        config.n_neighbors
+    q_rows, c_rows, _ = plan_ooc(n, d, k, config.knn_hbm_budget,
+                                 config.knn_query_tile, itemsize=4,
+                                 sms=sm_count(dev))
+    slabs, blocks = -(-n // q_rows), -(-n // c_rows)
+    launches, secs = drive_cli(fasta, os.path.join(out_dir, "ooc"), sim,
+                               MIN_OVERLAP, card, dev, flags)
+    host = read_counts(HOST_COUNTERS)
+    if (host["ooc_slabs"], host["ooc_blocks"]) != (slabs, slabs * blocks) \
+            or launches["knn_merge_fp32"] != slabs * blocks \
+            or launches["knn_merge"] != slabs * blocks:
+        fail(f"4f out of core: {host['ooc_slabs']} slabs and "
+             f"{host['ooc_blocks']} blocks uploaded, K4 {launches['knn_merge']} "
+             f"launches ({launches['knn_merge_fp32']} fp32); the plan says "
+             f"{slabs} x {blocks}, one fp32 launch each")
+    agree_ooc = table_agreement(os.path.join(out_dir, "ooc", "overlaps.tsv"),
+                                overlap_sets(tsv))
+    log(f"4f --knn-precision fp32 --knn-hbm-budget {OOC_CLI_BUDGET}: "
+        f"{slabs} slabs x {blocks} blocks of float32 wire rows, "
+        f"{launches['knn_merge_fp32']} fp32 merges, H2D "
+        f"{host['ooc_h2d_bytes']} bytes; knn {secs['knn']:.3f} s; neighbor "
+        f"agreement with the in-core fp32 table {agree_ooc:.5f} [{card}]")
+    if agree_ooc < OOC_AGREE_CLI:
+        fail(f"4f: out-of-core agreement {agree_ooc:.5f} with the in-core "
+             f"fp32 run below {OOC_AGREE_CLI}")
+    return total + launches["knn_merge_fp32"]
 
 
 def merge_workspace(dev, q_rows: int, c_rows: int, d: int,
@@ -3794,12 +3885,14 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     m, d = x.shape
     k = K4_K
     report = {}
-    for precision, rows in (("bf16", x.to(torch.bfloat16)), ("fp32", x)):
+    for precision, rows in (("bf16", x.to(torch.bfloat16)), ("fp32", x),
+                            ("fp32", x.to(torch.bfloat16))):
+        form = precision if rows.dtype == torch.float32 or precision == \
+            "bf16" else "fp32 on bf16 rows"
         got = merge_block(None, rows, rows, 0, k, precision)
         units = merge_block.last_units
         err, agree, ties, total = hold_k4(
-            f"12 phase 4's rows ({precision})", got, rows, rows, k,
-            precision)
+            f"12 phase 4's rows ({form})", got, rows, rows, k, precision)
         tally.append((agree, total))
         splits = []
         for forced in K4_SPLITS:
@@ -3807,7 +3900,7 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
                                 units=forced)
             splits.append(merge_block.last_units)
             if not torch.equal(other, got):
-                fail(f"12 phase 4's rows ({precision}): K4 at {forced} "
+                fail(f"12 phase 4's rows ({form}): K4 at {forced} "
                      f"forced units differs from the planned {units}")
         del other
         ms = time_cuda(lambda: merge_block(None, rows, rows, 0, k,
@@ -3822,7 +3915,7 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
         keys = _order_keys(rows.float() @ rows.float().T, 0)
         topk_ms = time_cuda(lambda: torch.topk(keys, k, dim=1), 3)
         del keys
-        log(f"12 K4 {precision} at phase 4's rows ({m} x {d}, k = {k}), "
+        log(f"12 K4 {form} at phase 4's rows ({m} x {d}, k = {k}), "
             f"{units} units: {ms:.4f} ms = {ops / ms / 1e9:.1f} TFLOP/s, "
             f"device "
             f"{device_us(lambda: merge_block(None, rows, rows, 0, k, precision), 5, True)} "
@@ -3832,10 +3925,10 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
             f"{topk_ms:.4f} ms; plain {plain_ms:.4f} ms; forced units "
             f"{splits} bitwise the planned; scores within {err:.3g}, "
             f"agreement {agree:.6f}, {ties} near-tie rows [{card}]")
-        if precision == "bf16":
-            report["knn_merge"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms,
-                                       library_ms=library_ms, **b)
+        if form in ("bf16", "fp32"):
+            report["knn_merge" if form == "bf16" else "knn_merge_fp32"] = \
+                dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, **b)
     del x
 
     emb, rng = rank16_rows(OOC_ROWS, 512)
@@ -3843,26 +3936,31 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     for label, n, queries in ((f"{K4_ROWS} x 512", K4_ROWS, None),
                               (f"{OOC_ROWS} x 512, {OOC_SAMPLE} sampled "
                                "queries", OOC_ROWS, sample)):
-        c = normalize_rows(torch.from_numpy(emb[:n]).to(dev)).to(
-            torch.bfloat16)
-        q = c if queries is None else c[torch.from_numpy(queries).to(dev)]
-        got = merge_block(None, q, c, 0, K4_K)
-        units = merge_block.last_units
-        err, agree, ties, total = hold_k4(f"12 {label}", got, q, c, K4_K,
-                                          "bf16")
-        tally.append((agree, total))
-        ms = time_cuda(lambda: merge_block(None, q, c, 0, K4_K), 3)
-        mm = time_cuda(lambda: torch.matmul(q, c.T), 3)
-        ops = 2 * q.shape[0] * n * 512
-        b = bound((q.shape[0] + n) * 512 * 2 + q.shape[0] * K4_K * 8,
-                  bf16_ops=ops)
-        log(f"12 K4 bf16 at {label}, k = {K4_K}, {units} units: {ms:.3f} "
-            f"ms = {ops / ms / 1e9:.1f} TFLOP/s; bound {b['bound_ms']:.3f} "
-            f"ms ({b['bound_by']}, {100 * b['bound_ms'] / ms:.1f}% of it); "
-            f"torch.matmul of the rows {mm:.3f} ms; scores within "
-            f"{err:.3g}, agreement {agree:.6f}, {ties} near-tie rows "
-            f"[{card}]")
-        del c, q, got
+        for precision in ("bf16", "fp32"):
+            c = normalize_rows(torch.from_numpy(emb[:n]).to(dev))
+            if precision == "bf16":
+                c = c.to(torch.bfloat16)
+            q = c if queries is None else c[torch.from_numpy(queries).to(dev)]
+            got = merge_block(None, q, c, 0, K4_K, precision)
+            units = merge_block.last_units
+            err, agree, ties, total = hold_k4(f"12 {label} ({precision})",
+                                              got, q, c, K4_K, precision)
+            tally.append((agree, total))
+            ms = time_cuda(lambda: merge_block(None, q, c, 0, K4_K,
+                                               precision), 3)
+            mm = time_cuda(lambda: torch.matmul(q, c.T), 3)
+            ops = 2 * q.shape[0] * n * 512
+            b = bound((q.shape[0] + n) * 512 * c.element_size()
+                      + q.shape[0] * K4_K * 8,
+                      **({"bf16_ops": ops} if precision == "bf16"
+                         else {"fp32_ops": ops}))
+            log(f"12 K4 {precision} at {label}, k = {K4_K}, {units} units: "
+                f"{ms:.3f} ms = {ops / ms / 1e9:.1f} TFLOP/s; bound "
+                f"{b['bound_ms']:.3f} ms ({b['bound_by']}, "
+                f"{100 * b['bound_ms'] / ms:.1f}% of it); torch.matmul of "
+                f"the rows {mm:.3f} ms; scores within {err:.3g}, agreement "
+                f"{agree:.6f}, {ties} near-tie rows [{card}]")
+            del c, q, got
     del emb
 
     for name, (run, q, c, first, ids, kk) in k4_edge_cases(dev).items():
@@ -4039,6 +4137,7 @@ def register_counters() -> None:
         "membership_embed": (membership_embed, "launches"),
         "membership_embed_dense": (membership_embed_dense, "launches"),
         "knn_merge": (merge_block, "kernel_launches"),
+        "knn_merge_fp32": (merge_block, "fp32_launches"),
         "srp_signs": (sign_table, "kernel_launches")})
     HOST_COUNTERS.update({
         "pack_reads_native": (native.pack_reads_native, "calls"),
@@ -4176,6 +4275,10 @@ def main() -> None:
         check_checkpoints(fasta, os.path.join(tmp, "ckpt"), sim, card, dev)
         check_feature_flags(fasta, os.path.join(tmp, "flags"), sim, card,
                             dev)
+        # 4f: K4's fp32 form through the CLI, in core and out of core
+        fp32_launches = check_fp32_cli(
+            fasta, os.path.join(tmp, "fp32"),
+            os.path.join(tmp, "out", "overlaps.tsv"), sim, card, dev, secs)
         # 12: K4 and K5 against their plain versions (phase 4's rows and
         # library from 4d's checkpoints)
         report.update(check_knn_kernels(
@@ -4275,6 +4378,7 @@ def main() -> None:
         launches["membership_embed_dense"] = dense_launches
         for name, n in step_launches.items():
             launches[name] += n
+        launches["knn_merge_fp32"] = fp32_launches
 
     report.update(check_probes(dev, card))
     launches.update(drive_probes())

@@ -71,9 +71,11 @@ _SIGNATURES = {
     "fk_membership_embed": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _I64,
                             _P, _P, _P, _P, _I64, _P],
     # staged, rows, h, lib, lib_size, table, is_bf16, d, targets, out,
-    # n_hits, start, n_buckets, stream
+    # n_hits, start, n_buckets, hits, bnd, done, g, parts, per, ws, nw, lag,
+    # stream
     "fk_membership_embed_dense": [_P, _I64, _I64, _P, _I64, _P, _I32, _I64,
-                                  _P, _P, _P, _P, _I64, _P],
+                                  _P, _P, _P, _P, _I64, _P, _P, _P, _I32,
+                                  _I32, _I32, _I64, _I32, _I32, _P],
     # knn_merge.cu: q, m, c, n, d, is_bf16, fp32, first, ids, run, w, W,
     # out, vec, units, parts, stream
     "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,

@@ -87,12 +87,33 @@
 // barrier: the tile's keys are appended at once and the rows past 16
 // merged after it, a tile that overflows offered again in rounds.
 //
-// fp32 (knn_merge_ffma): an FFMA product and a staged scan, inside the
-// same units. 256 threads load stages of 32 values a row, transposed
-// (rows padded by one word), three in flight; a thread owns 8 x 8 pairs
-// and accumulates with fmaf over the depth in order; each tile's column
-// halves are staged in shared memory and scanned a thread a row and 32
-// columns against the row's threshold into SV = 96 survivor slots.
+// fp32 (knn_merge_ffma): IEEE float32 products on the FFMA pipe (bound
+// 67 TFLOP/s), in the same units, with the bf16 form's pipeline and top-k
+// around an FFMA product. A producer warp keeps TMA loads of 128-byte
+// chunk rows (32 float32, or 64 bfloat16 of bf16 rows) in flight, the
+// candidate and the query chunk of each step in one 32 KB stage,
+// 128-byte swizzled, through a ring on full and empty mbarriers; no
+// thread loads or transposes a stage. Eight consumer warps own 16 query
+// rows each, a thread two rows of them times eight (rows ra + 2 i) and
+// eight candidate columns (tx + 16 j): 64 accumulators. Each step reads
+// four consecutive depth values of its 8 query and 8 candidate rows, one
+// 16-byte (8-byte for bf16) load each, and runs the 256 fmaf of the 64
+// pairs over them in depth order. The swizzle spreads the rows a load
+// reads over the bank groups (two query rows: one group each; 16
+// candidate rows: two to a group, the least for 256 bytes), and its XOR
+// folds into two base pointers and immediate offsets. After a tile, each
+// thread tests each of its rows' largest score once against the row's
+// threshold, in a loop over the rows (a row's scores picked out of the
+// accumulators by selects, so the filter's code is not repeated eight
+// times beside the live accumulators); the keys that pass go to the
+// survivor halves and three merge warps of the shared-memory lists (W <=
+// 64, the bf16 form's machinery), or to 32 slots a row merged into
+// device-memory lists by the row's own warp (k > 64). A tile that would
+// overflow is offered again in eight rounds of one column a thread. A
+// warp owns its rows, so no barrier of the block stands in the product's
+// way. Three merge warps: the most that keep the consumers at 168
+// registers (12 warps, three to a scheduler; one or two merge warps leave
+// the same 168, and are slower).
 //
 // One fixed sequence of operations a pair. d is never split: a pair's
 // score is the same k16 steps (bf16) or fmaf chain (fp32) over the depth,
@@ -107,13 +128,16 @@
 // Resources, as ptxas -v gives them (nvcc 12.9, sm_90a; chip_smoke.py's
 // phase 12 logs them from the build log): knn_merge_wgmma<true> 128
 // registers (the cap at 512 threads) with 24 bytes of spill stores and 32
-// of loads, <false> 128 registers, knn_merge_ffma 167 (float rows) and
-// 168 (bf16 rows), knn_merge_combine 30, the others no spills; no static
-// shared memory. Shared memory is dynamic: bf16 at d = 512 and k = 50
-// takes three 32 KB stages, 64 KB of survivor halves, 56 KB of lists, the
-// row states and the queue (227,488 bytes); k > 64 the 128 KB query tile,
-// three 16 KB stages, 32 KB of survivors, 8 KB of merge scratch and the
-// row states (224,400 bytes); fp32 207,616 bytes. One block an SM.
+// of loads, <false> 128 registers, knn_merge_ffma 168 in each instance
+// (the cap at 384 threads), with the spills phase 12 logs,
+// knn_merge_combine 30, the others no spills; no static shared memory.
+// Shared memory is dynamic: bf16 at d = 512 and k = 50 takes three 32 KB
+// stages, 64 KB of survivor halves, 56 KB of lists, the row states and
+// the queue (227,488 bytes); k > 64 the 128 KB query tile, three 16 KB
+// stages, 32 KB of survivors, 8 KB of merge scratch and the row states
+// (224,400 bytes); fp32 at k = 50 three 32 KB stages beside the same
+// lists and halves (228,000 bytes), at k > 64 five stages beside 32
+// survivor slots a row (208,528 bytes). One block an SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -754,6 +778,89 @@ __device__ __forceinline__ void wait_idle(const Ls& R, int r0w, int lane,
   __threadfence_block();
 }
 
+// Open the warp's rows r0w .. r0w + 15 of unit x, lists in shared memory:
+// split 0's carry into the lists, lengths, thresholds (the carry's last key
+// where it fills W), empty halves.
+__device__ __forceinline__ void open_ls_rows(const Ls& R, const Unit& x,
+                                             int64_t m, const int64_t* run,
+                                             int64_t w, int W, int r0w,
+                                             int lane) {
+  const int64_t cw = x.split == 0 ? w : 0;
+  for (int i = lane; i < 16 * cw; i += 32) {
+    const int r = r0w + i / static_cast<int>(cw);
+    const int col = i % static_cast<int>(cw);
+    if (x.row0 + r < m) {
+      R.lists[r * R.wl + col] = run[(x.row0 + r) * w + col];
+    }
+  }
+  if (lane < 16) {
+    const int r = r0w + lane;
+    const int64_t g = x.row0 + r;
+    R.thr[r] = g < m && cw == W ? run[g * w + w - 1] : EMPTY_KEY;
+    R.len[r] = g < m ? static_cast<int32_t>(cw) : 0;
+    R.cnt[2 * r] = R.cnt[2 * r + 1] = 0;
+    R.act[r] = 0;
+    R.busy[2 * r] = R.busy[2 * r + 1] = 0;
+  }
+  __syncwarp();
+}
+
+// Close the warp's rows of unit x: back from the merge warps, their last
+// halves merged here, and the lists written out (row r's at L0 + (row0 +
+// r) * W, padded with EMPTY_KEY).
+__device__ __forceinline__ void close_ls_rows(const Ls& R, const Unit& x,
+                                              int64_t m, int W, int64_t* L0,
+                                              int r0w, int lane) {
+  __threadfence_block();
+  __syncwarp();
+  wait_idle(R, r0w, lane, W);
+  for (int r = r0w; r < r0w + 16; ++r) {
+    const int h = R.act[r];
+    if (R.cnt[2 * r + h] > 0) merge_half(R, r, h, W, lane);
+    if (x.row0 + r < m) {
+      for (int i = lane; i < W; i += 32) {
+        L0[(x.row0 + r) * W + i] =
+            i < R.len[r] ? R.lists[r * R.wl + i] : EMPTY_KEY;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// A merge warp: each queue entry in turn, until a stop entry.
+__device__ __forceinline__ void merge_loop(const Ls& R, int W, int lane) {
+  while (true) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(&R.ctl[1], 1);
+    t = __shfl_sync(0xffffffffu, t, 0) % QCAP;
+    int e;
+    while ((e = ld_volatile(&R.queue[t])) == 0) __nanosleep(64);
+    __syncwarp();
+    if (lane == 0) *reinterpret_cast<volatile int32_t*>(&R.queue[t]) = 0;
+    if (e < 0) return;
+    __threadfence_block();
+    const int r = (e - 1) >> 1, h = (e - 1) & 1;
+    merge_half(R, r, h, W, lane);
+    __threadfence_block();
+    __syncwarp();
+    if (lane == 0) {
+      *reinterpret_cast<volatile int32_t*>(&R.busy[2 * r + h]) = 0;
+    }
+  }
+}
+
+// The last of `cwarps` consumer warps to finish stops the `mergers` merge
+// warps (by its lane 0).
+__device__ __forceinline__ void stop_mergers(const Ls& R, int cwarps,
+                                             int mergers, int lane) {
+  if (lane == 0 && atomicAdd(&R.ctl[2], 1) == cwarps - 1) {
+    for (int i = 0; i < mergers; ++i) {
+      const int slot = atomicAdd(&R.ctl[0], 1);
+      *reinterpret_cast<volatile int32_t*>(&R.queue[slot % QCAP]) = -1;
+    }
+  }
+}
+
 }  // namespace tc
 
 // LS: the rows' lists in shared memory with the merge warps (W <= 64);
@@ -874,26 +981,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
 
   if (warp > CWARPS) {
     // the merge warps: each queue entry in turn, until a stop entry
-    if constexpr (LS) {
-      while (true) {
-        int t = 0;
-        if (lane == 0) t = atomicAdd(&R.ctl[1], 1);
-        t = __shfl_sync(0xffffffffu, t, 0) % QCAP;
-        int e;
-        while ((e = ld_volatile(&R.queue[t])) == 0) __nanosleep(64);
-        __syncwarp();
-        if (lane == 0) *reinterpret_cast<volatile int32_t*>(&R.queue[t]) = 0;
-        if (e < 0) return;
-        __threadfence_block();
-        const int r = (e - 1) >> 1, h = (e - 1) & 1;
-        merge_half(R, r, h, W, lane);
-        __threadfence_block();
-        __syncwarp();
-        if (lane == 0) {
-          *reinterpret_cast<volatile int32_t*>(&R.busy[2 * r + h]) = 0;
-        }
-      }
-    }
+    if constexpr (LS) merge_loop(R, W, lane);
     return;
   }
 
@@ -911,26 +999,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
     const bool live_a = x.row0 + ra < m, live_b = x.row0 + rb < m;
     Thr ta, tb;
     if constexpr (LS) {
-      // the warp's rows: split 0's carry into the lists, lengths,
-      // thresholds, empty halves
-      const int64_t cw = x.split == 0 ? w : 0;
-      for (int i = lane; i < 16 * cw; i += 32) {
-        const int r = r0w + i / static_cast<int>(cw);
-        const int col = i % static_cast<int>(cw);
-        if (x.row0 + r < m) {
-          R.lists[r * wl + col] = run[(x.row0 + r) * w + col];
-        }
-      }
-      if (lane < 16) {
-        const int r = r0w + lane;
-        const int64_t g = x.row0 + r;
-        R.thr[r] = g < m && cw == W ? run[g * w + w - 1] : EMPTY_KEY;
-        R.len[r] = g < m ? static_cast<int32_t>(cw) : 0;
-        R.cnt[2 * r] = R.cnt[2 * r + 1] = 0;
-        R.act[r] = 0;
-        R.busy[2 * r] = R.busy[2 * r + 1] = 0;
-      }
-      __syncwarp();
+      open_ls_rows(R, x, m, run, w, W, r0w, lane);
     } else {
       open_rows(rs, x, m, run, w, W, L0 + x.row0 * W, W, L0 != run, r0,
                 r0 + 64, wt, 128);
@@ -1088,22 +1157,7 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
       if (resident) ++qj;
     }
     if constexpr (LS) {
-      // the warp's rows back from the merge warps, their last halves
-      // merged here, and the lists written out
-      __threadfence_block();
-      __syncwarp();
-      wait_idle(R, r0w, lane, W);
-      for (int r = r0w; r < r0w + 16; ++r) {
-        const int h = R.act[r];
-        if (R.cnt[2 * r + h] > 0) merge_half(R, r, h, W, lane);
-        if (x.row0 + r < m) {
-          for (int i = lane; i < W; i += 32) {
-            L0[(x.row0 + r) * W + i] =
-                i < R.len[r] ? R.lists[r * wl + i] : EMPTY_KEY;
-          }
-        }
-      }
-      __syncwarp();
+      close_ls_rows(R, x, m, W, L0, r0w, lane);
     } else {
       wg_sync(bar);
       merge_wg<SV>(rs, L0, x.row0, W, 0, r0, w4, lane, scratch);
@@ -1111,240 +1165,348 @@ __global__ void __launch_bounds__(tc::THREADS, 1)
       wg_sync(bar);
     }
   }
-  if constexpr (LS) {
-    // the last consumer warp to finish stops the merge warps
-    if (lane == 0 && atomicAdd(&R.ctl[2], 1) == CWARPS - 1) {
-      for (int i = 0; i < MERGERS; ++i) {
-        const int slot = atomicAdd(&R.ctl[0], 1);
-        *reinterpret_cast<volatile int32_t*>(&R.queue[slot % QCAP]) = -1;
-      }
-    }
-  }
+  if constexpr (LS) stop_mergers(R, CWARPS, MERGERS, lane);
 }
 
 // ---------------------------------------------------------------- fp32 --
 
 namespace ff {
 
-constexpr int THREADS = 256;     // eight warps
-constexpr int STAGES = 3;        // depth stages in flight
-constexpr int BK = 32;           // float32 values a stage (128 bytes a row)
-constexpr int A32 = BM + 1;      // transposed strides, padded
-constexpr int B32 = BN + 1;
-constexpr int ROUND = BN / 2;    // keys a row gains in a round at most
-constexpr int SV = 96;           // survivor slots a row
-constexpr int MERGE_AT = SV - ROUND;  // a row holding more merges
-constexpr int WARPS = THREADS / 32;
-constexpr int STAGE_BYTES = (A32 + B32) * BK * 4;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * SV * 8 +
-                           WARPS * LCAP * 8 + BM * 16;
-constexpr int FP_ROWS = THREADS / 16;  // a thread's row stride
-static_assert(BM * ROUND * 4 <= STAGE_BYTES, "a half's scores fit a stage");
-static_assert(THREADS == 2 * BM && ROUND == 64, "offer_half's layout");
+constexpr int CWARPS = 8;         // consumer warps, 16 query rows each
+constexpr int MERGERS = 3;        // merge warps (lists in shared memory)
+constexpr int THREADS = (CWARPS + 1 + MERGERS) * 32;  // + the producer
+constexpr int ROW = 128;          // bytes of a chunk row: 32 f32, 64 bf16
+constexpr int CHUNK = BN * ROW;   // a chunk of 128 rows, 16 KB
+constexpr int STAGE = 2 * CHUNK;  // the candidate chunk, then the query's
+constexpr int SV = 32;            // survivor slots a row (device lists)
+constexpr int MERGE_AT = SV / 2;
+constexpr int CW = 16;            // keys a row gains in a round at most
+// shared memory past the stages, lists in device memory: the survivors,
+// the merging warps' scratch, row states, mbarriers
+constexpr int GLOBAL_BYTES = BM * SV * 8 + CWARPS * LCAP * 8 + BM * 16 +
+                             (2 * tc::MAX_STAGES + 2) * 8;
+constexpr int HELD = BM * 4;      // a row's count at a tile's start
+static_assert(BM == 16 * CWARPS, "a consumer warp's 16 rows");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+// Four consecutive values of a chunk row in shared memory, as float32 (a
+// bfloat16 is the high half of its float32).
+__device__ __forceinline__ float4 ld4(const unsigned char* p, float) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-// One stage, transposed: value (r, k0 + kk) at dst[kk * stride + r].
-template <typename T>
-__device__ __forceinline__ void load_stage(float* dst, int stride,
-                                           const T* src, int64_t r0,
-                                           int64_t nrows, int rows,
-                                           int64_t d, int64_t k0, bool vec) {
-  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
-    const int r = q >> 3, ch = q & 7;
-    const int64_t gr = r0 + r, gk = k0 + ch * 4;
-    float v[4];
-    if (gr < nrows && vec && gk + 4 <= d) {
-      const T* g = src + gr * d + gk;
-      if constexpr (sizeof(T) == 2) {
-        const uint2 x = *reinterpret_cast<const uint2*>(g);
-        v[0] = __uint_as_float(x.x << 16);
-        v[1] = __uint_as_float(x.x & 0xffff0000u);
-        v[2] = __uint_as_float(x.y << 16);
-        v[3] = __uint_as_float(x.y & 0xffff0000u);
-      } else {
-        const float4 x = *reinterpret_cast<const float4*>(g);
-        v[0] = x.x;
-        v[1] = x.y;
-        v[2] = x.z;
-        v[3] = x.w;
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[u] = (gr < nrows && gk + u < d) ? to_f32(src[gr * d + gk + u])
-                                          : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) dst[(ch * 4 + u) * stride + r] = v[u];
-  }
+__device__ __forceinline__ float4 ld4(const unsigned char* p, uint16_t) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(x.x << 16),
+                     __uint_as_float(x.x & 0xffff0000u),
+                     __uint_as_float(x.y << 16),
+                     __uint_as_float(x.y & 0xffff0000u));
 }
 
-// The scores of one column half of a tile, staged for the scan in the
-// stage buffer the tile's last step consumed: score (r, c) at float
-// r * ROUND + (c ^ (r & 31)), so a warp's 32 rows read 32 banks.
-__device__ __forceinline__ int score_at(int r, int c) {
-  return r * ROUND + (c ^ (r & 31));
-}
-
-// Scan the staged half `half` of the tile at candidate col0 (columns
-// below c_end): thread t takes row t % BM and 32 of the half's 64 columns.
-// The 32 scores are tested against the row's threshold's high word into a
-// mask; only the columns it sets build their keys, and each key above the
-// threshold goes to the row's survivors.
-__device__ __forceinline__ void offer_half(const Rows& rs, const float* sc,
-                                           int half, int64_t row0,
-                                           int64_t m, int64_t col0,
-                                           int64_t c_end, int64_t first,
-                                           const int64_t* ids) {
-  const int r = threadIdx.x % BM;
-  const int c0 = (threadIdx.x / BM) * 32;
-  if (row0 + r >= m) return;
-  const int32_t th = rs.thr_hi[r];
-  const uint32_t tl = rs.thr_lo[r];
-  const int64_t j0 = col0 + half * ROUND + c0;
-  const int64_t left = c_end - j0;
-  const int cols = left < 32 ? static_cast<int>(left) : 32;
-  uint32_t mask = 0;
+// Row i's eight scores (acc[i * 8 ..]) for a runtime i, by selects: the
+// filter then runs as a loop over the rows, one copy of its code, instead
+// of eight unrolled ones whose temporaries crowd the accumulators.
+__device__ __forceinline__ void row_scores(const float (&acc)[64], int i,
+                                           float (&v)[8]) {
 #pragma unroll
-  for (int cc = 0; cc < 32; ++cc) {
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    mask |= static_cast<uint32_t>(mono >= th && cc < cols) << cc;
-  }
-  while (mask != 0) {
-    const int cc = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    const int64_t index = ids != nullptr ? ids[j0 + cc] : first + j0 + cc;
-    const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
-    if (mono == th && lo <= tl) continue;
-    const int slot = atomicAdd(&rs.cnt[r], 1);
-    rs.sv[r * SV + slot] = make_key(mono, lo);
+  for (int j = 0; j < 8; ++j) {
+    float x = acc[j];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) x = i == k ? acc[k * 8 + j] : x;
+    v[j] = x;
   }
 }
 
 }  // namespace ff
 
-// T: the rows' type, float or bf16 bits (uint16_t).
-template <typename T>
+// T: the rows' type, float or bf16 bits (uint16_t). LS: the rows' lists in
+// shared memory with the merge warps (W <= 64); else in device memory, SV
+// survivor slots a row, each consumer warp merging its own rows.
+template <typename T, bool LS>
 __global__ void __launch_bounds__(ff::THREADS, 1)
-    knn_merge_ffma(const T* __restrict__ q, int64_t m,
-                   const T* __restrict__ c, int64_t n, int64_t d,
-                   int64_t first, const int64_t* __restrict__ ids,
-                   const int64_t* run, int64_t w, int W, int64_t* out,
-                   int64_t* parts, int units, bool vec) {
+    knn_merge_ffma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tcand, int64_t m,
+                   int64_t n, int kt_n, int64_t first,
+                   const int64_t* __restrict__ ids, const int64_t* run,
+                   int64_t w, int W, int64_t* out, int64_t* parts,
+                   int units, int stages, int wl) {
   using namespace ff;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Rows rs;
-  rs.sv = reinterpret_cast<int64_t*>(smem + STAGES * STAGE_BYTES);
-  rs.scratch = rs.sv + BM * SV;
-  rs.thr_hi = reinterpret_cast<int32_t*>(rs.scratch + WARPS * LCAP);
-  rs.thr_lo = reinterpret_cast<uint32_t*>(rs.thr_hi + BM);
-  rs.cnt = reinterpret_cast<int32_t*>(rs.thr_lo + BM);
-  rs.len = rs.cnt + BM;
+  constexpr int STEPS = ROW / (4 * static_cast<int>(sizeof(T)));
+  constexpr int VALS = ROW / static_cast<int>(sizeof(T));
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((tc::ALIGN - (smem_u32(smem_raw) & (tc::ALIGN - 1))) &
+                  (tc::ALIGN - 1));
+  unsigned char* tail = base + stages * STAGE;
+  Rows rs = {};
+  tc::Ls R = {};
+  uint64_t* full;
+  if constexpr (LS) {
+    R.sv = reinterpret_cast<int64_t*>(tail);
+    R.lists = R.sv + BM * 2 * tc::SVH;
+    R.thr = R.lists + BM * wl;
+    R.len = reinterpret_cast<int32_t*>(R.thr + BM);
+    R.cnt = R.len + BM;
+    R.act = R.cnt + 2 * BM;
+    R.busy = R.act + BM;
+    R.queue = R.busy + 2 * BM;
+    R.ctl = R.queue + tc::QCAP;
+    R.wl = wl;
+    full = reinterpret_cast<uint64_t*>(R.ctl + 4);
+  } else {
+    rs.sv = reinterpret_cast<int64_t*>(tail);
+    rs.scratch = rs.sv + BM * SV;
+    rs.thr_hi = reinterpret_cast<int32_t*>(rs.scratch + CWARPS * LCAP);
+    rs.thr_lo = reinterpret_cast<uint32_t*>(rs.thr_hi + BM);
+    rs.cnt = reinterpret_cast<int32_t*>(rs.thr_lo + BM);
+    rs.len = rs.cnt + BM;
+    full = reinterpret_cast<uint64_t*>(rs.len + BM);
+  }
+  uint64_t* empty = full + stages;
+  int32_t* held = reinterpret_cast<int32_t*>(empty + stages);  // [BM]
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int64_t* scratch = rs.scratch + warp * LCAP;
-  // a thread owns rows ty + FP_ROWS i and columns tx + 16 j of a tile
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      tc::mbar_init(full + s, 1);
+      tc::mbar_init(empty + s, CWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (LS) {
+    for (int i = threadIdx.x; i < tc::QCAP + 4; i += THREADS) R.queue[i] = 0;
+  }
+  __syncthreads();
+
   const int64_t blocks = (m + BM - 1) / BM, tiles = (n + BN - 1) / BN;
   const int64_t total = blocks * units;
-  const int kt_n = static_cast<int>((d + BK - 1) / BK);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int stage = 0;
+  uint32_t phase = 0;
 
+  if (warp == CWARPS) {
+    // the producer: each step's candidate chunk and query chunk
+    if (lane != 0) return;
+    for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+      const Unit x = unit_at(u, blocks, tiles, units);
+      for (int64_t t = x.t_lo; t < x.t_hi; ++t) {
+        for (int kc = 0; kc < kt_n; ++kc) {
+          tc::mbar_wait(empty + stage, phase ^ 1);
+          tc::mbar_expect_tx(full + stage, STAGE);
+          unsigned char* sp = base + stage * STAGE;
+          tc::tma_load(sp, &tcand, kc * VALS, static_cast<int>(t * BN),
+                       full + stage);
+          tc::tma_load(sp + CHUNK, &tq, kc * VALS, static_cast<int>(x.row0),
+                       full + stage);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    // stay until the consumers have released every stage (every load done)
+    for (int s = 0; s < stages; ++s) {
+      tc::mbar_wait(empty + stage, phase ^ 1);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  if (warp > CWARPS) {
+    if constexpr (LS) tc::merge_loop(R, W, lane);
+    return;
+  }
+
+  // the consumers: warp `warp` owns block rows r0w .. r0w + 15; this
+  // thread holds the scores of rows ra + 2 i (i < 8) and candidate
+  // columns tx + 16 j (j < 8) of a tile, acc[i * 8 + j]
+  const int r0w = warp * 16, ty = lane >> 4, tx = lane & 15;
+  const int ra = r0w + ty, t7 = tx & 7;
+  int64_t* scratch = LS ? nullptr : rs.scratch + warp * LCAP;
   for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
     const Unit x = unit_at(u, blocks, tiles, units);
-    const int64_t row0 = x.row0, c_end = min(x.t_hi * BN, n);
     int64_t* L0 = units == 1 ? out : parts + x.split * m * W;
-    open_rows(rs, x, m, run, w, W, L0 + row0 * W, W, L0 != run, 0, BM,
-              threadIdx.x, THREADS);
-    __syncthreads();
-
-    const int64_t steps = (x.t_hi - x.t_lo) * kt_n;
-    float acc[64];
-#pragma unroll
-    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
-
-    // the next stage to load (its tile and depth chunk), and the tile and
-    // chunk the product is at: counters, so no step divides
-    int64_t load_tile = x.t_lo, tile = x.t_lo;
-    int load_kc = 0, kc = 0;
-    auto load = [&](int buf) {
-      float* as = reinterpret_cast<float*>(smem + buf * STAGE_BYTES);
-      load_stage(as, A32, q, row0, m, BM, d, load_kc * BK, vec);
-      load_stage(as + A32 * BK, B32, c, load_tile * BN, n, BN, d,
-                 load_kc * BK, vec);
-      if (++load_kc == kt_n) {
-        load_kc = 0;
-        ++load_tile;
-      }
-    };
-
-#pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) {
-      if (i < steps) load(i);
+    if constexpr (LS) {
+      tc::open_ls_rows(R, x, m, run, w, W, r0w, lane);
+    } else {
+      open_rows(rs, x, m, run, w, W, L0 + x.row0 * W, W, L0 != run, r0w,
+                r0w + 16, lane, 32);
+      __syncwarp();
     }
-    int buf = 0;
-    for (int64_t step = 0; step < steps; ++step) {
-      // every warp is past the step before, so its stage may be refilled
-      __syncthreads();
-      if (step + STAGES - 1 < steps) load(buf == 0 ? STAGES - 1 : buf - 1);
-      unsigned char* stage = smem + buf * STAGE_BYTES;
-      buf = buf == STAGES - 1 ? 0 : buf + 1;
-      const float* as = reinterpret_cast<const float*>(stage);
-      const float* bs = as + A32 * BK;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[8], b[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = as[kk * A32 + ty + FP_ROWS * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = bs[kk * B32 + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
-          }
-        }
-      }
-      if (++kc != kt_n) continue;
-      kc = 0;
-
-      // the tile is scored: each column half is staged in the consumed
-      // stage buffer (no warp reads it past this barrier, and it is
-      // refilled only after the next step's), scanned, and its rows merged
-      // if full
-      const int64_t col0 = tile++ * BN;
-      float* sc = reinterpret_cast<float*>(stage);
-      __syncthreads();
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            sc[score_at(ty + FP_ROWS * i, tx + 16 * j)] =
-                acc[i * 8 + 4 * half + j];
-          }
-        }
-        __syncthreads();
-        offer_half(rs, sc, half, row0, m, col0, c_end, first, ids);
-        __syncthreads();
-        merge_rows<SV>(rs, L0, row0, W, MERGE_AT, warp, BM, WARPS, lane,
-                       scratch);
-        __syncthreads();
-      }
+    const int64_t c_end = min(x.t_hi * BN, n);
+    for (int64_t t = x.t_lo; t < x.t_hi; ++t) {
+      float acc[64];
 #pragma unroll
       for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+      for (int kc = 0; kc < kt_n; ++kc) {
+        tc::mbar_wait(full + stage, phase);
+        // the stage's chunk rows in the 128-byte swizzle: 16-byte piece p
+        // of row r at p ^ (r & 7). Query row ra + 2 i has r & 7 = ty ^ 2i,
+        // so its piece P sits at base qa[(P ^ 2i) & 1] plus the piece's
+        // even part; candidate row tx + 16 j has r & 7 = t7.
+        const unsigned char* sp = base + stage * STAGE;
+        const unsigned char* qa0 = sp + CHUNK + ra * ROW + (ty << 4);
+        const unsigned char* qa1 = qa0 + 16 - 32 * ty;
+        const unsigned char* cb = sp + tx * ROW;
+#pragma unroll
+        for (int s = 0; s < STEPS; ++s) {
+          // depth values 4 s .. 4 s + 3 of the chunk: piece P, byte off
+          const int P = (4 * s * static_cast<int>(sizeof(T))) >> 4;
+          const int off = (4 * s * static_cast<int>(sizeof(T))) & 15;
+          float4 a[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int K = P ^ ((2 * i) & 7);
+            a[i] = ld4((K & 1 ? qa1 : qa0) + 2 * ROW * i + ((K & ~1) << 4) +
+                           off,
+                       T());
+          }
+          const unsigned char* pb = cb + ((P ^ t7) << 4) + off;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 b = ld4(pb + 16 * ROW * j, T());
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              float& v = acc[i * 8 + j];
+              v = fmaf(a[i].x, b.x, v);
+              v = fmaf(a[i].y, b.y, v);
+              v = fmaf(a[i].z, b.z, v);
+              v = fmaf(a[i].w, b.w, v);
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) tc::mbar_arrive(empty + stage);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // the tile's keys: each of the thread's rows tested once at its
+      // largest score against its threshold, its keys offered only where
+      // that passes; the rows' counts the tile starts from kept in `held`
+      // (by the tx = 0 lanes), to drop its keys again where it overflows
+      const int64_t col0 = t * BN + tx;
+      int most = -1;
+      if (tx == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = ra + 2 * i;
+          held[r] = LS ? R.cnt[2 * r + R.act[r]] : rs.cnt[r];
+        }
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int i = 0; i < 8; ++i) {
+        const int r = ra + 2 * i;
+        float v[8];
+        row_scores(acc, i, v);
+        float top = v[0];
+#pragma unroll
+        for (int j = 1; j < 8; ++j) top = tc::max_nan(top, v[j]);
+        const tc::Thr th =
+            LS ? tc::thr_of(tc::ld_volatile(&R.thr[r]), x.row0 + r < m)
+               : tc::load_thr(rs, r, x.row0 + r < m);
+        if (__builtin_expect(!(top < th.f), 0)) {
+          const int h = LS ? R.act[r] : 0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            most = max(most, LS ? tc::offer_ls(R, r, h, th, v[j],
+                                               col0 + 16 * j, c_end, first,
+                                               ids)
+                                : tc::offer<SV>(rs, r, th, v[j],
+                                                col0 + 16 * j, c_end, first,
+                                                ids));
+          }
+        }
+      }
+      if constexpr (LS) {
+        if (!__any_sync(0xffffffffu, most >= 0)) continue;
+        if (__any_sync(0xffffffffu, most >= tc::SVH)) {
+          // a half overflowed: drop the tile's keys and offer the tile in
+          // eight rounds of one column a thread (16 keys a row at most),
+          // each after the halves past SVH - CW are handed over
+          if (tx == 0) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int r = ra + 2 * i;
+              R.cnt[2 * r + R.act[r]] = held[r];
+            }
+          }
+#pragma unroll 1
+          for (int j = 0; j < 8; ++j) {
+            tc::make_room(R, r0w, lane, W, tc::SVH - CW);
+#pragma unroll 1
+            for (int i = 0; i < 8; ++i) {
+              const int r = ra + 2 * i;
+              float v[8];
+              row_scores(acc, i, v);
+              float x_ij = v[0];
+#pragma unroll
+              for (int k = 1; k < 8; ++k) x_ij = j == k ? v[k] : x_ij;
+              tc::offer_ls(R, r, R.act[r],
+                           tc::thr_of(tc::ld_volatile(&R.thr[r]),
+                                      x.row0 + r < m),
+                           x_ij, col0 + 16 * j, c_end, first, ids);
+            }
+          }
+        }
+        // hand the halves past SVH / 2 to the merge warps where the row's
+        // other half is free
+        __threadfence_block();
+        __syncwarp();
+        tc::hand_over_rows(R, r0w, lane, tc::SVH / 2);
+        __syncwarp();
+      } else {
+        if (!__any_sync(0xffffffffu, most >= MERGE_AT)) continue;
+        if (__any_sync(0xffffffffu, most >= SV)) {
+          // a row overflowed: drop the tile's keys and offer it again in
+          // eight rounds of one column a thread, merging the rows past SV
+          // - CW between rounds
+          if (tx == 0) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) rs.cnt[ra + 2 * i] = held[ra + 2 * i];
+          }
+          __syncwarp();
+#pragma unroll 1
+          for (int j = 0; j < 8; ++j) {
+            int top = -1;
+#pragma unroll 1
+            for (int i = 0; i < 8; ++i) {
+              const int r = ra + 2 * i;
+              float v[8];
+              row_scores(acc, i, v);
+              float x_ij = v[0];
+#pragma unroll
+              for (int k = 1; k < 8; ++k) x_ij = j == k ? v[k] : x_ij;
+              top = max(top, tc::offer<SV>(
+                                 rs, r, tc::load_thr(rs, r, x.row0 + r < m),
+                                 x_ij, col0 + 16 * j, c_end, first, ids));
+            }
+            if (__any_sync(0xffffffffu, top >= SV - CW)) {
+              merge_rows<SV>(rs, L0, x.row0, W, SV - CW, r0w, r0w + 16, 1,
+                             lane, scratch);
+            }
+          }
+        }
+        __syncwarp();
+        merge_rows<SV>(rs, L0, x.row0, W, MERGE_AT, r0w, r0w + 16, 1, lane,
+                       scratch);
+      }
     }
-    merge_rows<SV>(rs, L0, row0, W, 0, warp, BM, WARPS, lane, scratch);
-    pad_rows(rs, L0, row0, m, W, warp, BM, WARPS, lane);
-    __syncthreads();
+    if constexpr (LS) {
+      tc::close_ls_rows(R, x, m, W, L0, r0w, lane);
+    } else {
+      __syncwarp();
+      merge_rows<SV>(rs, L0, x.row0, W, 0, r0w, r0w + 16, 1, lane, scratch);
+      pad_rows(rs, L0, x.row0, m, W, r0w, r0w + 16, 1, lane);
+      __syncwarp();
+    }
   }
+  if constexpr (LS) tc::stop_mergers(R, CWARPS, MERGERS, lane);
 }
 
 // ------------------------------------------------------------- combine --
@@ -1420,16 +1582,19 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The tensor map of (rows, d) bf16 rows: boxes of 128 rows x 64 values in
-// the 128-byte swizzle, zeros past the edges.
+// The tensor map of (rows, d) bfloat16 (f32 false) or float32 rows: boxes
+// of 128 rows x 128 bytes (64 or 32 values) in the 128-byte swizzle, zeros
+// past the edges.
 cudaError_t tile_map(CUtensorMap* map, EncodeTiled fn, const void* rows,
-                     int64_t n_rows, int64_t d) {
+                     int64_t n_rows, int64_t d, bool f32 = false) {
+  const cuuint64_t size = f32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(n_rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 2};
-  const cuuint32_t box[2] = {tc::KC, BN};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * size};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / size), BN};
   const cuuint32_t step[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(rows), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -1505,20 +1670,60 @@ cudaError_t launch_wgmma(const void* q, int64_t m, const void* c, int64_t n,
                             st);
 }
 
+template <typename T, bool LS>
+cudaError_t start_ffma(const CUtensorMap& tq, const CUtensorMap& tcand,
+                       int64_t m, int64_t n, int kt_n, int64_t first,
+                       const int64_t* ids, const int64_t* run, int64_t w,
+                       int W, int64_t* out, int64_t* parts, int units,
+                       int grid, int stages, int wl, cudaStream_t st) {
+  auto kernel = knn_merge_ffma<T, LS>;
+  const int smem = tc::ALIGN + (LS ? tc::ls_bytes(wl) : ff::GLOBAL_BYTES) +
+                   ff::HELD + stages * ff::STAGE;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ff::THREADS, smem, st>>>(tq, tcand, m, n, kt_n, first, ids,
+                                          run, w, W, out, parts, units,
+                                          stages, wl);
+  return cudaGetLastError();
+}
+
+// The fp32 form: T float or bf16 bits, read by TMA in chunks of 128 bytes
+// a row; lists in shared memory (W <= 64) where that leaves MIN_STAGES
+// stages, else in device memory.
 template <typename T>
 cudaError_t launch_ffma(const void* q, int64_t m, const void* c, int64_t n,
                         int64_t d, int64_t first, const int64_t* ids,
                         const int64_t* run, int64_t w, int W, int64_t* out,
-                        int64_t* parts, int units, bool vec, int grid,
+                        int64_t* parts, int units, int grid, int limit,
                         cudaStream_t st) {
-  auto kernel = knn_merge_ffma<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ff::SMEM_BYTES);
+  constexpr bool f32 = sizeof(T) == 4;
+  EncodeTiled fn;
+  cudaError_t err = encode_tiled(&fn);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, ff::THREADS, ff::SMEM_BYTES, st>>>(
-      static_cast<const T*>(q), m, static_cast<const T*>(c), n, d, first,
-      ids, run, w, W, out, parts, units, vec);
-  return cudaGetLastError();
+  CUtensorMap tq, tcand;
+  err = tile_map(&tq, fn, q, m, d, f32);
+  if (err == cudaSuccess) {
+    // no candidates: a map of the query rows, never read
+    err = n > 0 ? tile_map(&tcand, fn, c, n, d, f32)
+                : tile_map(&tcand, fn, q, m, d, f32);
+  }
+  if (err != cudaSuccess) return err;
+  const int vals = ff::ROW / static_cast<int>(sizeof(T));
+  const int kt_n = static_cast<int>((d + vals - 1) / vals);
+  const int wl = (W + 7) / 8 * 8;
+  const int room = limit - tc::ALIGN - ff::HELD;
+  int stages = (room - tc::ls_bytes(wl)) / ff::STAGE;
+  if (stages > tc::MAX_STAGES) stages = tc::MAX_STAGES;
+  if (W <= tc::WL_MAX && stages >= tc::MIN_STAGES) {
+    return start_ffma<T, true>(tq, tcand, m, n, kt_n, first, ids, run, w, W,
+                               out, parts, units, grid, stages, wl, st);
+  }
+  stages = (room - ff::GLOBAL_BYTES) / ff::STAGE;
+  if (stages > tc::MAX_STAGES) stages = tc::MAX_STAGES;
+  if (stages < 2) return cudaErrorInvalidValue;
+  return start_ffma<T, false>(tq, tcand, m, n, kt_n, first, ids, run, w, W,
+                              out, parts, units, grid, stages, 0, st);
 }
 
 }  // namespace
@@ -1526,12 +1731,12 @@ cudaError_t launch_ffma(const void* q, int64_t m, const void* c, int64_t n,
 // The merge of knn/topk.py merge_block: q (m, d) and c (n, d) row-major;
 // the candidates' indices are first + j, or ids[j] where ids is not null;
 // run (m, w) int64 keys sorted descending, or w = 0; out (m, W) int64, W =
-// min(k, w + n) >= w, may be run itself. fp32 = 0 multiplies in bf16 on
-// the tensor cores (knn_merge_wgmma): the rows must be bfloat16 (is_bf16 =
-// 1), d a multiple of 8 and both bases 16-byte aligned (vec = 1). fp32 = 1
-// multiplies in float32 on the FFMA pipe (knn_merge_ffma), rows float32
-// (is_bf16 = 0) or bfloat16; vec = 1 when d is a multiple of 8 and both
-// bases are 16-byte aligned (16-byte loads). units: the splits of each
+// min(k, w + n) >= w, may be run itself. Both forms read the rows by TMA:
+// each row's bytes a multiple of 16 and both bases 16-byte aligned (vec =
+// 1). fp32 = 0 multiplies in bf16 on the tensor cores (knn_merge_wgmma):
+// the rows must be bfloat16 (is_bf16 = 1). fp32 = 1 multiplies in float32
+// on the FFMA pipe (knn_merge_ffma), rows float32 (is_bf16 = 0, d a
+// multiple of 4) or bfloat16 (d a multiple of 8). units: the splits of each
 // query block's candidates, 1 <= units <= min(32, max(1, ceil(n / 128)));
 // with units > 1, parts is scratch of (units, m, W) int64 and a second
 // kernel (knn_merge_combine) writes out. The persistent grid takes
@@ -1547,8 +1752,8 @@ extern "C" int fk_knn_merge(const void* q, int64_t m, const void* c,
   const int64_t tiles = (n + BN - 1) / BN;
   if (W > INT32_MAX || w > W || n < 0 || d <= 0 || units < 1 ||
       units > MAX_UNITS || units > (tiles > 1 ? tiles : 1) ||
-      (units > 1 && parts == nullptr) ||
-      (!fp32 && (!is_bf16 || !vec || d % 8 != 0))) {
+      (units > 1 && parts == nullptr) || !vec ||
+      d % (is_bf16 ? 8 : 4) != 0 || (!fp32 && !is_bf16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1568,10 +1773,10 @@ extern "C" int fk_knn_merge(const void* q, int64_t m, const void* c,
   if (fp32) {
     err = is_bf16 ? launch_ffma<uint16_t>(q, m, c, n, d, first, ids, run, w,
                                           static_cast<int>(W), out, parts,
-                                          U, vec != 0, grid, st)
+                                          U, grid, limit, st)
                   : launch_ffma<float>(q, m, c, n, d, first, ids, run, w,
                                        static_cast<int>(W), out, parts, U,
-                                       vec != 0, grid, st);
+                                       grid, limit, st);
   } else {
     err = launch_wgmma(q, m, c, n, d, first, ids, run, w,
                        static_cast<int>(W), out, parts, U, grid, limit, st);

@@ -58,19 +58,36 @@
 // itself computes: the projection is a dense paired table (L+1, 2d) of
 // float32 or bfloat16 entries, row j = [P[j] | P[j+L]] (merge_embed's
 // q_cat; srp.build_precompute_paired, or an imported projection), summed
-// per hit as the plain version's embed_hits_paired does. It shares the
-// prefix table, the lookups and the hit lists above; only the
-// accumulation differs. Every hit now reads a whole 2d-wide row (4,096
-// bytes at d = 512 in float32), so the work no longer follows the
-// nonzeros and the bound is the bytes of the rows: a thread owns 16
-// bytes of consecutive columns (4 float32 or 8 bfloat16) of both halves
-// and walks its part of each tile's hit list in slot order with UNROLL
-// hits' 16-byte loads in flight (entry by entry where d is not a
-// multiple of 4 or 8), adding left to fwd and right to rev (swapped for a
-// reverse-strand hit) in float32 registers. After the last tile the parts
-// are added in part order through shared memory, so every column's order
-// is fixed and two launches give the same bytes. Past 256 threads'
-// columns, the columns are taken in chunks, each redoing the lookups.
+// per hit as the plain version's embed_hits_paired does. Every hit reads
+// a whole 2d-wide row (4,096 bytes at d = 512 in float32), so the bound is
+// the bytes of the rows, each distinct row read once: at the main path's
+// chunk (465k hits on 161k library rows of a 661 MB float32 table) that
+// is a third of what reading every hit's row from device memory takes.
+// Blocks that each take a staged row through its hits at their own pace
+// read every hit's row from device memory: the rows sharing a library row
+// run at other times, and the table passes the 50 MB L2 many times over.
+// So the dense form sweeps:
+//   1. dense_hits_kernel, one block per staged row: the prefix table's
+//      lookups above (tile_hits), the row's hits in slot order into
+//      device memory, and its window bounds: the library is cut into
+//      windows of ws rows (16 MB of the table's float32 columns, 32 MB of
+//      bfloat16 ones), and a
+//      row's hits ascend through them (its slots are sorted by code, as
+//      the library is);
+//   2. dense_sweep_kernel: a block holds g staged rows' fwd and rev sums
+//      in shared memory and walks the windows; at each it stages its rows'
+//      hits in the window and every thread adds its PER columns of each
+//      hit's table row (both halves, swapped for a reverse-strand window)
+//      to the hit's row, UNROLL hits' loads in flight. The grid is
+//      resident (cooperative launches, in waves where the rows need more
+//      blocks than the card holds), and a block waits before a window
+//      until all have passed the window `lag` steps back, so every block
+//      reads a window's table rows at about the same time: the first from
+//      device memory, the rest from L2.
+// Every column's sum takes its row's hits in slot order, one float32 add
+// each, with no atomics, so two launches give the same bytes. Rows with
+// target -1 are not written. Columns past what a block's shared memory
+// holds for one row are taken in chunks, each a sweep of its own.
 
 #include "common.cuh"
 
@@ -309,138 +326,256 @@ membership_embed_kernel(const int64_t* __restrict__ staged,
   }
 }
 
-// The 16 bytes of table entries p[0, n) (n <= 16 / sizeof(T); entries past
-// n read as zero): one 16-byte load when `vec`, else entry by entry. T is
-// float, or uint16_t holding a bfloat16's bits.
-template <typename T>
-__device__ __forceinline__ uint4 load_cols(const T* __restrict__ p, int n,
-                                           bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(p));
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      w[i] = i < n ? __float_as_uint(__ldg(p + i)) : 0u;
-    } else {
-      const uint32_t a = 2 * i < n ? __ldg(p + 2 * i) : 0u;
-      const uint32_t b = 2 * i + 1 < n ? __ldg(p + 2 * i + 1) : 0u;
-      w[i] = a | (b << 16);
-    }
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
+// ---------------------------------------------------------- dense form --
 
-// acc[i] += entry i of the 16 bytes `raw`, in float32 (a bfloat16 is the
-// high half of its float32).
-template <typename T>
-__device__ __forceinline__ void add_cols(uint4 raw, float* acc) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      acc[i] += __uint_as_float(w[i]);
-    } else {
-      acc[2 * i] += __uint_as_float(w[i] << 16);
-      acc[2 * i + 1] += __uint_as_float(w[i] & 0xFFFF0000u);
-    }
-  }
-}
+constexpr int DENSE_COLS = 512;    // columns a sweep chunk: 32 lanes x 16
+constexpr int DENSE_WARPS_MAX = 8;  // warps a sweep block (rows x parts)
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-membership_embed_dense_kernel(const int64_t* __restrict__ staged,
-                              int64_t h, const int64_t* __restrict__ lib,
-                              int64_t lib_size,
-                              const int32_t* __restrict__ start,
-                              int64_t n_buckets, const T* __restrict__ table,
-                              int64_t d, const int64_t* __restrict__ targets,
-                              float* __restrict__ out,
-                              int32_t* __restrict__ n_hits) {
-  constexpr int N = 16 / sizeof(T);  // columns a thread owns in each half
-  extern __shared__ float sums[];    // parts x (fwd, rev) x cols
+// Kernel C's dense form, first pass: one block per staged row, its hits in
+// slot order into hits[r * h ..] (j | swap << 31, tile_hits' entries) and
+// their count into n_hits[r], then the row's window bounds: bnd[r * (nw +
+// 1) + w] = the first of its hits whose library row is >= w * ws, bnd[..
+// + 0] = 0 and bnd[.. + nw] = the count. Rows are sorted, so the hits'
+// library rows ascend and the bounds rise with w.
+__global__ void __launch_bounds__(THREADS)
+dense_hits_kernel(const int64_t* __restrict__ staged, int64_t h,
+                  const int64_t* __restrict__ lib, int64_t lib_size,
+                  const int32_t* __restrict__ start, int64_t n_buckets,
+                  int64_t ws, int nw, uint32_t* __restrict__ hits,
+                  int32_t* __restrict__ bnd, int32_t* __restrict__ n_hits) {
   __shared__ uint32_t hit_list[TILE];
   __shared__ int scratch[2][33];
-  const int64_t n_groups = (d + N - 1) / N;
-  // 16-byte loads need both halves of every row on 16-byte boundaries
-  const bool vec =
-      d % N == 0 && (reinterpret_cast<uintptr_t>(table) & 15) == 0;
   const int shift = lib_size > 0 ? bucket_shift(lib, lib_size, n_buckets) : 0;
-
-  int scan = 0;  // which scratch array the next block_scan takes
+  int scan = 0;
   const int64_t r = blockIdx.x;
   const int64_t* row = staged + r * h;
   const bool aligned = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
-  for (int64_t g0 = 0; g0 < n_groups; g0 += THREADS) {
-    const int groups = static_cast<int>(
-        n_groups - g0 < THREADS ? n_groups - g0 : THREADS);
-    const int parts = THREADS / groups;
-    const int cols = N * groups;
-    const int own_g = threadIdx.x % groups;
-    const int part = threadIdx.x / groups;
-    const int64_t c0 = N * (g0 + own_g);  // this thread's first column
-    const int n = d - c0 < N ? static_cast<int>(d - c0) : N;
-    float fwd[N], rev[N];
+  uint32_t* mine = hits + r * h;
+  int total = 0;
+  for (int64_t t0 = 0; t0 < h; t0 += TILE) {
+    const int count = tile_hits(row, h, t0, aligned, lib, lib_size, start,
+                                n_buckets, shift, hit_list, scratch, &scan);
+    for (int i = threadIdx.x; i < count; i += THREADS)
+      mine[total + i] = hit_list[i];
+    total += count;
+    __syncthreads();  // hit_list is refilled by the next tile
+  }
+  if (threadIdx.x == 0) n_hits[r] = total;
+  int32_t* b = bnd + r * (nw + 1);
+  for (int w = threadIdx.x; w <= nw; w += THREADS) {
+    int lo = 0, hi = total;
+    if (w == nw) lo = total;
+    const int64_t lim = w * ws;
+    while (lo < hi) {  // the block's own writes, visible after the barrier
+      const int mid = (lo + hi) >> 1;
+      if (static_cast<int64_t>(mine[mid] & 0x7FFFFFFFu) < lim) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    b[w] = lo;
+  }
+}
+
+// PER consecutive table entries, as loaded: their bits in 32-bit words (a
+// bfloat16 pair a word), one load of PER * sizeof(T) bytes. Kept packed
+// until they are added, so a bfloat16 hit's row takes half the registers
+// of a float32 one.
+template <typename T, int PER>
+struct Piece {
+  static constexpr int WORDS =
+      PER * static_cast<int>(sizeof(T)) >= 4
+          ? PER * static_cast<int>(sizeof(T)) / 4 : 1;
+  uint32_t w[WORDS];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    if constexpr (PER * sizeof(T) == 16) {
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+    } else if constexpr (PER * sizeof(T) == 8) {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = x.x; w[1] = x.y;
+    } else if constexpr (PER * sizeof(T) == 4) {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+    }
+  }
+
+  // entry i as float32 (a bfloat16 is the high half of its float32)
+  __device__ __forceinline__ float at(int i) const {
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float(w[i]);
+    } else {
+      return __uint_as_float(i & 1 ? w[i / 2] & 0xFFFF0000u : w[i / 2] << 16);
+    }
+  }
+};
+
+// Wait until every block of the grid has finished sweep step s (a block may
+// run at most `lag` steps ahead of the slowest). A wait past ~2^36 cycles
+// traps: a lost block fails the launch instead of holding the card.
+__device__ __forceinline__ void wait_step(const int32_t* done, int64_t s) {
+  const long long t0 = clock64();
+  while (*reinterpret_cast<const volatile int32_t*>(done + s) <
+         static_cast<int32_t>(gridDim.x)) {
+    __nanosleep(256);
+    if (clock64() - t0 > (1ll << 36)) __trap();
+  }
+}
+
+// Kernel C's dense form, the sweep: `parts` warps sum one staged row (rows
+// row0 + blockIdx.x * rows a block + q, q = warp / parts), part p taking
+// the row's hits e with e % parts == p, in slot order, each part's sums in
+// registers: a lane holds 16 columns of each half of a DENSE_COLS chunk,
+// PER entries a load (pieces lane + 32 x, x < 16 / PER). A warp walks its
+// hits 32 entries a load, each entry broadcast to the lanes, UNROLL hits'
+// table rows in flight, and adds each hit's two halves (swapped for a
+// reverse-strand window) to fwd and rev; at a chunk's end part 0 adds the
+// other parts' sums in part order (through shared memory) and writes the
+// row. The hits ascend through the library, so the warps of the grid
+// sweep it together; where lag < the sweep's steps (chunks x windows), a
+// block also waits, at each window's end, until every block has passed
+// the window lag steps back (all blocks of a launch are resident: a
+// cooperative launch), so every block reads a window's table rows at
+// about the same time: the first from device memory, the rest from L2.
+// Each column's sum takes a part's hits in slot order, one float32 add
+// each, and the parts in part order, so two launches give the same bytes.
+// Parts shorten the chain of dependent loads a warp walks where few rows
+// leave the card's warps idle (a golden chunk: 296 rows of ~300 hits).
+template <typename T, int PER>
+__global__ void __launch_bounds__(DENSE_WARPS_MAX * 32, 2)
+dense_sweep_kernel(const uint32_t* __restrict__ hits, int64_t h,
+                   const int32_t* __restrict__ bnd, int nw, int64_t rows,
+                   int64_t row0, int parts, const T* __restrict__ table,
+                   int64_t d, const int64_t* __restrict__ targets,
+                   float* __restrict__ out, int32_t* done, int lag) {
+  constexpr int NP = 16 / PER;  // a lane's pieces of each half
+  // hits whose table rows are in flight: one float32 row's pieces, or two
+  // bfloat16 rows' (32 registers of loads; more spill at 2 blocks of 256
+  // threads an SM, and measured slower)
+  constexpr int UNROLL_E = sizeof(T) == 4 ? 1 : 2;
+  extern __shared__ float stash[];  // parts 1.. of each row: 32 floats a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = warp / parts, part = warp % parts;
+  const int64_t r = row0 + static_cast<int64_t>(blockIdx.x) *
+                               ((blockDim.x >> 5) / parts) + q;
+  const bool live = r < rows;
+  const uint32_t* mine = hits + (live ? r : 0) * h;
+  const int32_t* bounds = bnd + (live ? r : 0) * (nw + 1);
+  const int64_t chunks = (d + DENSE_COLS - 1) / DENSE_COLS;
+  const bool paced = lag < chunks * nw;
+  int64_t step = 0;  // sweep steps taken (chunks x windows)
+  for (int64_t c0 = 0; c0 < d; c0 += DENSE_COLS) {
+    float fwd[NP][PER], rev[NP][PER];
 #pragma unroll
-    for (int i = 0; i < N; ++i) fwd[i] = rev[i] = 0.f;
-    int total = 0;
-    for (int64_t t0 = 0; t0 < h; t0 += TILE) {
-      const int count = tile_hits(row, h, t0, aligned, lib, lib_size, start,
-                                  n_buckets, shift, hit_list, scratch,
-                                  &scan);
-      total += count;
-      // 3. this part's hits in slot order, UNROLL rows' loads in flight
-      if (part < parts) {
-        for (int e0 = part; e0 < count; e0 += UNROLL * parts) {
-          uint32_t ent[UNROLL];
-          uint4 left[UNROLL], right[UNROLL];
+    for (int p = 0; p < NP; ++p) {
 #pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            const int e = e0 + u * parts;
-            ent[u] = e < count ? hit_list[e] : 0u;
-            left[u] = right[u] = make_uint4(0u, 0u, 0u, 0u);
-            if (e < count) {
-              const T* p = table + static_cast<int64_t>(ent[u] & 0x7FFFFFFFu)
-                                       * (2 * d) + c0;
-              left[u] = load_cols(p, n, vec);
-              right[u] = load_cols(p + d, n, vec);
+      for (int i = 0; i < PER; ++i) fwd[p][i] = rev[p][i] = 0.0f;
+    }
+    // piece p's first column, and whether it is inside d
+    bool in[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) in[p] = c0 + (lane + 32 * p) * PER < d;
+    int cur = 0;
+    int next = live ? bounds[1] : 0;  // the window's bound, a window ahead
+    for (int w = 0; w < nw; ++w, ++step) {
+      const int end = max(cur, next);
+      if (live && w + 2 <= nw) next = bounds[w + 2];
+      // this part's hits of the window: e in [cur, end), e % parts == part
+      const int mine0 = cur + (part - cur % parts + parts) % parts;
+      for (int e0 = mine0; e0 < end; e0 += 32 * parts) {
+        const int n = min(32, (end - e0 + parts - 1) / parts);
+        const uint32_t ents = lane < n ? mine[e0 + lane * parts] : 0u;
+        for (int u0 = 0; u0 < n; u0 += UNROLL_E) {
+          uint32_t ent[UNROLL_E];
+          Piece<T, PER> lv[UNROLL_E][NP], rv[UNROLL_E][NP];
+#pragma unroll
+          for (int u = 0; u < UNROLL_E; ++u) {
+            ent[u] = __shfl_sync(0xffffffffu, ents, (u0 + u) & 31);
+            const T* row = table +
+                           static_cast<int64_t>(ent[u] & 0x7FFFFFFFu) * (2 * d) +
+                           c0 + lane * PER;
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              if (u0 + u < n && in[p]) {
+                lv[u][p].load(row + 32 * PER * p);
+                rv[u][p].load(row + d + 32 * PER * p);
+              }
             }
           }
 #pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            if (e0 + u * parts >= count) continue;
+          for (int u = 0; u < UNROLL_E; ++u) {
+            if (u0 + u >= n) break;
             const bool swap = ent[u] >> 31;
-            add_cols<T>(swap ? right[u] : left[u], fwd);
-            add_cols<T>(swap ? left[u] : right[u], rev);
+#pragma unroll
+            for (int p = 0; p < NP; ++p) {
+              if (!in[p]) continue;
+#pragma unroll
+              for (int i = 0; i < PER; ++i) {
+                const float l = lv[u][p].at(i), r = rv[u][p].at(i);
+                fwd[p][i] += swap ? r : l;
+                rev[p][i] += swap ? l : r;
+              }
+            }
           }
         }
       }
-      __syncthreads();  // hit_list is refilled by the next tile
+      cur = end;
+      if (paced) {
+        __syncthreads();  // every warp of the block is past the window
+        if (threadIdx.x == 0) {
+          atomicAdd(done + step, 1);
+          if (step + 1 >= lag) wait_step(done, step + 1 - lag);
+        }
+        __syncthreads();
+      }
     }
-    if (part < parts) {
-      float* f = sums + (2 * part) * cols + N * own_g;
+    if (parts > 1) {
+      // parts 1.. hand their sums to part 0, which adds them in part order
+      float* own = stash + ((q * (parts - 1) + part - 1) * 32 + lane) * 32;
+      if (part > 0) {
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        f[i] = fwd[i];
-        f[cols + i] = rev[i];
+        for (int p = 0; p < NP; ++p) {
+#pragma unroll
+          for (int i = 0; i < PER; ++i) {
+            own[p * PER + i] = fwd[p][i];
+            own[16 + p * PER + i] = rev[p][i];
+          }
+        }
+      }
+      __syncthreads();
+      if (part == 0) {
+        for (int o = 1; o < parts; ++o) {
+          const float* x = stash + ((q * (parts - 1) + o - 1) * 32 + lane) * 32;
+#pragma unroll
+          for (int p = 0; p < NP; ++p) {
+#pragma unroll
+            for (int i = 0; i < PER; ++i) {
+              fwd[p][i] += x[p * PER + i];
+              rev[p][i] += x[16 + p * PER + i];
+            }
+          }
+        }
+      }
+      __syncthreads();  // the stash is rewritten by the next chunk
+    }
+    // the sums out: fwd to targets[2 r], rev to targets[2 r + 1] (-1: not
+    // written)
+    if (live && part == 0) {
+      const int64_t t_fwd = targets[2 * r], t_rev = targets[2 * r + 1];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        if (!in[p]) continue;
+        const int64_t col = c0 + (lane + 32 * p) * PER;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          if (t_fwd >= 0) out[t_fwd * d + col + i] = fwd[p][i];
+          if (t_rev >= 0) out[t_rev * d + col + i] = rev[p][i];
+        }
       }
     }
-    __syncthreads();
-    // the parts' partial sums, added in part order
-    const int64_t t_fwd = targets[2 * r];
-    const int64_t t_rev = targets[2 * r + 1];
-    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
-      const int64_t col = N * g0 + c;
-      if (col >= d) continue;
-      float f = 0.f, b = 0.f;
-      for (int q = 0; q < parts; ++q) {
-        f += sums[(2 * q) * cols + c];
-        b += sums[(2 * q + 1) * cols + c];
-      }
-      if (t_fwd >= 0) out[t_fwd * d + col] = f;
-      if (t_rev >= 0) out[t_rev * d + col] = b;
-    }
-    if (g0 == 0 && threadIdx.x == 0) n_hits[r] = total;
-    __syncthreads();  // sums are rewritten by the next column chunk
   }
 }
 
@@ -454,13 +589,66 @@ cudaError_t launch_prefix_table(const int64_t* lib, int64_t lib_size,
   return cudaGetLastError();
 }
 
-// Shared-memory bytes of the parts' sums for d columns, `per` columns a
-// group (16 for the sign form, 16 bytes of entries for the dense form).
+// Shared-memory bytes of the sign form's parts' sums for d columns, `per`
+// columns a group.
 int sum_bytes(int64_t d, int64_t per) {
   const int64_t n_groups = (d + per - 1) / per;
   const int64_t groups = n_groups < THREADS ? n_groups : THREADS;
   return static_cast<int>((THREADS / groups) * 2 * per * groups *
                           sizeof(float));
+}
+
+// The dense sweep's launches: g rows of `parts` warps a block, in waves of
+// at most the
+// blocks the card holds at once (each a cooperative launch, so a block that
+// waits for the others waits for blocks that run), the step counters
+// zeroed before each.
+template <typename T, int PER>
+cudaError_t launch_sweep(const uint32_t* hits, int64_t h, const int32_t* bnd,
+                         int nw, int64_t rows, int g, int parts,
+                         const void* table, int64_t d,
+                         const int64_t* targets, float* out, int32_t* done,
+                         int lag, cudaStream_t st) {
+  auto kernel = dense_sweep_kernel<T, PER>;
+  const int threads = 32 * g * parts;
+  const int smem = g * (parts - 1) * 32 * 32 * 4;
+  // the blocks an SM holds, by device and block shape, asked once (a launch
+  // that sizes its waves on every call pays for the query each time)
+  static int resident[16][DENSE_WARPS_MAX + 1][DENSE_WARPS_MAX + 1] = {};
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return err;
+  int* per_sm = dev < 16 ? &resident[dev][g][parts] : nullptr;
+  int asked = 0;
+  if (per_sm == nullptr || *per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&asked, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm != nullptr) *per_sm = asked;
+  } else {
+    asked = *per_sm;
+  }
+  if (asked < 1) return cudaErrorInvalidConfiguration;
+  const int64_t steps = (d + DENSE_COLS - 1) / DENSE_COLS * nw;
+  const int64_t groups = (rows + g - 1) / g;
+  const int64_t most = static_cast<int64_t>(asked) * sms;
+  const T* tab = static_cast<const T*>(table);
+  for (int64_t g0 = 0; g0 < groups; g0 += most) {
+    const int grid = static_cast<int>(groups - g0 < most ? groups - g0 : most);
+    int64_t row0 = g0 * g;
+    err = cudaMemsetAsync(done, 0, steps * sizeof(int32_t), st);
+    if (err != cudaSuccess) return err;
+    void* args[] = {&hits, &h, &bnd, &nw, &rows, &row0, &parts, &tab, &d,
+                    &targets, &out, &done, &lag};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                      dim3(grid), dim3(threads), args, smem,
+                                      st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -489,32 +677,56 @@ extern "C" int fk_membership_embed(const int64_t* staged, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel C's dense form: the same prefix table (start, n_buckets) and row
-// blocks over a dense paired table (L+1, 2d) of float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1) entries.
-extern "C" int fk_membership_embed_dense(const int64_t* staged, int64_t rows,
-                                         int64_t h, const int64_t* lib,
-                                         int64_t lib_size, const void* table,
-                                         int is_bf16, int64_t d,
-                                         const int64_t* targets, float* out,
-                                         int32_t* n_hits, int32_t* start,
-                                         int64_t n_buckets, void* stream) {
+// Kernel C's dense form over a dense paired table (L+1, 2d) of float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1) entries: the same prefix table
+// (start, n_buckets), then dense_hits_kernel (one block per staged row;
+// scratch hits (rows, h) int32 and bnd (rows, nw + 1) int32), then the
+// sweep (dense_sweep_kernel<T, per>: g staged rows a block, `parts` warps
+// each, columns in chunks of DENSE_COLS, windows of ws library rows, nw =
+// ceil(lib_size / ws) of them, a block at most lag windows ahead of the
+// slowest; scratch done, ceil(d / DENSE_COLS) * nw int32). Staged rows are
+// sorted (every staging path writes them so). per > 1 needs d a multiple
+// of per and a table aligned to per entries.
+extern "C" int fk_membership_embed_dense(
+    const int64_t* staged, int64_t rows, int64_t h, const int64_t* lib,
+    int64_t lib_size, const void* table, int is_bf16, int64_t d,
+    const int64_t* targets, float* out, int32_t* n_hits, int32_t* start,
+    int64_t n_buckets, int32_t* hits, int32_t* bnd, int32_t* done, int g,
+    int parts, int per, int64_t ws, int nw, int lag, void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_prefix_table(lib, lib_size, n_buckets,
-                                              start, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(rows));
-  if (is_bf16) {
-    membership_embed_dense_kernel<uint16_t><<<grid, THREADS,
-                                              sum_bytes(d, 8), st>>>(
-        staged, h, lib, lib_size, start, n_buckets,
-        static_cast<const uint16_t*>(table), d, targets, out, n_hits);
-  } else {
-    membership_embed_dense_kernel<float><<<grid, THREADS, sum_bytes(d, 4),
-                                           st>>>(
-        staged, h, lib, lib_size, start, n_buckets,
-        static_cast<const float*>(table), d, targets, out, n_hits);
+  const int64_t size = is_bf16 ? 2 : 4;
+  if (g < 1 || parts < 1 || g * parts > DENSE_WARPS_MAX || per < 1 ||
+      per * size > 16 ||
+      (per > 1 && (d % per != 0 ||
+                   reinterpret_cast<uintptr_t>(table) % (per * size) != 0)) ||
+      ws < 1 || nw < 1 || (nw - 1) * ws >= (lib_size > 0 ? lib_size : 1) ||
+      lag < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_prefix_table(lib, lib_size, n_buckets, start, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dense_hits_kernel<<<static_cast<unsigned>(rows), THREADS, 0, st>>>(
+      staged, h, lib, lib_size, start, n_buckets, ws, nw,
+      reinterpret_cast<uint32_t*>(hits), bnd, n_hits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint32_t* hl = reinterpret_cast<const uint32_t*>(hits);
+#define FK_SWEEP(T, P)                                                        \
+  launch_sweep<T, P>(hl, h, bnd, nw, rows, g, parts, table, d, targets, out, \
+                     done, lag, st)
+  if (is_bf16) {
+    err = per == 8   ? FK_SWEEP(uint16_t, 8)
+          : per == 4 ? FK_SWEEP(uint16_t, 4)
+          : per == 2 ? FK_SWEEP(uint16_t, 2)
+          : per == 1 ? FK_SWEEP(uint16_t, 1)
+                     : cudaErrorInvalidValue;
+  } else {
+    err = per == 4   ? FK_SWEEP(float, 4)
+          : per == 2 ? FK_SWEEP(float, 2)
+          : per == 1 ? FK_SWEEP(float, 1)
+                     : cudaErrorInvalidValue;
+  }
+#undef FK_SWEEP
+  return static_cast<int>(err);
 }

@@ -30,6 +30,7 @@ from fedrann_tpu_torch.knn.topk import (
     keys_to_host,
     merge_block,
     sm_count,
+    tma_width,
 )
 from fedrann_tpu_torch.logging_utils import logger
 
@@ -70,19 +71,29 @@ def plan_bytes(q_rows: int, c_rows: int, c_tile: int, query_tile: int,
     card of sms SMs, where a slab and a block are one launch of K4, which
     holds no tile: the query slab and its carry, the two block buffers,
     K4's split scratch (k4_units lists of k keys a query row, where it
-    splits); or, at the slab's end (the slab and blocks freed), the carry
-    and the decode of DECODE_ROWS query rows at a time (40 bytes a query
-    row and neighbor), whichever is more."""
+    splits), and where d * itemsize is not a multiple of 16 the
+    zero-padded copies of the slab and a block that K4 reads by TMA
+    (topk.tma_width); or, at the slab's end (the slab and blocks freed),
+    the carry and the decode of DECODE_ROWS query rows at a time (40 bytes
+    a query row and neighbor), whichever is more."""
     if sms is not None:
         units = k4_units(q_rows, c_rows, k, sms)
         search = (q_rows * (d * itemsize + k * 8)
                   + 2 * c_rows * d * itemsize
-                  + (units * q_rows * k * 8 if units > 1 else 0))
+                  + (units * q_rows * k * 8 if units > 1 else 0)
+                  + (q_rows + c_rows) * _tma_copy_row(d, itemsize))
         return max(search, q_rows * k * 8 + min(q_rows, DECODE_ROWS) * k * 40)
     return (q_rows * (d * itemsize + k * 8)
             + 2 * c_rows * d * itemsize
             + (c_tile + query_tile) * d * 4
             + query_tile * c_tile * PAIR_BYTES + query_tile * k * 40)
+
+
+def _tma_copy_row(d: int, itemsize: int) -> int:
+    """Bytes a row of K4's zero-padded TMA copy takes (0 where K4 reads the
+    rows as they are)."""
+    dp = tma_width(d, itemsize)
+    return 0 if dp == d else dp * itemsize
 
 
 def plan_ooc(n: int, d: int, k: int, hbm_budget: int,
@@ -106,9 +117,10 @@ def plan_ooc(n: int, d: int, k: int, hbm_budget: int,
     if sms is not None:
         q_best = query_tile
         for units in range(1, K4_MAX_UNITS + 1):
-            per_row = d * itemsize + k * 8 + (units * k * 8 if units > 1
-                                               else 0)
-            q = (hbm_budget - 2 * c * d * itemsize) // per_row
+            copy = _tma_copy_row(d, itemsize)
+            per_row = d * itemsize + k * 8 + copy + (units * k * 8
+                                                     if units > 1 else 0)
+            q = (hbm_budget - 2 * c * d * itemsize - c * copy) // per_row
             q = int(q) // query_tile * query_tile
             while q > q_best and plan_bytes(q, c, c, query_tile, d, k,
                                             itemsize, sms) > hbm_budget:

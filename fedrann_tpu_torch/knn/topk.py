@@ -233,11 +233,13 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
 
     A CPU tensor takes merge_block_plain. A CUDA tensor launches K4
     (csrc/knn_merge.cu `fk_knn_merge`), counted in .kernel_launches (one a
-    call, its combine kernel included); it takes contiguous rows and raises
-    on a dtype, device or layout it does not take. At precision="bf16" the
-    kernel reads bfloat16 rows by TMA: float32 rows, or rows whose d is not
-    a multiple of 8 or whose base is not 16-byte aligned, go in as a
-    zero-padded bfloat16 copy (_tma_rows). Each query block's candidates
+    call, its combine kernel included; the fp32 form's also in
+    .fp32_launches); it takes contiguous rows and raises
+    on a dtype, device or layout it does not take. The kernel reads the
+    rows by TMA, bfloat16 at precision="bf16" and as they are at "fp32":
+    rows of another dtype, or whose d * itemsize is not a multiple of 16
+    or whose base is not 16-byte aligned, go in as a zero-padded copy
+    (_tma_rows). Each query block's candidates
     are split into `units` ranges (k4_units when None; clamped to 1..
     min(K4_MAX_UNITS, the candidate tiles)), each merged into scratch and
     then combined; the keys are the same whatever the split. The kernel
@@ -282,46 +284,53 @@ def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
         (m, width), dtype=torch.int64, device=device)
     if m == 0:
         return out
-    if precision == "bf16":
-        same = c is q
-        q = _tma_rows(q)
-        c = q if same else _tma_rows(c)
-        d = q.shape[1]
+    dtype = torch.bfloat16 if precision == "bf16" else q.dtype
+    same = c is q
+    q = _tma_rows(q, dtype)
+    c = q if same else _tma_rows(c, dtype)
+    d = q.shape[1]
     tiles = -(-n // K4_TILE)
     units = (k4_units(m, n, width, sm_count(device)) if units is None
              else max(1, min(int(units), K4_MAX_UNITS, tiles)))
     parts = (torch.empty((units, m, width), dtype=torch.int64, device=device)
              if units > 1 else None)
-    vec = (d % 8 == 0 and q.data_ptr() % 16 == 0
-           and c.data_ptr() % 16 == 0)
     _build.launch(
         "fk_knn_merge", q.data_ptr(), m, c.data_ptr(), n, d,
         int(q.dtype == torch.bfloat16), int(precision == "fp32"),
         0 if ids is not None else int(first_index),
         None if ids is None else ids.data_ptr(),
         None if run is None else run.data_ptr(), w, width, out.data_ptr(),
-        int(vec), units, None if parts is None else parts.data_ptr(),
+        1, units, None if parts is None else parts.data_ptr(),
         device=device)
     merge_block.kernel_launches += 1
+    merge_block.fp32_launches += precision == "fp32"
     merge_block.last_units = units
     return out
 
 
 merge_block.kernel_launches = 0
+merge_block.fp32_launches = 0
 merge_block.last_units = 0
 
 
-def _tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """Rows as K4's bf16 path reads them by TMA: bfloat16 (float32 rounded
-    to nearest even, as round_rows), d padded with zeros to a multiple of 8
+def tma_width(d: int, itemsize: int) -> int:
+    """The row width K4 reads by TMA: d padded to a multiple of 16 bytes."""
+    per = 16 // itemsize
+    return -(-d // per) * per
+
+
+def _tma_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows as K4 reads them by TMA: of dtype (float32 rounded to nearest
+    even for bfloat16, as round_rows), d padded with zeros to tma_width
     and the base 16-byte aligned; x itself where it is all that already.
-    Zero padding adds nothing to a score, and every path pads a given d
-    alike, so a pair's score is the same bits either way."""
+    A zero pad adds +-0.0 products to sums that start at +0.0, which
+    changes no bits, and every path pads a given d alike, so a pair's
+    score is the same bits either way."""
     d = x.shape[1]
-    d8 = -(-d // 8) * 8
-    if x.dtype == torch.bfloat16 and d8 == d and x.data_ptr() % 16 == 0:
+    dp = tma_width(d, torch.empty((), dtype=dtype).element_size())
+    if x.dtype == dtype and dp == d and x.data_ptr() % 16 == 0:
         return x
-    y = torch.zeros((x.shape[0], d8), dtype=torch.bfloat16, device=x.device)
+    y = torch.zeros((x.shape[0], dp), dtype=dtype, device=x.device)
     y[:, :d] = x
     return y
 

@@ -12,6 +12,8 @@ Zero-hit reads embed as exact zero rows.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from fedrann_tpu_torch import _build
@@ -20,6 +22,70 @@ from fedrann_tpu_torch.kmers.membership import _pow2, read_hits_staged
 # hits summed per slice in the plain versions: the slice width of the JAX
 # package's embed_hits_paired(_signs), so that the float32 sums match
 _HIT_CHUNK = 128
+
+# Kernel C's dense form sweeps the library (csrc/membership_embed.cu
+# dense_sweep_kernel): `parts` warps (at most DENSE_PARTS_MAX) sum one
+# staged row in registers, DENSE_COLS columns a chunk (16 of each half a
+# lane), in blocks of DENSE_BLOCK_WARPS warps; at the sweep's 128 registers
+# a card holds DENSE_WARPS_PER_SM of them an SM, and more parts a row
+# shorten each warp's chain of dependent loads where the rows are too few
+# to fill them. The library goes in windows of about
+# DENSE_WINDOW_BYTES[itemsize] of a chunk's table columns, a block at most
+# DENSE_LAG windows ahead of the slowest. The sizes are the fastest that
+# timings of the main path's chunk on an H100 found (PERF.md): smaller
+# windows pace the blocks more often, larger ones fall out of the 50 MB L2
+# (float32) or pay less pacing for rows half as wide (bfloat16).
+DENSE_COLS = 512
+DENSE_BLOCK_WARPS = 4
+DENSE_WARPS_PER_SM = 16
+DENSE_PARTS_MAX = 4
+DENSE_WINDOW_BYTES = {4: 16 << 20, 2: 32 << 20}
+DENSE_LAG = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """The dense sweep's schedule: `rows` staged rows a block, `parts`
+    warps a row, `per` table entries a load, the library in `windows`
+    windows of `window` rows, a block at most `lag` windows ahead of the
+    slowest (none where lag reaches the sweep's steps)."""
+    rows: int
+    parts: int
+    per: int
+    window: int
+    windows: int
+    lag: int
+
+
+def dense_plan(rows: int, d: int, itemsize: int, lib_size: int, sms: int,
+               aligned: bool = True, window: int | None = None,
+               lag: int | None = None) -> DensePlan:
+    """The dense sweep's plan for `rows` staged rows, d columns, a table of
+    itemsize-byte entries (4 float32, 2 bfloat16) whose base is 16-byte
+    aligned or not, lib_size library rows, on a card of sms SMs: `per` the
+    widest load of 16, 8 or 4 bytes of entries that divides d (one entry
+    for a table off 16 bytes); `parts` doubled (up to DENSE_PARTS_MAX)
+    while the rows' warps stay within half of what the card holds; `rows`
+    a block the rest of DENSE_BLOCK_WARPS; `window` (unless given) the
+    library rows whose chunk columns take DENSE_WINDOW_BYTES[itemsize];
+    `lag` DENSE_LAG unless given."""
+    per = 1
+    if aligned:
+        for p in (16 // itemsize, 8 // itemsize, 4 // itemsize):
+            if p >= 1 and d % p == 0:
+                per = p
+                break
+    parts = 1
+    while parts < DENSE_PARTS_MAX and \
+            2 * rows * parts <= sms * DENSE_WARPS_PER_SM:
+        parts *= 2
+    if window is None:
+        window = max(1, DENSE_WINDOW_BYTES[itemsize]
+                     // (2 * min(d, DENSE_COLS) * itemsize))
+    return DensePlan(rows=max(1, DENSE_BLOCK_WARPS // parts), parts=parts,
+                     per=per, window=window,
+                     windows=max(1, -(-lib_size // window)),
+                     lag=DENSE_LAG if lag is None else lag)
 
 
 def _unpack_sign_rows(words: torch.Tensor, two_d: int) -> torch.Tensor:
@@ -121,9 +187,11 @@ def _check_rows(staged, lib_codes, targets, out, *tables):
     return out.device.type
 
 
-def _launch_c(name, staged, lib_codes, targets, out, *table_args):
+def _launch_c(name, staged, lib_codes, targets, out, *table_args,
+              dense: DensePlan | None = None):
     """One launch of kernel C's C entry `name` (the prefix table, then one
-    block per staged row); table_args sit between the library and d."""
+    block per staged row; for the dense form, then the sweep of `dense`,
+    with its scratch); table_args sit between the library and d."""
     r, h = staged.shape
     lib_size = lib_codes.shape[0]
     staged, lib_codes, targets = (t.contiguous()
@@ -133,10 +201,22 @@ def _launch_c(name, staged, lib_codes, targets, out, *table_args):
     n_buckets = _pow2(lib_size)
     start = torch.empty((n_buckets + 1,), dtype=torch.int32,
                         device=out.device)
+    sweep = ()
+    if dense is not None:
+        # each row's hits, its window bounds, the sweep's step counters: one
+        # allocation
+        sizes = (r * h, r * (dense.windows + 1),
+                 -(-out.shape[1] // DENSE_COLS) * dense.windows)
+        scratch = torch.empty(sum(sizes), dtype=torch.int32,
+                              device=out.device)
+        offsets = (0, sizes[0], sizes[0] + sizes[1])
+        sweep = (*(scratch[o:].data_ptr() for o in offsets), dense.rows,
+                 dense.parts, dense.per, dense.window, dense.windows,
+                 dense.lag)
     _build.launch(name, staged.data_ptr(), r, h, lib_codes.data_ptr(),
                   lib_size, *table_args, out.shape[1], targets.data_ptr(),
                   out.data_ptr(), n_hits.data_ptr(), start.data_ptr(),
-                  n_buckets, device=out.device)
+                  n_buckets, *sweep, device=out.device)
     return n_hits
 
 
@@ -173,16 +253,20 @@ membership_embed.launches = 0
 
 def membership_embed_dense(staged: torch.Tensor, lib_codes: torch.Tensor,
                            p_pair: torch.Tensor, targets: torch.Tensor,
-                           out: torch.Tensor) -> torch.Tensor:
+                           out: torch.Tensor, *,
+                           plan: DensePlan | None = None) -> torch.Tensor:
     """membership_embed over a dense paired table p_pair (L+1, 2d), float32
     or bfloat16 (srp.build_precompute_paired, or an imported projection
     through srp.pair_projection): row j = [P[j] | P[j+L]], row L zero.
+    The staged rows are sorted, as every staging path writes them.
 
     A CPU tensor takes the plain PyTorch version (read_hits_staged then
     embed_hits_paired, scattered); a CUDA tensor launches kernel C's dense
     form (csrc/membership_embed.cu `fk_membership_embed_dense`: the same
-    prefix table, lookups and hit lists, then each hit's table row summed
-    into the fwd and rev rows in float32)."""
+    prefix table and lookups, each row's hits and window bounds, then the
+    sweep of the library that sums each hit's table row into the fwd and
+    rev rows in float32, in slot order), on `plan` (dense_plan for the
+    card when None)."""
     lib_size = lib_codes.shape[0]
     shape = (lib_size + 1, 2 * out.shape[1])
     if p_pair.dtype not in (torch.float32, torch.bfloat16) \
@@ -193,9 +277,15 @@ def membership_embed_dense(staged: torch.Tensor, lib_codes: torch.Tensor,
         return _membership_embed_dense_plain(staged, lib_codes, p_pair,
                                              targets, out)
     p_pair = p_pair.contiguous()
+    if plan is None:
+        from fedrann_tpu_torch.knn.topk import sm_count
+
+        plan = dense_plan(staged.shape[0], out.shape[1],
+                          p_pair.element_size(), lib_size,
+                          sm_count(out.device), p_pair.data_ptr() % 16 == 0)
     n_hits = _launch_c("fk_membership_embed_dense", staged, lib_codes,
                        targets, out, p_pair.data_ptr(),
-                       int(p_pair.dtype == torch.bfloat16))
+                       int(p_pair.dtype == torch.bfloat16), dense=plan)
     membership_embed_dense.launches += 1
     return n_hits
 

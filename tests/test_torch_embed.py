@@ -40,6 +40,13 @@ from fedrann_tpu_torch.kmers.membership import (  # noqa: E402
 )
 from fedrann_tpu_torch.project import srp  # noqa: E402
 from fedrann_tpu_torch.project.embed import (  # noqa: E402
+    DENSE_BLOCK_WARPS,
+    DENSE_COLS,
+    DENSE_LAG,
+    DENSE_PARTS_MAX,
+    DENSE_WARPS_PER_SM,
+    DENSE_WINDOW_BYTES,
+    dense_plan,
     embed_hits_paired,
     membership_embed,
     membership_embed_dense,
@@ -444,57 +451,89 @@ def test_membership_embed_dense_refuses_bad_tables():
 # ---- kernel C's dense form (csrc/membership_embed.cu), emulated ----
 
 
-def _emulate_dense_kernel(staged, lib, tab, d, n_per):
-    """The dense form's schedule over the float32 values tab of a table
-    whose entries are 16 / n_per bytes: per row and column chunk of up to
-    C_THREADS groups of n_per columns (16 bytes: 4 float32 or 8 bfloat16),
-    each tile's hits (slot order) dealt to parts e % parts; each part adds
-    its hits' left and right columns (swapped for a reverse-strand window)
-    in float32, in order; a column is the sum of its parts in part order.
-    Returns (fwd, rev) float32 and n_hits."""
+def _emulate_dense_kernel(staged, lib, tab, d, plan):
+    """The dense form's schedule over the float32 values tab of a table:
+    the first pass's hits of each row (slot order) and window bounds (the
+    first hit of library row >= w * plan.window); then the sweep, block by
+    block of plan.rows rows (a warp each), chunk by chunk of DENSE_COLS
+    columns, window by window: each row's hits from its cursor to its
+    bound, hit e added to part e % plan.parts of its row: its table row's
+    chunk columns (halves swapped for a reverse-strand window) to that
+    part's float32 sums in order; at the chunk's end the parts are added
+    in part order. Returns (fwd, rev) float32, n_hits, and the (block,
+    window) steps at which no row of the block had a hit."""
     r, h = staged.shape
     size = len(lib)
-    n_groups = -(-d // n_per)
-    fwd = np.zeros((r, d), np.float32)
-    rev = np.zeros((r, d), np.float32)
-    n_hits = np.zeros(r, np.int32)
+    rows_hits = []
     for i in range(r):
         row = staged[i]
         prev = np.concatenate([[PAD], row[:-1]])
         codes = row >> 1
         pos = _kernel_c_positions(lib, codes)
         hit = (row != PAD) & (row != prev) & (pos < size)
-        hit &= lib[np.minimum(pos, size - 1)] == codes
-        n_hits[i] = hit.sum()
-        for g0 in range(0, n_groups, C_THREADS):
-            groups = min(n_groups - g0, C_THREADS)
-            parts = C_THREADS // groups
-            cols = slice(n_per * g0, min(d, n_per * (g0 + groups)))
-            sums = np.zeros((parts, 2, cols.stop - cols.start), np.float32)
-            for t0 in range(0, h, C_TILE):
-                tile = np.nonzero(hit[t0 : t0 + C_TILE])[0] + t0
-                for e, slot in enumerate(tile):
-                    halves = [tab[pos[slot], cols],
-                              tab[pos[slot], d + cols.start : d + cols.stop]]
-                    if (row[slot] & 1) == 0:
-                        halves.reverse()
-                    sums[e % parts, 0] += halves[0]
-                    sums[e % parts, 1] += halves[1]
-            for q in range(parts):
-                fwd[i, cols] += sums[q, 0]
-                rev[i, cols] += sums[q, 1]
-    return fwd, rev, n_hits
+        hit &= lib[np.minimum(pos, max(size - 1, 0))] == codes if size \
+            else False
+        slots = np.nonzero(hit)[0]
+        rows_hits.append((pos[slots], (row[slots] & 1) == 0))
+    n_hits = np.array([len(j) for j, _ in rows_hits], np.int32)
+    nw = plan.windows
+    bounds = [np.concatenate([
+        [0], np.searchsorted(j, plan.window * np.arange(1, nw)), [len(j)]])
+        for j, _ in rows_hits]
+    fwd = np.zeros((r, d), np.float32)
+    rev = np.zeros((r, d), np.float32)
+    empty = 0
+    for b0 in range(0, r, plan.rows):
+        block = range(b0, min(r, b0 + plan.rows))
+        for c0 in range(0, d, DENSE_COLS):
+            cols = slice(c0, min(d, c0 + DENSE_COLS))
+            right = slice(d + cols.start, d + cols.stop)
+            acc = np.zeros((len(block), plan.parts, 2, cols.stop - c0),
+                           np.float32)
+            cur = [0] * len(block)
+            for w in range(nw):
+                seen = 0
+                for q, i in enumerate(block):
+                    end = max(cur[q], int(bounds[i][w + 1]))
+                    for e in range(cur[q], end):
+                        j, swap = rows_hits[i][0][e], rows_hits[i][1][e]
+                        halves = [tab[j, cols], tab[j, right]]
+                        if swap:
+                            halves.reverse()
+                        acc[q, e % plan.parts, 0] += halves[0]
+                        acc[q, e % plan.parts, 1] += halves[1]
+                    seen += end - cur[q]
+                    cur[q] = end
+                empty += not seen
+            for q, i in enumerate(block):
+                sums = acc[q, 0]
+                for part in range(1, plan.parts):
+                    sums = sums + acc[q, part]
+                fwd[i, cols] = sums[0]
+                rev[i, cols] = sums[1]
+    return fwd, rev, n_hits, empty
 
 
-@pytest.mark.parametrize("d,kind,rows", [
-    (40, "f32", 6), (100, "bf16", 6), (512, "normal", 3),
-    (1100, "normal_bf16", 2), (1100, "normal", 2)])
-def test_dense_kernel_schedule_matches_plain(d, kind, rows):
-    """The dense form's schedule reproduces its plain version: hit counts
-    bitwise, sums to rtol 1e-5, atol 1e-6 * max|P| * hits (2^-8 for a
-    bfloat16 table with no sign structure, where the plain version rounds
-    gl +- gr), over one and several parts, column chunks past 256 groups
-    (1,100 float32 columns), repeated slots and a row of padding."""
+@pytest.mark.parametrize("d,kind,rows,window", [
+    (40, "f32", 6, None), (100, "bf16", 6, None), (512, "normal", 3, None),
+    (1100, "normal_bf16", 2, None), (1100, "normal", 2, None),
+    # windows of 7 library rows: each row's hits cross many window edges,
+    # and rows of a block share library rows on both sides of them
+    (64, "normal", 6, 7),
+    # windows of 2 library rows: windows whose blocks stage no hit
+    (32, "f32", 5, 2),
+    # 7 rows in blocks of 4: the last ends early, at a padding row with no
+    # hit
+    (100, "normal", 7, 40),
+])
+def test_dense_kernel_schedule_matches_plain(d, kind, rows, window):
+    """The dense form's schedule (dense_plan, emulated) reproduces its
+    plain version: hit counts bitwise, sums to rtol 1e-5, atol 1e-6 *
+    max|P| * hits (2^-8 for a bfloat16 table with no sign structure, where
+    the plain version rounds gl +- gr), over blocks of one and several
+    rows, rows of 2 and 4 parts, column chunks past DENSE_COLS (1,100
+    columns), windows that cut each row's hits, windows with no hit, a
+    block whose rows end early, repeated slots and a row of padding."""
     rng = np.random.default_rng(d)
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
     starts = rng.integers(0, 3000 - 2400, rows)
@@ -514,13 +553,60 @@ def test_dense_kernel_schedule_matches_plain(d, kind, rows):
     n_hits = membership_embed_dense(staged, library.codes, table, targets,
                                     out)
     tab = table.float().numpy()
-    fwd, rev, n_emul = _emulate_dense_kernel(
-        staged.numpy(), library.codes.numpy(), tab, d,
-        16 // table.element_size())
+    plan = dense_plan(rows, d, table.element_size(), library.size, 1,
+                      window=window)
+    fwd, rev, n_emul, empty = _emulate_dense_kernel(
+        staged.numpy(), library.codes.numpy(), tab, d, plan)
     np.testing.assert_array_equal(n_emul, n_hits.numpy())
     assert n_hits[:-1].min() > 0 and n_hits[-1] == 0
+    if window == 2:
+        assert empty > 0
+    if rows == 7:
+        assert rows % plan.rows and plan.rows > 1
+    assert plan.parts == (4 if rows <= 3 else 2)
+    if window is not None:
+        assert plan.windows > 10
     rel = 2.0**-8 if kind == "normal_bf16" else 1e-6
     atol = rel * float(np.abs(tab).max()) * int(n_hits.max())
     np.testing.assert_allclose(fwd, out[0::2].numpy(), rtol=1e-5, atol=atol)
     np.testing.assert_allclose(rev, out[1::2].numpy(), rtol=1e-5, atol=atol)
 
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d", [1, 13, 40, 256, 512, 1100, 20000])
+def test_dense_plan_limits(d, itemsize):
+    """dense_plan's limits: loads of at most 16 bytes of entries that
+    divide d (one entry for a table off 16 bytes; 16 bytes at d = 512), a
+    chunk of DENSE_COLS columns 16 of each half a lane, blocks of
+    DENSE_BLOCK_WARPS warps (rows x parts), parts doubled up to
+    DENSE_PARTS_MAX while the rows' warps stay within half of a 132-SM
+    card's DENSE_WARPS_PER_SM; windows of about DENSE_WINDOW_BYTES that
+    cover the library; lag DENSE_LAG."""
+    assert DENSE_COLS == 32 * 16
+    for rows in (1, 296, 2048, 100_000):
+        for aligned in (True, False):
+            for lib_size in (0, 1, 161_372):
+                plan = dense_plan(rows, d, itemsize, lib_size, 132, aligned)
+                assert plan.rows * plan.parts == DENSE_BLOCK_WARPS
+                assert plan.parts in (1, 2, 4) and plan.parts <= \
+                    DENSE_PARTS_MAX
+                assert rows * plan.parts <= 132 * DENSE_WARPS_PER_SM \
+                    or plan.parts == 1
+                assert plan.parts == DENSE_PARTS_MAX or \
+                    2 * rows * plan.parts > 132 * DENSE_WARPS_PER_SM
+                assert plan.per * itemsize <= 16 and d % plan.per == 0
+                assert 16 % plan.per == 0
+                assert aligned or plan.per == 1
+                assert (plan.windows - 1) * plan.window < max(lib_size, 1)
+                assert plan.windows * plan.window >= lib_size
+                width = 2 * min(d, DENSE_COLS) * itemsize
+                assert plan.window * width <= max(
+                    DENSE_WINDOW_BYTES[itemsize], width)
+                assert (plan.window + 1) * width > DENSE_WINDOW_BYTES[itemsize]
+                assert plan.lag == DENSE_LAG >= 1
+    if d == 512:
+        plan = dense_plan(2048, d, itemsize, 161_372, 132)
+        assert (plan.per * itemsize, plan.rows, plan.parts) == (16, 4, 1)
+    if d == 256:
+        plan = dense_plan(296, d, itemsize, 17_903, 132)
+        assert (plan.rows, plan.parts) == (1, 4)

@@ -29,6 +29,7 @@ from fedrann_tpu_torch.kmers.membership import (
     STATIC_SMEM,
     _select_candidates_plain,
     _select_on_card,
+    read_hits_staged,
     select_candidates,
     selection_cap,
     stage_candidates,
@@ -38,6 +39,7 @@ from fedrann_tpu_torch.kmers.membership import (
 from fedrann_tpu_torch.project.embed import (
     _membership_embed_dense_plain,
     _membership_embed_plain,
+    dense_plan,
     embed_staged,
     membership_embed,
     membership_embed_dense,
@@ -656,13 +658,13 @@ def _dense_both(cuda, staged, codes, p_pair, targets):
 
 
 @pytest.mark.parametrize("k,d,dtype", [
-    (13, 40, torch.float32),     # d % 4 = 0: 16-byte loads
-    (13, 100, torch.bfloat16),   # d % 8 = 4: entry-by-entry loads
-    (15, 512, torch.float32),    # the main path's width
+    (13, 40, torch.float32),     # d % 4 = 0: 16-byte loads, 10 lanes
+    (13, 100, torch.bfloat16),   # d % 8 = 4: 8-byte loads
+    (15, 512, torch.float32),    # the main path's width: 16-byte loads
     (15, 512, torch.bfloat16),
-    (21, 256, torch.float32),    # the golden runs' width
-    (15, 1100, torch.bfloat16),  # 138 column groups, one part
-    (15, 2100, torch.float32),   # 525 groups: three column chunks
+    (21, 256, torch.float32),    # the golden runs' width: half a chunk
+    (15, 1100, torch.bfloat16),  # 8-byte loads, three column chunks
+    (15, 2100, torch.float32),   # five column chunks
 ])
 def test_membership_embed_dense_matches_plain(cuda, k, d, dtype):
     """The dense form against its plain version on tables
@@ -726,6 +728,79 @@ def test_membership_embed_dense_two_launches_same_bytes(cuda):
         outs.append(out.cpu())
     assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
     assert outs[0].abs().sum() > 0
+
+
+def _dense_in_part_order(staged, codes, p_pair, targets, d, parts):
+    """Kernel C's dense sums as its sweep takes them, on the host: each
+    row's hits (read_hits_staged) in slot order, hit e added in float32 to
+    part e % parts of its fwd and rev rows (halves swapped for a
+    reverse-strand window), the parts then added in part order; row r's to
+    targets[r] (-1: not written)."""
+    hits, _ = read_hits_staged(staged, codes)
+    size = codes.shape[0]
+    tab = p_pair.float().numpy()
+    out = np.zeros((2 * staged.shape[0], d), np.float32)
+    for r, row in enumerate(hits.tolist()):
+        acc = np.zeros((parts, 2, d), np.float32)
+        for e, x in enumerate(x for x in row if x < 2 * size):
+            j = x - size if x >= size else x
+            halves = [tab[j, :d], tab[j, d:]]
+            if x >= size:
+                halves.reverse()
+            acc[e % parts, 0] += halves[0]
+            acc[e % parts, 1] += halves[1]
+        sums = acc[0]
+        for part in range(1, parts):
+            sums = sums + acc[part]
+        for t, v in zip(targets[r].tolist(), sums):
+            if t >= 0:
+                out[t] = v
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("d,dtype,rows,window,lag", [
+    (512, torch.float32, 48, None, None),   # the card's own plan: 4 parts
+    (512, torch.bfloat16, 48, None, None),
+    (64, torch.float32, 48, 7, 1),      # windows of 7 library rows; 1 part
+    (64, torch.float32, 48, 7, 10**6),  # the same, unpaced
+    (32, torch.bfloat16, 7, 2, 2),      # windows with no hit; 2 + .. + 1
+    (1100, torch.float32, 7, 40, 3),    # three column chunks, 2 parts
+    (100, torch.bfloat16, 3, 7, 3),     # 4-entry loads, 4 parts
+])
+def test_membership_embed_dense_sweep_sums_in_part_order(
+        cuda, d, dtype, rows, window, lag):
+    """The dense form's sweep on plans forced through dense_plan (windows
+    that cut every row's hits, windows with no hit, a block that ends
+    early, column chunks, rows of 1, 2 and 4 parts, a lag of 1 and none at
+    all) writes bitwise the sums of each part's hits (every parts-th hit
+    of a row) taken one by one in slot order, the parts added in part
+    order; hit counts bitwise the plain version's, the same bytes in two
+    launches."""
+    staged, library = _dense_inputs(15, rows=rows, length=2500, seed=7)
+    p_pair = build_precompute_paired(library.counts, d, 2094, 0.3,
+                                     dtype=dtype)
+    targets = torch.stack([2 * torch.arange(rows), 2 * torch.arange(rows) + 1],
+                          dim=1)
+    targets[rows // 2, 1] = -1
+    plan = dense_plan(rows, d, p_pair.element_size(), library.size,
+                      torch.cuda.get_device_properties(0).multi_processor_count
+                      if window is None else 1, window=window, lag=lag)
+    want = _dense_in_part_order(staged, library.codes, p_pair, targets, d,
+                                plan.parts)
+    outs = []
+    for _ in range(2):
+        out = torch.zeros((2 * rows, d), device=cuda)
+        n = membership_embed_dense(staged.to(cuda), library.codes.to(cuda),
+                                   p_pair.to(cuda), targets.to(cuda), out,
+                                   plan=plan)
+        outs.append(out.cpu())
+    torch.cuda.synchronize()
+    _, n_p = read_hits_staged(staged, library.codes)
+    assert torch.equal(n.cpu(), n_p) and int(n_p.min()) > 0
+    assert torch.equal(outs[0].view(torch.int32), want.view(torch.int32))
+    assert torch.equal(outs[1].view(torch.int32), want.view(torch.int32))
+    if window is not None:
+        assert plan.windows > 10
 
 
 def test_membership_embed_dense_empty_library(cuda):
@@ -1395,6 +1470,34 @@ def test_knn_merge_unaligned_and_wide_rows(cuda, d):
     torch.cuda.synchronize()
     assert torch.equal(aligned, shifted)
     assert _check_merge(aligned.cpu(), None, q, c, 0, 30, "bf16") >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [13, 40, 640])
+def test_knn_merge_fp32_unaligned_and_wide_rows(cuda, d, dtype):
+    """The fp32 form on rows K4 cannot read by TMA as they are (d * itemsize
+    not a multiple of 16, or a base off 16 bytes: the zero-padded copy) and
+    on wide rows (d = 640: 20 or 10 chunks a tile): the same keys bitwise
+    as aligned rows and as rows padded with zeros by hand (zero products
+    change no bits), held to merge_block_plain."""
+    rng = np.random.default_rng(d + 1)
+    q, c = (normalize_rows(torch.from_numpy(
+        rng.standard_normal((rows, d)).astype(np.float32))).to(dtype)
+        for rows in (150, 1300))
+    q[2] = 0
+    aligned = merge_block(None, q.to(cuda), c.to(cuda), 0, 30, "fp32",
+                          units=2)
+    flat = torch.zeros(c.numel() + 1, dtype=dtype, device=cuda)
+    off = flat[1:].view(c.shape)
+    off.copy_(c.to(cuda))
+    assert off.data_ptr() % 16 != 0
+    shifted = merge_block(None, q.to(cuda), off, 0, 30, "fp32", units=2)
+    pad = -(-d // 8) * 8 + 8
+    wide = [torch.nn.functional.pad(x, (0, pad - d)).to(cuda) for x in (q, c)]
+    padded = merge_block(None, wide[0], wide[1], 0, 30, "fp32", units=2)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned, shifted) and torch.equal(aligned, padded)
+    assert _check_merge(aligned.cpu(), None, q, c, 0, 30, "fp32") >= 0.99
 
 
 def test_merge_block_refuses_what_it_does_not_take(cuda):

@@ -220,3 +220,28 @@ def test_merge_split_plain_matches_one_merge(units, form):
     got = topk.merge_split_plain(None if run is None else run.clone(), q, c,
                                  first, k, precision, units)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 4, 8, 13, 40, 512])
+def test_tma_rows_pad_for_both_forms(d, dtype):
+    """The rows K4 reads by TMA (_tma_rows): the bf16 form rounds to
+    bfloat16, the fp32 form keeps the rows' dtype; d is padded with zeros to
+    tma_width (16 bytes of entries); rows already in that shape are taken
+    as they are, and the padding leaves merge_block_plain's keys bitwise as
+    they were."""
+    rng = np.random.default_rng(d)
+    x = topk.normalize_rows(torch.from_numpy(
+        rng.normal(size=(21, d)).astype(np.float32))).to(dtype)
+    for want in (torch.bfloat16, dtype):
+        size = torch.empty((), dtype=want).element_size()
+        width = topk.tma_width(d, size)
+        assert width % (16 // size) == 0 and 0 <= width - d < 16 // size
+        y = topk._tma_rows(x, want)
+        assert y.dtype == want and y.shape == (21, width)
+        assert (y is x) == (want == dtype and width == d)
+        assert torch.equal(y[:, :d], x.to(want))
+        assert not bool(y[:, d:].any())
+        precision = "bf16" if want == torch.bfloat16 else "fp32"
+        assert torch.equal(topk.merge_block_plain(None, y, y, 0, 5, precision),
+                           topk.merge_block_plain(None, x, x, 0, 5, precision))

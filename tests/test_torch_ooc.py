@@ -185,6 +185,28 @@ def test_card_plan_holds_its_budget(budget):
         assert -(-262_144 // q) < 12 and c == 32_768
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", [100, 13, 512])
+def test_card_plan_counts_k4_padded_copies(d, itemsize):
+    """Where a row's bytes are not a multiple of 16, K4 reads zero-padded
+    copies of the slab and the block (topk.tma_width): the card's plan
+    counts both beside the rest and still holds its budget, and at a d K4
+    reads as it is the plan is the one without copies."""
+    from fedrann_tpu_torch.knn.topk import tma_width
+
+    padded = tma_width(d, itemsize)
+    for budget in (16 << 20, 256 << 20):
+        q, c, ct = ooc.plan_ooc(262_144, d, 50, budget, 512,
+                                ooc.DEFAULT_BLOCK_ROWS, itemsize, sms=132)
+        held = ooc.plan_bytes(q, c, ct, 512, d, 50, itemsize, 132)
+        assert q % 512 == 0 and held <= budget
+        copies = (q + c) * padded * itemsize if padded != d else 0
+        units = ooc.k4_units(q, c, 50, 132)
+        assert held >= (q * (d * itemsize + 50 * 8) + 2 * c * d * itemsize
+                        + (units * q * 50 * 8 if units > 1 else 0) + copies)
+        assert (padded == d) == (d * itemsize % 16 == 0)
+
+
 @pytest.fixture(scope="module")
 def reads(tmp_path_factory):
     d = tmp_path_factory.mktemp("ooc")

@@ -195,16 +195,23 @@ Phases; any failure exits non-zero and prints no result line:
          on a CPU): knn_ivf called once past its valve; agreement with
          phase 4 logged; a second run on a fresh -o writes a
          byte-identical overlaps.tsv; with C = p = 16, agreement >= 0.999
-         with phase 4's table;
+         with phase 4's table; at --knn-precision fp32 (K6's fp32 form),
+         checked as phase 4; every run launches K4 (the k-means and the
+         cluster ranking), K6 and K7 (knn_expected);
      (b) knn_ivf on 262,144 x 512 rows of read-overlap geometry made on
          the card from --seed (a 30 Mb genome in 500 bp Gaussian tiles,
          131,072 reads of 15 kb +- 20%, a row per strand: each the sum of
          its tiles plus noise), k = 50: cold and warm seconds beside
-         knn_exact's, C, p, spill, size classes, padded pair-scores,
-         recall against knn_exact on 2,048 sampled queries; self at rank
-         0, sorted rows, no index twice, every distance within 1e-5 of a
-         recompute;
+         knn_exact's, C, p, spill, size classes, padded and real
+         pair-scores, recall against knn_exact on 2,048 sampled queries
+         (>= IVF_SEARCH_RECALL); a third run split by step
+         (ivf_step_split: CUDA events and the host clock around the
+         k-means assignment, segment sums, spill/probe ranking, member and
+         probe tables, rescore, merge and keys_to_host), its neighbors
+         the warm run's; self at rank 0, sorted rows, no index twice,
+         every distance within 1e-5 of a recompute;
      (c) knn_ivf_ooc: (a) at --knn-hbm-budget 16M (knn_ivf_ooc called,
+         K4 launched for its k-means, probes and slab loop, K6 and K7 not;
          agreement with (a) logged), and on (b)'s rows at 256 MiB: recall
          on (b)'s queries >= (b)'s - 0.01; seconds beside 8b's
          knn_exact_ooc, blocks uploaded against exact out-of-core's,
@@ -242,13 +249,31 @@ Phases; any failure exits non-zero and prints no result line:
      project stage. Every CLI run must launch K4 (but the in-core and
      sharded IVF searches, which need not) and, with the sign table, K5;
      no CUDA tensor reaches either plain version in a CLI run.
+     Then the IVF search's kernels (check_ivf_kernels): K6
+     (csrc/ivf_rescore.cu) bitwise rescore_plain on grid rows (entries
+     k / 64, every score exact) at both precisions, at its edge cases (a
+     1-member cluster, one past a tile, k past the members, sentinel
+     rows, unprobed and empty clusters, C = 8, a query row offset) and at
+     phase 4's size; on phase 4's rows at C = 256 and 11b's rows at C =
+     1,024, spill 2, both precisions: index-set agreement >= K6_AGREE and
+     scores within K6_TOL of the plain lists', two launches
+     byte-identical, its time, device us, TFLOP/s, bound and share beside
+     the plain version's; K7 bitwise merge_buffers_plain on K6's buffers
+     at spill 1, 2 and 3 and on sorted lists with recurring indices, timed
+     beside the plain version and torch.topk of the buffer rows; K4 as the
+     cluster ranking (_top_clusters) against top_clusters_plain at
+     agreement >= K6_AGREE, ties to the lower of two equal centroids.
+     Every IVF CLI run but out of core launches K6 and K7; no CUDA tensor
+     reaches rescore_plain, merge_buffers_plain or top_clusters_plain.
 8a runs twice: the second time under --profile, so the out-of-core
 search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
 the runs of its own path: knn_merge and srp_signs from the main path's,
-knn_merge_fp32 (K4's fp32 form) from 4f's two runs, stage_rows from the
+knn_merge_fp32 (K4's fp32 form) from 4f's two runs, ivf_rescore,
+ivf_rescore_fp32 and ivf_merge (K6's two forms and K7) from phase 11's
+CLI runs and ranks, stage_rows from the
 main path's, 9b's, 9c's, 10's and 11's, membership_embed from the main path's, 8a's (twice), 9b's,
 10's and 11's, the other staging
 kernels summed over the three CLI runs (and 9b's),
@@ -329,6 +354,15 @@ IVF_ROWS, IVF_SHARD_ROWS, IVF_K, IVF_SAMPLE = 262_144, 65_536, 50, 2048
 # neighbor agreement of 11a's all-probed run with phase 4's exact table;
 # of the other IVF runs (11c-e) with 11a's
 IVF_AGREE_ALL, IVF_AGREE = 0.999, 0.99
+# 11b's recall against knn_exact on its sampled queries (0.99879 with the
+# torch stages, less 0.002 for a near-tie k-means assignment that K4's
+# bf16 sums may move)
+IVF_SEARCH_RECALL = 0.99879 - 0.002
+# 12: K6 against rescore_plain on real rows: each (query, slot) list's
+# index set agreeing >= K6_AGREE over the lists, every shared pair's score
+# within K6_TOL (float32 sums of exact products in another order); K4's
+# cluster ranking against top_clusters_plain: agreement >= K6_AGREE
+K6_AGREE, K6_TOL = 0.999, 2e-6
 # 12: K4 against merge_block_plain: every kernel score within K4_TOL of
 # the plain score of its pair (float32 sums of 512 exact products in
 # another order); neighbor sets equal but at plain near-ties; agreement
@@ -352,7 +386,7 @@ PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 PEAK_INT32 = 16.7e12
 CSRC = "fedrann_tpu_torch/csrc/"
 # kernel -> (source, the JAX function it replaces: a pl.pallas_call site,
-# or for K4 and K5 the XLA function, which has none)
+# or for K4-K7 the XLA function, which has none)
 _K12 = ("bench/pallas_kernels.py:128 canonical_and_sample, "
         "bench/pallas_sort.py:128 sort_rows_pallas")
 _K1 = "bench/pallas_kernels.py:128 canonical_and_sample"
@@ -375,6 +409,16 @@ SOURCES = {
                        "fedrann_tpu/knn/topk.py:146 _knn_tiles_qc at "
                        "precision fp32 (XLA float32 dot_general + "
                        "lax.top_k in a lax.scan)"),
+    "ivf_rescore": (CSRC + "ivf_rescore.cu",
+                    "fedrann_tpu/knn/ivf.py:198 _rescore_group + :219 "
+                    "_scatter_group (XLA bf16 dot_general + top_k in a "
+                    "lax.map, a scatter)"),
+    "ivf_rescore_fp32": (CSRC + "ivf_rescore.cu",
+                         "fedrann_tpu/knn/ivf.py:198 _rescore_group + :219 "
+                         "_scatter_group at precision fp32"),
+    "ivf_merge": (CSRC + "ivf_rescore.cu",
+                  "fedrann_tpu/knn/ivf.py:227 _merge_buffers, :136 "
+                  "_dedup_topk (XLA sort + top_k in a lax.map)"),
     "srp_signs": (CSRC + "srp_signs.cu",
                   "fedrann_tpu/project/srp.py:151 build_precompute_signs, "
                   ":202 _srp_sign_chunk, :219 _pack_signs (XLA)"),
@@ -1693,31 +1737,41 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
 
 @contextlib.contextmanager
 def no_plain_on_card():
-    """Inside: merge_block_plain and sign_table_plain (the plain versions
-    of K4 and K5) fail the run if they are given a CUDA tensor, which only
-    this script's reference calls may do."""
-    from fedrann_tpu_torch.knn import topk
+    """Inside: the plain versions of K4 (merge_block_plain, and the IVF
+    cluster ranking's top_clusters_plain), K5 (sign_table_plain), K6
+    (rescore_plain) and K7 (merge_buffers_plain) fail the run if they are
+    given a CUDA tensor, which only this script's reference calls may
+    do."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf, topk
     from fedrann_tpu_torch.project import srp
 
-    merge, table = topk.merge_block_plain, srp.sign_table_plain
+    saved = [(topk, "merge_block_plain"), (srp, "sign_table_plain"),
+             (ivf, "top_clusters_plain"), (ivf, "rescore_plain"),
+             (ivf, "merge_buffers_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
 
-    def guarded_merge(run, q, c, *args, **kwargs):
-        if q.device.type == "cuda" or c.device.type == "cuda":
-            fail("a CUDA tensor reached merge_block_plain in a CLI run")
-        return merge(run, q, c, *args, **kwargs)
+    def guard(name, fn):
+        def guarded(*args, **kwargs):
+            device = kwargs.get("device", args[4] if len(args) > 4 else None)
+            if name == "sign_table_plain":
+                on_card = device is not None and device.type == "cuda"
+            else:
+                on_card = any(isinstance(a, torch.Tensor)
+                              and a.device.type == "cuda" for a in args)
+            if on_card:
+                fail(f"a CUDA tensor reached {name} in a CLI run")
+            return fn(*args, **kwargs)
+        return guarded
 
-    def guarded_table(*args, **kwargs):
-        device = kwargs.get("device", args[4] if len(args) > 4 else None)
-        if device is not None and device.type == "cuda":
-            fail("a CUDA device reached sign_table_plain in a CLI run")
-        return table(*args, **kwargs)
-
-    topk.merge_block_plain, srp.sign_table_plain = guarded_merge, \
-        guarded_table
+    for mod, name, fn in saved:
+        setattr(mod, name, guard(name, fn))
     try:
         yield
     finally:
-        topk.merge_block_plain, srp.sign_table_plain = merge, table
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def reset_counts() -> None:
@@ -1771,11 +1825,9 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
     host = read_counts(HOST_COUNTERS)
     if rc != 0:
         fail(f"cli.main returned {rc}")
-    fp32 = ("--knn-precision" in flags
-            and flags[flags.index("--knn-precision") + 1] == "fp32")
     check_launches(launches, paths, None if resumed else embed,
                    "the main path", knn_expected(flags),
-                   embed == "membership_embed", fp32)
+                   embed == "membership_embed")
     check_host(host, load, "the main path")
     log(f"main path launches: {launches}; host counts: {host}")
 
@@ -1861,33 +1913,41 @@ def roofline(stages: dict) -> str:
             f"{embed.get('hbm_util_pct', 'none')}%")
 
 
-def knn_expected(flags: list[str]) -> bool | None:
-    """Whether a CLI run with `flags` must launch K4: every exact search,
-    and the out-of-core IVF search (exact's slab loop); the in-core and
-    sharded IVF searches rescore in torch ops, so None (not checked)."""
-    if "ivf" not in flags or "--knn-hbm-budget" in flags:
-        return True
-    return None
+def knn_expected(flags: list[str]) -> dict:
+    """Which k-NN kernels a CLI run with `flags` must launch (True) and
+    which it must not (False): K4 on every search (exact, and the IVF
+    searches' k-means and cluster ranking), its fp32 form at
+    --knn-precision fp32 where it scores the search (exact in core or out
+    of core, and the out-of-core IVF search, whose k-means follows the
+    precision; the in-core IVF k-means is bf16 at either precision); K6
+    and K7 on the in-core and sharded IVF searches (K6's fp32 form at
+    fp32); none of them out of core, which rescores by K4's slab loop."""
+    fp32 = ("--knn-precision" in flags
+            and flags[flags.index("--knn-precision") + 1] == "fp32")
+    ivf = ("--knn-method" in flags
+           and flags[flags.index("--knn-method") + 1] == "ivf")
+    rescore = ivf and "--knn-hbm-budget" not in flags
+    return {"knn_merge": True, "knn_merge_fp32": fp32 and not rescore,
+            "ivf_rescore": rescore, "ivf_rescore_fp32": rescore and fp32,
+            "ivf_merge": rescore}
 
 
 def check_launches(launches: dict, paths: set, embed: str | None,
-                   what: str, knn: bool | None = True,
-                   signs: bool | None = None, fp32: bool = False) -> None:
+                   what: str, knn: dict | None = None,
+                   signs: bool | None = None) -> None:
     """Each staging kernel launched exactly where the plan picks its path
-    (`paths`), kernel C in the projection's form `embed` only, K4 as `knn`
-    says (None: either), its fp32 form where `fp32` (--knn-precision
-    fp32) and K4 launches, K5 where the projection is the sign table
-    (`signs`; by default where `embed` is kernel C's sign form), and every
-    other kernel launched."""
+    (`paths`), kernel C in the projection's form `embed` only, the k-NN
+    kernels as `knn` says (knn_expected's dict; by default the exact
+    bf16 search's), K5 where the projection is the sign table (`signs`;
+    by default where `embed` is kernel C's sign form), and every other
+    kernel launched."""
     signs = embed == "membership_embed" if signs is None else signs
+    knn = knn_expected([]) if knn is None else knn
     for name, n in launches.items():
         want = (name in paths if name in STAGE_KERNELS
                 else name == embed if name in EMBED_KERNELS
                 else signs if name == "srp_signs"
-                else knn if name == "knn_merge"
-                else knn and fp32 if name == "knn_merge_fp32" else True)
-        if want is None:
-            continue
+                else knn[name] if name in knn else True)
         if (n > 0) != want:
             fail(f"kernel {name} was launched {n} times by {what}, "
                  f"expected {'some' if want else 'none'}")
@@ -3186,10 +3246,11 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
                 or not staging <= paths or not kernels["membership_embed"]:
             fail(f"{label} rank {rank}: launches {kernels}, staging kernels "
                  f"{staging} not within {paths} or K1+K2 / K3 missing")
-        if not kernels["srp_signs"] or (knn_expected(flags)
-                                        and not kernels["knn_merge"]):
-            fail(f"{label} rank {rank}: launches {kernels}, K5 or K4 "
-                 "missing")
+        knn = knn_expected(flags)
+        if not kernels["srp_signs"] or any(
+                (kernels[name] > 0) != want for name, want in knn.items()):
+            fail(f"{label} rank {rank}: launches {kernels}, K5 missing or "
+                 f"the k-NN kernels not as {knn}")
         want = {"read_fastx": 0, "pack_reads": 0, "pin_copies": 0,
                 "pack_reads_native": int(loads[rank] in ("parse", "ranged")),
                 "cache_hits": int(loads[rank] == "cache")}
@@ -3417,8 +3478,11 @@ def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
     recall >= IVF_RECALL: knn_ivf called once, past its valve, with C =
     256; agreement with phase 4's exact table logged; a second run on a
     fresh -o must write a byte-identical overlaps.tsv; a run with C = p =
-    16 must agree >= IVF_AGREE_ALL with phase 4's table. Returns the
-    launch counts of the three runs summed and the first run's
+    16 must agree >= IVF_AGREE_ALL with phase 4's table; a run at
+    --knn-precision fp32 (K6's fp32 form) is checked as phase 4, its
+    agreement with the first run's table logged. Every run launches K4
+    (the k-means and cluster ranking), K6 and K7 (knn_expected). Returns
+    the launch counts of the four runs summed and the first run's
     overlaps.tsv path."""
     import torch
 
@@ -3432,14 +3496,16 @@ def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
     paths = []
     for label, extra in (("11a", []), ("11a again", []),
                          ("11a C = p = 16", ["--knn-ivf-clusters", "16",
-                                             "--knn-ivf-probes", "16"])):
+                                             "--knn-ivf-probes", "16"]),
+                         ("11a fp32", ["--knn-precision", "fp32"])):
         out = os.path.join(out_dir, str(len(paths)))
         launches, secs = drive_cli(fasta, out, sim, MIN_OVERLAP, card, dev,
                                    [*flags, *extra], min_recall=IVF_RECALL)
         host = read_counts(HOST_COUNTERS)
         last = knn_ivf.last
+        every = "--knn-ivf-clusters" in extra
         if (host["ivf_calls"], host["ivf_fallbacks"]) != (1, 0) \
-                or last["clusters"] != (16 if extra else 256):
+                or last["clusters"] != (16 if every else 256):
             fail(f"{label}: knn_ivf calls / fallbacks "
                  f"{host['ivf_calls']} / {host['ivf_fallbacks']} (want 1 / "
                  f"0), C = {last['clusters']}")
@@ -3448,10 +3514,15 @@ def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
         log(f"{label} --knn-method ivf {' '.join(extra)}: C = "
             f"{last['clusters']}, p = {last['probes']}, spill "
             f"{last['spill']}, {last['size_classes']} size classes, "
-            f"{last['pair_scores']:.4g} padded pair-scores; knn "
+            f"{last['pair_scores']:.4g} padded pair-scores, "
+            f"{last['real_pair_scores']:.4g} real; K4 {launches['knn_merge']}"
+            f", K6 {launches['ivf_rescore']} ({launches['ivf_rescore_fp32']} "
+            f"fp32), K7 {launches['ivf_merge']} launches; knn "
             f"{secs['knn']:.3f} s; neighbor agreement with phase 4's exact "
-            f"table {agree:.5f} [{card}]")
-        if extra and agree < IVF_AGREE_ALL:
+            f"table {agree:.5f}"
+            + (f", with 11a's {table_agreement(paths[-1], overlap_sets(paths[0])):.5f}"
+               if len(paths) > 1 else "") + f" [{card}]")
+        if every and agree < IVF_AGREE_ALL:
             fail(f"{label}: agreement {agree:.5f} with phase 4 below "
                  f"{IVF_AGREE_ALL}")
         for name, n in launches.items():
@@ -3461,6 +3532,78 @@ def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
             fail("11a: two IVF runs wrote different overlaps.tsv")
     log("11a: the two IVF runs' overlaps.tsv are byte-identical")
     return totals, paths[0]
+
+
+# 11b's knn_ivf split by step: the knn/ivf.py functions each step calls,
+# as (function, step); _top_clusters is the k-means assignment with t = 1
+# and the spill/probe ranking otherwise
+IVF_STEPS = (("_top_clusters", None), ("_segment_sum", "segment sums"),
+             ("_members", "member and probe tables"),
+             ("_probe_tables", "member and probe tables"),
+             ("_rescore", "rescore"), ("_merge_buffers", "merge"),
+             ("keys_to_host", "keys_to_host"))
+
+
+@contextlib.contextmanager
+def ivf_step_split():
+    """Inside: each call of an IVF_STEPS function in knn/ivf.py timed by
+    CUDA events (device time from its first to its last launch) and by
+    the host clock, each between two synchronizes, less the time of the
+    steps it calls (the rescore holds the probe tables and the merge).
+    Yields {step: [event ms, host ms, calls]}, "k-means assignment" and
+    "spill/probe ranking" for _top_clusters by its t."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    split: dict = {}
+    stack: list = []
+    saved = {name: getattr(ivf, name) for name, _ in IVF_STEPS}
+
+    def timed(name, step, fn):
+        def run(*args, **kwargs):
+            label = step or ("k-means assignment" if args[2] == 1
+                             else "spill/probe ranking")
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stack.append([0.0, 0.0])
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            dev = start.elapsed_time(end)
+            inner = stack.pop()
+            row = split.setdefault(label, [0.0, 0.0, 0])
+            row[0] += dev - inner[0]
+            row[1] += host - inner[1]
+            row[2] += 1
+            if stack:
+                stack[-1][0] += dev
+                stack[-1][1] += host
+            return out
+        return run
+
+    for name, step in IVF_STEPS:
+        setattr(ivf, name, timed(name, step, saved[name]))
+    try:
+        yield split
+    finally:
+        for name, fn in saved.items():
+            setattr(ivf, name, fn)
+
+
+def log_ivf_split(label: str, split: dict, total_ms: float,
+                  card: str) -> None:
+    """One line: each step's event and host milliseconds and calls, and
+    the rest of total_ms (the host clock around the search)."""
+    steps = sum(v[1] for v in split.values())
+    log(f"{label} split by step (event ms / host ms, calls): " + "; ".join(
+        f"{k} {v[0]:.3f} / {v[1]:.3f} ({v[2]})" for k, v in split.items())
+        + f"; the rest (normalize, centroid updates, bincounts, syncs) "
+        f"{total_ms - steps:.3f} host ms of {total_ms:.3f} [{card}]")
 
 
 def check_ivf_search(dev, card: str) -> dict:
@@ -3485,6 +3628,12 @@ def check_ivf_search(dev, card: str) -> dict:
     (idx, dist), warm, peak = measured(
         lambda: knn_ivf(rows, IVF_K, transfer="f32"), [dev])
     last = knn_ivf.last
+    with ivf_step_split() as split:
+        (idx2, _), split_secs, _ = measured(
+            lambda: knn_ivf(rows, IVF_K, transfer="f32"), [dev])
+    if not np.array_equal(idx, idx2):
+        fail("11b: knn_ivf gave other neighbors under the step split")
+    log_ivf_split("11b knn_ivf", split, split_secs * 1e3, card)
     rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
     sample = np.sort(rng.choice(IVF_ROWS, IVF_SAMPLE, replace=False))
     recall = sample_recall(idx, ref, sample)
@@ -3495,11 +3644,14 @@ def check_ivf_search(dev, card: str) -> dict:
         f"{last['max_members']} rows, {last['size_classes']} size classes "
         f"over {last['probed_clusters']} probed clusters, "
         f"{last['pair_scores']:.4g} padded pair-scores "
-        f"({IVF_ROWS ** 2 / last['pair_scores']:.2f}x fewer than exact); "
+        f"({IVF_ROWS ** 2 / last['pair_scores']:.2f}x fewer than exact), "
+        f"{last.get('real_pair_scores', float('nan')):.4g} real; "
         f"{warm:.3f} s warm, {cold:.3f} s cold, against knn_exact "
         f"{exact_secs:.3f} s ({exact_secs / warm:.2f}x); peak {peak} bytes; "
         f"recall against knn_exact on {IVF_SAMPLE} sampled queries "
         f"{recall:.5f}; distances within {err:.3g} of a recompute [{card}]")
+    if recall < IVF_SEARCH_RECALL:
+        fail(f"11b: recall {recall:.5f} below {IVF_SEARCH_RECALL:.5f}")
     return {"rows": rows, "sample": sample, "ref": ref, "recall": recall,
             "secs": warm}
 
@@ -3997,6 +4149,317 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     return report
 
 
+def ivf_case(en_pad, n_real: int, c: int, p: int, spill: int,
+             k: int = IVF_K) -> dict:
+    """knn_ivf's tables on the card for the rows en_pad[:n_real] (en_pad
+    as knn/ivf.py _unit_padded makes it: a zero row last): the k-means,
+    member table and probe tables of C = c, p probes and `spill`, and
+    what K6 and rescore_plain take."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    _, top = ivf._tables(en_pad[:n_real], c, 3, spill, p)
+    member, counts_h = ivf._members(top[:, :spill].reshape(-1), c, spill)
+    probes = top[:, :p].contiguous()
+    qcounts = torch.bincount(probes.reshape(-1), minlength=c)
+    qcounts_h = qcounts.cpu().numpy()
+    qtab, stab = ivf._probe_tables(probes, qcounts, c,
+                                   ivf._ceil128(qcounts_h.max()))
+    return table_case(en_pad, n_real, member, counts_h, qtab, stab,
+                      qcounts_h, 0, n_real, p, k)
+
+
+def table_case(en_pad, n_real: int, member, counts_h, qtab, stab, qcounts_h,
+               first: int, nq: int, p: int, k: int) -> dict:
+    from fedrann_tpu_torch.knn import ivf
+
+    kk_g = min(k, member.shape[1])
+    return dict(en_pad=en_pad, n_real=n_real, member=member,
+                counts_h=counts_h, qtab=qtab, stab=stab,
+                qcounts_h=qcounts_h, first=first, nq=nq, p=p, k=k,
+                kk_g=kk_g, groups=ivf._rescore_plan(
+                    counts_h, qcounts_h, qtab.shape[1], member.shape[1]),
+                real=int((qcounts_h.astype("int64")
+                          * counts_h.astype("int64")).sum()))
+
+
+def k6_run(case: dict, precision: str):
+    from fedrann_tpu_torch.knn.ivf import rescore_clusters
+
+    return rescore_clusters(
+        case["en_pad"], case["n_real"], case["member"], case["counts_h"],
+        case["qtab"], case["stab"], case["qcounts_h"], case["first"],
+        case["nq"], case["p"], case["kk_g"], precision)
+
+
+def k6_plain(case: dict):
+    from fedrann_tpu_torch.knn.ivf import rescore_plain
+
+    return rescore_plain(case["en_pad"], case["n_real"], case["member"],
+                         case["qtab"], case["stab"], case["groups"],
+                         case["first"], case["nq"], case["p"], case["k"],
+                         case["kk_g"])
+
+
+def hold_k6(label: str, got, want, chunk: int = 16384) -> tuple:
+    """K6's buffer `got` against rescore_plain's `want`: the same
+    EMPTY_KEY slots, every list strictly descending, and over the lists
+    the share of K6's entries whose index the plain list also holds (>=
+    K6_AGREE) and the largest score difference of such a pair (<=
+    K6_TOL). Returns (agreement, largest difference)."""
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import EMPTY_KEY, _decode_keys
+
+    w_ = got.shape[-1]
+    g_all, w_all = got.reshape(-1, w_), want.reshape(-1, w_)
+    if tuple(got.shape) != tuple(want.shape) or not torch.equal(
+            g_all == EMPTY_KEY, w_all == EMPTY_KEY):
+        fail(f"{label}: K6's buffer {tuple(got.shape)} or its unset slots "
+             "differ from the plain version's")
+    hit, total, err = 0, 0, 0.0
+    for r0 in range(0, g_all.shape[0], chunk):
+        g, w = g_all[r0 : r0 + chunk], w_all[r0 : r0 + chunk]
+        ge = g == EMPTY_KEY
+        if not bool(((g[:, 1:] < g[:, :-1]) | ge[:, 1:]).all()):
+            fail(f"{label}: a K6 list is not strictly descending")
+        gs, gi = _decode_keys(g)
+        ws, wi = _decode_keys(w)
+        eq = ((gi[:, :, None] == wi[:, None, :]) & ~ge[:, :, None]
+              & ~ge[:, None, :])
+        hit += int(eq.any(2).sum())
+        total += int((~ge).sum())
+        if bool(eq.any()):
+            err = max(err, float((gs[:, :, None] - ws[:, None, :]).abs()
+                                 [eq].max()))
+        del eq
+    agree = hit / max(total, 1)
+    if agree < K6_AGREE or err > K6_TOL:
+        fail(f"{label}: K6 agrees {agree:.6f} with the plain lists (bar "
+             f"{K6_AGREE}), scores within {err:.3g} (tolerance {K6_TOL})")
+    return agree, err
+
+
+def grid_rows(rng, n: int, d: int, dev):
+    """(n, d) float32 rows of entries k / 64, |k| <= 8: exact in bfloat16,
+    and every product and partial sum of d = 512 of them exact in
+    float32 (multiples of 2^-12 below 8 in magnitude)."""
+    import torch
+
+    return torch.from_numpy(rng.integers(-8, 9, size=(n, d)).astype(
+        "float32") / 64).to(dev)
+
+
+def k6_edge_case(dev) -> dict:
+    """K6's edge cases in one table, on grid rows (FLAGS' --seed): C = 8
+    clusters of 1, 300 (past a tile), 20 (k = 50 past its members), 60
+    (ten of them sentinel rows >= n_real, whose rows would win), 100
+    (never probed), 0 (probed), 129 and 200 members, clusters sharing
+    rows (a spill); 300 query rows from row 100 (a row offset), 3 probes
+    each among the probed clusters; k = 50."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]) + 16)
+    n_real, extra, d = 900, 40, 512
+    rows = grid_rows(rng, n_real + extra, d, dev)
+    rows[n_real:] = 8 / 64  # sentinel rows: the best scores if offered
+    en_pad = torch.cat([rows, rows.new_zeros((1, d))])
+    sizes = [1, 300, 20, 60, 100, 0, 129, 200]
+    member = np.full((8, ivf._ceil128(max(sizes))), n_real, np.int32)
+    for c, m in enumerate(sizes):
+        member[c, :m] = rng.choice(n_real, m, replace=False)
+    member[3, ::6][:10] = n_real + np.arange(10)
+    probed = [0, 1, 2, 3, 5, 6, 7]
+    nq, p, first = 300, 3, 100
+    probes = torch.from_numpy(np.stack([rng.choice(probed, p, replace=False)
+                                        for _ in range(nq)]).astype(
+        np.int32)).to(dev)
+    qcounts = torch.bincount(probes.reshape(-1), minlength=8)
+    qcounts_h = qcounts.cpu().numpy()
+    qtab, stab = ivf._probe_tables(probes, qcounts, 8,
+                                   ivf._ceil128(qcounts_h.max()))
+    return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
+                      np.array(sizes, np.int64), qtab, stab, qcounts_h,
+                      first, nq, p, 50)
+
+
+def sorted_lists(rng, rows: int, p: int, w: int, dev):
+    """(rows, p, w) int64 keys, each list sorted descending: random
+    scores on indices drawn from 3 w values, so an index recurs across a
+    row's lists with other scores, EMPTY_KEY tails of random length, and
+    rows with no key at all."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import EMPTY_KEY, _order_keys
+
+    s = torch.from_numpy(rng.standard_normal((rows, p, w)).astype(
+        np.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 3 * w, (rows, p, w))).to(dev)
+    keys = _order_keys(s, idx)
+    keys.masked_fill_(torch.from_numpy(
+        np.arange(w)[None, None, :] >= rng.integers(0, w + 1, (rows, p, 1))
+    ).to(dev), EMPTY_KEY)
+    keys[: max(1, rows // 50)] = EMPTY_KEY
+    return torch.sort(keys, dim=2, descending=True).values.contiguous()
+
+
+def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
+    """Phase 12, the IVF search's kernels against their plain versions on
+    the card. K6 (csrc/ivf_rescore.cu) bitwise rescore_plain on grid rows
+    (grid_rows: every score exact) at both precisions, at k6_edge_case
+    and at phase 4's size; on real rows (phase 4's rows at C = 256 and
+    11b's 262,144 read-overlap rows, spill 2) to hold_k6's bars; two
+    launches byte-identical. K7 bitwise merge_buffers_plain on K6's own
+    buffers at spill 1, 2 and 3 and on sorted_lists. K4 as the IVF's
+    cluster ranking (_top_clusters) against top_clusters_plain: agreement
+    >= K6_AGREE at t = 1 and t = 8, ties to the lowest id on duplicated
+    centroids. Each timed beside its plain version (and K7 beside
+    torch.topk of the buffer rows at spill 1), with its bound: K6 2 d
+    operations a real pair-score (bf16 or FFMA) or the bytes of its
+    query gathers and the buffer, K7 the buffer's bytes and the result's.
+    Returns K6's (both forms) and K7's report entries at phase 4's rows
+    with C = 256, the IVF main path's shapes."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    report = {}
+
+    def merges(label, buf, k, spill):
+        got = ivf.merge_probe_lists(buf, k, spill)
+        if not torch.equal(got, ivf.merge_buffers_plain(buf, k, spill)):
+            fail(f"{label}: K7 at spill {spill} differs from "
+                 "merge_buffers_plain")
+        return got
+
+    # grid rows: bitwise
+    for label, case in (("12 K6 edge cases", k6_edge_case(dev)),
+                        ("12 K6 grid rows, 15,000 x 512, C = 256",
+                         ivf_case(torch.cat([grid_rows(rng, 15000, 512, dev),
+                                             torch.zeros((1, 512),
+                                                         device=dev)]),
+                                  15000, 256, 8, 2))):
+        want = k6_plain(case)
+        for precision in ("bf16", "fp32"):
+            got = k6_run(case, precision)
+            if not torch.equal(got, want):
+                bad = (got != want).reshape(-1, case["kk_g"]).any(1)
+                fail(f"{label} ({precision}): K6 differs from rescore_plain "
+                     f"in {int(bad.sum())} of {bad.numel()} lists")
+        for spill in (1, 2, 3):
+            merges(f"{label}", want, case["k"], spill)
+        log(f"{label}: K6 bf16 and fp32 bitwise rescore_plain "
+            f"({case['real']} real pair-scores), K7 bitwise at spill 1, 2, "
+            f"3 [{card}]")
+
+    # K7 on sorted lists with recurring indices of other scores
+    for rows, p, w, k in ((3000, 8, 50, 50), (500, 3, 7, 10),
+                          (200, 40, 20, 300), (100, 1, 64, 64)):
+        buf = sorted_lists(rng, rows, p, w, dev)
+        for spill in (1, 2):
+            merges(f"12 K7 sorted lists ({rows}, {p}, {w}), k = {k}", buf, k,
+                   spill)
+    log("12 K7 bitwise merge_buffers_plain on sorted lists with recurring "
+        "indices (p = 8, 3, 40, 1; k past p w) at spill 1 and 2")
+
+    # K4 as the cluster ranking, with two centroids equal
+    x = torch.from_numpy(np.load(os.path.join(ckpt_dir, "embeddings.npy"))
+                         ).to(dev)
+    en_pad = ivf._unit_padded(x, "bf16")
+    n4 = x.shape[0]
+    cent = ivf._kmeans(en_pad[:n4], 256, 3)
+    cent[77] = cent[12]
+    for t in (1, 8):
+        got = ivf._top_clusters(en_pad[:n4], cent, t)
+        want = ivf.top_clusters_plain(en_pad[:n4], cent, t)
+        agree = set_agreement(got.cpu().numpy(), want.cpu().numpy())
+        g = got.cpu().numpy()
+        if (g == 77).any(axis=1)[~(g == 12).any(axis=1)].any() or \
+                (np.argmax(g == 77, axis=1) < np.argmax(g == 12, axis=1))[
+                    (g == 77).any(axis=1)].any():
+            fail(f"12 K4 cluster ranking t = {t}: the duplicated centroid's "
+                 "higher id came before (or without) its lower")
+        ms = time_cuda(lambda: ivf._top_clusters(en_pad[:n4], cent, t), 5)
+        plain_ms = time_cuda(lambda: ivf.top_clusters_plain(
+            en_pad[:n4], cent, t), 3)
+        log(f"12 K4 as the IVF cluster ranking, phase 4's rows over 256 "
+            f"centroids, t = {t}: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+            f"agreement {agree:.6f}, ties to the lower of two equal "
+            f"centroids [{card}]")
+        if agree < K6_AGREE:
+            fail(f"12 K4 cluster ranking t = {t}: agreement {agree:.6f} "
+                 f"below {K6_AGREE}")
+    del en_pad
+
+    # real rows: phase 4's at C = 256 (the report) and 11b's
+    for label, rows, c in (("phase 4's rows, C = 256", x, 256),
+                           (f"11b's {IVF_ROWS} x 512 rows, C = 1,024",
+                            overlap_rows(IVF_ROWS, dev), 1024)):
+        for precision in ("bf16", "fp32"):
+            case = ivf_case(ivf._unit_padded(rows, precision),
+                            rows.shape[0], c, 8, 2)
+            got = k6_run(case, precision)
+            if not torch.equal(got, k6_run(case, precision)):
+                fail(f"12 K6 {label} ({precision}): two launches differ")
+            want = k6_plain(case)
+            agree, err = hold_k6(f"12 K6 {label} ({precision})", got, want)
+            merged = merges(f"12 K7 {label} ({precision})", got, IVF_K, 2)
+            del want
+            ms = time_cuda(lambda: k6_run(case, precision), 5)
+            plain_ms = time_cuda(lambda: k6_plain(case), 1)
+            itemsize = 2 if precision == "bf16" else 4
+            ops = 2 * 512 * case["real"]
+            b = bound(case["nq"] * case["p"] * 512 * itemsize + got.numel()
+                      * 8, **({"bf16_ops": ops} if precision == "bf16"
+                              else {"fp32_ops": ops}))
+            units = len(ivf.rescore_units(case["counts_h"],
+                                          case["qcounts_h"]))
+            probed = sum(len(v) for v in case["groups"].values())
+            log(f"12 K6 {precision} at {label}: {case['real']} real pair-"
+                f"scores ({probed} probed clusters, {units} units, largest "
+                f"cluster "
+                f"{int(case['counts_h'].max())}): {ms:.4f} ms = "
+                f"{ops / ms / 1e9:.1f} TFLOP/s, device "
+                f"{device_us(lambda: k6_run(case, precision), 3, True)} us a "
+                f"launch; bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
+                f"{100 * b['bound_ms'] / ms:.1f}% of it); plain "
+                f"{plain_ms:.4f} ms; agreement {agree:.6f}, scores within "
+                f"{err:.3g}; two launches byte-identical [{card}]")
+            flat = got.reshape(case["nq"], -1)
+            kk = merged.shape[1]
+            k7_ms = time_cuda(lambda: ivf.merge_probe_lists(got, IVF_K, 2), 5)
+            k7_1 = time_cuda(lambda: ivf.merge_probe_lists(got, IVF_K, 1), 5)
+            k7_plain = time_cuda(lambda: ivf.merge_buffers_plain(
+                got, IVF_K, 2), 1)
+            topk_ms = time_cuda(lambda: torch.topk(flat, kk, dim=1), 5)
+            b7 = bound(got.numel() * 8 + merged.numel() * 8)
+            log(f"12 K7 at {label} ({precision} buffer {tuple(got.shape)}): "
+                f"spill 2 {k7_ms:.4f} ms, spill 1 {k7_1:.4f} ms, device "
+                f"{device_us(lambda: ivf.merge_probe_lists(got, IVF_K, 2), 3, True)}"
+                f" us a launch; bound {b7['bound_ms']:.5f} ms (bytes, "
+                f"{100 * b7['bound_ms'] / k7_ms:.1f}% of it); plain "
+                f"{k7_plain:.4f} ms; torch.topk of the buffer rows "
+                f"{topk_ms:.4f} ms; bitwise the plain merge [{card}]")
+            if c == 256:
+                report["ivf_rescore" if precision == "bf16"
+                       else "ivf_rescore_fp32"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=None, **b)
+                if precision == "bf16":
+                    report["ivf_merge"] = dict(
+                        max_abs_err=0.0, ms=k7_ms, plain_ms=k7_plain,
+                        library_ms=topk_ms, **b7)
+            del got, merged, flat, case
+    return report
+
+
 def check_sign_table(label: str, lib_size: int, d: int, seed: int,
                      density, dev, card: str) -> dict:
     """K5 against sign_table_plain on the card, bitwise, at a library of
@@ -4115,6 +4578,8 @@ def register_counters() -> None:
         knn_ivf,
         knn_ivf_sharded,
         knn_ivf_sharded_multihost,
+        merge_probe_lists,
+        rescore_clusters,
     )
     from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
@@ -4138,6 +4603,9 @@ def register_counters() -> None:
         "membership_embed_dense": (membership_embed_dense, "launches"),
         "knn_merge": (merge_block, "kernel_launches"),
         "knn_merge_fp32": (merge_block, "fp32_launches"),
+        "ivf_rescore": (rescore_clusters, "kernel_launches"),
+        "ivf_rescore_fp32": (rescore_clusters, "fp32_launches"),
+        "ivf_merge": (merge_probe_lists, "kernel_launches"),
         "srp_signs": (sign_table, "kernel_launches")})
     HOST_COUNTERS.update({
         "pack_reads_native": (native.pack_reads_native, "calls"),
@@ -4283,6 +4751,8 @@ def main() -> None:
         # library from 4d's checkpoints)
         report.update(check_knn_kernels(
             os.path.join(tmp, "ckpt", "checkpoints"), dev, card))
+        report.update(check_ivf_kernels(
+            os.path.join(tmp, "ckpt", "checkpoints"), dev, card))
         # 8: out of core, on phase 4's reads (8a) and at 262,144 rows (8b)
         launches["membership_embed"] += check_ooc_cli(
             fasta, os.path.join(tmp, "ooc"),
@@ -4318,14 +4788,24 @@ def main() -> None:
                              "library.npz")).items():
             if name in ("membership_embed", *STAGE_KERNELS):
                 launches[name] += n
-        # 11: the IVF k-NN on every path
-        for name, n in check_ivf(
-                fasta, os.path.join(tmp, "ivf"), sim, card, dev,
-                os.path.join(tmp, "out", "overlaps.tsv"),
-                os.path.join(tmp, "ckpt", "checkpoints", "library.npz"),
-                exact_ooc_secs).items():
+        # 11: the IVF k-NN on every path; K6 and K7 launch on its CLI runs
+        ivf_launches = check_ivf(
+            fasta, os.path.join(tmp, "ivf"), sim, card, dev,
+            os.path.join(tmp, "out", "overlaps.tsv"),
+            os.path.join(tmp, "ckpt", "checkpoints", "library.npz"),
+            exact_ooc_secs)
+        for name, n in ivf_launches.items():
             if name in ("membership_embed", *STAGE_KERNELS):
                 launches[name] += n
+        launches.update(
+            ivf_rescore=(ivf_launches["ivf_rescore"]
+                         - ivf_launches["ivf_rescore_fp32"]),
+            ivf_rescore_fp32=ivf_launches["ivf_rescore_fp32"],
+            ivf_merge=ivf_launches["ivf_merge"])
+        log(f"11 CLI runs: K4 {ivf_launches['knn_merge']} launches "
+            f"({ivf_launches['knn_merge_fp32']} fp32), K6 "
+            f"{ivf_launches['ivf_rescore']} ({launches['ivf_rescore_fp32']} "
+            f"fp32), K7 {launches['ivf_merge']} [{card}]")
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,

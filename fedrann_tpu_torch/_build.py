@@ -80,6 +80,12 @@ _SIGNATURES = {
     # out, vec, units, parts, stream
     "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,
                      _I64, _I64, _P, _I32, _I64, _P, _P],
+    # ivf_rescore.cu: rows, d, is_bf16, member, m_all, qtab, stab, qm,
+    # units, n_units, first, n_real, p, W, buf, vec, stream
+    "fk_ivf_rescore": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _P, _I64,
+                       _I64, _I64, _I64, _I64, _P, _I32, _P],
+    # buf, rows, p, L, K, dedup, out, stream
+    "fk_ivf_merge": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P],
     # srp_signs.cu: seed_mix, lib_size, d, n_words, bound, out, stream
     "fk_srp_signs": [_U64, _I64, _I64, _I64, _I64, _P, _P],
     # probes.cu: n, out, stream

@@ -11,15 +11,23 @@
 2. Each row is indexed in its `spill` nearest clusters, and each query
    probes its own `p` nearest; ties go to the lowest cluster id, as
    `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
-3. Rescore: the clusters fall into power-of-two (queries, members) size
-   classes; each class runs as batched products of its gathered query and
-   member rows, in chunks capped by CHUNK_BYTES, each tile's top-k taken
-   on (score, index) int64 keys (topk._order_keys), so equal scores go to
-   the lowest row index as in `knn_exact`. The partial lists land in a
-   (query, probe slot) buffer, which is merged 64 Ki rows at a time: a row
-   indexed in two probed clusters is scored twice, by products of
-   different shapes whose float32 sums may differ in the last bit, so the
-   merge keeps the higher-scoring copy of each index before its top-k.
+   On a CUDA device every assignment and ranking is one launch of K4
+   (topk.merge_block over the centroids); on the CPU a float32 matmul,
+   _order_keys and torch.topk (top_clusters_plain).
+3. Rescore: every probed cluster's queries are scored against its
+   members, exact scores on (score, index) int64 keys (topk._order_keys),
+   so equal scores go to the lowest row index as in `knn_exact`; each
+   (query, probe slot) gets its best keys in a buffer, which is then
+   merged per query: a row indexed in two probed clusters is scored
+   twice, so the merge keeps the higher-scoring copy of each index before
+   its top-k. On a CUDA device the rescore is K6 (csrc/ivf_rescore.cu
+   `fk_ivf_rescore`: a block a cluster and up to 128 of its queries,
+   walking its true member count) and the merge K7 (`fk_ivf_merge`, a
+   warp a query row), each one launch; on the CPU the clusters fall
+   into JAX's power-of-two (queries, members) size classes, each run as
+   batched products of gathered rows in chunks capped by CHUNK_BYTES
+   (rescore_plain), and the merge goes 64 Ki rows at a time
+   (merge_buffers_plain).
 
 Every returned distance is exact; recall is lost only to clusters a
 query does not probe. Below a few thousand rows (or 4 rows a cluster) the
@@ -39,11 +47,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.knn.topk import (
     EMPTY_KEY,
     _order_keys,
     keys_to_host,
     knn_exact,
+    merge_block,
     unit_rows,
 )
 from fedrann_tpu_torch.logging_utils import logger
@@ -87,10 +97,28 @@ def _top_clusters(en: torch.Tensor, cent: torch.Tensor, t: int,
                   bf16: bool = True,
                   chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """(N, t) int32 ids of each row's t best centroids by score, the
-    lowest id first among equal scores, chunk_bytes of scores and keys at
-    a time. With bf16 both operands are rounded to bfloat16 and the
-    products summed in float32 (JAX's bf16 dot_general with
-    preferred_element_type=f32), else float32 products."""
+    lowest id first among equal scores. With bf16 both operands are
+    rounded to bfloat16 and the products summed in float32 (JAX's bf16
+    dot_general with preferred_element_type=f32), else float32 products.
+    On a CUDA device one launch of K4 (topk.merge_block over the
+    centroids, whose (score desc, index asc) keys break ties to the lowest
+    id) takes every row; on the CPU the plain version, chunk_bytes of
+    scores and keys at a time (top_clusters_plain)."""
+    if en.device.type != "cuda":
+        return top_clusters_plain(en, cent, t, bf16, chunk_bytes)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    keys = merge_block(None, en.to(dtype).contiguous(),
+                       cent.to(dtype).contiguous(), 0, t,
+                       "bf16" if bf16 else "fp32")
+    return (LOW_WORD - (keys & LOW_WORD)).to(torch.int32)
+
+
+def top_clusters_plain(en: torch.Tensor, cent: torch.Tensor, t: int,
+                       bf16: bool = True,
+                       chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
+    """_top_clusters in plain PyTorch on any device: the float32 matmul
+    of the (rounded) rows and centroids, _order_keys and torch.topk,
+    chunk_bytes of scores and keys at a time."""
     c = cent.shape[0]
     cent_mm = cent.to(torch.bfloat16).float() if bf16 else cent.float()
     out = torch.empty((en.shape[0], t), dtype=torch.int32, device=en.device)
@@ -207,9 +235,20 @@ def _kmeans(en: torch.Tensor, n_clusters: int, iters: int,
 
 
 def _merge_buffers(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
-    """(rows, p, kk) int64 keys of each (query, probe slot) -> the (rows,
-    min(k, p*kk)) best keys of each row, MERGE_ROWS rows at a time; with
-    spill > 1 each index keeps only its highest-scoring copy."""
+    """(rows, p, kk) int64 keys of each (query, probe slot), each slot's
+    list sorted descending -> the (rows, min(k, p*kk)) best keys of each
+    row, sorted descending; with spill > 1 each index keeps only its
+    highest-scoring copy. A CUDA tensor launches K7 (merge_probe_lists),
+    a CPU tensor takes merge_buffers_plain."""
+    if buf.device.type == "cuda":
+        return merge_probe_lists(buf, k, spill)
+    return merge_buffers_plain(buf, k, spill)
+
+
+def merge_buffers_plain(buf: torch.Tensor, k: int, spill: int
+                        ) -> torch.Tensor:
+    """_merge_buffers in plain PyTorch on any device, MERGE_ROWS rows at a
+    time (any buffer: its lists need not be sorted)."""
     rows, p, kk_g = buf.shape
     w = p * kk_g
     kk = min(k, w)
@@ -235,31 +274,96 @@ def _dedup(keys: torch.Tensor) -> torch.Tensor:
     return keys.masked_fill_(dup, EMPTY_KEY)
 
 
+def merge_probe_lists(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
+    """K7 (csrc/ivf_rescore.cu `fk_ivf_merge`): _merge_buffers of a CUDA
+    buffer (rows, p, kk) of int64 keys whose every (query, slot) list is
+    sorted descending, as both rescores write it, in one launch (a warp a
+    row, a p-way merge of the lists, an index already taken dropped when
+    spill > 1); bitwise merge_buffers_plain on such a buffer. Counts its
+    launches in .kernel_launches; raises on a tensor it does not take."""
+    if buf.device.type != "cuda" or buf.dtype != torch.int64 \
+            or buf.dim() != 3 or not buf.is_contiguous():
+        raise ValueError(f"merge_probe_lists: a contiguous (rows, p, kk) "
+                         f"int64 CUDA buffer, not {buf.dtype} "
+                         f"{tuple(buf.shape)} on {buf.device}")
+    rows, p, kk_g = buf.shape
+    kk = min(k, p * kk_g)
+    out = torch.empty((rows, kk), dtype=torch.int64, device=buf.device)
+    if rows == 0 or kk == 0:
+        return out
+    _build.launch("fk_ivf_merge", buf.data_ptr(), rows, p, kk_g, kk,
+                  int(spill > 1), out.data_ptr(), device=buf.device)
+    merge_probe_lists.kernel_launches += 1
+    return out
+
+
+merge_probe_lists.kernel_launches = 0
+
+
+def _rescore_plan(counts_h: np.ndarray, qcounts_h: np.ndarray, qm: int,
+                  m_all: int) -> dict:
+    """{(query class, member class): [clusters]}: each probed cluster in
+    its power-of-two (queries, members) size class (JAX's padded plan)."""
+    groups: dict[tuple[int, int], list[int]] = {}
+    for c in np.flatnonzero(qcounts_h):
+        key = (min(_size_class(qcounts_h[c]), qm),
+               min(_size_class(counts_h[c]), m_all))
+        groups.setdefault(key, []).append(int(c))
+    return groups
+
+
 def _rescore(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
-             counts_h: np.ndarray, queries: torch.Tensor,
-             probes: torch.Tensor, k: int, spill: int,
+             counts_h: np.ndarray, first: int, nq: int,
+             probes: torch.Tensor, k: int, spill: int, precision: str,
              stats: dict) -> torch.Tensor:
-    """The (nq, min(k, ...)) int64 keys of query rows `queries` (nq, d)
-    over the members of their probed clusters `probes` (nq, p): candidate
-    rows en_pad[member[c]] (the table's sentinel rows and rows >= n_real
-    never win), exact float32 scores. Adds the size classes, probed
-    clusters and padded pair-scores to `stats`."""
+    """The (nq, min(k, ...)) int64 keys of the query rows en_pad[first :
+    first + nq] over the members of their probed clusters `probes` (nq,
+    p): candidate rows en_pad[member[c]] (the table's sentinel rows and
+    rows >= n_real never win), exact scores (bf16 products of the
+    bf16-rounded rows at precision="bf16", float32 at "fp32", float32
+    sums either way). On a CUDA device K6 (rescore_clusters) fills the
+    (query, probe slot) buffer and K7 merges it; on the CPU rescore_plain
+    and merge_buffers_plain. Adds JAX's plan (the size classes, probed
+    clusters and padded pair-scores) and the real pair-scores (the sum
+    over probed clusters of queries times members) to `stats`."""
     n_clusters, m_all = member.shape
-    nq, p = probes.shape
-    dev = en_pad.device
     qcounts = torch.bincount(probes.reshape(-1), minlength=n_clusters)
     qcounts_h = qcounts.cpu().numpy()
     qtab, stab = _probe_tables(probes, qcounts, n_clusters,
                                _ceil128(qcounts_h.max()))
-    q_pad = torch.cat([queries, en_pad[-1:]]).float()  # + the zero row
     kk_g = min(k, m_all)
+    groups = _rescore_plan(counts_h, qcounts_h, qtab.shape[1], m_all)
+    for (qcls, mcls), clusters in groups.items():
+        stats["pair_scores"] = (stats.get("pair_scores", 0)
+                                + len(clusters) * qcls * mcls)
+    stats["size_classes"] = stats.get("size_classes", 0) + len(groups)
+    stats["probed_clusters"] = (stats.get("probed_clusters", 0)
+                                + sum(len(v) for v in groups.values()))
+    stats["real_pair_scores"] = stats.get("real_pair_scores", 0) + int(
+        (qcounts_h.astype(np.int64) * counts_h.astype(np.int64)).sum())
+    if en_pad.device.type == "cuda":
+        buf = rescore_clusters(en_pad, n_real, member, counts_h, qtab, stab,
+                               qcounts_h, first, nq, probes.shape[1], kk_g,
+                               precision)
+    else:
+        buf = rescore_plain(en_pad, n_real, member, qtab, stab, groups,
+                            first, nq, probes.shape[1], k, kk_g)
+    return _merge_buffers(buf, k, spill)
+
+
+def rescore_plain(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
+                  qtab: torch.Tensor, stab: torch.Tensor, groups: dict,
+                  first: int, nq: int, p: int, k: int,
+                  kk_g: int) -> torch.Tensor:
+    """The (nq, p, kk_g) buffer of K6 in plain PyTorch on any device: each
+    size class (_rescore_plan) as batched float32 products of its
+    gathered query and member rows, in chunks capped by CHUNK_BYTES, each
+    tile's top-k taken on _order_keys' keys, scattered to (query, probe
+    slot); EMPTY_KEY where the members cannot fill a slot."""
+    dev = en_pad.device
+    q_pad = torch.cat([en_pad[first : first + nq], en_pad[-1:]]).float()
     buf = torch.full((nq + 1, p, kk_g), EMPTY_KEY, dtype=torch.int64,
                      device=dev)
-    groups: dict[tuple[int, int], list[int]] = {}
-    for c in np.flatnonzero(qcounts_h):
-        key = (min(_size_class(qcounts_h[c]), qtab.shape[1]),
-               min(_size_class(counts_h[c]), m_all))
-        groups.setdefault(key, []).append(int(c))
     d = en_pad.shape[1]
     for (qcls, mcls), clusters in sorted(groups.items()):
         kk = min(k, mcls)
@@ -276,12 +380,75 @@ def _rescore(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
             buf[qt, stab[sel, :qcls].long(), :kk] = torch.topk(
                 keys, kk, dim=2).values
             del keys
-        stats["pair_scores"] = (stats.get("pair_scores", 0)
-                                + len(clusters) * qcls * mcls)
-    stats["size_classes"] = stats.get("size_classes", 0) + len(groups)
-    stats["probed_clusters"] = (stats.get("probed_clusters", 0)
-                                + sum(len(v) for v in groups.values()))
-    return _merge_buffers(buf[:nq], k, spill)
+    return buf[:nq]
+
+
+# K6's work unit: a probed cluster times up to K6_ROWS of its query slots
+# (csrc/ivf_rescore.cu's BM)
+K6_ROWS = 128
+
+
+def rescore_units(counts_h: np.ndarray, qcounts_h: np.ndarray) -> np.ndarray:
+    """K6's work list: (U, 4) int32 (cluster, first query slot, query
+    slots, members) over the probed clusters, K6_ROWS slots a unit, the
+    clusters with the most members first (a long unit starts early)."""
+    cl = np.flatnonzero(qcounts_h)
+    cl = cl[np.argsort(-counts_h[cl], kind="stable")]
+    per = -(-qcounts_h[cl] // K6_ROWS)
+    c = np.repeat(cl, per)
+    j0 = (np.arange(per.sum()) - np.repeat(np.cumsum(per) - per, per)) \
+        * K6_ROWS
+    return np.stack([c, j0, np.minimum(K6_ROWS, qcounts_h[c] - j0),
+                     counts_h[c]], axis=1).astype(np.int32)
+
+
+def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
+                     counts_h: np.ndarray, qtab: torch.Tensor,
+                     stab: torch.Tensor, qcounts_h: np.ndarray, first: int,
+                     nq: int, p: int, kk_g: int,
+                     precision: str) -> torch.Tensor:
+    """K6 (csrc/ivf_rescore.cu `fk_ivf_rescore`): the (nq, p, kk_g) buffer
+    of rescore_plain in one launch on the card of en_pad, a block a unit
+    of rescore_units, walking each cluster's true member count. The rows
+    go in as bfloat16 at precision="bf16" (mma.sync, float32 sums: the
+    rows are bf16-rounded already, so the products are rescore_plain's),
+    float32 at "fp32" (FFMA); every (query, slot) list is written whole,
+    sorted descending, EMPTY_KEY past its members. Counts its launches in
+    .kernel_launches (the fp32 form's also in .fp32_launches); raises on
+    a tensor it does not take."""
+    if precision not in ("bf16", "fp32"):
+        raise ValueError(f"precision must be 'bf16' or 'fp32', not "
+                         f"{precision!r}")
+    tensors = (en_pad, member, qtab, stab)
+    dev = en_pad.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("rescore_clusters: every tensor on one CUDA "
+                         f"device, not {[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.int32 or not t.is_contiguous()
+           for t in (member, qtab, stab)) or qtab.shape != stab.shape:
+        raise ValueError("rescore_clusters: contiguous int32 tables")
+    rows = en_pad.to(torch.bfloat16 if precision == "bf16"
+                     else torch.float32).contiguous()
+    d = rows.shape[1]
+    buf = torch.empty((nq, p, kk_g), dtype=torch.int64, device=dev)
+    units = rescore_units(counts_h, qcounts_h)
+    if nq == 0 or kk_g == 0 or len(units) == 0:
+        return buf.fill_(EMPTY_KEY)
+    units_d = torch.from_numpy(units).to(dev)
+    vec = rows.data_ptr() % 16 == 0 and d % (8 if precision == "bf16"
+                                             else 4) == 0
+    _build.launch("fk_ivf_rescore", rows.data_ptr(), d,
+                  int(precision == "bf16"), member.data_ptr(),
+                  member.shape[1], qtab.data_ptr(), stab.data_ptr(),
+                  qtab.shape[1], units_d.data_ptr(), len(units), first,
+                  n_real, p, kk_g, buf.data_ptr(), int(vec), device=dev)
+    rescore_clusters.kernel_launches += 1
+    rescore_clusters.fp32_launches += precision == "fp32"
+    return buf
+
+
+rescore_clusters.kernel_launches = 0
+rescore_clusters.fp32_launches = 0
 
 
 def _unit_padded(emb: torch.Tensor, precision: str) -> torch.Tensor:
@@ -354,8 +521,8 @@ def knn_ivf(
     _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
     member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {}
-    keys = _rescore(en_pad, n, member, counts_h, en_pad[:n],
-                    top[:, :p].contiguous(), k, spill, stats)
+    keys = _rescore(en_pad, n, member, counts_h, 0, n,
+                    top[:, :p].contiguous(), k, spill, precision, stats)
     _log_search("knn_ivf", n, c, p, spill, counts_h, stats)
     knn_ivf.last = stats
     return keys_to_host(keys, transfer, n)
@@ -368,7 +535,7 @@ knn_ivf.last = {}
 
 def _search_blocks(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
                    counts_h: np.ndarray, probes: torch.Tensor, first: int,
-                   n_rows: int, mesh, k: int, spill: int,
+                   n_rows: int, mesh, k: int, spill: int, precision: str,
                    stats: dict) -> list[torch.Tensor]:
     """The keys of query rows first .. first + n_rows - 1 cut into one
     block per entry of `mesh` (b = ceil(n_rows / entries) rows each), each
@@ -383,10 +550,9 @@ def _search_blocks(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
                                           replicate(member, mesh))):
         lo, hi = j * b, min(n_rows, (j + 1) * b)
         if hi > lo:
-            out.append(_rescore(rows, n_real, table, counts_h,
-                                rows[first + lo : first + hi],
-                                probes[lo:hi].to(rows.device), k, spill,
-                                stats))
+            out.append(_rescore(rows, n_real, table, counts_h, first + lo,
+                                hi - lo, probes[lo:hi].to(rows.device), k,
+                                spill, precision, stats))
     return out
 
 
@@ -428,7 +594,7 @@ def knn_ivf_sharded(
     member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {"entries": mesh.size}
     keys = _search_blocks(en_pad, n, member, counts_h, top[:, :p], 0, n,
-                          mesh, k, spill, stats)
+                          mesh, k, spill, precision, stats)
     _log_search("knn_ivf_sharded", n, c, p, spill, counts_h, stats)
     knn_ivf_sharded.last = stats
     parts = [keys_to_host(kk, transfer, n) for kk in keys]
@@ -526,7 +692,7 @@ def knn_ivf_sharded_multihost(
     member, counts_h = _members(a, c, spill)
     stats: dict = {"entries": n_proc * n_local}
     keys = _search_blocks(en_pad, n_real, member, counts_h, top[:, :p],
-                          first, n_mine, mesh, k, spill, stats)
+                          first, n_mine, mesh, k, spill, precision, stats)
     _log_search(f"[rank {rank}] knn_ivf_sharded_multihost", n_real, c, p,
                 spill, counts_h, stats)
     knn_ivf_sharded_multihost.last = stats

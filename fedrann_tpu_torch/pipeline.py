@@ -127,8 +127,8 @@ def out_of_core(config: PipelineConfig, n_reads: int) -> bool:
 
 def knn_mesh(config: PipelineConfig,
              devices: Sequence[torch.device]) -> Mesh:
-    """The sharded k-NN's mesh over `devices`, as the JAX package builds it
-    from jax.devices(): for ring2d, (H, D) = --mesh-shape over the first
+    """The sharded k-NN's mesh over `devices`, as the JAX package builds
+    it from jax.devices(): for ring2d, (H, D) = --mesh-shape over the first
     H*D devices, else (1, n) with a warning for any other shape; for ring
     and allgather, a 1-D mesh over the first prod(--mesh-shape)."""
     if config.knn_shard_strategy != "ring2d":

@@ -1,0 +1,482 @@
+"""The IVF search's device stages (fedrann_tpu_torch/knn/ivf.py): the
+rescore (K6, csrc/ivf_rescore.cu `fk_ivf_rescore`, and its plain version
+rescore_plain), the dedup merge (K7, `fk_ivf_merge`, and
+merge_buffers_plain) and the cluster ranking (_top_clusters: K4 on the
+card, top_clusters_plain on the CPU).
+
+On the CPU, against the JAX package's `fedrann_tpu/knn/ivf.py` on the
+same numpy rows and tables:
+- rescore_plain's (query, probe slot) buffer against JAX's
+  _rescore_group + _scatter_group over JAX's own member and probe tables,
+  bitwise on grid rows (entries k / 64: exact in bfloat16, every product
+  and sum exact in float32) at both precisions and spill 1 and 2, and on
+  blobs within 1e-6 a distance at index-set agreement >= 0.999;
+- _top_clusters on CPU tensors bitwise JAX's _assign_spill and
+  _probe_lists from the same centroids;
+- the dispatch: CPU tensors reach the plain versions, and the kernels'
+  wrappers refuse them.
+
+The `cuda` tests (skipped without a card) hold each kernel against its
+plain version on the card: K6 bitwise on grid rows and at the edge cases
+(a 1-member cluster, one past a tile, k past the members, sentinel rows,
+unprobed and empty clusters, C = 8, a query row offset), to an index-set
+agreement >= 0.999 and scores within 2e-6 on real rows, two launches
+byte-identical; K7 bitwise at spill 1, 2 and 3 on K6's own buffers and on
+sorted lists whose indices recur at other scores; K4 as the cluster
+ranking at agreement >= 0.999, ties to the lower of two equal centroids;
+knn_ivf through K4, K6 and K7 with no plain version reached; the kernels
+on the last card's tensors. This file imports JAX only inside the CPU
+tests, so on a machine with a card and no JAX
+    python -m pytest --noconftest -q -m cuda tests/test_torch_ivf_rescore.py
+runs the `cuda` tests alone.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from fedrann_tpu_torch.knn import ivf
+from fedrann_tpu_torch.knn.topk import EMPTY_KEY, _decode_keys, _order_keys
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def jivf():
+    """The JAX package's IVF module (imported here, not at the top: the
+    `cuda` tests of this file run where JAX is not installed)."""
+    from fedrann_tpu.knn import ivf as module
+
+    return module
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: compares a CUDA kernel with its "
+                    "plain version")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def last_card(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices: launches each kernel on the "
+                    "last card while cuda:0 is current")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", n - 1)
+
+
+def _grid(rng, n, d):
+    """Rows of entries k / 64, |k| <= 8 (see the module docstring)."""
+    return (rng.integers(-8, 9, size=(n, d)) / 64).astype(np.float32)
+
+
+def _blobs(n, d, c, rng):
+    centers = rng.standard_normal((c, d)).astype(np.float32)
+    rows = centers[rng.integers(0, c, n)] + 0.3 * rng.standard_normal(
+        (n, d)).astype(np.float32)
+    return rows / np.linalg.norm(rows, axis=1, keepdims=True)
+
+
+def _case(en_pad, n_real, member, counts_h, probes, k, first=0):
+    """The tables and plan of one rescore over torch tensors on the
+    device of en_pad: what rescore_plain and rescore_clusters take."""
+    c = member.shape[0]
+    qcounts = torch.bincount(probes.reshape(-1), minlength=c)
+    qcounts_h = qcounts.cpu().numpy()
+    qtab, stab = ivf._probe_tables(probes, qcounts, c,
+                                   ivf._ceil128(qcounts_h.max()))
+    return dict(en_pad=en_pad, n_real=n_real, member=member,
+                counts_h=np.asarray(counts_h), qtab=qtab, stab=stab,
+                qcounts_h=qcounts_h, first=first, nq=probes.shape[0],
+                p=probes.shape[1], k=k, kk_g=min(k, member.shape[1]),
+                groups=ivf._rescore_plan(np.asarray(counts_h), qcounts_h,
+                                         qtab.shape[1], member.shape[1]))
+
+
+def _plain(case):
+    return ivf.rescore_plain(case["en_pad"], case["n_real"], case["member"],
+                             case["qtab"], case["stab"], case["groups"],
+                             case["first"], case["nq"], case["p"],
+                             case["k"], case["kk_g"])
+
+
+def _kernel(case, precision):
+    return ivf.rescore_clusters(
+        case["en_pad"], case["n_real"], case["member"], case["counts_h"],
+        case["qtab"], case["stab"], case["qcounts_h"], case["first"],
+        case["nq"], case["p"], case["kk_g"], precision)
+
+
+def _ivf_case(rows, c, p, spill, k, device=CPU):
+    """knn_ivf's tables over rows (N, d) float32 (taken as the search
+    scores them: a zero row appended), on `device`."""
+    n = rows.shape[0]
+    en_pad = torch.cat([torch.from_numpy(rows), torch.zeros(
+        (1, rows.shape[1]))]).to(device)
+    _, top = ivf._tables(en_pad[:n], c, 3, spill, p)
+    member, counts_h = ivf._members(top[:, :spill].reshape(-1), c, spill)
+    return _case(en_pad, n, member, counts_h, top[:, :p].contiguous(), k)
+
+
+def _jax_buffer(jivf, rows, precision, c, p, spill, k):
+    """JAX's (N, p, kk_g) rescore buffer over its own tables of `rows`,
+    driven as `_ivf_search_grouped` drives _rescore_group and
+    _scatter_group, as the port's keys (score 1 - dist; an inf distance
+    or a -1 index EMPTY_KEY), and those tables."""
+    import jax.numpy as jnp
+
+    n, d = rows.shape
+    en = jnp.asarray(rows)
+    cent, _, _ = jivf._kmeans(en, c, 3)
+    a, counts = jivf._assign_spill(en, cent, spill)
+    probes, qcounts = jivf._probe_lists(en, cent, p)
+    counts_h, qcounts_h = np.asarray(counts), np.asarray(qcounts)
+    m = ivf._ceil128(counts_h.max())
+    qm = ivf._ceil128(qcounts_h.max())
+    member = jivf._member_table(a, counts, c, m, spill=spill)
+    qtab, stab = jivf._probe_tables(probes, qcounts, c, qm)
+    en_pad = jnp.concatenate([en, jnp.zeros((1, d), en.dtype)])
+    if precision == "bf16":
+        en_pad = en_pad.astype(jnp.bfloat16)
+    kk_g = min(k, m)
+    buf_d = jnp.full((n + 1, p, kk_g), jnp.inf, jnp.float32)
+    buf_i = jnp.full((n + 1, p, kk_g), -1, jnp.int32)
+    for (qcls, mcls), cl in sorted(ivf._rescore_plan(
+            counts_h, qcounts_h, qm, m).items()):
+        sel = jnp.asarray(np.asarray(cl, np.int32))
+        qt_g, st_g = qtab[sel][:, :qcls], stab[sel][:, :qcls]
+        dist_g, idx_g = jivf._rescore_group(
+            en_pad, member[sel][:, :mcls], qt_g, jnp.int32(n),
+            min(k, mcls), "exact")
+        buf_d, buf_i = jivf._scatter_group(buf_d, buf_i, qt_g, st_g,
+                                           dist_g, idx_g)
+    dist, idx = np.asarray(buf_d)[:n], np.asarray(buf_i)[:n]
+    unset = np.isinf(dist) | (idx < 0)
+    keys = _order_keys(torch.from_numpy(np.where(unset, 0.0, 1.0 - dist)
+                                        .astype(np.float32)),
+                       torch.from_numpy(np.where(unset, 0, idx)
+                                        .astype(np.int64)))
+    keys.masked_fill_(torch.from_numpy(unset), EMPTY_KEY)
+    tables = {name: torch.from_numpy(np.array(t)) for name, t in (
+        ("member", member), ("probes", probes))}
+    return keys, tables, counts_h
+
+
+def _port_buffer(rows, tables, counts_h, k):
+    n = rows.shape[0]
+    en_pad = torch.cat([torch.from_numpy(rows),
+                        torch.zeros((1, rows.shape[1]))])
+    case = _case(en_pad, n, tables["member"], counts_h, tables["probes"], k)
+    return _plain(case)
+
+
+def _set_agreement(got, want):
+    """The share of got's set entries (not EMPTY_KEY) whose index the
+    same list of want holds, and the largest score difference of such a
+    pair; got, want (lists, w) int64 keys."""
+    gs, gi = _decode_keys(got)
+    ws, wi = _decode_keys(want)
+    ge, we = got == EMPTY_KEY, want == EMPTY_KEY
+    eq = (gi[:, :, None] == wi[:, None, :]) & ~ge[:, :, None] \
+        & ~we[:, None, :]
+    err = float((gs[:, :, None] - ws[:, None, :]).abs()[eq].max()) \
+        if bool(eq.any()) else 0.0
+    return float(eq.any(2).sum()) / max(int((~ge).sum()), 1), err
+
+
+# ---------------------------------------------------------------- CPU
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("spill", [1, 2])
+def test_rescore_plain_matches_jax_on_grid_rows(jivf, precision, spill):
+    """Tolerance: none. Grid rows make every score exact in both
+    packages, and equal scores go to the lowest index in both (JAX's
+    top_k by member position, which is row order)."""
+    rows = _grid(np.random.default_rng(3 + spill), 3000, 64)
+    want, tables, counts_h = _jax_buffer(jivf, rows, precision, 32, 4,
+                                         spill, 20)
+    got = _port_buffer(rows, tables, counts_h, 20)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_rescore_plain_matches_jax_on_blobs(jivf, precision):
+    """Real rows (unit blobs, bf16-rounded at bf16): the same unset
+    slots, index-set agreement >= 0.999 over the (query, slot) lists and
+    every shared pair's distance within 1e-6 (float32 sums in another
+    order)."""
+    rows = _blobs(4000, 64, 30, np.random.default_rng(8))
+    if precision == "bf16":
+        rows = torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
+    want, tables, counts_h = _jax_buffer(jivf, rows, precision, 32, 6, 2,
+                                         15)
+    got = _port_buffer(rows, tables, counts_h, 15)
+    w = got.shape[-1]
+    assert torch.equal(got == EMPTY_KEY, want == EMPTY_KEY)
+    agree, err = _set_agreement(got.reshape(-1, w), want.reshape(-1, w))
+    assert agree >= 0.999 and err <= 1e-6, (agree, err)
+
+
+@pytest.mark.parametrize("zero_rows", [False, True])
+def test_top_clusters_on_cpu_matches_jax(jivf, zero_rows):
+    """_top_clusters on CPU tensors (top_clusters_plain) against JAX's
+    _assign_spill and _probe_lists from the same centroids: equal, the
+    zero rows' ties (every centroid scores 0) to the lowest ids."""
+    import jax.numpy as jnp
+
+    rows = _blobs(3000, 32, 20, np.random.default_rng(21))
+    if zero_rows:
+        rows[::29] = 0.0
+    cent = jivf._kmeans(jnp.asarray(rows), 48, 2)[0]
+    flat, _ = jivf._assign_spill(jnp.asarray(rows), cent, 3)
+    probes, _ = jivf._probe_lists(jnp.asarray(rows), cent, 8)
+    top = ivf._top_clusters(torch.from_numpy(rows),
+                            torch.from_numpy(np.array(cent)), 8)
+    np.testing.assert_array_equal(top[:, :3].reshape(-1).numpy(),
+                                  np.asarray(flat))
+    np.testing.assert_array_equal(top.numpy(), np.asarray(probes))
+    np.testing.assert_array_equal(
+        top.numpy(), ivf.top_clusters_plain(
+            torch.from_numpy(rows), torch.from_numpy(np.array(cent)),
+            8).numpy())
+
+
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
+    """knn_ivf on CPU tensors calls top_clusters_plain, rescore_plain and
+    merge_buffers_plain (each counted) and launches no kernel."""
+    calls = {}
+    for name in ("top_clusters_plain", "rescore_plain",
+                 "merge_buffers_plain"):
+        fn = getattr(ivf, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            assert all(a.device.type == "cpu" for a in args
+                       if isinstance(a, torch.Tensor))
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(ivf, name, counted)
+    before = (ivf.rescore_clusters.kernel_launches,
+              ivf.merge_probe_lists.kernel_launches)
+    e = _blobs(6000, 32, 30, np.random.default_rng(4))
+    idx, _ = ivf.knn_ivf(torch.from_numpy(e), 10, n_clusters=32)
+    assert idx.shape == (6000, 10)
+    assert calls["top_clusters_plain"] == 4  # three k-means passes + one
+    assert calls["rescore_plain"] == 1 and calls["merge_buffers_plain"] == 1
+    assert (ivf.rescore_clusters.kernel_launches,
+            ivf.merge_probe_lists.kernel_launches) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """K6's and K7's wrappers take CUDA tensors only (the dispatch in
+    _rescore and _merge_buffers sends CPU tensors to the plain
+    versions)."""
+    rows = _grid(np.random.default_rng(1), 600, 16)
+    case = _ivf_case(rows, 8, 2, 1, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernel(case, "bf16")
+    with pytest.raises(ValueError, match="CUDA"):
+        ivf.merge_probe_lists(torch.full((4, 2, 3), EMPTY_KEY), 3, 2)
+
+
+def test_rescore_units_cover_every_probed_slot():
+    """K6's work list: every probed cluster's query slots once, in units
+    of at most K6_ROWS, the clusters with the most members first, the
+    empty ones included."""
+    counts_h = np.array([5, 0, 300, 7, 0, 40])
+    qcounts_h = np.array([129, 3, 0, 256, 0, 1])
+    units = ivf.rescore_units(counts_h, qcounts_h)
+    assert units.dtype == np.int32 and units.shape[1] == 4
+    slots = {(int(c), int(j)) for c, j0, q, _ in units
+             for j in range(j0, j0 + q)}
+    assert slots == {(c, j) for c in range(6) for j in range(qcounts_h[c])}
+    assert (units[:, 2] <= ivf.K6_ROWS).all() and (units[:, 2] > 0).all()
+    assert (units[:, 3] == counts_h[units[:, 0]]).all()
+    assert (np.diff(units[:, 3]) <= 0).all()
+
+
+# --------------------------------------------------------------- cuda
+
+
+def _edge_case(device):
+    """C = 8 clusters on grid rows of d = 512: 1, 300 (past a tile), 20
+    (k = 50 past its members), 60 (ten sentinel rows >= n_real, which
+    would score best), 100 (never probed), 0 (probed), 129 and 200
+    members, clusters sharing rows; 300 query rows from row 100, 3
+    probes each."""
+    rng = np.random.default_rng(16)
+    n_real, d = 900, 512
+    rows = _grid(rng, n_real + 40, d)
+    rows[n_real:] = 8 / 64
+    en_pad = torch.cat([torch.from_numpy(rows), torch.zeros((1, d))])
+    sizes = [1, 300, 20, 60, 100, 0, 129, 200]
+    member = np.full((8, ivf._ceil128(max(sizes))), n_real, np.int32)
+    for c, m in enumerate(sizes):
+        member[c, :m] = rng.choice(n_real, m, replace=False)
+    member[3, ::6][:10] = n_real + np.arange(10)
+    probes = np.stack([rng.choice([0, 1, 2, 3, 5, 6, 7], 3, replace=False)
+                       for _ in range(300)]).astype(np.int32)
+    return _case(en_pad.to(device), n_real,
+                 torch.from_numpy(member).to(device), sizes,
+                 torch.from_numpy(probes).to(device), 50, first=100)
+
+
+def _sorted_lists(rng, rows, p, w, device):
+    """(rows, p, w) keys, each list sorted descending, indices drawn from
+    3 w values (recurring across a row's lists at other scores), EMPTY_KEY
+    tails of random length, the first rows empty."""
+    s = torch.from_numpy(rng.standard_normal((rows, p, w)).astype(
+        np.float32))
+    keys = _order_keys(s, torch.from_numpy(rng.integers(0, 3 * w,
+                                                        (rows, p, w))))
+    keys.masked_fill_(torch.from_numpy(
+        np.arange(w)[None, None, :] >= rng.integers(0, w + 1,
+                                                    (rows, p, 1))),
+        EMPTY_KEY)
+    keys[: max(1, rows // 50)] = EMPTY_KEY
+    return torch.sort(keys, dim=2, descending=True).values.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("spill", [1, 2])
+def test_ivf_rescore_bitwise_on_grid_rows(cuda, precision, spill):
+    """K6 against rescore_plain on grid rows (every score exact) through
+    knn_ivf's own tables: bitwise, ties to the lowest index included."""
+    rows = _grid(np.random.default_rng(30 + spill), 5000, 512)
+    case = _ivf_case(rows, 64, 8, spill, 50, cuda)
+    assert torch.equal(_kernel(case, precision), _plain(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_ivf_rescore_edge_cases(cuda, precision):
+    """_edge_case bitwise, and no sentinel row in any list."""
+    case = _edge_case(cuda)
+    got = _kernel(case, precision)
+    assert torch.equal(got, _plain(case))
+    _, idx = _decode_keys(got[got != EMPTY_KEY])
+    assert bool((idx < case["n_real"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_ivf_rescore_real_rows(cuda, precision):
+    """Unit blobs (bf16-rounded at bf16), d = 512: the same unset slots,
+    strictly descending lists, index-set agreement >= 0.999 and shared
+    pairs' scores within 2e-6; two launches byte-identical."""
+    rows = _blobs(20000, 512, 60, np.random.default_rng(9))
+    if precision == "bf16":
+        rows = torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
+    case = _ivf_case(rows, 128, 8, 2, 50, cuda)
+    got = _kernel(case, precision)
+    assert torch.equal(got, _kernel(case, precision))
+    want = _plain(case)
+    w = got.shape[-1]
+    g, wt = got.reshape(-1, w), want.reshape(-1, w)
+    assert torch.equal(g == EMPTY_KEY, wt == EMPTY_KEY)
+    assert bool(((g[:, 1:] < g[:, :-1]) | (g[:, 1:] == EMPTY_KEY)).all())
+    agree, err = _set_agreement(g.cpu(), wt.cpu())
+    assert agree >= 0.999 and err <= 2e-6, (agree, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spill", [1, 2, 3])
+def test_ivf_merge_bitwise_on_rescore_buffers(cuda, spill):
+    """K7 against merge_buffers_plain on K6's own buffers (tables of
+    spill 1, 2 and 3, merged at that spill): bitwise."""
+    rows = _blobs(8000, 128, 40, np.random.default_rng(spill))
+    case = _ivf_case(rows, 64, 8, spill, 50, cuda)
+    buf = _kernel(case, "bf16")
+    assert torch.equal(ivf.merge_probe_lists(buf, 50, spill),
+                       ivf.merge_buffers_plain(buf, 50, spill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3000, 8, 50, 50), (500, 3, 7, 10),
+                                   (200, 40, 20, 300), (64, 1, 64, 64)])
+@pytest.mark.parametrize("spill", [1, 2, 3])
+def test_ivf_merge_bitwise_on_sorted_lists(cuda, shape, spill):
+    """K7 on sorted lists whose indices recur at other scores (the
+    highest copy kept), rows with fewer distinct indices than k (EMPTY_KEY
+    tails) and empty rows: bitwise merge_buffers_plain."""
+    rows, p, w, k = shape
+    buf = _sorted_lists(np.random.default_rng(rows + spill), rows, p, w,
+                        cuda)
+    assert torch.equal(ivf.merge_probe_lists(buf, k, spill),
+                       ivf.merge_buffers_plain(buf, k, spill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_top_clusters_through_k4(cuda, bf16):
+    """_top_clusters on the card (K4) against top_clusters_plain:
+    agreement >= 0.999 at t = 1 and t = 8 over 64 and 8 centroids (C < a
+    tile of 128), and of two equal centroids the lower id always first."""
+    from fedrann_tpu_torch.knn.topk import merge_block
+
+    rows = torch.from_numpy(_blobs(20000, 256, 50,
+                                   np.random.default_rng(5))).to(cuda)
+    for c in (64, 8):
+        cent = ivf._kmeans(rows, c, 2, bf16=bf16)
+        cent[c - 1] = cent[2]
+        for t in (1, min(8, c)):
+            before = merge_block.kernel_launches
+            got = ivf._top_clusters(rows, cent, t, bf16).cpu().numpy()
+            assert merge_block.kernel_launches == before + 1
+            want = ivf.top_clusters_plain(rows, cent, t, bf16).cpu().numpy()
+            both = np.sort(np.concatenate([got, want], axis=1), axis=1)
+            agree = (both[:, 1:] == both[:, :-1]).sum() / want.size
+            assert agree >= 0.999, (c, t, agree)
+            has_hi, has_lo = (got == c - 1).any(1), (got == 2).any(1)
+            assert not (has_hi & ~has_lo).any()
+            assert (np.argmax(got == 2, 1) < np.argmax(got == c - 1, 1))[
+                has_hi].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_knn_ivf_runs_k4_k6_k7_and_no_plain_version(cuda, monkeypatch,
+                                                     precision):
+    """knn_ivf on CUDA tensors: K4 (four cluster rankings), K6 and K7 one
+    launch each, no plain version called."""
+    from fedrann_tpu_torch.knn.topk import merge_block
+
+    for name in ("top_clusters_plain", "rescore_plain",
+                 "merge_buffers_plain"):
+        monkeypatch.setattr(ivf, name, lambda *a, _n=name, **k: pytest.fail(
+            f"{_n} called on the card"))
+    counts = lambda: (merge_block.kernel_launches,  # noqa: E731
+                      ivf.rescore_clusters.kernel_launches,
+                      ivf.rescore_clusters.fp32_launches,
+                      ivf.merge_probe_lists.kernel_launches)
+    before = counts()
+    e = torch.from_numpy(_blobs(8000, 128, 40,
+                                np.random.default_rng(2))).to(cuda)
+    idx, dist = ivf.knn_ivf(e, 20, n_clusters=64, precision=precision)
+    after = counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        4, 1, int(precision == "fp32"), 1)
+    assert (idx[:, 0] == np.arange(8000)).mean() > 0.99
+    assert (np.diff(dist, axis=1) >= 0).all()
+
+
+@pytest.mark.cuda
+def test_ivf_kernels_launch_on_their_tensors_card(last_card):
+    """With cuda:0 current, K6 and K7 on the last card's tensors launch
+    there and match their plain versions."""
+    case = _edge_case(last_card)
+    got = _kernel(case, "bf16")
+    merged = ivf.merge_probe_lists(got, 50, 2)
+    torch.cuda.synchronize(last_card)
+    assert torch.cuda.current_device() == 0
+    assert got.device == last_card and merged.device == last_card
+    want = _plain(case)
+    assert torch.equal(got, want)
+    assert torch.equal(merged, ivf.merge_buffers_plain(want, 50, 2))

@@ -249,18 +249,24 @@ Phases; any failure exits non-zero and prints no result line:
      project stage. Every CLI run must launch K4 (but the in-core and
      sharded IVF searches, which need not) and, with the sign table, K5;
      no CUDA tensor reaches either plain version in a CLI run.
-     Then the IVF search's kernels (check_ivf_kernels): K6
+     Then the IVF search's kernels (check_ivf_kernels): their build
+     (ptxas -v of every instance); K6
      (csrc/ivf_rescore.cu) bitwise rescore_plain on grid rows (entries
      k / 64, every score exact) at both precisions, at its edge cases (a
-     1-member cluster, one past a tile, k past the members, sentinel
-     rows, unprobed and empty clusters, C = 8, a query row offset) and at
+     1-member cluster, one past a tile and the first selection's 256
+     members, k past the members, sentinel rows, unprobed and empty
+     clusters, C = 8, a query row offset) at W = 1, 50, 64 and 100, on a
+     700-member cluster whose later tiles beat every earlier key (its
+     rows overflow their survivor slots; W = 1, 50, 64, 100) and at
      phase 4's size; on phase 4's rows at C = 256 and 11b's rows at C =
      1,024, spill 2, both precisions: index-set agreement >= K6_AGREE and
      scores within K6_TOL of the plain lists', two launches
      byte-identical, its time, device us, TFLOP/s, bound and share beside
-     the plain version's; K7 bitwise merge_buffers_plain on K6's buffers
-     at spill 1, 2 and 3 and on sorted lists with recurring indices, timed
-     beside the plain version and torch.topk of the buffer rows; K4 as the
+     the plain version's and PR 16's (PR16_MS); K7 bitwise
+     merge_buffers_plain on K6's buffers at spill 1, 2 and 3 and on sorted
+     lists with recurring indices (rows its exact finish takes; k past its
+     network's 512), timed beside the plain version, torch.topk of the
+     buffer rows and PR 16's; K4 as the
      cluster ranking (_top_clusters) against top_clusters_plain at
      agreement >= K6_AGREE, ties to the lower of two equal centroids.
      Every IVF CLI run but out of core launches K6 and K7; no CUDA tensor
@@ -363,6 +369,14 @@ IVF_SEARCH_RECALL = 0.99879 - 0.002
 # within K6_TOL (float32 sums of exact products in another order); K4's
 # cluster ranking against top_clusters_plain: agreement >= K6_AGREE
 K6_AGREE, K6_TOL = 0.999, 2e-6
+# 12: K6's and K7's times at PR 16's design (a running top-k in device
+# memory; a p-way pop merge), ms on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md), logged beside this run's: (kernel, rows) -> ms
+PR16_MS = {("ivf_rescore", "phase 4"): 1.1584,
+           ("ivf_rescore", "11b"): 45.8639,
+           ("ivf_rescore_fp32", "phase 4"): 1.9338,
+           ("ivf_rescore_fp32", "11b"): 98.2204,
+           ("ivf_merge", "phase 4"): 0.1943, ("ivf_merge", "11b"): 3.8725}
 # 12: K4 against merge_block_plain: every kernel score within K4_TOL of
 # the plain score of its pair (float32 sums of 512 exact products in
 # another order); neighbor sets equal but at plain near-ties; agreement
@@ -3973,10 +3987,11 @@ def k4_edge_cases(dev):
     return cases
 
 
-def log_k4_build(card: str) -> None:
-    """Log what ptxas -v said of each K4 instance (csrc/knn_merge.cu's
-    kernels) in the kernel library's build log: registers, spills, and
-    static shared memory (its dynamic shared memory is set at launch)."""
+def log_build(label: str, pattern: str, card: str) -> None:
+    """Log what ptxas -v said of each kernel instance whose mangled name
+    matches `pattern` (e.g. csrc/knn_merge.cu's K4 kernels) in the kernel
+    library's build log: registers, spills, and static shared memory (the
+    dynamic shared memory is set at launch)."""
     import re
 
     from fedrann_tpu_torch import _build
@@ -3988,7 +4003,8 @@ def log_k4_build(card: str) -> None:
         lines = f.read().splitlines()
     seen = {}
     for i, line in enumerate(lines):
-        found = re.search(r"Function properties for (\S*knn_merge\w*)", line)
+        found = re.search(r"Function properties for (\S*(?:" + pattern
+                          + r")\w*)", line)
         if found is None or found.group(1) in seen:
             continue
         text = " ".join(lines[i + 1 : i + 3])
@@ -4002,14 +4018,14 @@ def log_k4_build(card: str) -> None:
             f"{spill.group(2) if spill else '?'} bytes, static smem "
             f"{smem.group(1) if smem else 0} bytes")
     if not seen:
-        fail(f"12: the build log {path} names no knn_merge kernel")
+        fail(f"12: the build log {path} names no {pattern} kernel")
     for name, text in seen.items():
-        log(f"12 K4 build (ptxas -v) {name}: {text} [{card}]")
+        log(f"12 {label} build (ptxas -v) {name}: {text} [{card}]")
 
 
 def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     """Phase 12, K4 and K5 against their plain versions on the card: K4's
-    build (log_k4_build); K4 at phase 4's rows (4d's checkpoint; bf16,
+    build (log_build); K4 at phase 4's rows (4d's checkpoint; bf16,
     then the fp32 form; each also at K4_SPLITS forced units, bitwise the
     planned split's keys), at K4_ROWS and OOC_ROWS x 512 rank-16 rows
     (OOC_SAMPLE sampled queries over OOC_ROWS), and on k4_edge_cases at
@@ -4030,7 +4046,7 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
         normalize_rows,
     )
 
-    log_k4_build(card)
+    log_build("K4", "knn_merge", card)
     tally = []
     x = normalize_rows(torch.from_numpy(np.load(os.path.join(
         ckpt_dir, "embeddings.npy"))).to(dev))
@@ -4251,13 +4267,13 @@ def grid_rows(rng, n: int, d: int, dev):
         "float32") / 64).to(dev)
 
 
-def k6_edge_case(dev) -> dict:
+def k6_edge_case(dev, k: int = 50) -> dict:
     """K6's edge cases in one table, on grid rows (FLAGS' --seed): C = 8
-    clusters of 1, 300 (past a tile), 20 (k = 50 past its members), 60
-    (ten of them sentinel rows >= n_real, whose rows would win), 100
-    (never probed), 0 (probed), 129 and 200 members, clusters sharing
-    rows (a spill); 300 query rows from row 100 (a row offset), 3 probes
-    each among the probed clusters; k = 50."""
+    clusters of 1, 300 (past a tile and the first selection's 256), 20 (k
+    = 50 past its members), 60 (ten of them sentinel rows >= n_real, whose
+    rows would win), 100 (never probed), 0 (probed), 129 and 200 members,
+    clusters sharing rows (a spill); 300 query rows from row 100 (a row
+    offset), 3 probes each among the probed clusters; k neighbors."""
     import numpy as np
     import torch
 
@@ -4284,7 +4300,48 @@ def k6_edge_case(dev) -> dict:
                                    ivf._ceil128(qcounts_h.max()))
     return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
                       np.array(sizes, np.int64), qtab, stab, qcounts_h,
-                      first, nq, p, 50)
+                      first, nq, p, k)
+
+
+def k6_flood_case(dev, k: int) -> dict:
+    """A cluster whose members score higher tile by tile for every query,
+    so K6's rows overflow their survivor slots: 700 members, member i's
+    first level(i) of 64 values 8 / 64 and the rest -8 / 64, 130 queries of
+    all 1 / 64 (score (2 level - 64) / 512); levels i // 8 over the first
+    256 members, then 40 at 32 and 88 at 0, then 128 at 33 (every key of
+    the tile beats every earlier one), then 34 + (i - 512) // 40; ties to
+    the lowest index. A second cluster of 90 grid rows (FLAGS' --seed), 10
+    of them sentinel rows >= n_real; every query probes both."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]) + 41)
+    n_real, d = 1000, 64
+    level = np.concatenate([np.arange(256) // 8, np.full(40, 32),
+                            np.zeros(88, np.int64), np.full(128, 33),
+                            34 + np.arange(188) // 40])
+    rows = np.full((n_real + 20, d), -8 / 64, np.float32)
+    for i, lv in enumerate(level):
+        rows[i, :lv] = 8 / 64
+    rows[700:830] = 1 / 64
+    rows[830:n_real] = rng.integers(-8, 9, (n_real - 830, d)) / 64
+    rows[n_real:] = 8 / 64
+    en_pad = torch.cat([torch.from_numpy(rows), torch.zeros((1, d))]).to(dev)
+    member = np.full((2, 768), n_real, np.int32)
+    member[0, :700] = np.arange(700)
+    member[1, :90] = 830 + np.arange(90)
+    member[1, ::9][:10] = n_real + np.arange(10)
+    probes = torch.from_numpy(np.tile(np.array([[0, 1]], np.int32),
+                                      (130, 1))).to(dev)
+    qcounts = torch.bincount(probes.reshape(-1), minlength=2)
+    qcounts_h = qcounts.cpu().numpy()
+    qtab, stab = ivf._probe_tables(probes, qcounts, 2,
+                                   ivf._ceil128(qcounts_h.max()))
+    return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
+                      np.array([700, 90], np.int64), qtab, stab, qcounts_h,
+                      700, 130, 2, k)
 
 
 def sorted_lists(rng, rows: int, p: int, w: int, dev):
@@ -4339,13 +4396,18 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                  "merge_buffers_plain")
         return got
 
+    log_build("K6/K7", "ivf_(?:rescore|merge)", card)
     # grid rows: bitwise
-    for label, case in (("12 K6 edge cases", k6_edge_case(dev)),
-                        ("12 K6 grid rows, 15,000 x 512, C = 256",
-                         ivf_case(torch.cat([grid_rows(rng, 15000, 512, dev),
-                                             torch.zeros((1, 512),
-                                                         device=dev)]),
-                                  15000, 256, 8, 2))):
+    cases = [("12 K6 edge cases", k6_edge_case(dev)),
+             ("12 K6 grid rows, 15,000 x 512, C = 256",
+              ivf_case(torch.cat([grid_rows(rng, 15000, 512, dev),
+                                  torch.zeros((1, 512), device=dev)]),
+                       15000, 256, 8, 2))]
+    cases += [(f"12 K6 edge cases, W = {k}", k6_edge_case(dev, k))
+              for k in (1, 64, 100)]
+    cases += [(f"12 K6 a 700-member cluster overflowing its survivors, W = "
+               f"{k}", k6_flood_case(dev, k)) for k in (1, 50, 64, 100)]
+    for label, case in cases:
         want = k6_plain(case)
         for precision in ("bf16", "fp32"):
             got = k6_run(case, precision)
@@ -4355,19 +4417,23 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                      f"in {int(bad.sum())} of {bad.numel()} lists")
         for spill in (1, 2, 3):
             merges(f"{label}", want, case["k"], spill)
-        log(f"{label}: K6 bf16 and fp32 bitwise rescore_plain "
+        log(f"{label} (largest cluster {int(case['counts_h'].max())}): K6 "
+            "bf16 and fp32 bitwise rescore_plain "
             f"({case['real']} real pair-scores), K7 bitwise at spill 1, 2, "
             f"3 [{card}]")
 
     # K7 on sorted lists with recurring indices of other scores
     for rows, p, w, k in ((3000, 8, 50, 50), (500, 3, 7, 10),
-                          (200, 40, 20, 300), (100, 1, 64, 64)):
+                          (200, 40, 20, 300), (100, 1, 64, 64),
+                          (50, 40, 20, 600)):
         buf = sorted_lists(rng, rows, p, w, dev)
-        for spill in (1, 2):
+        for spill in (1, 2, 3):
             merges(f"12 K7 sorted lists ({rows}, {p}, {w}), k = {k}", buf, k,
                    spill)
     log("12 K7 bitwise merge_buffers_plain on sorted lists with recurring "
-        "indices (p = 8, 3, 40, 1; k past p w) at spill 1 and 2")
+        "indices (p = 8, 3, 40, 1, 40; k past p w and past the network's "
+        "512; with dedup their rows take the exact finish) at spill 1, 2 "
+        "and 3")
 
     # K4 as the cluster ranking, with two centroids equal
     x = torch.from_numpy(np.load(os.path.join(ckpt_dir, "embeddings.npy"))
@@ -4402,6 +4468,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     for label, rows, c in (("phase 4's rows, C = 256", x, 256),
                            (f"11b's {IVF_ROWS} x 512 rows, C = 1,024",
                             overlap_rows(IVF_ROWS, dev), 1024)):
+        at = "phase 4" if c == 256 else "11b"
         for precision in ("bf16", "fp32"):
             case = ivf_case(ivf._unit_padded(rows, precision),
                             rows.shape[0], c, 8, 2)
@@ -4421,6 +4488,8 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                               else {"fp32_ops": ops}))
             units = len(ivf.rescore_units(case["counts_h"],
                                           case["qcounts_h"]))
+            name = "ivf_rescore" if precision == "bf16" else \
+                "ivf_rescore_fp32"
             probed = sum(len(v) for v in case["groups"].values())
             log(f"12 K6 {precision} at {label}: {case['real']} real pair-"
                 f"scores ({probed} probed clusters, {units} units, largest "
@@ -4430,8 +4499,9 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 f"{device_us(lambda: k6_run(case, precision), 3, True)} us a "
                 f"launch; bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
                 f"{100 * b['bound_ms'] / ms:.1f}% of it); plain "
-                f"{plain_ms:.4f} ms; agreement {agree:.6f}, scores within "
-                f"{err:.3g}; two launches byte-identical [{card}]")
+                f"{plain_ms:.4f} ms; PR 16's design "
+                f"{PR16_MS[(name, at)]} ms; agreement {agree:.6f}, scores "
+                f"within {err:.3g}; two launches byte-identical [{card}]")
             flat = got.reshape(case["nq"], -1)
             kk = merged.shape[1]
             k7_ms = time_cuda(lambda: ivf.merge_probe_lists(got, IVF_K, 2), 5)
@@ -4446,10 +4516,11 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 f" us a launch; bound {b7['bound_ms']:.5f} ms (bytes, "
                 f"{100 * b7['bound_ms'] / k7_ms:.1f}% of it); plain "
                 f"{k7_plain:.4f} ms; torch.topk of the buffer rows "
-                f"{topk_ms:.4f} ms; bitwise the plain merge [{card}]")
+                f"{topk_ms:.4f} ms; PR 16's design "
+                f"{PR16_MS[('ivf_merge', at)]} ms; bitwise the plain merge "
+                f"[{card}]")
             if c == 256:
-                report["ivf_rescore" if precision == "bf16"
-                       else "ivf_rescore_fp32"] = dict(
+                report[name] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=None, **b)
                 if precision == "bf16":

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels in `csrc/`, and build the
 host library of the native FASTX packer and TSV writer.
 
-All `csrc/*.cu` sources compile in ONE nvcc call into a shared library with
-a plain C interface, loaded with ctypes (no PyTorch headers, so the build
-takes seconds). The library lands in `_kernels/` beside this file (listed in
-.gitignore), named by a hash of the sources, so an edited source rebuilds
+All `csrc/*.cu` sources compile into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds): one nvcc a source, all started at once, then one link. The
+library lands in `_kernels/` beside this file (listed in .gitignore),
+named by a hash of the sources, so an edited source rebuilds
 and an unchanged one loads the existing build. The build happens at the
 first kernel launch in a process, never at import; processes that start
 together (the ranks of a multi-process run) build under one file lock,
@@ -128,11 +129,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfedrann_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(so: Path, command: list[str], what: str) -> Path:
+def _compile(so: Path, command: list[str], what: str,
+             log_head: str = "") -> Path:
     """Run `command`, which writes the library to the path that follows
     its "-o", into a temporary file renamed to `so` (atomic: a concurrent
-    build never sees half a file); the compiler's output is kept beside it
-    as `<library>.log`. Raises RuntimeError with that output on failure."""
+    build never sees half a file); the compiler's output, after
+    `log_head`, is kept beside it as `<library>.log`. Raises RuntimeError
+    with that output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -140,7 +143,7 @@ def _compile(so: Path, command: list[str], what: str) -> Path:
         command[command.index("-o") + 1] = tmp
         proc = subprocess.run(command, capture_output=True, text=True,
                               check=False)
-        log = proc.stdout + proc.stderr
+        log = log_head + proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"{what} failed ({proc.returncode}):\n{log}")
         Path(str(so) + ".log").write_text(log)
@@ -178,13 +181,37 @@ def _build_once(so: Path, command) -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library unless it exists; the
-    compiler's output (ptxas register and shared-memory use) is kept
+    """Compile csrc/*.cu into the hashed library unless it exists: each
+    source to an object by its own nvcc, all at once, then one link; the
+    compilers' output (ptxas register and shared-memory use) is kept
     beside it as `<library>.log`."""
     so = library_path()
-    cu = [str(p) for p in sorted(_CSRC.glob("*.cu"))]
-    return _build_once(so, lambda: _compile(
-        so, [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", "", *cu], "nvcc"))
+
+    def compile_all() -> Path:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cu = sorted(_CSRC.glob("*.cu"))
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+            procs = [subprocess.Popen(
+                [_nvcc(), *flags, "-c", "-I", str(_CSRC), "-o", obj,
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(cu, objs)]
+            logs, failed = [], []
+            for src, proc in zip(cu, procs):
+                out, _ = proc.communicate()
+                logs.append(f"== {src.name}\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+            head = "\n".join(logs) + "\n"
+            if failed:
+                raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                                   f"{head}")
+            return _compile(so, [_nvcc(), "-shared", "-o", "", *objs],
+                            "nvcc (link)", head)
+
+    return _build_once(so, compile_all)
 
 
 def host_library_path(source: Path = HOST_SOURCE) -> Path:

@@ -20,99 +20,140 @@
 // tensor cores' 989 TFLOP/s, at fp32 over the FFMA pipe's 67 TFLOP/s. The
 // bytes are the query and member rows each unit gathers and the buffer.
 //
-// Design (simple first; the product and the running top-k are PR 13's K4,
-// lifted). The host cuts the probed clusters into units of BM = 128 query
+// Units. The host cuts the probed clusters into units of BM = 128 query
 // slots (knn/ivf.py rescore_units: (cluster, first slot, slots, members),
 // the clusters with the most members first); a block a unit, one an SM.
-// Eight warps, 4 x 2, each a
-// 32 x 64 part of a 128 x 128 tile of (query slot, member) pairs. The
-// depth is walked in stages of 128 bytes a row, three in flight (cp.async
+// Eight warps; warp w owns the unit's query slots 16 w .. 16 w + 15 in the
+// product's result and in everything after it, so no step past the
+// product waits for another warp.
+//
+// The product. The unit's members are walked in tiles of BN = 128, each
+// tile's depth in stages of 128 bytes a row, three in flight (cp.async
 // groups, one barrier a step): the stage's query rows gathered by qtab,
-// its member rows by member[c, :], each row of bf16 in eight 16-byte
-// cp.async pieces (scalar loads where d % 8 != 0 or the base is not 16
+// its member rows by member[c, :], each row in eight 16-byte cp.async
+// pieces (scalar loads where d * itemsize % 16 != 0 or the base is not 16
 // bytes aligned), zeros past the unit's slots, past its members, for a
-// member >= n_real and past d.
-//   - bf16: chunks of a row XOR-swizzled by the row, so the ldmatrix reads
-//     of a fragment hit 32 distinct banks; mma.sync.m16n8k16 bf16 with
-//     float32 accumulation.
-//   - fp32: float32 rows stored transposed (depth-major, padded by one
-//     word against bank conflicts), a thread 8 x 8 pairs, fmaf over the
-//     depth in order.
+// member >= n_real and past d. Piece p of stage row r lies at piece p ^ (r
+// & 7) of the row (the 128-byte swizzle), from a 1024-byte aligned stage.
+//   - bf16: each warpgroup's 64 query rows times the tile's 128 member
+//     rows by wgmma.mma_async m64n128k16 (bf16 in, float32 sums), both
+//     operands K-major in shared memory through 128-byte swizzle
+//     descriptors. TMA's tiled loads cannot gather rows by index, so the
+//     threads gather them by cp.async; each thread's fence.proxy.async
+//     after its copies land, then the step's barrier, hands the stage to
+//     the tensor cores' (async) proxy.
+//   - fp32: a thread 2 x 8 of its warp's rows (ra + 2 i) times 8 members
+//     (tx + 16 j), 16-byte loads of four depth values of each (the swizzle
+//     spreads them over the banks, as in knn_merge.cu's knn_merge_ffma),
+//     fmaf over the depth in order.
 // Every pair's score is one fixed sequence of operations whatever its
 // place (d never split, sums from +0.0, zero-padded to the stage depth),
 // so a row's score against a query is the same bits in every cluster that
 // holds it, and the spill copies K7 removes are exact copies.
 //
-// The running top-k: a row's list (at most W keys, sorted descending)
-// lives in its buffer row in device memory; its length and W-th key (the
-// threshold; EMPTY_KEY while the list is short) in shared memory. After a
-// tile's product each column half is staged in shared memory and scanned
-// (a thread a row and 32 columns), keys above the threshold appended to
-// the row's SV = 96 survivor slots; a row holding more than 32 is merged
-// by one warp, by rank (keys are distinct: a cluster's members are).
+// The selection (what PR 16's running top-k became). A unit sees all of
+// its cluster's members, and there are few (~520 at 11b), so each row's
+// top W is selected once over the first MR = 256 members, not merged into
+// a running list tile by tile:
+//   1. The first two tiles' scores go to shared memory (S: 128 rows x 256
+//      float32, columns XOR-swizzled by the row). Then each warp selects
+//      for its rows, four at a time, G = 8 lanes a row (so four rows'
+//      dependent steps overlap): a lane builds the keys of columns j + 8 i
+//      (32 in registers; none past the members or for a member >= n_real)
+//      and the group finds a key t with exactly need = min(W, valid
+//      members) keys at or above it: a bisection on the keys' high words
+//      (the scores' monotone bits), each step counting the keys >= mid (a
+//      compare a key, a group sum), until a bound counts exactly need;
+//      where the need-th key ties others at a high word T, a bisection on
+//      the low words of the keys at T (keys are distinct: a cluster's
+//      members are; ~15 steps a row at 11b). The keys >= t are compacted
+//      (ballots) into the row's list and sorted there by the group's
+//      bitonic sort in registers. A warp's lists overlay only its own S
+//      rows, each already read into registers when it is written, so no
+//      barrier is needed.
+//   2. A cluster past MR members (its later tiles, a member range each)
+//      keeps the lists: each later tile's keys above the row's threshold
+//      (its list's W-th key; EMPTY_KEY while it is short) are offered on
+//      the accumulators to the row's survivor slots in shared memory (the
+//      S rows freed by step 1): the lanes holding a row take slots by
+//      ballots, counting in registers, and store (the score's monotone
+//      bits, the member's place); the member's index, the key's low word,
+//      is read when the row merges (a high-word tie with the threshold
+//      reads it at once). A row past SV / 2 survivors after a tile merges
+//      them into its list (its warp's groups, four rows at a time: the
+//      survivors sorted by the bitonic network, then the top 64 of list
+//      and survivors -- the larger of list[e] and survivors[63 - e] -- by
+//      a bitonic clean); a tile that would overflow a row's slots is
+//      offered again in eight rounds of 16 columns, merging rows past SV -
+//      16 between rounds. After the last tile the rows merge what is left.
+// Two forms: W <= 64 (LS) keeps the lists in shared memory (S's first
+// half; 64 survivor slots a row in its second half). W > 64 keeps each
+// list in its buffer row (the block's own), a warp a row sorting up to
+// 256 keys after the first selection and merging the survivors (128 slots
+// a row, all of S) by rank (each key's place from a binary search of the
+// other run), so any W works.
 // No atomics on results: each (query, slot) is one block's, so two
-// launches write the same bytes. tools/k6_breakdown.py (the kernel rebuilt
-// with the offers, the product or both switched off) shows the running
-// top-k, not the product or the gathers, bounding this design: a unit
-// sweeps only a few member tiles, so each list merges ~5 times and takes
-// ~200 survivors (PERF.md).
+// launches write the same bytes.
 //
-// Resources, as ptxas -v gives them (sm_90a, the build log): the bf16 form
-// 230 registers, the fp32 form 158, no spills; 209,664 bytes of dynamic
-// shared memory (three 33 KB stages, 96 KB of survivors, 8 KB of merge
-// scratch, the row states and query rows). K7 32 registers.
+// Resources: no static shared memory; dynamic 231,936 bytes (three 32 KB
+// stages, S's 128 KB, the rows' query indices, survivor counts and list
+// lengths, and 1 KB for the 1024-byte alignment); registers and spills of
+// each instance as ptxas -v gives them in the build log (chip_smoke.py's
+// phase 12 logs them).
 //
 // K7 (ivf_merge_kernel, entry fk_ivf_merge) replaces the JAX package's
 // `_merge_buffers` / `_dedup_topk` (fedrann_tpu/knn/ivf.py:227, :136) and
-// the port's `merge_buffers_plain`: per query row, the p lists of W keys
-// -> the best min(k, p W), sorted descending; with dedup (spill > 1)
+// the port's `merge_buffers_plain`: per query row, the p lists of L keys
+// -> the best min(K, p L), sorted descending; with dedup (spill > 1)
 // every key but the highest of each index dropped first. Each list must
 // be sorted descending, as both rescores write it. Bound: bytes (the
-// buffer read once, the result written once). A warp a row: the row's p W
-// keys go to shared memory in one coalesced read; a lane holds the head
-// of the lists l = lane, lane + 32, ...; each step the warp takes the
-// largest head (the lowest list among equal keys), drops it if an index
-// already taken has the same low word, else appends it; the owner lane
-// advances that list. The keys come out in descending order, so the first
-// copy of an index met is its highest, and the result is bitwise
-// merge_buffers_plain's; EMPTY_KEY (the least key) ends the walk and
-// fills the tail.
+// buffer read once, the result written once). A warp a row, through a
+// merge network: the row's top T = 32 R keys (T >= 64 and >= K times the
+// copies an index can have, min(spill, p), at most 512) in R registers a
+// lane; list 0's first T keys, then each further list's first T merged in
+// (the top T of two sorted runs: the larger of a[e] and b[T - 1 - e], then
+// a bitonic clean), the lists read once, coalesced. Without dedup the
+// first K are the result. With dedup, exact copies (a row scored in two
+// probed clusters: the same bits) sit next to each other and all but the
+// first are dropped; if no index then recurs among the kept keys (a hash
+// of their low words in shared memory), each kept key is its index's
+// highest, and the first K of them are the result, provided there are K,
+// or the T-th merged key is EMPTY_KEY (every key was seen). A row that
+// fails either test (an index at two scores, or too few distinct keys in
+// the top T) finishes exactly in the same kernel by a p-way merge of its
+// lists, one key a step, dropping an index already taken (the keys come
+// out in descending order, so an index's first copy is its highest); so
+// the result is bitwise merge_buffers_plain's on any sorted lists.
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "keys_sm90.cuh"
 
 namespace {
 
-constexpr int64_t EMPTY_KEY = INT64_MIN;
-
 // K6
 
-constexpr int BM = 128;          // query slots a unit
-constexpr int BN = 128;          // members a tile
-constexpr int THREADS = 256;     // eight warps, 4 (rows) x 2 (members)
-constexpr int STAGES = 3;        // depth stages in flight
-constexpr int BK16 = 64;         // bf16 values a stage (128 bytes a row)
-constexpr int BK32 = 32;         // float32 values a stage (128 bytes a row)
-constexpr int A32 = BM + 1;      // transposed fp32 strides, padded
-constexpr int B32 = BN + 1;
-constexpr int ROUND = BN / 2;    // keys a row gains in a half at most
-constexpr int SV = 96;           // survivor slots a row
-constexpr int MERGE_AT = SV - ROUND;  // a row holding more merges
-constexpr int LCAP = 128;        // lists merged through the warp's scratch
+constexpr int BM = 128;           // query slots a unit
+constexpr int BN = 128;           // members a tile
+constexpr int THREADS = 256;      // eight warps, 16 query slots each
 constexpr int WARPS = THREADS / 32;
-constexpr int STAGE16 = (BM + BN) * BK16 * 2;
-constexpr int STAGE32 = (A32 + B32) * BK32 * 4;
-constexpr int STAGE_BYTES = STAGE32 > STAGE16 ? STAGE32 : STAGE16;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + BM * SV * 8
-                           + WARPS * LCAP * 8 + BM * 16 + BM * 16;
-constexpr int FP_ROWS = THREADS / 16;  // fp32: a thread's row stride
-static_assert(BM * ROUND * 4 <= STAGE_BYTES, "a half's scores fit a stage");
-static_assert(THREADS == 2 * BM && ROUND == 64, "offer_half's layout");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int STAGES = 3;         // depth stages in flight
+constexpr int ROWB = 128;         // bytes of a stage row: 64 bf16, 32 f32
+constexpr int CHUNK = BM * ROWB;  // a stage's 128 rows of one side, 16 KB
+constexpr int STAGE = 2 * CHUNK;  // the query chunk, then the member chunk
+constexpr int MR = 2 * BN;        // members of the first selection
+constexpr int ALIGN = 1024;       // the 128-byte swizzle's atom
+constexpr int S_BYTES = BM * MR * 4;
+constexpr int SMEM_BYTES = ALIGN + STAGES * STAGE + S_BYTES + 3 * BM * 4;
+constexpr int WL = 64;            // list slots a row in shared memory
+constexpr int ROW_KEYS = MR * 4 / 8;  // keys in a row's S bytes
+constexpr int SV_LS = ROW_KEYS - WL;  // survivor slots beside a list: 64
+constexpr int SV_DEV = ROW_KEYS;      // with the list in device memory: 128
+constexpr int CW = 16;                // keys a row gains in a round at most
+static_assert(BM == 16 * WARPS, "a warp's 16 rows");
+static_assert(SV_LS == 64 && SV_DEV == 128, "the merges' register runs");
+static_assert(SMEM_BYTES <= 232448, "one block an SM");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -128,39 +169,16 @@ __device__ __forceinline__ void cp_async_wait_stage() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+// This thread's shared-memory writes (its cp.async copies, landed, and its
+// stores) made visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// _order_keys of one score: the high word is the float32 bits made
-// monotone, the low word lo = 0xFFFFFFFF - index.
-__device__ __forceinline__ int32_t mono_bits(float s) {
-  const int32_t b = __float_as_int(s);
-  return b ^ ((b >> 31) & 0x7fffffff);
-}
-
-__device__ __forceinline__ int64_t make_key(int32_t mono, uint32_t lo) {
-  return static_cast<int64_t>(
-      (static_cast<uint64_t>(static_cast<uint32_t>(mono)) << 32) | lo);
-}
-
-// The rows of a stage's tile are gathered: tile row r is global row
-// row_of(r), or zeros where that is negative.
+// The rows of a stage are gathered: stage row r is global row row_of(r),
+// or zeros where that is negative.
 struct QueryRows {  // the unit's query slots
-  const int64_t* row;  // [BM] in shared memory; -1 past the unit's slots
+  const int32_t* row;  // [BM] in shared memory; -1 past the unit's slots
   __device__ int64_t operator()(int r) const { return row[r]; }
 };
 
@@ -174,250 +192,435 @@ struct MemberRows {  // members t0 + r of the unit's cluster
   }
 };
 
-// One bf16 stage of `rows` gathered rows at depth k0: chunks of 8 values,
-// chunk ch of row r at 16-byte slot ch ^ (r & 7) of the row's 128 bytes.
-template <typename RowOf>
-__device__ __forceinline__ void load_stage16(uint16_t* dst,
-                                             const uint16_t* src,
-                                             const RowOf& row_of, int rows,
-                                             int64_t d, int64_t k0,
-                                             bool vec) {
-  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
+// One chunk of 128 gathered rows at depth k0 (values of T): 16-byte piece
+// ch of row r at piece ch ^ (r & 7) of the row's 128 bytes.
+template <typename T, typename RowOf>
+__device__ __forceinline__ void load_chunk(unsigned char* dst, const T* src,
+                                           const RowOf& row_of, int64_t d,
+                                           int64_t k0, bool vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  for (int q = threadIdx.x; q < BM * 8; q += THREADS) {
     const int r = q >> 3, ch = q & 7;
-    uint16_t* s = dst + r * BK16 + ((ch ^ (r & 7)) << 3);
-    const int64_t gr = row_of(r), gk = k0 + ch * 8;
-    if (gr >= 0 && vec && gk + 8 <= d) {
+    unsigned char* s = dst + r * ROWB + ((ch ^ (r & 7)) << 4);
+    const int64_t gr = row_of(r), gk = k0 + ch * V;
+    if (gr >= 0 && vec && gk + V <= d) {
       cp_async16(s, src + gr * d + gk);
     } else {
-      uint32_t v[4];
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      T* xv = reinterpret_cast<T*>(&x);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int64_t k = gk + 2 * u;
-        const uint32_t lo = gr >= 0 && k < d ? src[gr * d + k] : 0u;
-        const uint32_t hi = gr >= 0 && k + 1 < d ? src[gr * d + k + 1] : 0u;
-        v[u] = lo | (hi << 16);
+      for (int u = 0; u < V; ++u) {
+        if (gr >= 0 && gk + u < d) xv[u] = src[gr * d + gk + u];
       }
-      *reinterpret_cast<uint4*>(s) = make_uint4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint4*>(s) = x;
     }
   }
 }
 
-// One fp32 stage, transposed: value (r, k0 + kk) at dst[kk * stride + r].
-template <typename RowOf>
-__device__ __forceinline__ void load_stage32(float* dst, int stride,
-                                             const float* src,
-                                             const RowOf& row_of, int rows,
-                                             int64_t d, int64_t k0,
-                                             bool vec) {
-  for (int q = threadIdx.x; q < rows * 8; q += THREADS) {
-    const int r = q >> 3, ch = q & 7;
-    const int64_t gr = row_of(r), gk = k0 + ch * 4;
-    float v[4];
-    if (gr >= 0 && vec && gk + 4 <= d) {
-      const float4 x = *reinterpret_cast<const float4*>(src + gr * d + gk);
-      v[0] = x.x;
-      v[1] = x.y;
-      v[2] = x.z;
-      v[3] = x.w;
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[u] = (gr >= 0 && gk + u < d) ? src[gr * d + gk + u] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) dst[(ch * 4 + u) * stride + r] = v[u];
-  }
+// S: row r's score of column c (member t0 + c of the first MR) at float
+// r * MR + (c ^ swz(r)). The swizzle puts the float2 stores of the bf16
+// form, the stores of the fp32 form and a warp's row reads on distinct
+// banks (at most two wavefronts a store).
+__device__ __forceinline__ int swz(int r) {
+  return 8 * (((r & 1) << 1) | ((r >> 1) & 1));
 }
 
-// Number of leading entries of a[0, len), sorted descending, above v.
-__device__ __forceinline__ int count_above(const int64_t* a, int len,
-                                           int64_t v) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] > v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+__device__ __forceinline__ int s_at(int r, int c) {
+  return r * MR + (c ^ swz(r));
 }
 
-struct Rows {
-  int64_t* sv;       // [BM][SV] survivors since the row's last merge
-  int64_t* scratch;  // [WARPS][LCAP] a merging warp's copy of a list
-  int64_t* out;      // [BM] the row's list: its buffer row's offset
-  int64_t* qrow;     // [BM] the row's query row in the rows, -1 if idle
-  int32_t* thr_hi;   // [BM] the threshold key's high word
-  uint32_t* thr_lo;  // [BM] and low word
-  int32_t* cnt;      // [BM] survivors since the row's last merge
-  int32_t* len;      // [BM] the list's length
+// Row r's list (LS: in shared memory, over its warp's first 8 S rows) and
+// survivor slots (LS: over the last 8; else all of the row's S bytes).
+__device__ __forceinline__ int64_t* ls_list(float* S, int r) {
+  return reinterpret_cast<int64_t*>(S) + (r & ~15) * ROW_KEYS +
+         (r & 15) * WL;
+}
+
+template <bool LS>
+__device__ __forceinline__ int64_t* survivors(float* S, int r) {
+  int64_t* s = reinterpret_cast<int64_t*>(S);
+  return LS ? s + (r & ~15) * ROW_KEYS + 16 * WL + (r & 15) * SV_LS
+            : s + r * ROW_KEYS;
+}
+
+// What a block knows of its unit.
+struct Unit {
+  const int32_t* mem;  // member[c, :]
+  const int32_t* qt;   // qtab[c, j0 + ..]
+  const int32_t* st;   // stab[c, j0 + ..]
+  int64_t nm, n_real, p;
+  int mq, W;
+  int64_t* buf;
+  float* S;
+  int32_t* cnt;  // [BM] survivors since the row's last merge
+  int32_t* len;  // [BM] the row's list length
 };
 
-// The scores of one column half of a tile, staged for the scan in the
-// stage buffer the tile's last step consumed: score (r, c) at float
-// r * ROUND + (c ^ (r & 31)), so a warp's 32 rows read 32 banks.
-__device__ __forceinline__ int score_at(int r, int c) {
-  return r * ROUND + (c ^ (r & 31));
+// Slot r's buffer row: its W keys.
+__device__ __forceinline__ int64_t* out_row(const Unit& u, int r) {
+  return u.buf + (static_cast<int64_t>(u.qt[r]) * u.p + u.st[r]) * u.W;
 }
 
-// Scan the staged half `half` of the tile at member col0: thread t takes
-// row t % BM and 32 of the half's 64 columns. The 32 scores are tested
-// against the row's threshold's high word into a mask; only the columns
-// it sets build their keys, and each key above the threshold of a member
-// below n_real goes to the row's survivors.
-__device__ __forceinline__ void offer_half(const Rows& rs, const float* sc,
-                                           int half, int mq, int64_t col0,
-                                           int64_t nm, const int32_t* mem,
-                                           int64_t n_real) {
-  const int r = threadIdx.x % BM;
-  const int c0 = (threadIdx.x / BM) * 32;
-  if (r >= mq) return;
-  const int32_t th = rs.thr_hi[r];
-  const uint32_t tl = rs.thr_lo[r];
-  const int64_t j0 = col0 + half * ROUND + c0;
-  const int cols = nm - j0 < 32 ? static_cast<int>(nm - j0) : 32;
-  uint32_t mask = 0;
+template <bool LS>
+__device__ __forceinline__ int64_t* list_of(const Unit& u, int r) {
+  return LS ? ls_list(u.S, r) : out_row(u, r);
+}
+
+// The selection works on G = 8 lanes a row, four rows of a warp at once,
+// so four rows' dependent steps (bisection counts, bitonic stages)
+// overlap; sums and extremes of a row are shuffles within its group.
+constexpr int G = 8;
+constexpr int GROUPS = 32 / G;
+
+template <typename T>
+__device__ __forceinline__ T group_sum(T v) {
 #pragma unroll
-  for (int cc = 0; cc < 32; ++cc) {
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    mask |= static_cast<uint32_t>(mono >= th && cc < cols) << cc;
+  for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The number of hi[i] >= x over the group (hi[i] = INT32_MIN where no
+// key is, and x > INT32_MIN), four running sums against the add chain.
+template <int R>
+__device__ __forceinline__ int count_ge(const int32_t (&hi)[R], int32_t x) {
+  int c[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < R; ++i) c[i & 3] += hi[i] >= x;
+  return group_sum(c[0] + c[1] + c[2] + c[3]);
+}
+
+// A key t with exactly `need` of the group's distinct keys (hi[i], lo[i])
+// where bit i of okm is set at or above it, 1 <= need < n, their number
+// (hi[i] = INT32_MIN where the bit is clear): a bisection on the high
+// words (the scores' monotone bits, int32 compares), stopping at a bound
+// that counts exactly need; where it ends between two adjacent high words
+// (the need-th key ties others at T), a bisection on the low words of the
+// keys at T. Each group of the warp runs its own; the loops run until
+// every group is done.
+template <int R>
+__device__ __forceinline__ int64_t kth_key(const int32_t (&hi)[R],
+                                           const uint32_t (&lo)[R],
+                                           uint32_t okm, int need) {
+  int32_t mn = INT32_MAX, mx = INT32_MIN;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if ((okm >> i) & 1) mn = min(mn, hi[i]);
+    mx = max(mx, hi[i]);
   }
-  while (mask != 0) {
-    const int cc = __ffs(mask) - 1;
-    mask &= mask - 1;
-    const int64_t index = __ldg(mem + j0 + cc);
-    if (index >= n_real) continue;
-    const int32_t mono = mono_bits(sc[score_at(r, c0 + cc)]);
-    const uint32_t lo = 0xFFFFFFFFu - static_cast<uint32_t>(index);
-    if (mono == th && lo <= tl) continue;
-    const int slot = atomicAdd(&rs.cnt[r], 1);
-    rs.sv[r * SV + slot] = make_key(mono, lo);
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
+  // more than need keys have a high word >= a, fewer than need >= b; a
+  // mid is always above a >= INT32_MIN, so count_ge counts only keys
+  int64_t a = mn, b = static_cast<int64_t>(mx) + 1, t = 0;
+  bool done = false;
+  while (__any_sync(0xffffffffu, !done && b - a > 1)) {
+    const bool go = !done && b - a > 1;
+    const int32_t mid = static_cast<int32_t>(a + ((b - a) >> 1));
+    const int c = count_ge<R>(hi, mid);
+    if (go) {
+      if (c == need) {
+        t = make_key(mid, 0u);
+        done = true;
+      } else if (c > need) {
+        a = mid;
+      } else {
+        b = mid;
+      }
+    }
+  }
+  const int32_t T = static_cast<int32_t>(a);
+  int above = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) above += ((okm >> i) & 1) && hi[i] > T;
+  above = group_sum(above);
+  // more than need keys are above T or at T with a low word >= x, fewer
+  // than need with one >= y (low words are distinct: indices are)
+  uint64_t x = 0, y = 1ull << 32;
+  while (__any_sync(0xffffffffu, !done)) {
+    const uint64_t mid = x + ((y - x) >> 1);
+    int c = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      c += ((okm >> i) & 1) && hi[i] == T && lo[i] >= mid;
+    }
+    c = above + group_sum(c);
+    if (!done) {
+      if (c == need) {
+        t = make_key(T, static_cast<uint32_t>(mid));
+        done = true;
+      } else if (c > need) {
+        x = mid;
+      } else {
+        y = mid;
+      }
+    }
+  }
+  return t;
+}
+
+// Sort L[0, n) descending in place (n <= 32 R), by one warp.
+template <int R>
+__device__ __forceinline__ void sort_list(int64_t* L, int n, int lane) {
+  int64_t v[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int e = 32 * i + lane;
+    v[i] = e < n ? L[e] : EMPTY_KEY;
+  }
+  sort_desc<R>(v, lane);
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (32 * i + lane < n) L[32 * i + lane] = v[i];
+  }
+  __syncwarp();
+}
+
+// Step 1: each of the warp's rows' top min(W, valid members) over the
+// first min(nm, MR) members, from S, into its list; group g of the warp
+// takes rows r0w + 4 p + g, lane j of it columns j + 8 i.
+template <bool LS>
+__device__ __forceinline__ void select_first(const Unit& u, int r0w,
+                                             int lane) {
+  constexpr int R = MR / G;
+  const int g = lane / G, j = lane % G;
+  uint32_t lo[R];
+  uint32_t okm = 0;
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int c = G * i + j;
+    const int64_t index = c < u.nm ? __ldg(u.mem + c) : u.n_real;
+    okm |= static_cast<uint32_t>(index < u.n_real) << i;
+    lo[i] = 0xFFFFFFFFu - static_cast<uint32_t>(index);
+  }
+  n = group_sum(__popc(okm));
+  const int need = min(u.W, n);
+#pragma unroll 1
+  for (int p = 0; p < 16; p += GROUPS) {
+    const int r = r0w + p + g;
+    const bool live = r < u.mq;
+    int32_t hi[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      hi[i] = (okm >> i) & 1 ? mono_bits(u.S[s_at(r, G * i + j)])
+                             : INT32_MIN;
+    }
+    const int64_t t =
+        need < n ? kth_key<R>(hi, lo, okm, need) : INT64_MIN;
+    // the keys >= t, exactly need of them, into the list (its slots
+    // overlay only S rows of this warp already read)
+    int64_t* L = list_of<LS>(u, live ? r : r0w);
+    __syncwarp();
+    int base = 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int64_t k = make_key(hi[i], lo[i]);
+      const bool sel = ((okm >> i) & 1) && k >= t;
+      const uint32_t b = (__ballot_sync(0xffffffffu, sel) >> (G * g)) &
+                         ((1u << G) - 1u);
+      if (sel && live) L[base + __popc(b & ((1u << j) - 1u))] = k;
+      base += __popc(b);
+    }
+    __syncwarp();
+    if constexpr (LS) {
+      // the group sorts its row's keys (need <= WL = 8 G)
+      int64_t v[WL / G];
+#pragma unroll
+      for (int i = 0; i < WL / G; ++i) {
+        const int e = G * i + j;
+        v[i] = live && e < need ? L[e] : EMPTY_KEY;
+      }
+      sort_desc<WL / G, G>(v, j);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < WL / G; ++i) {
+        if (live && G * i + j < need) L[G * i + j] = v[i];
+      }
+    }
+    if (live && j == 0) u.len[r] = need;
+  }
+  __syncwarp();
+  if constexpr (!LS) {
+    // the lists in the buffer rows, up to 256 keys: a warp a row
+    for (int r = r0w; r < r0w + 16 && r < u.mq; ++r) {
+      sort_list<MR / 32>(out_row(u, r), need, lane);
+    }
   }
 }
 
-// Sort row r's s survivors descending in place, by rank (distinct keys),
-// by one warp.
-__device__ __forceinline__ void sort_survivors(int64_t* S, int s, int lane) {
-  int64_t v[SV / 32];
-  int rank[SV / 32];
+// A survivor slot holds make_key(score's monotone bits, the member's
+// place in its cluster); its key has the member's index in the low word.
+__device__ __forceinline__ int64_t survivor_key(const Unit& u, int64_t s) {
+  const uint32_t pos = static_cast<uint32_t>(s);
+  return make_key(static_cast<int32_t>(s >> 32),
+                  0xFFFFFFFFu - static_cast<uint32_t>(__ldg(u.mem + pos)));
+}
+
+// Merge the survivors of row r (or nothing, r < 0) into its list (W <=
+// 64, both in shared memory), by the lane's group: the survivors sorted,
+// then the top 64 of the list and them, the first W kept.
+__device__ __forceinline__ void merge_ls(const Unit& u, int r, int j) {
+  constexpr int R = WL / G;
+  const bool live = r >= 0;
+  const int rr = live ? r : 0;
+  int64_t* L = ls_list(u.S, rr);
+  const int64_t* sv = survivors<true>(u.S, rr);
+  const int s = live ? min(u.cnt[rr], SV_LS) : 0;
+  const int n = live ? u.len[rr] : 0;
+  int64_t a[R], b[R];
 #pragma unroll
-  for (int e = 0; e < SV / 32; ++e) {
-    const int i = lane + 32 * e;
-    rank[e] = -1;
-    if (i < s) {
-      v[e] = S[i];
-      int above = 0;
-#pragma unroll 8
-      for (int t = 0; t < s; ++t) above += S[t] > v[e];
-      rank[e] = above;
+  for (int i = 0; i < R; ++i) {
+    const int e = G * i + j;
+    b[i] = e < s ? survivor_key(u, sv[e]) : EMPTY_KEY;
+    a[i] = e < n ? L[e] : EMPTY_KEY;
+  }
+  sort_desc<R, G>(b, j);
+  merge_top<R, G>(a, b, j);
+  __syncwarp();
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (G * i + j < u.W) L[G * i + j] = a[i];
+    }
+    if (j == 0) {
+      u.len[rr] = min(u.W, n + s);
+      u.cnt[rr] = 0;
     }
   }
   __syncwarp();
+}
+
+// Merge row r's survivors into its list in its buffer row (any W), by one
+// warp: the survivors sorted (in their slots), then every key moved to its
+// place in the merged list, each place from a binary search of the other
+// run.
+__device__ void merge_dev(const Unit& u, int r, int lane) {
+  int64_t* L = out_row(u, r);
+  int64_t* sv = survivors<false>(u.S, r);
+  const int s = min(u.cnt[r], SV_DEV), len = u.len[r];
+  int64_t v[4];
 #pragma unroll
-  for (int e = 0; e < SV / 32; ++e) {
-    if (rank[e] >= 0) S[rank[e]] = v[e];
+  for (int i = 0; i < 4; ++i) {
+    const int e = 32 * i + lane;
+    v[i] = e < s ? survivor_key(u, sv[e]) : EMPTY_KEY;
   }
+  sort_desc<4>(v, lane);
   __syncwarp();
-}
-
-// The row's new threshold: the key at place W - 1 of its list.
-__device__ __forceinline__ void set_threshold(const Rows& rs, int r,
-                                              int64_t t) {
-  rs.thr_hi[r] = static_cast<int32_t>(t >> 32);
-  rs.thr_lo[r] = static_cast<uint32_t>(t);
-}
-
-// Merge row r's survivors into its list L (W slots in device memory), by
-// one warp; then reset the row's count and set its length and threshold.
-__device__ void merge_row(const Rows& rs, int r, int64_t* L, int W,
-                          int lane, int64_t* scratch) {
-  int64_t* S = rs.sv + r * SV;
-  const int len = rs.len[r];
-  if (W <= LCAP) {
-    for (int i = lane; i < len; i += 32) scratch[i] = L[i];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) sv[32 * i + lane] = v[i];
+  __syncwarp();
+  const int ns = min(s, u.W);
+  // each new key's place (read before any write)
+  int place[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = 32 * i + lane;
+    place[i] = e < ns ? e + count_above(L, len, v[i]) : u.W;
   }
-  sort_survivors(S, rs.cnt[r], lane);
-  const int ns = min(rs.cnt[r], W);
-  if (W <= LCAP) {
-    // every key to its place, the ranks taken in the copies
-#pragma unroll
-    for (int e = 0; e < SV / 32; ++e) {
-      const int i = lane + 32 * e;
-      if (i < ns) {
-        const int64_t x = S[i];
-        const int p = i + count_above(scratch, len, x);
-        if (p < W) L[p] = x;
-        if (p == W - 1) set_threshold(rs, r, x);
-      }
-    }
-    for (int i = lane; i < len; i += 32) {
-      const int64_t x = scratch[i];
-      const int p = i + count_above(S, ns, x);
-      if (p < W && p != i) L[p] = x;
-      if (p == W - 1) set_threshold(rs, r, x);
-    }
-  } else {
-    // each new key's place in the merged list (read before any write)
-    int place[SV / 32];
-    int64_t v[SV / 32];
-#pragma unroll
-    for (int e = 0; e < SV / 32; ++e) {
-      const int i = lane + 32 * e;
-      place[e] = W;
-      if (i < ns) {
-        v[e] = S[i];
-        place[e] = i + count_above(L, len, v[e]);
-      }
-    }
-    const int i0 = count_above(L, len, S[0]);  // the first old key to move
-    __syncwarp();
-    // the old keys i0.. move back by their rank among the new, from the
-    // back: a chunk's places are >= its own indices, so no key is written
-    // before it has been read
-    for (int hi = len; hi > i0; hi -= 32) {
-      const int i = hi - 32 + lane;
-      int64_t x = 0;
-      int p = W;
-      if (i >= i0) {
-        x = L[i];
-        p = i + count_above(S, ns, x);
-      }
-      __syncwarp();
-      if (p < W) L[p] = x;
-      __syncwarp();
-    }
-#pragma unroll
-    for (int e = 0; e < SV / 32; ++e) {
-      if (place[e] < W) L[place[e]] = v[e];
+  const int i0 = count_above(L, len, sv[0]);  // the first old key to move
+  __syncwarp();
+  // the old keys i0.. move back by their rank among the new, from the
+  // back: a chunk's places are >= its own indices, so no key is written
+  // before it has been read
+  for (int hi = len; hi > i0; hi -= 32) {
+    const int i = hi - 32 + lane;
+    int64_t x = 0;
+    int p = u.W;
+    if (i >= i0) {
+      x = L[i];
+      p = i + count_above(sv, ns, x);
     }
     __syncwarp();
-    if (lane == 0 && min(W, len + ns) == W) set_threshold(rs, r, L[W - 1]);
+    if (p < u.W) L[p] = x;
+    __syncwarp();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (place[i] < u.W) L[place[i]] = v[i];
   }
   __syncwarp();
   if (lane == 0) {
-    rs.len[r] = min(W, len + ns);
-    rs.cnt[r] = 0;
+    u.len[r] = min(u.W, len + ns);
+    u.cnt[r] = 0;
   }
   __syncwarp();
 }
 
-// Merge every row of the unit whose survivors number more than `above`.
-__device__ __forceinline__ void merge_rows(const Rows& rs, int64_t* buf,
-                                           int mq, int W, int above) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < mq; r += WARPS) {
-    if (rs.cnt[r] > above) {
-      merge_row(rs, r, buf + rs.out[r], W, lane, rs.scratch + warp * LCAP);
+// Merge the warp's rows holding more than `above` survivors: with the
+// lists in shared memory four at a time, a group each; else a warp each.
+template <bool LS>
+__device__ __forceinline__ void merge_rows(const Unit& u, int r0w, int above,
+                                           int lane) {
+  __syncwarp();
+  uint32_t due = __ballot_sync(
+      0xffffffffu, lane < 16 && r0w + lane < u.mq && u.cnt[r0w + lane] > above);
+  while (due != 0) {
+    if constexpr (LS) {
+      // group g takes the g-th row due
+      uint32_t left = due;
+      int r = -1;
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
+        const int f = __ffs(left) - 1;
+        if (k == lane / G && f >= 0) r = r0w + f;
+        if (left != 0) left &= left - 1;
+      }
+      merge_ls(u, r, lane % G);
+      due = left;
+    } else {
+      const int f = __ffs(due) - 1;
+      merge_dev(u, r0w + f, lane);
+      due &= due - 1;
     }
   }
 }
 
+// Row r's threshold: its list's W-th key, EMPTY_KEY while the list is
+// short, INT64_MAX (nothing passes) for a slot past the unit's.
+template <bool LS>
+__device__ __forceinline__ int64_t threshold(const Unit& u, int r) {
+  if (r >= u.mq) return INT64_MAX;
+  return u.len[r] == u.W ? list_of<LS>(u, r)[u.W - 1] : EMPTY_KEY;
+}
+
+// Offer score v of a row (member col of the tile at t0; valid: a member
+// below nm and n_real) against the row's threshold t. Its lanes are the
+// group of `width` lanes from `first` (the lanes holding the row; each
+// calls this for its own element, all together); the keys that pass take
+// slots cnt + their rank among the group's, stored below SV as
+// (monotone bits, member place): survivor_key makes the key at the merge.
+// Returns how many of the group's passed.
+template <bool LS>
+__device__ __forceinline__ int offer(const Unit& u, int r, int64_t t,
+                                     float v, int64_t t0, int col,
+                                     bool valid, int cnt, int first,
+                                     int width, int lane) {
+  const int32_t mono = mono_bits(v);
+  const int32_t th = static_cast<int32_t>(t >> 32);
+  bool pass = valid && mono >= th;
+  if (pass && mono == th) {
+    // a tie on the high word: the low word decides (the index, rarely)
+    pass = 0xFFFFFFFFu - static_cast<uint32_t>(__ldg(u.mem + t0 + col)) >
+           static_cast<uint32_t>(t);
+  }
+  const uint32_t mine = (__ballot_sync(0xffffffffu, pass) >> first) &
+                        (width == 32 ? 0xffffffffu : (1u << width) - 1u);
+  const int slot = cnt + __popc(mine & ((1u << (lane - first)) - 1u));
+  if (pass && slot < (LS ? SV_LS : SV_DEV)) {
+    survivors<LS>(u.S, r)[slot] =
+        make_key(mono, static_cast<uint32_t>(t0 + col));
+  }
+  return __popc(mine);
+}
+
 // TC: the tensor-core (bf16) product on bf16 rows, else the FFMA (fp32)
-// product on float32 rows. units: (cluster, first slot, slots, members).
-template <bool TC>
+// product on float32 rows. LS: W <= 64, the lists in shared memory.
+// units: (cluster, first slot, slots, members).
+template <bool TC, bool LS>
 __global__ void __launch_bounds__(THREADS, 1)
     ivf_rescore_kernel(const void* __restrict__ rows_v, int64_t d,
                        const int32_t* __restrict__ member, int64_t m_all,
@@ -426,69 +629,76 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const int4* __restrict__ units, int64_t first,
                        int64_t n_real, int64_t p, int W, int64_t* buf,
                        bool vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Rows rs;
-  rs.sv = reinterpret_cast<int64_t*>(smem + STAGES * STAGE_BYTES);
-  rs.scratch = rs.sv + BM * SV;
-  rs.out = rs.scratch + WARPS * LCAP;
-  rs.qrow = rs.out + BM;
-  rs.thr_hi = reinterpret_cast<int32_t*>(rs.qrow + BM);
-  rs.thr_lo = reinterpret_cast<uint32_t*>(rs.thr_hi + BM);
-  rs.cnt = reinterpret_cast<int32_t*>(rs.thr_lo + BM);
-  rs.len = rs.cnt + BM;
+  constexpr int SV = LS ? SV_LS : SV_DEV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) & (ALIGN - 1));
+  int32_t* qrow = reinterpret_cast<int32_t*>(base + STAGES * STAGE + S_BYTES);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int4 unit = units[blockIdx.x];
-  const int64_t c = unit.x, j0 = unit.y;
-  const int mq = unit.z;
-  const int64_t nm = unit.w;
-  const int32_t* mem = member + c * m_all;
+  const int r0w = warp * 16;
+  const int4 q4 = units[blockIdx.x];
+  const int64_t c = q4.x, j0 = q4.y;
+  Unit u;
+  u.mem = member + c * m_all;
+  u.qt = qtab + c * qm + j0;
+  u.st = stab + c * qm + j0;
+  u.nm = q4.w;
+  u.n_real = n_real;
+  u.p = p;
+  u.mq = q4.z;
+  u.W = W;
+  u.buf = buf;
+  u.S = reinterpret_cast<float*>(base + STAGES * STAGE);
+  u.cnt = qrow + BM;
+  u.len = u.cnt + BM;
 
   for (int r = threadIdx.x; r < BM; r += THREADS) {
-    if (r < mq) {
-      const int64_t q = qtab[c * qm + j0 + r];
-      rs.qrow[r] = first + q;
-      rs.out[r] = (q * p + stab[c * qm + j0 + r]) * W;
-    } else {
-      rs.qrow[r] = -1;
-      rs.out[r] = 0;
-    }
-    rs.thr_hi[r] = static_cast<int32_t>(EMPTY_KEY >> 32);
-    rs.thr_lo[r] = 0u;
-    rs.cnt[r] = 0;
-    rs.len[r] = 0;
+    qrow[r] = r < u.mq ? static_cast<int32_t>(first + u.qt[r]) : -1;
+    u.cnt[r] = 0;
+    u.len[r] = 0;
   }
   __syncthreads();
 
-  constexpr int BK = TC ? BK16 : BK32;
+  constexpr int BK = TC ? 64 : 32;  // depth a stage
   const int64_t kt_n = (d + BK - 1) / BK;
-  const int64_t steps = ((nm + BN - 1) / BN) * kt_n;
-  float acc[64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+  const int64_t tiles = (u.nm + BN - 1) / BN;
+  const int64_t steps = tiles * kt_n;
+  const int64_t t_sel = tiles < 2 ? tiles - 1 : 1;  // step 1 follows it
 
-  const QueryRows q_of{rs.qrow};
+  const QueryRows q_of{qrow};
   auto load = [&](int64_t step, int slot) {
     const int64_t tile = step / kt_n, k0 = (step - tile * kt_n) * BK;
-    unsigned char* base = smem + slot * STAGE_BYTES;
-    const MemberRows m_of{mem, tile * BN, nm, n_real};
+    unsigned char* sp = base + slot * STAGE;
+    const MemberRows m_of{u.mem, tile * BN, u.nm, n_real};
     if constexpr (TC) {
       const uint16_t* src = static_cast<const uint16_t*>(rows_v);
-      uint16_t* as = reinterpret_cast<uint16_t*>(base);
-      load_stage16(as, src, q_of, BM, d, k0, vec);
-      load_stage16(as + BM * BK16, src, m_of, BN, d, k0, vec);
+      load_chunk(sp, src, q_of, d, k0, vec);
+      load_chunk(sp + CHUNK, src, m_of, d, k0, vec);
     } else {
       const float* src = static_cast<const float*>(rows_v);
-      float* as = reinterpret_cast<float*>(base);
-      load_stage32(as, A32, src, q_of, BM, d, k0, vec);
-      load_stage32(as + A32 * BK32, B32, src, m_of, BN, d, k0, vec);
+      load_chunk(sp, src, q_of, d, k0, vec);
+      load_chunk(sp + CHUNK, src, m_of, d, k0, vec);
     }
   };
 
-  // the warp's place in the tile: rows wm * 32.., columns wn * 64..; for
-  // the fp32 product a thread owns rows ty + FP_ROWS i and columns tx + 16 j
-  const int wm = warp >> 1, wn = warp & 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  // this thread's rows: bf16 (wgmma's layout) ra and rb = ra + 8, columns
+  // 8 j + 2 (lane % 4) and the next (acc[4 j ..]); fp32 ra + 2 i, columns
+  // tx + 16 j (acc[8 i + j])
+  const int wg = warp >> 2;
+  const int ty = lane >> 4, tx = lane & 15;
+  const int ra = TC ? r0w + (lane >> 2) : r0w + ty;
+  const int rb = ra + 8;
+  auto row_of = [&](int e) {
+    return TC ? ((e & 2) ? rb : ra) : ra + 2 * (e >> 3);
+  };
+  auto col_of = [&](int e) {
+    return TC ? 8 * (e >> 2) + 2 * (lane & 3) + (e & 1) : tx + 16 * (e & 7);
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
@@ -498,121 +708,193 @@ __global__ void __launch_bounds__(THREADS, 1)
   int b = 0;
   for (int64_t step = 0; step < steps; ++step) {
     cp_async_wait_stage();
+    if constexpr (TC) fence_proxy_async();
     // every warp is past the step before, so its stage may be refilled
     __syncthreads();
     const int64_t ahead = step + STAGES - 1;
     if (ahead < steps) load(ahead, b == 0 ? STAGES - 1 : b - 1);
     cp_async_commit();
-    unsigned char* base = smem + b * STAGE_BYTES;
+    const unsigned char* sp = base + b * STAGE;
     b = b == STAGES - 1 ? 0 : b + 1;
     if constexpr (TC) {
-      const uint16_t* as = reinterpret_cast<const uint16_t*>(base);
-      const uint16_t* bs = as + BM * BK16;
+      const unsigned char* a = sp + wg * 64 * ROWB;
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < BK16 / 16; ++ks) {
-        uint32_t a[2][4], bf[4][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm * 32 + mi * 16 + (lane & 15);
-          const int ch = 2 * ks + (lane >> 4);
-          ldmatrix_x4(a[mi], as + r * BK16 + ((ch ^ (r & 7)) << 3));
-        }
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int mat = lane >> 3;
-          const int r = wn * 64 + np * 16 + ((mat >> 1) << 3) + (lane & 7);
-          const int ch = 2 * ks + (mat & 1);
-          ldmatrix_x4(bf[np], bs + r * BK16 + ((ch ^ (r & 7)) << 3));
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-          for (int ni = 0; ni < 8; ++ni) {
-            mma_bf16(acc + (mi * 8 + ni) * 4, a[mi],
-                     bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
-          }
-        }
+      for (int ks = 0; ks < BK / 16; ++ks) {
+        wgmma_m64n128k16(acc, desc_sw128(a + 32 * ks),
+                         desc_sw128(sp + CHUNK + 32 * ks));
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
     } else {
-      const float* as = reinterpret_cast<const float*>(base);
-      const float* bs = as + A32 * BK32;
-#pragma unroll 4
-      for (int kk = 0; kk < BK32; ++kk) {
-        float a[8], bv[8];
+      // query row ra + 2 i has r & 7 = ty ^ 2 i, so its piece P sits at
+      // base qa[(P ^ 2 i) & 1] plus the piece's even part; member row tx +
+      // 16 j has r & 7 = tx & 7
+      const unsigned char* qa0 = sp + ra * ROWB + (ty << 4);
+      const unsigned char* qa1 = qa0 + 16 - 32 * ty;
+      const unsigned char* cb = sp + CHUNK + tx * ROWB;
+      const int t7 = tx & 7;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = as[kk * A32 + ty + FP_ROWS * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = bs[kk * B32 + tx + 16 * j];
+      for (int s = 0; s < 8; ++s) {  // depth values 4 s .. 4 s + 3: piece s
+        float4 qa[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
+          const int K = s ^ ((2 * i) & 7);
+          qa[i] = *reinterpret_cast<const float4*>(
+              (K & 1 ? qa1 : qa0) + 2 * ROWB * i + ((K & ~1) << 4));
+        }
+        const unsigned char* pb = cb + ((s ^ t7) << 4);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i * 8 + j] = fmaf(a[i], bv[j], acc[i * 8 + j]);
+        for (int j = 0; j < 8; ++j) {
+          const float4 mv = *reinterpret_cast<const float4*>(pb + 16 * ROWB * j);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            float& v = acc[i * 8 + j];
+            v = fmaf(qa[i].x, mv.x, v);
+            v = fmaf(qa[i].y, mv.y, v);
+            v = fmaf(qa[i].z, mv.z, v);
+            v = fmaf(qa[i].w, mv.w, v);
           }
         }
       }
     }
     if ((step + 1) % kt_n != 0) continue;
 
-    // the tile is scored: each column half is staged in the consumed
-    // stage buffer (no warp reads it past this barrier, and it is refilled
-    // only after the next step's), scanned, and its rows merged if full
-    const int64_t col0 = (step / kt_n) * BN;
-    float* sc = reinterpret_cast<float*>(base);
-    __syncthreads();
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    // the tile is scored
+    const int64_t t = step / kt_n;
+    if (t < 2) {
+      // into S, for the first selection
       if constexpr (TC) {
-        if (wn == half) {
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int r = wm * 32 + mi * 16 + (lane >> 2) + ((e >> 1) << 3);
-                const int col = ni * 8 + ((lane & 3) << 1) + (e & 1);
-                sc[score_at(r, col)] = acc[(mi * 8 + ni) * 4 + e];
-              }
-            }
-          }
+        for (int j = 0; j < 16; ++j) {
+          const int col = static_cast<int>(t) * BN + 8 * j + 2 * (lane & 3);
+          *reinterpret_cast<float2*>(u.S + s_at(ra, col)) =
+              make_float2(acc[4 * j], acc[4 * j + 1]);
+          *reinterpret_cast<float2*>(u.S + s_at(rb, col)) =
+              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            sc[score_at(ty + FP_ROWS * i, tx + 16 * j)] =
-                acc[i * 8 + 4 * half + j];
-          }
+        for (int e = 0; e < 64; ++e) {
+          u.S[s_at(row_of(e), static_cast<int>(t) * BN + col_of(e))] = acc[e];
         }
       }
-      __syncthreads();
-      offer_half(rs, sc, half, mq, col0, nm, mem, n_real);
-      __syncthreads();
-      merge_rows(rs, buf, mq, W, MERGE_AT);
-      __syncthreads();
+      __syncwarp();
+      if (t == t_sel) select_first<LS>(u, r0w, lane);
+    } else {
+      // a later member range: offers against the thresholds, a row at a
+      // time (h: the thread's row ra, rb or ra + 2 h), the row's lanes
+      // (bf16 its quad, fp32 its half-warp) counting its survivors by
+      // ballots, in registers until the tile is offered
+      constexpr int NR = TC ? 2 : 8;
+      const int first = TC ? (lane & ~3) : (lane & 16);
+      const int width = TC ? 4 : 16;
+      const int64_t t0 = t * BN;
+      // which of the tile's 128 members count (below nm and n_real)
+      uint32_t valid[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t m = t0 + 32 * k + lane;
+        valid[k] = __ballot_sync(0xffffffffu,
+                                 m < u.nm && __ldg(u.mem + m) < n_real);
+      }
+      auto valid_at = [&](int col) {
+        const int w = col >> 5;
+        const uint32_t x = w == 0 ? valid[0] : w == 1 ? valid[1]
+                         : w == 2 ? valid[2] : valid[3];
+        return ((x >> (col & 31)) & 1u) != 0;
+      };
+      __syncwarp();
+      int cnt[NR];
+      int most = 0;
+#pragma unroll
+      for (int h = 0; h < NR; ++h) {
+        const int r = TC ? (h ? rb : ra) : ra + 2 * h;
+        const int64_t th = threshold<LS>(u, r);
+        cnt[h] = u.cnt[r];
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          if ((TC ? (e >> 1) & 1 : e >> 3) != h) continue;
+          cnt[h] += offer<LS>(u, r, th, acc[e], t0, col_of(e),
+                              valid_at(col_of(e)), cnt[h], first, width,
+                              lane);
+        }
+        most = max(most, cnt[h]);
+      }
+      if (__any_sync(0xffffffffu, most > SV)) {
+        // a row overflowed: drop the tile's keys (its count in shared
+        // memory is still the tile's start) and offer it again in eight
+        // rounds of 16 columns a row (columns 16 ro .. 16 ro + 15: bf16
+        // acc[8 ro ..], fp32 acc[.. + ro]), merging the rows past SV - CW
+        // before each
+#pragma unroll 1
+        for (int ro = 0; ro < 8; ++ro) {
+          merge_rows<LS>(u, r0w, SV - CW, lane);
+#pragma unroll
+          for (int h = 0; h < NR; ++h) {
+            cnt[h] = u.cnt[TC ? (h ? rb : ra) : ra + 2 * h];
+          }
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            // element e = 8 ro + q (bf16) or 8 q + ro (fp32) by selects (ro
+            // is no constant here): its row is element q's (8 q's), its
+            // column 16 ro past theirs
+            float v = 0.0f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+              v = ro == k ? acc[TC ? 8 * k + q : 8 * q + k] : v;
+            }
+            const int e0 = TC ? q : 8 * q;
+            const int h = TC ? (q >> 1) & 1 : q;
+            const int r = row_of(e0);
+            const int col = col_of(e0) + 16 * ro;
+            cnt[h] += offer<LS>(u, r, threshold<LS>(u, r), v, t0, col,
+                                valid_at(col), cnt[h], first, width, lane);
+          }
+          __syncwarp();
+          if (lane == first) {
+#pragma unroll
+            for (int h = 0; h < NR; ++h) {
+              u.cnt[TC ? (h ? rb : ra) : ra + 2 * h] = cnt[h];
+            }
+          }
+        }
+      } else if (lane == first) {
+#pragma unroll
+        for (int h = 0; h < NR; ++h) {
+          u.cnt[TC ? (h ? rb : ra) : ra + 2 * h] = cnt[h];
+        }
+      }
+      merge_rows<LS>(u, r0w, SV / 2, lane);
     }
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
   }
-  merge_rows(rs, buf, mq, W, 0);
-  __syncthreads();
-  // the slots the members cannot fill
-  for (int r = warp; r < mq; r += WARPS) {
-    int64_t* L = buf + rs.out[r];
-    for (int i = rs.len[r] + lane; i < W; i += 32) L[i] = EMPTY_KEY;
+
+  // what is left of the survivors, then the lists out
+  merge_rows<LS>(u, r0w, 0, lane);
+  for (int r = r0w; r < r0w + 16 && r < u.mq; ++r) {
+    int64_t* out = out_row(u, r);
+    const int n = u.len[r];
+    if constexpr (LS) {
+      const int64_t* L = ls_list(u.S, r);
+      for (int e = lane; e < W; e += 32) out[e] = e < n ? L[e] : EMPTY_KEY;
+    } else {
+      for (int e = n + lane; e < W; e += 32) out[e] = EMPTY_KEY;
+    }
   }
 }
 
-template <bool TC>
+template <bool TC, bool LS>
 cudaError_t launch_rescore(const void* rows, int64_t d,
                            const int32_t* member, int64_t m_all,
                            const int32_t* qtab, const int32_t* stab,
                            int64_t qm, const int4* units, int64_t n_units,
                            int64_t first, int64_t n_real, int64_t p, int W,
                            int64_t* buf, bool vec, cudaStream_t st) {
-  auto kernel = ivf_rescore_kernel<TC>;
+  auto kernel = ivf_rescore_kernel<TC, LS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -624,43 +906,32 @@ cudaError_t launch_rescore(const void* rows, int64_t d,
 
 // K7
 
-constexpr int WARPS_MAX = 8;       // warps a block, at most
-constexpr int SMEM_TARGET = 48 << 10;  // a block's shared memory, aimed at
+constexpr int K7_WARPS = 8;   // warps a block, a row each
+constexpr int T_MAX = 512;    // keys a lane run of the network holds, at most
 
-// The shared memory of a row's warp: the row's p L keys, its K results
-// and its p list heads, rounded up to 16 bytes.
-__host__ __device__ __forceinline__ int64_t warp_bytes(int64_t p, int64_t L,
-                                                       int64_t K) {
-  return (p * L * 8 + K * 8 + p * 4 + 15) / 16 * 16;
+// The shared memory of a row's warp: the lists' heads for the exact finish
+// and the hash of the kept keys' low words (2 T slots), in 16 bytes.
+__host__ __device__ __forceinline__ int64_t warp_bytes(int64_t p, int T) {
+  return (p * 4 + 2 * T * 4 + 15) / 16 * 16;
 }
 
-__global__ void ivf_merge_kernel(const int64_t* __restrict__ buf,
-                                 int64_t rows, int p, int L, int K,
-                                 bool dedup, int64_t* __restrict__ out,
-                                 int64_t per_warp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5)
-                      + warp;
-  if (row >= rows) return;  // no barrier of the block follows
-  const int w = p * L;
-  int64_t* keys = reinterpret_cast<int64_t*>(smem + warp * per_warp);
-  int64_t* res = keys + w;
-  int32_t* pos = reinterpret_cast<int32_t*>(res + K);
-  const int64_t* src = buf + row * w;
-  for (int i = lane; i < w; i += 32) keys[i] = src[i];
+// Row `row`'s p-way merge, one key a step (the exact finish): each step the
+// warp takes the largest head (the lowest list among equal keys), drops it
+// if an index already taken has the same low word (dedup), else appends
+// it to the row's result dst; the owner lane advances that list.
+__device__ void pop_merge(const int64_t* src, int p, int L, int K,
+                          bool dedup, int64_t* dst, int32_t* pos, int lane) {
   for (int l = lane; l < p; l += 32) pos[l] = 0;
   __syncwarp();
-
-  // the largest head of this lane's lists (the lowest list among equal
-  // keys); a lane without a list holds (EMPTY_KEY, p)
+  // the largest head of this lane's lists; a lane without a list holds
+  // (EMPTY_KEY, p)
   int64_t hk = EMPTY_KEY;
   int hl = p;
   auto rescan = [&]() {
     hk = EMPTY_KEY;
     hl = p;
     for (int l = lane; l < p; l += 32) {
-      const int64_t h = pos[l] < L ? keys[l * L + pos[l]] : EMPTY_KEY;
+      const int64_t h = pos[l] < L ? src[l * L + pos[l]] : EMPTY_KEY;
       if (hl == p || h > hk) {
         hk = h;
         hl = l;
@@ -687,12 +958,12 @@ __global__ void ivf_merge_kernel(const int64_t* __restrict__ buf,
       const uint32_t lo = static_cast<uint32_t>(bk);
       bool hit = false;
       for (int i = lane; i < taken; i += 32) {
-        hit |= static_cast<uint32_t>(res[i]) == lo;
+        hit |= static_cast<uint32_t>(dst[i]) == lo;
       }
       dup = __any_sync(0xffffffffu, hit);
     }
     if (!dup) {
-      if (lane == 0) res[taken] = bk;
+      if (lane == 0) dst[taken] = bk;
       ++taken;
     }
     if ((bl & 31) == lane) {
@@ -701,15 +972,139 @@ __global__ void ivf_merge_kernel(const int64_t* __restrict__ buf,
     }
     __syncwarp();
   }
+  for (int i = taken + lane; i < K; i += 32) dst[i] = EMPTY_KEY;
+}
+
+// R: a lane's keys of the network's run (T = 32 R). fast: K <= T (else
+// every row finishes exactly).
+template <int R>
+__global__ void __launch_bounds__(K7_WARPS * 32)
+    ivf_merge_kernel(const int64_t* __restrict__ buf, int64_t rows, int p,
+                     int L, int K, bool dedup, bool fast,
+                     int64_t* __restrict__ out, int64_t per_warp) {
+  constexpr int T = 32 * R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5)
+                      + warp;
+  if (row >= rows) return;  // no barrier of the block follows
+  int32_t* pos = reinterpret_cast<int32_t*>(smem + warp * per_warp);
+  uint32_t* tab = reinterpret_cast<uint32_t*>(pos + p);
+  const int64_t* src = buf + row * p * L;
   int64_t* dst = out + row * K;
-  for (int i = lane; i < K; i += 32) dst[i] = i < taken ? res[i] : EMPTY_KEY;
+
+  bool exact = fast;
+  if (fast) {
+    const int lt = min(L, T);
+    int64_t a[R], bb[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int e = 32 * i + lane;
+      a[i] = e < lt ? src[e] : EMPTY_KEY;
+    }
+    for (int l = 1; l < p; ++l) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int e = 32 * i + lane;
+        bb[i] = e < lt ? src[l * L + e] : EMPTY_KEY;
+      }
+      merge_top<R>(a, bb, lane);
+    }
+    if (!dedup) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (32 * i + lane < K) dst[32 * i + lane] = a[i];
+      }
+    } else {
+      // exact copies sit together: keep the first of each, and no
+      // EMPTY_KEY; each kept key's place by ballots
+      bool keep[R];
+      int place[R];
+      int kept = 0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        int64_t prev = __shfl_up_sync(0xffffffffu, a[i], 1);
+        if (i > 0) {
+          const int64_t last = __shfl_sync(0xffffffffu, a[i - 1], 31);
+          if (lane == 0) prev = last;
+        }
+        keep[i] = a[i] != EMPTY_KEY && (32 * i + lane == 0 || a[i] != prev);
+        const unsigned bal = __ballot_sync(0xffffffffu, keep[i]);
+        place[i] = kept + __popc(bal & ((1u << lane) - 1u));
+        kept += __popc(bal);
+      }
+      // an index twice among the kept keys (at two scores)? the low words
+      // into a hash of 2 T slots (0 is no low word of a key)
+      const uint32_t mask = 2 * T - 1;
+      for (int i = lane; i < 2 * T; i += 32) tab[i] = 0u;
+      __syncwarp();
+      bool twice = false;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (!keep[i]) continue;
+        const uint32_t lo = static_cast<uint32_t>(a[i]);
+        uint32_t h = (lo * 2654435761u) & mask;
+        while (true) {
+          const uint32_t old = atomicCAS(&tab[h], 0u, lo);
+          if (old == 0u) break;
+          if (old == lo) {
+            twice = true;
+            break;
+          }
+          h = (h + 1) & mask;
+        }
+      }
+      twice = __any_sync(0xffffffffu, twice);
+      const bool more = __shfl_sync(0xffffffffu, a[R - 1], 31) != EMPTY_KEY;
+      if (twice || (kept < K && more)) {
+        exact = false;
+      } else {
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (keep[i] && place[i] < K) dst[place[i]] = a[i];
+        }
+        for (int e = kept + lane; e < K; e += 32) dst[e] = EMPTY_KEY;
+      }
+    }
+  }
+  if (!exact) pop_merge(src, p, L, K, dedup, dst, pos, lane);
+}
+
+template <int R>
+cudaError_t launch_merge(const int64_t* buf, int64_t rows, int64_t p,
+                         int64_t L, int64_t K, bool dedup, int64_t* out,
+                         cudaStream_t st) {
+  constexpr int T = 32 * R;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t per = warp_bytes(p, T);
+  if (per > limit) return cudaErrorInvalidValue;
+  int64_t warps = limit / per;
+  warps = warps < 1 ? 1 : warps > K7_WARPS ? K7_WARPS : warps;
+  const int64_t bytes = warps * per;
+  auto kernel = ivf_merge_kernel<R>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (rows + warps - 1) / warps;
+  kernel<<<static_cast<unsigned>(blocks), static_cast<unsigned>(warps * 32),
+           static_cast<size_t>(bytes), st>>>(
+      buf, rows, static_cast<int>(p), static_cast<int>(L),
+      static_cast<int>(K), dedup, K <= T, out, per);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // K6: the rescore of knn/ivf.py rescore_clusters. rows (R, d) row-major,
-// bfloat16 (is_bf16 = 1: mma.sync) or float32 (FFMA); member (C, m_all)
-// and qtab, stab (C, qm) int32; units (n_units, 4) int32 (cluster, first
+// bfloat16 (is_bf16 = 1: wgmma) or float32 (FFMA); member (C, m_all) and
+// qtab, stab (C, qm) int32; units (n_units, 4) int32 (cluster, first
 // slot, slots <= 128, members); query slot j of cluster c is row first +
 // qtab[c, j]; members >= n_real never win; buf (nq, p, W) int64, every
 // (query, slot) list of a unit written whole. vec = 1 where d * itemsize is
@@ -728,49 +1123,59 @@ extern "C" int fk_ivf_rescore(const void* rows, int64_t d, int is_bf16,
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int4* u = reinterpret_cast<const int4*>(units);
-  const cudaError_t err =
-      is_bf16 ? launch_rescore<true>(rows, d, member, m_all, qtab, stab, qm,
-                                     u, n_units, first, n_real, p,
-                                     static_cast<int>(W), buf, vec != 0, st)
-              : launch_rescore<false>(rows, d, member, m_all, qtab, stab, qm,
-                                      u, n_units, first, n_real, p,
-                                      static_cast<int>(W), buf, vec != 0,
-                                      st);
+  const int w = static_cast<int>(W);
+  const bool v = vec != 0;
+  cudaError_t err;
+  if (is_bf16) {
+    err = W <= WL ? launch_rescore<true, true>(rows, d, member, m_all, qtab,
+                                              stab, qm, u, n_units, first,
+                                              n_real, p, w, buf, v, st)
+                  : launch_rescore<true, false>(rows, d, member, m_all, qtab,
+                                               stab, qm, u, n_units, first,
+                                               n_real, p, w, buf, v, st);
+  } else {
+    err = W <= WL ? launch_rescore<false, true>(rows, d, member, m_all, qtab,
+                                               stab, qm, u, n_units, first,
+                                               n_real, p, w, buf, v, st)
+                  : launch_rescore<false, false>(rows, d, member, m_all,
+                                                qtab, stab, qm, u, n_units,
+                                                first, n_real, p, w, buf, v,
+                                                st);
+  }
   return static_cast<int>(err);
 }
 
 // K7: the merge of knn/ivf.py merge_probe_lists. buf (rows, p, L) int64,
 // each (row, slot) list sorted descending; out (rows, K) int64, K <= p L;
-// dedup = 1 drops every key but the first (highest) of each index.
+// spill > 1 drops every key but the first (highest) of each index, an
+// index having at most spill copies in the lists of a rescore's buffer
+// (the network's run is sized for that; any other buffer stays exact).
 extern "C" int fk_ivf_merge(const int64_t* buf, int64_t rows, int64_t p,
-                            int64_t L, int64_t K, int dedup, int64_t* out,
+                            int64_t L, int64_t K, int spill, int64_t* out,
                             void* stream) {
   if (rows <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
   if (p <= 0 || L <= 0 || K > p * L || p * L > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const bool dedup = spill > 1;
+  const int64_t copies = dedup ? (spill < p ? spill : p) : 1;
+  int T = 64;
+  while (T < K * copies && T < T_MAX) T *= 2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (T) {
+    case 64:
+      err = launch_merge<2>(buf, rows, p, L, K, dedup, out, st);
+      break;
+    case 128:
+      err = launch_merge<4>(buf, rows, p, L, K, dedup, out, st);
+      break;
+    case 256:
+      err = launch_merge<8>(buf, rows, p, L, K, dedup, out, st);
+      break;
+    default:
+      err = launch_merge<16>(buf, rows, p, L, K, dedup, out, st);
+      break;
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t per = warp_bytes(p, L, K);
-  if (per > limit) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t warps = SMEM_TARGET / per;
-  warps = warps < 1 ? 1 : warps > WARPS_MAX ? WARPS_MAX : warps;
-  const int64_t bytes = warps * per;
-  err = cudaFuncSetAttribute(ivf_merge_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (rows + warps - 1) / warps;
-  ivf_merge_kernel<<<static_cast<unsigned>(blocks),
-                     static_cast<unsigned>(warps * 32),
-                     static_cast<size_t>(bytes),
-                     static_cast<cudaStream_t>(stream)>>>(
-      buf, rows, static_cast<int>(p), static_cast<int>(L),
-      static_cast<int>(K), dedup != 0, out, per);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -143,53 +143,14 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "keys_sm90.cuh"
 
 namespace {
 
-constexpr int64_t EMPTY_KEY = INT64_MIN;
 constexpr int BM = 128;         // query rows a unit
 constexpr int BN = 128;         // candidate rows a tile
 constexpr int LCAP = 128;       // lists merged through the warp's scratch
 constexpr int MAX_UNITS = 32;   // units a query block: a combine lane each
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// _order_keys of one score: the high word is the float32 bits made
-// monotone, the low word lo = 0xFFFFFFFF - index.
-__device__ __forceinline__ int32_t mono_bits(float s) {
-  const int32_t b = __float_as_int(s);
-  return b ^ ((b >> 31) & 0x7fffffff);
-}
-
-__device__ __forceinline__ int64_t make_key(int32_t mono, uint32_t lo) {
-  return static_cast<int64_t>(
-      (static_cast<uint64_t>(static_cast<uint32_t>(mono)) << 32) | lo);
-}
-
-__device__ __forceinline__ int64_t kmax(int64_t a, int64_t b) {
-  return a > b ? a : b;
-}
-
-__device__ __forceinline__ int64_t kmin(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-// Number of leading entries of a[0, len), sorted descending, above v.
-__device__ __forceinline__ int count_above(const int64_t* a, int len,
-                                           int64_t v) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] > v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
 
 struct Rows {
   int64_t* sv;       // [BM][SV] survivors since the row's last merge
@@ -444,61 +405,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma's descriptor of a K-major tile in the 128-byte swizzle: rows of
-// 128 bytes, 8-row atoms 1 KB apart (SBO), LBO 16 bytes (unused there).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Tie the accumulators to this point of the program (the compiler may not
-// move their reads or writes across it).
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d += A (64 x 16, K-major) * B (128 x 16, K-major)^T, bf16 in, f32 out;
-// scale-d = 1 always (the accumulators start at +0.0).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // The warpgroup's named barrier (1 + warpgroup; 0 is __syncthreads).
 __device__ __forceinline__ void wg_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -638,21 +544,6 @@ __device__ __forceinline__ int offer_ls(const Ls& R, int r, int h,
   const int slot = atomicAdd(&R.cnt[2 * r + h], 1);
   if (slot < SVH) R.sv[(2 * r + h) * SVH + slot] = make_key(mono, lo);
   return slot;
-}
-
-// One warp's descending bitonic sort of 32 keys, a lane each.
-__device__ __forceinline__ int64_t sort32(int64_t v, int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int64_t p = __shfl_xor_sync(0xffffffffu, v, j);
-      // the lower lane of a pair keeps the larger key in a descending
-      // block, the smaller in an ascending one
-      if ((p > v) == (((lane & j) == 0) == ((lane & k) == 0))) v = p;
-    }
-  }
-  return v;
 }
 
 // Merge half h of row r into its list (W <= 64 keys), by one warp: the

@@ -22,8 +22,10 @@
    twice, so the merge keeps the higher-scoring copy of each index before
    its top-k. On a CUDA device the rescore is K6 (csrc/ivf_rescore.cu
    `fk_ivf_rescore`: a block a cluster and up to 128 of its queries,
-   walking its true member count) and the merge K7 (`fk_ivf_merge`, a
-   warp a query row), each one launch; on the CPU the clusters fall
+   walking its true member count, each row's top k selected once over the
+   first K6_FIRST members and later members offered against it) and the
+   merge K7 (`fk_ivf_merge`, a warp a query row, a merge network over its
+   sorted lists), each one launch; on the CPU the clusters fall
    into JAX's power-of-two (queries, members) size classes, each run as
    batched products of gathered rows in chunks capped by CHUNK_BYTES
    (rescore_plain), and the merge goes 64 Ki rows at a time
@@ -278,9 +280,12 @@ def merge_probe_lists(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
     """K7 (csrc/ivf_rescore.cu `fk_ivf_merge`): _merge_buffers of a CUDA
     buffer (rows, p, kk) of int64 keys whose every (query, slot) list is
     sorted descending, as both rescores write it, in one launch (a warp a
-    row, a p-way merge of the lists, an index already taken dropped when
-    spill > 1); bitwise merge_buffers_plain on such a buffer. Counts its
-    launches in .kernel_launches; raises on a tensor it does not take."""
+    row: the top T keys of its lists by a bitonic merge network, exact
+    copies dropped when spill > 1, a row whose indices recur at other
+    scores, or that needs more than the top T, finished by a p-way merge;
+    _k7_replay replays it); bitwise merge_buffers_plain on such a buffer.
+    Counts its launches in .kernel_launches; raises on a tensor it does
+    not take."""
     if buf.device.type != "cuda" or buf.dtype != torch.int64 \
             or buf.dim() != 3 or not buf.is_contiguous():
         raise ValueError(f"merge_probe_lists: a contiguous (rows, p, kk) "
@@ -292,7 +297,7 @@ def merge_probe_lists(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
     if rows == 0 or kk == 0:
         return out
     _build.launch("fk_ivf_merge", buf.data_ptr(), rows, p, kk_g, kk,
-                  int(spill > 1), out.data_ptr(), device=buf.device)
+                  max(1, int(spill)), out.data_ptr(), device=buf.device)
     merge_probe_lists.kernel_launches += 1
     return out
 
@@ -409,11 +414,13 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
                      precision: str) -> torch.Tensor:
     """K6 (csrc/ivf_rescore.cu `fk_ivf_rescore`): the (nq, p, kk_g) buffer
     of rescore_plain in one launch on the card of en_pad, a block a unit
-    of rescore_units, walking each cluster's true member count. The rows
-    go in as bfloat16 at precision="bf16" (mma.sync, float32 sums: the
-    rows are bf16-rounded already, so the products are rescore_plain's),
-    float32 at "fp32" (FFMA); every (query, slot) list is written whole,
-    sorted descending, EMPTY_KEY past its members. Counts its launches in
+    of rescore_units, walking each cluster's true member count: each
+    row's top kk_g selected once over the first K6_FIRST members, later
+    members offered against it (_k6_replay replays it). The rows go in as
+    bfloat16 at precision="bf16" (wgmma, float32 sums: the rows are
+    bf16-rounded already, so the products are rescore_plain's), float32
+    at "fp32" (FFMA); every (query, slot) list is written whole, sorted
+    descending, EMPTY_KEY past its members. Counts its launches in
     .kernel_launches (the fp32 form's also in .fp32_launches); raises on
     a tensor it does not take."""
     if precision not in ("bf16", "fp32"):
@@ -427,6 +434,9 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
     if any(t.dtype != torch.int32 or not t.is_contiguous()
            for t in (member, qtab, stab)) or qtab.shape != stab.shape:
         raise ValueError("rescore_clusters: contiguous int32 tables")
+    if en_pad.shape[0] >= 1 << 31:
+        raise ValueError("rescore_clusters: fewer than 2**31 rows (the "
+                         "kernel keeps query rows as int32)")
     rows = en_pad.to(torch.bfloat16 if precision == "bf16"
                      else torch.float32).contiguous()
     d = rows.shape[1]
@@ -449,6 +459,238 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
 
 rescore_clusters.kernel_launches = 0
 rescore_clusters.fp32_launches = 0
+
+# K6's selection (csrc/ivf_rescore.cu): the members of the first
+# selection (MR), the list slots a row keeps in shared memory (WL), the
+# survivor slots a row has beside such a list or alone (SV_LS, SV_DEV),
+# the keys a row gains in an overflow round (CW)
+K6_FIRST = 256
+K6_LIST_SLOTS = 64
+K6_SURVIVORS = {True: 64, False: 128}
+K6_ROUND = 16
+# K7's merge network: the most keys its run holds (T_MAX)
+K7_RUN_MAX = 512
+
+
+def _kth_key_replay(keys: np.ndarray, need: int) -> tuple[int, int]:
+    """csrc/ivf_rescore.cu `kth_key` on one row's keys (distinct, EMPTY_KEY
+    unset), need >= 1: (a key with exactly need keys at or above it, the
+    bisection's steps). As the kernel: the least key where need covers
+    them all; else a bisection on the high words that stops at a bound
+    counting exactly need, then, where the need-th key ties others at high
+    word T, one on the low words of the keys at T."""
+    valid = keys[keys != EMPTY_KEY]
+    if need >= valid.size:
+        return int(valid.min()), 0
+    hi, lo = valid >> 32, valid & LOW_WORD
+    a, b, steps = int(hi.min()), int(hi.max()) + 1, 0
+    while b - a > 1:
+        mid = a + ((b - a) >> 1)
+        c = int((hi >= mid).sum())
+        steps += 1
+        if c == need:
+            return mid << 32, steps
+        if c > need:
+            a = mid
+        else:
+            b = mid
+    above = int((hi > a).sum())
+    x, y = 0, 1 << 32
+    while True:
+        mid = x + ((y - x) >> 1)
+        c = above + int(((hi == a) & (lo >= mid)).sum())
+        steps += 1
+        if c == need:
+            return (a << 32) | mid, steps
+        if c > need:
+            x = mid
+        else:
+            y = mid
+
+
+def _k6_unit_replay(keys: torch.Tensor, w: int,
+                    stats: dict | None = None) -> list:
+    """K6's selection on one unit replayed on arrays, a test oracle and
+    not the plain version: keys (slots, members) int64 in member order
+    (EMPTY_KEY for a member >= n_real) -> each slot's list as the kernel
+    builds it (int64, sorted descending, at most w keys). The first
+    K6_FIRST members: each row's need-th key by the bisection, the keys at
+    or above it kept. Each later tile of 128: each warp's rows (16 slots)
+    offer their keys above their thresholds to K6_SURVIVORS slots; a warp
+    with a row past them drops the tile's keys and offers them again in
+    eight rounds of K6_ROUND columns, merging its rows past the slots less
+    K6_ROUND before each; rows past half the slots merge after the tile,
+    every row with survivors at the end. `stats` counts the bisection
+    steps, the keys emitted (kept by the first selection or offered), the
+    merges and the overflowing tiles (rounds)."""
+    st = stats if stats is not None else {}
+    for name in ("steps", "emitted", "merges", "rounds"):
+        st.setdefault(name, 0)
+    keys = keys.cpu().numpy()
+    mq, nm = keys.shape
+    sv_cap = K6_SURVIVORS[w <= K6_LIST_SLOTS]
+    first = keys[:, :K6_FIRST]
+    need = min(w, int((first[0] != EMPTY_KEY).sum())) if mq else 0
+    empty = np.zeros(0, np.int64)
+    lists = []
+    for r in range(mq):
+        if need == 0:
+            lists.append(empty)
+            continue
+        t, steps = _kth_key_replay(first[r], need)
+        row = first[r]
+        kept = row[(row >= t) & (row != EMPTY_KEY)]
+        assert kept.size == need
+        st["steps"] += steps
+        st["emitted"] += need
+        lists.append(-np.sort(-kept))
+    surv = [empty] * mq
+
+    def merge(r):
+        both = np.concatenate([lists[r], surv[r]])
+        lists[r] = -np.sort(-both)[:w]
+        surv[r] = empty
+        st["merges"] += 1
+
+    def offer(r, keys_r):
+        t = int(lists[r][w - 1]) if lists[r].size == w else EMPTY_KEY
+        sel = keys_r[(keys_r != EMPTY_KEY) & (keys_r > t)]
+        surv[r] = np.concatenate([surv[r], sel])
+        st["emitted"] += sel.size
+
+    for t0 in range(K6_FIRST, nm, 128):
+        tile = keys[:, t0 : t0 + 128]
+        for r0 in range(0, mq, 16):
+            rows = range(r0, min(mq, r0 + 16))
+            held = [surv[r].size for r in rows]
+            for r in rows:
+                offer(r, tile[r])
+            if any(surv[r].size > sv_cap for r in rows):
+                for r, h in zip(rows, held):
+                    surv[r] = surv[r][:h]
+                st["rounds"] += 1
+                for ro in range(8):
+                    for r in rows:
+                        if surv[r].size > sv_cap - K6_ROUND:
+                            merge(r)
+                    for r in rows:
+                        offer(r, tile[r, ro * K6_ROUND : (ro + 1) * K6_ROUND])
+            for r in rows:
+                if surv[r].size > sv_cap // 2:
+                    merge(r)
+    for r in range(mq):
+        if surv[r].size:
+            merge(r)
+    return lists
+
+
+def _k6_replay(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
+               counts_h: np.ndarray, qtab: torch.Tensor, stab: torch.Tensor,
+               qcounts_h: np.ndarray, first: int, nq: int, p: int,
+               kk_g: int, stats: dict | None = None) -> torch.Tensor:
+    """rescore_clusters' buffer by K6's units and selection replayed on
+    tensors (_k6_unit_replay): each unit's float32 scores as rescore_plain
+    takes them (exact on grid rows), _order_keys, EMPTY_KEY past the
+    members and for a member >= n_real."""
+    buf = torch.full((nq, p, kk_g), EMPTY_KEY, dtype=torch.int64)
+    rows = en_pad.float().cpu()
+    for c, j0, mq, nm in rescore_units(counts_h, qcounts_h).tolist():
+        q = qtab[c, j0 : j0 + mq].long().cpu()
+        s = stab[c, j0 : j0 + mq].long().cpu()
+        ids = member[c, :nm].long().cpu()
+        keys = _order_keys(rows[first + q] @ rows[ids].T, ids[None, :])
+        keys.masked_fill_((ids >= n_real)[None, :], EMPTY_KEY)
+        for r, lst in enumerate(_k6_unit_replay(keys, kk_g, stats)):
+            buf[q[r], s[r], : lst.size] = torch.from_numpy(lst)
+    return buf
+
+
+def _merge_top_replay(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """csrc/keys_sm90.cuh `merge_top` on rows of runs a, b (rows, T), each
+    sorted descending: the larger of a[e] and b[T - 1 - e], then the
+    bitonic clean (half-cleaners of spans T / 2 .. 1, the lower element
+    of each pair keeping the larger key)."""
+    m = torch.maximum(a, b.flip(1))
+    e = torch.arange(m.shape[1])
+    j = m.shape[1] // 2
+    while j >= 1:
+        other = m[:, e ^ j]
+        m = torch.where((e & j) == 0, torch.maximum(m, other),
+                        torch.minimum(m, other))
+        j //= 2
+    return m
+
+
+def _k7_run(k: int, p: int, spill: int) -> int:
+    """K7's network run T: at least 64 and k times the copies an index has
+    in a rescore's lists (min(spill, p) with dedup), up to K7_RUN_MAX."""
+    need = k * (min(spill, p) if spill > 1 else 1)
+    t = 64
+    while t < need and t < K7_RUN_MAX:
+        t *= 2
+    return t
+
+
+def _pop_merge_replay(lists: torch.Tensor, k: int, dedup: bool
+                      ) -> torch.Tensor:
+    """K7's exact finish on one row's sorted lists (p, L): the largest head
+    each step (the lowest list among equal keys), an index already taken
+    dropped with dedup; EMPTY_KEY ends the walk and fills the tail."""
+    p, n = lists.shape
+    pos = [0] * p
+    out = []
+    taken = set()
+    while len(out) < k:
+        heads = [int(lists[l, pos[l]]) if pos[l] < n else EMPTY_KEY
+                 for l in range(p)]
+        best = max(range(p), key=lambda l: (heads[l], -l))
+        key = heads[best]
+        if key == EMPTY_KEY:
+            break
+        if not dedup or key & LOW_WORD not in taken:
+            out.append(key)
+            taken.add(key & LOW_WORD)
+        pos[best] += 1
+    return torch.tensor(out + [EMPTY_KEY] * (k - len(out)), dtype=torch.int64)
+
+
+def _k7_replay(buf: torch.Tensor, k: int, spill: int
+               ) -> tuple[torch.Tensor, int]:
+    """merge_probe_lists replayed on tensors, a test oracle and not the
+    plain version: (the merged keys, the rows finished exactly). Each row's
+    top T (_k7_run) by the merge network over its lists' first T keys
+    (_merge_top_replay); without dedup its first K; with dedup the first
+    of each run of exact copies kept, EMPTY_KEY dropped, and the first K
+    kept (EMPTY_KEY past them) where no index recurs among them and there
+    are K, or the T-th key is EMPTY_KEY; the other rows by the p-way merge
+    (_pop_merge_replay)."""
+    rows, p, n = buf.shape
+    kk = min(k, p * n)
+    t = _k7_run(kk, p, spill)
+    dedup = spill > 1
+    run = torch.full((rows, p, t), EMPTY_KEY, dtype=torch.int64)
+    run[:, :, : min(n, t)] = buf[:, :, :t].cpu()
+    a = run[:, 0]
+    for lst in range(1, p):
+        a = _merge_top_replay(a, run[:, lst])
+    out = torch.full((rows, kk), EMPTY_KEY, dtype=torch.int64)
+    exact = torch.zeros(rows, dtype=torch.bool) | (kk > t)
+    if not dedup:
+        out[:, : min(kk, t)] = a[:, :kk]
+    else:
+        prev = torch.cat([a.new_full((rows, 1), EMPTY_KEY), a[:, :-1]], 1)
+        keep = (a != EMPTY_KEY) & ((torch.arange(t) == 0) | (a != prev))
+        for r in range(rows):
+            kept = a[r][keep[r]]
+            low = kept & LOW_WORD
+            twice = low.unique().numel() < low.numel()
+            if twice or (kept.numel() < kk and int(a[r, -1]) != EMPTY_KEY):
+                exact[r] = True
+            else:
+                out[r, : min(kk, kept.numel())] = kept[:kk]
+    for r in torch.nonzero(exact).flatten().tolist():
+        out[r] = _pop_merge_replay(buf[r].cpu(), kk, dedup)
+    return out, int(exact.sum())
 
 
 def _unit_padded(emb: torch.Tensor, precision: str) -> torch.Tensor:

@@ -14,12 +14,21 @@ same numpy rows and tables:
 - _top_clusters on CPU tensors bitwise JAX's _assign_spill and
   _probe_lists from the same centroids;
 - the dispatch: CPU tensors reach the plain versions, and the kernels'
-  wrappers refuse them.
+  wrappers refuse them;
+- K6's and K7's device algorithms replayed on tensors (ivf._k6_replay:
+  the first selection's bisection, the later tiles' offers, overflow
+  rounds and merges; ivf._k7_replay: the merge network, the dedup of
+  exact copies and the exact finish) bitwise rescore_plain and
+  merge_buffers_plain: ties, rows >= n_real, members fewer than W, W in
+  {1, 50, 64, 100}, a cluster whose later tiles beat every earlier key
+  (every overflow round), lists whose indices recur at other scores.
 
 The `cuda` tests (skipped without a card) hold each kernel against its
 plain version on the card: K6 bitwise on grid rows and at the edge cases
 (a 1-member cluster, one past a tile, k past the members, sentinel rows,
-unprobed and empty clusters, C = 8, a query row offset), to an index-set
+unprobed and empty clusters, C = 8, a query row offset; W = 1, 50, 64 and
+100; a cluster past the first selection's 256 members, and one that
+overflows its survivor slots), to an index-set
 agreement >= 0.999 and scores within 2e-6 on real rows, two launches
 byte-identical; K7 bitwise at spill 1, 2 and 3 on K6's own buffers and on
 sorted lists whose indices recur at other scores; K4 as the cluster
@@ -301,15 +310,129 @@ def test_rescore_units_cover_every_probed_slot():
     assert (np.diff(units[:, 3]) <= 0).all()
 
 
+def _replay(case, stats=None):
+    return ivf._k6_replay(case["en_pad"], case["n_real"], case["member"],
+                          case["counts_h"], case["qtab"], case["stab"],
+                          case["qcounts_h"], case["first"], case["nq"],
+                          case["p"], case["kk_g"], stats)
+
+
+@pytest.mark.parametrize("k", [1, 50, 64, 100])
+def test_k6_replay_matches_plain_at_edge_cases(k):
+    """K6's selection replayed (_k6_replay) bitwise rescore_plain at the
+    edge cases (grid rows: ties to the lowest index; sentinel rows; k past
+    a cluster's members; a cluster past the first selection's 256
+    members), with the lists in shared memory (k <= 64) and not."""
+    case = _edge_case(CPU, k)
+    stats = {}
+    assert torch.equal(_replay(case, stats), _plain(case))
+    assert stats["merges"] > 0  # the 300-member cluster's last tile
+
+
+@pytest.mark.parametrize("k", [1, 50, 64, 100])
+def test_k6_replay_matches_plain_when_survivors_overflow(k):
+    """_flood_case: every later tile's keys beat the thresholds, so rows
+    overflow their survivor slots and the tile is offered again in
+    rounds, merging between them: bitwise rescore_plain."""
+    case = _flood_case(CPU, k)
+    stats = {}
+    assert torch.equal(_replay(case, stats), _plain(case))
+    assert stats["rounds"] > 0 and stats["merges"] > 0
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+def test_k6_replay_matches_plain_on_ivf_tables(spill):
+    """knn_ivf's own tables on grid rows (C = 8: clusters of ~400-800
+    members, past the first selection), k = 50: the replay bitwise
+    rescore_plain, and the bisection within its 64 steps a row."""
+    case = _ivf_case(_grid(np.random.default_rng(50 + spill), 3000, 32), 8,
+                     2, spill, 50)
+    assert int(case["counts_h"].max()) > ivf.K6_FIRST
+    stats = {}
+    assert torch.equal(_replay(case, stats), _plain(case))
+    assert stats["steps"] <= 64 * case["nq"] * case["p"]
+
+
+def test_kth_key_replay_on_ties():
+    """The bisection (csrc/ivf_rescore.cu kth_key) on keys whose scores
+    tie in runs: for every need a key t with exactly need keys at or above
+    it, at most the need-th largest, in at most 64 steps (32 on the high
+    words, 32 on the low words)."""
+    rng = np.random.default_rng(12)
+    scores = torch.from_numpy((rng.integers(-3, 4, 200) / 8).astype(
+        np.float32))
+    keys = _order_keys(scores, torch.from_numpy(rng.permutation(200)))
+    keys = torch.cat([keys, torch.full((56,), EMPTY_KEY)]).numpy()
+    want = np.sort(keys[keys != EMPTY_KEY])[::-1]
+    for need in range(1, 201):
+        t, steps = ivf._kth_key_replay(keys, need)
+        assert (want >= t).sum() == need and t <= want[need - 1]
+        assert steps <= 64
+
+
+def test_merge_top_replay_is_the_top_of_both_runs():
+    """The merge network's step (keys_sm90.cuh merge_top): the top T of
+    two descending runs, sorted descending, EMPTY_KEY padding included."""
+    rng = np.random.default_rng(13)
+    for t in (64, 128, 512):
+        a, b = (torch.sort(_order_keys(torch.from_numpy(
+            rng.standard_normal((20, t)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 4 * t, (20, t)))), dim=1,
+            descending=True).values for _ in range(2))
+        b[:, t // 3 :] = EMPTY_KEY
+        want = torch.topk(torch.cat([a, b], 1), t, dim=1).values
+        assert torch.equal(ivf._merge_top_replay(a, b), want)
+
+
+@pytest.mark.parametrize("shape", [(300, 8, 50, 50), (50, 3, 7, 10),
+                                   (20, 40, 20, 300), (16, 1, 64, 64),
+                                   (12, 40, 20, 600)])
+@pytest.mark.parametrize("spill", [1, 2, 3])
+def test_k7_replay_matches_plain_on_sorted_lists(shape, spill):
+    """K7's merge network, dedup and exact finish replayed (_k7_replay)
+    bitwise merge_buffers_plain on sorted lists whose indices recur at
+    other scores; with dedup such rows finish exactly, as every row does
+    past the network's 512 keys."""
+    rows, p, w, k = shape
+    buf = _sorted_lists(np.random.default_rng(rows + spill), rows, p, w,
+                        CPU)
+    got, exact_rows = ivf._k7_replay(buf, k, spill)
+    assert torch.equal(got, ivf.merge_buffers_plain(buf, k, spill))
+    assert (exact_rows > 0) == (spill > 1 or k > ivf.K7_RUN_MAX)
+
+
+@pytest.mark.parametrize("spill", [2, 3])
+def test_k7_replay_on_rescore_buffers_needs_no_exact_finish(spill):
+    """On a rescore's buffer an index recurs only as exact copies (a row
+    scored in two probed clusters), so no row of the network needs the
+    exact finish: bitwise merge_buffers_plain, no row finished exactly."""
+    rows = _blobs(4000, 32, 30, np.random.default_rng(spill))
+    case = _ivf_case(rows, 16, 6, spill, 20)
+    buf = _plain(case)
+    got, exact_rows = ivf._k7_replay(buf, 20, spill)
+    assert torch.equal(got, ivf.merge_buffers_plain(buf, 20, spill))
+    assert exact_rows == 0
+
+
+def test_k7_run_covers_k_times_the_copies():
+    """K7's run T: 64 at least, k times min(spill, p) with dedup, at most
+    512 (past that every row finishes exactly)."""
+    assert ivf._k7_run(50, 8, 1) == 64
+    assert ivf._k7_run(50, 8, 2) == 128
+    assert ivf._k7_run(50, 8, 3) == 256
+    assert ivf._k7_run(50, 1, 3) == 64
+    assert ivf._k7_run(300, 40, 2) == 512
+
+
 # --------------------------------------------------------------- cuda
 
 
-def _edge_case(device):
-    """C = 8 clusters on grid rows of d = 512: 1, 300 (past a tile), 20
-    (k = 50 past its members), 60 (ten sentinel rows >= n_real, which
-    would score best), 100 (never probed), 0 (probed), 129 and 200
-    members, clusters sharing rows; 300 query rows from row 100, 3
-    probes each."""
+def _edge_case(device, k=50):
+    """C = 8 clusters on grid rows of d = 512: 1, 300 (past a tile and the
+    first selection's 256), 20 (k = 50 past its members), 60 (ten
+    sentinel rows >= n_real, which would score best), 100 (never probed),
+    0 (probed), 129 and 200 members, clusters sharing rows; 300 query
+    rows from row 100, 3 probes each; k neighbors."""
     rng = np.random.default_rng(16)
     n_real, d = 900, 512
     rows = _grid(rng, n_real + 40, d)
@@ -324,7 +447,38 @@ def _edge_case(device):
                        for _ in range(300)]).astype(np.int32)
     return _case(en_pad.to(device), n_real,
                  torch.from_numpy(member).to(device), sizes,
-                 torch.from_numpy(probes).to(device), 50, first=100)
+                 torch.from_numpy(probes).to(device), k, first=100)
+
+
+def _flood_case(device, k=50):
+    """A cluster whose members score higher tile by tile, for every query
+    (K6's survivors overflow): 700 members, member i's first level(i) of
+    64 values 8 / 64 and the rest -8 / 64, 130 queries of all 1 / 64
+    (score (2 level - 64) / 512). Levels: i // 8 over the first 256
+    members, then 40 members at 32 and 88 at 0 (40 survivors, fewer than
+    a merge asks for at the larger slots), then 128 at 33 (every key of
+    the tile beats every earlier one), then the rest at 34 + (i - 512) //
+    40; ties to the lowest index. A second cluster of 90 members with 10
+    rows >= n_real; queries probe both (2 probes)."""
+    n_real, d = 1000, 64
+    level = np.concatenate([np.arange(256) // 8, np.full(40, 32),
+                            np.zeros(88, np.int64), np.full(128, 33),
+                            34 + np.arange(188) // 40])
+    rows = np.full((n_real + 20, d), -8 / 64, np.float32)
+    for i, lv in enumerate(level):
+        rows[i, :lv] = 8 / 64
+    rows[700:830] = 1 / 64
+    rows[830:n_real] = _grid(np.random.default_rng(41), n_real - 830, d)
+    rows[n_real:] = 8 / 64
+    en_pad = torch.cat([torch.from_numpy(rows), torch.zeros((1, d))])
+    member = np.full((2, 768), n_real, np.int32)
+    member[0, :700] = np.arange(700)
+    member[1, :90] = 830 + np.arange(90)
+    member[1, ::9][:10] = n_real + np.arange(10)
+    probes = np.tile(np.array([[0, 1]], np.int32), (130, 1))
+    return _case(en_pad.to(device), n_real,
+                 torch.from_numpy(member).to(device), [700, 90],
+                 torch.from_numpy(probes).to(device), k, first=700)
 
 
 def _sorted_lists(rng, rows, p, w, device):
@@ -346,23 +500,41 @@ def _sorted_lists(rng, rows, p, w, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 @pytest.mark.parametrize("spill", [1, 2])
-def test_ivf_rescore_bitwise_on_grid_rows(cuda, precision, spill):
+@pytest.mark.parametrize("k", [50, 64, 100])
+def test_ivf_rescore_bitwise_on_grid_rows(cuda, precision, spill, k):
     """K6 against rescore_plain on grid rows (every score exact) through
-    knn_ivf's own tables: bitwise, ties to the lowest index included."""
+    knn_ivf's own tables: bitwise, ties to the lowest index included; C =
+    16 makes clusters of ~300-700 members (past the first selection's
+    256); W = 64 the largest with the lists in shared memory, W = 100 the
+    form with lists in the buffer."""
     rows = _grid(np.random.default_rng(30 + spill), 5000, 512)
-    case = _ivf_case(rows, 64, 8, spill, 50, cuda)
+    case = _ivf_case(rows, 16, 4, spill, k, cuda)
+    assert int(case["counts_h"].max()) > ivf.K6_FIRST
     assert torch.equal(_kernel(case, precision), _plain(case))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
-def test_ivf_rescore_edge_cases(cuda, precision):
+@pytest.mark.parametrize("k", [1, 50, 64, 100])
+def test_ivf_rescore_edge_cases(cuda, precision, k):
     """_edge_case bitwise, and no sentinel row in any list."""
-    case = _edge_case(cuda)
+    case = _edge_case(cuda, k)
     got = _kernel(case, precision)
     assert torch.equal(got, _plain(case))
     _, idx = _decode_keys(got[got != EMPTY_KEY])
     assert bool((idx < case["n_real"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("k", [1, 50, 64, 100])
+def test_ivf_rescore_when_survivors_overflow(cuda, precision, k):
+    """_flood_case (rows overflow their survivor slots, tiles offered
+    again in rounds): bitwise rescore_plain and K6's replay."""
+    case = _flood_case(cuda, k)
+    got = _kernel(case, precision)
+    assert torch.equal(got, _plain(case))
+    assert torch.equal(got.cpu(), _replay(case))
 
 
 @pytest.mark.cuda
@@ -400,17 +572,23 @@ def test_ivf_merge_bitwise_on_rescore_buffers(cuda, spill):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3000, 8, 50, 50), (500, 3, 7, 10),
-                                   (200, 40, 20, 300), (64, 1, 64, 64)])
+                                   (200, 40, 20, 300), (64, 1, 64, 64),
+                                   (50, 40, 20, 600)])
 @pytest.mark.parametrize("spill", [1, 2, 3])
 def test_ivf_merge_bitwise_on_sorted_lists(cuda, shape, spill):
     """K7 on sorted lists whose indices recur at other scores (the
-    highest copy kept), rows with fewer distinct indices than k (EMPTY_KEY
-    tails) and empty rows: bitwise merge_buffers_plain."""
+    highest copy kept; with dedup such rows take the exact finish), rows
+    with fewer distinct indices than k (EMPTY_KEY tails), empty rows, k
+    past the network's 512: bitwise merge_buffers_plain and _k7_replay."""
     rows, p, w, k = shape
     buf = _sorted_lists(np.random.default_rng(rows + spill), rows, p, w,
                         cuda)
-    assert torch.equal(ivf.merge_probe_lists(buf, k, spill),
-                       ivf.merge_buffers_plain(buf, k, spill))
+    got = ivf.merge_probe_lists(buf, k, spill)
+    assert torch.equal(got, ivf.merge_buffers_plain(buf, k, spill))
+    want, exact_rows = ivf._k7_replay(buf.cpu(), k, spill)
+    assert torch.equal(got.cpu(), want)
+    # the exact finish ran
+    assert (exact_rows > 0) == (spill > 1 or k > ivf.K7_RUN_MAX)
 
 
 @pytest.mark.cuda

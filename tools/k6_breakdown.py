@@ -3,22 +3,31 @@
 
     python3 tools/k6_breakdown.py
 
-Builds fedrann_tpu_torch/csrc/ivf_rescore.cu four more times with parts of
-K6's bf16 form switched off (source hooks, each must match once), each by
-nvcc into its own library under fedrann_tpu_torch/_kernels/k6_breakdown/
-(all builds at once), and times fk_ivf_rescore of each on chip_smoke.py
-phase 11b's tables: 262,144 x 512 read-overlap rows (overlap_rows, FLAGS'
---seed) with knn_ivf's C = 1,024, p = 8, spill 2, k = 50:
-  - full: the kernel as it is, with the merges and survivors it counts;
-  - no_offer: the product, the loads and each tile's scores staged in
-    shared memory, but no key offered, so no survivor and no merge;
-  - no_product: as full without the mma.sync steps (every score +0.0:
-    the first tile's keys fill the lists, later tiles offer nothing);
-  - loads: neither the product nor the offers: the gathers, the stage
-    pipeline and its barriers.
+Builds fedrann_tpu_torch/csrc/ivf_rescore.cu five more times, four with
+parts of K6's bf16 form switched off and one with counters (source hooks,
+each must match once), each by nvcc into its own library under
+fedrann_tpu_torch/_kernels/k6_breakdown/ (all builds at once), and times
+fk_ivf_rescore of each on chip_smoke.py phase 11b's tables: 262,144 x 512
+read-overlap rows (overlap_rows, FLAGS' --seed) with knn_ivf's C = 1,024,
+p = 8, spill 2, k = 50:
+  - full: the kernel as it is;
+  - no_select: the product, the loads and the first two tiles' scores
+    stored in shared memory, but no selection, no offer and no merge;
+  - no_product: as full without the wgmma steps (every score +0.0, so
+    every key ties and the bisection walks the low words);
+  - loads: neither the product nor the selection: the gathers, the stage
+    pipeline and its barriers;
+  - counts (not timed: its counters are global atomics): the first
+    selection's bisection steps, the keys emitted (kept by the first
+    selection or merged from the survivor slots) and the merges, each a
+    (query, slot) list, the warps' tiles that overflowed a row's slots,
+    and clock64 cycles a warp a unit in each part (CYCLES).
 Each line gives ms per call (CUDA events, 3 calls after a warm-up) and
-the TFLOP/s of 2 * 512 operations a real pair-score; the card's name and
-power limit head the output.
+the TFLOP/s of 2 * 512 operations a real pair-score. Then the members a
+unit over 11b's units (the quantiles), and K7 on K6's buffer (the
+package's build, spill 2 and 1) beside torch.topk of the buffer rows
+(spill 1's function), with the rows its exact finish took (the counts
+build's K7). The card's name and power limit head the output.
 """
 
 from __future__ import annotations
@@ -31,38 +40,105 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
+# steps, emitted, merges, overflowing tiles, exact K7 rows; then clock64
+# cycles (each warp's lane 0): the first selection, the offers, the
+# overflow rounds, the merges after a tile, the last merges and write-out,
+# the whole block
+N_COUNTS = 11
+CYCLES = ("first selection", "offers", "overflow rounds", "merges after a "
+          "tile", "last merges and write-out", "whole unit")
 HOOKS = {
-    "#include \"common.cuh\"\n": (
-        "#include \"common.cuh\"\n"
-        "__device__ unsigned long long g_counts[2];\n"
+    "#include \"keys_sm90.cuh\"\n": (
+        "#include \"keys_sm90.cuh\"\n"
+        f"__device__ unsigned long long g_counts[{N_COUNTS}];\n"
         "extern \"C\" int bd_counts(unsigned long long* out, int reset) {\n"
-        "  unsigned long long z[2] = {0, 0};\n"
+        f"  unsigned long long z[{N_COUNTS}] = {{0}};\n"
         "  return reset ? (int)cudaMemcpyToSymbol(g_counts, z, sizeof(z))\n"
         "               : (int)cudaMemcpyFromSymbol(out, g_counts,\n"
         "                                           sizeof(z));\n"
-        "}\n"),
-    "  int64_t* S = rs.sv + r * SV;\n  const int len = rs.len[r];\n": (
-        "  int64_t* S = rs.sv + r * SV;\n  const int len = rs.len[r];\n"
+        "}\n"
         "#ifdef BD_COUNT\n"
-        "  if (lane == 0) { atomicAdd(&g_counts[0], 1ull);\n"
-        "    atomicAdd(&g_counts[1], (unsigned long long)rs.cnt[r]); }\n"
+        "#define BD_ADD(i, n) atomicAdd(&g_counts[i], "
+        "(unsigned long long)(n))\n"
+        "#define BD_T0(v) const long long v = clock64()\n"
+        "#define BD_T(i, v) if ((threadIdx.x & 31) == 0) "
+        "BD_ADD(i, clock64() - v)\n"
+        "#else\n"
+        "#define BD_ADD(i, n)\n"
+        "#define BD_T0(v)\n"
+        "#define BD_T(i, v)\n"
         "#endif\n"),
-    "      offer_half(rs, sc, half, mq, col0, nm, mem, n_real);\n": (
-        "#ifndef BD_NO_OFFER\n"
-        "      offer_half(rs, sc, half, mq, col0, nm, mem, n_real);\n"
+    "  for (int r = threadIdx.x; r < BM; r += THREADS) {\n": (
+        "  BD_T0(bd_k);\n"
+        "  for (int r = threadIdx.x; r < BM; r += THREADS) {\n"),
+    "      int most = 0;\n": (
+        "      BD_T0(bd_o);\n"
+        "      int most = 0;\n"),
+    "      if (__any_sync(0xffffffffu, most > SV)) {\n": (
+        "      BD_T(6, bd_o);\n"
+        "      BD_T0(bd_v);\n"
+        "      if (__any_sync(0xffffffffu, most > SV)) {\n"),
+    "      merge_rows<LS>(u, r0w, SV / 2, lane);\n": (
+        "      BD_T(7, bd_v);\n"
+        "      BD_T0(bd_m);\n"
+        "      merge_rows<LS>(u, r0w, SV / 2, lane);\n"
+        "      BD_T(8, bd_m);\n"),
+    "  merge_rows<LS>(u, r0w, 0, lane);\n": (
+        "  BD_T0(bd_f);\n"
+        "  merge_rows<LS>(u, r0w, 0, lane);\n"),
+    ("      for (int e = n + lane; e < W; e += 32) out[e] = EMPTY_KEY;\n"
+     "    }\n  }\n"): (
+        "      for (int e = n + lane; e < W; e += 32) out[e] = EMPTY_KEY;\n"
+        "    }\n  }\n"
+        "  BD_T(9, bd_f);\n"
+        "  BD_T(10, bd_k);\n"),
+    "    const int32_t mid = static_cast<int32_t>(a + ((b - a) >> 1));\n": (
+        "    const int32_t mid = static_cast<int32_t>(a + ((b - a) >> 1));\n"
+        "    if ((threadIdx.x & 7) == 0 && go) BD_ADD(0, 1);\n"),
+    "    const uint64_t mid = x + ((y - x) >> 1);\n": (
+        "    const uint64_t mid = x + ((y - x) >> 1);\n"
+        "    if ((threadIdx.x & 7) == 0 && !done) BD_ADD(0, 1);\n"),
+    "    if (live && j == 0) u.len[r] = need;\n": (
+        "    if (live && j == 0) u.len[r] = need;\n"
+        "    if (live && j == 0) BD_ADD(1, need);\n"),
+    "  const int n = live ? u.len[rr] : 0;\n": (
+        "  const int n = live ? u.len[rr] : 0;\n"
+        "  if (live && j == 0) BD_ADD(2, 1);\n"
+        "  if (live && j == 0) BD_ADD(1, s);\n"),
+    "  const int s = min(u.cnt[r], SV_DEV), len = u.len[r];\n": (
+        "  const int s = min(u.cnt[r], SV_DEV), len = u.len[r];\n"
+        "  if (lane == 0) BD_ADD(2, 1);\n"
+        "  if (lane == 0) BD_ADD(1, s);\n"),
+    "        // a row overflowed: drop the tile's keys (its count in shared\n": (
+        "        if (lane == 0) BD_ADD(3, 1);\n"
+        "        // a row overflowed: drop the tile's keys (its count in shared\n"),
+    "  if (!exact) pop_merge(src, p, L, K, dedup, dst, pos, lane);\n": (
+        "  if (!exact && lane == 0) BD_ADD(4, 1);\n"
+        "  if (!exact) pop_merge(src, p, L, K, dedup, dst, pos, lane);\n"),
+    "      if (t == t_sel) select_first<LS>(u, r0w, lane);\n": (
+        "#ifndef BD_NO_SELECT\n"
+        "      if (t == t_sel) {\n"
+        "        BD_T0(bd_s);\n"
+        "        select_first<LS>(u, r0w, lane);\n"
+        "        BD_T(5, bd_s);\n"
+        "      }\n"
         "#endif\n"),
-    ("            mma_bf16(acc + (mi * 8 + ni) * 4, a[mi],\n"
-     "                     bf[ni >> 1][(ni & 1) * 2], "
-     "bf[ni >> 1][(ni & 1) * 2 + 1]);\n"): (
+    "  const int32_t mono = mono_bits(v);\n": (
+        "#ifdef BD_NO_SELECT\n"
+        "  return 0;\n"
+        "#endif\n"
+        "  const int32_t mono = mono_bits(v);\n"),
+    ("        wgmma_m64n128k16(acc, desc_sw128(a + 32 * ks),\n"
+     "                         desc_sw128(sp + CHUNK + 32 * ks));\n"): (
         "#ifndef BD_NO_PRODUCT\n"
-        "            mma_bf16(acc + (mi * 8 + ni) * 4, a[mi],\n"
-        "                     bf[ni >> 1][(ni & 1) * 2], "
-        "bf[ni >> 1][(ni & 1) * 2 + 1]);\n"
+        "        wgmma_m64n128k16(acc, desc_sw128(a + 32 * ks),\n"
+        "                         desc_sw128(sp + CHUNK + 32 * ks));\n"
         "#endif\n"),
 }
-VARIANTS = {"full": ["-DBD_COUNT"], "no_offer": ["-DBD_NO_OFFER"],
-            "no_product": ["-DBD_NO_PRODUCT", "-DBD_COUNT"],
-            "loads": ["-DBD_NO_PRODUCT", "-DBD_NO_OFFER"]}
+VARIANTS = {"full": [], "no_select": ["-DBD_NO_SELECT"],
+            "no_product": ["-DBD_NO_PRODUCT"],
+            "loads": ["-DBD_NO_PRODUCT", "-DBD_NO_SELECT"],
+            "counts": ["-DBD_COUNT"]}
 
 
 def build(out_dir: str) -> dict:
@@ -74,7 +150,7 @@ def build(out_dir: str) -> dict:
     for old, new in HOOKS.items():
         if src.count(old) != 1:
             sys.exit(f"k6_breakdown: the hook {old!r} is not in "
-                     "ivf_rescore.cu")
+                     "ivf_rescore.cu once")
         src = src.replace(old, new)
     os.makedirs(out_dir, exist_ok=True)
     cu = os.path.join(out_dir, "ivf_rescore_breakdown.cu")
@@ -91,13 +167,26 @@ def build(out_dir: str) -> dict:
         if proc.returncode:
             sys.exit(f"k6_breakdown: nvcc failed for {name}:\n{log[-4000:]}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-        fn = libs[name].fk_ivf_rescore
-        fn.argtypes = _build._SIGNATURES["fk_ivf_rescore"]
-        fn.restype = ctypes.c_int
+        for entry in ("fk_ivf_rescore", "fk_ivf_merge"):
+            fn = getattr(libs[name], entry)
+            fn.argtypes = _build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
     return libs
 
 
+def read_counts(lib, call) -> list:
+    counts = (ctypes.c_ulonglong * N_COUNTS)()
+    lib.bd_counts(counts, 1)
+    call()
+    import torch
+
+    torch.cuda.synchronize()
+    lib.bd_counts(counts, 0)
+    return list(counts)
+
+
 def main() -> None:
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -118,11 +207,12 @@ def main() -> None:
     del rows
     want = cs.k6_run(case, "bf16")
     en = case["en_pad"].to(torch.bfloat16)
-    units = torch.from_numpy(ivf.rescore_units(
-        case["counts_h"], case["qcounts_h"])).to(dev)
+    units_h = ivf.rescore_units(case["counts_h"], case["qcounts_h"])
+    units = torch.from_numpy(units_h).to(dev)
     buf = torch.empty_like(want)
     stream = torch.cuda.current_stream().cuda_stream
     ops = 2 * 512 * case["real"]
+    lists = case["nq"] * case["p"]
     for name, lib in libs.items():
         def call(lib=lib):
             rc = lib.fk_ivf_rescore(
@@ -134,23 +224,54 @@ def main() -> None:
             if rc:
                 sys.exit(f"k6_breakdown: {name} launch failed ({rc})")
 
+        if name == "counts":
+            got = read_counts(lib, call)
+            steps, emitted, merges, rounds = got[:4]
+            if not torch.equal(buf, want):
+                sys.exit("k6_breakdown: the counts build differs from K6")
+            warps = 8 * units.shape[0]
+            print(f"counts at 11b, a (query, slot) list: "
+                  f"{steps / lists:.2f} bisection steps, "
+                  f"{emitted / lists:.1f} keys emitted, "
+                  f"{merges / lists:.3f} merges; {rounds} warps' tiles "
+                  "overflowed; clock64 cycles a warp a unit: " + ", ".join(
+                      f"{what} {c / warps:.0f}"
+                      for what, c in zip(CYCLES, got[5:])), flush=True)
+            continue
         ms = cs.time_cuda(call, 3)
-        text = (f"{name} at 11b's {cs.IVF_ROWS} x 512 rows, C = 1,024, "
-                f"{case['real']} real pair-scores, {units.shape[0]} units: "
-                f"{ms:.3f} ms = {ops / ms / 1e9:.1f} TFLOP/s")
         if name == "full" and not torch.equal(buf, want):
             sys.exit("k6_breakdown: the full build differs from K6")
-        if "-DBD_COUNT" in VARIANTS[name]:
-            counts = (ctypes.c_ulonglong * 2)()
-            lib.bd_counts(counts, 1)
-            call()
-            torch.cuda.synchronize()
-            lib.bd_counts(counts, 0)
-            lists = case["nq"] * case["p"]
-            text += (f"; {counts[0] / lists:.2f} merges and "
-                     f"{counts[1] / lists:.1f} survivors a (query, slot) "
-                     "list")
-        print(text, flush=True)
+        print(f"{name} at 11b's {cs.IVF_ROWS} x 512 rows, C = 1,024, "
+              f"{case['real']} real pair-scores, {units.shape[0]} units: "
+              f"{ms:.3f} ms = {ops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    members = units_h[:, 3]
+    q = np.quantile(members, [0.0, 0.1, 0.5, 0.9, 0.99, 1.0])
+    print(f"members a unit over 11b's {len(members)} units: min {q[0]:.0f}, "
+          f"10% {q[1]:.0f}, median {q[2]:.0f}, 90% {q[3]:.0f}, 99% "
+          f"{q[4]:.0f}, max {q[5]:.0f}, mean {members.mean():.1f}; past "
+          f"the first selection's {ivf.K6_FIRST}: "
+          f"{(members > ivf.K6_FIRST).mean():.3f} of the units", flush=True)
+
+    # K7 on the full build's buffer
+    kk = min(cs.IVF_K, want.shape[1] * want.shape[2])
+    out = torch.empty((want.shape[0], kk), dtype=torch.int64, device=dev)
+    for spill in (2, 1):
+        ms = cs.time_cuda(lambda: ivf.merge_probe_lists(want, cs.IVF_K,
+                                                        spill), 5)
+        exact = read_counts(libs["counts"], lambda: libs[
+            "counts"].fk_ivf_merge(want.data_ptr(), want.shape[0], case["p"],
+                                   want.shape[2], kk, spill, out.data_ptr(),
+                                   stream))[4]
+        if not torch.equal(out, ivf.merge_probe_lists(want, cs.IVF_K,
+                                                      spill)):
+            sys.exit("k6_breakdown: the counts build's K7 differs from K7")
+        print(f"K7 at spill {spill} on the buffer {tuple(want.shape)}: "
+              f"{ms:.4f} ms; rows finished exactly {exact} of "
+              f"{want.shape[0]}", flush=True)
+    flat = want.reshape(want.shape[0], -1)
+    topk_ms = cs.time_cuda(lambda: torch.topk(flat, kk, dim=1), 5)
+    print(f"torch.topk of the buffer rows (k = {kk}): {topk_ms:.4f} ms",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -55,8 +55,10 @@ Phases; any failure exits non-zero and prints no result line:
      pinning copy), and writes through the C writer; its load, output and
      upload figures are logged;
      (b) the same at --projection-dtype f32 and bf16: the dense form must
-         launch and the sign form must not; project and embed seconds
-         logged beside phase 4's;
+         launch and the sign form must not, and K8 must build the table
+         (K5 must not); project and embed seconds logged beside phase 4's
+         and beside the project seconds of the dense table built by torch
+         ops (PROJECT_TORCH_OPS_S);
      (c) phase 4 again on the same -o: it must load from fxcache.npz (no
          parse), with its load seconds; then the load's pieces timed alone
          (the parse on 1 and 8 threads, the pack into pinned and pageable
@@ -207,7 +209,8 @@ Phases; any failure exits non-zero and prints no result line:
          (>= IVF_SEARCH_RECALL); a third run split by step
          (ivf_step_split: CUDA events and the host clock around the
          k-means assignment, segment sums, spill/probe ranking, member and
-         probe tables, rescore, merge and keys_to_host), its neighbors
+         probe tables, rescore, merge and keys_to_host; the segment sums,
+         K9, logged beside SEGMENT_TORCH_OPS_MS), its neighbors
          the warm run's; self at rank 0, sorted rows, no index twice,
          every distance within 1e-5 of a recompute;
      (c) knn_ivf_ooc: (a) at --knn-hbm-budget 16M (knn_ivf_ooc called,
@@ -242,7 +245,11 @@ Phases; any failure exits non-zero and prints no result line:
      share beside the plain version's, the bf16 product alone
      (torch.matmul) and torch.topk on the keys. K5 (csrc/srp_signs.cu) bitwise against sign_table_plain on
      the card at phase 4's library size, and after 5b at the long reads'
-     (the library sizes the runs log), each with its time and bound.
+     (the library sizes the runs log), each with its time and bound; K8
+     (the same source) bitwise (integer views) against paired_table_plain
+     there in float32 and bfloat16, and on edge cases (L = 0 and 1, d = 1
+     and 100, density 1.0, a negative bound, counts equal to 2L, a key
+     with its top bit set), each with its time, device us and bound.
      Phase 4's knn logs its first-run set-up split (the library load, the
      first K4 launch, keys_to_host); 4e's trace must show no GEMM and no
      top-k kernel in the knn stage and no int64 elementwise chain in the
@@ -268,15 +275,24 @@ Phases; any failure exits non-zero and prints no result line:
      network's 512), timed beside the plain version, torch.topk of the
      buffer rows and PR 16's; K4 as the
      cluster ranking (_top_clusters) against top_clusters_plain at
-     agreement >= K6_AGREE, ties to the lower of two equal centroids.
-     Every IVF CLI run but out of core launches K6 and K7; no CUDA tensor
-     reaches rescore_plain, merge_buffers_plain or top_clusters_plain.
+     agreement >= K6_AGREE, ties to the lower of two equal centroids; K9
+     (csrc/ivf_segment_sum.cu) bitwise segment_sum_plain on phase 4's rows
+     at C = 256 and 11b's at C = 1,024 with the assignments of their own
+     k-means, on float32 and bfloat16 rows (the out-of-core wire), two
+     launches byte-identical, and on edge cases (empty clusters, one
+     cluster holding every row, a one-row cluster, N = 1, C = 8, d = 100,
+     zero rows), timed beside the plain version and index_add_.
+     Every IVF CLI run but out of core launches K6 and K7, and every one
+     K9 (three launches a k-means); no CUDA tensor reaches rescore_plain,
+     merge_buffers_plain, top_clusters_plain or segment_sum_plain.
 8a runs twice: the second time under --profile, so the out-of-core
 search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
 the runs of its own path: knn_merge and srp_signs from the main path's,
+srp_paired (K8) from 4b's two runs, ivf_segment_sum (K9) from phase 11's
+CLI runs and ranks,
 knn_merge_fp32 (K4's fp32 form) from 4f's two runs, ivf_rescore,
 ivf_rescore_fp32 and ivf_merge (K6's two forms and K7) from phase 11's
 CLI runs and ranks, stage_rows from the
@@ -369,6 +385,12 @@ IVF_SEARCH_RECALL = 0.99879 - 0.002
 # within K6_TOL (float32 sums of exact products in another order); K4's
 # cluster ranking against top_clusters_plain: agreement >= K6_AGREE
 K6_AGREE, K6_TOL = 0.999, 2e-6
+# 4b's project seconds when torch ops built the dense table, before K8, and
+# 11b's segment sums (three passes) in event ms when torch ops summed them,
+# before K9 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), logged
+# beside this run's
+PROJECT_TORCH_OPS_S = {"f32": 0.040, "bf16": 0.039}
+SEGMENT_TORCH_OPS_MS = (11.703, 18.974)
 # 12: K6's and K7's times at PR 16's design (a running top-k in device
 # memory; a p-way pop merge), ms on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md), logged beside this run's: (kernel, rows) -> ms
@@ -400,7 +422,7 @@ PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 PEAK_INT32 = 16.7e12
 CSRC = "fedrann_tpu_torch/csrc/"
 # kernel -> (source, the JAX function it replaces: a pl.pallas_call site,
-# or for K4-K7 the XLA function, which has none)
+# or for K4-K9 the XLA function, which has none)
 _K12 = ("bench/pallas_kernels.py:128 canonical_and_sample, "
         "bench/pallas_sort.py:128 sort_rows_pallas")
 _K1 = "bench/pallas_kernels.py:128 canonical_and_sample"
@@ -436,6 +458,12 @@ SOURCES = {
     "srp_signs": (CSRC + "srp_signs.cu",
                   "fedrann_tpu/project/srp.py:151 build_precompute_signs, "
                   ":202 _srp_sign_chunk, :219 _pack_signs (XLA)"),
+    "srp_paired": (CSRC + "srp_signs.cu",
+                   "fedrann_tpu/project/srp.py:90 build_precompute_paired, "
+                   ":39 _srp_chunk (XLA)"),
+    "ivf_segment_sum": (CSRC + "ivf_segment_sum.cu",
+                        "fedrann_tpu/knn/ivf.py:83 jax.ops.segment_sum in "
+                        "_kmeans :61 (XLA scatter-add)"),
     "fk_probe_smem_scratch": (CSRC + "probes.cu",
                               "bench/probe_mosaic.py:32 probe_smem_scratch"),
     "fk_probe_smem_input": (CSRC + "probes.cu",
@@ -1753,17 +1781,18 @@ def stage_paths(sim, flags: list[str], dev) -> set[str]:
 def no_plain_on_card():
     """Inside: the plain versions of K4 (merge_block_plain, and the IVF
     cluster ranking's top_clusters_plain), K5 (sign_table_plain), K6
-    (rescore_plain) and K7 (merge_buffers_plain) fail the run if they are
-    given a CUDA tensor, which only this script's reference calls may
-    do."""
+    (rescore_plain), K7 (merge_buffers_plain), K8 (paired_table_plain)
+    and K9 (segment_sum_plain) fail the run if they are given a CUDA
+    tensor, which only this script's reference calls may do."""
     import torch
 
     from fedrann_tpu_torch.knn import ivf, topk
     from fedrann_tpu_torch.project import srp
 
     saved = [(topk, "merge_block_plain"), (srp, "sign_table_plain"),
-             (ivf, "top_clusters_plain"), (ivf, "rescore_plain"),
-             (ivf, "merge_buffers_plain")]
+             (srp, "paired_table_plain"), (ivf, "top_clusters_plain"),
+             (ivf, "rescore_plain"), (ivf, "merge_buffers_plain"),
+             (ivf, "segment_sum_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
 
     def guard(name, fn):
@@ -1841,7 +1870,8 @@ def drive_cli(fasta: str, out_dir: str, sim, min_overlap: int, card: str,
         fail(f"cli.main returned {rc}")
     check_launches(launches, paths, None if resumed else embed,
                    "the main path", knn_expected(flags),
-                   embed == "membership_embed")
+                   embed == "membership_embed",
+                   not resumed and "--projection-dtype" in flags)
     check_host(host, load, "the main path")
     log(f"main path launches: {launches}; host counts: {host}")
 
@@ -1935,7 +1965,8 @@ def knn_expected(flags: list[str]) -> dict:
     of core, and the out-of-core IVF search, whose k-means follows the
     precision; the in-core IVF k-means is bf16 at either precision); K6
     and K7 on the in-core and sharded IVF searches (K6's fp32 form at
-    fp32); none of them out of core, which rescores by K4's slab loop."""
+    fp32); none of them out of core, which rescores by K4's slab loop; K9
+    (the k-means's segment sums) on every IVF search."""
     fp32 = ("--knn-precision" in flags
             and flags[flags.index("--knn-precision") + 1] == "fp32")
     ivf = ("--knn-method" in flags
@@ -1943,28 +1974,33 @@ def knn_expected(flags: list[str]) -> dict:
     rescore = ivf and "--knn-hbm-budget" not in flags
     return {"knn_merge": True, "knn_merge_fp32": fp32 and not rescore,
             "ivf_rescore": rescore, "ivf_rescore_fp32": rescore and fp32,
-            "ivf_merge": rescore}
+            "ivf_merge": rescore, "ivf_segment_sum": ivf}
 
 
 def check_launches(launches: dict, paths: set, embed: str | None,
                    what: str, knn: dict | None = None,
-                   signs: bool | None = None) -> None:
+                   signs: bool | None = None, paired: bool = False) -> None:
     """Each staging kernel launched exactly where the plan picks its path
     (`paths`), kernel C in the projection's form `embed` only, the k-NN
     kernels as `knn` says (knn_expected's dict; by default the exact
-    bf16 search's), K5 where the projection is the sign table (`signs`;
-    by default where `embed` is kernel C's sign form), and every other
-    kernel launched."""
+    bf16 search's; K9 three times a k-means, one launch a pass), K5 where
+    the projection is the sign table (`signs`; by default where `embed`
+    is kernel C's sign form), K8 exactly where it is a dense table built
+    from the stream (`paired`: --projection-dtype f32|bf16, not an
+    imported one), and every other kernel launched."""
     signs = embed == "membership_embed" if signs is None else signs
     knn = knn_expected([]) if knn is None else knn
     for name, n in launches.items():
         want = (name in paths if name in STAGE_KERNELS
                 else name == embed if name in EMBED_KERNELS
                 else signs if name == "srp_signs"
+                else paired if name == "srp_paired"
                 else knn[name] if name in knn else True)
-        if (n > 0) != want:
+        if (n > 0) != want or (name == "ivf_segment_sum" and n % 3):
             fail(f"kernel {name} was launched {n} times by {what}, "
-                 f"expected {'some' if want else 'none'}")
+                 f"expected {'some' if want else 'none'}"
+                 + (" (a multiple of 3)" if name == "ivf_segment_sum"
+                    else ""))
 
 
 def load_split(fasta: str, out_dir: str, card: str) -> None:
@@ -3230,10 +3266,11 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
     """One phase 10 run: two ranks of the CLI (drive_ranks), checked as
     9b: both exit 0; each rank launched K1+K2 (a fused staging kernel) and
     K3 and no staging kernel outside `paths` (none of either when
-    `resumed`), K5 (the sign table, every run) and K4 (as knn_expected
-    says for `flags`), loaded as `loads` says (rank 0 first: "parse" a native
-    parse, "cache" one fxcache.npz load, "ranged" a byte-range parse) with
-    no Python reader or packer and no pinning copy; both gathered the
+    `resumed`), K5 (the sign table, every run), no K8, and K4, K6, K7 and
+    K9 (as knn_expected says for `flags`; K9 on rank 0 alone), loaded as
+    `loads` says (rank 0 first: "parse" a native parse, "cache" one
+    fxcache.npz load, "ranged" a byte-range parse) with no Python reader
+    or packer and no pinning copy; both gathered the
     single-process library `ref["library"]`; the merged overlaps.tsv
     holds truth recall >= min_recall and agreement >= min_agree with the
     table of `ref["sets"]` (phase 4's); the rank tables are gone (kept
@@ -3261,10 +3298,12 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
             fail(f"{label} rank {rank}: launches {kernels}, staging kernels "
                  f"{staging} not within {paths} or K1+K2 / K3 missing")
         knn = knn_expected(flags)
-        if not kernels["srp_signs"] or any(
+        # rank 0 alone runs the k-means (knn_ivf_sharded_multihost)
+        knn["ivf_segment_sum"] = knn["ivf_segment_sum"] and rank == 0
+        if not kernels["srp_signs"] or kernels["srp_paired"] or any(
                 (kernels[name] > 0) != want for name, want in knn.items()):
-            fail(f"{label} rank {rank}: launches {kernels}, K5 missing or "
-                 f"the k-NN kernels not as {knn}")
+            fail(f"{label} rank {rank}: launches {kernels}, K5 missing, K8 "
+                 f"launched or the k-NN kernels not as {knn}")
         want = {"read_fastx": 0, "pack_reads": 0, "pin_copies": 0,
                 "pack_reads_native": int(loads[rank] in ("parse", "ranged")),
                 "cache_hits": int(loads[rank] == "cache")}
@@ -3648,6 +3687,11 @@ def check_ivf_search(dev, card: str) -> dict:
     if not np.array_equal(idx, idx2):
         fail("11b: knn_ivf gave other neighbors under the step split")
     log_ivf_split("11b knn_ivf", split, split_secs * 1e3, card)
+    seg = split["segment sums"]
+    log(f"11b segment sums (K9): {seg[0]:.3f} event ms / {seg[1]:.3f} host "
+        f"ms over {seg[2]} calls; by torch ops before K9 "
+        f"{SEGMENT_TORCH_OPS_MS[0]}-{SEGMENT_TORCH_OPS_MS[1]} event ms over "
+        f"3 [{card}]")
     rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
     sample = np.sort(rng.choice(IVF_ROWS, IVF_SAMPLE, replace=False))
     recall = sample_recall(idx, ref, sample)
@@ -4031,10 +4075,11 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
     (OOC_SAMPLE sampled queries over OOC_ROWS), and on k4_edge_cases at
     both precisions (hold_k4; zero query rows bitwise the plain keys),
     agreement >= K4_AGREE over every case; K5 at phase 4's library size
-    (check_sign_table). Logs each time with its TFLOP/s, units, bound and
+    (check_sign_table); K8 there (check_paired_table) and on its edge
+    cases (k8_edge_cases). Logs each time with its TFLOP/s, units, bound and
     share, beside the bf16 product alone (torch.matmul, the yardstick),
-    the plain version's and torch.topk on the keys. Returns K4's and K5's
-    report entries at the main path's shapes."""
+    the plain version's and torch.topk on the keys. Returns K4's, K5's
+    and K8's report entries at the main path's shapes."""
     import numpy as np
     import torch
 
@@ -4162,6 +4207,11 @@ def check_knn_kernels(ckpt_dir: str, dev, card: str) -> dict:
         "12 K5 at phase 4's library", len(lib["counts"]),
         config.embedding_dimension, config.projection_seed,
         config.projection_density, dev, card)
+    report["srp_paired"] = check_paired_table(
+        "12 K8 at phase 4's library", lib["counts"],
+        config.embedding_dimension, config.projection_seed,
+        config.projection_density, dev, card)
+    k8_edge_cases(dev, card)
     return report
 
 
@@ -4375,12 +4425,15 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     buffers at spill 1, 2 and 3 and on sorted_lists. K4 as the IVF's
     cluster ranking (_top_clusters) against top_clusters_plain: agreement
     >= K6_AGREE at t = 1 and t = 8, ties to the lowest id on duplicated
-    centroids. Each timed beside its plain version (and K7 beside
-    torch.topk of the buffer rows at spill 1), with its bound: K6 2 d
+    centroids. K9 bitwise segment_sum_plain on k9_edge_cases and on the
+    real rows with their own k-means's assignments (check_segment_sums).
+    Each timed beside its plain version (and K7 beside torch.topk of the
+    buffer rows at spill 1, K9 beside index_add_), with its bound: K6 2 d
     operations a real pair-score (bf16 or FFMA) or the bytes of its
-    query gathers and the buffer, K7 the buffer's bytes and the result's.
-    Returns K6's (both forms) and K7's report entries at phase 4's rows
-    with C = 256, the IVF main path's shapes."""
+    query gathers and the buffer, K7 the buffer's bytes and the result's,
+    K9 the rows', ids' and sums' bytes. Returns K6's (both forms), K7's
+    and K9's report entries at phase 4's rows with C = 256, the IVF main
+    path's shapes."""
     import numpy as np
     import torch
 
@@ -4464,11 +4517,16 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                  f"below {K6_AGREE}")
     del en_pad
 
+    k9_edge_cases(dev, card)
     # real rows: phase 4's at C = 256 (the report) and 11b's
     for label, rows, c in (("phase 4's rows, C = 256", x, 256),
                            (f"11b's {IVF_ROWS} x 512 rows, C = 1,024",
                             overlap_rows(IVF_ROWS, dev), 1024)):
         at = "phase 4" if c == 256 else "11b"
+        seg = check_segment_sums(f"12 K9 at {label}", ivf._unit_padded(
+            rows, "bf16")[: rows.shape[0]], c, card)
+        if c == 256:
+            report["ivf_segment_sum"] = seg
         for precision in ("bf16", "fp32"):
             case = ivf_case(ivf._unit_padded(rows, precision),
                             rows.shape[0], c, 8, 2)
@@ -4531,6 +4589,102 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     return report
 
 
+def hold_k9(label: str, rows, a, c: int):
+    """K9 (ivf._segment_sum on the card) against segment_sum_plain on
+    rows and assignments a, bitwise (int32 views), and two launches
+    byte-identical; fails otherwise. Returns K9's sums."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    got = ivf._segment_sum(rows, a, c)
+    again = ivf._segment_sum(rows, a, c)
+    if not torch.equal(got.view(torch.int32),
+                       ivf.segment_sum_plain(rows, a, c).view(torch.int32)):
+        fail(f"{label}: K9 differs from segment_sum_plain")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        fail(f"{label}: two K9 launches differ")
+    return got
+
+
+def k9_edge_cases(dev, card: str) -> None:
+    """K9 bitwise segment_sum_plain on the card, float32 and bfloat16
+    rows, two launches byte-identical: empty clusters (every odd one),
+    one cluster holding every row, a one-row cluster, N = 1, C = 8, d =
+    100 (a unit of 100 columns), zero rows, and N = 0."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((5000, 512)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(0, 64, 5000).astype(np.int32))
+    single = torch.where(a == 3, 4, a)
+    single[2500] = 3
+    zero = x.clone()
+    zero[::3] = 0.0
+    cases = [("empty clusters", x, a - a % 2, 64),
+             ("one cluster holding every row", x, torch.zeros_like(a), 16),
+             ("a one-row cluster", x, single, 64),
+             ("N = 1", x[:1], a[:1], 64), ("C = 8", x, a % 8, 8),
+             ("d = 100", x[:, :100].contiguous(), a, 64),
+             ("zero rows", zero, a, 64), ("N = 0", x[:0], a[:0], 8)]
+    for label, rows, assign, c in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            hold_k9(f"12 K9 edge case {label} ({dtype})",
+                    rows.to(dev, dtype), assign.to(dev), c)
+    log("12 K9 bitwise segment_sum_plain, two launches byte-identical, on "
+        "float32 and bfloat16 rows at " + ", ".join(c[0] for c in cases)
+        + f" [{card}]")
+
+
+def check_segment_sums(label: str, en, c: int, card: str) -> dict:
+    """K9 on the unit rows en (N, d) float32 at C = c with the
+    assignments of their own k-means (ivf._kmeans, then _top_clusters):
+    bitwise segment_sum_plain and two launches byte-identical (hold_k9)
+    on float32 rows and on bfloat16 rows (the out-of-core wire); each
+    timed with its set-up (the sort), device us of the kernel alone, the
+    plain version and index_add_ (the same sums in the order its atomics
+    land; of the widened rows for bfloat16), with its bound: the rows,
+    the sorted ids and bounds read once, the sums written. Returns the
+    float32 rows' report entry."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    n, d = en.shape
+    a = ivf._top_clusters(en, ivf._kmeans(en, c, 3), 1)[:, 0]
+    sizes = torch.bincount(a, minlength=c)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = en.to(dtype).contiguous()
+        got = hold_k9(f"{label} ({dtype})", rows, a, c)
+
+        def k9():
+            return ivf._segment_sum(rows, a, c)
+
+        def index_add():
+            return torch.zeros((c, d), device=rows.device).index_add_(
+                0, a, rows.float())
+
+        err = float((got - index_add()).abs().max())
+        ms = time_cuda(k9, 10)
+        plain_ms = time_cuda(lambda: ivf.segment_sum_plain(rows, a, c), 1)
+        lib_ms = time_cuda(index_add, 10)
+        b = bound(rows.numel() * rows.element_size() + n * 8 + (c + 1) * 8
+                  + c * d * 4)
+        log(f"{label} ({dtype} rows, largest cluster {int(sizes.max())}, "
+            f"{int((sizes == 0).sum())} empty): {ms:.4f} ms with its sort, "
+            f"device {device_us(k9, 5, True)} us a launch; bound "
+            f"{b['bound_ms']:.5f} ms (bytes, {100 * b['bound_ms'] / ms:.1f}% "
+            f"of it); plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms, "
+            f"within {err:.3g} of K9; bitwise the plain sums, two launches "
+            f"byte-identical [{card}]")
+        report[dtype] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, **b)
+        del got, rows
+    return report[torch.float32]
+
+
 def check_sign_table(label: str, lib_size: int, d: int, seed: int,
                      density, dev, card: str) -> dict:
     """K5 against sign_table_plain on the card, bitwise, at a library of
@@ -4569,6 +4723,109 @@ def check_sign_table(label: str, lib_size: int, d: int, seed: int,
         f"field; {100 * b['bound_ms'] / ms:.1f}% of it) [{card}]")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
                 **b)
+
+
+def paired_case(counts, d: int, seed: int, density, dev):
+    """(icf, density, seed_mix, scale) of the projection over `counts` on
+    the card, and a run(table_fn, dtype) that builds the table with
+    paired_table or paired_table_plain from them."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.project.srp import _stream
+
+    icf, dens, mix, scale = _stream(
+        torch.from_numpy(np.asarray(counts, np.int64)).to(dev), d, seed,
+        density)
+
+    def run(table_fn, dtype):
+        return table_fn(icf, d, mix, dens, scale, dtype)
+
+    return run
+
+
+def check_paired_table(label: str, counts, d: int, seed: int, density,
+                       dev, card: str) -> dict:
+    """K8 against paired_table_plain on the card, bitwise (as integer
+    views), over a library of len(counts) k-mers (density None: the CLI's
+    1/sqrt(2L)), in float32 and bfloat16, each with its time, device us,
+    the plain version's time and its bound: the table's bytes written
+    once and the magnitudes read, or the integer-pipe instructions
+    csrc/srp_signs.cu counts an entry (PAIRED_FIELD_INSTR) over 2d entries
+    a row. Returns the float32 table's report entry."""
+    import re
+
+    import torch
+
+    from fedrann_tpu_torch.project.srp import paired_table, paired_table_plain
+
+    lib_size = len(counts)
+    run = paired_case(counts, d, seed, density, dev)
+    with open(os.path.join(HERE, CSRC, "srp_signs.cu")) as f:
+        instr = int(re.search(r"constexpr int PAIRED_FIELD_INSTR = (\d+);",
+                              f.read()).group(1))
+    report = {}
+    for dtype, view in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        got = run(paired_table, dtype)
+        if not torch.equal(got.view(view),
+                           run(paired_table_plain, dtype).view(view)):
+            fail(f"{label}: K8 ({dtype}) differs from its plain version")
+        ms = time_cuda(lambda: run(paired_table, dtype), 10)
+        plain_ms = time_cuda(lambda: run(paired_table_plain, dtype), 2)
+        b = bound(got.numel() * got.element_size() + lib_size * 4,
+                  int32_ops=lib_size * 2 * d * instr)
+        log(f"{label}: L = {lib_size}, d = {d}, {dtype} table "
+            f"{tuple(got.shape)} bitwise the plain one; {ms:.4f} ms, device "
+            f"{device_us(lambda: run(paired_table, dtype), 5, True)} us a "
+            f"launch; plain {plain_ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']}: {got.numel() * got.element_size()} bytes, "
+            f"{instr} instructions an entry; "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it) [{card}]")
+        report[dtype] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **b)
+        del got
+    return report[torch.float32]
+
+
+def k8_edge_cases(dev, card: str) -> None:
+    """K8 bitwise paired_table_plain on the card in both dtypes: L = 0
+    (only the zero row) and L = 1, d = 1 and d = 100 (a ragged vector;
+    bfloat16's on the scalar path), density 1.0 and 1e-30 (a negative
+    bound: no entry), counts equal to 2L (an ICF of ~1e-14) and a seed
+    whose key has its top bit set."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.project.srp import (
+        paired_table,
+        paired_table_plain,
+        seed_mix_of,
+    )
+
+    top = next(s for s in range(100) if int(seed_mix_of(s)) < 0)
+    rng = np.random.default_rng(8)
+    counts = rng.integers(2, 50, 1000)
+    twice = np.where(np.arange(1000) % 3 == 0, 2000, counts)
+    cases = [("L = 0", counts[:0], 512, None, 2094),
+             ("L = 1", counts[:1], 512, None, 2094),
+             ("d = 1", counts, 1, 0.5, 2094),
+             ("d = 100", counts, 100, None, 2094),
+             ("density 1.0", counts, 512, 1.0, 2094),
+             ("a negative bound", counts, 512, 1e-30, 2094),
+             ("counts equal to 2L", twice, 512, None, 2094),
+             (f"seed {top}, its key's top bit set", counts, 512, None, top)]
+    for label, c, d, density, seed in cases:
+        run = paired_case(c, d, seed, density, dev)
+        for dtype, view in ((torch.float32, torch.int32),
+                            (torch.bfloat16, torch.int16)):
+            got = run(paired_table, dtype)
+            if got.shape != (len(c) + 1, 2 * d) or not torch.equal(
+                    got.view(view), run(paired_table_plain, dtype).view(view)):
+                fail(f"12 K8 edge case {label} ({dtype}): differs from "
+                     "paired_table_plain")
+    log("12 K8 bitwise paired_table_plain in float32 and bfloat16 at "
+        + ", ".join(c[0] for c in cases) + f" [{card}]")
 
 
 @contextlib.contextmanager
@@ -4651,6 +4908,7 @@ def register_counters() -> None:
         knn_ivf_sharded_multihost,
         merge_probe_lists,
         rescore_clusters,
+        segment_sum_rows,
     )
     from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
@@ -4660,7 +4918,7 @@ def register_counters() -> None:
         membership_embed,
         membership_embed_dense,
     )
-    from fedrann_tpu_torch.project.srp import sign_table
+    from fedrann_tpu_torch.project.srp import paired_table, sign_table
 
     COUNTERS.update({
         **{f"stage_rows{sfx}": (stage_candidates, f"{src}_launches")
@@ -4677,7 +4935,9 @@ def register_counters() -> None:
         "ivf_rescore": (rescore_clusters, "kernel_launches"),
         "ivf_rescore_fp32": (rescore_clusters, "fp32_launches"),
         "ivf_merge": (merge_probe_lists, "kernel_launches"),
-        "srp_signs": (sign_table, "kernel_launches")})
+        "ivf_segment_sum": (segment_sum_rows, "kernel_launches"),
+        "srp_signs": (sign_table, "kernel_launches"),
+        "srp_paired": (paired_table, "kernel_launches")})
     HOST_COUNTERS.update({
         "pack_reads_native": (native.pack_reads_native, "calls"),
         "read_fastx": (read_fastx, "calls"),
@@ -4703,6 +4963,7 @@ def register_counters() -> None:
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     args = sys.argv[1:]
@@ -4799,17 +5060,21 @@ def main() -> None:
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "prof"), card, "main path")
         # 4b: the main path with dense paired tables: kernel C's dense form
-        dense_launches = 0
+        dense_launches = paired_launches = 0
         for dtype in ("f32", "bf16"):
             runs, secs_d = drive_cli(
                 fasta, os.path.join(tmp, f"out_{dtype}"), sim, MIN_OVERLAP,
                 card, dev, [*FLAGS, "--projection-dtype", dtype],
                 "membership_embed_dense")
             dense_launches += runs["membership_embed_dense"]
+            paired_launches += runs["srp_paired"]
             log(f"4b --projection-dtype {dtype}: project "
-                f"{secs_d['project']:.3f} s, embed {secs_d['embed']:.3f} s; "
-                f"phase 4 (signs): project {secs['project']:.3f} s, embed "
-                f"{secs['embed']:.3f} s [{card}]")
+                f"{secs_d['project']:.3f} s (K8 {runs['srp_paired']} "
+                f"launch; the table by torch ops: "
+                f"{PROJECT_TORCH_OPS_S[dtype]:.3f} s), embed "
+                f"{secs_d['embed']:.3f} s; phase 4 (signs): project "
+                f"{secs['project']:.3f} s, embed {secs['embed']:.3f} s "
+                f"[{card}]")
         # 4d: checkpoints and a resumed rerun; 4e: the feature flags
         check_checkpoints(fasta, os.path.join(tmp, "ckpt"), sim, card, dev)
         check_feature_flags(fasta, os.path.join(tmp, "flags"), sim, card,
@@ -4872,11 +5137,14 @@ def main() -> None:
             ivf_rescore=(ivf_launches["ivf_rescore"]
                          - ivf_launches["ivf_rescore_fp32"]),
             ivf_rescore_fp32=ivf_launches["ivf_rescore_fp32"],
-            ivf_merge=ivf_launches["ivf_merge"])
+            ivf_merge=ivf_launches["ivf_merge"],
+            ivf_segment_sum=ivf_launches["ivf_segment_sum"],
+            srp_paired=paired_launches)
         log(f"11 CLI runs: K4 {ivf_launches['knn_merge']} launches "
             f"({ivf_launches['knn_merge_fp32']} fp32), K6 "
             f"{ivf_launches['ivf_rescore']} ({launches['ivf_rescore_fp32']} "
-            f"fp32), K7 {launches['ivf_merge']} [{card}]")
+            f"fp32), K7 {launches['ivf_merge']}, K9 "
+            f"{launches['ivf_segment_sum']} [{card}]")
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,
@@ -4896,6 +5164,12 @@ def main() -> None:
                          LIBRARY_SIZES[-1], config.embedding_dimension,
                          config.projection_seed, config.projection_density,
                          dev, card)
+        check_paired_table("12 K8 at the long reads' library",
+                           np.random.default_rng(LIBRARY_SIZES[-1]).integers(
+                               2, 50, LIBRARY_SIZES[-1]),
+                           config.embedding_dimension,
+                           config.projection_seed, config.projection_density,
+                           dev, card)
         if profiling:
             profile_cli(fasta, os.path.join(tmp, "lprof"), card, "long reads")
         # 5d: ultra-long reads past the largest bucket, split and merged

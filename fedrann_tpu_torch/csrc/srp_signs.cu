@@ -1,4 +1,5 @@
-// K5: the sign table of the sparse random projection (project stage).
+// K5: the sign table of the sparse random projection (project stage), and
+// K8: the same projection stored dense (--projection-dtype f32|bf16).
 //
 // Computes what the JAX package's build_precompute_signs computes in XLA
 // (fedrann_tpu/project/srp.py:151, with _srp_sign_chunk :202 and
@@ -23,9 +24,31 @@
 // the unrolled loop over its 16 fields, whose inputs differ only by the
 // field's component; a word across the halves' seam or past 2d takes each
 // field's own half.
+//
+// K8 computes what the JAX package's build_precompute_paired computes in
+// XLA (fedrann_tpu/project/srp.py:90, with _srp_chunk :39; no
+// pl.pallas_call), bitwise: the (L+1, 2d) table whose row j is [P[j] |
+// P[j+L]], in float32 or rounded to bfloat16 (nearest even). Field i draws
+// the same h as K5's; its entry is +mags[j] where h & 1, -mags[j]
+// otherwise, and +0.0 where the field is zero (mags[j] = icf[j] * scale in
+// float32, which equals JAX's sign * scale * icf bitwise); row L is all
+// zero.
+//
+// Bound on the card: the table's bytes written once, (L+1) * 2d * 4 in
+// float32 (1.269 GB at L = 309,830, d = 512: 0.379 ms at 3.35 TB/s), or the
+// integer pipe, PAIRED_FIELD_INSTR a field (6.0e9 there, 0.361 ms at 16.7
+// T/s), which bounds the bfloat16 table (half the bytes).
+//
+// Design: one thread a 16-byte vector of one half of a row (4 float32 or 8
+// bfloat16 entries), so the stores are coalesced and nothing is shared or
+// written twice; the row's base and magnitude are read once a thread.
+// Where d * itemsize is not a multiple of 16 (no half row starts on a
+// 16-byte boundary) each thread writes its entries one by one.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
 namespace {
 
@@ -44,6 +67,14 @@ constexpr int THREADS = 256;
 // issue to the FMA pipe (IMAD), not the integer pipe, and are not counted.
 constexpr int SIGN_FIELD_INSTR = 21;
 static_assert(SIGN_FIELD_INSTR == 2 + 12 + 2 + 1 + 2 + 2, "the count above");
+
+// Integer-pipe instructions of one K8 entry, counted at the source as
+// SIGN_FIELD_INSTR: the 64-bit add of the component (2), three xor-shifts
+// (12), the nonzero test (2), the sign bit (1) and the two selects of
+// +mag, -mag and +0.0 (2). The multiplies go to the FMA pipe; the
+// bfloat16 rounding and packing, and the stores, are not counted.
+constexpr int PAIRED_FIELD_INSTR = 19;
+static_assert(PAIRED_FIELD_INSTR == 2 + 12 + 2 + 1 + 2, "the count above");
 
 __device__ __forceinline__ uint64_t splitmix64(uint64_t z) {
   z = (z ^ (z >> 30)) * MIX1;
@@ -92,6 +123,76 @@ __global__ void __launch_bounds__(THREADS)
   out[word] = bits;
 }
 
+// entry of the field whose splitmix64 input (less GOLDEN) is x
+__device__ __forceinline__ float paired_entry(uint64_t x, uint64_t limit,
+                                              bool any, float mag) {
+  const uint64_t h = splitmix64(x + GOLDEN);
+  return (any && h <= limit) ? ((h & 1) ? mag : -mag) : 0.0f;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return static_cast<uint32_t>(
+      __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// V entries (4 float32 or 8 bfloat16: 16 bytes) of one half of a row a
+// thread; `groups` vectors a half, the last one ragged where V does not
+// divide d; `vec`: d * itemsize is a multiple of 16, so every vector is a
+// 16-byte aligned store
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS)
+    srp_paired_kernel(uint64_t seed_mix, int64_t lib_size, int64_t d,
+                      int64_t groups, uint64_t limit, bool any,
+                      const float* __restrict__ mags, bool vec,
+                      void* __restrict__ out) {
+  constexpr int V = BF16 ? 8 : 4;
+  const int64_t item = static_cast<int64_t>(blockIdx.x) * THREADS
+                       + threadIdx.x;
+  if (item >= (lib_size + 1) * 2 * groups) return;
+  const int64_t j = item / (2 * groups);
+  const int64_t r = item - j * 2 * groups;
+  const int64_t half = r / groups;
+  const int64_t i0 = (r - half * groups) * V;  // column within the half
+  float v[V];
+  if (j < lib_size) {
+    const float mag = mags[j];
+    const uint64_t base = static_cast<uint64_t>(half * lib_size + j) * GOLDEN
+                          + seed_mix + static_cast<uint64_t>(i0);
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = paired_entry(base + u, limit, any, mag);
+  } else {
+#pragma unroll
+    for (int u = 0; u < V; ++u) v[u] = 0.0f;
+  }
+  const int64_t at = j * 2 * d + half * d + i0;
+  if (BF16) {
+    uint16_t* dst = static_cast<uint16_t*>(out) + at;
+    if (vec) {
+      uint4 w;
+      w.x = bf16_bits(v[0]) | (bf16_bits(v[1]) << 16);
+      w.y = bf16_bits(v[2]) | (bf16_bits(v[3]) << 16);
+      w.z = bf16_bits(v[4]) | (bf16_bits(v[5]) << 16);
+      w.w = bf16_bits(v[6]) | (bf16_bits(v[7]) << 16);
+      *reinterpret_cast<uint4*>(dst) = w;
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (i0 + u < d) dst[u] = static_cast<uint16_t>(bf16_bits(v[u]));
+      }
+    }
+  } else {
+    float* dst = static_cast<float*>(out) + at;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) {
+        if (i0 + u < d) dst[u] = v[u];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // The sign table of srp.build_precompute_signs: out (lib_size + 1,
@@ -112,3 +213,29 @@ extern "C" int fk_srp_signs(uint64_t seed_mix, int64_t lib_size, int64_t d,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The dense paired table of srp.build_precompute_paired: out (lib_size + 1,
+// 2d) float32, or bfloat16 bits when is_bf16; mags (lib_size,) float32,
+// icf[j] * scale; seed_mix and bound as fk_srp_signs's.
+extern "C" int fk_srp_paired(uint64_t seed_mix, int64_t lib_size, int64_t d,
+                             int64_t bound, const float* mags, int is_bf16,
+                             void* out, void* stream) {
+  const int v = is_bf16 ? 8 : 4;
+  const int64_t groups = (d + v - 1) / v;
+  const int64_t total = (lib_size + 1) * 2 * groups;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  const bool any = bound >= 0;
+  const uint64_t limit = any ? 2 * static_cast<uint64_t>(bound) + 1 : 0;
+  const bool vec = d % v == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1)
+                                                / THREADS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    srp_paired_kernel<true><<<blocks, THREADS, 0, s>>>(
+        seed_mix, lib_size, d, groups, limit, any, mags, vec, out);
+  } else {
+    srp_paired_kernel<false><<<blocks, THREADS, 0, s>>>(
+        seed_mix, lib_size, d, groups, limit, any, mags, vec, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -4,10 +4,13 @@
 1. k-means over the L2-normalized rows: each row goes to the centroid of
    its largest score (both operands rounded to bfloat16, products summed
    in float32, at either precision), and each centroid becomes the
-   normalized sum of its rows. The sum is order-fixed: rows are grouped by
-   cluster into a padded member table and summed along it, so two runs
-   give the same centroids bit for bit (an index_add_ on a card adds in
-   the order its atomics land).
+   normalized sum of its rows. The sum is order-fixed: each cluster's rows
+   are added in row order, one float32 add at a time from +0.0 (bitwise
+   jax.ops.segment_sum on a CPU), so two runs give the same centroids bit
+   for bit (an index_add_ on a card adds in the order its atomics land).
+   On a CUDA device it is one launch of K9 (csrc/ivf_segment_sum.cu
+   `fk_ivf_segment_sum`, a warp a cluster and 128 columns); on the CPU
+   segment_sum_plain.
 2. Each row is indexed in its `spill` nearest clusters, and each query
    probes its own `p` nearest; ties go to the lowest cluster id, as
    `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
@@ -61,7 +64,7 @@ from fedrann_tpu_torch.knn.topk import (
 from fedrann_tpu_torch.logging_utils import logger
 
 # device bytes one batched step (an assignment chunk, a size class's
-# rescore chunk, a segment-sum chunk) holds at once
+# rescore chunk) holds at once
 CHUNK_BYTES = 1 << 30
 # bytes a (query, member) pair of a rescore chunk holds: its float32
 # score, its int64 key and torch.topk's copy of the key
@@ -171,40 +174,96 @@ def _probe_tables(probes: torch.Tensor, qcounts: torch.Tensor,
     return qtab, stab
 
 
+def _segments(a: torch.Tensor, n_clusters: int):
+    """(order, bounds) of the assignments a (N,): the row ids sorted
+    stably by cluster, and the (C + 1,) int64 bounds of each cluster's run
+    in them (cluster c's rows are order[bounds[c] : bounds[c + 1]], in row
+    order). Torch ops with no host sync."""
+    sorted_a, order = torch.sort(a, stable=True)
+    bounds = torch.searchsorted(sorted_a, torch.arange(
+        n_clusters + 1, dtype=sorted_a.dtype, device=a.device))
+    return order, bounds
+
+
 def _segment_sum(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
-                 chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
-    """(C, d) float32 sums of the rows per cluster a, in an order fixed
-    by the data: the rows sorted stably by cluster, each cluster's rows
-    gathered in row order and zero-padded to its size class (a zero row
-    appended to `rows`), then summed along that axis, chunk_bytes of
-    gathered rows at a time."""
-    n, d = rows.shape
-    counts = torch.bincount(a, minlength=n_clusters)
-    counts_h = counts.cpu().numpy()
-    order = torch.sort(a, stable=True).indices
-    offsets = torch.cumsum(counts, 0) - counts
-    rows_pad = torch.cat([rows, rows.new_zeros((1, d))])
-    sums = torch.zeros((n_clusters, d), dtype=torch.float32,
-                       device=rows.device)
-    for m, clusters in _groups(counts_h, int(counts_h.max())):
-        j = torch.arange(m, device=rows.device)
-        step = max(1, chunk_bytes // (m * d * 4))
-        for g0 in range(0, len(clusters), step):
-            sel = torch.as_tensor(clusters[g0 : g0 + step],
-                                  device=rows.device)
-            pos = (offsets[sel, None] + j).clamp_max(n - 1)
-            member = torch.where(j < counts[sel, None], order[pos], n)
-            sums[sel] = rows_pad[member].float().sum(dim=1)
-    return sums
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """(C, d) float32 sums of the rows (N, d) per cluster a (N,), each
+    cluster's rows added in row order, one float32 add at a time, from
+    +0.0 or, into `out`, from its sums (rows streamed in chunks then add
+    as one pass would); bfloat16 rows are widened first. A CUDA tensor
+    launches K9 (segment_sum_rows), a CPU tensor takes
+    segment_sum_plain."""
+    if rows.device.type == "cuda":
+        return segment_sum_rows(rows.contiguous(), a, n_clusters, out)
+    if rows.device.type != "cpu":
+        raise ValueError(f"_segment_sum: unsupported device {rows.device}")
+    return segment_sum_plain(rows, a, n_clusters, out)
 
 
-def _groups(sizes: np.ndarray, cap: int) -> list:
-    """[(size class, [clusters])] over the clusters of non-zero size, the
-    class capped at `cap`, in ascending class order."""
-    out: dict[int, list[int]] = {}
-    for c in np.flatnonzero(sizes):
-        out.setdefault(min(_size_class(sizes[c]), cap), []).append(int(c))
-    return sorted(out.items())
+def segment_sum_plain(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """_segment_sum in plain PyTorch on any device, in K9's order: a loop
+    over member positions j, each adding the j-th row of every cluster
+    that has one to its float32 sum (the clusters ordered by size, so
+    those are a prefix); bitwise jax.ops.segment_sum on a CPU."""
+    order, bounds = _segments(a, n_clusters)
+    sizes = bounds[1:] - bounds[:-1]
+    by_size = torch.argsort(sizes, descending=True, stable=True)
+    sizes_h = sizes[by_size].cpu().numpy()
+    starts = bounds[:-1][by_size]
+    acc = (torch.zeros((n_clusters, rows.shape[1]), dtype=torch.float32,
+                       device=rows.device) if out is None
+           else out[by_size])
+    longest = int(sizes_h[0]) if n_clusters else 0
+    active = np.searchsorted(-sizes_h, -np.arange(longest), side="left")
+    for j in range(longest):
+        m = int(active[j])
+        acc[:m] += rows[order[starts[:m] + j]].float()
+    out = torch.empty_like(acc) if out is None else out
+    out[by_size] = acc
+    return out
+
+
+def segment_sum_rows(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """K9 (csrc/ivf_segment_sum.cu `fk_ivf_segment_sum`): _segment_sum of
+    contiguous (N, d) float32 or bfloat16 CUDA rows in one launch, after
+    _segments' sort (no host sync); into `out` ((C, d) float32 on the
+    same card) when given. Bitwise segment_sum_plain. Counts its launches
+    in .kernel_launches; raises on a tensor it does not take."""
+    if rows.device.type != "cuda" or rows.dim() != 2 \
+            or rows.dtype not in (torch.float32, torch.bfloat16) \
+            or not rows.is_contiguous() or a.device != rows.device \
+            or a.shape != rows.shape[:1]:
+        raise ValueError(f"segment_sum_rows: contiguous (N, d) float32 or "
+                         f"bfloat16 CUDA rows and (N,) assignments on the "
+                         f"same card, not {rows.dtype} {tuple(rows.shape)} "
+                         f"on {rows.device}, {tuple(a.shape)} on {a.device}")
+    d = rows.shape[1]
+    if out is None:
+        out = torch.empty((n_clusters, d), dtype=torch.float32,
+                          device=rows.device)
+        accumulate = 0
+    elif out.shape != (n_clusters, d) or out.dtype != torch.float32 \
+            or out.device != rows.device or not out.is_contiguous():
+        raise ValueError(f"segment_sum_rows: out must be a contiguous "
+                         f"({n_clusters}, {d}) float32 tensor on "
+                         f"{rows.device}, not {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    else:
+        accumulate = 1
+    if out.numel() == 0:
+        return out
+    order, bounds = _segments(a, n_clusters)
+    _build.launch("fk_ivf_segment_sum", rows.data_ptr(), d,
+                  int(rows.dtype == torch.bfloat16), order.data_ptr(),
+                  bounds.data_ptr(), n_clusters, accumulate, out.data_ptr(),
+                  device=rows.device)
+    segment_sum_rows.kernel_launches += 1
+    return out
+
+
+segment_sum_rows.kernel_launches = 0
 
 
 def _kmeans(en: torch.Tensor, n_clusters: int, iters: int,
@@ -213,10 +272,12 @@ def _kmeans(en: torch.Tensor, n_clusters: int, iters: int,
             chunk_bytes: int = CHUNK_BYTES) -> torch.Tensor:
     """Spherical k-means on normalized rows (N, d), from the evenly strided
     rows 0, N // C, 2 (N // C), ...; empty clusters keep their centroid.
-    Each pass assigns (_top_clusters) and sums (_segment_sum) chunk_rows
-    rows at a time (all at once when 0), the chunks copied to `device`
-    (en's own by default: rows in host memory stream through the device),
-    each step holding chunk_bytes of temporaries.
+    Each pass assigns (_top_clusters) and sums (_segment_sum, which
+    carries each cluster's sum on from chunk to chunk, so the sums are a
+    whole pass's) chunk_rows rows at a time (all at once when 0), the
+    chunks copied to `device` (en's own by default: rows in host memory
+    stream through the device), each assignment step holding chunk_bytes
+    of temporaries.
     Returns the (C, d) float32 centroids on `device`; the rows' assignment
     is _top_clusters(en, centroids, 1)."""
     dev = device or en.device
@@ -229,7 +290,7 @@ def _kmeans(en: torch.Tensor, n_clusters: int, iters: int,
         for r0 in range(0, n, chunk):
             rows = en[r0 : r0 + chunk].to(dev)
             a = _top_clusters(rows, cent, 1, bf16, chunk_bytes)[:, 0]
-            sums += _segment_sum(rows, a, n_clusters, chunk_bytes)
+            _segment_sum(rows, a, n_clusters, sums)
         norm = torch.linalg.vector_norm(sums, dim=1, keepdim=True)
         cent = torch.where(norm > 0, sums / torch.where(norm == 0, 1.0, norm),
                            cent)

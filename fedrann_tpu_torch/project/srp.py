@@ -19,9 +19,12 @@ one thread a packed word); on the CPU its plain version, sign_table_plain,
 draws the codes chunk by chunk in int64 torch ops and packs them.
 
 `--projection-dtype f32|bf16` stores the same table dense: paired row j is
-[P[j] | P[j+L]] in float32, or rounded to bfloat16 (nearest even) chunk by
-chunk, with an all-zero sentinel row L. Its f32 entries equal the sign
-table's sign * mags[j] bitwise.
+[P[j] | P[j+L]] in float32, or rounded to bfloat16 (nearest even), with an
+all-zero sentinel row L. Its f32 entries equal the sign table's sign *
+mags[j] bitwise. On a CUDA device it is the hand kernel K8
+(csrc/srp_signs.cu `fk_srp_paired`, one thread a 16-byte vector of a half
+row); on the CPU its plain version, paired_table_plain, builds it chunk by
+chunk in int64 torch ops.
 """
 
 from __future__ import annotations
@@ -170,20 +173,16 @@ def build_precompute_signs(counts: torch.Tensor, n_components: int,
     return signs, mags
 
 
-def build_precompute_paired(counts: torch.Tensor, n_components: int,
-                            seed: int, density: float | None = None,
-                            chunk: int = 1 << 16,
-                            dtype: torch.dtype = torch.float32
-                            ) -> torch.Tensor:
-    """(L+1, 2d) dense paired table on counts' device: row j = [P[j] |
-    P[j+L]], row L all zero. Each chunk is built in float32 and then cast
-    to dtype (float32 or bfloat16, round to nearest even), so no whole
-    float32 table exists beside a bfloat16 one."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dtype must be float32 or bfloat16, not {dtype}")
-    lib_size = int(counts.shape[0])
-    icf, density, seed_mix, scale = _stream(counts, n_components, seed,
-                                            density)
+def paired_table_plain(icf: torch.Tensor, n_components: int,
+                       seed_mix: torch.Tensor, density: float,
+                       scale: torch.Tensor, dtype: torch.dtype,
+                       chunk: int = 1 << 16) -> torch.Tensor:
+    """The (L+1, 2d) dense paired table in plain PyTorch on icf's device
+    (icf the (2L,) ICF weights): chunk by chunk, both halves' float32
+    entries (_srp_chunk) cast to dtype, so no whole float32 table exists
+    beside a bfloat16 one, then the zero row L. The CPU path, and the
+    reference the tests and chip_smoke.py hold K8 to."""
+    lib_size = icf.shape[0] // 2
     parts = []
     for start in range(0, lib_size, chunk):
         size = min(chunk, lib_size - start)
@@ -195,8 +194,54 @@ def build_precompute_paired(counts: torch.Tensor, n_components: int,
                                      + size], n_components, density,
                        lib_size + start, scale).to(dtype)], dim=1))
     parts.append(torch.zeros((1, 2 * n_components), dtype=dtype,
-                             device=counts.device))
+                             device=icf.device))
     return torch.cat(parts)
+
+
+def paired_table(icf: torch.Tensor, n_components: int,
+                 seed_mix: torch.Tensor, density: float,
+                 scale: torch.Tensor, dtype: torch.dtype,
+                 chunk: int = 1 << 16) -> torch.Tensor:
+    """paired_table_plain's table on icf's device: on the CPU the plain
+    version; on a CUDA device one launch of K8 (csrc/srp_signs.cu
+    `fk_srp_paired`) from the magnitudes icf[:L] * scale, counted in
+    .kernel_launches."""
+    device = icf.device
+    if device.type == "cpu":
+        return paired_table_plain(icf, n_components, seed_mix, density,
+                                  scale, dtype, chunk)
+    if device.type != "cuda":
+        raise ValueError(f"paired_table: unsupported device {device}")
+    lib_size = icf.shape[0] // 2
+    mags = (icf[:lib_size] * scale).contiguous()
+    out = torch.empty((lib_size + 1, 2 * n_components), dtype=dtype,
+                      device=device)
+    _build.launch("fk_srp_paired", int(seed_mix) & ((1 << 64) - 1),
+                  lib_size, n_components, _sign_bound(density),
+                  mags.data_ptr(), int(dtype == torch.bfloat16),
+                  out.data_ptr(), device=device)
+    paired_table.kernel_launches += 1
+    return out
+
+
+paired_table.kernel_launches = 0
+
+
+def build_precompute_paired(counts: torch.Tensor, n_components: int,
+                            seed: int, density: float | None = None,
+                            chunk: int = 1 << 16,
+                            dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """(L+1, 2d) dense paired table on counts' device: row j = [P[j] |
+    P[j+L]], row L all zero, in float32 or bfloat16 (round to nearest
+    even). The table is paired_table's (K8 on a card); the ICF weights
+    are torch ops."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, not {dtype}")
+    icf, density, seed_mix, scale = _stream(counts, n_components, seed,
+                                            density)
+    return paired_table(icf, n_components, seed_mix, density, scale, dtype,
+                        chunk)
 
 
 def pair_projection(p_ext: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@ numpy rows, made from seeds:
 
 - integer tables bitwise: auto_clusters; the member and probe tables
   built from JAX's own assignment arrays;
+- the segment sum (segment_sum_plain, K9's reference) bitwise
+  jax.ops.segment_sum: random assignments, empty clusters, one cluster,
+  bfloat16 rows widened as JAX widens them, chunks carried into one sum;
 - k-means on blobs, with and without zero rows: assignments and counts
   equal JAX's, centroids within 1e-5; spill and probe lists equal JAX's,
   the zero rows' ties (the lowest cluster id first) included;
@@ -84,6 +87,45 @@ def test_member_and_probe_tables_bitwise(blobs, spill):
                                      64, qm)
     np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
     np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
+
+
+SEGMENT_CASES = {"random": (5000, 64, 37), "empty clusters": (300, 100, 64),
+                 "one cluster": (700, 16, 1), "one row": (1, 8, 8)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_segment_sum_plain_is_jax_segment_sum(case, dtype):
+    """Tolerance: none. Each cluster's rows added in row order from +0.0
+    are jax.ops.segment_sum's bits on the CPU (as int32 views): random
+    rows and assignments; 300 rows over 64 clusters of which the odd ones
+    are empty, d = 100; every row in one cluster; one row. bfloat16 rows
+    are widened to float32 first, as _kmeans's en.astype(jnp.float32).
+    Rows streamed in chunks into one `out` give the whole pass's bits."""
+    import jax
+
+    n, d, c = SEGMENT_CASES[case]
+    rng = np.random.default_rng(n + d + c)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    a = rng.integers(0, c, n).astype(np.int32)
+    if case == "empty clusters":
+        a = a - a % 2
+    rows_j = jnp.asarray(x)
+    if dtype == "bfloat16":
+        rows_j = rows_j.astype(jnp.bfloat16)
+    want = np.asarray(jax.ops.segment_sum(rows_j.astype(jnp.float32),
+                                          jnp.asarray(a), num_segments=c))
+    rows = torch.from_numpy(np.asarray(rows_j.astype(jnp.float32)).copy())
+    rows = rows.to(getattr(torch, dtype))
+    got = ivf.segment_sum_plain(rows, torch.from_numpy(a), c)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert torch.equal(ivf._segment_sum(rows, torch.from_numpy(a), c), got)
+    out = torch.zeros((c, d))
+    for r0 in range(0, n, 77):
+        ivf._segment_sum(rows[r0 : r0 + 77],
+                         torch.from_numpy(a[r0 : r0 + 77]), c, out)
+    assert torch.equal(out.view(torch.int32), got.view(torch.int32))
 
 
 @pytest.mark.parametrize("zero_rows", [False, True])

@@ -44,6 +44,11 @@ from fedrann_tpu_torch.project.embed import (
     membership_embed,
     membership_embed_dense,
 )
+from fedrann_tpu_torch.knn.ivf import (
+    _segment_sum,
+    segment_sum_plain,
+    segment_sum_rows,
+)
 from fedrann_tpu_torch.knn.topk import (
     EMPTY_KEY,
     _decode_keys,
@@ -52,8 +57,11 @@ from fedrann_tpu_torch.knn.topk import (
     normalize_rows,
 )
 from fedrann_tpu_torch.project.srp import (
+    _stream,
     build_precompute_paired,
     build_precompute_signs,
+    paired_table,
+    paired_table_plain,
     seed_mix_of,
     sign_table,
     sign_table_plain,
@@ -1553,3 +1561,147 @@ def test_knn_merge_and_srp_signs_launch_on_their_tensors_card(last_card):
     assert _check_merge(got.cpu(), run, q, c, index, k, "bf16") >= 0.99
     assert torch.equal(signs.cpu(), sign_table_plain(
         300, 512, mix, 0.05, torch.device("cpu")))
+
+
+# (L, d, density, counts): "random" counts in [2, 50), "2L" with counts
+# equal to 2L among them
+PAIRED_CASES = [(0, 16, None, "random"), (1, 20, None, "random"),
+                (37, 1, 0.5, "random"), (37, 100, None, "random"),
+                (29, 16, 1e-30, "random"), (300, 512, 1.0, "random"),
+                (40, 96, None, "2L"), (5000, 512, None, "random")]
+
+
+def _seeds():
+    """A seed whose splitmix64 key has its top bit set and one whose has
+    not (the key crosses into C as a uint64)."""
+    return (next(s for s in range(100) if int(seed_mix_of(s)) < 0),
+            next(s for s in range(100) if int(seed_mix_of(s)) >= 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lib_size,d,density,counts", PAIRED_CASES)
+def test_srp_paired_matches_plain(cuda, lib_size, d, density, counts,
+                                  dtype):
+    """K8 against paired_table_plain on the same ICF weights, bitwise (as
+    integer views, so +0.0 is held apart from -0.0): L = 0 (only the zero
+    row), L = 1, d = 1 and d = 100 (a ragged vector, bfloat16's on the
+    scalar path), density 1e-30 (a negative bound: no entry), density 1.0,
+    counts equal to 2L (an ICF of ~1e-14), keys with and without the top
+    bit; one launch a call, counted. build_precompute_paired on counts on
+    the card is one K8 launch."""
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    rng = np.random.default_rng(lib_size + d)
+    c = rng.integers(2, 50, lib_size)
+    if counts == "2L":
+        c[::3] = 2 * lib_size
+    c = torch.from_numpy(c.astype(np.int64))
+    for seed in _seeds():
+        icf, dens, mix, scale = _stream(c, d, seed, density)
+        want = paired_table_plain(icf, d, mix, dens, scale, dtype)
+        before = paired_table.kernel_launches
+        got = paired_table(icf.to(cuda), d, mix, dens, scale.to(cuda),
+                           dtype)
+        torch.cuda.synchronize()
+        assert paired_table.kernel_launches == before + 1
+        assert got.shape == (lib_size + 1, 2 * d) and got.dtype == dtype
+        assert torch.equal(got.cpu().view(view), want.view(view))
+    before = paired_table.kernel_launches
+    table = build_precompute_paired(c.to(cuda), d, 2094, density,
+                                    dtype=dtype)
+    assert paired_table.kernel_launches == before + 1
+    torch.testing.assert_close(table.cpu().float(), build_precompute_paired(
+        c, d, 2094, density, dtype=dtype).float(), rtol=1e-6, atol=0)
+
+
+# (N, d, C, assignment): "random" ids; "even" (every odd cluster empty);
+# "one" (every row in cluster 0); "single" (cluster 3 holds one row)
+SEGMENT_CASES = [(20000, 512, 256, "random"), (5000, 64, 37, "random"),
+                 (300, 100, 64, "even"), (3000, 16, 1, "one"),
+                 (400, 32, 8, "single"), (1, 8, 8, "random"),
+                 (2000, 6, 8, "random"), (0, 16, 8, "random")]
+
+
+def _segment_inputs(n, d, c, kind, dtype, zero_rows=False):
+    rng = np.random.default_rng(n + d + c)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    if zero_rows:
+        x[::5] = 0.0
+    a = rng.integers(0, c, n)
+    if kind == "even":
+        a = a - a % 2
+    elif kind == "one":
+        a[:] = 0
+    elif kind == "single":
+        a = np.where(a == 3, 4, a)
+        a[n // 2] = 3
+    return x.to(dtype), torch.from_numpy(a.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,c,kind", SEGMENT_CASES)
+def test_ivf_segment_sum_matches_plain(cuda, n, d, c, kind, dtype):
+    """K9 against segment_sum_plain, bitwise (int32 views): random
+    assignments at phase 4's width, empty clusters, one cluster holding
+    every row, a one-row cluster, N = 1, N = 0, d = 6 and d = 100 (not
+    multiples of 128; d = 6 on the scalar path), zero rows; two launches
+    byte-identical; into `out`, chunks carried on to the whole pass's
+    bits; one launch a call, counted."""
+    x, a = _segment_inputs(n, d, c, kind, dtype, zero_rows=d == 100)
+    want = segment_sum_plain(x, a, c)
+    before = segment_sum_rows.kernel_launches
+    got = _segment_sum(x.to(cuda), a.to(cuda), c)
+    again = _segment_sum(x.to(cuda), a.to(cuda), c)
+    torch.cuda.synchronize()
+    assert segment_sum_rows.kernel_launches == before + 2
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    out = torch.zeros((c, d), device=cuda)
+    for r0 in range(0, n, 777):
+        _segment_sum(x[r0 : r0 + 777].to(cuda), a[r0 : r0 + 777].to(cuda),
+                     c, out)
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ivf_segment_sum_unaligned_rows(cuda, dtype):
+    """Rows whose base is off the vector alignment (a view one element
+    into its storage) take K9's scalar loads and keep the bits."""
+    x, a = _segment_inputs(3000, 64, 16, "random", dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    rows = buf[1:].view(x.shape)
+    rows.copy_(x.to(cuda))
+    got = segment_sum_rows(rows, a.to(cuda), 16)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       segment_sum_plain(x, a, 16).view(torch.int32))
+
+
+def test_ivf_segment_sum_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((10, 8), device=cuda)
+    a = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="segment_sum_rows"):
+        segment_sum_rows(x.half(), a, 4)
+    with pytest.raises(ValueError, match="segment_sum_rows"):
+        segment_sum_rows(x.T, a, 4)
+    with pytest.raises(ValueError, match="segment_sum_rows"):
+        segment_sum_rows(x, a.cpu(), 4)
+    with pytest.raises(ValueError, match="out must be"):
+        segment_sum_rows(x, a, 4, torch.zeros((4, 8), dtype=torch.float64,
+                                              device=cuda))
+
+
+def test_srp_paired_and_segment_sum_launch_on_their_tensors_card(last_card):
+    """With cuda:0 current, K8 and K9 on the last card's tensors launch
+    there and match their plain versions."""
+    c = torch.from_numpy(np.random.default_rng(3).integers(
+        2, 50, 300).astype(np.int64))
+    icf, dens, mix, scale = _stream(c, 512, 2094, None)
+    table = paired_table(icf.to(last_card), 512, mix, dens,
+                         scale.to(last_card), torch.bfloat16)
+    x, a = _segment_inputs(5000, 512, 64, "random", torch.float32)
+    sums = _segment_sum(x.to(last_card), a.to(last_card), 64)
+    torch.cuda.synchronize(last_card)
+    assert torch.cuda.current_device() == 0
+    assert table.device == last_card and sums.device == last_card
+    assert torch.equal(table.cpu().view(torch.int16), paired_table_plain(
+        icf, 512, mix, dens, scale, torch.bfloat16).view(torch.int16))
+    assert torch.equal(sums.cpu(), segment_sum_plain(x, a, 64))

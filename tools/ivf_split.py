@@ -59,7 +59,8 @@ def main() -> None:
     # the launch counts of the kernels the timed package has
     kernels = {name: fn for name, fn in (
         ("K4", merge_block), ("K6", getattr(ivf, "rescore_clusters", None)),
-        ("K7", getattr(ivf, "merge_probe_lists", None))) if fn is not None}
+        ("K7", getattr(ivf, "merge_probe_lists", None)),
+        ("K9", getattr(ivf, "segment_sum_rows", None))) if fn is not None}
     counts = {name: fn.kernel_launches for name, fn in kernels.items()}
     with cs.ivf_step_split() as split:
         _, secs, _ = cs.measured(lambda: ivf.knn_ivf(

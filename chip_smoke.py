@@ -279,9 +279,12 @@ Phases; any failure exits non-zero and prints no result line:
      (csrc/ivf_segment_sum.cu) bitwise segment_sum_plain on phase 4's rows
      at C = 256 and 11b's at C = 1,024 with the assignments of their own
      k-means, on float32 and bfloat16 rows (the out-of-core wire), two
-     launches byte-identical, and on edge cases (empty clusters, one
-     cluster holding every row, a one-row cluster, N = 1, C = 8, d = 100,
-     zero rows), timed beside the plain version and index_add_.
+     launches byte-identical, its bucketing equal to _segments' there and
+     at C = 65,536, and on edge cases (empty clusters, one cluster holding
+     every row, a one-row cluster, N = 1, C = 8, d = 100, zero rows, C =
+     65,536), its whole call (bucketing included) timed with each
+     kernel's device us beside the plain version, index_add_ and the
+     earlier design's (EARLIER_MS).
      Every IVF CLI run but out of core launches K6 and K7, and every one
      K9 (three launches a k-means); no CUDA tensor reaches rescore_plain,
      merge_buffers_plain, top_clusters_plain or segment_sum_plain.
@@ -399,6 +402,18 @@ PR16_MS = {("ivf_rescore", "phase 4"): 1.1584,
            ("ivf_rescore_fp32", "phase 4"): 1.9338,
            ("ivf_rescore_fp32", "11b"): 98.2204,
            ("ivf_merge", "phase 4"): 0.1943, ("ivf_merge", "11b"): 3.8725}
+# 12: K8's and K9's times at their earlier design (K8 a thread a vector
+# with two 64-bit divisions; K9 after _segments' torch sort), ms on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md), logged beside this run's:
+# (kernel, library size or rows, dtype) -> ms
+EARLIER_MS = {("srp_paired", 309_830, "float32"): 0.7596,
+           ("srp_paired", 309_830, "bfloat16"): 0.6167,
+           ("srp_paired", 608_037, "float32"): 1.4956,
+           ("srp_paired", 608_037, "bfloat16"): 1.2073,
+           ("ivf_segment_sum", "phase 4", "float32"): 0.1815,
+           ("ivf_segment_sum", "phase 4", "bfloat16"): 0.1168,
+           ("ivf_segment_sum", "11b", "float32"): 0.3104,
+           ("ivf_segment_sum", "11b", "bfloat16"): 0.3010}
 # 12: K4 against merge_block_plain: every kernel score within K4_TOL of
 # the plain score of its pair (float32 sums of 512 exact products in
 # another order); neighbor sets equal but at plain near-ties; agreement
@@ -511,6 +526,16 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cuda_median(fn, reps: int, rounds: int) -> tuple:
+    """(median, (least, most)) of `rounds` time_cuda(fn, reps) timings,
+    ms per call: for calls bound by the host path, whose timings the
+    host's jitter moves."""
+    import statistics
+
+    runs = [time_cuda(fn, reps) for _ in range(rounds)]
+    return statistics.median(runs), (min(runs), max(runs))
 
 
 def is_hand(name: str) -> bool:
@@ -1782,8 +1807,9 @@ def no_plain_on_card():
     """Inside: the plain versions of K4 (merge_block_plain, and the IVF
     cluster ranking's top_clusters_plain), K5 (sign_table_plain), K6
     (rescore_plain), K7 (merge_buffers_plain), K8 (paired_table_plain)
-    and K9 (segment_sum_plain) fail the run if they are given a CUDA
-    tensor, which only this script's reference calls may do."""
+    and K9 (segment_sum_plain, and _segments, its bucketing's) fail the
+    run if they are given a CUDA tensor, which only this script's
+    reference calls may do."""
     import torch
 
     from fedrann_tpu_torch.knn import ivf, topk
@@ -1792,7 +1818,7 @@ def no_plain_on_card():
     saved = [(topk, "merge_block_plain"), (srp, "sign_table_plain"),
              (srp, "paired_table_plain"), (ivf, "top_clusters_plain"),
              (ivf, "rescore_plain"), (ivf, "merge_buffers_plain"),
-             (ivf, "segment_sum_plain")]
+             (ivf, "segment_sum_plain"), (ivf, "_segments")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
 
     def guard(name, fn):
@@ -4611,7 +4637,9 @@ def k9_edge_cases(dev, card: str) -> None:
     """K9 bitwise segment_sum_plain on the card, float32 and bfloat16
     rows, two launches byte-identical: empty clusters (every odd one),
     one cluster holding every row, a one-row cluster, N = 1, C = 8, d =
-    100 (a unit of 100 columns), zero rows, and N = 0."""
+    100 (a unit of 100 columns), zero rows, N = 0, and C = 65,536 over
+    the 5,000 rows (its counts in device memory), where its bucketing
+    must also equal _segments'."""
     import numpy as np
     import torch
 
@@ -4627,7 +4655,18 @@ def k9_edge_cases(dev, card: str) -> None:
              ("a one-row cluster", x, single, 64),
              ("N = 1", x[:1], a[:1], 64), ("C = 8", x, a % 8, 8),
              ("d = 100", x[:, :100].contiguous(), a, 64),
-             ("zero rows", zero, a, 64), ("N = 0", x[:0], a[:0], 8)]
+             ("zero rows", zero, a, 64), ("N = 0", x[:0], a[:0], 8),
+             ("C = 65,536", x, torch.from_numpy(rng.integers(
+                 0, 65_536, 5000).astype(np.int32)), 65_536)]
+    from fedrann_tpu_torch.knn import ivf
+
+    wide = cases[-1][2].to(dev)
+    order, bounds = ivf.segment_buckets(wide, 65_536)
+    want_order, want_bounds = ivf._segments(wide, 65_536)
+    if not (torch.equal(order.long(), want_order)
+            and torch.equal(bounds.long(), want_bounds)):
+        fail("12 K9 edge case C = 65,536: its bucketing differs from "
+             "_segments'")
     for label, rows, assign, c in cases:
         for dtype in (torch.float32, torch.bfloat16):
             hold_k9(f"12 K9 edge case {label} ({dtype})",
@@ -4640,13 +4679,19 @@ def k9_edge_cases(dev, card: str) -> None:
 def check_segment_sums(label: str, en, c: int, card: str) -> dict:
     """K9 on the unit rows en (N, d) float32 at C = c with the
     assignments of their own k-means (ivf._kmeans, then _top_clusters):
+    its bucketing (segment_buckets) equal to _segments' (order, bounds);
     bitwise segment_sum_plain and two launches byte-identical (hold_k9)
     on float32 rows and on bfloat16 rows (the out-of-core wire); each
-    timed with its set-up (the sort), device us of the kernel alone, the
-    plain version and index_add_ (the same sums in the order its atomics
-    land; of the widened rows for bfloat16), with its bound: the rows,
-    the sorted ids and bounds read once, the sums written. Returns the
-    float32 rows' report entry."""
+    whole call timed (the bucketing included; the median of 7 timings, as
+    index_add_'s), with the device us of each of its kernels (the sum
+    kernel alone among them), the plain version and index_add_ (the same
+    sums in the order its atomics land; of the widened rows for
+    bfloat16; with its device us, as K9's call is bound by its host path
+    where the rows are few), beside the earlier design's call
+    (EARLIER_MS), with its
+    bound: the rows and the N int32 assignments read once, the sums
+    written (the earlier bound, with its sorted int64 ids and bounds,
+    logged beside). Returns the float32 rows' report entry."""
     import torch
 
     from fedrann_tpu_torch.knn import ivf
@@ -4654,6 +4699,20 @@ def check_segment_sums(label: str, en, c: int, card: str) -> dict:
     n, d = en.shape
     a = ivf._top_clusters(en, ivf._kmeans(en, c, 3), 1)[:, 0]
     sizes = torch.bincount(a, minlength=c)
+    order, bounds = ivf.segment_buckets(a, c)
+    want_order, want_bounds = ivf._segments(a, c)
+    if not (torch.equal(order.long(), want_order)
+            and torch.equal(bounds.long(), want_bounds)):
+        fail(f"{label}: K9's bucketing differs from _segments")
+    bucket_ms = time_cuda(lambda: ivf.segment_buckets(a, c), 10)
+    sort_ms = time_cuda(lambda: ivf._segments(a, c), 10)
+    log(f"{label}: K9's bucketing equals _segments' (order, bounds); "
+        f"{bucket_ms:.4f} ms alone, device "
+        f"{device_us(lambda: ivf.segment_buckets(a, c), 5, True)} us a "
+        f"call; _segments' torch sort and searchsorted {sort_ms:.4f} ms "
+        f"[{card}]")
+    del order, bounds, want_order, want_bounds
+    at = "phase 4" if c == 256 else "11b"
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         rows = en.to(dtype).contiguous()
@@ -4667,17 +4726,28 @@ def check_segment_sums(label: str, en, c: int, card: str) -> dict:
                 0, a, rows.float())
 
         err = float((got - index_add()).abs().max())
-        ms = time_cuda(k9, 10)
+        # at phase 4's rows both take ~0.02-0.05 ms and K9's call is bound
+        # by its host path, so the host's jitter moves one timing: the
+        # median of 7 timings of 20 calls each, with their range logged
+        ms, ms_range = time_cuda_median(k9, 20, 7)
         plain_ms = time_cuda(lambda: ivf.segment_sum_plain(rows, a, c), 1)
-        lib_ms = time_cuda(index_add, 10)
-        b = bound(rows.numel() * rows.element_size() + n * 8 + (c + 1) * 8
-                  + c * d * 4)
+        lib_ms, lib_range = time_cuda_median(index_add, 20, 7)
+        b = bound(rows.numel() * rows.element_size() + n * 4 + c * d * 4)
+        old = bound(rows.numel() * rows.element_size() + n * 8
+                    + (c + 1) * 8 + c * d * 4)
+        was = EARLIER_MS[("ivf_segment_sum", at, str(dtype)[6:])]
         log(f"{label} ({dtype} rows, largest cluster {int(sizes.max())}, "
-            f"{int((sizes == 0).sum())} empty): {ms:.4f} ms with its sort, "
-            f"device {device_us(k9, 5, True)} us a launch; bound "
-            f"{b['bound_ms']:.5f} ms (bytes, {100 * b['bound_ms'] / ms:.1f}% "
-            f"of it); plain {plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms, "
-            f"within {err:.3g} of K9; bitwise the plain sums, two launches "
+            f"{int((sizes == 0).sum())} empty): {ms:.4f} ms the whole call "
+            f"(median; {ms_range[0]:.4f}-{ms_range[1]:.4f}) [earlier "
+            f"{was:.4f}], device {device_us(k9, 5, True)} us a call; "
+            f"bound {b['bound_ms']:.5f} ms (bytes, "
+            f"{100 * b['bound_ms'] / ms:.1f}% "
+            f"of it; the earlier bound {old['bound_ms']:.5f}); plain "
+            f"{plain_ms:.4f} ms; index_add_ {lib_ms:.4f} ms (median; "
+            f"{lib_range[0]:.4f}-{lib_range[1]:.4f}; "
+            f"{'above' if lib_ms > ms else 'below'} the call; device "
+            f"{device_us(index_add, 5, False)} us a call), within "
+            f"{err:.3g} of K9; bitwise the plain sums, two launches "
             f"byte-identical [{card}]")
         report[dtype] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, **b)
@@ -4775,10 +4845,15 @@ def check_paired_table(label: str, counts, d: int, seed: int, density,
         plain_ms = time_cuda(lambda: run(paired_table_plain, dtype), 2)
         b = bound(got.numel() * got.element_size() + lib_size * 4,
                   int32_ops=lib_size * 2 * d * instr)
+        floor_ms = time_cuda(lambda: got.fill_(0), 10)
+        was = EARLIER_MS.get(("srp_paired", lib_size, str(dtype)[6:]))
         log(f"{label}: L = {lib_size}, d = {d}, {dtype} table "
-            f"{tuple(got.shape)} bitwise the plain one; {ms:.4f} ms, device "
+            f"{tuple(got.shape)} bitwise the plain one; {ms:.4f} ms"
+            + ("" if was is None else f" [earlier {was:.4f}]") + ", device "
             f"{device_us(lambda: run(paired_table, dtype), 5, True)} us a "
-            f"launch; plain {plain_ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
+            f"launch; plain {plain_ms:.4f} ms; store floor (fill_ of a "
+            f"table of its shape and dtype, a floor, not a call that "
+            f"computes it) {floor_ms:.4f} ms; bound {b['bound_ms']:.5f} ms "
             f"({b['bound_by']}: {got.numel() * got.element_size()} bytes, "
             f"{instr} instructions an entry; "
             f"{100 * b['bound_ms'] / ms:.1f}% of it) [{card}]")

@@ -87,9 +87,10 @@ _SIGNATURES = {
                        _I64, _I64, _I64, _I64, _P, _I32, _P],
     # buf, rows, p, L, K, dedup, out, stream
     "fk_ivf_merge": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P],
-    # ivf_segment_sum.cu: rows, d, is_bf16, order, bounds, n_clusters,
-    # accumulate, out, stream
-    "fk_ivf_segment_sum": [_P, _I64, _I32, _P, _P, _I64, _I32, _P, _P],
+    # ivf_segment_sum.cu: rows, n, d, is_bf16, a, n_clusters, tile_rows,
+    # n_tiles, scratch, accumulate, out, stream
+    "fk_ivf_segment_sum": [_P, _I64, _I64, _I32, _P, _I64, _I64, _I64, _P,
+                           _I32, _P, _P],
     # srp_signs.cu: seed_mix, lib_size, d, n_words, bound, out, stream
     "fk_srp_signs": [_U64, _I64, _I64, _I64, _I64, _P, _P],
     # seed_mix, lib_size, d, bound, mags, is_bf16, out, stream

@@ -1,4 +1,5 @@
-// K9: the IVF k-means's segment sum (knn/ivf.py _segment_sum).
+// K9: the IVF k-means's segment sum (knn/ivf.py _segment_sum), with its
+// own bucketing of the rows by cluster.
 //
 // Computes what the JAX package's _kmeans does with jax.ops.segment_sum
 // (fedrann_tpu/knn/ivf.py:83, in _kmeans :61; an XLA scatter-add, no
@@ -9,106 +10,428 @@
 // rows widened to float32 first. That is bitwise jax.ops.segment_sum on a
 // CPU, and two launches give the same bits.
 //
-// Inputs: the row ids sorted stably by cluster (`order`, int64) and the
-// (C + 1,) bounds of each cluster's run in it, both torch ops on the card
-// (a stable sort and a searchsorted) with no host sync.
+// One C entry, fk_ivf_segment_sum, takes the int32 assignments and the
+// rows and launches three bucketing kernels and the sum kernel on the
+// stream it is given; no torch op runs between them. The bucketing is a
+// stable counting sort of the assignments into (order, bounds): order the
+// row ids sorted stably by cluster, cluster c's rows order[bounds[c] :
+// bounds[c + 1]]. A stable sort is unique, so both equal knn/ivf.py
+// _segments' (a torch stable sort and a searchsorted) value for value.
+//   1. seg_count_kernel: a warp a tile of tile_rows consecutive rows counts
+//      its rows of each cluster, one atomic add a row (the ids of BATCH
+//      steps of 32 rows load at once), in shared memory while C ints a
+//      warp fit in 48 KB (C <= 12,288), else straight into the (tile,
+//      cluster) counts in device memory, zeroed first.
+//   2. seg_scan_kernel: a block a run of 32 clusters, its 32 warps over the
+//      tiles (at most 1,024, 32 a warp in registers), turns each cluster's
+//      counts over the tiles
+//      into exclusive prefixes and its total into the cluster's size; the
+//      block that finishes last (a counter the count kernel zeroes) turns
+//      the sizes into the bounds and orders the clusters longest first (by
+//      the bit length of their size) for the sum kernel.
+//   3. seg_scatter_kernel: each tile's warp walks its rows again in order,
+//      32 a step, and writes each row id at its cluster's bound plus the
+//      tile's prefix plus the rows of that cluster the tile has placed
+//      before it (a cursor a cluster, in shared memory or the counts),
+//      plus its rank among the step's equal ids (__match_any_sync): a
+//      stable order.
+//   4. seg_sum_ring_kernel: a warp a unit of (cluster, 32 lanes x 16 bytes
+//      of columns: 128 float32 or 256 bfloat16), the units of the largest
+//      clusters first. A lane copies its 16 bytes of each member row into
+//      its own slots of a per-warp ring in shared memory by cp.async, RING
+//      rows ahead, and adds them from there in member order (__fadd_rn).
+//      The member ids come in 32 at a time, one coalesced load a batch
+//      ahead, and reach the lanes by __shfl_sync. Rows whose d * itemsize
+//      is not a multiple of 16, or whose base is not 16-byte aligned, take
+//      seg_sum_scalar_kernel (the same order, loads one element at a time).
 //
-// Bound on the card: the bytes, each row read once (N * d * itemsize),
-// the sorted ids (N * 8) and the bounds, and the sums written (C * d * 4):
-// 537 MB at N = 262,144, d = 512 float32, 0.160 ms at 3.35 TB/s.
+// Bound on the card: the bytes the function must move, the rows read once
+// (N * d * itemsize), the N int32 assignments read and the sums written
+// (C * d * 4; read too when accumulating): 540.0 MB at N = 262,144, d =
+// 512, C = 1,024 float32, 0.1612 ms at 3.35 TB/s (bfloat16 rows: 0.0811
+// ms). The sorted ids, bounds and counts are the function's own scratch,
+// not counted.
 //
-// Design: a warp a unit of (cluster, 128 columns), a lane 4 adjacent
-// columns (one 16-byte float32 or 8-byte bfloat16 load a member), so
-// splitting d over warps changes no bit and small C still fills the card.
-// A lane walks its cluster's members in order, AHEAD rows at a time: it
-// starts the AHEAD row loads (and the next AHEAD ids) before the first
-// add, so loads stay in flight while the adds keep their order. Adds are
-// __fadd_rn: nothing may contract them.
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 12
+// and tools/k8_k9_variants.py): at 11b's rows the sum kernel reads ~86%
+// (float32) / ~80% (bfloat16) of that bound, and the bucketing adds ~19
+// us of device time in latency-bound steps of 32 rows (__match_any_sync
+// costs more the more distinct ids a step holds); at phase 4's 15,000 rows
+// the call (0.035-0.06 ms as the host's speed varies) is bound by its
+// host path (the wrapper, the scratch and four launches) over ~20 us of
+// device time. The longest cluster's in-order walk is no limit at either
+// (11b's k-means leaves at most 419 rows a cluster): the ring keeps RING
+// of its rows in flight a lane, and the longest-first order starts it at
+// the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int THREADS = 128;      // four warps, a unit each
-constexpr int COLS = 128;         // columns of a unit, 4 a lane
-constexpr int AHEAD = 4;          // member rows a lane loads before adding
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int TILE_WARPS = 8;      // tile warps a block (at most)
+constexpr int SMEM_HIST = 12288;   // clusters a warp counts in shared memory
+constexpr int BATCH = 8;           // steps of 32 rows whose ids load at once
+constexpr int MAX_TILES = 1024;    // tiles a bucketing (knn/ivf.py)
+constexpr int SCAN_WARPS = 32;     // warps of a scan block, over the tiles
+constexpr int SCAN_PER = MAX_TILES / SCAN_WARPS;  // tiles a scan warp holds
+constexpr int SUM_WARPS = 4;       // units a block of the sum kernels
+constexpr int RING = 16;           // member rows in flight a lane
+static_assert(RING <= 32, "a member batch covers the ring");
+static_assert(SUM_WARPS * RING * 512 <= 48 * 1024, "static shared memory");
 
-// the 4 columns col.. of row i as float32; `vec`: one aligned vector load
-template <bool BF16>
-__device__ __forceinline__ void load4(const void* rows, int64_t i, int64_t d,
-                                      int64_t col, bool vec, float v[4]) {
-  if (BF16) {
-    const uint16_t* p = static_cast<const uint16_t*>(rows) + i * d + col;
-    if (vec) {
-      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
-      v[0] = __uint_as_float(w.x << 16);
-      v[1] = __uint_as_float(w.x & 0xFFFF0000u);
-      v[2] = __uint_as_float(w.y << 16);
-      v[3] = __uint_as_float(w.y & 0xFFFF0000u);
-    } else {
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src into dst, or nothing when !live (the group still
+// counts)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  if (live) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 ::"r"(smem_u32(dst)), "l"(src) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this lane's copies of all but the last RING - 1 groups have landed
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 1) : "memory");
+}
+
+// The cluster of row `row` of a tile ending at `end`, or -1 past the end
+// or out of [0, C) (such a row belongs to no cluster).
+__device__ __forceinline__ int cluster_of(const int32_t* __restrict__ a,
+                                          int64_t row, int64_t end, int c_n) {
+  const int c = row < end ? __ldg(a + row) : -1;
+  return static_cast<unsigned>(c) < static_cast<unsigned>(c_n) ? c : -1;
+}
+
+// Per tile (a warp each) the rows of each cluster: counts[t * C + c], one
+// atomic add a row (the order of adds changes no count). Block 0 also
+// zeroes the scan's counter of finished blocks.
+__global__ void seg_count_kernel(const int32_t* __restrict__ a, int64_t n,
+                                 int c_n, int64_t tile_rows, int n_tiles,
+                                 bool smem, int32_t* __restrict__ counts,
+                                 int32_t* __restrict__ done) {
+  extern __shared__ int32_t hist_s[];
+  if (blockIdx.x == 0 && threadIdx.x == 0) *done = 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (t >= n_tiles) return;
+  int32_t* hist = smem ? hist_s + warp * c_n
+                       : counts + static_cast<int64_t>(t) * c_n;
+  if (smem) {
+    for (int i = lane; i < c_n; i += 32) hist[i] = 0;
+    __syncwarp();
+  }
+  const int64_t r0 = t * tile_rows;
+  const int64_t end = min(n, r0 + tile_rows);
+  for (int64_t r = r0; r < end; r += 32 * BATCH) {
+    int cs[BATCH];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        v[u] = col + u < d ? __uint_as_float(
-                                 static_cast<uint32_t>(__ldg(p + u)) << 16)
-                           : 0.0f;
-      }
+    for (int k = 0; k < BATCH; ++k) {
+      cs[k] = cluster_of(a, r + 32 * k + lane, end, c_n);
     }
-  } else {
-    const float* p = static_cast<const float*>(rows) + i * d + col;
-    if (vec) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(p));
-      v[0] = w.x;
-      v[1] = w.y;
-      v[2] = w.z;
-      v[3] = w.w;
-    } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = col + u < d ? __ldg(p + u) : 0.0f;
+    for (int k = 0; k < BATCH; ++k) {
+      if (cs[k] >= 0) atomicAdd(hist + cs[k], 1);
+    }
+  }
+  if (smem) {
+    __syncwarp();
+    int32_t* dst = counts + static_cast<int64_t>(t) * c_n;
+    for (int i = lane; i < c_n; i += 32) dst[i] = hist[i];
+  }
+}
+
+// Exclusive prefix of v over the block's threads (SCAN_WARPS warps), its
+// total in *total; `warp_sums` a __shared__ int[SCAN_WARPS + 1].
+__device__ __forceinline__ int block_exclusive(int v, int* warp_sums,
+                                               int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int x = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += x;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < SCAN_WARPS; ++w) {
+      const int x = warp_sums[w];
+      warp_sums[w] = run;
+      run += x;
+    }
+    warp_sums[SCAN_WARPS] = run;
+  }
+  __syncthreads();
+  *total = warp_sums[SCAN_WARPS];
+  return warp_sums[warp] + incl - v;
+}
+
+// A block a run of 32 clusters, its warps over the tiles: counts[t * C +
+// c] -> the rows of cluster c in tiles before t, and the cluster's size
+// into bounds[c]. The block that finishes last then turns the sizes into
+// the bounds: bounds[0 .. C] the exclusive prefix (bounds[C] the total),
+// and sched the clusters by the bit length of their size, longest first
+// (within a length in no fixed order: the schedule changes no sum).
+__global__ void __launch_bounds__(SCAN_WARPS * 32)
+    seg_scan_kernel(int32_t* __restrict__ counts, int c_n, int n_tiles,
+                    int32_t* __restrict__ bounds,
+                    int32_t* __restrict__ sched, int32_t* done) {
+  __shared__ int part[SCAN_WARPS][32];
+  __shared__ int warp_sums[SCAN_WARPS + 1];
+  __shared__ int lengths[33];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const bool live = c < c_n;
+  // warp w holds tiles w * SCAN_PER .. + SCAN_PER - 1 in registers
+  int v[SCAN_PER];
+  int own = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_PER; ++k) {
+    const int t = warp * SCAN_PER + k;
+    v[k] = live && t < n_tiles ? counts[static_cast<int64_t>(t) * c_n + c]
+                               : 0;
+    own += v[k];
+  }
+  part[warp][lane] = own;
+  __syncthreads();
+  int run = 0;
+  for (int w = 0; w < warp; ++w) run += part[w][lane];
+#pragma unroll
+  for (int k = 0; k < SCAN_PER; ++k) {
+    const int t = warp * SCAN_PER + k;
+    if (live && t < n_tiles) counts[static_cast<int64_t>(t) * c_n + c] = run;
+    run += v[k];
+  }
+  if (live && warp == SCAN_WARPS - 1) bounds[c] = run;
+  // the last block to finish scans the sizes
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(done, 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int spread = (c_n + SCAN_WARPS * 32 - 1) / (SCAN_WARPS * 32);
+  const int lo = min(c_n, static_cast<int>(threadIdx.x) * spread);
+  const int hi = min(c_n, lo + spread);
+  if (threadIdx.x < 33) lengths[threadIdx.x] = 0;
+  int mine = 0;
+  for (int i = lo; i < hi; ++i) mine += __ldcg(bounds + i);
+  __syncthreads();
+  for (int i = lo; i < hi; ++i) {
+    atomicAdd(&lengths[32 - __clz(__ldcg(bounds + i))], 1);
+  }
+  int total;
+  int at = block_exclusive(mine, warp_sums, &total);
+  if (threadIdx.x == 0) {  // longest first: each length's first slot
+    int slot = 0;
+    for (int b = 32; b >= 0; --b) {
+      const int k = lengths[b];
+      lengths[b] = slot;
+      slot += k;
+    }
+  }
+  __syncthreads();
+  for (int i = lo; i < hi; ++i) {
+    const int size = __ldcg(bounds + i);
+    sched[atomicAdd(&lengths[32 - __clz(size)], 1)] = i;
+    bounds[i] = at;
+    at += size;
+  }
+  if (threadIdx.x == 0) bounds[c_n] = total;
+}
+
+// Per tile (a warp each) its rows' ids into order, stably by cluster.
+__global__ void seg_scatter_kernel(const int32_t* __restrict__ a, int64_t n,
+                                   int c_n, int64_t tile_rows, int n_tiles,
+                                   bool smem, int32_t* __restrict__ counts,
+                                   const int32_t* __restrict__ bounds,
+                                   int32_t* __restrict__ order) {
+  extern __shared__ int32_t cursor_s[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (t >= n_tiles) return;
+  int32_t* tile = counts + static_cast<int64_t>(t) * c_n;
+  // the cursor of cluster c: where the tile's next row of c goes, less
+  // bounds[c] in device memory
+  int32_t* cursor = smem ? cursor_s + warp * c_n : tile;
+  if (smem) {
+    for (int i = lane; i < c_n; i += 32) cursor[i] = bounds[i] + tile[i];
+    __syncwarp();
+  }
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t r0 = t * tile_rows;
+  const int64_t end = min(n, r0 + tile_rows);
+  for (int64_t r = r0; r < end; r += 32 * BATCH) {
+    int cs[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      cs[k] = cluster_of(a, r + 32 * k + lane, end, c_n);
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int c = cs[k];
+      const unsigned peers = __match_any_sync(FULL, c);
+      const int first = __ffs(peers) - 1;
+      int at = 0;
+      if (c >= 0 && lane == first) {
+        at = atomicAdd(cursor + c, __popc(peers));
+        if (!smem) at += bounds[c];
+      }
+      at = __shfl_sync(FULL, at, first);
+      if (c >= 0) {
+        order[at + __popc(peers & below)] =
+            static_cast<int32_t>(r + 32 * k + lane);
+      }
     }
   }
 }
 
+// Cluster sched[unit / slices]'s first member and its end.
+__device__ __forceinline__ void unit_of(int unit, int slices,
+                                        const int32_t* __restrict__ sched,
+                                        const int32_t* __restrict__ bounds,
+                                        int* c, int* start, int* end) {
+  *c = sched[unit / slices];
+  *start = bounds[*c];
+  *end = bounds[*c + 1];
+}
+
+// 16 bytes of a row as float32 columns: 4 float32 or 8 bfloat16 widened
 template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-    ivf_segment_sum_kernel(const void* __restrict__ rows, int64_t d,
-                           const int64_t* __restrict__ order,
-                           const int64_t* __restrict__ bounds,
-                           int64_t n_clusters, int64_t slices, bool vec,
-                           bool accumulate, float* __restrict__ out) {
-  const int64_t unit = static_cast<int64_t>(blockIdx.x) * (THREADS / 32)
-                       + threadIdx.x / 32;
-  if (unit >= n_clusters * slices) return;
-  const int64_t c = unit / slices;
-  const int64_t col = (unit - c * slices) * COLS + (threadIdx.x % 32) * 4;
+__device__ __forceinline__ void add16(float* acc, uint4 w) {
+  if (BF16) {
+    const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc[2 * u] = __fadd_rn(acc[2 * u], __uint_as_float(x[u] << 16));
+      acc[2 * u + 1] = __fadd_rn(acc[2 * u + 1],
+                                 __uint_as_float(x[u] & 0xFFFF0000u));
+    }
+  } else {
+    acc[0] = __fadd_rn(acc[0], __uint_as_float(w.x));
+    acc[1] = __fadd_rn(acc[1], __uint_as_float(w.y));
+    acc[2] = __fadd_rn(acc[2], __uint_as_float(w.z));
+    acc[3] = __fadd_rn(acc[3], __uint_as_float(w.w));
+  }
+}
+
+// A warp a unit (cluster, 32 x 16 bytes of columns); d * itemsize a
+// multiple of 16 and rows 16-byte aligned.
+template <bool BF16>
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+    seg_sum_ring_kernel(const void* __restrict__ rows, int64_t d,
+                        const int32_t* __restrict__ order,
+                        const int32_t* __restrict__ bounds,
+                        const int32_t* __restrict__ sched, int units,
+                        int slices, bool accumulate,
+                        float* __restrict__ out) {
+  constexpr int V = BF16 ? 8 : 4;  // columns a lane
+  __shared__ uint4 ring[SUM_WARPS][RING][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int unit = blockIdx.x * SUM_WARPS + warp;
+  if (unit >= units) return;
+  int c, start, end;
+  unit_of(unit, slices, sched, bounds, &c, &start, &end);
+  const int size = end - start;
+  const int64_t col = static_cast<int64_t>(unit % slices) * 32 * V + lane * V;
+  const bool live = col < d;
+  const int64_t row_bytes = d * (BF16 ? 2 : 4);
+  const char* src = static_cast<const char*>(rows) + col * (BF16 ? 2 : 4);
+  uint4* slot = &ring[warp][0][lane];
+  float acc[V];
+  float* dst = out + static_cast<int64_t>(c) * d + col;
+#pragma unroll
+  for (int u = 0; u < V; ++u) acc[u] = accumulate && live ? dst[u] : 0.0f;
+  // member ids: lane l holds member 32 b + l of batch b (cur: the batch of
+  // the next member to copy; nxt: the one after)
+  int cur = lane < size ? order[start + lane] : 0;
+  int nxt = 32 + lane < size ? order[start + 32 + lane] : 0;
+#pragma unroll
+  for (int s = 0; s < RING; ++s) {
+    const int id = __shfl_sync(FULL, cur, s);
+    cp_async16(slot + s * 32, src + id * row_bytes, live && s < size);
+    cp_async_commit();
+  }
+  for (int m = 0; m < size; ++m) {
+    cp_async_wait_ring();
+    uint4* at = slot + (m % RING) * 32;
+    add16<BF16>(acc, *at);
+    const int j = m + RING;  // the member that takes this slot
+    if ((j & 31) == 0) {
+      cur = nxt;
+      nxt = j + 32 + lane < size ? order[start + j + 32 + lane] : 0;
+    }
+    const int id = __shfl_sync(FULL, cur, j & 31);
+    cp_async16(at, src + id * row_bytes, live && j < size);
+    cp_async_commit();
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (!live) return;
+  if (BF16) {
+    reinterpret_cast<float4*>(dst)[0] =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    reinterpret_cast<float4*>(dst)[1] =
+        make_float4(acc[V - 4], acc[V - 3], acc[V - 2], acc[V - 1]);
+  } else {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+  }
+}
+
+// A warp a unit of (cluster, 128 columns), 4 a lane loaded one element at
+// a time: any d and alignment.
+template <bool BF16>
+__global__ void __launch_bounds__(SUM_WARPS * 32)
+    seg_sum_scalar_kernel(const void* __restrict__ rows, int64_t d,
+                          const int32_t* __restrict__ order,
+                          const int32_t* __restrict__ bounds,
+                          const int32_t* __restrict__ sched, int units,
+                          int slices, bool accumulate,
+                          float* __restrict__ out) {
+  const int unit = blockIdx.x * SUM_WARPS + (threadIdx.x >> 5);
+  if (unit >= units) return;
+  int c, start, end;
+  unit_of(unit, slices, sched, bounds, &c, &start, &end);
+  const int64_t col = static_cast<int64_t>(unit % slices) * 128
+                      + (threadIdx.x & 31) * 4;
   if (col >= d) return;
   const int w = static_cast<int>(d - col < 4 ? d - col : 4);
-  float* dst = out + c * d + col;
+  float* dst = out + static_cast<int64_t>(c) * d + col;
   float acc[4];
 #pragma unroll
   for (int u = 0; u < 4; ++u) acc[u] = accumulate && u < w ? dst[u] : 0.0f;
-  const int64_t start = bounds[c], end = bounds[c + 1];
-  int64_t ids[AHEAD];
+  for (int m = start; m < end; ++m) {
+    const int64_t at = static_cast<int64_t>(__ldg(order + m)) * d + col;
 #pragma unroll
-  for (int a = 0; a < AHEAD; ++a) ids[a] = start + a < end ? order[start + a]
-                                                           : 0;
-  for (int64_t m = start; m < end; m += AHEAD) {
-    float v[AHEAD][4];
-#pragma unroll
-    for (int a = 0; a < AHEAD; ++a) {
-      if (m + a < end) load4<BF16>(rows, ids[a], d, col, vec, v[a]);
-    }
-#pragma unroll
-    for (int a = 0; a < AHEAD; ++a) {
-      const int64_t next = m + AHEAD + a;
-      ids[a] = next < end ? order[next] : 0;
-    }
-#pragma unroll
-    for (int a = 0; a < AHEAD; ++a) {
-      if (m + a < end) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] = __fadd_rn(acc[u], v[a][u]);
+    for (int u = 0; u < 4; ++u) {
+      if (u < w) {
+        const float v = BF16 ? __uint_as_float(static_cast<uint32_t>(
+                                   __ldg(static_cast<const uint16_t*>(rows)
+                                         + at + u)) << 16)
+                             : __ldg(static_cast<const float*>(rows) + at
+                                     + u);
+        acc[u] = __fadd_rn(acc[u], v);
       }
     }
   }
@@ -118,33 +441,84 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <bool BF16>
+cudaError_t launch_sum(const void* rows, int64_t d, const int32_t* order,
+                       const int32_t* bounds, const int32_t* sched,
+                       int64_t n_clusters, bool accumulate, float* out,
+                       cudaStream_t s) {
+  const uintptr_t base = reinterpret_cast<uintptr_t>(rows);
+  const bool ring = (d * (BF16 ? 2 : 4)) % 16 == 0 && base % 16 == 0;
+  const int64_t cols = ring ? 32 * (BF16 ? 8 : 4) : 128;
+  const int slices = static_cast<int>((d + cols - 1) / cols);
+  const int units = static_cast<int>(n_clusters * slices);
+  const unsigned blocks = (units + SUM_WARPS - 1) / SUM_WARPS;
+  if (ring) {
+    seg_sum_ring_kernel<BF16><<<blocks, SUM_WARPS * 32, 0, s>>>(
+        rows, d, order, bounds, sched, units, slices, accumulate, out);
+  } else {
+    seg_sum_scalar_kernel<BF16><<<blocks, SUM_WARPS * 32, 0, s>>>(
+        rows, d, order, bounds, sched, units, slices, accumulate, out);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Segment sums of rows (N, d) float32, or bfloat16 bits when is_bf16, into
-// out (n_clusters, d) float32: cluster c's rows are order[bounds[c] :
-// bounds[c + 1]] (int64 row ids, bounds (n_clusters + 1,) int64), added in
-// that order, from 0 or, with accumulate, from out's own values.
-extern "C" int fk_ivf_segment_sum(const void* rows, int64_t d, int is_bf16,
-                                  const int64_t* order, const int64_t* bounds,
-                                  int64_t n_clusters, int accumulate,
-                                  float* out, void* stream) {
-  const int64_t slices = (d + COLS - 1) / COLS;
-  const int64_t units = n_clusters * slices;
-  if (units <= 0) return static_cast<int>(cudaSuccess);
-  const uintptr_t align = is_bf16 ? 8 : 16;
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % align
-                                     == 0;
-  const unsigned blocks = static_cast<unsigned>(
-      (units + THREADS / 32 - 1) / (THREADS / 32));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    ivf_segment_sum_kernel<true><<<blocks, THREADS, 0, s>>>(
-        rows, d, order, bounds, n_clusters, slices, vec, accumulate != 0,
-        out);
-  } else {
-    ivf_segment_sum_kernel<false><<<blocks, THREADS, 0, s>>>(
-        rows, d, order, bounds, n_clusters, slices, vec, accumulate != 0,
-        out);
+// Segment sums of rows (n, d) float32, or bfloat16 bits when is_bf16, by
+// the int32 assignments a (n,) into out (n_clusters, d) float32: each
+// cluster's rows added in row order, from 0 or, with accumulate, from
+// out's own values. Rows assigned outside [0, n_clusters) are in no
+// cluster. scratch holds n_tiles * n_clusters + n + 2 * n_clusters + 2
+// int32: the (tile, cluster) counts, then order (n), bounds (n_clusters +
+// 1), the schedule (n_clusters) and the scan's counter; tiles of tile_rows
+// rows (a multiple of 32), n_tiles = ceil(n / tile_rows) <= MAX_TILES
+// (knn/ivf.py k9_tiles). With out null only the bucketing runs: order and
+// bounds are left in scratch.
+extern "C" int fk_ivf_segment_sum(const void* rows, int64_t n, int64_t d,
+                                  int is_bf16, const int32_t* a,
+                                  int64_t n_clusters, int64_t tile_rows,
+                                  int64_t n_tiles, int32_t* scratch,
+                                  int accumulate, float* out, void* stream) {
+  if (n_clusters <= 0 || n_tiles > MAX_TILES || n_clusters >= (1 << 30)
+      || (n > 0 && (tile_rows % 32 != 0 || n_tiles * tile_rows < n))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c_n = static_cast<int>(n_clusters);
+  const int tiles = static_cast<int>(n_tiles);
+  int32_t* counts = scratch;
+  int32_t* order = counts + n_tiles * n_clusters;
+  int32_t* bounds = order + n;
+  int32_t* sched = bounds + n_clusters + 1;
+  int32_t* done = sched + n_clusters;
+  cudaError_t err;
+  const bool smem = c_n <= SMEM_HIST;
+  const int warps = smem ? max(1, min(TILE_WARPS, SMEM_HIST / c_n))
+                         : TILE_WARPS;
+  const size_t smem_bytes = smem ? static_cast<size_t>(warps) * c_n * 4 : 0;
+  const unsigned tile_blocks = max(1, (tiles + warps - 1) / warps);
+  if (!smem && tiles > 0) {
+    err = cudaMemsetAsync(counts, 0, n_tiles * n_clusters * 4, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  seg_count_kernel<<<tile_blocks, warps * 32, smem_bytes, s>>>(
+      a, n, c_n, tile_rows, tiles, smem, counts, done);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  seg_scan_kernel<<<(c_n + 31) / 32, SCAN_WARPS * 32, 0, s>>>(
+      counts, c_n, tiles, bounds, sched, done);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tiles > 0) {
+    seg_scatter_kernel<<<tile_blocks, warps * 32, smem_bytes, s>>>(
+        a, n, c_n, tile_rows, tiles, smem, counts, bounds, order);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (out == nullptr || d <= 0) return static_cast<int>(cudaSuccess);
+  err = is_bf16 ? launch_sum<true>(rows, d, order, bounds, sched, n_clusters,
+                                   accumulate != 0, out, s)
+                : launch_sum<false>(rows, d, order, bounds, sched,
+                                    n_clusters, accumulate != 0, out, s);
+  return static_cast<int>(err);
 }

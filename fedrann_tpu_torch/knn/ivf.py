@@ -8,9 +8,12 @@
    are added in row order, one float32 add at a time from +0.0 (bitwise
    jax.ops.segment_sum on a CPU), so two runs give the same centroids bit
    for bit (an index_add_ on a card adds in the order its atomics land).
-   On a CUDA device it is one launch of K9 (csrc/ivf_segment_sum.cu
-   `fk_ivf_segment_sum`, a warp a cluster and 128 columns); on the CPU
-   segment_sum_plain.
+   On a CUDA device it is one call of K9's C entry (csrc/ivf_segment_sum.cu
+   `fk_ivf_segment_sum`): a stable counting sort of the assignments by
+   cluster in three small kernels, then a warp a cluster and 16 bytes a
+   lane of columns adding its members in order from a cp.async ring, the
+   largest clusters first; no torch op between the assignments and the
+   sums. On the CPU segment_sum_plain (after _segments' torch sort).
 2. Each row is indexed in its `spill` nearest clusters, and each query
    probes its own `p` nearest; ties go to the lowest cluster id, as
    `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
@@ -73,6 +76,11 @@ RESCORE_PAIR_BYTES = 20
 MERGE_ROWS = 1 << 16
 # the low word of every key of a cluster id or row index (_order_keys)
 LOW_WORD = 0xFFFFFFFF
+# K9's bucketing: a warp counts and places a tile of at least K9_TILE rows
+# (a multiple of 32), walked 32 at a time, at most K9_MAX_TILES tiles (its
+# scan's MAX_TILES); the (tile, cluster) counts stay within K9_MAX_CELLS
+# int32
+K9_TILE, K9_MAX_TILES, K9_MAX_CELLS = 256, 1024, 1 << 22
 
 
 def auto_clusters(n_rows: int) -> int:
@@ -178,7 +186,8 @@ def _segments(a: torch.Tensor, n_clusters: int):
     """(order, bounds) of the assignments a (N,): the row ids sorted
     stably by cluster, and the (C + 1,) int64 bounds of each cluster's run
     in them (cluster c's rows are order[bounds[c] : bounds[c + 1]], in row
-    order). Torch ops with no host sync."""
+    order). Torch ops with no host sync: the plain version of K9's own
+    bucketing (segment_buckets), which runs no torch sort on the card."""
     sorted_a, order = torch.sort(a, stable=True)
     bounds = torch.searchsorted(sorted_a, torch.arange(
         n_clusters + 1, dtype=sorted_a.dtype, device=a.device))
@@ -224,21 +233,109 @@ def segment_sum_plain(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
     return out
 
 
+def k9_tiles(n: int, n_clusters: int,
+             max_tiles: int = K9_MAX_TILES) -> tuple[int, int]:
+    """(tile_rows, n_tiles) of K9's bucketing of n rows over n_clusters:
+    tiles of K9_TILE rows, longer where more would pass max_tiles or
+    K9_MAX_CELLS (tile, cluster) counts."""
+    most = max(1, min(max_tiles, K9_MAX_CELLS // max(n_clusters, 1)))
+    tile = max(K9_TILE, -(-n // most))
+    tile = -(-tile // 32) * 32
+    return tile, -(-n // tile)
+
+
+def _k9_launch(rows, a: torch.Tensor, n_clusters: int, accumulate: int,
+               out) -> torch.Tensor:
+    """One call of fk_ivf_segment_sum on a's card (rows and out None: the
+    bucketing alone); returns its int32 scratch: the (tile, cluster)
+    counts, then order, bounds, the schedule and a counter."""
+    n = a.shape[0]
+    tile, n_tiles = k9_tiles(n, n_clusters)
+    scratch = torch.empty(n_tiles * n_clusters + n + 2 * n_clusters + 2,
+                          dtype=torch.int32, device=a.device)
+    _build.launch("fk_ivf_segment_sum",
+                  0 if rows is None else rows.data_ptr(),
+                  n, 0 if rows is None else rows.shape[1],
+                  int(rows is not None and rows.dtype == torch.bfloat16),
+                  a.data_ptr(), n_clusters, tile, n_tiles, scratch.data_ptr(),
+                  accumulate, 0 if out is None else out.data_ptr(),
+                  device=a.device)
+    return scratch
+
+
+def _check_assignments(a: torch.Tensor, device, n: int, what: str) -> None:
+    if a.device != device or a.dtype != torch.int32 \
+            or a.shape != (n,) or not a.is_contiguous():
+        raise ValueError(f"{what}: contiguous ({n},) int32 assignments on "
+                         f"{device}, not {a.dtype} {tuple(a.shape)} on "
+                         f"{a.device}")
+
+
+def segment_buckets(a: torch.Tensor, n_clusters: int):
+    """K9's bucketing alone on a card: (order, bounds) int32 of the (N,)
+    int32 CUDA assignments a, equal as values to _segments' int64 pair
+    (a stable sort is unique). One call of the C entry with no rows;
+    counted in .kernel_launches."""
+    if a.device.type != "cuda" or n_clusters <= 0:
+        raise ValueError(f"segment_buckets: CUDA assignments and at least "
+                         f"one cluster, not {a.device}, {n_clusters}")
+    n = a.shape[0]
+    _check_assignments(a, a.device, n, "segment_buckets")
+    scratch = _k9_launch(None, a, n_clusters, 0, None)
+    segment_buckets.kernel_launches += 1
+    at = k9_tiles(n, n_clusters)[1] * n_clusters
+    return scratch[at : at + n], scratch[at + n : at + n + n_clusters + 1]
+
+
+segment_buckets.kernel_launches = 0
+
+
+def _k9_replay(a: torch.Tensor, n_clusters: int):
+    """K9's bucketing replayed in torch ops on any device, tile by tile as
+    the kernels run it (k9_tiles): each tile's counts, their prefix over
+    the tiles, the bounds, then each tile's rows placed at its cluster's
+    bound + the tile's prefix + the rows of that cluster placed before it.
+    (order, bounds) int64; the tests hold it to _segments."""
+    n = a.shape[0]
+    tile, n_tiles = k9_tiles(n, n_clusters)
+    a = a.long()
+    valid = (a >= 0) & (a < n_clusters)
+    counts = torch.zeros((n_tiles, n_clusters), dtype=torch.int64,
+                         device=a.device)
+    for t in range(n_tiles):
+        part = a[t * tile : (t + 1) * tile]
+        part = part[valid[t * tile : (t + 1) * tile]]
+        counts[t] = torch.bincount(part, minlength=n_clusters)
+    sizes = counts.sum(0)
+    bounds = torch.zeros(n_clusters + 1, dtype=torch.int64, device=a.device)
+    bounds[1:] = torch.cumsum(sizes, 0)
+    cursor = bounds[:-1] + torch.cumsum(counts, 0) - counts
+    order = torch.empty(int(bounds[-1]), dtype=torch.int64, device=a.device)
+    for t in range(n_tiles):
+        for r in range(t * tile, min(n, (t + 1) * tile)):
+            c = int(a[r])
+            if 0 <= c < n_clusters:
+                order[cursor[t, c]] = r
+                cursor[t, c] += 1
+    return order, bounds
+
+
 def segment_sum_rows(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """K9 (csrc/ivf_segment_sum.cu `fk_ivf_segment_sum`): _segment_sum of
-    contiguous (N, d) float32 or bfloat16 CUDA rows in one launch, after
-    _segments' sort (no host sync); into `out` ((C, d) float32 on the
-    same card) when given. Bitwise segment_sum_plain. Counts its launches
-    in .kernel_launches; raises on a tensor it does not take."""
+    contiguous (N, d) float32 or bfloat16 CUDA rows by contiguous (N,)
+    int32 assignments, in one call of its C entry, which buckets the rows
+    (a stable counting sort into a torch.empty scratch) and sums them with
+    no torch op between; into `out` ((C, d) float32 on the same card) when
+    given. Bitwise segment_sum_plain. Counts its calls in .kernel_launches;
+    raises on a tensor it does not take."""
     if rows.device.type != "cuda" or rows.dim() != 2 \
             or rows.dtype not in (torch.float32, torch.bfloat16) \
-            or not rows.is_contiguous() or a.device != rows.device \
-            or a.shape != rows.shape[:1]:
+            or not rows.is_contiguous():
         raise ValueError(f"segment_sum_rows: contiguous (N, d) float32 or "
-                         f"bfloat16 CUDA rows and (N,) assignments on the "
-                         f"same card, not {rows.dtype} {tuple(rows.shape)} "
-                         f"on {rows.device}, {tuple(a.shape)} on {a.device}")
+                         f"bfloat16 CUDA rows, not {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    _check_assignments(a, rows.device, rows.shape[0], "segment_sum_rows")
     d = rows.shape[1]
     if out is None:
         out = torch.empty((n_clusters, d), dtype=torch.float32,
@@ -254,11 +351,7 @@ def segment_sum_rows(rows: torch.Tensor, a: torch.Tensor, n_clusters: int,
         accumulate = 1
     if out.numel() == 0:
         return out
-    order, bounds = _segments(a, n_clusters)
-    _build.launch("fk_ivf_segment_sum", rows.data_ptr(), d,
-                  int(rows.dtype == torch.bfloat16), order.data_ptr(),
-                  bounds.data_ptr(), n_clusters, accumulate, out.data_ptr(),
-                  device=rows.device)
+    _k9_launch(rows, a, n_clusters, accumulate, out)
     segment_sum_rows.kernel_launches += 1
     return out
 

@@ -7,6 +7,9 @@ numpy rows, made from seeds:
 - the segment sum (segment_sum_plain, K9's reference) bitwise
   jax.ops.segment_sum: random assignments, empty clusters, one cluster,
   bfloat16 rows widened as JAX widens them, chunks carried into one sum;
+- the bucketing of the rows by cluster (_segments, the plain version of
+  K9's counting sort, and its tile-by-tile replay) bitwise JAX's stable
+  argsort and bincount prefix at its edge cases;
 - k-means on blobs, with and without zero rows: assignments and counts
   equal JAX's, centroids within 1e-5; spill and probe lists equal JAX's,
   the zero rows' ties (the lowest cluster id first) included;
@@ -126,6 +129,67 @@ def test_segment_sum_plain_is_jax_segment_sum(case, dtype):
         ivf._segment_sum(rows[r0 : r0 + 77],
                          torch.from_numpy(a[r0 : r0 + 77]), c, out)
     assert torch.equal(out.view(torch.int32), got.view(torch.int32))
+
+
+def _bucket_case(case):
+    """(assignments (N,) int32, C) of a bucketing edge case, from a seed."""
+    rng = np.random.default_rng(len(case))
+    if case == "N = 0":
+        return np.zeros(0, np.int32), 8
+    if case == "N = 1":
+        return np.array([5], np.int32), 8
+    if case == "one cluster holding every row":
+        return np.zeros(3000, np.int32), 16
+    if case == "empty clusters":
+        a = rng.integers(0, 64, 3000)
+        return (a - a % 2).astype(np.int32), 64
+    if case == "C = 65,536":
+        return rng.integers(0, 65_536, 3000).astype(np.int32), 65_536
+    if case == "a tile boundary mid-cluster":
+        # runs of 300 rows of one cluster, one across each 1,024-row tile
+        # boundary, among random rows
+        a = rng.integers(0, 12, 4 * ivf.K9_TILE + 77)
+        for t in range(1, 5):
+            a[t * ivf.K9_TILE - 150 : t * ivf.K9_TILE + 150] = t % 3
+        return a.astype(np.int32), 12
+    return rng.integers(0, 37, 5000).astype(np.int32), 37
+
+
+BUCKET_CASES = ["N = 0", "N = 1", "one cluster holding every row",
+                "empty clusters", "C = 65,536", "a tile boundary mid-cluster",
+                "random"]
+
+
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_segments_are_jax_stable_argsort_and_bincount(case):
+    """Tolerance: none. _segments (the plain version of K9's bucketing)
+    gives the JAX package's jnp.argsort(a, stable=True) as order and the
+    prefix of jnp.bincount(a, length=C) as bounds, as _member_table
+    builds them, at every bucketing edge case."""
+    a, c = _bucket_case(case)
+    want_order = np.asarray(jnp.argsort(jnp.asarray(a), stable=True))
+    counts = np.asarray(jnp.bincount(jnp.asarray(a), length=c))
+    want_bounds = np.concatenate([[0], np.cumsum(counts)])
+    order, bounds = ivf._segments(torch.from_numpy(a), c)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(bounds.numpy(), want_bounds)
+
+
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_k9_bucketing_replay_is_segments(case):
+    """Tolerance: none. K9's counting sort replayed tile by tile
+    (_k9_replay: per-tile counts, their prefix over the tiles, each tile's
+    rows placed in row order) gives _segments' (order, bounds), and its
+    tiles follow k9_tiles' limits."""
+    a, c = _bucket_case(case)
+    order, bounds = ivf._k9_replay(torch.from_numpy(a), c)
+    want_order, want_bounds = ivf._segments(torch.from_numpy(a), c)
+    assert torch.equal(order, want_order)
+    assert torch.equal(bounds, want_bounds)
+    tile, n_tiles = ivf.k9_tiles(len(a), c)
+    assert tile % 32 == 0 and n_tiles * tile >= len(a)
+    assert n_tiles <= ivf.K9_MAX_TILES
+    assert n_tiles * c <= max(ivf.K9_MAX_CELLS, c)
 
 
 @pytest.mark.parametrize("zero_rows", [False, True])

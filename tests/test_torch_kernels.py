@@ -44,8 +44,11 @@ from fedrann_tpu_torch.project.embed import (
     membership_embed,
     membership_embed_dense,
 )
+from fedrann_tpu_torch.knn import ivf
 from fedrann_tpu_torch.knn.ivf import (
     _segment_sum,
+    _segments,
+    segment_buckets,
     segment_sum_plain,
     segment_sum_rows,
 )
@@ -1568,7 +1571,8 @@ def test_knn_merge_and_srp_signs_launch_on_their_tensors_card(last_card):
 PAIRED_CASES = [(0, 16, None, "random"), (1, 20, None, "random"),
                 (37, 1, 0.5, "random"), (37, 100, None, "random"),
                 (29, 16, 1e-30, "random"), (300, 512, 1.0, "random"),
-                (40, 96, None, "2L"), (5000, 512, None, "random")]
+                (40, 96, None, "2L"), (5000, 512, None, "random"),
+                (37, 260, None, "random"), (61, 1000, None, "random")]
 
 
 def _seeds():
@@ -1587,8 +1591,10 @@ def test_srp_paired_matches_plain(cuda, lib_size, d, density, counts,
     row), L = 1, d = 1 and d = 100 (a ragged vector, bfloat16's on the
     scalar path), density 1e-30 (a negative bound: no entry), density 1.0,
     counts equal to 2L (an ICF of ~1e-14), keys with and without the top
-    bit; one launch a call, counted. build_precompute_paired on counts on
-    the card is one K8 launch."""
+    bit; d = 260 and 1,000, whose rows' vectors run past a block's 128
+    (d = 1,000: a block across the halves' seam) at L + 1 not a multiple
+    of the band's 8 rows; one launch a call, counted.
+    build_precompute_paired on counts on the card is one K8 launch."""
     view = torch.int16 if dtype == torch.bfloat16 else torch.int32
     rng = np.random.default_rng(lib_size + d)
     c = rng.integers(2, 50, lib_size)
@@ -1618,7 +1624,8 @@ def test_srp_paired_matches_plain(cuda, lib_size, d, density, counts,
 SEGMENT_CASES = [(20000, 512, 256, "random"), (5000, 64, 37, "random"),
                  (300, 100, 64, "even"), (3000, 16, 1, "one"),
                  (400, 32, 8, "single"), (1, 8, 8, "random"),
-                 (2000, 6, 8, "random"), (0, 16, 8, "random")]
+                 (2000, 6, 8, "random"), (0, 16, 8, "random"),
+                 (3000, 512, 65536, "random"), (2100, 264, 3, "random")]
 
 
 def _segment_inputs(n, d, c, kind, dtype, zero_rows=False):
@@ -1643,9 +1650,11 @@ def test_ivf_segment_sum_matches_plain(cuda, n, d, c, kind, dtype):
     """K9 against segment_sum_plain, bitwise (int32 views): random
     assignments at phase 4's width, empty clusters, one cluster holding
     every row, a one-row cluster, N = 1, N = 0, d = 6 and d = 100 (not
-    multiples of 128; d = 6 on the scalar path), zero rows; two launches
-    byte-identical; into `out`, chunks carried on to the whole pass's
-    bits; one launch a call, counted."""
+    multiples of 128; d = 6 on the scalar path), zero rows, C = 65,536
+    over 3,000 rows (the counts in device memory), d = 264 (a unit's
+    lanes past d on the ring); two launches byte-identical; into `out`,
+    chunks carried on to the whole pass's bits; one launch a call,
+    counted."""
     x, a = _segment_inputs(n, d, c, kind, dtype, zero_rows=d == 100)
     want = segment_sum_plain(x, a, c)
     before = segment_sum_rows.kernel_launches
@@ -1675,6 +1684,68 @@ def test_ivf_segment_sum_unaligned_rows(cuda, dtype):
                        segment_sum_plain(x, a, 16).view(torch.int32))
 
 
+# (N, C, kind): the bucketing's cases ("tiles": runs of one cluster across
+# each tile boundary; "one", "even" as SEGMENT_CASES')
+BUCKET_CASES = [(0, 8, "random"), (1, 8, "random"), (3000, 16, "one"),
+                (3000, 64, "even"), (3000, 65536, "random"),
+                (4 * ivf.K9_TILE + 77, 12, "tiles"),
+                (262_144, 1024, "random"), (262_144, 16384, "random"),
+                (20_000, 12288, "random"), (20_000, 12289, "random")]
+
+
+@pytest.mark.parametrize("n,c,kind", BUCKET_CASES)
+def test_ivf_segment_buckets_match_segments(cuda, n, c, kind):
+    """K9's bucketing (segment_buckets: the counting sort alone) against
+    _segments, equal as values (its int32 against their int64): N = 0,
+    N = 1, one cluster holding every row, empty clusters, C = 65,536 over
+    3,000 rows, runs of one cluster across each tile boundary, 11b's
+    shape (256 tiles), C = 16,384 at 256 tiles (the counts in device
+    memory), and C on either side of the shared-memory counts' limit;
+    two calls equal; one launch a call, counted."""
+    rng = np.random.default_rng(n + c)
+    a = rng.integers(0, c, n)
+    if kind == "one":
+        a[:] = 0
+    elif kind == "even":
+        a = a - a % 2
+    elif kind == "tiles":
+        for t in range(1, 5):
+            a[t * ivf.K9_TILE - 150 : t * ivf.K9_TILE + 150] = t % 3
+    a = torch.from_numpy(a.astype(np.int32))
+    want_order, want_bounds = _segments(a, c)
+    before = segment_buckets.kernel_launches
+    order, bounds = segment_buckets(a.to(cuda), c)
+    order2, bounds2 = segment_buckets(a.to(cuda), c)
+    torch.cuda.synchronize()
+    assert segment_buckets.kernel_launches == before + 2
+    assert order.dtype == torch.int32 and bounds.dtype == torch.int32
+    assert torch.equal(order.cpu().long(), want_order)
+    assert torch.equal(bounds.cpu().long(), want_bounds)
+    assert torch.equal(order, order2) and torch.equal(bounds, bounds2)
+
+
+def test_ivf_segment_sum_runs_no_torch_sort(cuda, monkeypatch):
+    """segment_sum_rows on the card runs no torch sort or search: with
+    torch.sort, argsort and searchsorted made to raise, its sums are
+    still segment_sum_plain's bits."""
+    x, a = _segment_inputs(5000, 512, 64, "random", torch.float32)
+    want = segment_sum_plain(x, a, 64)
+    rows, assign = x.to(cuda), a.to(cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a torch sort on K9's path")
+
+    for name in ("sort", "argsort", "searchsorted"):
+        monkeypatch.setattr(torch, name, refuse)
+    got = segment_sum_rows(rows, assign, 64)
+    out = torch.zeros((64, 512), device=cuda)
+    _segment_sum(rows, assign, 64, out)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(out.cpu().view(torch.int32), want.view(torch.int32))
+
+
 def test_ivf_segment_sum_refuses_what_it_does_not_take(cuda):
     x = torch.zeros((10, 8), device=cuda)
     a = torch.zeros(10, dtype=torch.int32, device=cuda)
@@ -1687,6 +1758,10 @@ def test_ivf_segment_sum_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="out must be"):
         segment_sum_rows(x, a, 4, torch.zeros((4, 8), dtype=torch.float64,
                                               device=cuda))
+    with pytest.raises(ValueError, match="int32 assignments"):
+        segment_sum_rows(x, a.long(), 4)
+    with pytest.raises(ValueError, match="segment_buckets"):
+        segment_buckets(a.cpu(), 4)
 
 
 def test_srp_paired_and_segment_sum_launch_on_their_tensors_card(last_card):

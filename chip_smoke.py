@@ -284,18 +284,37 @@ Phases; any failure exits non-zero and prints no result line:
      every row, a one-row cluster, N = 1, C = 8, d = 100, zero rows, C =
      65,536), its whole call (bucketing included) timed with each
      kernel's device us beside the plain version, index_add_ and the
-     earlier design's (EARLIER_MS).
-     Every IVF CLI run but out of core launches K6 and K7, and every one
-     K9 (three launches a k-means); no CUDA tensor reaches rescore_plain,
-     merge_buffers_plain, top_clusters_plain or segment_sum_plain.
+     earlier design's (EARLIER_MS). K10 (csrc/result_wire.cu, the result
+     wire: keys_to_host on CUDA keys) byte-identical keys_to_host_plain
+     on the k-NN keys of phase 4's rows (15,000 x 50, uint16 indices on
+     the u16 wire) and 11b's (262,144 x 50, int32 indices), on both
+     wires, with EMPTY_KEY slots, at rows = 0 and k = 1, on the wire's
+     edge scores, two results held at once, and a result in a
+     page-locked block of its own (past topk.PIN_CACHE_BYTES, freed with
+     it); each timed beside the plain
+     version and a pinned copy_ of its result bytes (a floor), its bound
+     the result over the host link's nominal rate. K11
+     (csrc/ivf_segment_sum.cu fk_ivf_buckets and fk_ivf_tables, the
+     member and probe tables) bitwise member_table_plain and
+     probe_tables_plain, with torch.bincount's counts, at phase 4's C =
+     256 and 11b's C = 1,024 (spill 1 and 2, p = 8) and at its edge cases
+     (k11_edge_cases), each step timed beside the plain step and a stable
+     torch.sort of the ids.
+     Every IVF CLI run but out of core launches K6, K7 and K11 (one
+     bucketing a table), and every
+     one K9 (three launches a k-means); every CLI run launches K10; no
+     CUDA tensor reaches rescore_plain, merge_buffers_plain,
+     top_clusters_plain, segment_sum_plain, keys_to_host_plain,
+     member_table_plain or probe_tables_plain.
 8a runs twice: the second time under --profile, so the out-of-core
 search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
 the runs of its own path: knn_merge and srp_signs from the main path's,
-srp_paired (K8) from 4b's two runs, ivf_segment_sum (K9) from phase 11's
-CLI runs and ranks,
+srp_paired (K8) from 4b's two runs, ivf_segment_sum (K9) and ivf_tables
+(K11) from phase 11's CLI runs and ranks, result_wire (K10) from the
+main path's,
 knn_merge_fp32 (K4's fp32 form) from 4f's two runs, ivf_rescore,
 ivf_rescore_fp32 and ivf_merge (K6's two forms and K7) from phase 11's
 CLI runs and ranks, stage_rows from the
@@ -435,9 +454,12 @@ PEAK_BYTES, PEAK_FP32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 # x 64 INT32 lanes (16 in each of an SM's four partitions) x 1.98 GHz boost
 # clock = 16.73e12
 PEAK_INT32 = 16.7e12
+# the host link's nominal rate each way, bytes/s: PCIe Gen5 x16, the H100
+# SXM's host interface (32 GT/s a lane, 128b/130b encoding): 63.0e9
+PEAK_HOST_LINK = 32e9 * 16 * 128 / 130 / 8
 CSRC = "fedrann_tpu_torch/csrc/"
 # kernel -> (source, the JAX function it replaces: a pl.pallas_call site,
-# or for K4-K9 the XLA function, which has none)
+# or for K4-K11 the XLA function, which has none)
 _K12 = ("bench/pallas_kernels.py:128 canonical_and_sample, "
         "bench/pallas_sort.py:128 sort_rows_pallas")
 _K1 = "bench/pallas_kernels.py:128 canonical_and_sample"
@@ -479,6 +501,12 @@ SOURCES = {
     "ivf_segment_sum": (CSRC + "ivf_segment_sum.cu",
                         "fedrann_tpu/knn/ivf.py:83 jax.ops.segment_sum in "
                         "_kmeans :61 (XLA scatter-add)"),
+    "result_wire": (CSRC + "result_wire.cu",
+                    "fedrann_tpu/knn/topk.py:36 quantize_dist, :58 _idx_u16 "
+                    "(XLA), in :49 transfer_dist and :95 transfer_idx"),
+    "ivf_tables": (CSRC + "ivf_segment_sum.cu",
+                   "fedrann_tpu/knn/ivf.py:117 _member_table, :170 "
+                   "_probe_tables (XLA stable argsort + scatter)"),
     "fk_probe_smem_scratch": (CSRC + "probes.cu",
                               "bench/probe_mosaic.py:32 probe_smem_scratch"),
     "fk_probe_smem_input": (CSRC + "probes.cu",
@@ -1807,8 +1835,9 @@ def no_plain_on_card():
     """Inside: the plain versions of K4 (merge_block_plain, and the IVF
     cluster ranking's top_clusters_plain), K5 (sign_table_plain), K6
     (rescore_plain), K7 (merge_buffers_plain), K8 (paired_table_plain)
-    and K9 (segment_sum_plain, and _segments, its bucketing's) fail the
-    run if they are given a CUDA tensor, which only this script's
+    K9 (segment_sum_plain, and _segments, its bucketing's), K10
+    (keys_to_host_plain) and K11 (member_table_plain, probe_tables_plain)
+    fail the run if they are given a CUDA tensor, which only this script's
     reference calls may do."""
     import torch
 
@@ -1818,7 +1847,9 @@ def no_plain_on_card():
     saved = [(topk, "merge_block_plain"), (srp, "sign_table_plain"),
              (srp, "paired_table_plain"), (ivf, "top_clusters_plain"),
              (ivf, "rescore_plain"), (ivf, "merge_buffers_plain"),
-             (ivf, "segment_sum_plain"), (ivf, "_segments")]
+             (ivf, "segment_sum_plain"), (ivf, "_segments"),
+             (topk, "keys_to_host_plain"), (ivf, "member_table_plain"),
+             (ivf, "probe_tables_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
 
     def guard(name, fn):
@@ -1992,7 +2023,9 @@ def knn_expected(flags: list[str]) -> dict:
     precision; the in-core IVF k-means is bf16 at either precision); K6
     and K7 on the in-core and sharded IVF searches (K6's fp32 form at
     fp32); none of them out of core, which rescores by K4's slab loop; K9
-    (the k-means's segment sums) on every IVF search."""
+    (the k-means's segment sums) on every IVF search; K11 (the member and
+    probe tables) where K6 rescores; K10 (the result wire) on every
+    search."""
     fp32 = ("--knn-precision" in flags
             and flags[flags.index("--knn-precision") + 1] == "fp32")
     ivf = ("--knn-method" in flags
@@ -2000,7 +2033,9 @@ def knn_expected(flags: list[str]) -> dict:
     rescore = ivf and "--knn-hbm-budget" not in flags
     return {"knn_merge": True, "knn_merge_fp32": fp32 and not rescore,
             "ivf_rescore": rescore, "ivf_rescore_fp32": rescore and fp32,
-            "ivf_merge": rescore, "ivf_segment_sum": ivf}
+            "ivf_merge": rescore, "ivf_segment_sum": ivf,
+            "ivf_tables": rescore, "ivf_buckets": rescore,
+            "result_wire": True}
 
 
 def check_launches(launches: dict, paths: set, embed: str | None,
@@ -2027,6 +2062,10 @@ def check_launches(launches: dict, paths: set, embed: str | None,
                  f"expected {'some' if want else 'none'}"
                  + (" (a multiple of 3)" if name == "ivf_segment_sum"
                     else ""))
+    if launches.get("ivf_buckets", 0) != launches.get("ivf_tables", 0):
+        fail(f"K11 bucketed {launches.get('ivf_buckets')} times for "
+             f"{launches.get('ivf_tables')} tables in {what}, want one "
+             "bucketing a table")
 
 
 def load_split(fasta: str, out_dir: str, card: str) -> None:
@@ -4254,10 +4293,7 @@ def ivf_case(en_pad, n_real: int, c: int, p: int, spill: int,
     _, top = ivf._tables(en_pad[:n_real], c, 3, spill, p)
     member, counts_h = ivf._members(top[:, :spill].reshape(-1), c, spill)
     probes = top[:, :p].contiguous()
-    qcounts = torch.bincount(probes.reshape(-1), minlength=c)
-    qcounts_h = qcounts.cpu().numpy()
-    qtab, stab = ivf._probe_tables(probes, qcounts, c,
-                                   ivf._ceil128(qcounts_h.max()))
+    qtab, stab, qcounts_h = ivf._queries(probes, c)
     return table_case(en_pad, n_real, member, counts_h, qtab, stab,
                       qcounts_h, 0, n_real, p, k)
 
@@ -4370,10 +4406,7 @@ def k6_edge_case(dev, k: int = 50) -> dict:
     probes = torch.from_numpy(np.stack([rng.choice(probed, p, replace=False)
                                         for _ in range(nq)]).astype(
         np.int32)).to(dev)
-    qcounts = torch.bincount(probes.reshape(-1), minlength=8)
-    qcounts_h = qcounts.cpu().numpy()
-    qtab, stab = ivf._probe_tables(probes, qcounts, 8,
-                                   ivf._ceil128(qcounts_h.max()))
+    qtab, stab, qcounts_h = ivf._queries(probes, 8)
     return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
                       np.array(sizes, np.int64), qtab, stab, qcounts_h,
                       first, nq, p, k)
@@ -4411,10 +4444,7 @@ def k6_flood_case(dev, k: int) -> dict:
     member[1, ::9][:10] = n_real + np.arange(10)
     probes = torch.from_numpy(np.tile(np.array([[0, 1]], np.int32),
                                       (130, 1))).to(dev)
-    qcounts = torch.bincount(probes.reshape(-1), minlength=2)
-    qcounts_h = qcounts.cpu().numpy()
-    qtab, stab = ivf._probe_tables(probes, qcounts, 2,
-                                   ivf._ceil128(qcounts_h.max()))
+    qtab, stab, qcounts_h = ivf._queries(probes, 2)
     return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
                       np.array([700, 90], np.int64), qtab, stab, qcounts_h,
                       700, 130, 2, k)
@@ -4457,9 +4487,11 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     buffer rows at spill 1, K9 beside index_add_), with its bound: K6 2 d
     operations a real pair-score (bf16 or FFMA) or the bytes of its
     query gathers and the buffer, K7 the buffer's bytes and the result's,
-    K9 the rows', ids' and sums' bytes. Returns K6's (both forms), K7's
-    and K9's report entries at phase 4's rows with C = 256, the IVF main
-    path's shapes."""
+    K9 the rows', ids' and sums' bytes. K10 (the result wire) and K11
+    (the member and probe tables) on the same real rows: check_wire and
+    check_tables, and k11_edge_cases. Returns K6's (both forms), K7's,
+    K9's, K10's and K11's report entries at phase 4's rows with C = 256,
+    the IVF main path's shapes (K10 on the u16 wire, the main path's)."""
     import numpy as np
     import torch
 
@@ -4476,6 +4508,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
         return got
 
     log_build("K6/K7", "ivf_(?:rescore|merge)", card)
+    log_build("K10/K11", "keys_to_host|table_", card)
     # grid rows: bitwise
     cases = [("12 K6 edge cases", k6_edge_case(dev)),
              ("12 K6 grid rows, 15,000 x 512, C = 256",
@@ -4544,6 +4577,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     del en_pad
 
     k9_edge_cases(dev, card)
+    k11_edge_cases(dev, card)
     # real rows: phase 4's at C = 256 (the report) and 11b's
     for label, rows, c in (("phase 4's rows, C = 256", x, 256),
                            (f"11b's {IVF_ROWS} x 512 rows, C = 1,024",
@@ -4553,6 +4587,12 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
             rows, "bf16")[: rows.shape[0]], c, card)
         if c == 256:
             report["ivf_segment_sum"] = seg
+        en = ivf._unit_padded(rows, "bf16")[: rows.shape[0]]
+        wire = check_wire(f"12 K10 at {label}", en, card)
+        tables = check_tables(f"12 K11 at {label}", en, c, card)
+        if c == 256:
+            report.update(result_wire=wire, ivf_tables=tables)
+        del en
         for precision in ("bf16", "fp32"):
             case = ivf_case(ivf._unit_padded(rows, precision),
                             rows.shape[0], c, 8, 2)
@@ -4753,6 +4793,294 @@ def check_segment_sums(label: str, en, c: int, card: str) -> dict:
                              library_ms=lib_ms, **b)
         del got, rows
     return report[torch.float32]
+
+
+def wire_edge_keys(dev):
+    """(4, 8) int64 keys on `dev` of the wire's edge scores (-0.0, 0.0,
+    1.0, -1.0, a bf16 overshoot just past 1 and just below -1) and of
+    scores whose u16 grid position is an exact half above an even step
+    (round half to even goes down there), two slots EMPTY_KEY."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn.topk import EMPTY_KEY, _order_keys
+
+    s = np.random.default_rng(20).uniform(-1.0, 1.0, 400_000).astype(
+        np.float32)
+    t = (np.float32(1.0) - s) * np.float32(32767.5)
+    half = s[(t - np.floor(t) == np.float32(0.5)) & (np.floor(t) % 2 == 0)]
+    edges = np.array([-0.0, 0.0, 1.0, -1.0,
+                      np.nextafter(np.float32(1), np.float32(2)),
+                      np.nextafter(np.float32(-1), np.float32(-2))],
+                     np.float32)
+    scores = np.concatenate([edges, half[:26]]).reshape(4, 8)
+    keys = _order_keys(torch.from_numpy(scores), torch.arange(
+        32, dtype=torch.int64).view(4, 8)).to(dev)
+    keys[1, 3] = keys[3, 7] = EMPTY_KEY
+    return keys
+
+
+def hold_wire(label: str, got, want) -> None:
+    """K10's (indices, distances) byte-identical to keys_to_host_plain's;
+    fails otherwise."""
+    import numpy as np
+
+    if not (got[0].dtype == want[0].dtype == np.int32
+            and got[1].dtype == want[1].dtype == np.float32
+            and np.array_equal(got[0], want[0])
+            and np.array_equal(got[1].view(np.int32),
+                               want[1].view(np.int32))):
+        fail(f"{label}: K10 differs from keys_to_host_plain")
+
+
+def host_link() -> str:
+    """The card's host link as nvidia-smi reports it: its generation and
+    width now and at most."""
+    import subprocess
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.gpucurrent,"
+         "pcie.link.width.current,pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    if smi.returncode or not smi.stdout.strip():
+        return f"not read ({smi.stderr.strip() or smi.stdout.strip()})"
+    gen, width, gen_max, width_max = (
+        v.strip() for v in smi.stdout.strip().splitlines()[0].split(","))
+    return (f"PCIe Gen{gen} x{width} now, Gen{gen_max} x{width_max} at "
+            "most")
+
+
+def check_wire(label: str, en, card: str) -> dict:
+    """K10 (keys_to_host on CUDA keys) against keys_to_host_plain on the
+    card, byte-identical: the k-NN keys of the unit rows en (N, d) (K4,
+    k = IVF_K, bf16) on the u16 wire (uint16 indices where N <= 65,536)
+    and the f32 wire, as they are and with a tenth of the slots and one
+    row EMPTY_KEY, at rows = 0 and k = 1, and the wire's edge scores
+    (wire_edge_keys); two results held at once stay intact; a result
+    written into a page-locked block of its own (topk.HostBlock: set
+    topk.PIN_CACHE_BYTES to 0 for the check) is byte-identical too, its
+    block freed with it, and timed. Each wire
+    timed (host-synchronous calls) beside the plain version, its device
+    us, and a pinned non_blocking copy_ of the result's 8 bytes an entry
+    from device memory (a floor, not a call that computes the decode);
+    the bound is the larger of the keys' bytes over PEAK_BYTES and the
+    result's bytes over the host link's nominal rate (PEAK_HOST_LINK).
+    Returns the u16 wire's report entry (phase 4's main path runs
+    --knn-transfer u16)."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import topk
+    from fedrann_tpu_torch.knn.topk import (
+        EMPTY_KEY,
+        keys_to_host,
+        keys_to_host_plain,
+        merge_block,
+    )
+
+    n = en.shape[0]
+    q = en.to(torch.bfloat16).contiguous()
+    keys = merge_block(None, q, q, 0, IVF_K, "bf16")
+    del q
+    holes = keys.clone()
+    mask = torch.from_numpy(np.random.default_rng(n).random(
+        tuple(keys.shape)) < 0.1).to(keys.device)
+    holes[mask] = EMPTY_KEY
+    holes[7] = EMPTY_KEY
+    edges = wire_edge_keys(keys.device)
+    cases = (("", keys), (" with EMPTY_KEY slots", holes),
+             (" at rows = 0", keys[:0]),
+             (" at k = 1", keys[:, :1].contiguous()))
+    link = host_link()
+    report = {}
+    for transfer in ("u16", "f32"):
+        for what, kk in cases:
+            hold_wire(f"{label}{what} ({transfer})",
+                      keys_to_host(kk, transfer, n),
+                      keys_to_host_plain(kk, transfer, n))
+        hold_wire(f"{label} edge scores ({transfer})",
+                  keys_to_host(edges, transfer, 100),
+                  keys_to_host_plain(edges, transfer, 100))
+        first = keys_to_host(keys, transfer, n)
+        second = keys_to_host(holes, transfer, n)
+        hold_wire(f"{label}: the first of two results held ({transfer})",
+                  first, keys_to_host_plain(keys, transfer, n))
+        hold_wire(f"{label}: the second of two results held ({transfer})",
+                  second, keys_to_host_plain(holes, transfer, n))
+        del first, second
+        cached, live = topk.PIN_CACHE_BYTES, topk.HostBlock.live
+        topk.PIN_CACHE_BYTES = 0
+        try:
+            hold_wire(f"{label} in a block of its own ({transfer})",
+                      keys_to_host(holes, transfer, n),
+                      keys_to_host_plain(holes, transfer, n))
+            own_ms = time_cuda(lambda: keys_to_host(keys, transfer, n), 3)
+        finally:
+            topk.PIN_CACHE_BYTES = cached
+        if topk.HostBlock.live != live:
+            fail(f"{label}: {topk.HostBlock.live - live} page-locked blocks "
+                 "of their own outlived their results")
+        ms = time_cuda(lambda: keys_to_host(keys, transfer, n), 10)
+        plain_ms = time_cuda(lambda: keys_to_host_plain(keys, transfer, n),
+                             3)
+        src = torch.empty((2, *keys.shape), dtype=torch.int32,
+                          device=keys.device)
+        dst = torch.empty((2, *keys.shape), dtype=torch.int32,
+                          pin_memory=True)
+        copy_ms = time_cuda(lambda: dst.copy_(src, non_blocking=True), 10)
+        del src, dst
+        out_bytes = keys.numel() * 8
+        link_ms = out_bytes / PEAK_HOST_LINK * 1e3
+        b = bound(keys.numel() * 8)
+        b["bound_ms"] = max(b["bound_ms"], link_ms)
+        u16_idx = transfer == "u16" and n <= 65536
+        log(f"{label}, {transfer} wire ({'uint16' if u16_idx else 'int32'}"
+            f" indices, {tuple(keys.shape)} keys): {ms:.4f} ms a call, "
+            f"device {device_us(lambda: keys_to_host(keys, transfer, n), 5, True)}"
+            f" us a launch; plain {plain_ms:.4f} ms; a pinned non_blocking "
+            f"copy_ of its {out_bytes} result bytes {copy_ms:.4f} ms "
+            f"({out_bytes / copy_ms / 1e6:.1f} GB/s; the floor, no call "
+            f"computes the decode); bound {b['bound_ms']:.5f} ms (bytes: "
+            f"the result over the host link's nominal "
+            f"{PEAK_HOST_LINK / 1e9:.1f} GB/s, {link_ms:.5f}; the keys' read "
+            f"{keys.numel() * 8 / PEAK_BYTES * 1e3:.5f}; "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it; the copy_ reads "
+            f"{100 * link_ms / copy_ms:.1f}% of the link); into a page-locked "
+            f"block of its own (past PIN_CACHE_BYTES) {own_ms:.4f} ms a call;"
+            f" host link {link}; byte-identical to the plain version as it "
+            f"is, with EMPTY_KEY slots, at rows = 0, k = 1 and the edge "
+            f"scores, two results held intact, in a block of its own, freed "
+            f"with it [{card}]")
+        report[transfer] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                library_ms=None, **b)
+    return report["u16"]
+
+
+def k11_edge_cases(dev, card: str) -> None:
+    """K11 bitwise member_table_plain and probe_tables_plain on the card:
+    every odd cluster empty, C = 1, N = 4 K9_TILE + 77 (not a multiple of
+    a tile), p = C = 8 (each row a permutation of the clusters), a strided
+    spill-1 slice (as _members takes it), and C = 65,536 over 5,000 rows
+    (the counts in device memory), spill 1 and 2."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    rng = np.random.default_rng(11)
+    cases = []
+    for label, n, c, per in (("empty clusters", 3000, 64, 2),
+                             ("C = 1", 700, 1, 1),
+                             ("N = 4 K9_TILE + 77", 4 * ivf.K9_TILE + 77, 37,
+                              2),
+                             ("p = C = 8", 500, 8, 8),
+                             ("C = 65,536", 5000, 65_536, 2)):
+        x = (np.stack([rng.permutation(c) for _ in range(n)])
+             if per == c else rng.integers(0, c, (n, per)))
+        if label == "empty clusters":
+            x = x - x % 2
+        cases.append((label, torch.from_numpy(x.astype(np.int32)).to(dev),
+                      c))
+    top = cases[0][1]
+    cases.append(("a strided spill-1 slice", top, 64))
+    for label, x, c in cases:
+        for spill in sorted({1, x.shape[1]}):
+            a = x[:, :spill].reshape(-1)
+            counts = torch.bincount(a, minlength=c)
+            buckets, sizes = ivf._cluster_counts(a, c)
+            m = ivf._ceil128(int(counts.max()))
+            got = ivf._member_table(a, buckets, c, m, spill)
+            if not (np.array_equal(sizes, counts.cpu().numpy())
+                    and torch.equal(got, ivf.member_table_plain(
+                        a, counts, c, m, spill))):
+                fail(f"12 K11 edge case {label}: the member table (spill "
+                     f"{spill}) or its counts differ from "
+                     "member_table_plain's")
+        qcounts = torch.bincount(x.reshape(-1), minlength=c)
+        qm = ivf._ceil128(int(qcounts.max()))
+        got = ivf._queries(x, c)
+        want = ivf.probe_tables_plain(x, qcounts, c, qm)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                and np.array_equal(got[2], qcounts.cpu().numpy())):
+            fail(f"12 K11 edge case {label}: the probe tables or their "
+                 "counts differ from probe_tables_plain's")
+    log("12 K11 bitwise member_table_plain and probe_tables_plain at "
+        + ", ".join(c[0] for c in cases) + f" [{card}]")
+
+
+def check_tables(label: str, en, c: int, card: str) -> dict:
+    """K11 (_member_table and _probe_tables on the card, each after its
+    bucketing, as _members and _queries run them) against
+    member_table_plain and probe_tables_plain after torch.bincount,
+    bitwise with the same counts on the host, on the unit rows en (N, d)
+    at C = c with their own k-means's spill and probe lists (spill 1 and
+    2, p = 8, as _members and _rescore take them), two calls equal; each
+    step (the counts, their host copy that sizes the table, the table)
+    timed (the median of 7 timings, as K9's: its host path leads) with its
+    device us beside the plain step and a torch.sort(stable=True) of the
+    same ids (a reference, not a call that builds the table), with its
+    bound: the ids read and the table(s) written. Returns the member
+    table's report entry at spill 2."""
+    import numpy as np
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    _, top = ivf._tables(en, c, 3, 2, 8)
+    report = {}
+    for spill in (1, 2, "probes"):
+        if spill == "probes":
+            ids = top[:, :8].contiguous()
+
+            def k11():
+                return ivf._queries(ids, c)
+
+            def plain():
+                counts = torch.bincount(ids.reshape(-1), minlength=c)
+                counts_h = counts.cpu().numpy()
+                return (*ivf.probe_tables_plain(
+                    ids, counts, c, ivf._ceil128(counts_h.max())), counts_h)
+            what, tables = "probe tables, p = 8", 2
+        else:
+            ids = top[:, :spill].reshape(-1)
+
+            def k11():
+                return ivf._members(ids, c, spill)
+
+            def plain():
+                counts = torch.bincount(ids, minlength=c)
+                counts_h = counts.cpu().numpy()
+                return (ivf.member_table_plain(
+                    ids, counts, c, ivf._ceil128(counts_h.max()), spill),
+                    counts_h)
+            what, tables = f"member table, spill {spill}", 1
+
+        def same(x, y):
+            return all(torch.equal(g, w) if isinstance(g, torch.Tensor)
+                       else np.array_equal(g, w) for g, w in zip(x, y))
+        got, again, want = k11(), k11(), plain()
+        if not same(got, want) or not same(got, again):
+            fail(f"{label} {what}: K11 differs from the plain version or "
+                 "from itself")
+        flat = ids.reshape(-1)
+        counts_h, width = got[-1], got[0].shape[1]
+        ms, ms_range = time_cuda_median(k11, 20, 7)
+        plain_ms = time_cuda(plain, 10)
+        sort_ms = time_cuda(lambda: torch.sort(flat, stable=True), 10)
+        b = bound(flat.numel() * 4 + tables * c * width * 4)
+        log(f"{label} {what} ({flat.numel()} ids, width {width}, largest "
+            f"cluster {int(counts_h.max())}, {int((counts_h == 0).sum())} "
+            f"empty): {ms:.4f} ms a step (K11's bucketing, the sizes' host "
+            f"copy, the table; median; {ms_range[0]:.4f}-{ms_range[1]:.4f}),"
+            f" device {device_us(k11, 5, True)} us a step; plain (bincount, "
+            f"its host copy, the torch table) {plain_ms:.4f} ms; "
+            f"torch.sort(stable=True) of the ids {sort_ms:.4f} ms (a "
+            f"reference); bound {b['bound_ms']:.5f} ms (bytes, "
+            f"{100 * b['bound_ms'] / ms:.1f}% of it); bitwise the plain "
+            f"tables and counts, two calls equal [{card}]")
+        report[spill] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, **b)
+    return report[2]
 
 
 def check_sign_table(label: str, lib_size: int, d: int, seed: int,
@@ -4980,6 +5308,8 @@ def register_counters() -> None:
     from fedrann_tpu_torch.knn.ivf import (
         knn_ivf,
         knn_ivf_sharded,
+        cluster_buckets,
+        cluster_tables,
         knn_ivf_sharded_multihost,
         merge_probe_lists,
         rescore_clusters,
@@ -4987,7 +5317,7 @@ def register_counters() -> None:
     )
     from fedrann_tpu_torch.knn.ooc import knn_exact_ooc, knn_ivf_ooc
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
-    from fedrann_tpu_torch.knn.topk import merge_block
+    from fedrann_tpu_torch.knn.topk import merge_block, result_wire
     from fedrann_tpu_torch.logging_utils import logger
     from fedrann_tpu_torch.project.embed import (
         membership_embed,
@@ -5011,6 +5341,9 @@ def register_counters() -> None:
         "ivf_rescore_fp32": (rescore_clusters, "fp32_launches"),
         "ivf_merge": (merge_probe_lists, "kernel_launches"),
         "ivf_segment_sum": (segment_sum_rows, "kernel_launches"),
+        "ivf_tables": (cluster_tables, "kernel_launches"),
+        "ivf_buckets": (cluster_buckets, "kernel_launches"),
+        "result_wire": (result_wire, "kernel_launches"),
         "srp_signs": (sign_table, "kernel_launches"),
         "srp_paired": (paired_table, "kernel_launches")})
     HOST_COUNTERS.update({
@@ -5214,12 +5547,15 @@ def main() -> None:
             ivf_rescore_fp32=ivf_launches["ivf_rescore_fp32"],
             ivf_merge=ivf_launches["ivf_merge"],
             ivf_segment_sum=ivf_launches["ivf_segment_sum"],
+            ivf_tables=ivf_launches["ivf_tables"],
             srp_paired=paired_launches)
         log(f"11 CLI runs: K4 {ivf_launches['knn_merge']} launches "
             f"({ivf_launches['knn_merge_fp32']} fp32), K6 "
             f"{ivf_launches['ivf_rescore']} ({launches['ivf_rescore_fp32']} "
             f"fp32), K7 {launches['ivf_merge']}, K9 "
-            f"{launches['ivf_segment_sum']} [{card}]")
+            f"{launches['ivf_segment_sum']}, K10 "
+            f"{ivf_launches['result_wire']}, K11 {launches['ivf_tables']} "
+            f"[{card}]")
 
         t0 = time.perf_counter()
         sim = simulate_reads(genome_length=LONG_GENOME,

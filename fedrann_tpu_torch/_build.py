@@ -91,6 +91,17 @@ _SIGNATURES = {
     # n_tiles, scratch, accumulate, out, stream
     "fk_ivf_segment_sum": [_P, _I64, _I64, _I32, _P, _I64, _I64, _I64, _P,
                            _I32, _P, _P],
+    # a, n, n_clusters, tile_rows, n_tiles, scratch, stream
+    "fk_ivf_buckets": [_P, _I64, _I64, _I64, _I64, _P, _P],
+    # a, n, n_clusters, tile_rows, n_tiles, scratch, width, div, pad,
+    # table, slots, stream
+    "fk_ivf_tables": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I32, _P,
+                      _P, _P],
+    # result_wire.cu: keys, n, u16_dist, u16_idx, idx, dist, stream
+    "fk_keys_to_host": [_P, _I64, _I32, _I32, _P, _P, _P],
+    # bytes, out (a void**); the block
+    "fk_host_alloc": [_I64, _P],
+    "fk_host_free": [_P],
     # srp_signs.cu: seed_mix, lib_size, d, n_words, bound, out, stream
     "fk_srp_signs": [_U64, _I64, _I64, _I64, _I64, _P, _P],
     # seed_mix, lib_size, d, bound, mags, is_bf16, out, stream

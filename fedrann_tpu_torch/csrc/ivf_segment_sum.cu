@@ -1,5 +1,6 @@
 // K9: the IVF k-means's segment sum (knn/ivf.py _segment_sum), with its
-// own bucketing of the rows by cluster.
+// own bucketing of the rows by cluster; and K11, the IVF member and probe
+// tables (knn/ivf.py _member_table, _probe_tables) on that bucketing.
 //
 // Computes what the JAX package's _kmeans does with jax.ops.segment_sum
 // (fedrann_tpu/knn/ivf.py:83, in _kmeans :61; an XLA scatter-add, no
@@ -44,6 +45,22 @@
 //      ahead, and reach the lanes by __shfl_sync. Rows whose d * itemsize
 //      is not a multiple of 16, or whose base is not 16-byte aligned, take
 //      seg_sum_scalar_kernel (the same order, loads one element at a time).
+//
+// K11, fk_ivf_buckets and fk_ivf_tables, builds the IVF member and probe
+// tables on the same bucketing. It replaces the JAX package's
+// _member_table (fedrann_tpu/knn/ivf.py:117) and _probe_tables (:170): a
+// stable jnp.argsort of the cluster ids, then a scatter into a (C, width)
+// table padded with a sentinel (XLA, no pl.pallas_call). Steps 1 and 2
+// run as they are (fk_ivf_buckets; the host reads the clusters' sizes
+// from the bounds to size the table, the one sync the JAX package's
+// callers make too); then (fk_ivf_tables) table_scatter_kernel walks each
+// tile as step 3 does, but
+// writes each entry r at (its cluster, its rank among that cluster's
+// entries), r / div into the table and r % div into the slot table, and
+// table_pad_kernel fills each cluster's row past its size: no order array,
+// no sort. Its bound is bytes: the n int32 ids read and the table(s)
+// written, C * width * 4 bytes each (a few MB at 11b's C = 1,024); the
+// steps themselves are latency-bound, as the bucketing is.
 //
 // Bound on the card: the bytes the function must move, the rows read once
 // (N * d * itemsize), the N int32 assignments read and the sums written
@@ -259,6 +276,40 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
   if (threadIdx.x == 0) bounds[c_n] = total;
 }
 
+// Walks tile t's rows in row order, 32 a step (BATCH steps' ids loaded at
+// once), and calls place(row, c, at) for each row of a cluster c, at its
+// cursor: cursor[c] plus the rows of c placed before it in the tile (the
+// cursor moves on by the step's rows of c at once, and a row's rank among
+// the step's equal ids, by __match_any_sync, comes on top): a stable
+// order.
+template <class Place>
+__device__ __forceinline__ void walk_tile(const int32_t* __restrict__ a,
+                                          int64_t n, int c_n,
+                                          int64_t tile_rows, int t,
+                                          int32_t* cursor, Place place) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t r0 = t * tile_rows;
+  const int64_t end = min(n, r0 + tile_rows);
+  for (int64_t r = r0; r < end; r += 32 * BATCH) {
+    int cs[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      cs[k] = cluster_of(a, r + 32 * k + lane, end, c_n);
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int c = cs[k];
+      const unsigned peers = __match_any_sync(FULL, c);
+      const int first = __ffs(peers) - 1;
+      int at = 0;
+      if (c >= 0 && lane == first) at = atomicAdd(cursor + c, __popc(peers));
+      at = __shfl_sync(FULL, at, first);
+      if (c >= 0) place(r + 32 * k + lane, c, at + __popc(peers & below));
+    }
+  }
+}
+
 // Per tile (a warp each) its rows' ids into order, stably by cluster.
 __global__ void seg_scatter_kernel(const int32_t* __restrict__ a, int64_t n,
                                    int c_n, int64_t tile_rows, int n_tiles,
@@ -278,31 +329,57 @@ __global__ void seg_scatter_kernel(const int32_t* __restrict__ a, int64_t n,
     for (int i = lane; i < c_n; i += 32) cursor[i] = bounds[i] + tile[i];
     __syncwarp();
   }
-  const unsigned below = (1u << lane) - 1u;
-  const int64_t r0 = t * tile_rows;
-  const int64_t end = min(n, r0 + tile_rows);
-  for (int64_t r = r0; r < end; r += 32 * BATCH) {
-    int cs[BATCH];
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      cs[k] = cluster_of(a, r + 32 * k + lane, end, c_n);
-    }
-#pragma unroll
-    for (int k = 0; k < BATCH; ++k) {
-      const int c = cs[k];
-      const unsigned peers = __match_any_sync(FULL, c);
-      const int first = __ffs(peers) - 1;
-      int at = 0;
-      if (c >= 0 && lane == first) {
-        at = atomicAdd(cursor + c, __popc(peers));
-        if (!smem) at += bounds[c];
-      }
-      at = __shfl_sync(FULL, at, first);
-      if (c >= 0) {
-        order[at + __popc(peers & below)] =
-            static_cast<int32_t>(r + 32 * k + lane);
-      }
-    }
+  walk_tile(a, n, c_n, tile_rows, t, cursor,
+            [&](int64_t row, int c, int at) {
+              order[smem ? at : at + bounds[c]] = static_cast<int32_t>(row);
+            });
+}
+
+// K11: per tile (a warp each) its rows into the (C, width) tables: row r
+// of cluster c at place j (its rank among the rows of c) writes
+// table[c][j] = r / div and, with slots, slots[c][j] = r % div. A place
+// past the width is dropped (the caller sizes the width by the counts).
+__global__ void table_scatter_kernel(const int32_t* __restrict__ a,
+                                     int64_t n, int c_n, int64_t tile_rows,
+                                     int n_tiles, bool smem,
+                                     int32_t* __restrict__ counts,
+                                     int64_t width, int div,
+                                     int32_t* __restrict__ table,
+                                     int32_t* __restrict__ slots) {
+  extern __shared__ int32_t cursor_s[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (t >= n_tiles) return;
+  int32_t* tile = counts + static_cast<int64_t>(t) * c_n;
+  // the cursor of cluster c: the place of the tile's next row of c
+  int32_t* cursor = smem ? cursor_s + warp * c_n : tile;
+  if (smem) {
+    for (int i = lane; i < c_n; i += 32) cursor[i] = tile[i];
+    __syncwarp();
+  }
+  walk_tile(a, n, c_n, tile_rows, t, cursor,
+            [&](int64_t row, int c, int at) {
+              if (at >= width) return;
+              const int64_t cell = static_cast<int64_t>(c) * width + at;
+              const int r = static_cast<int>(row);
+              table[cell] = r / div;
+              if (slots != nullptr) slots[cell] = r % div;
+            });
+}
+
+// K11: a block a cluster writes the pad past its size: `pad` in the
+// table, 0 in the slots.
+__global__ void table_pad_kernel(const int32_t* __restrict__ bounds,
+                                 int64_t width, int32_t pad,
+                                 int32_t* __restrict__ table,
+                                 int32_t* __restrict__ slots) {
+  const int c = blockIdx.x;
+  const int64_t size = bounds[c + 1] - bounds[c];
+  const int64_t row = static_cast<int64_t>(c) * width;
+  for (int64_t j = size + threadIdx.x; j < width; j += blockDim.x) {
+    table[row + j] = pad;
+    if (slots != nullptr) slots[row + j] = 0;
   }
 }
 
@@ -462,6 +539,50 @@ cudaError_t launch_sum(const void* rows, int64_t d, const int32_t* order,
   return cudaGetLastError();
 }
 
+// The launch of a kernel a warp a tile over c_n clusters: *smem (the
+// counts and cursors a tile's warp keeps in shared memory), *warps (tile
+// warps a block) and *tile_blocks.
+void tile_plan(int c_n, int tiles, bool* smem, int* warps,
+               unsigned* tile_blocks) {
+  *smem = c_n <= SMEM_HIST;
+  *warps = *smem ? max(1, min(TILE_WARPS, SMEM_HIST / c_n)) : TILE_WARPS;
+  *tile_blocks = max(1, (tiles + *warps - 1) / *warps);
+}
+
+// The bucketing's first two steps on stream s: the (tile, cluster) counts
+// of the assignments a (n,), then their prefixes over the tiles, the
+// bounds (n_clusters + 1) and the schedule (n_clusters); `done` the scan's
+// counter. Sets tile_plan's *smem, *warps and *tile_blocks.
+cudaError_t bucket_counts(const int32_t* a, int64_t n, int c_n,
+                          int64_t tile_rows, int tiles, int32_t* counts,
+                          int32_t* bounds, int32_t* sched, int32_t* done,
+                          bool* smem, int* warps, unsigned* tile_blocks,
+                          cudaStream_t s) {
+  tile_plan(c_n, tiles, smem, warps, tile_blocks);
+  const size_t smem_bytes = *smem ? static_cast<size_t>(*warps) * c_n * 4
+                                  : 0;
+  cudaError_t err;
+  if (!*smem && tiles > 0) {
+    err = cudaMemsetAsync(counts, 0, static_cast<size_t>(tiles) * c_n * 4,
+                          s);
+    if (err != cudaSuccess) return err;
+  }
+  seg_count_kernel<<<*tile_blocks, *warps * 32, smem_bytes, s>>>(
+      a, n, c_n, tile_rows, tiles, *smem, counts, done);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  seg_scan_kernel<<<(c_n + 31) / 32, SCAN_WARPS * 32, 0, s>>>(
+      counts, c_n, tiles, bounds, sched, done);
+  return cudaGetLastError();
+}
+
+bool bad_tiling(int64_t n, int64_t n_clusters, int64_t tile_rows,
+                int64_t n_tiles) {
+  return n_clusters <= 0 || n_tiles > MAX_TILES || n_clusters >= (1 << 30)
+         || n >= (int64_t{1} << 31)
+         || (n > 0 && (tile_rows % 32 != 0 || n_tiles * tile_rows < n));
+}
+
 }  // namespace
 
 // Segment sums of rows (n, d) float32, or bfloat16 bits when is_bf16, by
@@ -479,8 +600,7 @@ extern "C" int fk_ivf_segment_sum(const void* rows, int64_t n, int64_t d,
                                   int64_t n_clusters, int64_t tile_rows,
                                   int64_t n_tiles, int32_t* scratch,
                                   int accumulate, float* out, void* stream) {
-  if (n_clusters <= 0 || n_tiles > MAX_TILES || n_clusters >= (1 << 30)
-      || (n > 0 && (tile_rows % 32 != 0 || n_tiles * tile_rows < n))) {
+  if (bad_tiling(n, n_clusters, tile_rows, n_tiles)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -491,27 +611,18 @@ extern "C" int fk_ivf_segment_sum(const void* rows, int64_t n, int64_t d,
   int32_t* bounds = order + n;
   int32_t* sched = bounds + n_clusters + 1;
   int32_t* done = sched + n_clusters;
-  cudaError_t err;
-  const bool smem = c_n <= SMEM_HIST;
-  const int warps = smem ? max(1, min(TILE_WARPS, SMEM_HIST / c_n))
-                         : TILE_WARPS;
-  const size_t smem_bytes = smem ? static_cast<size_t>(warps) * c_n * 4 : 0;
-  const unsigned tile_blocks = max(1, (tiles + warps - 1) / warps);
-  if (!smem && tiles > 0) {
-    err = cudaMemsetAsync(counts, 0, n_tiles * n_clusters * 4, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  seg_count_kernel<<<tile_blocks, warps * 32, smem_bytes, s>>>(
-      a, n, c_n, tile_rows, tiles, smem, counts, done);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_scan_kernel<<<(c_n + 31) / 32, SCAN_WARPS * 32, 0, s>>>(
-      counts, c_n, tiles, bounds, sched, done);
-  err = cudaGetLastError();
+  bool smem;
+  int warps;
+  unsigned tile_blocks;
+  cudaError_t err = bucket_counts(a, n, c_n, tile_rows, tiles, counts,
+                                  bounds, sched, done, &smem, &warps,
+                                  &tile_blocks, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tiles > 0) {
-    seg_scatter_kernel<<<tile_blocks, warps * 32, smem_bytes, s>>>(
-        a, n, c_n, tile_rows, tiles, smem, counts, bounds, order);
+    seg_scatter_kernel<<<tile_blocks, warps * 32,
+                         smem ? static_cast<size_t>(warps) * c_n * 4 : 0,
+                         s>>>(a, n, c_n, tile_rows, tiles, smem, counts,
+                              bounds, order);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -521,4 +632,68 @@ extern "C" int fk_ivf_segment_sum(const void* rows, int64_t n, int64_t d,
                 : launch_sum<false>(rows, d, order, bounds, sched,
                                     n_clusters, accumulate != 0, out, s);
   return static_cast<int>(err);
+}
+
+// K11, first call: the bucketing's count and scan of the int32
+// assignments a (n,) over n_clusters into scratch, n_tiles * n_clusters +
+// 2 * n_clusters + 2 int32: the (tile, cluster) prefixes, the bounds
+// (n_clusters + 1: the host reads the clusters' sizes there to size the
+// tables), the schedule and the scan's counter (the tiling as
+// fk_ivf_segment_sum's).
+extern "C" int fk_ivf_buckets(const int32_t* a, int64_t n,
+                              int64_t n_clusters, int64_t tile_rows,
+                              int64_t n_tiles, int32_t* scratch,
+                              void* stream) {
+  if (bad_tiling(n, n_clusters, tile_rows, n_tiles)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int32_t* bounds = scratch + n_tiles * n_clusters;
+  int32_t* sched = bounds + n_clusters + 1;
+  bool smem;
+  int warps;
+  unsigned tile_blocks;
+  return static_cast<int>(bucket_counts(
+      a, n, static_cast<int>(n_clusters), tile_rows,
+      static_cast<int>(n_tiles), scratch, bounds, sched, sched + n_clusters,
+      &smem, &warps, &tile_blocks, static_cast<cudaStream_t>(stream)));
+}
+
+// K11, second call: the IVF member table (knn/ivf.py _member_table: div
+// = spill, slots null, pad = n / spill) or probe tables (_probe_tables
+// over the flat (N * p,) probe lists: div = p, with slots, pad = N) of the
+// int32 assignments a (n,) that fk_ivf_buckets bucketed into scratch:
+// table (n_clusters, width) int32 holds in row c the ids r / div of the
+// entries r assigned to c, in entry order (a stable sort's), padded with
+// `pad`; slots (n_clusters, width), where given, r % div padded with 0.
+// width must hold the largest cluster. The table's scatter and pad; no
+// order array. A bucketing serves one table: past SMEM_HIST clusters the
+// scatter counts its cursors up in scratch's prefixes.
+extern "C" int fk_ivf_tables(const int32_t* a, int64_t n, int64_t n_clusters,
+                             int64_t tile_rows, int64_t n_tiles,
+                             int32_t* scratch, int64_t width, int64_t div,
+                             int32_t pad, int32_t* table, int32_t* slots,
+                             void* stream) {
+  if (bad_tiling(n, n_clusters, tile_rows, n_tiles) || width < 0
+      || div < 1 || div >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (width == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int c_n = static_cast<int>(n_clusters);
+  const int tiles = static_cast<int>(n_tiles);
+  bool smem;
+  int warps;
+  unsigned tile_blocks;
+  tile_plan(c_n, tiles, &smem, &warps, &tile_blocks);
+  if (tiles > 0) {
+    table_scatter_kernel<<<tile_blocks, warps * 32,
+                           smem ? static_cast<size_t>(warps) * c_n * 4 : 0,
+                           s>>>(a, n, c_n, tile_rows, tiles, smem, scratch,
+                                width, static_cast<int>(div), table, slots);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  table_pad_kernel<<<c_n, 128, 0, s>>>(scratch + n_tiles * n_clusters,
+                                       width, pad, table, slots);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,13 @@
    `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
    On a CUDA device every assignment and ranking is one launch of K4
    (topk.merge_block over the centroids); on the CPU a float32 matmul,
-   _order_keys and torch.topk (top_clusters_plain).
+   _order_keys and torch.topk (top_clusters_plain). The member table of
+   each cluster's rows and the probe tables of each cluster's queries are
+   K11 on a card: K9's count and scan (cluster_buckets, whose bounds give
+   the host the sizes the tables' width needs), then one scatter writing
+   the padded tables directly (cluster_tables); on the CPU torch.bincount,
+   a stable torch.sort and index scatters (member_table_plain,
+   probe_tables_plain).
 3. Rescore: every probed cluster's queries are scored against its
    members, exact scores on (score, index) int64 keys (topk._order_keys),
    so equal scores go to the lowest row index as in `knn_exact`; each
@@ -150,7 +156,21 @@ def _member_table(a: torch.Tensor, counts: torch.Tensor, n_clusters: int,
     """(C, m) int32 table of row ids per cluster in row order, padded with
     the sentinel N. With spill > 1, `a` is the flattened (N*spill,)
     row-major assignment list and each row id appears in `spill`
-    clusters."""
+    clusters. `counts` as _cluster_counts gives them: a CUDA tensor's are
+    K11's bucketing, and the table its second call (cluster_tables); a CPU
+    tensor's are torch.bincount's, and member_table_plain builds it."""
+    if a.device.type == "cuda":
+        return cluster_tables(a.contiguous(), counts, n_clusters, m,
+                              spill)[0]
+    return member_table_plain(a, counts, n_clusters, m, spill)
+
+
+def member_table_plain(a: torch.Tensor, counts: torch.Tensor,
+                       n_clusters: int, m: int,
+                       spill: int = 1) -> torch.Tensor:
+    """_member_table in plain PyTorch on any device: a stable torch.sort
+    of the assignments, then an index scatter into a table filled with the
+    sentinel (JAX's argsort and scatter)."""
     n_flat = a.shape[0]
     n = n_flat // spill
     order = torch.sort(a, stable=True).indices
@@ -167,7 +187,20 @@ def _probe_tables(probes: torch.Tensor, qcounts: torch.Tensor,
                   n_clusters: int, qm: int):
     """The (N, p) probe lists inverted into per-cluster tables: qtab[c]
     the query rows probing c in row order (padded with the sentinel N),
-    stab[c] the probe slot each used for c."""
+    stab[c] the probe slot each used for c. `qcounts` those of the
+    flattened lists as _cluster_counts gives them: on a card K11's
+    bucketing, and the tables its second call (cluster_tables); on the CPU
+    torch.bincount's, for probe_tables_plain."""
+    if probes.device.type == "cuda":
+        return cluster_tables(probes.reshape(-1).contiguous(), qcounts,
+                              n_clusters, qm, probes.shape[1], slots=True)
+    return probe_tables_plain(probes, qcounts, n_clusters, qm)
+
+
+def probe_tables_plain(probes: torch.Tensor, qcounts: torch.Tensor,
+                       n_clusters: int, qm: int):
+    """_probe_tables in plain PyTorch on any device (JAX's argsort and
+    scatters)."""
     n, p = probes.shape
     dev = probes.device
     flat_c = probes.reshape(-1)
@@ -180,6 +213,87 @@ def _probe_tables(probes: torch.Tensor, qcounts: torch.Tensor,
     qtab[sorted_c, pos] = (order // p).to(torch.int32)
     stab[sorted_c, pos] = (order % p).to(torch.int32)
     return qtab, stab
+
+
+def _cluster_counts(a: torch.Tensor, n_clusters: int):
+    """(counts, their sizes on the host as int64) of the (n,) int32
+    assignments a over n_clusters, as _member_table and _probe_tables
+    take them: on a card K11's bucketing (cluster_buckets), whose bounds
+    the host reads, else torch.bincount."""
+    if a.device.type == "cuda":
+        scratch = cluster_buckets(a.contiguous(), n_clusters)
+        bounds = scratch[scratch.numel() - 2 * n_clusters - 2:
+                         scratch.numel() - n_clusters - 1]
+        return scratch, np.diff(bounds.cpu().numpy()).astype(np.int64)
+    counts = torch.bincount(a, minlength=n_clusters)
+    return counts, counts.cpu().numpy()
+
+
+def _bucket_scratch(a: torch.Tensor, n_clusters: int, what: str):
+    """The tiling (tile rows, tiles) of K11 over the assignments a and the
+    int32 scratch size its two calls share; raises on what they do not
+    take."""
+    if a.device.type != "cuda" or n_clusters <= 0:
+        raise ValueError(f"{what}: CUDA assignments and at least one "
+                         f"cluster, not {a.device}, {n_clusters}")
+    _check_assignments(a, a.device, a.shape[0], what)
+    tile, n_tiles = k9_tiles(a.shape[0], n_clusters)
+    return tile, n_tiles, n_tiles * n_clusters + 2 * n_clusters + 2
+
+
+def cluster_buckets(a: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    """K11's first call (csrc/ivf_segment_sum.cu `fk_ivf_buckets`): K9's
+    count and scan kernels over the tiles of k9_tiles on the contiguous
+    (n,) int32 CUDA assignments a, into an int32 scratch: the (tile,
+    cluster) prefixes, then the (C + 1,) bounds (_cluster_counts reads the
+    sizes there), the schedule and the scan's counter. Counts its launches
+    in .kernel_launches; raises on a tensor it does not take."""
+    tile, n_tiles, size = _bucket_scratch(a, n_clusters, "cluster_buckets")
+    scratch = torch.empty(size, dtype=torch.int32, device=a.device)
+    _build.launch("fk_ivf_buckets", a.data_ptr(), a.shape[0], n_clusters,
+                  tile, n_tiles, scratch.data_ptr(), device=a.device)
+    cluster_buckets.kernel_launches += 1
+    return scratch
+
+
+cluster_buckets.kernel_launches = 0
+
+
+def cluster_tables(a: torch.Tensor, scratch: torch.Tensor, n_clusters: int,
+                   width: int, div: int, slots: bool = False):
+    """K11's second call (`fk_ivf_tables`): the (C, width) int32 table of
+    the contiguous (n,) int32 CUDA assignments a that cluster_buckets
+    bucketed into scratch, each cluster's row holding the ids r // div of
+    its entries r in entry order (a stable sort's) padded with n // div,
+    and with `slots` the table of r % div padded with 0, else None:
+    _member_table at div = spill, _probe_tables of the flattened (N, p)
+    probe lists at div = p with slots. A scatter that writes each entry at
+    its rank in its cluster and a kernel that pads each row past its size;
+    no sort, no order array, no torch op but the tables' torch.empty. width
+    must hold the largest cluster (its entries past the width are dropped);
+    a bucketing serves one table. Bitwise member_table_plain and
+    probe_tables_plain. Counts its calls in .kernel_launches; raises on a
+    tensor it does not take."""
+    tile, n_tiles, size = _bucket_scratch(a, n_clusters, "cluster_tables")
+    if div < 1 or scratch.dtype != torch.int32 or scratch.numel() != size \
+            or scratch.device != a.device:
+        raise ValueError(f"cluster_tables: div >= 1 and cluster_buckets' "
+                         f"scratch of {size} int32, not div {div}, "
+                         f"{scratch.dtype} {scratch.numel()} on "
+                         f"{scratch.device}")
+    n = a.shape[0]
+    table = torch.empty((n_clusters, width), dtype=torch.int32,
+                        device=a.device)
+    slot = torch.empty_like(table) if slots else None
+    _build.launch("fk_ivf_tables", a.data_ptr(), n, n_clusters, tile,
+                  n_tiles, scratch.data_ptr(), width, div, n // div,
+                  table.data_ptr(), None if slot is None else slot.data_ptr(),
+                  device=a.device)
+    cluster_tables.kernel_launches += 1
+    return table, slot
+
+
+cluster_tables.kernel_launches = 0
 
 
 def _segments(a: torch.Tensor, n_clusters: int):
@@ -486,10 +600,7 @@ def _rescore(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
     clusters and padded pair-scores) and the real pair-scores (the sum
     over probed clusters of queries times members) to `stats`."""
     n_clusters, m_all = member.shape
-    qcounts = torch.bincount(probes.reshape(-1), minlength=n_clusters)
-    qcounts_h = qcounts.cpu().numpy()
-    qtab, stab = _probe_tables(probes, qcounts, n_clusters,
-                               _ceil128(qcounts_h.max()))
+    qtab, stab, qcounts_h = _queries(probes, n_clusters)
     kk_g = min(k, m_all)
     groups = _rescore_plan(counts_h, qcounts_h, qtab.shape[1], m_all)
     for (qcls, mcls), clusters in groups.items():
@@ -865,10 +976,18 @@ def _members(a: torch.Tensor, c: int, spill: int):
     """(member table, counts on the host) of the flattened (N*spill,)
     assignments a; the table's width is the largest count rounded up to
     a multiple of 128."""
-    counts = torch.bincount(a, minlength=c)
-    counts_h = counts.cpu().numpy()
+    counts, counts_h = _cluster_counts(a, c)
     return (_member_table(a, counts, c, _ceil128(counts_h.max()), spill),
             counts_h)
+
+
+def _queries(probes: torch.Tensor, c: int):
+    """(qtab, stab, query counts on the host) of the (nq, p) probe lists
+    over c clusters; the tables' width is the largest count rounded up to
+    a multiple of 128."""
+    qcounts, qcounts_h = _cluster_counts(probes.reshape(-1), c)
+    return (*_probe_tables(probes, qcounts, c, _ceil128(qcounts_h.max())),
+            qcounts_h)
 
 
 def _log_search(name: str, n: int, c: int, p: int, spill: int,

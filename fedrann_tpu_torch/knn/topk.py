@@ -14,12 +14,16 @@ precision="fp32", with each query row's running top-k in the kernel, the
 candidates split over a persistent grid as k4_units says); on the CPU its
 plain version, merge_block_plain, runs the float32 matmul on the
 bf16-rounded values (whose products are exact in float32), _order_keys
-and torch.topk.
+and torch.topk. The result's keys reach the host through keys_to_host:
+on a CUDA device one launch of K10 (csrc/result_wire.cu) writes the final
+indices and distances into page-locked host memory.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,6 +37,13 @@ DIST_SCALE = 32767.5
 # score that is not NaN is above -2^31); keys_to_host returns it as index
 # -1 at distance inf
 EMPTY_KEY = -(1 << 63)
+# K10 (result_wire) writes a result of up to this many bytes into a block
+# of torch's caching host allocator, which rounds a block up to a power of
+# two and keeps it for the next result of its size until the process
+# ends; a larger result gets a page-locked block of its own (HostBlock),
+# which goes back to the system with the result, so the locked memory
+# that outlives the results stays bounded whatever their sizes.
+PIN_CACHE_BYTES = 1 << 28
 
 
 def quantize_dist(dist: torch.Tensor) -> torch.Tensor:
@@ -381,10 +392,16 @@ def u16_indices(transfer: str, n_rows: int) -> bool:
     return transfer == "u16" and n_rows <= 65536
 
 
-def d2h_entry_bytes(transfer: str, n_rows: int) -> int:
+def d2h_entry_bytes(transfer: str, n_rows: int,
+                    device: torch.device) -> int:
     """Bytes a neighbor entry (index and distance) takes to the host in
-    keys_to_host: a 2-byte distance grid step under transfer="u16", else
-    a float32; the index as u16_indices says."""
+    keys_to_host of keys on `device`: from a card K10 writes the final
+    int32 index and float32 distance, 8; elsewhere keys_to_host_plain
+    copies the JAX package's wire (its `elem + idx_elem`): a 2-byte
+    distance grid step under transfer="u16", else a float32, and the index
+    as u16_indices says."""
+    if device.type == "cuda":
+        return 8
     return ((2 if transfer == "u16" else 4)
             + (2 if u16_indices(transfer, n_rows) else 4))
 
@@ -392,12 +409,24 @@ def d2h_entry_bytes(transfer: str, n_rows: int) -> int:
 def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int):
     """(rows, k) int64 keys of candidates 0 .. n_rows - 1 -> (indices
     int32, cosine distances float32) numpy arrays; transfer="u16" snaps
-    the distances to the 1/DIST_SCALE grid on the device before they
-    cross, and the indices cross as uint16 where they fit
-    (d2h_entry_bytes). An EMPTY_KEY slot comes back as index -1 at
-    distance inf (2.0 on the u16 grid, as in the JAX package) on either
-    wire: where uint16 indices carry no spare value, the slots' mask
-    crosses too, only when there is one."""
+    the distances to the 1/DIST_SCALE grid (the JAX package's wire), and
+    the indices are those its uint16 wire carries where they fit
+    (u16_indices). An EMPTY_KEY slot comes back as index -1 at distance
+    inf (2.0 on the u16 grid) on either wire. CUDA keys take K10
+    (result_wire: one launch into page-locked host memory), CPU keys
+    keys_to_host_plain; the two are byte-identical."""
+    if keys.device.type == "cuda":
+        return result_wire(keys, transfer, n_rows)
+    return keys_to_host_plain(keys, transfer, n_rows)
+
+
+def keys_to_host_plain(keys: torch.Tensor, transfer: str, n_rows: int):
+    """keys_to_host in plain PyTorch on any device: the keys decoded and
+    quantized by torch ops where they lie, then copied to the host, the
+    uint16 wire widened there (d2h_entry_bytes an entry crosses). Where
+    uint16 indices carry no spare value, the slots' mask crosses too, only
+    when there is one. The CPU path, and the reference the tests and
+    chip_smoke.py hold K10 to."""
     empty = keys == EMPTY_KEY
     if not bool(empty.any()):
         empty = None
@@ -417,6 +446,63 @@ def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int):
     idx_np = _u16_to_host(idx.clamp_min(0))
     idx_np[empty.cpu().numpy()] = -1
     return idx_np, dist_np
+
+
+def result_wire(keys: torch.Tensor, transfer: str, n_rows: int):
+    """K10 (csrc/result_wire.cu `fk_keys_to_host`): keys_to_host of
+    contiguous (rows, k) int64 CUDA keys in one launch that writes the
+    final int32 indices and float32 distances into page-locked host memory,
+    then waits for its stream. Up to PIN_CACHE_BYTES of result a call takes
+    its own block of torch's caching host allocator, past it a HostBlock;
+    the arrays returned are numpy views that keep their block alive, so no
+    later call writes over a result still held. Counts its launches in
+    .kernel_launches; raises on keys it does not take."""
+    if keys.device.type != "cuda" or keys.dtype != torch.int64 \
+            or keys.dim() != 2 or not keys.is_contiguous():
+        raise ValueError(f"result_wire: contiguous (rows, k) int64 CUDA "
+                         f"keys, not {keys.dtype} {tuple(keys.shape)} on "
+                         f"{keys.device}")
+    shape = (2, *keys.shape)
+    out = (np.asarray(HostBlock(shape))
+           if 8 * keys.numel() > PIN_CACHE_BYTES
+           else torch.empty(shape, dtype=torch.int32,
+                            pin_memory=True).numpy())
+    if keys.numel():
+        _build.launch("fk_keys_to_host", keys.data_ptr(), keys.numel(),
+                      int(transfer == "u16"),
+                      int(u16_indices(transfer, n_rows)),
+                      out[0].ctypes.data, out[1].ctypes.data,
+                      device=keys.device)
+        result_wire.kernel_launches += 1
+        torch.cuda.current_stream(keys.device).synchronize()
+    return out[0], out[1].view(np.float32)
+
+
+class HostBlock:
+    """A page-locked int32 host block of `shape` of its own
+    (`fk_host_alloc`, mapped for every card), for a result past
+    PIN_CACHE_BYTES: np.asarray views it, and it goes back to the system
+    (`fk_host_free`) when the last array that views it goes. .live counts
+    the blocks not yet freed."""
+
+    live = 0
+
+    def __init__(self, shape: tuple):
+        ptr = ctypes.c_void_p()
+        _build.launch("fk_host_alloc", 4 * math.prod(shape),
+                      ctypes.addressof(ptr))
+        self.ptr = ptr.value
+        self.__array_interface__ = {"shape": shape, "typestr": "<i4",
+                                    "data": (self.ptr, False),
+                                    "version": 3}
+        HostBlock.live += 1
+
+    def __del__(self):
+        _build.launch("fk_host_free", self.ptr)
+        HostBlock.live -= 1
+
+
+result_wire.kernel_launches = 0
 
 
 def _u16_to_host(t: torch.Tensor) -> np.ndarray:

@@ -515,7 +515,7 @@ def _run_rank(config: PipelineConfig, device: torch.device,
             # this rank's share: its query rows over every candidate row
             pipeline.add_knn_work(metrics, emb_local.shape[0], 2 * n_reads,
                                   emb_local.shape[1], idx,
-                                  config.knn_transfer)
+                                  config.knn_transfer, device)
 
         with metrics.stage("output"):
             if out_dir:

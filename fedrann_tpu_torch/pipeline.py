@@ -502,16 +502,18 @@ def embed_hbm_bytes(staged: list[StagedBucket], lib_codes: torch.Tensor,
 
 def add_knn_work(metrics: StageMetrics, query_rows: int,
                  candidate_rows: int, d: int, idx: np.ndarray,
-                 transfer: str, share: float = 1.0) -> None:
+                 transfer: str, device: torch.device,
+                 share: float = 1.0) -> None:
     """The k-NN's work: 2 * queries * candidates * d distance operations
     times `share` (ivf_share), and the neighbor matrices brought to the
-    host (topk.d2h_entry_bytes an entry: the JAX package's `elem +
-    idx_elem`)."""
+    host from the search's `device` (topk.d2h_entry_bytes an entry: K10's
+    8 from a card, the JAX package's `elem + idx_elem` elsewhere)."""
     metrics.add_work("knn",
                      flops=2.0 * query_rows * candidate_rows * d * share,
                      d2h_bytes=float(idx.shape[0] * idx.shape[1]
                                      * d2h_entry_bytes(transfer,
-                                                       candidate_rows)))
+                                                       candidate_rows,
+                                                       device)))
 
 
 def ivf_share(config: PipelineConfig, n_rows: int) -> float:
@@ -831,8 +833,8 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
             idx, dist = search(config, emb, ooc, use_mesh, mesh, device,
                                metrics)
             add_knn_work(metrics, emb.shape[0], emb.shape[0], emb.shape[1],
-                         idx, config.knn_transfer, ivf_share(config,
-                                                             emb.shape[0]))
+                         idx, config.knn_transfer, device,
+                         ivf_share(config, emb.shape[0]))
         with metrics.stage("output"):
             if out_dir:
                 overlaps_path = os.path.join(out_dir, "overlaps.tsv")

@@ -3,7 +3,10 @@ the CPU) against the JAX package's `fedrann_tpu/knn/ivf.py` on the same
 numpy rows, made from seeds:
 
 - integer tables bitwise: auto_clusters; the member and probe tables
-  built from JAX's own assignment arrays;
+  built from JAX's own assignment arrays, and from seeded ones at the
+  edges of their kernel K11 (empty clusters, C = 1, N not a multiple of
+  128, p = C), alone and as the search's steps run them (_members,
+  _queries: counts and width included);
 - the segment sum (segment_sum_plain, K9's reference) bitwise
   jax.ops.segment_sum: random assignments, empty clusters, one cluster,
   bfloat16 rows widened as JAX widens them, chunks carried into one sum;
@@ -90,6 +93,74 @@ def test_member_and_probe_tables_bitwise(blobs, spill):
                                      64, qm)
     np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
     np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
+
+
+def _table_case(case: str, spill: int):
+    """(assignments (N * spill,) int32, probes (N, p) int32, C) of a table
+    edge case, from a seed: every odd cluster empty (N = 1,000); C = 1; N
+    = 1,000 (not a multiple of 128) over C = 37; p = C = 8 (every row
+    probes every cluster, in a row's own order)."""
+    rng = np.random.default_rng(len(case) + spill)
+    n, c, p = {"empty clusters": (1000, 64, 8), "C = 1": (700, 1, 1),
+               "N = 1,000": (1000, 37, 8), "p = C": (500, 8, 8)}[case]
+    a = rng.integers(0, c, (n, spill))
+    probes = np.stack([rng.permutation(c)[:p] for _ in range(n)])
+    if case == "empty clusters":
+        a, probes = a - a % 2, probes - probes % 2
+    return a.reshape(-1).astype(np.int32), probes.astype(np.int32), c
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+@pytest.mark.parametrize("case", ["empty clusters", "C = 1", "N = 1,000",
+                                  "p = C"])
+def test_member_and_probe_tables_bitwise_edges(case, spill):
+    """Tolerance: none (integer tables). The member table at spill 1 and
+    2 and the probe tables of seeded assignments against JAX's
+    _member_table and _probe_tables at the edges K11 (the tables' kernel)
+    must keep: empty clusters, one cluster, N not a multiple of 128, p up
+    to C; each table as wide as its largest cluster rounded up to 128."""
+    a, probes, c = _table_case(case, spill)
+    counts = np.bincount(a, minlength=c).astype(np.int32)
+    qcounts = np.bincount(probes.ravel(), minlength=c).astype(np.int32)
+    m, qm = (int(-(-int(x.max()) // 128) * 128) for x in (counts, qcounts))
+    want = np.asarray(jivf._member_table(jnp.asarray(a), jnp.asarray(counts),
+                                         c, m, spill=spill))
+    got = ivf._member_table(torch.from_numpy(a), torch.from_numpy(counts),
+                            c, m, spill)
+    np.testing.assert_array_equal(got.numpy(), want)
+    qtab, stab = jivf._probe_tables(jnp.asarray(probes), jnp.asarray(qcounts),
+                                    c, qm)
+    q_got, s_got = ivf._probe_tables(torch.from_numpy(probes),
+                                     torch.from_numpy(qcounts), c, qm)
+    np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
+    np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+@pytest.mark.parametrize("case", ["empty clusters", "C = 1", "N = 1,000",
+                                  "p = C"])
+def test_members_and_queries_are_jax_tables(case, spill):
+    """Tolerance: none (integer tables and counts). The IVF search's two
+    table steps as it runs them, counts and width included (_members:
+    the member table and the host's cluster counts; _queries: the probe
+    tables and the host's query counts; each width the largest count
+    rounded up to 128), against JAX's bincount, _member_table and
+    _probe_tables at the same edge cases."""
+    a, probes, c = _table_case(case, spill)
+    counts = np.bincount(a, minlength=c)
+    qcounts = np.bincount(probes.ravel(), minlength=c)
+    m, qm = (int(-(-int(x.max()) // 128) * 128) for x in (counts, qcounts))
+    member, counts_h = ivf._members(torch.from_numpy(a), c, spill)
+    np.testing.assert_array_equal(counts_h, counts)
+    np.testing.assert_array_equal(member.numpy(), np.asarray(
+        jivf._member_table(jnp.asarray(a), jnp.asarray(counts), c, m,
+                           spill=spill)))
+    qtab, stab, qcounts_h = ivf._queries(torch.from_numpy(probes), c)
+    np.testing.assert_array_equal(qcounts_h, qcounts)
+    want_q, want_s = jivf._probe_tables(jnp.asarray(probes),
+                                        jnp.asarray(qcounts), c, qm)
+    np.testing.assert_array_equal(qtab.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(stab.numpy(), np.asarray(want_s))
 
 
 SEGMENT_CASES = {"random": (5000, 64, 37), "empty clusters": (300, 100, 64),

@@ -95,10 +95,7 @@ def _case(en_pad, n_real, member, counts_h, probes, k, first=0):
     """The tables and plan of one rescore over torch tensors on the
     device of en_pad: what rescore_plain and rescore_clusters take."""
     c = member.shape[0]
-    qcounts = torch.bincount(probes.reshape(-1), minlength=c)
-    qcounts_h = qcounts.cpu().numpy()
-    qtab, stab = ivf._probe_tables(probes, qcounts, c,
-                                   ivf._ceil128(qcounts_h.max()))
+    qtab, stab, qcounts_h = ivf._queries(probes, c)
     return dict(en_pad=en_pad, n_real=n_real, member=member,
                 counts_h=np.asarray(counts_h), qtab=qtab, stab=stab,
                 qcounts_h=qcounts_h, first=first, nq=probes.shape[0],

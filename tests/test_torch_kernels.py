@@ -44,7 +44,7 @@ from fedrann_tpu_torch.project.embed import (
     membership_embed,
     membership_embed_dense,
 )
-from fedrann_tpu_torch.knn import ivf
+from fedrann_tpu_torch.knn import ivf, topk
 from fedrann_tpu_torch.knn.ivf import (
     _segment_sum,
     _segments,
@@ -55,9 +55,13 @@ from fedrann_tpu_torch.knn.ivf import (
 from fedrann_tpu_torch.knn.topk import (
     EMPTY_KEY,
     _decode_keys,
+    _order_keys,
+    keys_to_host,
+    keys_to_host_plain,
     merge_block,
     merge_block_plain,
     normalize_rows,
+    result_wire,
 )
 from fedrann_tpu_torch.project.srp import (
     _stream,
@@ -1762,6 +1766,248 @@ def test_ivf_segment_sum_refuses_what_it_does_not_take(cuda):
         segment_sum_rows(x, a.long(), 4)
     with pytest.raises(ValueError, match="segment_buckets"):
         segment_buckets(a.cpu(), 4)
+
+
+def _wire_keys(rows, k, n_rows, seed, empty_share=0.0):
+    """(rows, k) int64 keys of seeded scores in [-1, 1] (the wire's edge
+    scores in row 0 where k allows) and indices below n_rows, a share of
+    them EMPTY_KEY (row 1 wholly where there is one)."""
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(-1.0, 1.0, (rows, k)).astype(np.float32)
+    edges = np.array([-0.0, 0.0, 1.0, -1.0,
+                      np.nextafter(np.float32(1), np.float32(2)),
+                      np.nextafter(np.float32(-1), np.float32(-2))],
+                     np.float32)
+    if rows:
+        scores[0, : min(k, 6)] = edges[: min(k, 6)]
+    keys = _order_keys(torch.from_numpy(scores),
+                       torch.from_numpy(rng.integers(0, n_rows, (rows, k))))
+    if empty_share:
+        keys[torch.from_numpy(rng.random((rows, k)) < empty_share)] = EMPTY_KEY
+        if rows > 1:
+            keys[1] = EMPTY_KEY
+    return keys
+
+
+def _hold_wire(got, want):
+    assert got[0].dtype == np.int32 and got[1].dtype == np.float32
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1].view(np.int32),
+                                  want[1].view(np.int32))
+
+
+# (rows, k, n_rows, share of EMPTY_KEY slots): phase 4's shape (uint16
+# indices under u16), 11b's (int32), with unset slots, k = 1, rows = 0, and
+# an entry count that is not a multiple of a thread's four
+WIRE_CASES = [(15_000, 50, 15_000, 0.0), (15_000, 50, 15_000, 0.1),
+              (262_144, 50, 262_144, 0.0), (2_000, 50, 70_000, 0.3),
+              (777, 1, 65_536, 0.2), (0, 50, 100, 0.0), (5, 3, 9, 0.2)]
+
+
+@pytest.mark.parametrize("transfer", ["f32", "u16"])
+@pytest.mark.parametrize("rows,k,n_rows,empty", WIRE_CASES)
+def test_result_wire_matches_plain(cuda, rows, k, n_rows, empty, transfer):
+    """K10 (keys_to_host on CUDA keys) against keys_to_host_plain on the
+    same keys, byte-identical, on both wires: int32 and uint16-carried
+    indices, with and without EMPTY_KEY slots, the edge scores (-0.0,
+    1.0, -1.0, just past either), k = 1, rows = 0 and 15 entries; one
+    launch a call with entries, counted, and numpy arrays of pinned host
+    memory."""
+    keys = _wire_keys(rows, k, n_rows, rows + k, empty).to(cuda)
+    want = keys_to_host_plain(keys, transfer, n_rows)
+    before = result_wire.kernel_launches
+    got = keys_to_host(keys, transfer, n_rows)
+    assert result_wire.kernel_launches == before + (rows * k > 0)
+    assert got[0].shape == got[1].shape == (rows, k)
+    _hold_wire(got, want)
+
+
+def test_result_wire_results_stay_their_own(cuda):
+    """Two results held at once (as the sharded searches hold one a
+    mesh entry) stay intact: the second call writes into its own pinned
+    block, and freeing the first lets a third reuse it without touching
+    the second."""
+    a = _wire_keys(3000, 50, 3000, 1).to(cuda)
+    b = _wire_keys(3000, 50, 3000, 2).to(cuda)
+    first = keys_to_host(a, "u16", 3000)
+    kept = (first[0].copy(), first[1].copy())
+    second = keys_to_host(b, "u16", 3000)
+    _hold_wire(first, kept)
+    _hold_wire(second, keys_to_host_plain(b, "u16", 3000))
+    del first
+    third = keys_to_host(a, "f32", 3000)
+    _hold_wire(second, keys_to_host_plain(b, "u16", 3000))
+    _hold_wire(third, keys_to_host_plain(a, "f32", 3000))
+
+
+def test_result_wire_large_results_in_blocks_of_their_own(cuda,
+                                                          monkeypatch):
+    """Past topk.PIN_CACHE_BYTES (set to 0 here) K10 writes each result
+    into a page-locked block of its own (topk.HostBlock): the bytes are the
+    plain version's on both wires, two results held at once stay intact,
+    and each block is freed with the last array that views it."""
+    monkeypatch.setattr(topk, "PIN_CACHE_BYTES", 0)
+    a = _wire_keys(3000, 50, 3000, 6, 0.1).to(cuda)
+    b = _wire_keys(3000, 50, 3000, 7).to(cuda)
+    live = topk.HostBlock.live
+    for transfer in ("f32", "u16"):
+        first = keys_to_host(a, transfer, 3000)
+        second = keys_to_host(b, transfer, 3000)
+        assert topk.HostBlock.live == live + 2
+        _hold_wire(first, keys_to_host_plain(a, transfer, 3000))
+        _hold_wire(second, keys_to_host_plain(b, transfer, 3000))
+        assert not np.shares_memory(first[0], second[0])
+        dist = first[1]
+        del first, second
+        assert topk.HostBlock.live == live + 1  # dist keeps its block
+        del dist
+        assert topk.HostBlock.live == live
+
+
+def test_result_wire_unaligned_keys(cuda):
+    """Keys whose base is off 16 bytes (a view one key into its storage)
+    take the kernel's one-key-a-step path and keep the bytes."""
+    keys = _wire_keys(400, 50, 400, 3, 0.1)
+    buf = torch.empty(keys.numel() + 1, dtype=torch.int64, device=cuda)
+    view = buf[1:].view(keys.shape)
+    view.copy_(keys.to(cuda))
+    for transfer in ("f32", "u16"):
+        _hold_wire(keys_to_host(view, transfer, 400),
+                   keys_to_host_plain(keys, transfer, 400))
+
+
+def test_result_wire_refuses_what_it_does_not_take(cuda):
+    keys = _wire_keys(20, 8, 20, 4).to(cuda)
+    for bad in (keys.T, keys.int(), keys.reshape(-1)):
+        with pytest.raises(ValueError, match="result_wire"):
+            result_wire(bad, "f32", 20)
+    with pytest.raises(ValueError, match="result_wire"):
+        result_wire(keys.cpu(), "f32", 20)
+
+
+# (N, C, p or spill, kind): phase 4's member table (spill 2) and probe
+# tables (p = 8) at C = 256, 11b's at C = 1,024, empty clusters, C = 1, N
+# not a multiple of a tile, p = C, and C past the shared-memory counts
+TABLE_CASES = [(15_000, 256, 2, "random"), (15_000, 256, 8, "random"),
+               (262_144, 1024, 1, "random"), (262_144, 1024, 2, "random"),
+               (262_144, 1024, 8, "random"), (3_000, 64, 2, "even"),
+               (700, 1, 1, "one"), (4 * ivf.K9_TILE + 77, 37, 2, "random"),
+               (500, 8, 8, "all"), (20_000, 16_384, 2, "random")]
+
+
+def _table_inputs(n, c, per, kind):
+    """(N, per) int32 cluster ids: per distinct ids a row (a row's own
+    order of clusters, as the spill and probe lists give them)."""
+    rng = np.random.default_rng(n + c + per)
+    x = np.stack([rng.choice(c, min(per, c), replace=False)
+                  for _ in range(min(n, 2000))])
+    x = x[rng.integers(0, x.shape[0], n)] if n > x.shape[0] else x
+    if kind == "even":
+        x = x - x % 2
+    elif kind == "one":
+        x[:] = 0
+    return torch.from_numpy(x.astype(np.int32))
+
+
+@pytest.mark.parametrize("n,c,per,kind", TABLE_CASES)
+def test_ivf_tables_match_plain(cuda, n, c, per, kind):
+    """K11 (_member_table and _probe_tables on CUDA tensors, each after its
+    own bucketing: one cluster_buckets and one cluster_tables call a
+    table) against member_table_plain and probe_tables_plain, bitwise:
+    the member table of the flat (N * per,) assignments at spill = per,
+    and the probe tables of the (N, per) probe lists (_queries); the
+    counts K11's bounds give the host equal torch.bincount's; two calls
+    equal; each call counted."""
+    x = _table_inputs(n, c, per, kind)
+    a = x.reshape(-1)
+    counts = torch.bincount(a, minlength=c)
+    m = int(-(-int(counts.max()) // 128) * 128)
+    a_d, x_d = a.to(cuda), x.to(cuda)
+    before = (ivf.cluster_tables.kernel_launches,
+              ivf.cluster_buckets.kernel_launches)
+    buckets, sizes = ivf._cluster_counts(a_d, c)
+    got = ivf._member_table(a_d, buckets, c, m, per)
+    again = ivf._member_table(a_d, ivf._cluster_counts(a_d, c)[0], c, m, per)
+    qtab, stab, qsizes = ivf._queries(x_d, c)
+    torch.cuda.synchronize()
+    assert (ivf.cluster_tables.kernel_launches,
+            ivf.cluster_buckets.kernel_launches) == (before[0] + 3,
+                                                     before[1] + 3)
+    np.testing.assert_array_equal(sizes, counts.numpy())
+    np.testing.assert_array_equal(qsizes, counts.numpy())
+    assert sizes.dtype == qsizes.dtype == np.int64
+    assert torch.equal(got.cpu(), ivf.member_table_plain(a, counts, c, m,
+                                                         per))
+    assert torch.equal(got, again)
+    want_q, want_s = ivf.probe_tables_plain(x, counts, c, m)
+    assert torch.equal(qtab.cpu(), want_q) and torch.equal(stab.cpu(), want_s)
+
+
+def test_ivf_tables_run_no_torch_sort(cuda, monkeypatch):
+    """The tables on the card, counts included, run no torch sort,
+    bincount, scatter or fill: with torch.sort, argsort, bincount, full,
+    zeros and index_put_ made to raise, _members and _queries still give
+    the plain versions' tables and counts."""
+    x = _table_inputs(15_000, 256, 8, "random")
+    a = x[:, :2].reshape(-1)
+    counts = torch.bincount(a, minlength=256)
+    qcounts = torch.bincount(x.reshape(-1), minlength=256)
+    want = ivf.member_table_plain(a, counts, 256, ivf._ceil128(
+        int(counts.max())), 2)
+    want_q, want_s = ivf.probe_tables_plain(x, qcounts, 256, ivf._ceil128(
+        int(qcounts.max())))
+    a_d, x_d = a.to(cuda), x.to(cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a torch sort, count or scatter on K11's path")
+
+    for name in ("sort", "argsort", "bincount", "full", "zeros"):
+        monkeypatch.setattr(torch, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "index_put_", refuse)
+    monkeypatch.setattr(torch.Tensor, "__setitem__", refuse)
+    got, sizes = ivf._members(a_d, 256, 2)
+    qtab, stab, qsizes = ivf._queries(x_d, 256)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(qtab.cpu(), want_q) and torch.equal(stab.cpu(), want_s)
+    np.testing.assert_array_equal(sizes, counts.numpy())
+    np.testing.assert_array_equal(qsizes, qcounts.numpy())
+
+
+def test_ivf_tables_refuse_what_they_do_not_take(cuda):
+    a = torch.zeros(10, dtype=torch.int32, device=cuda)
+    for bad, c in ((a.long(), 4), (a, 0), (a.cpu(), 4)):
+        with pytest.raises(ValueError, match="cluster_buckets"):
+            ivf.cluster_buckets(bad, c)
+    scratch = ivf.cluster_buckets(a, 4)
+    for bad, counts, div in ((a.long(), scratch, 1), (a, scratch, 0),
+                             (a, torch.bincount(a, minlength=4), 1),
+                             (a, scratch.cpu(), 1)):
+        with pytest.raises(ValueError, match="cluster_tables"):
+            ivf.cluster_tables(bad, counts, 4, 128, div)
+
+
+def test_result_wire_and_tables_launch_on_their_tensors_card(last_card):
+    """With cuda:0 current, K10 (into a cached page-locked block and into
+    a block of its own) and K11 on the last card's tensors launch there
+    and match their plain versions."""
+    keys = _wire_keys(2000, 50, 2000, 5, 0.1)
+    _hold_wire(keys_to_host(keys.to(last_card), "u16", 2000),
+               keys_to_host_plain(keys, "u16", 2000))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(topk, "PIN_CACHE_BYTES", 0)
+        _hold_wire(keys_to_host(keys.to(last_card), "f32", 2000),
+                   keys_to_host_plain(keys, "f32", 2000))
+    x = _table_inputs(5000, 64, 2, "random")
+    a = x.reshape(-1)
+    counts = torch.bincount(a, minlength=64)
+    a_d = a.to(last_card)
+    got = ivf._member_table(a_d, ivf._cluster_counts(a_d, 64)[0], 64, 256, 2)
+    torch.cuda.synchronize(last_card)
+    assert torch.cuda.current_device() == 0 and got.device == last_card
+    assert torch.equal(got.cpu(), ivf.member_table_plain(a, counts, 64, 256,
+                                                         2))
 
 
 def test_srp_paired_and_segment_sum_launch_on_their_tensors_card(last_card):

@@ -42,7 +42,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         cs.fail("no CUDA device")
     from fedrann_tpu_torch import _build
-    from fedrann_tpu_torch.knn import ivf
+    from fedrann_tpu_torch.knn import ivf, topk
     from fedrann_tpu_torch.knn.topk import knn_exact, merge_block
 
     card = f"{torch.cuda.get_device_name(0)}, {args.port}"
@@ -60,7 +60,9 @@ def main() -> None:
     kernels = {name: fn for name, fn in (
         ("K4", merge_block), ("K6", getattr(ivf, "rescore_clusters", None)),
         ("K7", getattr(ivf, "merge_probe_lists", None)),
-        ("K9", getattr(ivf, "segment_sum_rows", None))) if fn is not None}
+        ("K9", getattr(ivf, "segment_sum_rows", None)),
+        ("K10", getattr(topk, "result_wire", None)),
+        ("K11", getattr(ivf, "cluster_tables", None))) if fn is not None}
     counts = {name: fn.kernel_launches for name, fn in kernels.items()}
     with cs.ivf_step_split() as split:
         _, secs, _ = cs.measured(lambda: ivf.knn_ivf(

@@ -209,10 +209,13 @@ Phases; any failure exits non-zero and prints no result line:
          (>= IVF_SEARCH_RECALL); a third run split by step
          (ivf_step_split: CUDA events and the host clock around the
          k-means assignment, segment sums, spill/probe ranking, member and
-         probe tables, rescore, merge and keys_to_host; the segment sums,
-         K9, logged beside SEGMENT_TORCH_OPS_MS), its neighbors
-         the warm run's; self at rank 0, sorted rows, no index twice,
-         every distance within 1e-5 of a recompute;
+         probe sides (K11), rescore, merge and keys_to_host; the segment
+         sums, K9, logged beside SEGMENT_TORCH_OPS_MS), its neighbors
+         the warm run's; a fourth under torch.cuda.set_sync_debug_mode(
+         "error") from _tables' return until K6's launch
+         (no_sync_until_k6), its neighbors the warm run's; self at rank
+         0, sorted rows, no index twice, every distance within 1e-5 of a
+         recompute;
      (c) knn_ivf_ooc: (a) at --knn-hbm-budget 16M (knn_ivf_ooc called,
          K4 launched for its k-means, probes and slab loop, K6 and K7 not;
          agreement with (a) logged), and on (b)'s rows at 256 MiB: recall
@@ -221,9 +224,11 @@ Phases; any failure exits non-zero and prints no result line:
          dropped votes and peak device memory logged;
      (d) knn_ivf_sharded over 4 entries of the card (and with two or
          more cards, over every card) on 65,536 rows of (b)'s structure:
-         recall >= one-card knn_ivf's - 0.02, seconds beside it; then
-         phase 4's reads with --knn-sharded always --knn-method ivf
-         (knn_ivf_sharded called, agreement >= 0.99 with (a)'s table);
+         recall >= one-card knn_ivf's - 0.02, seconds beside it, and
+         whether the two are equal; then phase 4's reads with
+         --knn-sharded always --knn-method ivf (knn_ivf_sharded called,
+         agreement >= 0.99 with (a)'s table); it and 8b log the bytes
+         torch's host cache keeps page-locked (pinned_bytes);
      (e) two rank processes of the CLI with --knn-method ivf, checked as
          phase 10 against (a)'s table (agreement >= 0.99), each rank
          calling knn_ivf_sharded_multihost once; gloo on one card, and
@@ -294,25 +299,29 @@ Phases; any failure exits non-zero and prints no result line:
      it); each timed beside the plain
      version and a pinned copy_ of its result bytes (a floor), its bound
      the result over the host link's nominal rate. K11
-     (csrc/ivf_segment_sum.cu fk_ivf_buckets and fk_ivf_tables, the
-     member and probe tables) bitwise member_table_plain and
-     probe_tables_plain, with torch.bincount's counts, at phase 4's C =
-     256 and 11b's C = 1,024 (spill 1 and 2, p = 8) and at its edge cases
-     (k11_edge_cases), each step timed beside the plain step and a stable
-     torch.sort of the ids.
+     (csrc/ivf_segment_sum.cu fk_ivf_bucket, the member and probe
+     buckets and K6's work list, one cooperative launch a side) bitwise
+     bucket_clusters_plain (its work list as a set of rows, longest
+     member counts first), expanded bitwise member_table_plain and
+     probe_tables_plain, two calls equal, at phase 4's C = 256 and 11b's
+     C = 1,024 (spill 1 and 2, p = 8) and at its edge cases
+     (k11_edge_cases, C = 2,048 to 65,536 included), each whole step
+     timed with its device us beside a stable torch.sort of the same ids;
+     K6 on K11's work list bitwise K6 on the host's (ivf.host_units).
      Every IVF CLI run but out of core launches K6, K7 and K11 (one
-     bucketing a table), and every
+     member side, and one probe side for each K6 launch), and every
      one K9 (three launches a k-means); every CLI run launches K10; no
      CUDA tensor reaches rescore_plain, merge_buffers_plain,
      top_clusters_plain, segment_sum_plain, keys_to_host_plain,
-     member_table_plain or probe_tables_plain.
+     member_table_plain, probe_tables_plain, bucket_clusters_plain or
+     bucket_units_plain.
 8a runs twice: the second time under --profile, so the out-of-core
 search's merge launches run inside a torch.profiler session.
 With --profile, phases 4 and 5b are each followed by two more CLI runs on
 the same reads, the second under torch.profiler (`profile_cli`).
 The second-to-last line is a JSON object of per-kernel launches (each from
 the runs of its own path: knn_merge and srp_signs from the main path's,
-srp_paired (K8) from 4b's two runs, ivf_segment_sum (K9) and ivf_tables
+srp_paired (K8) from 4b's two runs, ivf_segment_sum (K9) and ivf_buckets
 (K11) from phase 11's CLI runs and ranks, result_wire (K10) from the
 main path's,
 knn_merge_fp32 (K4's fp32 form) from 4f's two runs, ivf_rescore,
@@ -504,9 +513,9 @@ SOURCES = {
     "result_wire": (CSRC + "result_wire.cu",
                     "fedrann_tpu/knn/topk.py:36 quantize_dist, :58 _idx_u16 "
                     "(XLA), in :49 transfer_dist and :95 transfer_idx"),
-    "ivf_tables": (CSRC + "ivf_segment_sum.cu",
-                   "fedrann_tpu/knn/ivf.py:117 _member_table, :170 "
-                   "_probe_tables (XLA stable argsort + scatter)"),
+    "ivf_buckets": (CSRC + "ivf_segment_sum.cu",
+                    "fedrann_tpu/knn/ivf.py:117 _member_table, :170 "
+                    "_probe_tables (XLA stable argsort + scatter)"),
     "fk_probe_smem_scratch": (CSRC + "probes.cu",
                               "bench/probe_mosaic.py:32 probe_smem_scratch"),
     "fk_probe_smem_input": (CSRC + "probes.cu",
@@ -554,6 +563,33 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def behind_busy_card(fn, reps: int) -> tuple:
+    """(host us of fn's call, device us of its work by CUDA events), the
+    medians of reps calls, each queued behind a ~1 ms torch.cuda._sleep
+    so that the card is busy while the host enqueues: the host figure is
+    the call's own (it includes any wait the launch makes for the card),
+    the device figure its kernels' and the gaps between them, without the
+    host's enqueue."""
+    import statistics
+
+    import torch
+
+    host, device = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end) * 1e3)
+    return statistics.median(host), statistics.median(device)
 
 
 def time_cuda_median(fn, reps: int, rounds: int) -> tuple:
@@ -1836,9 +1872,10 @@ def no_plain_on_card():
     cluster ranking's top_clusters_plain), K5 (sign_table_plain), K6
     (rescore_plain), K7 (merge_buffers_plain), K8 (paired_table_plain)
     K9 (segment_sum_plain, and _segments, its bucketing's), K10
-    (keys_to_host_plain) and K11 (member_table_plain, probe_tables_plain)
-    fail the run if they are given a CUDA tensor, which only this script's
-    reference calls may do."""
+    (keys_to_host_plain) and K11 (bucket_clusters_plain,
+    bucket_units_plain, and the CPU search's member_table_plain and
+    probe_tables_plain) fail the run if they are given a CUDA tensor,
+    which only this script's reference calls may do."""
     import torch
 
     from fedrann_tpu_torch.knn import ivf, topk
@@ -1849,7 +1886,8 @@ def no_plain_on_card():
              (ivf, "rescore_plain"), (ivf, "merge_buffers_plain"),
              (ivf, "segment_sum_plain"), (ivf, "_segments"),
              (topk, "keys_to_host_plain"), (ivf, "member_table_plain"),
-             (ivf, "probe_tables_plain")]
+             (ivf, "probe_tables_plain"), (ivf, "bucket_clusters_plain"),
+             (ivf, "bucket_units_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
 
     def guard(name, fn):
@@ -2024,8 +2062,8 @@ def knn_expected(flags: list[str]) -> dict:
     and K7 on the in-core and sharded IVF searches (K6's fp32 form at
     fp32); none of them out of core, which rescores by K4's slab loop; K9
     (the k-means's segment sums) on every IVF search; K11 (the member and
-    probe tables) where K6 rescores; K10 (the result wire) on every
-    search."""
+    probe buckets; ivf_buckets_probe its probe sides) where K6 rescores;
+    K10 (the result wire) on every search."""
     fp32 = ("--knn-precision" in flags
             and flags[flags.index("--knn-precision") + 1] == "fp32")
     ivf = ("--knn-method" in flags
@@ -2034,7 +2072,7 @@ def knn_expected(flags: list[str]) -> dict:
     return {"knn_merge": True, "knn_merge_fp32": fp32 and not rescore,
             "ivf_rescore": rescore, "ivf_rescore_fp32": rescore and fp32,
             "ivf_merge": rescore, "ivf_segment_sum": ivf,
-            "ivf_tables": rescore, "ivf_buckets": rescore,
+            "ivf_buckets": rescore, "ivf_buckets_probe": rescore,
             "result_wire": True}
 
 
@@ -2062,10 +2100,20 @@ def check_launches(launches: dict, paths: set, embed: str | None,
                  f"expected {'some' if want else 'none'}"
                  + (" (a multiple of 3)" if name == "ivf_segment_sum"
                     else ""))
-    if launches.get("ivf_buckets", 0) != launches.get("ivf_tables", 0):
-        fail(f"K11 bucketed {launches.get('ivf_buckets')} times for "
-             f"{launches.get('ivf_tables')} tables in {what}, want one "
-             "bucketing a table")
+    check_k11(launches, knn.get("ivf_rescore", False), what)
+
+
+def check_k11(launches: dict, rescore: bool, what: str) -> None:
+    """K11 launched, in one IVF search that K6 rescores, once for the
+    member side and once for the probe side of each K6 launch (in core:
+    twice), else never."""
+    k6 = launches.get("ivf_rescore", 0)
+    want = (k6 + 1, k6) if rescore else (0, 0)
+    got = (launches.get("ivf_buckets", 0),
+           launches.get("ivf_buckets_probe", 0))
+    if got != want:
+        fail(f"K11 launched {got[0]} times ({got[1]} probe sides) in {what} "
+             f"for {k6} K6 launches, want {want[0]} ({want[1]})")
 
 
 def load_split(fasta: str, out_dir: str, card: str) -> None:
@@ -2841,7 +2889,8 @@ def check_ooc_search(dev, card: str) -> float:
         f"queries agreement {agree:.5f} with the in-core top-k (K4), sorted "
         f"distances within {err:.3g}; against merge_block_plain agreement "
         f"{plain_agree:.5f}, scores within {plain_err:.3g}, {ties} near-tie "
-        f"rows [{card}]")
+        f"rows; page-locked by torch's host cache: {pinned_bytes()} "
+        f"[{card}]")
     if agree < OOC_AGREE_SEARCH or err > 1e-6:
         fail(f"8b: agreement {agree:.5f} (want >= {OOC_AGREE_SEARCH}), "
              f"distance error {err} (want <= 1e-6)")
@@ -3369,6 +3418,7 @@ def check_ranks(label: str, fasta: str, out_dir: str, sim, flags: list[str],
                 (kernels[name] > 0) != want for name, want in knn.items()):
             fail(f"{label} rank {rank}: launches {kernels}, K5 missing, K8 "
                  f"launched or the k-NN kernels not as {knn}")
+        check_k11(kernels, knn["ivf_rescore"], f"{label} rank {rank}")
         want = {"read_fastx": 0, "pack_reads": 0, "pin_copies": 0,
                 "pack_reads_native": int(loads[rank] in ("parse", "ranged")),
                 "cache_hits": int(loads[rank] == "cache")}
@@ -3654,12 +3704,31 @@ def check_ivf_cli(fasta: str, out_dir: str, sim, card: str, dev,
 
 # 11b's knn_ivf split by step: the knn/ivf.py functions each step calls,
 # as (function, step); _top_clusters is the k-means assignment with t = 1
-# and the spill/probe ranking otherwise
+# and the spill/probe ranking otherwise; K11's two launches
+# (bucket_clusters: the member side, then the probe side inside the
+# rescore)
 IVF_STEPS = (("_top_clusters", None), ("_segment_sum", "segment sums"),
-             ("_members", "member and probe tables"),
-             ("_probe_tables", "member and probe tables"),
+             ("bucket_clusters", "member and probe sides (K11)"),
              ("_rescore", "rescore"), ("_merge_buffers", "merge"),
              ("keys_to_host", "keys_to_host"))
+
+
+class Forwarding:
+    """`call` in place of fn, fn's attributes (its launch counters) read
+    and written on fn itself."""
+
+    def __init__(self, fn, call):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_call", call)
+
+    def __call__(self, *args, **kwargs):
+        return self._call(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
 
 
 @contextlib.contextmanager
@@ -3702,7 +3771,7 @@ def ivf_step_split():
                 stack[-1][0] += dev
                 stack[-1][1] += host
             return out
-        return run
+        return Forwarding(fn, run)
 
     for name, step in IVF_STEPS:
         setattr(ivf, name, timed(name, step, saved[name]))
@@ -3722,6 +3791,55 @@ def log_ivf_split(label: str, split: dict, total_ms: float,
         f"{k} {v[0]:.3f} / {v[1]:.3f} ({v[2]})" for k, v in split.items())
         + f"; the rest (normalize, centroid updates, bincounts, syncs) "
         f"{total_ms - steps:.3f} host ms of {total_ms:.3f} [{card}]")
+
+
+@contextlib.contextmanager
+def no_sync_until_k6():
+    """Inside: from knn/ivf.py _tables' return until K6's launch
+    (fk_ivf_rescore), torch.cuda.set_sync_debug_mode("error"), so a
+    synchronizing call there raises. Yields the spans seen ("open",
+    "closed" for each search)."""
+    import torch
+
+    from fedrann_tpu_torch import _build
+    from fedrann_tpu_torch.knn import ivf
+
+    tables, launch = ivf._tables, _build.launch
+    spans: list = []
+
+    def after_tables(*args, **kwargs):
+        out = tables(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        spans.append("open")
+        return out
+
+    def then_k6(name, *args, **kwargs):
+        try:
+            return launch(name, *args, **kwargs)
+        finally:
+            if name == "fk_ivf_rescore":
+                torch.cuda.set_sync_debug_mode("default")
+                spans.append("closed")
+
+    ivf._tables, _build.launch = after_tables, then_k6
+    try:
+        yield spans
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        ivf._tables, _build.launch = tables, launch
+
+
+def pinned_bytes() -> str:
+    """The bytes torch's caching host allocator keeps page-locked (its
+    blocks, in use or cached: K10's results and the IVF bounds' copies
+    among them), as torch.cuda.host_memory_stats reports them."""
+    import torch
+
+    stats = (torch.cuda.host_memory_stats()
+             if hasattr(torch.cuda, "host_memory_stats") else {})
+    got = stats.get("allocated_bytes.current")
+    return ("not reported" if got is None else
+            f"{got} bytes in {stats.get('allocations.current')} blocks")
 
 
 def check_ivf_search(dev, card: str) -> dict:
@@ -3751,6 +3869,14 @@ def check_ivf_search(dev, card: str) -> dict:
             lambda: knn_ivf(rows, IVF_K, transfer="f32"), [dev])
     if not np.array_equal(idx, idx2):
         fail("11b: knn_ivf gave other neighbors under the step split")
+    with no_sync_until_k6() as spans:
+        idx3, _ = knn_ivf(rows, IVF_K, transfer="f32")
+    if spans != ["open", "closed"] or not np.array_equal(idx, idx3):
+        fail(f"11b: the no-sync run saw spans {spans} or gave other "
+             "neighbors")
+    log("11b: a warm knn_ivf under torch.cuda.set_sync_debug_mode('error') "
+        "from _tables' return until K6's launch made no synchronizing call "
+        f"[{card}]")
     log_ivf_split("11b knn_ivf", split, split_secs * 1e3, card)
     seg = split["segment sums"]
     log(f"11b segment sums (K9): {seg[0]:.3f} event ms / {seg[1]:.3f} host "
@@ -3880,7 +4006,9 @@ def check_ivf_sharded(fasta: str, out_dir: str, sim, card: str, dev,
             f"{w4:.3f} s warm ({c4:.3f} s cold) against one-card knn_ivf "
             f"{w1:.3f} s ({c1:.3f} s cold); recall against knn_exact on "
             f"{IVF_SAMPLE} queries {r4:.5f} (one card {r1:.5f}); agreement "
-            f"of the two over every row {set_agreement(sh, one):.6f} "
+            f"of the two over every row {set_agreement(sh, one):.6f}, "
+            f"{'equal' if np.array_equal(sh, one) else 'not equal'}; "
+            f"page-locked by torch's host cache: {pinned_bytes()} "
             f"[{card}]")
         if r4 < r1 - 0.02:
             fail(f"11d over {label}: sharded recall {r4:.5f} below one "
@@ -4292,32 +4420,41 @@ def ivf_case(en_pad, n_real: int, c: int, p: int, spill: int,
 
     _, top = ivf._tables(en_pad[:n_real], c, 3, spill, p)
     member, counts_h = ivf._members(top[:, :spill].reshape(-1), c, spill)
-    probes = top[:, :p].contiguous()
-    qtab, stab, qcounts_h = ivf._queries(probes, c)
-    return table_case(en_pad, n_real, member, counts_h, qtab, stab,
-                      qcounts_h, 0, n_real, p, k)
+    case = table_case(en_pad, n_real, member, counts_h,
+                      top[:, :p].contiguous(), 0, k)
+    # K11's member side, as knn_ivf makes it
+    case["members"] = ivf._member_side(top[:, :spill].reshape(-1), c, spill)
+    return case
 
 
-def table_case(en_pad, n_real: int, member, counts_h, qtab, stab, qcounts_h,
-               first: int, nq: int, p: int, k: int) -> dict:
+def table_case(en_pad, n_real: int, member, counts_h, probes, first: int,
+               k: int) -> dict:
+    """One rescore's inputs on the card: the dense tables and JAX's plan
+    (rescore_plain's), and the member and probe buckets with K6's work
+    list from K11 (rescore_clusters'), the member side from the dense
+    table (k6_edge_case and k6_flood_case make theirs by hand)."""
     from fedrann_tpu_torch.knn import ivf
 
-    kk_g = min(k, member.shape[1])
+    c, p = member.shape[0], probes.shape[1]
+    qtab, stab, qcounts_h = ivf._queries(probes, c)
+    members = ivf.table_buckets(member, counts_h)
     return dict(en_pad=en_pad, n_real=n_real, member=member,
                 counts_h=counts_h, qtab=qtab, stab=stab,
-                qcounts_h=qcounts_h, first=first, nq=nq, p=p, k=k,
-                kk_g=kk_g, groups=ivf._rescore_plan(
+                qcounts_h=qcounts_h, first=first, nq=probes.shape[0], p=p,
+                k=k, kk_g=min(k, member.shape[1]), groups=ivf._rescore_plan(
                     counts_h, qcounts_h, qtab.shape[1], member.shape[1]),
                 real=int((qcounts_h.astype("int64")
-                          * counts_h.astype("int64")).sum()))
+                          * counts_h.astype("int64")).sum()),
+                members=members, queries=ivf.bucket_clusters(
+                    probes.reshape(-1).contiguous(), c, p, members.bounds))
 
 
-def k6_run(case: dict, precision: str):
+def k6_run(case: dict, precision: str, queries=None):
     from fedrann_tpu_torch.knn.ivf import rescore_clusters
 
     return rescore_clusters(
-        case["en_pad"], case["n_real"], case["member"], case["counts_h"],
-        case["qtab"], case["stab"], case["qcounts_h"], case["first"],
+        case["en_pad"], case["n_real"], case["members"],
+        case["queries"] if queries is None else queries, case["first"],
         case["nq"], case["p"], case["kk_g"], precision)
 
 
@@ -4406,10 +4543,8 @@ def k6_edge_case(dev, k: int = 50) -> dict:
     probes = torch.from_numpy(np.stack([rng.choice(probed, p, replace=False)
                                         for _ in range(nq)]).astype(
         np.int32)).to(dev)
-    qtab, stab, qcounts_h = ivf._queries(probes, 8)
     return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
-                      np.array(sizes, np.int64), qtab, stab, qcounts_h,
-                      first, nq, p, k)
+                      np.array(sizes, np.int64), probes, first, k)
 
 
 def k6_flood_case(dev, k: int) -> dict:
@@ -4444,10 +4579,8 @@ def k6_flood_case(dev, k: int) -> dict:
     member[1, ::9][:10] = n_real + np.arange(10)
     probes = torch.from_numpy(np.tile(np.array([[0, 1]], np.int32),
                                       (130, 1))).to(dev)
-    qtab, stab, qcounts_h = ivf._queries(probes, 2)
     return table_case(en_pad, n_real, torch.from_numpy(member).to(dev),
-                      np.array([700, 90], np.int64), qtab, stab, qcounts_h,
-                      700, 130, 2, k)
+                      np.array([700, 90], np.int64), probes, 700, k)
 
 
 def sorted_lists(rng, rows: int, p: int, w: int, dev):
@@ -4508,7 +4641,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
         return got
 
     log_build("K6/K7", "ivf_(?:rescore|merge)", card)
-    log_build("K10/K11", "keys_to_host|table_", card)
+    log_build("K10/K11", "keys_to_host|bucket_kernel", card)
     # grid rows: bitwise
     cases = [("12 K6 edge cases", k6_edge_case(dev)),
              ("12 K6 grid rows, 15,000 x 512, C = 256",
@@ -4527,12 +4660,16 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 bad = (got != want).reshape(-1, case["kk_g"]).any(1)
                 fail(f"{label} ({precision}): K6 differs from rescore_plain "
                      f"in {int(bad.sum())} of {bad.numel()} lists")
+            if not torch.equal(got, k6_run(case, precision, ivf.host_units(
+                    case["members"], case["queries"]))):
+                fail(f"{label} ({precision}): K6 on K11's work list differs "
+                     "from K6 on the host's (host_units)")
         for spill in (1, 2, 3):
             merges(f"{label}", want, case["k"], spill)
         log(f"{label} (largest cluster {int(case['counts_h'].max())}): K6 "
-            "bf16 and fp32 bitwise rescore_plain "
-            f"({case['real']} real pair-scores), K7 bitwise at spill 1, 2, "
-            f"3 [{card}]")
+            "bf16 and fp32 bitwise rescore_plain, on K11's work list and on "
+            f"the host's ({case['real']} real pair-scores), K7 bitwise "
+            f"at spill 1, 2, 3 [{card}]")
 
     # K7 on sorted lists with recurring indices of other scores
     for rows, p, w, k in ((3000, 8, 50, 50), (500, 3, 7, 10),
@@ -4591,7 +4728,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
         wire = check_wire(f"12 K10 at {label}", en, card)
         tables = check_tables(f"12 K11 at {label}", en, c, card)
         if c == 256:
-            report.update(result_wire=wire, ivf_tables=tables)
+            report.update(result_wire=wire, ivf_buckets=tables)
         del en
         for precision in ("bf16", "fp32"):
             case = ivf_case(ivf._unit_padded(rows, precision),
@@ -4599,6 +4736,10 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
             got = k6_run(case, precision)
             if not torch.equal(got, k6_run(case, precision)):
                 fail(f"12 K6 {label} ({precision}): two launches differ")
+            if not torch.equal(got, k6_run(case, precision, ivf.host_units(
+                    case["members"], case["queries"]))):
+                fail(f"12 K6 {label} ({precision}): K6 on K11's work list "
+                     "differs from K6 on the host's (host_units)")
             want = k6_plain(case)
             agree, err = hold_k6(f"12 K6 {label} ({precision})", got, want)
             merged = merges(f"12 K7 {label} ({precision})", got, IVF_K, 2)
@@ -4610,8 +4751,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
             b = bound(case["nq"] * case["p"] * 512 * itemsize + got.numel()
                       * 8, **({"bf16_ops": ops} if precision == "bf16"
                               else {"fp32_ops": ops}))
-            units = len(ivf.rescore_units(case["counts_h"],
-                                          case["qcounts_h"]))
+            units = int(case["queries"].n_units[0])
             name = "ivf_rescore" if precision == "bf16" else \
                 "ivf_rescore_fp32"
             probed = sum(len(v) for v in case["groups"].values())
@@ -4625,7 +4765,8 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 f"{100 * b['bound_ms'] / ms:.1f}% of it); plain "
                 f"{plain_ms:.4f} ms; PR 16's design "
                 f"{PR16_MS[(name, at)]} ms; agreement {agree:.6f}, scores "
-                f"within {err:.3g}; two launches byte-identical [{card}]")
+                f"within {err:.3g}; two launches byte-identical, and "
+                f"bitwise on the host's work list [{card}]")
             flat = got.reshape(case["nq"], -1)
             kk = merged.shape[1]
             k7_ms = time_cuda(lambda: ivf.merge_probe_lists(got, IVF_K, 2), 5)
@@ -4956,12 +5097,77 @@ def check_wire(label: str, en, card: str) -> dict:
     return report["u16"]
 
 
+def hold_buckets(label: str, got, want) -> None:
+    """K11's Buckets against bucket_clusters_plain's: vals, bounds and
+    slots bitwise, the work list (its first n_units rows) as a set of
+    rows, ordered longest member count (bit length) first; fails
+    otherwise."""
+    import torch
+
+    same = all(torch.equal(g, w) for g, w in (
+        (got.vals, want.vals), (got.bounds, want.bounds)))
+    if want.slots is not None:
+        n_units = int(got.n_units[0])
+        rows = [tuple(r) for r in got.units[:n_units].tolist()]
+        length = [int(m).bit_length() for *_, m in rows]
+        same = same and torch.equal(got.slots, want.slots) \
+            and sorted(rows) == sorted(
+                tuple(r) for r in want.units.tolist()) \
+            and length == sorted(length, reverse=True)
+    if not same:
+        fail(f"{label}: K11 differs from bucket_clusters_plain")
+
+
+def hold_k11(label: str, x, c: int, spill: int):
+    """K11 on the (N, p) ids x over c clusters: the member side of its
+    first `spill` columns and the probe side of all p, each twice,
+    bitwise bucket_clusters_plain (hold_buckets) and from the same run
+    twice, and expanded (ivf.expand_buckets) bitwise member_table_plain and
+    probe_tables_plain at tables as wide as their largest cluster rounded
+    up to 128. Returns the two sides."""
+    import torch
+
+    from fedrann_tpu_torch.knn import ivf
+
+    p = x.shape[1]
+    a = x[:, :spill].reshape(-1).contiguous()
+    flat = x.reshape(-1).contiguous()
+    members = ivf.bucket_clusters(a, c, spill)
+    queries = ivf.bucket_clusters(flat, c, p, members.bounds)
+    again = (ivf.bucket_clusters(a, c, spill),
+             ivf.bucket_clusters(flat, c, p, members.bounds))
+    want = ivf.bucket_clusters_plain(a, c, spill)
+    for got in (members, again[0]):
+        hold_buckets(f"{label}, member side (spill {spill})", got, want)
+    want_q = ivf.bucket_clusters_plain(flat, c, p, want.bounds)
+    for got in (queries, again[1]):
+        hold_buckets(f"{label}, probe side (p = {p})", got, want_q)
+    counts = torch.bincount(a, minlength=c)
+    qcounts = torch.bincount(flat, minlength=c)
+    m, qm = (ivf._ceil128(int(t.max())) for t in (counts, qcounts))
+    table_q, table_s = ivf.probe_tables_plain(x, qcounts, c, qm)
+    n = x.shape[0]
+    if not (torch.equal(ivf.expand_buckets(members.vals, members.bounds, m,
+                                           n),
+                        ivf.member_table_plain(a, counts, c, m, spill))
+            and torch.equal(ivf.expand_buckets(queries.vals, queries.bounds,
+                                               qm, n), table_q)
+            and torch.equal(ivf.expand_buckets(queries.slots,
+                                               queries.bounds, qm, 0),
+                            table_s)):
+        fail(f"{label}: K11's buckets expand to other tables than "
+             "member_table_plain's and probe_tables_plain's")
+    return members, queries
+
+
 def k11_edge_cases(dev, card: str) -> None:
-    """K11 bitwise member_table_plain and probe_tables_plain on the card:
-    every odd cluster empty, C = 1, N = 4 K9_TILE + 77 (not a multiple of
-    a tile), p = C = 8 (each row a permutation of the clusters), a strided
-    spill-1 slice (as _members takes it), and C = 65,536 over 5,000 rows
-    (the counts in device memory), spill 1 and 2."""
+    """K11 on the card (hold_k11: both sides, bitwise their plain
+    versions and the dense tables): every odd cluster empty, C = 1, N = 4
+    K9_TILE + 77 (not a multiple of a tile), p = C = 8 (each row a
+    permutation of the clusters), a strided spill-1 slice (as knn_ivf
+    takes it), C = 2,048, 4,096 and 12,288 (counts filling all 48 KB of
+    shared memory a block), and C = 16,384 and 65,536 (the counts in
+    device memory), spill 1 and 2."""
     import numpy as np
     import torch
 
@@ -4974,110 +5180,101 @@ def k11_edge_cases(dev, card: str) -> None:
                              ("N = 4 K9_TILE + 77", 4 * ivf.K9_TILE + 77, 37,
                               2),
                              ("p = C = 8", 500, 8, 8),
+                             ("C = 2,048", 60_000, 2048, 8),
+                             ("C = 4,096", 60_000, 4096, 2),
+                             ("C = 12,288", 30_000, 12_288, 2),
+                             ("C = 16,384", 20_000, 16_384, 2),
                              ("C = 65,536", 5000, 65_536, 2)):
         x = (np.stack([rng.permutation(c) for _ in range(n)])
-             if per == c else rng.integers(0, c, (n, per)))
+             if per == c else np.stack([rng.choice(c, per, replace=False)
+                                        for _ in range(n)]))
         if label == "empty clusters":
             x = x - x % 2
         cases.append((label, torch.from_numpy(x.astype(np.int32)).to(dev),
                       c))
     top = cases[0][1]
-    cases.append(("a strided spill-1 slice", top, 64))
+    cases.append(("a strided spill-1 slice", top[:, :1], 64))
     for label, x, c in cases:
         for spill in sorted({1, x.shape[1]}):
-            a = x[:, :spill].reshape(-1)
-            counts = torch.bincount(a, minlength=c)
-            buckets, sizes = ivf._cluster_counts(a, c)
-            m = ivf._ceil128(int(counts.max()))
-            got = ivf._member_table(a, buckets, c, m, spill)
-            if not (np.array_equal(sizes, counts.cpu().numpy())
-                    and torch.equal(got, ivf.member_table_plain(
-                        a, counts, c, m, spill))):
-                fail(f"12 K11 edge case {label}: the member table (spill "
-                     f"{spill}) or its counts differ from "
-                     "member_table_plain's")
-        qcounts = torch.bincount(x.reshape(-1), minlength=c)
-        qm = ivf._ceil128(int(qcounts.max()))
-        got = ivf._queries(x, c)
-        want = ivf.probe_tables_plain(x, qcounts, c, qm)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-                and np.array_equal(got[2], qcounts.cpu().numpy())):
-            fail(f"12 K11 edge case {label}: the probe tables or their "
-                 "counts differ from probe_tables_plain's")
-    log("12 K11 bitwise member_table_plain and probe_tables_plain at "
+            hold_k11(f"12 K11 edge case {label}", x, c, spill)
+    log("12 K11 bitwise bucket_clusters_plain, member_table_plain and "
+        "probe_tables_plain (both sides, two calls) at "
         + ", ".join(c[0] for c in cases) + f" [{card}]")
 
 
 def check_tables(label: str, en, c: int, card: str) -> dict:
-    """K11 (_member_table and _probe_tables on the card, each after its
-    bucketing, as _members and _queries run them) against
-    member_table_plain and probe_tables_plain after torch.bincount,
-    bitwise with the same counts on the host, on the unit rows en (N, d)
-    at C = c with their own k-means's spill and probe lists (spill 1 and
-    2, p = 8, as _members and _rescore take them), two calls equal; each
-    step (the counts, their host copy that sizes the table, the table)
-    timed (the median of 7 timings, as K9's: its host path leads) with its
-    device us beside the plain step and a torch.sort(stable=True) of the
-    same ids (a reference, not a call that builds the table), with its
-    bound: the ids read and the table(s) written. Returns the member
-    table's report entry at spill 2."""
-    import numpy as np
+    """K11 on the unit rows en (N, d) at C = c with their own k-means's
+    spill and probe lists (the member side at spill 1 and 2, the probe
+    side of p = 8 over spill 2's bounds, as knn_ivf takes them): bitwise
+    its plain version and the dense tables (hold_k11); each side's whole
+    step (the wrapper and its one launch) timed, the median of 7
+    timings, with its device us, and behind a busy card its call's host
+    time and its device time by events (behind_busy_card), beside
+    bucket_clusters_plain and a torch.sort(stable=True) of the same ids
+    timed the same ways (a
+    reference: it sorts, and makes no bounds or units); its bound the
+    bytes: the ids read, vals (and slots) written, the bounds written (the
+    member side's read on the probe side) and the units this run made.
+    Returns the member side's report entry at spill 2."""
     import torch
 
     from fedrann_tpu_torch.knn import ivf
 
     _, top = ivf._tables(en, c, 3, 2, 8)
     report = {}
+    sides = {spill: hold_k11(label, top[:, :8], c, spill)
+             for spill in (1, 2)}
+    members = sides[2][0]
     for spill in (1, 2, "probes"):
         if spill == "probes":
-            ids = top[:, :8].contiguous()
+            ids = top[:, :8].reshape(-1).contiguous()
+            mb = members.bounds
 
             def k11():
-                return ivf._queries(ids, c)
+                return ivf.bucket_clusters(ids, c, 8, mb)
 
             def plain():
-                counts = torch.bincount(ids.reshape(-1), minlength=c)
-                counts_h = counts.cpu().numpy()
-                return (*ivf.probe_tables_plain(
-                    ids, counts, c, ivf._ceil128(counts_h.max())), counts_h)
-            what, tables = "probe tables, p = 8", 2
+                return ivf.bucket_clusters_plain(ids, c, 8, mb)
+            what = "probe side, p = 8"
+            got = sides[2][1]
+            n_units = int(got.n_units[0])
+            out = 2 * ids.numel() * 4 + 2 * (c + 1) * 4 + n_units * 16 + 4
         else:
-            ids = top[:, :spill].reshape(-1)
+            ids = top[:, :spill].reshape(-1).contiguous()
 
             def k11():
-                return ivf._members(ids, c, spill)
+                return ivf.bucket_clusters(ids, c, spill)
 
             def plain():
-                counts = torch.bincount(ids, minlength=c)
-                counts_h = counts.cpu().numpy()
-                return (ivf.member_table_plain(
-                    ids, counts, c, ivf._ceil128(counts_h.max()), spill),
-                    counts_h)
-            what, tables = f"member table, spill {spill}", 1
-
-        def same(x, y):
-            return all(torch.equal(g, w) if isinstance(g, torch.Tensor)
-                       else np.array_equal(g, w) for g, w in zip(x, y))
-        got, again, want = k11(), k11(), plain()
-        if not same(got, want) or not same(got, again):
-            fail(f"{label} {what}: K11 differs from the plain version or "
-                 "from itself")
-        flat = ids.reshape(-1)
-        counts_h, width = got[-1], got[0].shape[1]
+                return ivf.bucket_clusters_plain(ids, c, spill)
+            what = f"member side, spill {spill}"
+            got = sides[spill][0]
+            n_units = 0
+            out = ids.numel() * 4 + (c + 1) * 4
+        sizes = torch.diff(got.bounds)
         ms, ms_range = time_cuda_median(k11, 20, 7)
+        sort_ms, sort_range = time_cuda_median(
+            lambda: torch.sort(ids, stable=True), 20, 7)
         plain_ms = time_cuda(plain, 10)
-        sort_ms = time_cuda(lambda: torch.sort(flat, stable=True), 10)
-        b = bound(flat.numel() * 4 + tables * c * width * 4)
-        log(f"{label} {what} ({flat.numel()} ids, width {width}, largest "
-            f"cluster {int(counts_h.max())}, {int((counts_h == 0).sum())} "
-            f"empty): {ms:.4f} ms a step (K11's bucketing, the sizes' host "
-            f"copy, the table; median; {ms_range[0]:.4f}-{ms_range[1]:.4f}),"
-            f" device {device_us(k11, 5, True)} us a step; plain (bincount, "
-            f"its host copy, the torch table) {plain_ms:.4f} ms; "
-            f"torch.sort(stable=True) of the ids {sort_ms:.4f} ms (a "
-            f"reference); bound {b['bound_ms']:.5f} ms (bytes, "
-            f"{100 * b['bound_ms'] / ms:.1f}% of it); bitwise the plain "
-            f"tables and counts, two calls equal [{card}]")
+        enqueue_us, events_us = behind_busy_card(k11, 20)
+        sort_enqueue, sort_events = behind_busy_card(
+            lambda: torch.sort(ids, stable=True), 20)
+        b = bound(ids.numel() * 4 + out)
+        below = "below" if ms < sort_ms else "NOT below"
+        log(f"{label} {what} ({ids.numel()} ids, largest cluster "
+            f"{int(sizes.max())}, {int((sizes == 0).sum())} empty"
+            + (f", {n_units} units" if n_units else "") + f"): {ms:.4f} ms "
+            f"a step (median; {ms_range[0]:.4f}-{ms_range[1]:.4f}), device "
+            f"{device_us(k11, 5, True)} us a step; behind a busy card "
+            f"{enqueue_us:.1f} us of host time a call, {events_us:.1f} us "
+            f"of device time by events; torch.sort(stable=True) of the ids "
+            f"{sort_ms:.4f} ms (median; {sort_range[0]:.4f}-"
+            f"{sort_range[1]:.4f}; K11 {below} it; behind a busy card "
+            f"{sort_enqueue:.1f} / {sort_events:.1f} us); plain (sort, "
+            f"bincount, units) {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.5f} ms (bytes, {100 * b['bound_ms'] / ms:.1f}% "
+            f"of it); bitwise the plain buckets and the dense tables, two "
+            f"calls equal [{card}]")
         report[spill] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                              library_ms=None, **b)
     return report[2]
@@ -5306,10 +5503,9 @@ def register_counters() -> None:
         stage_candidates,
     )
     from fedrann_tpu_torch.knn.ivf import (
+        bucket_clusters,
         knn_ivf,
         knn_ivf_sharded,
-        cluster_buckets,
-        cluster_tables,
         knn_ivf_sharded_multihost,
         merge_probe_lists,
         rescore_clusters,
@@ -5341,8 +5537,8 @@ def register_counters() -> None:
         "ivf_rescore_fp32": (rescore_clusters, "fp32_launches"),
         "ivf_merge": (merge_probe_lists, "kernel_launches"),
         "ivf_segment_sum": (segment_sum_rows, "kernel_launches"),
-        "ivf_tables": (cluster_tables, "kernel_launches"),
-        "ivf_buckets": (cluster_buckets, "kernel_launches"),
+        "ivf_buckets": (bucket_clusters, "kernel_launches"),
+        "ivf_buckets_probe": (bucket_clusters, "probe_launches"),
         "result_wire": (result_wire, "kernel_launches"),
         "srp_signs": (sign_table, "kernel_launches"),
         "srp_paired": (paired_table, "kernel_launches")})
@@ -5547,14 +5743,14 @@ def main() -> None:
             ivf_rescore_fp32=ivf_launches["ivf_rescore_fp32"],
             ivf_merge=ivf_launches["ivf_merge"],
             ivf_segment_sum=ivf_launches["ivf_segment_sum"],
-            ivf_tables=ivf_launches["ivf_tables"],
+            ivf_buckets=ivf_launches["ivf_buckets"],
             srp_paired=paired_launches)
         log(f"11 CLI runs: K4 {ivf_launches['knn_merge']} launches "
             f"({ivf_launches['knn_merge_fp32']} fp32), K6 "
             f"{ivf_launches['ivf_rescore']} ({launches['ivf_rescore_fp32']} "
             f"fp32), K7 {launches['ivf_merge']}, K9 "
             f"{launches['ivf_segment_sum']}, K10 "
-            f"{ivf_launches['result_wire']}, K11 {launches['ivf_tables']} "
+            f"{ivf_launches['result_wire']}, K11 {launches['ivf_buckets']} "
             f"[{card}]")
 
         t0 = time.perf_counter()

@@ -81,22 +81,20 @@ _SIGNATURES = {
     # out, vec, units, parts, stream
     "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,
                      _I64, _I64, _P, _I32, _I64, _P, _P],
-    # ivf_rescore.cu: rows, d, is_bf16, member, m_all, qtab, stab, qm,
-    # units, n_units, first, n_real, p, W, buf, vec, stream
-    "fk_ivf_rescore": [_P, _I64, _I32, _P, _I64, _P, _P, _I64, _P, _I64,
-                       _I64, _I64, _I64, _I64, _P, _I32, _P],
+    # ivf_rescore.cu: rows, d, is_bf16, member, qvals, qslots, units,
+    # n_units, grid, first, n_real, p, W, buf, vec, stream
+    "fk_ivf_rescore": [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                       _I64, _I64, _P, _I32, _P],
     # buf, rows, p, L, K, dedup, out, stream
     "fk_ivf_merge": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P],
     # ivf_segment_sum.cu: rows, n, d, is_bf16, a, n_clusters, tile_rows,
     # n_tiles, scratch, accumulate, out, stream
     "fk_ivf_segment_sum": [_P, _I64, _I64, _I32, _P, _I64, _I64, _I64, _P,
                            _I32, _P, _P],
-    # a, n, n_clusters, tile_rows, n_tiles, scratch, stream
-    "fk_ivf_buckets": [_P, _I64, _I64, _I64, _I64, _P, _P],
-    # a, n, n_clusters, tile_rows, n_tiles, scratch, width, div, pad,
-    # table, slots, stream
-    "fk_ivf_tables": [_P, _I64, _I64, _I64, _I64, _P, _I64, _I64, _I32, _P,
-                      _P, _P],
+    # a, n, n_clusters, div, member_bounds, vals, slots, bounds, units,
+    # n_units, scratch, scratch_ints, stream
+    "fk_ivf_bucket": [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _I64,
+                      _P],
     # result_wire.cu: keys, n, u16_dist, u16_idx, idx, dist, stream
     "fk_keys_to_host": [_P, _I64, _I32, _I32, _P, _P, _P],
     # bytes, out (a void**); the block

@@ -13,24 +13,31 @@
 // of them, sorted descending, go to buf[qtab[c, j], stab[c, j], :] and
 // the rest of its W slots to EMPTY_KEY. JAX's power-of-two size classes
 // only pad with slots that are EMPTY_KEY either way, so K6 walks each
-// cluster's true counts with masked tails.
+// cluster's true counts with masked tails, read from K11's buckets (no
+// table, no width).
 //
 // Bound on the card: operations, 2 * d * the real pair-scores (the sum
 // over probed clusters of queries times members): at bf16 over the
 // tensor cores' 989 TFLOP/s, at fp32 over the FFMA pipe's 67 TFLOP/s. The
 // bytes are the query and member rows each unit gathers and the buffer.
 //
-// Units. The host cuts the probed clusters into units of BM = 128 query
-// slots (knn/ivf.py rescore_units: (cluster, first slot, slots, members),
-// the clusters with the most members first); a block a unit, one an SM.
+// Units. K11 (csrc/ivf_segment_sum.cu, the probe side of knn/ivf.py
+// bucket_clusters) cuts the probed clusters into units of BM = 128 query
+// slots on the card: (first member offset into the member buckets, first
+// query offset into the probe buckets, slots, members), the clusters of
+// the longest member counts first, and writes their count to device
+// memory; the host launches a grid of the most units there can be
+// (ceil(nq p / 128) + C) and a block past the count returns at once. A
+// block a unit, one an SM.
 // Eight warps; warp w owns the unit's query slots 16 w .. 16 w + 15 in the
 // product's result and in everything after it, so no step past the
 // product waits for another warp.
 //
 // The product. The unit's members are walked in tiles of BN = 128, each
 // tile's depth in stages of 128 bytes a row, three in flight (cp.async
-// groups, one barrier a step): the stage's query rows gathered by qtab,
-// its member rows by member[c, :], each row in eight 16-byte cp.async
+// groups, one barrier a step): the stage's query rows gathered by the
+// unit's probe bucket, its member rows by the cluster's member bucket,
+// each row in eight 16-byte cp.async
 // pieces (scalar loads where d * itemsize % 16 != 0 or the base is not 16
 // bytes aligned), zeros past the unit's slots, past its members, for a
 // member >= n_real and past d. Piece p of stage row r lies at piece p ^ (r
@@ -183,7 +190,7 @@ struct QueryRows {  // the unit's query slots
 };
 
 struct MemberRows {  // members t0 + r of the unit's cluster
-  const int32_t* mem;  // member[c, :]
+  const int32_t* mem;  // the cluster's member bucket
   int64_t t0, nm, n_real;
   __device__ int64_t operator()(int r) const {
     if (t0 + r >= nm) return -1;
@@ -245,9 +252,9 @@ __device__ __forceinline__ int64_t* survivors(float* S, int r) {
 
 // What a block knows of its unit.
 struct Unit {
-  const int32_t* mem;  // member[c, :]
-  const int32_t* qt;   // qtab[c, j0 + ..]
-  const int32_t* st;   // stab[c, j0 + ..]
+  const int32_t* mem;  // the cluster's members (its member bucket)
+  const int32_t* qt;   // the unit's query rows (its probe bucket from j0)
+  const int32_t* st;   // their probe slots
   int64_t nm, n_real, p;
   int mq, W;
   int64_t* buf;
@@ -619,16 +626,19 @@ __device__ __forceinline__ int offer(const Unit& u, int r, int64_t t,
 
 // TC: the tensor-core (bf16) product on bf16 rows, else the FFMA (fp32)
 // product on float32 rows. LS: W <= 64, the lists in shared memory.
-// units: (cluster, first slot, slots, members).
+// units: (first member offset, first query offset, slots, members), the
+// first *n_units of them (a block past them returns at once).
 template <bool TC, bool LS>
 __global__ void __launch_bounds__(THREADS, 1)
     ivf_rescore_kernel(const void* __restrict__ rows_v, int64_t d,
-                       const int32_t* __restrict__ member, int64_t m_all,
-                       const int32_t* __restrict__ qtab,
-                       const int32_t* __restrict__ stab, int64_t qm,
-                       const int4* __restrict__ units, int64_t first,
+                       const int32_t* __restrict__ member,
+                       const int32_t* __restrict__ qvals,
+                       const int32_t* __restrict__ qslots,
+                       const int4* __restrict__ units,
+                       const int32_t* __restrict__ n_units, int64_t first,
                        int64_t n_real, int64_t p, int W, int64_t* buf,
                        bool vec) {
+  if (static_cast<int>(blockIdx.x) >= *n_units) return;
   constexpr int SV = LS ? SV_LS : SV_DEV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
@@ -638,11 +648,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0w = warp * 16;
   const int4 q4 = units[blockIdx.x];
-  const int64_t c = q4.x, j0 = q4.y;
   Unit u;
-  u.mem = member + c * m_all;
-  u.qt = qtab + c * qm + j0;
-  u.st = stab + c * qm + j0;
+  u.mem = member + q4.x;
+  u.qt = qvals + q4.y;
+  u.st = qslots + q4.y;
   u.nm = q4.w;
   u.n_real = n_real;
   u.p = p;
@@ -889,17 +898,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <bool TC, bool LS>
 cudaError_t launch_rescore(const void* rows, int64_t d,
-                           const int32_t* member, int64_t m_all,
-                           const int32_t* qtab, const int32_t* stab,
-                           int64_t qm, const int4* units, int64_t n_units,
+                           const int32_t* member, const int32_t* qvals,
+                           const int32_t* qslots, const int4* units,
+                           const int32_t* n_units, int64_t grid,
                            int64_t first, int64_t n_real, int64_t p, int W,
                            int64_t* buf, bool vec, cudaStream_t st) {
   auto kernel = ivf_rescore_kernel<TC, LS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(n_units), THREADS, SMEM_BYTES, st>>>(
-      rows, d, member, m_all, qtab, stab, qm, units, first, n_real, p, W,
+  kernel<<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES, st>>>(
+      rows, d, member, qvals, qslots, units, n_units, first, n_real, p, W,
       buf, vec);
   return cudaGetLastError();
 }
@@ -1103,22 +1112,26 @@ cudaError_t launch_merge(const int64_t* buf, int64_t rows, int64_t p,
 }  // namespace
 
 // K6: the rescore of knn/ivf.py rescore_clusters. rows (R, d) row-major,
-// bfloat16 (is_bf16 = 1: wgmma) or float32 (FFMA); member (C, m_all) and
-// qtab, stab (C, qm) int32; units (n_units, 4) int32 (cluster, first
-// slot, slots <= 128, members); query slot j of cluster c is row first +
-// qtab[c, j]; members >= n_real never win; buf (nq, p, W) int64, every
-// (query, slot) list of a unit written whole. vec = 1 where d * itemsize is
-// a multiple of 16 and rows is 16-byte aligned (16-byte loads). The
-// block's shared-memory opt-in is set on the current device.
+// bfloat16 (is_bf16 = 1: wgmma) or float32 (FFMA); member the member
+// buckets' ids, qvals and qslots the probe buckets' query rows and probe
+// slots (int32, knn/ivf.py bucket_clusters); units (grid, 4) int32 (first
+// member offset, first query offset, slots <= 128, members), of which the
+// first *n_units (a device int32, at most grid) are K6's work list: a
+// unit's members are member[x .. x + w), its query slot j is row first +
+// qvals[y + j] at probe slot qslots[y + j]; members >= n_real never win;
+// buf (nq, p, W) int64, every (query, slot) list of a unit written whole.
+// vec = 1 where d * itemsize is a multiple of 16 and rows is 16-byte
+// aligned (16-byte loads). The block's shared-memory opt-in is set on the
+// current device.
 extern "C" int fk_ivf_rescore(const void* rows, int64_t d, int is_bf16,
-                              const int32_t* member, int64_t m_all,
-                              const int32_t* qtab, const int32_t* stab,
-                              int64_t qm, const int32_t* units,
-                              int64_t n_units, int64_t first, int64_t n_real,
-                              int64_t p, int64_t W, int64_t* buf, int vec,
+                              const int32_t* member, const int32_t* qvals,
+                              const int32_t* qslots, const int32_t* units,
+                              const int32_t* n_units, int64_t grid,
+                              int64_t first, int64_t n_real, int64_t p,
+                              int64_t W, int64_t* buf, int vec,
                               void* stream) {
-  if (n_units <= 0) return static_cast<int>(cudaSuccess);
-  if (W <= 0 || W > INT32_MAX || d <= 0 || p <= 0 || n_units > INT32_MAX) {
+  if (grid <= 0) return static_cast<int>(cudaSuccess);
+  if (W <= 0 || W > INT32_MAX || d <= 0 || p <= 0 || grid > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1127,18 +1140,20 @@ extern "C" int fk_ivf_rescore(const void* rows, int64_t d, int is_bf16,
   const bool v = vec != 0;
   cudaError_t err;
   if (is_bf16) {
-    err = W <= WL ? launch_rescore<true, true>(rows, d, member, m_all, qtab,
-                                              stab, qm, u, n_units, first,
+    err = W <= WL ? launch_rescore<true, true>(rows, d, member, qvals, qslots,
+                                              u, n_units, grid, first,
                                               n_real, p, w, buf, v, st)
-                  : launch_rescore<true, false>(rows, d, member, m_all, qtab,
-                                               stab, qm, u, n_units, first,
-                                               n_real, p, w, buf, v, st);
+                  : launch_rescore<true, false>(rows, d, member, qvals,
+                                               qslots, u, n_units, grid,
+                                               first, n_real, p, w, buf, v,
+                                               st);
   } else {
-    err = W <= WL ? launch_rescore<false, true>(rows, d, member, m_all, qtab,
-                                               stab, qm, u, n_units, first,
-                                               n_real, p, w, buf, v, st)
-                  : launch_rescore<false, false>(rows, d, member, m_all,
-                                                qtab, stab, qm, u, n_units,
+    err = W <= WL ? launch_rescore<false, true>(rows, d, member, qvals,
+                                               qslots, u, n_units, grid,
+                                               first, n_real, p, w, buf, v,
+                                               st)
+                  : launch_rescore<false, false>(rows, d, member, qvals,
+                                                qslots, u, n_units, grid,
                                                 first, n_real, p, w, buf, v,
                                                 st);
   }

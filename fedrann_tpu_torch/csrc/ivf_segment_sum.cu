@@ -1,6 +1,7 @@
 // K9: the IVF k-means's segment sum (knn/ivf.py _segment_sum), with its
 // own bucketing of the rows by cluster; and K11, the IVF member and probe
-// tables (knn/ivf.py _member_table, _probe_tables) on that bucketing.
+// buckets and K6's work list (knn/ivf.py bucket_clusters), a bucketing in
+// one cooperative launch.
 //
 // Computes what the JAX package's _kmeans does with jax.ops.segment_sum
 // (fedrann_tpu/knn/ivf.py:83, in _kmeans :61; an XLA scatter-add, no
@@ -46,22 +47,6 @@
 //      is not a multiple of 16, or whose base is not 16-byte aligned, take
 //      seg_sum_scalar_kernel (the same order, loads one element at a time).
 //
-// K11, fk_ivf_buckets and fk_ivf_tables, builds the IVF member and probe
-// tables on the same bucketing. It replaces the JAX package's
-// _member_table (fedrann_tpu/knn/ivf.py:117) and _probe_tables (:170): a
-// stable jnp.argsort of the cluster ids, then a scatter into a (C, width)
-// table padded with a sentinel (XLA, no pl.pallas_call). Steps 1 and 2
-// run as they are (fk_ivf_buckets; the host reads the clusters' sizes
-// from the bounds to size the table, the one sync the JAX package's
-// callers make too); then (fk_ivf_tables) table_scatter_kernel walks each
-// tile as step 3 does, but
-// writes each entry r at (its cluster, its rank among that cluster's
-// entries), r / div into the table and r % div into the slot table, and
-// table_pad_kernel fills each cluster's row past its size: no order array,
-// no sort. Its bound is bytes: the n int32 ids read and the table(s)
-// written, C * width * 4 bytes each (a few MB at 11b's C = 1,024); the
-// steps themselves are latency-bound, as the bucketing is.
-//
 // Bound on the card: the bytes the function must move, the rows read once
 // (N * d * itemsize), the N int32 assignments read and the sums written
 // (C * d * 4; read too when accumulating): 540.0 MB at N = 262,144, d =
@@ -80,11 +65,51 @@
 // (11b's k-means leaves at most 419 rows a cluster): the ring keeps RING
 // of its rows in flight a lane, and the longest-first order starts it at
 // the launch.
+//
+// K11 (bucket_kernel, entry fk_ivf_bucket) replaces the JAX package's
+// _member_table (fedrann_tpu/knn/ivf.py:117) and _probe_tables (:170): a
+// stable jnp.argsort of the cluster ids, then a scatter into a (C, width)
+// table padded with a sentinel (XLA, no pl.pallas_call). XLA needs the
+// static width; K6 does not (it walks each cluster's true count), so K11
+// writes the bucket form: the (C + 1) bounds and, in bucket order, each
+// entry r as r / div (vals) and, on the probe side, r % div (slots);
+// cluster c's are vals[bounds[c] : bounds[c + 1]] in entry order, the
+// same stable order, and expanded row by row they are JAX's table up to
+// each count. There is no width, no pad, no host copy and no counter
+// carried between launches. The probe side also takes the member side's
+// bounds and writes K6's work list: each probed cluster's ceil(q / 128)
+// units (first member offset, first query offset, slots, members), the
+// clusters of the longest member counts (by bit length, as K9's schedule)
+// first, and the unit count in device memory; K6 launches a grid the host
+// bounds at ceil(n / 128) + C without reading it. One launch, a
+// persistent grid of the blocks the card holds at once (asked of
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor once, at least
+// BK_MIN_BLOCKS an SM), its phases apart by cooperative_groups grid
+// barriers (bucket_kernel says what each does). A tile's stable ranks come
+// from one ballot a bit of the ids a step of 32 (the lanes of a step with
+// the same cluster), not __match_any_sync, and a block's warps each walk
+// a consecutive part of its tile with counts of their own in shared memory
+// (past SMEM_HIST clusters a warp is a tile, its counts in device memory,
+// zeroed by the launch behind a barrier). The plan sizes the tiles for
+// about BK_RUN entries of each cluster (at least BK_MIN_TILES tiles where
+// the entries allow): a cluster's entries of a tile land side by side, so
+// its scattered stores share sectors. Its bound is bytes: the n ids
+// read, vals (and slots) written, the bounds written (the member side's
+// read) and the units written: 7.6 us at 11b's probe lists (2,097,152
+// ids), 1.3 us at its member lists, at 3.35 TB/s. Each entry's vals and
+// slots are single scattered 4-byte stores (a step's 32 entries fall in
+// as many clusters on the probe side), so the scatter, not the bytes,
+// sets its time (chip_smoke.py phase 12 logs it beside torch.sort).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -170,10 +195,10 @@ __global__ void seg_count_kernel(const int32_t* __restrict__ a, int64_t n,
   }
 }
 
-// Exclusive prefix of v over the block's threads (SCAN_WARPS warps), its
-// total in *total; `warp_sums` a __shared__ int[SCAN_WARPS + 1].
-__device__ __forceinline__ int block_exclusive(int v, int* warp_sums,
-                                               int* total) {
+// Exclusive prefix of v over a block of WARPS warps, its total in *total;
+// `warp_sums` a __shared__ int[WARPS + 1].
+template <int WARPS>
+__device__ __forceinline__ int block_scan(int v, int* warp_sums, int* total) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int incl = v;
@@ -186,16 +211,18 @@ __device__ __forceinline__ int block_exclusive(int v, int* warp_sums,
   __syncthreads();
   if (threadIdx.x == 0) {
     int run = 0;
-    for (int w = 0; w < SCAN_WARPS; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       const int x = warp_sums[w];
       warp_sums[w] = run;
       run += x;
     }
-    warp_sums[SCAN_WARPS] = run;
+    warp_sums[WARPS] = run;
   }
   __syncthreads();
-  *total = warp_sums[SCAN_WARPS];
-  return warp_sums[warp] + incl - v;
+  *total = warp_sums[WARPS];
+  const int out = warp_sums[warp] + incl - v;
+  __syncthreads();  // warp_sums is free for the next scan
+  return out;
 }
 
 // A block a run of 32 clusters, its warps over the tiles: counts[t * C +
@@ -257,7 +284,7 @@ __global__ void __launch_bounds__(SCAN_WARPS * 32)
     atomicAdd(&lengths[32 - __clz(__ldcg(bounds + i))], 1);
   }
   int total;
-  int at = block_exclusive(mine, warp_sums, &total);
+  int at = block_scan<SCAN_WARPS>(mine, warp_sums, &total);
   if (threadIdx.x == 0) {  // longest first: each length's first slot
     int slot = 0;
     for (int b = 32; b >= 0; --b) {
@@ -335,52 +362,326 @@ __global__ void seg_scatter_kernel(const int32_t* __restrict__ a, int64_t n,
             });
 }
 
-// K11: per tile (a warp each) its rows into the (C, width) tables: row r
-// of cluster c at place j (its rank among the rows of c) writes
-// table[c][j] = r / div and, with slots, slots[c][j] = r % div. A place
-// past the width is dropped (the caller sizes the width by the counts).
-__global__ void table_scatter_kernel(const int32_t* __restrict__ a,
-                                     int64_t n, int c_n, int64_t tile_rows,
-                                     int n_tiles, bool smem,
-                                     int32_t* __restrict__ counts,
-                                     int64_t width, int div,
-                                     int32_t* __restrict__ table,
-                                     int32_t* __restrict__ slots) {
-  extern __shared__ int32_t cursor_s[];
+// K11: the IVF member and probe buckets, and K6's work list, in one
+// cooperative launch (bucket_kernel, entry fk_ivf_bucket).
+
+constexpr int BK_WARPS = 8;                    // warps of a K11 block
+constexpr int BK_THREADS = BK_WARPS * 32;
+constexpr int BK_MIN_BLOCKS = 4;               // resident an SM, at least
+constexpr int BK_MIN_ROWS = 256;               // entries a walking warp takes
+constexpr int BK_RUN = 16;                     // a cluster's entries a tile
+constexpr int BK_MIN_TILES = 128;              // tiles, where entries allow
+constexpr int BK_CLASSES = 33;                 // bit lengths of a count: 0..32
+constexpr int BK_MAX_BLOCKS = 2048;            // block sums scratch keeps
+constexpr int BK_EXTRA = BK_MAX_BLOCKS + 2 * BK_CLASSES;  // scratch past counts
+constexpr int K6_UNIT_ROWS = 128;              // query slots a K6 unit (BM)
+
+struct BucketArgs {
+  const int32_t* a;        // (n,) cluster ids
+  int64_t n;
+  int c_n, nbits;          // clusters; bits of the largest id
+  int div;                 // an entry r goes in as r / div (and r % div)
+  int walkers;             // warps that walk a block's tile (counts in smem)
+  bool smem;               // each warp's counts in shared memory
+  int64_t wt;              // entries a walking warp takes
+  int tiles;               // rows of counts: block tiles, or warp tiles
+  int32_t* counts;         // (tiles, C)
+  int32_t* block_sums;     // (gridDim.x,) the sizes of each block's range
+  int32_t* cls;            // units of each class, then each class's cursor
+  const int32_t* member_bounds;  // (C + 1,) the member side's, or null
+  int32_t* vals;           // (n,) r / div in bucket order
+  int32_t* slots;          // (n,) r % div, or null
+  int32_t* bounds;         // (C + 1,)
+  int4* units;             // K6's work list, with member_bounds
+  int32_t* n_units;        // (1,) its length
+};
+
+// Walks entries [r0, end) in order, 32 a step (BATCH steps' ids loaded at
+// once), and calls visit(row, c, peers, below) on every lane with its
+// entry's cluster c (-1 for none: past the end or an id outside [0, C)):
+// peers the lanes of the step whose entry has the same cluster, from one
+// ballot a bit of the ids (nbits of them) and one on validity; below the
+// lanes under this one. The visit orders the step's entries of a cluster
+// by lane, so the walk is stable. Every lane calls visit.
+template <class Visit>
+__device__ __forceinline__ void walk_ids(const int32_t* __restrict__ a,
+                                         int64_t r0, int64_t end, int c_n,
+                                         int nbits, Visit visit) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (t >= n_tiles) return;
-  int32_t* tile = counts + static_cast<int64_t>(t) * c_n;
-  // the cursor of cluster c: the place of the tile's next row of c
-  int32_t* cursor = smem ? cursor_s + warp * c_n : tile;
-  if (smem) {
-    for (int i = lane; i < c_n; i += 32) cursor[i] = tile[i];
-    __syncwarp();
+  const unsigned below = (1u << lane) - 1u;
+  for (int64_t r = r0; r < end; r += 32 * BATCH) {
+    int cs[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      cs[k] = cluster_of(a, r + 32 * k + lane, end, c_n);
+    }
+    // the BATCH steps' ballots are independent: taken bit by bit across
+    // the steps, so they overlap
+    unsigned peers[BATCH];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) peers[k] = __ballot_sync(FULL, cs[k] >= 0);
+    for (int b = 0; b < nbits; ++b) {
+#pragma unroll
+      for (int k = 0; k < BATCH; ++k) {
+        const bool bit = (cs[k] >> b) & 1;
+        const unsigned x = __ballot_sync(FULL, bit);
+        peers[k] &= bit ? x : ~x;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      if (r + 32 * k >= end) break;
+      visit(r + 32 * k + lane, cs[k], peers[k], below);
+    }
   }
-  walk_tile(a, n, c_n, tile_rows, t, cursor,
-            [&](int64_t row, int c, int at) {
-              if (at >= width) return;
-              const int64_t cell = static_cast<int64_t>(c) * width + at;
-              const int r = static_cast<int>(row);
-              table[cell] = r / div;
-              if (slots != nullptr) slots[cell] = r % div;
-            });
 }
 
-// K11: a block a cluster writes the pad past its size: `pad` in the
-// table, 0 in the slots.
-__global__ void table_pad_kernel(const int32_t* __restrict__ bounds,
-                                 int64_t width, int32_t pad,
-                                 int32_t* __restrict__ table,
-                                 int32_t* __restrict__ slots) {
-  const int c = blockIdx.x;
-  const int64_t size = bounds[c + 1] - bounds[c];
-  const int64_t row = static_cast<int64_t>(c) * width;
-  for (int64_t j = size + threadIdx.x; j < width; j += blockDim.x) {
-    table[row + j] = pad;
-    if (slots != nullptr) slots[row + j] = 0;
+// K11, a persistent grid of co-resident blocks (a cooperative launch),
+// its phases apart by grid-wide barriers:
+//   0. (counts in device memory only) zero the (warp tile, cluster)
+//      counts; every launch: block 0 zeroes the class totals and cursors.
+//   1. Count: each walking warp counts its tile's entries of each cluster
+//      (the leader of a step's peers adds their number to its own row, in
+//      shared memory, or in device memory past SMEM_HIST clusters); a
+//      block's rows in shared memory are summed into its tile's row.
+//   2. Scan: a warp a cluster (the clusters cut into one contiguous range
+//      a block) turns its counts over the tiles into exclusive prefixes
+//      (a run of consecutive tiles a lane, read twice: a sum, then the
+//      prefixes) and puts its size in bounds[c]; each
+//      block sums its range's sizes; on the probe side each probed
+//      cluster's ceil(size / 128) units are added to its class (the bit
+//      length of its member count).
+//   3. Bounds and units: each block adds the sums of the ranges before it
+//      to its range's prefix and writes the bounds; on the probe side each
+//      probed cluster takes its units at its class's start (the longer
+//      classes first, as K9's schedule orders clusters) plus a cursor of
+//      the class (an atomic: the order within a class is free, as no unit
+//      writes another's lists), the unit count last.
+//   4. Scatter: each walking warp walks its tile again with a cursor a
+//      cluster (the cluster's bound, the tile's prefix and, in shared
+//      memory, the prefix over the block's warps before it), the leader
+//      of a step's peers moving it by their number, each entry written at
+//      the cursor plus its rank among its peers: a stable order.
+__global__ void __launch_bounds__(BK_THREADS, BK_MIN_BLOCKS)
+    bucket_kernel(const BucketArgs k) {
+  extern __shared__ int32_t hist_s[];  // (walkers, C) with smem
+  __shared__ int warp_sums[BK_WARPS + 1];
+  __shared__ int cls_s[BK_CLASSES];
+  __shared__ int range_s;
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int c_n = k.c_n;
+  const bool pow2 = (k.div & (k.div - 1)) == 0;
+  const int shift = __ffs(k.div) - 1;
+  const bool probe = k.member_bounds != nullptr;
+  // the tile a warp walks (a block's with smem, its own without), its
+  // counts row and its entries
+  const int64_t tile = k.smem ? blockIdx.x
+                              : static_cast<int64_t>(blockIdx.x) * BK_WARPS
+                                    + warp;
+  const bool walks = tile < k.tiles && (!k.smem || warp < k.walkers);
+  const int64_t r0 = (k.smem ? tile * k.walkers + warp : tile) * k.wt;
+  const int64_t end = r0 + k.wt < k.n ? r0 + k.wt : k.n;
+  int32_t* row = k.smem ? hist_s + warp * c_n : k.counts + tile * c_n;
+
+  // 0.
+  if (blockIdx.x == 0 && threadIdx.x < 2 * BK_CLASSES) {
+    k.cls[threadIdx.x] = 0;
   }
+  if (!k.smem) {
+    const int64_t cells = static_cast<int64_t>(k.tiles) * c_n;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * BK_THREADS
+                     + threadIdx.x;
+         i < cells; i += static_cast<int64_t>(gridDim.x) * BK_THREADS) {
+      k.counts[i] = 0;
+    }
+    grid.sync();
+  }
+  // 1.
+  if (k.smem && blockIdx.x < k.tiles) {
+    for (int i = threadIdx.x; i < k.walkers * c_n; i += BK_THREADS) {
+      hist_s[i] = 0;
+    }
+    __syncthreads();
+  }
+  if (walks) {
+    walk_ids(k.a, r0, end, c_n, k.nbits,
+             [&](int64_t, int c, unsigned peers, unsigned below) {
+               if (c >= 0 && (peers & below) == 0) row[c] += __popc(peers);
+               __syncwarp();
+             });
+  }
+  if (k.smem && blockIdx.x < k.tiles) {
+    __syncthreads();
+    int32_t* dst = k.counts + static_cast<int64_t>(blockIdx.x) * c_n;
+    for (int c = threadIdx.x; c < c_n; c += BK_THREADS) {
+      int s = 0;
+      for (int w = 0; w < k.walkers; ++w) s += hist_s[w * c_n + c];
+      dst[c] = s;
+    }
+  }
+  grid.sync();
+  // 2.
+  const int span = (c_n + gridDim.x - 1) / gridDim.x;
+  const int lo = min(c_n, static_cast<int>(blockIdx.x) * span);
+  const int hi = min(c_n, lo + span);
+  if (threadIdx.x < BK_CLASSES) cls_s[threadIdx.x] = 0;
+  if (threadIdx.x == 0) range_s = 0;
+  __syncthreads();
+  const int per = (k.tiles + 31) / 32;  // tiles a lane, consecutive
+  const int t0 = min(k.tiles, lane * per), t1 = min(k.tiles, t0 + per);
+  for (int c = lo + warp; c < hi; c += BK_WARPS) {
+    int32_t* col = k.counts + c;
+    int own = 0;
+#pragma unroll 16
+    for (int t = t0; t < t1; ++t) own += col[static_cast<int64_t>(t) * c_n];
+    int incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += x;
+    }
+    int run = incl - own;
+#pragma unroll 16
+    for (int t = t0; t < t1; ++t) {
+      const int x = col[static_cast<int64_t>(t) * c_n];
+      col[static_cast<int64_t>(t) * c_n] = run;
+      run += x;
+    }
+    const int size = __shfl_sync(FULL, incl, 31);
+    if (lane == 0) {
+      k.bounds[c] = size;
+      atomicAdd(&range_s, size);
+      if (probe && size > 0) {
+        const int m = k.member_bounds[c + 1] - k.member_bounds[c];
+        atomicAdd(&cls_s[32 - __clz(m)],
+                  (size + K6_UNIT_ROWS - 1) / K6_UNIT_ROWS);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) k.block_sums[blockIdx.x] = range_s;
+  if (probe && threadIdx.x < BK_CLASSES && cls_s[threadIdx.x] != 0) {
+    atomicAdd(k.cls + threadIdx.x, cls_s[threadIdx.x]);
+  }
+  grid.sync();
+  // 3.
+  int before = 0;
+  for (int i = threadIdx.x; i < static_cast<int>(blockIdx.x);
+       i += BK_THREADS) {
+    before += k.block_sums[i];
+  }
+  int carry;
+  block_scan<BK_WARPS>(before, warp_sums, &carry);
+  // each class's first unit, longest first (the totals read at once)
+  if (probe && threadIdx.x < BK_CLASSES) {
+    cls_s[threadIdx.x] = k.cls[threadIdx.x];
+  }
+  __syncthreads();
+  if (probe && threadIdx.x == 0) {
+    int at = 0;
+    for (int b = BK_CLASSES - 1; b >= 0; --b) {
+      const int x = cls_s[b];
+      cls_s[b] = at;
+      at += x;
+    }
+    if (blockIdx.x == 0) *k.n_units = at;
+  }
+  __syncthreads();
+  for (int c0 = lo; c0 < hi; c0 += BK_THREADS) {
+    const int c = c0 + threadIdx.x;
+    const int size = c < hi ? k.bounds[c] : 0;
+    int total;
+    const int at = carry + block_scan<BK_WARPS>(size, warp_sums, &total);
+    if (c < hi) {
+      k.bounds[c] = at;
+      if (probe && size > 0) {
+        const int m0 = k.member_bounds[c];
+        const int m = k.member_bounds[c + 1] - m0;
+        const int nu = (size + K6_UNIT_ROWS - 1) / K6_UNIT_ROWS;
+        const int u0 = cls_s[32 - __clz(m)]
+                       + atomicAdd(k.cls + BK_CLASSES + 32 - __clz(m), nu);
+        for (int j = 0; j < nu; ++j) {
+          k.units[u0 + j] = make_int4(m0, at + j * K6_UNIT_ROWS,
+                                      min(K6_UNIT_ROWS,
+                                          size - j * K6_UNIT_ROWS), m);
+        }
+      }
+    }
+    carry += total;
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) k.bounds[c_n] = carry;
+  grid.sync();
+  // 4.
+  if (k.smem && blockIdx.x < k.tiles) {
+    const int32_t* prefix =
+        k.counts + static_cast<int64_t>(blockIdx.x) * c_n;
+    for (int c = threadIdx.x; c < c_n; c += BK_THREADS) {
+      int run = k.bounds[c] + prefix[c];
+      for (int w = 0; w < k.walkers; ++w) {
+        const int x = hist_s[w * c_n + c];
+        hist_s[w * c_n + c] = run;
+        run += x;
+      }
+    }
+    __syncthreads();
+  }
+  if (walks) {
+    walk_ids(k.a, r0, end, c_n, k.nbits,
+             [&](int64_t r, int c, unsigned peers, unsigned below) {
+               const bool lead = c >= 0 && (peers & below) == 0;
+               int at = 0;
+               if (lead) {
+                 at = row[c];
+                 row[c] = at + __popc(peers);
+               }
+               at = __shfl_sync(FULL, at, c >= 0 ? __ffs(peers) - 1 : lane);
+               __syncwarp();
+               if (c >= 0) {
+                 const int64_t pos = at + (k.smem ? 0 : k.bounds[c])
+                                     + __popc(peers & below);
+                 const int q = static_cast<int>(r);
+                 k.vals[pos] = pow2 ? q >> shift : q / k.div;
+                 if (k.slots != nullptr) {
+                   k.slots[pos] = pow2 ? q & (k.div - 1) : q % k.div;
+                 }
+               }
+             });
+  }
+}
+
+// The blocks of bucket_kernel an SM holds at `smem` bytes, and the SMs, on
+// the current device: asked once a (device, bytes) and kept. Its counts can
+// take all of SMEM_HIST * 4 = 48 KB of dynamic shared memory (walkers * C =
+// SMEM_HIST at C = 1,536, 2,048, 3,072, 4,096, 6,144 or 12,288), which with
+// its static shared memory is past the default 48 KB a block: the opt-in is
+// set on the device first.
+cudaError_t bucket_residency(size_t smem, int* per_sm, int* sms) {
+  struct Seen { int dev; size_t smem; int per_sm, sms; };
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_seen; ++i) {
+    if (seen[i].dev == dev && seen[i].smem == smem) {
+      *per_sm = seen[i].per_sm;
+      *sms = seen[i].sms;
+      return cudaSuccess;
+    }
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bucket_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_HIST * 4);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, bucket_kernel,
+                                                      BK_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (n_seen < 64) seen[n_seen++] = Seen{dev, smem, *per_sm, *sms};
+  return cudaSuccess;
 }
 
 // Cluster sched[unit / slices]'s first member and its end.
@@ -634,66 +935,82 @@ extern "C" int fk_ivf_segment_sum(const void* rows, int64_t n, int64_t d,
   return static_cast<int>(err);
 }
 
-// K11, first call: the bucketing's count and scan of the int32
-// assignments a (n,) over n_clusters into scratch, n_tiles * n_clusters +
-// 2 * n_clusters + 2 int32: the (tile, cluster) prefixes, the bounds
-// (n_clusters + 1: the host reads the clusters' sizes there to size the
-// tables), the schedule and the scan's counter (the tiling as
-// fk_ivf_segment_sum's).
-extern "C" int fk_ivf_buckets(const int32_t* a, int64_t n,
-                              int64_t n_clusters, int64_t tile_rows,
-                              int64_t n_tiles, int32_t* scratch,
-                              void* stream) {
-  if (bad_tiling(n, n_clusters, tile_rows, n_tiles)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int32_t* bounds = scratch + n_tiles * n_clusters;
-  int32_t* sched = bounds + n_clusters + 1;
-  bool smem;
-  int warps;
-  unsigned tile_blocks;
-  return static_cast<int>(bucket_counts(
-      a, n, static_cast<int>(n_clusters), tile_rows,
-      static_cast<int>(n_tiles), scratch, bounds, sched, sched + n_clusters,
-      &smem, &warps, &tile_blocks, static_cast<cudaStream_t>(stream)));
-}
-
-// K11, second call: the IVF member table (knn/ivf.py _member_table: div
-// = spill, slots null, pad = n / spill) or probe tables (_probe_tables
-// over the flat (N * p,) probe lists: div = p, with slots, pad = N) of the
-// int32 assignments a (n,) that fk_ivf_buckets bucketed into scratch:
-// table (n_clusters, width) int32 holds in row c the ids r / div of the
-// entries r assigned to c, in entry order (a stable sort's), padded with
-// `pad`; slots (n_clusters, width), where given, r % div padded with 0.
-// width must hold the largest cluster. The table's scatter and pad; no
-// order array. A bucketing serves one table: past SMEM_HIST clusters the
-// scatter counts its cursors up in scratch's prefixes.
-extern "C" int fk_ivf_tables(const int32_t* a, int64_t n, int64_t n_clusters,
-                             int64_t tile_rows, int64_t n_tiles,
-                             int32_t* scratch, int64_t width, int64_t div,
-                             int32_t pad, int32_t* table, int32_t* slots,
+// K11: the IVF buckets of the int32 cluster ids a (n,) over n_clusters
+// (knn/ivf.py bucket_clusters), in one cooperative launch: bounds (C + 1)
+// and, in bucket order (each cluster's entries r in entry order, a stable
+// sort's), vals (n) the ids r / div and, where slots is given, slots (n)
+// r % div; cluster c's are vals[bounds[c] : bounds[c + 1]]. Entries whose
+// id is outside [0, C) are in no cluster (bounds[C] counts the others).
+// With member_bounds (the member side's bounds over the same C), also
+// K6's work list: units (int4: first member offset, first query offset,
+// slots <= 128, members), ceil(size / 128) for each cluster of this side
+// with entries, the clusters of the longest member counts (by bit length)
+// first, and its length in n_units (the caller sizes units at
+// ceil(n / 128) + min(C, n)). scratch holds scratch_ints int32: the
+// (tile, cluster) counts (at most MAX_TILES rows; knn/ivf.py
+// k11_scratch), the blocks' sums and the class totals; it is the launch's
+// own (no state carries over). A refused launch returns its error.
+extern "C" int fk_ivf_bucket(const int32_t* a, int64_t n, int64_t n_clusters,
+                             int64_t div, const int32_t* member_bounds,
+                             int32_t* vals, int32_t* slots, int32_t* bounds,
+                             int32_t* units, int32_t* n_units,
+                             int32_t* scratch, int64_t scratch_ints,
                              void* stream) {
-  if (bad_tiling(n, n_clusters, tile_rows, n_tiles) || width < 0
-      || div < 1 || div >= (int64_t{1} << 31)) {
+  if (n < 0 || n >= (int64_t{1} << 31) || n_clusters <= 0
+      || n_clusters >= (1 << 30) || div < 1 || div >= (int64_t{1} << 31)
+      || (member_bounds == nullptr) != (units == nullptr)
+      || (units != nullptr && n_units == nullptr)
+      || scratch_ints < BK_EXTRA + n_clusters) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (width == 0) return static_cast<int>(cudaSuccess);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int c_n = static_cast<int>(n_clusters);
-  const int tiles = static_cast<int>(n_tiles);
-  bool smem;
-  int warps;
-  unsigned tile_blocks;
-  tile_plan(c_n, tiles, &smem, &warps, &tile_blocks);
+  const bool smem = c_n <= SMEM_HIST;
+  const int walkers =
+      smem ? std::max(1, std::min(BK_WARPS, SMEM_HIST / c_n)) : 1;
+  const size_t smem_bytes = smem ? static_cast<size_t>(walkers) * c_n * 4
+                                 : 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t err = bucket_residency(smem_bytes, &per_sm, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t resident =
+      std::min(static_cast<int64_t>(per_sm) * sms, int64_t{BK_MAX_BLOCKS});
+  // a tile: a block's `walkers` warps, or one warp. Tiles of about
+  // BK_RUN entries a cluster (a cluster's entries of a tile land next to
+  // each other, so its scattered stores share sectors), but at least
+  // BK_MIN_TILES where the entries allow
+  const int64_t step = smem ? walkers : 1;
+  const int64_t most =
+      std::min(std::min(int64_t{MAX_TILES}, (scratch_ints - BK_EXTRA) / c_n),
+               smem ? resident : resident * BK_WARPS);
+  const int64_t want = std::max(int64_t{BK_MIN_TILES},
+                                n / (int64_t{BK_RUN} * n_clusters));
+  int64_t tiles = std::min(std::min(most, want),
+                           (n + step * BK_MIN_ROWS - 1) / (step * BK_MIN_ROWS));
+  int64_t wt = 32;
   if (tiles > 0) {
-    table_scatter_kernel<<<tile_blocks, warps * 32,
-                           smem ? static_cast<size_t>(warps) * c_n * 4 : 0,
-                           s>>>(a, n, c_n, tile_rows, tiles, smem, scratch,
-                                width, static_cast<int>(div), table, slots);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    wt = (n + tiles * step - 1) / (tiles * step);
+    wt = (wt + 31) / 32 * 32;
+    tiles = (n + wt * step - 1) / (wt * step);
   }
-  table_pad_kernel<<<c_n, 128, 0, s>>>(scratch + n_tiles * n_clusters,
-                                       width, pad, table, slots);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t blocks =
+      std::max(smem ? tiles : (tiles + BK_WARPS - 1) / BK_WARPS,
+               (n_clusters + BK_WARPS - 1) / BK_WARPS);
+  const int grid =
+      static_cast<int>(std::max(int64_t{1}, std::min(blocks, resident)));
+  int nbits = 0;
+  while ((int64_t{1} << nbits) < n_clusters) ++nbits;
+  int32_t* counts = scratch;
+  int32_t* block_sums = scratch + (scratch_ints - BK_EXTRA);
+  BucketArgs k{a, n, c_n, nbits, static_cast<int>(div), walkers, smem, wt,
+               static_cast<int>(tiles), counts, block_sums,
+               block_sums + BK_MAX_BLOCKS, member_bounds, vals, slots,
+               bounds, reinterpret_cast<int4*>(units), n_units};
+  void* args[] = {&k};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(
+                                        bucket_kernel),
+                                    dim3(grid), dim3(BK_THREADS), args,
+                                    smem_bytes,
+                                    static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
 }

@@ -19,13 +19,16 @@
    `lax.top_k` and `argmax` give them (zero rows score 0 everywhere).
    On a CUDA device every assignment and ranking is one launch of K4
    (topk.merge_block over the centroids); on the CPU a float32 matmul,
-   _order_keys and torch.topk (top_clusters_plain). The member table of
-   each cluster's rows and the probe tables of each cluster's queries are
-   K11 on a card: K9's count and scan (cluster_buckets, whose bounds give
-   the host the sizes the tables' width needs), then one scatter writing
-   the padded tables directly (cluster_tables); on the CPU torch.bincount,
-   a stable torch.sort and index scatters (member_table_plain,
-   probe_tables_plain).
+   _order_keys and torch.topk (top_clusters_plain). Each cluster's
+   members and queries go to the rescore bucketed by cluster: on a card
+   each side is one launch of K11 (csrc/ivf_segment_sum.cu
+   `fk_ivf_bucket`, bucket_clusters: the count, the scan, the bounds and
+   a stable scatter between grid-wide barriers of one cooperative launch;
+   cluster c's ids are vals[bounds[c] : bounds[c + 1]], with no width and
+   no pad), the probe side also writing K6's work list from the member
+   side's bounds; nothing is read back. On the CPU the JAX package's dense
+   tables padded with a sentinel (torch.bincount, a stable torch.sort and
+   index scatters: member_table_plain, probe_tables_plain).
 3. Rescore: every probed cluster's queries are scored against its
    members, exact scores on (score, index) int64 keys (topk._order_keys),
    so equal scores go to the lowest row index as in `knn_exact`; each
@@ -33,11 +36,14 @@
    merged per query: a row indexed in two probed clusters is scored
    twice, so the merge keeps the higher-scoring copy of each index before
    its top-k. On a CUDA device the rescore is K6 (csrc/ivf_rescore.cu
-   `fk_ivf_rescore`: a block a cluster and up to 128 of its queries,
-   walking its true member count, each row's top k selected once over the
-   first K6_FIRST members and later members offered against it) and the
-   merge K7 (`fk_ivf_merge`, a warp a query row, a merge network over its
-   sorted lists), each one launch; on the CPU the clusters fall
+   `fk_ivf_rescore`: a block a unit of K11's work list, a cluster and up
+   to 128 of its queries, walking its true member count, each row's top k
+   selected once over the first K6_FIRST members and later members
+   offered against it) and the merge K7 (`fk_ivf_merge`, a warp a query
+   row, a merge network over its sorted lists), each one launch, enqueued
+   with the probe side's K11 before the host reads anything; the buckets'
+   bounds, copied to page-locked memory between K11 and K6, give the
+   plan's statistics while K6 runs; on the CPU the clusters fall
    into JAX's power-of-two (queries, members) size classes, each run as
    batched products of gathered rows in chunks capped by CHUNK_BYTES
    (rescore_plain), and the merge goes 64 Ki rows at a time
@@ -48,15 +54,18 @@ query does not probe. Below a few thousand rows (or 4 rows a cluster) the
 search is `knn_exact`'s.
 
 `knn_ivf_sharded` spreads the rescore over a mesh by query rows: every
-entry holds all rows (the JAX package's all-gather) and the tables, and
+entry holds all rows (the JAX package's all-gather) and the members, and
 searches the queries of its own row block, so no partial result moves
 between entries and the result is `knn_ivf`'s at the same cluster count.
-The k-means and the tables are made once, on the mesh's first device
+The k-means and the members are made once, on the mesh's first device
 (`knn_ivf_sharded_multihost`: rank 0's centroids, each rank's own rows'
 assignments gathered), so every entry holds the same ones.
 """
 
 from __future__ import annotations
+
+import itertools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -87,6 +96,12 @@ LOW_WORD = 0xFFFFFFFF
 # scan's MAX_TILES); the (tile, cluster) counts stay within K9_MAX_CELLS
 # int32
 K9_TILE, K9_MAX_TILES, K9_MAX_CELLS = 256, 1024, 1 << 22
+# K11's scratch past its counts: the blocks' sums (at most 2,048 blocks)
+# and two int32 for each of the 33 bit lengths of a member count
+K11_EXTRA = 2048 + 2 * 33
+# K6's work unit: a probed cluster times up to K6_ROWS of its query slots
+# (csrc/ivf_rescore.cu's BM)
+K6_ROWS = 128
 
 
 def auto_clusters(n_rows: int) -> int:
@@ -151,26 +166,16 @@ def top_clusters_plain(en: torch.Tensor, cent: torch.Tensor, t: int,
     return out
 
 
-def _member_table(a: torch.Tensor, counts: torch.Tensor, n_clusters: int,
-                  m: int, spill: int = 1) -> torch.Tensor:
-    """(C, m) int32 table of row ids per cluster in row order, padded with
-    the sentinel N. With spill > 1, `a` is the flattened (N*spill,)
-    row-major assignment list and each row id appears in `spill`
-    clusters. `counts` as _cluster_counts gives them: a CUDA tensor's are
-    K11's bucketing, and the table its second call (cluster_tables); a CPU
-    tensor's are torch.bincount's, and member_table_plain builds it."""
-    if a.device.type == "cuda":
-        return cluster_tables(a.contiguous(), counts, n_clusters, m,
-                              spill)[0]
-    return member_table_plain(a, counts, n_clusters, m, spill)
-
-
 def member_table_plain(a: torch.Tensor, counts: torch.Tensor,
                        n_clusters: int, m: int,
                        spill: int = 1) -> torch.Tensor:
-    """_member_table in plain PyTorch on any device: a stable torch.sort
-    of the assignments, then an index scatter into a table filled with the
-    sentinel (JAX's argsort and scatter)."""
+    """(C, m) int32 table of row ids per cluster in row order, padded with
+    the sentinel N, in plain PyTorch on any device: a stable torch.sort of
+    the assignments, then an index scatter into a table filled with the
+    sentinel (JAX's argsort and scatter). With spill > 1, `a` is the
+    flattened (N*spill,) row-major assignment list and each row id appears
+    in `spill` clusters; `counts` their torch.bincount. The CPU search's
+    member table (_members)."""
     n_flat = a.shape[0]
     n = n_flat // spill
     order = torch.sort(a, stable=True).indices
@@ -183,24 +188,13 @@ def member_table_plain(a: torch.Tensor, counts: torch.Tensor,
     return member
 
 
-def _probe_tables(probes: torch.Tensor, qcounts: torch.Tensor,
-                  n_clusters: int, qm: int):
-    """The (N, p) probe lists inverted into per-cluster tables: qtab[c]
-    the query rows probing c in row order (padded with the sentinel N),
-    stab[c] the probe slot each used for c. `qcounts` those of the
-    flattened lists as _cluster_counts gives them: on a card K11's
-    bucketing, and the tables its second call (cluster_tables); on the CPU
-    torch.bincount's, for probe_tables_plain."""
-    if probes.device.type == "cuda":
-        return cluster_tables(probes.reshape(-1).contiguous(), qcounts,
-                              n_clusters, qm, probes.shape[1], slots=True)
-    return probe_tables_plain(probes, qcounts, n_clusters, qm)
-
-
 def probe_tables_plain(probes: torch.Tensor, qcounts: torch.Tensor,
                        n_clusters: int, qm: int):
-    """_probe_tables in plain PyTorch on any device (JAX's argsort and
-    scatters)."""
+    """The (N, p) probe lists inverted into per-cluster tables in plain
+    PyTorch on any device (JAX's argsort and scatters): qtab[c] the query
+    rows probing c in row order (padded with the sentinel N), stab[c] the
+    probe slot each used for c; `qcounts` the flattened lists'
+    torch.bincount. The CPU search's probe tables (_queries)."""
     n, p = probes.shape
     dev = probes.device
     flat_c = probes.reshape(-1)
@@ -216,84 +210,186 @@ def probe_tables_plain(probes: torch.Tensor, qcounts: torch.Tensor,
 
 
 def _cluster_counts(a: torch.Tensor, n_clusters: int):
-    """(counts, their sizes on the host as int64) of the (n,) int32
-    assignments a over n_clusters, as _member_table and _probe_tables
-    take them: on a card K11's bucketing (cluster_buckets), whose bounds
-    the host reads, else torch.bincount."""
-    if a.device.type == "cuda":
-        scratch = cluster_buckets(a.contiguous(), n_clusters)
-        bounds = scratch[scratch.numel() - 2 * n_clusters - 2:
-                         scratch.numel() - n_clusters - 1]
-        return scratch, np.diff(bounds.cpu().numpy()).astype(np.int64)
+    """(torch.bincount of the (n,) assignments a over n_clusters, the same
+    on the host as int64), as member_table_plain and probe_tables_plain
+    take them."""
     counts = torch.bincount(a, minlength=n_clusters)
-    return counts, counts.cpu().numpy()
+    return counts, counts.cpu().numpy().astype(np.int64)
 
 
-def _bucket_scratch(a: torch.Tensor, n_clusters: int, what: str):
-    """The tiling (tile rows, tiles) of K11 over the assignments a and the
-    int32 scratch size its two calls share; raises on what they do not
-    take."""
-    if a.device.type != "cuda" or n_clusters <= 0:
-        raise ValueError(f"{what}: CUDA assignments and at least one "
-                         f"cluster, not {a.device}, {n_clusters}")
-    _check_assignments(a, a.device, a.shape[0], what)
-    tile, n_tiles = k9_tiles(a.shape[0], n_clusters)
-    return tile, n_tiles, n_tiles * n_clusters + 2 * n_clusters + 2
+class Buckets(NamedTuple):
+    """Entries r of (n,) cluster ids bucketed by cluster (K11's form):
+    cluster c's are vals[bounds[c] : bounds[c + 1]] in entry order (a
+    stable sort's), each as r // div, and on the probe side (queries) as
+    slots, r % div, too, with K6's work list: units (the first n_units
+    rows, int32: first member offset, first query offset, query slots <=
+    K6_ROWS, members). All int32 on the ids' device; n_units a (1,)
+    tensor, read by K6 on the card."""
+    vals: torch.Tensor
+    bounds: torch.Tensor
+    slots: torch.Tensor | None = None
+    units: torch.Tensor | None = None
+    n_units: torch.Tensor | None = None
 
 
-def cluster_buckets(a: torch.Tensor, n_clusters: int) -> torch.Tensor:
-    """K11's first call (csrc/ivf_segment_sum.cu `fk_ivf_buckets`): K9's
-    count and scan kernels over the tiles of k9_tiles on the contiguous
-    (n,) int32 CUDA assignments a, into an int32 scratch: the (tile,
-    cluster) prefixes, then the (C + 1,) bounds (_cluster_counts reads the
-    sizes there), the schedule and the scan's counter. Counts its launches
-    in .kernel_launches; raises on a tensor it does not take."""
-    tile, n_tiles, size = _bucket_scratch(a, n_clusters, "cluster_buckets")
-    scratch = torch.empty(size, dtype=torch.int32, device=a.device)
-    _build.launch("fk_ivf_buckets", a.data_ptr(), a.shape[0], n_clusters,
-                  tile, n_tiles, scratch.data_ptr(), device=a.device)
-    cluster_buckets.kernel_launches += 1
-    return scratch
+def k11_scratch(n_clusters: int) -> int:
+    """int32 scratch of one K11 launch over n_clusters: the (tile,
+    cluster) counts of up to K9_MAX_TILES tiles within K9_MAX_CELLS, the
+    blocks' sums and the unit classes' totals and cursors (csrc/
+    ivf_segment_sum.cu BK_EXTRA)."""
+    tiles = min(K9_MAX_TILES, max(1, K9_MAX_CELLS // n_clusters))
+    return tiles * n_clusters + K11_EXTRA
 
 
-cluster_buckets.kernel_launches = 0
+def k6_grid(n: int, n_clusters: int) -> int:
+    """The most units K6 can have over n probe entries: ceil(n / K6_ROWS)
+    slots' units plus one partial unit a cluster."""
+    return -(-n // K6_ROWS) + min(n_clusters, n)
 
 
-def cluster_tables(a: torch.Tensor, scratch: torch.Tensor, n_clusters: int,
-                   width: int, div: int, slots: bool = False):
-    """K11's second call (`fk_ivf_tables`): the (C, width) int32 table of
-    the contiguous (n,) int32 CUDA assignments a that cluster_buckets
-    bucketed into scratch, each cluster's row holding the ids r // div of
-    its entries r in entry order (a stable sort's) padded with n // div,
-    and with `slots` the table of r % div padded with 0, else None:
-    _member_table at div = spill, _probe_tables of the flattened (N, p)
-    probe lists at div = p with slots. A scatter that writes each entry at
-    its rank in its cluster and a kernel that pads each row past its size;
-    no sort, no order array, no torch op but the tables' torch.empty. width
-    must hold the largest cluster (its entries past the width are dropped);
-    a bucketing serves one table. Bitwise member_table_plain and
-    probe_tables_plain. Counts its calls in .kernel_launches; raises on a
-    tensor it does not take."""
-    tile, n_tiles, size = _bucket_scratch(a, n_clusters, "cluster_tables")
-    if div < 1 or scratch.dtype != torch.int32 or scratch.numel() != size \
-            or scratch.device != a.device:
-        raise ValueError(f"cluster_tables: div >= 1 and cluster_buckets' "
-                         f"scratch of {size} int32, not div {div}, "
-                         f"{scratch.dtype} {scratch.numel()} on "
-                         f"{scratch.device}")
+def bucket_clusters(a: torch.Tensor, n_clusters: int, div: int,
+                    member_bounds: torch.Tensor | None = None) -> Buckets:
+    """K11 (csrc/ivf_segment_sum.cu `fk_ivf_bucket`): the Buckets of the
+    contiguous (n,) int32 CUDA cluster ids a over n_clusters in one
+    cooperative launch (count, scan, bounds, scatter between grid-wide
+    barriers): the member side (_member_side: the flattened (N * spill,)
+    spill lists at div = spill), or, with the member side's bounds, the
+    probe side (the flattened (N, p) probe lists at div = p) with its
+    slots and K6's work list, k6_grid rows of which its first n_units are
+    set (the longest member counts first, by bit length). Every output is
+    a view of one torch.empty (the launch's scratch last); no host copy,
+    no torch op but that. Bitwise bucket_clusters_plain (units as a set of
+    rows). Counts its launches in .kernel_launches (the probe side's also
+    in .probe_launches); raises on a tensor it does not take or a refused
+    launch."""
+    if a.device.type != "cuda" or n_clusters <= 0 or div < 1:
+        raise ValueError(f"bucket_clusters: CUDA ids, at least one cluster "
+                         f"and div >= 1, not {a.device}, {n_clusters}, "
+                         f"{div}")
     n = a.shape[0]
-    table = torch.empty((n_clusters, width), dtype=torch.int32,
-                        device=a.device)
-    slot = torch.empty_like(table) if slots else None
-    _build.launch("fk_ivf_tables", a.data_ptr(), n, n_clusters, tile,
-                  n_tiles, scratch.data_ptr(), width, div, n // div,
-                  table.data_ptr(), None if slot is None else slot.data_ptr(),
-                  device=a.device)
-    cluster_tables.kernel_launches += 1
-    return table, slot
+    _check_assignments(a, a.device, n, "bucket_clusters")
+    probe = member_bounds is not None
+    if probe and (member_bounds.dtype != torch.int32
+                  or member_bounds.shape != (n_clusters + 1,)
+                  or member_bounds.device != a.device
+                  or not member_bounds.is_contiguous()):
+        raise ValueError(f"bucket_clusters: member bounds ({n_clusters + 1},"
+                         f") int32 on {a.device}, not {member_bounds.dtype} "
+                         f"{tuple(member_bounds.shape)} on "
+                         f"{member_bounds.device}")
+    grid = k6_grid(n, n_clusters) if probe else 0
+    scratch = k11_scratch(n_clusters)
+    # the int32 offsets in one allocation of the units (16-byte rows at its
+    # start), vals, slots, bounds, the unit count and the launch's scratch
+    # (views of only the outputs, pointers by offset: a view costs a few
+    # us of host time)
+    at = list(itertools.accumulate((0, 4 * grid, n, n * probe,
+                                    n_clusters + 1, int(probe))))
+    out = torch.empty(at[-1] + scratch, dtype=torch.int32, device=a.device)
+    ptr = [out.data_ptr() + 4 * i for i in at]
+    _build.launch("fk_ivf_bucket", a.data_ptr(), n, n_clusters, div,
+                  member_bounds.data_ptr() if probe else None, ptr[1],
+                  ptr[2] if probe else None, ptr[3],
+                  ptr[0] if probe else None, ptr[4] if probe else None,
+                  ptr[5], scratch, device=a.device)
+    bucket_clusters.kernel_launches += 1
+    vals, bounds = out[at[1] : at[2]], out[at[3] : at[4]]
+    if not probe:
+        return Buckets(vals, bounds)
+    bucket_clusters.probe_launches += 1
+    return Buckets(vals, bounds, out[at[2] : at[3]],
+                   out[: at[1]].view(grid, 4), out[at[4] : at[5]])
 
 
-cluster_tables.kernel_launches = 0
+bucket_clusters.kernel_launches = 0
+bucket_clusters.probe_launches = 0
+
+
+def bucket_clusters_plain(a: torch.Tensor, n_clusters: int, div: int,
+                          member_bounds: torch.Tensor | None = None
+                          ) -> Buckets:
+    """bucket_clusters in plain PyTorch on any device: a stable torch.sort
+    of the ids (those outside [0, C) in no cluster) and torch.bincount;
+    the units as bucket_units_plain gives them (exactly n_units rows)."""
+    a = a.long()
+    key = torch.where((a >= 0) & (a < n_clusters), a, n_clusters)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=n_clusters + 1)[:n_clusters]
+    bounds = torch.zeros(n_clusters + 1, dtype=torch.int64, device=a.device)
+    bounds[1:] = torch.cumsum(counts, 0)
+    order = order[: int(bounds[-1])]
+    vals, bounds = (order // div).int(), bounds.int()
+    if member_bounds is None:
+        return Buckets(vals, bounds)
+    units = bucket_units_plain(member_bounds, bounds)
+    return Buckets(vals, bounds, (order % div).int(), units,
+                   torch.tensor([units.shape[0]], dtype=torch.int32,
+                                device=a.device))
+
+
+def bucket_units_plain(member_bounds: torch.Tensor,
+                       bounds: torch.Tensor) -> torch.Tensor:
+    """K6's work list from the member and probe buckets' bounds in plain
+    PyTorch: (U, 4) int32 (first member offset, first query offset, query
+    slots, members), ceil(queries / K6_ROWS) units a probed cluster, the
+    clusters by the bit length of their member count, longest first, then
+    by id."""
+    mb, qb = member_bounds.long(), bounds.long()
+    m, q = mb[1:] - mb[:-1], qb[1:] - qb[:-1]
+    probed = torch.nonzero(q).flatten()
+    length = torch.where(m[probed] > 0, torch.floor(torch.log2(
+        m[probed].double().clamp_min(1))).long() + 1, 0)
+    cl = probed[torch.sort(-length, stable=True).indices]
+    per = -(-q[cl] // K6_ROWS)
+    c = torch.repeat_interleave(cl, per)
+    j = (torch.arange(c.shape[0], device=c.device)
+         - torch.repeat_interleave(torch.cumsum(per, 0) - per, per)) \
+        * K6_ROWS
+    return torch.stack([mb[c], qb[c] + j, torch.clamp(q[c] - j, max=K6_ROWS),
+                        m[c]], dim=1).int()
+
+
+def host_units(members: Buckets, queries: Buckets) -> Buckets:
+    """The probe Buckets `queries` with K6's work list made on the host
+    (bucket_units_plain over the two sides' bounds, in reverse order: K6
+    takes its units in any order) and uploaded in place of K11's, what K6
+    on K11's list is held to."""
+    units = bucket_units_plain(members.bounds.cpu(), queries.bounds.cpu())
+    dev = queries.vals.device
+    return queries._replace(
+        units=units.flip(0).to(dev),
+        n_units=torch.tensor([units.shape[0]], dtype=torch.int32,
+                             device=dev))
+
+
+def expand_buckets(vals: torch.Tensor, bounds: torch.Tensor, width: int,
+                   pad: int) -> torch.Tensor:
+    """The dense (C, width) int32 table of buckets: row c cluster c's
+    vals in bucket order, then `pad` (what member_table_plain and
+    probe_tables_plain give at that width)."""
+    b = bounds.long()
+    sizes = b[1:] - b[:-1]
+    c = torch.repeat_interleave(torch.arange(sizes.shape[0],
+                                             device=vals.device), sizes)
+    j = torch.arange(vals.shape[0], device=vals.device) - b[:-1][c]
+    table = torch.full((sizes.shape[0], width), pad, dtype=torch.int32,
+                       device=vals.device)
+    table[c, j] = vals[: c.shape[0]]
+    return table
+
+
+def table_buckets(table: torch.Tensor, counts_h) -> Buckets:
+    """The member Buckets of a dense (C, m) table whose row c holds
+    counts_h[c] ids (the rest padding): a hand-made table in the form K6
+    takes."""
+    counts = torch.as_tensor(np.asarray(counts_h, np.int64),
+                             device=table.device)
+    keep = torch.arange(table.shape[1], device=table.device)[None, :] \
+        < counts[:, None]
+    bounds = torch.zeros(table.shape[0] + 1, dtype=torch.int32,
+                         device=table.device)
+    bounds[1:] = torch.cumsum(counts, 0)
+    return Buckets(table[keep].contiguous(), bounds)
 
 
 def _segments(a: torch.Tensor, n_clusters: int):
@@ -573,52 +669,112 @@ def merge_probe_lists(buf: torch.Tensor, k: int, spill: int) -> torch.Tensor:
 merge_probe_lists.kernel_launches = 0
 
 
+def _size_classes(x: np.ndarray, floor: int = 128) -> np.ndarray:
+    """_size_class of every entry of x (int64)."""
+    x = np.maximum(np.asarray(x, np.int64), 1)
+    return np.maximum(floor, np.left_shift(
+        1, np.ceil(np.log2(x)).astype(np.int64)))
+
+
 def _rescore_plan(counts_h: np.ndarray, qcounts_h: np.ndarray, qm: int,
                   m_all: int) -> dict:
     """{(query class, member class): [clusters]}: each probed cluster in
-    its power-of-two (queries, members) size class (JAX's padded plan)."""
-    groups: dict[tuple[int, int], list[int]] = {}
-    for c in np.flatnonzero(qcounts_h):
-        key = (min(_size_class(qcounts_h[c]), qm),
-               min(_size_class(counts_h[c]), m_all))
-        groups.setdefault(key, []).append(int(c))
-    return groups
+    its power-of-two (queries, members) size class (JAX's padded plan),
+    each class's clusters in id order, the classes in the order of their
+    first cluster."""
+    probed = np.flatnonzero(qcounts_h)
+    key = np.stack([np.minimum(_size_classes(qcounts_h[probed]), qm),
+                    np.minimum(_size_classes(counts_h[probed]), m_all)], 1)
+    classes, first, inverse = np.unique(key, axis=0, return_index=True,
+                                        return_inverse=True)
+    inverse = inverse.reshape(-1)
+    return {(int(classes[g, 0]), int(classes[g, 1])):
+            probed[inverse == g].tolist()
+            for g in np.argsort(first, kind="stable")}
 
 
-def _rescore(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
-             counts_h: np.ndarray, first: int, nq: int,
-             probes: torch.Tensor, k: int, spill: int, precision: str,
-             stats: dict) -> torch.Tensor:
-    """The (nq, min(k, ...)) int64 keys of the query rows en_pad[first :
-    first + nq] over the members of their probed clusters `probes` (nq,
-    p): candidate rows en_pad[member[c]] (the table's sentinel rows and
-    rows >= n_real never win), exact scores (bf16 products of the
-    bf16-rounded rows at precision="bf16", float32 at "fp32", float32
-    sums either way). On a CUDA device K6 (rescore_clusters) fills the
-    (query, probe slot) buffer and K7 merges it; on the CPU rescore_plain
-    and merge_buffers_plain. Adds JAX's plan (the size classes, probed
-    clusters and padded pair-scores) and the real pair-scores (the sum
-    over probed clusters of queries times members) to `stats`."""
-    n_clusters, m_all = member.shape
-    qtab, stab, qcounts_h = _queries(probes, n_clusters)
-    kk_g = min(k, m_all)
-    groups = _rescore_plan(counts_h, qcounts_h, qtab.shape[1], m_all)
-    for (qcls, mcls), clusters in groups.items():
-        stats["pair_scores"] = (stats.get("pair_scores", 0)
-                                + len(clusters) * qcls * mcls)
+def _add_plan(stats: dict, counts_h: np.ndarray,
+              qcounts_h: np.ndarray) -> dict:
+    """Adds a rescore's plan to `stats` from its clusters' member and
+    query counts: JAX's size classes (_rescore_plan over tables as wide
+    as the largest counts rounded up to 128), its probed clusters and
+    padded pair-scores, the real pair-scores (the sum over probed clusters
+    of queries times members) and the largest cluster; returns the
+    plan."""
+    counts_h = counts_h.astype(np.int64)
+    qcounts_h = qcounts_h.astype(np.int64)
+    groups = _rescore_plan(counts_h, qcounts_h, _ceil128(qcounts_h.max()),
+                           _ceil128(counts_h.max()))
+    stats["pair_scores"] = stats.get("pair_scores", 0) + sum(
+        len(clusters) * qcls * mcls
+        for (qcls, mcls), clusters in groups.items())
     stats["size_classes"] = stats.get("size_classes", 0) + len(groups)
     stats["probed_clusters"] = (stats.get("probed_clusters", 0)
                                 + sum(len(v) for v in groups.values()))
     stats["real_pair_scores"] = stats.get("real_pair_scores", 0) + int(
-        (qcounts_h.astype(np.int64) * counts_h.astype(np.int64)).sum())
-    if en_pad.device.type == "cuda":
-        buf = rescore_clusters(en_pad, n_real, member, counts_h, qtab, stab,
-                               qcounts_h, first, nq, probes.shape[1], kk_g,
-                               precision)
-    else:
-        buf = rescore_plain(en_pad, n_real, member, qtab, stab, groups,
-                            first, nq, probes.shape[1], k, kk_g)
-    return _merge_buffers(buf, k, spill)
+        (qcounts_h * counts_h).sum())
+    stats["max_members"] = int(counts_h.max())
+    return groups
+
+
+def _member_side(a: torch.Tensor, c: int, spill: int):
+    """The members of each cluster as _rescore takes them, from the
+    flattened (N * spill,) spill lists a: on a card K11's Buckets
+    (bucket_clusters at div = spill), on the CPU _members' dense table and
+    its counts on the host."""
+    if a.device.type == "cuda":
+        return bucket_clusters(a.contiguous(), c, spill)
+    return _members(a, c, spill)
+
+
+def _rescore(en_pad: torch.Tensor, n_real: int, members, first: int,
+             nq: int, probes: torch.Tensor, k: int, spill: int,
+             precision: str, stats: dict):
+    """The (nq, min(k, ...)) int64 keys of the query rows en_pad[first :
+    first + nq] over the members (_member_side's) of their probed
+    clusters `probes` (nq, p): exact scores (bf16 products of the
+    bf16-rounded rows at precision="bf16", float32 at "fp32", float32
+    sums either way), rows >= n_real never winning. Returns a function
+    that adds the plan to `stats` (_add_plan) and returns the keys. On a
+    CUDA device the work is enqueued first and nothing is read back before
+    it: K11 buckets the probe lists (their slots and K6's work list), the
+    two buckets' bounds are copied to page-locked memory behind it, K6
+    (rescore_clusters) fills the (query, probe slot) buffer and K7 merges
+    it; the returned function waits on an event recorded after the copies
+    alone and adds the plan while K6 runs. On the CPU the dense tables
+    (_queries), rescore_plain and merge_buffers_plain."""
+    p = probes.shape[1]
+    if en_pad.device.type != "cuda":
+        member, counts_h = members
+        qtab, stab, qcounts_h = _queries(probes, member.shape[0])
+        groups = _add_plan(stats, counts_h, qcounts_h)
+        kk_g = min(k, member.shape[1])
+        keys = _merge_buffers(rescore_plain(
+            en_pad, n_real, member, qtab, stab, groups, first, nq, p, k,
+            kk_g), k, spill)
+        return lambda: keys
+    queries = bucket_clusters(probes.reshape(-1), members.bounds.shape[0] - 1,
+                              p, members.bounds)
+    host = []
+    for b in (members.bounds, queries.bounds):
+        host.append(torch.empty(b.shape, dtype=torch.int32, pin_memory=True))
+        host[-1].copy_(b, non_blocking=True)
+    copied = torch.cuda.current_stream(en_pad.device).record_event()
+    keys = _merge_buffers(rescore_clusters(
+        en_pad, n_real, members, queries, first, nq, p, k, precision),
+        k, spill)
+
+    def finish() -> torch.Tensor:
+        copied.synchronize()
+        counts_h, qcounts_h = (np.diff(h.numpy()).astype(np.int64)
+                               for h in host)
+        _add_plan(stats, counts_h, qcounts_h)
+        # the CPU search's width: its buffer holds min(k, table width)
+        # keys a list, its merge min(k, p of them)
+        kk = min(k, p * min(k, _ceil128(counts_h.max())))
+        return keys if kk == keys.shape[1] else keys[:, :kk].contiguous()
+
+    return finish
 
 
 def rescore_plain(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
@@ -653,52 +809,37 @@ def rescore_plain(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
     return buf[:nq]
 
 
-# K6's work unit: a probed cluster times up to K6_ROWS of its query slots
-# (csrc/ivf_rescore.cu's BM)
-K6_ROWS = 128
-
-
-def rescore_units(counts_h: np.ndarray, qcounts_h: np.ndarray) -> np.ndarray:
-    """K6's work list: (U, 4) int32 (cluster, first query slot, query
-    slots, members) over the probed clusters, K6_ROWS slots a unit, the
-    clusters with the most members first (a long unit starts early)."""
-    cl = np.flatnonzero(qcounts_h)
-    cl = cl[np.argsort(-counts_h[cl], kind="stable")]
-    per = -(-qcounts_h[cl] // K6_ROWS)
-    c = np.repeat(cl, per)
-    j0 = (np.arange(per.sum()) - np.repeat(np.cumsum(per) - per, per)) \
-        * K6_ROWS
-    return np.stack([c, j0, np.minimum(K6_ROWS, qcounts_h[c] - j0),
-                     counts_h[c]], axis=1).astype(np.int32)
-
-
-def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
-                     counts_h: np.ndarray, qtab: torch.Tensor,
-                     stab: torch.Tensor, qcounts_h: np.ndarray, first: int,
-                     nq: int, p: int, kk_g: int,
-                     precision: str) -> torch.Tensor:
+def rescore_clusters(en_pad: torch.Tensor, n_real: int, members: Buckets,
+                     queries: Buckets, first: int, nq: int, p: int,
+                     kk_g: int, precision: str) -> torch.Tensor:
     """K6 (csrc/ivf_rescore.cu `fk_ivf_rescore`): the (nq, p, kk_g) buffer
-    of rescore_plain in one launch on the card of en_pad, a block a unit
-    of rescore_units, walking each cluster's true member count: each
-    row's top kk_g selected once over the first K6_FIRST members, later
-    members offered against it (_k6_replay replays it). The rows go in as
-    bfloat16 at precision="bf16" (wgmma, float32 sums: the rows are
+    of rescore_plain in one launch on the card of en_pad over the member
+    and probe Buckets (bucket_clusters'), a block a unit of the probe
+    side's work list (its grid the list's rows, a block past the device's
+    n_units returning at once), walking each cluster's true member count:
+    each row's top kk_g selected once over the first K6_FIRST members,
+    later members offered against it (_k6_replay replays it). The rows go
+    in as bfloat16 at precision="bf16" (wgmma, float32 sums: the rows are
     bf16-rounded already, so the products are rescore_plain's), float32
     at "fp32" (FFMA); every (query, slot) list is written whole, sorted
-    descending, EMPTY_KEY past its members. Counts its launches in
-    .kernel_launches (the fp32 form's also in .fp32_launches); raises on
-    a tensor it does not take."""
+    descending, EMPTY_KEY past its members. Nothing is read back. Counts
+    its launches in .kernel_launches (the fp32 form's also in
+    .fp32_launches); raises on a tensor it does not take."""
     if precision not in ("bf16", "fp32"):
         raise ValueError(f"precision must be 'bf16' or 'fp32', not "
                          f"{precision!r}")
-    tensors = (en_pad, member, qtab, stab)
+    if queries.units is None:
+        raise ValueError("rescore_clusters: the probe side's Buckets (with "
+                         "K6's work list)")
+    tensors = (en_pad, members.vals, queries.vals, queries.slots,
+               queries.units, queries.n_units)
     dev = en_pad.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("rescore_clusters: every tensor on one CUDA "
                          f"device, not {[str(t.device) for t in tensors]}")
     if any(t.dtype != torch.int32 or not t.is_contiguous()
-           for t in (member, qtab, stab)) or qtab.shape != stab.shape:
-        raise ValueError("rescore_clusters: contiguous int32 tables")
+           for t in tensors[1:]) or queries.units.shape[-1] != 4:
+        raise ValueError("rescore_clusters: contiguous int32 buckets")
     if en_pad.shape[0] >= 1 << 31:
         raise ValueError("rescore_clusters: fewer than 2**31 rows (the "
                          "kernel keeps query rows as int32)")
@@ -706,17 +847,17 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
                      else torch.float32).contiguous()
     d = rows.shape[1]
     buf = torch.empty((nq, p, kk_g), dtype=torch.int64, device=dev)
-    units = rescore_units(counts_h, qcounts_h)
-    if nq == 0 or kk_g == 0 or len(units) == 0:
+    grid = queries.units.shape[0]
+    if nq == 0 or kk_g == 0 or grid == 0:
         return buf.fill_(EMPTY_KEY)
-    units_d = torch.from_numpy(units).to(dev)
     vec = rows.data_ptr() % 16 == 0 and d % (8 if precision == "bf16"
                                              else 4) == 0
     _build.launch("fk_ivf_rescore", rows.data_ptr(), d,
-                  int(precision == "bf16"), member.data_ptr(),
-                  member.shape[1], qtab.data_ptr(), stab.data_ptr(),
-                  qtab.shape[1], units_d.data_ptr(), len(units), first,
-                  n_real, p, kk_g, buf.data_ptr(), int(vec), device=dev)
+                  int(precision == "bf16"), members.vals.data_ptr(),
+                  queries.vals.data_ptr(), queries.slots.data_ptr(),
+                  queries.units.data_ptr(), queries.n_units.data_ptr(), grid,
+                  first, n_real, p, kk_g, buf.data_ptr(), int(vec),
+                  device=dev)
     rescore_clusters.kernel_launches += 1
     rescore_clusters.fp32_launches += precision == "fp32"
     return buf
@@ -849,20 +990,21 @@ def _k6_unit_replay(keys: torch.Tensor, w: int,
     return lists
 
 
-def _k6_replay(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
-               counts_h: np.ndarray, qtab: torch.Tensor, stab: torch.Tensor,
-               qcounts_h: np.ndarray, first: int, nq: int, p: int,
-               kk_g: int, stats: dict | None = None) -> torch.Tensor:
-    """rescore_clusters' buffer by K6's units and selection replayed on
-    tensors (_k6_unit_replay): each unit's float32 scores as rescore_plain
-    takes them (exact on grid rows), _order_keys, EMPTY_KEY past the
-    members and for a member >= n_real."""
+def _k6_replay(en_pad: torch.Tensor, n_real: int, members: Buckets,
+               queries: Buckets, first: int, nq: int, p: int, kk_g: int,
+               stats: dict | None = None) -> torch.Tensor:
+    """rescore_clusters' buffer by K6's units (the probe Buckets' work
+    list) and selection replayed on tensors (_k6_unit_replay): each
+    unit's float32 scores as rescore_plain takes them (exact on grid
+    rows), _order_keys, EMPTY_KEY past the members and for a member >=
+    n_real."""
     buf = torch.full((nq, p, kk_g), EMPTY_KEY, dtype=torch.int64)
     rows = en_pad.float().cpu()
-    for c, j0, mq, nm in rescore_units(counts_h, qcounts_h).tolist():
-        q = qtab[c, j0 : j0 + mq].long().cpu()
-        s = stab[c, j0 : j0 + mq].long().cpu()
-        ids = member[c, :nm].long().cpu()
+    mv, qv, qs = (t.long().cpu() for t in (members.vals, queries.vals,
+                                           queries.slots))
+    units = queries.units[: int(queries.n_units[0])].tolist()
+    for m0, q0, mq, nm in units:
+        q, s, ids = qv[q0 : q0 + mq], qs[q0 : q0 + mq], mv[m0 : m0 + nm]
         keys = _order_keys(rows[first + q] @ rows[ids].T, ids[None, :])
         keys.masked_fill_((ids >= n_real)[None, :], EMPTY_KEY)
         for r, lst in enumerate(_k6_unit_replay(keys, kk_g, stats)):
@@ -974,26 +1116,26 @@ def _tables(en: torch.Tensor, c: int, kmeans_iters: int, spill: int,
 
 def _members(a: torch.Tensor, c: int, spill: int):
     """(member table, counts on the host) of the flattened (N*spill,)
-    assignments a; the table's width is the largest count rounded up to
-    a multiple of 128."""
+    assignments a, the CPU search's dense form (member_table_plain); the
+    table's width is the largest count rounded up to a multiple of
+    128."""
     counts, counts_h = _cluster_counts(a, c)
-    return (_member_table(a, counts, c, _ceil128(counts_h.max()), spill),
-            counts_h)
+    return (member_table_plain(a, counts, c, _ceil128(counts_h.max()),
+                               spill), counts_h)
 
 
 def _queries(probes: torch.Tensor, c: int):
     """(qtab, stab, query counts on the host) of the (nq, p) probe lists
-    over c clusters; the tables' width is the largest count rounded up to
-    a multiple of 128."""
+    over c clusters, the CPU search's dense form (probe_tables_plain); the
+    tables' width is the largest count rounded up to a multiple of 128."""
     qcounts, qcounts_h = _cluster_counts(probes.reshape(-1), c)
-    return (*_probe_tables(probes, qcounts, c, _ceil128(qcounts_h.max())),
-            qcounts_h)
+    return (*probe_tables_plain(probes, qcounts, c,
+                                _ceil128(qcounts_h.max())), qcounts_h)
 
 
 def _log_search(name: str, n: int, c: int, p: int, spill: int,
-                counts_h: np.ndarray, stats: dict) -> None:
-    stats.update(rows=n, clusters=c, probes=p, spill=spill,
-                 max_members=int(counts_h.max()))
+                stats: dict) -> None:
+    stats.update(rows=n, clusters=c, probes=p, spill=spill)
     logger.info(
         "%s: %d rows, C=%d clusters (mean %.0f, max %d rows, spill %d), "
         "p=%d probes; rescore: %d size classes over %d probed clusters, "
@@ -1034,11 +1176,11 @@ def knn_ivf(
     k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
     en_pad = _unit_padded(emb, precision)
     _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
-    member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
+    members = _member_side(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {}
-    keys = _rescore(en_pad, n, member, counts_h, 0, n,
-                    top[:, :p].contiguous(), k, spill, precision, stats)
-    _log_search("knn_ivf", n, c, p, spill, counts_h, stats)
+    keys = _rescore(en_pad, n, members, 0, n, top[:, :p].contiguous(), k,
+                    spill, precision, stats)()
+    _log_search("knn_ivf", n, c, p, spill, stats)
     knn_ivf.last = stats
     return keys_to_host(keys, transfer, n)
 
@@ -1048,27 +1190,34 @@ knn_ivf.exact_fallbacks = 0
 knn_ivf.last = {}
 
 
-def _search_blocks(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
-                   counts_h: np.ndarray, probes: torch.Tensor, first: int,
-                   n_rows: int, mesh, k: int, spill: int, precision: str,
+def _search_blocks(en_pad: torch.Tensor, n_real: int, members,
+                   probes: torch.Tensor, first: int, n_rows: int, mesh,
+                   k: int, spill: int, precision: str,
                    stats: dict) -> list[torch.Tensor]:
     """The keys of query rows first .. first + n_rows - 1 cut into one
     block per entry of `mesh` (b = ceil(n_rows / entries) rows each), each
     searched on its entry's device against every row: en_pad and the
-    member table copied once to each distinct device (mesh.replicate).
-    probes: the (n_rows, p) probe lists of those rows."""
+    members (_member_side's: the buckets' vals and bounds, or the dense
+    table) copied once to each distinct device (mesh.replicate). Every
+    entry's search is enqueued before any waits for its sizes. probes:
+    the (n_rows, p) probe lists of those rows."""
     from fedrann_tpu_torch.parallel.mesh import replicate
 
+    if en_pad.device.type == "cuda":
+        copies = [Buckets(v, b) for v, b in zip(
+            replicate(members.vals, mesh), replicate(members.bounds, mesh))]
+    else:
+        copies = [(t, members[1]) for t in replicate(members[0], mesh)]
     b = -(-n_rows // mesh.size)
-    out = []
-    for j, (rows, table) in enumerate(zip(replicate(en_pad, mesh),
-                                          replicate(member, mesh))):
+    pending = []
+    for j, (rows, mine) in enumerate(zip(replicate(en_pad, mesh), copies)):
         lo, hi = j * b, min(n_rows, (j + 1) * b)
         if hi > lo:
-            out.append(_rescore(rows, n_real, table, counts_h, first + lo,
-                                hi - lo, probes[lo:hi].to(rows.device), k,
-                                spill, precision, stats))
-    return out
+            pending.append(_rescore(
+                rows, n_real, mine, first + lo, hi - lo,
+                probes[lo:hi].to(rows.device).contiguous(), k, spill,
+                precision, stats))
+    return [finish() for finish in pending]
 
 
 def knn_ivf_sharded(
@@ -1106,11 +1255,11 @@ def knn_ivf_sharded(
     k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
     en_pad = _unit_padded(emb.to(mesh.devices[0]), precision)
     _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
-    member, counts_h = _members(top[:, :spill].reshape(-1), c, spill)
+    members = _member_side(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {"entries": mesh.size}
-    keys = _search_blocks(en_pad, n, member, counts_h, top[:, :p], 0, n,
-                          mesh, k, spill, precision, stats)
-    _log_search("knn_ivf_sharded", n, c, p, spill, counts_h, stats)
+    keys = _search_blocks(en_pad, n, members, top[:, :p], 0, n, mesh, k,
+                          spill, precision, stats)
+    _log_search("knn_ivf_sharded", n, c, p, spill, stats)
     knn_ivf_sharded.last = stats
     parts = [keys_to_host(kk, transfer, n) for kk in keys]
     return (np.concatenate([q[0] for q in parts]),
@@ -1204,12 +1353,12 @@ def knn_ivf_sharded_multihost(
     mine = torch.zeros((block_rows, spill), dtype=torch.int32, device=hop)
     mine[:n_mine] = top[:, :spill]
     a = torch.cat(transport.all_gather(mine))[:n_real].reshape(-1)
-    member, counts_h = _members(a, c, spill)
+    members = _member_side(a, c, spill)
     stats: dict = {"entries": n_proc * n_local}
-    keys = _search_blocks(en_pad, n_real, member, counts_h, top[:, :p],
-                          first, n_mine, mesh, k, spill, precision, stats)
+    keys = _search_blocks(en_pad, n_real, members, top[:, :p], first,
+                          n_mine, mesh, k, spill, precision, stats)
     _log_search(f"[rank {rank}] knn_ivf_sharded_multihost", n_real, c, p,
-                spill, counts_h, stats)
+                spill, stats)
     knn_ivf_sharded_multihost.last = stats
     if not keys:
         return np.zeros((0, k), np.int32), np.zeros((0, k), np.float32)

@@ -42,7 +42,8 @@ EMPTY_KEY = -(1 << 63)
 # two and keeps it for the next result of its size until the process
 # ends; a larger result gets a page-locked block of its own (HostBlock),
 # which goes back to the system with the result, so the locked memory
-# that outlives the results stays bounded whatever their sizes.
+# that outlives the results stays bounded whatever their sizes. (The IVF
+# rescore copies its buckets' bounds into small blocks of the same cache.)
 PIN_CACHE_BYTES = 1 << 28
 
 

@@ -4,9 +4,10 @@ numpy rows, made from seeds:
 
 - integer tables bitwise: auto_clusters; the member and probe tables
   built from JAX's own assignment arrays, and from seeded ones at the
-  edges of their kernel K11 (empty clusters, C = 1, N not a multiple of
-  128, p = C), alone and as the search's steps run them (_members,
-  _queries: counts and width included);
+  edges of K11 (empty clusters, C = 1, N not a multiple of 128, p = C),
+  alone and as the CPU search's steps run them (_members, _queries:
+  counts and width included); the bucket form K11 writes on a card, by
+  its plain version, expanded to JAX's tables;
 - the segment sum (segment_sum_plain, K9's reference) bitwise
   jax.ops.segment_sum: random assignments, empty clusters, one cluster,
   bfloat16 rows widened as JAX widens them, chunks carried into one sum;
@@ -83,14 +84,14 @@ def test_member_and_probe_tables_bitwise(blobs, spill):
     m = int(-(-int(np.asarray(counts).max()) // 128) * 128)
     qm = int(-(-int(np.asarray(qcounts).max()) // 128) * 128)
     want = np.asarray(jivf._member_table(a, counts, 64, m, spill=spill))
-    got = ivf._member_table(torch.from_numpy(np.asarray(a)),
-                            torch.from_numpy(np.asarray(counts)), 64, m,
-                            spill)
+    got = ivf.member_table_plain(torch.from_numpy(np.asarray(a)),
+                                 torch.from_numpy(np.asarray(counts)), 64,
+                                 m, spill)
     np.testing.assert_array_equal(got.numpy(), want)
     qtab, stab = jivf._probe_tables(probes, qcounts, 64, qm)
-    q_got, s_got = ivf._probe_tables(torch.from_numpy(np.asarray(probes)),
-                                     torch.from_numpy(np.asarray(qcounts)),
-                                     64, qm)
+    q_got, s_got = ivf.probe_tables_plain(
+        torch.from_numpy(np.asarray(probes)),
+        torch.from_numpy(np.asarray(qcounts)), 64, qm)
     np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
     np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
 
@@ -125,13 +126,13 @@ def test_member_and_probe_tables_bitwise_edges(case, spill):
     m, qm = (int(-(-int(x.max()) // 128) * 128) for x in (counts, qcounts))
     want = np.asarray(jivf._member_table(jnp.asarray(a), jnp.asarray(counts),
                                          c, m, spill=spill))
-    got = ivf._member_table(torch.from_numpy(a), torch.from_numpy(counts),
-                            c, m, spill)
+    got = ivf.member_table_plain(torch.from_numpy(a),
+                                 torch.from_numpy(counts), c, m, spill)
     np.testing.assert_array_equal(got.numpy(), want)
     qtab, stab = jivf._probe_tables(jnp.asarray(probes), jnp.asarray(qcounts),
                                     c, qm)
-    q_got, s_got = ivf._probe_tables(torch.from_numpy(probes),
-                                     torch.from_numpy(qcounts), c, qm)
+    q_got, s_got = ivf.probe_tables_plain(torch.from_numpy(probes),
+                                          torch.from_numpy(qcounts), c, qm)
     np.testing.assert_array_equal(q_got.numpy(), np.asarray(qtab))
     np.testing.assert_array_equal(s_got.numpy(), np.asarray(stab))
 
@@ -161,6 +162,50 @@ def test_members_and_queries_are_jax_tables(case, spill):
                                         jnp.asarray(qcounts), c, qm)
     np.testing.assert_array_equal(qtab.numpy(), np.asarray(want_q))
     np.testing.assert_array_equal(stab.numpy(), np.asarray(want_s))
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+@pytest.mark.parametrize("case", ["blobs", "empty clusters", "C = 1",
+                                  "N = 1,000", "p = C"])
+def test_plain_buckets_expand_to_jax_tables(blobs, case, spill):
+    """Tolerance: none (integer tables). The bucket form K11 gives on a
+    card, by its plain version (bucket_clusters_plain: the member side at
+    div = spill, the probe side at div = p with the member side's
+    bounds), expanded to dense tables at JAX's widths (expand_buckets,
+    padded as JAX pads), against JAX's _member_table and _probe_tables;
+    each side's bounds the prefix of JAX's counts. JAX's own k-means
+    assignments on blobs, and the seeded edge cases."""
+    if case == "blobs":
+        en = jnp.asarray(_unit(blobs))
+        cent, a, _ = jivf._kmeans(en, 64, 3)
+        if spill > 1:
+            a, _ = jivf._assign_spill(en, cent, spill)
+        probes, _ = jivf._probe_lists(en, cent, 8)
+        a, probes, c = np.asarray(a), np.asarray(probes), 64
+    else:
+        a, probes, c = _table_case(case, spill)
+    n, p = probes.shape
+    counts = np.bincount(a, minlength=c)
+    qcounts = np.bincount(probes.ravel(), minlength=c)
+    m, qm = (int(-(-int(x.max()) // 128) * 128) for x in (counts, qcounts))
+    members = ivf.bucket_clusters_plain(torch.from_numpy(a), c, spill)
+    queries = ivf.bucket_clusters_plain(torch.from_numpy(probes).reshape(-1),
+                                        c, p, members.bounds)
+    for b, want in ((members, counts), (queries, qcounts)):
+        np.testing.assert_array_equal(b.bounds.numpy(), np.concatenate(
+            [[0], np.cumsum(want)]))
+    np.testing.assert_array_equal(
+        ivf.expand_buckets(members.vals, members.bounds, m, n).numpy(),
+        np.asarray(jivf._member_table(jnp.asarray(a), jnp.asarray(counts),
+                                      c, m, spill=spill)))
+    want_q, want_s = jivf._probe_tables(jnp.asarray(probes),
+                                        jnp.asarray(qcounts), c, qm)
+    np.testing.assert_array_equal(
+        ivf.expand_buckets(queries.vals, queries.bounds, qm, n).numpy(),
+        np.asarray(want_q))
+    np.testing.assert_array_equal(
+        ivf.expand_buckets(queries.slots, queries.bounds, qm, 0).numpy(),
+        np.asarray(want_s))
 
 
 SEGMENT_CASES = {"random": (5000, 64, 37), "empty clusters": (300, 100, 64),

@@ -15,13 +15,18 @@ same numpy rows and tables:
   _probe_lists from the same centroids;
 - the dispatch: CPU tensors reach the plain versions, and the kernels'
   wrappers refuse them;
+- the vectorized size-class plan (_rescore_plan) against the loop over
+  clusters, and K6's work list from the buckets' bounds
+  (bucket_units_plain) against the host's former list (rescore_units)
+  as rows;
 - K6's and K7's device algorithms replayed on tensors (ivf._k6_replay:
   the first selection's bisection, the later tiles' offers, overflow
   rounds and merges; ivf._k7_replay: the merge network, the dedup of
   exact copies and the exact finish) bitwise rescore_plain and
   merge_buffers_plain: ties, rows >= n_real, members fewer than W, W in
   {1, 50, 64, 100}, a cluster whose later tiles beat every earlier key
-  (every overflow round), lists whose indices recur at other scores.
+  (every overflow round), K6's units in any order, lists whose indices
+  recur at other scores.
 
 The `cuda` tests (skipped without a card) hold each kernel against its
 plain version on the card: K6 bitwise on grid rows and at the edge cases
@@ -30,7 +35,10 @@ unprobed and empty clusters, C = 8, a query row offset; W = 1, 50, 64 and
 100; a cluster past the first selection's 256 members, and one that
 overflows its survivor slots), to an index-set
 agreement >= 0.999 and scores within 2e-6 on real rows, two launches
-byte-identical; K7 bitwise at spill 1, 2 and 3 on K6's own buffers and on
+byte-identical; K6 on K11's work list (made on the card) bitwise K6 on
+the host's (ivf.host_units); knn_ivf_sharded over every card bitwise
+knn_ivf on one (two cards or more); knn_ivf with no synchronizing call
+between the k-means and K6's launch; K7 bitwise at spill 1, 2 and 3 on K6's own buffers and on
 sorted lists whose indices recur at other scores; K4 as the cluster
 ranking at agreement >= 0.999, ties to the lower of two equal centroids;
 knn_ivf through K4, K6 and K7 with no plain version reached; the kernels
@@ -93,15 +101,23 @@ def _blobs(n, d, c, rng):
 
 def _case(en_pad, n_real, member, counts_h, probes, k, first=0):
     """The tables and plan of one rescore over torch tensors on the
-    device of en_pad: what rescore_plain and rescore_clusters take."""
+    device of en_pad: what rescore_plain takes (the dense tables), and
+    what rescore_clusters and _k6_replay take (the member and probe
+    Buckets: K11's on a card, bucket_clusters_plain's on the CPU)."""
     c = member.shape[0]
     qtab, stab, qcounts_h = ivf._queries(probes, c)
+    members = ivf.table_buckets(member, counts_h)
+    bucket = ivf.bucket_clusters if probes.is_cuda \
+        else ivf.bucket_clusters_plain
+    queries = bucket(probes.reshape(-1).contiguous(), c, probes.shape[1],
+                     members.bounds)
     return dict(en_pad=en_pad, n_real=n_real, member=member,
                 counts_h=np.asarray(counts_h), qtab=qtab, stab=stab,
                 qcounts_h=qcounts_h, first=first, nq=probes.shape[0],
                 p=probes.shape[1], k=k, kk_g=min(k, member.shape[1]),
                 groups=ivf._rescore_plan(np.asarray(counts_h), qcounts_h,
-                                         qtab.shape[1], member.shape[1]))
+                                         qtab.shape[1], member.shape[1]),
+                members=members, queries=queries)
 
 
 def _plain(case):
@@ -111,10 +127,10 @@ def _plain(case):
                              case["k"], case["kk_g"])
 
 
-def _kernel(case, precision):
+def _kernel(case, precision, queries=None):
     return ivf.rescore_clusters(
-        case["en_pad"], case["n_real"], case["member"], case["counts_h"],
-        case["qtab"], case["stab"], case["qcounts_h"], case["first"],
+        case["en_pad"], case["n_real"], case["members"],
+        case["queries"] if queries is None else queries, case["first"],
         case["nq"], case["p"], case["kk_g"], precision)
 
 
@@ -291,26 +307,116 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         ivf.merge_probe_lists(torch.full((4, 2, 3), EMPTY_KEY), 3, 2)
 
 
+def _bounds(counts):
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
+                            .astype(np.int32))
+
+
+def _rescore_units(counts_h, qcounts_h):
+    """K6's work list as the host once made it, the reference
+    bucket_units_plain is held to: (U, 4) int32 (cluster, first query
+    slot, query slots, members) over the probed clusters, K6_ROWS slots a
+    unit, the clusters with the most members first."""
+    cl = np.flatnonzero(qcounts_h)
+    cl = cl[np.argsort(-counts_h[cl], kind="stable")]
+    per = -(-qcounts_h[cl] // ivf.K6_ROWS)
+    c = np.repeat(cl, per)
+    j0 = (np.arange(per.sum()) - np.repeat(np.cumsum(per) - per, per)) \
+        * ivf.K6_ROWS
+    return np.stack([c, j0, np.minimum(ivf.K6_ROWS, qcounts_h[c] - j0),
+                     counts_h[c]], axis=1).astype(np.int32)
+
+
 def test_rescore_units_cover_every_probed_slot():
-    """K6's work list: every probed cluster's query slots once, in units
-    of at most K6_ROWS, the clusters with the most members first, the
-    empty ones included."""
+    """K6's work list (bucket_units_plain, from the buckets' bounds):
+    every probed cluster's query slots once, in units of at most K6_ROWS,
+    each with its cluster's first member and its member count, the
+    clusters with the longest member counts first, the empty ones
+    included."""
     counts_h = np.array([5, 0, 300, 7, 0, 40])
     qcounts_h = np.array([129, 3, 0, 256, 0, 1])
-    units = ivf.rescore_units(counts_h, qcounts_h)
+    mb, qb = _bounds(counts_h), _bounds(qcounts_h)
+    units = ivf.bucket_units_plain(mb, qb).numpy()
     assert units.dtype == np.int32 and units.shape[1] == 4
-    slots = {(int(c), int(j)) for c, j0, q, _ in units
-             for j in range(j0, j0 + q)}
+    cluster = np.searchsorted(qb.numpy(), units[:, 1], side="right") - 1
+    slots = {(int(c), int(j - qb[c])) for c, (_, j0, q, _) in
+             zip(cluster, units) for j in range(j0, j0 + q)}
     assert slots == {(c, j) for c in range(6) for j in range(qcounts_h[c])}
     assert (units[:, 2] <= ivf.K6_ROWS).all() and (units[:, 2] > 0).all()
-    assert (units[:, 3] == counts_h[units[:, 0]]).all()
-    assert (np.diff(units[:, 3]) <= 0).all()
+    assert (units[:, 0] == mb.numpy()[cluster]).all()
+    assert (units[:, 3] == counts_h[cluster]).all()
+    length = [int(m).bit_length() for m in units[:, 3]]
+    assert length == sorted(length, reverse=True)
+
+
+def _rescore_plan_loop(counts_h, qcounts_h, qm, m_all):
+    """_rescore_plan as a loop over the probed clusters, one at a time:
+    the reference its vectorized form is held to."""
+    groups = {}
+    for c in np.flatnonzero(qcounts_h):
+        key = (min(ivf._size_class(qcounts_h[c]), qm),
+               min(ivf._size_class(counts_h[c]), m_all))
+        groups.setdefault(key, []).append(int(c))
+    return groups
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_rescore_plan_is_the_loop(seed):
+    """The vectorized _rescore_plan gives the loop's groups (keys, their
+    order and each one's clusters) over counts with empty, unprobed and
+    power-of-two clusters, caps below the largest class included; _add_plan
+    the stats the search logs from them."""
+    rng = np.random.default_rng(seed)
+    c = int(rng.integers(50, 3000))
+    counts_h = rng.integers(0, 2000, c)
+    qcounts_h = rng.integers(0, 700, c)
+    counts_h[rng.random(c) < 0.1] = 0
+    qcounts_h[rng.random(c) < 0.1] = 0
+    counts_h[:5] = [1, 128, 129, 256, 4096]
+    qcounts_h[:5] = 1
+    for qm, m_all in ((256, 512), (ivf._ceil128(qcounts_h.max()),
+                                   ivf._ceil128(counts_h.max()))):
+        want = _rescore_plan_loop(counts_h, qcounts_h, qm, m_all)
+        got = ivf._rescore_plan(counts_h, qcounts_h, qm, m_all)
+        assert got == want and list(got) == list(want)
+    stats = {}  # the search's plan: tables as wide as the largest counts
+    ivf._add_plan(stats, counts_h, qcounts_h)
+    assert stats == {
+        "pair_scores": sum(len(v) * q * m for (q, m), v in want.items()),
+        "size_classes": len(want),
+        "probed_clusters": int((qcounts_h > 0).sum()),
+        "real_pair_scores": int((counts_h * qcounts_h).sum()),
+        "max_members": int(counts_h.max())}
+
+
+@pytest.mark.parametrize("sizes", [
+    ([5, 0, 300, 7, 0, 40], [129, 3, 0, 256, 0, 1]),
+    ([1, 128, 129, 256, 255, 2], [1, 128, 129, 1000, 0, 7]),
+    ([0], [3])])
+def test_plain_units_are_rescore_units_rows(sizes):
+    """K6's work list from the buckets' bounds (bucket_units_plain, K11's
+    reference) holds rescore_units' rows, each (cluster, first slot) at
+    its buckets' offsets, as a set; its clusters by the bit length of
+    their member count, longest first, then by id."""
+    counts_h, qcounts_h = (np.array(x) for x in sizes)
+    mb, qb = _bounds(counts_h), _bounds(qcounts_h)
+    got = ivf.bucket_units_plain(mb, qb)
+    assert got.dtype == torch.int32 and got.shape[1] == 4
+    want = {(int(mb[c]), int(qb[c]) + j0, q, m)
+            for c, j0, q, m in _rescore_units(counts_h, qcounts_h).tolist()}
+    rows = [tuple(r) for r in got.tolist()]
+    assert len(rows) == len(want) and set(rows) == want
+    length = [int(m).bit_length() for *_, m in rows]
+    assert length == sorted(length, reverse=True)
+    firsts = [r[0] for r in rows]
+    for b in set(length):  # within a length by cluster id (member offset)
+        run = [f for f, lb in zip(firsts, length) if lb == b]
+        assert run == sorted(run)
 
 
 def _replay(case, stats=None):
-    return ivf._k6_replay(case["en_pad"], case["n_real"], case["member"],
-                          case["counts_h"], case["qtab"], case["stab"],
-                          case["qcounts_h"], case["first"], case["nq"],
+    return ivf._k6_replay(case["en_pad"], case["n_real"], case["members"],
+                          case["queries"], case["first"], case["nq"],
                           case["p"], case["kk_g"], stats)
 
 
@@ -348,6 +454,23 @@ def test_k6_replay_matches_plain_on_ivf_tables(spill):
     stats = {}
     assert torch.equal(_replay(case, stats), _plain(case))
     assert stats["steps"] <= 64 * case["nq"] * case["p"]
+
+
+@pytest.mark.parametrize("spill", [1, 2])
+def test_k6_replay_in_any_unit_order(spill):
+    """K11 orders K6's units within a bit length of their member count by
+    atomics; no unit writes another's lists, so the buffer does not depend
+    on their order: the replay over the plain units reversed and shuffled
+    bitwise rescore_plain."""
+    case = _ivf_case(_grid(np.random.default_rng(60 + spill), 3000, 32), 8,
+                     3, spill, 30)
+    want = _plain(case)
+    q = case["queries"]
+    for order in (torch.arange(q.units.shape[0] - 1, -1, -1),
+                  torch.randperm(q.units.shape[0],
+                                 generator=torch.Generator().manual_seed(7))):
+        case["queries"] = q._replace(units=q.units[order])
+        assert torch.equal(_replay(case), want)
 
 
 def test_kth_key_replay_on_ties():
@@ -536,6 +659,69 @@ def test_ivf_rescore_when_survivors_overflow(cuda, precision, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("which", ["edge", "flood", "ivf"])
+def test_ivf_rescore_device_units_match_host_units(cuda, precision, which):
+    """K6 fed K11's work list (made on the card, a grid of k6_grid blocks
+    of which those past its device count return at once) writes the
+    buffer K6 fed the host's list (ivf.host_units: bucket_units_plain,
+    held to rescore_units' rows on the CPU) writes, bitwise, and
+    both are rescore_plain's: the edge and overflow cases, and knn_ivf's
+    own members and probes on blobs (C = 64, p = 8, spill 2)."""
+    case = (_edge_case(cuda) if which == "edge" else _flood_case(cuda)
+            if which == "flood" else _ivf_case(_grid(
+                np.random.default_rng(70), 8000, 128), 64, 8, 2, 50, cuda))
+    q = case["queries"]
+    assert q.units.shape[0] == ivf.k6_grid(case["nq"] * case["p"],
+                                           case["member"].shape[0])
+    assert int(q.n_units[0]) == len(_rescore_units(case["counts_h"],
+                                                   case["qcounts_h"]))
+    got = _kernel(case, precision)
+    assert torch.equal(got, _kernel(case, precision,
+                                       ivf.host_units(case["members"], q)))
+    assert torch.equal(got, _plain(case))
+
+
+@pytest.mark.cuda
+def test_knn_ivf_reads_nothing_back_before_k6(cuda, monkeypatch):
+    """knn_ivf on the card makes no synchronizing call from _tables'
+    return until K6 is enqueued (torch.cuda.set_sync_debug_mode("error")
+    over that span: the member side, the probe side and K6's launch), and
+    gives the result it gives without the check."""
+    from fedrann_tpu_torch import _build
+
+    tables, launch = ivf._tables, _build.launch
+    spans = []
+
+    def after_tables(*args, **kwargs):
+        out = tables(*args, **kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        spans.append("open")
+        return out
+
+    def then_k6(name, *args, **kwargs):
+        try:
+            return launch(name, *args, **kwargs)
+        finally:
+            if name == "fk_ivf_rescore":
+                torch.cuda.set_sync_debug_mode("default")
+                spans.append("closed")
+
+    e = torch.from_numpy(_blobs(8000, 128, 40,
+                                np.random.default_rng(3))).to(cuda)
+    want = ivf.knn_ivf(e, 20, n_clusters=64)
+    monkeypatch.setattr(ivf, "_tables", after_tables)
+    monkeypatch.setattr(_build, "launch", then_k6)
+    try:
+        got = ivf.knn_ivf(e, 20, n_clusters=64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert spans == ["open", "closed"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
 def test_ivf_rescore_real_rows(cuda, precision):
     """Unit blobs (bf16-rounded at bf16), d = 512: the same unset slots,
     strictly descending lists, index-set agreement >= 0.999 and shared
@@ -655,3 +841,29 @@ def test_ivf_kernels_launch_on_their_tensors_card(last_card):
     want = _plain(case)
     assert torch.equal(got, want)
     assert torch.equal(merged, ivf.merge_buffers_plain(want, 50, 2))
+
+
+@pytest.mark.cuda
+def test_knn_ivf_sharded_over_every_card_is_knn_ivf(last_card):
+    """knn_ivf_sharded over a mesh of every card (the member buckets
+    replicated, each card's probe side, K6 and K7 enqueued before any
+    entry waits) gives knn_ivf's result on one card bitwise, at a cluster
+    count the cards divide and blocks of unequal rows; K11 launches once
+    for the member side and once a card for the probe sides."""
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    c = -(-64 // len(cards)) * len(cards)
+    e = torch.from_numpy(_blobs(20_001, 128, 60, np.random.default_rng(4)))
+    want = ivf.knn_ivf(e.to(cards[0]), 20, n_clusters=c)
+    before = (ivf.bucket_clusters.kernel_launches,
+              ivf.bucket_clusters.probe_launches)
+    got = ivf.knn_ivf_sharded(e, 20, mesh=make_mesh(devices=cards),
+                              n_clusters=c)
+    assert (ivf.bucket_clusters.kernel_launches - before[0],
+            ivf.bucket_clusters.probe_launches - before[1]) == (
+        1 + len(cards), len(cards))
+    assert ivf.knn_ivf_sharded.last["entries"] == len(cards)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

@@ -1885,14 +1885,18 @@ def test_result_wire_refuses_what_it_does_not_take(cuda):
         result_wire(keys.cpu(), "f32", 20)
 
 
-# (N, C, p or spill, kind): phase 4's member table (spill 2) and probe
-# tables (p = 8) at C = 256, 11b's at C = 1,024, empty clusters, C = 1, N
-# not a multiple of a tile, p = C, and C past the shared-memory counts
+# (N, C, p or spill, kind): phase 4's member side (spill 2) and probe side
+# (p = 8) at C = 256, 11b's at C = 1,024, empty clusters, C = 1, N not a
+# multiple of a tile, p = C, C whose counts fill all 48 KB of shared memory
+# (auto_clusters' 2,048 and 4,096, and 12,288), and C past the
+# shared-memory counts
 TABLE_CASES = [(15_000, 256, 2, "random"), (15_000, 256, 8, "random"),
                (262_144, 1024, 1, "random"), (262_144, 1024, 2, "random"),
                (262_144, 1024, 8, "random"), (3_000, 64, 2, "even"),
                (700, 1, 1, "one"), (4 * ivf.K9_TILE + 77, 37, 2, "random"),
-               (500, 8, 8, "all"), (20_000, 16_384, 2, "random")]
+               (500, 8, 8, "all"), (100_000, 2048, 8, "random"),
+               (200_000, 4096, 2, "random"), (50_000, 12_288, 2, "random"),
+               (20_000, 16_384, 2, "random")]
 
 
 def _table_inputs(n, c, per, kind):
@@ -1909,89 +1913,107 @@ def _table_inputs(n, c, per, kind):
     return torch.from_numpy(x.astype(np.int32))
 
 
+def _same_buckets(got, want):
+    """K11's Buckets against bucket_clusters_plain's: vals, bounds and
+    slots bitwise; the work list (its first n_units rows) as a set of
+    rows, ordered longest member count (bit length) first."""
+    assert torch.equal(got.vals.cpu(), want.vals.cpu())
+    assert torch.equal(got.bounds.cpu(), want.bounds.cpu())
+    if want.slots is None:
+        assert got.slots is None and got.units is None
+        return
+    assert torch.equal(got.slots.cpu(), want.slots.cpu())
+    n_units = int(got.n_units[0])
+    assert n_units == want.units.shape[0] <= got.units.shape[0]
+    rows = [tuple(r) for r in got.units[:n_units].tolist()]
+    assert sorted(rows) == sorted(tuple(r) for r in want.units.tolist())
+    length = [int(m).bit_length() for *_, m in rows]
+    assert length == sorted(length, reverse=True)
+
+
 @pytest.mark.parametrize("n,c,per,kind", TABLE_CASES)
 def test_ivf_tables_match_plain(cuda, n, c, per, kind):
-    """K11 (_member_table and _probe_tables on CUDA tensors, each after its
-    own bucketing: one cluster_buckets and one cluster_tables call a
-    table) against member_table_plain and probe_tables_plain, bitwise:
-    the member table of the flat (N * per,) assignments at spill = per,
-    and the probe tables of the (N, per) probe lists (_queries); the
-    counts K11's bounds give the host equal torch.bincount's; two calls
-    equal; each call counted."""
+    """K11 (bucket_clusters: one launch a side) against
+    bucket_clusters_plain: the member side of the flat (N * per,) ids at
+    div = per, and the probe side of the (N, per) probe lists at div = per
+    with the member side's bounds (its slots and K6's work list), bitwise
+    (the work list as a set of rows); both expanded to tables as wide as
+    their largest cluster rounded up to 128 bitwise member_table_plain
+    and probe_tables_plain after torch.bincount; two calls equal; each
+    launch counted."""
     x = _table_inputs(n, c, per, kind)
     a = x.reshape(-1)
     counts = torch.bincount(a, minlength=c)
     m = int(-(-int(counts.max()) // 128) * 128)
-    a_d, x_d = a.to(cuda), x.to(cuda)
-    before = (ivf.cluster_tables.kernel_launches,
-              ivf.cluster_buckets.kernel_launches)
-    buckets, sizes = ivf._cluster_counts(a_d, c)
-    got = ivf._member_table(a_d, buckets, c, m, per)
-    again = ivf._member_table(a_d, ivf._cluster_counts(a_d, c)[0], c, m, per)
-    qtab, stab, qsizes = ivf._queries(x_d, c)
+    a_d = a.to(cuda)
+    before = (ivf.bucket_clusters.kernel_launches,
+              ivf.bucket_clusters.probe_launches)
+    members = ivf.bucket_clusters(a_d, c, per)
+    again = ivf.bucket_clusters(a_d, c, per)
+    queries = ivf.bucket_clusters(a_d, c, per, members.bounds)
     torch.cuda.synchronize()
-    assert (ivf.cluster_tables.kernel_launches,
-            ivf.cluster_buckets.kernel_launches) == (before[0] + 3,
-                                                     before[1] + 3)
-    np.testing.assert_array_equal(sizes, counts.numpy())
-    np.testing.assert_array_equal(qsizes, counts.numpy())
-    assert sizes.dtype == qsizes.dtype == np.int64
-    assert torch.equal(got.cpu(), ivf.member_table_plain(a, counts, c, m,
-                                                         per))
-    assert torch.equal(got, again)
+    assert (ivf.bucket_clusters.kernel_launches,
+            ivf.bucket_clusters.probe_launches) == (before[0] + 3,
+                                                    before[1] + 1)
+    want = ivf.bucket_clusters_plain(a, c, per)
+    _same_buckets(members, want)
+    _same_buckets(again, want)
+    _same_buckets(queries, ivf.bucket_clusters_plain(a, c, per,
+                                                     want.bounds))
+    assert torch.equal(ivf.expand_buckets(members.vals, members.bounds, m,
+                                          n).cpu(),
+                       ivf.member_table_plain(a, counts, c, m, per))
     want_q, want_s = ivf.probe_tables_plain(x, counts, c, m)
-    assert torch.equal(qtab.cpu(), want_q) and torch.equal(stab.cpu(), want_s)
+    assert torch.equal(ivf.expand_buckets(queries.vals, queries.bounds, m,
+                                          n).cpu(), want_q)
+    assert torch.equal(ivf.expand_buckets(queries.slots, queries.bounds, m,
+                                          0).cpu(), want_s)
 
 
 def test_ivf_tables_run_no_torch_sort(cuda, monkeypatch):
-    """The tables on the card, counts included, run no torch sort,
-    bincount, scatter or fill: with torch.sort, argsort, bincount, full,
-    zeros and index_put_ made to raise, _members and _queries still give
-    the plain versions' tables and counts."""
+    """K11 on the card runs no torch sort, count, scatter or fill and
+    reads nothing back: with torch.sort, argsort, bincount, full, zeros,
+    index_put_, item assignment and every host copy made to raise, the
+    member side (_member_side) and the probe side still give the plain
+    versions' buckets."""
     x = _table_inputs(15_000, 256, 8, "random")
     a = x[:, :2].reshape(-1)
-    counts = torch.bincount(a, minlength=256)
-    qcounts = torch.bincount(x.reshape(-1), minlength=256)
-    want = ivf.member_table_plain(a, counts, 256, ivf._ceil128(
-        int(counts.max())), 2)
-    want_q, want_s = ivf.probe_tables_plain(x, qcounts, 256, ivf._ceil128(
-        int(qcounts.max())))
+    want = ivf.bucket_clusters_plain(a, 256, 2)
+    want_q = ivf.bucket_clusters_plain(x.reshape(-1), 256, 8, want.bounds)
     a_d, x_d = a.to(cuda), x.to(cuda)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("a torch sort, count or scatter on K11's path")
+        raise AssertionError("a torch sort, count, scatter or host copy on "
+                             "K11's path")
 
     for name in ("sort", "argsort", "bincount", "full", "zeros"):
         monkeypatch.setattr(torch, name, refuse)
-    monkeypatch.setattr(torch.Tensor, "index_put_", refuse)
-    monkeypatch.setattr(torch.Tensor, "__setitem__", refuse)
-    got, sizes = ivf._members(a_d, 256, 2)
-    qtab, stab, qsizes = ivf._queries(x_d, 256)
+    for name in ("index_put_", "__setitem__", "cpu", "item", "tolist",
+                 "numpy"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    members = ivf._member_side(a_d, 256, 2)
+    queries = ivf.bucket_clusters(x_d.reshape(-1), 256, 8, members.bounds)
     torch.cuda.synchronize()
     monkeypatch.undo()
-    assert torch.equal(got.cpu(), want)
-    assert torch.equal(qtab.cpu(), want_q) and torch.equal(stab.cpu(), want_s)
-    np.testing.assert_array_equal(sizes, counts.numpy())
-    np.testing.assert_array_equal(qsizes, qcounts.numpy())
+    _same_buckets(members, want)
+    _same_buckets(queries, want_q)
 
 
 def test_ivf_tables_refuse_what_they_do_not_take(cuda):
     a = torch.zeros(10, dtype=torch.int32, device=cuda)
-    for bad, c in ((a.long(), 4), (a, 0), (a.cpu(), 4)):
-        with pytest.raises(ValueError, match="cluster_buckets"):
-            ivf.cluster_buckets(bad, c)
-    scratch = ivf.cluster_buckets(a, 4)
-    for bad, counts, div in ((a.long(), scratch, 1), (a, scratch, 0),
-                             (a, torch.bincount(a, minlength=4), 1),
-                             (a, scratch.cpu(), 1)):
-        with pytest.raises(ValueError, match="cluster_tables"):
-            ivf.cluster_tables(bad, counts, 4, 128, div)
+    bounds = ivf.bucket_clusters(a, 4, 1).bounds
+    for bad, c, div, mb in ((a.long(), 4, 1, None), (a, 0, 1, None),
+                            (a.cpu(), 4, 1, None), (a, 4, 0, None),
+                            (a[::2], 4, 1, None), (a, 4, 2, bounds[:4]),
+                            (a, 4, 2, bounds.long()), (a, 4, 2, bounds.cpu())):
+        with pytest.raises(ValueError, match="bucket_clusters"):
+            ivf.bucket_clusters(bad, c, div, mb)
 
 
 def test_result_wire_and_tables_launch_on_their_tensors_card(last_card):
     """With cuda:0 current, K10 (into a cached page-locked block and into
-    a block of its own) and K11 on the last card's tensors launch there
-    and match their plain versions."""
+    a block of its own) and K11 (both sides) on the last card's tensors
+    launch there and match their plain versions."""
     keys = _wire_keys(2000, 50, 2000, 5, 0.1)
     _hold_wire(keys_to_host(keys.to(last_card), "u16", 2000),
                keys_to_host_plain(keys, "u16", 2000))
@@ -2001,13 +2023,15 @@ def test_result_wire_and_tables_launch_on_their_tensors_card(last_card):
                    keys_to_host_plain(keys, "f32", 2000))
     x = _table_inputs(5000, 64, 2, "random")
     a = x.reshape(-1)
-    counts = torch.bincount(a, minlength=64)
     a_d = a.to(last_card)
-    got = ivf._member_table(a_d, ivf._cluster_counts(a_d, 64)[0], 64, 256, 2)
+    members = ivf.bucket_clusters(a_d, 64, 2)
+    queries = ivf.bucket_clusters(a_d, 64, 2, members.bounds)
     torch.cuda.synchronize(last_card)
-    assert torch.cuda.current_device() == 0 and got.device == last_card
-    assert torch.equal(got.cpu(), ivf.member_table_plain(a, counts, 64, 256,
-                                                         2))
+    assert torch.cuda.current_device() == 0
+    assert members.vals.device == last_card == queries.units.device
+    want = ivf.bucket_clusters_plain(a, 64, 2)
+    _same_buckets(members, want)
+    _same_buckets(queries, ivf.bucket_clusters_plain(a, 64, 2, want.bounds))
 
 
 def test_srp_paired_and_segment_sum_launch_on_their_tensors_card(last_card):

@@ -207,8 +207,8 @@ def main() -> None:
     del rows
     want = cs.k6_run(case, "bf16")
     en = case["en_pad"].to(torch.bfloat16)
-    units_h = ivf.rescore_units(case["counts_h"], case["qcounts_h"])
-    units = torch.from_numpy(units_h).to(dev)
+    members, queries = case["members"], case["queries"]
+    units_h = queries.units[: int(queries.n_units[0])].cpu().numpy()
     buf = torch.empty_like(want)
     stream = torch.cuda.current_stream().cuda_stream
     ops = 2 * 512 * case["real"]
@@ -216,11 +216,11 @@ def main() -> None:
     for name, lib in libs.items():
         def call(lib=lib):
             rc = lib.fk_ivf_rescore(
-                en.data_ptr(), 512, 1, case["member"].data_ptr(),
-                case["member"].shape[1], case["qtab"].data_ptr(),
-                case["stab"].data_ptr(), case["qtab"].shape[1],
-                units.data_ptr(), units.shape[0], 0, case["n_real"],
-                case["p"], case["kk_g"], buf.data_ptr(), 1, stream)
+                en.data_ptr(), 512, 1, members.vals.data_ptr(),
+                queries.vals.data_ptr(), queries.slots.data_ptr(),
+                queries.units.data_ptr(), queries.n_units.data_ptr(),
+                queries.units.shape[0], 0, case["n_real"], case["p"],
+                case["kk_g"], buf.data_ptr(), 1, stream)
             if rc:
                 sys.exit(f"k6_breakdown: {name} launch failed ({rc})")
 
@@ -229,7 +229,7 @@ def main() -> None:
             steps, emitted, merges, rounds = got[:4]
             if not torch.equal(buf, want):
                 sys.exit("k6_breakdown: the counts build differs from K6")
-            warps = 8 * units.shape[0]
+            warps = 8 * len(units_h)
             print(f"counts at 11b, a (query, slot) list: "
                   f"{steps / lists:.2f} bisection steps, "
                   f"{emitted / lists:.1f} keys emitted, "
@@ -242,15 +242,15 @@ def main() -> None:
         if name == "full" and not torch.equal(buf, want):
             sys.exit("k6_breakdown: the full build differs from K6")
         print(f"{name} at 11b's {cs.IVF_ROWS} x 512 rows, C = 1,024, "
-              f"{case['real']} real pair-scores, {units.shape[0]} units: "
+              f"{case['real']} real pair-scores, {len(units_h)} units: "
               f"{ms:.3f} ms = {ops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    members = units_h[:, 3]
-    q = np.quantile(members, [0.0, 0.1, 0.5, 0.9, 0.99, 1.0])
-    print(f"members a unit over 11b's {len(members)} units: min {q[0]:.0f}, "
+    sizes = units_h[:, 3]
+    q = np.quantile(sizes, [0.0, 0.1, 0.5, 0.9, 0.99, 1.0])
+    print(f"members a unit over 11b's {len(sizes)} units: min {q[0]:.0f}, "
           f"10% {q[1]:.0f}, median {q[2]:.0f}, 90% {q[3]:.0f}, 99% "
-          f"{q[4]:.0f}, max {q[5]:.0f}, mean {members.mean():.1f}; past "
+          f"{q[4]:.0f}, max {q[5]:.0f}, mean {sizes.mean():.1f}; past "
           f"the first selection's {ivf.K6_FIRST}: "
-          f"{(members > ivf.K6_FIRST).mean():.3f} of the units", flush=True)
+          f"{(sizes > ivf.K6_FIRST).mean():.3f} of the units", flush=True)
 
     # K7 on the full build's buffer
     kk = min(cs.IVF_K, want.shape[1] * want.shape[2])

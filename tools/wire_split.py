@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The k-NN result wire (keys_to_host) and the IVF tables on one card:
-where the plain version's time goes, and K10's two designs beside it.
+"""The k-NN result wire (keys_to_host) on one card: where the plain
+version's time goes, and K10's two designs beside it.
 
     python3 tools/wire_split.py [--port DIR]
 
@@ -20,13 +20,8 @@ At 11b's result (262,144 x 50 keys, f32 wire, int32 indices) and phase
     kernel's event time, a pinned copy_ of the same 8 bytes an entry alone
     (the floor), and a page-locked allocation of the result's size cold
     and cached;
-K11 at phase 4's C = 256 (15,000 rows) and 11b's C = 1,024 (262,144
-rows), spill 1 and 2, p = 8, on chip_smoke's read-overlap rows and their
-own k-means, each step as _members and _queries run it (the counts, their
-host copy, the table): bitwise the plain step's tables and counts, timed
-beside it and beside a torch.sort(stable=True) of the same ids. With
---port, another checkout's fedrann_tpu_torch is timed (its keys_to_host
-and tables as it has them).
+With --port, another checkout's fedrann_tpu_torch is timed (its
+keys_to_host as it has it).
 Exits non-zero where no card is visible or a kernel disagrees.
 """
 
@@ -223,64 +218,6 @@ def wire_case(cs, label: str, rows: int, k: int, transfer: str,
            f"plain {plain_ms:.3f} [{card}]")
 
 
-def tables_case(cs, label: str, n: int, c: int, card: str) -> None:
-    """The member tables (spill 1 and 2) and probe tables (p = 8) of n rows'
-    own k-means at C = c: each step as the package runs it (the counts,
-    their host copy that sizes the table, the table: _members, and
-    _queries or its parent's bincount + _probe_tables), bitwise the plain
-    step where the package has K11, timed beside it and a stable
-    torch.sort of the ids."""
-    import numpy as np
-    import torch
-
-    from fedrann_tpu_torch.knn import ivf
-
-    dev = torch.device("cuda")
-    en = ivf._unit_padded(cs.overlap_rows(n, dev), "bf16")[:n]
-    _, top = ivf._tables(en, c, 3, 2, 8)
-    has = hasattr(ivf, "cluster_tables")
-
-    def plain_step(ids, spill):
-        counts = torch.bincount(ids.reshape(-1), minlength=c)
-        counts_h = counts.cpu().numpy()
-        width = ivf._ceil128(counts_h.max())
-        if spill is None:
-            fn = getattr(ivf, "probe_tables_plain", ivf._probe_tables)
-            return (*fn(ids, counts, c, width), counts_h)
-        fn = getattr(ivf, "member_table_plain", ivf._member_table)
-        return fn(ids, counts, c, width, spill), counts_h
-
-    def same(x, y):
-        return all(torch.equal(g, w) if isinstance(g, torch.Tensor)
-                   else np.array_equal(g, w) for g, w in zip(x, y))
-
-    for spill in (1, 2, None):
-        if spill is None:
-            ids, what, tables = top[:, :8].contiguous(), "probe tables", 2
-            step = ((lambda: ivf._queries(ids, c)) if has
-                    else (lambda: plain_step(ids, None)))
-        else:
-            ids = top[:, :spill].reshape(-1)
-            what, tables = f"member table, spill {spill}", 1
-            step = (lambda ids=ids, spill=spill: ivf._members(ids, c, spill))
-        got = step()
-        if has and not same(got, plain_step(ids, spill)):
-            cs.fail(f"{label}: K11's {what} differ from the plain step's")
-        ms = host_ms(step, 10)
-        ev = cs.time_cuda(step, 10)
-        plain_ms = cs.time_cuda(lambda: plain_step(ids, spill), 10)
-        sort_ms = cs.time_cuda(lambda: torch.sort(ids.reshape(-1),
-                                                  stable=True), 10)
-        width = got[0].shape[1]
-        cs.log(f"{label} {what} ({ids.numel()} ids, width {width}): the "
-               f"step {ms:.4f} host ms, {ev:.4f} ms by events"
-               f"{', bitwise the plain step' if has else ''}; plain step "
-               f"{plain_ms:.4f}; torch.sort(stable=True) of the ids "
-               f"{sort_ms:.4f}; bound "
-               f"{(ids.numel() + tables * c * width) * 4 / 3.35e9:.5f} ms "
-               f"(bytes) [{card}]")
-
-
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--port", default=HERE)
@@ -308,7 +245,6 @@ def main() -> None:
     cs.log(f"build {time.perf_counter() - t0:.1f} s [{card}]")
     if os.path.abspath(args.port) == HERE:
         cs.log_build("K10", "keys_to_host", card)
-        cs.log_build("K11", "table_", card)
     from fedrann_tpu_torch.knn import topk
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -319,9 +255,6 @@ def main() -> None:
                 ("11b's result (262,144 x 50, f32)", 262_144, "f32"),
                 ("11b's result (262,144 x 50, u16)", 262_144, "u16")):
             wire_case(cs, label, rows, 50, transfer, card, to_device)
-    tables_case(cs, "phase 4's size (15,000 rows, C = 256)", 15_000, 256,
-                card)
-    tables_case(cs, "11b (262,144 rows, C = 1,024)", 262_144, 1024, card)
 
 
 if __name__ == "__main__":

@@ -80,6 +80,7 @@ from fedrann_tpu_torch.knn.topk import (
     unit_rows,
 )
 from fedrann_tpu_torch.logging_utils import logger
+from fedrann_tpu_torch.metrics import NO_STEPS, PIN, steps
 
 # device bytes one batched step (an assignment chunk, a size class's
 # rescore chunk) holds at once
@@ -729,7 +730,7 @@ def _member_side(a: torch.Tensor, c: int, spill: int):
 
 def _rescore(en_pad: torch.Tensor, n_real: int, members, first: int,
              nq: int, probes: torch.Tensor, k: int, spill: int,
-             precision: str, stats: dict):
+             precision: str, stats: dict, spans=NO_STEPS):
     """The (nq, min(k, ...)) int64 keys of the query rows en_pad[first :
     first + nq] over the members (_member_side's) of their probed
     clusters `probes` (nq, p): exact scores (bf16 products of the
@@ -742,33 +743,45 @@ def _rescore(en_pad: torch.Tensor, n_real: int, members, first: int,
     (rescore_clusters) fills the (query, probe slot) buffer and K7 merges
     it; the returned function waits on an event recorded after the copies
     alone and adds the plan while K6 runs. On the CPU the dense tables
-    (_queries), rescore_plain and merge_buffers_plain."""
+    (_queries), rescore_plain and merge_buffers_plain. The steps of
+    `spans` (metrics.steps; none by default): "fedrann.ivf.rescore"
+    (on a card with the bounds' takes, PIN), "fedrann.ivf.merge" and
+    "fedrann.ivf.plan"."""
     p = probes.shape[1]
     if en_pad.device.type != "cuda":
         member, counts_h = members
-        qtab, stab, qcounts_h = _queries(probes, member.shape[0])
-        groups = _add_plan(stats, counts_h, qcounts_h)
+        with spans.span("fedrann.ivf.plan"):
+            qtab, stab, qcounts_h = _queries(probes, member.shape[0])
+            groups = _add_plan(stats, counts_h, qcounts_h)
         kk_g = min(k, member.shape[1])
-        keys = _merge_buffers(rescore_plain(
-            en_pad, n_real, member, qtab, stab, groups, first, nq, p, k,
-            kk_g), k, spill)
+        with spans.step("fedrann.ivf.rescore"):
+            buf = rescore_plain(en_pad, n_real, member, qtab, stab, groups,
+                                first, nq, p, k, kk_g)
+        with spans.step("fedrann.ivf.merge"):
+            keys = _merge_buffers(buf, k, spill)
         return lambda: keys
-    queries = bucket_clusters(probes.reshape(-1), members.bounds.shape[0] - 1,
-                              p, members.bounds)
-    host = []
-    for b in (members.bounds, queries.bounds):
-        host.append(torch.empty(b.shape, dtype=torch.int32, pin_memory=True))
-        host[-1].copy_(b, non_blocking=True)
-    copied = torch.cuda.current_stream(en_pad.device).record_event()
-    keys = _merge_buffers(rescore_clusters(
-        en_pad, n_real, members, queries, first, nq, p, k, precision),
-        k, spill)
+    with spans.step("fedrann.ivf.rescore"):
+        queries = bucket_clusters(probes.reshape(-1),
+                                  members.bounds.shape[0] - 1, p,
+                                  members.bounds)
+        host = []
+        for b in (members.bounds, queries.bounds):
+            with spans.span(PIN):
+                host.append(torch.empty(b.shape, dtype=torch.int32,
+                                        pin_memory=True))
+            host[-1].copy_(b, non_blocking=True)
+        copied = torch.cuda.current_stream(en_pad.device).record_event()
+        buf = rescore_clusters(en_pad, n_real, members, queries, first, nq,
+                               p, k, precision)
+    with spans.step("fedrann.ivf.merge"):
+        keys = _merge_buffers(buf, k, spill)
 
     def finish() -> torch.Tensor:
-        copied.synchronize()
-        counts_h, qcounts_h = (np.diff(h.numpy()).astype(np.int64)
-                               for h in host)
-        _add_plan(stats, counts_h, qcounts_h)
+        with spans.span("fedrann.ivf.plan"):
+            copied.synchronize()
+            counts_h, qcounts_h = (np.diff(h.numpy()).astype(np.int64)
+                                   for h in host)
+            _add_plan(stats, counts_h, qcounts_h)
         # the CPU search's width: its buffer holds min(k, table width)
         # keys a list, its merge min(k, p of them)
         kk = min(k, p * min(k, _ceil128(counts_h.max())))
@@ -1108,10 +1121,13 @@ def _unit_padded(emb: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def _tables(en: torch.Tensor, c: int, kmeans_iters: int, spill: int,
-            p: int):
-    """(centroids, top (N, max(spill, p)) cluster ids) of rows en."""
-    cent = _kmeans(en, c, kmeans_iters)
-    return cent, _top_clusters(en, cent, max(spill, p))
+            p: int, spans=NO_STEPS):
+    """(centroids, top (N, max(spill, p)) cluster ids) of rows en; the
+    steps "fedrann.ivf.kmeans" and "fedrann.ivf.probes" of `spans`."""
+    with spans.step("fedrann.ivf.kmeans"):
+        cent = _kmeans(en, c, kmeans_iters)
+    with spans.step("fedrann.ivf.probes"):
+        return cent, _top_clusters(en, cent, max(spill, p))
 
 
 def _members(a: torch.Tensor, c: int, spill: int):
@@ -1135,14 +1151,20 @@ def _queries(probes: torch.Tensor, c: int):
 
 def _log_search(name: str, n: int, c: int, p: int, spill: int,
                 stats: dict) -> None:
+    """Adds the search's shape to `stats` and logs it with the rescore's
+    work, the real pair scores (N^2 over them: the share of the exact
+    search's), and a recorded call's device ms a step."""
     stats.update(rows=n, clusters=c, probes=p, spill=spill)
+    real = stats["real_pair_scores"]
     logger.info(
         "%s: %d rows, C=%d clusters (mean %.0f, max %d rows, spill %d), "
-        "p=%d probes; rescore: %d size classes over %d probed clusters, "
-        "%.2e padded pair-scores (%.1fx fewer than exact)", name, n, c,
-        spill * n / c, stats["max_members"], spill, p,
-        stats["size_classes"], stats["probed_clusters"],
-        stats["pair_scores"], float(n) * n / max(stats["pair_scores"], 1))
+        "p=%d probes; rescore: %d probed clusters, %.2e pair scores "
+        "(%.1fx fewer than exact)", name, n, c, spill * n / c,
+        stats["max_members"], spill, p, stats["probed_clusters"], real,
+        float(n) * n / max(real, 1))
+    if "device_ms" in stats:
+        logger.info("%s: device ms %s", name, ", ".join(
+            f"{step} {ms:.3f}" for step, ms in stats["device_ms"].items()))
 
 
 def knn_ivf(
@@ -1161,8 +1183,13 @@ def knn_ivf(
     with neighbors outside the probed clusters missed and -1 / inf in a
     slot that the probed clusters cannot fill. Counts its calls in
     `.calls`, those that fell back to knn_exact in `.exact_fallbacks`; the
-    last search's C, p, spill, size classes and padded pair-scores are in
-    `.last`."""
+    last search's C, p, spill, real pair scores, and JAX's size classes
+    and padded pair-scores are in `.last`. While a torch profiler runs
+    (metrics.steps) its steps are spans ("fedrann.ivf.normalize",
+    ".kmeans", ".probes", ".members", ".rescore", ".merge", ".plan", then
+    result_wire's) and, on a card, `.last` also holds the call's record
+    (metrics.Steps.record: device_ms a step, with "wire"; pin_s, unpin_s,
+    pinned_bytes)."""
     emb = torch.as_tensor(embeddings)
     n = emb.shape[0]
     c = n_clusters or auto_clusters(n)
@@ -1174,15 +1201,20 @@ def knn_ivf(
         return knn_exact(emb, n_neighbors, precision=precision,
                          transfer=transfer)
     k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
-    en_pad = _unit_padded(emb, precision)
-    _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
-    members = _member_side(top[:, :spill].reshape(-1), c, spill)
+    spans = steps(emb.device)
+    with spans.step("fedrann.ivf.normalize"):
+        en_pad = _unit_padded(emb, precision)
+    _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p, spans)
+    with spans.step("fedrann.ivf.members"):
+        members = _member_side(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {}
     keys = _rescore(en_pad, n, members, 0, n, top[:, :p].contiguous(), k,
-                    spill, precision, stats)()
+                    spill, precision, stats, spans)()
+    out = keys_to_host(keys, transfer, n, spans)
+    stats.update(spans.record())
     _log_search("knn_ivf", n, c, p, spill, stats)
     knn_ivf.last = stats
-    return keys_to_host(keys, transfer, n)
+    return out
 
 
 knn_ivf.calls = 0

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from fedrann_tpu_torch import _build
+from fedrann_tpu_torch.metrics import NO_STEPS, PIN, UNPIN, span, steps
 
 # Cosine distances in [0, 2] snap to a uint16 grid of step 1/DIST_SCALE
 # (--knn-transfer u16), so the TSV matches the JAX package's.
@@ -184,10 +185,13 @@ def knn_exact(
     """(N, d) embeddings -> (indices (N, k) int32, distances (N, k) float32)
     sorted by ascending distance, k = min(n_neighbors, N), self included
     (normally at rank 0). transfer="u16" snaps distances to the
-    1/DIST_SCALE grid."""
-    en = normalize_rows(embeddings)
+    1/DIST_SCALE grid. Its spans (metrics.steps): "fedrann.knn.normalize",
+    "fedrann.knn.merge" and, on a card, result_wire's."""
+    spans = steps(embeddings.device, timed=False)
+    with spans.span("fedrann.knn.normalize"):
+        en = normalize_rows(embeddings)
     return knn_exact_block(en, en, n_neighbors, query_tile, candidate_tile,
-                           precision, transfer)
+                           precision, transfer, spans)
 
 
 def knn_exact_block(
@@ -198,6 +202,7 @@ def knn_exact_block(
     candidate_tile: int = 131072,
     precision: str = "bf16",
     transfer: str = "f32",
+    spans=NO_STEPS,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Top-k of L2-normalized query rows (m, d) over L2-normalized
     candidate rows (n, d) through merge_block, k = min(n_neighbors, n):
@@ -207,27 +212,32 @@ def knn_exact_block(
     The rows go to the merge as bfloat16 at precision="bf16" (rounded to
     nearest even once), else float32. On a CUDA device the kernel holds no
     tile: one launch takes every query row over every candidate row; on
-    the CPU the plain merges go tile by tile (query_tile, candidate_tile)."""
+    the CPU the plain merges go tile by tile (query_tile, candidate_tile).
+    The merge is the span "fedrann.knn.merge" of `spans` (metrics.steps;
+    none by default), which the wire gets too."""
     n = candidates.shape[0]
     k = min(n_neighbors, n)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    q_all = queries.to(dtype).contiguous()
-    c_all = (q_all if candidates is queries
-             else candidates.to(dtype).contiguous())
-    m = q_all.shape[0]
-    if q_all.device.type == "cuda":
-        keys = merge_block(None, q_all, c_all, 0, k, precision)
-        return keys_to_host(keys, transfer, n)
-    qt = min(query_tile, max(8, m))
-    ct = _fit_tile(candidate_tile, n)
-    keys_out = torch.empty((m, k), dtype=torch.int64, device=q_all.device)
-    for q0 in range(0, m, qt):
-        q = q_all[q0 : q0 + qt]
-        run = None
-        for c0 in range(0, n, ct):
-            run = merge_block(run, q, c_all[c0 : c0 + ct], c0, k, precision)
-        keys_out[q0 : q0 + qt] = run
-    return keys_to_host(keys_out, transfer, n)
+    with spans.span("fedrann.knn.merge"):
+        q_all = queries.to(dtype).contiguous()
+        c_all = (q_all if candidates is queries
+                 else candidates.to(dtype).contiguous())
+        m = q_all.shape[0]
+        if q_all.device.type == "cuda":
+            keys = merge_block(None, q_all, c_all, 0, k, precision)
+        else:
+            qt = min(query_tile, max(8, m))
+            ct = _fit_tile(candidate_tile, n)
+            keys = torch.empty((m, k), dtype=torch.int64,
+                               device=q_all.device)
+            for q0 in range(0, m, qt):
+                q = q_all[q0 : q0 + qt]
+                run = None
+                for c0 in range(0, n, ct):
+                    run = merge_block(run, q, c_all[c0 : c0 + ct], c0, k,
+                                      precision)
+                keys[q0 : q0 + qt] = run
+    return keys_to_host(keys, transfer, n, spans)
 
 
 def merge_block(run: torch.Tensor | None, q: torch.Tensor, c: torch.Tensor,
@@ -407,17 +417,19 @@ def d2h_entry_bytes(transfer: str, n_rows: int,
             + (2 if u16_indices(transfer, n_rows) else 4))
 
 
-def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int):
+def keys_to_host(keys: torch.Tensor, transfer: str, n_rows: int,
+                 spans=NO_STEPS):
     """(rows, k) int64 keys of candidates 0 .. n_rows - 1 -> (indices
     int32, cosine distances float32) numpy arrays; transfer="u16" snaps
     the distances to the 1/DIST_SCALE grid (the JAX package's wire), and
     the indices are those its uint16 wire carries where they fit
     (u16_indices). An EMPTY_KEY slot comes back as index -1 at distance
     inf (2.0 on the u16 grid) on either wire. CUDA keys take K10
-    (result_wire: one launch into page-locked host memory), CPU keys
-    keys_to_host_plain; the two are byte-identical."""
+    (result_wire: one launch into page-locked host memory, with the spans
+    of `spans`), CPU keys keys_to_host_plain; the two are
+    byte-identical."""
     if keys.device.type == "cuda":
-        return result_wire(keys, transfer, n_rows)
+        return result_wire(keys, transfer, n_rows, spans)
     return keys_to_host_plain(keys, transfer, n_rows)
 
 
@@ -449,7 +461,8 @@ def keys_to_host_plain(keys: torch.Tensor, transfer: str, n_rows: int):
     return idx_np, dist_np
 
 
-def result_wire(keys: torch.Tensor, transfer: str, n_rows: int):
+def result_wire(keys: torch.Tensor, transfer: str, n_rows: int,
+                spans=NO_STEPS):
     """K10 (csrc/result_wire.cu `fk_keys_to_host`): keys_to_host of
     contiguous (rows, k) int64 CUDA keys in one launch that writes the
     final int32 indices and float32 distances into page-locked host memory,
@@ -457,50 +470,72 @@ def result_wire(keys: torch.Tensor, transfer: str, n_rows: int):
     its own block of torch's caching host allocator, past it a HostBlock;
     the arrays returned are numpy views that keep their block alive, so no
     later call writes over a result still held. Counts its launches in
-    .kernel_launches; raises on keys it does not take."""
+    .kernel_launches; raises on keys it does not take. Its spans, those of
+    `spans` (metrics.steps; none by default): "fedrann.wire", and inside
+    it PIN (the take of page-locked memory) and "fedrann.wire.wait" (the
+    synchronize); a timed `spans` gets the mark "wire" after the launch
+    and the page-locked bytes held after the take (pinned_bytes)."""
     if keys.device.type != "cuda" or keys.dtype != torch.int64 \
             or keys.dim() != 2 or not keys.is_contiguous():
         raise ValueError(f"result_wire: contiguous (rows, k) int64 CUDA "
                          f"keys, not {keys.dtype} {tuple(keys.shape)} on "
                          f"{keys.device}")
     shape = (2, *keys.shape)
-    out = (np.asarray(HostBlock(shape))
-           if 8 * keys.numel() > PIN_CACHE_BYTES
-           else torch.empty(shape, dtype=torch.int32,
-                            pin_memory=True).numpy())
-    if keys.numel():
-        _build.launch("fk_keys_to_host", keys.data_ptr(), keys.numel(),
-                      int(transfer == "u16"),
-                      int(u16_indices(transfer, n_rows)),
-                      out[0].ctypes.data, out[1].ctypes.data,
-                      device=keys.device)
-        result_wire.kernel_launches += 1
-        torch.cuda.current_stream(keys.device).synchronize()
+    with spans.span("fedrann.wire"):
+        with spans.span(PIN):
+            out = (np.asarray(HostBlock(shape))
+                   if 8 * keys.numel() > PIN_CACHE_BYTES
+                   else torch.empty(shape, dtype=torch.int32,
+                                    pin_memory=True).numpy())
+        if spans.timed:
+            spans.pinned_bytes = pinned_host_bytes()
+        if keys.numel():
+            _build.launch("fk_keys_to_host", keys.data_ptr(), keys.numel(),
+                          int(transfer == "u16"),
+                          int(u16_indices(transfer, n_rows)),
+                          out[0].ctypes.data, out[1].ctypes.data,
+                          device=keys.device)
+            result_wire.kernel_launches += 1
+            spans.mark("wire")
+            with spans.span("fedrann.wire.wait"):
+                torch.cuda.current_stream(keys.device).synchronize()
     return out[0], out[1].view(np.float32)
+
+
+def pinned_host_bytes() -> int:
+    """The page-locked host bytes the process holds: every live HostBlock
+    and the blocks torch's caching host allocator has handed out."""
+    return HostBlock.live_bytes + int(torch.cuda.memory.host_memory_stats()
+                                      .get("allocated_bytes.current", 0))
 
 
 class HostBlock:
     """A page-locked int32 host block of `shape` of its own
     (`fk_host_alloc`, mapped for every card), for a result past
     PIN_CACHE_BYTES: np.asarray views it, and it goes back to the system
-    (`fk_host_free`) when the last array that views it goes. .live counts
-    the blocks not yet freed."""
+    (`fk_host_free`, the span UNPIN) when the last array that views it
+    goes. .live counts the blocks not yet freed, .live_bytes their
+    bytes."""
 
     live = 0
+    live_bytes = 0
 
     def __init__(self, shape: tuple):
         ptr = ctypes.c_void_p()
-        _build.launch("fk_host_alloc", 4 * math.prod(shape),
-                      ctypes.addressof(ptr))
+        self.nbytes = 4 * math.prod(shape)
+        _build.launch("fk_host_alloc", self.nbytes, ctypes.addressof(ptr))
         self.ptr = ptr.value
         self.__array_interface__ = {"shape": shape, "typestr": "<i4",
                                     "data": (self.ptr, False),
                                     "version": 3}
         HostBlock.live += 1
+        HostBlock.live_bytes += self.nbytes
 
     def __del__(self):
-        _build.launch("fk_host_free", self.ptr)
+        with span(UNPIN):
+            _build.launch("fk_host_free", self.ptr)
         HostBlock.live -= 1
+        HostBlock.live_bytes -= self.nbytes
 
 
 result_wire.kernel_launches = 0

@@ -12,6 +12,9 @@ also records the process's peak resident memory when it ends.
 d2h_bytes); `summary` derives tflops_per_s and hbm_gb_per_s from it, and
 mfu_pct and hbm_util_pct against the card's published peaks where
 `device_peaks` knows the card, as the JAX package derives them.
+
+`span` and `steps` record inside a search job, and only while a torch
+profiler runs: an untraced call pays one flag check a span.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from fedrann_tpu_torch.device import synchronize
 from fedrann_tpu_torch.logging_utils import logger
@@ -53,6 +57,136 @@ def device_peaks(device: torch.device) -> tuple[float, float] | None:
     return None
 
 
+# the spans of taking and of freeing page-locked host memory (Steps.record
+# reads them)
+PIN, UNPIN = "fedrann.wire.pin", "fedrann.wire.unpin"
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    """An open span: its host seconds go into span.seconds when it closes,
+    and under --profile it is a record_function range besides."""
+
+    __slots__ = ("name", "t0", "range")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if span.ranges:
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        secs = time.perf_counter() - self.t0
+        span.seconds[self.name] = span.seconds.get(self.name, 0.0) + secs
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A span of the program (a `with` block) named `name`. With no torch
+    profiler running it is one shared null context: one flag check, and
+    no event, range or record. Under any profiler its host seconds add up
+    in span.seconds[name]; while the profiler of --profile runs
+    (span.ranges, set by pipeline) it is also a record_function range,
+    which lands in the Chrome trace on the kernels' clock."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return _Span(name)
+
+
+span.seconds = {}
+span.ranges = False
+
+
+class _NoSteps:
+    """steps() with no profiler running: every span is the null context,
+    no mark records anything, and record() adds no key."""
+
+    timed = False
+
+    def span(self, name: str):
+        return _NULL
+
+    step = span
+
+    def mark(self, name: str) -> None:
+        pass
+
+    def record(self) -> dict:
+        return {}
+
+
+NO_STEPS = _NoSteps()
+
+
+class Steps(_NoSteps):
+    """The spans of one search call, and with `timed` its device steps: a
+    CUDA timing event on the call's stream at its start and at the end of
+    each step (step, mark), read by record() once the call's own
+    synchronize has passed them. A step's time is its stream's time from
+    the previous mark, so it holds the step's kernels and any wait of the
+    stream for the host between them."""
+
+    # span.seconds[UNPIN] when the last timed call was recorded
+    unpinned_at = 0.0
+
+    def __init__(self, device: torch.device, timed: bool) -> None:
+        self.timed = timed
+        self.stream = torch.cuda.current_stream(device) if timed else None
+        self.events: list = []
+        self.pinned_bytes = 0  # the caller's reading after the result's take
+        self.pin0 = span.seconds.get(PIN, 0.0)
+        self.mark("")
+
+    def span(self, name: str):
+        return span(name)
+
+    @contextlib.contextmanager
+    def step(self, name: str):
+        """The span `name`, then a mark named by its last part."""
+        with span(name):
+            yield
+        self.mark(name.rsplit(".", 1)[-1])
+
+    def mark(self, name: str) -> None:
+        if self.timed:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(self.stream)
+            self.events.append((name, event))
+
+    def record(self) -> dict:
+        """The call's record, where timed (else {}): device_ms, each
+        step's ms on the stream; pin_s, host seconds taking page-locked
+        memory (PIN) during the call; unpin_s, host seconds freeing it
+        (UNPIN) since the last timed call was recorded; pinned_bytes."""
+        if not self.timed:
+            return {}
+        ms: dict = {}
+        for (_, start), (name, end) in zip(self.events, self.events[1:]):
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        unpinned = span.seconds.get(UNPIN, 0.0)
+        out = {"device_ms": ms,
+               "pin_s": span.seconds.get(PIN, 0.0) - self.pin0,
+               "unpin_s": unpinned - Steps.unpinned_at,
+               "pinned_bytes": self.pinned_bytes}
+        Steps.unpinned_at = unpinned
+        return out
+
+
+def steps(device: torch.device, timed: bool = True):
+    """NO_STEPS with no torch profiler running, else a Steps of a call on
+    `device`, timed on a CUDA device where `timed`."""
+    if not _profiler._is_profiler_enabled:
+        return NO_STEPS
+    return Steps(device, timed and device.type == "cuda")
+
+
 class StageMetrics:
     def __init__(self, device: torch.device) -> None:
         self.device = device
@@ -63,12 +197,12 @@ class StageMetrics:
     def stage(self, name: str):
         """Time the stage `name`; under --profile its span, the closing
         synchronize included, is a "stage:<name>" range of the trace
-        (record_function), so the stage's kernels run inside it."""
+        (span's record_function), so the stage's kernels run inside it."""
         synchronize(self.device)
         t0 = time.perf_counter()
         self._inner.append(0.0)
         try:
-            with torch.profiler.record_function(f"stage:{name}"):
+            with span(f"stage:{name}"):
                 try:
                     yield
                 finally:

@@ -77,7 +77,7 @@ from fedrann_tpu_torch.logging_utils import (
     remove_log_file,
     set_logging_level,
 )
-from fedrann_tpu_torch.metrics import MemorySampler, StageMetrics
+from fedrann_tpu_torch.metrics import MemorySampler, StageMetrics, span
 from fedrann_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
 from fedrann_tpu_torch.project.embed import (
     embed_hits,
@@ -534,51 +534,53 @@ def search(config: PipelineConfig, emb: torch.Tensor, ooc: bool,
     (a mesh is overridden, with a warning); else IVF on one device
     (knn_ivf) or over a 1-D mesh of `mesh` (knn_ivf_sharded); else the
     exact search sharded over knn_mesh (knn_exact_sharded) or on one
-    device (knn_exact). Returns (indices, distances)."""
-    ivf = config.knn_method == "ivf"
-    ivf_args = dict(n_clusters=config.knn_ivf_clusters,
-                    n_probes=config.knn_ivf_probes,
-                    spill=config.knn_ivf_spill)
-    if ooc:
-        if use_mesh:
-            logger.warning(
-                "out-of-core k-NN streams through one device; "
-                "mesh sharding is overridden past the HBM budget")
-        fn = knn_ivf_ooc if ivf else knn_exact_ooc
-        before = fn.h2d_bytes
-        out = fn(emb, config.n_neighbors, config.knn_hbm_budget,
-                 query_tile=config.knn_query_tile,
-                 candidate_tile=config.knn_candidate_tile,
-                 precision=config.knn_precision,
-                 transfer=config.knn_transfer, device=device,
-                 **(ivf_args if ivf else {}))
-        metrics.add_work("knn", h2d_bytes=fn.h2d_bytes - before)
-        return out
-    if ivf and not use_mesh:
-        return knn_ivf(emb, config.n_neighbors,
-                       precision=config.knn_precision,
-                       transfer=config.knn_transfer, **ivf_args)
-    if ivf:
-        knn = make_mesh(config.mesh_shape, mesh)
-        logger.info("IVF k-NN sharded over %d devices", knn.size)
-        return knn_ivf_sharded(emb, config.n_neighbors, mesh=knn,
-                               precision=config.knn_precision,
-                               transfer=config.knn_transfer, **ivf_args)
-    if use_mesh:
-        knn = knn_mesh(config, mesh)
-        logger.info("k-NN sharded over %d devices (%s)", knn.size,
-                    config.knn_shard_strategy)
-        return knn_exact_sharded(
-            emb, config.n_neighbors, mesh=knn,
-            strategy=config.knn_shard_strategy,
-            precision=config.knn_precision, transfer=config.knn_transfer,
-            candidate_tile=config.knn_candidate_tile,
-            query_tile=config.knn_query_tile)
-    return knn_exact(emb, config.n_neighbors,
+    device (knn_exact). Returns (indices, distances). The call is the span
+    "fedrann.search" (metrics.span) on every route."""
+    with span("fedrann.search"):
+        ivf = config.knn_method == "ivf"
+        ivf_args = dict(n_clusters=config.knn_ivf_clusters,
+                        n_probes=config.knn_ivf_probes,
+                        spill=config.knn_ivf_spill)
+        if ooc:
+            if use_mesh:
+                logger.warning(
+                    "out-of-core k-NN streams through one device; "
+                    "mesh sharding is overridden past the HBM budget")
+            fn = knn_ivf_ooc if ivf else knn_exact_ooc
+            before = fn.h2d_bytes
+            out = fn(emb, config.n_neighbors, config.knn_hbm_budget,
                      query_tile=config.knn_query_tile,
                      candidate_tile=config.knn_candidate_tile,
                      precision=config.knn_precision,
-                     transfer=config.knn_transfer)
+                     transfer=config.knn_transfer, device=device,
+                     **(ivf_args if ivf else {}))
+            metrics.add_work("knn", h2d_bytes=fn.h2d_bytes - before)
+            return out
+        if ivf and not use_mesh:
+            return knn_ivf(emb, config.n_neighbors,
+                           precision=config.knn_precision,
+                           transfer=config.knn_transfer, **ivf_args)
+        if ivf:
+            knn = make_mesh(config.mesh_shape, mesh)
+            logger.info("IVF k-NN sharded over %d devices", knn.size)
+            return knn_ivf_sharded(emb, config.n_neighbors, mesh=knn,
+                                   precision=config.knn_precision,
+                                   transfer=config.knn_transfer, **ivf_args)
+        if use_mesh:
+            knn = knn_mesh(config, mesh)
+            logger.info("k-NN sharded over %d devices (%s)", knn.size,
+                        config.knn_shard_strategy)
+            return knn_exact_sharded(
+                emb, config.n_neighbors, mesh=knn,
+                strategy=config.knn_shard_strategy,
+                precision=config.knn_precision, transfer=config.knn_transfer,
+                candidate_tile=config.knn_candidate_tile,
+                query_tile=config.knn_query_tile)
+        return knn_exact(emb, config.n_neighbors,
+                         query_tile=config.knn_query_tile,
+                         candidate_tile=config.knn_candidate_tile,
+                         precision=config.knn_precision,
+                         transfer=config.knn_transfer)
 
 
 def _input_identity(config: PipelineConfig) -> dict:
@@ -737,6 +739,7 @@ def _start_profiler(device: torch.device):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.__enter__()
+    span.ranges = True  # the program's spans are ranges of this trace
     return prof
 
 
@@ -851,6 +854,7 @@ def run_pipeline(config: PipelineConfig, device: torch.device,
         if sampler:
             sampler.__exit__(None, None, None)
         if profiler is not None:
+            span.ranges = False
             profiler.__exit__(None, None, None)
             os.makedirs(os.path.join(out_dir, "trace"), exist_ok=True)
             profiler.export_chrome_trace(

@@ -264,14 +264,17 @@ Phases; any failure exits non-zero and prints no result line:
      Then the IVF search's kernels (check_ivf_kernels): their build
      (ptxas -v of every instance); K6
      (csrc/ivf_rescore.cu) bitwise rescore_plain on grid rows (entries
-     k / 64, every score exact) at both precisions, at its edge cases (a
+     k / 64, every score exact) at both precisions and d = 512, the CLI's
+     500 and 130 (rows of no 16-byte width, which go in as a copy padded
+     to a 16-byte pitch, counted in .padded_launches), at its edge cases (a
      1-member cluster, one past a tile and the first selection's 256
      members, k past the members, sentinel rows, unprobed and empty
      clusters, C = 8, a query row offset) at W = 1, 50, 64 and 100, on a
      700-member cluster whose later tiles beat every earlier key (its
      rows overflow their survivor slots; W = 1, 50, 64, 100) and at
-     phase 4's size; on phase 4's rows at C = 256 and 11b's rows at C =
-     1,024, spill 2, both precisions: index-set agreement >= K6_AGREE and
+     phase 4's size; on phase 4's rows at C = 256, 11b's rows at C =
+     1,024 and 11b's rows cut to the CLI's d = 500, spill 2, both
+     precisions: index-set agreement >= K6_AGREE and
      scores within K6_TOL of the plain lists', two launches
      byte-identical, its time, device us, TFLOP/s, bound and share beside
      the plain version's and PR 16's (PR16_MS); K7 bitwise
@@ -416,6 +419,9 @@ IVF_SEARCH_RECALL = 0.99879 - 0.002
 # within K6_TOL (float32 sums of exact products in another order); K4's
 # cluster ranking against top_clusters_plain: agreement >= K6_AGREE
 K6_AGREE, K6_TOL = 0.999, 2e-6
+# the CLI's default -n (FEDRANN's): 1,000 bytes a bf16 row, which K6 takes
+# as a copy padded to a 16-byte pitch (504)
+CLI_D = 500
 # 4b's project seconds when torch ops built the dense table, before K8, and
 # 11b's segment sums (three passes) in event ms when torch ops summed them,
 # before K9 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5), logged
@@ -4458,6 +4464,33 @@ def k6_run(case: dict, precision: str, queries=None):
         case["nq"], case["p"], case["kk_g"], precision)
 
 
+def pr16_ms(name: str, at: str) -> str:
+    """PR 16's time of kernel `name` at shape `at` (PR16_MS), or "not
+    timed" at a shape it was not timed at."""
+    ms = PR16_MS.get((name, at))
+    return "not timed" if ms is None else f"{ms} ms"
+
+
+def padded_k6(case: dict, precision: str):
+    """A check to call after one K6 launch on `case` at `precision`: it
+    fails unless the launch took a padded copy of the rows exactly where d
+    * itemsize is no multiple of 16 (rescore_clusters.padded_launches)."""
+    from fedrann_tpu_torch.knn.ivf import rescore_clusters
+    from fedrann_tpu_torch.knn.topk import tma_width
+
+    d = case["en_pad"].shape[1]
+    pitch = tma_width(d, 2 if precision == "bf16" else 4)
+    before = rescore_clusters.padded_launches
+
+    def check():
+        got = rescore_clusters.padded_launches - before
+        if got != int(pitch != d):
+            fail(f"K6 at d = {d} ({precision}): {got} launches on a padded "
+                 f"copy, where its pitch is {pitch}")
+
+    return check
+
+
 def k6_plain(case: dict):
     from fedrann_tpu_torch.knn.ivf import rescore_plain
 
@@ -4608,10 +4641,13 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
     """Phase 12, the IVF search's kernels against their plain versions on
     the card. K6 (csrc/ivf_rescore.cu) bitwise rescore_plain on grid rows
     (grid_rows: every score exact) at both precisions, at k6_edge_case
-    and at phase 4's size; on real rows (phase 4's rows at C = 256 and
-    11b's 262,144 read-overlap rows, spill 2) to hold_k6's bars; two
-    launches byte-identical. K7 bitwise merge_buffers_plain on K6's own
-    buffers at spill 1, 2 and 3 and on sorted_lists. K4 as the IVF's
+    and at phase 4's size with d = 512, CLI_D and 130 (the last two on a
+    copy padded to a 16-byte pitch where d * itemsize needs it, counted
+    in .padded_launches); on real rows (phase 4's rows at C = 256, 11b's
+    262,144 read-overlap rows, and those cut to CLI_D columns, spill 2)
+    to hold_k6's bars; two launches byte-identical. K7 bitwise
+    merge_buffers_plain on K6's own buffers at spill 1, 2 and 3 and on
+    sorted_lists. K4 as the IVF's
     cluster ranking (_top_clusters) against top_clusters_plain: agreement
     >= K6_AGREE at t = 1 and t = 8, ties to the lowest id on duplicated
     centroids. K9 bitwise segment_sum_plain on k9_edge_cases and on the
@@ -4630,7 +4666,8 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
 
     from fedrann_tpu_torch.knn import ivf
 
-    rng = np.random.default_rng(int(FLAGS[FLAGS.index("--seed") + 1]))
+    rng_seed = int(FLAGS[FLAGS.index("--seed") + 1])
+    rng = np.random.default_rng(rng_seed)
     report = {}
 
     def merges(label, buf, k, spill):
@@ -4652,10 +4689,18 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
               for k in (1, 64, 100)]
     cases += [(f"12 K6 a 700-member cluster overflowing its survivors, W = "
                f"{k}", k6_flood_case(dev, k)) for k in (1, 50, 64, 100)]
+    # the CLI's width (1,000 bytes a bf16 row) and one of no 4 entries
+    cases += [(f"12 K6 grid rows, 15,000 x {d}, C = 256",
+               ivf_case(torch.cat([grid_rows(np.random.default_rng(
+                   rng_seed + d), 15000, d, dev),
+                   torch.zeros((1, d), device=dev)]), 15000, 256, 8, 2))
+              for d in (CLI_D, 130)]
     for label, case in cases:
         want = k6_plain(case)
         for precision in ("bf16", "fp32"):
+            padded = padded_k6(case, precision)
             got = k6_run(case, precision)
+            padded()
             if not torch.equal(got, want):
                 bad = (got != want).reshape(-1, case["kk_g"]).any(1)
                 fail(f"{label} ({precision}): K6 differs from rescore_plain "
@@ -4715,25 +4760,32 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
 
     k9_edge_cases(dev, card)
     k11_edge_cases(dev, card)
-    # real rows: phase 4's at C = 256 (the report) and 11b's
-    for label, rows, c in (("phase 4's rows, C = 256", x, 256),
-                           (f"11b's {IVF_ROWS} x 512 rows, C = 1,024",
-                            overlap_rows(IVF_ROWS, dev), 1024)):
-        at = "phase 4" if c == 256 else "11b"
-        seg = check_segment_sums(f"12 K9 at {label}", ivf._unit_padded(
-            rows, "bf16")[: rows.shape[0]], c, card)
-        if c == 256:
-            report["ivf_segment_sum"] = seg
-        en = ivf._unit_padded(rows, "bf16")[: rows.shape[0]]
-        wire = check_wire(f"12 K10 at {label}", en, card)
-        tables = check_tables(f"12 K11 at {label}", en, c, card)
-        if c == 256:
-            report.update(result_wire=wire, ivf_buckets=tables)
-        del en
+    # real rows: phase 4's at C = 256 (the report), 11b's, and 11b's cut to
+    # the CLI's width (K6 and K7 alone: a padded copy of the rows in bf16)
+    big = overlap_rows(IVF_ROWS, dev)
+    for at, label, rows, c in (
+            ("phase 4", "phase 4's rows, C = 256", x, 256),
+            ("11b", f"11b's {IVF_ROWS} x 512 rows, C = 1,024", big, 1024),
+            ("11b cut", f"11b's rows cut to {IVF_ROWS} x {CLI_D} (the "
+             "CLI's width), C = 1,024", big[:, :CLI_D], 1024)):
+        d = rows.shape[1]
+        if at != "11b cut":
+            seg = check_segment_sums(f"12 K9 at {label}", ivf._unit_padded(
+                rows, "bf16")[: rows.shape[0]], c, card)
+            if c == 256:
+                report["ivf_segment_sum"] = seg
+            en = ivf._unit_padded(rows, "bf16")[: rows.shape[0]]
+            wire = check_wire(f"12 K10 at {label}", en, card)
+            tables = check_tables(f"12 K11 at {label}", en, c, card)
+            if c == 256:
+                report.update(result_wire=wire, ivf_buckets=tables)
+            del en
         for precision in ("bf16", "fp32"):
             case = ivf_case(ivf._unit_padded(rows, precision),
                             rows.shape[0], c, 8, 2)
+            padded = padded_k6(case, precision)
             got = k6_run(case, precision)
+            padded()
             if not torch.equal(got, k6_run(case, precision)):
                 fail(f"12 K6 {label} ({precision}): two launches differ")
             if not torch.equal(got, k6_run(case, precision, ivf.host_units(
@@ -4747,8 +4799,8 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
             ms = time_cuda(lambda: k6_run(case, precision), 5)
             plain_ms = time_cuda(lambda: k6_plain(case), 1)
             itemsize = 2 if precision == "bf16" else 4
-            ops = 2 * 512 * case["real"]
-            b = bound(case["nq"] * case["p"] * 512 * itemsize + got.numel()
+            ops = 2 * d * case["real"]
+            b = bound(case["nq"] * case["p"] * d * itemsize + got.numel()
                       * 8, **({"bf16_ops": ops} if precision == "bf16"
                               else {"fp32_ops": ops}))
             units = int(case["queries"].n_units[0])
@@ -4764,7 +4816,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 f"launch; bound {b['bound_ms']:.5f} ms ({b['bound_by']}, "
                 f"{100 * b['bound_ms'] / ms:.1f}% of it); plain "
                 f"{plain_ms:.4f} ms; PR 16's design "
-                f"{PR16_MS[(name, at)]} ms; agreement {agree:.6f}, scores "
+                f"{pr16_ms(name, at)}; agreement {agree:.6f}, scores "
                 f"within {err:.3g}; two launches byte-identical, and "
                 f"bitwise on the host's work list [{card}]")
             flat = got.reshape(case["nq"], -1)
@@ -4782,7 +4834,7 @@ def check_ivf_kernels(ckpt_dir: str, dev, card: str) -> dict:
                 f"{100 * b7['bound_ms'] / k7_ms:.1f}% of it); plain "
                 f"{k7_plain:.4f} ms; torch.topk of the buffer rows "
                 f"{topk_ms:.4f} ms; PR 16's design "
-                f"{PR16_MS[('ivf_merge', at)]} ms; bitwise the plain merge "
+                f"{pr16_ms('ivf_merge', at)}; bitwise the plain merge "
                 f"[{card}]")
             if c == 256:
                 report[name] = dict(

@@ -81,10 +81,10 @@ _SIGNATURES = {
     # out, vec, units, parts, stream
     "fk_knn_merge": [_P, _I64, _P, _I64, _I64, _I32, _I32, _I64, _P, _P,
                      _I64, _I64, _P, _I32, _I64, _P, _P],
-    # ivf_rescore.cu: rows, d, is_bf16, member, qvals, qslots, units,
-    # n_units, grid, first, n_real, p, W, buf, vec, stream
+    # ivf_rescore.cu: rows, d (the rows' pitch), is_bf16, member, qvals,
+    # qslots, units, n_units, grid, first, n_real, p, W, buf, stream
     "fk_ivf_rescore": [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                       _I64, _I64, _P, _I32, _P],
+                       _I64, _I64, _P, _P],
     # buf, rows, p, L, K, dedup, out, stream
     "fk_ivf_merge": [_P, _I64, _I64, _I64, _I64, _I32, _P, _P],
     # ivf_segment_sum.cu: rows, n, d, is_bf16, a, n_clusters, tile_rows,

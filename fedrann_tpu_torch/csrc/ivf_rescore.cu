@@ -37,11 +37,17 @@
 // tile's depth in stages of 128 bytes a row, three in flight (cp.async
 // groups, one barrier a step): the stage's query rows gathered by the
 // unit's probe bucket, its member rows by the cluster's member bucket,
-// each row in eight 16-byte cp.async
-// pieces (scalar loads where d * itemsize % 16 != 0 or the base is not 16
-// bytes aligned), zeros past the unit's slots, past its members, for a
-// member >= n_real and past d. Piece p of stage row r lies at piece p ^ (r
-// & 7) of the row (the 128-byte swizzle), from a 1024-byte aligned stage.
+// each row in eight 16-byte cp.async pieces. The rows' pitch d is a
+// multiple of 16 bytes from a 16-byte aligned base (rescore_clusters pads
+// a width that is not with zero columns, the zeros a stage holds past the
+// width anyway), so every piece is one cp.async: a piece past the unit's
+// slots, past its members, for a member >= n_real or past d reads no
+// source byte (source size 0) and lands as 16 zero bytes, by the same
+// instruction. So no thread waits on its gathers before the step's
+// wgmma: step + 2's copies overlap this step's product, and across a tile
+// boundary the next tile's first copies overlap the offers and merges.
+// Piece p of stage row r lies at piece p ^ (r & 7) of the row (the
+// 128-byte swizzle), from a 1024-byte aligned stage.
 //   - bf16: each warpgroup's 64 query rows times the tile's 128 member
 //     rows by wgmma.mma_async m64n128k16 (bf16 in, float32 sums), both
 //     operands K-major in shared memory through 128-byte swizzle
@@ -162,9 +168,12 @@ static_assert(BM == 16 * WARPS, "a warp's 16 rows");
 static_assert(SV_LS == 64 && SV_DEV == 128, "the merges' register runs");
 static_assert(SMEM_BYTES <= 232448, "one block an SM");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_u32(dst)), "l"(src));
+// 16 bytes to shared memory, of which the first n (16 or 0) from src and
+// the rest zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -199,28 +208,20 @@ struct MemberRows {  // members t0 + r of the unit's cluster
   }
 };
 
-// One chunk of 128 gathered rows at depth k0 (values of T): 16-byte piece
-// ch of row r at piece ch ^ (r & 7) of the row's 128 bytes.
+// One chunk of 128 gathered rows at depth k0 (values of T) from rows of
+// pitch d (a multiple of 16 bytes): 16-byte piece ch of row r at piece ch
+// ^ (r & 7) of the row's 128 bytes, zeros where it has no source.
 template <typename T, typename RowOf>
 __device__ __forceinline__ void load_chunk(unsigned char* dst, const T* src,
                                            const RowOf& row_of, int64_t d,
-                                           int64_t k0, bool vec) {
+                                           int64_t k0) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   for (int q = threadIdx.x; q < BM * 8; q += THREADS) {
     const int r = q >> 3, ch = q & 7;
     unsigned char* s = dst + r * ROWB + ((ch ^ (r & 7)) << 4);
     const int64_t gr = row_of(r), gk = k0 + ch * V;
-    if (gr >= 0 && vec && gk + V <= d) {
-      cp_async16(s, src + gr * d + gk);
-    } else {
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      T* xv = reinterpret_cast<T*>(&x);
-#pragma unroll
-      for (int u = 0; u < V; ++u) {
-        if (gr >= 0 && gk + u < d) xv[u] = src[gr * d + gk + u];
-      }
-      *reinterpret_cast<uint4*>(s) = x;
-    }
+    const bool live = gr >= 0 && gk < d;
+    cp_async16(s, live ? src + gr * d + gk : src, live ? 16u : 0u);
   }
 }
 
@@ -636,8 +637,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                        const int32_t* __restrict__ qslots,
                        const int4* __restrict__ units,
                        const int32_t* __restrict__ n_units, int64_t first,
-                       int64_t n_real, int64_t p, int W, int64_t* buf,
-                       bool vec) {
+                       int64_t n_real, int64_t p, int W, int64_t* buf) {
   if (static_cast<int>(blockIdx.x) >= *n_units) return;
   constexpr int SV = LS ? SV_LS : SV_DEV;
   extern __shared__ unsigned char smem_raw[];
@@ -682,12 +682,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     const MemberRows m_of{u.mem, tile * BN, u.nm, n_real};
     if constexpr (TC) {
       const uint16_t* src = static_cast<const uint16_t*>(rows_v);
-      load_chunk(sp, src, q_of, d, k0, vec);
-      load_chunk(sp + CHUNK, src, m_of, d, k0, vec);
+      load_chunk(sp, src, q_of, d, k0);
+      load_chunk(sp + CHUNK, src, m_of, d, k0);
     } else {
       const float* src = static_cast<const float*>(rows_v);
-      load_chunk(sp, src, q_of, d, k0, vec);
-      load_chunk(sp + CHUNK, src, m_of, d, k0, vec);
+      load_chunk(sp, src, q_of, d, k0);
+      load_chunk(sp + CHUNK, src, m_of, d, k0);
     }
   };
 
@@ -902,14 +902,14 @@ cudaError_t launch_rescore(const void* rows, int64_t d,
                            const int32_t* qslots, const int4* units,
                            const int32_t* n_units, int64_t grid,
                            int64_t first, int64_t n_real, int64_t p, int W,
-                           int64_t* buf, bool vec, cudaStream_t st) {
+                           int64_t* buf, cudaStream_t st) {
   auto kernel = ivf_rescore_kernel<TC, LS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   kernel<<<static_cast<unsigned>(grid), THREADS, SMEM_BYTES, st>>>(
       rows, d, member, qvals, qslots, units, n_units, first, n_real, p, W,
-      buf, vec);
+      buf);
   return cudaGetLastError();
 }
 
@@ -1112,7 +1112,9 @@ cudaError_t launch_merge(const int64_t* buf, int64_t rows, int64_t p,
 }  // namespace
 
 // K6: the rescore of knn/ivf.py rescore_clusters. rows (R, d) row-major,
-// bfloat16 (is_bf16 = 1: wgmma) or float32 (FFMA); member the member
+// bfloat16 (is_bf16 = 1: wgmma) or float32 (FFMA), d * itemsize a
+// multiple of 16 and rows 16-byte aligned (else cudaErrorInvalidValue;
+// rescore_clusters pads the width with zero columns); member the member
 // buckets' ids, qvals and qslots the probe buckets' query rows and probe
 // slots (int32, knn/ivf.py bucket_clusters); units (grid, 4) int32 (first
 // member offset, first query offset, slots <= 128, members), of which the
@@ -1120,41 +1122,37 @@ cudaError_t launch_merge(const int64_t* buf, int64_t rows, int64_t p,
 // unit's members are member[x .. x + w), its query slot j is row first +
 // qvals[y + j] at probe slot qslots[y + j]; members >= n_real never win;
 // buf (nq, p, W) int64, every (query, slot) list of a unit written whole.
-// vec = 1 where d * itemsize is a multiple of 16 and rows is 16-byte
-// aligned (16-byte loads). The block's shared-memory opt-in is set on the
-// current device.
+// The block's shared-memory opt-in is set on the current device.
 extern "C" int fk_ivf_rescore(const void* rows, int64_t d, int is_bf16,
                               const int32_t* member, const int32_t* qvals,
                               const int32_t* qslots, const int32_t* units,
                               const int32_t* n_units, int64_t grid,
                               int64_t first, int64_t n_real, int64_t p,
-                              int64_t W, int64_t* buf, int vec,
-                              void* stream) {
+                              int64_t W, int64_t* buf, void* stream) {
   if (grid <= 0) return static_cast<int>(cudaSuccess);
-  if (W <= 0 || W > INT32_MAX || d <= 0 || p <= 0 || grid > INT32_MAX) {
+  if (W <= 0 || W > INT32_MAX || d <= 0 || p <= 0 || grid > INT32_MAX ||
+      d * (is_bf16 ? 2 : 4) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int4* u = reinterpret_cast<const int4*>(units);
   const int w = static_cast<int>(W);
-  const bool v = vec != 0;
   cudaError_t err;
   if (is_bf16) {
     err = W <= WL ? launch_rescore<true, true>(rows, d, member, qvals, qslots,
                                               u, n_units, grid, first,
-                                              n_real, p, w, buf, v, st)
+                                              n_real, p, w, buf, st)
                   : launch_rescore<true, false>(rows, d, member, qvals,
                                                qslots, u, n_units, grid,
-                                               first, n_real, p, w, buf, v,
-                                               st);
+                                               first, n_real, p, w, buf, st);
   } else {
     err = W <= WL ? launch_rescore<false, true>(rows, d, member, qvals,
                                                qslots, u, n_units, grid,
-                                               first, n_real, p, w, buf, v,
-                                               st)
+                                               first, n_real, p, w, buf, st)
                   : launch_rescore<false, false>(rows, d, member, qvals,
                                                 qslots, u, n_units, grid,
-                                                first, n_real, p, w, buf, v,
+                                                first, n_real, p, w, buf,
                                                 st);
   }
   return static_cast<int>(err);

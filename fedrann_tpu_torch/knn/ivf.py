@@ -74,6 +74,7 @@ from fedrann_tpu_torch import _build
 from fedrann_tpu_torch.knn.topk import (
     EMPTY_KEY,
     _order_keys,
+    _tma_rows,
     keys_to_host,
     knn_exact,
     merge_block,
@@ -772,7 +773,7 @@ def _rescore(en_pad: torch.Tensor, n_real: int, members, first: int,
             host[-1].copy_(b, non_blocking=True)
         copied = torch.cuda.current_stream(en_pad.device).record_event()
         buf = rescore_clusters(en_pad, n_real, members, queries, first, nq,
-                               p, k, precision)
+                               p, k, precision, stats)
     with spans.step("fedrann.ivf.merge"):
         keys = _merge_buffers(buf, k, spill)
 
@@ -824,7 +825,8 @@ def rescore_plain(en_pad: torch.Tensor, n_real: int, member: torch.Tensor,
 
 def rescore_clusters(en_pad: torch.Tensor, n_real: int, members: Buckets,
                      queries: Buckets, first: int, nq: int, p: int,
-                     kk_g: int, precision: str) -> torch.Tensor:
+                     kk_g: int, precision: str,
+                     stats: dict | None = None) -> torch.Tensor:
     """K6 (csrc/ivf_rescore.cu `fk_ivf_rescore`): the (nq, p, kk_g) buffer
     of rescore_plain in one launch on the card of en_pad over the member
     and probe Buckets (bucket_clusters'), a block a unit of the probe
@@ -834,10 +836,15 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, members: Buckets,
     later members offered against it (_k6_replay replays it). The rows go
     in as bfloat16 at precision="bf16" (wgmma, float32 sums: the rows are
     bf16-rounded already, so the products are rescore_plain's), float32
-    at "fp32" (FFMA); every (query, slot) list is written whole, sorted
-    descending, EMPTY_KEY past its members. Nothing is read back. Counts
-    its launches in .kernel_launches (the fp32 form's also in
-    .fp32_launches); raises on a tensor it does not take."""
+    at "fp32" (FFMA), in one copy (topk._tma_rows: zero columns out to a
+    16-byte pitch where the width needs them, so K6 gathers every 16-byte
+    piece by cp.async; the zeros are those a stage holds past d anyway, so
+    every score keeps its bits); every (query, slot) list is written
+    whole, sorted descending, EMPTY_KEY past its members. Nothing is read
+    back. Counts its launches in .kernel_launches (the fp32 form's also in
+    .fp32_launches, those on a padded copy in .padded_launches); a launch
+    puts its row pitch in `stats` as "k6_row_pitch" where given. Raises
+    on a tensor it does not take."""
     if precision not in ("bf16", "fp32"):
         raise ValueError(f"precision must be 'bf16' or 'fp32', not "
                          f"{precision!r}")
@@ -856,28 +863,29 @@ def rescore_clusters(en_pad: torch.Tensor, n_real: int, members: Buckets,
     if en_pad.shape[0] >= 1 << 31:
         raise ValueError("rescore_clusters: fewer than 2**31 rows (the "
                          "kernel keeps query rows as int32)")
-    rows = en_pad.to(torch.bfloat16 if precision == "bf16"
-                     else torch.float32).contiguous()
-    d = rows.shape[1]
     buf = torch.empty((nq, p, kk_g), dtype=torch.int64, device=dev)
     grid = queries.units.shape[0]
     if nq == 0 or kk_g == 0 or grid == 0:
         return buf.fill_(EMPTY_KEY)
-    vec = rows.data_ptr() % 16 == 0 and d % (8 if precision == "bf16"
-                                             else 4) == 0
-    _build.launch("fk_ivf_rescore", rows.data_ptr(), d,
+    rows = _tma_rows(en_pad, torch.bfloat16 if precision == "bf16"
+                     else torch.float32)
+    pitch = rows.shape[1]
+    _build.launch("fk_ivf_rescore", rows.data_ptr(), pitch,
                   int(precision == "bf16"), members.vals.data_ptr(),
                   queries.vals.data_ptr(), queries.slots.data_ptr(),
                   queries.units.data_ptr(), queries.n_units.data_ptr(), grid,
-                  first, n_real, p, kk_g, buf.data_ptr(), int(vec),
-                  device=dev)
+                  first, n_real, p, kk_g, buf.data_ptr(), device=dev)
     rescore_clusters.kernel_launches += 1
     rescore_clusters.fp32_launches += precision == "fp32"
+    rescore_clusters.padded_launches += pitch != en_pad.shape[1]
+    if stats is not None:
+        stats["k6_row_pitch"] = pitch
     return buf
 
 
 rescore_clusters.kernel_launches = 0
 rescore_clusters.fp32_launches = 0
+rescore_clusters.padded_launches = 0
 
 # K6's selection (csrc/ivf_rescore.cu): the members of the first
 # selection (MR), the list slots a row keeps in shared memory (WL), the
@@ -1184,7 +1192,8 @@ def knn_ivf(
     slot that the probed clusters cannot fill. Counts its calls in
     `.calls`, those that fell back to knn_exact in `.exact_fallbacks`; the
     last search's C, p, spill, real pair scores, and JAX's size classes
-    and padded pair-scores are in `.last`. While a torch profiler runs
+    and padded pair-scores are in `.last` (on a card also the row pitch
+    K6 launched at, "k6_row_pitch"). While a torch profiler runs
     (metrics.steps) its steps are spans ("fedrann.ivf.normalize",
     ".kmeans", ".probes", ".members", ".rescore", ".merge", ".plan", then
     result_wire's) and, on a card, `.last` also holds the call's record

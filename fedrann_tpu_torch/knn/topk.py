@@ -336,24 +336,28 @@ merge_block.last_units = 0
 
 
 def tma_width(d: int, itemsize: int) -> int:
-    """The row width K4 reads by TMA: d padded to a multiple of 16 bytes."""
+    """The row width K4 reads by TMA and K6 gathers by cp.async: d padded
+    to a multiple of 16 bytes."""
     per = 16 // itemsize
     return -(-d // per) * per
 
 
 def _tma_rows(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Rows as K4 reads them by TMA: of dtype (float32 rounded to nearest
-    even for bfloat16, as round_rows), d padded with zeros to tma_width
-    and the base 16-byte aligned; x itself where it is all that already.
-    A zero pad adds +-0.0 products to sums that start at +0.0, which
-    changes no bits, and every path pads a given d alike, so a pair's
-    score is the same bits either way."""
+    """Rows as K4 reads them by TMA and K6 gathers them by cp.async: of
+    dtype (float32 rounded to nearest even for bfloat16, as round_rows),
+    d padded with zeros to tma_width and the base 16-byte aligned, in one
+    copy (the pad columns alone zeroed); x itself where it is all that
+    already. A zero pad adds +-0.0 products to sums that start at +0.0,
+    which changes no bits, and every path pads a given d alike, so a
+    pair's score is the same bits either way."""
     d = x.shape[1]
     dp = tma_width(d, torch.empty((), dtype=dtype).element_size())
-    if x.dtype == dtype and dp == d and x.data_ptr() % 16 == 0:
+    if (x.dtype == dtype and dp == d and x.data_ptr() % 16 == 0
+            and x.is_contiguous()):
         return x
-    y = torch.zeros((x.shape[0], dp), dtype=dtype, device=x.device)
+    y = torch.empty((x.shape[0], dp), dtype=dtype, device=x.device)
     y[:, :d] = x
+    y[:, d:] = 0
     return y
 
 

@@ -19,6 +19,9 @@ same numpy rows and tables:
   clusters, and K6's work list from the buckets' bounds
   (bucket_units_plain) against the host's former list (rescore_units)
   as rows;
+- the rows K6 gathers (topk._tma_rows, as rescore_clusters makes them):
+  one copy of the search's dtype, 16-byte aligned, zero columns out to a
+  16-byte pitch only where the width needs them;
 - K6's and K7's device algorithms replayed on tensors (ivf._k6_replay:
   the first selection's bisection, the later tiles' offers, overflow
   rounds and merges; ivf._k7_replay: the merge network, the dedup of
@@ -29,19 +32,22 @@ same numpy rows and tables:
   recur at other scores.
 
 The `cuda` tests (skipped without a card) hold each kernel against its
-plain version on the card: K6 bitwise on grid rows and at the edge cases
+plain version on the card: K6 bitwise on grid rows (d = 512, and 500 and
+130, whose rows go in as a padded copy) and at the edge cases
 (a 1-member cluster, one past a tile, k past the members, sentinel rows,
 unprobed and empty clusters, C = 8, a query row offset; W = 1, 50, 64 and
 100; a cluster past the first selection's 256 members, and one that
 overflows its survivor slots), to an index-set
 agreement >= 0.999 and scores within 2e-6 on real rows, two launches
-byte-identical; K6 on K11's work list (made on the card) bitwise K6 on
+byte-identical (at d = 500 also bitwise K6 on the rows padded to 512 by
+hand); K6 on K11's work list (made on the card) bitwise K6 on
 the host's (ivf.host_units); knn_ivf_sharded over every card bitwise
 knn_ivf on one (two cards or more); knn_ivf with no synchronizing call
 between the k-means and K6's launch; K7 bitwise at spill 1, 2 and 3 on K6's own buffers and on
 sorted lists whose indices recur at other scores; K4 as the cluster
 ranking at agreement >= 0.999, ties to the lower of two equal centroids;
-knn_ivf through K4, K6 and K7 with no plain version reached; the kernels
+knn_ivf through K4, K6 and K7 with no plain version reached, its padded
+launches and K6's row pitch in its record; the kernels
 on the last card's tensors. This file imports JAX only inside the CPU
 tests, so on a machine with a card and no JAX
     python -m pytest --noconftest -q -m cuda tests/test_torch_ivf_rescore.py
@@ -55,7 +61,13 @@ import pytest
 import torch
 
 from fedrann_tpu_torch.knn import ivf
-from fedrann_tpu_torch.knn.topk import EMPTY_KEY, _decode_keys, _order_keys
+from fedrann_tpu_torch.knn.topk import (
+    EMPTY_KEY,
+    _decode_keys,
+    _order_keys,
+    _tma_rows,
+    tma_width,
+)
 
 CPU = torch.device("cpu")
 
@@ -325,6 +337,39 @@ def _rescore_units(counts_h, qcounts_h):
         * ivf.K6_ROWS
     return np.stack([c, j0, np.minimum(ivf.K6_ROWS, qcounts_h[c] - j0),
                      counts_h[c]], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("d", [3, 130, 500, 512])
+def test_k6_rows_pad_to_a_16_byte_pitch(d, precision):
+    """The rows rescore_clusters gives K6 (_tma_rows at the search's
+    dtype): 16-byte aligned, at tma_width's pitch; past d zeros and before
+    it the rows themselves. Where d * itemsize is a multiple of 16 no pad
+    column is made: the rows are a copy in dtype, en_pad itself where it
+    is that already; a misaligned base or strided rows are copied to
+    aligned, contiguous ones."""
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    size = dtype.itemsize
+    en = torch.from_numpy(_grid(np.random.default_rng(d), 37, d))
+    pitch = tma_width(d, size)
+    assert pitch * size % 16 == 0 and 0 <= pitch - d < 16 // size
+    assert (pitch == d) == (d * size % 16 == 0)
+    wide = torch.zeros((37, d + 4))
+    wide[:, :d] = en
+    for x in (en, en.to(dtype), wide[:, :d]):
+        rows = _tma_rows(x, dtype)
+        assert rows.dtype == dtype and rows.shape == (37, pitch)
+        assert rows.is_contiguous() and rows.data_ptr() % 16 == 0
+        assert torch.equal(rows[:, :d], en.to(dtype))
+        assert not bool(rows[:, d:].any())
+        assert (rows.data_ptr() == x.data_ptr()) == (
+            pitch == d and x.dtype == dtype and x.is_contiguous())
+    flat = torch.zeros(37 * d + 1)
+    flat[1:] = en.reshape(-1)
+    off = flat[1:].view(37, d)
+    rows = _tma_rows(off, dtype)
+    assert rows.shape == (37, pitch) and rows.data_ptr() % 16 == 0
+    assert torch.equal(rows[:, :d], en.to(dtype))
 
 
 def test_rescore_units_cover_every_probed_slot():
@@ -621,16 +666,22 @@ def _sorted_lists(rng, rows, p, w, device):
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 @pytest.mark.parametrize("spill", [1, 2])
 @pytest.mark.parametrize("k", [50, 64, 100])
-def test_ivf_rescore_bitwise_on_grid_rows(cuda, precision, spill, k):
+@pytest.mark.parametrize("d", [512, 500, 130])
+def test_ivf_rescore_bitwise_on_grid_rows(cuda, precision, spill, k, d):
     """K6 against rescore_plain on grid rows (every score exact) through
     knn_ivf's own tables: bitwise, ties to the lowest index included; C =
     16 makes clusters of ~300-700 members (past the first selection's
     256); W = 64 the largest with the lists in shared memory, W = 100 the
-    form with lists in the buffer."""
-    rows = _grid(np.random.default_rng(30 + spill), 5000, 512)
+    form with lists in the buffer. d = 500 (the CLI's default width: 1,000
+    bytes a bf16 row) and 130 (no multiple of 4) go in as a padded copy
+    where d * itemsize is no multiple of 16, counted in .padded_launches."""
+    rows = _grid(np.random.default_rng(30 + spill), 5000, d)
     case = _ivf_case(rows, 16, 4, spill, k, cuda)
     assert int(case["counts_h"].max()) > ivf.K6_FIRST
+    before = ivf.rescore_clusters.padded_launches
     assert torch.equal(_kernel(case, precision), _plain(case))
+    assert ivf.rescore_clusters.padded_launches - before == int(
+        tma_width(d, 2 if precision == "bf16" else 4) != d)
 
 
 @pytest.mark.cuda
@@ -722,16 +773,23 @@ def test_knn_ivf_reads_nothing_back_before_k6(cuda, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
-def test_ivf_rescore_real_rows(cuda, precision):
-    """Unit blobs (bf16-rounded at bf16), d = 512: the same unset slots,
-    strictly descending lists, index-set agreement >= 0.999 and shared
-    pairs' scores within 2e-6; two launches byte-identical."""
-    rows = _blobs(20000, 512, 60, np.random.default_rng(9))
+@pytest.mark.parametrize("d", [512, 500])
+def test_ivf_rescore_real_rows(cuda, precision, d):
+    """Unit blobs (bf16-rounded at bf16), d = 512 and 500: the same unset
+    slots, strictly descending lists, index-set agreement >= 0.999 and
+    shared pairs' scores within 2e-6; two launches byte-identical; at d =
+    500 bitwise K6 on the same rows with zero columns to 512 (no padded
+    copy): the pad changes no score's bits."""
+    rows = _blobs(20000, d, 60, np.random.default_rng(9))
     if precision == "bf16":
         rows = torch.from_numpy(rows).to(torch.bfloat16).float().numpy()
     case = _ivf_case(rows, 128, 8, 2, 50, cuda)
     got = _kernel(case, precision)
     assert torch.equal(got, _kernel(case, precision))
+    if d != 512:
+        wide = dict(case, en_pad=torch.nn.functional.pad(case["en_pad"],
+                                                         (0, 512 - d)))
+        assert torch.equal(got, _kernel(wide, precision))
     want = _plain(case)
     w = got.shape[-1]
     g, wt = got.reshape(-1, w), want.reshape(-1, w)
@@ -803,10 +861,13 @@ def test_top_clusters_through_k4(cuda, bf16):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
+@pytest.mark.parametrize("d", [128, 500, 130])
 def test_knn_ivf_runs_k4_k6_k7_and_no_plain_version(cuda, monkeypatch,
-                                                     precision):
+                                                     precision, d):
     """knn_ivf on CUDA tensors: K4 (four cluster rankings), K6 and K7 one
-    launch each, no plain version called."""
+    launch each, no plain version called; K6 on a padded copy where d *
+    itemsize is no multiple of 16, the pitch it launched at (504 at the
+    CLI's d = 500 in bf16) in `.last`."""
     from fedrann_tpu_torch.knn.topk import merge_block
 
     for name in ("top_clusters_plain", "rescore_plain",
@@ -816,14 +877,19 @@ def test_knn_ivf_runs_k4_k6_k7_and_no_plain_version(cuda, monkeypatch,
     counts = lambda: (merge_block.kernel_launches,  # noqa: E731
                       ivf.rescore_clusters.kernel_launches,
                       ivf.rescore_clusters.fp32_launches,
+                      ivf.rescore_clusters.padded_launches,
                       ivf.merge_probe_lists.kernel_launches)
     before = counts()
-    e = torch.from_numpy(_blobs(8000, 128, 40,
+    e = torch.from_numpy(_blobs(8000, d, 40,
                                 np.random.default_rng(2))).to(cuda)
     idx, dist = ivf.knn_ivf(e, 20, n_clusters=64, precision=precision)
     after = counts()
+    pitch = {(128, "bf16"): 128, (128, "fp32"): 128, (500, "bf16"): 504,
+             (500, "fp32"): 500, (130, "bf16"): 136,
+             (130, "fp32"): 132}[d, precision]
     assert tuple(a - b for a, b in zip(after, before)) == (
-        4, 1, int(precision == "fp32"), 1)
+        4, 1, int(precision == "fp32"), int(pitch != d), 1)
+    assert ivf.knn_ivf.last["k6_row_pitch"] == pitch
     assert (idx[:, 0] == np.arange(8000)).mean() > 0.99
     assert (np.diff(dist, axis=1) >= 0).all()
 

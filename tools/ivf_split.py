@@ -86,14 +86,15 @@ def rescore_setup(cs, ivf, rows, card: str) -> None:
 
     host, copied = part("the bounds to page-locked memory (enqueued)",
                         bounds_copy)
-    rows16 = part("en_pad.to(bf16)",
-                  lambda: en_pad.to(torch.bfloat16).contiguous())
+    rows16 = part("the bf16 rows (_tma_rows)",
+                  lambda: ivf._tma_rows(en_pad, torch.bfloat16))
     buf = torch.empty((n, p, k), dtype=torch.int64, device=dev)
     part("K6", lambda: _build.launch(
-        "fk_ivf_rescore", rows16.data_ptr(), 512, 1, members.vals.data_ptr(),
-        queries.vals.data_ptr(), queries.slots.data_ptr(),
-        queries.units.data_ptr(), queries.n_units.data_ptr(),
-        queries.units.shape[0], 0, n, p, k, buf.data_ptr(), 1, device=dev))
+        "fk_ivf_rescore", rows16.data_ptr(), rows16.shape[1], 1,
+        members.vals.data_ptr(), queries.vals.data_ptr(),
+        queries.slots.data_ptr(), queries.units.data_ptr(),
+        queries.n_units.data_ptr(), queries.units.shape[0], 0, n, p, k,
+        buf.data_ptr(), device=dev))
     got = part("K7", lambda: ivf.merge_probe_lists(buf, k, spill))
     counts_h, qcounts_h = part(
         "the wait for the copy", lambda: copied.synchronize() or [

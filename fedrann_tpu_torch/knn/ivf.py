@@ -53,18 +53,21 @@ Every returned distance is exact; recall is lost only to clusters a
 query does not probe. Below a few thousand rows (or 4 rows a cluster) the
 search is `knn_exact`'s.
 
-`knn_ivf_sharded` spreads the rescore over a mesh by query rows: every
-entry holds all rows (the JAX package's all-gather) and the members, and
-searches the queries of its own row block, so no partial result moves
-between entries and the result is `knn_ivf`'s at the same cluster count.
-The k-means and the members are made once, on the mesh's first device
-(`knn_ivf_sharded_multihost`: rank 0's centroids, each rank's own rows'
-assignments gathered), so every entry holds the same ones.
+`knn_ivf` over a mesh (`knn_ivf_sharded` rounds the cluster count to a
+multiple of its entries and calls it) spreads the rescore by query rows:
+every entry holds all rows (the JAX package's all-gather) and the members,
+and searches the queries of its own row block, so no partial result moves
+between entries and the result is the one-device search's at the same
+cluster count. The k-means and the members are made once, on the mesh's
+first device (`knn_ivf_sharded_multihost`: rank 0's centroids, each
+rank's own rows' assignments gathered), so every entry holds the same
+ones.
 """
 
 from __future__ import annotations
 
 import itertools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -1184,21 +1187,31 @@ def knn_ivf(
     precision: str = "bf16",
     transfer: str = "f32",
     spill: int = 2,
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Sub-quadratic all-vs-all cosine top-k on the device the (N, d)
     embeddings lie on: knn_exact's output contract ((indices (N, k) int32,
     distances (N, k) float32) sorted ascending, self normally at rank 0),
     with neighbors outside the probed clusters missed and -1 / inf in a
-    slot that the probed clusters cannot fill. Counts its calls in
-    `.calls`, those that fell back to knn_exact in `.exact_fallbacks`; the
-    last search's C, p, spill, real pair scores, and JAX's size classes
-    and padded pair-scores are in `.last` (on a card also the row pitch
-    K6 launched at, "k6_row_pitch"). While a torch profiler runs
-    (metrics.steps) its steps are spans ("fedrann.ivf.normalize",
-    ".kmeans", ".probes", ".members", ".rescore", ".merge", ".plan", then
-    result_wire's) and, on a card, `.last` also holds the call's record
-    (metrics.Steps.record: device_ms a step, with "wire"; pin_s, unpin_s,
-    pinned_bytes)."""
+    slot that the probed clusters cannot fill. With `mesh`
+    (parallel.mesh.Mesh) the rows, the k-means and the tables are made on
+    its first device and the rescore is spread over its entries by query
+    rows (_search_blocks), each entry's keys taken to the host in turn and
+    concatenated; the keys are those of the search without a mesh. Counts
+    its calls in `.calls`, those that fell back to knn_exact (with a mesh
+    knn_exact_sharded) in `.exact_fallbacks`; the last search's C, p,
+    spill, real pair scores, and JAX's size classes and padded pair-scores
+    are in `.last` (on a card also the row pitch K6 launched at,
+    "k6_row_pitch"; with a mesh its "entries" and each entry's query rows
+    and real pair scores, "entry_rows" and "entry_pairs"). While a torch
+    profiler runs (metrics.steps) its steps are spans
+    ("fedrann.ivf.normalize", ".kmeans", ".probes", ".members", with a
+    mesh ".replicate", then each entry's ".rescore", ".merge", ".plan" and
+    result_wire's, with a mesh then ".gather") and, on a card, `.last`
+    also holds the call's record (metrics.Steps.record: device_ms a step
+    of the first device, with "wire" where there is no mesh; pin_s,
+    unpin_s, pinned_bytes; with a mesh also serial_ms, entry_ms and
+    wire_s, _mesh_record)."""
     emb = torch.as_tensor(embeddings)
     n = emb.shape[0]
     c = n_clusters or auto_clusters(n)
@@ -1207,21 +1220,44 @@ def knn_ivf(
         knn_ivf.exact_fallbacks += 1
         logger.info("knn_ivf: N=%d too small for C=%d clusters; exact path",
                     n, c)
+        if mesh is not None:
+            from fedrann_tpu_torch.knn.ring import knn_exact_sharded
+
+            return knn_exact_sharded(emb, n_neighbors, mesh=mesh,
+                                     precision=precision, transfer=transfer)
         return knn_exact(emb, n_neighbors, precision=precision,
                          transfer=transfer)
     k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
-    spans = steps(emb.device)
+    dev = emb.device if mesh is None else mesh.devices[0]
+    spans = steps(dev)
     with spans.step("fedrann.ivf.normalize"):
-        en_pad = _unit_padded(emb, precision)
+        en_pad = _unit_padded(emb.to(dev), precision)
     _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p, spans)
     with spans.step("fedrann.ivf.members"):
         members = _member_side(top[:, :spill].reshape(-1), c, spill)
     stats: dict = {}
-    keys = _rescore(en_pad, n, members, 0, n, top[:, :p].contiguous(), k,
-                    spill, precision, stats, spans)()
-    out = keys_to_host(keys, transfer, n, spans)
-    stats.update(spans.record())
-    _log_search("knn_ivf", n, c, p, spill, stats)
+    if mesh is None:
+        keys = _rescore(en_pad, n, members, 0, n, top[:, :p].contiguous(),
+                        k, spill, precision, stats, spans)()
+        out = keys_to_host(keys, transfer, n, spans)
+        stats.update(spans.record())
+        name = "knn_ivf"
+    else:
+        stats["entries"] = mesh.size
+        blocks = _search_blocks(en_pad, n, members, top[:, :p], 0, n, mesh,
+                                k, spill, precision, stats, spans)
+        wire0 = time.perf_counter()
+        parts = []
+        for keys, entry in blocks:
+            entry.mark("held")
+            parts.append(keys_to_host(keys, transfer, n, entry))
+        with spans.span("fedrann.ivf.gather"):
+            out = (np.concatenate([q[0] for q in parts]),
+                   np.concatenate([q[1] for q in parts]))
+        stats.update(_mesh_record(spans, [e for _, e in blocks],
+                                  time.perf_counter() - wire0))
+        name = f"knn_ivf over {mesh.size} entries"
+    _log_search(name, n, c, p, spill, stats)
     knn_ivf.last = stats
     return out
 
@@ -1231,34 +1267,76 @@ knn_ivf.exact_fallbacks = 0
 knn_ivf.last = {}
 
 
+def _mesh_record(spans, entries: list, wire_s: float) -> dict:
+    """A timed mesh search's record (else {}): the first device's
+    (spans') Steps.record, its device_ms the serial steps normalize to
+    replicate, which the other devices wait through, and serial_ms their
+    sum; entry_ms, each entry's device ms on its own stream ("lists": its
+    probe lists' copy, "rescore", "merge", "held": the wait for the host
+    to reach its wire, "wire"); wire_s, the host seconds from the first
+    entry's take to the concatenated result; pinned_bytes the largest
+    reading of the entries' takes (the last, with every entry's result
+    held); pin_s and unpin_s over the whole call."""
+    if not spans.timed:
+        return {}
+    out = spans.record()
+    out.update(serial_ms=sum(out["device_ms"].values()),
+               entry_ms=[e.device_ms() for e in entries], wire_s=wire_s,
+               pinned_bytes=max(e.pinned_bytes for e in entries))
+    return out
+
+
 def _search_blocks(en_pad: torch.Tensor, n_real: int, members,
                    probes: torch.Tensor, first: int, n_rows: int, mesh,
-                   k: int, spill: int, precision: str,
-                   stats: dict) -> list[torch.Tensor]:
+                   k: int, spill: int, precision: str, stats: dict,
+                   spans=NO_STEPS) -> list:
     """The keys of query rows first .. first + n_rows - 1 cut into one
     block per entry of `mesh` (b = ceil(n_rows / entries) rows each), each
     searched on its entry's device against every row: en_pad and the
     members (_member_side's: the buckets' vals and bounds, or the dense
-    table) copied once to each distinct device (mesh.replicate). Every
-    entry's search is enqueued before any waits for its sizes. probes:
-    the (n_rows, p) probe lists of those rows."""
+    table) copied once to each distinct device (mesh.replicate, the step
+    "fedrann.ivf.replicate" of `spans`), each block's probe lists to its
+    entry's. Every entry's search is enqueued before any waits for its
+    sizes. probes: the (n_rows, p) probe lists of those rows. Returns
+    [(keys, the entry's steps)] of the entries with rows: under a profiler
+    (spans not NO_STEPS) each entry's search has metrics.steps of its own
+    on its device, marked after its lists' copy ("lists") and by
+    _rescore. stats gains each such entry's query rows and real pair
+    scores ("entry_rows", "entry_pairs")."""
     from fedrann_tpu_torch.parallel.mesh import replicate
 
-    if en_pad.device.type == "cuda":
-        copies = [Buckets(v, b) for v, b in zip(
-            replicate(members.vals, mesh), replicate(members.bounds, mesh))]
-    else:
-        copies = [(t, members[1]) for t in replicate(members[0], mesh)]
+    with spans.step("fedrann.ivf.replicate"):
+        if en_pad.device.type == "cuda":
+            copies = [Buckets(v, b) for v, b in zip(
+                replicate(members.vals, mesh),
+                replicate(members.bounds, mesh))]
+        else:
+            copies = [(t, members[1]) for t in replicate(members[0], mesh)]
+        rows_at = replicate(en_pad, mesh)
+
+    def pairs() -> int:  # _rescore adds an entry's at its call or finish
+        return stats.get("real_pair_scores", 0)
+
     b = -(-n_rows // mesh.size)
     pending = []
-    for j, (rows, mine) in enumerate(zip(replicate(en_pad, mesh), copies)):
+    for j, (rows, mine) in enumerate(zip(rows_at, copies)):
         lo, hi = j * b, min(n_rows, (j + 1) * b)
         if hi > lo:
-            pending.append(_rescore(
-                rows, n_real, mine, first + lo, hi - lo,
-                probes[lo:hi].to(rows.device).contiguous(), k, spill,
-                precision, stats))
-    return [finish() for finish in pending]
+            entry = NO_STEPS if spans is NO_STEPS else steps(rows.device)
+            lists = probes[lo:hi].to(rows.device).contiguous()
+            entry.mark("lists")
+            before = pairs()
+            finish = _rescore(rows, n_real, mine, first + lo, hi - lo,
+                              lists, k, spill, precision, stats, entry)
+            pending.append((hi - lo, entry, finish, pairs() - before))
+    stats["entry_rows"], stats["entry_pairs"] = [], []
+    blocks = []
+    for rows, entry, finish, enqueued in pending:
+        before = pairs()
+        blocks.append((finish(), entry))
+        stats["entry_rows"].append(rows)
+        stats["entry_pairs"].append(enqueued + pairs() - before)
+    return blocks
 
 
 def knn_ivf_sharded(
@@ -1272,12 +1350,12 @@ def knn_ivf_sharded(
     transfer: str = "f32",
     spill: int = 2,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """knn_ivf with the rescore spread over the mesh's entries (every
-    visible CUDA card when None), each searching the queries of its row
-    block; the cluster count is rounded up to a multiple of the entries
-    (the JAX package's). The k-means and the tables are made on the
-    mesh's first device. Below the small-N valve, knn_exact_sharded.
-    Counts `.calls` and `.exact_fallbacks`; `.last` as knn_ivf's."""
+    """knn_ivf over the mesh's entries (every visible CUDA card when
+    None), each searching the queries of its row block; the cluster count
+    is rounded up to a multiple of the entries (the JAX package's). Below
+    the small-N valve, knn_exact_sharded. Counts `.calls` and
+    `.exact_fallbacks`; past the valve the search is knn_ivf's (counted in
+    its `.calls`), and `.last` is knn_ivf's."""
     from fedrann_tpu_torch.knn.ring import knn_exact_sharded
     from fedrann_tpu_torch.parallel.mesh import make_mesh
 
@@ -1293,18 +1371,11 @@ def knn_ivf_sharded(
                     "sharded exact path", n, c)
         return knn_exact_sharded(emb, n_neighbors, mesh=mesh,
                                  precision=precision, transfer=transfer)
-    k, p, spill = min(n_neighbors, n), min(n_probes, c), max(1, min(spill, c))
-    en_pad = _unit_padded(emb.to(mesh.devices[0]), precision)
-    _, top = _tables(en_pad[:n], c, kmeans_iters, spill, p)
-    members = _member_side(top[:, :spill].reshape(-1), c, spill)
-    stats: dict = {"entries": mesh.size}
-    keys = _search_blocks(en_pad, n, members, top[:, :p], 0, n, mesh, k,
-                          spill, precision, stats)
-    _log_search("knn_ivf_sharded", n, c, p, spill, stats)
-    knn_ivf_sharded.last = stats
-    parts = [keys_to_host(kk, transfer, n) for kk in keys]
-    return (np.concatenate([q[0] for q in parts]),
-            np.concatenate([q[1] for q in parts]))
+    out = knn_ivf(emb, n_neighbors, n_clusters=c, n_probes=n_probes,
+                  kmeans_iters=kmeans_iters, precision=precision,
+                  transfer=transfer, spill=spill, mesh=mesh)
+    knn_ivf_sharded.last = knn_ivf.last
+    return out
 
 
 knn_ivf_sharded.calls = 0
@@ -1396,8 +1467,9 @@ def knn_ivf_sharded_multihost(
     a = torch.cat(transport.all_gather(mine))[:n_real].reshape(-1)
     members = _member_side(a, c, spill)
     stats: dict = {"entries": n_proc * n_local}
-    keys = _search_blocks(en_pad, n_real, members, top[:, :p], first,
-                          n_mine, mesh, k, spill, precision, stats)
+    keys = [kk for kk, _ in _search_blocks(
+        en_pad, n_real, members, top[:, :p], first, n_mine, mesh, k, spill,
+        precision, stats)]
     _log_search(f"[rank {rank}] knn_ivf_sharded_multihost", n_real, c, p,
                 spill, stats)
     knn_ivf_sharded_multihost.last = stats

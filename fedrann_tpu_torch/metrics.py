@@ -118,6 +118,9 @@ class _NoSteps:
     def mark(self, name: str) -> None:
         pass
 
+    def device_ms(self) -> dict:
+        return {}
+
     def record(self) -> dict:
         return {}
 
@@ -160,6 +163,14 @@ class Steps(_NoSteps):
             event.record(self.stream)
             self.events.append((name, event))
 
+    def device_ms(self) -> dict:
+        """Each step's ms on the stream, once the stream has passed its
+        marks ({} untimed)."""
+        ms: dict = {}
+        for (_, start), (name, end) in zip(self.events, self.events[1:]):
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        return ms
+
     def record(self) -> dict:
         """The call's record, where timed (else {}): device_ms, each
         step's ms on the stream; pin_s, host seconds taking page-locked
@@ -167,11 +178,8 @@ class Steps(_NoSteps):
         (UNPIN) since the last timed call was recorded; pinned_bytes."""
         if not self.timed:
             return {}
-        ms: dict = {}
-        for (_, start), (name, end) in zip(self.events, self.events[1:]):
-            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
         unpinned = span.seconds.get(UNPIN, 0.0)
-        out = {"device_ms": ms,
+        out = {"device_ms": self.device_ms(),
                "pin_s": span.seconds.get(PIN, 0.0) - self.pin0,
                "unpin_s": unpinned - Steps.unpinned_at,
                "pinned_bytes": self.pinned_bytes}

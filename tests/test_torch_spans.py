@@ -103,6 +103,36 @@ def test_steps_span_and_mark_in_order_under_a_profiler():
     assert metrics.span.seconds["fedrann.test.step"] > 0
 
 
+# the keys knn_ivf.last adds over a mesh, recorded or not, and those a
+# mesh search on cards records under a profiler
+MESH_KEYS = {"entries", "entry_rows", "entry_pairs"}
+MESH_CARD_KEYS = CARD_KEYS | {"serial_ms", "entry_ms", "wire_s"}
+SERIAL_STEPS = ["normalize", "kmeans", "probes", "members", "replicate"]
+
+
+def test_a_mesh_search_records_its_spans_under_a_cpu_profiler():
+    """knn_ivf over four CPU entries: its spans (the first device's
+    steps, the replication, each entry's rescore and wire, the gather)
+    under a CPU profiler, its entries' counts with or without one, and no
+    card-only key on the CPU."""
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    rows, mesh = _rows(), make_mesh(devices=[torch.device("cpu")] * 4)
+    ivf.knn_ivf(rows, 10, n_clusters=16, n_probes=4, mesh=mesh)
+    assert set(ivf.knn_ivf.last) == IVF_KEYS | MESH_KEYS
+    before = dict(metrics.span.seconds)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ivf.knn_ivf(rows, 10, n_clusters=16, n_probes=4, mesh=mesh)
+    last = ivf.knn_ivf.last
+    assert set(last) == IVF_KEYS | MESH_KEYS
+    assert last["entries"] == 4 and sum(last["entry_rows"]) == 2400
+    assert sum(last["entry_pairs"]) == last["real_pair_scores"]
+    grew = {name for name, secs in metrics.span.seconds.items()
+            if secs > before.get(name, 0.0)}
+    assert grew == {f"fedrann.ivf.{s}" for s in SERIAL_STEPS + [
+        "rescore", "merge", "plan", "gather"]}
+
+
 @pytest.fixture(scope="module")
 def reads(tmp_path_factory):
     d = tmp_path_factory.mktemp("spans")
@@ -208,3 +238,42 @@ def test_a_card_search_records_each_device_step(cuda, monkeypatch):
     assert one["pin_s"] > 0 and three["unpin_s"] > 0
     assert two["unpin_s"] == 0.0
     np.testing.assert_array_equal(second[0], third[0])
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards: reads the record of a search "
+                    "sharded over them")
+    from fedrann_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[torch.device("cuda", i) for i in range(4)])
+
+
+@pytest.mark.cuda
+def test_a_four_card_search_records_each_entry(four_cards):
+    """Under a profiler, knn_ivf_sharded over four cards records the first
+    card's serial steps and their sum (serial_ms), each entry's device ms
+    on its own card (its lists' copy, rescore, merge, the wait for its
+    wire, the wire), the host's wire seconds and the page-locked takes;
+    the result is the untraced call's."""
+    rows = _rows(20000, 64).to(four_cards.devices[0])
+    want = ivf.knn_ivf_sharded(rows, 10, mesh=four_cards, n_clusters=16,
+                               n_probes=4)  # every kernel built
+    assert set(ivf.knn_ivf.last) == IVF_KEYS | K6_KEYS | MESH_KEYS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = ivf.knn_ivf_sharded(rows, 10, mesh=four_cards, n_clusters=16,
+                                  n_probes=4)
+    last = ivf.knn_ivf.last
+    assert set(last) == IVF_KEYS | K6_KEYS | MESH_KEYS | MESH_CARD_KEYS
+    assert list(last["device_ms"]) == SERIAL_STEPS
+    assert last["serial_ms"] == pytest.approx(
+        sum(last["device_ms"].values()))
+    assert last["entries"] == len(last["entry_ms"]) == 4
+    for ms in last["entry_ms"]:
+        assert list(ms) == ["lists", "rescore", "merge", "held", "wire"]
+        assert ms["rescore"] > 0 and ms["wire"] > 0
+    assert last["wire_s"] > 0 and last["pin_s"] > 0
+    assert last["pinned_bytes"] > 0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
